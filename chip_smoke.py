@@ -4,25 +4,37 @@ Run from the repository root on a machine with one NVIDIA GPU:
 
     python3 chip_smoke.py
 
-It builds every kernel of the serving path from the sources in the
-checkout, holds each kernel against its plain PyTorch version at the
-shapes that path gives it, drives the port's serving stack (full-width
-ResNet-18, random weights and BN statistics from a seed, restored from a
-checkpoint in the JAX trainer's format) through its user-facing entry
-points, checks the answers, profiles a second serving run for the
-device's busy share, times each bucket on the host clock and the device,
-times every kernel beside its bound, its plain version and a library
-call, and prints one JSON line of kernel
-records and, last, one JSON line with the device. Any failure exits
-non-zero before the last line. Without a GPU, or without the package
-beside it, it exits non-zero and prints no result.
+It builds every kernel of the port from the sources in the checkout (one
+nvcc per source, all at once) and holds each kernel against its plain
+PyTorch version at the shapes its path gives it. Then it drives the
+port's two paths through their user-facing entry points:
+
+- serving: full-width ResNet-18, random weights and BN statistics from a
+  seed, restored from a checkpoint in the JAX trainer's format, with the
+  answers checked, a profiled second run and a per-bucket breakdown;
+- training: the LeNet-ref trainer's CLI on the synthetic 60,000/10,000
+  MNIST stand-in, through the fused train-step kernel (--ops cuda), the
+  fused SGD kernel (--fused-step) and the per-sample plain path, with a
+  resumed run held bit for bit against a straight one and a profiled
+  epoch of each kernel path.
+
+Each path's launch counts are set to 0 just before it and read just
+after. It times every kernel beside its bound, its plain version and a
+library call where one exists, and prints one JSON line of kernel records
+and, last, one JSON line with the device. Any failure exits non-zero
+before the last line. Without a GPU, or without the package beside it, it
+exits non-zero and prints no result.
 """
 
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import faulthandler
+import io
+import itertools
 import json
+import shutil
 import sys
 import time
 
@@ -31,18 +43,31 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
+from parallel_cnn_tpu_torch import cli
 from parallel_cnn_tpu_torch.cli import padded_bucket_parity
-from parallel_cnn_tpu_torch.config import ServeConfig
+from parallel_cnn_tpu_torch.config import Config, ServeConfig, TrainConfig
+from parallel_cnn_tpu_torch.data import pipeline, synthetic
+from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn.layers import BatchNorm, ConvBNAct
 from parallel_cnn_tpu_torch.nn.resnet import BasicBlock
-from parallel_cnn_tpu_torch.ops import tap_conv
+from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tap_conv
+from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
+from parallel_cnn_tpu_torch.train import step as step_lib
+from parallel_cnn_tpu_torch.train import trainer
 from parallel_cnn_tpu_torch.utils.backend import card_name_and_power_limit
+from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 BATCH = 64
 # Published H100 SXM peaks (dense): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# Above the H100's top SM clock (1.98 GHz): a spin of c cycles lasts at
+# least c / SPIN_HZ seconds.
+SPIN_HZ = 2.0e9
+# Copies of a 2^20-element (p, g) pair, 8 MB each, that overflow the
+# H100's 50 MB L2 when a timing cycles through them.
+L2_COPIES = 8
 # One conv layer, f32, against the plain version (F.conv2d without cuDNN,
 # TF32 off): the two sum K <= 4608 products in different orders, so the
 # difference is bounded relative to the output's scale.
@@ -51,8 +76,26 @@ CONV_RTOL = 1e-4
 LOGIT_RTOL = 1e-3
 SERVE_REQUESTS = 256
 SERVE_CONCURRENCY = 16
-KERNEL_MODULES = (tap_conv,)
+KERNEL_MODULES = (tap_conv, lenet_fused, sgd_update)
 TIME_LIMIT_S = 1100
+
+# The LeNet-ref trainer. B1 (lenet_fused) vs its plain version: f32 on both
+# sides, up to 576 products per grad value summed in different orders.
+LENET_RTOL = 1e-5
+LENET_SIZES = (1, 7, 64, 128, 1000)
+# B2 (sgd_update) rounds after each op as its plain version does.
+SGD_SIZES = (1, 127, 128, 2343, 5 * 128 + 37, 2**20)
+TRAIN_BATCH = 64
+TRAIN_COUNT = 60_000
+STEPS_PER_EPOCH = TRAIN_COUNT // TRAIN_BATCH  # 937, drop-tail
+PER_SAMPLE_COUNT = 6_000
+# (e): 50 steps of the kernel step vs the plain step on the card.
+STEP_CHECK_STEPS = 50
+STEP_CHECK_ATOL = 1e-4
+# Multiply-adds per image of the LeNet-ref step (csrc/lenet_fused.cu):
+# forward conv 86,400, pool 3,456, FC 2,160; backward FC wgrad 2,160, FC dX
+# 2,160, pool wgrad 3,456, pool scatter 3,456, conv wgrad 86,400.
+LENET_MACS_PER_IMAGE = 189_648
 
 # (name, H, Cin, Cout, k, stride, residual, relu, count in one forward):
 # every distinct conv of ResNet-18 on 32x32 input, with its epilogue.
@@ -81,19 +124,37 @@ def fail(msg: str) -> None:
     raise SystemExit(1)
 
 
-def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn over reps launches (CUDA events)."""
+def time_call(fn, reps: int = 20, warmup: int = 3):
+    """(device ms, call ms) of fn, each the mean over reps calls.
+
+    Call ms is the host clock over reps calls and a synchronize: what a
+    caller that issues the calls one after another pays. Device ms is
+    taken between CUDA events around reps calls queued behind a spin
+    kernel that outlasts their issue, so the events time the device's
+    work and not the host's pace of issuing it (a small kernel's wrapper
+    takes longer to issue than the kernel takes to run)."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    issue_s = time.perf_counter() - t0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2 * issue_s * SPIN_HZ) + 100_000)
     start.record()
     for _ in range(reps):
         fn()
     end.record()
     end.synchronize()
-    return start.elapsed_time(end) / reps
+    return start.elapsed_time(end) / reps, issue_s * 1e3 / reps
+
+
+def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn over reps launches (see time_call)."""
+    return time_call(fn, reps, warmup)[0]
 
 
 class plain_reference:
@@ -268,6 +329,288 @@ def bucket_breakdown(engine, in_shape) -> None:
               flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The LeNet-ref trainer: kernels B1 (lenet_fused) and B2 (sgd_update)
+# ---------------------------------------------------------------------------
+
+
+def lenet_inputs(n, seed, label_dtype=torch.int32):
+    """Random LeNet-ref params from the seed and a batch of n images in
+    [0, 1) with labels, on the card."""
+    rng = np.random.default_rng(seed)
+    params = tree_map(lambda t: t.cuda(),
+                      lenet_ref.init(torch.Generator().manual_seed(seed)))
+    xs = torch.from_numpy(rng.uniform(0, 1, (n, 28, 28)).astype(np.float32)).cuda()
+    ys = torch.from_numpy(rng.integers(0, 10, (n,))).to("cuda", label_dtype)
+    return params, xs, ys
+
+
+def lenet_bound_ms(n):
+    """Least time for one B1 call on n images: its operations at the f32
+    peak against its bytes (images, int32 labels, params and the grads
+    plus err written, each once) at the HBM rate."""
+    t_ops = 2.0 * LENET_MACS_PER_IMAGE * n / PEAK_F32_FLOPS * 1e3
+    t_bytes = 4.0 * (n * 784 + n + 2 * lenet_fused.ROW - 1) / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def sgd_bound_ms(n):
+    """B2 on n values: read p and g, write p' (12 bytes), 3 operations."""
+    t_ops = 3.0 * n / PEAK_F32_FLOPS * 1e3
+    t_bytes = 12.0 * n / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_lenet_fused() -> float:
+    """B1 vs its plain version at every batch size, and two launches on the
+    same batch bit-identical. Returns the largest difference."""
+    max_err = 0.0
+    for n in LENET_SIZES:
+        params, xs, ys = lenet_inputs(n, n, label_dtype=torch.int64)
+        err, grads = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+        err2, grads2 = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+        with plain_reference():
+            ref_err, ref = lenet_fused.fused_value_and_ref_grads_plain(params, xs, ys)
+        torch.cuda.synchronize()
+        worst = 0.0
+        ok = True
+        for got, want in [(err, ref_err)] + list(zip(tree_leaves(grads),
+                                                    tree_leaves(ref))):
+            d = float((got - want).abs().max())
+            tol = LENET_RTOL * max(1.0, float(want.abs().max()))
+            ok = ok and got.shape == want.shape and bool(torch.isfinite(got).all())
+            ok = ok and d <= tol
+            worst = max(worst, d)
+        same = torch.equal(err, err2) and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(grads2)))
+        print(f"[smoke] lenet_fused n={n:<4d}: max |Δ| vs plain {worst:.3e} "
+              f"(tol {LENET_RTOL:.0e}·max(1,|ref|)), relaunch "
+              f"{'bit-identical' if same else 'DIFFERS'} "
+              f"{'ok' if ok and same else 'FAIL'}", flush=True)
+        if not (ok and same):
+            fail(f"lenet_fused n={n}: kernel disagrees with its plain version "
+                 "or is not deterministic")
+        max_err = max(max_err, worst)
+    return max_err
+
+
+def check_sgd_update() -> float:
+    """B2 vs its plain version at every size: bit-identical."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for n in SGD_SIZES:
+        p = torch.randn(n, generator=gen, device="cuda")
+        g = torch.randn(n, generator=gen, device="cuda")
+        got = sgd_update.fused_sgd(p, g, lr=-0.1, scale=1.0 / TRAIN_BATCH)
+        want = sgd_update.fused_sgd_plain(p, g, -0.1, 1.0 / TRAIN_BATCH)
+        torch.cuda.synchronize()
+        same = torch.equal(got, want)
+        print(f"[smoke] sgd_update n={n:<8d}: "
+              f"{'bit-identical to plain ok' if same else 'DIFFERS from plain FAIL'}",
+              flush=True)
+        if not same:
+            fail(f"sgd_update n={n}: max |Δ| {float((got - want).abs().max()):.3e}")
+    return 0.0
+
+
+def run_cli(argv):
+    """cli.main(argv) with its standard output captured and echoed;
+    returns the output. A non-zero return fails the smoke."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    out = buf.getvalue()
+    for line in out.splitlines():
+        if line.strip():
+            print(f"[smoke]   | {line}", flush=True)
+    if rc != 0:
+        fail(f"cli.main({argv}) returned {rc}")
+    return out
+
+
+def epoch_errors(out):
+    return [float(line.split()[1].rstrip(",")) for line in out.splitlines()
+            if line.startswith("error: ")]
+
+
+def final_record(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f if line.strip()][-1]
+
+
+def checkpoint_leaves(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files if k != "__meta__"}
+
+
+def train_phase(card) -> dict:
+    """The LeNet-ref trainer on the card through its CLI: (a) the fused
+    train-step kernel, (b) the fused SGD kernel, (c) the per-sample plain
+    path, (d) a resumed run against a straight one, (e) the kernel step
+    against the plain step. Returns each kernel's launches on its path."""
+    work = BUILD_DIR / "smoke_train"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--batch-size", str(TRAIN_BATCH), "--shuffle"]
+
+    # (a) --ops cuda: every step is one launch of lenet_fused.
+    print(f"[smoke] train (a): --ops cuda --epochs 2 on the synthetic "
+          f"{TRAIN_COUNT}/10000 sets", flush=True)
+    lenet_fused.launches.reset()
+    sgd_update.launches.reset()
+    out = run_cli(base + ["--ops", "cuda", "--epochs", "2", "--checkpoint-dir",
+                          str(work / "straight"), "--metrics", str(work / "a.jsonl")])
+    launches = {"lenet_fused": lenet_fused.launches.count,
+                "sgd_update_on_a": sgd_update.launches.count}
+    errs = epoch_errors(out)
+    rec = final_record(work / "a.jsonl")
+    print(f"[smoke] train (a): lenet_fused launches {launches['lenet_fused']} "
+          f"for {2 * STEPS_PER_EPOCH} steps; epoch errors {errs}; "
+          f"{rec['images_per_sec']:.0f} img/s, {rec['seconds'] / 2:.3f} s/epoch, "
+          f"error rate {rec['error_rate']:.2f}% on {card}", flush=True)
+    if launches["lenet_fused"] != 2 * STEPS_PER_EPOCH or launches["sgd_update_on_a"]:
+        fail("--ops cuda did not run every step through lenet_fused")
+    if len(errs) != 2 or not errs[1] < errs[0] or "Error Rate: " not in out:
+        fail("--ops cuda: the epoch error did not fall or no Error Rate line")
+
+    # (b) --fused-step: every update is one sgd_update launch per bucket.
+    print("[smoke] train (b): --fused-step --epochs 1", flush=True)
+    sgd_update.launches.reset()
+    lenet_fused.launches.reset()
+    out = run_cli(base + ["--fused-step", "--epochs", "1", "--metrics",
+                          str(work / "b.jsonl")])
+    launches["sgd_update"] = sgd_update.launches.count
+    rec = final_record(work / "b.jsonl")
+    print(f"[smoke] train (b): sgd_update launches {launches['sgd_update']} for "
+          f"{STEPS_PER_EPOCH} steps x 1 bucket; {rec['images_per_sec']:.0f} img/s, "
+          f"error rate {rec['error_rate']:.2f}% on {card}", flush=True)
+    if launches["sgd_update"] != STEPS_PER_EPOCH or lenet_fused.launches.count:
+        fail("--fused-step did not run every update through sgd_update")
+
+    # (c) --batch-size 1: the reference's per-sample SGD in plain ops.
+    print(f"[smoke] train (c): --batch-size 1 on {PER_SAMPLE_COUNT} samples",
+          flush=True)
+    out = run_cli(["--batch-size", "1", "--epochs", "1", "--synthetic-train-count",
+                   str(PER_SAMPLE_COUNT), "--metrics", str(work / "c.jsonl")])
+    rec = final_record(work / "c.jsonl")
+    print(f"[smoke] train (c): per-sample {rec['seconds']:.3f} s/epoch, "
+          f"{rec['images_per_sec']:.0f} img/s, error rate "
+          f"{rec['error_rate']:.2f}% on {card}", flush=True)
+    if len(epoch_errors(out)) != 1 or "Error Rate: " not in out:
+        fail("--batch-size 1 did not train an epoch")
+
+    # (d) 1 epoch, then --resume to 2: the straight run's params, bit for bit.
+    print("[smoke] train (d): 1 epoch + --resume 1 epoch vs (a)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--ops", "cuda", "--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--ops", "cuda", "--epochs", "2", "--checkpoint-dir",
+                          str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] train (d): resumed params "
+          f"{'bit-identical to the straight run' if same else 'DIFFER'}", flush=True)
+    if "resumed from" not in out or not same:
+        fail("a resumed run is not bit-identical to the straight run")
+
+    # (e) 50 steps: the kernel step against the plain step from the same
+    # params and batches, both on the card.
+    imgs, labels = synthetic.make_dataset(STEP_CHECK_STEPS * TRAIN_BATCH, seed=7)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).cuda()
+    p_kernel = p_plain = trainer.init_params(0, torch.device("cuda"))
+    for i in range(STEP_CHECK_STEPS):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        p_kernel, _ = step_lib.cuda_batched_step(p_kernel, xs[sl], ys[sl], 0.1)
+        with plain_reference():
+            p_plain, _ = step_lib.batched_step(p_plain, xs[sl], ys[sl], 0.1)
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(tree_leaves(p_kernel), tree_leaves(p_plain)))
+    print(f"[smoke] train (e): {STEP_CHECK_STEPS} steps cuda_batched_step vs the "
+          f"plain step: max |Δparams| {diff:.3e} (tol {STEP_CHECK_ATOL:.0e}) "
+          f"{'ok' if diff <= STEP_CHECK_ATOL else 'FAIL'}", flush=True)
+    if not diff <= STEP_CHECK_ATOL:
+        fail("the kernel step drifted from the plain step")
+    return launches
+
+
+def profiled_epoch(ds, label: str, cfg: Config) -> None:
+    """Where an epoch's time goes: one epoch of trainer.learn under
+    torch.profiler (CUDA activity only) — device time by kernel, launches
+    per step and the device's busy share of the epoch's wall time."""
+    trainer.learn(cfg, ds, verbose=False)  # warm: allocator, library, caches
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = trainer.learn(cfg, ds, verbose=False)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_kernels = sum(e.count for e in kernels)
+    if dev_ms == 0:
+        print("[smoke] profiled epoch: device time not measured (the profiler "
+              "saw no device events)", flush=True)
+        return
+    print(f"[smoke] profiled epoch ({label}, b{TRAIN_BATCH}, {res.steps} steps): "
+          f"wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
+          f"({dev_ms / wall_ms:.1%}), idle {1 - dev_ms / wall_ms:.1%}; "
+          f"{n_kernels / res.steps:.1f} device ops per step, "
+          f"{wall_ms / res.steps * 1e3:.1f} us per step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def time_lenet_kernels() -> dict:
+    """B1 at batch 64, 128 and 1000 and B2 at 2343 and 2^20: kernel, plain
+    and (B2) library times beside the bound. Returns the main path's
+    shapes' numbers (B1 at batch 64, B2 at LeNet's 2343)."""
+    out = {}
+    for n in (TRAIN_BATCH, 128, 1000):
+        params, xs, ys = lenet_inputs(n, 100 + n)
+        ms, call = time_call(lambda: lenet_fused.fused_value_and_ref_grads(
+            params, xs, ys))
+        with plain_reference():
+            plain, plain_call = time_call(
+                lambda: lenet_fused.fused_value_and_ref_grads_plain(params, xs, ys))
+        bound, by = lenet_bound_ms(n)
+        print(f"[smoke] time lenet_fused b{n}: kernel {ms:.4f} ms (device; "
+              f"{call:.4f} ms per call), plain {plain:.4f} ms (device; "
+              f"{plain_call:.4f} ms per call), library none, bound "
+              f"{bound:.6f} ms ({by}), {bound / ms:.2%} of bound; "
+              f"{TRAIN_COUNT // n} launches per epoch", flush=True)
+        if n == TRAIN_BATCH:
+            out["lenet_fused"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                      bound_by=by, library_ms=None)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    lr, scale = -0.1, 1.0 / TRAIN_BATCH
+    for n in (lenet_fused.N_GRADS, 2**20):
+        # LeNet's 28 KB bucket stays in L2 from step to step, as in the
+        # trainer. At 2^20 the calls cycle through copies that overflow the
+        # 50 MB L2, so each one reads and writes device memory.
+        copies = 1 if n == lenet_fused.N_GRADS else L2_COPIES
+        pairs = [(torch.randn(n, generator=gen, device="cuda"),
+                  torch.randn(n, generator=gen, device="cuda"))
+                 for _ in range(copies)]
+        turn = itertools.cycle(pairs)
+        ms, call = time_call(
+            lambda: sgd_update.fused_sgd(*next(turn), lr=lr, scale=scale), reps=50)
+        plain, plain_call = time_call(
+            lambda: sgd_update.fused_sgd_plain(*next(turn), lr, scale), reps=50)
+        lib, lib_call = time_call(
+            lambda: torch.add(*next(turn), alpha=-lr * scale), reps=50)
+        bound, by = sgd_bound_ms(n)
+        print(f"[smoke] time sgd_update n={n}: kernel {ms:.4f} ms (device; "
+              f"{call:.4f} ms per call), plain {plain:.4f} ms ({plain_call:.4f}), "
+              f"library (torch.add) {lib:.4f} ms ({lib_call:.4f}), bound "
+              f"{bound:.6f} ms ({by}), {bound / ms:.2%} of bound", flush=True)
+        if n == lenet_fused.N_GRADS:
+            out["sgd_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
+                                     bound_by=by, library_ms=lib)
+    return out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -330,10 +673,14 @@ def main() -> int:
         fail("conv2d disagrees with its plain version")
     max_err = max(max_err, err)
 
-    # -- 4. the main path: serve full-width ResNet-18 --------------------
+    # -- 3b. the LeNet-ref trainer's kernels vs their plain versions -----
+    lenet_err = check_lenet_fused()
+    sgd_err = check_sgd_update()
+
+    # -- 4. the serving path: serve full-width ResNet-18 -----------------
     handle = get("resnet18", conv_backend="cuda")
     host = random_bn(handle.init(seed=0), seed=0)
-    ckpt = tap_conv.BUILD_DIR / "smoke_resnet18.npz"
+    ckpt = BUILD_DIR / "smoke_resnet18.npz"
     write_jax_checkpoint(host, ckpt)
     cfg = ServeConfig(model="resnet18", checkpoint=str(ckpt), max_batch=64,
                       precompile=True)
@@ -394,7 +741,16 @@ def main() -> int:
     if not err <= tol:
         fail("served logits disagree with the plain-version model")
 
-    # -- 5. time every geometry: kernel, plain, library, bound -----------
+    # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
+    train_launches = train_phase(card)
+    ds = pipeline.Dataset(*synthetic.make_dataset(TRAIN_COUNT, seed=1234))
+    for label, ops, fused in (("--ops cuda", "cuda", False),
+                              ("--fused-step", "reference", True)):
+        profiled_epoch(ds, label, Config(
+            train=TrainConfig(batch_size=TRAIN_BATCH, ops=ops, shuffle=True),
+            fused=fused))
+
+    # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
     for name, count, x, w, scale, shift, res, s, relu, oshape in cases:
@@ -421,8 +777,9 @@ def main() -> int:
           f"{totals['plain_ms']:.3f} ms, library {totals['library_ms']:.3f} "
           f"ms, bound {totals['bound_ms']:.3f} ms (the record's times are "
           f"these sums)", flush=True)
+    lenet_times = time_lenet_kernels()
 
-    record = {
+    records = [{
         "name": "tap_conv",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
@@ -435,12 +792,29 @@ def main() -> int:
         "bound_by": ("operations" if totals["ops_ms"] >= totals["bound_ms"] / 2
                      else "bytes"),
         "library_ms": totals["library_ms"],
-    }
+    }, {
+        "name": "lenet_fused",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/lenet_fused.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas.py:589",
+        "launches": train_launches["lenet_fused"],
+        "max_abs_err": lenet_err,
+        **lenet_times["lenet_fused"],
+    }, {
+        "name": "sgd_update",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas_update.py:54",
+        "launches": train_launches["sgd_update"],
+        "max_abs_err": sgd_err,
+        **lenet_times["sgd_update"],
+    }]
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
-    print(json.dumps({"kernels": [record]}))
+    print(json.dumps({"kernels": records}))
+    # One card: the smoke runs on device 0 alone.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
+        "platform": "gpu", "kind": kind, "count": 1}}))
     faulthandler.cancel_dump_traceback_later()
     return 0
 

@@ -1,12 +1,15 @@
-"""Command line of the port: the ``serve`` and ``loadgen`` subcommands
-(the counterpart of the serve branch of ``parallel_cnn_tpu/cli.py``).
+"""Command line of the port (the counterpart of ``parallel_cnn_tpu/cli.py``).
 
+    python -m parallel_cnn_tpu_torch [trainer flags]      # the LeNet-ref trainer
     python -m parallel_cnn_tpu_torch serve --model resnet18
     python -m parallel_cnn_tpu_torch loadgen --requests 512 --pattern open
 
-Both run on the GPU unless ``--device cpu`` is given. Admission control,
-the autoscaler, scenarios, chaos, the network front door, the disk cache
-and observability flags come with later slices of the port.
+With no subcommand the CLI is the trainer, as in JAX: load data → learn →
+test, printing the reference's lines. Everything runs on the GPU unless
+``--device cpu`` is given. The trainer flags of later slices (mesh, comm,
+chaos, async, elastic, trace, profile, zoo models) are not accepted yet;
+neither are the serving stack's admission control, autoscaler, scenarios,
+network front door and disk cache.
 """
 
 from __future__ import annotations
@@ -14,11 +17,202 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import logging
+import os
 import sys
 import time
 from typing import List, Optional
 
-from parallel_cnn_tpu_torch.config import SERVE_MODELS, ServeConfig
+from parallel_cnn_tpu_torch.config import (
+    SERVE_MODELS,
+    Config,
+    DataConfig,
+    ResilienceConfig,
+    ServeConfig,
+    TrainConfig,
+)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    """The trainer's flags: the lenet_ref flags of the JAX CLI this slice
+    ports, with ``--ops cuda`` for JAX's ``--ops pallas``, plus
+    ``--device``."""
+    p = argparse.ArgumentParser(
+        prog="parallel_cnn_tpu_torch",
+        description="the LeNet-ref trainer on the GPU (PyTorch + hand-written "
+                    "CUDA kernels); subcommands: serve, loadgen",
+    )
+    d, t, r = DataConfig(), TrainConfig(), ResilienceConfig()
+    p.add_argument("--model", default="lenet_ref", choices=["lenet_ref"],
+                   help="the reference-parity trainer (zoo models come "
+                        "with a later slice of the port)")
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="cuda (default) or cpu, which runs the kernels' "
+                        "plain PyTorch versions")
+    p.add_argument("--loader", default=d.loader,
+                   choices=["auto", "native", "numpy", "synthetic"])
+    p.add_argument("--data-dir", default=None,
+                   help="directory holding the four idx files "
+                        "(defaults to the DataConfig paths)")
+    p.add_argument("--epochs", type=int, default=t.epochs)
+    p.add_argument("--batch-size", type=int, default=t.batch_size,
+                   help="1 = the reference's per-sample SGD; >1 minibatch")
+    p.add_argument("--dt", type=float, default=t.dt,
+                   help="SGD step (dt at Sequential/layer.h:12)")
+    p.add_argument("--threshold", type=float, default=t.threshold,
+                   help="early-stop err threshold (layer.h:13)")
+    p.add_argument("--seed", type=int, default=t.seed)
+    p.add_argument("--shuffle", action="store_true")
+    p.add_argument("--prefetch", default=t.prefetch,
+                   choices=["auto", "native", "off"])
+    p.add_argument("--ops", default=t.ops, choices=["reference", "cuda"],
+                   help="plain PyTorch ops, or the hand-written fused "
+                        "train-step kernel (csrc/lenet_fused.cu; "
+                        "batch_size>1 only)")
+    p.add_argument("--synthetic-train-count", type=int,
+                   default=d.synthetic_train_count)
+    p.add_argument("--synthetic-test-count", type=int,
+                   default=d.synthetic_test_count)
+    p.add_argument("--fused-step", action="store_true",
+                   help="update through the fused bucketed SGD kernel "
+                        "(csrc/sgd_update.cu) on the reference grads")
+    p.add_argument("--checkpoint-dir", default=None,
+                   help="save ckpt_<epoch>.npz per epoch; --resume restarts "
+                        "from the latest")
+    p.add_argument("--resume", action="store_true")
+    p.add_argument("--sentinel", default=r.policy,
+                   choices=["off", "raise", "skip", "rollback"],
+                   help="health-sentinel policy on a non-finite loss/param")
+    p.add_argument("--max-rollbacks", type=int, default=r.max_rollbacks,
+                   help="bounded retry budget for --sentinel rollback")
+    p.add_argument("--lr-backoff", type=float, default=r.lr_backoff,
+                   help="LR multiplier applied per rollback")
+    p.add_argument("--keep-checkpoints", type=int, default=r.ring_size,
+                   metavar="N",
+                   help="prune --checkpoint-dir to the newest N "
+                        "checkpoints (0 = keep all)")
+    p.add_argument("--metrics", default=None, metavar="PATH",
+                   help="append JSONL metrics records to PATH")
+    return p
+
+
+def config_from_args(args: argparse.Namespace) -> Config:
+    paths = {}
+    if args.data_dir:
+        paths = dict(
+            train_images=os.path.join(args.data_dir, "train-images.idx3-ubyte"),
+            train_labels=os.path.join(args.data_dir, "train-labels.idx1-ubyte"),
+            test_images=os.path.join(args.data_dir, "t10k-images.idx3-ubyte"),
+            test_labels=os.path.join(args.data_dir, "t10k-labels.idx1-ubyte"),
+        )
+    return Config(
+        data=DataConfig(
+            loader=args.loader,
+            synthetic_train_count=args.synthetic_train_count,
+            synthetic_test_count=args.synthetic_test_count,
+            **paths,
+        ),
+        train=TrainConfig(
+            dt=args.dt,
+            threshold=args.threshold,
+            epochs=args.epochs,
+            batch_size=args.batch_size,
+            seed=args.seed,
+            shuffle=args.shuffle,
+            prefetch=args.prefetch,
+            ops=args.ops,
+        ),
+        resilience=ResilienceConfig(
+            policy=args.sentinel,
+            max_rollbacks=args.max_rollbacks,
+            lr_backoff=args.lr_backoff,
+            ring_size=args.keep_checkpoints,
+        ),
+        fused=args.fused_step,
+    )
+
+
+def _run_train(argv: List[str]) -> int:
+    """≙ the JAX CLI's lenet_ref branch: load → learn (checkpoint per epoch,
+    resume, preemption) → test."""
+    args = build_parser().parse_args(argv)
+    cfg = config_from_args(args)
+
+    from parallel_cnn_tpu_torch.data import pipeline
+    from parallel_cnn_tpu_torch.resilience import preempt
+    from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
+    from parallel_cnn_tpu_torch.train import checkpoint, trainer
+    from parallel_cnn_tpu_torch.utils.backend import resolve_device
+    from parallel_cnn_tpu_torch.utils.metrics import MetricsLogger, throughput
+
+    device = resolve_device(args.device)
+    # Surface the data pipeline's INFO-level evidence (the real-MNIST
+    # integrity report) in the CLI's output.
+    logging.getLogger("parallel_cnn_tpu_torch").setLevel(logging.INFO)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(levelname)s %(name)s: %(message)s")
+
+    train_ds, test_ds = pipeline.load_train_test(cfg.data)
+    ring = None
+    if args.checkpoint_dir:
+        ring = CheckpointRing(args.checkpoint_dir, keep=cfg.resilience.ring_size)
+
+    params = None
+    start_epoch = 0
+    error_history: List[float] = []
+    if args.checkpoint_dir and args.resume:
+        path = checkpoint.latest(args.checkpoint_dir)
+        if path:
+            like = trainer.init_params(cfg.train.seed, device)
+            params, state = checkpoint.restore(path, like)
+            start_epoch = state.epoch
+            error_history = list(state.epoch_errors)
+            print(f"resumed from {path} (epoch {start_epoch})")
+
+    metrics = MetricsLogger(path=args.metrics) if args.metrics else None
+    remaining = max(cfg.train.epochs - start_epoch, 0)
+    run_cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=remaining))
+
+    def on_epoch(epoch: int, epoch_params, err: float) -> None:
+        """Mid-training persistence: a killed run resumes from its last
+        finished epoch."""
+        error_history.append(err)
+        if metrics:
+            metrics.record(event="epoch", epoch=epoch, error=err)
+        if ring is not None:
+            ring.save(epoch, epoch_params,
+                      checkpoint.TrainState(epoch=epoch,
+                                            epoch_errors=list(error_history)))
+
+    # SIGTERM/SIGINT stop training at the next epoch boundary with the
+    # checkpoint already flushed.
+    with preempt.PreemptionGuard() as guard:
+        result = trainer.learn(
+            run_cfg, train_ds, params=params, epoch_offset=start_epoch,
+            epoch_callback=on_epoch, ring=ring, device=device,
+        )
+
+    if result.preempted or guard.preempted:
+        if metrics:
+            metrics.record(event="preempted",
+                           epoch=start_epoch + len(result.epoch_errors))
+            metrics.close()
+        print("preempted: checkpoint flushed; continue with --resume")
+        return 0
+
+    rate = trainer.test(result.params, test_ds)
+    if metrics:
+        n_images = len(train_ds) * max(len(result.epoch_errors), 1)
+        metrics.record(
+            event="final",
+            error_rate=rate,
+            seconds=result.seconds,
+            images_per_sec=throughput(n_images, result.seconds),
+            steps=result.steps,
+        )
+        metrics.close()
+    return 0
 
 
 def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
@@ -182,7 +376,4 @@ def main(argv: Optional[List[str]] = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
     if raw and raw[0] in ("serve", "loadgen"):
         return _run_serve(raw[0], raw[1:])
-    print("usage: python -m parallel_cnn_tpu_torch {serve,loadgen} [flags]\n"
-          "  (training, check and bench subcommands come with later "
-          "slices of the port)", file=sys.stderr)
-    return 2
+    return _run_train(raw)

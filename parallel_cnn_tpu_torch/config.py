@@ -1,11 +1,18 @@
-"""Serving configuration of the port.
+"""Configuration of the port: the trainer's and the server's.
 
-The port's own copy of the fields of ``parallel_cnn_tpu/config.py``'s
-``ServeConfig`` that the serving slice uses, read from the same
+The port's own copies of the parts of ``parallel_cnn_tpu/config.py`` its
+slices use. For training: ``DataConfig``, ``TrainConfig`` and
+``ResilienceConfig``, gathered in ``Config`` with the ``fused`` switch
+(JAX's ``Config.fused is not None``: the ``--fused-step`` bucketed update).
+For serving: the fields of ``ServeConfig`` read from the same
 ``PCNN_SERVE_*`` environment names. Admission control, the autoscaler and
-the network front door are not ported yet, so their fields are absent; so is
-``conv_backend``, which has one value in the port (``serve.registry.get``
-takes it).
+the network front door are not ported yet, so their fields are absent; so
+is ``conv_backend``, which has one value in the port
+(``serve.registry.get`` takes it).
+
+Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
+kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
+the serving slice's ``conv_backend="cuda"`` stands for JAX's ``"pallas"``.
 """
 
 from __future__ import annotations
@@ -13,6 +20,123 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Where training data comes from (≙ Sequential/Main.cpp:36-42)."""
+
+    train_images: str = "data/train-images.idx3-ubyte"
+    train_labels: str = "data/train-labels.idx1-ubyte"
+    test_images: str = "data/t10k-images.idx3-ubyte"
+    test_labels: str = "data/t10k-labels.idx1-ubyte"
+    # Missing idx files → a deterministic synthetic MNIST stand-in
+    # (data/synthetic.py), bit-identical to the JAX package's.
+    synthetic_fallback: bool = True
+    synthetic_train_count: int = 60_000
+    synthetic_test_count: int = 10_000
+    synthetic_seed: int = 1234
+    # "auto" | "numpy" | "synthetic" | "native". The native C++ parser is
+    # not bound yet (ROADMAP A2): "native" is a typed MnistError, and
+    # "auto" parses with NumPy.
+    loader: str = "auto"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Optimization contract of the reference trainer.
+
+    The JAX config's ``dtype`` field is absent: the port trains in f32 end
+    to end (its fused kernel is f32, as JAX's is), and a bf16 throughput
+    mode comes with a later slice.
+    """
+
+    # SGD step, applied as `w += dt * g` (Sequential/layer.h:12).
+    dt: float = 0.1
+    # Stop when the epoch's mean ‖y−ŷ‖₂ falls below it (layer.h:13).
+    threshold: float = 0.01
+    epochs: int = 1
+    # 1 = the reference's per-sample SGD trajectory; >1 = minibatch SGD.
+    batch_size: int = 1
+    seed: int = 0
+    # Epoch shuffling (the reference replays file order: default off).
+    shuffle: bool = False
+    # Batch order for batch_size > 1:
+    #   "auto"   — drop-tail batches in the native ring's order (xorshift
+    #              Fisher–Yates), which the JAX package reproduces without
+    #              its C++ extension; the port always takes that NumPy twin;
+    #   "native" — the C++ ring itself: not bound yet (ROADMAP A2), a
+    #              typed error;
+    #   "off"    — plain NumPy slicing (keep-tail, NumPy PCG shuffle).
+    prefetch: str = "auto"
+    # Which kernels compute the minibatch step:
+    #   "reference" — plain PyTorch ops (≙ JAX's XLA path A);
+    #   "cuda"      — the hand-written fused train-step kernel
+    #                 (csrc/lenet_fused.cu ≙ JAX's ops="pallas").
+    #                 Batched mode only.
+    ops: str = "reference"
+
+    def __post_init__(self):
+        if self.ops not in ("reference", "cuda"):
+            raise ValueError(f"unknown ops path {self.ops!r}")
+        if self.ops == "cuda" and self.batch_size == 1:
+            raise ValueError(
+                "ops='cuda' is the batched kernel path (its grid tiles the "
+                "batch); use batch_size>1, or ops='reference' for strict "
+                "per-sample parity"
+            )
+        if self.prefetch not in ("auto", "native", "off"):
+            raise ValueError(f"unknown prefetch mode {self.prefetch!r}")
+
+
+@dataclasses.dataclass(frozen=True)
+class ResilienceConfig:
+    """Fault-tolerance policy of the trainer (resilience/).
+
+    JAX's ``pallas_fallback`` field is absent on purpose. There it lets a
+    failing kernel path degrade to the XLA step; in the port a CUDA tensor
+    goes through the hand-written kernel or the run raises, so a kernel
+    fault is never hidden behind the plain version. The zoo's per-step
+    ``check_every_steps`` comes with the zoo trainer.
+    """
+
+    # What the health sentinel does on a non-finite loss or param:
+    # "off", "raise" (DivergenceError), "skip" (drop the epoch's update)
+    # or "rollback" (restore last-good, LR × lr_backoff, ≤ max_rollbacks).
+    policy: str = "raise"
+    max_rollbacks: int = 3
+    lr_backoff: float = 0.5
+    # Keep the newest N checkpoints in --checkpoint-dir (0 = all).
+    ring_size: int = 0
+
+    def __post_init__(self):
+        if self.policy not in ("off", "raise", "skip", "rollback"):
+            raise ValueError(f"unknown sentinel policy {self.policy!r}")
+        if self.max_rollbacks < 0:
+            raise ValueError("max_rollbacks must be >= 0")
+        if not 0.0 < self.lr_backoff <= 1.0:
+            raise ValueError(
+                f"lr_backoff must be in (0, 1], got {self.lr_backoff}"
+            )
+        if self.ring_size < 0:
+            raise ValueError("ring_size must be >= 0")
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The trainer's whole configuration. ``fused`` selects the bucketed
+    update (ops/sgd_update.py) on the reference grads, as a non-None
+    ``FusedStepConfig`` does in JAX; with ``ops="cuda"`` the fused kernel's
+    step keeps its own update, as JAX's Pallas step does."""
+
+    data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
+    resilience: ResilienceConfig = ResilienceConfig()
+    fused: bool = False
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
 
 #: Registry names the port serves (serve/registry.py).
 SERVE_MODELS = ("resnet18", "resnet34")

@@ -9,25 +9,27 @@ The port's module tree is named the same way, so a tree path
 both trees the arrays keep their JAX layouts (HWIO conv weights, Dense
 ``w`` as (d, features)).
 
-``load_jax_checkpoint`` reads the JAX package's checkpoint format with
-numpy alone (the port's copy of the reader in
-``parallel_cnn_tpu/train/checkpoint.py``): an ``.npz`` whose keys are the
-'/'-joined tree paths of a ``ZooState(params, model_state, opt_state)``
-plus a ``__meta__`` JSON blob carrying ``version`` 1. Optimizer leaves are
-ignored, as ``checkpoint.load_params`` ignores them.
+``load_jax_checkpoint`` reads the JAX package's checkpoint format through
+the reader the port's trainer uses (``train/checkpoint.py``): an ``.npz``
+whose keys are the '/'-joined tree paths of a ``ZooState(params,
+model_state, opt_state)`` plus a ``__meta__`` JSON blob carrying
+``version`` 1. Optimizer leaves are ignored, as ``checkpoint.load_params``
+ignores them.
+
+``lenet_from_jax`` carries the LeNet-ref params tree across: the port keeps
+it as it is, ``{"c1": {"w", "b"}, "s1": {"w", "b"}, "f": {"w", "b"}}``.
 """
 
 from __future__ import annotations
 
-import json
-import zipfile
 from typing import Any, Dict
 
 import numpy as np
 import torch
 from torch import nn
 
-FORMAT_VERSION = 1
+from parallel_cnn_tpu_torch.models.lenet_ref import SHAPES
+from parallel_cnn_tpu_torch.train.checkpoint import _read_arrays, _reject_sharded
 
 
 def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
@@ -52,31 +54,34 @@ def from_jax(params: Any, model_state: Any) -> Dict[str, torch.Tensor]:
     return {k: torch.from_numpy(np.array(v, copy=True)) for k, v in flat.items()}
 
 
-def _read_npz(path: str):
-    try:
-        with np.load(path) as z:
-            meta = json.loads(bytes(z["__meta__"]).decode())
-            stored = {k: z[k] for k in z.files if k != "__meta__"}
-    except (zipfile.BadZipFile, EOFError, OSError, KeyError,
-            json.JSONDecodeError) as e:
-        raise ValueError(f"corrupted or unreadable checkpoint {path!r}: {e}") from e
-    if meta.get("version") != FORMAT_VERSION:
-        raise ValueError(
-            f"checkpoint version {meta.get('version')} != {FORMAT_VERSION}"
-        )
-    if meta.get("zero3"):
-        raise ValueError(
-            f"{path!r} is a sharded (ZeRO-3) checkpoint; the port reads "
-            f"unsharded zoo checkpoints only"
-        )
-    return stored
+def lenet_from_jax(params: Any) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The port's LeNet-ref params (f32 tensors on the CPU) from the JAX
+    package's tree (numpy arrays, or anything numpy reads). Keys and shapes
+    must be exactly those of ``models.lenet_ref.SHAPES``."""
+    if set(params) != set(SHAPES):
+        raise ValueError(f"LeNet params have layers {sorted(params)}, "
+                         f"expected {sorted(SHAPES)}")
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for layer, shapes in SHAPES.items():
+        if set(params[layer]) != set(shapes):
+            raise ValueError(f"LeNet layer {layer!r} has leaves "
+                             f"{sorted(params[layer])}, expected {sorted(shapes)}")
+        out[layer] = {}
+        for name, shape in shapes.items():
+            a = np.asarray(params[layer][name], dtype=np.float32)
+            if a.shape != shape:
+                raise ValueError(f"LeNet leaf {layer}/{name} has shape "
+                                 f"{a.shape}, expected {shape}")
+            out[layer][name] = torch.from_numpy(np.array(a, copy=True))
+    return out
 
 
 def load_jax_checkpoint(path: str, model: nn.Module) -> nn.Module:
     """Fill ``model`` (in place) from a zoo checkpoint the JAX trainer
     wrote; returns ``model``. Missing leaves and shape or dtype mismatches
     raise ValueError; surplus leaves (optimizer state) are ignored."""
-    stored = _read_npz(path)
+    stored, meta = _read_arrays(path)
+    _reject_sharded(path, meta, "load_jax_checkpoint")
     by_key: Dict[str, np.ndarray] = {}
     for k, v in stored.items():
         head, _, rest = k.lstrip(".").partition("/")

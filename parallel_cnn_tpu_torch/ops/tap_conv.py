@@ -14,61 +14,30 @@ Padding is XLA's SAME split (``pad_lo = pad_total // 2``), which for a
 output ``o`` centres on input ``2o + 1``, where PyTorch's ``padding=1``
 would centre on ``2o``.
 
-The kernel is compiled with ``nvcc`` on first use into ``_build/`` beside
-the package (a directory git ignores), as a shared library with a plain C
-interface loaded through ctypes. Nothing is built or imported from CUDA
-when this module is imported.
+The kernel is compiled on first use by the port's one builder
+(``ops/_cuda_build.py``). Nothing is built or imported from CUDA when this
+module is imported.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "tap_conv.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+from parallel_cnn_tpu_torch.ops._cuda_build import (
+    Library,
+    LaunchCounter,
+    check_operand,
+    launch_stream,
+    raise_on_error,
 )
 
 SUPPORTED_K = (1, 3, 5, 7)
 SUPPORTED_STRIDES = (1, 2)
 _INT32_MAX = 2**31 - 1
-
-
-class LaunchCounter:
-    """Counts kernel launches (thread-safe). The serving path runs convs
-    on batcher worker threads, so increments take a lock."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._n = 0
-
-    @property
-    def count(self) -> int:
-        with self._lock:
-            return self._n
-
-    def add(self) -> None:
-        with self._lock:
-            self._n += 1
-
-    def reset(self) -> None:
-        with self._lock:
-            self._n = 0
-
 
 #: Launches of the tap-conv kernel in this process (``conv2d`` and
 #: ``conv2d_fused`` share the kernel and the count).
@@ -141,72 +110,15 @@ def conv2d_fused_plain(
 # Build and binding
 # ---------------------------------------------------------------------------
 
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-        "/usr/local/cuda/bin/nvcc"
-    ]:
-        if os.path.isfile(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError(
-            "nvcc not found (set CUDA_HOME); the tap-conv kernel is built "
-            "from csrc/tap_conv.cu on first use"
-        )
-    return found
+_library = Library("tap_conv.cu", {
+    "tap_conv_forward": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+})
 
 
-class _Library:
-    """The compiled kernel library: built once per source digest, loaded
-    once per process."""
-
-    def __init__(self):
-        self._lock = threading.Lock()
-        self._lib = None
-        self.path: Optional[Path] = None
-        self.build_seconds: Optional[float] = None
-        self.compiler_output = ""
-
-    def get(self):
-        with self._lock:
-            if self._lib is None:
-                self._lib = self._load()
-            return self._lib
-
-    def _load(self):
-        src = SOURCE.read_bytes()
-        digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-        path = BUILD_DIR / f"libtap_conv-{digest}.so"
-        t0 = time.perf_counter()
-        if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".tmp{os.getpid()}.so")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                capture_output=True, text=True,
-            )
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed on {SOURCE.name} (rc {proc.returncode}):\n"
-                    f"{proc.stderr}"
-                )
-            self.compiler_output = proc.stderr
-            os.replace(tmp, path)  # atomic: a racing process sees all or none
-        self.build_seconds = time.perf_counter() - t0
-        self.path = path
-        lib = ctypes.CDLL(str(path))
-        fn = lib.tap_conv_forward
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        return lib
-
-
-_library = _Library()
-
-
-def build() -> _Library:
+def build() -> Library:
     """Compile (if needed) and load the kernel library; returns its record
     (``path``, ``build_seconds``, ``compiler_output``)."""
     _library.get()
@@ -219,14 +131,7 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
                    shape: Tuple[int, ...]) -> None:
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} must be float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
+    check_operand(name, t, device, shape, torch.float32)
     if t.numel() > _INT32_MAX:
         raise ValueError(f"{name} has {t.numel()} elements; the kernel indexes in int32")
 
@@ -260,14 +165,12 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
     _, pt, _ = same_pads(h, k, stride)
     _, pl, _ = same_pads(wd, k, stride)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.tap_conv_forward(
             _ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(residual),
             _ptr(out), n, h, wd, cin, oshape[1], oshape[2], cout, k, stride,
-            pt, pl, int(relu), stream,
+            pt, pl, int(relu), launch_stream(dev),
         )
-    if err != 0:
-        raise RuntimeError(f"tap_conv kernel launch failed: cudaError {err}")
+    raise_on_error("tap_conv", err)
     launches.add()
     return out
 

@@ -1,1 +1,3 @@
-"""Resilience helpers the serving slice needs (the retry policy)."""
+"""Fault tolerance of the port: the retry policy (serving), the health
+sentinel, last-good rollback and the checkpoint ring, and preemption
+signals (training)."""

@@ -1,0 +1,243 @@
+"""Epoch loops (the port of ``parallel_cnn_tpu/train/trainer.py``;
+≙ learn() / test(), Sequential/Main.cpp:146-214).
+
+Reproduces the reference's observable behaviour — "Learning", per-epoch
+`error: %e, time_on_cpu: %f` lines, the threshold stop, `Time - %f` and
+the final `Error Rate: %.2f%%` — with the epoch timed up to a readback of
+its error from the device. The train split is placed on the device once
+and each batch is gathered there by index.
+"""
+
+from __future__ import annotations
+
+import logging
+from dataclasses import dataclass, field
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from parallel_cnn_tpu_torch.config import Config
+from parallel_cnn_tpu_torch.data import pipeline
+from parallel_cnn_tpu_torch.models import lenet_ref
+from parallel_cnn_tpu_torch.resilience import preempt
+from parallel_cnn_tpu_torch.resilience.rollback import RollbackController, tree_copy
+from parallel_cnn_tpu_torch.resilience.sentinel import DivergenceError, Sentinel
+from parallel_cnn_tpu_torch.train import step as step_lib
+from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
+from parallel_cnn_tpu_torch.utils.timing import Stopwatch
+from parallel_cnn_tpu_torch.utils.tree import tree_map
+
+log = logging.getLogger(__name__)
+
+
+@dataclass
+class TrainResult:
+    params: step_lib.Params
+    epoch_errors: List[float] = field(default_factory=list)
+    seconds: float = 0.0
+    stopped_early: bool = False
+    # How many divergences were rolled back, and whether a preemption
+    # signal stopped the run (the last finished epoch is checkpointed).
+    rollbacks: int = 0
+    preempted: bool = False
+    # Optimizer steps taken (per-sample steps in strict-parity mode).
+    steps: int = 0
+
+
+def init_params(seed: int, device: torch.device) -> step_lib.Params:
+    """LeNet-ref params from ``seed`` (a CPU generator, so the same seed
+    gives the same weights on every device), placed on ``device``."""
+    params = lenet_ref.init(torch.Generator().manual_seed(seed))
+    return tree_map(lambda t: t.to(device), params)
+
+
+def learn(
+    cfg: Config,
+    train: pipeline.Dataset,
+    params: Optional[step_lib.Params] = None,
+    verbose: bool = True,
+    epoch_offset: int = 0,
+    epoch_callback=None,
+    ring=None,
+    device: DeviceLike = None,
+) -> TrainResult:
+    """≙ learn() (Sequential/Main.cpp:146-184): epoch loop with the mean
+    err-norm metric and the threshold stop.
+
+    batch_size == 1 → strict-parity per-sample SGD; batch_size > 1 →
+    minibatch steps (``cfg.train.ops`` picks the kernel path,
+    ``cfg.fused`` the bucketed update). ``epoch_offset`` shifts the
+    per-epoch seeds so a resumed run shuffles exactly like the continuous
+    run it restarts. ``epoch_callback(epoch, params, err)`` (global,
+    1-based epoch) fires after every epoch. Each epoch's loss and params
+    pass the health sentinel (cfg.resilience); a preemption signal stops
+    the loop at the next epoch boundary, after the callback.
+    ``device=None`` means the GPU; only ``"cpu"`` runs on the host.
+    """
+    tc = cfg.train
+    res = cfg.resilience
+    dev = resolve_device(device)
+    if tc.batch_size > 1 and tc.prefetch == "native":
+        raise pipeline.NativeUnavailableError(
+            f"prefetch='native': {pipeline.NATIVE_NOT_PORTED}; "
+            "prefetch='auto' gives the same batches in the same order"
+        )
+    if params is None:
+        params = init_params(tc.seed, dev)
+    else:
+        params = tree_map(lambda t: t.detach().to(dev, torch.float32).clone(), params)
+    if verbose:
+        print("Learning")
+
+    result = TrainResult(params)
+    sw = Stopwatch()
+    images = torch.from_numpy(train.images).to(dev)
+    labels = torch.from_numpy(train.labels).to(dev)
+    steps_per_epoch = len(train) // tc.batch_size if tc.batch_size > 1 else 0
+    batched_step = step_lib.batched_step_fn(tc.ops, fused=cfg.fused)
+
+    # dt is a local because auto-rollback may scale it (res.lr_backoff).
+    dt = tc.dt
+    sentinel = Sentinel() if res.policy != "off" else None
+    controller = None
+    if res.policy == "rollback":
+        controller = RollbackController(
+            max_rollbacks=res.max_rollbacks, lr_backoff=res.lr_backoff, ring=ring,
+        )
+    last_good = None
+    if sentinel is not None:
+        # The pre-training state is the first "last good".
+        last_good = tree_copy(params)
+        if controller is not None:
+            controller.commit(params)
+
+    epoch = 0
+    while epoch < tc.epochs:
+        # Per-epoch derived seed: every epoch reshuffles, and a resumed run
+        # draws the same order as the continuous one.
+        epoch_seed = tc.seed + epoch_offset + epoch
+        with sw:
+            if tc.batch_size == 1:
+                if tc.shuffle:
+                    perm = np.random.default_rng(epoch_seed).permutation(len(train))
+                    perm = torch.from_numpy(perm).to(dev)
+                    ex, ey = images[perm], labels[perm]
+                else:
+                    ex, ey = images, labels
+                params, err = step_lib.scan_epoch(params, ex, ey, dt)
+                result.steps += len(train)
+            else:
+                # prefetch "auto" and a full batch to take: drop-tail batches
+                # in the native ring's order. Otherwise ("off", or fewer
+                # samples than one batch) keep-tail NumPy order, the tail at
+                # its own size, the error weighted by batch size.
+                fixed = tc.prefetch == "auto" and steps_per_epoch > 0
+                order = pipeline.epoch_order(
+                    len(train), tc.batch_size, shuffle=tc.shuffle,
+                    seed=epoch_seed, native_semantics=fixed,
+                    drop_remainder=False,
+                )
+                # One copy of the epoch's indices to the device: a copy
+                # from pageable host memory per step would wait for the
+                # stream, so the host could never run ahead of the card.
+                flat = torch.from_numpy(np.concatenate(order)).to(dev)
+                errs, weights = [], []
+                start = 0
+                for idx in order:
+                    j = flat[start:start + len(idx)]
+                    start += len(idx)
+                    params, e = batched_step(params, images[j], labels[j], dt)
+                    errs.append(e)
+                    weights.append(len(idx))
+                result.steps += len(order)
+                errs = torch.stack(errs)
+                if fixed:
+                    err = torch.mean(errs)
+                else:
+                    w = torch.tensor(weights, dtype=torch.float32, device=dev)
+                    err = torch.sum(errs * w) / torch.sum(w)
+            err = float(err)  # blocks: everything above is asynchronous
+
+        if sentinel is not None:
+            verdict = sentinel.check(loss=err, params=params)
+            if not verdict.healthy:
+                g_epoch = epoch_offset + epoch + 1
+                if res.policy == "raise":
+                    raise DivergenceError(f"epoch {g_epoch}: {verdict.reason}")
+                if res.policy == "skip":
+                    log.warning(
+                        "sentinel: %s at epoch %d — discarding the epoch's "
+                        "update, continuing from last-good",
+                        verdict.reason, g_epoch,
+                    )
+                    params = tree_copy(last_good)
+                    epoch += 1
+                    continue
+                # rollback: restore the newest healthy state, scale the LR,
+                # retry the SAME epoch (bounded by max_rollbacks).
+                params, _ = controller.rollback(
+                    like=params, reason=f"epoch {g_epoch}: {verdict.reason}"
+                )
+                result.rollbacks = controller.rollbacks
+                dt = tc.dt * controller.lr_scale
+                continue
+            last_good = tree_copy(params)
+            if controller is not None:
+                controller.commit(params)
+
+        result.epoch_errors.append(err)
+        if epoch_callback is not None:
+            epoch_callback(epoch_offset + epoch + 1, params, err)
+        if verbose:
+            # ≙ fprintf at Sequential/Main.cpp:174
+            print(f"error: {err:e}, time_on_cpu: {sw.total:f}")
+        if err < tc.threshold:
+            result.stopped_early = True
+            if verbose:
+                # ≙ Sequential/Main.cpp:177
+                print("Training complete, error less than threshold\n")
+            break
+        if preempt.requested():
+            # epoch_callback already flushed this epoch's checkpoint.
+            result.preempted = True
+            if verbose:
+                print(f"preemption: stopping after epoch "
+                      f"{epoch_offset + epoch + 1} (checkpoint flushed)")
+            break
+        epoch += 1
+
+    result.params = params
+    result.seconds = sw.total
+    if verbose:
+        print(f"\n Time - {sw.total:f}")  # ≙ Sequential/Main.cpp:183
+    return result
+
+
+def test(
+    params: step_lib.Params,
+    test_ds: pipeline.Dataset,
+    batch_size: int = 1000,
+    verbose: bool = True,
+) -> float:
+    """≙ test() (Sequential/Main.cpp:202-214): % misclassified on the test
+    split, evaluated in batches on the params' device."""
+    dev = params["f"]["w"].device
+    n = len(test_ds)
+    errors = torch.zeros((), dtype=torch.int64, device=dev)
+    for i in range(0, n, batch_size):
+        x = torch.from_numpy(test_ds.images[i : i + batch_size]).to(dev)
+        y = torch.from_numpy(test_ds.labels[i : i + batch_size]).to(dev)
+        errors += step_lib.error_count(params, x, y)
+    rate = int(errors) / n * 100.0
+    if verbose:
+        print(f"Error Rate: {rate:.2f}%")  # ≙ Sequential/Main.cpp:212-213
+    return rate
+
+
+def run(cfg: Config, verbose: bool = True, device: DeviceLike = None) -> float:
+    """≙ main() (Sequential/Main.cpp:44-57): loaddata → learn → test."""
+    dev = resolve_device(device)
+    train_ds, test_ds = pipeline.load_train_test(cfg.data)
+    result = learn(cfg, train_ds, verbose=verbose, device=dev)
+    return test(result.params, test_ds, verbose=verbose)

@@ -1,12 +1,69 @@
-"""Streaming latency histogram (the port's copy of the ``Histogram`` in
-``parallel_cnn_tpu/utils/metrics.py``; the serving telemetry and the load
-generator use it)."""
+"""Training metrics and a streaming latency histogram: the port's copies
+of ``MetricsLogger``, ``throughput`` and ``Histogram`` in
+``parallel_cnn_tpu/utils/metrics.py``. The trainer CLI writes JSONL
+records through the logger; the serving telemetry and the load generator
+use the histogram."""
 
 from __future__ import annotations
 
+import json
 import math
+import os
 import threading
-from typing import Any, Dict, Optional
+import time
+from typing import Any, Dict, List, Optional, TextIO
+
+
+def _scalar(v: Any) -> Any:
+    if isinstance(v, (int, str, bool)) or v is None:
+        return v
+    return float(v)  # numpy / torch scalars (a device value syncs here)
+
+
+class MetricsLogger:
+    """Append-only metrics sink: one JSONL record per event,
+    ``{metrics…, "ts": …}``, to a file, stdout and/or memory."""
+
+    def __init__(
+        self,
+        path: Optional[str] = None,
+        echo: bool = False,
+        keep_in_memory: bool = True,
+    ):
+        if path:
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+        self._file: Optional[TextIO] = open(path, "a") if path else None
+        self._echo = echo
+        self.records: Optional[List[Dict[str, Any]]] = [] if keep_in_memory else None
+
+    def record(self, **values: Any) -> Dict[str, Any]:
+        rec = {k: _scalar(v) for k, v in values.items()}
+        rec["ts"] = time.time()
+        if self.records is not None:
+            self.records.append(rec)
+        line = json.dumps(rec)
+        if self._file:
+            self._file.write(line + "\n")
+            self._file.flush()
+        if self._echo:
+            print(line)
+        return rec
+
+    def close(self) -> None:
+        if self._file:
+            self._file.close()
+            self._file = None
+
+    def __enter__(self) -> "MetricsLogger":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+def throughput(n_items: int, seconds: float) -> float:
+    """items/sec with a zero-guard."""
+    return n_items / seconds if seconds > 0 else float("inf")
 
 
 class Histogram:

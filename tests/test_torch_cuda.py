@@ -1,6 +1,7 @@
-"""The port's CUDA kernel on the card: csrc/tap_conv.cu held against its
-plain PyTorch version, the wrapper's refusals on CUDA tensors, and the
-serving path's launch count. Every test here skips without a GPU.
+"""The port's CUDA kernels on the card: csrc/tap_conv.cu, csrc/lenet_fused.cu
+and csrc/sgd_update.cu held against their plain PyTorch versions, the
+wrappers' refusals on CUDA tensors, and the serving and training paths'
+launch counts. Every test here skips without a GPU.
 
 This file imports no JAX, so on a machine with the card and without JAX it
 runs without the suite's conftest:
@@ -12,9 +13,13 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_cnn_tpu_torch.config import ServeConfig
-from parallel_cnn_tpu_torch.ops import tap_conv
+from parallel_cnn_tpu_torch.config import Config, ServeConfig, TrainConfig
+from parallel_cnn_tpu_torch.data import pipeline, synthetic
+from parallel_cnn_tpu_torch.models import lenet_ref
+from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tap_conv
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
+from parallel_cnn_tpu_torch.train import step, trainer
+from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
 # ResNet-18's widest stride-2 shapes at a small batch.
@@ -124,3 +129,116 @@ def test_serve_path_launches_the_kernel_on_card(card):
     assert report.completed == 8
     batches = pool.engines[0].stats.predicts
     assert tap_conv.launches.count == 20 * batches > 0
+
+
+# ---------------------------------------------------------------------------
+# The LeNet-ref trainer's kernels
+# ---------------------------------------------------------------------------
+
+# B1 vs its plain version, f32 on the card: the two sum up to 576 products
+# per grad value in different orders.
+LENET_RTOL = 1e-5
+
+
+def _lenet_inputs(dev, n, seed):
+    rng = np.random.default_rng(seed)
+    params = tree_map(lambda t: t.to(dev),
+                      lenet_ref.init(torch.Generator().manual_seed(seed)))
+    xs = torch.from_numpy(rng.uniform(0, 1, (n, 28, 28)).astype(np.float32)).to(dev)
+    ys = torch.from_numpy(rng.integers(0, 10, (n,))).to(dev)  # int64, as torch makes them
+    return params, xs, ys
+
+
+@pytest.mark.parametrize("n", [1, 7, 64, 130])
+def test_lenet_fused_matches_plain_on_card(card, n):
+    params, xs, ys = _lenet_inputs(card, n, n)
+    before = lenet_fused.launches.count
+    err, grads = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    torch.cuda.synchronize()
+    assert lenet_fused.launches.count == before + 1
+    ref_err, ref = lenet_fused.fused_value_and_ref_grads_plain(params, xs, ys)
+    assert abs(float(err) - float(ref_err)) <= LENET_RTOL * max(1.0, abs(float(ref_err)))
+    for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        assert g.shape == r.shape
+        tol = LENET_RTOL * max(1.0, float(r.abs().max()))
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=tol)
+
+
+def test_lenet_fused_is_deterministic_on_card(card):
+    params, xs, ys = _lenet_inputs(card, 1000, 3)
+    e1, g1 = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    e2, g2 = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    assert torch.equal(e1, e2)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(g1), tree_leaves(g2)))
+
+
+@pytest.mark.parametrize(
+    "mutate,err",
+    [
+        (lambda p, x, y: (p, x.double(), y), TypeError),
+        (lambda p, x, y: (p, x.transpose(1, 2), y), ValueError),
+        (lambda p, x, y: (p, x, y.cpu()), ValueError),
+        (lambda p, x, y: (p, x, y[:-1]), ValueError),
+        (lambda p, x, y: ({**p, "f": {"w": p["f"]["w"].cpu(), "b": p["f"]["b"]}}, x, y),
+         ValueError),
+        (lambda p, x, y: (p, x[:, :27], y), ValueError),
+    ],
+    ids=["float64", "non-contiguous", "labels-on-cpu", "label-count",
+         "weights-on-cpu", "image-shape"],
+)
+def test_lenet_fused_raises_instead_of_falling_back(card, mutate, err):
+    args = mutate(*_lenet_inputs(card, 4, 0))
+    before = lenet_fused.launches.count
+    with pytest.raises(err):
+        lenet_fused.fused_value_and_ref_grads(*args)
+    assert lenet_fused.launches.count == before
+
+
+@pytest.mark.parametrize("n", [1, 127, 128, 2343, 5 * 128 + 37, 2**20])
+def test_sgd_update_is_bit_identical_to_plain_on_card(card, n):
+    gen = torch.Generator(device=card).manual_seed(n)
+    p = torch.randn(n, generator=gen, device=card)
+    g = torch.randn(n, generator=gen, device=card)
+    before = sgd_update.launches.count
+    got = sgd_update.fused_sgd(p, g, lr=-0.1, scale=1.0 / 64)
+    torch.cuda.synchronize()
+    assert sgd_update.launches.count == before + 1
+    assert torch.equal(got, sgd_update.fused_sgd_plain(p, g, -0.1, 1.0 / 64))
+    # An unaligned view takes the scalar path and agrees as well.
+    if n > 4:
+        got = sgd_update.fused_sgd(p[1:], g[1:], lr=0.05, scale=0.25)
+        assert torch.equal(got, sgd_update.fused_sgd_plain(p[1:], g[1:], 0.05, 0.25))
+
+
+def test_sgd_update_raises_instead_of_falling_back(card):
+    p = torch.zeros(16, device=card)
+    before = sgd_update.launches.count
+    with pytest.raises(TypeError):
+        sgd_update.fused_sgd(p, torch.zeros(16, device=card, dtype=torch.float64), lr=0.1)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd(p, torch.zeros(16), lr=0.1)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd(p[::2], torch.zeros(8, device=card), lr=0.1)
+    assert sgd_update.launches.count == before
+
+
+@pytest.mark.parametrize("ops,fused,counter", [
+    ("cuda", False, lenet_fused.launches),
+    ("reference", True, sgd_update.launches),
+], ids=["ops-cuda", "fused-step"])
+def test_train_path_launches_the_kernel_on_card(card, ops, fused, counter):
+    imgs, labels = synthetic.make_dataset(640, seed=1)
+    cfg = Config(train=TrainConfig(epochs=1, batch_size=64, ops=ops), fused=fused)
+    counter.reset()
+    res = trainer.learn(cfg, pipeline.Dataset(imgs, labels), verbose=False)
+    assert res.steps == 10 and counter.count == 10
+    assert res.params["f"]["w"].device.type == "cuda"
+
+
+def test_cuda_step_matches_plain_step_on_card(card):
+    params, xs, ys = _lenet_inputs(card, 64, 9)
+    got, e1 = step.cuda_batched_step(params, xs, ys, 0.1)
+    want, e2 = step.batched_step(params, xs, ys, 0.1)
+    assert abs(float(e1) - float(e2)) < 1e-5
+    for a, b in zip(tree_leaves(got), tree_leaves(want)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-5)
