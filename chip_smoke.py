@@ -16,7 +16,12 @@ port's two paths through their user-facing entry points:
   MNIST stand-in, through the fused train-step kernel (--ops cuda), the
   fused SGD kernel (--fused-step) and the per-sample plain path, with a
   resumed run held bit for bit against a straight one and a profiled
-  epoch of each kernel path.
+  epoch of each kernel path;
+- zoo training: the trainer's CLI on full-width ResNet-18 (CIFAR stem) at
+  batch 128 with every conv's forward, input gradient and weight gradient
+  through the hand kernels and the loss through the fused tail kernel, a
+  resumed run against a straight one, kernel steps against plain steps,
+  the CIFAR CNN's fused tail, and a profiled epoch.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -45,16 +50,22 @@ from torch.profiler import ProfilerActivity, profile
 
 from parallel_cnn_tpu_torch import cli
 from parallel_cnn_tpu_torch.cli import padded_bucket_parity
-from parallel_cnn_tpu_torch.config import Config, ServeConfig, TrainConfig
+from parallel_cnn_tpu_torch.config import (
+    Config,
+    FusedStepConfig,
+    ServeConfig,
+    TrainConfig,
+)
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
+from parallel_cnn_tpu_torch.nn import resnet
 from parallel_cnn_tpu_torch.nn.layers import BatchNorm, ConvBNAct
 from parallel_cnn_tpu_torch.nn.resnet import BasicBlock
-from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tap_conv
+from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tail, tap_conv, tap_wgrad
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step as step_lib
-from parallel_cnn_tpu_torch.train import trainer
+from parallel_cnn_tpu_torch.train import trainer, zoo
 from parallel_cnn_tpu_torch.utils.backend import card_name_and_power_limit
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -76,7 +87,7 @@ CONV_RTOL = 1e-4
 LOGIT_RTOL = 1e-3
 SERVE_REQUESTS = 256
 SERVE_CONCURRENCY = 16
-KERNEL_MODULES = (tap_conv, lenet_fused, sgd_update)
+KERNEL_MODULES = (tap_conv, tap_wgrad, tail, lenet_fused, sgd_update)
 TIME_LIMIT_S = 1100
 
 # The LeNet-ref trainer. B1 (lenet_fused) vs its plain version: f32 on both
@@ -117,6 +128,22 @@ GEOMETRIES = [
     ("3x3/s1 512 tail+res", 4, 512, 512, 3, 1, True, True, 2),
 ]
 CONVS_PER_FORWARD = sum(g[-1] for g in GEOMETRIES)  # 1 + 16 + 3 = 20
+
+# The zoo trainer: ResNet-18 at batch 128 on 40 steps per epoch of the
+# synthetic CIFAR-shape set; eval in batches of 256 (JAX's default).
+ZOO_BATCH = 128
+ZOO_STEPS = 40
+ZOO_TRAIN_COUNT = ZOO_STEPS * ZOO_BATCH
+ZOO_TEST_COUNT = 2560
+ZOO_EVAL_BATCH = 256
+ZOO_FUSED = FusedStepConfig(update=False, act_dtype="float32")
+# K1/K2/K3 vs their plain versions: f32 sums in other orders (wgrad sums
+# up to 131,072 products per value), relative to the output's scale.
+GRAD_RTOL = 1e-4
+# Kernel steps vs plain steps (zoo (c)): 3 steps at a gentle LR.
+ZOO_CHECK_LR = 0.001
+ZOO_LOSS_ATOL = 1e-4
+ZOO_PARAM_ATOL = 5e-4
 
 
 def fail(msg: str) -> None:
@@ -611,6 +638,351 @@ def time_lenet_kernels() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The zoo trainer: the tap-conv kernel as dgrad, B11 (tap_wgrad) and B12
+# (tail_ce)
+# ---------------------------------------------------------------------------
+
+
+def grad_inputs(h, cin, cout, k, stride, gen):
+    """x, w and an output gradient g for one conv geometry at ZOO_BATCH."""
+    x = torch.randn((ZOO_BATCH, h, h, cin), generator=gen, device="cuda")
+    w = torch.randn((k, k, cin, cout), generator=gen, device="cuda")
+    w *= (2.0 / (k * k * cin)) ** 0.5
+    oh = -(-h // stride)
+    g = torch.randn((ZOO_BATCH, oh, oh, cout), generator=gen, device="cuda")
+    return x, w, g
+
+
+def tail_inputs(pool, gen):
+    """The two fused tails of the zoo at ZOO_BATCH: ResNet-18's gap over
+    (4,4,512) and the CIFAR CNN's max2 over (8,8,128), ReLU outputs (half
+    the max2 windows tie at zero, as in training)."""
+    shape = {"gap": (ZOO_BATCH, 4, 4, 512), "max2": (ZOO_BATCH, 8, 8, 128)}[pool]
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+    d = 512 if pool == "gap" else 4 * 4 * 128
+    w = torch.randn((d, 10), generator=gen, device="cuda") * d ** -0.5
+    b = 0.1 * torch.randn((10,), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (ZOO_BATCH,), generator=gen, device="cuda")
+    return x, w, b, y
+
+
+def within(name, got, want, again) -> float:
+    """Check a kernel result against its plain version (GRAD_RTOL relative
+    to the output's scale) and its relaunch (bit for bit); returns the
+    largest difference."""
+    err = float((got - want).abs().max())
+    tol = GRAD_RTOL * max(1.0, float(want.abs().max()))
+    same = torch.equal(got, again)
+    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+    print(f"[smoke] {name}: max |Δ| vs plain {err:.3e} (tol {tol:.1e}), relaunch "
+          f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok and same else 'FAIL'}",
+          flush=True)
+    if not (ok and same):
+        fail(f"{name}: the kernel disagrees with its plain version or is not "
+             "deterministic")
+    return err
+
+
+def check_zoo_kernels() -> dict:
+    """K1 (dgrad) and K2 (wgrad) at each ResNet-18 conv geometry and K3 in
+    both tails, at batch ZOO_BATCH, against their plain versions (cuDNN
+    and TF32 off). Returns the largest difference of each kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    errs = {"tap_conv_dgrad": 0.0, "tap_wgrad": 0.0, "tail_ce": 0.0}
+    for name, h, cin, cout, k, s, _, _, _ in GEOMETRIES:
+        x, w, g = grad_inputs(h, cin, cout, k, s, gen)
+        dx = tap_conv.conv2d_dgrad(g, w, x.shape, s)
+        dx2 = tap_conv.conv2d_dgrad(g, w, x.shape, s)
+        gw = tap_wgrad.conv2d_wgrad(x, g, k, s)
+        gw2 = tap_wgrad.conv2d_wgrad(x, g, k, s)
+        with plain_reference():
+            dx_ref = tap_conv.conv2d_dgrad_plain(g, w, x.shape, s)
+            gw_ref = tap_wgrad.conv2d_wgrad_plain(x, g, k, s)
+        torch.cuda.synchronize()
+        errs["tap_conv_dgrad"] = max(errs["tap_conv_dgrad"], within(
+            f"dgrad {name:24s} b{ZOO_BATCH}", dx, dx_ref, dx2))
+        errs["tap_wgrad"] = max(errs["tap_wgrad"], within(
+            f"wgrad {name:24s} b{ZOO_BATCH}", gw, gw_ref, gw2))
+    for pool in ("gap", "max2"):
+        x, w, b, y = tail_inputs(pool, gen)
+        loss, dl = tail.tail_forward(x, w, b, y, pool)
+        loss2, dl2 = tail.tail_forward(x, w, b, y, pool)
+        ref_loss, ref_dl = tail.tail_forward_plain(x, w, b, y, pool)
+        torch.cuda.synchronize()
+        shape = "x".join(str(d) for d in x.shape)
+        errs["tail_ce"] = max(
+            errs["tail_ce"],
+            within(f"tail_ce {pool} ({shape})->10 loss", loss, ref_loss, loss2),
+            within(f"tail_ce {pool} ({shape})->10 dlogits", dl, ref_dl, dl2))
+    return errs
+
+
+def epoch_losses(out):
+    return [float(line.split()[3].rstrip(",")) for line in out.splitlines()
+            if line.startswith("epoch ") and ": loss " in line]
+
+
+def zoo_counts():
+    return {"tap_conv": tap_conv.launches.count,
+            "tap_conv_dgrad": tap_conv.dgrad_launches.count,
+            "tap_wgrad": tap_wgrad.launches.count, "tail_ce": tail.launches.count}
+
+
+def reset_zoo_counts():
+    for counter in (tap_conv.launches, tap_conv.dgrad_launches,
+                    tap_wgrad.launches, tail.launches):
+        counter.reset()
+
+
+def zoo_phase(card) -> dict:
+    """The zoo trainer on the card through its CLI: (a) ResNet-18 on the
+    kernels with the fused tail, 2 epochs, exact launch counts and a falling
+    loss; (b) a resumed run against the straight one; (c) kernel steps
+    against plain steps; (d) the CIFAR CNN's fused tail. Returns each
+    kernel's launches on the ResNet-18 run (the main path)."""
+    work = BUILD_DIR / "smoke_zoo"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--batch-size", str(ZOO_BATCH),
+            "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+
+    # (a) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] zoo (a): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                          "--metrics", str(work / "a.jsonl")])
+    launches = zoo_counts()
+    losses = epoch_losses(out)
+    steps = 2 * ZOO_STEPS
+    evals = 2 * -(-ZOO_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": CONVS_PER_FORWARD * (steps + evals),
+            "tap_conv_dgrad": (CONVS_PER_FORWARD - 1) * steps,
+            "tap_wgrad": CONVS_PER_FORWARD * steps, "tail_ce": steps}
+    with open(work / "a.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(ZOO_TRAIN_COUNT / r["seconds"]) for r in recs]
+    print(f"[smoke] zoo (a): launches {launches} for {steps} steps and {evals} "
+          f"eval batches (expected {want}); epoch losses {losses}; img/s per "
+          f"epoch {rates} (host clock, first epoch cold); eval accuracy "
+          f"{[r['accuracy'] for r in recs]} on {card}", flush=True)
+    if launches != want:
+        fail("the ResNet-18 zoo run did not launch each kernel exactly as often "
+             "as its steps and eval batches need")
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail("the ResNet-18 zoo run's loss did not fall from epoch 1 to 2")
+
+    # (b) 1 epoch, then --resume to 2: the straight run's state, bit for bit.
+    print("[smoke] zoo (b): --epochs 1, then --epochs 2 --resume, vs (a)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] zoo (b): resumed state ({len(a)} leaves: params, BN stats, "
+          f"momentum) {'bit-identical to the straight run' if same else 'DIFFERS'}",
+          flush=True)
+    if "resumed from" not in out or not same:
+        fail("the resumed zoo run is not bit-identical to the straight run")
+
+    # (c) 3 kernel steps vs 3 plain steps from one state, at a gentle LR:
+    # at init the net amplifies f32 rounding from step to step (f32 against
+    # f64 on the CPU, batch 64: 1e-3 in the third loss at lr 0.01, 9e-6 at
+    # 0.001).
+    imgs, labels = synthetic.make_image_dataset(3 * ZOO_BATCH, seed=11)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    opt = zoo.make_optimizer(ZOO_CHECK_LR)
+    kern = resnet.resnet18(10, backend="cuda",
+                           generator=torch.Generator().manual_seed(0)).cuda()
+    plain = resnet.resnet18(10, backend="torch",
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    sk, sp = zoo.init_state(kern, opt), zoo.init_state(plain, opt)
+    step_k = zoo.make_train_step(kern, opt, fused=ZOO_FUSED)
+    step_p = zoo.make_train_step(plain, opt)
+    loss_diff = 0.0
+    for i in range(3):
+        sl = slice(i * ZOO_BATCH, (i + 1) * ZOO_BATCH)
+        lk = step_k(sk, xs[sl], ys[sl])
+        with plain_reference():
+            lp = step_p(sp, xs[sl], ys[sl])
+        loss_diff = max(loss_diff, abs(float(lk) - float(lp)))
+    pk, pp = kern.state_dict(), plain.state_dict()
+    param_diff = max(float((pk[n] - pp[n]).abs().max()) for n, _ in kern.named_parameters())
+    stat_diff = max(float((pk[n] - pp[n]).abs().max()) for n, _ in kern.named_buffers())
+    ok = loss_diff <= ZOO_LOSS_ATOL and param_diff <= ZOO_PARAM_ATOL
+    print(f"[smoke] zoo (c): 3 kernel steps vs 3 plain steps (lr {ZOO_CHECK_LR}, "
+          f"b{ZOO_BATCH}): max |Δloss| {loss_diff:.3e} (tol {ZOO_LOSS_ATOL:.0e}), "
+          f"max |Δparams| {param_diff:.3e} (tol {ZOO_PARAM_ATOL:.0e}), max |ΔBN "
+          f"stats| {stat_diff:.3e} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the kernel steps drifted from the plain steps")
+
+    # (d) the CIFAR CNN: library convs, its max2 head through the tail kernel.
+    tail.launches.reset()
+    out = run_cli(["--model", "cifar_cnn", "--fused-step", "--act-dtype", "float32",
+                   "--batch-size", str(ZOO_BATCH), "--lr", "0.01", "--epochs", "1",
+                   "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+                   "--synthetic-test-count", str(ZOO_TEST_COUNT)])
+    print(f"[smoke] zoo (d): cifar_cnn --fused-step: tail_ce launches "
+          f"{tail.launches.count} for {ZOO_STEPS} steps", flush=True)
+    if tail.launches.count != ZOO_STEPS or len(epoch_losses(out)) != 1:
+        fail("the CIFAR CNN's fused step did not run every step through tail_ce")
+    return launches
+
+
+def profiled_zoo_epoch(label: str, backend: str) -> None:
+    """Where a ResNet-18 training epoch's time goes: one warm epoch of
+    ZOO_STEPS steps on the conv ``backend`` (batches gathered on the card,
+    one loss readback) under torch.profiler (CUDA activity only)."""
+    imgs, labels = synthetic.make_image_dataset(ZOO_TRAIN_COUNT, seed=1234)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    model = resnet.resnet18(10, backend=backend,
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    state = zoo.init_state(model, zoo.make_optimizer(0.1))
+    step = zoo.make_train_step(model, state.optimizer, fused=ZOO_FUSED)
+
+    def epoch():
+        perm = torch.randperm(ZOO_TRAIN_COUNT, generator=torch.Generator().manual_seed(0))
+        perm = perm.cuda()
+        total = torch.zeros((), device="cuda")
+        for i in range(ZOO_STEPS):
+            j = perm[i * ZOO_BATCH:(i + 1) * ZOO_BATCH]
+            total = total + step(state, xs[j], ys[j])
+        return float(total) / ZOO_STEPS
+
+    epoch()  # warm: allocator, libraries
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    n_ops = sum(e.count for e in kernels)
+    if dev_ms == 0:
+        print("[smoke] profiled zoo epoch: device time not measured (the "
+              "profiler saw no device events)", flush=True)
+        return
+    print(f"[smoke] profiled zoo epoch ({label}, b{ZOO_BATCH}, {ZOO_STEPS} steps): "
+          f"wall {wall_ms:.1f} ms ({ZOO_TRAIN_COUNT / wall_ms * 1e3:.0f} img/s), "
+          f"device busy {dev_ms:.1f} ms ({dev_ms / wall_ms:.1%}), idle "
+          f"{1 - dev_ms / wall_ms:.1%}; {n_ops / ZOO_STEPS:.1f} device ops per "
+          f"step, {wall_ms / ZOO_STEPS:.2f} ms per step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<6d} {e.key[:90]}", flush=True)
+
+
+def grad_bound_ms(x_shape, k, cin, cout, stride, dgrad):
+    """Least time for one conv gradient on this card: the conv's
+    multiply-adds at the f32 peak against its bytes at the HBM rate. dgrad
+    reads g and w and writes dx in full; wgrad reads the input pixels the
+    conv uses and g, and writes gw."""
+    n, h, wd, _ = x_shape
+    oh, ow = -(-h // stride), -(-wd // stride)
+    flops = 2.0 * n * oh * ow * cout * k * k * cin
+    g_elems = n * oh * ow * cout
+    w_elems = k * k * cin * cout
+    if dgrad:
+        elems = g_elems + w_elems + n * h * wd * cin
+    else:
+        elems = (n * lines_read(h, k, stride) * lines_read(wd, k, stride) * cin
+                 + g_elems + w_elems)
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = 4.0 * elems / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_grad(x, w, g, stride, dgrad):
+    """cuDNN's conv gradient (torch.nn.grad, TF32 off) on the SAME-padded
+    channels-last input, padded outside the timing: the yardstick. The port
+    never calls it."""
+    k = w.shape[0]
+    h = x.shape[1]
+    _, pt, pb = tap_conv.same_pads(h, k, stride)
+    xp = F.pad(x.permute(0, 3, 1, 2), (pt, pb, pt, pb)).contiguous(
+        memory_format=torch.channels_last)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    gl = g.permute(0, 3, 1, 2)
+    if dgrad:
+        return lambda: torch.nn.grad.conv2d_input(xp.shape, wl, gl, stride=stride)
+    return lambda: torch.nn.grad.conv2d_weight(xp, wl.shape, gl, stride=stride)
+
+
+def tail_bound_ms(x, w):
+    """K3: read x, w, b and the labels, write loss and dlogits, each once;
+    2·B·D·K operations for the FC."""
+    n = x.shape[0]
+    k = w.shape[1]
+    nbytes = 4.0 * (x.numel() + w.numel() + k + n + n * k) + 8.0 * n
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * n * w.shape[0] * k / PEAK_F32_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_zoo_kernels() -> dict:
+    """K1 and K2 at each ResNet-18 geometry and K3 in both tails, batch
+    ZOO_BATCH: device ms beside the bound, the plain version and the
+    library call. K1/K2 records hold the sums over one step's convs (19
+    dgrads, 20 wgrads); K3's the ResNet-18 gap tail."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    sums = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+                  "ops_ms": 0.0} for key in ("tap_conv_dgrad", "tap_wgrad")}
+    for name, h, cin, cout, k, s, _, _, count in GEOMETRIES:
+        x, w, g = grad_inputs(h, cin, cout, k, s, gen)
+        for key, dgrad in (("tap_conv_dgrad", True), ("tap_wgrad", False)):
+            if dgrad:
+                fn = lambda: tap_conv.conv2d_dgrad(g, w, x.shape, s)  # noqa: E731
+                plain_fn = lambda: tap_conv.conv2d_dgrad_plain(g, w, x.shape, s)  # noqa: E731
+            else:
+                fn = lambda: tap_wgrad.conv2d_wgrad(x, g, k, s)  # noqa: E731
+                plain_fn = lambda: tap_wgrad.conv2d_wgrad_plain(x, g, k, s)  # noqa: E731
+            ms = cuda_ms(fn, reps=10)
+            with plain_reference():
+                plain = cuda_ms(plain_fn, reps=5)
+            lib = cuda_ms(library_grad(x, w, g, s, dgrad), reps=10)
+            bound, by = grad_bound_ms(x.shape, k, cin, cout, s, dgrad)
+            print(f"[smoke] time {key:14s} {name:24s} b{ZOO_BATCH}: kernel {ms:.4f} "
+                  f"ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
+                  f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound", flush=True)
+            # The stem's input batch needs no gradient: no dgrad there.
+            n = count - (1 if dgrad and name.startswith("stem") else 0)
+            rec = sums[key]
+            for field, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
+                             ("bound_ms", bound)):
+                rec[field] += n * v
+            if by == "operations":
+                rec["ops_ms"] += n * bound
+    out = {}
+    for key, rec in sums.items():
+        out[key] = dict(ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                        bound_by=("operations" if rec["ops_ms"] >= rec["bound_ms"] / 2
+                                  else "bytes"),
+                        library_ms=rec["library_ms"])
+        print(f"[smoke] time {key} summed over one ResNet-18 step at b{ZOO_BATCH}: "
+              f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, library "
+              f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms", flush=True)
+    for pool in ("gap", "max2"):
+        x, w, b, y = tail_inputs(pool, gen)
+        ms = cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=20)
+        plain = cuda_ms(lambda: tail.tail_forward_plain(x, w, b, y, pool), reps=20)
+        bound, by = tail_bound_ms(x, w)
+        print(f"[smoke] time tail_ce {pool} b{ZOO_BATCH}: kernel {ms:.4f} ms, plain "
+              f"{plain:.4f} ms, library none, bound {bound:.6f} ms ({by}), "
+              f"{bound / ms:.1%} of bound", flush=True)
+        if pool == "gap":
+            out["tail_ce"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                  library_ms=None)
+    return out
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -676,6 +1048,9 @@ def main() -> int:
     # -- 3b. the LeNet-ref trainer's kernels vs their plain versions -----
     lenet_err = check_lenet_fused()
     sgd_err = check_sgd_update()
+
+    # -- 3c. the zoo trainer's kernels vs their plain versions -----------
+    zoo_errs = check_zoo_kernels()
 
     # -- 4. the serving path: serve full-width ResNet-18 -----------------
     handle = get("resnet18", conv_backend="cuda")
@@ -750,6 +1125,13 @@ def main() -> int:
             train=TrainConfig(batch_size=TRAIN_BATCH, ops=ops, shuffle=True),
             fused=fused))
 
+    # -- 4c. the zoo path: ResNet-18 and the CIFAR CNN through the CLI ----
+    zoo_launches = zoo_phase(card)
+    profiled_zoo_epoch("ResNet-18, conv kernels + fused tail", "cuda")
+    # The same epoch on cuDNN's convs (TF32 off), JAX's "xla" backend: the
+    # end-to-end yardstick of the conv kernels.
+    profiled_zoo_epoch("ResNet-18, library convs + fused tail", "torch")
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -778,6 +1160,7 @@ def main() -> int:
           f"ms, bound {totals['bound_ms']:.3f} ms (the record's times are "
           f"these sums)", flush=True)
     lenet_times = time_lenet_kernels()
+    zoo_times = time_zoo_kernels()
 
     records = [{
         "name": "tap_conv",
@@ -792,6 +1175,30 @@ def main() -> int:
         "bound_by": ("operations" if totals["ops_ms"] >= totals["bound_ms"] / 2
                      else "bytes"),
         "library_ms": totals["library_ms"],
+    }, {
+        "name": "tap_conv_dgrad",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
+        "launches": zoo_launches["tap_conv_dgrad"],
+        "max_abs_err": zoo_errs["tap_conv_dgrad"],
+        **zoo_times["tap_conv_dgrad"],
+    }, {
+        "name": "tap_wgrad",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/tap_wgrad.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
+        "launches": zoo_launches["tap_wgrad"],
+        "max_abs_err": zoo_errs["tap_wgrad"],
+        **zoo_times["tap_wgrad"],
+    }, {
+        "name": "tail_ce",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/tail_ce.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
+        "launches": zoo_launches["tail_ce"],
+        "max_abs_err": zoo_errs["tail_ce"],
+        **zoo_times["tail_ce"],
     }, {
         "name": "lenet_fused",
         "route": "cuda",

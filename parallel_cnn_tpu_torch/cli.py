@@ -1,15 +1,19 @@
 """Command line of the port (the counterpart of ``parallel_cnn_tpu/cli.py``).
 
     python -m parallel_cnn_tpu_torch [trainer flags]      # the LeNet-ref trainer
+    python -m parallel_cnn_tpu_torch --model resnet18 --conv-backend cuda
     python -m parallel_cnn_tpu_torch serve --model resnet18
     python -m parallel_cnn_tpu_torch loadgen --requests 512 --pattern open
 
-With no subcommand the CLI is the trainer, as in JAX: load data → learn →
-test, printing the reference's lines. Everything runs on the GPU unless
-``--device cpu`` is given. The trainer flags of later slices (mesh, comm,
-chaos, async, elastic, trace, profile, zoo models) are not accepted yet;
-neither are the serving stack's admission control, autoscaler, scenarios,
-network front door and disk cache.
+With no subcommand the CLI is the trainer, as in JAX: for ``lenet_ref``
+load data → learn → test, printing the reference's lines; for a zoo model
+(``cifar_cnn``, ``resnet18``, ``resnet34``) one device of JAX's zoo
+driver: the synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc
+A% (S s)`` lines, checkpoints of the full state and ``--resume``.
+Everything runs on the GPU unless ``--device cpu`` is given. The trainer
+flags of later slices (mesh, comm, chaos, async, elastic, trace, profile)
+are not accepted yet; neither are the serving stack's admission control,
+autoscaler, scenarios, network front door and disk cache.
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ import time
 from typing import List, Optional
 
 from parallel_cnn_tpu_torch.config import (
+    CONV_BACKENDS,
     SERVE_MODELS,
+    ZOO_MODELS,
     Config,
     DataConfig,
+    FusedStepConfig,
     ResilienceConfig,
     ServeConfig,
     TrainConfig,
@@ -34,18 +41,46 @@ from parallel_cnn_tpu_torch.config import (
 
 
 def build_parser() -> argparse.ArgumentParser:
-    """The trainer's flags: the lenet_ref flags of the JAX CLI this slice
-    ports, with ``--ops cuda`` for JAX's ``--ops pallas``, plus
+    """The trainer's flags: the JAX CLI's lenet_ref and single-device zoo
+    flags, with ``--ops cuda`` for JAX's ``--ops pallas`` and
+    ``--conv-backend cuda``/``torch`` for its ``pallas``/``xla``, plus
     ``--device``."""
     p = argparse.ArgumentParser(
         prog="parallel_cnn_tpu_torch",
-        description="the LeNet-ref trainer on the GPU (PyTorch + hand-written "
-                    "CUDA kernels); subcommands: serve, loadgen",
+        description="the LeNet-ref and zoo trainers on the GPU (PyTorch + "
+                    "hand-written CUDA kernels); subcommands: serve, loadgen",
     )
     d, t, r = DataConfig(), TrainConfig(), ResilienceConfig()
-    p.add_argument("--model", default="lenet_ref", choices=["lenet_ref"],
-                   help="the reference-parity trainer (zoo models come "
-                        "with a later slice of the port)")
+    p.add_argument("--model", default="lenet_ref",
+                   choices=["lenet_ref", *ZOO_MODELS],
+                   help="lenet_ref = the reference-parity trainer; the rest "
+                        "are zoo models on the synthetic CIFAR-shape set")
+    p.add_argument("--conv-backend", default="torch", choices=CONV_BACKENDS,
+                   help="zoo resnets only: the hand-written conv kernels "
+                        "(cuda; forward, dgrad, wgrad) or library convs "
+                        "(torch)")
+    p.add_argument("--lr", type=float, default=0.1,
+                   help="zoo models only: SGD learning rate")
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=["constant", "cosine"],
+                   help="zoo models only: cosine decays over the full run "
+                        "(epochs x steps); both honor --warmup-steps")
+    p.add_argument("--warmup-steps", type=int, default=0,
+                   help="zoo models only: linear LR warmup steps")
+    p.add_argument("--augment", action="store_true",
+                   help="zoo models only: random crop + horizontal flip "
+                        "(CIFAR recipe) on the device")
+    p.add_argument("--accum-steps", type=int, default=None,
+                   help="zoo models only: gradient-accumulation "
+                        "microbatches (default 1)")
+    p.add_argument("--zoo-loader", default="device",
+                   choices=["device", "native"],
+                   help="zoo models only: gathers over the device-resident "
+                        "set, or the native ring's batch order (NumPy twin)")
+    p.add_argument("--act-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="fused-step activation dtype (default bfloat16, "
+                        "not ported yet: pass float32)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default) or cpu, which runs the kernels' "
                         "plain PyTorch versions")
@@ -55,7 +90,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="directory holding the four idx files "
                         "(defaults to the DataConfig paths)")
     p.add_argument("--epochs", type=int, default=t.epochs)
-    p.add_argument("--batch-size", type=int, default=t.batch_size,
+    # None: lenet_ref defaults to per-sample SGD (1), zoo models to 128.
+    p.add_argument("--batch-size", type=int, default=None,
                    help="1 = the reference's per-sample SGD; >1 minibatch")
     p.add_argument("--dt", type=float, default=t.dt,
                    help="SGD step (dt at Sequential/layer.h:12)")
@@ -74,8 +110,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--synthetic-test-count", type=int,
                    default=d.synthetic_test_count)
     p.add_argument("--fused-step", action="store_true",
-                   help="update through the fused bucketed SGD kernel "
-                        "(csrc/sgd_update.cu) on the reference grads")
+                   help="lenet_ref: update through the fused bucketed SGD "
+                        "kernel (csrc/sgd_update.cu); zoo: the fused loss "
+                        "tail (csrc/tail_ce.cu)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save ckpt_<epoch>.npz per epoch; --resume restarts "
                         "from the latest")
@@ -116,7 +153,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             dt=args.dt,
             threshold=args.threshold,
             epochs=args.epochs,
-            batch_size=args.batch_size,
+            batch_size=1 if args.batch_size is None else args.batch_size,
             seed=args.seed,
             shuffle=args.shuffle,
             prefetch=args.prefetch,
@@ -132,10 +169,83 @@ def config_from_args(args: argparse.Namespace) -> Config:
     )
 
 
+def _run_zoo(args: argparse.Namespace) -> int:
+    """≙ the JAX CLI's ``_run_zoo`` on one device: the synthetic CIFAR-shape
+    train/eval sets, zoo.train with per-epoch eval, checkpoints, resume,
+    sentinel and preemption."""
+    if args.model == "cifar_cnn" and args.conv_backend != "torch":
+        raise SystemExit("--conv-backend cuda applies to the resnet models")
+    if args.batch_size == 1:
+        raise SystemExit("zoo models train minibatch; use --batch-size > 1")
+    fused = FusedStepConfig() if args.fused_step else None
+    if args.act_dtype is not None:
+        if fused is None:
+            raise SystemExit("--act-dtype refines the fused step; enable it "
+                             "with --fused-step first")
+        fused = dataclasses.replace(fused, act_dtype=args.act_dtype)
+    if fused is not None:
+        fused.check_ported()
+
+    import torch
+
+    from parallel_cnn_tpu_torch.data import synthetic
+    from parallel_cnn_tpu_torch.nn import cifar, resnet
+    from parallel_cnn_tpu_torch.resilience import preempt
+    from parallel_cnn_tpu_torch.train import zoo
+    from parallel_cnn_tpu_torch.utils.backend import resolve_device
+    from parallel_cnn_tpu_torch.utils.metrics import MetricsLogger
+
+    device = resolve_device(args.device)
+    gen = torch.Generator().manual_seed(args.seed)
+    factories = {
+        "cifar_cnn": lambda: cifar.cifar_cnn(generator=gen),
+        "resnet18": lambda: resnet.resnet18(
+            10, backend=args.conv_backend, generator=gen),
+        "resnet34": lambda: resnet.resnet34(
+            10, backend=args.conv_backend, generator=gen),
+    }
+    model = factories[args.model]()
+    data = DataConfig()
+    imgs, labels = synthetic.make_image_dataset(
+        args.synthetic_train_count, seed=data.synthetic_seed)
+    ev = synthetic.make_image_dataset(
+        args.synthetic_test_count, seed=data.synthetic_seed + 1)
+    metrics = MetricsLogger(path=args.metrics) if args.metrics else None
+    with preempt.PreemptionGuard() as guard:
+        zoo.train(
+            model, imgs, labels,
+            epochs=args.epochs,
+            batch_size=args.batch_size or 128,
+            lr=args.lr,
+            lr_schedule=args.lr_schedule,
+            warmup_steps=args.warmup_steps,
+            augment=args.augment,
+            accum_steps=args.accum_steps or 1,
+            fused=fused,
+            seed=args.seed,
+            eval_data=ev,
+            checkpoint_dir=args.checkpoint_dir,
+            resume=args.resume,
+            metrics=metrics,
+            loader=args.zoo_loader,
+            resilience=ResilienceConfig(
+                policy=args.sentinel, max_rollbacks=args.max_rollbacks,
+                ring_size=args.keep_checkpoints),
+            device=device,
+        )
+    if guard.preempted:
+        print("preempted: checkpoint flushed; continue with --resume")
+    if metrics:
+        metrics.close()
+    return 0
+
+
 def _run_train(argv: List[str]) -> int:
-    """≙ the JAX CLI's lenet_ref branch: load → learn (checkpoint per epoch,
-    resume, preemption) → test."""
+    """≙ the JAX CLI's trainer: the lenet_ref branch (load → learn with a
+    checkpoint per epoch, resume, preemption → test) or the zoo branch."""
     args = build_parser().parse_args(argv)
+    if args.model != "lenet_ref":
+        return _run_zoo(args)
     cfg = config_from_args(args)
 
     from parallel_cnn_tpu_torch.data import pipeline

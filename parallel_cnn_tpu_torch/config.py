@@ -10,9 +10,14 @@ the network front door are not ported yet, so their fields are absent; so
 is ``conv_backend``, which has one value in the port
 (``serve.registry.get`` takes it).
 
+For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
+far, and the model and conv-backend names it takes; its other knobs are
+``zoo.train``'s keyword arguments, as in the JAX package.
+
 Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
 kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
-the serving slice's ``conv_backend="cuda"`` stands for JAX's ``"pallas"``.
+its ``conv_backend="cuda"`` stands for JAX's ``"pallas"`` and
+``conv_backend="torch"`` for JAX's ``"xla"``.
 """
 
 from __future__ import annotations
@@ -20,6 +25,11 @@ from __future__ import annotations
 import dataclasses
 import os
 from typing import Optional
+
+
+class NotPortedError(NotImplementedError):
+    """A JAX-package option the port has not reached yet; the message names
+    the ROADMAP item that brings it."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,6 +146,46 @@ class Config:
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
+
+
+#: Zoo models the trainer builds (train/zoo.py), and its conv backends:
+#: "cuda" ≙ JAX's "pallas" (the hand kernels), "torch" ≙ JAX's "xla".
+ZOO_MODELS = ("cifar_cnn", "resnet18", "resnet34")
+CONV_BACKENDS = ("torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedStepConfig:
+    """The zoo's fused training step (JAX's ``FusedStepConfig``,
+    config.py:231), with JAX's defaults.
+
+    - ``tail`` routes a recognised model head through the fused loss tail
+      (ops/tail.py, csrc/tail_ce.cu).
+    - ``update`` is update-on-arrival over ring collectives; it needs a
+      mesh, which the port does not have yet (ROADMAP A9), so the zoo
+      trainer drops it with JAX's fallback line, as JAX does on one device.
+    - ``act_dtype``: only "float32" is ported. "bfloat16", JAX's default,
+      needs bf16 variants of the conv and tail kernels and the static loss
+      scale (ROADMAP A8b); the zoo trainer raises NotPortedError on it.
+    """
+
+    update: bool = True
+    tail: bool = True
+    act_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown act dtype {self.act_dtype!r} (float32 or bfloat16)"
+            )
+
+    def check_ported(self) -> None:
+        if self.act_dtype != "float32":
+            raise NotPortedError(
+                f"fused-step act_dtype={self.act_dtype!r} is not ported yet "
+                "(ROADMAP A8b: bf16 conv/tail kernels and the static loss "
+                "scale); pass act_dtype='float32' (--act-dtype float32)"
+            )
 
 
 #: Registry names the port serves (serve/registry.py).

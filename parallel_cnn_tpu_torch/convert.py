@@ -18,6 +18,12 @@ ignores them.
 
 ``lenet_from_jax`` carries the LeNet-ref params tree across: the port keeps
 it as it is, ``{"c1": {"w", "b"}, "s1": {"w", "b"}, "f": {"w", "b"}}``.
+
+``zoo_from_jax`` / ``zoo_to_jax`` carry a whole zoo training state across
+(JAX's ``ZooState(params, model_state, opt_state)``: the weights, the BN
+running statistics, the optax momentum trace and schedule count) under
+the JAX checkpoint's keys (``.params/0/w``, ``.opt_state/0/0/.trace/0/w``,
+``.opt_state/0/1/.count``), the keys ``train.zoo.ZooState.arrays()`` uses.
 """
 
 from __future__ import annotations
@@ -41,6 +47,40 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
             _flatten(v, f"{prefix}{i}.", out)
     else:
         out[prefix[:-1]] = np.asarray(tree)
+
+
+def _flatten_jax(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
+    """Leaves under JAX's key paths: a dict key, a sequence index, or
+    ``.field`` for a named tuple's field (optax states)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _flatten_jax(v, f"{prefix}{k}/", out)
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for k, v in zip(tree._fields, tree):
+            _flatten_jax(v, f"{prefix}.{k}/", out)
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            _flatten_jax(v, f"{prefix}{i}/", out)
+    elif tree is not None:
+        out[prefix[:-1]] = np.asarray(tree)
+
+
+def zoo_from_jax(state, jax_state):
+    """Load a JAX ``ZooState`` (any object with ``params``,
+    ``model_state`` and ``opt_state``, numpy leaves or anything numpy
+    reads) into the port's ``train.zoo.ZooState``, in place; returns it.
+    Every key, shape and dtype must match the port's state."""
+    arrays: Dict[str, np.ndarray] = {}
+    for name in ("params", "model_state", "opt_state"):
+        _flatten_jax(getattr(jax_state, name), f".{name}/", arrays)
+    state.load(arrays)
+    return state
+
+
+def zoo_to_jax(state) -> Dict[str, np.ndarray]:
+    """The port's zoo state as numpy arrays under JAX's checkpoint keys (a
+    JAX ``ZooState`` template's flattened paths)."""
+    return {k: v.detach().cpu().numpy() for k, v in state.arrays().items()}
 
 
 def from_jax(params: Any, model_state: Any) -> Dict[str, torch.Tensor]:

@@ -1,5 +1,5 @@
-"""MNIST data for the trainer: idx files, the synthetic stand-in, epoch
-order (the port's copy of ``parallel_cnn_tpu/data``)."""
+"""Data for the trainers: MNIST idx files, the synthetic stand-ins, epoch
+order, zoo augmentation (the port's copy of ``parallel_cnn_tpu/data``)."""
 
 from parallel_cnn_tpu_torch.data.mnist import (  # noqa: F401
     MnistError,
@@ -17,4 +17,7 @@ from parallel_cnn_tpu_torch.data.pipeline import (  # noqa: F401
     native_semantics_batches,
     pad_to_batch,
 )
-from parallel_cnn_tpu_torch.data.synthetic import make_dataset  # noqa: F401
+from parallel_cnn_tpu_torch.data.synthetic import (  # noqa: F401
+    make_dataset,
+    make_image_dataset,
+)

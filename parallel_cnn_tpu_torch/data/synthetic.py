@@ -1,6 +1,7 @@
-"""Deterministic synthetic MNIST stand-in: the port's copy of
-``make_dataset`` in ``parallel_cnn_tpu/data/synthetic.py``, bit-identical
-to it (the same NumPy generators, seeds and operations).
+"""Deterministic synthetic data sets: the port's copies of ``make_dataset``
+(the MNIST stand-in) and ``make_image_dataset`` (the CIFAR-shape stand-in)
+in ``parallel_cnn_tpu/data/synthetic.py``, bit-identical to them (the same
+NumPy generators, seeds and operations).
 
 When the real idx image files are absent, the trainer synthesizes a
 learnable, MNIST-shaped dataset: 10 fixed class prototypes (seeded blobs
@@ -61,3 +62,35 @@ def make_dataset(
                 out[mask] = np.roll(images[mask], (dy, dx), axis=(1, 2))
     out += rng.normal(0.0, noise, size=out.shape).astype(np.float32)
     return np.clip(out, 0.0, 1.0), labels
+
+
+def make_image_dataset(
+    count: int,
+    hw: Tuple[int, int] = (32, 32),
+    channels: int = 3,
+    classes: int = 10,
+    seed: int = 1234,
+    noise: float = 0.1,
+    proto_seed: int = 99,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """NHWC synthetic image classification set, the CIFAR stand-in of the
+    zoo trainer (no CIFAR files ship): per-class smooth prototypes (low-res
+    noise upsampled 4×) plus Gaussian noise. Bit-identical to the JAX
+    package's ``make_image_dataset``.
+
+    Returns (images (N,H,W,C) float32 in [0,1], labels (N,) int32).
+    """
+    h, w = hw
+    prng = np.random.default_rng(proto_seed)
+    # ceil-divide so the 4× kron always covers (h, w) before the crop.
+    low = prng.uniform(0, 1, size=(classes, -(-h // 4), -(-w // 4), channels))
+    protos = np.stack([
+        np.stack([np.kron(low[c, :, :, ch], np.ones((4, 4)))[:h, :w]
+                  for ch in range(channels)], axis=-1)
+        for c in range(classes)
+    ]).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, size=count).astype(np.int32)
+    images = protos[labels] + rng.normal(
+        0, noise, size=(count, h, w, channels)).astype(np.float32)
+    return np.clip(images, 0.0, 1.0), labels

@@ -4,7 +4,11 @@ activations and HWIO conv weights as in the JAX package."""
 from parallel_cnn_tpu_torch.nn.core import Sequential  # noqa: F401
 from parallel_cnn_tpu_torch.nn.layers import (  # noqa: F401
     BatchNorm,
+    Conv2D,
     ConvBNAct,
     Dense,
+    Flatten,
     GlobalAvgPool,
+    MaxPool,
+    ReLU,
 )

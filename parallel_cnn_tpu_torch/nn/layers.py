@@ -1,12 +1,26 @@
-"""Layers of the serving slice, NHWC (the port's counterpart of
+"""Layers of the port, NHWC (the port's counterpart of
 ``parallel_cnn_tpu/nn/layers.py``).
 
-Only inference is ported: BatchNorm evaluates from its running statistics,
-and ``ConvBNAct`` folds them, once, into a per-channel scale/shift that rides the
-conv kernel's epilogue (``ops.tap_conv.conv2d_fused``) together with the
-residual add and the ReLU. Train-mode BatchNorm comes with the training
-slice; a module in training mode raises rather than compute the wrong
-statistics.
+Train and eval follow the JAX package's ``apply(..., train=...)``, read
+from the module's ``training`` flag:
+
+- ``BatchNorm`` in training mode normalises with the batch's statistics
+  (mean and **biased** variance over N, H, W) and updates its running
+  statistics in place as ``0.9·old + 0.1·batch``, as JAX's BatchNorm does;
+  in eval mode it uses the running statistics. It is not
+  ``nn.BatchNorm2d``: that keeps an unbiased running variance and reads
+  its momentum the other way round.
+- ``ConvBNAct`` in training mode runs JAX's unfused composition: conv
+  (``ops.tap_conv.conv2d``, whose backward is the dgrad and wgrad kernels)
+  → BatchNorm → (+ residual) → optional ReLU. In eval mode with the
+  ``"cuda"`` backend it folds BN, once, into a per-channel scale/shift
+  that rides the conv kernel's epilogue (``ops.tap_conv.conv2d_fused``)
+  together with the residual add and the ReLU.
+
+Conv backends: ``"cuda"`` is the port's name for JAX's ``"pallas"`` (every
+conv through the hand kernels; their plain versions for CPU tensors);
+``"torch"`` is its name for ``"xla"`` (a library conv, which the JAX
+package also leaves to its compiler).
 
 Parameters are created on the CPU from an explicit ``torch.Generator``
 (He-normal conv and Dense weights, BN at identity) and moved to
@@ -22,6 +36,9 @@ from typing import Optional
 import torch
 from torch import nn
 
+import torch.nn.functional as F
+
+from parallel_cnn_tpu_torch.config import CONV_BACKENDS
 from parallel_cnn_tpu_torch.ops import tap_conv
 
 
@@ -29,22 +46,23 @@ def _he_normal(shape, fan_in: int, generator: Optional[torch.Generator]):
     return torch.randn(shape, generator=generator) * math.sqrt(2.0 / fan_in)
 
 
-def _eval_only(module: nn.Module) -> None:
-    if module.training:
-        raise NotImplementedError(
-            f"{type(module).__name__} is ported for inference only; call "
-            f".eval() (train-mode BatchNorm statistics come with the "
-            f"training slice)"
-        )
+def _conv_fn(backend: str):
+    """The SAME conv of a backend: the kernels' autograd Function, or the
+    library conv."""
+    if backend not in CONV_BACKENDS:
+        raise ValueError(f"unknown conv backend {backend!r}; one of {CONV_BACKENDS}")
+    return tap_conv.conv2d if backend == "cuda" else tap_conv.conv2d_plain
 
 
 class BatchNorm(nn.Module):
-    """Running-statistics batch norm over the last (channel) axis, eval
-    only. ``scale``/``bias`` are the trainables, ``mean``/``var`` the
-    running statistics, as in the JAX tree."""
+    """Batch norm over the last (channel) axis. ``scale``/``bias`` are the
+    trainables, ``mean``/``var`` the running statistics, as in the JAX
+    tree."""
 
-    def __init__(self, features: int, eps: float = 1e-5, *, device=None):
+    def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
+                 *, device=None):
         super().__init__()
+        self.momentum = momentum
         self.eps = eps
         self.scale = nn.Parameter(torch.ones(features, device=device))
         self.bias = nn.Parameter(torch.zeros(features, device=device))
@@ -58,19 +76,51 @@ class BatchNorm(nn.Module):
         return scale, self.bias - self.mean * scale
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        _eval_only(self)
-        inv = torch.rsqrt(self.var + self.eps) * self.scale
-        return (x - self.mean) * inv + self.bias
+        if self.training:
+            axes = tuple(range(x.dim() - 1))
+            mean = x.mean(dim=axes)
+            var = x.var(dim=axes, unbiased=False)
+            m = self.momentum
+            with torch.no_grad():
+                self.mean.copy_(m * self.mean + (1 - m) * mean)
+                self.var.copy_(m * self.var + (1 - m) * var)
+        else:
+            mean, var = self.mean, self.var
+        inv = torch.rsqrt(var + self.eps) * self.scale
+        return (x - mean) * inv + self.bias
+
+
+class Conv2D(nn.Module):
+    """SAME conv with an optional bias (``w`` HWIO, ``b``), as JAX's
+    ``Conv2D(features, kernel, strides, use_bias, backend)``."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 3,
+                 stride: int = 1, use_bias: bool = True, backend: str = "torch",
+                 *, generator: Optional[torch.Generator] = None, device=None):
+        super().__init__()
+        self.stride = stride
+        self.backend = backend
+        self._conv = _conv_fn(backend)
+        w = _he_normal((kernel, kernel, in_features, features),
+                       kernel * kernel * in_features, generator)
+        self.w = nn.Parameter(w.to(device))
+        self.b = (nn.Parameter(torch.zeros(features, device=device))
+                  if use_bias else None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = self._conv(x, self.w, self.stride)
+        return y if self.b is None else y + self.b
 
 
 class ConvBNAct(nn.Module):
-    """SAME conv (no bias) → BatchNorm → (+ residual) → optional ReLU as
-    one kernel launch: the folded BN, the residual add and the ReLU run on
-    the conv's f32 accumulator before its only store.
+    """SAME conv (no bias) → BatchNorm → (+ residual) → optional ReLU.
 
-    ``forward(x, residual=sc)`` computes ``relu?(bn(conv(x)) + sc)``
-    through the hand-written tap-conv kernel; on a CPU tensor it runs the
-    kernel's plain PyTorch version."""
+    ``forward(x, residual=sc)`` computes ``relu?(bn(conv(x)) + sc)``. In
+    training mode that is the unfused composition with batch statistics;
+    in eval mode on the ``"cuda"`` backend it is one kernel launch, the
+    folded BN, the residual add and the ReLU running on the conv's f32
+    accumulator before its only store (on a CPU tensor, the kernel's plain
+    version)."""
 
     def __init__(
         self,
@@ -80,6 +130,7 @@ class ConvBNAct(nn.Module):
         stride: int = 1,
         relu: bool = True,
         eps: float = 1e-5,
+        backend: str = "cuda",
         *,
         generator: Optional[torch.Generator] = None,
         device=None,
@@ -92,10 +143,12 @@ class ConvBNAct(nn.Module):
             )
         self.stride = stride
         self.relu = relu
+        self.backend = backend
+        self._conv = _conv_fn(backend)
         w = _he_normal((kernel, kernel, in_features, features),
                        kernel * kernel * in_features, generator)
         self.conv = nn.ParameterDict({"w": nn.Parameter(w.to(device))})
-        self.bn = BatchNorm(features, eps, device=device)
+        self.bn = BatchNorm(features, eps=eps, device=device)
         self._fold = None
 
     def folded_bn(self):
@@ -118,11 +171,15 @@ class ConvBNAct(nn.Module):
 
     def forward(self, x: torch.Tensor,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-        _eval_only(self)
-        scale, shift = self.folded_bn()
-        return tap_conv.conv2d_fused(
-            x, self.conv["w"], scale, shift, residual, self.stride, self.relu
-        )
+        if not self.training and self.backend == "cuda":
+            scale, shift = self.folded_bn()
+            return tap_conv.conv2d_fused(
+                x, self.conv["w"], scale, shift, residual, self.stride, self.relu
+            )
+        y = self.bn(self._conv(x, self.conv["w"], self.stride))
+        if residual is not None:
+            y = y + residual
+        return torch.relu(y) if self.relu else y
 
 
 class Dense(nn.Module):
@@ -144,3 +201,30 @@ class GlobalAvgPool(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.mean(dim=(1, 2))
+
+
+class ReLU(nn.Module):
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(x)
+
+
+class MaxPool(nn.Module):
+    """VALID max pool over H and W, window 2×2 and stride 2 by default (the
+    CIFAR CNN's). Its gradient goes to the first maximum of a window in
+    row-major order, as XLA's select-and-scatter routes it."""
+
+    def __init__(self, window: int = 2, stride: int = 2):
+        super().__init__()
+        self.window = window
+        self.stride = stride
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.max_pool2d(x.permute(0, 3, 1, 2), self.window, self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+class Flatten(nn.Module):
+    """(N, H, W, C) → (N, H·W·C) in (y, x, c) order."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.reshape(x.shape[0], -1)

@@ -1,7 +1,10 @@
 """ResNet-18/34 with the CIFAR stem (the port's counterpart of
 ``parallel_cnn_tpu/nn/resnet.py``), built from ``ConvBNAct`` units so each
 block's tail — BN, shortcut add and post-add ReLU — runs in the conv
-kernel's epilogue.
+kernel's epilogue in eval mode, and as JAX's unfused composition (batch
+statistics) in training mode. ``backend`` picks the conv of every unit:
+``"cuda"`` (the hand kernels, JAX's ``"pallas"``) or ``"torch"`` (the
+library conv, JAX's ``"xla"``).
 
 The module tree mirrors the JAX pytree: the stem is child ``0``, the
 blocks follow, then ``GlobalAvgPool`` and ``Dense``; a block holds
@@ -27,10 +30,11 @@ class BasicBlock(nn.Module):
     """Two 3×3 convs + identity/projection shortcut; the shortcut is the
     tail conv's fused residual."""
 
-    def __init__(self, in_features: int, features: int, stride: int = 1, *,
+    def __init__(self, in_features: int, features: int, stride: int = 1,
+                 backend: str = "cuda", *,
                  generator: Optional[torch.Generator] = None, device=None):
         super().__init__()
-        kw = dict(generator=generator, device=device)
+        kw = dict(backend=backend, generator=generator, device=device)
         self.main = nn.ModuleList([
             ConvBNAct(in_features, features, 3, stride, **kw),
             ConvBNAct(features, features, 3, 1, **kw),
@@ -47,30 +51,30 @@ class BasicBlock(nn.Module):
         return self.main[1](y, residual=sc)
 
 
-def _resnet(stage_sizes: Sequence[int], num_classes: int, generator,
-            device) -> Sequential:
+def _resnet(stage_sizes: Sequence[int], num_classes: int, backend: str,
+            generator, device) -> Sequential:
     kw = dict(generator=generator, device=device)
-    layers = [ConvBNAct(3, WIDTHS[0], **kw)]
+    layers = [ConvBNAct(3, WIDTHS[0], backend=backend, **kw)]
     in_features = WIDTHS[0]
     for i, (features, count) in enumerate(zip(WIDTHS, stage_sizes)):
         for j in range(count):
             stride = 2 if (i > 0 and j == 0) else 1
-            layers.append(BasicBlock(in_features, features, stride, **kw))
+            layers.append(BasicBlock(in_features, features, stride, backend, **kw))
             in_features = features
     layers += [GlobalAvgPool(), Dense(in_features, num_classes, **kw)]
     return Sequential(*layers)
 
 
-def resnet18(num_classes: int = 10, *,
+def resnet18(num_classes: int = 10, *, backend: str = "cuda",
              generator: Optional[torch.Generator] = None,
              device=None) -> Sequential:
-    return _resnet((2, 2, 2, 2), num_classes, generator, device)
+    return _resnet((2, 2, 2, 2), num_classes, backend, generator, device)
 
 
-def resnet34(num_classes: int = 10, *,
+def resnet34(num_classes: int = 10, *, backend: str = "cuda",
              generator: Optional[torch.Generator] = None,
              device=None) -> Sequential:
-    return _resnet((3, 4, 6, 3), num_classes, generator, device)
+    return _resnet((3, 4, 6, 3), num_classes, backend, generator, device)
 
 
 def num_params(model: nn.Module) -> int:

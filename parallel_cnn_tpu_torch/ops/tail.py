@@ -1,0 +1,222 @@
+"""Fused loss tail: pool → flatten → FC → softmax cross-entropy in one
+kernel launch (the port's counterpart of ``parallel_cnn_tpu/ops/pallas_tail.py``,
+whose TPU kernel is ``_tail_kernel`` at pallas_tail.py:152).
+
+``fused_tail_loss(x, w, b, labels, pool=...)`` is the mean softmax-CE of
+``Dense(pool(x))``, a ``torch.autograd.Function``. Its forward writes only
+the per-sample loss and ``dlogits = softmax − onehot``: on a CUDA tensor
+through the hand kernel in ``csrc/tail_ce.cu``, on a CPU tensor through the
+plain version beside it. The backward starts from the saved ``dlogits``
+and is plain tensor code, as JAX's is plain XLA (pallas_tail.py:270-300):
+``dW = pooledᵀ·dl``, ``db = Σ dl``, ``dx`` routed back through the pool,
+with the pooled activations recomputed from the saved input. The ``max2``
+backward routes a tied window's gradient to its first maximum in row-major
+window order (XLA's select-and-scatter), by masked writes into strided
+views: no scatter-add, so the card's backward is deterministic.
+
+Pool modes (``split_tail`` recognises them on a ``Sequential``):
+
+- ``"max2"`` — MaxPool(2×2, stride 2, VALID) → Flatten → Dense (the CIFAR
+  CNN head), flattened in ``(y, x, c)`` order;
+- ``"gap"`` — GlobalAvgPool → Dense (the ResNet head);
+- ``"none"`` — Flatten → Dense.
+
+Nothing is built when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from parallel_cnn_tpu_torch.ops._cuda_build import (
+    Library,
+    LaunchCounter,
+    check_operand,
+    launch_stream,
+    raise_on_error,
+)
+
+POOLS = ("max2", "gap", "none")
+_POOL_CODE = {"max2": 0, "gap": 1, "none": 2}
+# The kernel stages the pooled row, the logits and 8 warp sums in the 48 KB
+# of shared memory a block gets without opting in.
+_SMEM_FLOATS = 48 * 1024 // 4
+
+#: Launches of the tail kernel in this process.
+launches = LaunchCounter()
+
+_library = Library("tail_ce.cu", {
+    "tail_ce_forward": (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+})
+
+
+def build() -> Library:
+    """Compile (if needed) and load the kernel library; returns its record."""
+    _library.get()
+    return _library
+
+
+class TailSplit(NamedTuple):
+    """Where a Sequential's fusable tail starts: ``trunk`` layers run as
+    they are; ``layers[trunk:]`` become one ``fused_tail_loss`` call."""
+
+    trunk: int
+    pool: str
+
+
+def split_tail(model) -> Optional[TailSplit]:
+    """The supported tail suffix of a Sequential, else None (the caller
+    keeps the unfused composition)."""
+    from parallel_cnn_tpu_torch.nn import core, layers
+
+    if not isinstance(model, core.Sequential):
+        return None
+    ls = list(model)
+    if (len(ls) >= 3 and isinstance(ls[-3], layers.MaxPool)
+            and isinstance(ls[-2], layers.Flatten)
+            and isinstance(ls[-1], layers.Dense)):
+        return TailSplit(len(ls) - 3, "max2")
+    if (len(ls) >= 2 and isinstance(ls[-2], layers.GlobalAvgPool)
+            and isinstance(ls[-1], layers.Dense)):
+        return TailSplit(len(ls) - 2, "gap")
+    if (len(ls) >= 2 and isinstance(ls[-2], layers.Flatten)
+            and isinstance(ls[-1], layers.Dense)):
+        return TailSplit(len(ls) - 2, "none")
+    return None
+
+
+def _phases(x: torch.Tensor):
+    """The four 2×2-window positions of an even-H/W NHWC tensor as strided
+    views, in row-major window order."""
+    return (x[:, 0::2, 0::2, :], x[:, 0::2, 1::2, :],
+            x[:, 1::2, 0::2, :], x[:, 1::2, 1::2, :])
+
+
+def _pooled(x: torch.Tensor, pool: str) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """(pooled activations as (B, D), the unflattened max2 pool or None)."""
+    if pool == "max2":
+        p0, p1, p2, p3 = _phases(x)
+        pooled = torch.maximum(torch.maximum(p0, p1), torch.maximum(p2, p3))
+        return pooled.reshape(pooled.shape[0], -1), pooled
+    if pool == "gap":
+        return x.mean(dim=(1, 2)), None
+    return x.reshape(x.shape[0], -1), None
+
+
+def tail_forward_plain(x, w, b, labels, pool: str):
+    """Plain version of the kernel: (per-sample loss (B,), dlogits (B, K))."""
+    flat, _ = _pooled(x, pool)
+    logits = flat @ w + b
+    m = logits.max(dim=-1, keepdim=True).values
+    e = torch.exp(logits - m)
+    se = e.sum(dim=-1, keepdim=True)
+    oh = F.one_hot(labels.long(), w.shape[-1]).to(logits.dtype)
+    loss_i = (torch.log(se) + m)[:, 0] - (logits * oh).sum(dim=-1)
+    return loss_i, e / se - oh
+
+
+def _flat_dim(x_shape, pool: str) -> int:
+    _, h, wd, c = x_shape
+    if pool == "max2":
+        return (h // 2) * (wd // 2) * c
+    return c if pool == "gap" else h * wd * c
+
+
+def _launch(x, w, b, labels, pool: str):
+    if x.dim() != 4:
+        raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
+    batch, h, wd, c = (int(d) for d in x.shape)
+    d = _flat_dim(x.shape, pool)
+    k = int(w.shape[-1])
+    dev = x.device
+    check_operand("x", x, dev, (batch, h, wd, c), torch.float32)
+    check_operand("w", w, dev, (d, k), torch.float32)
+    check_operand("b", b, dev, (k,), torch.float32)
+    check_operand("labels", labels, dev, (batch,), torch.int64)
+    if d + k + 8 > _SMEM_FLOATS:
+        raise ValueError(f"tail of {d} features x {k} classes exceeds the "
+                         "kernel's 48 KB of shared memory")
+    lib = _library.get()
+    loss = torch.empty((batch,), device=dev, dtype=torch.float32)
+    dl = torch.empty((batch, k), device=dev, dtype=torch.float32)
+    with torch.cuda.device(dev):
+        err = lib.tail_ce_forward(
+            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+            loss.data_ptr(), dl.data_ptr(), batch, h, wd, c, d, k,
+            _POOL_CODE[pool], launch_stream(dev),
+        )
+    raise_on_error("tail_ce", err)
+    launches.add()
+    return loss, dl
+
+
+def tail_forward(x, w, b, labels, pool: str):
+    """(per-sample loss, dlogits): the kernel on a CUDA tensor, the plain
+    version on a CPU one."""
+    if x.device.type == "cpu":
+        return tail_forward_plain(x, w, b, labels, pool)
+    if x.device.type != "cuda":
+        raise ValueError(f"the tail runs on cuda or cpu tensors, got {x.device}")
+    return _launch(x, w, b, labels, pool)
+
+
+def tail_backward(pool: str, x, w, dl_scaled):
+    """(dx, dw, db) from dlogits already scaled by gbar/B (pallas_tail.py
+    ``_backward``)."""
+    flat, pooled = _pooled(x, pool)
+    dw = flat.t() @ dl_scaled
+    db = dl_scaled.sum(dim=0)
+    dflat = dl_scaled @ w.t()
+    if pool == "gap":
+        n, h, wd, c = x.shape
+        return dflat[:, None, None, :].div(h * wd).expand(n, h, wd, c), dw, db
+    if pool == "none":
+        return dflat.reshape(x.shape), dw, db
+    dpool = dflat.reshape(pooled.shape)
+    zero = torch.zeros((), dtype=dpool.dtype, device=dpool.device)
+    taken = torch.zeros(pooled.shape, dtype=torch.bool, device=pooled.device)
+    dx = torch.zeros_like(x)
+    for view, phase in zip(_phases(dx), _phases(x)):
+        hit = (phase == pooled) & ~taken
+        view.copy_(torch.where(hit, dpool, zero))
+        taken |= hit
+    return dx, dw, db
+
+
+class _FusedTail(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, b, labels, pool):
+        loss_i, dl = tail_forward(x, w, b, labels, pool)
+        ctx.pool = pool
+        ctx.save_for_backward(x, w, dl)
+        return loss_i.mean()
+
+    @staticmethod
+    def backward(ctx, gbar):
+        x, w, dl = ctx.saved_tensors
+        dl_scaled = dl * (gbar / dl.shape[0])
+        dx, dw, db = tail_backward(ctx.pool, x, w, dl_scaled)
+        return dx, dw, db, None, None
+
+
+def fused_tail_loss(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                    labels: torch.Tensor, *, pool: str = "none") -> torch.Tensor:
+    """Mean softmax-CE loss of the fused tail: a drop-in for
+    ``cross_entropy(Dense(pool(x)), labels)``.
+
+    x: (B, H, W, C) in every mode (H and W even for ``max2``); w: (D, K)
+    in flatten order;
+    b: (K,); labels: (B,) int64 class ids. Returns the f32 scalar mean."""
+    if pool not in POOLS:
+        raise ValueError(f"unknown pool {pool!r} (one of {POOLS})")
+    if pool == "max2" and (x.shape[1] % 2 or x.shape[2] % 2):
+        raise ValueError(f"max2 tail needs even spatial dims, got "
+                         f"{tuple(x.shape[1:3])}")
+    return _FusedTail.apply(x, w, b, labels, pool)

@@ -1,0 +1,110 @@
+"""Weight gradient of the SAME NHWC convolution (the port's counterpart of
+``_wgrad_s1`` / ``_wgrad_s2_even`` / ``_wgrad_1x1`` in
+``parallel_cnn_tpu/ops/pallas_conv.py``, whose TPU kernel is
+``_wgrad_tap_kernel`` at pallas_conv.py:321).
+
+``conv2d_wgrad(x, g, k, stride)`` returns
+``gw[dy,dx,ci,co] = Σ_{n,oy,ox} x[n, oy·s−pt+dy, ox·s−pl+dx, ci] · g[n,oy,ox,co]``
+as f32 ``(k, k, Cin, Cout)`` with XLA's SAME split. On a CUDA tensor it
+launches the hand kernel in ``csrc/tap_wgrad.cu`` (fixed-size chunks of the
+pixel axis summed into scratch, then summed in chunk order: no float
+atomics, bit-identical relaunches); on a CPU tensor it runs the plain
+version, autograd of ``tap_conv.conv2d_plain`` with respect to ``w``.
+``tap_conv.conv2d``'s backward calls it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from parallel_cnn_tpu_torch.ops._cuda_build import (
+    Library,
+    LaunchCounter,
+    check_operand,
+    launch_stream,
+    raise_on_error,
+)
+
+_INT32_MAX = 2**31 - 1
+
+#: Launches of the wgrad kernel in this process (one per call: its two
+#: passes are one launch of the C entry point).
+launches = LaunchCounter()
+
+_library = Library("tap_wgrad.cu", {
+    "tap_wgrad_chunk": ([], ctypes.c_int),
+    "tap_conv_wgrad": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
+})
+
+
+def build() -> Library:
+    """Compile (if needed) and load the kernel library; returns its record."""
+    _library.get()
+    return _library
+
+
+def _conv():
+    # tap_conv imports this module for its backward.
+    from parallel_cnn_tpu_torch.ops import tap_conv
+
+    return tap_conv
+
+
+def conv2d_wgrad_plain(x: torch.Tensor, g: torch.Tensor, k: int,
+                       stride: int = 1) -> torch.Tensor:
+    """Plain version: autograd of ``conv2d_plain`` with respect to ``w``
+    (linear in ``w``, so zeros stand in for its values)."""
+    w = torch.zeros((k, k, x.shape[3], g.shape[3]), dtype=g.dtype,
+                    device=g.device, requires_grad=True)
+    with torch.enable_grad():
+        y = _conv().conv2d_plain(x.detach(), w, stride)
+        (gw,) = torch.autograd.grad(y, w, g)
+    return gw
+
+
+def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    tc = _conv()
+    n, h, wd, cin = (int(d) for d in x.shape)
+    oshape = tc.out_shape(x.shape, (k, k, cin, g.shape[3]), stride)
+    cout = oshape[3]
+    dev = x.device
+    check_operand("x", x, dev, (n, h, wd, cin), torch.float32)
+    check_operand("g", g, dev, oshape, torch.float32)
+    if max(x.numel(), g.numel()) > _INT32_MAX:
+        raise ValueError("x or g too large for int32 indexing")
+    lib = _library.get()
+    rows = k * k * cin
+    pixels = oshape[0] * oshape[1] * oshape[2]
+    chunks = -(-pixels // lib.tap_wgrad_chunk())
+    gw = torch.empty((k, k, cin, cout), device=dev, dtype=torch.float32)
+    partial = (torch.empty((chunks, rows, cout), device=dev, dtype=torch.float32)
+               if chunks > 1 else None)
+    _, pt, _ = tc.same_pads(h, k, stride)
+    _, pl, _ = tc.same_pads(wd, k, stride)
+    with torch.cuda.device(dev):
+        err = lib.tap_conv_wgrad(
+            x.data_ptr(), g.data_ptr(),
+            None if partial is None else partial.data_ptr(), gw.data_ptr(),
+            n, h, wd, cin, oshape[1], oshape[2], cout, k, stride, pt, pl,
+            launch_stream(dev),
+        )
+    raise_on_error("tap_conv_wgrad", err)
+    launches.add()
+    return gw
+
+
+def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int,
+                 stride: int = 1) -> torch.Tensor:
+    """∂⟨conv2d(x, w, stride), g⟩/∂w for a ``k``×``k`` kernel: the wgrad
+    kernel on a CUDA tensor, the plain version on a CPU one."""
+    tc = _conv()
+    if k not in tc.SUPPORTED_K or stride not in tc.SUPPORTED_STRIDES:
+        raise ValueError(f"kernel size {k} / stride {stride} not supported")
+    if not tc._on_cuda(x):
+        return conv2d_wgrad_plain(x, g, k, stride)
+    return _launch(x, g, k, stride)

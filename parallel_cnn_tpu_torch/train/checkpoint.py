@@ -8,6 +8,12 @@ rename), so a killed process never leaves a torn checkpoint. A file either
 package writes, the other reads: ``restore`` here reads what JAX's
 ``checkpoint.save`` wrote, and JAX's ``restore`` reads what ``save`` here
 writes. A ZeRO-3 sharded checkpoint is refused with a typed error.
+
+The zoo trainer saves its whole state through the same two functions: the
+tree it passes is ``train.zoo.ZooState.arrays()``, a flat dict whose keys
+are already JAX's ``ZooState`` paths (``.params/...``, ``.model_state/...``,
+``.opt_state/0/0/.trace/...``, ``.opt_state/0/1/.count``), so the file is
+the one JAX's ``zoo.train`` writes and restores.
 """
 
 from __future__ import annotations

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: csrc/tap_conv.cu, csrc/lenet_fused.cu
-and csrc/sgd_update.cu held against their plain PyTorch versions, the
+"""The port's CUDA kernels on the card: csrc/tap_conv.cu (forward and
+dgrad), csrc/tap_wgrad.cu, csrc/tail_ce.cu, csrc/lenet_fused.cu and
+csrc/sgd_update.cu held against their plain PyTorch versions, the
 wrappers' refusals on CUDA tensors, and the serving and training paths'
 launch counts. Every test here skips without a GPU.
 
@@ -13,12 +14,18 @@ import numpy as np
 import pytest
 import torch
 
-from parallel_cnn_tpu_torch.config import Config, ServeConfig, TrainConfig
+from parallel_cnn_tpu_torch.config import (
+    Config,
+    FusedStepConfig,
+    ServeConfig,
+    TrainConfig,
+)
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
-from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tap_conv
+from parallel_cnn_tpu_torch.nn import resnet
+from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tail, tap_conv, tap_wgrad
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
-from parallel_cnn_tpu_torch.train import step, trainer
+from parallel_cnn_tpu_torch.train import step, trainer, zoo
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
@@ -242,3 +249,181 @@ def test_cuda_step_matches_plain_step_on_card(card):
     assert abs(float(e1) - float(e2)) < 1e-5
     for a, b in zip(tree_leaves(got), tree_leaves(want)):
         np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# The zoo trainer's kernels: dgrad (tap_conv.cu), wgrad (tap_wgrad.cu), the
+# fused loss tail (tail_ce.cu)
+# ---------------------------------------------------------------------------
+
+# (b, h, w, cin, cout, k, s): every ResNet-18 conv geometry at batch 8, then
+# the k = 5 and 7, odd-size and stride-2 shapes of CASES.
+GRAD_CASES = [
+    (8, 32, 32, 3, 64, 3, 1), (8, 32, 32, 64, 64, 3, 1),
+    (8, 32, 32, 64, 128, 3, 2), (8, 32, 32, 64, 128, 1, 2),
+    (8, 16, 16, 128, 128, 3, 1), (8, 16, 16, 128, 256, 3, 2),
+    (8, 16, 16, 128, 256, 1, 2), (8, 8, 8, 256, 256, 3, 1),
+    (8, 8, 8, 256, 512, 3, 2), (8, 8, 8, 256, 512, 1, 2),
+    (8, 4, 4, 512, 512, 3, 1),
+] + [c for c in CASES if c[0] < 8]
+# f32 on both sides, TF32 off; the sums run in other orders (wgrad sums
+# up to N·OH·OW = 8192 products per value), so relative to the output scale.
+GRAD_RTOL = 1e-4
+
+
+def _close(got, want, rtol=GRAD_RTOL):
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    tol = rtol * max(1.0, float(want.abs().max()))
+    assert float((got - want).abs().max()) <= tol
+
+
+def _grad_inputs(dev, b, h, w, cin, cout, k, s, seed):
+    rng = np.random.default_rng(seed)
+    oh, ow = -(-h // s), -(-w // s)
+    arrays = (rng.standard_normal((b, h, w, cin)),
+              rng.standard_normal((k, k, cin, cout)) * 0.1,
+              rng.standard_normal((b, oh, ow, cout)))
+    return [torch.from_numpy(a.astype(np.float32)).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", GRAD_CASES)
+def test_dgrad_and_wgrad_match_plain_on_card(card, b, h, w, cin, cout, k, s):
+    x, wt, g = _grad_inputs(card, b, h, w, cin, cout, k, s, b + h * w + k)
+    d0, w0 = tap_conv.dgrad_launches.count, tap_wgrad.launches.count
+    dx = tap_conv.conv2d_dgrad(g, wt, x.shape, s)
+    gw = tap_wgrad.conv2d_wgrad(x, g, k, s)
+    dx2 = tap_conv.conv2d_dgrad(g, wt, x.shape, s)
+    gw2 = tap_wgrad.conv2d_wgrad(x, g, k, s)
+    torch.cuda.synchronize()
+    assert tap_conv.dgrad_launches.count == d0 + 2
+    assert tap_wgrad.launches.count == w0 + 2
+    assert torch.equal(dx, dx2) and torch.equal(gw, gw2)  # relaunch
+    _close(dx, tap_conv.conv2d_dgrad_plain(g, wt, x.shape, s))
+    _close(gw, tap_wgrad.conv2d_wgrad_plain(x, g, k, s))
+
+
+def test_conv2d_autograd_runs_the_grad_kernels_on_card(card):
+    x, wt, g = _grad_inputs(card, 2, 8, 8, 4, 8, 3, 2, 5)
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    counts = (tap_conv.launches.count, tap_conv.dgrad_launches.count,
+              tap_wgrad.launches.count)
+    y = tap_conv.conv2d(x, wt, 2)
+    dx, dw = torch.autograd.grad(y, (x, wt), g)
+    assert (tap_conv.launches.count, tap_conv.dgrad_launches.count,
+            tap_wgrad.launches.count) == tuple(c + 1 for c in counts)
+    _close(dx, tap_conv.conv2d_dgrad_plain(g, wt.detach(), x.shape, 2))
+    _close(dw, tap_wgrad.conv2d_wgrad_plain(x.detach(), g, 3, 2))
+    # No input gradient wanted (the stem's batch): no dgrad launch.
+    y = tap_conv.conv2d(x.detach(), wt, 2)
+    torch.autograd.grad(y, wt, g)
+    assert tap_conv.dgrad_launches.count == counts[1] + 1
+
+
+def test_grad_wrappers_raise_instead_of_falling_back(card):
+    x, wt, g = _grad_inputs(card, 2, 8, 8, 4, 8, 3, 1, 0)
+    counts = (tap_conv.dgrad_launches.count, tap_wgrad.launches.count)
+    with pytest.raises(TypeError):
+        tap_conv.conv2d_dgrad(g.double(), wt, x.shape, 1)
+    with pytest.raises(ValueError):
+        tap_conv.conv2d_dgrad(g, wt.cpu(), x.shape, 1)
+    with pytest.raises(ValueError):
+        tap_wgrad.conv2d_wgrad(x, g.transpose(1, 2), 3, 1)
+    with pytest.raises(ValueError):
+        tap_wgrad.conv2d_wgrad(x, g[:, :4], 3, 1)
+    assert (tap_conv.dgrad_launches.count, tap_wgrad.launches.count) == counts
+
+
+def _tail_inputs(dev, b, pool, seed):
+    rng = np.random.default_rng(seed)
+    shape = {"max2": (b, 8, 8, 128), "gap": (b, 4, 4, 512), "none": (b, 2, 2, 64)}[pool]
+    x = np.maximum(rng.standard_normal(shape), 0.0)  # ReLU ties, as in training
+    d = {"max2": 4 * 4 * 128, "gap": 512, "none": 256}[pool]
+    w = rng.standard_normal((d, 10)) * 0.05
+    bias = rng.standard_normal(10) * 0.1
+    y = rng.integers(0, 10, b)
+    t = [torch.from_numpy(a.astype(np.float32)).to(dev) for a in (x, w, bias)]
+    return (*t, torch.from_numpy(y).to(dev))
+
+
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+@pytest.mark.parametrize("b", [1, 7, 128])
+def test_tail_kernel_matches_plain_on_card(card, b, pool):
+    x, w, bias, y = _tail_inputs(card, b, pool, b + len(pool))
+    before = tail.launches.count
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    loss2, dl2 = tail.tail_forward(x, w, bias, y, pool)
+    torch.cuda.synchronize()
+    assert tail.launches.count == before + 2
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
+    _close(loss, ref_loss, 1e-5)
+    _close(dl, ref_dl, 1e-5)
+
+
+def test_tail_raises_instead_of_falling_back(card):
+    x, w, bias, y = _tail_inputs(card, 4, "gap", 0)
+    before = tail.launches.count
+    with pytest.raises(TypeError):
+        tail.fused_tail_loss(x, w, bias, y.int(), pool="gap")
+    with pytest.raises(ValueError):
+        tail.fused_tail_loss(x, w.cpu(), bias, y, pool="gap")
+    with pytest.raises(ValueError):
+        tail.fused_tail_loss(x.permute(0, 2, 1, 3), w, bias, y, pool="gap")
+    assert tail.launches.count == before
+
+
+def _zoo_step_models(dev):
+    """ResNet-18 on the kernels and on library convs, the same weights."""
+    kern = resnet.resnet18(10, backend="cuda",
+                           generator=torch.Generator().manual_seed(0)).to(dev)
+    plain = resnet.resnet18(10, backend="torch",
+                            generator=torch.Generator().manual_seed(0)).to(dev)
+    return kern, plain
+
+
+def test_resnet18_kernel_steps_match_plain_steps_on_card(card):
+    """3 steps from one state: f32 sums in other orders, through batch-stat
+    BN. At init the net amplifies such differences step by step, so the
+    check runs at a gentle LR (f32 against f64 on the CPU at this LR and
+    batch: 9e-6 in the loss, 2e-5 in the state after 3 steps)."""
+    imgs, labels = synthetic.make_image_dataset(192, seed=3)
+    x = torch.from_numpy(imgs).to(card)
+    y = torch.from_numpy(labels).to(card, torch.int64)
+    opt = zoo.make_optimizer(0.001)
+    kern, plain = _zoo_step_models(card)
+    sk, sp = zoo.init_state(kern, opt), zoo.init_state(plain, opt)
+    f32 = FusedStepConfig(update=False, act_dtype="float32")
+    step_k = zoo.make_train_step(kern, opt, fused=f32)
+    step_p = zoo.make_train_step(plain, opt)
+    counts = (tap_conv.launches.count, tap_conv.dgrad_launches.count,
+              tap_wgrad.launches.count, tail.launches.count)
+    prev = torch.backends.cudnn.enabled
+    torch.backends.cudnn.enabled = False
+    try:
+        for i in range(3):
+            sl = slice(64 * i, 64 * (i + 1))
+            lk = step_k(sk, x[sl], y[sl])
+            lp = step_p(sp, x[sl], y[sl])
+            assert abs(float(lk) - float(lp)) <= 1e-4
+    finally:
+        torch.backends.cudnn.enabled = prev
+    after = (tap_conv.launches.count, tap_conv.dgrad_launches.count,
+             tap_wgrad.launches.count, tail.launches.count)
+    assert [a - c for a, c in zip(after, counts)] == [60, 57, 60, 3]
+    for (name, a), (_, b) in zip(kern.state_dict().items(),
+                                 plain.state_dict().items()):
+        assert float((a - b).abs().max()) <= 5e-4, name
+
+
+def test_zoo_train_is_deterministic_on_card(card, tmp_path):
+    imgs, labels = synthetic.make_image_dataset(64, seed=4)
+    runs = []
+    for _ in range(2):
+        model = resnet.resnet18(10, backend="cuda",
+                                generator=torch.Generator().manual_seed(1))
+        state, losses = zoo.train(model, imgs, labels, epochs=1, batch_size=16,
+                                  verbose=False, device=card)
+        runs.append((losses, zoo.ZooState.snapshot(state)))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])

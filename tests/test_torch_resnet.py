@@ -14,6 +14,7 @@ from parallel_cnn_tpu.train import checkpoint as jax_checkpoint
 from parallel_cnn_tpu.train.zoo import ZooState
 from parallel_cnn_tpu_torch import convert
 from parallel_cnn_tpu_torch.nn import resnet
+from parallel_cnn_tpu_torch.ops import tap_conv
 from parallel_cnn_tpu_torch.serve import get
 
 IN_SHAPE = (32, 32, 3)
@@ -209,7 +210,14 @@ def test_bn_fold_is_cached_until_bn_changes():
 
 
 def test_train_mode_is_refused():
+    """Training mode is the unfused composition through conv2d (which has a
+    backward); the fused eval kernel path refuses to record a gradient."""
     model = resnet.resnet18(10)  # nn.Module default: training mode
-    with pytest.raises(NotImplementedError, match="inference only"):
-        model(torch.zeros((1, *IN_SHAPE)))
+    stem = model[0]
+    x = torch.zeros((2, *IN_SHAPE))
+    y = model(x)
+    assert y.requires_grad and y.shape == (2, 10)
+    scale, shift = stem.folded_bn()
+    with pytest.raises(RuntimeError, match="forward-only"):
+        tap_conv.conv2d_fused(x, stem.conv["w"], scale, shift, None, 1, True)
 

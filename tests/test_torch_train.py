@@ -416,7 +416,7 @@ def test_cli_defaults_to_the_gpu():
     (["--batch-size", "16", "--prefetch", "native"], pipeline.NativeUnavailableError),
     (["--ops", "pallas"], SystemExit),
     (["--mesh-data", "2"], SystemExit),
-    (["--model", "cifar_cnn"], SystemExit),
+    (["--model", "resnet50"], SystemExit),  # vgg16 and resnet50: a later slice
 ], ids=["per-sample-cuda", "native-prefetch", "pallas-name", "mesh-flag", "zoo-model"])
 def test_cli_refuses_what_the_port_does_not_run(argv, err, capsys):
     with pytest.raises(err):
