@@ -21,7 +21,11 @@ port's two paths through their user-facing entry points:
   batch 128 with every conv's forward, input gradient and weight gradient
   through the hand kernels and the loss through the fused tail kernel, a
   resumed run against a straight one, kernel steps against plain steps,
-  the CIFAR CNN's fused tail, and a profiled epoch.
+  the CIFAR CNN's fused tail, and a profiled epoch;
+- the staged LeNet-ref library: its seven kernels against their plain
+  versions, its grads against the fused kernel's, 50 training steps on
+  them against 50 fused steps, a profiled epoch, and inference over the
+  synthetic test set, with exact launch counts.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -42,6 +46,7 @@ import json
 import shutil
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -61,8 +66,17 @@ from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn import resnet
 from parallel_cnn_tpu_torch.nn.layers import BatchNorm, ConvBNAct
 from parallel_cnn_tpu_torch.nn.resnet import BasicBlock
-from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tail, tap_conv, tap_wgrad
+from parallel_cnn_tpu_torch.ops import (
+    lenet_fused,
+    lenet_staged,
+    reference,
+    sgd_update,
+    tail,
+    tap_conv,
+    tap_wgrad,
+)
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
+from parallel_cnn_tpu_torch.ops.activations import apply_grad
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step as step_lib
 from parallel_cnn_tpu_torch.train import trainer, zoo
@@ -87,7 +101,7 @@ CONV_RTOL = 1e-4
 LOGIT_RTOL = 1e-3
 SERVE_REQUESTS = 256
 SERVE_CONCURRENCY = 16
-KERNEL_MODULES = (tap_conv, tap_wgrad, tail, lenet_fused, sgd_update)
+KERNEL_MODULES = (tap_conv, tap_wgrad, tail, lenet_fused, sgd_update, lenet_staged)
 TIME_LIMIT_S = 1100
 
 # The LeNet-ref trainer. B1 (lenet_fused) vs its plain version: f32 on both
@@ -128,6 +142,24 @@ GEOMETRIES = [
     ("3x3/s1 512 tail+res", 4, 512, 512, 3, 1, True, True, 2),
 ]
 CONVS_PER_FORWARD = sum(g[-1] for g in GEOMETRIES)  # 1 + 16 + 3 = 20
+
+# The staged LeNet-ref library (lenet_staged, B3-B9). Each kernel against
+# its plain version at these batches, with LENET_RTOL; the staged grads
+# against B1's at batch 64 within JAX's own tolerances for the two tiers
+# (tests/test_ops_pallas.py:100-109); inference against reference.forward.
+STAGED_SIZES = (1, 7, 64, 1000)
+ANCHOR_ERR_ATOL = 1e-6
+ANCHOR_GRAD_TOL = 1e-5  # absolute and relative
+TEST_COUNT = 10_000
+OUT_ATOL = 1e-5
+# A staged prediction may differ from the plain one only where the plain
+# outputs' top two are closer than this.
+TIE_GAP = 1e-5
+STAGED_PER_STEP = {"conv_fwd": 1, "pool_fwd": 1, "fc_fwd": 1, "fc_bwd": 1,
+                   "pool_bwd": 1, "sigma_prime": 1, "accum_matmul": 2}
+STAGED_PER_FORWARD = {"conv_fwd": 1, "pool_fwd": 1, "fc_fwd": 1}
+STAGED_REPLACES = {"conv_fwd": 141, "pool_fwd": 201, "fc_fwd": 238, "fc_bwd": 279,
+                   "pool_bwd": 333, "sigma_prime": 413, "accum_matmul": 371}
 
 # The zoo trainer: ResNet-18 at batch 128 on 40 steps per epoch of the
 # synthetic CIFAR-shape set; eval in batches of 256 (JAX's default).
@@ -560,10 +592,12 @@ def train_phase(card) -> dict:
     return launches
 
 
-def profiled_epoch(ds, label: str, cfg: Config) -> None:
+def profiled_epoch(ds, label: str, cfg: Config):
     """Where an epoch's time goes: one epoch of trainer.learn under
     torch.profiler (CUDA activity only) — device time by kernel, launches
-    per step and the device's busy share of the epoch's wall time."""
+    per step and the device's busy share of the epoch's wall time. Returns
+    (us per step, device ops per step, idle share), or None when the
+    profiler saw no device events."""
     trainer.learn(cfg, ds, verbose=False)  # warm: allocator, library, caches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -573,20 +607,28 @@ def profiled_epoch(ds, label: str, cfg: Config) -> None:
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
+    return report_profile(f"epoch ({label}, b{TRAIN_BATCH}, {res.steps} steps)",
+                          kernels, wall_ms, res.steps)
+
+
+def report_profile(label: str, kernels, wall_ms: float, steps: int, top: int = 8):
+    """Print a profiled LeNet epoch's wall time, device busy and idle share,
+    device ops and us per step, and its top kernels; returns (us per step,
+    ops per step, idle share), or None when no device time was seen."""
     dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     n_kernels = sum(e.count for e in kernels)
     if dev_ms == 0:
-        print("[smoke] profiled epoch: device time not measured (the profiler "
-              "saw no device events)", flush=True)
-        return
-    print(f"[smoke] profiled epoch ({label}, b{TRAIN_BATCH}, {res.steps} steps): "
-          f"wall {wall_ms:.1f} ms, device busy {dev_ms:.1f} ms "
-          f"({dev_ms / wall_ms:.1%}), idle {1 - dev_ms / wall_ms:.1%}; "
-          f"{n_kernels / res.steps:.1f} device ops per step, "
-          f"{wall_ms / res.steps * 1e3:.1f} us per step", flush=True)
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"[smoke] profiled {label}: device time not measured (the "
+              "profiler saw no device events)", flush=True)
+        return None
+    us, ops, idle = wall_ms / steps * 1e3, n_kernels / steps, 1 - dev_ms / wall_ms
+    print(f"[smoke] profiled {label}: wall {wall_ms:.1f} ms, device busy "
+          f"{dev_ms:.1f} ms ({dev_ms / wall_ms:.1%}), idle {idle:.1%}; "
+          f"{ops:.1f} device ops per step, {us:.1f} us per step", flush=True)
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    return us, ops, idle
 
 
 def time_lenet_kernels() -> dict:
@@ -635,6 +677,332 @@ def time_lenet_kernels() -> dict:
         if n == lenet_fused.N_GRADS:
             out["sgd_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                      bound_by=by, library_ms=lib)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The staged LeNet-ref library: B3-B9 (lenet_staged)
+# ---------------------------------------------------------------------------
+
+
+def as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+def reset_staged_counts() -> None:
+    for counter in lenet_staged.launches.values():
+        counter.reset()
+
+
+def expect_staged_counts(what: str, per: dict, times: int) -> dict:
+    """Fail unless the staged counters read exactly per x times (0 for a
+    kernel per does not name); returns the counts."""
+    got = {k: c.count for k, c in lenet_staged.launches.items()}
+    want = {k: per.get(k, 0) * times for k in lenet_staged.KERNELS}
+    print(f"[smoke] staged (e): {what}: launches {got} (expected {want}) "
+          f"{'ok' if got == want else 'FAIL'}", flush=True)
+    if got != want:
+        fail(f"staged {what}: the launch counts are not exactly the path's")
+    return got
+
+
+# The staged path's kernel functions by launch counter, and the order of
+# its two B9 call sites within one staged_value_and_ref_grads.
+STAGE_FUNCTIONS = {"conv_fwd": "conv_fwd", "pool_fwd": "pool_fwd", "fc_fwd": "fc_fwd",
+                   "fc_bwd": "fc_bwd", "pool_bwd": "pool_bwd",
+                   "sigma_prime": "conv_bwd_dpre", "accum_matmul": "_accum_matmul"}
+B9_SITES = ("pool_wgrad", "conv_wgrad")
+
+
+def stage_cases(params, xs, ys) -> dict:
+    """Each kernel function of the staged path, its plain twin and the
+    inputs the path gives it for this batch, keyed by launch counter (B9
+    once per call site, as accum_matmul/pool_wgrad and
+    accum_matmul/conv_wgrad): recorded from one run of
+    staged_value_and_ref_grads on the host, through the plain twins, and
+    moved to the device of xs. What a check of every kernel against its
+    plain twin iterates."""
+    calls = []
+
+    def recorder(key, fn):
+        def record(*args):
+            calls.append((key, fn, args))
+            return fn(*args)
+        return record
+
+    def host(t):
+        return t.cpu()
+
+    with contextlib.ExitStack() as patches:
+        for key, attr in STAGE_FUNCTIONS.items():
+            fn = getattr(lenet_staged, attr)
+            patches.enter_context(mock.patch.object(lenet_staged, attr, recorder(key, fn)))
+        lenet_staged.staged_value_and_ref_grads(tree_map(host, params), host(xs), host(ys))
+    cases, sites = {}, iter(B9_SITES)
+    for key, fn, args in calls:
+        if key == "accum_matmul":
+            key = f"{key}/{next(sites)}"
+        plain = getattr(lenet_staged, fn.__name__ + "_plain")
+        cases[key] = (fn, plain, tuple(a.to(xs.device) for a in args))
+    return cases
+
+
+def check_staged_kernels() -> dict:
+    """(a) Each staged kernel at the inputs the path gives it, against its
+    plain version on the same inputs, at every batch size; a relaunch bit
+    for bit. Returns the largest difference of each kernel."""
+    errs = dict.fromkeys(lenet_staged.KERNELS, 0.0)
+    for n in STAGED_SIZES:
+        params, xs, ys = lenet_inputs(n, 200 + n)
+        for case, (fn, plain, args) in stage_cases(params, xs, ys).items():
+            got, again = as_tuple(fn(*args)), as_tuple(fn(*args))
+            want = as_tuple(plain(*args))
+            torch.cuda.synchronize()
+            worst, ok = 0.0, True
+            for g, w in zip(got, want):
+                d = float((g - w).abs().max())
+                ok = ok and g.shape == w.shape and bool(torch.isfinite(g).all())
+                ok = ok and d <= LENET_RTOL * max(1.0, float(w.abs().max()))
+                worst = max(worst, d)
+            same = all(torch.equal(g, a) for g, a in zip(got, again))
+            print(f"[smoke] staged (a) {case:24s} n={n:<4d}: max |Δ| vs plain "
+                  f"{worst:.3e} (tol {LENET_RTOL:.0e}·max(1,|ref|)), relaunch "
+                  f"{'bit-identical' if same else 'DIFFERS'} "
+                  f"{'ok' if ok and same else 'FAIL'}", flush=True)
+            if not (ok and same):
+                fail(f"staged {case} n={n}: the kernel disagrees with its plain "
+                     "version or is not deterministic")
+            key = case.split("/")[0]
+            errs[key] = max(errs[key], worst)
+    return errs
+
+
+def check_staged_anchor() -> None:
+    """(b) The staged grads against B1's (lenet_fused) at batch 64."""
+    params, xs, ys = lenet_inputs(TRAIN_BATCH, 300)
+    err, grads = lenet_staged.staged_value_and_ref_grads(params, xs, ys)
+    ref_err, ref = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    d_err = abs(float(err) - float(ref_err))
+    ok = d_err <= ANCHOR_ERR_ATOL
+    d_grad = 0.0
+    for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        d_grad = max(d_grad, float((g - r).abs().max()))
+        ok = ok and g.shape == r.shape and bool(
+            ((g - r).abs() <= ANCHOR_GRAD_TOL + ANCHOR_GRAD_TOL * r.abs()).all())
+    print(f"[smoke] staged (b): staged_value_and_ref_grads vs lenet_fused at "
+          f"b{TRAIN_BATCH}: |Δerr| {d_err:.3e} (tol {ANCHOR_ERR_ATOL:.0e}), max "
+          f"|Δgrad| {d_grad:.3e} (tol {ANCHOR_GRAD_TOL:.0e} + "
+          f"{ANCHOR_GRAD_TOL:.0e}·|ref|) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the staged grads disagree with the fused kernel's")
+
+
+def staged_step(params, x, y, dt):
+    """One minibatch step on the staged grads: p += dt·mean(g)."""
+    err, grads = lenet_staged.staged_value_and_ref_grads(params, x, y)
+    return apply_grad(params, grads, dt), err
+
+
+def staged_epoch(params, images, labels, seed):
+    """One epoch of staged steps in the trainer's order (the native ring's
+    xorshift order, drop-tail), indices copied to the card once; returns
+    (params, mean error as a float: the epoch's one readback)."""
+    order = pipeline.epoch_order(len(images), TRAIN_BATCH, shuffle=True, seed=seed,
+                                 native_semantics=True)
+    flat = torch.from_numpy(np.concatenate(order)).cuda()
+    errs = []
+    for i in range(len(order)):
+        j = flat[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        params, e = staged_step(params, images[j], labels[j], 0.1)
+        errs.append(e)
+    return params, float(torch.stack(errs).mean())
+
+
+def staged_phase(card, ds, fused_profile) -> tuple:
+    """The staged library's path on the card: (a) each kernel against its
+    plain version, (b) the grads against B1's, (c) 50 staged steps against
+    50 B1 steps and a profiled epoch, (d) inference over the synthetic
+    test set, (e) exact launch counts for (c) and (d). ``ds`` is the
+    trainer's synthetic training set. Returns (the largest difference of
+    each kernel, the launches of (c) and (d))."""
+    errs = check_staged_kernels()
+    check_staged_anchor()
+
+    # (c) 50 steps from one init, staged against B1, in the trainer's order.
+    images = torch.from_numpy(ds.images).cuda()
+    labels = torch.from_numpy(ds.labels).cuda()
+    order = pipeline.epoch_order(TRAIN_COUNT, TRAIN_BATCH, shuffle=True, seed=0,
+                                 native_semantics=True)
+    p_staged = p_fused = trainer.init_params(0, torch.device("cuda"))
+    reset_staged_counts()
+    for idx in order[:STEP_CHECK_STEPS]:
+        j = torch.from_numpy(idx).cuda()
+        p_staged, _ = staged_step(p_staged, images[j], labels[j], 0.1)
+        p_fused, _ = step_lib.cuda_batched_step(p_fused, images[j], labels[j], 0.1)
+    diff = max(float((a - b).abs().max())
+               for a, b in zip(tree_leaves(p_staged), tree_leaves(p_fused)))
+    print(f"[smoke] staged (c): {STEP_CHECK_STEPS} staged steps vs {STEP_CHECK_STEPS} "
+          f"cuda_batched_step (B1) steps from one init: max |Δparams| {diff:.3e} "
+          f"(tol {STEP_CHECK_ATOL:.0e}) {'ok' if diff <= STEP_CHECK_ATOL else 'FAIL'}",
+          flush=True)
+    if not diff <= STEP_CHECK_ATOL:
+        fail("the staged steps drifted from the fused kernel's steps")
+    launches = expect_staged_counts(f"{STEP_CHECK_STEPS} steps", STAGED_PER_STEP,
+                                    STEP_CHECK_STEPS)
+
+    # (c) a warm epoch, then one profiled epoch, on the staged grads.
+    reset_staged_counts()
+    p_staged, err1 = staged_epoch(p_staged, images, labels, seed=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        p_staged, err2 = staged_epoch(p_staged, images, labels, seed=2)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    print(f"[smoke] staged (c): epoch errors {err1:.6f}, {err2:.6f}", flush=True)
+    if not (np.isfinite(err1) and np.isfinite(err2) and err2 < err1):
+        fail("the staged epochs' error did not fall")
+    staged = report_profile(f"staged epoch (b{TRAIN_BATCH}, {STEPS_PER_EPOCH} steps)",
+                            kernels, wall_ms, STEPS_PER_EPOCH, top=16)
+    if staged is not None and fused_profile is not None:
+        print(f"[smoke] staged (c): staged {staged[0]:.1f} us per step, "
+              f"{staged[1]:.1f} device ops, idle {staged[2]:.1%}; --ops cuda "
+              f"{fused_profile[0]:.1f} us per step, {fused_profile[1]:.1f} device "
+              f"ops, idle {fused_profile[2]:.1%}; staged:fused step time "
+              f"{staged[0] / fused_profile[0]:.2f} on {card}", flush=True)
+    counts = expect_staged_counts(f"2 epochs of {STEPS_PER_EPOCH} steps",
+                                  STAGED_PER_STEP, 2 * STEPS_PER_EPOCH)
+    launches = {k: launches[k] + counts[k] for k in launches}
+
+    # (d) forward and predict over the test set, against the plain forward.
+    # The trainer's synthetic test split (DataConfig's seed + 1).
+    test_imgs, test_labels = synthetic.make_dataset(TEST_COUNT, seed=1235)
+    xt = torch.from_numpy(test_imgs).cuda()
+    yt = torch.from_numpy(test_labels).cuda()
+    batches = -(-TEST_COUNT // TRAIN_BATCH)
+    reset_staged_counts()
+    out_err, near_ties, wrong, errors = 0.0, 0, 0, 0
+    for i in range(batches):
+        xb = xt[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]
+        out_f = lenet_staged.forward(p_staged, xb).out_f
+        pred = lenet_staged.predict(p_staged, xb)
+        ref_out = reference.forward(p_staged, xb).out_f
+        ref_pred = reference.predict(p_staged, xb)
+        out_err = max(out_err, float((out_f - ref_out).abs().max()))
+        top2 = torch.topk(ref_out, 2, dim=-1).values
+        tie = (top2[:, 0] - top2[:, 1]) < TIE_GAP
+        near_ties += int(tie.sum())
+        wrong += int(((pred != ref_pred) & ~tie).sum())
+        errors += int((pred != yt[i * TRAIN_BATCH:(i + 1) * TRAIN_BATCH]).sum())
+    ok = out_err <= OUT_ATOL and wrong == 0
+    print(f"[smoke] staged (d): forward + predict over {TEST_COUNT} test images in "
+          f"{batches} batches: max |Δout_f| vs reference.forward {out_err:.3e} (tol "
+          f"{OUT_ATOL:.0e}), predictions differing outside near-ties {wrong}, "
+          f"near-ties (top-two gap < {TIE_GAP:.0e}) {near_ties}; error rate "
+          f"{100.0 * errors / TEST_COUNT:.2f}% {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the staged forward or predict disagrees with the plain reference")
+    counts = expect_staged_counts(f"{batches} forward + {batches} predict calls",
+                                  STAGED_PER_FORWARD, 2 * batches)
+    launches = {k: launches[k] + counts[k] for k in launches}
+    return errs, launches
+
+
+def staged_bound_ms(name, args, outs):
+    """Least time for one staged kernel call: each input and output tensor
+    moved once at the HBM rate against its multiply-adds (2 operations) and
+    the sigma' chain's 3 operations per element at the f32 peak (sigma's
+    own exp and division not counted)."""
+    elems = sum(t.numel() for t in args) + sum(t.numel() for t in outs)
+    if name == "conv_fwd":
+        ops = 2 * 25 * outs[0].numel()
+    elif name == "pool_fwd":
+        ops = 2 * 16 * outs[0].numel()
+    elif name == "fc_fwd":
+        ops = 2 * 216 * outs[0].numel()
+    elif name == "fc_bwd":
+        n = args[0].shape[0]
+        ops = 2 * n * 2160 + n * 10 + 2 * n * 216 * 10
+    elif name == "pool_bwd":
+        ops = 3 * outs[0].numel() + outs[1].numel()
+    elif name == "sigma_prime":
+        ops = 3 * outs[0].numel()
+    else:  # accum_matmul
+        ops = 2 * args[0].shape[0] * args[0].shape[1] * args[1].shape[1]
+    t_ops = ops / PEAK_F32_FLOPS * 1e3
+    t_bytes = 4.0 * elems / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def staged_library_call(case, args):
+    """One PyTorch call computing the same function, where there is one
+    (the yardstick; the port never calls it): the preactivation of B3, B4
+    and B5 (their sigma aside) as cuDNN's conv with bias and as F.linear,
+    B6's weight grad dT.s as one matmul (its bias grad and d.W aside), and
+    aT.b as one matmul; else None (B7, B8: no one call takes the preact's
+    sigma')."""
+    if case == "conv_fwd":
+        x, w, b = args
+        x4, w4 = x.unsqueeze(1), w.unsqueeze(1)
+        return lambda: F.conv2d(x4, w4, b)
+    if case == "pool_fwd":
+        xw, w, b = args
+        xt, w1, b1 = xw.transpose(1, 2), w.reshape(1, 16), b.reshape(1)
+        return lambda: F.linear(xt, w1, b1)
+    if case == "fc_fwd":
+        return lambda: F.linear(*args)
+    if case == "fc_bwd":
+        d, s, _ = args
+        return lambda: torch.matmul(d.T, s)
+    if case.startswith("accum_matmul"):
+        a, b = args
+        return lambda: torch.matmul(a.T, b)
+    return None
+
+
+def conv_wgrad_bound_ms(xs):
+    """Least time for conv_wgrad's work from its own inputs, x and
+    d_pre_c1 (n,6,24,24), to the (6,5,5) gradient: B9's bound without the
+    host-side im2col it is fed through."""
+    n = xs.shape[0]
+    t_bytes = 4.0 * (n * 784 + n * 3456 + 150) / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * n * 576 * 150 / PEAK_F32_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_staged_kernels() -> dict:
+    """(f) Each staged kernel at batch 64 at the path's inputs: device ms
+    beside its bound, its plain version and the library call. B9's record
+    holds the sums over its two call sites in one step, named by the site
+    with the larger bound."""
+    params, xs, ys = lenet_inputs(TRAIN_BATCH, 400)
+    sites = {}
+    for case, (fn, plain, args) in stage_cases(params, xs, ys).items():
+        ms = cuda_ms(lambda: fn(*args), reps=50)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=50)
+        lib = staged_library_call(case, args)
+        lib_ms = cuda_ms(lib, reps=50) if lib is not None else None
+        bound, by = staged_bound_ms(case.split("/")[0], args, as_tuple(fn(*args)))
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
+        print(f"[smoke] time staged {case:24s} b{TRAIN_BATCH}: kernel {ms:.4f} ms, "
+              f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {bound:.6f} ms "
+              f"({by}), {bound / ms:.2%} of bound", flush=True)
+        sites.setdefault(case.split("/")[0], []).append(
+            dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
+    bound, by = conv_wgrad_bound_ms(xs)
+    print(f"[smoke] time staged conv_wgrad from x and d_pre_c1 b{TRAIN_BATCH}: bound "
+          f"{bound:.6f} ms ({by}), without the im2col that B9's bound above counts",
+          flush=True)
+    out = {}
+    for key, recs in sites.items():
+        libs = [r["library_ms"] for r in recs]
+        out[key] = dict(
+            ms=sum(r["ms"] for r in recs), plain_ms=sum(r["plain_ms"] for r in recs),
+            bound_ms=sum(r["bound_ms"] for r in recs),
+            bound_by=max(recs, key=lambda r: r["bound_ms"])["bound_by"],
+            library_ms=None if None in libs else sum(libs))
     return out
 
 
@@ -1119,11 +1487,16 @@ def main() -> int:
     # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
     train_launches = train_phase(card)
     ds = pipeline.Dataset(*synthetic.make_dataset(TRAIN_COUNT, seed=1234))
+    epoch_profiles = {}
     for label, ops, fused in (("--ops cuda", "cuda", False),
                               ("--fused-step", "reference", True)):
-        profiled_epoch(ds, label, Config(
+        epoch_profiles[label] = profiled_epoch(ds, label, Config(
             train=TrainConfig(batch_size=TRAIN_BATCH, ops=ops, shuffle=True),
             fused=fused))
+
+    # -- 4b'. the staged LeNet-ref library: B3-B9 ---------------------------
+    staged_errs, staged_launches = staged_phase(card, ds,
+                                                   epoch_profiles["--ops cuda"])
 
     # -- 4c. the zoo path: ResNet-18 and the CIFAR CNN through the CLI ----
     zoo_launches = zoo_phase(card)
@@ -1161,6 +1534,7 @@ def main() -> int:
           f"these sums)", flush=True)
     lenet_times = time_lenet_kernels()
     zoo_times = time_zoo_kernels()
+    staged_times = time_staged_kernels()
 
     records = [{
         "name": "tap_conv",
@@ -1215,7 +1589,15 @@ def main() -> int:
         "launches": train_launches["sgd_update"],
         "max_abs_err": sgd_err,
         **lenet_times["sgd_update"],
-    }]
+    }] + [{
+        "name": f"lenet_staged.{name}",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/lenet_staged.cu",
+        "replaces": f"parallel_cnn_tpu/ops/pallas.py:{STAGED_REPLACES[name]}",
+        "launches": staged_launches[name],
+        "max_abs_err": staged_errs[name],
+        **staged_times[name],
+    } for name in lenet_staged.KERNELS]
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": records}))

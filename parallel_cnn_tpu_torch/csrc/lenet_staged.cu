@@ -1,0 +1,350 @@
+// The staged LeNet-ref kernel library: one kernel per stage of the train
+// step, with the activations and gradients passing through device memory
+// between launches. Written for Hopper (sm_90a), bound to Python through
+// ctypes (ops/lenet_staged.py).
+//
+// Replaces the seven Pallas TPU kernels of the per-op tier of
+// parallel_cnn_tpu/ops/pallas.py, one launcher each:
+//
+//   B3 lenet_conv_fwd     <- `_conv_fwd_kernel`     (pallas.py:141, conv_fwd :158)
+//   B4 lenet_pool_fwd     <- `_pool_fwd_kernel`     (pallas.py:201, pool_fwd :214)
+//   B5 lenet_fc_fwd       <- `_fc_fwd_kernel`       (pallas.py:238, fc_fwd :250)
+//   B6 lenet_fc_bwd       <- `_fc_bwd_kernel`       (pallas.py:279, fc_bwd :303)
+//   B7 lenet_pool_bwd     <- `_pool_bwd_kernel`     (pallas.py:333, pool_bwd :345)
+//   B8 lenet_sigma_prime  <- `_sigma_prime_kernel`  (pallas.py:413, conv_bwd_dpre :419)
+//   B9 lenet_accum_matmul <- `_accum_matmul_kernel` (pallas.py:371, _accum_matmul :384;
+//                            called by pool_wgrad :402 and conv_wgrad :436)
+//
+// Layouts are the TPU tier's: x (n,28,28); pre/out of the conv (n,6,24,24);
+// the packed pool windows xw (n,16,216), tap t = 4i+j, lane m*36 + x*6 + y;
+// pool and FC activations (n,216) and (n,10); w_c1 (6,5,5), w_s1 (4,4) as 16
+// taps, w_f (10,216). The window packing, the im2col of conv_wgrad, the
+// error vector and the bias sums stay PyTorch ops, as they were XLA ops
+// outside every TPU kernel.
+//
+// Design. Every kernel but B9 gives one thread one output and walks its sum
+// in the TPU kernel's order: B3 starts from the bias and adds the 25 taps
+// in (i, j) order, B4 the 16 taps in t order, each product and sum rounded
+// on its own (__fmul_rn/__fadd_rn) as the plain PyTorch version rounds
+// them; B5's and B6's dot products run k, b or o upward with fused
+// multiply-adds. B6's weight and bias grads sum the batch in image order,
+// one thread per (class, feature). B9 reduces up to 576n rows: the rows are
+// cut into fixed chunks of ACCUM_ROWS; a block stages its chunk of a and b
+// in shared memory, THREADS / (ka*kb) groups of ka*kb threads each sum an
+// interleaved share of its rows, the groups are added in group order and
+// the chunk's partial goes to scratch; a second kernel sums the partials in
+// chunk order. No float atomics anywhere: a relaunch on the same inputs is
+// bit-identical.
+//
+// sigma(v) = 1 / (1 + expf(-v)) with IEEE expf and division (build without
+// --use_fast_math): the expression torch.sigmoid evaluates on a CUDA
+// tensor. B7 and B8 recompute sigma from the preactivation, as the TPU
+// kernels do (pallas.py:338, :415), and form d * s * (1 - s) left to right.
+//
+// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), at batch 64, each input
+// read once and each output written once: B3 moves 1.97 MB (0.59 us) for
+// 11.1 MFLOP (0.17 us), B4 1.0 MB, B5 69 kB, B6 130 kB, B7 1.05 MB, B8 2.65
+// MB (0.79 us), B9 at conv_wgrad 4.6 MB (1.37 us) for 11.1 MFLOP: every one
+// is bound by bytes, and every one sits below a launch's few microseconds.
+// B9's bytes are those of the im2col-fed product; the weight gradient it
+// serves needs only x and d_pre_c1, 1.09 MB (0.32 us), so a B9 that read x
+// directly would drop the host-side im2col and three quarters of its bound.
+// This first library aims at right and deterministic; the fused kernel
+// (csrc/lenet_fused.cu) is the fast path.
+//
+// The kernels launch on the caller's stream, synchronise nothing and
+// allocate nothing: the wrapper allocates outputs and B9's scratch and
+// checks devices, dtypes, shapes and contiguity first; the launchers refuse
+// an empty batch and B9's operands past its limits.
+
+#include <climits>
+
+#include <cuda_runtime.h>
+
+namespace {
+
+constexpr int THREADS = 256;
+constexpr int IMG = 784;        // 28 x 28 input pixels
+constexpr int CONV = 3456;      // 6 maps x 24 x 24
+constexpr int LANES = 216;      // 6 maps x 6 x 6 pool outputs
+constexpr int TAPS = 16;        // 4 x 4 pool window
+constexpr int CLASSES = 10;
+constexpr int ACCUM_ROWS = 256; // rows per B9 chunk
+
+__device__ __forceinline__ float sigmoid(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+__device__ __forceinline__ long long global_index() {
+  return static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+}
+
+int blocks_for(long long total) {
+  return static_cast<int>((total + THREADS - 1) / THREADS);
+}
+
+// B3: pre[b,m,r,c] = b_c1[m] + sum_{i,j} w[m,i,j] * x[b,r+i,c+j]; out = sigma(pre).
+__global__ void __launch_bounds__(THREADS)
+conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ pre,
+                float* __restrict__ out, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const long long img = idx / CONV;
+  const int rem = static_cast<int>(idx - img * CONV);
+  const int m = rem / 576;
+  const int p = rem - m * 576;
+  const int r = p / 24;
+  const int c = p - r * 24;
+  const float* xi = x + img * IMG + r * 28 + c;
+  const float* wm = w + m * 25;
+  float acc = bias[m];
+#pragma unroll
+  for (int i = 0; i < 5; ++i)
+#pragma unroll
+    for (int j = 0; j < 5; ++j)
+      acc = __fadd_rn(acc, __fmul_rn(wm[i * 5 + j], xi[i * 28 + j]));
+  pre[idx] = acc;
+  out[idx] = sigmoid(acc);
+}
+
+// B4: pre[b,l] = b_s1 + sum_t w[t] * xw[b,t,l]; out = sigma(pre).
+__global__ void __launch_bounds__(THREADS)
+pool_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ pre,
+                float* __restrict__ out, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const long long img = idx / LANES;
+  const int lane = static_cast<int>(idx - img * LANES);
+  const float* xi = xw + img * (TAPS * LANES) + lane;
+  float acc = bias[0];
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], xi[t * LANES]));
+  pre[idx] = acc;
+  out[idx] = sigmoid(acc);
+}
+
+// B5: pre[b,o] = (sum_k x[b,k] * w[o,k]) + b_f[o]; out = sigma(pre).
+__global__ void __launch_bounds__(THREADS)
+fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
+              const float* __restrict__ bias, float* __restrict__ pre,
+              float* __restrict__ out, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const long long img = idx / CLASSES;
+  const int o = static_cast<int>(idx - img * CLASSES);
+  const float* xi = x + img * LANES;
+  const float* wo = w + o * LANES;
+  float acc = 0.0f;
+  for (int k = 0; k < LANES; ++k) acc = fmaf(xi[k], wo[k], acc);
+  acc = acc + bias[o];
+  pre[idx] = acc;
+  out[idx] = sigmoid(acc);
+}
+
+// B6, one thread per output of three kinds:
+//   gw[o,k] = sum_b d[b,o] * s[b,k]   (2160 threads, b in image order)
+//   gb[o]   = sum_b d[b,o]            (10 threads, b in image order)
+//   dout[b,k] = sum_o d[b,o] * w[o,k] (216n threads, o upward)
+__global__ void __launch_bounds__(THREADS)
+fc_bwd_kernel(const float* __restrict__ d, const float* __restrict__ s,
+              const float* __restrict__ w, float* __restrict__ gw,
+              float* __restrict__ gb, float* __restrict__ dout, int n) {
+  const long long idx = global_index();
+  constexpr int GW = CLASSES * LANES;
+  if (idx < GW) {
+    const int o = static_cast<int>(idx) / LANES;
+    const int k = static_cast<int>(idx) - o * LANES;
+    float acc = 0.0f;
+    for (int b = 0; b < n; ++b)
+      acc = fmaf(d[static_cast<long long>(b) * CLASSES + o],
+                 s[static_cast<long long>(b) * LANES + k], acc);
+    gw[idx] = acc;
+    return;
+  }
+  if (idx < GW + CLASSES) {
+    const int o = static_cast<int>(idx) - GW;
+    float acc = 0.0f;
+    for (int b = 0; b < n; ++b) acc += d[static_cast<long long>(b) * CLASSES + o];
+    gb[o] = acc;
+    return;
+  }
+  const long long e = idx - (GW + CLASSES);
+  if (e >= static_cast<long long>(n) * LANES) return;
+  const long long img = e / LANES;
+  const int k = static_cast<int>(e - img * LANES);
+  const float* di = d + img * CLASSES;
+  float acc = 0.0f;
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) acc = fmaf(di[o], w[o * LANES + k], acc);
+  dout[e] = acc;
+}
+
+// B7: dpre = dout * s * (1 - s) with s = sigma(pre); dxw[b,t,l] = w[t] * dpre[b,l].
+__global__ void __launch_bounds__(THREADS)
+pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
+                const float* __restrict__ w, float* __restrict__ dpre,
+                float* __restrict__ dxw, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const long long img = idx / LANES;
+  const int lane = static_cast<int>(idx - img * LANES);
+  const float s = sigmoid(pre[idx]);
+  const float dp = dout[idx] * s * (1.0f - s);
+  dpre[idx] = dp;
+  float* di = dxw + img * (TAPS * LANES) + lane;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) di[t * LANES] = w[t] * dp;
+}
+
+// B8: out = d * s * (1 - s) with s = sigma(pre), elementwise.
+__global__ void __launch_bounds__(THREADS)
+sigma_prime_kernel(const float* __restrict__ d, const float* __restrict__ pre,
+                   float* __restrict__ out, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const float s = sigmoid(pre[idx]);
+  out[idx] = d[idx] * s * (1.0f - s);
+}
+
+// B9 pass one: the partial sum over one chunk of rows of a[r,p] * b[r,q],
+// for every (p, q), into partials[chunk, p*kb + q].
+__global__ void __launch_bounds__(THREADS)
+accum_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                     int rows, int ka, int kb, float* __restrict__ partials) {
+  extern __shared__ float smem[];  // ACCUM_ROWS*ka + ACCUM_ROWS*kb + THREADS
+  float* as = smem;
+  float* bs = as + ACCUM_ROWS * ka;
+  float* red = bs + ACCUM_ROWS * kb;
+  const int tid = threadIdx.x;
+  const int r0 = blockIdx.x * ACCUM_ROWS;
+  const int nr = min(ACCUM_ROWS, rows - r0);
+  const float* ag = a + static_cast<long long>(r0) * ka;
+  const float* bg = b + static_cast<long long>(r0) * kb;
+  for (int i = tid; i < nr * ka; i += THREADS) as[i] = ag[i];
+  for (int i = tid; i < nr * kb; i += THREADS) bs[i] = bg[i];
+  __syncthreads();
+
+  const int outs = ka * kb;
+  const int groups = THREADS / outs;
+  const int g = tid / outs;
+  const int o = tid - g * outs;
+  float acc = 0.0f;
+  if (g < groups) {
+    const int p = o / kb;
+    const int q = o - p * kb;
+    for (int r = g; r < nr; r += groups) acc = fmaf(as[r * ka + p], bs[r * kb + q], acc);
+  }
+  red[tid] = acc;
+  __syncthreads();
+  if (tid < outs) {
+    float sum = red[tid];
+    for (int gg = 1; gg < groups; ++gg) sum += red[gg * outs + tid];
+    partials[static_cast<long long>(blockIdx.x) * outs + tid] = sum;
+  }
+}
+
+// B9 pass two: out[o] = sum of the chunks' partials of o, in chunk order.
+__global__ void __launch_bounds__(THREADS)
+accum_finish_kernel(const float* __restrict__ partials, int chunks, int outs,
+                    float* __restrict__ out) {
+  const int o = blockIdx.x * THREADS + threadIdx.x;
+  if (o >= outs) return;
+  float acc = 0.0f;
+  for (int c = 0; c < chunks; ++c) acc += partials[static_cast<long long>(c) * outs + o];
+  out[o] = acc;
+}
+
+int launched() { return static_cast<int>(cudaGetLastError()); }
+
+}  // namespace
+
+// Plain C entry points for ctypes. Pointers are device pointers to
+// contiguous f32 arrays of the shapes above; n >= 1 is the batch. Each
+// returns 0 when its launches were accepted, else the cudaError_t.
+
+extern "C" int lenet_conv_fwd(const float* x, const float* w, const float* b,
+                              float* pre, float* out, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * CONV;
+  conv_fwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, b, pre, out, total);
+  return launched();
+}
+
+extern "C" int lenet_pool_fwd(const float* xw, const float* w, const float* b,
+                              float* pre, float* out, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * LANES;
+  pool_fwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      xw, w, b, pre, out, total);
+  return launched();
+}
+
+extern "C" int lenet_fc_fwd(const float* x, const float* w, const float* b,
+                            float* pre, float* out, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * CLASSES;
+  fc_fwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, w, b, pre, out, total);
+  return launched();
+}
+
+extern "C" int lenet_fc_bwd(const float* d, const float* s, const float* w,
+                            float* gw, float* gb, float* dout, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = CLASSES * LANES + CLASSES + static_cast<long long>(n) * LANES;
+  fc_bwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, s, w, gw, gb, dout, n);
+  return launched();
+}
+
+extern "C" int lenet_pool_bwd(const float* dout, const float* pre, const float* w,
+                              float* dpre, float* dxw, int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * LANES;
+  pool_bwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      dout, pre, w, dpre, dxw, total);
+  return launched();
+}
+
+extern "C" int lenet_sigma_prime(const float* d, const float* pre, float* out,
+                                 int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long total = static_cast<long long>(n) * CONV;
+  sigma_prime_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      d, pre, out, total);
+  return launched();
+}
+
+// a (rows, ka), b (rows, kb), partials (ceil(rows / ACCUM_ROWS), ka*kb),
+// out (ka, kb). The one place B9's limits are kept: 1 <= rows <= INT_MAX -
+// ACCUM_ROWS (row indices stay int), ka*kb <= THREADS, and (ka + kb) *
+// ACCUM_ROWS floats of staged rows in the 48 KB of shared memory a launch
+// gets unasked. Anything else is refused with cudaErrorInvalidValue.
+extern "C" int lenet_accum_matmul(const float* a, const float* b, long long rows,
+                                  long long ka, long long kb, float* partials, float* out,
+                                  void* stream) {
+  if (rows <= 0 || rows > INT_MAX - ACCUM_ROWS || ka <= 0 || kb <= 0 || ka * kb > THREADS ||
+      sizeof(float) * (ACCUM_ROWS * (ka + kb) + THREADS) > 48 * 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int outs = static_cast<int>(ka * kb);
+  const size_t smem = sizeof(float) * (ACCUM_ROWS * (ka + kb) + THREADS);
+  const int chunks = static_cast<int>((rows + ACCUM_ROWS - 1) / ACCUM_ROWS);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  accum_partial_kernel<<<chunks, THREADS, smem, s>>>(a, b, static_cast<int>(rows),
+                                                     static_cast<int>(ka),
+                                                     static_cast<int>(kb), partials);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return static_cast<int>(e);
+  accum_finish_kernel<<<1, THREADS, 0, s>>>(partials, chunks, outs, out);
+  return launched();
+}
+
+// The layout constants the wrapper sizes its tensors by, for its check:
+// i = 0..5 gives IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS; else -1.
+extern "C" int lenet_staged_dim(int i) {
+  const int dims[] = {IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS};
+  return (i >= 0 && i < 6) ? dims[i] : -1;
+}

@@ -142,6 +142,9 @@ def launch_stream(device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def raise_on_error(kernel: str, err: int) -> None:
+def raise_on_error(kernel: str, err: int, hint: str = "") -> None:
+    """Raise for a launcher's nonzero cudaError_t; ``hint`` names what the
+    launcher refuses, for its cudaErrorInvalidValue (1)."""
     if err != 0:
-        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"{kernel} kernel launch failed: cudaError {err}"
+                           + (f" ({hint})" if hint else ""))

@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: csrc/tap_conv.cu (forward and
-dgrad), csrc/tap_wgrad.cu, csrc/tail_ce.cu, csrc/lenet_fused.cu and
-csrc/sgd_update.cu held against their plain PyTorch versions, the
+dgrad), csrc/tap_wgrad.cu, csrc/tail_ce.cu, csrc/lenet_fused.cu,
+csrc/sgd_update.cu and csrc/lenet_staged.cu held against their plain
+PyTorch versions, the
 wrappers' refusals on CUDA tensors, and the serving and training paths'
 launch counts. Every test here skips without a GPU.
 
@@ -23,10 +24,19 @@ from parallel_cnn_tpu_torch.config import (
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn import resnet
-from parallel_cnn_tpu_torch.ops import lenet_fused, sgd_update, tail, tap_conv, tap_wgrad
+from parallel_cnn_tpu_torch.ops import (
+    lenet_fused,
+    lenet_staged,
+    sgd_update,
+    tail,
+    tap_conv,
+    tap_wgrad,
+)
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step, trainer, zoo
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
+
+from chip_smoke import stage_cases
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
 # ResNet-18's widest stride-2 shapes at a small batch.
@@ -427,3 +437,79 @@ def test_zoo_train_is_deterministic_on_card(card, tmp_path):
         runs.append((losses, zoo.ZooState.snapshot(state)))
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])
+
+
+# ---------------------------------------------------------------------------
+# The staged LeNet-ref library (csrc/lenet_staged.cu, B3–B9)
+# ---------------------------------------------------------------------------
+
+STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "fc_bwd", "pool_bwd", "sigma_prime",
+                "accum_matmul/pool_wgrad", "accum_matmul/conv_wgrad")
+
+
+def _as_tuple(r):
+    return r if isinstance(r, tuple) else (r,)
+
+
+@pytest.mark.parametrize("case", STAGED_CASES)
+@pytest.mark.parametrize("n", [1, 7, 64, 1000])
+def test_staged_kernel_matches_plain_on_card(card, n, case):
+    """Each kernel at the inputs the staged path gives it, against its
+    plain twin (f32, TF32 off; sums in other orders, relative to the
+    output's scale), and a relaunch bit for bit (no float atomics)."""
+    params, xs, ys = _lenet_inputs(card, n, n + 11)
+    fn, plain, args = stage_cases(params, xs, ys)[case]
+    counter = lenet_staged.launches[case.split("/")[0]]
+    before = counter.count
+    got, again = _as_tuple(fn(*args)), _as_tuple(fn(*args))
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    for g, a, w in zip(got, again, _as_tuple(plain(*args))):
+        assert torch.equal(g, a)
+        _close(g, w, LENET_RTOL)
+
+
+def test_staged_path_launch_counts_and_anchor_on_card(card):
+    """forward and predict are 3 launches, the grads 8; the grads agree
+    with B1's within JAX's tolerances for the two tiers."""
+    params, xs, ys = _lenet_inputs(card, 64, 5)
+    for counter in lenet_staged.launches.values():
+        counter.reset()
+    lenet_staged.forward(params, xs)
+    lenet_staged.predict(params, xs)
+    err, grads = lenet_staged.staged_value_and_ref_grads(params, xs, ys)
+    counts = {k: c.count for k, c in lenet_staged.launches.items()}
+    assert counts == {"conv_fwd": 3, "pool_fwd": 3, "fc_fwd": 3, "fc_bwd": 1,
+                      "pool_bwd": 1, "sigma_prime": 1, "accum_matmul": 2}
+    ref_err, ref = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    assert abs(float(err) - float(ref_err)) <= 1e-6
+    for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize(
+    "case,mutate,err",
+    [
+        ("conv_fwd", lambda x, w, b: (x.double(), w, b), TypeError),
+        ("conv_fwd", lambda x, w, b: (x, w.cpu(), b), ValueError),
+        ("pool_fwd", lambda xw, w, b: (xw[:, :, :215], w, b), ValueError),
+        ("fc_fwd", lambda x, w, b: (x, w[:, :200], b), ValueError),
+        ("fc_bwd", lambda d, s, w: (d, s.T.contiguous().T, w), ValueError),
+        ("pool_bwd", lambda d, p, w: (d, p, w.reshape(16)), ValueError),
+        ("sigma_prime", lambda d, p: (d, p.double()), TypeError),
+        ("accum_matmul/conv_wgrad", lambda a, b: (a, b[:-1]), ValueError),
+        ("accum_matmul/conv_wgrad", lambda a, b: (a.repeat(1, 2), b), RuntimeError),
+        ("conv_fwd", lambda x, w, b: (x[:0], w, b), RuntimeError),
+    ],
+    ids=["conv-float64", "conv-weights-on-cpu", "pool-shape", "fc-weight-shape",
+         "fc_bwd-non-contiguous", "pool_bwd-weight-shape", "sigma-float64",
+         "accum-rows", "accum-too-many-outputs", "conv-empty-batch"],
+)
+def test_staged_wrappers_raise_instead_of_falling_back(card, case, mutate, err):
+    params, xs, ys = _lenet_inputs(card, 4, 0)
+    fn, _, args = stage_cases(params, xs, ys)[case]
+    counter = lenet_staged.launches[case.split("/")[0]]
+    before = counter.count
+    with pytest.raises(err):
+        fn(*mutate(*args))
+    assert counter.count == before

@@ -1,0 +1,344 @@
+"""Differential tests of the staged LeNet-ref kernel library
+(``parallel_cnn_tpu_torch/ops/lenet_staged.py``, the port of the per-op tier
+of ``parallel_cnn_tpu/ops/pallas.py``: B3–B9) against the JAX package's
+functions of the same names, which run their Pallas kernels in interpret
+mode on the CPU.
+
+The same numpy inputs from a seed go to both; params cross with
+``convert.lenet_from_jax``. On a CPU tensor every wrapper runs its plain
+twin; the kernels themselves are held against the plain twins on the card
+(tests/test_torch_cuda.py, chip_smoke.py). Tolerances are JAX's own for
+this tier (tests/test_ops_pallas.py): 1e-5 absolute and relative, 1e-6 on
+the mean error.
+"""
+
+import functools
+import re
+from unittest import mock
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from parallel_cnn_tpu.models import lenet_ref as jlenet
+from parallel_cnn_tpu.ops import pallas as jpallas
+from parallel_cnn_tpu_torch import convert
+from parallel_cnn_tpu_torch.ops import _cuda_build, lenet_fused, lenet_staged
+from parallel_cnn_tpu_torch.ops import reference as tref
+from parallel_cnn_tpu_torch.utils.tree import tree_leaves
+
+from chip_smoke import stage_cases
+
+ATOL = RTOL = 1e-5
+ERR_ATOL = 1e-6
+SIZES = [1, 5, 8]
+# 37 is no multiple of JAX's CONV_BLOCK (32): JAX pads it to 64 and masks
+# the pad rows out of the error; the port runs exactly 37 rows.
+PATH_SIZES = SIZES + [37]
+SOURCE = _cuda_build.CSRC / "lenet_staged.cu"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _few_torch_threads():
+    """The suite runs in several worker processes at once: keep PyTorch's
+    CPU kernels to two threads each."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(prev)
+
+
+@functools.lru_cache(maxsize=None)
+def jax_params():
+    return jax.tree_util.tree_map(np.asarray, jlenet.init(jax.random.key(7)))
+
+
+def port_params():
+    return convert.lenet_from_jax(jax_params())
+
+
+@functools.lru_cache(maxsize=None)
+def arrays(n):
+    """Every stage's inputs at batch n, f32 numpy arrays from the seed n."""
+    rng = np.random.default_rng(100 + n)
+
+    def f32(a):
+        return np.asarray(a, dtype=np.float32)
+
+    return {
+        "xs": f32(rng.uniform(0, 1, (n, 28, 28))),
+        "ys": rng.integers(0, 10, (n,)).astype(np.int32),
+        "c1": f32(rng.uniform(0, 1, (n, 6, 24, 24))),
+        "xw": f32(rng.uniform(0, 1, (n, 16, 216))),
+        "s1": f32(rng.uniform(0, 1, (n, 216))),
+        "pre_s1": f32(rng.normal(0, 2, (n, 216))),
+        "pre_c1": f32(rng.normal(0, 2, (n, 6, 24, 24))),
+        "d_f": f32(rng.uniform(-1, 1, (n, 10))),
+        "d_s1": f32(rng.normal(0, 0.5, (n, 216))),
+        "d_c1": f32(rng.normal(0, 0.5, (n, 6, 24, 24))),
+    }
+
+
+def t(a):
+    return torch.from_numpy(np.array(a, copy=True))
+
+
+def close(got, want, atol=ATOL, rtol=RTOL, name=""):
+    got = got.numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    np.testing.assert_allclose(got, want, atol=atol, rtol=rtol, err_msg=name)
+
+
+# ---------------------------------------------------------------------------
+# Each kernel function's plain twin against JAX's Pallas kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_conv_fwd_matches_jax(n):
+    a, jp = arrays(n), jax_params()
+    want = jpallas.conv_fwd(a["xs"], jp["c1"]["w"], jp["c1"]["b"])
+    tp = port_params()
+    got = lenet_staged.conv_fwd(t(a["xs"]), tp["c1"]["w"], tp["c1"]["b"])
+    for g, w, name in zip(got, want, ("pre_c1", "out_c1")):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_pool_fwd_matches_jax(n):
+    a, jp, tp = arrays(n), jax_params(), port_params()
+    want = jpallas.pool_fwd(a["xw"], jp["s1"]["w"], jp["s1"]["b"])
+    got = lenet_staged.pool_fwd(t(a["xw"]), tp["s1"]["w"], tp["s1"]["b"])
+    for g, w, name in zip(got, want, ("pre_s1", "out_s1")):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_fc_fwd_matches_jax(n):
+    a, jp, tp = arrays(n), jax_params(), port_params()
+    want = jpallas.fc_fwd(a["s1"], jp["f"]["w"], jp["f"]["b"])
+    got = lenet_staged.fc_fwd(t(a["s1"]), tp["f"]["w"], tp["f"]["b"])
+    for g, w, name in zip(got, want, ("pre_f", "out_f")):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_fc_bwd_matches_jax(n):
+    a, jp, tp = arrays(n), jax_params(), port_params()
+    want = jpallas.fc_bwd(a["d_f"], a["s1"], jp["f"]["w"])
+    got = lenet_staged.fc_bwd(t(a["d_f"]), t(a["s1"]), tp["f"]["w"])
+    for g, w, name in zip(got, want, ("g_w_f", "g_b_f", "d_out_s1")):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_pool_bwd_matches_jax(n):
+    a, jp, tp = arrays(n), jax_params(), port_params()
+    want = jpallas.pool_bwd(a["d_s1"], a["pre_s1"], jp["s1"]["w"])
+    got = lenet_staged.pool_bwd(t(a["d_s1"]), t(a["pre_s1"]), tp["s1"]["w"])
+    for g, w, name in zip(got, want, ("d_pre_s1", "d_xw")):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_pool_wgrad_matches_jax(n):
+    a = arrays(n)
+    want = jpallas.pool_wgrad(a["xw"], a["d_s1"])
+    close(lenet_staged.pool_wgrad(t(a["xw"]), t(a["d_s1"])), want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_conv_bwd_dpre_matches_jax(n):
+    a = arrays(n)
+    want = jpallas.conv_bwd_dpre(a["d_c1"], a["pre_c1"])
+    close(lenet_staged.conv_bwd_dpre(t(a["d_c1"]), t(a["pre_c1"])), want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_conv_wgrad_matches_jax(n):
+    a = arrays(n)
+    want = jpallas.conv_wgrad(a["xs"], a["d_c1"])
+    close(lenet_staged.conv_wgrad(t(a["xs"]), t(a["d_c1"])), want)
+
+
+@pytest.mark.parametrize("rows,ka,kb,row_block", [
+    (216 * 3, 16, 1, 216), (576 * 2 + 5, 6, 25, 577), (300, 1, 7, 100),
+])
+def test_accum_matmul_matches_jax(rows, ka, kb, row_block):
+    rng = np.random.default_rng(rows + ka)
+    a = rng.normal(size=(rows, ka)).astype(np.float32)
+    b = rng.normal(size=(rows, kb)).astype(np.float32)
+    want = jpallas._accum_matmul(a, b, row_block)
+    close(lenet_staged._accum_matmul(t(a), t(b)), want)
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_pool_window_layout_is_jax_bit_for_bit(n):
+    """The lane order m·36 + x·6 + y and the tap order 4i+j, pinned
+    against JAX's arrays (a swap of x and y still trains)."""
+    a = arrays(n)
+    packed = lenet_staged.pack_pool_windows(t(a["c1"]))
+    np.testing.assert_array_equal(packed.numpy(),
+                                  np.asarray(jpallas.pack_pool_windows(a["c1"])))
+    unpacked = lenet_staged.unpack_pool_windows(t(a["xw"]))
+    np.testing.assert_array_equal(unpacked.numpy(),
+                                  np.asarray(jpallas.unpack_pool_windows(a["xw"])))
+    assert torch.equal(lenet_staged.unpack_pool_windows(packed), t(a["c1"]))
+    assert packed.is_contiguous() and unpacked.is_contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The path's entry points: forward, predict, staged_value_and_ref_grads
+# ---------------------------------------------------------------------------
+
+
+# The JAX functions the entry points reach through pallas.py's globals.
+JAX_STAGES = ("conv_fwd", "pool_fwd", "fc_fwd", "fc_bwd", "pool_bwd",
+              "pool_wgrad", "conv_bwd_dpre", "conv_wgrad")
+
+
+@functools.lru_cache(maxsize=None)
+def jitted_stages():
+    return {name: jax.jit(getattr(jpallas, name)) for name in JAX_STAGES}
+
+
+@functools.lru_cache(maxsize=None)
+def jax_path(n):
+    """JAX's ``forward``, ``predict`` and ``staged_value_and_ref_grads`` at
+    batch n, as numpy. Called eagerly, an interpret-mode kernel function
+    traces its kernel anew on every call (``conv_fwd``'s 150 unrolled taps
+    take about 2 s on the CPU), so here each stage runs under ``jax.jit``:
+    the batch JAX pads to 32 (n = 1, 5, 8) compiles once for the three
+    entry points and the three sizes. The stages are the same functions;
+    the eager calls are held against the port one by one above."""
+    a, jp = arrays(n), jax_params()
+    with mock.patch.multiple(jpallas, **jitted_stages()):
+        acts = jpallas.forward(jp, a["xs"])
+        pred = jpallas.predict(jp, a["xs"])
+        err, grads = jpallas.staged_value_and_ref_grads(jp, a["xs"], a["ys"])
+    to_np = functools.partial(jax.tree_util.tree_map, np.asarray)
+    return to_np(tuple(acts)), np.asarray(pred), float(err), to_np(grads)
+
+
+@pytest.mark.parametrize("n", PATH_SIZES)
+def test_forward_matches_jax(n):
+    want, _, _, _ = jax_path(n)
+    got = lenet_staged.forward(port_params(), t(arrays(n)["xs"]))
+    assert got._fields == tref.Activations._fields
+    for g, w, name in zip(got, want, got._fields):
+        close(g, w, name=name)
+
+
+@pytest.mark.parametrize("n", PATH_SIZES)
+def test_predict_matches_jax(n):
+    _, want, _, _ = jax_path(n)
+    got = lenet_staged.predict(port_params(), t(arrays(n)["xs"]))
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("n", PATH_SIZES)
+def test_staged_grads_match_jax(n):
+    _, _, want_e, want_g = jax_path(n)
+    a = arrays(n)
+    got_e, got_g = lenet_staged.staged_value_and_ref_grads(
+        port_params(), t(a["xs"]), t(a["ys"]).long())
+    assert got_e.shape == ()
+    np.testing.assert_allclose(float(got_e), want_e, atol=ERR_ATOL)
+    for layer in want_g:
+        for k in want_g[layer]:
+            close(got_g[layer][k], want_g[layer][k], name=f"{layer}/{k}")
+
+
+@pytest.mark.parametrize("n", SIZES)
+def test_staged_grads_match_the_fused_plain_grads(n):
+    """The staged tier against the fused tier (B1's plain version): the
+    differential anchor of JAX's test_staged_tier_matches_fused_tier."""
+    a, tp = arrays(n), port_params()
+    xs, ys = t(a["xs"]), t(a["ys"])
+    err_s, grads_s = lenet_staged.staged_value_and_ref_grads(tp, xs, ys)
+    err_f, grads_f = lenet_fused.fused_value_and_ref_grads(tp, xs, ys)
+    np.testing.assert_allclose(float(err_s), float(err_f), atol=ERR_ATOL)
+    for g, f in zip(tree_leaves(grads_s), tree_leaves(grads_f)):
+        close(g, f.numpy())
+
+
+# ---------------------------------------------------------------------------
+# Routing, counters and the kernel source
+# ---------------------------------------------------------------------------
+
+
+def test_cpu_tensors_take_the_plain_twins_and_launch_nothing():
+    before = {k: c.count for k, c in lenet_staged.launches.items()}
+    a = arrays(5)
+    lenet_staged.staged_value_and_ref_grads(port_params(), t(a["xs"]), t(a["ys"]))
+    lenet_staged.predict(port_params(), t(a["xs"]))
+    assert {k: c.count for k, c in lenet_staged.launches.items()} == before
+    assert set(lenet_staged.launches) == set(lenet_staged.KERNELS)
+
+
+@pytest.mark.parametrize("n", [1, 5])
+def test_stage_cases_cover_every_kernel_at_the_path_shapes(n):
+    """The cases the card checks iterate (chip_smoke.stage_cases records
+    them from one run of the path): every launch counter, B9 at both call
+    sites, each input of the path's shape and contiguous (at n = 1 the
+    transposed reshapes are strided views); on CPU tensors each wrapper
+    gives exactly its plain twin."""
+    a = arrays(n)
+    cases = stage_cases(port_params(), t(a["xs"]), t(a["ys"]))
+    assert {k.split("/")[0] for k in cases} == set(lenet_staged.KERNELS)
+    assert cases["accum_matmul/conv_wgrad"][2][1].shape == (n * 576, 25)
+    assert cases["accum_matmul/pool_wgrad"][2][0].shape == (n * 216, 16)
+    for name, (fn, plain, args) in cases.items():
+        assert all(x.is_contiguous() for x in args), name
+        got, want = fn(*args), plain(*args)
+        for g, w in zip(got if isinstance(got, tuple) else (got,),
+                        want if isinstance(want, tuple) else (want,)):
+            assert torch.equal(g, w), name
+
+
+@pytest.mark.parametrize("call", [
+    lambda m, p: lenet_staged.conv_fwd(m((2, 28, 28)), p["c1"]["w"], p["c1"]["b"]),
+    lambda m, p: lenet_staged.pool_fwd(m((2, 16, 216)), p["s1"]["w"], p["s1"]["b"]),
+    lambda m, p: lenet_staged.fc_fwd(m((2, 216)), p["f"]["w"], p["f"]["b"]),
+    lambda m, p: lenet_staged.fc_bwd(m((2, 10)), m((2, 216)), p["f"]["w"]),
+    lambda m, p: lenet_staged.pool_bwd(m((2, 216)), m((2, 216)), p["s1"]["w"]),
+    lambda m, p: lenet_staged.conv_bwd_dpre(m((2, 6, 24, 24)), m((2, 6, 24, 24))),
+    lambda m, p: lenet_staged._accum_matmul(m((8, 6)), m((8, 25))),
+], ids=["conv_fwd", "pool_fwd", "fc_fwd", "fc_bwd", "pool_bwd", "sigma_prime",
+        "accum_matmul"])
+def test_other_devices_raise(call):
+    def meta(shape):
+        return torch.empty(shape, device="meta")
+
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        call(meta, port_params())
+
+
+def test_kernel_source_names_each_tpu_kernel_it_replaces():
+    src = SOURCE.read_text()
+    for line, name in ((141, "_conv_fwd_kernel"), (201, "_pool_fwd_kernel"),
+                       (238, "_fc_fwd_kernel"), (279, "_fc_bwd_kernel"),
+                       (333, "_pool_bwd_kernel"), (413, "_sigma_prime_kernel"),
+                       (371, "_accum_matmul_kernel")):
+        assert f"`{name}`" in src and f"pallas.py:{line}" in src, name
+    assert src.count("__global__") == 8  # seven kernels; B9 has two passes
+    assert "atomicAdd" not in src  # every sum in a fixed order
+    assert "3.35 TB/s" in src and "bound by bytes" in src
+
+
+def test_kernel_layout_constants_match_the_wrapper():
+    src = SOURCE.read_text()
+    names = ("IMG", "CONV", "LANES", "TAPS", "CLASSES", "ACCUM_ROWS")
+    got = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                for k in names)
+    assert got == lenet_staged.LAYOUT
+
+
+def test_library_builds_through_the_one_builder():
+    lib = lenet_staged._library
+    assert isinstance(lib, _cuda_build.Library)
+    assert lib.flags == _cuda_build.NVCC_FLAGS  # no --use_fast_math
+    assert lib.source == SOURCE
+    assert lib._lib is None  # nothing built on import
