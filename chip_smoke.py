@@ -25,7 +25,13 @@ port's two paths through their user-facing entry points:
 - the staged LeNet-ref library: its seven kernels against their plain
   versions, its grads against the fused kernel's, 50 training steps on
   them against 50 fused steps, a profiled epoch, and inference over the
-  synthetic test set, with exact launch counts.
+  synthetic test set, with exact launch counts;
+- data-parallel zoo training: the trainer's CLI on ResNet-18 with
+  --mesh-data 1 --comm-impl ring --fused-step (a world of one rank over
+  NCCL; one card cannot hold two), update-on-arrival through the fused
+  SGD-momentum kernel at every bucket, its steps against the optax-path
+  steps and the psum step, a resumed run against a straight one, and a
+  profiled epoch.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -39,6 +45,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import dataclasses
 import faulthandler
 import io
 import itertools
@@ -56,6 +63,7 @@ from torch.profiler import ProfilerActivity, profile
 from parallel_cnn_tpu_torch import cli
 from parallel_cnn_tpu_torch.cli import padded_bucket_parity
 from parallel_cnn_tpu_torch.config import (
+    CommConfig,
     Config,
     FusedStepConfig,
     ServeConfig,
@@ -76,6 +84,7 @@ from parallel_cnn_tpu_torch.ops import (
     tap_wgrad,
 )
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
+from parallel_cnn_tpu_torch.parallel import collectives, distributed
 from parallel_cnn_tpu_torch.ops.activations import apply_grad
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step as step_lib
@@ -176,6 +185,15 @@ GRAD_RTOL = 1e-4
 ZOO_CHECK_LR = 0.001
 ZOO_LOSS_ATOL = 1e-4
 ZOO_PARAM_ATOL = 5e-4
+# The data-parallel phase: ResNet-18 at zoo (a)'s cut on a world of one
+# rank (NCCL refuses two ranks on one card), update-on-arrival over the
+# ring; B13 at odd sizes and at every bucket of ResNet-18's plan.
+DP_WORLD = 1
+DP_MOMENTUM_ODD_SIZES = (1, 127, 128_037)
+DP_LR = 0.1
+DP_MOMENTUM = 0.9
+DP_COMM = CommConfig(impl="ring")
+DP_FUSED = FusedStepConfig(update=True, act_dtype="float32")
 
 
 def fail(msg: str) -> None:
@@ -1351,6 +1369,283 @@ def time_zoo_kernels() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The data-parallel zoo path: update-on-arrival through B13 (sgd_momentum)
+# ---------------------------------------------------------------------------
+
+
+def resnet18_bucket_sizes():
+    """ResNet-18's bucket plan (JAX's order, 4 MiB buckets) over DP_WORLD."""
+    model = resnet.resnet18(10, backend="torch")
+    params = [p for _, p in zoo.jax_ordered_params(model)]
+    return collectives.plan_buckets(params, DP_COMM.bucket_bytes,
+                                    shards=DP_WORLD).bucket_sizes
+
+
+def momentum_inputs(n, gen):
+    return [torch.randn(n, generator=gen, device="cuda") for _ in range(3)]
+
+
+def check_sgd_momentum(bucket_sizes) -> float:
+    """(a) B13 vs its plain version at odd sizes and at each of ResNet-18's
+    bucket sizes: both outputs bit-identical, and a relaunch too. The
+    scale is a device scalar, as the step passes it."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    scale = torch.tensor(1.0 / 3.0, device="cuda")
+    for n in DP_MOMENTUM_ODD_SIZES + tuple(bucket_sizes):
+        p, m, g = momentum_inputs(n, gen)
+        got = sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
+                                            scale=scale)
+        again = sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
+                                              scale=scale)
+        want = sgd_update.fused_sgd_momentum_plain(p, m, g, DP_LR, DP_MOMENTUM, scale)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c) for a, c in zip(got, want))
+        stable = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"[smoke] dp (a) sgd_momentum n={n:<8d}: "
+              f"{'bit-identical to plain' if same else 'DIFFERS from plain'}, relaunch "
+              f"{'bit-identical' if stable else 'DIFFERS'} "
+              f"{'ok' if same and stable else 'FAIL'}", flush=True)
+        if not (same and stable):
+            errs = [float((a - c).abs().max()) for a, c in zip(got, want)]
+            fail(f"sgd_momentum n={n}: max |Δ| (p', m') {errs} vs plain")
+    return 0.0
+
+
+def dp_step_rank(mesh, kind, steps, lr):
+    """On one rank: ResNet-18 (seed 0, the card's kernels or its plain
+    convs) through ``steps`` steps of the update-on-arrival step
+    ("fused"), the unfused psum step ("psum") or the single-device optax
+    step ("optax", "optax_plain"); returns (losses, state_dict on the
+    host). The batches are the synthetic set's first steps × 128."""
+    imgs, labels = synthetic.make_image_dataset(steps * ZOO_BATCH, seed=11)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    backend = "torch" if kind == "optax_plain" else "cuda"
+    model = resnet.resnet18(10, backend=backend,
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    opt = zoo.make_optimizer(lr, DP_MOMENTUM)
+    # The optax-path steps: the same fused tail on the kernels; zoo (c)'s
+    # plain step (no fused tail) on plain convs.
+    fused = None if kind == "optax_plain" else dataclasses.replace(DP_FUSED, update=False)
+    if kind == "fused":
+        state, _ = zoo.init_fused_state(model, opt, mesh=mesh, fused=DP_FUSED,
+                                        bucket_bytes=DP_COMM.bucket_bytes)
+        step = zoo.make_fused_train_step(model, lr=lr, momentum=DP_MOMENTUM,
+                                         accum_steps=1, mesh=mesh, augment_pad=None,
+                                         comm=DP_COMM, fused=DP_FUSED)
+    elif kind == "psum":
+        state = zoo.init_state(model, opt)
+        step = zoo.make_train_step(model, opt, fused=fused, mesh=mesh,
+                                   comm=CommConfig(impl="psum"))
+    else:
+        state = zoo.init_state(model, opt)
+        step = zoo.make_train_step(model, opt, fused=fused)
+    losses = []
+    for i in range(steps):
+        sl = slice(i * ZOO_BATCH, (i + 1) * ZOO_BATCH)
+        if kind == "optax_plain":
+            with plain_reference():
+                losses.append(float(step(state, xs[sl], ys[sl])))
+        else:
+            losses.append(float(step(state, xs[sl], ys[sl])))
+    return losses, {k: v.cpu() for k, v in model.state_dict().items()}
+
+
+def dp_phase(card, zoo_launches) -> dict:
+    """The data-parallel zoo path on the card: (b) the CLI at --mesh-data 1
+    with update-on-arrival over the ring, exact launch counts beside zoo
+    (a)'s and a falling loss; (c) 3 update-on-arrival steps against 3
+    optax-path steps (the same kernels, then plain convs) and the psum
+    step against the ring; (d) a resumed run against the straight one.
+    Returns each kernel's launches on the main path (b)."""
+    work = BUILD_DIR / "smoke_dp"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--mesh-data", str(DP_WORLD),
+            "--comm-impl", "ring", "--batch-size", str(ZOO_BATCH),
+            "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+    n_buckets = len(resnet18_bucket_sizes())
+
+    # (b) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] dp (b): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    sgd_update.momentum_launches.reset()
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                          "--metrics", str(work / "b.jsonl")])
+    launches = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
+    losses = epoch_losses(out)
+    steps = 2 * ZOO_STEPS
+    want = dict(zoo_launches, sgd_momentum=n_buckets * steps)
+    with open(work / "b.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(ZOO_TRAIN_COUNT / r["seconds"]) for r in recs]
+    print(f"[smoke] dp (b): launches {launches} for {steps} steps (expected "
+          f"{want}: zoo (a)'s counts and {n_buckets} buckets x {steps} steps); "
+          f"epoch losses {losses}; img/s per epoch {rates} (host clock, first "
+          f"epoch cold); eval accuracy {[r['accuracy'] for r in recs]} on {card}",
+          flush=True)
+    if launches != want:
+        fail("the update-on-arrival run did not launch each kernel exactly as "
+             "often as its steps, buckets and eval batches need")
+    if "falling back" in out or f"mesh: {{'data': {DP_WORLD}, 'model': 1}}" not in out:
+        fail("the --mesh-data run did not take the update-on-arrival path")
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail("the update-on-arrival run's loss did not fall from epoch 1 to 2")
+
+    # (c) 3 steps each from one init at zoo (c)'s gentle LR.
+    runs = {kind: distributed.run(dp_step_rank, DP_WORLD, device="cuda",
+                                  args=(kind, 3, ZOO_CHECK_LR))[0]
+            for kind in ("fused", "optax", "optax_plain", "psum")}
+    fused_losses, fused_sd = runs["fused"]
+    names = [n for n, _ in resnet.resnet18(10, backend="torch").named_parameters()]
+    for ref in ("optax", "optax_plain", "psum"):
+        ref_losses, ref_sd = runs[ref]
+        loss_diff = max(abs(a - b) for a, b in zip(fused_losses, ref_losses))
+        param_diff = max(float((fused_sd[n] - ref_sd[n]).abs().max()) for n in names)
+        stat_diff = max(float((fused_sd[k] - ref_sd[k]).abs().max())
+                        for k in fused_sd if k not in names)
+        ok = loss_diff <= ZOO_LOSS_ATOL and param_diff <= ZOO_PARAM_ATOL
+        print(f"[smoke] dp (c): 3 update-on-arrival steps vs 3 {ref} steps (lr "
+              f"{ZOO_CHECK_LR}, b{ZOO_BATCH}): max |Δloss| {loss_diff:.3e} (tol "
+              f"{ZOO_LOSS_ATOL:.0e}), max |Δparams| {param_diff:.3e} (tol "
+              f"{ZOO_PARAM_ATOL:.0e}), max |ΔBN stats| {stat_diff:.3e} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the update-on-arrival steps drifted from the {ref} steps")
+
+    # (d) 1 epoch, then --resume to 2: the straight run's state, bit for bit.
+    print("[smoke] dp (d): --epochs 1, then --epochs 2 --resume, vs (b)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    mom = [k for k in a if k.startswith(zoo.MOM_KEY)]
+    print(f"[smoke] dp (d): resumed state ({len(a)} leaves: params, BN stats, "
+          f"{len(mom)} momentum blocks, loss-scale state) "
+          f"{'bit-identical to the straight run' if same else 'DIFFERS'}", flush=True)
+    if "resumed from" not in out or not same or len(mom) != n_buckets:
+        fail("the resumed update-on-arrival run is not bit-identical to the "
+             "straight run")
+    return launches
+
+
+def profiled_dp_epoch_rank(mesh):
+    """(e) on one rank: a warm, then a profiled epoch of ZOO_STEPS
+    update-on-arrival ResNet-18 steps (batches gathered on the card, one
+    loss readback) under torch.profiler (CUDA activity only). Returns
+    (wall ms, device ms, device ops, B13's device ms and launches), or
+    None when the profiler saw no device events."""
+    imgs, labels = synthetic.make_image_dataset(ZOO_TRAIN_COUNT, seed=1234)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    model = resnet.resnet18(10, backend="cuda",
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    state, _ = zoo.init_fused_state(model, zoo.make_optimizer(DP_LR, DP_MOMENTUM),
+                                    mesh=mesh, fused=DP_FUSED,
+                                    bucket_bytes=DP_COMM.bucket_bytes)
+    step = zoo.make_fused_train_step(model, lr=DP_LR, momentum=DP_MOMENTUM,
+                                     accum_steps=1, mesh=mesh, augment_pad=None,
+                                     comm=DP_COMM, fused=DP_FUSED)
+
+    def epoch():
+        perm = torch.randperm(ZOO_TRAIN_COUNT, generator=torch.Generator().manual_seed(0))
+        perm = perm.cuda()
+        total = torch.zeros((), device="cuda")
+        for i in range(ZOO_STEPS):
+            j = perm[i * ZOO_BATCH:(i + 1) * ZOO_BATCH]
+            total = total + step(state, xs[j], ys[j])
+        return float(total) / ZOO_STEPS
+
+    epoch()  # warm: allocator, libraries, NCCL
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        epoch()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    dev_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    if dev_ms == 0:
+        return None
+    b13 = [e for e in kernels if "sgd_momentum_kernel" in e.key]
+    top = [(e.self_device_time_total / 1e3, e.count, e.key[:90])
+           for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]]
+    return dict(wall_ms=wall_ms, dev_ms=dev_ms, ops=sum(e.count for e in kernels),
+                b13_ms=sum(e.self_device_time_total for e in b13) / 1e3,
+                b13_count=sum(e.count for e in b13), top=top)
+
+
+def momentum_bound_ms(n):
+    """B13 on n values: read p, m and g, write p' and m' (20 bytes), 5
+    operations."""
+    t_ops = 5.0 * n / PEAK_F32_FLOPS * 1e3
+    t_bytes = 20.0 * n / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_sgd_momentum(bucket_sizes) -> dict:
+    """B13 over one step's buckets (ResNet-18's 12, 223.5 MB that overflow
+    the 50 MB L2): kernel, plain and torch._fused_sgd_ (one multi-tensor
+    call over the same buckets, timed only) beside the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    sets = [momentum_inputs(n, gen) for n in bucket_sizes]
+    scale = torch.tensor(1.0, device="cuda")
+
+    def kernel():
+        for p, m, g in sets:
+            sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
+                                          scale=scale)
+
+    def plain():
+        for p, m, g in sets:
+            sgd_update.fused_sgd_momentum_plain(p, m, g, DP_LR, DP_MOMENTUM, scale)
+
+    ps, ms_, gs = ([t[i] for t in sets] for i in range(3))
+
+    def library():
+        torch._fused_sgd_(ps, gs, ms_, weight_decay=0.0, momentum=DP_MOMENTUM,
+                          lr=DP_LR, dampening=0.0, nesterov=False, maximize=False,
+                          is_first_step=False)
+
+    ms, call = time_call(kernel, reps=20)
+    plain_ms, plain_call = time_call(plain, reps=10)
+    lib, lib_call = time_call(library, reps=20)
+    bound, by = momentum_bound_ms(sum(bucket_sizes))
+    print(f"[smoke] time sgd_momentum over ResNet-18's {len(bucket_sizes)} buckets "
+          f"({sum(bucket_sizes):,} values): kernel {ms:.4f} ms (device; {call:.4f} "
+          f"ms per call), plain {plain_ms:.4f} ms ({plain_call:.4f}), library "
+          f"(torch._fused_sgd_) {lib:.4f} ms ({lib_call:.4f}), bound {bound:.4f} ms "
+          f"({by}), {bound / ms:.1%} of bound", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib)
+
+
+def report_dp_epoch(prof, bucket_sizes, times) -> None:
+    """(e): the profiled update-on-arrival epoch's numbers."""
+    if prof is None:
+        print("[smoke] dp (e): device time not measured (the profiler saw no "
+              "device events)", flush=True)
+        return
+    wall, dev = prof["wall_ms"], prof["dev_ms"]
+    bound, _ = momentum_bound_ms(sum(bucket_sizes))
+    print(f"[smoke] dp (e) profiled update-on-arrival epoch (ResNet-18, world "
+          f"{DP_WORLD}, b{ZOO_BATCH}, {ZOO_STEPS} steps): wall {wall:.1f} ms "
+          f"({ZOO_TRAIN_COUNT / wall * 1e3:.0f} img/s), {wall / ZOO_STEPS:.2f} ms per "
+          f"step, device busy {dev:.1f} ms ({dev / wall:.1%}), idle "
+          f"{1 - dev / wall:.1%}; {prof['ops'] / ZOO_STEPS:.1f} device ops per step; "
+          f"B13 {prof['b13_ms'] / ZOO_STEPS * 1e3:.1f} us per step "
+          f"(x{prof['b13_count'] / ZOO_STEPS:.1f}) against its bound "
+          f"{bound * 1e3:.1f} us and torch._fused_sgd_'s {times['library_ms'] * 1e3:.1f} "
+          f"us", flush=True)
+    for ms, count, key in prof["top"]:
+        print(f"[smoke]   {ms:9.3f} ms x{count:<6d} {key}", flush=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -1419,6 +1714,9 @@ def main() -> int:
 
     # -- 3c. the zoo trainer's kernels vs their plain versions -----------
     zoo_errs = check_zoo_kernels()
+    # -- 3d. B13 at ResNet-18's bucket sizes (dp (a)) ---------------------
+    bucket_sizes = resnet18_bucket_sizes()
+    momentum_err = check_sgd_momentum(bucket_sizes)
 
     # -- 4. the serving path: serve full-width ResNet-18 -----------------
     handle = get("resnet18", conv_backend="cuda")
@@ -1505,6 +1803,10 @@ def main() -> int:
     # end-to-end yardstick of the conv kernels.
     profiled_zoo_epoch("ResNet-18, library convs + fused tail", "torch")
 
+    # -- 4d. the data-parallel path: update-on-arrival over the ring ------
+    dp_launches = dp_phase(card, zoo_launches)
+    dp_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda")[0]
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -1535,6 +1837,8 @@ def main() -> int:
     lenet_times = time_lenet_kernels()
     zoo_times = time_zoo_kernels()
     staged_times = time_staged_kernels()
+    momentum_times = time_sgd_momentum(bucket_sizes)
+    report_dp_epoch(dp_profile, bucket_sizes, momentum_times)
 
     records = [{
         "name": "tap_conv",
@@ -1589,6 +1893,14 @@ def main() -> int:
         "launches": train_launches["sgd_update"],
         "max_abs_err": sgd_err,
         **lenet_times["sgd_update"],
+    }, {
+        "name": "sgd_momentum",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
+        "replaces": "parallel_cnn_tpu/ops/pallas_update.py:58",
+        "launches": dp_launches["sgd_momentum"],
+        "max_abs_err": momentum_err,
+        **momentum_times,
     }] + [{
         "name": f"lenet_staged.{name}",
         "route": "cuda",
@@ -1601,9 +1913,8 @@ def main() -> int:
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": records}))
-    # One card: the smoke runs on device 0 alone.
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": kind, "count": 1}}))
+        "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     faulthandler.cancel_dump_traceback_later()
     return 0
 

@@ -7,13 +7,18 @@
 
 With no subcommand the CLI is the trainer, as in JAX: for ``lenet_ref``
 load data → learn → test, printing the reference's lines; for a zoo model
-(``cifar_cnn``, ``resnet18``, ``resnet34``) one device of JAX's zoo
-driver: the synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc
-A% (S s)`` lines, checkpoints of the full state and ``--resume``.
-Everything runs on the GPU unless ``--device cpu`` is given. The trainer
-flags of later slices (mesh, comm, chaos, async, elastic, trace, profile)
-are not accepted yet; neither are the serving stack's admission control,
-autoscaler, scenarios, network front door and disk cache.
+(``cifar_cnn``, ``resnet18``, ``resnet34``) JAX's zoo trainer: the
+synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc A% (S s)``
+lines, checkpoints of the full state and ``--resume``, on one device or,
+with ``--mesh-data N --comm-impl psum|ring``, data-parallel over N ranks
+(one process each; NCCL, one card per rank, or gloo with ``--device
+cpu``), with ``--fused-step`` and the ring as update-on-arrival.
+Everything runs on the GPU unless ``--device cpu`` is given. Of the
+trainer flags of later slices, ``--mesh-model`` above 1, ``--comm-hosts``,
+``--pipeline-stages`` and ``--elastic`` are typed NotPortedErrors; chaos,
+async, trace and profile are not accepted yet, nor are the serving
+stack's admission control, autoscaler, scenarios, network front door and
+disk cache.
 """
 
 from __future__ import annotations
@@ -31,9 +36,12 @@ from parallel_cnn_tpu_torch.config import (
     CONV_BACKENDS,
     SERVE_MODELS,
     ZOO_MODELS,
+    CommConfig,
     Config,
     DataConfig,
     FusedStepConfig,
+    MeshConfig,
+    NotPortedError,
     ResilienceConfig,
     ServeConfig,
     TrainConfig,
@@ -109,10 +117,45 @@ def build_parser() -> argparse.ArgumentParser:
                    default=d.synthetic_train_count)
     p.add_argument("--synthetic-test-count", type=int,
                    default=d.synthetic_test_count)
+    p.add_argument("--mesh-data", type=int, default=None, metavar="N",
+                   help="data(-parallel) mesh axis size; setting either "
+                        "mesh flag routes minibatch training over the "
+                        "device mesh (≙ mpirun -np N, MPI/Main.cpp:44). "
+                        "Zoo models: N ranks, one process and one card "
+                        "each (gloo ranks with --device cpu); needs "
+                        "--comm-impl")
+    p.add_argument("--mesh-model", type=int, default=None, metavar="N",
+                   help="model (intra-op) mesh axis size; above 1 not "
+                        "ported yet (ROADMAP A7)")
+    p.add_argument("--comm-impl", default=None,
+                   choices=["psum", "ring", "hierarchical"],
+                   help="mesh runs: gradient-collective algorithm "
+                        "(parallel/collectives.py) — one all-reduce, or "
+                        "bucketed ring reduce-scatter/all-gather over the "
+                        "data axis; hierarchical not ported yet (ROADMAP "
+                        "A9). Default: PCNN_COMM_IMPL")
+    p.add_argument("--comm-bucket-mb", type=float, default=None, metavar="MB",
+                   help="ring collective bucket size in MiB "
+                        "(PCNN_COMM_BUCKET_BYTES; default 4)")
+    p.add_argument("--comm-wire-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="collective payload dtype on the wire; bfloat16 "
+                        "halves the bytes, accumulation stays f32 "
+                        "(PCNN_COMM_WIRE_DTYPE)")
+    p.add_argument("--comm-hosts", type=int, default=None, metavar="N",
+                   help="--comm-impl hierarchical: host-axis size; not "
+                        "ported yet (ROADMAP A9)")
+    p.add_argument("--pipeline-stages", type=int, default=None, metavar="S",
+                   help="pipeline parallelism (1F1B); not ported yet "
+                        "(ROADMAP A10)")
+    p.add_argument("--elastic", action="store_true",
+                   help="elastic training; not ported yet (ROADMAP A11)")
     p.add_argument("--fused-step", action="store_true",
                    help="lenet_ref: update through the fused bucketed SGD "
                         "kernel (csrc/sgd_update.cu); zoo: the fused loss "
-                        "tail (csrc/tail_ce.cu)")
+                        "tail (csrc/tail_ce.cu) and, with --mesh-data and "
+                        "--comm-impl ring, update-on-arrival through the "
+                        "fused SGD-momentum kernel")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save ckpt_<epoch>.npz per epoch; --resume restarts "
                         "from the latest")
@@ -169,15 +212,44 @@ def config_from_args(args: argparse.Namespace) -> Config:
     )
 
 
-def _run_zoo(args: argparse.Namespace) -> int:
-    """≙ the JAX CLI's ``_run_zoo`` on one device: the synthetic CIFAR-shape
-    train/eval sets, zoo.train with per-epoch eval, checkpoints, resume,
-    sentinel and preemption."""
-    if args.model == "cifar_cnn" and args.conv_backend != "torch":
-        raise SystemExit("--conv-backend cuda applies to the resnet models")
-    if args.batch_size == 1:
-        raise SystemExit("zoo models train minibatch; use --batch-size > 1")
-    fused = FusedStepConfig() if args.fused_step else None
+def _refuse_later_slices(args: argparse.Namespace) -> None:
+    """JAX's flags whose paths are not ported raise a typed error naming
+    the ROADMAP item that brings them."""
+    if args.comm_hosts is not None:
+        raise NotPortedError("--comm-hosts sets the hierarchical ring's host "
+                             "axis, which is not ported yet (ROADMAP A9)")
+    if args.pipeline_stages is not None:
+        raise NotPortedError("--pipeline-stages (1F1B pipeline parallelism) "
+                             "is not ported yet (ROADMAP A10)")
+    if args.elastic:
+        raise NotPortedError("--elastic (in-flight re-mesh with ZeRO-3 "
+                             "resharding) is not ported yet (ROADMAP A11)")
+
+
+def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
+    """PCNN_COMM_* first, then the --comm-* flags field by field, as JAX
+    layers them (cli.py:385-400); None when neither sets anything."""
+    comm = CommConfig.from_env()
+    if (args.comm_impl is not None or args.comm_bucket_mb is not None
+            or args.comm_wire_dtype is not None):
+        base = comm or CommConfig()
+        comm = dataclasses.replace(
+            base,
+            impl=args.comm_impl or base.impl,
+            bucket_bytes=(int(args.comm_bucket_mb * 1024 * 1024)
+                          if args.comm_bucket_mb is not None
+                          else base.bucket_bytes),
+            wire_dtype=args.comm_wire_dtype or base.wire_dtype,
+        )
+    return comm
+
+
+def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
+    """PCNN_FUSED_STEP first, then --fused-step; --act-dtype only refines
+    an enabled fused step."""
+    fused = FusedStepConfig.from_env()
+    if args.fused_step:
+        fused = fused or FusedStepConfig()
     if args.act_dtype is not None:
         if fused is None:
             raise SystemExit("--act-dtype refines the fused step; enable it "
@@ -185,7 +257,14 @@ def _run_zoo(args: argparse.Namespace) -> int:
         fused = dataclasses.replace(fused, act_dtype=args.act_dtype)
     if fused is not None:
         fused.check_ported()
+    return fused
 
+
+def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
+             fused: Optional[FusedStepConfig]) -> None:
+    """One rank's zoo run (``mesh`` None: the single-device run): the
+    model from the seed (the same weights on every rank), the synthetic
+    train and eval sets, zoo.train."""
     import torch
 
     from parallel_cnn_tpu_torch.data import synthetic
@@ -195,7 +274,8 @@ def _run_zoo(args: argparse.Namespace) -> int:
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
     from parallel_cnn_tpu_torch.utils.metrics import MetricsLogger
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     gen = torch.Generator().manual_seed(args.seed)
     factories = {
         "cifar_cnn": lambda: cifar.cifar_cnn(generator=gen),
@@ -210,7 +290,7 @@ def _run_zoo(args: argparse.Namespace) -> int:
         args.synthetic_train_count, seed=data.synthetic_seed)
     ev = synthetic.make_image_dataset(
         args.synthetic_test_count, seed=data.synthetic_seed + 1)
-    metrics = MetricsLogger(path=args.metrics) if args.metrics else None
+    metrics = MetricsLogger(path=args.metrics) if args.metrics and lead else None
     with preempt.PreemptionGuard() as guard:
         zoo.train(
             model, imgs, labels,
@@ -221,6 +301,8 @@ def _run_zoo(args: argparse.Namespace) -> int:
             warmup_steps=args.warmup_steps,
             augment=args.augment,
             accum_steps=args.accum_steps or 1,
+            mesh=mesh,
+            comm=comm,
             fused=fused,
             seed=args.seed,
             eval_data=ev,
@@ -233,10 +315,43 @@ def _run_zoo(args: argparse.Namespace) -> int:
                 ring_size=args.keep_checkpoints),
             device=device,
         )
-    if guard.preempted:
+    if guard.preempted and lead:
         print("preempted: checkpoint flushed; continue with --resume")
     if metrics:
         metrics.close()
+
+
+def _run_zoo(args: argparse.Namespace) -> int:
+    """≙ the JAX CLI's ``_run_zoo``: the synthetic CIFAR-shape train/eval
+    sets, zoo.train with per-epoch eval, checkpoints, resume, sentinel and
+    preemption; on one device, or over ``--mesh-data N`` ranks with
+    ``--comm-impl`` (parallel/distributed.py starts them)."""
+    if args.model == "cifar_cnn" and args.conv_backend != "torch":
+        raise SystemExit("--conv-backend cuda applies to the resnet models")
+    if args.batch_size == 1:
+        raise SystemExit("zoo models train minibatch; use --batch-size > 1")
+    _refuse_later_slices(args)
+    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
+    comm = _comm_from_args(args)
+    fused = _fused_from_args(args)
+    if args.mesh_data is None:
+        if comm is not None:
+            raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
+                             "collectives over a mesh: add --mesh-data N")
+        _zoo_job(None, args, comm, fused)
+        return 0
+    if comm is None:
+        raise NotPortedError(
+            "--mesh-data without --comm-impl is JAX's GSPMD data-parallel "
+            "path (global BN statistics), which is not ported (ROADMAP A7); "
+            "add --comm-impl psum or ring")
+
+    from parallel_cnn_tpu_torch.parallel import distributed
+
+    world = distributed.resolve_world(mesh_cfg, args.device)
+    print(f"mesh: {{'data': {world}, 'model': 1}}", flush=True)
+    distributed.run(_zoo_job, world, device=args.device,
+                    args=(args, comm, fused))
     return 0
 
 
@@ -246,6 +361,12 @@ def _run_train(argv: List[str]) -> int:
     args = build_parser().parse_args(argv)
     if args.model != "lenet_ref":
         return _run_zoo(args)
+    _refuse_later_slices(args)
+    if (args.mesh_data is not None or (args.mesh_model or 1) > 1
+            or _comm_from_args(args) is not None):
+        raise NotPortedError(
+            "data-parallel LeNet-ref (--mesh-data/--mesh-model/--comm-*) is "
+            "not ported yet (ROADMAP A7); the zoo models take --mesh-data")
     cfg = config_from_args(args)
 
     from parallel_cnn_tpu_torch.data import pipeline

@@ -12,7 +12,10 @@ is ``conv_backend``, which has one value in the port
 
 For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
 far, and the model and conv-backend names it takes; its other knobs are
-``zoo.train``'s keyword arguments, as in the JAX package.
+``zoo.train``'s keyword arguments, as in the JAX package. For its
+data-parallel path: ``MeshConfig`` (the data axis; the model axis is not
+ported) and ``CommConfig`` (psum or the bucketed ring, JAX's fields,
+defaults and ``PCNN_COMM_*`` layering).
 
 Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
 kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
@@ -155,29 +158,142 @@ CONV_BACKENDS = ("torch", "cuda")
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """The data-parallel layout (JAX's ``MeshConfig``, config.py:141): one
+    process per rank of the ``data`` axis (parallel/distributed.py).
+
+    ``data=None`` means every visible card (on the CPU: one rank). The
+    ``model`` axis (intra-op filter/channel sharding) is not ported: above
+    1 it raises NotPortedError."""
+
+    data: Optional[int] = None
+    model: int = 1
+
+    def __post_init__(self):
+        if self.data is not None and self.data < 1:
+            raise ValueError(f"mesh data axis must be >= 1, got {self.data}")
+        if self.model < 1:
+            raise ValueError(f"mesh model axis must be >= 1, got {self.model}")
+        if self.model > 1:
+            raise NotPortedError(
+                f"mesh model axis {self.model} is not ported yet (ROADMAP A7: "
+                "the intra-op model-axis split); the port's mesh is "
+                "data-parallel only (--mesh-data N)"
+            )
+
+
+@dataclasses.dataclass(frozen=True)
+class CommConfig:
+    """Gradient-collective policy (parallel/collectives.py; JAX's
+    ``CommConfig``, config.py:152).
+
+    - ``impl``: "psum" (one all-reduce per gradient leaf) or "ring" (the
+      grads packed into ``bucket_bytes`` buckets, each reduce-scattered
+      and all-gathered over an explicit ring). "hierarchical" (the
+      two-level host × device ring) is not ported: NotPortedError.
+    - ``wire_dtype``: the ring hops' payload dtype, "float32" or
+      "bfloat16"; sums stay f32.
+    - ``overlap``: with the ring and gradient accumulation, reduce-scatter
+      each microbatch's buckets as soon as its grads are final.
+    """
+
+    impl: str = "psum"
+    bucket_bytes: int = 4 * 1024 * 1024
+    wire_dtype: str = "float32"
+    overlap: bool = True
+
+    def __post_init__(self):
+        if self.impl not in ("psum", "ring", "hierarchical"):
+            raise ValueError(f"unknown comm impl {self.impl!r}")
+        if self.impl == "hierarchical":
+            raise NotPortedError(
+                "comm impl 'hierarchical' (the two-level host x device ring) "
+                "is not ported yet (ROADMAP A9: the hierarchical ring, with "
+                "ZeRO-3); use 'ring' or 'psum'"
+            )
+        if self.bucket_bytes <= 0:
+            raise ValueError(f"bucket_bytes must be > 0, got {self.bucket_bytes}")
+        if self.wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown wire dtype {self.wire_dtype!r} (float32 or bfloat16)"
+            )
+
+    @staticmethod
+    def from_env() -> Optional["CommConfig"]:
+        """CommConfig from PCNN_COMM_IMPL / PCNN_COMM_BUCKET_BYTES /
+        PCNN_COMM_WIRE_DTYPE / PCNN_COMM_OVERLAP, or None when none is set
+        (no explicit collective path). PCNN_COMM_HOSTS belongs to the
+        hierarchical ring, which is not ported: setting it raises."""
+        e = os.environ.get
+        if e("PCNN_COMM_HOSTS") is not None:
+            raise NotPortedError(
+                "PCNN_COMM_HOSTS sets the hierarchical ring's host axis, "
+                "which is not ported yet (ROADMAP A9)"
+            )
+        impl, bucket = e("PCNN_COMM_IMPL"), e("PCNN_COMM_BUCKET_BYTES")
+        wire, overlap = e("PCNN_COMM_WIRE_DTYPE"), e("PCNN_COMM_OVERLAP")
+        if impl is None and bucket is None and wire is None and overlap is None:
+            return None
+        return CommConfig(
+            impl=impl or "psum",
+            bucket_bytes=int(bucket) if bucket else 4 * 1024 * 1024,
+            wire_dtype=wire or "float32",
+            overlap=overlap != "0" if overlap is not None else True,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class FusedStepConfig:
     """The zoo's fused training step (JAX's ``FusedStepConfig``,
     config.py:231), with JAX's defaults.
 
+    - ``update`` is update-on-arrival over the ring collectives: each
+      bucket's reduce-scattered gradient shard updates the rank's
+      parameter and momentum shard through the fused SGD-momentum kernel
+      (ops/sgd_update.py, csrc/sgd_update.cu), and the updated parameter
+      shards are all-gathered (train/zoo.py ``make_fused_train_step``). It
+      needs a mesh and ``CommConfig(impl="ring")``; without them the zoo
+      trainer drops it with JAX's fallback line.
     - ``tail`` routes a recognised model head through the fused loss tail
       (ops/tail.py, csrc/tail_ce.cu).
-    - ``update`` is update-on-arrival over ring collectives; it needs a
-      mesh, which the port does not have yet (ROADMAP A9), so the zoo
-      trainer drops it with JAX's fallback line, as JAX does on one device.
     - ``act_dtype``: only "float32" is ported. "bfloat16", JAX's default,
-      needs bf16 variants of the conv and tail kernels and the static loss
-      scale (ROADMAP A8b); the zoo trainer raises NotPortedError on it.
+      needs bf16 variants of the conv and tail kernels and the loss scale
+      (ROADMAP A8b); the zoo trainer raises NotPortedError on it.
+    - ``loss_scale``, ``growth_interval``, ``backoff``: the bf16 path's
+      dynamic loss scale. They shape the optimizer state
+      (``FusedOptState.scale``); in f32 the scale is pinned to 1.
+    - ``zero``: 2 keeps the momentum as 1/n bucket shards and the params
+      replicated. 3 (params sharded too) is not ported: NotPortedError.
     """
 
     update: bool = True
     tail: bool = True
     act_dtype: str = "bfloat16"
+    loss_scale: float = 2.0 ** 15
+    growth_interval: int = 200
+    backoff: float = 0.5
+    zero: int = 2
 
     def __post_init__(self):
+        if self.zero not in (2, 3):
+            raise ValueError(f"zero level must be 2 or 3, got {self.zero}")
+        if self.zero == 3:
+            raise NotPortedError(
+                "fused-step zero=3 (ZeRO-3: params sharded, gathered just in "
+                "time) is not ported yet (ROADMAP A9: ZeRO-3, B13's other "
+                "caller); use zero=2"
+            )
         if self.act_dtype not in ("float32", "bfloat16"):
             raise ValueError(
                 f"unknown act dtype {self.act_dtype!r} (float32 or bfloat16)"
             )
+        if self.loss_scale < 1.0:
+            raise ValueError(f"loss_scale must be >= 1, got {self.loss_scale}")
+        if self.growth_interval < 1:
+            raise ValueError(
+                f"growth_interval must be >= 1, got {self.growth_interval}")
+        if not 0.0 < self.backoff < 1.0:
+            raise ValueError(f"backoff must be in (0, 1), got {self.backoff}")
 
     def check_ported(self) -> None:
         if self.act_dtype != "float32":
@@ -186,6 +302,19 @@ class FusedStepConfig:
                 "(ROADMAP A8b: bf16 conv/tail kernels and the static loss "
                 "scale); pass act_dtype='float32' (--act-dtype float32)"
             )
+
+    @staticmethod
+    def from_env() -> Optional["FusedStepConfig"]:
+        """FusedStepConfig when PCNN_FUSED_STEP is set truthy, else None.
+        PCNN_ACT_DTYPE and PCNN_ZERO_LEVEL refine it; alone they do not
+        enable it."""
+        enabled = os.environ.get("PCNN_FUSED_STEP")
+        if enabled is None or enabled == "0":
+            return None
+        return FusedStepConfig(
+            act_dtype=os.environ.get("PCNN_ACT_DTYPE", "bfloat16"),
+            zero=int(os.environ.get("PCNN_ZERO_LEVEL", "2")),
+        )
 
 
 #: Registry names the port serves (serve/registry.py).

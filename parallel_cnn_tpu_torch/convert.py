@@ -21,13 +21,16 @@ it as it is, ``{"c1": {"w", "b"}, "s1": {"w", "b"}, "f": {"w", "b"}}``.
 
 ``zoo_from_jax`` / ``zoo_to_jax`` carry a whole zoo training state across
 (JAX's ``ZooState(params, model_state, opt_state)``: the weights, the BN
-running statistics, the optax momentum trace and schedule count) under
-the JAX checkpoint's keys (``.params/0/w``, ``.opt_state/0/0/.trace/0/w``,
-``.opt_state/0/1/.count``), the keys ``train.zoo.ZooState.arrays()`` uses.
+running statistics, the optax momentum trace and schedule count, or the
+update-on-arrival step's ``FusedOptState``) under the JAX checkpoint's
+keys (``.params/0/w``, ``.opt_state/0/0/.trace/0/w``,
+``.opt_state/0/1/.count``; ``.opt_state/.mom/0``, ``.opt_state/.scale``),
+the keys ``train.zoo.ZooState.arrays()`` uses.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -51,8 +54,12 @@ def _flatten(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 def _flatten_jax(tree: Any, prefix: str, out: Dict[str, np.ndarray]) -> None:
     """Leaves under JAX's key paths: a dict key, a sequence index, or
-    ``.field`` for a named tuple's field (optax states)."""
-    if isinstance(tree, dict):
+    ``.field`` for a named tuple's field (optax states) or a dataclass's
+    (``FusedOptState``)."""
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for f in dataclasses.fields(tree):
+            _flatten_jax(getattr(tree, f.name), f"{prefix}.{f.name}/", out)
+    elif isinstance(tree, dict):
         for k, v in tree.items():
             _flatten_jax(v, f"{prefix}{k}/", out)
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -79,8 +86,10 @@ def zoo_from_jax(state, jax_state):
 
 def zoo_to_jax(state) -> Dict[str, np.ndarray]:
     """The port's zoo state as numpy arrays under JAX's checkpoint keys (a
-    JAX ``ZooState`` template's flattened paths)."""
-    return {k: v.detach().cpu().numpy() for k, v in state.arrays().items()}
+    JAX ``ZooState`` template's flattened paths), a fused state's momentum
+    blocks whole (every rank calls it: ``ZooState.checkpoint_arrays``)."""
+    return {k: v.detach().cpu().numpy()
+            for k, v in state.checkpoint_arrays().items()}
 
 
 def from_jax(params: Any, model_state: Any) -> Dict[str, torch.Tensor]:

@@ -1,18 +1,22 @@
-"""Fused SGD update over 1-D gradient buckets (the port of ``fused_sgd``
-and ``tree_sgd`` in ``parallel_cnn_tpu/ops/pallas_update.py``, TPU kernel
-``_sgd_kernel`` at pallas_update.py:54).
+"""Fused SGD updates over 1-D gradient buckets (the port of
+``parallel_cnn_tpu/ops/pallas_update.py``: ``fused_sgd`` and ``tree_sgd``
+over TPU kernel ``_sgd_kernel`` at :54, ``fused_sgd_momentum`` over
+``_sgd_momentum_kernel`` at :58).
 
-    fused_sgd:  p' = p − lr · (g · scale)
+    fused_sgd:           p' = p − lr · (g · scale)
+    fused_sgd_momentum:  m' = β·m + g·scale;   p' = p − lr · m'
 
-On a CUDA tensor ``fused_sgd`` launches the hand kernel in
-``csrc/sgd_update.cu``, which rounds after each of the three operations
-and so agrees bit for bit with the plain PyTorch version; on a CPU tensor
-it runs that plain version. A CUDA call the kernel does not take raises.
-``tree_sgd`` packs a params tree into ``parallel.collectives`` buckets and
-runs one ``fused_sgd`` per bucket; the LeNet trainer's ascent convention
-``p += dt·mean(g)`` is ``lr = −dt, scale = 1/n``
-(train/step.py:fused_batched_step). ``fused_sgd_momentum`` joins it with
-the zoo trainer.
+On a CUDA tensor each launches its hand kernel in ``csrc/sgd_update.cu``,
+which rounds after every operation and so agrees bit for bit with the
+plain PyTorch version; on a CPU tensor it runs that plain version. A call
+the kernel does not take raises. ``tree_sgd`` packs a params tree into
+``parallel.collectives`` buckets and runs one ``fused_sgd`` per bucket;
+the LeNet trainer's ascent convention ``p += dt·mean(g)`` is
+``lr = −dt, scale = 1/n`` (train/step.py:fused_batched_step).
+``fused_sgd_momentum`` is the zoo's update-on-arrival step
+(train/zoo.py:make_fused_train_step): one launch per bucket shard, out of
+place, with ``scale`` a device scalar (the step folds the loss scale,
+accumulation and world size into it without a host sync).
 """
 
 from __future__ import annotations
@@ -33,12 +37,19 @@ from parallel_cnn_tpu_torch.parallel import collectives
 
 #: Launches of the SGD kernel (one per bucket on a CUDA tensor).
 launches = LaunchCounter()
+#: Launches of the SGD-momentum kernel (one per bucket shard on a CUDA tensor).
+momentum_launches = LaunchCounter()
 
 _library = Library(
     "sgd_update.cu",
     {"sgd_update": ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_float,
                                              ctypes.c_float, ctypes.c_void_p],
-                    ctypes.c_int)},
+                    ctypes.c_int),
+     "sgd_momentum_update": ([ctypes.c_void_p] * 6 + [ctypes.c_longlong,
+                                                      ctypes.c_float,
+                                                      ctypes.c_float,
+                                                      ctypes.c_void_p],
+                             ctypes.c_int)},
     # The source rounds each op with intrinsics; keep every other multiply
     # and add unfused as well.
     extra_flags=("-fmad=false",),
@@ -84,6 +95,59 @@ def fused_sgd(p: torch.Tensor, g: torch.Tensor, *, lr: float,
     if p.device.type != "cuda":
         raise ValueError(f"sgd_update runs on cuda or cpu tensors, got {p.device}")
     return _launch(p, g, lr, scale)
+
+
+def fused_sgd_momentum_plain(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor,
+                             lr: float, momentum: float, scale):
+    """Plain version: five elementwise ops, each rounded to f32."""
+    m2 = momentum * m + g * scale
+    return p - lr * m2, m2
+
+
+def _scale_operand(scale, dev) -> torch.Tensor:
+    """``scale`` as one f32 on ``dev``: a tensor is checked, a number is
+    written there (no host sync either way)."""
+    if not isinstance(scale, torch.Tensor):
+        return torch.full((1,), float(scale), dtype=torch.float32, device=dev)
+    if scale.numel() != 1 or scale.dtype != torch.float32 or scale.device != dev:
+        raise ValueError(f"scale must be one f32 on {dev}, got "
+                         f"{tuple(scale.shape)}/{scale.dtype} on {scale.device}")
+    return scale.reshape(1).contiguous()
+
+
+def _launch_momentum(p, m, g, lr, momentum, scale):
+    dev = p.device
+    n = int(p.shape[0])
+    for name, t in (("p", p), ("m", m), ("g", g)):
+        check_operand(name, t, dev, (n,), torch.float32)
+    s = _scale_operand(scale, dev)
+    lib = _library.get()
+    with torch.cuda.device(dev):
+        p_out = torch.empty_like(p)
+        m_out = torch.empty_like(m)
+        err = lib.sgd_momentum_update(
+            p.data_ptr(), m.data_ptr(), g.data_ptr(), s.data_ptr(),
+            p_out.data_ptr(), m_out.data_ptr(), n, float(lr), float(momentum),
+            launch_stream(dev))
+    raise_on_error("sgd_momentum_update", err)
+    momentum_launches.add()
+    return p_out, m_out
+
+
+def fused_sgd_momentum(p: torch.Tensor, m: torch.Tensor, g: torch.Tensor, *,
+                       lr: float, momentum: float, scale=1.0):
+    """(p', m') with m' = β·m + g·scale and p' = p − lr·m', one kernel, for
+    1-D f32 buffers of equal length. ``scale`` is a one-element f32 tensor
+    on their device (read there by the kernel) or a number."""
+    if not (p.shape == m.shape == g.shape) or p.dim() != 1 or p.shape[0] == 0:
+        raise ValueError(f"expected matching non-empty 1-D buffers, got "
+                         f"{tuple(p.shape)} / {tuple(m.shape)} / {tuple(g.shape)}")
+    if p.device.type == "cpu":
+        return fused_sgd_momentum_plain(p, m, g, lr, momentum, scale)
+    if p.device.type != "cuda":
+        raise ValueError(
+            f"sgd_momentum_update runs on cuda or cpu tensors, got {p.device}")
+    return _launch_momentum(p, m, g, lr, momentum, scale)
 
 
 def tree_sgd(params, grads, *, lr: float, scale: float = 1.0,

@@ -1,22 +1,39 @@
-"""Gradient buckets: a tree of tensors packed into fixed-byte 1-D buffers
-and back, exactly (the bucket half of ``parallel_cnn_tpu/parallel/
-collectives.py``; the ring collectives come with the data-parallel slice).
+"""Bucketed gradient collectives over the data axis: the port of
+``parallel_cnn_tpu/parallel/collectives.py`` without its hierarchical
+(two-level) ring.
 
-Leaves are grouped by dtype (a bucket never mixes dtypes, so the
+Buckets. A tree of tensors is packed into fixed-byte 1-D buffers and back,
+exactly. Leaves are grouped by dtype (a bucket never mixes dtypes, so the
 concatenation round-trips bit-exactly with no casts) and packed in the
 tree's flatten order (JAX's: dict keys sorted), scalars raveled in,
 zero-size leaves carried in metadata only, each bucket zero-padded to a
-multiple of ``shards``. The single-device consumer is the fused bucket
-update (ops/sgd_update.py): one kernel launch per bucket.
+multiple of ``shards`` so a ring's chunks stay even. The single-device
+consumer is the fused bucket update (ops/sgd_update.py): one kernel launch
+per bucket.
+
+Ring collectives. ``ring_reduce_scatter``, ``ring_all_gather`` and
+``ring_all_reduce`` run JAX's ring hop for hop: JAX's ``lax.ppermute`` to
+the next device is here one ``dist.batch_isend_irecv`` that sends to rank
++1 and receives from rank −1, over the default process group of
+parallel/distributed.py (NCCL on the card, gloo on the CPU). Sums
+accumulate in f32; only hop payloads are cast to the wire dtype. Every
+hop's requests are waited on before its result is read: on NCCL the wait
+orders PyTorch's current stream behind NCCL's, so a kernel launched next
+on the current stream sees the received data. ``tree_all_reduce`` picks
+psum (one ``dist.all_reduce`` over the tree packed into one buffer per
+dtype) or the ring, per a ``config.CommConfig``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, List, Sequence, Tuple
+import sys
+from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
 from parallel_cnn_tpu_torch.utils.tree import TreeDef, tree_flatten, tree_unflatten
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024  # PCNN_COMM_BUCKET_BYTES default
@@ -161,3 +178,152 @@ def unflatten_buckets(buckets: Sequence[torch.Tensor], plan: BucketPlan) -> Any:
         flat = buckets[slot.bucket][slot.offset:slot.offset + slot.size]
         leaves.append(flat.view(slot.shape).to(dtype))
     return tree_unflatten(plan.treedef, leaves)
+
+
+# ---------------------------------------------------------------------------
+# Ring collectives (called by every rank of the mesh, in the same order)
+# ---------------------------------------------------------------------------
+
+
+def _wire(x_dtype: torch.dtype, wire_dtype) -> Optional[torch.dtype]:
+    """The on-wire dtype: only floats compress, and a cast to the native
+    dtype is skipped."""
+    if wire_dtype is None or not x_dtype.is_floating_point:
+        return None
+    w = getattr(torch, wire_dtype) if isinstance(wire_dtype, str) else wire_dtype
+    return None if w == x_dtype else w
+
+
+def _acc(x_dtype: torch.dtype) -> torch.dtype:
+    """Accumulation dtype: f32 for floats (the wire may be bf16, sums never
+    are), the native dtype for exact integer addition."""
+    return torch.float32 if x_dtype.is_floating_point else x_dtype
+
+
+def _ppermute(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """JAX's ``ppermute`` with perm ``i → i+1``: send ``t`` to the next
+    rank, return what the previous rank sent."""
+    n, r = mesh.world, mesh.rank
+    out = torch.empty_like(t)
+    ops = [dist.P2POp(dist.isend, t.contiguous(), (r + 1) % n),
+           dist.P2POp(dist.irecv, out, (r - 1) % n)]
+    for req in dist.batch_isend_irecv(ops):
+        req.wait()
+    return out
+
+
+def ring_reduce_scatter(x: torch.Tensor, mesh: DataMesh,
+                        wire_dtype=None) -> torch.Tensor:
+    """Ring reduce-scatter of a 1-D buffer: rank ``r`` returns the fully
+    summed chunk ``r`` of ``x.view(n, -1)``.
+
+    n−1 hops, each carrying 1/n of the payload: before hop s a rank holds
+    the partial sum of chunk (r−s−1) mod n, sends it on, and adds its own
+    copy of chunk (r−s−2) mod n to what arrives."""
+    n, idx = mesh.world, mesh.rank
+    if x.dim() != 1:
+        raise ValueError(f"expected a 1-D bucket, got shape {tuple(x.shape)}")
+    if x.shape[0] % n:
+        raise ValueError(
+            f"bucket of {x.shape[0]} elements does not divide over {n} "
+            "shards (plan_buckets pads for this)")
+    acc = _acc(x.dtype)
+    chunks = x.view(n, -1).to(acc)
+    if n == 1:
+        return chunks[0].to(x.dtype)
+    wire = _wire(x.dtype, wire_dtype)
+    send = chunks[(idx - 1) % n]
+    for s in range(n - 1):
+        payload = send.to(wire) if wire is not None else send
+        recvd = _ppermute(payload, mesh).to(acc)
+        send = recvd + chunks[(idx - s - 2) % n]
+    return send.to(x.dtype)
+
+
+def ring_all_gather(shard: torch.Tensor, mesh: DataMesh,
+                    wire_dtype=None) -> torch.Tensor:
+    """Ring all-gather: rank ``r`` contributes chunk ``r``; every rank
+    returns the concatenation of all chunks (n−1 forwarding hops)."""
+    n, idx = mesh.world, mesh.rank
+    if n == 1:
+        return shard
+    wire = _wire(shard.dtype, wire_dtype)
+    out = torch.zeros((n,) + tuple(shard.shape), dtype=shard.dtype,
+                      device=shard.device)
+    out[idx] = shard
+    send = shard
+    for s in range(n - 1):
+        payload = send.to(wire) if wire is not None else send
+        recvd = _ppermute(payload, mesh).to(shard.dtype)
+        out[(idx - s - 1) % n] = recvd
+        send = recvd
+    return out.view((n * shard.shape[0],) + tuple(shard.shape[1:]))
+
+
+def ring_all_reduce(x: torch.Tensor, mesh: DataMesh,
+                    wire_dtype=None) -> torch.Tensor:
+    """Reduce-scatter, then all-gather: 2(n−1)/n of the payload per rank
+    on the wire."""
+    shard = ring_reduce_scatter(x, mesh, wire_dtype)
+    return ring_all_gather(shard, mesh, wire_dtype)
+
+
+def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
+    """JAX's ``psum`` of one buffer: the sum over ranks, in place."""
+    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+    return t
+
+
+def tree_mean(tree: Any, mesh: DataMesh) -> Any:
+    """JAX's ``pmean`` of a tree: the leaves packed into one buffer per
+    dtype, summed over ranks, divided by the world size."""
+    plan = plan_buckets(tree, sys.maxsize)
+    buckets = [all_reduce_sum(b, mesh) / mesh.world
+               for b in flatten_buckets(tree, plan)]
+    return unflatten_buckets(buckets, plan)
+
+
+# ---------------------------------------------------------------------------
+# Tree-level API (what the trainers call)
+# ---------------------------------------------------------------------------
+
+
+def wire_dtype_arg(comm) -> Optional[str]:
+    """The wire dtype the ring takes, from a ``config.CommConfig``
+    ("float32" means no compression → None)."""
+    if comm is None or comm.wire_dtype in (None, "float32"):
+        return None
+    return comm.wire_dtype
+
+
+def tree_all_reduce(tree: Any, mesh: DataMesh, comm=None) -> Any:
+    """SUM-allreduce a tree over the data axis, per the comm config.
+
+    ``comm=None`` or impl "psum": the leaves packed into one buffer per
+    dtype and one ``dist.all_reduce`` each (JAX's monolithic ``lax.psum``).
+    impl "ring": the tree bucketed (``comm.bucket_bytes``, padded to the
+    world size) and each bucket through ``ring_all_reduce``, optionally
+    bf16 on the wire."""
+    if comm is None or comm.impl == "psum":
+        plan = plan_buckets(tree, sys.maxsize)
+        return unflatten_buckets(
+            [all_reduce_sum(b, mesh) for b in flatten_buckets(tree, plan)], plan)
+    if comm.impl != "ring":
+        raise ValueError(f"unknown comm impl {comm.impl!r}")
+    wire = wire_dtype_arg(comm)
+    plan = plan_buckets(tree, comm.bucket_bytes, shards=mesh.world)
+    buckets = [ring_all_reduce(b, mesh, wire) for b in flatten_buckets(tree, plan)]
+    return unflatten_buckets(buckets, plan)
+
+
+def reduce_scatter_buckets(buckets: Sequence[torch.Tensor], mesh: DataMesh,
+                           wire_dtype=None) -> List[torch.Tensor]:
+    """Reduce-scatter each bucket: this rank's shard of each. The buckets
+    must be planned with ``shards=mesh.world``."""
+    return [ring_reduce_scatter(b, mesh, wire_dtype) for b in buckets]
+
+
+def all_gather_buckets(shards: Sequence[torch.Tensor], mesh: DataMesh,
+                       wire_dtype=None) -> List[torch.Tensor]:
+    """Inverse of ``reduce_scatter_buckets``: the full buckets again."""
+    return [ring_all_gather(s, mesh, wire_dtype) for s in shards]

@@ -1,0 +1,137 @@
+"""Start a data-parallel world: one process per rank, each with a
+``torch.distributed`` process group (the port's counterpart of
+``parallel_cnn_tpu/parallel/distributed.py``, JAX's multi-process
+bring-up, and of the device mesh JAX builds inside one process).
+
+``run(fn, world, device=...)`` calls ``fn(mesh, *args)`` on every rank and
+returns each rank's result, rank 0's first. The rendezvous is explicit: a
+``file://`` store in a fresh temporary directory, with the world size and
+each rank given by the launcher; nothing is read from the environment.
+The backend is NCCL on cuda, rank r on ``cuda:r``, and gloo on the CPU.
+
+A world of one runs in the calling process, so what it counts (kernel
+launches) stays readable there. A larger world is spawned with
+``torch.multiprocessing``; a rank that raises fails the whole run (the
+others are stopped) and ``run`` raises, and ``timeout`` bounds the wait.
+More ranks than cards is an error (``MeshSizeError``): NCCL refuses two
+ranks on one card, and the port never falls back to the CPU.
+"""
+
+from __future__ import annotations
+
+import datetime
+import os
+import pickle
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Callable, List, Optional, Sequence
+
+import torch
+import torch.distributed as dist
+
+from parallel_cnn_tpu_torch.config import MeshConfig
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
+from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
+
+#: How long a collective may wait for a peer before the group gives up.
+COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
+
+
+class MeshSizeError(ValueError):
+    """The data axis asks for more ranks than there are cards."""
+
+
+def backend_for(device_type: str) -> str:
+    return "nccl" if device_type == "cuda" else "gloo"
+
+
+def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
+    """The data axis size for ``mesh`` on ``device``: ``data=None`` means
+    every visible card (one rank on the CPU). Raises MeshSizeError above
+    the card count."""
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return mesh.data or 1
+    cards = torch.cuda.device_count()
+    world = mesh.data or cards
+    if world > cards:
+        raise MeshSizeError(
+            f"--mesh-data {world} needs {world} cards but {cards} "
+            f"{'is' if cards == 1 else 'are'} visible: NCCL takes one rank "
+            "per card (no oversubscription, no CPU fallback)"
+        )
+    return world
+
+
+def _init_rank(rank: int, world: int, init_method: str,
+               device_type: str) -> DataMesh:
+    if device_type == "cuda":
+        device = torch.device("cuda", rank)
+        torch.cuda.set_device(device)
+    else:
+        device = torch.device("cpu")
+        if world > 1:  # the ranks share the host's cores
+            torch.set_num_threads(max(1, torch.get_num_threads() // world))
+    dist.init_process_group(backend_for(device_type), init_method=init_method,
+                            world_size=world, rank=rank,
+                            timeout=COLLECTIVE_TIMEOUT)
+    return DataMesh(world=world, rank=rank, device=device)
+
+
+def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
+              device_type: str, args: Sequence[Any]) -> Any:
+    mesh = _init_rank(rank, world, init_method, device_type)
+    try:
+        return fn(mesh, *args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
+                  device_type: str, args: Sequence[Any], out_dir: str) -> None:
+    result = _run_rank(rank, fn, world, init_method, device_type, args)
+    tmp = Path(out_dir) / f"result_{rank}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(result, f)
+    os.replace(tmp, Path(out_dir) / f"result_{rank}.pkl")
+
+
+def run(fn: Callable, world: int, *, device: DeviceLike = None,
+        args: Sequence[Any] = (), timeout: Optional[float] = None) -> List[Any]:
+    """``fn(mesh, *args)`` on each of ``world`` ranks; their results in rank
+    order. ``fn`` and ``args`` must pickle (a module-level function) when
+    ``world > 1``. Raises what a rank raised, or TimeoutError after
+    ``timeout`` seconds (the ranks are stopped either way)."""
+    if world < 1:
+        raise ValueError(f"world must be >= 1, got {world}")
+    dev = resolve_device(device)
+    if dev.type == "cuda" and world > torch.cuda.device_count():
+        raise MeshSizeError(
+            f"a world of {world} needs {world} cards, "
+            f"{torch.cuda.device_count()} visible")
+    with tempfile.TemporaryDirectory(prefix="pcnn_dp_") as tmp:
+        init_method = Path(tmp, "rendezvous").as_uri()
+        if world == 1:
+            return [_run_rank(0, fn, 1, init_method, dev.type, args)]
+        ctx = torch.multiprocessing.start_processes(
+            _spawned_rank, args=(fn, world, init_method, dev.type, tuple(args), tmp),
+            nprocs=world, join=False, start_method="spawn")
+        deadline = None if timeout is None else time.monotonic() + timeout
+        try:
+            while not ctx.join(timeout=1.0):
+                if deadline is not None and time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"data-parallel world of {world} did not finish in "
+                        f"{timeout:.0f} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+            for p in ctx.processes:
+                p.join(timeout=30)
+        results = []
+        for rank in range(world):
+            with open(Path(tmp) / f"result_{rank}.pkl", "rb") as f:
+                results.append(pickle.load(f))
+        return results

@@ -6,7 +6,10 @@ keeps training a dead model. The sentinel makes non-finiteness a detected
 event; the trainer owns the response (config.ResilienceConfig.policy):
 "raise" (DivergenceError), "skip" or "rollback" (resilience/rollback.py).
 The tree check is one all-finite reduce per leaf and one readback, at the
-epoch boundary where the trainer already synchronises.
+epoch boundary where the trainer already synchronises. ``check_scaled`` is
+the verdict for the update-on-arrival step, which skips a non-finite
+update itself: a skip it counted, with the params still finite, is
+healthy.
 """
 
 from __future__ import annotations
@@ -66,3 +69,31 @@ class Sentinel:
             if tree is not None and not tree_all_finite(tree):
                 return Verdict(False, f"non-finite {name}")
         return Verdict(True)
+
+    def check_scaled(
+        self,
+        *,
+        loss: Optional[float] = None,
+        params: Any = None,
+        skipped_before: int = 0,
+        skipped_now: int = 0,
+        scale: float = 1.0,
+    ) -> Verdict:
+        """``check`` for the update-on-arrival step (JAX's
+        ``Sentinel.check_scaled``). The step drops an update whose
+        gradient is not finite, in place, and counts it; if the skip
+        counter advanced and the params are still finite, the non-finite
+        loss was handled: healthy, with the reason attached. Anything the
+        step did not absorb falls through to the usual verdict."""
+        base = self.check(loss=loss, params=params)
+        if base.healthy:
+            return base
+        if skipped_now > skipped_before and (
+            params is None or tree_all_finite(params)
+        ):
+            return Verdict(
+                True,
+                "loss-scale overflow handled in-step: update skipped "
+                f"({skipped_now - skipped_before}x), scale now {scale:g}",
+            )
+        return base

@@ -13,7 +13,11 @@ The zoo trainer saves its whole state through the same two functions: the
 tree it passes is ``train.zoo.ZooState.arrays()``, a flat dict whose keys
 are already JAX's ``ZooState`` paths (``.params/...``, ``.model_state/...``,
 ``.opt_state/0/0/.trace/...``, ``.opt_state/0/1/.count``), so the file is
-the one JAX's ``zoo.train`` writes and restores.
+the one JAX's ``zoo.train`` writes and restores. The update-on-arrival
+step's ``FusedOptState`` is saved the same way, under ``.opt_state/.mom/<b>``
+(each bucket's momentum whole, ``(n_data, L)``), ``.opt_state/.scale``,
+``.opt_state/.good_steps`` and ``.opt_state/.skipped``
+(``ZooState.checkpoint_arrays``).
 """
 
 from __future__ import annotations

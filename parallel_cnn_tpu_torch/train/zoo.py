@@ -1,5 +1,6 @@
-"""Single-device trainer for the model zoo (CIFAR CNN, ResNet-18/34): the
-port of ``parallel_cnn_tpu/train/zoo.py`` with ``mesh=None``.
+"""Trainer for the model zoo (CIFAR CNN, ResNet-18/34): the port of
+``parallel_cnn_tpu/train/zoo.py`` on one device and data-parallel over the
+explicit collectives (``comm=``), without GSPMD.
 
 Softmax cross-entropy and SGD with momentum written out as optax computes
 them (``make_optimizer``: ``m ← g + β·m``, no dampening, weight decay added
@@ -19,16 +20,32 @@ checkpoint keys (``.params/3/main/0/conv/w``,
 ``.model_state/3/main/0/bn/mean``, ``.opt_state/0/0/.trace/...``,
 ``.opt_state/0/1/.count``).
 
+Data parallelism. ``train(..., mesh=, comm=)`` runs on every rank of a
+world that parallel/distributed.py started; each rank draws the same
+global batches and trains on its rows (``DataMesh.shard_rows``, JAX's
+``P(DATA_AXIS)``). ``_make_comm_step`` is JAX's explicit-collective step:
+BatchNorm normalises over the rank's microbatch (per-shard statistics,
+not SyncBN), the grads are summed over ranks by psum or the bucketed ring
+(reduce-scattered per microbatch with ``comm.overlap``) and divided by
+``accum·n``, and the loss and BN running statistics are averaged over
+ranks. ``make_fused_train_step`` is update-on-arrival: after the last
+microbatch's reduce-scatter each rank updates the parameter and momentum
+shard of each bucket it owns with the fused SGD-momentum kernel
+(ops/sgd_update.py), skips the update on every rank when any gradient
+shard is not finite, and all-gathers the updated parameter shards,
+always in f32. Its optimizer state is ``FusedOptState``: the momentum as
+one ``(n_data, L)`` row block per bucket, of which rank r holds row r.
+
 Batch order. ``loader="native"`` gives the native ring's batches
 (``seed + epoch + 1``, the NumPy twin of JAX's C++ ring), so both packages
 train on the same batches. ``loader="device"`` draws each epoch's
 permutation from ``torch.Generator().manual_seed(seed + epoch)``, which
 cannot reproduce JAX's threefry permutation: the two packages shuffle
 differently, each reproducibly, so resume is exact on both. Augmentation
-likewise draws from a generator seeded by the epoch.
+likewise draws from a generator seeded by the epoch and the rank.
 
-Not here (ROADMAP): mesh/GSPMD and explicit-collective data parallelism,
-update-on-arrival and ZeRO (A9), bf16 activations with loss scaling (A8b),
+Not here (ROADMAP): GSPMD data parallelism and the model axis (A7), ZeRO-3
+and the hierarchical ring (A9), bf16 activations with loss scaling (A8b),
 pipeline, elastic and chaos, the per-step sentinel cadence, profiling.
 """
 
@@ -37,18 +54,27 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import sys
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
-from parallel_cnn_tpu_torch.config import FusedStepConfig, ResilienceConfig
+from parallel_cnn_tpu_torch.config import (
+    CommConfig,
+    FusedStepConfig,
+    NotPortedError,
+    ResilienceConfig,
+)
 from parallel_cnn_tpu_torch.data import augment as aug_lib
 from parallel_cnn_tpu_torch.data import pipeline
-from parallel_cnn_tpu_torch.ops import tail
+from parallel_cnn_tpu_torch.ops import sgd_update, tail
+from parallel_cnn_tpu_torch.parallel import collectives
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
     CheckpointRing,
@@ -159,28 +185,87 @@ def _jax_path(key: str) -> str:
     return key.replace(".", "/")
 
 
+def jax_ordered_params(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
+    """``model.named_parameters()`` in the order JAX flattens its params
+    tree: sequence indices in order, dict keys sorted (a ConvBNAct's
+    ``bn.bias, bn.scale, conv.w``). The bucket plans, and so the shard
+    each rank owns, follow this order, as JAX's do."""
+    def key(item):
+        return tuple((0, int(c)) if c.isdigit() else (1, c)
+                     for c in item[0].split("."))
+
+    return sorted(model.named_parameters(), key=key)
+
+
+#: Checkpoint keys of a ``FusedOptState`` (JAX's dataclass fields).
+MOM_KEY = ".opt_state/.mom/"
+_FUSED_SCALARS = (".opt_state/.scale", ".opt_state/.good_steps",
+                  ".opt_state/.skipped")
+
+
+@dataclasses.dataclass
+class FusedOptState:
+    """Optimizer state of the update-on-arrival step (JAX's
+    ``FusedOptState``, zoo.py:50-66).
+
+    The momentum lives sharded: per collectives bucket one ``(n_data, L)``
+    f32 block, of which this rank holds its own row as ``mom[b]`` of shape
+    ``(1, L)``, because the step only ever updates the local shard. The
+    loss-scale state rides beside it (f32: the scale stays 1)."""
+
+    mom: List[torch.Tensor]   # this rank's (1, L) row per bucket, f32
+    scale: torch.Tensor       # () f32: the current loss scale
+    good_steps: torch.Tensor  # () int32: clean steps since the last change
+    skipped: torch.Tensor     # () int32: updates dropped on overflow
+
+
 @dataclasses.dataclass
 class ZooState:
     """The model (parameters and BN buffers), the momentum trace per
-    parameter name and the schedule count: what a step updates."""
+    parameter name and the schedule count: what a step updates. With
+    ``fused`` the optimizer state is a ``FusedOptState`` instead of the
+    trace and count; ``mesh`` is the rank's data axis, which a fused
+    state's checkpoint gathers over."""
 
     model: nn.Module
     optimizer: SGD
     trace: Dict[str, torch.Tensor]
     count: int = 0
+    fused: Optional[FusedOptState] = None
+    mesh: Optional[DataMesh] = None
 
     def arrays(self) -> Dict[str, torch.Tensor]:
-        """The live tensors under the JAX package's checkpoint keys."""
+        """The live tensors under the JAX package's checkpoint keys (a
+        fused state's momentum as this rank's rows)."""
         buffers = {n for n, _ in self.model.named_buffers()}
         out = {}
         for key, t in self.model.state_dict().items():
             tree = ".model_state/" if key in buffers else ".params/"
             out[tree + _jax_path(key)] = t
+        if self.fused is not None:
+            for b, row in enumerate(self.fused.mom):
+                out[f"{MOM_KEY}{b}"] = row
+            opt = self.fused
+            out.update(zip(_FUSED_SCALARS, (opt.scale, opt.good_steps, opt.skipped)))
+            return out
         prefix = f".opt_state/{self.optimizer.chain_index}"
         for key, t in self.trace.items():
             out[f"{prefix}/0/.trace/{_jax_path(key)}"] = t
         if self.optimizer.scheduled:
             out[f"{prefix}/1/.count"] = torch.tensor(self.count, dtype=torch.int32)
+        return out
+
+    def checkpoint_arrays(self) -> Dict[str, torch.Tensor]:
+        """``arrays()`` as a checkpoint holds them: each momentum block
+        whole, ``(n_data, L)``, its rows gathered from every rank. Every
+        rank calls it (a collective when the world is larger than one)."""
+        out = self.arrays()
+        mesh = self.mesh
+        if self.fused is not None and mesh is not None and mesh.world > 1:
+            for b, row in enumerate(self.fused.mom):
+                rows = [torch.empty_like(row) for _ in range(mesh.world)]
+                dist.all_gather(rows, row.contiguous())
+                out[f"{MOM_KEY}{b}"] = torch.cat(rows)
         return out
 
     def snapshot(self) -> Dict[str, torch.Tensor]:
@@ -190,7 +275,9 @@ class ZooState:
     def load(self, arrays: Dict[str, torch.Tensor]) -> None:
         """Copy ``arrays`` (tensors or numpy arrays under the keys of
         ``arrays()``) into the state, in place. Keys, shapes and dtypes
-        must match exactly."""
+        must match exactly, except that a momentum block may come whole,
+        ``(n_data, L)`` as a checkpoint holds it: this rank takes its
+        row."""
         want = self.arrays()
         if set(arrays) != set(want):
             raise ValueError(
@@ -201,6 +288,10 @@ class ZooState:
                 src = arrays[key]
                 if not isinstance(src, torch.Tensor):
                     src = torch.from_numpy(np.array(src, copy=True))
+                if (key.startswith(MOM_KEY) and self.mesh is not None
+                        and src.dim() == 2 and src.shape[0] == self.mesh.world
+                        and dst.shape[0] == 1):
+                    src = src[self.mesh.rank:self.mesh.rank + 1]
                 if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
                     raise ValueError(
                         f"zoo state leaf '{key}' is {tuple(src.shape)}/{src.dtype}, "
@@ -216,6 +307,29 @@ def init_state(model: nn.Module, optimizer: SGD) -> ZooState:
     momentum on the parameters' devices, count 0."""
     trace = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
     return ZooState(model, optimizer, trace)
+
+
+def init_fused_state(model: nn.Module, optimizer: SGD, *, mesh: DataMesh,
+                     fused: FusedStepConfig,
+                     bucket_bytes: int) -> Tuple[ZooState, int]:
+    """(ZooState for the update-on-arrival step, bucket count), as JAX's
+    ``init_fused_state`` (zoo.py:186-220): zero momentum in its sharded
+    layout, one ``(1, L)`` row per bucket of the params' plan (the
+    gradients' plan is the same: same leaves in the same order), the loss
+    scale at ``fused.loss_scale`` for bf16 and 1 for f32."""
+    params = [p for _, p in jax_ordered_params(model)]
+    plan = collectives.plan_buckets(params, bucket_bytes, shards=mesh.world)
+    dev = params[0].device
+    mom = [torch.zeros((1, size // mesh.world), dtype=torch.float32, device=dev)
+           for size in plan.bucket_sizes]
+    scale0 = fused.loss_scale if fused.act_dtype == "bfloat16" else 1.0
+    opt = FusedOptState(
+        mom=mom,
+        scale=torch.tensor(scale0, dtype=torch.float32, device=dev),
+        good_steps=torch.zeros((), dtype=torch.int32, device=dev),
+        skipped=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    return ZooState(model, optimizer, {}, fused=opt, mesh=mesh), plan.n_buckets
 
 
 # ---------------------------------------------------------------------------
@@ -248,18 +362,34 @@ def _build_loss_fn(model: nn.Module, fused: Optional[FusedStepConfig]) -> Callab
 
 def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
                     augment_pad: Optional[int] = None,
-                    fused: Optional[FusedStepConfig] = None) -> Callable:
+                    fused: Optional[FusedStepConfig] = None,
+                    mesh: Optional[DataMesh] = None,
+                    comm: Optional[CommConfig] = None) -> Callable:
     """step(state, x, y, aug=None) → loss (a device scalar), updating
     ``state`` in place: grads of the (microbatch-averaged) loss, then one
     optimizer update. ``accum_steps > 1`` splits the batch into that many
     microbatches, in order, threading the BN state through them.
     ``augment_pad`` set means the step crops and flips ``x`` with the
-    draws ``aug = (offsets, flips)`` first. ``fused.update`` is not taken
-    here (it needs a mesh; ``train`` drops it)."""
+    draws ``aug = (offsets, flips)`` first. ``comm`` (with ``mesh``) is
+    JAX's explicit-collective data-parallel step (``_make_comm_step``):
+    ``x``, ``y`` are then the global batch, and ``aug`` the draws for this
+    rank's rows. ``fused.update`` is not taken here: update-on-arrival is
+    ``make_fused_train_step`` (``train`` dispatches to it)."""
     if fused is not None and fused.update:
         raise ValueError(
-            "fused.update (update-on-arrival) needs the ring-collective "
-            "step (ROADMAP A9); pass fused with update=False")
+            "fused.update (update-on-arrival) requires the explicit "
+            "ring-collective step — use make_fused_train_step / "
+            "train(..., fused=...), or pass fused with update=False")
+    if comm is not None:
+        if mesh is None:
+            raise ValueError("comm (explicit collectives) requires a mesh")
+        return _make_comm_step(model, optimizer, accum_steps, augment_pad,
+                               fused, mesh, comm)
+    if mesh is not None:
+        raise NotPortedError(
+            "a mesh without comm is JAX's GSPMD data-parallel path (global "
+            "BN statistics), which is not ported (ROADMAP A7); pass "
+            "comm=CommConfig(impl='psum' or 'ring') (--comm-impl)")
     loss_fn = _build_loss_fn(model, fused)
 
     def grad_fn(m, params, x, y):
@@ -299,6 +429,192 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
     return step
 
 
+def _microbatch(x: torch.Tensor, accum_steps: int) -> int:
+    if x.shape[0] % accum_steps:
+        raise ValueError(
+            f"per-device batch {x.shape[0]} must be a multiple of "
+            f"accum_steps {accum_steps} (no silent sample dropping)")
+    return x.shape[0] // accum_steps
+
+
+def _rank_batch(mesh: DataMesh, x, y, aug, augment_pad):
+    """This rank's rows of the global batch, augmented with ``aug``."""
+    x, y = mesh.shard_rows(x), mesh.shard_rows(y)
+    if augment_pad is not None:
+        if aug is None:
+            raise ValueError("this step was built with augmentation; "
+                             "call it as step(state, x, y, aug)")
+        x = aug_lib.crop_flip(x, *aug, pad=augment_pad)
+    return x, y
+
+
+def _copy_into(dsts: List[torch.Tensor], srcs: Sequence[torch.Tensor]) -> None:
+    """Copy each source into its destination, in place: one multi-tensor
+    launch rather than one copy per leaf (a model may have no buffers)."""
+    if dsts:
+        torch._foreach_copy_(dsts, list(srcs))
+
+
+def _mean_loss(lsum: torch.Tensor, accum_steps: int, mesh: DataMesh) -> torch.Tensor:
+    """JAX's ``pmean(lsum / accum_steps)``."""
+    loss = lsum / accum_steps
+    return collectives.all_reduce_sum(loss, mesh) / mesh.world
+
+
+def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
+                    augment_pad: Optional[int], fused: Optional[FusedStepConfig],
+                    mesh: DataMesh, comm: CommConfig) -> Callable:
+    """JAX's explicit-collective data-parallel step (zoo.py:398-604) on
+    this rank: the microbatch loop over the rank's rows, then the gradient
+    sum over ranks — psum, or the ring per bucket; with the ring,
+    ``comm.overlap`` and ``accum_steps > 1`` each microbatch's buckets are
+    reduce-scattered as soon as its grads are final and the shards summed,
+    with one all-gather at the end. psum and ring run the same body, so
+    comparing them isolates the collective.
+
+    BatchNorm normalises over the rank's microbatch (per-shard statistics,
+    not SyncBN); the running statistics and the loss are averaged over
+    ranks; the grads are divided by ``accum_steps · n``; then the
+    optimizer runs on every rank alike."""
+    if comm.impl not in ("psum", "ring"):
+        raise ValueError(f"unknown comm impl {comm.impl!r}")
+    n = mesh.world
+    wire = collectives.wire_dtype_arg(comm)
+    overlap = comm.impl == "ring" and comm.overlap and accum_steps > 1
+    loss_fn = _build_loss_fn(model, fused)
+    names, params = zip(*jax_ordered_params(model))
+    pos = {name: i for i, name in enumerate(names)}
+    module_order = [pos[name] for name, _ in model.named_parameters()]
+    plan = collectives.plan_buckets(list(params), comm.bucket_bytes, shards=n)
+
+    def step(state: ZooState, x, y, aug=None):
+        x, y = _rank_batch(mesh, x, y, aug, augment_pad)
+        m = state.model
+        m.train()
+        mb = _microbatch(x, accum_steps)
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        gsum = shard_acc = None
+        for i in range(accum_steps):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss = loss_fn(m, x[sl], y[sl])
+            grads = list(torch.autograd.grad(loss, params))
+            lsum = lsum + loss.detach()
+            with torch.no_grad():
+                if overlap:
+                    shards = collectives.reduce_scatter_buckets(
+                        collectives.flatten_buckets(grads, plan), mesh, wire)
+                    shard_acc = shards if shard_acc is None else [
+                        a + b for a, b in zip(shard_acc, shards)]
+                elif gsum is None:
+                    gsum = grads
+                else:
+                    torch._foreach_add_(gsum, grads)
+        with torch.no_grad():
+            if overlap:
+                grads = collectives.unflatten_buckets(
+                    collectives.all_gather_buckets(shard_acc, mesh, wire), plan)
+            else:
+                grads = collectives.tree_all_reduce(gsum, mesh, comm)
+            # Each microbatch's grads are a mean over the rank's rows; the
+            # collective summed over n ranks.
+            grads = torch._foreach_div(list(grads), float(accum_steps * n))
+            loss = _mean_loss(lsum, accum_steps, mesh)
+            bufs = [b for _, b in m.named_buffers()]
+            _copy_into(bufs, collectives.tree_mean(bufs, mesh))
+            state.optimizer.apply(state, [grads[i] for i in module_order])
+        return loss
+
+    return step
+
+
+def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
+                          accum_steps: int, mesh: DataMesh,
+                          augment_pad: Optional[int], comm: CommConfig,
+                          fused: FusedStepConfig) -> Callable:
+    """Update-on-arrival (JAX's ``make_fused_train_step``, zoo.py:607-805):
+    step(state, x, y, aug=None) → loss, ``state`` from ``init_fused_state``.
+
+    The ring overlap schedule of ``_make_comm_step`` carried past the
+    gradient: when the last microbatch's reduce-scatter lands, this rank
+    holds the summed gradient shard of every bucket, and updates the
+    parameter and momentum shard it owns with ONE fused SGD-momentum
+    launch per bucket (ops/sgd_update.py, its scalar ``1/(scale·accum·n)``
+    computed on the device). The updated parameter shards are all-gathered,
+    always in f32 whatever ``comm.wire_dtype`` (the masters stay exact).
+    Every rank checks its gradient shards for non-finite values and one
+    all-reduce MIN agrees: on overflow every rank keeps its params,
+    momentum and BN statistics bit-identical (``torch.where``, no host
+    sync) and counts the skip. Constant-LR SGD with momentum only: ``lr``
+    and ``momentum`` are the kernel's scalars."""
+    if comm is None or comm.impl != "ring":
+        raise ValueError(
+            "update-on-arrival requires comm.impl='ring' (the bucketed "
+            "reduce-scatter is what produces the per-rank shards)")
+    n = mesh.world
+    wire = collectives.wire_dtype_arg(comm)
+    loss_fn = _build_loss_fn(model, fused)
+    params = [p for _, p in jax_ordered_params(model)]
+    plan = collectives.plan_buckets(params, comm.bucket_bytes, shards=n)
+    # The BN running statistics, one buffer per dtype.
+    buf_plan = collectives.plan_buckets([b for _, b in model.named_buffers()],
+                                        sys.maxsize)
+
+    def step(state: ZooState, x, y, aug=None):
+        x, y = _rank_batch(mesh, x, y, aug, augment_pad)
+        m = state.model
+        m.train()
+        opt = state.fused
+        scale = opt.scale
+        bufs = [b for _, b in m.named_buffers()]
+        # The BN state before the step, packed (one copy per dtype), for
+        # the skip.
+        old_bufs = collectives.flatten_buckets(bufs, buf_plan)
+        mb = _microbatch(x, accum_steps)
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        shard_acc = None
+        for i in range(accum_steps):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss = loss_fn(m, x[sl], y[sl])
+            grads = list(torch.autograd.grad(loss * scale, params))
+            lsum = lsum + loss.detach()  # the unscaled loss, for reporting
+            with torch.no_grad():
+                shards = collectives.reduce_scatter_buckets(
+                    collectives.flatten_buckets(grads, plan), mesh, wire)
+                shard_acc = shards if shard_acc is None else [
+                    a + b for a, b in zip(shard_acc, shards)]
+        with torch.no_grad():
+            # Every rank must take the same branch, or params diverge.
+            finite = torch.stack([torch.isfinite(s).all() for s in shard_acc]).all()
+            ok_i = finite.to(torch.int32)
+            dist.all_reduce(ok_i, op=dist.ReduceOp.MIN)
+            ok = ok_i > 0
+            gscale = 1.0 / (scale * (accum_steps * n))
+            pbuckets = collectives.flatten_buckets(params, plan)
+            new_pb, new_mom = [], []
+            for b, gsh in enumerate(shard_acc):
+                psh = pbuckets[b].view(n, -1)[mesh.rank]
+                msh = opt.mom[b][0]
+                p_new, m_new = sgd_update.fused_sgd_momentum(
+                    psh, msh, gsh, lr=lr, momentum=momentum, scale=gscale)
+                p_new = torch.where(ok, p_new, psh)
+                new_mom.append(torch.where(ok, m_new, msh)[None])
+                new_pb.append(collectives.ring_all_gather(p_new, mesh, None))
+            _copy_into(params, collectives.unflatten_buckets(new_pb, plan))
+            new_bufs = [collectives.all_reduce_sum(b, mesh) / n
+                        for b in collectives.flatten_buckets(bufs, buf_plan)]
+            _copy_into(bufs, collectives.unflatten_buckets(
+                [torch.where(ok, new, old) for new, old in zip(new_bufs, old_bufs)],
+                buf_plan))
+            loss = _mean_loss(lsum, accum_steps, mesh)
+            # f32 pins the scale to 1: the bf16 backoff and growth (A8b) are
+            # not ported, so only the skip counter moves.
+            opt.mom = new_mom
+            opt.skipped = opt.skipped + (1 - ok_i)
+        return loss
+
+    return step
+
+
 def evaluate(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
              batch_size: int = 256) -> float:
     """Accuracy (%) of ``model`` in eval mode over an on-device split, in
@@ -320,8 +636,11 @@ def evaluate(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _aug_generator(seed: int, epoch: int) -> torch.Generator:
-    return torch.Generator().manual_seed((seed ^ 0x5EED) * 1_000_003 + epoch)
+def _aug_generator(seed: int, epoch: int, rank: int = 0) -> torch.Generator:
+    """The epoch's augmentation stream; each rank of a mesh draws its own
+    (JAX folds the device index into the key, zoo.py:672-673)."""
+    return torch.Generator().manual_seed(
+        (seed ^ 0x5EED) * 1_000_003 + epoch + (rank << 32))
 
 
 def _epoch_batches(loader, images, labels, np_data, batch, steps, seed, epoch,
@@ -357,6 +676,8 @@ def train(
     augment: bool = False,
     augment_pad: int = 4,
     accum_steps: int = 1,
+    mesh: Optional[DataMesh] = None,
+    comm: Optional[CommConfig] = None,
     fused: Optional[FusedStepConfig] = None,
     seed: int = 0,
     verbose: bool = True,
@@ -370,7 +691,7 @@ def train(
     device: DeviceLike = None,
 ) -> Tuple[ZooState, List[float]]:
     """Epoch driver for a zoo model on an in-memory NHWC dataset (JAX's
-    ``zoo.train`` on one device). ``model`` carries the initial weights and
+    ``zoo.train`` without GSPMD). ``model`` carries the initial weights and
     is trained in place on ``device`` (None = the GPU; "cpu" runs the
     kernels' plain versions).
 
@@ -383,29 +704,66 @@ def train(
     checkpoint in ``checkpoint_dir`` (one the JAX trainer wrote included);
     a preemption signal stops at the next epoch boundary, after the
     checkpoint. Returns (state, per-epoch mean losses).
+
+    Data parallelism: every rank of a world that parallel/distributed.py
+    started calls ``train`` with its ``mesh`` (then ``device`` is the
+    mesh's) and a ``comm`` (``CommConfig``; psum or ring, JAX's
+    ``_make_comm_step``). ``batch_size`` is the global batch; each rank
+    trains on its rows. ``fused.update`` with the ring is update-on-arrival
+    (``make_fused_train_step``: constant-LR SGD with momentum, no weight
+    decay); without a mesh and the ring it is dropped with JAX's fallback
+    line. Rank 0 alone prints, evaluates (over the whole eval set with the
+    replicated params), records metrics and writes checkpoints; a fused
+    state's momentum rows are gathered for it first. Under
+    update-on-arrival the sentinel treats a skipped overflow as handled
+    (``Sentinel.check_scaled``).
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
+    if mesh is not None:
+        device = mesh.device
     dev = resolve_device(device)
+    rank = mesh.rank if mesh is not None else 0
+    world = mesh.world if mesh is not None else 1
+    lead = rank == 0
+    verbose = verbose and lead
     steps = images.shape[0] // batch_size
     if steps == 0:
         raise ValueError(f"dataset of {images.shape[0]} samples yields zero "
                          f"batches of {batch_size}")
+    if batch_size % world:
+        raise ValueError(f"global batch {batch_size} does not divide over "
+                         f"{world} ranks")
     if fused is not None and fused.update:
-        if verbose:
-            print("fused-step: update-on-arrival needs mesh + "
-                  "comm.impl='ring'/'hierarchical'; falling back to "
-                  "fused tail only")
-        fused = dataclasses.replace(fused, update=False)
+        if mesh is None or comm is None or comm.impl != "ring":
+            if verbose:
+                print("fused-step: update-on-arrival needs mesh + "
+                      "comm.impl='ring'/'hierarchical'; falling back to "
+                      "fused tail only")
+            fused = dataclasses.replace(fused, update=False)
+        elif lr_schedule != "constant" or warmup_steps or weight_decay:
+            raise ValueError(
+                "fused.update supports constant-LR SGD(+momentum) only — "
+                "lr schedules/warmup/weight decay need the optax path "
+                "(set update=False)")
+    use_fused_update = fused is not None and fused.update
     optimizer = make_optimizer(
         lr, momentum, weight_decay, schedule=lr_schedule,
         warmup_steps=warmup_steps,
         total_steps=steps * epochs if lr_schedule == "cosine" else None,
     )
     model.to(dev)
-    state = init_state(model, optimizer)
-    step = make_train_step(model, optimizer, accum_steps,
-                           augment_pad if augment else None, fused)
+    pad = augment_pad if augment else None
+    if use_fused_update:
+        state, _ = init_fused_state(model, optimizer, mesh=mesh, fused=fused,
+                                    bucket_bytes=comm.bucket_bytes)
+        step = make_fused_train_step(
+            model, lr=lr, momentum=momentum, accum_steps=accum_steps,
+            mesh=mesh, augment_pad=pad, comm=comm, fused=fused)
+    else:
+        state = init_state(model, optimizer)
+        step = make_train_step(model, optimizer, accum_steps, pad, fused,
+                               mesh=mesh, comm=comm)
 
     res = resilience
     sentinel = Sentinel() if res is not None and res.policy != "off" else None
@@ -413,7 +771,7 @@ def train(
     if sentinel is not None and res.policy == "rollback":
         controller = RollbackController(max_rollbacks=res.max_rollbacks)
     ring = None
-    if checkpoint_dir:
+    if checkpoint_dir and lead:
         ring = CheckpointRing(checkpoint_dir,
                               keep=res.ring_size if res is not None else 0)
 
@@ -423,7 +781,7 @@ def train(
     if checkpoint_dir and resume:
         path = checkpoint.latest(checkpoint_dir)
         if path:
-            arrays, tstate = checkpoint.restore(path, state.arrays())
+            arrays, tstate = checkpoint.restore(path, state.checkpoint_arrays())
             state.load(arrays)
             start_epoch = tstate.epoch
             losses = list(tstate.epoch_errors)
@@ -440,24 +798,43 @@ def train(
         d_images = torch.from_numpy(np.asarray(images, np.float32)).to(dev)
         d_labels = torch.from_numpy(np.asarray(labels)).to(dev, torch.int64)
     ev = None
-    if eval_data is not None:
+    if eval_data is not None and lead:
         ev = (torch.from_numpy(np.asarray(eval_data[0], np.float32)).to(dev),
               torch.from_numpy(np.asarray(eval_data[1])).to(dev, torch.int64))
+
+    skip_seen = int(state.fused.skipped) if use_fused_update else 0
+
+    def health_check(loss_val: float):
+        # Under update-on-arrival a non-finite gradient the step already
+        # skipped (skip counter advanced, masters finite) is handled.
+        nonlocal skip_seen
+        params = list(state.model.parameters())
+        if not use_fused_update:
+            return sentinel.check(loss=loss_val, params=params)
+        now = int(state.fused.skipped)
+        verdict = sentinel.check_scaled(
+            loss=loss_val, params=params, skipped_before=skip_seen,
+            skipped_now=now, scale=float(state.fused.scale))
+        skip_seen = now
+        if verdict.healthy and verdict.reason and verbose:
+            print(f"sentinel: {verdict.reason}")
+        return verdict
 
     last_good = None
     if sentinel is not None:
         last_good = state.snapshot()
         if controller is not None:
             controller.commit(last_good)
+    local_batch = batch_size // world
     epoch = start_epoch
     while epoch < epochs:
         t0 = time.perf_counter()
         aug = None
         if augment:
-            offsets, flips = aug_lib.draw(_aug_generator(seed, epoch),
-                                          steps * batch_size, augment_pad)
-            aug = (offsets.to(dev).view(steps, batch_size, 2),
-                   flips.to(dev).view(steps, batch_size))
+            offsets, flips = aug_lib.draw(_aug_generator(seed, epoch, rank),
+                                          steps * local_batch, augment_pad)
+            aug = (offsets.to(dev).view(steps, local_batch, 2),
+                   flips.to(dev).view(steps, local_batch))
         epoch_loss = torch.zeros((), dtype=torch.float32, device=dev)
         batches = _epoch_batches(loader, d_images, d_labels, np_data,
                                  batch_size, steps, seed, epoch, dev)
@@ -467,8 +844,7 @@ def train(
             epoch_loss = epoch_loss + loss
         mean_loss = float(epoch_loss) / steps  # the epoch's one readback
         if sentinel is not None:
-            verdict = sentinel.check(loss=mean_loss,
-                                     params=list(state.model.parameters()))
+            verdict = health_check(mean_loss)
             if not verdict.healthy:
                 diverged = f"epoch {epoch + 1}: {verdict.reason}"
                 if res.policy == "raise":
@@ -495,23 +871,36 @@ def train(
         seconds = time.perf_counter() - t0
         if ev is not None:
             accs.append(evaluate(state.model, *ev, batch_size=eval_batch_size))
-        if metrics is not None:
+        if metrics is not None and lead:
             rec = dict(event="zoo_epoch", epoch=epoch + 1, loss=losses[-1],
                        seconds=seconds)
             if ev is not None:
                 rec["accuracy"] = accs[-1]
             metrics.record(**rec)
-        if ring is not None:
-            ring.save(epoch + 1, state.arrays(), checkpoint.TrainState(
-                epoch=epoch + 1, epoch_errors=list(losses),
-                extra={"epoch_accs": list(accs)}))
+        if checkpoint_dir:
+            arrays = state.checkpoint_arrays()
+            if ring is not None:
+                ring.save(epoch + 1, arrays, checkpoint.TrainState(
+                    epoch=epoch + 1, epoch_errors=list(losses),
+                    extra={"epoch_accs": list(accs)}))
         if verbose:
             acc_txt = f", acc {accs[-1]:.2f}%" if ev is not None else ""
             print(f"epoch {epoch + 1}: loss {losses[-1]:.4f}{acc_txt} "
                   f"({seconds:.2f}s)")
-        if preempt.requested():
+        if _agree(preempt.requested(), mesh):
             if verbose:
                 print(f"preemption: stopping after epoch {epoch + 1}")
             break
         epoch += 1
+    if mesh is not None and mesh.world > 1:
+        dist.barrier()  # rank 0's last checkpoint is on disk for every rank
     return state, losses
+
+
+def _agree(flag: bool, mesh: Optional[DataMesh]) -> bool:
+    """True on every rank when it is true on any (one stop for all)."""
+    if mesh is None or mesh.world == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())

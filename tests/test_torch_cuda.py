@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: csrc/tap_conv.cu (forward and
 dgrad), csrc/tap_wgrad.cu, csrc/tail_ce.cu, csrc/lenet_fused.cu,
-csrc/sgd_update.cu and csrc/lenet_staged.cu held against their plain
-PyTorch versions, the
-wrappers' refusals on CUDA tensors, and the serving and training paths'
-launch counts. Every test here skips without a GPU.
+csrc/sgd_update.cu (SGD and SGD-momentum) and csrc/lenet_staged.cu held
+against their plain PyTorch versions, the wrappers' refusals on CUDA
+tensors, and the serving, training and data-parallel paths' launch
+counts. Every test here skips without a GPU.
 
 This file imports no JAX, so on a machine with the card and without JAX it
 runs without the suite's conftest:
@@ -237,6 +237,86 @@ def test_sgd_update_raises_instead_of_falling_back(card):
     with pytest.raises(ValueError):
         sgd_update.fused_sgd(p[::2], torch.zeros(8, device=card), lr=0.1)
     assert sgd_update.launches.count == before
+
+
+# B13 at odd sizes and ResNet-18's first and last bucket (971,328; 5,130).
+MOMENTUM_SIZES = [1, 127, 128, 5130, 128_037, 971_328]
+
+
+def _momentum_inputs(dev, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [torch.randn(n, generator=gen, device=dev) for _ in range(3)]
+
+
+@pytest.mark.parametrize("n", MOMENTUM_SIZES)
+def test_sgd_momentum_is_bit_identical_to_plain_on_card(card, n):
+    p, m, g = _momentum_inputs(card, n, n)
+    scale = torch.tensor(1.0 / 3.0, device=card)
+    before = sgd_update.momentum_launches.count
+    got = sgd_update.fused_sgd_momentum(p, m, g, lr=0.1, momentum=0.9, scale=scale)
+    again = sgd_update.fused_sgd_momentum(p, m, g, lr=0.1, momentum=0.9, scale=scale)
+    want = sgd_update.fused_sgd_momentum_plain(p, m, g, 0.1, 0.9, scale)
+    torch.cuda.synchronize()
+    assert sgd_update.momentum_launches.count == before + 2
+    for a, b, c in zip(got, again, want):
+        assert torch.equal(a, c) and torch.equal(a, b)
+    if n > 4:  # an unaligned view takes the scalar path and agrees as well
+        got = sgd_update.fused_sgd_momentum(p[1:], m[1:], g[1:], lr=0.05,
+                                            momentum=0.9, scale=scale)
+        want = sgd_update.fused_sgd_momentum_plain(p[1:], m[1:], g[1:], 0.05, 0.9, scale)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_sgd_momentum_reads_its_scale_on_the_card(card):
+    """The scale is read from device memory at run time: a value written
+    into the same tensor on the device (no host copy) changes the result."""
+    p, m, g = _momentum_inputs(card, 4096, 1)
+    scale = torch.ones((), device=card)
+    one = sgd_update.fused_sgd_momentum(p, m, g, lr=0.1, momentum=0.9, scale=scale)
+    scale.mul_(0.25)
+    quarter = sgd_update.fused_sgd_momentum(p, m, g, lr=0.1, momentum=0.9, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(quarter[1], sgd_update.fused_sgd_momentum_plain(
+        p, m, g, 0.1, 0.9, torch.tensor(0.25, device=card))[1])
+    assert not torch.equal(one[1], quarter[1])
+
+
+def test_sgd_momentum_raises_instead_of_falling_back(card):
+    p, m, g = _momentum_inputs(card, 16, 2)
+    before = sgd_update.momentum_launches.count
+    with pytest.raises(TypeError):
+        sgd_update.fused_sgd_momentum(p, m.double(), g, lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum(p, m.cpu(), g, lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum(p, m, g, lr=0.1, momentum=0.9,
+                                      scale=torch.ones(()))
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum(p[::2], m[::2], g[::2], lr=0.1, momentum=0.9)
+    assert sgd_update.momentum_launches.count == before
+
+
+def _dp_train_rank(mesh, steps):
+    from parallel_cnn_tpu_torch.config import CommConfig, FusedStepConfig
+    from parallel_cnn_tpu_torch.nn import cifar
+
+    imgs, labels = synthetic.make_image_dataset(16 * steps, seed=3)
+    model = cifar.cifar_cnn(generator=torch.Generator().manual_seed(0))
+    state, losses = zoo.train(
+        model, imgs, labels, batch_size=16, lr=0.01, mesh=mesh,
+        comm=CommConfig(impl="ring"), fused=FusedStepConfig(act_dtype="float32"),
+        verbose=False)
+    return state.fused is not None, len(state.fused.mom), losses
+
+
+def test_update_on_arrival_launches_the_kernel_per_bucket_on_card(card):
+    from parallel_cnn_tpu_torch.parallel import distributed
+
+    sgd_update.momentum_launches.reset()
+    fused, n_buckets, losses = distributed.run(_dp_train_rank, 1, device="cuda",
+                                               args=(5,))[0]
+    assert fused and np.isfinite(losses).all()
+    assert sgd_update.momentum_launches.count == 5 * n_buckets
 
 
 @pytest.mark.parametrize("ops,fused,counter", [
