@@ -31,7 +31,11 @@ port's two paths through their user-facing entry points:
   NCCL; one card cannot hold two), update-on-arrival through the fused
   SGD-momentum kernel at every bucket, its steps against the optax-path
   steps and the psum step, a resumed run against a straight one, and a
-  profiled epoch.
+  profiled epoch;
+- the probe path: the eight Mosaic probes' kernels (B14–B21) against
+  their plain twins on seeded inputs, then the port's probe entry point
+  (python -m parallel_cnn_tpu_torch.benches.mosaic_probe) with exact
+  launch counts, and two head-to-heads of the forms the probes compare.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -69,6 +73,7 @@ from parallel_cnn_tpu_torch.config import (
     ServeConfig,
     TrainConfig,
 )
+from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn import resnet
@@ -77,6 +82,7 @@ from parallel_cnn_tpu_torch.nn.resnet import BasicBlock
 from parallel_cnn_tpu_torch.ops import (
     lenet_fused,
     lenet_staged,
+    mosaic_probe,
     reference,
     sgd_update,
     tail,
@@ -96,6 +102,8 @@ BATCH = 64
 # Published H100 SXM peaks (dense): f32 outside the tensor cores, HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_HBM_BYTES = 3.35e12
+# The same sheet's dense bf16 rate in the tensor cores.
+PEAK_BF16_FLOPS = 989e12
 # Above the H100's top SM clock (1.98 GHz): a spin of c cycles lasts at
 # least c / SPIN_HZ seconds.
 SPIN_HZ = 2.0e9
@@ -110,7 +118,8 @@ CONV_RTOL = 1e-4
 LOGIT_RTOL = 1e-3
 SERVE_REQUESTS = 256
 SERVE_CONCURRENCY = 16
-KERNEL_MODULES = (tap_conv, tap_wgrad, tail, lenet_fused, sgd_update, lenet_staged)
+KERNEL_MODULES = (tap_conv, tap_wgrad, tail, lenet_fused, sgd_update, lenet_staged,
+                  mosaic_probe)
 TIME_LIMIT_S = 1100
 
 # The LeNet-ref trainer. B1 (lenet_fused) vs its plain version: f32 on both
@@ -194,6 +203,13 @@ DP_LR = 0.1
 DP_MOMENTUM = 0.9
 DP_COMM = CommConfig(impl="ring")
 DP_FUSED = FusedStepConfig(update=True, act_dtype="float32")
+# The probe path. The copies and B18 (each op rounded, as its plain twin)
+# must equal their plain twins bit for bit; the products sum up to 128 f32
+# products in another order than the plain twins, relative to the output's
+# scale. One run of the entry point is a first call and 10 more per probe.
+PROBE_EXACT = ("lane_merge", "lane_split", "vpu_conv")
+PROBE_RTOL = 1e-5
+PROBE_LAUNCHES = 11
 
 
 def fail(msg: str) -> None:
@@ -1646,6 +1662,175 @@ def report_dp_epoch(prof, bucket_sizes, times) -> None:
         print(f"[smoke]   {ms:9.3f} ms x{count:<6d} {key}", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The probe path: the eight Mosaic probes (B14–B21) through the port's
+# entry point, python -m parallel_cnn_tpu_torch.benches.mosaic_probe
+# ---------------------------------------------------------------------------
+
+
+def probe_operands(name, odd, draw):
+    """The operands of probe kernel ``name`` at the probe's shapes, or at
+    odd ones that leave a tail in every grid dimension and copies whose
+    length is no multiple of 4; ``draw(shape, dtype)`` makes each tensor."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    bb, length, rows = (7, 1003, 37) if odd else (probe_bench.BB, probe_bench.L,
+                                                  probe_bench.ROWS)
+    if name == "rank3_dot":
+        n, m, k, p = (3, 17, 33, 9) if odd else (4, 64, 128, 64)
+        return draw((n, m, k), f32), draw((n, k, p), f32)
+    if name == "lane_merge":
+        return (draw((25, bb, 575 if odd else 576), f32),)
+    if name == "lane_split":
+        return draw((1, bb * (13 if odd else 576)), f32), bb
+    if name == "mxu_conv_L":
+        return draw((6, 25), f32), draw((25, length), bf16)
+    if name in ("vpu_conv", "mxu_conv_3d"):
+        return draw((6, 25), f32), draw((25, bb, 576), bf16)
+    return draw((rows, 64), bf16), draw((64, 128), bf16)  # pair_dot, two_dot
+
+
+def probe_kernel(name):
+    """(wrapper, plain twin) of probe kernel ``name``."""
+    return getattr(mosaic_probe, name), getattr(mosaic_probe, f"{name}_plain")
+
+
+def card_draw(gen):
+    """Seeded normals on the card, bf16 ones rounded from f32 normals."""
+    def draw(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+    return draw
+
+
+def check_probe_kernels() -> dict:
+    """(a) Each probe kernel against its plain twin on seeded normals, at
+    the probe's shapes and odd ones: the copies and B18 bit for bit, the
+    products within PROBE_RTOL of the output's scale; a relaunch bit for
+    bit. Then each probe on its all-ones inputs equals its run on the host."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    errs = {}
+    for name in mosaic_probe.KERNELS:
+        fn, plain = probe_kernel(name)
+        for odd in (False, True):
+            args = probe_operands(name, odd, card_draw(gen))
+            got, again, want = fn(*args), fn(*args), plain(*args)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            exact = name in PROBE_EXACT
+            tol = 0.0 if exact else PROBE_RTOL * max(1.0, float(want.abs().max()))
+            ok = (got.shape == want.shape and bool(torch.isfinite(got).all())
+                  and (torch.equal(got, want) if exact else err <= tol)
+                  and torch.equal(got, again))
+            print(f"[smoke] probe (a) {name:12s} {tuple(got.shape)}: max |Δ| vs "
+                  f"plain {err:.3e} ({'bit-identical required' if exact else f'tol {tol:.1e}'})"
+                  f", relaunch {'bit-identical' if torch.equal(got, again) else 'DIFFERS'} "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"probe kernel {name} disagrees with its plain twin or is not "
+                     "deterministic")
+            errs[name] = max(errs.get(name, 0.0), err)
+    for label, probe in probe_bench.PROBES:
+        on_card, on_host = probe("cuda"), probe(torch.device("cpu"))
+        if not torch.equal(on_card.cpu(), on_host):
+            fail(f"probe {label} on ones differs between the card and the host")
+    print("[smoke] probe (a) all eight probes on ones: card equals host exactly ok",
+          flush=True)
+    return errs
+
+
+def probe_phase() -> tuple:
+    """(a) the kernels against their plain twins; (b) the main path: the
+    port's probe entry point in-process, every counter set to 0 just
+    before and read just after."""
+    errs = check_probe_kernels()
+    for counter in mosaic_probe.launches.values():
+        counter.reset()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = probe_bench.main([])
+    counts = {k: c.count for k, c in mosaic_probe.launches.items()}
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"[smoke]   | {line}", flush=True)
+    names = [line.split("]")[0].lstrip("[") for line in lines]
+    want_names = [label for label, _ in probe_bench.PROBES]
+    print(f"[smoke] probe (b) entry point: rc {rc}, {len(lines)} lines in JAX's order "
+          f"{names == want_names}, launches {counts}", flush=True)
+    if rc != 0 or names != want_names or not all(" RAN cuda" in line for line in lines):
+        fail("the probe entry point did not print the eight probes in order on the card")
+    if counts != {name: PROBE_LAUNCHES for name in mosaic_probe.KERNELS}:
+        fail(f"the probe entry point launched {counts}, not {PROBE_LAUNCHES} of each")
+    return errs, counts
+
+
+def probe_library_call(name, args):
+    """One PyTorch call computing the same function (timed only): bmm; a
+    copy_ into a preallocated output; matmul on x widened to f32 and, for
+    the dots, w's halves summed, both prepared outside the timing."""
+    if name == "rank3_dot":
+        return lambda: torch.bmm(*args)
+    if name in ("lane_merge", "lane_split"):
+        x = args[0]
+        view = x.view(x.shape[0] if name == "lane_merge" else args[1], -1)
+        out = torch.empty_like(view)
+        return lambda: out.copy_(view)
+    if name in ("mxu_conv_L", "vpu_conv", "mxu_conv_3d"):
+        w, xf = args[0], args[1].float().reshape(mosaic_probe.TAPS, -1)
+        return lambda: torch.matmul(w, xf)
+    xf, wf = args[0].float(), args[1].float()
+    wsum = wf[:, :mosaic_probe.PAIR_N] + wf[:, mosaic_probe.PAIR_N:]
+    return lambda: torch.matmul(xf, wsum)
+
+
+def probe_bound_ms(name, args, out):
+    """Least time for one probe call: each input and output moved once at
+    the HBM rate, against its multiply-adds (2 operations) at the peak for
+    the products' type (f32 in the batched matmul and the convs, whose w is
+    f32; bf16 in the dots)."""
+    tensors = [t for t in args if isinstance(t, torch.Tensor)] + [out]
+    t_bytes = sum(t.numel() * t.element_size() for t in tensors) / PEAK_HBM_BYTES * 1e3
+    if name == "rank3_dot":
+        n, m, k = args[0].shape
+        t_ops = 2.0 * n * m * k * args[1].shape[2] / PEAK_F32_FLOPS * 1e3
+    elif name in ("lane_merge", "lane_split"):
+        t_ops = 0.0
+    elif name in ("pair_dot", "two_dot"):
+        t_ops = 2.0 * args[0].shape[0] * args[0].shape[1] * args[1].shape[1] \
+            / PEAK_BF16_FLOPS * 1e3
+    else:
+        t_ops = 2.0 * out.numel() * mosaic_probe.TAPS / PEAK_F32_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_probe_kernels() -> dict:
+    """(c) Each probe kernel at the probe's shapes on seeded normals:
+    device ms beside its plain twin, its library call and its bound; then
+    the two head-to-heads the probes were written for."""
+    gen = torch.Generator(device="cuda").manual_seed(66)
+    times = {}
+    for name in mosaic_probe.KERNELS:
+        fn, plain = probe_kernel(name)
+        args = probe_operands(name, False, card_draw(gen))
+        ms = cuda_ms(lambda: fn(*args), reps=50)
+        plain_ms = cuda_ms(lambda: plain(*args), reps=10)
+        lib_ms = cuda_ms(probe_library_call(name, args), reps=50)
+        bound, by = probe_bound_ms(name, args, fn(*args))
+        print(f"[smoke] time probe {name:12s}: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
+              f"ms, library {lib_ms:.5f} ms, bound {bound:.6f} ms ({by}), "
+              f"{bound / ms:.2%} of bound", flush=True)
+        times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                           library_ms=lib_ms)
+    t = {k: v["ms"] for k, v in times.items()}
+    print(f"[smoke] probe (c) B1's conv form against the one-contraction form, "
+          f"(25,{probe_bench.BB},576) bf16 x, 6 filters: vpu_conv (per filter, 25 "
+          f"rounded multiply-adds) {t['vpu_conv']:.5f} ms, mxu_conv_L {t['mxu_conv_L']:.5f}"
+          f" ms, mxu_conv_3d {t['mxu_conv_3d']:.5f} ms: per-filter / one-contraction "
+          f"{t['vpu_conv'] / t['mxu_conv_3d']:.2f}x", flush=True)
+    print(f"[smoke] probe (c) N-paired taps, ({probe_bench.ROWS},64)·(64,128) bf16: "
+          f"pair_dot {t['pair_dot']:.5f} ms, two_dot {t['two_dot']:.5f} ms: pair / two "
+          f"{t['pair_dot'] / t['two_dot']:.2f}x", flush=True)
+    return times
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -1807,6 +1992,9 @@ def main() -> int:
     dp_launches = dp_phase(card, zoo_launches)
     dp_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda")[0]
 
+    # -- 4e. the probe path: the eight Mosaic probes, B14-B21 -------------
+    probe_errs, probe_launches = probe_phase()
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -1839,6 +2027,7 @@ def main() -> int:
     staged_times = time_staged_kernels()
     momentum_times = time_sgd_momentum(bucket_sizes)
     report_dp_epoch(dp_profile, bucket_sizes, momentum_times)
+    probe_times = time_probe_kernels()
 
     records = [{
         "name": "tap_conv",
@@ -1909,7 +2098,15 @@ def main() -> int:
         "launches": staged_launches[name],
         "max_abs_err": staged_errs[name],
         **staged_times[name],
-    } for name in lenet_staged.KERNELS]
+    } for name in lenet_staged.KERNELS] + [{
+        "name": f"mosaic_probe.{name}",
+        "route": "cuda",
+        "source": "parallel_cnn_tpu_torch/csrc/mosaic_probe.cu",
+        "replaces": f"benches/mosaic_probe.py:{mosaic_probe.REPLACES[name][1]}",
+        "launches": probe_launches[name],
+        "max_abs_err": probe_errs[name],
+        **probe_times[name],
+    } for name in mosaic_probe.KERNELS]
     print(f"[smoke] all phases passed in {time.perf_counter() - t_start:.1f}s",
           flush=True)
     print(json.dumps({"kernels": records}))

@@ -135,6 +135,16 @@ def check_operand(name: str, t, device, shape, dtype) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
+def on_cuda(name: str, t) -> bool:
+    """True for a CUDA tensor (launch the kernel), False for a CPU one (run
+    the plain twin); any other device raises."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
+    return True
+
+
 def launch_stream(device) -> int:
     """The raw handle of PyTorch's current stream on ``device``."""
     import torch

@@ -48,6 +48,7 @@ from parallel_cnn_tpu_torch.ops._cuda_build import (
     LaunchCounter,
     check_operand,
     launch_stream,
+    on_cuda,
     raise_on_error,
 )
 from parallel_cnn_tpu_torch.ops.activations import error_norm, make_error, sigmoid
@@ -101,15 +102,6 @@ def _lib():
     if got != LAYOUT:
         raise RuntimeError(f"csrc/lenet_staged.cu has layout {got}, its wrapper {LAYOUT}")
     return lib
-
-
-def _on_cuda(name: str, t: torch.Tensor) -> bool:
-    """True for a CUDA tensor (kernel), False for a CPU one (plain twin)."""
-    if t.device.type == "cpu":
-        return False
-    if t.device.type != "cuda":
-        raise ValueError(f"{name} runs on cuda or cpu tensors, got {t.device}")
-    return True
 
 
 def _batch(t: torch.Tensor) -> int:
@@ -171,7 +163,7 @@ def conv_fwd_plain(x: torch.Tensor, w: torch.Tensor,
 def conv_fwd(x: torch.Tensor, w: torch.Tensor,
              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,28,28)·(6,5,5)+(6,) → (pre_c1, out_c1), both (n,6,24,24)."""
-    if not _on_cuda("conv_fwd", x):
+    if not on_cuda("conv_fwd", x):
         return conv_fwd_plain(x, w, b)
     n = _batch(x)
     dev = x.device
@@ -197,7 +189,7 @@ def pool_fwd_plain(xw: torch.Tensor, w: torch.Tensor,
 def pool_fwd(xw: torch.Tensor, w: torch.Tensor,
              b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,16,216)·(4,4)+() → (pre_s1, out_s1), both (n,216) channel-major."""
-    if not _on_cuda("pool_fwd", xw):
+    if not on_cuda("pool_fwd", xw):
         return pool_fwd_plain(xw, w, b)
     n = _batch(xw)
     dev = xw.device
@@ -220,7 +212,7 @@ def fc_fwd_plain(x: torch.Tensor, w: torch.Tensor,
 def fc_fwd(x: torch.Tensor, w: torch.Tensor,
            b: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,216)·(10,216)ᵀ+(10,) → (pre_f, out_f), both (n,10)."""
-    if not _on_cuda("fc_fwd", x):
+    if not on_cuda("fc_fwd", x):
         return fc_fwd_plain(x, w, b)
     n = _batch(x)
     dev = x.device
@@ -248,7 +240,7 @@ def fc_bwd(d_pre_f: torch.Tensor, out_s1: torch.Tensor,
            w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(n,10),(n,216),(10,216) → (g_w_f (10,216) summed over the batch,
     g_b_f (10,) summed, d_out_s1 (n,216))."""
-    if not _on_cuda("fc_bwd", d_pre_f):
+    if not on_cuda("fc_bwd", d_pre_f):
         return fc_bwd_plain(d_pre_f, out_s1, w)
     n = _batch(d_pre_f)
     dev = d_pre_f.device
@@ -274,7 +266,7 @@ def pool_bwd_plain(d_out_s1: torch.Tensor, pre_s1: torch.Tensor,
 def pool_bwd(d_out_s1: torch.Tensor, pre_s1: torch.Tensor,
              w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(n,216),(n,216),(4,4) → (d_pre_s1 (n,216), d_xw (n,16,216))."""
-    if not _on_cuda("pool_bwd", d_out_s1):
+    if not on_cuda("pool_bwd", d_out_s1):
         return pool_bwd_plain(d_out_s1, pre_s1, w)
     n = _batch(d_out_s1)
     dev = d_out_s1.device
@@ -296,7 +288,7 @@ def _accum_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """(N,ka),(N,kb) → (ka,kb) = Σ_r a[r,:]ᵀ b[r,:]: on the card, fixed
     chunks of ACCUM_ROWS rows into scratch, then the chunks in order."""
-    if not _on_cuda("accum_matmul", a):
+    if not on_cuda("accum_matmul", a):
         return _accum_matmul_plain(a, b)
     if a.dim() != 2 or b.dim() != 2:
         raise ValueError(f"a and b must be 2-d, got {tuple(a.shape)} and {tuple(b.shape)}")
@@ -329,7 +321,7 @@ def conv_bwd_dpre_plain(d_out_c1: torch.Tensor, pre_c1: torch.Tensor) -> torch.T
 
 def conv_bwd_dpre(d_out_c1: torch.Tensor, pre_c1: torch.Tensor) -> torch.Tensor:
     """(n,6,24,24) σ′ chain through the conv preact, elementwise."""
-    if not _on_cuda("sigma_prime", d_out_c1):
+    if not on_cuda("sigma_prime", d_out_c1):
         return conv_bwd_dpre_plain(d_out_c1, pre_c1)
     n = _batch(d_out_c1)
     dev = d_out_c1.device

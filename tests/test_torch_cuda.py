@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: csrc/tap_conv.cu (forward and
 dgrad), csrc/tap_wgrad.cu, csrc/tail_ce.cu, csrc/lenet_fused.cu,
-csrc/sgd_update.cu (SGD and SGD-momentum) and csrc/lenet_staged.cu held
-against their plain PyTorch versions, the wrappers' refusals on CUDA
-tensors, and the serving, training and data-parallel paths' launch
-counts. Every test here skips without a GPU.
+csrc/sgd_update.cu (SGD and SGD-momentum), csrc/lenet_staged.cu and
+csrc/mosaic_probe.cu held against their plain PyTorch versions, the
+wrappers' refusals on CUDA tensors, and the serving, training,
+data-parallel and probe paths' launch counts. Every test here skips without a GPU.
 
 This file imports no JAX, so on a machine with the card and without JAX it
 runs without the suite's conftest:
@@ -21,12 +21,14 @@ from parallel_cnn_tpu_torch.config import (
     ServeConfig,
     TrainConfig,
 )
+from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn import resnet
 from parallel_cnn_tpu_torch.ops import (
     lenet_fused,
     lenet_staged,
+    mosaic_probe,
     sgd_update,
     tail,
     tap_conv,
@@ -36,7 +38,15 @@ from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step, trainer, zoo
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
-from chip_smoke import stage_cases
+from chip_smoke import (
+    PROBE_EXACT,
+    PROBE_LAUNCHES,
+    PROBE_RTOL,
+    card_draw,
+    probe_kernel,
+    probe_operands,
+    stage_cases,
+)
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
 # ResNet-18's widest stride-2 shapes at a small batch.
@@ -592,4 +602,68 @@ def test_staged_wrappers_raise_instead_of_falling_back(card, case, mutate, err):
     before = counter.count
     with pytest.raises(err):
         fn(*mutate(*args))
+    assert counter.count == before
+
+
+# ---------------------------------------------------------------------------
+# The Mosaic probes (csrc/mosaic_probe.cu, B14–B21)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("odd", [False, True], ids=["probe-shape", "odd-shape"])
+@pytest.mark.parametrize("name", mosaic_probe.KERNELS)
+def test_probe_kernel_matches_plain_on_card(card, name, odd):
+    """Each probe kernel on seeded normals against its plain twin: the
+    copies and B18 bit for bit, the products within PROBE_RTOL of the
+    output's scale; a relaunch bit for bit. The odd shapes leave a tail in
+    every grid dimension (chip_smoke.probe_operands)."""
+    gen = torch.Generator(device="cuda").manual_seed(60 + odd)
+    args = probe_operands(name, odd, card_draw(gen))
+    fn, plain = probe_kernel(name)
+    counter = mosaic_probe.launches[name]
+    before = counter.count
+    got, again = fn(*args), fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    assert torch.equal(got, again)
+    if name in PROBE_EXACT:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, PROBE_RTOL)
+
+
+def test_probe_entry_point_launches_each_kernel_11_times_on_card(card, capsys):
+    for counter in mosaic_probe.launches.values():
+        counter.reset()
+    assert probe_bench.main([]) == 0
+    lines = capsys.readouterr().out.splitlines()
+    assert [line.split("]")[0][1:] for line in lines] == [n for n, _ in probe_bench.PROBES]
+    assert all(" RAN cuda" in line for line in lines)
+    assert {k: c.count for k, c in mosaic_probe.launches.items()} == {
+        name: PROBE_LAUNCHES for name in mosaic_probe.KERNELS}
+
+
+@pytest.mark.parametrize(
+    "name,mutate,err",
+    [
+        ("rank3_dot", lambda a, b: (a, b.cpu()), ValueError),
+        ("lane_merge", lambda x: (x.transpose(1, 2),), ValueError),
+        ("lane_split", lambda x, rows: (x.double(), rows), TypeError),
+        ("mxu_conv_L", lambda w, x: (w.cpu(), x), ValueError),
+        ("vpu_conv", lambda w, x: (w, x.float()), TypeError),
+        ("mxu_conv_3d", lambda w, x: (w, x[:24]), ValueError),
+        ("pair_dot", lambda x, w: (x, w.T.contiguous().T), ValueError),
+        ("two_dot", lambda x, w: (x.cpu(), w), ValueError),
+    ],
+    ids=["rank3-b-on-cpu", "merge-non-contiguous", "split-float64", "L-w-on-cpu",
+         "vpu-x-float32", "3d-24-taps", "pair-w-non-contiguous", "two-x-on-cpu"],
+)
+def test_probe_wrappers_raise_instead_of_falling_back(card, name, mutate, err):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    args = probe_operands(name, True, card_draw(gen))
+    counter = mosaic_probe.launches[name]
+    before = counter.count
+    with pytest.raises(err):
+        getattr(mosaic_probe, name)(*mutate(*args))
     assert counter.count == before
