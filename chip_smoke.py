@@ -190,6 +190,30 @@ ZOO_FUSED = FusedStepConfig(update=False, act_dtype="float32")
 # K1/K2/K3 vs their plain versions: f32 sums in other orders (wgrad sums
 # up to 131,072 products per value), relative to the output's scale.
 GRAD_RTOL = 1e-4
+# (name, b, h, w, cin, cout, k, stride): shapes beyond ResNet-18's that
+# reach the gradient kernels' other paths: many wgrad chunks; a pixel
+# count no chunk divides (the last chunk ragged); Cin 3 and 20 and Cout
+# 10 (4-byte copies, masked edges); odd sizes at stride 2 with k 3, 5, 7
+# (asymmetric SAME phases).
+GRAD_CASES = [
+    ("3x3/s1 64, 128 chunks", 128, 32, 32, 64, 64, 3, 1),
+    ("3x3/s2 b37 ragged chunk", 37, 16, 16, 64, 64, 3, 2),
+    ("3x3/s1 Cin 3 Cout 10", 4, 16, 16, 3, 10, 3, 1),
+    ("3x3/s2 Cin 20 Cout 10", 4, 16, 16, 20, 10, 3, 2),
+    ("3x3/s2 odd 15x15", 3, 15, 15, 16, 24, 3, 2),
+    ("5x5/s2 odd 13x11", 3, 13, 11, 8, 16, 5, 2),
+    ("7x7/s2 odd 11x13", 2, 11, 13, 8, 16, 7, 2),
+]
+# The redesign's targets for one ResNet-18 step at b128 (device ms summed
+# over its 19 dgrads and 20 wgrads, each 3x3/s2 head, and the share of
+# the f32 bound at each 3x3/s1 geometry); reported, not enforced, since
+# a card below 700 W runs slower.
+TARGET_DGRAD_MS = 6.0
+TARGET_WGRAD_MS = 5.0
+TARGET_HEAD_MS = 0.45
+TARGET_S1_SHARE = 0.45
+# The square f32 GEMM timed as the yardstick of the f32 rate.
+GEMM_SIZE = 8192
 # Kernel steps vs plain steps (zoo (c)): 3 steps at a gentle LR.
 ZOO_CHECK_LR = 0.001
 ZOO_LOSS_ATOL = 1e-4
@@ -1106,6 +1130,23 @@ def check_zoo_kernels() -> dict:
             f"dgrad {name:24s} b{ZOO_BATCH}", dx, dx_ref, dx2))
         errs["tap_wgrad"] = max(errs["tap_wgrad"], within(
             f"wgrad {name:24s} b{ZOO_BATCH}", gw, gw_ref, gw2))
+    for name, b, h, wd, cin, cout, k, s in GRAD_CASES:
+        x = torch.randn((b, h, wd, cin), generator=gen, device="cuda")
+        w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") * 0.1
+        g = torch.randn((b, -(-h // s), -(-wd // s), cout), generator=gen, device="cuda")
+        dx = tap_conv.conv2d_dgrad(g, w, x.shape, s)
+        dx2 = tap_conv.conv2d_dgrad(g, w, x.shape, s)
+        gw = tap_wgrad.conv2d_wgrad(x, g, k, s)
+        gw2 = tap_wgrad.conv2d_wgrad(x, g, k, s)
+        with plain_reference():
+            dx_ref = tap_conv.conv2d_dgrad_plain(g, w, x.shape, s)
+            gw_ref = tap_wgrad.conv2d_wgrad_plain(x, g, k, s)
+        torch.cuda.synchronize()
+        shape = f"b{b} {h}x{wd} {cin}->{cout}"
+        errs["tap_conv_dgrad"] = max(errs["tap_conv_dgrad"], within(
+            f"dgrad {name:24s} {shape}", dx, dx_ref, dx2))
+        errs["tap_wgrad"] = max(errs["tap_wgrad"], within(
+            f"wgrad {name:24s} {shape}", gw, gw_ref, gw2))
     for pool in ("gap", "max2"):
         x, w, b, y = tail_inputs(pool, gen)
         loss, dl = tail.tail_forward(x, w, b, y, pool)
@@ -1277,6 +1318,14 @@ def profiled_zoo_epoch(label: str, backend: str) -> None:
           f"device busy {dev_ms:.1f} ms ({dev_ms / wall_ms:.1%}), idle "
           f"{1 - dev_ms / wall_ms:.1%}; {n_ops / ZOO_STEPS:.1f} device ops per "
           f"step, {wall_ms / ZOO_STEPS:.2f} ms per step", flush=True)
+    split = dict.fromkeys(("dgrad", "wgrad", "forward", "other"), 0.0)
+    for e in kernels:
+        part = ("dgrad" if "tap_dgrad_kernel" in e.key else
+                "wgrad" if "wgrad_partial_kernel" in e.key or "wgrad_sum_kernel" in e.key
+                else "forward" if "tap_conv_kernel" in e.key else "other")
+        split[part] += e.self_device_time_total / 1e3 / ZOO_STEPS
+    print("[smoke] profiled zoo epoch device ms per step: " + ", ".join(
+        f"{part} {ms:.3f}" for part, ms in split.items()), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
@@ -1337,6 +1386,7 @@ def time_zoo_kernels() -> dict:
     gen = torch.Generator(device="cuda").manual_seed(5)
     sums = {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
                   "ops_ms": 0.0} for key in ("tap_conv_dgrad", "tap_wgrad")}
+    heads, s1_shares = [], []
     for name, h, cin, cout, k, s, _, _, count in GEOMETRIES:
         x, w, g = grad_inputs(h, cin, cout, k, s, gen)
         for key, dgrad in (("tap_conv_dgrad", True), ("tap_wgrad", False)):
@@ -1354,6 +1404,10 @@ def time_zoo_kernels() -> dict:
             print(f"[smoke] time {key:14s} {name:24s} b{ZOO_BATCH}: kernel {ms:.4f} "
                   f"ms, plain {plain:.4f} ms, library {lib:.4f} ms, bound "
                   f"{bound:.4f} ms ({by}), {bound / ms:.1%} of bound", flush=True)
+            if k == 3 and s == 2 and dgrad:
+                heads.append(ms)
+            if k == 3 and s == 1 and not name.startswith("stem"):
+                s1_shares.append(bound / ms)
             # The stem's input batch needs no gradient: no dgrad there.
             n = count - (1 if dgrad and name.startswith("stem") else 0)
             rec = sums[key]
@@ -1371,6 +1425,25 @@ def time_zoo_kernels() -> dict:
         print(f"[smoke] time {key} summed over one ResNet-18 step at b{ZOO_BATCH}: "
               f"kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, library "
               f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms", flush=True)
+    # What f32 FFMA reaches on this card through one library call: cuBLAS's
+    # f32 GEMM (TF32 off) on a large square product, against the same peak.
+    a = torch.randn((GEMM_SIZE, GEMM_SIZE), generator=gen, device="cuda")
+    b = torch.randn((GEMM_SIZE, GEMM_SIZE), generator=gen, device="cuda")
+    ms = cuda_ms(lambda: a @ b, reps=3, warmup=1)
+    rate = 2.0 * GEMM_SIZE ** 3 / ms * 1e3
+    print(f"[smoke] time f32 GEMM yardstick {GEMM_SIZE}^3 (torch.matmul, TF32 off): "
+          f"{ms:.3f} ms, {rate / 1e12:.1f} TFLOP/s, {rate / PEAK_F32_FLOPS:.1%} of the "
+          f"f32 peak", flush=True)
+    del a, b
+    met = (sums["tap_conv_dgrad"]["ms"] <= TARGET_DGRAD_MS
+           and sums["tap_wgrad"]["ms"] <= TARGET_WGRAD_MS
+           and max(heads) <= TARGET_HEAD_MS and min(s1_shares) >= TARGET_S1_SHARE)
+    print(f"[smoke] time grad targets at b{ZOO_BATCH}: dgrad {sums['tap_conv_dgrad']['ms']:.3f} "
+          f"ms (target <= {TARGET_DGRAD_MS}), wgrad {sums['tap_wgrad']['ms']:.3f} ms "
+          f"(<= {TARGET_WGRAD_MS}), slowest 3x3/s2 dgrad head {max(heads):.4f} ms "
+          f"(<= {TARGET_HEAD_MS}), lowest 3x3/s1 share of the f32 bound "
+          f"{min(s1_shares):.1%} (>= {TARGET_S1_SHARE:.0%}): "
+          f"{'all met' if met else 'NOT all met'}", flush=True)
     for pool in ("gap", "max2"):
         x, w, b, y = tail_inputs(pool, gen)
         ms = cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=20)

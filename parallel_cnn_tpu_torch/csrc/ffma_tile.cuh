@@ -1,0 +1,172 @@
+// The f32 register-tile core shared by the conv's two gradient kernels
+// (csrc/tap_wgrad.cu and the dgrad kernel of csrc/tap_conv.cu), written
+// for Hopper (sm_90a).
+//
+// A block computes a BM x BN tile of C = A . B on the f32 CUDA cores, as
+// an implicit GEMM whose depth runs in stages of BK. Each thread keeps a
+// TM x TN accumulator tile: per depth step it reads TM A values and TN B
+// values from shared memory for TM*TN fmas, 0.25 floats a fma at 8x8 and
+// 0.375 at 8x4 (the first 4x4 kernels needed 0.5, which capped them near
+// half the SM's fma rate). Operand slabs live in a ring of STAGES slots
+// of dynamic shared memory, filled ahead of use by 16-byte (or, for
+// narrow or unaligned operands, 4-byte) `cp.async` copies whose source
+// size is 0 where the element lies in the padding or past the end, which
+// zero-fills it; one barrier a stage.
+//
+// Warps tile the block as (BM/(4*TM)) x (BN/(8*TN)); inside a warp the
+// lanes form 4 rows x 8 columns. B is always stored [kk][n] (a slab row is
+// one depth step); a thread's columns are float4 runs 32 apart, so 8 lanes
+// read 128 contiguous bytes. A is stored either
+//   - [kk][m] (A_KMAJOR, wgrad: a depth step is a pixel, its row a run of
+//     channels), a thread's rows float4 runs 16 apart; or
+//   - [m][kk] (dgrad: the depth is (tap, co), contiguous in g), a row
+//     padded to BK+4 floats; a thread reads float4 along kk for rows
+//     lane/8 + 4i, which land on distinct banks.
+// Every accumulator sums its depth terms in ascending depth order, one
+// fmaf each: the tile shape and the ring never change a result.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+namespace ftile {
+
+constexpr int STAGES = 3;   // slots of the cp.async ring
+
+// A block tile: BM x BN outputs, TM x TN of them a thread, BK depth steps
+// a stage, and the blocks per SM its launch bounds ask registers for.
+template <int BM_, int BN_, int TM_, int TN_, int BK_, int MIN_BLOCKS_>
+struct Tile {
+  static constexpr int BM = BM_;
+  static constexpr int BN = BN_;
+  static constexpr int TM = TM_;
+  static constexpr int TN = TN_;
+  static constexpr int BK = BK_;
+  static constexpr int MIN_BLOCKS = MIN_BLOCKS_;
+  static constexpr int WARPS_M = BM_ / (4 * TM_);
+  static constexpr int WARPS_N = BN_ / (8 * TN_);
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int B_LD = BN_ + 4;
+};
+
+template <class T, bool A_KMAJOR>
+struct Layout {
+  static constexpr int A_LD = A_KMAJOR ? T::BM + 4 : T::BK + 4;
+  static constexpr int A_FLOATS = A_KMAJOR ? T::BK * A_LD : T::BM * A_LD;
+  static constexpr int B_FLOATS = T::BK * T::B_LD;
+  static constexpr int STAGE_FLOATS = A_FLOATS + B_FLOATS;
+  static constexpr int SMEM_BYTES = STAGES * STAGE_FLOATS * 4;
+};
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared; zero-filled when !pred (src is then not
+// read, but must still be a valid address: callers pass the tensor base).
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(pred ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Row (within the block tile) of a thread's i-th accumulator row.
+template <class T, bool A_KMAJOR>
+__device__ __forceinline__ int row_of(int warp_m, int lane, int i) {
+  return A_KMAJOR ? warp_m * 4 * T::TM + (lane >> 3) * 4 + (i & 3) + 16 * (i >> 2)
+                  : warp_m * 4 * T::TM + (lane >> 3) + 4 * i;
+}
+
+// Column (within the block tile) of a thread's j-th accumulator column.
+template <class T>
+__device__ __forceinline__ int col_of(int warp_n, int lane, int j) {
+  return warp_n * 8 * T::TN + (lane & 7) * 4 + (j & 3) + 32 * (j >> 2);
+}
+
+template <class T>
+__device__ __forceinline__ void load_b(const float* Bs, int kk, int warp_n, int lane,
+                                       float (&b)[T::TN]) {
+  const float* p = Bs + kk * T::B_LD + warp_n * 8 * T::TN + (lane & 7) * 4;
+#pragma unroll
+  for (int h = 0; h < T::TN / 4; ++h) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 32 * h);
+    b[4 * h] = v.x;
+    b[4 * h + 1] = v.y;
+    b[4 * h + 2] = v.z;
+    b[4 * h + 3] = v.w;
+  }
+}
+
+// acc += A_slab . B_slab over one stage (T::BK depth steps, ascending).
+template <class T, bool A_KMAJOR>
+__device__ __forceinline__ void compute_stage(const float* As, const float* Bs,
+                                              int warp_m, int warp_n, int lane,
+                                              float (&acc)[T::TM][T::TN]) {
+  using L = Layout<T, A_KMAJOR>;
+  if constexpr (A_KMAJOR) {
+#pragma unroll
+    for (int kk = 0; kk < T::BK; ++kk) {
+      float a[T::TM], b[T::TN];
+      const float* pa = As + kk * L::A_LD + warp_m * 4 * T::TM + (lane >> 3) * 4;
+#pragma unroll
+      for (int h = 0; h < T::TM / 4; ++h) {
+        const float4 v = *reinterpret_cast<const float4*>(pa + 16 * h);
+        a[4 * h] = v.x;
+        a[4 * h + 1] = v.y;
+        a[4 * h + 2] = v.z;
+        a[4 * h + 3] = v.w;
+      }
+      load_b<T>(Bs, kk, warp_n, lane, b);
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+#pragma unroll
+        for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  } else {
+    const float* pa = As + (warp_m * 4 * T::TM + (lane >> 3)) * L::A_LD;
+#pragma unroll
+    for (int kk = 0; kk < T::BK; kk += 4) {
+      float4 a[T::TM];
+#pragma unroll
+      for (int i = 0; i < T::TM; ++i)
+        a[i] = *reinterpret_cast<const float4*>(pa + 4 * i * L::A_LD + kk);
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        float b[T::TN];
+        load_b<T>(Bs, kk + q, warp_n, lane, b);
+#pragma unroll
+        for (int i = 0; i < T::TM; ++i) {
+          const float av = q == 0 ? a[i].x : q == 1 ? a[i].y : q == 2 ? a[i].z : a[i].w;
+#pragma unroll
+          for (int j = 0; j < T::TN; ++j) acc[i][j] = fmaf(av, b[j], acc[i][j]);
+        }
+      }
+    }
+  }
+}
+
+// Raise a kernel's dynamic shared-memory limit to what it needs (above the
+// 48 KB default), once per kernel; returns the error of the call.
+template <class Kernel>
+inline cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess) done = true;
+  return err;
+}
+
+}  // namespace ftile

@@ -53,26 +53,52 @@
 //   over the taps with iy = oy*s - pad_top + dy, ix = ox*s - pad_left + dx
 //   for some output position (oy, ox) inside g.
 //
-// It is the same implicit GEMM in gather form: rows M = N*H*W input pixels,
-// columns Cin, depth K = k*k*Cout in (tap, co) order. A slab element is the
-// g value the tap sends to the pixel, or zero where the tap's output
-// position falls between stride steps or outside g -- so a 1x1/s2 conv's
-// skipped pixels get exact zeros, and XLA's asymmetric SAME split is the
-// forward's index arithmetic run backwards. The weights are read as W^T per
-// tap, by threads that walk along Cout (the contiguous axis). Each dx value
-// is summed by one thread over k = 0..K-1 in order, as the forward sums its
-// outputs: relaunches are bit-identical and nothing is shared between
-// blocks. At stride 2 three of four (tap, pixel) pairs are zero for a 3x3
-// conv; the kernel multiplies them anyway (the Pallas phase split avoids
-// that, at the cost of four output layouts) -- a later kernel can skip them.
-// Bound: the same multiply-adds as the forward of the conv, so operations
-// on the f32 CUDA cores, as for the forward.
+// Bound on an H100 SXM: the same multiply-adds as the conv's forward, so
+// operations on the f32 CUDA cores (67 TFLOP/s), as for the forward; no
+// tensor cores, since the zoo path's contract is f32 with TF32 off.
+//
+// Design (its own kernel, `tap_dgrad_kernel`, on the f32 tile core of
+// csrc/ffma_tile.cuh; nothing of the forward above is shared). It is an
+// implicit GEMM in gather form, cut into the stride's parity phases as
+// the Pallas package's `_dgrad_s2_even` cuts it: at stride 2 the input
+// pixels (iy, ix) fall into 4 phases by (iy % 2, ix % 2), and a tap sends
+// a phase's pixels a g value only if its output position lands on a
+// stride step, the same for the whole phase. So each phase is its own
+// GEMM -- rows its N*ceil(H/2)*ceil(W/2) pixels, columns Cin, depth its
+// taps x Cout -- with only its own taps: 9 taps across the 4 phases of a
+// 3x3/s2 conv where the first dgrad kernel multiplied 36, three quarters
+// of them by gathered zeros (its stride-2 heads ran at 6% of the bound).
+// The wrapper builds the phase tables on the host from XLA's SAME split,
+// odd sizes too (ops/tap_conv.py `dgrad_phase_taps`), and passes them in
+// a __grid_constant__ DgradPlan; all phases run as blocks of one grid,
+// those with most taps first. A phase with no tap (a 1x1/s2 conv's odd
+// rows and columns) runs no stage and writes exact zeros. Stride 1 is the
+// one-phase case. Per stage a block gathers its pixels' g rows, a run of
+// Cout channels each, with 16-byte cp.async (source size 0 outside g,
+// which zero-fills) into a 3-slot ring, a pixel's image offset and phase
+// coordinates decoded once per block and the (tap, co) depth stepped
+// without divides; W^T per tap is loaded as 16 bytes along co and stored
+// transposed through registers as [depth][ci] while the products run (no
+// transposed copy of w). Each thread keeps an 8x8 (128x128 tile) or 8x4
+// (128x64, for Cin 64, stride 2 and the 4x4 images) register tile, and a
+// stage is 32 depth values deep: one barrier per 32 depth steps.
+//
+// Determinism. Each dx value is summed by one thread over its nonzero
+// (tap, co) terms in ascending (tap, co) order, one fmaf each, as the
+// first dgrad kernel summed all of k = 0..K-1: the terms dropped are exact
+// zeros, so the result equals that kernel's bit for bit, relaunches are
+// bit-identical, and nothing is shared between blocks.
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper allocates the output and checks
 // shapes, dtypes, devices and contiguity before calling in.
 
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+#include "ffma_tile.cuh"
 
 namespace {
 
@@ -211,131 +237,238 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   }
 }
 
-constexpr int B_PAD = 4;     // dgrad's weight slab: aligned rows, few conflicts
+// ---------------------------------------------------------------------------
+// The input gradient (dgrad): its own kernel on the shared f32 tile core
+// (csrc/ffma_tile.cuh). Nothing above is used by it but the includes.
+// ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int MAX_PHASES = 4;   // stride 2: the 4 parities of (iy, ix)
+constexpr int MAX_TAPS = 49;    // every tap of a 7x7 conv lies in one phase
+
+// The phase table, built by the wrapper (ops/tap_conv.py
+// `dgrad_phase_taps` and `_dgrad_table`) as this many int32s in this order.
+struct DgradPlan {
+  int phases;                        // phases with pixels, heaviest first
+  int n_tiles;                       // ceil(Cin / BN)
+  int block_begin[MAX_PHASES + 1];   // first block of each phase; [phases] = grid
+  int py[MAX_PHASES], px[MAX_PHASES];  // parity of the phase's (iy, ix)
+  int hp[MAX_PHASES], wp[MAX_PHASES];  // its rows and columns
+  int tap_begin[MAX_PHASES + 1];     // its taps: tap_begin[p] .. tap_begin[p+1]-1
+  int slot[MAX_TAPS];                // tap dy*k + dx, ascending within a phase
+  int ay[MAX_TAPS], ax[MAX_TAPS];    // g row = phase row + ay, column + ax
+};
+
+// The block tiles, by the wrapper's tile id: 256 threads, 32 depth values
+// a stage, and the registers of one block an SM (which a sweep on the
+// H100 found faster than two blocks' worth).
+using DTile0 = ftile::Tile<128, 128, 8, 8, 32, 1>;
+using DTile1 = ftile::Tile<128, 64, 8, 4, 32, 1>;
+
+struct DgradGeo {
+  int n, h, w, cin, oh, ow, cout, stride, vec_dx;
+};
+
+// Depth index d = (tap t of the phase, co), stepped without divides.
+struct DepthCursor {
+  int t, co;
+  __device__ void start(int d, int cout) {
+    t = d / cout;
+    co = d - t * cout;
+  }
+  __device__ void advance(int by, int cout) {
+    co += by;
+    while (co >= cout) {
+      co -= cout;
+      ++t;
+    }
+  }
+};
+
+template <class T, int VEC>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
-                 float* __restrict__ dx, Geometry geo) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN + B_PAD];
+                 float* __restrict__ dx, DgradGeo geo,
+                 const __grid_constant__ DgradPlan plan) {
+  using L = ftile::Layout<T, false>;
+  using ftile::STAGES;
+  constexpr int BK = T::BK;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  __shared__ int s_ay[MAX_TAPS], s_ax[MAX_TAPS], s_w[MAX_TAPS];
 
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;   // input pixels
-  const int n0 = blockIdx.y * BN;   // input channels
-  const int M = geo.n * geo.h * geo.w;
-  const int K = geo.k * geo.k * geo.cout;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_m = warp % T::WARPS_M;
+  const int warp_n = warp / T::WARPS_M;
 
-  // Gather role: depth column a_kk of the slab for the four pixel rows
-  // a_row + 16*i. A pixel's image offset into g and its padded coordinates
-  // are fixed for the whole reduction.
-  const int a_kk = tid % BK;
-  const int a_row = tid / BK;
-  int a_img[4], a_py[4], a_px[4];
+  int p = 0;
+  while (p + 1 < plan.phases && static_cast<int>(blockIdx.x) >= plan.block_begin[p + 1]) ++p;
+  const int local = blockIdx.x - plan.block_begin[p];
+  const int m0 = (local / plan.n_tiles) * T::BM;   // phase pixels
+  const int n0 = (local % plan.n_tiles) * T::BN;   // input channels
+  const int hp = plan.hp[p], wp = plan.wp[p];
+  const int Mp = geo.n * hp * wp;
+  const int tb = plan.tap_begin[p];
+  const int taps = plan.tap_begin[p + 1] - tb;
+  const int K = taps * geo.cout;
+  const int stages = (K + BK - 1) / BK;
+  for (int t = tid; t < taps; t += T::THREADS) {
+    s_ay[t] = plan.ay[tb + t];
+    s_ax[t] = plan.ax[tb + t];
+    s_w[t] = plan.slot[tb + t] * geo.cin;
+  }
+  __syncthreads();
+
+  // A = g gathered, [m][kk]: depth group `dk` (VEC depth values, one tap)
+  // of pixels pm + A_STEP*c. A pixel's image offset into g and its phase
+  // row and column are fixed for the whole reduction.
+  constexpr int GROUPS = BK / VEC;
+  static_assert(T::THREADS % GROUPS == 0, "copy roles");
+  constexpr int A_STEP = T::THREADS / GROUPS;
+  constexpr int A_COPIES = T::BM / A_STEP;
+  const int dk = tid % GROUPS;
+  const int pm = tid / GROUPS;
+  int a_img[A_COPIES], a_j[A_COPIES], a_i[A_COPIES];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_row + 16 * i;
-    if (m < M) {
-      const int img = m / (geo.h * geo.w);
-      const int r = m - img * geo.h * geo.w;
-      const int iy = r / geo.w;
-      const int ix = r - iy * geo.w;
-      a_img[i] = img * geo.oh * geo.ow * geo.cout;
-      a_py[i] = iy + geo.pad_top;
-      a_px[i] = ix + geo.pad_left;
+  for (int c = 0; c < A_COPIES; ++c) {
+    const int m = m0 + pm + A_STEP * c;
+    if (m < Mp) {
+      const int img = m / (hp * wp);
+      const int r = m - img * hp * wp;
+      a_img[c] = img * geo.oh * geo.ow * geo.cout;
+      a_j[c] = r / wp;
+      a_i[c] = r - a_j[c] * wp;
     } else {
-      a_img[i] = 0;
-      a_py[i] = -(1 << 29);  // never a tap's output row: loads read zero
-      a_px[i] = 0;
+      a_img[c] = 0;
+      a_j[c] = -(1 << 29);  // never a row of g: the copy zero-fills
+      a_i[c] = 0;
     }
   }
+  // B = W^T, [kk][ci]: the same depth group for channels ci + B_STEP*c,
+  // loaded as VEC values along co and stored transposed.
+  constexpr int B_STEP = T::THREADS / GROUPS;
+  constexpr int B_COPIES = T::BN / B_STEP;
+  float breg[B_COPIES][VEC];
 
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+  DepthCursor dc;
+  dc.start(dk * VEC, geo.cout);
+  int next = 0;  // the next stage to copy
 
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  float ra[4], rb[4];
-
-  auto load_stage = [&](int k0) {
-    const int kidx = k0 + a_kk;
-    if (kidx < K) {
-      const int tap = kidx / geo.cout;
-      const int co = kidx - tap * geo.cout;
-      const int dy = tap / geo.k;
-      const int dxx = tap - dy * geo.k;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        // Output position whose tap (dy, dxx) reads this pixel, if any.
-        const int sy = a_py[i] - dy;
-        const int sx = a_px[i] - dxx;
-        const int oy = sy / geo.stride;
-        const int ox = sx / geo.stride;
-        const bool hit = sy >= 0 && sx >= 0 && oy * geo.stride == sy &&
-                         ox * geo.stride == sx && oy < geo.oh && ox < geo.ow;
-        ra[i] = hit ? __ldg(g + a_img[i] + (oy * geo.ow + ox) * geo.cout + co)
-                    : 0.0f;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ra[i] = 0.0f;
+  auto load = [&]() {  // A by cp.async, B into registers
+    float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
+    const bool d_ok = next * BK + dk * VEC < K;
+    int ay = 0, ax = 0, wrow = 0;
+    if (d_ok) {
+      ay = s_ay[dc.t];
+      ax = s_ax[dc.t];
+      wrow = s_w[dc.t];
     }
-    // W^T slab: element (kk, col) is w[dy, dx, n0 + col, co]; consecutive
-    // threads take consecutive kk, that is consecutive co in memory.
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      const int kk = idx % BK;
-      const int ci = n0 + idx / BK;
-      const int kr = k0 + kk;
-      float v = 0.0f;
-      if (kr < K && ci < geo.cin) {
-        const int tap = kr / geo.cout;
-        const int co = kr - tap * geo.cout;
-        v = __ldg(wt + (tap * geo.cin + ci) * geo.cout + co);
+    for (int c = 0; c < A_COPIES; ++c) {
+      const int oy = a_j[c] + ay;
+      const int ox = a_i[c] + ax;
+      const bool ok = d_ok && (unsigned)oy < (unsigned)geo.oh && (unsigned)ox < (unsigned)geo.ow;
+      const float* src = ok ? g + a_img[c] + (oy * geo.ow + ox) * geo.cout + dc.co : g;
+      float* dst = As + (pm + A_STEP * c) * L::A_LD + dk * VEC;
+      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      else ftile::cp_async4(dst, src, ok);
+    }
+#pragma unroll
+    for (int c = 0; c < B_COPIES; ++c) {
+      const int ci = n0 + pm + B_STEP * c;
+      const bool ok = d_ok && ci < geo.cin;
+      if constexpr (VEC == 4) {
+        float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        if (ok) v = __ldg(reinterpret_cast<const float4*>(wt + (wrow + ci) * geo.cout + dc.co));
+        breg[c][0] = v.x;
+        breg[c][1] = v.y;
+        breg[c][2] = v.z;
+        breg[c][3] = v.w;
+      } else {
+        breg[c][0] = ok ? __ldg(wt + (wrow + ci) * geo.cout + dc.co) : 0.0f;
       }
-      rb[i] = v;
     }
   };
+  auto store_b = [&]() {
+    float* Bs = smem + (next % STAGES) * L::STAGE_FLOATS + L::A_FLOATS;
+#pragma unroll
+    for (int c = 0; c < B_COPIES; ++c)
+#pragma unroll
+      for (int q = 0; q < VEC; ++q) Bs[(dk * VEC + q) * T::B_LD + pm + B_STEP * c] = breg[c][q];
+    ++next;
+    dc.advance(BK, geo.cout);
+  };
 
-  load_stage(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  float acc[T::TM][T::TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) As[a_kk][a_row + 16 * i] = ra[i];
+  for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      Bs[idx % BK][idx / BK] = rb[i];
-    }
-    __syncthreads();
-    if (k0 + BK < K) load_stage(k0 + BK);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
-    if (m >= M) continue;
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (next < stages) {
+      load();
+      store_b();
+    }
+    ftile::cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    ftile::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed for all; slot (s-1) % STAGES is free
+    const bool more = next < stages;
+    if (more) load();  // B's loads are in flight during the products
+    ftile::cp_async_commit();
+    const float* As = smem + (s % STAGES) * L::STAGE_FLOATS;
+    ftile::compute_stage<T, false>(As, As + L::A_FLOATS, warp_m, warp_n, lane, acc);
+    if (more) store_b();
+  }
+
+  // A phase with no tap (stages == 0) writes its exact zeros here.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int ci = n0 + tx * 4 + j;
-      if (ci < geo.cin) dx[m * geo.cin + ci] = acc[i][j];
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + ftile::row_of<T, false>(warp_m, lane, i);
+    if (m >= Mp) continue;
+    const int img = m / (hp * wp);
+    const int r = m - img * hp * wp;
+    const int j = r / wp;
+    const int iy = j * geo.stride + plan.py[p];
+    const int ix = (r - j * wp) * geo.stride + plan.px[p];
+    float* dst = dx + ((img * geo.h + iy) * geo.w + ix) * geo.cin;
+#pragma unroll
+    for (int jj = 0; jj < T::TN; jj += 4) {
+      const int ci = n0 + ftile::col_of<T>(warp_n, lane, jj);
+      if (geo.vec_dx) {  // Cin % 4 == 0: a run of 4 is all in or all out
+        if (ci < geo.cin)
+          *reinterpret_cast<float4*>(dst + ci) =
+              make_float4(acc[i][jj], acc[i][jj + 1], acc[i][jj + 2], acc[i][jj + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (ci + q < geo.cin) dst[ci + q] = acc[i][jj + q];
+      }
     }
   }
+}
+
+template <class T, int VEC>
+cudaError_t launch_dgrad(const float* g, const float* w, float* dx, const DgradGeo& geo,
+                         const DgradPlan& plan, cudaStream_t s) {
+  using L = ftile::Layout<T, false>;
+  static bool smem_ok = false;
+  auto kernel = tap_dgrad_kernel<T, VEC>;
+  cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return err;
+  kernel<<<plan.block_begin[plan.phases], T::THREADS, L::SMEM_BYTES, s>>>(g, w, dx, geo, plan);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_dgrad_tile(bool vec4, const float* g, const float* w, float* dx,
+                              const DgradGeo& geo, const DgradPlan& plan, cudaStream_t s) {
+  return vec4 ? launch_dgrad<T, 4>(g, w, dx, geo, plan, s)
+              : launch_dgrad<T, 1>(g, w, dx, geo, plan, s);
 }
 
 }  // namespace
@@ -364,21 +497,34 @@ extern "C" int tap_conv_forward(const float* x, const float* w,
 }
 
 // Input gradient of the conv above: `g` is (N,OH,OW,Cout), `w` the forward's
-// (k,k,Cin,Cout) weights, `dx` (N,H,W,Cin) is written in full. Returns 0 on
-// a launch that was accepted, else the cudaError_t.
+// (k,k,Cin,Cout) weights, `dx` (N,H,W,Cin) is written in full. `table`
+// holds `table_len` int32s, the DgradPlan the wrapper built for this
+// shape (phases, their taps and the grid) on the host; `tile` is the
+// block tile (0: 128x128, 1: 128x64). Returns 0 on a launch
+// that was accepted, else the cudaError_t.
 extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
                               int h, int w_in, int cin, int oh, int ow,
-                              int cout, int k, int stride, int pad_top,
-                              int pad_left, void* stream) {
+                              int cout, int stride, const int* table,
+                              int table_len, int tile, void* stream) {
   if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
-      cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0) {
+      cout <= 0 || stride <= 0 || table == nullptr || tile < 0 || tile > 1 ||
+      table_len != static_cast<int>(sizeof(DgradPlan) / sizeof(int))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long m = static_cast<long long>(n) * h * w_in;
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>((cin + BN - 1) / BN));
-  const Geometry geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left};
-  tap_dgrad_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, w, dx, geo);
-  return static_cast<int>(cudaGetLastError());
+  DgradPlan plan;
+  std::memcpy(&plan, table, sizeof(plan));
+  if (plan.phases < 1 || plan.phases > MAX_PHASES || plan.n_tiles < 1 ||
+      plan.tap_begin[plan.phases] > MAX_TAPS || plan.block_begin[plan.phases] < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const DgradGeo geo{n, h, w_in, cin, oh, ow, cout, stride, cin % 4 == 0};
+  const bool vec4 = cout % 4 == 0 && reinterpret_cast<std::uintptr_t>(g) % 16 == 0 &&
+                    reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tile) {
+    case 0: err = launch_dgrad_tile<DTile0>(vec4, g, w, dx, geo, plan, s); break;
+    default: err = launch_dgrad_tile<DTile1>(vec4, g, w, dx, geo, plan, s); break;
+  }
+  return static_cast<int>(err);
 }

@@ -17,28 +17,40 @@
 // M = N*OH*OW output pixels: 131,072 terms for a 64-channel ResNet-18 conv
 // at batch 128.
 //
-// Design. The TPU summed that axis along its sequential grid, carrying the
-// sum in VMEM (pallas_conv.py:330-347); Hopper's blocks run in no order and
-// share nothing. So the M axis is cut into fixed chunks of CHUNK pixels.
-// Pass one: a block of 256 threads owns a 64-row x 64-column tile of one
-// chunk, gathers 16-pixel slabs of the (never materialised) im2col matrix
-// with bounds-checked indices -- padding and stride are index arithmetic
-// -- and of g, into shared memory, and keeps a 4x4 register tile of sums
-// (the forward kernel's tiling, csrc/tap_conv.cu, with pixels as depth).
-// Each block writes its chunk's partial tile to scratch the wrapper
-// allocated. Pass two sums the partials of each element in chunk order.
-// No float atomics: every element is summed in one fixed order for a given
-// shape, so relaunches are bit-identical. (The order depends on the batch
-// size, since the batch is what is reduced; the serving forward's rule
-// against batch-dependent split-K is about its padded buckets, which a
-// gradient never sees.) With one chunk, pass one writes gw directly.
-//
 // Bound on an H100 SXM. The same multiply-adds as the conv's forward
 // (k*k*Cin*Cout per output pixel), so a 3x3 conv is bound by operations on
 // the f32 CUDA cores (67 TFLOP/s); only the stem (Cin 3) is bound by its
-// bytes. Scratch traffic: with CHUNK = 2048, a 64-channel conv at batch 128
-// writes and rereads 64 partial tiles of 147 KB, 19 MB in all, which the
-// 50 MB L2 holds. This first kernel does not use tensor cores.
+// bytes. No tensor cores: the zoo path's contract is f32 with TF32 off.
+//
+// Design (csrc/ffma_tile.cuh holds the core it shares with dgrad). The
+// TPU summed the pixel axis along its sequential grid, carrying the sum in
+// VMEM (pallas_conv.py:330-347); Hopper's blocks run in no order and share
+// nothing. So the pixel axis is cut into chunks, one per blockIdx.z, whose
+// size the wrapper chooses from the shape (ops/tap_wgrad.py `wgrad_plan`)
+// so the grid holds about 1,152 blocks: the 1x1/s2 projections get 256 to
+// 512 blocks where a fixed 2,048-pixel chunk gave them 32, and the stem
+// 512 chunks of 256 pixels where it had 64 of 2,048. Pass one: a block of
+// 128 threads owns a 64 x 64 tile (R rows x Cout columns) of one chunk
+// and keeps an 8x4 register tile a thread (0.375 floats from shared
+// memory per fma where the first kernel's 4x4 tile needed 0.5; a sweep on
+// the H100 found this tile, with finer chunks, faster at every ResNet-18
+// wgrad than 128x128 tiles of 8x8). A stage is 16 pixels: for each, the A
+// slab row is the run of channels of x under each of the block's taps
+// and the B slab row the run of g's channels, both copied with 16-byte
+// cp.async straight into a 3-slot ring, two stages in flight behind the
+// products and one barrier a stage (4-byte copies where Cin or Cout is
+// not a multiple of 4 or a pointer is not 16-byte aligned, as for the
+// stem's Cin 3). Padding pixels and pixels past the chunk are zero-filled
+// by the copy itself (source size 0). Each thread walks its pixels'
+// (image, row, column) forward by 16 a stage, with no divide per element.
+// Each block writes its chunk's partial tile to scratch the wrapper
+// allocated (at most 32 MiB, so the 50 MB L2 holds it); pass two sums the
+// partials of each element in chunk order. No float atomics: every
+// element is summed in one fixed order for a given shape, so relaunches
+// are bit-identical. (The order depends on the batch size, since the
+// batch is what is reduced; the serving forward's rule against
+// batch-dependent split-K is about its padded buckets, which a gradient
+// never sees.) With one chunk, pass one writes gw directly.
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing.
@@ -46,129 +58,181 @@
 #include <cuda_runtime.h>
 
 #include <algorithm>
+#include <cstdint>
+
+#include "ffma_tile.cuh"
 
 namespace {
 
-constexpr int BM = 64;        // rows (tap, ci) per block
-constexpr int BN = 64;        // output channels per block
-constexpr int BK = 16;        // pixels per stage
-constexpr int CHUNK = 2048;   // pixels per partial sum (a multiple of BK)
-constexpr int THREADS = 256;
-constexpr int PAD = 4;        // keeps float4 rows aligned, eases bank conflicts
+using ftile::STAGES;
+// The one block tile: 64 rows x 64 channels, 8x4 sums a thread, 128
+// threads, 16 pixels a stage, up to 4 blocks an SM.
+using WTile = ftile::Tile<64, 64, 8, 4, 16, 4>;
+constexpr int BK = WTile::BK;
+
+constexpr int SUM_THREADS = 256;
 
 struct Geometry {
-  int n, h, w, cin, oh, ow, cout, k, stride, pad_top, pad_left;
+  int n, h, w, cin, oh, ow, cout, k, stride, pad_top, pad_left, chunk;
 };
 
-__global__ void __launch_bounds__(THREADS)
+// (image, output row, output column) of one pixel of the reduction,
+// stepped forward without divides.
+struct Cursor {
+  int img, oy, ox;
+  __device__ void start(int m, const Geometry& g) {
+    img = m / (g.oh * g.ow);
+    const int r = m - img * g.oh * g.ow;
+    oy = r / g.ow;
+    ox = r - oy * g.ow;
+  }
+  __device__ void advance(int by, const Geometry& g) {
+    ox += by;
+    while (ox >= g.ow) {
+      ox -= g.ow;
+      if (++oy == g.oh) {
+        oy = 0;
+        ++img;
+      }
+    }
+  }
+};
+
+template <class T, int AVEC, int BVEC>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
 wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
                      float* __restrict__ out, Geometry geo) {
-  __shared__ __align__(16) float As[BK][BM + PAD];
-  __shared__ __align__(16) float Bs[BK][BN + PAD];
+  using L = ftile::Layout<T, true>;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int chunk = blockIdx.z;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_m = warp % T::WARPS_M;
+  const int warp_n = warp / T::WARPS_M;
   const int R = geo.k * geo.k * geo.cin;
   const int M = geo.n * geo.oh * geo.ow;
-  const int m_begin = chunk * CHUNK;
-  const int m_end = min(M, m_begin + CHUNK);
+  const int r0 = blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int m_begin = blockIdx.z * geo.chunk;
+  const int m_end = min(M, m_begin + geo.chunk);
+  const int stages = (m_end - m_begin + BK - 1) / BK;
 
-  // Load role: column `col` of both slabs for pixel rows `prow + 4*i`. The
-  // column's tap and input channel are fixed for the whole reduction.
-  const int col = tid % 64;
-  const int prow = tid / 64;
-  const int r = r0 + col;
-  const bool r_ok = r < R;
-  int dy = 0, dxx = 0, ci = 0;
-  if (r_ok) {
-    const int tap = r / geo.cin;
-    ci = r - tap * geo.cin;
-    dy = tap / geo.k;
-    dxx = tap - dy * geo.k;
+  // A copies: row group `a_rg` (AVEC rows of one tap) for the pixels
+  // a_kk + A_STEP*c of each stage. The group's tap and channel are fixed.
+  constexpr int A_GROUPS = T::BM / AVEC;
+  static_assert(T::THREADS % A_GROUPS == 0, "A copy roles");
+  constexpr int A_STEP = T::THREADS / A_GROUPS;
+  constexpr int A_COPIES = BK / A_STEP;
+  const int a_rg = tid % A_GROUPS;
+  const int a_kk = tid / A_GROUPS;
+  const int a_row = r0 + a_rg * AVEC;
+  const bool a_row_ok = a_row < R;
+  int a_dy = 0, a_dx = 0, a_ci = 0;
+  if (a_row_ok) {
+    const int tap = a_row / geo.cin;
+    a_ci = a_row - tap * geo.cin;
+    a_dy = tap / geo.k - geo.pad_top;
+    a_dx = tap - (tap / geo.k) * geo.k - geo.pad_left;
   }
-  const int co_load = n0 + col;
-  const bool co_ok = co_load < geo.cout;
-
-  // Compute role: a 4x4 tile of rows ty*4.. and channels tx*4..
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-
-  float acc[4][4];
+  Cursor cur[A_COPIES];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
+  for (int c = 0; c < A_COPIES; ++c) cur[c].start(m_begin + a_kk + A_STEP * c, geo);
 
-  float ra[4], rb[4];
+  // B copies: channel group `b_cg` of g's rows for pixels b_kk + B_STEP*c.
+  constexpr int B_GROUPS = T::BN / BVEC;
+  static_assert(T::THREADS % B_GROUPS == 0, "B copy roles");
+  constexpr int B_STEP = T::THREADS / B_GROUPS;
+  constexpr int B_COPIES = BK / B_STEP;
+  const int b_cg = tid % B_GROUPS;
+  const int b_kk = tid / B_GROUPS;
+  const int b_co = n0 + b_cg * BVEC;
+  const bool b_co_ok = b_co < geo.cout;
 
-  auto load_stage = [&](int p0) {
+  int next = 0;  // the next stage to copy
+  auto load_stage = [&]() {
+    float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
+    float* Bs = As + L::A_FLOATS;
+    const int p0 = m_begin + next * BK;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int m = p0 + prow + 4 * i;
-      float a = 0.0f, b = 0.0f;
-      if (m < m_end) {
-        const int img = m / (geo.oh * geo.ow);
-        const int rem = m - img * geo.oh * geo.ow;
-        const int oy = rem / geo.ow;
-        const int ox = rem - oy * geo.ow;
-        const int iy = oy * geo.stride - geo.pad_top + dy;
-        const int ix = ox * geo.stride - geo.pad_left + dxx;
-        if (r_ok && (unsigned)iy < (unsigned)geo.h &&
-            (unsigned)ix < (unsigned)geo.w) {
-          a = __ldg(x + ((img * geo.h + iy) * geo.w + ix) * geo.cin + ci);
-        }
-        if (co_ok) b = __ldg(g + m * geo.cout + co_load);
-      }
-      ra[i] = a;
-      rb[i] = b;
+    for (int c = 0; c < A_COPIES; ++c) {
+      const int kk = a_kk + A_STEP * c;
+      const int iy = cur[c].oy * geo.stride + a_dy;
+      const int ix = cur[c].ox * geo.stride + a_dx;
+      const bool ok = a_row_ok && p0 + kk < m_end && (unsigned)iy < (unsigned)geo.h &&
+                      (unsigned)ix < (unsigned)geo.w;
+      const float* src =
+          ok ? x + ((static_cast<long long>(cur[c].img) * geo.h + iy) * geo.w + ix) * geo.cin +
+                   a_ci
+             : x;
+      float* dst = As + kk * L::A_LD + a_rg * AVEC;
+      if constexpr (AVEC == 4) ftile::cp_async16(dst, src, ok);
+      else ftile::cp_async4(dst, src, ok);
+      cur[c].advance(BK, geo);
     }
+#pragma unroll
+    for (int c = 0; c < B_COPIES; ++c) {
+      const int kk = b_kk + B_STEP * c;
+      const bool ok = b_co_ok && p0 + kk < m_end;
+      const float* src = ok ? g + static_cast<long long>(p0 + kk) * geo.cout + b_co : g;
+      float* dst = Bs + kk * T::B_LD + b_cg * BVEC;
+      if constexpr (BVEC == 4) ftile::cp_async16(dst, src, ok);
+      else ftile::cp_async4(dst, src, ok);
+    }
+    ++next;
   };
 
-  load_stage(m_begin);
-  for (int p0 = m_begin; p0 < m_end; p0 += BK) {
+  float acc[T::TM][T::TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      As[prow + 4 * i][col] = ra[i];
-      Bs[prow + 4 * i][col] = rb[i];
-    }
-    __syncthreads();
-    if (p0 + BK < m_end) load_stage(p0 + BK);  // in flight during the products
+  for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
+
 #pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (next < stages) load_stage();
+    ftile::cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    ftile::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed for all; slot (s-1) % STAGES is free
+    if (next < stages) load_stage();
+    ftile::cp_async_commit();
+    const float* As = smem + (s % STAGES) * L::STAGE_FLOATS;
+    ftile::compute_stage<T, true>(As, As + L::A_FLOATS, warp_m, warp_n, lane, acc);
   }
 
-  float* tile = out + static_cast<long long>(chunk) * R * geo.cout;
+  float* tile = out + static_cast<long long>(blockIdx.z) * R * geo.cout;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + ty * 4 + i;
+  for (int i = 0; i < T::TM; ++i) {
+    const int row = r0 + ftile::row_of<T, true>(warp_m, lane, i);
     if (row >= R) continue;
+    float* dst = tile + static_cast<long long>(row) * geo.cout;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx * 4 + j;
-      if (co < geo.cout) tile[row * geo.cout + co] = acc[i][j];
+    for (int j = 0; j < T::TN; j += 4) {
+      const int co = n0 + ftile::col_of<T>(warp_n, lane, j);
+      if constexpr (BVEC == 4) {  // Cout % 4 == 0: a run of 4 is all in or all out
+        if (co < geo.cout)
+          *reinterpret_cast<float4*>(dst + co) =
+              make_float4(acc[i][j], acc[i][j + 1], acc[i][j + 2], acc[i][j + 3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (co + q < geo.cout) dst[co + q] = acc[i][j + q];
+      }
     }
   }
 }
 
 // gw[e] = sum over chunks c = 0, 1, ... of partial[c][e], in that order.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SUM_THREADS)
 wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ gw,
                  int elems, int chunks) {
-  for (int e = blockIdx.x * THREADS + threadIdx.x; e < elems;
-       e += gridDim.x * THREADS) {
+  for (int e = blockIdx.x * SUM_THREADS + threadIdx.x; e < elems;
+       e += gridDim.x * SUM_THREADS) {
     float s = partial[e];
+#pragma unroll 8
     for (int c = 1; c < chunks; ++c) {
       s += partial[static_cast<long long>(c) * elems + e];
     }
@@ -176,39 +240,61 @@ wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ gw,
   }
 }
 
+template <class T, int AVEC, int BVEC>
+cudaError_t launch_partial(const float* x, const float* g, float* out, const Geometry& geo,
+                           int rows, int chunks, cudaStream_t s) {
+  using L = ftile::Layout<T, true>;
+  static bool smem_ok = false;
+  auto kernel = wgrad_partial_kernel<T, AVEC, BVEC>;
+  cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((rows + T::BM - 1) / T::BM, (geo.cout + T::BN - 1) / T::BN, chunks);
+  kernel<<<grid, T::THREADS, L::SMEM_BYTES, s>>>(x, g, out, geo);
+  return cudaGetLastError();
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Pixels per partial sum: the wrapper sizes `partial` as
-// (ceil(N*OH*OW / chunk), k*k*Cin, Cout) floats when that is above one.
-extern "C" int tap_wgrad_chunk() { return CHUNK; }
+// Pixels per stage: the wrapper's chunk must be a multiple of it.
+extern "C" int tap_wgrad_stage_pixels() { return BK; }
 
-// Plain C entry point for ctypes. Pointers are device pointers; `partial`
-// may be null when the reduction fits one chunk. `gw` (k,k,Cin,Cout) is
-// written in full. Returns 0 on launches that were accepted, else the
-// cudaError_t.
+// Plain C entry point for ctypes. Pointers are device pointers. `chunk`
+// is the pixels per partial sum (a positive multiple of the stage depth,
+// 16), from the wrapper's plan; `partial` holds ceil(N*OH*OW / chunk) partial
+// (k*k*Cin, Cout) tiles and may be null when that is one. `gw`
+// (k,k,Cin,Cout) is written in full. Returns 0 on launches that were
+// accepted, else the cudaError_t.
 extern "C" int tap_conv_wgrad(const float* x, const float* g, float* partial,
                               float* gw, int n, int h, int w_in, int cin,
                               int oh, int ow, int cout, int k, int stride,
-                              int pad_top, int pad_left, void* stream) {
+                              int pad_top, int pad_left, int chunk, void* stream) {
   if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
-      cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0) {
+      cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0 ||
+      chunk <= 0 || chunk % BK != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const long long m = static_cast<long long>(n) * oh * ow;
-  const int chunks = static_cast<int>((m + CHUNK - 1) / CHUNK);
-  if (chunks > 1 && partial == nullptr) {
+  const long long chunks_ll = (m + chunk - 1) / chunk;
+  if (chunks_ll > 65535 || (chunks_ll > 1 && partial == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int chunks = static_cast<int>(chunks_ll);
   const int rows = k * k * cin;
-  const Geometry geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left};
+  const Geometry geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left, chunk};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid((rows + BM - 1) / BM, (cout + BN - 1) / BN, chunks);
-  wgrad_partial_kernel<<<grid, THREADS, 0, s>>>(
-      x, g, chunks > 1 ? partial : gw, geo);
-  cudaError_t err = cudaGetLastError();
+  const bool avec4 = cin % 4 == 0 && aligned16(x);
+  const bool bvec4 = cout % 4 == 0 && aligned16(g);
+  float* out = chunks > 1 ? partial : gw;
+  cudaError_t err;
+  if (avec4 && bvec4) err = launch_partial<WTile, 4, 4>(x, g, out, geo, rows, chunks, s);
+  else if (avec4) err = launch_partial<WTile, 4, 1>(x, g, out, geo, rows, chunks, s);
+  else if (bvec4) err = launch_partial<WTile, 1, 4>(x, g, out, geo, rows, chunks, s);
+  else err = launch_partial<WTile, 1, 1>(x, g, out, geo, rows, chunks, s);
   if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
   const int elems = rows * cout;
-  const int blocks = std::min((elems + THREADS - 1) / THREADS, 132 * 8);
-  wgrad_sum_kernel<<<blocks, THREADS, 0, s>>>(partial, gw, elems, chunks);
+  const int blocks = std::min((elems + SUM_THREADS - 1) / SUM_THREADS, 132 * 8);
+  wgrad_sum_kernel<<<blocks, SUM_THREADS, 0, s>>>(partial, gw, elems, chunks);
   return static_cast<int>(cudaGetLastError());
 }

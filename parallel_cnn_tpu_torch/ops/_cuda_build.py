@@ -74,11 +74,13 @@ def nvcc() -> str:
 class Library:
     """A compiled kernel library: built once per source digest, loaded once
     per process. ``symbols`` names each exported C function with its ctypes
-    signature; ``extra_flags`` are this kernel's own nvcc flags."""
+    signature; ``extra_flags`` are this kernel's own nvcc flags; ``headers``
+    the ``csrc/`` headers the source includes (they join the digest)."""
 
     def __init__(self, source: str, symbols: Dict[str, Signature],
-                 extra_flags: Sequence[str] = ()):
+                 extra_flags: Sequence[str] = (), headers: Sequence[str] = ()):
         self.source = CSRC / source
+        self.headers = tuple(CSRC / h for h in headers)
         self.symbols = dict(symbols)
         self.flags = NVCC_FLAGS + tuple(extra_flags)
         self._lock = threading.Lock()
@@ -94,7 +96,7 @@ class Library:
             return self._lib
 
     def _load(self):
-        src = self.source.read_bytes()
+        src = b"".join(p.read_bytes() for p in (self.source, *self.headers))
         digest = hashlib.sha256(src + " ".join(self.flags).encode()).hexdigest()[:16]
         path = BUILD_DIR / f"lib{self.source.stem}-{digest}.so"
         t0 = time.perf_counter()

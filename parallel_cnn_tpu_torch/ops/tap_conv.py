@@ -32,7 +32,8 @@ module is imported.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -132,6 +133,111 @@ def conv2d_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x_shape,
     return dx
 
 
+class DgradPhase(NamedTuple):
+    """One parity phase of dx for the dgrad kernel: the input pixels
+    ``(j·s + py, i·s + px)`` for ``j < hp``, ``i < wp``, and the taps that
+    reach them, as ``(slot, ay, ax)`` with ``slot = dy·k + dx`` ascending:
+    pixel ``(j, i)`` takes ``g[j + ay, i + ax]`` (zero outside g)."""
+
+    py: int
+    px: int
+    hp: int
+    wp: int
+    taps: Tuple[Tuple[int, int, int], ...]
+
+
+def _phase_offsets(size: int, k: int, stride: int, parity: int):
+    """(d, a) along one dim for the phase ``parity``: the tap offsets d whose
+    output position ``(j·s + parity + pad_lo − d) / s`` is a whole stride
+    step, with that step's shift ``a``, kept where some pixel of the phase
+    lands inside the output."""
+    out, lo, _ = same_pads(size, k, stride)
+    count = len(range(parity, size, stride))
+    return [(d, (parity + lo - d) // stride) for d in range(k)
+            if (parity + lo - d) % stride == 0
+            and -count < (parity + lo - d) // stride < out]
+
+
+def dgrad_phase_taps(h: int, w: int, k: int, stride: int) -> Tuple[DgradPhase, ...]:
+    """The dgrad kernel's phase tables under XLA's SAME split: ``stride²``
+    phases in parity order ``py·stride + px`` (one at stride 1). Every
+    nonzero (pixel, tap) pair of the conv's input gradient lies in exactly
+    one phase, and no tap is listed for a phase none of whose pixels it
+    reaches; a phase with no tap is all zeros (a 1×1/s2 conv's odd rows
+    and columns). ≙ pallas_conv._s2_phase_taps(k, inverse=True) at even
+    sizes, for odd sizes too."""
+    phases = []
+    for py in range(stride):
+        ys = _phase_offsets(h, k, stride, py)
+        for px in range(stride):
+            xs = _phase_offsets(w, k, stride, px)
+            phases.append(DgradPhase(
+                py, px, len(range(py, h, stride)), len(range(px, w, stride)),
+                tuple((dy * k + dx, ay, ax) for dy, ay in ys for dx, ax in xs)))
+    return tuple(phases)
+
+
+#: Block tiles of the dgrad kernel (csrc/tap_conv.cu DTile0-1), by id:
+#: (pixels, channels) of the output tile a block owns.
+DGRAD_TILES = ((128, 128), (128, 64))
+#: SMs of the H100, each of which holds one dgrad block.
+SMS = 132
+_MAX_TAPS = 49
+_MAX_PHASES = 4
+
+
+def _phase_blocks(n: int, phase: DgradPhase, cin: int, tile: int) -> int:
+    bm, bn = DGRAD_TILES[tile]
+    return -(-(n * phase.hp * phase.wp) // bm) * -(-cin // bn)
+
+
+def dgrad_tile(n: int, phases, cin: int) -> int:
+    """The dgrad kernel's block tile for this shape: 128×128 where Cin is at
+    least 128, every phase carries as many taps (stride 1, so the blocks
+    take equal time) and the grid still gives nearly every SM a block;
+    else 128×64. (The rule that picked the faster of the two at every
+    ResNet-18 dgrad at batch 128 in a sweep on an H100.)"""
+    live = [p for p in phases if p.hp and p.wp]
+    even = len({len(p.taps) for p in live}) == 1
+    blocks = sum(_phase_blocks(n, p, cin, 0) for p in live)
+    return 0 if cin >= 128 and even and blocks >= 0.9 * SMS else 1
+
+
+@functools.lru_cache(maxsize=None)
+def _dgrad_launch_plan(n: int, h: int, w: int, cin: int, k: int, stride: int):
+    """(tile, table) for one dgrad shape, built once per shape."""
+    phases = dgrad_phase_taps(h, w, k, stride)
+    tile = dgrad_tile(n, phases, cin)
+    return tile, _dgrad_table(n, phases, cin, tile)
+
+
+def _dgrad_table(n: int, phases, cin: int, tile: int):
+    """The kernel's DgradPlan (csrc/tap_conv.cu) as int32s: the phases that
+    have pixels, most taps first, their blocks, parities, sizes and taps."""
+    live = sorted((p for p in phases if p.hp and p.wp), key=lambda p: -len(p.taps))
+    block_begin, tap_begin = [0], [0]
+    for p in live:
+        block_begin.append(block_begin[-1] + _phase_blocks(n, p, cin, tile))
+        tap_begin.append(tap_begin[-1] + len(p.taps))
+    taps = [t for p in live for t in p.taps]
+    assert len(live) <= _MAX_PHASES and len(taps) <= _MAX_TAPS
+
+    def field(values, size):
+        return list(values) + [0] * (size - len(values))
+
+    vals = ([len(live), -(-cin // DGRAD_TILES[tile][1])]
+            + field(block_begin, _MAX_PHASES + 1)
+            + field([p.py for p in live], _MAX_PHASES)
+            + field([p.px for p in live], _MAX_PHASES)
+            + field([p.hp for p in live], _MAX_PHASES)
+            + field([p.wp for p in live], _MAX_PHASES)
+            + field(tap_begin, _MAX_PHASES + 1)
+            + field([t[0] for t in taps], _MAX_TAPS)
+            + field([t[1] for t in taps], _MAX_TAPS)
+            + field([t[2] for t in taps], _MAX_TAPS))
+    return (ctypes.c_int * len(vals))(*vals)
+
+
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
@@ -142,10 +248,11 @@ _library = Library("tap_conv.cu", {
         ctypes.c_int,
     ),
     "tap_conv_dgrad": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-})
+}, headers=("ffma_tile.cuh",))
 
 
 def build() -> Library:
@@ -235,12 +342,11 @@ def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape,
         raise ValueError("dx too large for int32 indexing")
     lib = _library.get()
     dx = torch.empty((n, h, wd, cin), device=dev, dtype=torch.float32)
-    _, pt, _ = same_pads(h, k, stride)
-    _, pl, _ = same_pads(wd, k, stride)
+    tile, table = _dgrad_launch_plan(n, h, wd, cin, k, stride)
     with torch.cuda.device(dev):
         err = lib.tap_conv_dgrad(
             _ptr(g), _ptr(w), _ptr(dx), n, h, wd, cin, oshape[1], oshape[2],
-            cout, k, stride, pt, pl, launch_stream(dev),
+            cout, stride, table, len(table), tile, launch_stream(dev),
         )
     raise_on_error("tap_conv_dgrad", err)
     dgrad_launches.add()

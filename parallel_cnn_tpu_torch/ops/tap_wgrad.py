@@ -6,16 +6,18 @@
 ``conv2d_wgrad(x, g, k, stride)`` returns
 ``gw[dy,dx,ci,co] = Σ_{n,oy,ox} x[n, oy·s−pt+dy, ox·s−pl+dx, ci] · g[n,oy,ox,co]``
 as f32 ``(k, k, Cin, Cout)`` with XLA's SAME split. On a CUDA tensor it
-launches the hand kernel in ``csrc/tap_wgrad.cu`` (fixed-size chunks of the
-pixel axis summed into scratch, then summed in chunk order: no float
-atomics, bit-identical relaunches); on a CPU tensor it runs the plain
-version, autograd of ``tap_conv.conv2d_plain`` with respect to ``w``.
+launches the hand kernel in ``csrc/tap_wgrad.cu`` (chunks of the pixel
+axis sized per shape by ``wgrad_plan``, summed into scratch, then summed
+in chunk order: no float atomics, bit-identical relaunches); on a CPU
+tensor it runs the plain version, autograd of ``tap_conv.conv2d_plain``
+with respect to ``w``.
 ``tap_conv.conv2d``'s backward calls it.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -34,12 +36,48 @@ _INT32_MAX = 2**31 - 1
 launches = LaunchCounter()
 
 _library = Library("tap_wgrad.cu", {
-    "tap_wgrad_chunk": ([], ctypes.c_int),
+    "tap_wgrad_stage_pixels": ([], ctypes.c_int),
     "tap_conv_wgrad": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-})
+}, headers=("ffma_tile.cuh",))
+
+#: Pixels per stage of the kernel's ring (``tap_wgrad_stage_pixels()``):
+#: every chunk is a multiple of it.
+STAGE_PIXELS = 16
+#: Rows and channels of the kernel's block tile (csrc/tap_wgrad.cu).
+TILE = (64, 64)
+#: The grid the plan aims at: about this many blocks of 128 threads (the
+#: best chunk counts of a sweep on an H100 at ResNet-18's 3x3 wgrads, b128).
+TARGET_BLOCKS = 1152
+#: The fewest pixels a chunk holds, unless the whole reduction is fewer.
+MIN_CHUNK_PIXELS = 128
+#: The most chunks the second pass sums per element.
+MAX_CHUNKS = 512
+#: Scratch for the partial sums stays within this, so the H100's 50 MB L2
+#: holds it between the two passes.
+SCRATCH_CAP_BYTES = 32 << 20
+
+
+class WgradPlan(NamedTuple):
+    chunk_pixels: int   # pixels per partial sum, a multiple of STAGE_PIXELS
+    chunks: int         # ceil(pixels / chunk_pixels)
+
+
+def wgrad_plan(n: int, oh: int, ow: int, rows: int, cout: int) -> WgradPlan:
+    """How the wgrad kernel splits its reduction over the N·OH·OW output
+    pixels, from the shape alone: as many chunks as bring the grid (tiles
+    of rows × Cout, times chunks) to about TARGET_BLOCKS, within
+    MAX_CHUNKS, chunks of at least MIN_CHUNK_PIXELS and SCRATCH_CAP_BYTES
+    of scratch; each chunk a whole number of stages, the last one ragged."""
+    pixels = n * oh * ow
+    tiles = -(-rows // TILE[0]) * -(-cout // TILE[1])
+    cap = min(SCRATCH_CAP_BYTES // (4 * rows * cout), MAX_CHUNKS,
+              pixels // MIN_CHUNK_PIXELS)
+    want = max(1, min(cap, round(TARGET_BLOCKS / tiles)))
+    chunk = -(-(-(-pixels // want)) // STAGE_PIXELS) * STAGE_PIXELS
+    return WgradPlan(chunk, -(-pixels // chunk))
 
 
 def build() -> Library:
@@ -79,11 +117,10 @@ def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tens
         raise ValueError("x or g too large for int32 indexing")
     lib = _library.get()
     rows = k * k * cin
-    pixels = oshape[0] * oshape[1] * oshape[2]
-    chunks = -(-pixels // lib.tap_wgrad_chunk())
+    plan = wgrad_plan(n, oshape[1], oshape[2], rows, cout)
     gw = torch.empty((k, k, cin, cout), device=dev, dtype=torch.float32)
-    partial = (torch.empty((chunks, rows, cout), device=dev, dtype=torch.float32)
-               if chunks > 1 else None)
+    partial = (torch.empty((plan.chunks, rows, cout), device=dev, dtype=torch.float32)
+               if plan.chunks > 1 else None)
     _, pt, _ = tc.same_pads(h, k, stride)
     _, pl, _ = tc.same_pads(wd, k, stride)
     with torch.cuda.device(dev):
@@ -91,7 +128,7 @@ def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tens
             x.data_ptr(), g.data_ptr(),
             None if partial is None else partial.data_ptr(), gw.data_ptr(),
             n, h, wd, cin, oshape[1], oshape[2], cout, k, stride, pt, pl,
-            launch_stream(dev),
+            plan.chunk_pixels, launch_stream(dev),
         )
     raise_on_error("tap_conv_wgrad", err)
     launches.add()

@@ -38,6 +38,7 @@ from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step, trainer, zoo
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
+from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
     PROBE_EXACT,
     PROBE_LAUNCHES,
@@ -357,7 +358,9 @@ def test_cuda_step_matches_plain_step_on_card(card):
 # ---------------------------------------------------------------------------
 
 # (b, h, w, cin, cout, k, s): every ResNet-18 conv geometry at batch 8, then
-# the k = 5 and 7, odd-size and stride-2 shapes of CASES.
+# the k = 5 and 7, odd-size and stride-2 shapes of CASES, then chip_smoke's
+# GRAD_CASES (many wgrad chunks, a ragged last chunk, Cin 3/20 and Cout 10,
+# odd sizes at stride 2 with k 3, 5, 7).
 GRAD_CASES = [
     (8, 32, 32, 3, 64, 3, 1), (8, 32, 32, 64, 64, 3, 1),
     (8, 32, 32, 64, 128, 3, 2), (8, 32, 32, 64, 128, 1, 2),
@@ -365,7 +368,7 @@ GRAD_CASES = [
     (8, 16, 16, 128, 256, 1, 2), (8, 8, 8, 256, 256, 3, 1),
     (8, 8, 8, 256, 512, 3, 2), (8, 8, 8, 256, 512, 1, 2),
     (8, 4, 4, 512, 512, 3, 1),
-] + [c for c in CASES if c[0] < 8]
+] + [c for c in CASES if c[0] < 8] + [c[1:] for c in SMOKE_GRAD_CASES]
 # f32 on both sides, TF32 off; the sums run in other orders (wgrad sums
 # up to N·OH·OW = 8192 products per value), so relative to the output scale.
 GRAD_RTOL = 1e-4
@@ -400,6 +403,30 @@ def test_dgrad_and_wgrad_match_plain_on_card(card, b, h, w, cin, cout, k, s):
     assert torch.equal(dx, dx2) and torch.equal(gw, gw2)  # relaunch
     _close(dx, tap_conv.conv2d_dgrad_plain(g, wt, x.shape, s))
     _close(gw, tap_wgrad.conv2d_wgrad_plain(x, g, k, s))
+
+
+@pytest.mark.parametrize("h,w", [(8, 8), (7, 9)])
+def test_dgrad_writes_exact_zeros_where_no_tap_lands_on_card(card, h, w):
+    """A 1x1/s2 conv reaches only the even rows and columns: its other
+    three phases have no tap, and the kernel writes them as exact zeros."""
+    x, wt, g = _grad_inputs(card, 3, h, w, 8, 16, 1, 2, 7)
+    dx = tap_conv.conv2d_dgrad(g, wt, x.shape, 2)
+    torch.cuda.synchronize()
+    assert bool((dx[:, 1::2] == 0).all()) and bool((dx[:, :, 1::2] == 0).all())
+    _close(dx[:, ::2, ::2], g @ wt[0, 0].T)
+
+
+def test_wgrad_entry_refuses_a_chunk_off_the_stage_depth(card):
+    x, wt, g = _grad_inputs(card, 2, 8, 8, 4, 8, 3, 1, 0)
+    gw = torch.empty_like(wt)
+    lib = tap_wgrad.build().get()
+    stream = torch.cuda.current_stream().cuda_stream
+    args = (x.data_ptr(), g.data_ptr(), None, gw.data_ptr(), 2, 8, 8, 4, 8, 8, 8, 3, 1, 1, 1)
+    assert lib.tap_wgrad_stage_pixels() == tap_wgrad.STAGE_PIXELS
+    assert lib.tap_conv_wgrad(*args, tap_wgrad.STAGE_PIXELS + 1, stream) != 0
+    assert lib.tap_conv_wgrad(*args, 128, stream) == 0  # one chunk: no scratch
+    torch.cuda.synchronize()
+    _close(gw, tap_wgrad.conv2d_wgrad_plain(x, g, 3, 1))
 
 
 def test_conv2d_autograd_runs_the_grad_kernels_on_card(card):
