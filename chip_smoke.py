@@ -32,10 +32,12 @@ port's two paths through their user-facing entry points:
   SGD-momentum kernel at every bucket, its steps against the optax-path
   steps and the psum step, a resumed run against a straight one, and a
   profiled epoch;
-- the probe path: the eight Mosaic probes' kernels (B14–B21) against
-  their plain twins on seeded inputs, then the port's probe entry point
-  (python -m parallel_cnn_tpu_torch.benches.mosaic_probe) with exact
-  launch counts, and two head-to-heads of the forms the probes compare.
+- the probe path: the eight Mosaic probes' kernels (B14–B21; B20/B21 on
+  the tensor cores, also at 37 and 10,000 rows) against their plain twins
+  on seeded inputs, then the port's probe entry point (python -m
+  parallel_cnn_tpu_torch.benches.mosaic_probe) with exact launch counts,
+  two head-to-heads of the forms the probes compare, and the launch
+  floor (an empty kernel, timed as the kernels are).
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -234,6 +236,11 @@ DP_FUSED = FusedStepConfig(update=True, act_dtype="float32")
 PROBE_EXACT = ("lane_merge", "lane_split", "vpu_conv")
 PROBE_RTOL = 1e-5
 PROBE_LAUNCHES = 11
+# B20/B21 on the tensor cores, at row counts around the 64-row tile and
+# past one wave of 132 SMs (10,000 rows: 157 tiles); probe (a) adds the
+# last two to the probe's shapes.
+DOT_KERNELS = ("pair_dot", "two_dot")
+DOT_ROWS = (1, 37, 63, 64, 65, 1024, 10_000)
 
 
 def fail(msg: str) -> None:
@@ -1741,13 +1748,15 @@ def report_dp_epoch(prof, bucket_sizes, times) -> None:
 # ---------------------------------------------------------------------------
 
 
-def probe_operands(name, odd, draw):
+def probe_operands(name, odd, draw, rows=None):
     """The operands of probe kernel ``name`` at the probe's shapes, or at
     odd ones that leave a tail in every grid dimension and copies whose
-    length is no multiple of 4; ``draw(shape, dtype)`` makes each tensor."""
+    length is no multiple of 4; ``draw(shape, dtype)`` makes each tensor.
+    ``rows`` sets the dots' row count instead."""
     f32, bf16 = torch.float32, torch.bfloat16
-    bb, length, rows = (7, 1003, 37) if odd else (probe_bench.BB, probe_bench.L,
-                                                  probe_bench.ROWS)
+    bb, length, odd_rows = (7, 1003, 37) if odd else (probe_bench.BB, probe_bench.L,
+                                                      probe_bench.ROWS)
+    rows = rows or odd_rows
     if name == "rank3_dot":
         n, m, k, p = (3, 17, 33, 9) if odd else (4, 64, 128, 64)
         return draw((n, m, k), f32), draw((n, k, p), f32)
@@ -1776,15 +1785,19 @@ def card_draw(gen):
 
 def check_probe_kernels() -> dict:
     """(a) Each probe kernel against its plain twin on seeded normals, at
-    the probe's shapes and odd ones: the copies and B18 bit for bit, the
-    products within PROBE_RTOL of the output's scale; a relaunch bit for
-    bit. Then each probe on its all-ones inputs equals its run on the host."""
+    the probe's shapes and odd ones (the dots also at DOT_ROWS' last, more
+    tiles than SMs): the copies and B18 bit for bit, the products within
+    PROBE_RTOL of the output's scale; a relaunch bit for bit. Then each
+    probe on its all-ones inputs equals its run on the host."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     errs = {}
     for name in mosaic_probe.KERNELS:
         fn, plain = probe_kernel(name)
-        for odd in (False, True):
-            args = probe_operands(name, odd, card_draw(gen))
+        shapes = [(False, None), (True, None)]
+        if name in DOT_KERNELS:
+            shapes.append((False, DOT_ROWS[-1]))
+        for odd, rows in shapes:
+            args = probe_operands(name, odd, card_draw(gen), rows=rows)
             got, again, want = fn(*args), fn(*args), plain(*args)
             torch.cuda.synchronize()
             err = float((got - want).abs().max())
@@ -1892,15 +1905,30 @@ def time_probe_kernels() -> dict:
               f"{bound / ms:.2%} of bound", flush=True)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                            library_ms=lib_ms)
+    floor = cuda_ms(lambda: torch.cuda._sleep(0), reps=50)
+    print(f"[smoke] probe (c) launch floor: torch.cuda._sleep(0) {floor:.5f} ms, timed "
+          "as the kernels are; share of each probe kernel's time: " + ", ".join(
+              f"{name} {floor / v['ms']:.0%}" for name, v in times.items()), flush=True)
     t = {k: v["ms"] for k, v in times.items()}
     print(f"[smoke] probe (c) B1's conv form against the one-contraction form, "
           f"(25,{probe_bench.BB},576) bf16 x, 6 filters: vpu_conv (per filter, 25 "
           f"rounded multiply-adds) {t['vpu_conv']:.5f} ms, mxu_conv_L {t['mxu_conv_L']:.5f}"
           f" ms, mxu_conv_3d {t['mxu_conv_3d']:.5f} ms: per-filter / one-contraction "
           f"{t['vpu_conv'] / t['mxu_conv_3d']:.2f}x", flush=True)
-    print(f"[smoke] probe (c) N-paired taps, ({probe_bench.ROWS},64)·(64,128) bf16: "
-          f"pair_dot {t['pair_dot']:.5f} ms, two_dot {t['two_dot']:.5f} ms: pair / two "
-          f"{t['pair_dot'] / t['two_dot']:.2f}x", flush=True)
+    # The two forms in turns (pair, two, two, pair) on the same inputs.
+    x, w = probe_operands("pair_dot", False, card_draw(gen))
+    turns = [cuda_ms(lambda: getattr(mosaic_probe, name)(x, w), reps=200)
+             for name in ("pair_dot", "two_dot", "two_dot", "pair_dot")]
+    pair_ms, two_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    same = all(torch.equal(mosaic_probe.pair_dot(*args), mosaic_probe.two_dot(*args))
+               for args in [(x, w)] + [probe_operands("pair_dot", False, card_draw(gen),
+                                                      rows=r) for r in DOT_ROWS])
+    print(f"[smoke] probe (c) N-paired taps, ({probe_bench.ROWS},64)·(64,128) bf16 on the "
+          f"tensor cores, in turns: pair_dot (one m64n128k16 chain) {pair_ms:.5f} ms, "
+          f"two_dot (two m64n64k16 chains) {two_ms:.5f} ms: pair / two "
+          f"{pair_ms / two_ms:.3f}x; pair_dot equals two_dot bit for bit at rows "
+          f"{probe_bench.ROWS} and {DOT_ROWS}: {'yes' if same else 'no'} (reported, not "
+          "gated)", flush=True)
     return times
 
 
@@ -1929,7 +1957,7 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f}s", flush=True)
     for lib in libs:
         for line in lib.compiler_output.splitlines():
-            if "registers" in line or "spill" in line:
+            if "registers" in line or "spill" in line or "wgmma" in line:
                 print(f"[smoke] ptxas {lib.path.name}: {line.strip()}")
 
     # -- 3. kernel vs plain version at every ResNet-18 conv geometry -------

@@ -1,0 +1,117 @@
+"""Mutation check of the tensor-core dot kernels (B20 ``pair_dot``, B21
+``two_dot``; ``csrc/mosaic_probe.cu`` and ``csrc/wgmma_tile.cuh``).
+
+    python -m parallel_cnn_tpu_torch.benches.kernel_mutants
+
+Each mutant is one edit to a kernel source. It is applied to a copy of the
+checkout (the port's package, ``chip_smoke.py``, ``tests/test_torch_cuda.py``
+and ``pyproject.toml``) in a temporary directory, never to the checkout
+itself; the copy builds its own kernels and runs the card tests selected by
+``-k probe`` in a pytest process of its own, so a mutant that faults the
+card's context takes only its own copy down. The unmutated copy runs first.
+One line per copy, ``[mutant] <name>: <failed> of <selected> card tests
+failed``, then the names of the failed tests. Exits non-zero where the
+unmutated copy fails a test or a mutant fails none. Needs the card: the card
+tests skip without one, so the default device raises ``NoGpuError`` first.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+from parallel_cnn_tpu_torch.utils.backend import resolve_device
+
+ROOT = Path(__file__).resolve().parents[2]
+CSRC = "parallel_cnn_tpu_torch/csrc"
+COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
+          "pyproject.toml")
+#: The card tests each copy runs (pytest -k).
+SELECT = "probe"
+
+#: name -> (file under the root, the text replaced, its replacement); each
+#: text occurs exactly once in its file.
+MUTANTS = {
+    "halves off by one n8 tile": (
+        f"{CSRC}/wgmma_tile.cuh", "return i + N / 4;", "return i + N / 4 - 4;"),
+    "descriptor swizzle 64B": (
+        f"{CSRC}/wgmma_tile.cuh", "static_cast<uint64_t>(1) << 62;",
+        "static_cast<uint64_t>(2) << 62;"),
+    "stride between w's atoms halved": (
+        f"{CSRC}/wgmma_tile.cuh",
+        "sw128_desc(box + K_STEP * ROW_BYTES * s, atom_stride, ATOM_BYTES)",
+        "sw128_desc(box + K_STEP * ROW_BYTES * s, atom_stride / 2, ATOM_BYTES)"),
+    "stride between w's k groups doubled": (
+        f"{CSRC}/wgmma_tile.cuh",
+        "sw128_desc(box + K_STEP * ROW_BYTES * s, atom_stride, ATOM_BYTES)",
+        "sw128_desc(box + K_STEP * ROW_BYTES * s, atom_stride, 2 * ATOM_BYTES)"),
+    "ragged tile's store unmasked": (
+        f"{CSRC}/mosaic_probe.cu", "    if (r < rows) {\n      *reinterpret_cast<float2*>",
+        "    if (true) {\n      *reinterpret_cast<float2*>"),
+}
+
+
+def mutate(root: Path, name: str) -> None:
+    """Apply mutant ``name`` to the copy at ``root``."""
+    rel, old, new = MUTANTS[name]
+    path = root / rel
+    text = path.read_text()
+    if text.count(old) != 1:
+        raise ValueError(f"mutant {name!r}: its text occurs {text.count(old)} times in {rel}")
+    path.write_text(text.replace(old, new))
+
+
+def copy_checkout(dst: Path) -> None:
+    ignore = shutil.ignore_patterns("_build", "__pycache__")
+    for rel in COPIED:
+        src, out = ROOT / rel, dst / rel
+        out.parent.mkdir(parents=True, exist_ok=True)
+        if src.is_dir():
+            shutil.copytree(src, out, ignore=ignore)
+        else:
+            shutil.copy2(src, out)
+
+
+def run_card_tests(root: Path) -> tuple:
+    """(failed or erroring test names, tests selected) of the card tests in
+    ``root``."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "pytest", "--noconftest", "-p", "no:cacheprovider", "-q",
+         "-rfE", "tests/test_torch_cuda.py", "-k", SELECT],
+        cwd=root, capture_output=True, text=True, timeout=900)
+    failed = [line.split()[1].split("::", 1)[1] for line in proc.stdout.splitlines()
+              if line.startswith(("FAILED ", "ERROR "))]
+    summary = (proc.stdout.strip().splitlines() or [""])[-1]
+    counts = {k: int(n) for n, k in re.findall(r"(\d+) (passed|failed|error|skipped)",
+                                                summary)}
+    if not counts:
+        raise RuntimeError(f"pytest ran nothing in {root}:\n{proc.stdout}\n{proc.stderr}")
+    return failed, sum(counts.values())
+
+
+def main() -> int:
+    resolve_device("cuda")
+    bad = []
+    for name in ("none", *MUTANTS):
+        with tempfile.TemporaryDirectory(prefix="kernel_mutant_") as tmp:
+            root = Path(tmp)
+            copy_checkout(root)
+            if name != "none":
+                mutate(root, name)
+            failed, selected = run_card_tests(root)
+        print(f"[mutant] {name}: {len(failed)} of {selected} card tests failed", flush=True)
+        for test in failed:
+            print(f"[mutant]   {test}", flush=True)
+        if (name == "none") == bool(failed):
+            bad.append(name)
+    if bad:
+        print(f"[mutant] FAIL: {', '.join(bad)}", flush=True)
+    return 1 if bad else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -23,9 +23,6 @@
 //   are both a flat copy of contiguous f32: copy_kernel.
 // - mxu-conv-L (6,25)x(25,L) and mxu-conv-3d (6,25)x(25,bb,576) contract the
 //   same bytes: conv_contract_kernel, with L = bb*576.
-// - pair-dot (x.w over N = 128, then out[:, :64] + out[:, 64:]) and two-dot
-//   (x.w[:, :64] + x.w[:, 64:]) are the same sum of two products:
-//   pair_sum_kernel.
 //
 // vpu-conv keeps its own per-filter form (per_filter_conv_kernel): one pass
 // of 25 multiply-adds for each filter, each op rounded on its own
@@ -36,9 +33,10 @@
 //
 // Types follow JAX's promotion: in the three conv probes w is f32 and x is
 // bf16, widened exactly (__bfloat162float) and multiplied in f32; in the
-// pair and two-dot probes x and w are bf16, widened exactly, with f32
-// products and sums (preferred_element_type=f32). Every sum is taken in a
-// fixed order per output, with no atomics: a relaunch is bit-identical.
+// pair and two-dot probes x and w are bf16 with f32 products and sums
+// (preferred_element_type=f32), which is what bf16 wgmma computes: a bf16
+// product is exact in f32. Every sum is taken in a fixed order per output,
+// with no atomics: a relaunch is bit-identical.
 //
 // Bounds on an H100 SXM (3.35 TB/s; f32 67 TFLOP/s outside the tensor
 // cores; bf16 989 TFLOP/s), at the probes' shapes, every one set by bytes:
@@ -46,10 +44,36 @@
 //   lane-merge 14,745,600 B                        4.40 us
 //   lane-split 589,824 B                           0.18 us
 //   the convs  5,456,472 B (22.1 MFLOP f32)        1.63 us
-//   the dots   409,600 B (16.8 MFLOP bf16)         0.12 us
+//   the dots   409,600 B (16.8 MFLOP bf16)         0.122 us
 // Every probe but lane-merge moves so little that a launch's latency sets
-// its time. These first kernels run on the CUDA cores; mma.sync, wgmma and
-// TMA are for later work.
+// its time. B14-B19 run on the CUDA cores.
+//
+// B20 (pair-dot, _pair_dot_kernel) and B21 (two-dot, _two_dot_kernel) run
+// on the tensor cores, through csrc/wgmma_tile.cuh. Their time is launch
+// and latency, not bytes (0.122 us) or operations (0.017 us): one
+// (rows, 64) . (64, 128) product is 16.8 MFLOP. So the design keeps a
+// block's critical path short: one warpgroup per 64-row tile of x
+// (16 blocks at 1,024 rows; the fewest threads wgmma takes, and no
+// split of N, which would part B20's halves), one TMA round trip that
+// brings x's tile (8 KB, one 128-byte swizzle row per row of x, ragged
+// rows zero-filled) and all of w (two 64 x 64 boxes, its column halves,
+// 16 KB) onto one mbarrier, then 4 or 8 wgmmas and the stores. The
+// forms differ as they did on the TPU:
+// - B20: one chain of four m64n128k16 (K = 4 x 16), w's two halves side
+//   by side along N, so each thread holds both halves of its columns
+//   (registers i and i + 32) and adds them in registers.
+// - B21: two chains of four m64n64k16, one per half (the descriptor based
+//   at that half's box), into two accumulators that are then added.
+// Each output takes the same four k16 steps for each half in both forms.
+// w is N-contiguous (MN-major for wgmma's B). It stays so in shared
+// memory and wgmma reads it with its transpose-B flag: a K-major copy would
+// cost a pass of all 128 threads through shared memory and a barrier on
+// the critical path, for nothing the flag does not give. The stores go
+// straight from the fragment: each thread writes float2 pairs, a warp's
+// store fills 8 rows x 32 bytes (whole 32-byte sectors), rows past the
+// end masked. The tensor maps hold the pointers, so the host encodes them
+// on every call (cuTensorMapEncodeTiled, reached through the runtime; no
+// -lcuda) and passes them as __grid_constant__ parameters.
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper (ops/mosaic_probe.py) allocates the
@@ -60,6 +84,8 @@
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "wgmma_tile.cuh"
 
 namespace {
 
@@ -188,43 +214,86 @@ per_filter_conv_kernel(const float* __restrict__ w,
 
 // ---------------------------------------------------------------------------
 // pair-dot and two-dot: out[r,n] = sum_k x[r,k] w[k,n] + sum_k x[r,k] w[k,64+n]
-// for x (rows, 64) and w (64, 128) bf16, out (rows, 64) f32. A block of
-// 64x4 threads owns 32 rows: all of w and its 32 rows of x widened into
-// shared memory; each thread finishes both 64-term sums of its column
-// (fma in k order), then adds them.
+// for x (rows, 64) and w (64, 128) bf16, out (rows, 64) f32, on the tensor
+// cores (see the header). PAIRED picks the form: one m64n128 chain with the
+// halves added in registers (B20), or two m64n64 chains (B21).
 // ---------------------------------------------------------------------------
 
-constexpr int PAIR_ROWS = 32;
-constexpr int PAIR_TY = 4;
+constexpr int X_TILE_BYTES = wgtile::M * PAIR_K * 2;   // 8 KB
+constexpr int W_HALF_BYTES = PAIR_K * PAIR_N * 2;      // 8 KB: one 64 x 64 box
+constexpr int PAIR_STEPS = PAIR_K / wgtile::K_STEP;    // 4
 
-__global__ void __launch_bounds__(PAIR_N * PAIR_TY)
-pair_sum_kernel(const __nv_bfloat16* __restrict__ x,
-                const __nv_bfloat16* __restrict__ w, float* __restrict__ out,
-                int rows) {
-  __shared__ float ws[PAIR_K][2 * PAIR_N];
-  __shared__ float xs[PAIR_ROWS][PAIR_K + 1];
-  const int tid = threadIdx.y * PAIR_N + threadIdx.x;
-  for (int i = tid; i < PAIR_K * 2 * PAIR_N; i += PAIR_N * PAIR_TY) {
-    ws[i / (2 * PAIR_N)][i % (2 * PAIR_N)] = __bfloat162float(w[i]);
-  }
-  const long long r0 = static_cast<long long>(blockIdx.x) * PAIR_ROWS;
-  for (int i = tid; i < PAIR_ROWS * PAIR_K; i += PAIR_N * PAIR_TY) {
-    const long long r = r0 + i / PAIR_K;
-    xs[i / PAIR_K][i % PAIR_K] =
-        r < rows ? __bfloat162float(x[r * PAIR_K + i % PAIR_K]) : 0.f;
-  }
+template <bool PAIRED>
+__global__ void __launch_bounds__(wgtile::THREADS)
+pair_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                  const __grid_constant__ CUtensorMap wmap, float* __restrict__ out,
+                  int rows) {
+  // x's tile, then w's two halves, from a 1,024-byte aligned base.
+  __shared__ __align__(1024) uint8_t smem[wgtile::ATOM_BYTES + X_TILE_BYTES +
+                                          2 * W_HALF_BYTES];
+  __shared__ __align__(8) uint64_t full;
+  const uint32_t xs = wgtile::align_atom(smem);
+  const uint32_t ws = xs + X_TILE_BYTES;
+  const uint32_t bar = wgtile::smem_addr(&full);
+  const int t = threadIdx.x;
+  const long long row0 = static_cast<long long>(blockIdx.x) * wgtile::M;
+
+  if (t == 0) wgtile::mbar_init(bar, 1);
   __syncthreads();
-  const int n = threadIdx.x;
-  for (int rr = threadIdx.y; rr < PAIR_ROWS && r0 + rr < rows; rr += PAIR_TY) {
-    float lo = 0.f;
-    float hi = 0.f;
-#pragma unroll 16
-    for (int k = 0; k < PAIR_K; ++k) {
-      const float xv = xs[rr][k];
-      lo = fmaf(xv, ws[k][n], lo);
-      hi = fmaf(xv, ws[k][PAIR_N + n], hi);
+  if (t == 0) {
+    wgtile::mbar_arrive_expect_tx(bar, X_TILE_BYTES + 2 * W_HALF_BYTES);
+    wgtile::tma_load_2d(xs, &xmap, bar, 0, static_cast<int>(row0));
+    wgtile::tma_load_2d(ws, &wmap, bar, 0, 0);
+    wgtile::tma_load_2d(ws + W_HALF_BYTES, &wmap, bar, PAIR_N, 0);
+  }
+  wgtile::mbar_wait(bar, 0);
+
+  float sum[PAIR_N / 2];
+  if constexpr (PAIRED) {
+    float acc[PAIR_N];  // m64n128: both halves of each column
+    wgtile::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < PAIR_STEPS; ++s) {
+      wgtile::wgmma_m64n128k16_bf16(acc, wgtile::k_major_desc(xs, s),
+                                    wgtile::mn_major_desc(ws, s, W_HALF_BYTES), s > 0);
     }
-    out[(r0 + rr) * PAIR_N + n] = lo + hi;
+    wgtile::wgmma_commit();
+    wgtile::wgmma_wait_all();
+    wgtile::fence_regs(acc);
+#pragma unroll
+    for (int i = 0; i < PAIR_N / 2; ++i) {
+      sum[i] = acc[i] + acc[wgtile::upper_half<2 * PAIR_N>(i)];
+    }
+  } else {
+    float lo[PAIR_N / 2];  // m64n64 each: w[:, :64] and w[:, 64:]
+    float hi[PAIR_N / 2];
+    wgtile::wgmma_fence();
+#pragma unroll
+    for (int s = 0; s < PAIR_STEPS; ++s) {
+      wgtile::wgmma_m64n64k16_bf16(lo, wgtile::k_major_desc(xs, s),
+                                   wgtile::mn_major_desc(ws, s, W_HALF_BYTES), s > 0);
+    }
+#pragma unroll
+    for (int s = 0; s < PAIR_STEPS; ++s) {
+      wgtile::wgmma_m64n64k16_bf16(
+          hi, wgtile::k_major_desc(xs, s),
+          wgtile::mn_major_desc(ws + W_HALF_BYTES, s, W_HALF_BYTES), s > 0);
+    }
+    wgtile::wgmma_commit();
+    wgtile::wgmma_wait_all();
+    wgtile::fence_regs(lo);
+    wgtile::fence_regs(hi);
+#pragma unroll
+    for (int i = 0; i < PAIR_N / 2; ++i) sum[i] = lo[i] + hi[i];
+  }
+
+#pragma unroll
+  for (int i = 0; i < PAIR_N / 2; i += 2) {
+    const long long r = row0 + wgtile::frag_row(i, t);
+    if (r < rows) {
+      *reinterpret_cast<float2*>(out + r * PAIR_N + wgtile::frag_col(i, t)) =
+          make_float2(sum[i], sum[i + 1]);
+    }
   }
 }
 
@@ -257,14 +326,24 @@ int launch_contract(const float* w, const void* x, float* out, long long l,
   return status();
 }
 
-int launch_pair_sum(const void* x, const void* w, float* out, int rows,
-                    void* stream) {
-  if (rows <= 0) return invalid();
-  const unsigned blocks = (static_cast<unsigned>(rows) + PAIR_ROWS - 1) / PAIR_ROWS;
-  pair_sum_kernel<<<blocks, dim3(PAIR_N, PAIR_TY), 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(w),
-      out, rows);
+// The tensor maps of x (rows, 64) and w (64, 128), then the launch:
+// ceil(rows / 64) warpgroups. Both bases must be 16-byte aligned (TMA's
+// rule; the wrapper checks it too).
+template <bool PAIRED>
+int launch_pair(const void* x, const void* w, float* out, int rows, void* stream) {
+  if (rows <= 0 || !aligned16(x) || !aligned16(w)) return invalid();
+  CUtensorMap xmap;
+  CUtensorMap wmap;
+  if (!wgtile::encode_bf16_sw128(&xmap, x, PAIR_K, static_cast<uint64_t>(rows),
+                                 PAIR_K * 2, wgtile::M) ||
+      !wgtile::encode_bf16_sw128(&wmap, w, 2 * PAIR_N, PAIR_K, 2 * PAIR_N * 2,
+                                 PAIR_K)) {
+    return invalid();
+  }
+  const unsigned blocks = (static_cast<unsigned>(rows) + wgtile::M - 1) / wgtile::M;
+  pair_wgmma_kernel<PAIRED><<<blocks, wgtile::THREADS, 0,
+                              static_cast<cudaStream_t>(stream)>>>(xmap, wmap, out,
+                                                                   rows);
   return status();
 }
 
@@ -324,10 +403,10 @@ extern "C" int probe_vpu_conv(const float* w, const void* x, float* out,
 // x (rows, 64) bf16, w (64, 128) bf16, out (rows, 64) f32.
 extern "C" int probe_pair_dot(const void* x, const void* w, float* out, int rows,
                               void* stream) {
-  return launch_pair_sum(x, w, out, rows, stream);
+  return launch_pair<true>(x, w, out, rows, stream);
 }
 
 extern "C" int probe_two_dot(const void* x, const void* w, float* out, int rows,
                              void* stream) {
-  return launch_pair_sum(x, w, out, rows, stream);
+  return launch_pair<false>(x, w, out, rows, stream);
 }

@@ -28,6 +28,11 @@ bf16, in the dots both are bf16, and every product and sum is f32 of the
 exactly widened values. The plain twins spell each sum out in PyTorch ops
 (no matmul); ``vpu_conv_plain`` rounds each multiply and add as the kernel
 does, so the two agree bit for bit.
+
+The dots (B20, B21) run on the tensor cores and stage x and w by TMA, whose
+tensor maps need 16-byte aligned bases: on a CUDA tensor ``pair_dot`` and
+``two_dot`` raise ValueError for a view that starts elsewhere
+(``check_tma_aligned``), and never copy it.
 """
 
 from __future__ import annotations
@@ -82,7 +87,7 @@ _library = Library("mosaic_probe.cu", {
     "probe_mxu_conv_3d": ([_P] * 3 + [_L, _P], _I),
     "probe_pair_dot": ([_P] * 3 + [_I, _P], _I),
     "probe_two_dot": ([_P] * 3 + [_I, _P], _I),
-})
+}, headers=("wgmma_tile.cuh",))
 _INT_MAX = 2**31 - 1
 
 
@@ -252,12 +257,28 @@ def vpu_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+#: TMA reads a tensor from a base aligned to this many bytes.
+TMA_ALIGN = 16
+
+
+def check_tma_aligned(name: str, t: torch.Tensor) -> None:
+    """Raise ValueError unless ``t``'s first element lies on a TMA_ALIGN-byte
+    boundary (on any device; the wrappers ask it only of CUDA tensors)."""
+    if t.data_ptr() % TMA_ALIGN:
+        raise ValueError(f"{name} starts {t.data_ptr() % TMA_ALIGN} bytes past a "
+                         f"{TMA_ALIGN}-byte boundary; the kernel's TMA loads need "
+                         "an aligned base")
+
+
 def _dot_operands(x: torch.Tensor, w: torch.Tensor) -> int:
     rows = _dims("x", x, 2)[0]
     if rows > _INT_MAX:
         raise ValueError(f"x has {rows} rows, more than the kernel indexes")
     check_operand("x", x, x.device, (rows, PAIR_K), BF16)
     check_operand("w", w, x.device, (PAIR_K, 2 * PAIR_N), BF16)
+    if x.device.type == "cuda":
+        check_tma_aligned("x", x)
+        check_tma_aligned("w", w)
     return rows
 
 

@@ -25,6 +25,7 @@ from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.data import pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.nn import resnet
+from parallel_cnn_tpu_torch.ops._cuda_build import launch_stream
 from parallel_cnn_tpu_torch.ops import (
     lenet_fused,
     lenet_staged,
@@ -40,6 +41,8 @@ from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
+    DOT_KERNELS,
+    DOT_ROWS,
     PROBE_EXACT,
     PROBE_LAUNCHES,
     PROBE_RTOL,
@@ -693,4 +696,66 @@ def test_probe_wrappers_raise_instead_of_falling_back(card, name, mutate, err):
     before = counter.count
     with pytest.raises(err):
         getattr(mosaic_probe, name)(*mutate(*args))
+    assert counter.count == before
+
+
+# B20/B21 on the tensor cores (csrc/mosaic_probe.cu through csrc/wgmma_tile.cuh):
+# row counts around the 64-row warpgroup tile and past one wave (10,000 rows
+# are 157 tiles on 132 SMs).
+
+
+@pytest.mark.parametrize("rows", DOT_ROWS)
+@pytest.mark.parametrize("name", DOT_KERNELS)
+def test_probe_dot_ragged_rows_on_card(card, name, rows):
+    """Seeded normals against the plain twin within PROBE_RTOL, a relaunch
+    bit for bit, one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(80 + rows)
+    args = probe_operands(name, False, card_draw(gen), rows=rows)
+    fn, plain = probe_kernel(name)
+    counter = mosaic_probe.launches[name]
+    before = counter.count
+    got, again = fn(*args), fn(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    assert got.shape == (rows, mosaic_probe.PAIR_N)
+    assert torch.equal(got, again)
+    _close(got, want, PROBE_RTOL)
+
+
+@pytest.mark.parametrize("rows", [1, 37, 63])
+@pytest.mark.parametrize("name", DOT_KERNELS)
+def test_probe_dot_store_is_masked_on_card(card, name, rows):
+    """The C entry point writes rows [0, rows) of the output and nothing of
+    the ragged tile's other rows: a 64-row NaN-filled buffer keeps them."""
+    gen = torch.Generator(device="cuda").manual_seed(90 + rows)
+    x, w = probe_operands(name, False, card_draw(gen), rows=rows)
+    out = torch.full((64, mosaic_probe.PAIR_N), float("nan"), device="cuda")
+    entry = getattr(mosaic_probe.build().get(), f"probe_{name}")
+    assert entry(x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, launch_stream(card)) == 0
+    torch.cuda.synchronize()
+    _close(out[:rows], probe_kernel(name)[1](x, w), PROBE_RTOL)
+    assert bool(torch.isnan(out[rows:]).all())
+
+
+def _offset_view(t, elements=1):
+    """A contiguous copy of t that starts ``elements`` past an aligned base."""
+    buf = torch.empty(t.numel() + elements, dtype=t.dtype, device=t.device)
+    view = buf[elements:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+@pytest.mark.parametrize("operand", [0, 1], ids=["x", "w"])
+@pytest.mark.parametrize("name", DOT_KERNELS)
+def test_probe_dot_refuses_misaligned_view_on_card(card, name, operand):
+    """TMA needs 16-byte aligned bases: a view one element off raises
+    ValueError before any launch, and is never copied."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    args = list(probe_operands(name, True, card_draw(gen)))
+    args[operand] = _offset_view(args[operand])
+    counter = mosaic_probe.launches[name]
+    before = counter.count
+    with pytest.raises(ValueError, match="16-byte"):
+        getattr(mosaic_probe, name)(*args)
     assert counter.count == before

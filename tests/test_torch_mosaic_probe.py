@@ -23,17 +23,19 @@ import sys
 import types
 from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from jax.experimental import pallas as pl
 
+from parallel_cnn_tpu_torch.benches import kernel_mutants
 from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.ops import _cuda_build, mosaic_probe
 from parallel_cnn_tpu_torch.utils.backend import NoGpuError
 
-from chip_smoke import PROBE_EXACT, probe_operands
+from chip_smoke import DOT_KERNELS, PROBE_EXACT, probe_operands
 
 REPO = Path(__file__).resolve().parent.parent
 JAX_SCRIPT = REPO / "benches" / "mosaic_probe.py"
@@ -51,6 +53,8 @@ PROBE_FN = {
     "pair_dot": "probe_pair_dot_laneslice",
     "two_dot": "probe_two_dot_baseline",
 }
+# Row counts off the 64-row warpgroup tile of the card's dots (B20, B21).
+DOT_RAGGED_ROWS = (1, 37, 63, 65, 1000)
 LINE = re.compile(r"^\[([A-Za-z0-9-]+)\] RAN cpu first=\d+\.\dms steady=\d+us$")
 
 
@@ -258,3 +262,62 @@ def test_source_names_the_tpu_kernel_it_replaces(name):
         assert enclosing.startswith(f"def {outer}(")
     header = (_cuda_build.CSRC / "mosaic_probe.cu").read_text().split("#include")[0]
     assert re.search(rf":{line}\s+{re.escape(fn)} ", header)
+
+
+@pytest.mark.parametrize("rows", DOT_RAGGED_ROWS)
+@pytest.mark.parametrize("name", DOT_KERNELS)
+def test_dot_twins_match_jax_kernels_at_ragged_rows(jax_probes, name, rows):
+    """B20's and B21's plain twins against JAX's ``_pair_dot_kernel`` and
+    ``_two_dot_kernel`` in interpret mode, on numpy normals, at row counts
+    that leave the card's last 64-row tile ragged."""
+    _, kernel, kw, _ = jax_probes[name]
+    x, w = probe_operands(name, False, numpy_draw(40 + rows), rows=rows)
+    call = pl.pallas_call(kernel, interpret=True, **dict(
+        kw, out_shape=jax.ShapeDtypeStruct((rows, mosaic_probe.PAIR_N), jnp.float32)))
+    ref = np.asarray(call(to_jax(x), to_jax(w)))
+    assert_close(name, run_port(name, (x, w)), ref)
+
+
+@pytest.mark.parametrize("offset,aligned", [(0, True), (1, False), (4, False), (8, True)],
+                         ids=["base", "one-element", "8-bytes", "16-bytes"])
+def test_tma_alignment_helper_on_cpu_views(offset, aligned):
+    """``check_tma_aligned`` passes a view whose first element lies on a
+    16-byte boundary and raises ValueError for one that does not."""
+    buf = torch.zeros(offset + 37 * 64, dtype=torch.bfloat16)
+    assert buf.data_ptr() % mosaic_probe.TMA_ALIGN == 0
+    view = buf[offset:].view(37, 64)
+    if aligned:
+        mosaic_probe.check_tma_aligned("x", view)
+    else:
+        with pytest.raises(ValueError, match="16-byte"):
+            mosaic_probe.check_tma_aligned("x", view)
+
+
+@pytest.mark.parametrize("name", DOT_KERNELS)
+def test_dot_wrapper_on_a_misaligned_cpu_view_runs_the_twin(name):
+    """Alignment is the card's rule only: on the CPU a view one element
+    off runs the plain twin and equals the aligned operand's result."""
+    x, w = probe_operands(name, True, numpy_draw(9))
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    np.testing.assert_array_equal(run_port(name, (view, w)), run_port(name, (x, w)))
+
+
+@pytest.mark.parametrize("name", kernel_mutants.MUTANTS)
+def test_kernel_mutant_edits_one_place_of_the_current_source(tmp_path, name):
+    """Each mutant of ``benches/kernel_mutants.py`` still finds its text,
+    once, in the kernel source it edits, and changes only that."""
+    rel, old, new = kernel_mutants.MUTANTS[name]
+    text = (REPO / rel).read_text()
+    (tmp_path / rel).parent.mkdir(parents=True)
+    (tmp_path / rel).write_text(text)
+    kernel_mutants.mutate(tmp_path, name)
+    assert (tmp_path / rel).read_text() == text.replace(old, new) != text
+
+
+def test_kernel_mutants_without_a_card_raises_no_gpu_error(monkeypatch, capsys):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoGpuError):
+        kernel_mutants.main()
+    assert capsys.readouterr().out == ""
