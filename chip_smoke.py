@@ -28,10 +28,10 @@ port's two paths through their user-facing entry points:
   synthetic test set, with exact launch counts;
 - data-parallel zoo training: the trainer's CLI on ResNet-18 with
   --mesh-data 1 --comm-impl ring --fused-step (a world of one rank over
-  NCCL; one card cannot hold two), update-on-arrival through the fused
-  SGD-momentum kernel at every bucket, its steps against the optax-path
-  steps and the psum step, a resumed run against a straight one, and a
-  profiled epoch;
+  NCCL; one card cannot hold two), update-on-arrival through one launch
+  of the fused SGD-momentum kernel over every bucket, its steps against
+  the optax-path steps and the psum step, a resumed run against a
+  straight one, and a profiled epoch;
 - the probe path: the eight Mosaic probes' kernels (B14–B21; B20/B21 on
   the tensor cores, also at 37 and 10,000 rows) against their plain twins
   on seeded inputs, then the port's probe entry point (python -m
@@ -279,6 +279,14 @@ def time_call(fn, reps: int = 20, warmup: int = 3):
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn over reps launches (see time_call)."""
     return time_call(fn, reps, warmup)[0]
+
+
+def in_turns(fa, fb, reps: int):
+    """(a ms, b ms): device times of two functions taken in turns, a, b, b,
+    a, each the mean of its two turns, so a drift in the card's clock
+    weighs on both alike."""
+    t = [cuda_ms(f, reps) for f in (fa, fb, fb, fa)]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
 
 
 class plain_reference:
@@ -1001,13 +1009,28 @@ def staged_bound_ms(name, args, outs):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def fc_bwd_block_operands(d, s, w):
+    """A (10+n, n+10) and B (n+10, 217) with A.B = [[dT.s, dT.1], [d.w, 0]]:
+    B6's three outputs (gw, gb, dout) from one matmul. A = [[dT, 0], [0, d]],
+    B = [[s, 1], [w, 0]]; built once, outside any timing."""
+    n = d.shape[0]
+    a = d.new_zeros((10 + n, n + 10))
+    a[:10, :n] = d.T
+    a[10:, n:] = d
+    b = d.new_zeros((n + 10, 217))
+    b[:n, :216] = s
+    b[:n, 216] = 1.0
+    b[n:, :216] = w
+    return a, b
+
+
 def staged_library_call(case, args):
     """One PyTorch call computing the same function, where there is one
     (the yardstick; the port never calls it): the preactivation of B3, B4
     and B5 (their sigma aside) as cuDNN's conv with bias and as F.linear,
-    B6's weight grad dT.s as one matmul (its bias grad and d.W aside), and
-    aT.b as one matmul; else None (B7, B8: no one call takes the preact's
-    sigma')."""
+    B6's three outputs as one matmul of block operands
+    (fc_bwd_block_operands), and aT.b as one matmul; else None (B7, B8: no
+    one call takes the preact's sigma')."""
     if case == "conv_fwd":
         x, w, b = args
         x4, w4 = x.unsqueeze(1), w.unsqueeze(1)
@@ -1019,8 +1042,8 @@ def staged_library_call(case, args):
     if case == "fc_fwd":
         return lambda: F.linear(*args)
     if case == "fc_bwd":
-        d, s, _ = args
-        return lambda: torch.matmul(d.T, s)
+        a, b = fc_bwd_block_operands(*args)
+        return lambda: torch.matmul(a, b)
     if case.startswith("accum_matmul"):
         a, b = args
         return lambda: torch.matmul(a.T, b)
@@ -1045,15 +1068,31 @@ def time_staged_kernels() -> dict:
     params, xs, ys = lenet_inputs(TRAIN_BATCH, 400)
     sites = {}
     for case, (fn, plain, args) in stage_cases(params, xs, ys).items():
-        ms = cuda_ms(lambda: fn(*args), reps=50)
         plain_ms = cuda_ms(lambda: plain(*args), reps=50)
         lib = staged_library_call(case, args)
-        lib_ms = cuda_ms(lib, reps=50) if lib is not None else None
+        note = ""
+        if case == "fc_bwd":
+            # B6 against its yardstick in turns; the block product checked
+            # against the plain twin first, and dT.s alone as a note.
+            ms, lib_ms = in_turns(lambda: fn(*args), lib, reps=200)
+            gw, gb, dout = plain(*args)
+            ab = lib()
+            want = torch.cat([torch.cat([gw, gb[:, None]], 1),
+                              torch.cat([dout, torch.zeros_like(dout[:, :1])], 1)])
+            if not torch.allclose(ab, want, rtol=LENET_RTOL, atol=LENET_RTOL):
+                fail("fc_bwd's block-product yardstick does not compute B6's outputs")
+            d, s, _ = args
+            note = (f"; dT.s alone (the weight grad only) "
+                    f"{cuda_ms(lambda: torch.matmul(d.T, s), reps=200):.5f} ms; "
+                    f"kernel / library {ms / lib_ms:.3f}x")
+        else:
+            ms = cuda_ms(lambda: fn(*args), reps=50)
+            lib_ms = cuda_ms(lib, reps=50) if lib is not None else None
         bound, by = staged_bound_ms(case.split("/")[0], args, as_tuple(fn(*args)))
-        lib_txt = "none" if lib_ms is None else f"{lib_ms:.4f} ms"
-        print(f"[smoke] time staged {case:24s} b{TRAIN_BATCH}: kernel {ms:.4f} ms, "
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
+        print(f"[smoke] time staged {case:24s} b{TRAIN_BATCH}: kernel {ms:.5f} ms, "
               f"plain {plain_ms:.4f} ms, library {lib_txt}, bound {bound:.6f} ms "
-              f"({by}), {bound / ms:.2%} of bound", flush=True)
+              f"({by}), {bound / ms:.2%} of bound{note}", flush=True)
         sites.setdefault(case.split("/")[0], []).append(
             dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
     bound, by = conv_wgrad_bound_ms(xs)
@@ -1483,28 +1522,33 @@ def momentum_inputs(n, gen):
 
 
 def check_sgd_momentum(bucket_sizes) -> float:
-    """(a) B13 vs its plain version at odd sizes and at each of ResNet-18's
-    bucket sizes: both outputs bit-identical, and a relaunch too. The
+    """(a) B13 vs its plain version at odd sizes, each alone, and over
+    ResNet-18's bucket sizes as the step calls it, one list in one launch:
+    both outputs of every bucket bit-identical, and a relaunch too. The
     scale is a device scalar, as the step passes it."""
     gen = torch.Generator(device="cuda").manual_seed(13)
     scale = torch.tensor(1.0 / 3.0, device="cuda")
-    for n in DP_MOMENTUM_ODD_SIZES + tuple(bucket_sizes):
-        p, m, g = momentum_inputs(n, gen)
-        got = sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
-                                            scale=scale)
-        again = sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
-                                              scale=scale)
-        want = sgd_update.fused_sgd_momentum_plain(p, m, g, DP_LR, DP_MOMENTUM, scale)
+    cases = [[n] for n in DP_MOMENTUM_ODD_SIZES] + [list(bucket_sizes)]
+    for sizes in cases:
+        ps, ms, gs = zip(*(momentum_inputs(n, gen) for n in sizes))
+        got = sgd_update.fused_sgd_momentum_buckets(ps, ms, gs, lr=DP_LR,
+                                                    momentum=DP_MOMENTUM, scale=scale)
+        again = sgd_update.fused_sgd_momentum_buckets(ps, ms, gs, lr=DP_LR,
+                                                      momentum=DP_MOMENTUM, scale=scale)
+        want = [sgd_update.fused_sgd_momentum_plain(p, m, g, DP_LR, DP_MOMENTUM, scale)
+                for p, m, g in zip(ps, ms, gs)]
         torch.cuda.synchronize()
-        same = all(torch.equal(a, c) for a, c in zip(got, want))
-        stable = all(torch.equal(a, b) for a, b in zip(got, again))
-        print(f"[smoke] dp (a) sgd_momentum n={n:<8d}: "
-              f"{'bit-identical to plain' if same else 'DIFFERS from plain'}, relaunch "
-              f"{'bit-identical' if stable else 'DIFFERS'} "
-              f"{'ok' if same and stable else 'FAIL'}", flush=True)
-        if not (same and stable):
-            errs = [float((a - c).abs().max()) for a, c in zip(got, want)]
-            fail(f"sgd_momentum n={n}: max |Δ| (p', m') {errs} vs plain")
+        for i, n in enumerate(sizes):
+            same = all(torch.equal(got[k][i], want[i][k]) for k in range(2))
+            stable = all(torch.equal(got[k][i], again[k][i]) for k in range(2))
+            where = f"bucket {i} of {len(sizes)}, n={n}" if len(sizes) > 1 else f"n={n}"
+            print(f"[smoke] dp (a) sgd_momentum {where:<28s}: "
+                  f"{'bit-identical to plain' if same else 'DIFFERS from plain'}, "
+                  f"relaunch {'bit-identical' if stable else 'DIFFERS'} "
+                  f"{'ok' if same and stable else 'FAIL'}", flush=True)
+            if not (same and stable):
+                errs = [float((got[k][i] - want[i][k]).abs().max()) for k in range(2)]
+                fail(f"sgd_momentum {where}: max |Δ| (p', m') {errs} vs plain")
     return 0.0
 
 
@@ -1574,12 +1618,13 @@ def dp_phase(card, zoo_launches) -> dict:
     launches = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
     losses = epoch_losses(out)
     steps = 2 * ZOO_STEPS
-    want = dict(zoo_launches, sgd_momentum=n_buckets * steps)
+    want = dict(zoo_launches, sgd_momentum=steps)
     with open(work / "b.jsonl") as f:
         recs = [json.loads(line) for line in f if line.strip()]
     rates = [round(ZOO_TRAIN_COUNT / r["seconds"]) for r in recs]
     print(f"[smoke] dp (b): launches {launches} for {steps} steps (expected "
-          f"{want}: zoo (a)'s counts and {n_buckets} buckets x {steps} steps); "
+          f"{want}: zoo (a)'s counts and one launch over {n_buckets} buckets a "
+          f"step); "
           f"epoch losses {losses}; img/s per epoch {rates} (host clock, first "
           f"epoch cold); eval accuracy {[r['accuracy'] for r in recs]} on {card}",
           flush=True)
@@ -1687,37 +1732,35 @@ def momentum_bound_ms(n):
 
 def time_sgd_momentum(bucket_sizes) -> dict:
     """B13 over one step's buckets (ResNet-18's 12, 223.5 MB that overflow
-    the 50 MB L2): kernel, plain and torch._fused_sgd_ (one multi-tensor
-    call over the same buckets, timed only) beside the bound."""
+    the 50 MB L2), one launch as the step calls it: kernel, plain and
+    torch._fused_sgd_ (one multi-tensor call over the same buckets, timed
+    only) beside the bound."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     sets = [momentum_inputs(n, gen) for n in bucket_sizes]
     scale = torch.tensor(1.0, device="cuda")
+    ps, ms_, gs = ([t[i] for t in sets] for i in range(3))
 
     def kernel():
-        for p, m, g in sets:
-            sgd_update.fused_sgd_momentum(p, m, g, lr=DP_LR, momentum=DP_MOMENTUM,
-                                          scale=scale)
+        sgd_update.fused_sgd_momentum_buckets(ps, ms_, gs, lr=DP_LR,
+                                              momentum=DP_MOMENTUM, scale=scale)
 
     def plain():
         for p, m, g in sets:
             sgd_update.fused_sgd_momentum_plain(p, m, g, DP_LR, DP_MOMENTUM, scale)
-
-    ps, ms_, gs = ([t[i] for t in sets] for i in range(3))
 
     def library():
         torch._fused_sgd_(ps, gs, ms_, weight_decay=0.0, momentum=DP_MOMENTUM,
                           lr=DP_LR, dampening=0.0, nesterov=False, maximize=False,
                           is_first_step=False)
 
-    ms, call = time_call(kernel, reps=20)
-    plain_ms, plain_call = time_call(plain, reps=10)
-    lib, lib_call = time_call(library, reps=20)
+    ms, lib = in_turns(kernel, library, reps=20)
+    plain_ms = cuda_ms(plain, reps=10)
     bound, by = momentum_bound_ms(sum(bucket_sizes))
     print(f"[smoke] time sgd_momentum over ResNet-18's {len(bucket_sizes)} buckets "
-          f"({sum(bucket_sizes):,} values): kernel {ms:.4f} ms (device; {call:.4f} "
-          f"ms per call), plain {plain_ms:.4f} ms ({plain_call:.4f}), library "
-          f"(torch._fused_sgd_) {lib:.4f} ms ({lib_call:.4f}), bound {bound:.4f} ms "
-          f"({by}), {bound / ms:.1%} of bound", flush=True)
+          f"({sum(bucket_sizes):,} values): kernel {ms:.4f} ms (device, one launch, "
+          f"in turns with the library), plain {plain_ms:.4f} ms, library "
+          f"(torch._fused_sgd_) {lib:.4f} ms, bound {bound:.4f} ms ({by}), "
+          f"{bound / ms:.1%} of bound; kernel / library {ms / lib:.3f}x", flush=True)
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
@@ -1917,9 +1960,8 @@ def time_probe_kernels() -> dict:
           f"{t['vpu_conv'] / t['mxu_conv_3d']:.2f}x", flush=True)
     # The two forms in turns (pair, two, two, pair) on the same inputs.
     x, w = probe_operands("pair_dot", False, card_draw(gen))
-    turns = [cuda_ms(lambda: getattr(mosaic_probe, name)(x, w), reps=200)
-             for name in ("pair_dot", "two_dot", "two_dot", "pair_dot")]
-    pair_ms, two_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    pair_ms, two_ms = in_turns(lambda: mosaic_probe.pair_dot(x, w),
+                               lambda: mosaic_probe.two_dot(x, w), reps=200)
     same = all(torch.equal(mosaic_probe.pair_dot(*args), mosaic_probe.two_dot(*args))
                for args in [(x, w)] + [probe_operands("pair_dot", False, card_draw(gen),
                                                       rows=r) for r in DOT_ROWS])

@@ -1,5 +1,7 @@
-"""Mutation check of the tensor-core dot kernels (B20 ``pair_dot``, B21
-``two_dot``; ``csrc/mosaic_probe.cu`` and ``csrc/wgmma_tile.cuh``).
+"""Mutation check of the redesigned kernels: the tensor-core dots (B20
+``pair_dot``, B21 ``two_dot``; ``csrc/mosaic_probe.cu`` and
+``csrc/wgmma_tile.cuh``), the list form of the SGD-momentum update (B13,
+``csrc/sgd_update.cu``) and the FC backward (B6, ``csrc/lenet_staged.cu``).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
@@ -7,7 +9,8 @@ Each mutant is one edit to a kernel source. It is applied to a copy of the
 checkout (the port's package, ``chip_smoke.py``, ``tests/test_torch_cuda.py``
 and ``pyproject.toml``) in a temporary directory, never to the checkout
 itself; the copy builds its own kernels and runs the card tests selected by
-``-k probe`` in a pytest process of its own, so a mutant that faults the
+``-k "probe or momentum or fc_bwd"`` in a pytest process of its own, so a
+mutant that faults the
 card's context takes only its own copy down. The unmutated copy runs first.
 One line per copy, ``[mutant] <name>: <failed> of <selected> card tests
 failed``, then the names of the failed tests. Exits non-zero where the
@@ -31,7 +34,7 @@ CSRC = "parallel_cnn_tpu_torch/csrc"
 COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k).
-SELECT = "probe"
+SELECT = "probe or momentum or fc_bwd"
 
 #: name -> (file under the root, the text replaced, its replacement); each
 #: text occurs exactly once in its file.
@@ -52,6 +55,21 @@ MUTANTS = {
     "ragged tile's store unmasked": (
         f"{CSRC}/mosaic_probe.cu", "    if (r < rows) {\n      *reinterpret_cast<float2*>",
         "    if (true) {\n      *reinterpret_cast<float2*>"),
+    "B13 entry lookup off by one block": (
+        f"{CSRC}/sgd_update.cu", "blk >= list.first_block[e + 1]",
+        "blk > list.first_block[e + 1]"),
+    "B13 non-final entry's ragged tail skipped": (
+        f"{CSRC}/sgd_update.cu", "const long long quads = (n + 3) >> 2;",
+        "const long long quads = e + 1 < list.count ? n >> 2 : (n + 3) >> 2;"),
+    "B6 last batch shard dropped": (
+        f"{CSRC}/lenet_staged.cu", "const int hi = min(lo + sh, nr);",
+        "const int hi = lo + sh <= nr ? lo + sh : lo;"),
+    "B6 s slab's column offset off by one": (
+        f"{CSRC}/lenet_staged.cu", "const float* sg = s + c0;",
+        "const float* sg = s + c0 + 1;"),
+    "B6 unaligned s staged with odd columns dropped": (
+        f"{CSRC}/lenet_staged.cu", "LANES + (i - r * FC_SLAB),",
+        "LANES + ((i - r * FC_SLAB) & ~1),"),
 }
 
 

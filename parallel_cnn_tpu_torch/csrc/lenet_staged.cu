@@ -22,19 +22,19 @@
 // error vector and the bias sums stay PyTorch ops, as they were XLA ops
 // outside every TPU kernel.
 //
-// Design. Every kernel but B9 gives one thread one output and walks its sum
-// in the TPU kernel's order: B3 starts from the bias and adds the 25 taps
-// in (i, j) order, B4 the 16 taps in t order, each product and sum rounded
-// on its own (__fmul_rn/__fadd_rn) as the plain PyTorch version rounds
-// them; B5's and B6's dot products run k, b or o upward with fused
-// multiply-adds. B6's weight and bias grads sum the batch in image order,
-// one thread per (class, feature). B9 reduces up to 576n rows: the rows are
-// cut into fixed chunks of ACCUM_ROWS; a block stages its chunk of a and b
-// in shared memory, THREADS / (ka*kb) groups of ka*kb threads each sum an
-// interleaved share of its rows, the groups are added in group order and
-// the chunk's partial goes to scratch; a second kernel sums the partials in
-// chunk order. No float atomics anywhere: a relaunch on the same inputs is
-// bit-identical.
+// Design. Every kernel but B6 and B9 gives one thread one output and walks
+// its sum in the TPU kernel's order: B3 starts from the bias and adds the
+// 25 taps in (i, j) order, B4 the 16 taps in t order, each product and sum
+// rounded on its own (__fmul_rn/__fadd_rn) as the plain PyTorch version
+// rounds them; B5's dot product runs k upward with fused multiply-adds.
+// B6 (below) sums its weight and bias grads over the batch in shards and a
+// fixed tree, and its input grad over o upward. B9 reduces up to 576n
+// rows: the rows are cut into fixed chunks of ACCUM_ROWS; a block stages
+// its chunk of a and b in shared memory, THREADS / (ka*kb) groups of
+// ka*kb threads each sum an interleaved share of its rows, the groups are
+// added in group order and the chunk's partial goes to scratch; a second
+// kernel sums the partials in chunk order. No float atomics anywhere: a
+// relaunch on the same inputs is bit-identical.
 //
 // sigma(v) = 1 / (1 + expf(-v)) with IEEE expf and division (build without
 // --use_fast_math): the expression torch.sigmoid evaluates on a CUDA
@@ -52,14 +52,42 @@
 // This first library aims at right and deterministic; the fused kernel
 // (csrc/lenet_fused.cu) is the fast path.
 //
+// B6 replaces `_fc_bwd_kernel` with two kinds of blocks in one launch (one
+// pallas_call in JAX):
+//   - FC_SLAB_BLOCKS gw/gb blocks, each owning a slab of FC_SLAB of the 216
+//     feature columns. A block stages all of d (n x 10) and its slab of s
+//     into shared memory with cp.async, 16 bytes a copy where the operand
+//     is 16-byte aligned, every copy issued before the first multiply-add
+//     (batches past FC_ROWS rows stage in chunks of FC_ROWS). Its 8 warps
+//     x 4 lane groups are 32 batch shards of ceil(min(n, FC_ROWS) / 32)
+//     rows of each chunk; a thread sums its shard for 10 classes x
+//     FC_SLAB/8 columns (and block 0 the bias grad from the same staged
+//     d), fixed-order warp shuffles add the warp's four shards, and shared
+//     memory the eight warps in warp order. So gw and gb sum the batch in
+//     shard-then-tree order, which depends on n alone: no atomics, and a
+//     relaunch is bit-identical.
+//   - ceil(54n / 256) dout blocks: w (8.6 KB) in shared memory, each thread
+//     four neighbouring features of one image (a float4 store) from its
+//     image's 10 values of d, the 10 fmas in o order from 0, as one thread
+//     per output sums them.
+// One thread per output gives each of the 2,160 gw threads a chain of n
+// dependent load-then-fma steps through device memory (5.36 us at n = 64
+// on an H100 80GB HBM3 at 700 W, against 1.78 us for an empty launch);
+// here a gw thread's chain is one staged round trip and ceil(n / 32) rows
+// of fmas. The bound at n = 64 is the 130 kB B6 must move, 0.039 us: a
+// launch and one round trip set its time.
+//
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the wrapper allocates outputs and B9's scratch and
 // checks devices, dtypes, shapes and contiguity first; the launchers refuse
-// an empty batch and B9's operands past its limits.
+// an empty batch, B6's misaligned dout and B9's operands past its limits.
 
 #include <climits>
+#include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "ffma_tile.cuh"  // the cp.async helpers
 
 namespace {
 
@@ -70,6 +98,24 @@ constexpr int LANES = 216;      // 6 maps x 6 x 6 pool outputs
 constexpr int TAPS = 16;        // 4 x 4 pool window
 constexpr int CLASSES = 10;
 constexpr int ACCUM_ROWS = 256; // rows per B9 chunk
+
+// B6's gw/gb blocks: FC_SLAB feature columns a block (8 lanes across the
+// slab, FC_SLAB / 8 columns a lane; 8 beat 24 by 11-13% at batch 64 on an
+// H100, 27 blocks of 62 registers against 9 of 80), FC_SHARDS batch shards
+// (8 warps x 4 lane groups), FC_ROWS batch rows staged at a time.
+constexpr int FC_SLAB = 8;
+constexpr int FC_COLS = FC_SLAB / 8;
+constexpr int FC_SLAB_BLOCKS = LANES / FC_SLAB;
+constexpr int FC_SHARDS = THREADS / 8;
+constexpr int FC_WARPS = THREADS / 32;
+constexpr int FC_ROWS = 256;
+constexpr int FC_QUADS = LANES / 4;  // float4s in a row of dout
+constexpr int FC_GRAD_FLOATS =
+    FC_ROWS * CLASSES + FC_ROWS * FC_SLAB + FC_WARPS * CLASSES * (FC_SLAB + 1);
+constexpr int FC_SMEM_FLOATS =
+    FC_GRAD_FLOATS > CLASSES * LANES ? FC_GRAD_FLOATS : CLASSES * LANES;
+static_assert(FC_SLAB % 8 == 0 && LANES % FC_SLAB == 0, "a slab is whole float4 runs");
+static_assert(FC_SMEM_FLOATS * 4 <= 48 * 1024, "static shared memory");
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
@@ -143,42 +189,160 @@ fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   out[idx] = sigmoid(acc);
 }
 
-// B6, one thread per output of three kinds:
-//   gw[o,k] = sum_b d[b,o] * s[b,k]   (2160 threads, b in image order)
-//   gb[o]   = sum_b d[b,o]            (10 threads, b in image order)
-//   dout[b,k] = sum_o d[b,o] * w[o,k] (216n threads, o upward)
+__host__ __device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
+}
+
+// B6's gw/gb block `slab`: gw[o, c0 + c] = sum_b d[b,o] * s[b, c0 + c] for
+// its FC_SLAB columns c0.., and (block 0) gb[o] = sum_b d[b,o].
+__device__ __forceinline__ void fc_bwd_grads(const float* __restrict__ d,
+                                             const float* __restrict__ s,
+                                             float* __restrict__ gw, float* __restrict__ gb,
+                                             int n, int slab, float* smem) {
+  float* ds = smem;                                // FC_ROWS x CLASSES
+  float* ss = ds + FC_ROWS * CLASSES;              // FC_ROWS x FC_SLAB
+  float* red = ss + FC_ROWS * FC_SLAB;             // FC_WARPS x CLASSES x FC_SLAB
+  float* redb = red + FC_WARPS * CLASSES * FC_SLAB;  // FC_WARPS x CLASSES
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int col = lane & 7;
+  const int shard = warp * 4 + (lane >> 3);
+  const int c0 = slab * FC_SLAB;
+  const bool bias = slab == 0;
+  const int sh = (min(n, FC_ROWS) + FC_SHARDS - 1) / FC_SHARDS;
+  const float* sg = s + c0;
+  const bool dvec = aligned16(d);
+  const bool svec = aligned16(sg);  // rows are 864 bytes: all aligned or none
+  float acc[CLASSES][FC_COLS];
+  float accb[CLASSES];
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) {
+    accb[o] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < FC_COLS; ++c) acc[o][c] = 0.0f;
+  }
+  for (int r0 = 0; r0 < n; r0 += FC_ROWS) {
+    const int nr = min(FC_ROWS, n - r0);
+    const float* dg = d + static_cast<long long>(r0) * CLASSES;
+    const int dn = nr * CLASSES;
+    const int dq = dvec ? dn / 4 : 0;
+    for (int i = tid; i < dq; i += THREADS) ftile::cp_async16(ds + 4 * i, dg + 4 * i, true);
+    for (int i = 4 * dq + tid; i < dn; i += THREADS) ftile::cp_async4(ds + i, dg + i, true);
+    const float* sr = sg + static_cast<long long>(r0) * LANES;
+    if (svec) {
+      for (int i = tid; i < nr * (FC_SLAB / 4); i += THREADS) {
+        const int r = i / (FC_SLAB / 4);
+        const int q = i - r * (FC_SLAB / 4);
+        ftile::cp_async16(ss + r * FC_SLAB + 4 * q,
+                          sr + static_cast<long long>(r) * LANES + 4 * q, true);
+      }
+    } else {
+      for (int i = tid; i < nr * FC_SLAB; i += THREADS) {
+        const int r = i / FC_SLAB;
+        ftile::cp_async4(ss + i, sr + static_cast<long long>(r) * LANES + (i - r * FC_SLAB),
+                         true);
+      }
+    }
+    ftile::cp_async_commit();
+    ftile::cp_async_wait<0>();
+    __syncthreads();
+    const int lo = shard * sh;
+    const int hi = min(lo + sh, nr);
+    for (int b = lo; b < hi; ++b) {
+      float dv[CLASSES];
+#pragma unroll
+      for (int o = 0; o < CLASSES; ++o) dv[o] = ds[b * CLASSES + o];
+#pragma unroll
+      for (int c = 0; c < FC_COLS; ++c) {
+        const float sv = ss[b * FC_SLAB + col + 8 * c];
+#pragma unroll
+        for (int o = 0; o < CLASSES; ++o) acc[o][c] = fmaf(dv[o], sv, acc[o][c]);
+      }
+      if (bias) {
+#pragma unroll
+        for (int o = 0; o < CLASSES; ++o) accb[o] += dv[o];
+      }
+    }
+    __syncthreads();  // the next chunk overwrites the stage
+  }
+  // The warp's four shards (lanes col, col+8, col+16, col+24), then the
+  // eight warps in order.
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) {
+#pragma unroll
+    for (int c = 0; c < FC_COLS; ++c) {
+      float v = acc[o][c];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane < 8) red[(warp * CLASSES + o) * FC_SLAB + col + 8 * c] = v;
+    }
+    if (bias) {
+      float v = accb[o];
+      v += __shfl_xor_sync(0xffffffffu, v, 8);
+      v += __shfl_xor_sync(0xffffffffu, v, 16);
+      if (lane == 0) redb[warp * CLASSES + o] = v;
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < CLASSES * FC_SLAB; i += THREADS) {
+    float v = red[i];
+    for (int w = 1; w < FC_WARPS; ++w) v += red[w * CLASSES * FC_SLAB + i];
+    const int o = i / FC_SLAB;
+    gw[o * LANES + c0 + (i - o * FC_SLAB)] = v;
+  }
+  if (bias && tid < CLASSES) {
+    float v = redb[tid];
+    for (int w = 1; w < FC_WARPS; ++w) v += redb[w * CLASSES + tid];
+    gb[tid] = v;
+  }
+}
+
+// B6's dout block `blk`: dout[b, 4q..4q+3] = sum_o d[b,o] * w[o, 4q..4q+3],
+// one float4 a thread, w staged in shared memory.
+__device__ __forceinline__ void fc_bwd_dout(const float* __restrict__ d,
+                                            const float* __restrict__ w,
+                                            float* __restrict__ dout, int n, int blk,
+                                            float* ws) {
+  const int tid = threadIdx.x;
+  const int wq = aligned16(w) ? CLASSES * LANES / 4 : 0;
+  for (int i = tid; i < wq; i += THREADS) ftile::cp_async16(ws + 4 * i, w + 4 * i, true);
+  for (int i = 4 * wq + tid; i < CLASSES * LANES; i += THREADS)
+    ftile::cp_async4(ws + i, w + i, true);
+  ftile::cp_async_commit();
+  const long long e = static_cast<long long>(blk) * THREADS + tid;
+  const bool live = e < static_cast<long long>(n) * FC_QUADS;
+  const long long img = live ? e / FC_QUADS : 0;
+  const int q = static_cast<int>(e - img * FC_QUADS);
+  float dv[CLASSES];
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) dv[o] = live ? __ldg(d + img * CLASSES + o) : 0.0f;
+  ftile::cp_async_wait<0>();
+  __syncthreads();
+  if (!live) return;
+  float4 acc = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) {
+    const float4 wv = *reinterpret_cast<const float4*>(ws + o * LANES + 4 * q);
+    acc.x = fmaf(dv[o], wv.x, acc.x);
+    acc.y = fmaf(dv[o], wv.y, acc.y);
+    acc.z = fmaf(dv[o], wv.z, acc.z);
+    acc.w = fmaf(dv[o], wv.w, acc.w);
+  }
+  *reinterpret_cast<float4*>(dout + img * LANES + 4 * q) = acc;
+}
+
+// B6: blocks [0, FC_SLAB_BLOCKS) are gw/gb blocks, the rest dout blocks.
 __global__ void __launch_bounds__(THREADS)
 fc_bwd_kernel(const float* __restrict__ d, const float* __restrict__ s,
               const float* __restrict__ w, float* __restrict__ gw,
               float* __restrict__ gb, float* __restrict__ dout, int n) {
-  const long long idx = global_index();
-  constexpr int GW = CLASSES * LANES;
-  if (idx < GW) {
-    const int o = static_cast<int>(idx) / LANES;
-    const int k = static_cast<int>(idx) - o * LANES;
-    float acc = 0.0f;
-    for (int b = 0; b < n; ++b)
-      acc = fmaf(d[static_cast<long long>(b) * CLASSES + o],
-                 s[static_cast<long long>(b) * LANES + k], acc);
-    gw[idx] = acc;
-    return;
-  }
-  if (idx < GW + CLASSES) {
-    const int o = static_cast<int>(idx) - GW;
-    float acc = 0.0f;
-    for (int b = 0; b < n; ++b) acc += d[static_cast<long long>(b) * CLASSES + o];
-    gb[o] = acc;
-    return;
-  }
-  const long long e = idx - (GW + CLASSES);
-  if (e >= static_cast<long long>(n) * LANES) return;
-  const long long img = e / LANES;
-  const int k = static_cast<int>(e - img * LANES);
-  const float* di = d + img * CLASSES;
-  float acc = 0.0f;
-#pragma unroll
-  for (int o = 0; o < CLASSES; ++o) acc = fmaf(di[o], w[o * LANES + k], acc);
-  dout[e] = acc;
+  __shared__ __align__(16) float smem[FC_SMEM_FLOATS];
+  const int blk = static_cast<int>(blockIdx.x);
+  if (blk < FC_SLAB_BLOCKS)
+    fc_bwd_grads(d, s, gw, gb, n, blk, smem);
+  else
+    fc_bwd_dout(d, w, dout, n, blk - FC_SLAB_BLOCKS, smem);
 }
 
 // B7: dpre = dout * s * (1 - s) with s = sigma(pre); dxw[b,t,l] = w[t] * dpre[b,l].
@@ -291,11 +455,13 @@ extern "C" int lenet_fc_fwd(const float* x, const float* w, const float* b,
   return launched();
 }
 
+// B6 also refuses a dout that does not start on a 16-byte boundary (its
+// float4 stores; the wrapper allocates it).
 extern "C" int lenet_fc_bwd(const float* d, const float* s, const float* w,
                             float* gw, float* gb, float* dout, int n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = CLASSES * LANES + CLASSES + static_cast<long long>(n) * LANES;
-  fc_bwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  if (n <= 0 || !aligned16(dout)) return static_cast<int>(cudaErrorInvalidValue);
+  const int blocks = FC_SLAB_BLOCKS + blocks_for(static_cast<long long>(n) * FC_QUADS);
+  fc_bwd_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       d, s, w, gw, gb, dout, n);
   return launched();
 }

@@ -1,4 +1,4 @@
-// Fused SGD updates over one 1-D f32 gradient bucket, written for Hopper
+// Fused SGD updates over 1-D f32 gradient buckets, written for Hopper
 // (sm_90a) and bound to Python through ctypes. Two kernels:
 //
 // sgd_kernel replaces the Pallas TPU kernel `_sgd_kernel`
@@ -24,8 +24,9 @@
 // time; at 2^20 elements the bound is 3.8 us.
 //
 // sgd_momentum_kernel replaces the Pallas TPU kernel `_sgd_momentum_kernel`
-// (pallas_update.py:58, launched by `fused_sgd_momentum` at :134): the
-// update-on-arrival step's per-bucket-shard update, out of place.
+// (pallas_update.py:58, launched by `fused_sgd_momentum` at :134, once per
+// bucket): the update-on-arrival step's update of its bucket shards, out
+// of place.
 //
 //   m_out[i] = momentum * m[i] + g[i] * scale
 //   p_out[i] = p[i] - lr * m_out[i]
@@ -34,10 +35,22 @@
 // five elementwise ops are. `scale` is read from device memory (one f32):
 // the step computes it on the device (1 / (loss scale * accum * world)) and
 // never syncs the host for it, as JAX passes it traced (pallas_update.py:91).
+//
 // Bound on an H100 SXM: 20 bytes per element (read p, m, g; write p', m'),
-// 5 flops; ResNet-18's 11,173,962 params are 223.5 MB a step, ~67 us at
-// 3.35 TB/s. Design: the same four-elements-a-thread float4 pass as
-// sgd_kernel, three 16-byte loads and two 16-byte stores per thread.
+// 5 flops; ResNet-18's 11,173,962 params are 223.5 MB a step, 66.7 us at
+// 3.35 TB/s. One launch per bucket shard, as JAX launches, cost 101.0 us
+// for ResNet-18's 12 buckets on an H100 80GB HBM3 at 700 W: each launch
+// of ~0.93 M values is under one wave of blocks and ramps up and drains on
+// its own. So one launch takes a list of up to MAX_ENTRIES shards, passed
+// by value in the kernel's parameters (a longer list is cut into launches
+// of MAX_ENTRIES, in order). The grid is one wave of resident blocks over
+// all entries: every block of an entry holds the same count of float4
+// quads (a multiple of THREADS * UNROLL, sized from the list's total), and
+// finds its entry from the prefix sum of blocks per entry. A thread loads
+// UNROLL float4s of each of p, m and g, all before its first store, with
+// streaming hints (the step's bytes pass through the 50 MB L2 once). An
+// entry whose five buffers are 16-byte aligned takes float4s, its ragged
+// tail and unaligned entries take scalars, entry by entry.
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper allocates the outputs and checks
@@ -45,7 +58,9 @@
 // the caller has already waited on the ring's transfers, which orders its
 // current stream behind NCCL's.
 
+#include <atomic>
 #include <cstdint>
+
 #include <cuda_runtime.h>
 
 namespace {
@@ -89,37 +104,115 @@ __device__ __forceinline__ PM sgd_momentum(float p, float m, float g, float lr,
   return {__fsub_rn(p, __fmul_rn(lr, m2)), m2};
 }
 
+constexpr int MAX_ENTRIES = 32;  // bucket shards one launch takes
+// UNROLL: float4s of each input a thread keeps in flight (2 and 8 timed
+// within -1% and +2% of 4 on an H100, inside run-to-run spread).
+constexpr int UNROLL = 4;
+
+struct MomentumEntry {
+  const float* p;
+  const float* m;
+  const float* g;
+  float* p_out;
+  float* m_out;
+  long long n;
+  int vec;  // all five buffers 16-byte aligned
+};
+
+// The kernel's parameters: ~1.9 KB, well under the 4 KB limit.
+struct MomentumList {
+  MomentumEntry e[MAX_ENTRIES];
+  int first_block[MAX_ENTRIES + 1];  // prefix sum of blocks per entry
+  long long quads_per_block;
+  int count;
+};
+
+// Values i..i+3 of a (those below n), as one streaming float4 load where
+// the entry is aligned and all four lie below n.
+__device__ __forceinline__ float4 load4(const float* a, long long i, long long n,
+                                        bool vec) {
+  if (vec && i + 4 <= n) return __ldcs(reinterpret_cast<const float4*>(a + i));
+  float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  if (i < n) v.x = __ldcs(a + i);
+  if (i + 1 < n) v.y = __ldcs(a + i + 1);
+  if (i + 2 < n) v.z = __ldcs(a + i + 2);
+  if (i + 3 < n) v.w = __ldcs(a + i + 3);
+  return v;
+}
+
+__device__ __forceinline__ void store4(float* a, long long i, long long n, bool vec,
+                                       float4 v) {
+  if (vec && i + 4 <= n) {
+    __stcs(reinterpret_cast<float4*>(a + i), v);
+    return;
+  }
+  if (i < n) __stcs(a + i, v.x);
+  if (i + 1 < n) __stcs(a + i + 1, v.y);
+  if (i + 2 < n) __stcs(a + i + 2, v.z);
+  if (i + 3 < n) __stcs(a + i + 3, v.w);
+}
+
 __global__ void __launch_bounds__(THREADS)
-sgd_momentum_kernel(const float* __restrict__ p, const float* __restrict__ m,
-                    const float* __restrict__ g,
-                    const float* __restrict__ scale_ptr,
-                    float* __restrict__ p_out, float* __restrict__ m_out,
-                    long long n, float lr, float momentum, int vec) {
-  const long long i0 =
-      (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * 4;
-  if (i0 >= n) return;
+sgd_momentum_kernel(const __grid_constant__ MomentumList list,
+                    const float* __restrict__ scale_ptr, float lr, float momentum) {
+  const int blk = static_cast<int>(blockIdx.x);
+  int e = 0;
+  while (e + 1 < list.count && blk >= list.first_block[e + 1]) ++e;
+  const MomentumEntry& x = list.e[e];
+  const long long n = x.n;
+  const bool vec = x.vec != 0;
+  const long long quads = (n + 3) >> 2;
+  const long long q0 =
+      static_cast<long long>(blk - list.first_block[e]) * list.quads_per_block;
+  const long long q1 = min(q0 + list.quads_per_block, quads);
   const float scale = __ldg(scale_ptr);
-  if (vec && i0 + 3 < n) {
-    const float4 pv = *reinterpret_cast<const float4*>(p + i0);
-    const float4 mv = *reinterpret_cast<const float4*>(m + i0);
-    const float4 gv = *reinterpret_cast<const float4*>(g + i0);
-    const PM x = sgd_momentum(pv.x, mv.x, gv.x, lr, momentum, scale);
-    const PM y = sgd_momentum(pv.y, mv.y, gv.y, lr, momentum, scale);
-    const PM z = sgd_momentum(pv.z, mv.z, gv.z, lr, momentum, scale);
-    const PM w = sgd_momentum(pv.w, mv.w, gv.w, lr, momentum, scale);
-    *reinterpret_cast<float4*>(p_out + i0) = make_float4(x.p, y.p, z.p, w.p);
-    *reinterpret_cast<float4*>(m_out + i0) = make_float4(x.m, y.m, z.m, w.m);
-  } else {
-    for (long long i = i0; i < n && i < i0 + 4; ++i) {
-      const PM r = sgd_momentum(p[i], m[i], g[i], lr, momentum, scale);
-      p_out[i] = r.p;
-      m_out[i] = r.m;
+  for (long long base = q0 + threadIdx.x; base < q1;
+       base += static_cast<long long>(THREADS) * UNROLL) {
+    float4 pv[UNROLL], mv[UNROLL], gv[UNROLL];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = 4 * (base + static_cast<long long>(u) * THREADS);
+      if (i < 4 * q1) {
+        pv[u] = load4(x.p, i, n, vec);
+        mv[u] = load4(x.m, i, n, vec);
+        gv[u] = load4(x.g, i, n, vec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+      const long long i = 4 * (base + static_cast<long long>(u) * THREADS);
+      if (i < 4 * q1) {
+        const PM a = sgd_momentum(pv[u].x, mv[u].x, gv[u].x, lr, momentum, scale);
+        const PM b = sgd_momentum(pv[u].y, mv[u].y, gv[u].y, lr, momentum, scale);
+        const PM c = sgd_momentum(pv[u].z, mv[u].z, gv[u].z, lr, momentum, scale);
+        const PM d = sgd_momentum(pv[u].w, mv[u].w, gv[u].w, lr, momentum, scale);
+        store4(x.p_out, i, n, vec, make_float4(a.p, b.p, c.p, d.p));
+        store4(x.m_out, i, n, vec, make_float4(a.m, b.m, c.m, d.m));
+      }
     }
   }
 }
 
 bool aligned16(const void* ptr) {
   return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
+}
+
+// The blocks of sgd_momentum_kernel the card holds at once (SMs x blocks
+// per SM at its registers), per device, or 0 with the error in *err.
+int resident_blocks(cudaError_t* err) {
+  static std::atomic<int> cached[64];
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < 64 && cached[dev].load() > 0) return cached[dev].load();
+  int sms = 0, per_sm = 0;
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, sgd_momentum_kernel,
+                                                         THREADS, 0);
+  if (*err != cudaSuccess) return 0;
+  if (dev < 64) cached[dev].store(sms * per_sm);
+  return sms * per_sm;
 }
 
 }  // namespace
@@ -140,21 +233,51 @@ extern "C" int sgd_update(const float* p, const float* g, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// Plain C entry point for ctypes. `p`, `m`, `g`, `p_out` and `m_out` are
-// device pointers to n f32 values, `scale` a device pointer to one f32.
-// Returns 0 on a launch that was accepted, else the cudaError_t.
-extern "C" int sgd_momentum_update(const float* p, const float* m,
-                                   const float* g, const float* scale,
-                                   float* p_out, float* m_out, long long n,
-                                   float lr, float momentum, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = (n + 3) / 4;
-  const long long blocks = (threads + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = aligned16(p) && aligned16(m) && aligned16(g) &&
-                  aligned16(p_out) && aligned16(m_out);
-  sgd_momentum_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-                        static_cast<cudaStream_t>(stream)>>>(
-      p, m, g, scale, p_out, m_out, n, lr, momentum, vec);
+// The most bucket shards one sgd_momentum_update launch takes: the wrapper
+// checks its own MAX_ENTRIES against it when it loads the library.
+extern "C" int sgd_momentum_max_entries() { return MAX_ENTRIES; }
+
+// Plain C entry point for ctypes: one launch over `count` bucket shards,
+// 1 <= count <= MAX_ENTRIES. `ptrs` holds five device pointers per shard
+// (p, m, g, p_out, m_out), `lens` its length (>= 1); `scale` is a device
+// pointer to one f32. Returns 0 on a launch that was accepted, else the
+// cudaError_t (cudaErrorInvalidValue for a count or length it refuses).
+extern "C" int sgd_momentum_update(void* const* ptrs, const long long* lens, int count,
+                                   const float* scale, float lr, float momentum,
+                                   void* stream) {
+  if (count <= 0 || count > MAX_ENTRIES) return static_cast<int>(cudaErrorInvalidValue);
+  MomentumList list{};
+  long long total = 0;  // float4 quads over all entries
+  for (int i = 0; i < count; ++i) {
+    if (lens[i] <= 0) return static_cast<int>(cudaErrorInvalidValue);
+    MomentumEntry& x = list.e[i];
+    x.p = static_cast<const float*>(ptrs[5 * i]);
+    x.m = static_cast<const float*>(ptrs[5 * i + 1]);
+    x.g = static_cast<const float*>(ptrs[5 * i + 2]);
+    x.p_out = static_cast<float*>(ptrs[5 * i + 3]);
+    x.m_out = static_cast<float*>(ptrs[5 * i + 4]);
+    x.n = lens[i];
+    x.vec = aligned16(x.p) && aligned16(x.m) && aligned16(x.g) && aligned16(x.p_out) &&
+            aligned16(x.m_out);
+    total += (lens[i] + 3) / 4;
+  }
+  cudaError_t err;
+  const int resident = resident_blocks(&err);
+  if (resident <= count) return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  // Each entry's blocks round up to whole blocks: sized over resident -
+  // count blocks, all entries together fit in one wave.
+  constexpr long long STEP = static_cast<long long>(THREADS) * UNROLL;
+  const long long per = (total + resident - count - 1) / (resident - count);
+  list.quads_per_block = (per + STEP - 1) / STEP * STEP;
+  int blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    list.first_block[i] = blocks;
+    blocks += static_cast<int>(((lens[i] + 3) / 4 + list.quads_per_block - 1) /
+                               list.quads_per_block);
+  }
+  list.first_block[count] = blocks;
+  list.count = count;
+  sgd_momentum_kernel<<<blocks, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      list, scale, lr, momentum);
   return static_cast<int>(cudaGetLastError());
 }

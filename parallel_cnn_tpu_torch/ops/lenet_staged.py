@@ -82,7 +82,7 @@ _library = Library("lenet_staged.cu", {
     "lenet_sigma_prime": ([_P] * 3 + [_I, _P], _I),
     "lenet_accum_matmul": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
     "lenet_staged_dim": ([_I], _I),
-})
+}, headers=("ffma_tile.cuh",))
 
 
 def build() -> Library:

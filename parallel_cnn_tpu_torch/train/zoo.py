@@ -537,9 +537,9 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
     The ring overlap schedule of ``_make_comm_step`` carried past the
     gradient: when the last microbatch's reduce-scatter lands, this rank
     holds the summed gradient shard of every bucket, and updates the
-    parameter and momentum shard it owns with ONE fused SGD-momentum
-    launch per bucket (ops/sgd_update.py, its scalar ``1/(scale·accum·n)``
-    computed on the device). The updated parameter shards are all-gathered,
+    parameter and momentum shards it owns with ONE fused SGD-momentum
+    launch over all buckets (ops/sgd_update.py, its scalar
+    ``1/(scale·accum·n)`` computed on the device). The updated parameter shards are all-gathered,
     always in f32 whatever ``comm.wire_dtype`` (the masters stay exact).
     Every rank checks its gradient shards for non-finite values and one
     all-reduce MIN agrees: on overflow every rank keeps its params,
@@ -589,13 +589,13 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
             dist.all_reduce(ok_i, op=dist.ReduceOp.MIN)
             ok = ok_i > 0
             gscale = 1.0 / (scale * (accum_steps * n))
-            pbuckets = collectives.flatten_buckets(params, plan)
+            pshards = [pb.view(n, -1)[mesh.rank]
+                       for pb in collectives.flatten_buckets(params, plan)]
+            mshards = [mom[0] for mom in opt.mom]
+            p_news, m_news = sgd_update.fused_sgd_momentum_buckets(
+                pshards, mshards, shard_acc, lr=lr, momentum=momentum, scale=gscale)
             new_pb, new_mom = [], []
-            for b, gsh in enumerate(shard_acc):
-                psh = pbuckets[b].view(n, -1)[mesh.rank]
-                msh = opt.mom[b][0]
-                p_new, m_new = sgd_update.fused_sgd_momentum(
-                    psh, msh, gsh, lr=lr, momentum=momentum, scale=gscale)
+            for psh, msh, p_new, m_new in zip(pshards, mshards, p_news, m_news):
                 p_new = torch.where(ok, p_new, psh)
                 new_mom.append(torch.where(ok, m_new, msh)[None])
                 new_pb.append(collectives.ring_all_gather(p_new, mesh, None))

@@ -49,6 +49,7 @@ from chip_smoke import (
     card_draw,
     probe_kernel,
     probe_operands,
+    resnet18_bucket_sizes,
     stage_cases,
 )
 
@@ -316,21 +317,87 @@ def _dp_train_rank(mesh, steps):
 
     imgs, labels = synthetic.make_image_dataset(16 * steps, seed=3)
     model = cifar.cifar_cnn(generator=torch.Generator().manual_seed(0))
+    # 64 KiB buckets: the CIFAR CNN's 308,394 params make 10 of them.
     state, losses = zoo.train(
         model, imgs, labels, batch_size=16, lr=0.01, mesh=mesh,
-        comm=CommConfig(impl="ring"), fused=FusedStepConfig(act_dtype="float32"),
-        verbose=False)
+        comm=CommConfig(impl="ring", bucket_bytes=1 << 16),
+        fused=FusedStepConfig(act_dtype="float32"), verbose=False)
     return state.fused is not None, len(state.fused.mom), losses
 
 
-def test_update_on_arrival_launches_the_kernel_per_bucket_on_card(card):
+def test_update_on_arrival_launches_the_kernel_once_per_step_on_card(card):
     from parallel_cnn_tpu_torch.parallel import distributed
 
     sgd_update.momentum_launches.reset()
     fused, n_buckets, losses = distributed.run(_dp_train_rank, 1, device="cuda",
                                                args=(5,))[0]
-    assert fused and np.isfinite(losses).all()
-    assert sgd_update.momentum_launches.count == 5 * n_buckets
+    assert fused and n_buckets > 1 and np.isfinite(losses).all()
+    assert sgd_update.momentum_launches.count == 5
+
+
+def _bucket_lists(dev, sizes, seed):
+    """Three lists of seeded normal buckets (p, m, g) of these sizes."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return [[torch.randn(n, generator=gen, device=dev) for n in sizes] for _ in range(3)]
+
+
+def _bucket_list_sizes(lists):
+    """B13's list form: odd lengths (ragged tails in every entry but one),
+    ResNet-18's 12 bucket sizes, and more entries than one launch takes (3
+    launches)."""
+    if lists == "odd":
+        return [1, 3, 127, 128_037]
+    if lists == "resnet18":
+        return resnet18_bucket_sizes()
+    return [(37 * i) % 1001 + 1 for i in range(2 * sgd_update.MAX_ENTRIES + 5)]
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("lists", ["odd", "resnet18", "past-max-entries"])
+def test_sgd_momentum_buckets_are_bit_identical_to_plain_on_card(card, lists, view):
+    """Each entry of the one-launch list form equals the plain version bit
+    for bit, a relaunch too, and the counter moves by one per MAX_ENTRIES
+    entries. "offset" views start one value in (p[1:]), off the 16-byte
+    boundary, so those entries take the scalar path."""
+    sizes = _bucket_list_sizes(lists)
+    ps, ms, gs = _bucket_lists(card, [n + 1 for n in sizes], len(sizes))
+    if view == "offset":
+        ps, ms, gs = ([t[1:] for t in ts] for ts in (ps, ms, gs))
+    else:
+        ps, ms, gs = ([t[:-1] for t in ts] for ts in (ps, ms, gs))
+    scale = torch.tensor(1.0 / 3.0, device=card)
+    before = sgd_update.momentum_launches.count
+    got = sgd_update.fused_sgd_momentum_buckets(ps, ms, gs, lr=0.1, momentum=0.9,
+                                                scale=scale)
+    again = sgd_update.fused_sgd_momentum_buckets(ps, ms, gs, lr=0.1, momentum=0.9,
+                                                  scale=scale)
+    torch.cuda.synchronize()
+    launches = -(-len(sizes) // sgd_update.MAX_ENTRIES)
+    assert sgd_update.momentum_launches.count == before + 2 * launches
+    for i, (p, m, g) in enumerate(zip(ps, ms, gs)):
+        want = sgd_update.fused_sgd_momentum_plain(p, m, g, 0.1, 0.9, scale)
+        for k in range(2):
+            assert torch.equal(got[k][i], want[k]), (i, k)
+            assert torch.equal(again[k][i], got[k][i]), (i, k)
+
+
+def test_sgd_momentum_buckets_refuse_on_card(card):
+    """An empty list, a bucket on another device, a wrong dtype in a later
+    launch's group: each raises before any launch."""
+    ps, ms, gs = _bucket_lists(card, [5, 9], 4)
+    before = sgd_update.momentum_launches.count
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum_buckets([], [], [], lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum_buckets(ps, [ms[0], ms[1].cpu()], gs, lr=0.1,
+                                              momentum=0.9)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_momentum_buckets(ps, ms[:1], gs, lr=0.1, momentum=0.9)
+    many = _bucket_lists(card, [3] * (sgd_update.MAX_ENTRIES + 1), 5)
+    many[2][-1] = many[2][-1].double()
+    with pytest.raises(TypeError):
+        sgd_update.fused_sgd_momentum_buckets(*many, lr=0.1, momentum=0.9)
+    assert sgd_update.momentum_launches.count == before
 
 
 @pytest.mark.parametrize("ops,fused,counter", [
@@ -587,6 +654,65 @@ def test_staged_kernel_matches_plain_on_card(card, n, case):
     for g, a, w in zip(got, again, _as_tuple(plain(*args))):
         assert torch.equal(g, a)
         _close(g, w, LENET_RTOL)
+
+
+def _fma_f32(a, b, c):
+    """fmaf(a, b, c) on f32 numpy arrays, rounded once: a·b is exact in f64,
+    TwoSum gives the f64 sum's error, and that error decides the one case
+    where rounding the f64 sum to f32 could round the wrong way (the sum
+    lying exactly halfway between two f32 values)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r.astype(np.float64), np.inf, -np.inf)
+                         .astype(np.float32))
+    tie = (r.astype(np.float64) + other.astype(np.float64)) / 2 == s
+    up, down = np.maximum(r, other), np.minimum(r, other)
+    return np.where(tie & (err > 0), up, np.where(tie & (err < 0), down, r))
+
+
+def _card_view(a: np.ndarray, dev, view: str) -> torch.Tensor:
+    """``a`` on the card: a tensor of its own ("whole", 16-byte aligned) or
+    a contiguous view one value into a larger buffer ("offset", off the
+    16-byte boundary)."""
+    t = torch.from_numpy(a).to(dev)
+    if view == "whole":
+        return t
+    flat = torch.zeros(a.size + 1, dtype=t.dtype, device=dev)
+    flat[1:] = t.reshape(-1)
+    return flat[1:].view(a.shape)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("n", [1, 2, 37, 64, 1000])
+def test_fc_bwd_matches_plain_and_fma_order_on_card(card, n, view):
+    """B6 against its plain twin (gw and gb summed in shards and a tree:
+    LENET_RTOL of the output's scale), a relaunch bit for bit, and dout
+    bit for bit against the 10 fmas in o order from 0. "offset" views of
+    d, s and w start one value in, off the 16-byte boundary, so the kernel
+    stages them with 4-byte copies."""
+    rng = np.random.default_rng(n)
+    d = rng.standard_normal((n, 10)).astype(np.float32)
+    s = rng.uniform(0, 1, (n, 216)).astype(np.float32)
+    w = (rng.standard_normal((10, 216)) * 0.1).astype(np.float32)
+    args = [_card_view(a, card, view) for a in (d, s, w)]
+    if view == "offset":
+        assert all(a.data_ptr() % 16 for a in args)
+    before = lenet_staged.launches["fc_bwd"].count
+    got, again = lenet_staged.fc_bwd(*args), lenet_staged.fc_bwd(*args)
+    torch.cuda.synchronize()
+    assert lenet_staged.launches["fc_bwd"].count == before + 2
+    for g, a, want in zip(got, again, lenet_staged.fc_bwd_plain(*args)):
+        assert torch.equal(g, a)
+        _close(g, want, LENET_RTOL)
+    acc = np.zeros((n, 216), np.float32)
+    for o in range(10):
+        acc = _fma_f32(np.broadcast_to(d[:, o:o + 1], (n, 216)),
+                       np.broadcast_to(w[o], (n, 216)), acc)
+    np.testing.assert_array_equal(got[2].cpu().numpy(), acc)
 
 
 def test_staged_path_launch_counts_and_anchor_on_card(card):

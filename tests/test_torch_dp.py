@@ -22,8 +22,10 @@ devices: loss 5.8889 at step 2 against 1.9767 for one device, GSPMD and
 the ring; ROADMAP Queue C has the table)."""
 
 import os
+import re
 import subprocess
 import sys
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -90,6 +92,84 @@ def test_sgd_momentum_plain_matches_jax(n, scale):
     # an FMA contraction may move an ulp.
     np.testing.assert_allclose(got_m.numpy(), np.asarray(want_m), rtol=3e-7, atol=1e-6)
     np.testing.assert_allclose(got_p.numpy(), np.asarray(want_p), rtol=3e-7, atol=1e-6)
+
+
+@pytest.mark.parametrize("sizes", [(1, 3, 127), (5, 1001, 2, 4099)])
+def test_sgd_momentum_buckets_match_jax_per_bucket(sizes):
+    """The list form (one launch over all buckets on the card; the plain
+    version per bucket here) against JAX's one-bucket kernel on each."""
+    rng = np.random.default_rng(sum(sizes))
+    bufs = [[rng.standard_normal(n).astype(np.float32) for n in sizes] for _ in range(3)]
+    got_p, got_m = sgd_update.fused_sgd_momentum_buckets(
+        *([torch.from_numpy(a) for a in arrays] for arrays in bufs), lr=0.05,
+        momentum=0.9, scale=torch.tensor(0.25, dtype=torch.float32))
+    assert len(got_p) == len(got_m) == len(sizes)
+    for i, (p, m, g) in enumerate(zip(*bufs)):
+        want_p, want_m = pallas_update.fused_sgd_momentum(
+            jnp.asarray(p), jnp.asarray(m), jnp.asarray(g), lr=0.05, momentum=0.9,
+            scale=jnp.float32(0.25))
+        # The bounds of test_sgd_momentum_plain_matches_jax above.
+        np.testing.assert_allclose(got_m[i].numpy(), np.asarray(want_m), rtol=3e-7,
+                                   atol=1e-6)
+        np.testing.assert_allclose(got_p[i].numpy(), np.asarray(want_p), rtol=3e-7,
+                                   atol=1e-6)
+
+
+def test_wrapper_max_entries_is_the_kernel_sources():
+    """The wrapper cuts a list into launches of MAX_ENTRIES, the size of the
+    kernel's parameter struct in csrc/sgd_update.cu; the library reports its
+    own, which the wrapper checks when it loads it."""
+    with open(os.path.join(REPO, "parallel_cnn_tpu_torch/csrc/sgd_update.cu")) as f:
+        src = f.read()
+    assert re.findall(r"constexpr int MAX_ENTRIES = (\d+);", src) == [
+        str(sgd_update.MAX_ENTRIES)]
+    assert "sgd_momentum_max_entries" in sgd_update._library.symbols
+    assert "sgd_momentum_max_entries()" in src
+
+
+def test_sgd_momentum_buckets_refuse_what_the_kernel_does_not_take():
+    p = torch.zeros(4)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        sgd_update.fused_sgd_momentum_buckets([], [], [], lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError, match="non-empty lists"):
+        sgd_update.fused_sgd_momentum_buckets([p, p], [p], [p, p], lr=0.1, momentum=0.9)
+    with pytest.raises(ValueError, match="matching"):
+        sgd_update.fused_sgd_momentum_buckets([p, p], [p, torch.zeros(3)], [p, p],
+                                              lr=0.1, momentum=0.9)
+    meta = torch.zeros(4, device="meta")
+    with pytest.raises(ValueError, match="must lie on"):
+        sgd_update.fused_sgd_momentum_buckets([p, p], [p, meta], [p, p], lr=0.1,
+                                              momentum=0.9)
+
+
+def _counted_fused_steps(mesh, steps):
+    """On one rank: ``steps`` update-on-arrival steps of the tiny conv-BN
+    model; returns the bucket count of every fused_sgd_momentum_buckets
+    call and the momentum blocks of the state."""
+    calls = []
+    real = sgd_update.fused_sgd_momentum_buckets
+
+    def counting(ps, ms, gs, **kw):
+        calls.append(len(ps))
+        return real(ps, ms, gs, **kw)
+
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((16, *ranks.TINY_SHAPE)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 16))
+    with mock.patch.object(sgd_update, "fused_sgd_momentum_buckets", counting):
+        state, step = ranks._fused(ranks.tiny_model(), mesh)
+        for _ in range(steps):
+            step(state, x, y)
+    return calls, len(state.fused.mom)
+
+
+def test_update_on_arrival_updates_every_bucket_in_one_call():
+    """The step hands every bucket shard to one list call a step (one
+    kernel launch on the card), not one call a bucket."""
+    calls, n_buckets = distributed.run(_counted_fused_steps, 1, device="cpu",
+                                       args=(3,))[0]
+    assert n_buckets > 1
+    assert calls == [n_buckets] * 3
 
 
 def test_sgd_momentum_wrapper_refuses_what_the_kernel_does_not_take():
