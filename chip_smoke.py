@@ -36,8 +36,12 @@ port's two paths through their user-facing entry points:
   the tensor cores, also at 37 and 10,000 rows) against their plain twins
   on seeded inputs, then the port's probe entry point (python -m
   parallel_cnn_tpu_torch.benches.mosaic_probe) with exact launch counts,
-  two head-to-heads of the forms the probes compare, and the launch
-  floor (an empty kernel, timed as the kernels are).
+  two head-to-heads of the forms the probes compare, the copies (B15,
+  B16) in turns with copy_ and B15 with the L2 cold, and the launch floor
+  (an empty kernel, timed as the kernels are).
+
+The conv forward is also timed at each of its block tiles at every
+ResNet-18 conv and four batches, beside the tile the wrapper picks.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -216,6 +220,14 @@ TARGET_HEAD_MS = 0.45
 TARGET_S1_SHARE = 0.45
 # The square f32 GEMM timed as the yardstick of the f32 rate.
 GEMM_SIZE = 8192
+# The forward redesign's targets at b64 (device ms over the 20 convs, and
+# the share of the f32 bound at each 3x3/s1 geometry); reported, not
+# enforced, as the grad targets.
+TARGET_FORWARD_MS = 2.3
+TARGET_FORWARD_S1_SHARE = 0.50
+# Batches at which the forward's tiles are timed against each other: the
+# serving buckets' ends and middle, serving's b64 and the zoo's b128.
+TILE_SWEEP_BATCHES = (1, 16, 64, 128)
 # Kernel steps vs plain steps (zoo (c)): 3 steps at a gentle LR.
 ZOO_CHECK_LR = 0.001
 ZOO_LOSS_ATOL = 1e-4
@@ -241,6 +253,12 @@ PROBE_LAUNCHES = 11
 # last two to the probe's shapes.
 DOT_KERNELS = ("pair_dot", "two_dot")
 DOT_ROWS = (1, 37, 63, 64, 65, 1024, 10_000)
+# The copies (B15, B16) are timed in turns with copy_, the gap between the
+# two being a fraction of a microsecond; B15 also with L2 cold, after a
+# write of L2_FLUSH_FLOATS f32 (64 MB, past the H100's 50 MB L2).
+COPIES = ("lane_merge", "lane_split")
+COPY_REPS = 300
+L2_FLUSH_FLOATS = 16 * 2**20
 
 
 def fail(msg: str) -> None:
@@ -279,6 +297,27 @@ def time_call(fn, reps: int = 20, warmup: int = 3):
 def cuda_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn over reps launches (see time_call)."""
     return time_call(fn, reps, warmup)[0]
+
+
+def cold_ms(fn, reps: int = 50) -> float:
+    """Mean device time of fn with the L2 cold: a write of L2_FLUSH_FLOATS
+    f32 before each launch, outside the events around it. Every flush,
+    launch and event is queued behind a spin kernel, with no host wait
+    between them, so the card stays busy and its clock does not drop
+    between launches."""
+    flush = torch.empty(L2_FLUSH_FLOATS, device="cuda")
+    fn()
+    events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
+              for _ in range(reps)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(0.05 * SPIN_HZ))
+    for start, end in events:
+        flush.fill_(1.0)
+        start.record()
+        fn()
+        end.record()
+    events[-1][1].synchronize()
+    return sum(start.elapsed_time(end) for start, end in events) / reps
 
 
 def in_turns(fa, fb, reps: int):
@@ -360,6 +399,55 @@ def library_call(x, w, scale, shift, res, stride, relu):
         return torch.relu_(y) if relu else y
 
     return call
+
+
+def forward_at_tile(x, w, scale, shift, res, stride, relu, tile):
+    """(launch, out): ``launch()`` runs the forward's C entry at block tile
+    ``tile`` (the wrapper always takes ``forward_tile``'s) into ``out`` and
+    returns its cudaError_t, 0 for a launch that was accepted."""
+    k = w.shape[0]
+    n, h, wd, cin = x.shape
+    oshape = tap_conv.out_shape(x.shape, w.shape, stride)
+    out = torch.empty(oshape, device=x.device)
+    ptrs = [None if t is None else t.data_ptr() for t in (scale, shift, res)]
+    args = (x.data_ptr(), w.data_ptr(), *ptrs, out.data_ptr(), n, h, wd, cin, oshape[1],
+            oshape[2], oshape[3], k, stride, tap_conv.same_pads(h, k, stride)[1],
+            tap_conv.same_pads(wd, k, stride)[1], int(relu), tile)
+    lib = tap_conv.build().get()
+    return lambda: lib.tap_conv_forward(*args, torch.cuda.current_stream().cuda_stream), out
+
+
+def time_forward_tiles() -> None:
+    """Each forward tile at each ResNet-18 conv at TILE_SWEEP_BATCHES:
+    the 20 convs' sum per tile, and how far ``forward_tile``'s pick is
+    from the fastest tile at each conv."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    tiles = range(len(tap_conv.FORWARD_TILES))
+    for batch in TILE_SWEEP_BATCHES:
+        sums = [0.0 for _ in tiles]
+        picked, worst = 0.0, (1.0, "")
+        for name, h, cin, cout, k, s, res_on, relu, count in GEOMETRIES:
+            x = torch.randn((batch, h, h, cin), generator=gen, device="cuda")
+            w = torch.randn((k, k, cin, cout), generator=gen, device="cuda") * 0.1
+            scale = torch.rand((cout,), generator=gen, device="cuda") + 0.5
+            shift = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+            oh = -(-h // s)
+            res = (torch.randn((batch, oh, oh, cout), generator=gen, device="cuda")
+                   if res_on else None)
+            launches = [forward_at_tile(x, w, scale, shift, res, s, relu, t)[0] for t in tiles]
+            if any(launch() for launch in launches):
+                fail(f"the forward's C entry refused a tile at {name} b{batch}")
+            ms = [cuda_ms(launch, reps=20) for launch in launches]
+            pick = tap_conv.forward_tile(batch, oh, oh, cin, cout, k)
+            for t in tiles:
+                sums[t] += count * ms[t]
+            picked += count * ms[pick]
+            worst = max(worst, (ms[pick] / min(ms), name))
+        print(f"[smoke] time forward tiles b{batch}, {CONVS_PER_FORWARD} convs: picked "
+              f"{picked:.4f} ms; " + ", ".join(
+                  f"tile {t} {tap_conv.FORWARD_TILES[t]} {sums[t]:.4f}" for t in tiles)
+              + f"; the pick at most {worst[0]:.3f}x the fastest tile at a conv "
+              f"({worst[1]})", flush=True)
 
 
 def random_bn(model, seed):
@@ -1939,9 +2027,12 @@ def time_probe_kernels() -> dict:
     for name in mosaic_probe.KERNELS:
         fn, plain = probe_kernel(name)
         args = probe_operands(name, False, card_draw(gen))
-        ms = cuda_ms(lambda: fn(*args), reps=50)
+        if name in COPIES:
+            ms, lib_ms = in_turns(lambda: fn(*args), probe_library_call(name, args), COPY_REPS)
+        else:
+            ms = cuda_ms(lambda: fn(*args), reps=50)
+            lib_ms = cuda_ms(probe_library_call(name, args), reps=50)
         plain_ms = cuda_ms(lambda: plain(*args), reps=10)
-        lib_ms = cuda_ms(probe_library_call(name, args), reps=50)
         bound, by = probe_bound_ms(name, args, fn(*args))
         print(f"[smoke] time probe {name:12s}: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
               f"ms, library {lib_ms:.5f} ms, bound {bound:.6f} ms ({by}), "
@@ -1952,6 +2043,20 @@ def time_probe_kernels() -> dict:
     print(f"[smoke] probe (c) launch floor: torch.cuda._sleep(0) {floor:.5f} ms, timed "
           "as the kernels are; share of each probe kernel's time: " + ", ".join(
               f"{name} {floor / v['ms']:.0%}" for name, v in times.items()), flush=True)
+    print("[smoke] probe (c) the copies in turns with copy_ (kernel, copy_, copy_, "
+          f"kernel; {COPY_REPS} launches a turn): " + ", ".join(
+              f"{name} {times[name]['ms'] * 1e3:.3f} us against {times[name]['library_ms'] * 1e3:.3f}"
+              f" ({times[name]['ms'] / times[name]['library_ms']:.3f}x)" for name in COPIES),
+          flush=True)
+    args = probe_operands("lane_merge", False, card_draw(gen))
+    cold, cold_lib = cold_ms(lambda: mosaic_probe.lane_merge(*args)), cold_ms(
+        probe_library_call("lane_merge", args))
+    print(f"[smoke] probe (c) lane_merge with L2 cold (a {L2_FLUSH_FLOATS * 4 >> 20} MB write "
+          f"before each launch, outside the events): {cold * 1e3:.3f} us, copy_ "
+          f"{cold_lib * 1e3:.3f} us; warm {times['lane_merge']['ms'] * 1e3:.3f} us; the "
+          f"bound, {times['lane_merge']['bound_ms'] * 1e3:.3f} us, is its bytes at the HBM rate: "
+          "it describes the cold copy, while a warm one reads and writes the 50 MB L2",
+          flush=True)
     t = {k: v["ms"] for k, v in times.items()}
     print(f"[smoke] probe (c) B1's conv form against the one-contraction form, "
           f"(25,{probe_bench.BB},576) bf16 x, 6 filters: vpu_conv (per filter, 25 "
@@ -2141,6 +2246,7 @@ def main() -> int:
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
+    s1_shares = []
     for name, count, x, w, scale, shift, res, s, relu, oshape in cases:
         ms = cuda_ms(lambda: tap_conv.conv2d_fused(x, w, scale, shift, res, s, relu))
         with plain_reference():
@@ -2151,6 +2257,8 @@ def main() -> int:
         print(f"[smoke] time {name:24s} b{BATCH}: kernel {ms:.4f} ms, plain "
               f"{plain:.4f} ms, library {lib:.4f} ms, bound {bound:.4f} ms "
               f"({by}), {bound / ms:.1%} of bound", flush=True)
+        if w.shape[0] == 3 and s == 1 and not name.startswith("stem"):
+            s1_shares.append(bound / ms)
         for key, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib),
                        ("bound_ms", bound)):
             totals[key] += count * v
@@ -2165,6 +2273,13 @@ def main() -> int:
           f"{totals['plain_ms']:.3f} ms, library {totals['library_ms']:.3f} "
           f"ms, bound {totals['bound_ms']:.3f} ms (the record's times are "
           f"these sums)", flush=True)
+    met = totals["ms"] <= TARGET_FORWARD_MS and min(s1_shares) >= TARGET_FORWARD_S1_SHARE
+    print(f"[smoke] time forward targets at b{BATCH}: {CONVS_PER_FORWARD} convs "
+          f"{totals['ms']:.3f} ms (target <= {TARGET_FORWARD_MS}), {totals['bound_ms'] / totals['ms']:.1%}"
+          f" of their bound, lowest 3x3/s1 share of the f32 bound {min(s1_shares):.1%} "
+          f"(>= {TARGET_FORWARD_S1_SHARE:.0%}): {'all met' if met else 'NOT all met'}",
+          flush=True)
+    time_forward_tiles()
     lenet_times = time_lenet_kernels()
     zoo_times = time_zoo_kernels()
     staged_times = time_staged_kernels()

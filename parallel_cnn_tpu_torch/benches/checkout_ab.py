@@ -1,0 +1,127 @@
+"""This checkout's conv forward (B10) and probe copies (B15, B16) against
+another checkout's, on one card: outputs bit for bit, times in turns.
+
+    python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
+
+``OTHER_CHECKOUT`` is an unpacked copy of another commit (``git archive``
+into a directory git ignores). Each side runs in a process of its own from
+its own root, through the user-facing wrappers only (``tap_conv.
+conv2d_fused``, ``mosaic_probe.lane_merge`` and ``lane_split``) and its own
+``chip_smoke`` helpers, building its own kernels; the sides run in turns,
+other, this, this, other. Each run computes the forward at every ResNet-18
+conv (``chip_smoke.GEOMETRIES``) at batch 64 and 128 on inputs made from a
+seed on the host, and times each conv and each copy, the copies in turns
+with ``copy_``. The first run of each side saves its outputs, which are then
+compared bit for bit. Prints one line per comparison and per time (each
+side's two runs averaged). Needs the card.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+THIS = Path(__file__).resolve().parents[2]
+BATCHES = (64, 128)
+COPY_REPS = 300
+
+
+def side(out_file: str) -> None:
+    """One run in the current checkout: outputs to ``out_file`` (when
+    given) and one JSON line of times on stdout."""
+    import torch
+
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import mosaic_probe, tap_conv
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    outs, times = {}, {}
+    for batch in BATCHES:
+        gen = torch.Generator().manual_seed(batch)
+        total = 0.0
+        for name, h, cin, cout, k, s, res_on, relu, count in cs.GEOMETRIES:
+            oh = -(-h // s)
+            x, w, scale, shift, res = (t.cuda() if t is not None else None for t in (
+                torch.randn((batch, h, h, cin), generator=gen),
+                torch.randn((k, k, cin, cout), generator=gen) * (2.0 / (k * k * cin)) ** 0.5,
+                torch.rand((cout,), generator=gen) + 0.5,
+                0.1 * torch.randn((cout,), generator=gen),
+                torch.randn((batch, oh, oh, cout), generator=gen) if res_on else None))
+            outs[f"b{batch} {name}"] = tap_conv.conv2d_fused(
+                x, w, scale, shift, res, s, relu).cpu()
+            ms = cs.cuda_ms(lambda: tap_conv.conv2d_fused(x, w, scale, shift, res, s, relu))
+            times[f"forward b{batch} {name}"] = ms
+            total += count * ms
+        times[f"forward b{batch} {cs.CONVS_PER_FORWARD} convs"] = total
+    gen = torch.Generator().manual_seed(0)
+    for name, x, rows in (("lane_merge", torch.randn((25, 128, 576), generator=gen), None),
+                          ("lane_split", torch.randn((1, 128 * 576), generator=gen), 128)):
+        x = x.cuda()
+        args = (x,) if rows is None else (x, rows)
+        fn = getattr(mosaic_probe, name)
+        outs[name] = fn(*args).cpu()
+        view = x.view(x.shape[0] if rows is None else rows, -1)
+        dst = torch.empty_like(view)
+        ms, lib_ms = cs.in_turns(lambda: fn(*args), lambda: dst.copy_(view), COPY_REPS)
+        times[name] = ms
+        times[f"{name} copy_"] = lib_ms
+    if out_file:
+        torch.save(outs, out_file)
+    print(json.dumps(times))
+
+
+def run_side(root: Path, out_file: str) -> dict:
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", out_file],
+                          cwd=root, env=env, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"the run in {root} failed (rc {proc.returncode}):\n"
+                           f"{proc.stdout[-4000:]}\n{proc.stderr[-4000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    if len(argv) == 2 and argv[0] == "--side":
+        side(argv[1])
+        return 0
+    if len(argv) != 1:
+        print(__doc__, file=sys.stderr)
+        return 2
+    import torch
+
+    from parallel_cnn_tpu_torch.utils.backend import resolve_device
+
+    resolve_device("cuda")
+    other = Path(argv[0]).resolve()
+    with tempfile.TemporaryDirectory(prefix="checkout_ab_") as tmp:
+        files = {"other": os.path.join(tmp, "other.pt"), "this": os.path.join(tmp, "this.pt")}
+        runs = {"other": [], "this": []}
+        for label in ("other", "this", "this", "other"):
+            root = other if label == "other" else THIS
+            first = not runs[label]
+            runs[label].append(run_side(root, files[label] if first else ""))
+        a, b = torch.load(files["this"]), torch.load(files["other"])
+    print(f"[ab] this {THIS}, other {other}; runs other, this, this, other", flush=True)
+    same = 0
+    for key in a:
+        eq = torch.equal(a[key], b[key])
+        same += eq
+        print(f"[ab] {key}: {'bit-identical' if eq else 'DIFFERS'} (max |Δ| "
+              f"{float((a[key] - b[key]).abs().max()):.3e})", flush=True)
+    print(f"[ab] {same} of {len(a)} outputs bit-identical", flush=True)
+    for key in runs["this"][0]:
+        t = [sum(r[key] for r in runs[label]) / 2 for label in ("this", "other")]
+        print(f"[ab] time {key}: this {t[0]:.5f} ms, other {t[1]:.5f} ms, this / other "
+              f"{t[0] / t[1]:.3f}", flush=True)
+    return 0 if same == len(a) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

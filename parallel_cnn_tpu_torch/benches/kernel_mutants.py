@@ -1,15 +1,16 @@
 """Mutation check of the redesigned kernels: the tensor-core dots (B20
 ``pair_dot``, B21 ``two_dot``; ``csrc/mosaic_probe.cu`` and
-``csrc/wgmma_tile.cuh``), the list form of the SGD-momentum update (B13,
-``csrc/sgd_update.cu``) and the FC backward (B6, ``csrc/lenet_staged.cu``).
+``csrc/wgmma_tile.cuh``), the probes' copy (B15/B16, ``copy_kernel`` in
+``csrc/mosaic_probe.cu``), the list form of the SGD-momentum update (B13,
+``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``) and
+the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
 Each mutant is one edit to a kernel source. It is applied to a copy of the
 checkout (the port's package, ``chip_smoke.py``, ``tests/test_torch_cuda.py``
 and ``pyproject.toml``) in a temporary directory, never to the checkout
-itself; the copy builds its own kernels and runs the card tests selected by
-``-k "probe or momentum or fc_bwd"`` in a pytest process of its own, so a
+itself; the copy builds its own kernels and runs the card tests selected by ``-k`` SELECT in a pytest process of its own, so a
 mutant that faults the
 card's context takes only its own copy down. The unmutated copy runs first.
 One line per copy, ``[mutant] <name>: <failed> of <selected> card tests
@@ -33,8 +34,11 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = "parallel_cnn_tpu_torch/csrc"
 COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
-#: The card tests each copy runs (pytest -k).
-SELECT = "probe or momentum or fc_bwd"
+#: The card tests each copy runs (pytest -k): the probes', B13's, B6's and
+#: the forward's (against its plain twin at every tile, across batch
+#: positions at every ResNet-18 conv).
+SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
+          "or test_kernel_matches_plain")
 
 #: name -> (file under the root, the text replaced, its replacement); each
 #: text occurs exactly once in its file.
@@ -70,6 +74,21 @@ MUTANTS = {
     "B6 unaligned s staged with odd columns dropped": (
         f"{CSRC}/lenet_staged.cu", "LANES + (i - r * FC_SLAB),",
         "LANES + ((i - r * FC_SLAB) & ~1),"),
+    "B15/B16 copy's scalar tail skipped": (
+        f"{CSRC}/mosaic_probe.cu", "if (t < n - tail) dst[tail + t] = src[tail + t];", ""),
+    "B15/B16 copy's misaligned head read as aligned": (
+        f"{CSRC}/mosaic_probe.cu",
+        "const int head = vec ? static_cast<int>(lead < n ? lead : n) : 0;",
+        "const int head = 0;"),
+    "forward gather off by one row at stride 2": (
+        f"{CSRC}/tap_conv.cu", "a_iy[c] = oy * geo.stride - geo.pad_top;",
+        "a_iy[c] = oy * geo.stride - geo.pad_top + (geo.stride == 2);"),
+    "forward last depth stage skipped": (
+        f"{CSRC}/tap_conv.cu",
+        "const int K = geo.k * geo.k * geo.cin;\n  const int stages = (K + BK - 1) / BK;",
+        "const int K = geo.k * geo.k * geo.cin;\n  const int stages = (K + BK - 1) / BK - 1;"),
+    "forward residual dropped": (
+        f"{CSRC}/tap_conv.cu", "if (residual != nullptr) z[q] += res[q];", ""),
 }
 
 

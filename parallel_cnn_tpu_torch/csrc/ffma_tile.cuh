@@ -1,6 +1,6 @@
-// The f32 register-tile core shared by the conv's two gradient kernels
-// (csrc/tap_wgrad.cu and the dgrad kernel of csrc/tap_conv.cu), written
-// for Hopper (sm_90a).
+// The f32 register-tile core shared by the conv's kernels (csrc/tap_wgrad.cu,
+// and the forward and dgrad kernels of csrc/tap_conv.cu), written for
+// Hopper (sm_90a).
 //
 // A block computes a BM x BN tile of C = A . B on the f32 CUDA cores, as
 // an implicit GEMM whose depth runs in stages of BK. Each thread keeps a
@@ -19,7 +19,8 @@
 // read 128 contiguous bytes. A is stored either
 //   - [kk][m] (A_KMAJOR, wgrad: a depth step is a pixel, its row a run of
 //     channels), a thread's rows float4 runs 16 apart; or
-//   - [m][kk] (dgrad: the depth is (tap, co), contiguous in g), a row
+//   - [m][kk] (forward and dgrad: the depth is (tap, ci) contiguous in x,
+//     or (tap, co) contiguous in g), a row
 //     padded to BK+4 floats; a thread reads float4 along kk for rows
 //     lane/8 + 4i, which land on distinct banks.
 // Every accumulator sums its depth terms in ascending depth order, one

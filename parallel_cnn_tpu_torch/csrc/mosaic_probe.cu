@@ -45,6 +45,8 @@
 //   lane-split 589,824 B                           0.18 us
 //   the convs  5,456,472 B (22.1 MFLOP f32)        1.63 us
 //   the dots   409,600 B (16.8 MFLOP bf16)         0.122 us
+// lane-merge's bound is its bytes at the HBM rate, which describes a cold
+// copy: the probe's repeated call finds its 14.7 MB warm in the 50 MB L2.
 // Every probe but lane-merge moves so little that a launch's latency sets
 // its time. B14-B19 run on the CUDA cores.
 //
@@ -81,7 +83,9 @@
 // entry point returns 0 for a launch that was accepted, else the
 // cudaError_t (cudaErrorInvalidValue for sizes it refuses).
 
+#include <atomic>
 #include <cstdint>
+#include <type_traits>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -134,28 +138,50 @@ batched_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
 // ---------------------------------------------------------------------------
 // lane-merge, lane-split: a flat copy of n contiguous f32 values.
-// Grid-stride; 16-byte loads and stores when both buffers are 16-byte
-// aligned, then a scalar tail of n % 4 values.
+// The copy is a block's chunk of COPY_THREADS * COPY_UNROLL float4s at a
+// time: each thread issues its COPY_UNROLL 16-byte loads, COPY_THREADS
+// apart, before it stores any, so their latencies overlap and a warp's
+// accesses stay 512 contiguous bytes; a block reads 4 KB in one run. The
+// grid is one block a chunk, capped at one wave (from the SM count and the
+// occupancy API, once per device): the probes' sizes fit exactly, B16's
+// 18,432 float4s in 72 blocks, B15's 460,800 in 1,800 (of 2,112 resident).
+// (A sweep on an H100 against copy_ in turns found 2 loads in flight a
+// thread faster than 1, 4 or 8 at these sizes, and Hopper's bulk copy
+// engine through shared memory, and streaming-store hints, slower.)
+// With VEC, src + head and dst + head lie on a 16-byte boundary (the host
+// found both equally misaligned, head < 4): the first `head` values and
+// the last (n - head) % 4 go by scalar copies, the rest as float4s.
+// Without VEC (src and dst misaligned differently) the same chunks move
+// one float a load.
 // ---------------------------------------------------------------------------
 
-constexpr int COPY_THREADS = 256;
-constexpr long long COPY_MAX_BLOCKS = 132 * 16;
+constexpr int COPY_THREADS = 128;
+constexpr int COPY_UNROLL = 2;
+constexpr int COPY_CHUNK = COPY_THREADS * COPY_UNROLL;
 
+template <bool VEC>
 __global__ void __launch_bounds__(COPY_THREADS)
-copy_kernel(const float* __restrict__ src, float* __restrict__ dst,
-            long long n, int vec) {
-  const long long stride = static_cast<long long>(gridDim.x) * COPY_THREADS;
-  const long long i = static_cast<long long>(blockIdx.x) * COPY_THREADS +
-                      threadIdx.x;
-  long long scalar_from = 0;
-  if (vec) {
-    const long long n4 = n / 4;
-    const float4* s4 = reinterpret_cast<const float4*>(src);
-    float4* d4 = reinterpret_cast<float4*>(dst);
-    for (long long j = i; j < n4; j += stride) d4[j] = s4[j];
-    scalar_from = n4 * 4;
+copy_kernel(const float* __restrict__ src, float* __restrict__ dst, long long n, int head) {
+  const int t = threadIdx.x;
+  if (VEC && blockIdx.x == 0 && t < head) dst[t] = src[t];
+  using V = typename std::conditional<VEC, float4, float>::type;
+  const long long items = VEC ? (n - head) >> 2 : n;
+  const V* s = reinterpret_cast<const V*>(src + head);
+  V* d = reinterpret_cast<V*>(dst + head);
+  for (long long base = static_cast<long long>(blockIdx.x) * COPY_CHUNK; base < items;
+       base += static_cast<long long>(gridDim.x) * COPY_CHUNK) {
+    V v[COPY_UNROLL];
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u)
+      if (base + u * COPY_THREADS + t < items) v[u] = __ldg(s + base + u * COPY_THREADS + t);
+#pragma unroll
+    for (int u = 0; u < COPY_UNROLL; ++u)
+      if (base + u * COPY_THREADS + t < items) d[base + u * COPY_THREADS + t] = v[u];
   }
-  for (long long j = scalar_from + i; j < n; j += stride) dst[j] = src[j];
+  if (VEC && blockIdx.x == 0) {
+    const long long tail = head + (items << 2);
+    if (t < n - tail) dst[tail + t] = src[tail + t];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -305,14 +331,45 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
 }
 
+// Blocks of `kernel` resident on the current device in one wave (SMs x
+// blocks an SM at `threads` and `smem`), found once per device.
+template <class Kernel>
+int one_wave(Kernel kernel, int threads, int smem, std::atomic<int>* cache, cudaError_t* err) {
+  int dev = 0;
+  *err = cudaGetDevice(&dev);
+  if (*err != cudaSuccess) return 0;
+  if (dev < 64 && cache[dev].load() > 0) return cache[dev].load();
+  int sms = 0, per_sm = 0;
+  *err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (*err == cudaSuccess)
+    *err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (*err != cudaSuccess) return 0;
+  if (dev < 64) cache[dev].store(sms * per_sm);
+  return sms * per_sm;
+}
+
 int launch_copy(const float* src, float* dst, long long n, void* stream) {
   if (n <= 0) return invalid();
-  const long long quads = (n + 3) / 4;
-  long long blocks = (quads + COPY_THREADS - 1) / COPY_THREADS;
-  if (blocks > COPY_MAX_BLOCKS) blocks = COPY_MAX_BLOCKS;
-  const int vec = aligned16(src) && aligned16(dst);
-  copy_kernel<<<static_cast<unsigned>(blocks), COPY_THREADS, 0,
-                static_cast<cudaStream_t>(stream)>>>(src, dst, n, vec);
+  // src and dst equally far from a 16-byte boundary: a scalar head brings
+  // both onto one, and the body moves float4s.
+  const unsigned so = reinterpret_cast<std::uintptr_t>(src) & 15u;
+  const bool vec = so == (reinterpret_cast<std::uintptr_t>(dst) & 15u);
+  const long long lead = (16 - so) % 16 / 4;
+  const int head = vec ? static_cast<int>(lead < n ? lead : n) : 0;
+  static std::atomic<int> wave[2][64];
+  cudaError_t err;
+  const int resident = vec ? one_wave(copy_kernel<true>, COPY_THREADS, 0, wave[1], &err)
+                           : one_wave(copy_kernel<false>, COPY_THREADS, 0, wave[0], &err);
+  if (resident <= 0) return static_cast<int>(err != cudaSuccess ? err : cudaErrorUnknown);
+  const long long items = vec ? (n - head) / 4 : n;
+  long long blocks = (items + COPY_CHUNK - 1) / COPY_CHUNK;
+  blocks = blocks < 1 ? 1 : blocks > resident ? resident : blocks;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (vec) {
+    copy_kernel<true><<<static_cast<unsigned>(blocks), COPY_THREADS, 0, s>>>(src, dst, n, head);
+  } else {
+    copy_kernel<false><<<static_cast<unsigned>(blocks), COPY_THREADS, 0, s>>>(src, dst, n, 0);
+  }
   return status();
 }
 

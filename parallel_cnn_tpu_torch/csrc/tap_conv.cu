@@ -16,23 +16,42 @@
 //   z = max(z, 0)                     (when relu)
 //   out[n,oy,ox,co] = z               (the only store)
 //
-// Design. The conv is run as an implicit GEMM on the CUDA cores in f32:
-// rows M = N*OH*OW output pixels, columns Cout, depth K = k*k*Cin in HWIO
-// order, so the weight tensor already is the (K, Cout) matrix. A block of
-// 256 threads owns a 64-pixel x 64-channel output tile; each stage gathers a
-// 64x16 slab of the (never materialised) im2col matrix with bounds-checked
-// input indices -- the zero padding, the stride and the asymmetric SAME
-// split are plain index arithmetic -- and a 16x64 slab of weights into
-// shared memory. Each thread keeps a 4x4 register tile of accumulators and
-// prefetches the next stage's slabs into registers while it multiplies the
-// current ones. The Pallas kernel's flat pad-H layout, column masks, N-pairing,
-// cout-tile weight streaming, row bands and 4-phase stride-2 split were
-// answers to Mosaic's constraints and have no counterpart here.
+// Design (`tap_conv_kernel`, on the f32 tile core of csrc/ffma_tile.cuh,
+// which the dgrad kernel below shares). The conv is an implicit GEMM on
+// the CUDA cores in f32: rows M = N*OH*OW output pixels, columns Cout,
+// depth K = k*k*Cin in HWIO order (dy, dx, ci), so the weight tensor
+// already is the (K, Cout) matrix and a pixel's depth run at one tap is
+// Cin contiguous floats of NHWC x. A block owns a BM x BN output tile and
+// walks the depth in stages of 32, through a 3-slot ring of shared memory
+// filled ahead of use by `cp.async`:
+//   - A [m][kk], the (never materialised) im2col slab: each copy moves 4
+//     depth values of one pixel at one tap (16 bytes; 4 bytes a copy, for
+//     A and B, when Cin or Cout is no multiple of 4 or x or w is off the
+//     16-byte boundary, as for the CIFAR stem's Cin 3). The source size
+//     is 0 where the tap falls in the SAME
+//     padding or the pixel lies past M, which zero-fills. A pixel's image
+//     offset and input origin (oy*s - pad_top, ox*s - pad_left: the
+//     stride and the asymmetric SAME split) are decoded once a block, and
+//     each thread steps its (dy, dx, ci) depth cursor without divides.
+//   - B [kk][co], a slab of w's rows, copied as 16-byte runs along Cout.
+// Each thread keeps an 8x8 or 8x4 register tile of accumulators (0.25 or
+// 0.375 floats of shared memory read a fma; the first forward kernel's
+// 4x4 needed 0.5) with one barrier a stage. The block tile comes from the
+// shape (ops/tap_conv.py `forward_tile`): 128x128 (256 threads), or 64x64
+// (128) or 32x64 (64) where the grid of a larger tile would leave SMs
+// empty (the deep convs of stage 4, the small serving buckets); a depth of
+// one stage (the CIFAR stem's K = 27, bound by its gather and its stores)
+// takes 64x64 at 4x4 a thread, twice the threads for the copies. The Pallas
+// kernel's flat pad-H layout, column masks, N-pairing, cout-tile weight
+// streaming, row bands and 4-phase stride-2 split were answers to
+// Mosaic's constraints and have no counterpart here.
 //
-// Determinism. Every output element sums its K products in the same order
-// (k = 0..K-1, one fma each) whatever its tile, its batch position or the
-// batch size, and no block shares a reduction with another: no atomics, no
-// split-K. A padded serving bucket therefore gives bit-identical rows.
+// Determinism. Every output element sums its K products in the same
+// order (k = 0..K-1, one fmaf each, from 0) whatever its tile, its batch
+// position or the batch size -- the order the first forward kernel summed
+// in, so the two agree bit for bit -- and no block shares a reduction with
+// another: no atomics, no split-K. A padded serving bucket therefore gives
+// bit-identical rows, and the tile may follow the batch.
 //
 // Bound on an H100 SXM. The 20 convs of ResNet-18 at 32x32 do 555,417,600
 // multiply-adds per image (stem 1.77 M; stage 1 four 37.7 M convs; stages
@@ -42,8 +61,7 @@
 // is bound by operations; only the stem, with 27 multiply-adds per output,
 // is bound by its bytes at 3.35 TB/s. (A 1x1/s2 projection reads a quarter
 // of its input, since the stride steps over every other row and column.)
-// This first kernel does not use tensor cores (wgmma/TMA); a later implicit
-// GEMM on them is the way past the f32 bound.
+// The path's contract is f32 with TF32 off, so no tensor cores here.
 //
 // The same file holds the conv's input gradient (dgrad), which the Pallas
 // package computes with this kernel too (`_dgrad_s1` / `_dgrad_s2_even`,
@@ -58,7 +76,7 @@
 // tensor cores, since the zoo path's contract is f32 with TF32 off.
 //
 // Design (its own kernel, `tap_dgrad_kernel`, on the f32 tile core of
-// csrc/ffma_tile.cuh; nothing of the forward above is shared). It is an
+// csrc/ffma_tile.cuh, as the forward). It is an
 // implicit GEMM in gather form, cut into the stride's parity phases as
 // the Pallas package's `_dgrad_s2_even` cuts it: at stride 2 the input
 // pixels (iy, ix) fall into 4 phases by (iy % 2, ix % 2), and a tap sends
@@ -102,144 +120,233 @@
 
 namespace {
 
-constexpr int BM = 64;       // output pixels per block
-constexpr int BN = 64;       // output channels per block
-constexpr int BK = 16;       // reduction depth per stage
-constexpr int THREADS = 256;
-constexpr int A_PAD = 4;     // keeps float4 rows aligned, eases bank conflicts
+bool aligned16(const void* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
+}
 
-struct Geometry {
-  int n, h, w, cin, oh, ow, cout, k, stride, pad_top, pad_left;
+// The forward's block tiles, by the wrapper's tile id (ops/tap_conv.py
+// FORWARD_TILES): BM x BN outputs, TM x TN a thread, 32 depth values a
+// stage.
+using FTile0 = ftile::Tile<128, 128, 8, 8, 32, 1>;  // 256 threads
+using FTile1 = ftile::Tile<64, 64, 8, 4, 32, 2>;    // 128 threads
+using FTile2 = ftile::Tile<32, 64, 8, 4, 32, 4>;    // 64 threads
+using FTile3 = ftile::Tile<64, 64, 4, 4, 32, 2>;    // 256 threads
+constexpr int FORWARD_TILES = 4;
+
+struct ForwardGeo {
+  int n, h, w, cin, oh, ow, cout, k, stride, pad_top, pad_left, relu, vec_out;
 };
 
-__global__ void __launch_bounds__(THREADS)
-tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                const float* __restrict__ scale,
-                const float* __restrict__ shift,
-                const float* __restrict__ residual, float* __restrict__ out,
-                Geometry g, int relu) {
-  __shared__ __align__(16) float As[BK][BM + A_PAD];
-  __shared__ __align__(16) float Bs[BK][BN];
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int M = g.n * g.oh * g.ow;
-  const int K = g.k * g.k * g.cin;
-
-  // Gather role: this thread loads depth column a_kk of the im2col slab for
-  // the four pixel rows a_row + 16*i. Their input origins are fixed for the
-  // whole reduction, so they are decoded once.
-  const int a_kk = tid % BK;
-  const int a_row = tid / BK;
-  int a_img[4], a_iy[4], a_ix[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + a_row + 16 * i;
-    if (m < M) {
-      const int img = m / (g.oh * g.ow);
-      const int r = m - img * g.oh * g.ow;
-      const int oy = r / g.ow;
-      const int ox = r - oy * g.ow;
-      a_img[i] = img * g.h * g.w * g.cin;
-      a_iy[i] = oy * g.stride - g.pad_top;
-      a_ix[i] = ox * g.stride - g.pad_left;
-    } else {
-      a_img[i] = 0;
-      a_iy[i] = -(1 << 29);  // never inside the image: loads read zero
-      a_ix[i] = 0;
+// Depth index d = (dy, dx, ci) of HWIO, stepped without divides.
+struct TapCursor {
+  int dy, dx, ci;
+  __device__ void start(int d, int cin, int k) {
+    const int t = d / cin;
+    ci = d - t * cin;
+    dy = t / k;
+    dx = t - dy * k;
+  }
+  __device__ void advance(int by, int cin, int k) {
+    ci += by;
+    while (ci >= cin) {
+      ci -= cin;
+      if (++dx == k) {
+        dx = 0;
+        ++dy;
+      }
     }
   }
+};
 
-  // Compute role: a 4x4 tile of pixels ty*4.. and channels tx*4..
-  const int tx = tid % 16;
-  const int ty = tid / 16;
+template <class T, int VEC>
+__global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
+tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                const float* __restrict__ scale, const float* __restrict__ shift,
+                const float* __restrict__ residual, float* __restrict__ out,
+                ForwardGeo geo) {
+  using L = ftile::Layout<T, false>;
+  using ftile::STAGES;
+  constexpr int BK = T::BK;
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
 
-  float acc[4][4];
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int warp_m = warp % T::WARPS_M;
+  const int warp_n = warp / T::WARPS_M;
+  const int m0 = blockIdx.x * T::BM;
+  const int n0 = blockIdx.y * T::BN;
+  const int M = geo.n * geo.oh * geo.ow;
+  const int K = geo.k * geo.k * geo.cin;
+  const int stages = (K + BK - 1) / BK;
+
+  // A = x gathered, [m][kk]: depth group `dk` (VEC depth values, one tap)
+  // of pixels pm + A_STEP*c, whose image offset and input origin are
+  // fixed for the whole reduction.
+  constexpr int GROUPS = BK / VEC;
+  static_assert(T::THREADS % GROUPS == 0, "copy roles");
+  constexpr int A_STEP = T::THREADS / GROUPS;
+  constexpr int A_COPIES = T::BM / A_STEP;
+  static_assert(A_COPIES * A_STEP == T::BM, "copy roles");
+  const int dk = tid % GROUPS;
+  const int pm = tid / GROUPS;
+  int a_img[A_COPIES], a_iy[A_COPIES], a_ix[A_COPIES];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-
-  float ra[4], rb[4];
-
-  auto load_stage = [&](int k0) {
-    const int kidx = k0 + a_kk;
-    if (kidx < K) {
-      const int tap = kidx / g.cin;
-      const int ci = kidx - tap * g.cin;
-      const int dy = tap / g.k;
-      const int dx = tap - dy * g.k;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int iy = a_iy[i] + dy;
-        const int ix = a_ix[i] + dx;
-        const bool inside =
-            (unsigned)iy < (unsigned)g.h && (unsigned)ix < (unsigned)g.w;
-        ra[i] = inside ? __ldg(x + a_img[i] + (iy * g.w + ix) * g.cin + ci)
-                       : 0.0f;
-      }
+  for (int c = 0; c < A_COPIES; ++c) {
+    const int m = m0 + pm + A_STEP * c;
+    if (m < M) {
+      const int img = m / (geo.oh * geo.ow);
+      const int r = m - img * geo.oh * geo.ow;
+      const int oy = r / geo.ow;
+      a_img[c] = img * geo.h * geo.w * geo.cin;
+      a_iy[c] = oy * geo.stride - geo.pad_top;
+      a_ix[c] = (r - oy * geo.ow) * geo.stride - geo.pad_left;
     } else {
+      a_img[c] = 0;
+      a_iy[c] = -(1 << 29);  // never a row of x: the copy zero-fills
+      a_ix[c] = 0;
+    }
+  }
+  // B = w, [kk][co]: VEC values along co of slab row b_row + B_ROWS*c.
+  constexpr int B_GROUPS = T::BN / VEC;
+  static_assert(T::THREADS % B_GROUPS == 0, "copy roles");
+  constexpr int B_ROWS = T::THREADS / B_GROUPS;
+  constexpr int B_COPIES = BK / B_ROWS;
+  static_assert(B_COPIES * B_ROWS == BK, "copy roles");
+  const int b_col = (tid % B_GROUPS) * VEC;
+  const int b_row = tid / B_GROUPS;
+
+  TapCursor tc;
+  tc.start(dk * VEC, geo.cin, geo.k);
+  int next = 0;  // the next stage to copy
+
+  auto load = [&]() {
+    float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
+    float* Bs = As + L::A_FLOATS;
+    const bool d_ok = next * BK + dk * VEC < K;
 #pragma unroll
-      for (int i = 0; i < 4; ++i) ra[i] = 0.0f;
+    for (int c = 0; c < A_COPIES; ++c) {
+      const int iy = a_iy[c] + tc.dy;
+      const int ix = a_ix[c] + tc.dx;
+      const bool ok = d_ok && (unsigned)iy < (unsigned)geo.h && (unsigned)ix < (unsigned)geo.w;
+      const float* src = ok ? x + a_img[c] + (iy * geo.w + ix) * geo.cin + tc.ci : x;
+      float* dst = As + (pm + A_STEP * c) * L::A_LD + dk * VEC;
+      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      else ftile::cp_async4(dst, src, ok);
     }
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      const int kk = idx / BN;
-      const int co = n0 + idx % BN;
-      const int kr = k0 + kk;
-      rb[i] = (kr < K && co < g.cout) ? __ldg(wt + kr * g.cout + co) : 0.0f;
+    for (int c = 0; c < B_COPIES; ++c) {
+      const int kk = b_row + B_ROWS * c;
+      const int r = next * BK + kk;
+      const int co = n0 + b_col;
+      const bool ok = r < K && co < geo.cout;
+      const float* src = ok ? wt + r * geo.cout + co : wt;
+      float* dst = Bs + kk * T::B_LD + b_col;
+      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      else ftile::cp_async4(dst, src, ok);
     }
+    ++next;
+    tc.advance(BK, geo.cin, geo.k);
   };
 
-  load_stage(0);
-  for (int k0 = 0; k0 < K; k0 += BK) {
+  float acc[T::TM][T::TN];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) As[a_kk][a_row + 16 * i] = ra[i];
+  for (int i = 0; i < T::TM; ++i)
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int idx = tid + THREADS * i;
-      Bs[idx / BN][idx % BN] = rb[i];
-    }
-    __syncthreads();
-    if (k0 + BK < K) load_stage(k0 + BK);  // in flight during the products
+    for (int j = 0; j < T::TN; ++j) acc[i][j] = 0.0f;
+
 #pragma unroll
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[kk][ty * 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[kk][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (next < stages) load();
+    ftile::cp_async_commit();
+  }
+  for (int s = 0; s < stages; ++s) {
+    ftile::cp_async_wait<STAGES - 2>();
+    __syncthreads();  // stage s landed for all; slot (s-1) % STAGES is free
+    if (next < stages) load();
+    ftile::cp_async_commit();
+    const float* As = smem + (s % STAGES) * L::STAGE_FLOATS;
+    ftile::compute_stage<T, false>(As, As + L::A_FLOATS, warp_m, warp_n, lane, acc);
   }
 
   // Epilogue on the f32 accumulator, then the single store.
+  float sc[T::TN], sh[T::TN];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int m = m0 + ty * 4 + i;
+  for (int j = 0; j < T::TN; ++j) {
+    const int co = n0 + ftile::col_of<T>(warp_n, lane, j);
+    sc[j] = scale != nullptr && co < geo.cout ? scale[co] : 0.0f;
+    sh[j] = scale != nullptr && co < geo.cout ? shift[co] : 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < T::TM; ++i) {
+    const int m = m0 + ftile::row_of<T, false>(warp_m, lane, i);
     if (m >= M) continue;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int co = n0 + tx * 4 + j;
-      if (co >= g.cout) continue;
-      float z = acc[i][j];
-      if (scale != nullptr) z = z * scale[co] + shift[co];
-      const int o = m * g.cout + co;
-      if (residual != nullptr) z += residual[o];
-      if (relu) z = fmaxf(z, 0.0f);
-      out[o] = z;
+    for (int jj = 0; jj < T::TN; jj += 4) {
+      const int co = n0 + ftile::col_of<T>(warp_n, lane, jj);
+      const int o = m * geo.cout + co;
+      float res[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      if (geo.vec_out) {  // Cout % 4 == 0: a run of 4 is all in or all out
+        if (co >= geo.cout) continue;
+        if (residual != nullptr) {
+          const float4 r4 = *reinterpret_cast<const float4*>(residual + o);
+          res[0] = r4.x;
+          res[1] = r4.y;
+          res[2] = r4.z;
+          res[3] = r4.w;
+        }
+      } else if (residual != nullptr) {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (co + q < geo.cout) res[q] = residual[o + q];
+      }
+      float z[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        z[q] = acc[i][jj + q];
+        if (scale != nullptr) z[q] = z[q] * sc[jj + q] + sh[jj + q];
+        if (residual != nullptr) z[q] += res[q];
+        if (geo.relu) z[q] = fmaxf(z[q], 0.0f);
+      }
+      if (geo.vec_out) {
+        *reinterpret_cast<float4*>(out + o) = make_float4(z[0], z[1], z[2], z[3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (co + q < geo.cout) out[o + q] = z[q];
+      }
     }
   }
 }
 
+template <class T, int VEC>
+cudaError_t launch_forward(const float* x, const float* w, const float* scale,
+                           const float* shift, const float* residual, float* out,
+                           const ForwardGeo& geo, cudaStream_t s) {
+  using L = ftile::Layout<T, false>;
+  static bool smem_ok = false;
+  auto kernel = tap_conv_kernel<T, VEC>;
+  cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return err;
+  const long long m = static_cast<long long>(geo.n) * geo.oh * geo.ow;
+  const dim3 grid(static_cast<unsigned>((m + T::BM - 1) / T::BM),
+                  static_cast<unsigned>((geo.cout + T::BN - 1) / T::BN));
+  kernel<<<grid, T::THREADS, L::SMEM_BYTES, s>>>(x, w, scale, shift, residual, out, geo);
+  return cudaGetLastError();
+}
+
+template <class T>
+cudaError_t launch_forward_tile(bool vec4, const float* x, const float* w,
+                                const float* scale, const float* shift,
+                                const float* residual, float* out, const ForwardGeo& geo,
+                                cudaStream_t s) {
+  return vec4 ? launch_forward<T, 4>(x, w, scale, shift, residual, out, geo, s)
+              : launch_forward<T, 1>(x, w, scale, shift, residual, out, geo, s);
+}
+
 // ---------------------------------------------------------------------------
-// The input gradient (dgrad): its own kernel on the shared f32 tile core
-// (csrc/ffma_tile.cuh). Nothing above is used by it but the includes.
+// The input gradient (dgrad): its own kernel on the same f32 tile core.
 // ---------------------------------------------------------------------------
 
 constexpr int MAX_PHASES = 4;   // stride 2: the 4 parities of (iy, ix)
@@ -475,25 +582,33 @@ cudaError_t launch_dgrad_tile(bool vec4, const float* g, const float* w, float* 
 
 // Plain C entry point for ctypes. Pointers are device pointers; `scale` and
 // `shift` are both null (no affine step) or both set; `residual` may be
-// null. Returns 0 on a launch that was accepted, else the cudaError_t.
+// null. `tile` is the block tile (ops/tap_conv.py FORWARD_TILES, by id).
+// Returns 0 on a launch that was accepted, else the cudaError_t.
 extern "C" int tap_conv_forward(const float* x, const float* w,
                                 const float* scale, const float* shift,
                                 const float* residual, float* out, int n,
                                 int h, int w_in, int cin, int oh, int ow,
                                 int cout, int k, int stride, int pad_top,
-                                int pad_left, int relu, void* stream) {
+                                int pad_left, int relu, int tile, void* stream) {
   if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
       cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0 ||
-      (scale == nullptr) != (shift == nullptr)) {
+      tile < 0 || tile >= FORWARD_TILES || (scale == nullptr) != (shift == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const long long m = static_cast<long long>(n) * oh * ow;
-  const dim3 grid(static_cast<unsigned>((m + BM - 1) / BM),
-                  static_cast<unsigned>((cout + BN - 1) / BN));
-  const Geometry g{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left};
-  tap_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, scale, shift, residual, out, g, relu);
-  return static_cast<int>(cudaGetLastError());
+  const bool vec_out = cout % 4 == 0 && aligned16(out) &&
+                       (residual == nullptr || aligned16(residual));
+  const ForwardGeo geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left,
+                       relu, vec_out};
+  const bool vec4 = cin % 4 == 0 && cout % 4 == 0 && aligned16(x) && aligned16(w);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  switch (tile) {
+    case 0: err = launch_forward_tile<FTile0>(vec4, x, w, scale, shift, residual, out, geo, s); break;
+    case 1: err = launch_forward_tile<FTile1>(vec4, x, w, scale, shift, residual, out, geo, s); break;
+    case 2: err = launch_forward_tile<FTile2>(vec4, x, w, scale, shift, residual, out, geo, s); break;
+    default: err = launch_forward_tile<FTile3>(vec4, x, w, scale, shift, residual, out, geo, s); break;
+  }
+  return static_cast<int>(err);
 }
 
 // Input gradient of the conv above: `g` is (N,OH,OW,Cout), `w` the forward's
@@ -518,8 +633,7 @@ extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const DgradGeo geo{n, h, w_in, cin, oh, ow, cout, stride, cin % 4 == 0};
-  const bool vec4 = cout % 4 == 0 && reinterpret_cast<std::uintptr_t>(g) % 16 == 0 &&
-                    reinterpret_cast<std::uintptr_t>(w) % 16 == 0;
+  const bool vec4 = cout % 4 == 0 && aligned16(g) && aligned16(w);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   switch (tile) {

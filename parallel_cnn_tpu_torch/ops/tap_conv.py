@@ -180,7 +180,7 @@ def dgrad_phase_taps(h: int, w: int, k: int, stride: int) -> Tuple[DgradPhase, .
 #: Block tiles of the dgrad kernel (csrc/tap_conv.cu DTile0-1), by id:
 #: (pixels, channels) of the output tile a block owns.
 DGRAD_TILES = ((128, 128), (128, 64))
-#: SMs of the H100, each of which holds one dgrad block.
+#: SMs of the H100.
 SMS = 132
 _MAX_TAPS = 49
 _MAX_PHASES = 4
@@ -238,13 +238,48 @@ def _dgrad_table(n: int, phases, cin: int, tile: int):
     return (ctypes.c_int * len(vals))(*vals)
 
 
+#: Block tiles of the forward kernel (csrc/tap_conv.cu FTile0-3), by id:
+#: (pixels, channels) of the output tile a block owns. Tiles 0-2 keep 8×8
+#: or 8×4 outputs a thread; tile 3 keeps 4×4, for a depth of one stage.
+FORWARD_TILES = ((128, 128), (64, 64), (32, 64), (64, 64))
+#: Depth values a stage of the forward kernel (every FTile's BK).
+FORWARD_STAGE = 32
+
+
+def forward_blocks(n: int, oh: int, ow: int, cout: int, tile: int) -> Tuple[int, int]:
+    """The forward kernel's grid for this tile: (pixel tiles, channel
+    tiles), block (i, j) owning pixels [i·BM, (i+1)·BM) and channels
+    [j·BN, (j+1)·BN) of the (N·OH·OW, Cout) output, clipped at its edge."""
+    bm, bn = FORWARD_TILES[tile]
+    return -(-(n * oh * ow) // bm), -(-cout // bn)
+
+
+def forward_tile(n: int, oh: int, ow: int, cin: int, cout: int, k: int) -> int:
+    """The forward kernel's block tile for this shape. A depth k·k·Cin of
+    one stage (the CIFAR stem) takes tile 3; else the largest tile whose
+    grid still gives nearly every SM a block (128×128 only from 128 output
+    channels on, as a narrower Cout would leave half its columns empty),
+    else the smallest. (The rule read from a sweep of the tiles at every
+    ResNet-18 conv at batch 1, 4, 16, 64 and 128 on an H100; chip_smoke's
+    "time forward tiles" lines repeat it and say how far each pick is from
+    the fastest tile.) Every output sums the same terms in the same order
+    whatever its tile, so the tile may follow the batch."""
+    if k * k * cin <= FORWARD_STAGE:
+        return 3
+    for tile in ((0, 1) if cout >= 128 else (1,)):
+        mt, nt = forward_blocks(n, oh, ow, cout, tile)
+        if mt * nt >= 0.9 * SMS:
+            return tile
+    return 2
+
+
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
 
 _library = Library("tap_conv.cu", {
     "tap_conv_forward": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
     "tap_conv_dgrad": (
@@ -299,11 +334,12 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
     out = torch.empty(oshape, device=dev, dtype=torch.float32)
     _, pt, _ = same_pads(h, k, stride)
     _, pl, _ = same_pads(wd, k, stride)
+    tile = forward_tile(n, oshape[1], oshape[2], cin, cout, k)
     with torch.cuda.device(dev):
         err = lib.tap_conv_forward(
             _ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(residual),
             _ptr(out), n, h, wd, cin, oshape[1], oshape[2], cout, k, stride,
-            pt, pl, int(relu), launch_stream(dev),
+            pt, pl, int(relu), tile, launch_stream(dev),
         )
     raise_on_error("tap_conv", err)
     launches.add()

@@ -228,3 +228,194 @@ def test_wgrad_plan_fills_the_card_at_resnet18_b128(h, cin, cout, k, s):
     bm, bn = tap_wgrad.TILE
     blocks = -(-(k * k * cin) // bm) * -(-cout // bn) * plan.chunks
     assert blocks >= 2 * tap_conv.SMS  # two blocks of 128 threads an SM at least
+
+
+# ---------------------------------------------------------------------------
+# The forward kernel's plan (csrc/tap_conv.cu tap_conv_kernel): its block
+# tile (``forward_tile``) and grid (``forward_blocks``), and a plain model
+# of what its blocks gather and sum.
+# ---------------------------------------------------------------------------
+
+_shapes = dict(n=st.integers(1, 300), h=st.integers(1, 40), w=st.integers(1, 40),
+               cin=st.integers(1, 600), cout=st.integers(1, 600),
+               k=st.sampled_from(tap_conv.SUPPORTED_K), s=st.sampled_from([1, 2]))
+
+
+def _spans(total, size, tiles):
+    """The [lo, hi) ranges of ``tiles`` consecutive tiles of ``size``
+    clipped at ``total``."""
+    return [(i * size, min((i + 1) * size, total)) for i in range(tiles)]
+
+
+@settings(max_examples=200, deadline=None)
+@given(**_shapes)
+def test_forward_grid_covers_every_output_once(n, h, w, cin, cout, k, s):
+    """Blocks (i, j) own pixels [i·BM, (i+1)·BM) × channels [j·BN, (j+1)·BN)
+    of the (N·OH·OW, Cout) output: for the picked tile and every other,
+    each range is non-empty and together they tile each axis exactly, so
+    every (pixel, channel) output has one block."""
+    oh, ow = tap_conv.same_pads(h, k, s)[0], tap_conv.same_pads(w, k, s)[0]
+    pick = tap_conv.forward_tile(n, oh, ow, cin, cout, k)
+    assert 0 <= pick < len(tap_conv.FORWARD_TILES)
+    for tile, (bm, bn) in enumerate(tap_conv.FORWARD_TILES):
+        mt, nt = tap_conv.forward_blocks(n, oh, ow, cout, tile)
+        for total, size, tiles in ((n * oh * ow, bm, mt), (cout, bn, nt)):
+            spans = _spans(total, size, tiles)
+            assert all(lo < hi for lo, hi in spans)
+            assert spans[0][0] == 0 and spans[-1][1] == total
+            assert all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+
+
+class _TapCursor:
+    """The kernel's (dy, dx, ci) depth cursor, stepped as it steps."""
+
+    def __init__(self, d, cin, k):
+        t, self.ci = divmod(d, cin)
+        self.dy, self.dx = divmod(t, k)
+
+    def advance(self, by, cin, k):
+        self.ci += by
+        while self.ci >= cin:
+            self.ci -= cin
+            self.dx += 1
+            if self.dx == k:
+                self.dx, self.dy = 0, self.dy + 1
+
+
+def _depth_walk(k, cin, vec):
+    """[stage][slot] -> the HWIO depth index the kernel copies there (None
+    past K): copy group dk of a stage holds slots dk·vec .. dk·vec+vec−1,
+    from its cursor started at dk·vec and advanced a stage at a time."""
+    K = k * k * cin
+    stages = -(-K // tap_conv.FORWARD_STAGE)
+    walk = [[None] * tap_conv.FORWARD_STAGE for _ in range(stages)]
+    for dk in range(tap_conv.FORWARD_STAGE // vec):
+        cur = _TapCursor(dk * vec, cin, k)
+        for stage in range(stages):
+            if stage * tap_conv.FORWARD_STAGE + dk * vec < K:
+                for q in range(vec):
+                    walk[stage][dk * vec + q] = (cur.dy * k + cur.dx) * cin + cur.ci + q
+            cur.advance(tap_conv.FORWARD_STAGE, cin, k)
+    return walk
+
+
+@settings(max_examples=200, deadline=None)
+@given(k=st.sampled_from(tap_conv.SUPPORTED_K), cin=st.integers(1, 600), vec=st.sampled_from([1, 4]))
+def test_forward_depth_walk_sums_hwio_in_ascending_order(k, cin, vec):
+    """Read stage by stage, slot by slot, the kernel's copies list every
+    depth term k = (dy, dx, ci) once, ascending, then only padding: the
+    order every output sums in, whatever its tile (4-value copies need a
+    Cin the 4 divides, which the launch checks)."""
+    if vec == 4 and cin % 4:
+        cin += 4 - cin % 4
+    flat = [d for stage in _depth_walk(k, cin, vec) for d in stage]
+    K = k * k * cin
+    assert flat[:K] == list(range(K)) and all(d is None for d in flat[K:])
+
+
+def _tiled_forward(x, w, scale, shift, res, stride, relu, tile, vec):
+    """A plain model of the forward kernel at ``tile``: each block decodes
+    its pixels' origins, gathers x at the depth walk (zero in the SAME
+    padding and past the last pixel), and adds one product a depth step,
+    in walk order; then the epilogue. f32, a multiply and an add a step."""
+    n, h, wd, cin = x.shape
+    k, cout = w.shape[0], w.shape[3]
+    oh, pt, _ = tap_conv.same_pads(h, k, stride)
+    ow, pl, _ = tap_conv.same_pads(wd, k, stride)
+    M, K = n * oh * ow, k * k * cin
+    bm, bn = tap_conv.FORWARD_TILES[tile]
+    mt, nt = tap_conv.forward_blocks(n, oh, ow, cout, tile)
+    xp = torch.zeros((n, h + 2 * 7, wd + 2 * 7, cin))  # room for every tap
+    xp[:, 7:7 + h, 7:7 + wd] = x
+    wk = w.reshape(K, cout)
+    out = torch.empty((M, cout))
+    walk = [d for stage in _depth_walk(k, cin, vec) for d in stage]
+    for i in range(mt):
+        m = torch.arange(i * bm, (i + 1) * bm)
+        live = m < M
+        img, r = m // (oh * ow), m % (oh * ow)
+        iy0, ix0 = (r // ow) * stride - pt, (r % ow) * stride - pl
+        acc = torch.zeros((bm, cout))
+        for d in walk:
+            if d is None:
+                continue
+            t, ci = divmod(d, cin)
+            dy, dx = divmod(t, k)
+            iy, ix = iy0 + dy, ix0 + dx
+            inside = live & (iy >= 0) & (iy < h) & (ix >= 0) & (ix < wd)
+            a = torch.where(inside, xp[img.clamp(max=n - 1), iy.clamp(-7, h + 6) + 7,
+                                       ix.clamp(-7, wd + 6) + 7, ci], 0.0)
+            acc = acc + a[:, None] * wk[d][None, :]
+        for j in range(nt):
+            z = acc[live][:, j * bn:(j + 1) * bn]
+            out[m[live], j * bn:(j + 1) * bn] = z
+    z = out.reshape(n, oh, ow, cout) * scale + shift
+    if res is not None:
+        z = z + res
+    return torch.clamp_min(z, 0.0) if relu else z
+
+
+@settings(max_examples=8, deadline=None)
+@given(n=st.integers(1, 3), h=st.integers(1, 11), w=st.integers(1, 11),
+       cin=st.sampled_from([1, 3, 4, 8]), cout=st.integers(1, 12),
+       k=st.sampled_from(tap_conv.SUPPORTED_K), s=st.sampled_from([1, 2]),
+       residual=st.booleans(), relu=st.booleans(), seed=st.integers(0, 2**16))
+def test_tiled_forward_model_matches_jax_at_every_tile(n, h, w, cin, cout, k, s,
+                                                       residual, relu, seed):
+    """The kernel's plan at every tile gives the same bits (each output
+    sums the same terms in the same order), within 1e-5 of JAX's Pallas
+    ``conv2d_fused`` (interpret mode) and of the port's plain twin."""
+    rng = np.random.default_rng(seed)
+    oh, ow = -(-h // s), -(-w // s)
+    x = rng.standard_normal((n, h, w, cin)).astype(np.float32)
+    wt = (rng.standard_normal((k, k, cin, cout)) * 0.1).astype(np.float32)
+    scale = rng.uniform(0.5, 1.5, cout).astype(np.float32)
+    shift = (rng.standard_normal(cout) * 0.1).astype(np.float32)
+    res = rng.standard_normal((n, oh, ow, cout)).astype(np.float32) if residual else None
+    t = [None if a is None else torch.from_numpy(a) for a in (x, wt, scale, shift, res)]
+    vec = 4 if cin % 4 == 0 and cout % 4 == 0 else 1
+    outs = [_tiled_forward(*t, s, relu, tile, vec) for tile in range(len(tap_conv.FORWARD_TILES))]
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+    plain = tap_conv.conv2d_fused_plain(*t, stride=s, relu=relu)
+    np.testing.assert_allclose(outs[0].numpy(), plain.numpy(), atol=PHASED_ATOL)
+    ref = np.asarray(pallas_conv.conv2d_fused(x, wt, scale, shift, res, s, relu))
+    np.testing.assert_allclose(outs[0].numpy(), ref, atol=PHASED_ATOL)
+
+
+# (h, cin, cout, k, stride) -> the forward's tile at the serving buckets 1-64
+# and the zoo's 128: the stem's one-stage depth takes tile 3 throughout;
+# 128x128 (0) where Cout >= 128 and its grid fills the card, 64x64 (1)
+# where that grid does, else 32x64 (2).
+FORWARD_TILE_CASES = {
+    (32, 3, 64, 3, 1): (3, 3, 3, 3, 3, 3, 3, 3),
+    (32, 64, 64, 3, 1): (2, 2, 2, 1, 1, 1, 1, 1),
+    (32, 64, 128, 3, 2): (2, 2, 2, 2, 1, 1, 0, 0),
+    (32, 64, 128, 1, 2): (2, 2, 2, 2, 1, 1, 0, 0),
+    (16, 128, 128, 3, 1): (2, 2, 2, 2, 1, 1, 0, 0),
+    (16, 128, 256, 3, 2): (2, 2, 2, 2, 2, 1, 1, 0),
+    (16, 128, 256, 1, 2): (2, 2, 2, 2, 2, 1, 1, 0),
+    (8, 256, 256, 3, 1): (2, 2, 2, 2, 2, 1, 1, 0),
+    (8, 256, 512, 3, 2): (2, 2, 2, 2, 2, 2, 1, 1),
+    (8, 256, 512, 1, 2): (2, 2, 2, 2, 2, 2, 1, 1),
+    (4, 512, 512, 3, 1): (2, 2, 2, 2, 2, 2, 1, 1),
+}
+FORWARD_BATCHES = (1, 2, 4, 8, 16, 32, 64, 128)
+
+
+@pytest.mark.parametrize("geometry", FORWARD_TILE_CASES)
+def test_forward_tile_at_resnet18_buckets(geometry):
+    h, cin, cout, k, s = geometry
+    oh = -(-h // s)
+    picks = tuple(tap_conv.forward_tile(n, oh, oh, cin, cout, k) for n in FORWARD_BATCHES)
+    assert picks == FORWARD_TILE_CASES[geometry]
+    for n, tile in zip(FORWARD_BATCHES, picks):
+        mt, nt = tap_conv.forward_blocks(n, oh, oh, cout, tile)
+        if tile in (0, 1):  # a larger tile only where its grid fills the card
+            assert mt * nt >= 0.9 * tap_conv.SMS
+
+
+def test_forward_tiles_are_each_picked_on_the_serving_and_zoo_paths():
+    """Every tile of the kernel is reached at some ResNet-18 conv and batch
+    (so the card tests at these shapes hold each one)."""
+    picked = {t for row in FORWARD_TILE_CASES.values() for t in row}
+    assert picked == set(range(len(tap_conv.FORWARD_TILES)))

@@ -41,12 +41,14 @@ from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
+    GEOMETRIES,
     DOT_KERNELS,
     DOT_ROWS,
     PROBE_EXACT,
     PROBE_LAUNCHES,
     PROBE_RTOL,
     card_draw,
+    forward_at_tile,
     probe_kernel,
     probe_operands,
     resnet18_bucket_sizes,
@@ -73,6 +75,11 @@ CASES = [
 ]
 # f32 on both sides with TF32 off; weights scaled by 0.1 as in the JAX tests.
 ATOL = 1e-5
+# CASES and chip_smoke's GRAD_CASES shapes (Cin 3/20, Cout 10, odd sizes at
+# stride 2 with k 3, 5, 7): the forward's 4-byte copies and ragged edges.
+FORWARD_CASES = CASES + [c[1:] for c in SMOKE_GRAD_CASES]
+# The serving bucket ladder at max_batch 64 (serve/engine.py).
+BUCKETS = (1, 2, 4, 8, 16, 32, 64)
 
 
 @pytest.fixture
@@ -101,7 +108,7 @@ def _inputs(dev, b, h, w, cin, cout, k, s, residual, seed):
 
 
 @pytest.mark.parametrize("residual,relu", [(False, False), (True, True)])
-@pytest.mark.parametrize("b,h,w,cin,cout,k,s", CASES)
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", FORWARD_CASES)
 def test_kernel_matches_plain_on_card(card, b, h, w, cin, cout, k, s,
                                       residual, relu):
     x, wt, scale, shift, res = _inputs(card, b, h, w, cin, cout, k, s,
@@ -122,13 +129,47 @@ def test_conv2d_without_epilogue_on_card(card):
     np.testing.assert_allclose(got.cpu().numpy(), ref.cpu().numpy(), atol=ATOL)
 
 
-def test_kernel_is_batch_position_invariant_on_card(card):
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", FORWARD_CASES)
+def test_forward_every_tile_matches_plain_and_each_other_on_card(card, b, h, w, cin, cout,
+                                                                k, s):
+    """Each block tile of the forward, launched through the C entry, within
+    ATOL of the plain twin, and every tile's output equal bit for bit: the
+    tile changes no output's sum."""
+    x, wt, scale, shift, res = _inputs(card, b, h, w, cin, cout, k, s, True, b + h + cin)
+    outs = []
+    for tile in range(len(tap_conv.FORWARD_TILES)):
+        launch, out = forward_at_tile(x, wt, scale, shift, res, s, True, tile)
+        assert launch() == 0
+        outs.append(out)
+    ref = tap_conv.conv2d_fused_plain(x, wt, scale, shift, res, s, True)
+    torch.cuda.synchronize()
+    tol = ATOL * max(1.0, float(ref.abs().max()))
+    np.testing.assert_allclose(outs[0].cpu().numpy(), ref.cpu().numpy(), atol=tol)
+    assert all(torch.equal(o, outs[0]) for o in outs[1:])
+
+
+def test_forward_entry_refuses_an_unknown_tile_on_card(card):
+    x, wt, scale, shift, _ = _inputs(card, 2, 8, 8, 4, 8, 3, 1, False, 0)
+    for tile in (-1, len(tap_conv.FORWARD_TILES)):
+        assert forward_at_tile(x, wt, scale, shift, None, 1, True, tile)[0]() != 0
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=[g[0] for g in GEOMETRIES])
+def test_kernel_is_batch_position_invariant_on_card(card, geometry):
     """Bit-identical rows whatever the batch around them: the serving
-    bucket pads with zero rows and must not change a real row."""
-    x, wt, *_ = _inputs(card, 5, 16, 16, 64, 64, 3, 1, False, 3)
-    full = tap_conv.conv2d(x, wt, 1)
-    one = tap_conv.conv2d(x[3:4].contiguous(), wt, 1)
-    assert torch.equal(full[3:4], one)
+    bucket pads with zero rows and must not change a real row. At every
+    ResNet-18 conv, the last row of each serving bucket and row 37 of 64
+    equal the same row launched alone, though the tile differs with the
+    batch (``forward_tile``)."""
+    _, h, cin, cout, k, s, residual, relu, _ = geometry
+    x, wt, scale, shift, res = _inputs(card, 64, h, h, cin, cout, k, s, residual, h + cin)
+    rows = [(b, b - 1) for b in BUCKETS] + [(64, 37)]
+    for b, row in rows:
+        part = None if res is None else res[:b]
+        got = tap_conv.conv2d_fused(x[:b], wt, scale, shift, part, s, relu)
+        alone = tap_conv.conv2d_fused(x[row:row + 1], wt, scale, shift,
+                                      None if res is None else res[row:row + 1], s, relu)
+        assert torch.equal(got[row:row + 1], alone), (b, row)
 
 
 @pytest.mark.parametrize(
@@ -823,6 +864,42 @@ def test_probe_wrappers_raise_instead_of_falling_back(card, name, mutate, err):
     with pytest.raises(err):
         getattr(mosaic_probe, name)(*mutate(*args))
     assert counter.count == before
+
+
+# B15/B16's copy (csrc/mosaic_probe.cu copy_kernel): lengths around its
+# 16-byte body (1, 3, 5 are head and tail alone) and the probes' two sizes,
+# on views 0-3 floats past a 16-byte boundary for the source and for the
+# destination (equal offsets take the float4 body after a scalar head;
+# unequal ones the 4-byte copy).
+COPY_SIZES = (1, 3, 5, 73_728, 1_843_200)
+COPY_OFFSETS = [(0, 0), (1, 1), (2, 2), (3, 3), (1, 0), (0, 3), (2, 1)]
+
+
+@pytest.mark.parametrize("src_off,dst_off", COPY_OFFSETS)
+@pytest.mark.parametrize("n", COPY_SIZES)
+def test_probe_copy_is_bit_identical_at_any_offset_on_card(card, n, src_off, dst_off):
+    """Both copy entries write exactly x's n values into [dst_off,
+    dst_off + n) of a NaN-filled buffer and nothing around them, bit for
+    bit, on relaunch too; through the wrapper (a fresh, aligned output) the
+    result equals the plain twin and counts one launch a call."""
+    gen = torch.Generator(device="cuda").manual_seed(n + 4 * src_off + dst_off)
+    buf = torch.randn((n + 4,), generator=gen, device="cuda")
+    x = buf[src_off:src_off + n]
+    lib = mosaic_probe.build().get()
+    for entry in (lib.probe_lane_merge, lib.probe_lane_split):
+        for _ in range(2):
+            out = torch.full((n + 4,), float("nan"), device="cuda")
+            assert entry(x.data_ptr(), out[dst_off:].data_ptr(), n, launch_stream(card)) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out[dst_off:dst_off + n], x)
+            assert bool(torch.isnan(out[:dst_off]).all())
+            assert bool(torch.isnan(out[dst_off + n:]).all())
+    before = mosaic_probe.launches["lane_merge"].count
+    merged = mosaic_probe.lane_merge(x.view(1, 1, n))
+    assert torch.equal(merged, mosaic_probe.lane_merge_plain(x.view(1, 1, n)))
+    assert mosaic_probe.launches["lane_merge"].count == before + 1
+    split = mosaic_probe.lane_split(x.view(1, n), 1)
+    assert torch.equal(split, mosaic_probe.lane_split_plain(x.view(1, n), 1))
 
 
 # B20/B21 on the tensor cores (csrc/mosaic_probe.cu through csrc/wgmma_tile.cuh):

@@ -30,7 +30,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from parallel_cnn_tpu_torch.benches import kernel_mutants
+from parallel_cnn_tpu_torch.benches import checkout_ab, kernel_mutants
 from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.ops import _cuda_build, mosaic_probe
 from parallel_cnn_tpu_torch.utils.backend import NoGpuError
@@ -320,4 +320,11 @@ def test_kernel_mutants_without_a_card_raises_no_gpu_error(monkeypatch, capsys):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NoGpuError):
         kernel_mutants.main()
+    assert capsys.readouterr().out == ""
+
+
+def test_checkout_ab_without_a_card_raises_no_gpu_error(monkeypatch, capsys, tmp_path):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NoGpuError):
+        checkout_ab.main([str(tmp_path)])
     assert capsys.readouterr().out == ""
