@@ -792,13 +792,44 @@ def report_profile(label: str, kernels, wall_ms: float, steps: int, top: int = 8
     return us, ops, idle
 
 
+def device_launches(fn, calls: int = 50) -> str:
+    """The CUDA kernels that one call of fn runs, from torch.profiler's
+    device events over `calls` calls: each kernel's share of the calls,
+    taken against the kernel seen most often (the profiler starts tracing
+    a little after it is entered and misses the first few calls)."""
+    fn()
+    torch.cuda.synchronize()
+    counts = {}
+    for _ in range(3):  # a session now and then records no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {e.key: e.count for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA}
+        if counts:
+            break
+    if not counts:
+        return "not measured"
+    top = max(counts.values())
+    per_call = sum(c / top for c in counts.values())
+    names = ", ".join(k.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
+                      for k in counts)
+    return f"{per_call:.2f} ({names}; {top} of {calls} calls seen)"
+
+
 def time_lenet_kernels() -> dict:
     """B1 at batch 64, 128 and 1000 and B2 at 2343 and 2^20: kernel, plain
-    and (B2) library times beside the bound. Returns the main path's
-    shapes' numbers (B1 at batch 64, B2 at LeNet's 2343)."""
+    and (B2) library times beside the bound, and B1's CUDA launches a call.
+    Returns the main path's shapes' numbers (B1 at batch 64, B2 at LeNet's
+    2343)."""
     out = {}
     for n in (TRAIN_BATCH, 128, 1000):
         params, xs, ys = lenet_inputs(n, 100 + n)
+        if n == TRAIN_BATCH:
+            print(f"[smoke] lenet_fused b{n}: "
+                  f"{device_launches(lambda: lenet_fused.fused_value_and_ref_grads(params, xs, ys))}"
+                  " CUDA launches per wrapper call (torch.profiler)", flush=True)
         ms, call = time_call(lambda: lenet_fused.fused_value_and_ref_grads(
             params, xs, ys))
         with plain_reference():
@@ -1176,6 +1207,9 @@ def time_staged_kernels() -> dict:
         else:
             ms = cuda_ms(lambda: fn(*args), reps=50)
             lib_ms = cuda_ms(lib, reps=50) if lib is not None else None
+        if case.startswith("accum_matmul"):
+            note = (f"; {device_launches(lambda: fn(*args))} CUDA launches per "
+                    f"wrapper call (torch.profiler)")
         bound, by = staged_bound_ms(case.split("/")[0], args, as_tuple(fn(*args)))
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"[smoke] time staged {case:24s} b{TRAIN_BATCH}: kernel {ms:.5f} ms, "

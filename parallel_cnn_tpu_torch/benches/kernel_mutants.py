@@ -2,8 +2,10 @@
 ``pair_dot``, B21 ``two_dot``; ``csrc/mosaic_probe.cu`` and
 ``csrc/wgmma_tile.cuh``), the probes' copy (B15/B16, ``copy_kernel`` in
 ``csrc/mosaic_probe.cu``), the list form of the SGD-momentum update (B13,
-``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``) and
-the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``).
+``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``),
+the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``), the
+LeNet step kernel (B1, ``csrc/lenet_fused.cu``) and B9's contraction
+(``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
@@ -12,7 +14,8 @@ checkout (the port's package, ``chip_smoke.py``, ``tests/test_torch_cuda.py``
 and ``pyproject.toml``) in a temporary directory, never to the checkout
 itself; the copy builds its own kernels and runs the card tests selected by ``-k`` SELECT in a pytest process of its own, so a
 mutant that faults the
-card's context takes only its own copy down. The unmutated copy runs first.
+card's context takes only its own copy down. JOBS copies run at once; the
+lines come in MUTANTS' order, the unmutated copy first.
 One line per copy, ``[mutant] <name>: <failed> of <selected> card tests
 failed``, then the names of the failed tests. Exits non-zero where the
 unmutated copy fails a test or a mutant fails none. Needs the card: the card
@@ -21,6 +24,7 @@ tests skip without one, so the default device raises ``NoGpuError`` first.
 
 from __future__ import annotations
 
+import concurrent.futures
 import re
 import shutil
 import subprocess
@@ -34,11 +38,13 @@ ROOT = Path(__file__).resolve().parents[2]
 CSRC = "parallel_cnn_tpu_torch/csrc"
 COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
-#: The card tests each copy runs (pytest -k): the probes', B13's, B6's and
-#: the forward's (against its plain twin at every tile, across batch
-#: positions at every ResNet-18 conv).
+#: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
+#: forward's (against its plain twin at every tile, across batch positions
+#: at every ResNet-18 conv), B1's and B9's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
-          "or test_kernel_matches_plain")
+          "or test_kernel_matches_plain or lenet_fused or accum")
+#: Copies built and tested at once (each its own pytest process).
+JOBS = 3
 
 #: name -> (file under the root, the text replaced, its replacement); each
 #: text occurs exactly once in its file.
@@ -89,6 +95,29 @@ MUTANTS = {
         "const int K = geo.k * geo.k * geo.cin;\n  const int stages = (K + BK - 1) / BK - 1;"),
     "forward residual dropped": (
         f"{CSRC}/tap_conv.cu", "if (residual != nullptr) z[q] += res[q];", ""),
+    "B1 last warp's FC partial left out": (
+        f"{CSRC}/lenet_fused.cu", "for (int w = 1; w < IMG_WARPS; ++w) z += fc_part[w][lane];",
+        "for (int w = 1; w < IMG_WARPS - 1; ++w) z += fc_part[w][lane];"),
+    "B1 pass 2 drops the last image from g_w_f": (
+        f"{CSRC}/lenet_fused.cu", "for (int r = shard; r < nr; r += FW_SHARDS) {",
+        "for (int r = shard; r < nr - (ch + 1 == chunks); r += FW_SHARDS) {"),
+    "B1 last pool window dropped": (
+        f"{CSRC}/lenet_fused.cu", "has[k] = w < WINDOWS;", "has[k] = w < WINDOWS - 1;"),
+    "B1 unaligned image staged short": (
+        f"{CSRC}/lenet_fused.cu", "for (int i = tid; i < 784; i += IMG_THREADS) {",
+        "for (int i = tid; i < 780; i += IMG_THREADS) {"),
+    "B9 last row shard skipped": (
+        f"{CSRC}/lenet_staged.cu", "const int nrows = min(shard, rows - r0);",
+        "const int nrows = blockIdx.x + 1 == gridDim.x ? 0 : min(shard, rows - r0);"),
+    "B9 finish's last shard level dropped": (
+        f"{CSRC}/lenet_staged.cu", "for (int s = 1; s < shards; ++s) sum += red[s * outs + tid];",
+        "for (int s = 1; s < shards - 1; ++s) sum += red[s * outs + tid];"),
+    "B9 finish skips block 1's partial": (
+        f"{CSRC}/lenet_staged.cu", "for (int g = 1; g < static_cast<int>(gridDim.x); ++g)",
+        "for (int g = 2; g < static_cast<int>(gridDim.x); ++g)"),
+    "B9 ticket not wrapped to 0": (
+        f"{CSRC}/lenet_staged.cu", "atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1",
+        "atomicInc(ticket, gridDim.x) == gridDim.x - 1"),
 }
 
 
@@ -130,21 +159,29 @@ def run_card_tests(root: Path) -> tuple:
     return failed, sum(counts.values())
 
 
+def run_copy(name: str) -> tuple:
+    """(failed tests, tests selected) of a fresh copy with mutant ``name``
+    applied ("none": unmutated)."""
+    with tempfile.TemporaryDirectory(prefix="kernel_mutant_") as tmp:
+        root = Path(tmp)
+        copy_checkout(root)
+        if name != "none":
+            mutate(root, name)
+        return run_card_tests(root)
+
+
 def main() -> int:
     resolve_device("cuda")
     bad = []
-    for name in ("none", *MUTANTS):
-        with tempfile.TemporaryDirectory(prefix="kernel_mutant_") as tmp:
-            root = Path(tmp)
-            copy_checkout(root)
-            if name != "none":
-                mutate(root, name)
-            failed, selected = run_card_tests(root)
-        print(f"[mutant] {name}: {len(failed)} of {selected} card tests failed", flush=True)
-        for test in failed:
-            print(f"[mutant]   {test}", flush=True)
-        if (name == "none") == bool(failed):
-            bad.append(name)
+    names = ("none", *MUTANTS)
+    with concurrent.futures.ThreadPoolExecutor(JOBS) as ex:
+        for name, (failed, selected) in zip(names, ex.map(run_copy, names)):
+            print(f"[mutant] {name}: {len(failed)} of {selected} card tests failed",
+                  flush=True)
+            for test in failed:
+                print(f"[mutant]   {test}", flush=True)
+            if (name == "none") == bool(failed):
+                bad.append(name)
     if bad:
         print(f"[mutant] FAIL: {', '.join(bad)}", flush=True)
     return 1 if bad else 0

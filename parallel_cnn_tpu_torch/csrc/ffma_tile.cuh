@@ -84,6 +84,38 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// One level of warp_sum32: the lanes whose bit OFF is set keep values
+// [OFF, 2*OFF) and send [0, OFF) to lane ^ OFF; the others the reverse.
+// OFF is a template argument so that every index is a constant and v stays
+// in registers (with a loop over the levels, ptxas put v on the stack).
+template <int OFF>
+__device__ __forceinline__ void warp_sum_level(float (&v)[32], int lane) {
+  const bool upper = (lane & OFF) != 0;
+#pragma unroll
+  for (int i = 0; i < OFF; ++i) {
+    const float send = upper ? v[i] : v[i + OFF];
+    const float keep = upper ? v[i + OFF] : v[i];
+    v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+  }
+}
+
+// Sums v[k] over the warp's 32 lanes, for every k < 32; lane k returns the
+// sum of value k. Each level halves the values a lane carries and adds
+// what it receives to what it kept (kept + received). 31 shuffles, where a
+// butterfly over all 32 values takes 160; each sum pairs the lanes as the
+// xor butterfly does (16, 8, 4, 2, 1), and f32 addition commutes, so value
+// k's sum is bit for bit the butterfly's. The LeNet kernels' fixed warp
+// trees (csrc/lenet_fused.cu, B9 in csrc/lenet_staged.cu).
+__device__ __forceinline__ float warp_sum32(float (&v)[32]) {
+  const int lane = threadIdx.x & 31;
+  warp_sum_level<16>(v, lane);
+  warp_sum_level<8>(v, lane);
+  warp_sum_level<4>(v, lane);
+  warp_sum_level<2>(v, lane);
+  warp_sum_level<1>(v, lane);
+  return v[0];
+}
+
 // Row (within the block tile) of a thread's i-th accumulator row.
 template <class T, bool A_KMAJOR>
 __device__ __forceinline__ int row_of(int warp_m, int lane, int i) {

@@ -28,13 +28,11 @@
 // rounded on its own (__fmul_rn/__fadd_rn) as the plain PyTorch version
 // rounds them; B5's dot product runs k upward with fused multiply-adds.
 // B6 (below) sums its weight and bias grads over the batch in shards and a
-// fixed tree, and its input grad over o upward. B9 reduces up to 576n
-// rows: the rows are cut into fixed chunks of ACCUM_ROWS; a block stages
-// its chunk of a and b in shared memory, THREADS / (ka*kb) groups of
-// ka*kb threads each sum an interleaved share of its rows, the groups are
-// added in group order and the chunk's partial goes to scratch; a second
-// kernel sums the partials in chunk order. No float atomics anywhere: a
-// relaunch on the same inputs is bit-identical.
+// fixed tree, and its input grad over o upward. B9 (below) reduces up to
+// 576n rows in one launch: row shards a block, register tiles a warp, a
+// shuffle tree, and the blocks' partials summed by the last block to take
+// an integer ticket. No float atomics anywhere: a relaunch on the same
+// inputs is bit-identical.
 //
 // sigma(v) = 1 / (1 + expf(-v)) with IEEE expf and division (build without
 // --use_fast_math): the expression torch.sigmoid evaluates on a CUDA
@@ -49,8 +47,27 @@
 // B9's bytes are those of the im2col-fed product; the weight gradient it
 // serves needs only x and d_pre_c1, 1.09 MB (0.32 us), so a B9 that read x
 // directly would drop the host-side im2col and three quarters of its bound.
-// This first library aims at right and deterministic; the fused kernel
-// (csrc/lenet_fused.cu) is the fast path.
+// The fused kernel (csrc/lenet_fused.cu) is the fast path.
+//
+// B9 replaces `_accum_matmul_kernel`'s sequential row grid (a VMEM
+// accumulator carried from one grid step to the next) with one launch of
+// at most ACCUM_BLOCKS blocks, one an SM of an H100, each a shard of rows:
+//   - the grid comes from (rows, ka, kb) alone (accum_plan), so the order
+//     of every sum does too;
+//   - a block stages its rows in shared memory with 16-byte cp.async
+//     copies, two stages of up to 24 KB of a and b in flight, so all 132
+//     SMs pull from device memory at once: at the conv site at batch 64
+//     each moves 35 KB, one round trip;
+//   - a warp owns an ACCUM_TA x ACCUM_TB tile of the output, 32 registers
+//     a lane (8 + 4 shared loads a row for 32 fmas, against 2 a fma one
+//     output a thread), and its lanes take interleaved rows;
+//   - ftile::warp_sum32 finishes the tile in 31 shuffles;
+//   - the last block to take a ticket (an integer atomicInc that wraps to
+//     0, so nothing resets it between launches) stages the blocks'
+//     partials in shared memory and sums them, its threads split over
+//     outputs and block shards, then the shards in order. At batch 64 the
+//     bound of each site sits below a launch's latency (1.37 us and 0.28
+//     us): the launch and two dependent round trips set its time.
 //
 // B6 replaces `_fc_bwd_kernel` with two kinds of blocks in one launch (one
 // pallas_call in JAX):
@@ -97,7 +114,24 @@ constexpr int CONV = 3456;      // 6 maps x 24 x 24
 constexpr int LANES = 216;      // 6 maps x 6 x 6 pool outputs
 constexpr int TAPS = 16;        // 4 x 4 pool window
 constexpr int CLASSES = 10;
-constexpr int ACCUM_ROWS = 256; // rows per B9 chunk
+// B9: a warp's tile of ACCUM_TA x ACCUM_TB outputs (one register each, 32
+// a lane), at most ACCUM_BLOCKS blocks (one an SM of an H100 SXM), a
+// block's rows a multiple of ACCUM_ROW_ALIGN (so a block's a and b start
+// on a 16-byte boundary where the tensors do) and at least ACCUM_ROWS (one
+// a lane).
+constexpr int ACCUM_TA = 8;
+constexpr int ACCUM_TB = 4;
+constexpr int ACCUM_BLOCKS = 132;
+constexpr int ACCUM_ROW_ALIGN = 4;
+constexpr int ACCUM_ROWS = 32;
+constexpr int ACCUM_MAX_OUTS = 256;
+constexpr int ACCUM_MAX_COLS = 48;
+constexpr int ACCUM_SMEM_FLOATS = 48 * 1024 / 4;
+constexpr int ACCUM_MAX_THREADS = 512;  // 14 tiles at most within the limits
+// The last block's copy of every block's partial, and its shard sums.
+constexpr int ACCUM_MAX_SMEM_BYTES = 4 * (ACCUM_BLOCKS * ACCUM_MAX_OUTS + ACCUM_MAX_THREADS);
+static_assert(ACCUM_TA * ACCUM_TB == 32, "a lane a tile output after warp_sum32");
+static_assert(ACCUM_SMEM_FLOATS / (2 * ACCUM_MAX_COLS) >= 128, "two stages of 128 rows");
 
 // B6's gw/gb blocks: FC_SLAB feature columns a block (8 lanes across the
 // slab, FC_SLAB / 8 columns a lane; 8 beat 24 by 11-13% at batch 64 on an
@@ -372,52 +406,142 @@ sigma_prime_kernel(const float* __restrict__ d, const float* __restrict__ pre,
   out[idx] = d[idx] * s * (1.0f - s);
 }
 
-// B9 pass one: the partial sum over one chunk of rows of a[r,p] * b[r,q],
-// for every (p, q), into partials[chunk, p*kb + q].
-__global__ void __launch_bounds__(THREADS)
-accum_partial_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                     int rows, int ka, int kb, float* __restrict__ partials) {
-  extern __shared__ float smem[];  // ACCUM_ROWS*ka + ACCUM_ROWS*kb + THREADS
-  float* as = smem;
-  float* bs = as + ACCUM_ROWS * ka;
-  float* red = bs + ACCUM_ROWS * kb;
+// B9: out[p,q] = sum_r a[r,p] * b[r,q], one launch (accum_plan gives the
+// grid; dynamic shared memory holds the row stages, then the finish). Block g owns rows [g*shard, (g+1)*shard) and one warp a tile of
+// ACCUM_TA x ACCUM_TB outputs (tile w covers rows p0 = (w / tiles_b) *
+// ACCUM_TA and columns q0 = (w % tiles_b) * ACCUM_TB of out; a tile's
+// columns past ka or kb read column ka-1 or kb-1 and are dropped). The
+// block stages its rows into shared memory, stage_rows at a time, two
+// stages in flight, with cp.async (16-byte copies where a and b start on a
+// 16-byte boundary; a block's rows always do then). Lane l of a warp sums
+// rows g*shard + l + 32k, k ascending, one fmaf a term from 0;
+// ftile::warp_sum32 adds the 32 lanes. So block g's partial of (p, q) is
+// written by one lane. Then each block takes a ticket; the last block
+// copies every partial into shared memory and sums them: thread t < S*outs (S = blockDim / outs) sums partial g =
+// t / outs, + S, + 2S, ... of output t % outs in g order, and thread o adds
+// the S shard sums in shard order. Every order depends on (rows, ka, kb)
+// alone. The ticket is an integer atomicInc that wraps to 0 at the last
+// block, so it is 0 again for the next launch.
+__global__ void __launch_bounds__(ACCUM_MAX_THREADS)
+accum_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b, int rows,
+                    int ka, int kb, int shard, int stage_rows,
+                    float* __restrict__ partials, unsigned* __restrict__ ticket,
+                    float* __restrict__ out) {
+  extern __shared__ __align__(16) float smem[];  // 2 row stages; then the finish's
+  __shared__ bool last;
   const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * ACCUM_ROWS;
-  const int nr = min(ACCUM_ROWS, rows - r0);
-  const float* ag = a + static_cast<long long>(r0) * ka;
-  const float* bg = b + static_cast<long long>(r0) * kb;
-  for (int i = tid; i < nr * ka; i += THREADS) as[i] = ag[i];
-  for (int i = tid; i < nr * kb; i += THREADS) bs[i] = bg[i];
-  __syncthreads();
-
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int tiles_b = (kb + ACCUM_TB - 1) / ACCUM_TB;
+  const int p0 = (warp / tiles_b) * ACCUM_TA;
+  const int q0 = (warp % tiles_b) * ACCUM_TB;
+  const int r0 = blockIdx.x * shard;
+  const int nrows = min(shard, rows - r0);
   const int outs = ka * kb;
-  const int groups = THREADS / outs;
-  const int g = tid / outs;
-  const int o = tid - g * outs;
-  float acc = 0.0f;
-  if (g < groups) {
-    const int p = o / kb;
-    const int q = o - p * kb;
-    for (int r = g; r < nr; r += groups) acc = fmaf(as[r * ka + p], bs[r * kb + q], acc);
+  const bool avec = aligned16(a);
+  const bool bvec = aligned16(b);
+
+  int pc[ACCUM_TA], qc[ACCUM_TB];
+#pragma unroll
+  for (int p = 0; p < ACCUM_TA; ++p) pc[p] = min(p0 + p, ka - 1);
+#pragma unroll
+  for (int q = 0; q < ACCUM_TB; ++q) qc[q] = min(q0 + q, kb - 1);
+
+  const int stage_floats = stage_rows * (ka + kb);
+  const int stages = (nrows + stage_rows - 1) / stage_rows;
+  auto copy = [&](float* dst, const float* src, int count, bool vec) {
+    const int quads = vec ? count / 4 : 0;
+    for (int i = tid; i < quads; i += blockDim.x) ftile::cp_async16(dst + 4 * i, src + 4 * i, true);
+    for (int i = 4 * quads + tid; i < count; i += blockDim.x) ftile::cp_async4(dst + i, src + i, true);
+  };
+  auto stage = [&](int st) {
+    const int base = r0 + st * stage_rows;
+    const int nr = min(stage_rows, r0 + nrows - base);
+    float* as = smem + (st & 1) * stage_floats;
+    copy(as, a + static_cast<long long>(base) * ka, nr * ka, avec);
+    copy(as + stage_rows * ka, b + static_cast<long long>(base) * kb, nr * kb, bvec);
+    ftile::cp_async_commit();
+  };
+
+  float acc[ACCUM_TA * ACCUM_TB];
+#pragma unroll
+  for (int k = 0; k < ACCUM_TA * ACCUM_TB; ++k) acc[k] = 0.0f;
+  stage(0);
+  for (int st = 0; st < stages; ++st) {
+    if (st + 1 < stages) {
+      stage(st + 1);
+      ftile::cp_async_wait<1>();
+    } else {
+      ftile::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* as = smem + (st & 1) * stage_floats;
+    const float* bs = as + stage_rows * ka;
+    const int nr = min(stage_rows, nrows - st * stage_rows);
+    for (int r = lane; r < nr; r += 32) {
+      float av[ACCUM_TA], bv[ACCUM_TB];
+#pragma unroll
+      for (int p = 0; p < ACCUM_TA; ++p) av[p] = as[r * ka + pc[p]];
+#pragma unroll
+      for (int q = 0; q < ACCUM_TB; ++q) bv[q] = bs[r * kb + qc[q]];
+#pragma unroll
+      for (int p = 0; p < ACCUM_TA; ++p)
+#pragma unroll
+        for (int q = 0; q < ACCUM_TB; ++q)
+          acc[p * ACCUM_TB + q] = fmaf(av[p], bv[q], acc[p * ACCUM_TB + q]);
+    }
+    __syncthreads();  // the stage after next overwrites this one
   }
-  red[tid] = acc;
+
+  const float v = ftile::warp_sum32(acc);
+  const int p = p0 + lane / ACCUM_TB;
+  const int q = q0 + lane % ACCUM_TB;
+  if (p < ka && q < kb) partials[static_cast<long long>(blockIdx.x) * outs + p * kb + q] = v;
+  __syncthreads();  // the block's partial is written; thread 0's fence then
+  if (tid == 0) {   // makes it visible at device scope before the ticket
+    __threadfence();
+    last = atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1;
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+
+  // Every block's partial into shared memory at once (one round trip; a
+  // thread summing them from L2 one after another waits a round trip
+  // each), then the sums from there.
+  const int total = static_cast<int>(gridDim.x) * outs;
+  float* parts = smem;
+  const int quads = aligned16(partials) ? total / 4 : 0;
+  for (int i = tid; i < quads; i += blockDim.x)
+    ftile::cp_async16(parts + 4 * i, partials + 4 * i, true);
+  for (int i = 4 * quads + tid; i < total; i += blockDim.x) parts[i] = __ldcg(partials + i);
+  ftile::cp_async_commit();
+  ftile::cp_async_wait<0>();
+  __syncthreads();
+  const int shards = blockDim.x / outs;
+  if (shards <= 1) {
+    for (int o = tid; o < outs; o += blockDim.x) {
+      float sum = parts[o];
+      for (int g = 1; g < static_cast<int>(gridDim.x); ++g) sum += parts[g * outs + o];
+      out[o] = sum;
+    }
+    return;
+  }
+  float* red = parts + total;  // shards x outs <= blockDim floats
+  if (tid < shards * outs) {
+    const int o = tid % outs;
+    const int s = tid / outs;
+    float sum = 0.0f;
+    for (int g = s; g < static_cast<int>(gridDim.x); g += shards)
+      sum = g == s ? parts[g * outs + o] : sum + parts[g * outs + o];
+    red[tid] = sum;
+  }
   __syncthreads();
   if (tid < outs) {
     float sum = red[tid];
-    for (int gg = 1; gg < groups; ++gg) sum += red[gg * outs + tid];
-    partials[static_cast<long long>(blockIdx.x) * outs + tid] = sum;
+    for (int s = 1; s < shards; ++s) sum += red[s * outs + tid];
+    out[tid] = sum;
   }
-}
-
-// B9 pass two: out[o] = sum of the chunks' partials of o, in chunk order.
-__global__ void __launch_bounds__(THREADS)
-accum_finish_kernel(const float* __restrict__ partials, int chunks, int outs,
-                    float* __restrict__ out) {
-  const int o = blockIdx.x * THREADS + threadIdx.x;
-  if (o >= outs) return;
-  float acc = 0.0f;
-  for (int c = 0; c < chunks; ++c) acc += partials[static_cast<long long>(c) * outs + o];
-  out[o] = acc;
 }
 
 int launched() { return static_cast<int>(cudaGetLastError()); }
@@ -484,33 +608,67 @@ extern "C" int lenet_sigma_prime(const float* d, const float* pre, float* out,
   return launched();
 }
 
-// a (rows, ka), b (rows, kb), partials (ceil(rows / ACCUM_ROWS), ka*kb),
-// out (ka, kb). The one place B9's limits are kept: 1 <= rows <= INT_MAX -
-// ACCUM_ROWS (row indices stay int), ka*kb <= THREADS, and (ka + kb) *
-// ACCUM_ROWS floats of staged rows in the 48 KB of shared memory a launch
-// gets unasked. Anything else is refused with cudaErrorInvalidValue.
+// B9's grid from the shape alone: shard rows a block (a multiple of
+// ACCUM_ROW_ALIGN, at least ACCUM_ROWS, so that at most ACCUM_BLOCKS blocks
+// cover the rows), the blocks, and the rows a stage (two stages of a and b
+// in the 48 KB of shared memory a launch gets unasked, a multiple of 32).
+// ops/lenet_staged.py's accum_plan is the same function.
+static void accum_plan(int rows, int ka, int kb, int* shard, int* blocks, int* stage_rows) {
+  long long s = (static_cast<long long>(rows) + ACCUM_BLOCKS - 1) / ACCUM_BLOCKS;
+  s = (s + ACCUM_ROW_ALIGN - 1) / ACCUM_ROW_ALIGN * ACCUM_ROW_ALIGN;
+  *shard = static_cast<int>(s < ACCUM_ROWS ? ACCUM_ROWS : s);
+  *blocks = static_cast<int>((static_cast<long long>(rows) + *shard - 1) / *shard);
+  *stage_rows = ACCUM_SMEM_FLOATS / (2 * (ka + kb)) / 32 * 32;
+}
+
+// a (rows, ka), b (rows, kb), partials (blocks, ka*kb) f32, ticket one
+// unsigned int that is 0 (the launch leaves it 0), out (ka, kb). The one
+// place B9's limits are kept: 1 <= rows <= INT_MAX, ka, kb >= 1, ka*kb <=
+// 256 and ka + kb <= 48 (two stages of 128 rows in 48 KB of shared
+// memory). Anything else is refused with cudaErrorInvalidValue.
 extern "C" int lenet_accum_matmul(const float* a, const float* b, long long rows,
-                                  long long ka, long long kb, float* partials, float* out,
-                                  void* stream) {
-  if (rows <= 0 || rows > INT_MAX - ACCUM_ROWS || ka <= 0 || kb <= 0 || ka * kb > THREADS ||
-      sizeof(float) * (ACCUM_ROWS * (ka + kb) + THREADS) > 48 * 1024)
+                                  long long ka, long long kb, float* partials,
+                                  unsigned* ticket, float* out, void* stream) {
+  if (rows <= 0 || rows > INT_MAX || ka <= 0 || kb <= 0 || ka * kb > ACCUM_MAX_OUTS ||
+      ka + kb > ACCUM_MAX_COLS)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int outs = static_cast<int>(ka * kb);
-  const size_t smem = sizeof(float) * (ACCUM_ROWS * (ka + kb) + THREADS);
-  const int chunks = static_cast<int>((rows + ACCUM_ROWS - 1) / ACCUM_ROWS);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  accum_partial_kernel<<<chunks, THREADS, smem, s>>>(a, b, static_cast<int>(rows),
-                                                     static_cast<int>(ka),
-                                                     static_cast<int>(kb), partials);
-  const cudaError_t e = cudaGetLastError();
-  if (e != cudaSuccess) return static_cast<int>(e);
-  accum_finish_kernel<<<1, THREADS, 0, s>>>(partials, chunks, outs, out);
+  int shard, blocks, stage_rows;
+  accum_plan(static_cast<int>(rows), static_cast<int>(ka), static_cast<int>(kb), &shard,
+             &blocks, &stage_rows);
+  const int tiles = static_cast<int>((ka + ACCUM_TA - 1) / ACCUM_TA * ((kb + ACCUM_TB - 1) / ACCUM_TB));
+  // Shared memory: the row stages, or the last block's copy of every
+  // partial with the shard sums after it, whichever is larger.
+  const long long finish = static_cast<long long>(blocks) * ka * kb + 32 * tiles;
+  const long long staged = 2LL * stage_rows * (ka + kb);
+  const size_t smem = sizeof(float) * (finish > staged ? finish : staged);
+  static bool smem_ok = false;
+  const cudaError_t err = ftile::allow_smem(accum_matmul_kernel, ACCUM_MAX_SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  accum_matmul_kernel<<<blocks, 32 * tiles, smem, static_cast<cudaStream_t>(stream)>>>(
+      a, b, static_cast<int>(rows), static_cast<int>(ka), static_cast<int>(kb), shard,
+      stage_rows, partials, ticket, out);
   return launched();
 }
 
+// B9's grid for (rows, ka, kb), for the wrapper's check of its own plan:
+// out = {shard, blocks, stage_rows, threads}. Returns 0, or
+// cudaErrorInvalidValue for a shape lenet_accum_matmul refuses.
+extern "C" int lenet_accum_plan(long long rows, long long ka, long long kb, int* out) {
+  if (rows <= 0 || rows > INT_MAX || ka <= 0 || kb <= 0 || ka * kb > ACCUM_MAX_OUTS ||
+      ka + kb > ACCUM_MAX_COLS)
+    return static_cast<int>(cudaErrorInvalidValue);
+  accum_plan(static_cast<int>(rows), static_cast<int>(ka), static_cast<int>(kb), &out[0],
+             &out[1], &out[2]);
+  out[3] = static_cast<int>(32 * ((ka + ACCUM_TA - 1) / ACCUM_TA) * ((kb + ACCUM_TB - 1) / ACCUM_TB));
+  return 0;
+}
+
 // The layout constants the wrapper sizes its tensors by, for its check:
-// i = 0..5 gives IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS; else -1.
+// i = 0..5 gives IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS, and 6..10
+// B9's plan constants ACCUM_TA, ACCUM_TB, ACCUM_BLOCKS, ACCUM_ROW_ALIGN,
+// ACCUM_SMEM_FLOATS; else -1.
 extern "C" int lenet_staged_dim(int i) {
-  const int dims[] = {IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS};
-  return (i >= 0 && i < 6) ? dims[i] : -1;
+  const int dims[] = {IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS, ACCUM_TA, ACCUM_TB,
+                      ACCUM_BLOCKS, ACCUM_ROW_ALIGN, ACCUM_SMEM_FLOATS};
+  return (i >= 0 && i < 11) ? dims[i] : -1;
 }

@@ -38,15 +38,19 @@ Params = reference.Params
 LEAVES = (("c1", "b"), ("c1", "w"), ("f", "b"), ("f", "w"), ("s1", "b"), ("s1", "w"))
 N_GRADS = 2343
 ROW = N_GRADS + 1  # the grads, then err
+#: One image's row of pass 1 in the workspace (s1, d_pre_f, err, the conv
+#: and pool grads; csrc/lenet_fused.cu's ROW_PASS1).
+ROW_PASS1 = 404
 
-#: Launches of the fused train-step kernel (one per call on a CUDA tensor).
+#: Launches of the fused train-step kernel (one per call on a CUDA tensor;
+#: the call is two CUDA launches, the per-image pass and the batch sum).
 launches = LaunchCounter()
 
 _library = Library("lenet_fused.cu", {
     "lenet_fused_step": ([ctypes.c_void_p] * 10 + [ctypes.c_int, ctypes.c_void_p],
                          ctypes.c_int),
-    "lenet_fused_row": ([], ctypes.c_int),
-})
+    "lenet_fused_dim": ([ctypes.c_int], ctypes.c_int),
+}, headers=("ffma_tile.cuh",))
 
 
 def build() -> Library:
@@ -97,11 +101,12 @@ def _launch(params: Params, xs: torch.Tensor,
         check_operand(f"{layer}/{name}", params[layer][name], dev,
                       SHAPES[layer][name], torch.float32)
     lib = _library.get()
-    if lib.lenet_fused_row() != ROW:
-        raise RuntimeError("csrc/lenet_fused.cu and its wrapper disagree on the row width")
+    if (lib.lenet_fused_dim(0), lib.lenet_fused_dim(1)) != (ROW, ROW_PASS1):
+        raise RuntimeError("csrc/lenet_fused.cu and its wrapper disagree on the row widths")
     with torch.cuda.device(dev):
-        workspace = torch.empty((n, ROW), device=dev, dtype=torch.float32)
-        out = torch.empty((ROW,), device=dev, dtype=torch.float32)
+        # One allocation: the (n, ROW_PASS1) workspace, then the output row.
+        buf = torch.empty((n * ROW_PASS1 + ROW,), device=dev, dtype=torch.float32)
+        workspace, out = buf[:n * ROW_PASS1], buf[n * ROW_PASS1:]
         p = {key: params[key[0]][key[1]].data_ptr() for key in LEAVES}
         err = lib.lenet_fused_step(
             xs.data_ptr(), ys.data_ptr(),

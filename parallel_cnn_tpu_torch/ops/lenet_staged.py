@@ -31,15 +31,19 @@ kernel. The batch needs no padding: a CUDA grid takes any n ≥ 1.
 (``torch.sigmoid``, which computes that expression on a CUDA tensor).
 
 A forward is 3 launches (B3, B4, B5); ``staged_value_and_ref_grads`` 8
-(B3, B4, B5, B6, B7, B9, B8, B9).
+(B3, B4, B5, B6, B7, B9, B8, B9). Each is one CUDA launch: B9 finishes its
+sum over blocks in its last block to arrive (``accum_plan``,
+``accum_matmul_order``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+import threading
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from parallel_cnn_tpu_torch.ops import reference
@@ -62,13 +66,19 @@ KERNELS = ("conv_fwd", "pool_fwd", "fc_fwd", "fc_bwd", "pool_bwd",
 #: Launches of each kernel (one per wrapper call on a CUDA tensor).
 launches = {name: LaunchCounter() for name in KERNELS}
 
-#: (image pixels, conv outputs, pool lanes, pool taps, classes, rows per B9
-#: chunk): the constants the kernels index by, checked against the library.
-LAYOUT = (784, 3456, 216, 16, 10, 256)
+#: (image pixels, conv outputs, pool lanes, pool taps, classes, the least
+#: rows of a B9 block): the constants the kernels index by, checked against
+#: the library.
+LAYOUT = (784, 3456, 216, 16, 10, 32)
 ACCUM_ROWS = LAYOUT[5]
+#: B9's plan constants (csrc/lenet_staged.cu): a warp's output tile
+#: ACCUM_TA x ACCUM_TB, at most ACCUM_BLOCKS blocks, a block's rows a
+#: multiple of ACCUM_ROW_ALIGN, two stages of rows in ACCUM_SMEM_FLOATS.
+ACCUM_CONSTS = (8, 4, 132, 4, 12288)
+ACCUM_TA, ACCUM_TB, ACCUM_BLOCKS, ACCUM_ROW_ALIGN, ACCUM_SMEM_FLOATS = ACCUM_CONSTS
 # What lenet_accum_matmul refuses with cudaErrorInvalidValue.
-_ACCUM_LIMITS = ("needs 1 <= rows <= 2^31 - 257, ka*kb <= 256 and "
-                 "ka + kb <= 47 (256 rows of each column in 48 KB of shared memory)")
+_ACCUM_LIMITS = ("needs 1 <= rows <= 2^31 - 1, ka*kb <= 256 and "
+                 "ka + kb <= 48 (two stages of 128 rows in 48 KB of shared memory)")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -80,7 +90,8 @@ _library = Library("lenet_staged.cu", {
     "lenet_fc_bwd": ([_P] * 6 + [_I, _P], _I),
     "lenet_pool_bwd": ([_P] * 5 + [_I, _P], _I),
     "lenet_sigma_prime": ([_P] * 3 + [_I, _P], _I),
-    "lenet_accum_matmul": ([_P, _P, _L, _L, _L, _P, _P, _P], _I),
+    "lenet_accum_matmul": ([_P, _P, _L, _L, _L, _P, _P, _P, _P], _I),
+    "lenet_accum_plan": ([_L, _L, _L, _P], _I),
     "lenet_staged_dim": ([_I], _I),
 }, headers=("ffma_tile.cuh",))
 
@@ -98,9 +109,10 @@ def _lib():
     """The loaded library, its layout checked once (a failed check is not
     cached, so every later launch raises too)."""
     lib = _library.get()
-    got = tuple(lib.lenet_staged_dim(i) for i in range(len(LAYOUT)))
-    if got != LAYOUT:
-        raise RuntimeError(f"csrc/lenet_staged.cu has layout {got}, its wrapper {LAYOUT}")
+    want = LAYOUT + ACCUM_CONSTS
+    got = tuple(lib.lenet_staged_dim(i) for i in range(len(want)))
+    if got != want:
+        raise RuntimeError(f"csrc/lenet_staged.cu has layout {got}, its wrapper {want}")
     return lib
 
 
@@ -285,9 +297,101 @@ def _accum_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a.T @ b
 
 
+class AccumPlan(NamedTuple):
+    """B9's grid for one shape: ``shard`` rows a block, ``blocks``,
+    ``stage_rows`` a stage of shared memory, ``threads`` a block (one warp
+    per ACCUM_TA × ACCUM_TB output tile)."""
+
+    shard: int
+    blocks: int
+    stage_rows: int
+    threads: int
+
+
+def accum_plan(rows: int, ka: int, kb: int) -> AccumPlan:
+    """B9's grid from the shape alone (csrc/lenet_staged.cu's accum_plan):
+    the fewest rows a block, a multiple of ACCUM_ROW_ALIGN and at least
+    ACCUM_ROWS, that cover ``rows`` with at most ACCUM_BLOCKS blocks."""
+    shard = -(-rows // ACCUM_BLOCKS)
+    shard = max(ACCUM_ROWS, -(-shard // ACCUM_ROW_ALIGN) * ACCUM_ROW_ALIGN)
+    tiles = -(-ka // ACCUM_TA) * -(-kb // ACCUM_TB)
+    return AccumPlan(shard, -(-rows // shard),
+                     ACCUM_SMEM_FLOATS // (2 * (ka + kb)) // 32 * 32, 32 * tiles)
+
+
+def fma_f32(a: np.ndarray, b: np.ndarray, c: np.ndarray) -> np.ndarray:
+    """fmaf(a, b, c) on f32 numpy arrays, rounded once: a·b is exact in f64,
+    TwoSum gives the f64 sum's error, and that error decides the one case
+    where rounding the f64 sum to f32 could round the wrong way (the sum
+    lying exactly halfway between two f32 values)."""
+    p = a.astype(np.float64) * b.astype(np.float64)
+    c = c.astype(np.float64)
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    r = s.astype(np.float32)
+    other = np.nextafter(r, np.where(s > r.astype(np.float64), np.inf, -np.inf)
+                         .astype(np.float32))
+    tie = (r.astype(np.float64) + other.astype(np.float64)) / 2 == s
+    up, down = np.maximum(r, other), np.minimum(r, other)
+    return np.where(tie & (err > 0), up, np.where(tie & (err < 0), down, r))
+
+
+def accum_matmul_order(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """B9's result as the kernel sums it, in float32 numpy: the same fixed
+    order, so the card's output equals this bit for bit. Block g's lane l
+    sums rows g·shard + l + 32k, k ascending, one fmaf a term from 0; the
+    32 lanes add in the xor butterfly's pairing (16, 8, 4, 2, 1); the last
+    block sums the blocks' partials in S = threads // (ka·kb) shards (shard
+    s takes blocks s, s+S, … in order), then the shards in order."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = np.ascontiguousarray(b, np.float32)
+    (rows, ka), kb = a.shape, b.shape[1]
+    plan = accum_plan(rows, ka, kb)
+    g = np.arange(plan.blocks)[:, None]
+    lane = np.arange(32)[None, :]
+    acc = np.zeros((plan.blocks, 32, ka, kb), np.float32)
+    for k in range(-(-plan.shard // 32)):
+        off = lane + 32 * k
+        r = g * plan.shard + off
+        valid = ((off < plan.shard) & (r < rows))[:, :, None, None]
+        r = np.where(valid[:, :, 0, 0], r, 0)
+        acc = np.where(valid, fma_f32(a[r][:, :, :, None], b[r][:, :, None, :], acc), acc)
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, np.arange(32) ^ off]
+    part = acc[:, 0].reshape(plan.blocks, ka * kb)
+    shards = max(1, plan.threads // (ka * kb))
+    red = []
+    for s in range(shards):
+        total = np.zeros(ka * kb, np.float32)
+        for blk in range(s, plan.blocks, shards):
+            total = part[blk].copy() if blk == s else total + part[blk]
+        red.append(total)
+    out = red[0]
+    for total in red[1:]:
+        out = out + total
+    return out.reshape(ka, kb)
+
+
+_tickets: Dict[Tuple[int, int], torch.Tensor] = {}
+_tickets_lock = threading.Lock()
+
+
+def _ticket(dev: torch.device, stream: int) -> torch.Tensor:
+    """B9's ticket for launches on ``stream``: one int32, zeroed once here
+    and left 0 by every launch (its last block wraps it). One a stream, so
+    launches that may run at once never share one."""
+    key = (dev.index, stream)
+    with _tickets_lock:
+        t = _tickets.get(key)
+        if t is None:
+            t = _tickets[key] = torch.zeros(1, device=dev, dtype=torch.int32)
+        return t
+
+
 def _accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(N,ka),(N,kb) → (ka,kb) = Σ_r a[r,:]ᵀ b[r,:]: on the card, fixed
-    chunks of ACCUM_ROWS rows into scratch, then the chunks in order."""
+    """(N,ka),(N,kb) → (ka,kb) = Σ_r a[r,:]ᵀ b[r,:]: on the card one launch,
+    summing in accum_matmul_order's fixed order."""
     if not on_cuda("accum_matmul", a):
         return _accum_matmul_plain(a, b)
     if a.dim() != 2 or b.dim() != 2:
@@ -296,11 +400,15 @@ def _accum_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     dev = a.device
     check_operand("a", a, dev, (rows, ka), F32)
     check_operand("b", b, dev, (rows, kb), F32)
-    chunks = -(-rows // ACCUM_ROWS)
-    partials, out = _empty(dev, chunks, ka * kb), _empty(dev, ka, kb)
-    _launch("accum_matmul", dev, lambda lib, s: lib.lenet_accum_matmul(
-        a.data_ptr(), b.data_ptr(), rows, ka, kb, partials.data_ptr(), out.data_ptr(), s),
-        _ACCUM_LIMITS)
+    plan = accum_plan(max(rows, 1), max(ka, 1), max(kb, 1))  # sizes; C checks limits
+    partials, out = _empty(dev, plan.blocks, ka * kb), _empty(dev, ka, kb)
+
+    def call(lib, s):
+        return lib.lenet_accum_matmul(a.data_ptr(), b.data_ptr(), rows, ka, kb,
+                                      partials.data_ptr(), _ticket(dev, s).data_ptr(),
+                                      out.data_ptr(), s)
+
+    _launch("accum_matmul", dev, call, _ACCUM_LIMITS)
     return out
 
 

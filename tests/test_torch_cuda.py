@@ -41,6 +41,7 @@ from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
+    B9_SITES,
     GEOMETRIES,
     DOT_KERNELS,
     DOT_ROWS,
@@ -53,6 +54,7 @@ from chip_smoke import (
     probe_operands,
     resnet18_bucket_sizes,
     stage_cases,
+    STAGED_SIZES,
 )
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
@@ -222,19 +224,43 @@ def _lenet_inputs(dev, n, seed):
     return params, xs, ys
 
 
-@pytest.mark.parametrize("n", [1, 7, 64, 130])
+# Batches around a warp's 32 and the finish's 32 and 8 batch shards, the
+# path's 64, 128 and 1000, and 4097 past every power of two the grids use.
+LENET_FUSED_SIZES = [1, 2, 7, 63, 64, 65, 128, 130, 1000, 4097]
+
+
+@pytest.mark.parametrize("n", LENET_FUSED_SIZES)
 def test_lenet_fused_matches_plain_on_card(card, n):
+    """B1 against its plain version (f32; sums in other orders, relative to
+    each leaf's scale), and a relaunch bit for bit."""
     params, xs, ys = _lenet_inputs(card, n, n)
     before = lenet_fused.launches.count
     err, grads = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    err2, grads2 = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
     torch.cuda.synchronize()
-    assert lenet_fused.launches.count == before + 1
+    assert lenet_fused.launches.count == before + 2
+    assert torch.equal(err, err2)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(grads2)))
     ref_err, ref = lenet_fused.fused_value_and_ref_grads_plain(params, xs, ys)
     assert abs(float(err) - float(ref_err)) <= LENET_RTOL * max(1.0, abs(float(ref_err)))
     for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
         assert g.shape == r.shape
         tol = LENET_RTOL * max(1.0, float(r.abs().max()))
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=tol)
+
+
+def test_lenet_fused_reads_images_off_the_16_byte_boundary_on_card(card):
+    """Images one value into a buffer take the 4-byte staging; the sums
+    keep their order, so the result equals the aligned call's bit for bit."""
+    params, xs, ys = _lenet_inputs(card, 65, 9)
+    flat = torch.zeros(xs.numel() + 1, device=card)
+    flat[1:] = xs.reshape(-1)
+    shifted = flat[1:].view(xs.shape)
+    assert shifted.data_ptr() % 16
+    err, grads = lenet_fused.fused_value_and_ref_grads(params, shifted, ys)
+    ref_err, ref = lenet_fused.fused_value_and_ref_grads(params, xs, ys)
+    assert torch.equal(err, ref_err)
+    assert all(torch.equal(a, b) for a, b in zip(tree_leaves(grads), tree_leaves(ref)))
 
 
 def test_lenet_fused_is_deterministic_on_card(card):
@@ -697,22 +723,8 @@ def test_staged_kernel_matches_plain_on_card(card, n, case):
         _close(g, w, LENET_RTOL)
 
 
-def _fma_f32(a, b, c):
-    """fmaf(a, b, c) on f32 numpy arrays, rounded once: a·b is exact in f64,
-    TwoSum gives the f64 sum's error, and that error decides the one case
-    where rounding the f64 sum to f32 could round the wrong way (the sum
-    lying exactly halfway between two f32 values)."""
-    p = a.astype(np.float64) * b.astype(np.float64)
-    c = c.astype(np.float64)
-    s = p + c
-    bb = s - p
-    err = (p - (s - bb)) + (c - bb)
-    r = s.astype(np.float32)
-    other = np.nextafter(r, np.where(s > r.astype(np.float64), np.inf, -np.inf)
-                         .astype(np.float32))
-    tie = (r.astype(np.float64) + other.astype(np.float64)) / 2 == s
-    up, down = np.maximum(r, other), np.minimum(r, other)
-    return np.where(tie & (err > 0), up, np.where(tie & (err < 0), down, r))
+# fmaf(a, b, c) on f32 numpy arrays, rounded once (B6's dout order and B9's).
+_fma_f32 = lenet_staged.fma_f32
 
 
 def _card_view(a: np.ndarray, dev, view: str) -> torch.Tensor:
@@ -772,6 +784,72 @@ def test_staged_path_launch_counts_and_anchor_on_card(card):
     assert abs(float(err) - float(ref_err)) <= 1e-6
     for g, r in zip(tree_leaves(grads), tree_leaves(ref)):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), atol=1e-5, rtol=1e-5)
+
+
+def _accum_ticket_is_zero(dev) -> bool:
+    return int(lenet_staged._ticket(dev, launch_stream(dev)).item()) == 0
+
+
+def _accum_checks(a, b):
+    """B9 on (a, b): a relaunch bit for bit, bit for bit its fixed order
+    (lenet_staged.accum_matmul_order), within LENET_RTOL of the plain twin,
+    two launches counted, and the ticket left at 0."""
+    counter = lenet_staged.launches["accum_matmul"]
+    before = counter.count
+    got, again = lenet_staged._accum_matmul(a, b), lenet_staged._accum_matmul(a, b)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    assert torch.equal(got, again)
+    order = lenet_staged.accum_matmul_order(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(got.cpu().numpy(), order)
+    _close(got, lenet_staged._accum_matmul_plain(a, b), LENET_RTOL)
+    assert _accum_ticket_is_zero(a.device)
+
+
+@pytest.mark.parametrize("n", STAGED_SIZES)
+@pytest.mark.parametrize("site", B9_SITES)
+def test_accum_matmul_site_equals_its_fixed_order_on_card(card, site, n):
+    """B9 at each call site's inputs (chip_smoke.stage_cases) at every
+    STAGED_SIZES batch."""
+    params, xs, ys = _lenet_inputs(card, n, n + 11)
+    _, _, (a, b) = stage_cases(params, xs, ys)[f"accum_matmul/{site}"]
+    _accum_checks(a, b)
+
+
+# One row at each site's width, a row count no block or stage divides, and
+# outputs at the limits: ka*kb 256, ka + kb 48, 14 tiles (448 threads).
+ACCUM_CARD_SHAPES = [(1, 6, 25), (1, 16, 1), (36_864 + 37, 6, 25), (5003, 16, 16),
+                     (3001, 1, 47), (2999, 47, 1), (777, 9, 28)]
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("rows,ka,kb", ACCUM_CARD_SHAPES)
+def test_accum_matmul_matches_plain_and_order_on_card(card, rows, ka, kb, view):
+    """B9 on seeded normals; "offset" views start one value into a larger
+    buffer, off the 16-byte boundary, so the kernel stages with 4-byte
+    copies (the order, and so the result, is the same)."""
+    rng = np.random.default_rng(rows + 31 * ka + kb)
+    a = _card_view(rng.standard_normal((rows, ka)).astype(np.float32), card, view)
+    b = _card_view(rng.standard_normal((rows, kb)).astype(np.float32), card, view)
+    _accum_checks(a, b)
+
+
+def test_accum_plan_is_the_librarys_on_card(card):
+    """ops/lenet_staged.accum_plan (which sizes the partials and orders the
+    emulation) against the C entry's own plan, and the C plan's refusals."""
+    import ctypes
+
+    lib = lenet_staged._lib()
+    out = (ctypes.c_int * 4)()
+    ptr = ctypes.cast(out, ctypes.c_void_p)
+    shapes = [(r, ka, kb) for r in (1, 31, 32, 33, 131, 4224, 4225, 36_864, 576_000,
+                                    2**31 - 1)
+              for ka, kb in ((6, 25), (16, 1), (16, 16), (1, 47), (9, 28), (47, 1))]
+    for rows, ka, kb in shapes:
+        assert lib.lenet_accum_plan(rows, ka, kb, ptr) == 0
+        assert tuple(out) == tuple(lenet_staged.accum_plan(rows, ka, kb)), (rows, ka, kb)
+    for bad in ((0, 6, 25), (2**31, 1, 1), (10, 17, 16), (10, 1, 48), (10, 0, 5)):
+        assert lib.lenet_accum_plan(*bad, ptr) == 1, bad
 
 
 @pytest.mark.parametrize(

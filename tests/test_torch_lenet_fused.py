@@ -283,6 +283,21 @@ def test_kernel_source_names_the_tpu_kernel_and_its_bound(source, names):
     assert "atomicAdd" not in src  # every sum in a fixed order
 
 
+def test_fused_kernel_layout_constants_match_the_wrapper():
+    """The output row and the per-image pass-1 row, as csrc/lenet_fused.cu
+    declares them and the wrapper sizes its buffers by them; the header the
+    kernel includes joins its build digest."""
+    import re
+
+    src = (REPO_CSRC / "lenet_fused.cu").read_text()
+    got = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+                for k in ("ROW", "ROW_PASS1"))
+    assert got == (lenet_fused.ROW, lenet_fused.ROW_PASS1)
+    assert lenet_fused.ROW_PASS1 % 4 == 0  # pass 2 stages 16-byte segments
+    assert '#include "ffma_tile.cuh"' in src
+    assert [h.name for h in lenet_fused._library.headers] == ["ffma_tile.cuh"]
+
+
 def test_one_builder_digests_source_and_flags():
     """All three kernels build through ops/_cuda_build.py; each library's
     flags are the shared ones plus its own, so a changed flag builds anew."""

@@ -6,6 +6,7 @@ and the GPU-by-default rule of every entry point."""
 import os
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -30,6 +31,7 @@ from parallel_cnn_tpu_torch.serve import (
     serve_stack,
 )
 from parallel_cnn_tpu_torch.utils.backend import NoGpuError, resolve_device
+from parallel_cnn_tpu_torch.utils.metrics import Histogram
 
 REPO = Path(__file__).resolve().parent.parent
 TINY_SHAPE = (8, 8, 3)
@@ -196,14 +198,40 @@ def test_loadgen_run_completes_everything(pattern):
 
 
 def test_open_loop_latency_runs_to_resolution_not_to_observation():
-    """The open loop drains its futures after the whole schedule (0.4 s
-    here); a request answered in milliseconds must not read as ~0.2 s."""
-    _, batcher = _stack(max_batch=8, queue_depth=64)
-    with batcher:
-        report = loadgen.run(batcher, pattern="open", n_requests=40,
-                             rate=100.0, seed=0)
-    assert report.completed == 40
-    assert report.latency.summary()["p50"] < 0.05
+    """The open loop drains its futures after the whole schedule
+    (``loadgen._wait_all``); each latency must run from the request's due
+    time to its resolution (``Future.t_done``), not to that later
+    observation. The futures here were resolved at known instants 1-40 ms
+    after their due times, all of them 10 s before the drain observes
+    them: every recorded latency is exactly t_done - t_due, whatever the
+    machine's load, and the p50 is 20 ms, where observation would read 10 s."""
+    from parallel_cnn_tpu_torch.serve.batcher import DeadlineExceeded, Future
+
+    class Recording(Histogram):
+        def record(self, v):
+            seen.append(v)
+            super().record(v)
+
+    seen = []
+    now = time.monotonic()
+    pairs, want = [], []
+    for i in range(40):
+        t_due = now - 10.0 - 0.05 * (40 - i)
+        fut = Future()
+        fut._resolve(np.zeros(1, np.float32))
+        fut.t_done = t_due + 0.001 * (i + 1)
+        pairs.append((t_due, fut))
+        want.append(fut.t_done - t_due)
+    expired = Future()
+    expired._fail(DeadlineExceeded("late"))
+    pairs.append((now - 10.0, expired))
+    counters = {"completed": 0, "shed": 0, "expired": 0, "errors": 0}
+    latency = Recording()
+    loadgen._wait_all(pairs, counters, latency, threading.Lock())
+    assert counters == {"completed": 40, "shed": 0, "expired": 1, "errors": 0}
+    assert seen == want  # exactly t_done - t_due, in submission order
+    assert latency.summary()["p50"] < 0.05
+    assert latency.summary()["max"] == pytest.approx(0.040)
 
 
 def test_make_samples_is_seeded():

@@ -20,6 +20,8 @@ import jax
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from parallel_cnn_tpu.models import lenet_ref as jlenet
 from parallel_cnn_tpu.ops import pallas as jpallas
@@ -174,6 +176,72 @@ def test_accum_matmul_matches_jax(rows, ka, kb, row_block):
     close(lenet_staged._accum_matmul(t(a), t(b)), want)
 
 
+# B9's shapes: both call sites at n 1 and 5, one row, a row count no block
+# or stage divides, and outputs at the limits (ka*kb 256, ka + kb 48, 14
+# tiles).
+ACCUM_SHAPES = [(216, 16, 1), (216 * 5, 16, 1), (576, 6, 25), (576 * 5, 6, 25),
+                (1, 6, 25), (1, 16, 1), (36_864 + 37, 6, 25), (5003, 16, 16),
+                (3001, 1, 47), (2999, 47, 1), (777, 9, 28)]
+
+
+@pytest.mark.parametrize("rows,ka,kb", ACCUM_SHAPES)
+def test_accum_matmul_order_matches_plain(rows, ka, kb):
+    """lenet_staged.accum_matmul_order (B9's fixed summation order in f32
+    numpy, which the card's result equals bit for bit) against the plain
+    twin aᵀ·b, within 1e-5 of the output's scale."""
+    rng = np.random.default_rng(rows * 7 + ka)
+    a = rng.normal(size=(rows, ka)).astype(np.float32)
+    b = rng.normal(size=(rows, kb)).astype(np.float32)
+    got = lenet_staged.accum_matmul_order(a, b)
+    want = lenet_staged._accum_matmul_plain(t(a).double(), t(b).double()).numpy()
+    assert got.dtype == np.float32 and got.shape == (ka, kb)
+    np.testing.assert_allclose(got, want, atol=RTOL * max(1.0, np.abs(want).max()), rtol=0)
+
+
+def test_accum_matmul_order_sums_in_the_plans_order():
+    """One row a block's lane: with shard 32 rows and one tile, each lane
+    sums one row, the butterfly pairs lanes (0,16), (0,8), ...; so a row of
+    1e8 and rows of 1.0 in lanes 0 and 16 lose the 1.0s exactly as the tree
+    does, and a reordering would not."""
+    rows = 32
+    a = np.ones((rows, 1), np.float32)
+    b = np.zeros((rows, 1), np.float32)
+    b[0], b[16], b[8] = 1e8, 1.0, -1e8
+    # (1e8 + 1) rounds to 1e8 at level 16; level 8 adds -1e8: exactly 0.
+    assert lenet_staged.accum_matmul_order(a, b)[0, 0] == 0.0
+    b[16], b[1] = 0.0, 1.0  # lane 1 joins lane 0 last: 1e8 - 1e8 + 1
+    assert lenet_staged.accum_matmul_order(a, b)[0, 0] == 1.0
+
+
+@settings(max_examples=200, deadline=None)
+@given(rows=st.integers(1, 2**31 - 1), ka=st.integers(1, 47), kb=st.integers(1, 47))
+def test_accum_plan_covers_every_row_once_within_shared_memory(rows, ka, kb):
+    if ka * kb > 256 or ka + kb > 48:
+        return
+    plan = lenet_staged.accum_plan(rows, ka, kb)
+    assert plan.shard % lenet_staged.ACCUM_ROW_ALIGN == 0
+    assert plan.shard >= lenet_staged.ACCUM_ROWS
+    assert 1 <= plan.blocks <= lenet_staged.ACCUM_BLOCKS
+    # Block g owns rows [g*shard, min((g+1)*shard, rows)): every row once.
+    assert (plan.blocks - 1) * plan.shard < rows <= plan.blocks * plan.shard
+    assert plan.stage_rows % 32 == 0 and plan.stage_rows >= 128
+    assert 2 * plan.stage_rows * (ka + kb) * 4 <= 48 * 1024
+    tiles = -(-ka // lenet_staged.ACCUM_TA) * -(-kb // lenet_staged.ACCUM_TB)
+    assert plan.threads == 32 * tiles <= 512
+    assert plan.threads >= ka * kb  # the finish has a thread an output
+    assert plan == lenet_staged.accum_plan(rows, ka, kb)
+
+
+def test_accum_plan_at_the_path_shapes():
+    """Both call sites at batch 64 fill one block an SM; at batch 1 the
+    conv site is 18 blocks of 32 rows (a row a lane)."""
+    plan = lenet_staged.accum_plan
+    assert plan(576 * 64, 6, 25) == lenet_staged.AccumPlan(280, 132, 192, 224)
+    assert plan(216 * 64, 16, 1) == lenet_staged.AccumPlan(108, 128, 352, 64)
+    assert plan(576, 6, 25) == lenet_staged.AccumPlan(32, 18, 192, 224)
+    assert plan(576 * 1000, 6, 25).blocks == 132
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_pool_window_layout_is_jax_bit_for_bit(n):
     """The lane order m·36 + x·6 + y and the tap order 4i+j, pinned
@@ -323,7 +391,7 @@ def test_kernel_source_names_each_tpu_kernel_it_replaces():
                        (333, "_pool_bwd_kernel"), (413, "_sigma_prime_kernel"),
                        (371, "_accum_matmul_kernel")):
         assert f"`{name}`" in src and f"pallas.py:{line}" in src, name
-    assert src.count("__global__") == 8  # seven kernels; B9 has two passes
+    assert src.count("__global__") == 7  # seven kernels, one launch each
     assert "atomicAdd" not in src  # every sum in a fixed order
     assert "3.35 TB/s" in src and "bound by bytes" in src
 
