@@ -41,7 +41,9 @@ port's two paths through their user-facing entry points:
   (an empty kernel, timed as the kernels are).
 
 The conv forward is also timed at each of its block tiles at every
-ResNet-18 conv and four batches, beside the tile the wrapper picks.
+ResNet-18 conv and four batches, beside the tile the wrapper picks; the
+staged conv and FC forwards (B3, B5) in turns with their library calls at
+batch 64 and 1000.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -1179,18 +1181,34 @@ def conv_wgrad_bound_ms(xs):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
+# B3 and B5 are also timed at this batch, in turns with their library calls.
+STAGED_FWD_LARGE = 1000
+
+
+def time_staged_forward(fn, args, lib) -> tuple:
+    """B3 or B5 in turns with its library call: (kernel ms, library ms, a
+    note with their ratio and the CUDA launches of one wrapper call)."""
+    ms, lib_ms = in_turns(lambda: fn(*args), lib, reps=200)
+    return ms, lib_ms, (f"; kernel / library {ms / lib_ms:.3f}x in turns; "
+                        f"{device_launches(lambda: fn(*args))} CUDA launches per "
+                        f"wrapper call (torch.profiler)")
+
+
 def time_staged_kernels() -> dict:
     """(f) Each staged kernel at batch 64 at the path's inputs: device ms
-    beside its bound, its plain version and the library call. B9's record
-    holds the sums over its two call sites in one step, named by the site
-    with the larger bound."""
+    beside its bound, its plain version and the library call; B3 and B5
+    in turns with their library call, and again at batch
+    STAGED_FWD_LARGE. B9's record holds the sums over its two call sites
+    in one step, named by the site with the larger bound."""
     params, xs, ys = lenet_inputs(TRAIN_BATCH, 400)
     sites = {}
     for case, (fn, plain, args) in stage_cases(params, xs, ys).items():
         plain_ms = cuda_ms(lambda: plain(*args), reps=50)
         lib = staged_library_call(case, args)
         note = ""
-        if case == "fc_bwd":
+        if case in ("conv_fwd", "fc_fwd"):
+            ms, lib_ms, note = time_staged_forward(fn, args, lib)
+        elif case == "fc_bwd":
             # B6 against its yardstick in turns; the block product checked
             # against the plain twin first, and dT.s alone as a note.
             ms, lib_ms = in_turns(lambda: fn(*args), lib, reps=200)
@@ -1217,6 +1235,16 @@ def time_staged_kernels() -> dict:
               f"({by}), {bound / ms:.2%} of bound{note}", flush=True)
         sites.setdefault(case.split("/")[0], []).append(
             dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
+    n = STAGED_FWD_LARGE
+    large = stage_cases(*lenet_inputs(n, 400 + n))
+    for case in ("conv_fwd", "fc_fwd"):
+        fn, plain, args = large[case]
+        plain_ms = cuda_ms(lambda: plain(*args), reps=50)
+        ms, lib_ms, note = time_staged_forward(fn, args, staged_library_call(case, args))
+        bound, by = staged_bound_ms(case, args, as_tuple(fn(*args)))
+        print(f"[smoke] time staged {case:24s} b{n}: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.4f} ms, library {lib_ms:.5f} ms, bound {bound:.6f} ms ({by}), "
+              f"{bound / ms:.2%} of bound{note}", flush=True)
     bound, by = conv_wgrad_bound_ms(xs)
     print(f"[smoke] time staged conv_wgrad from x and d_pre_c1 b{TRAIN_BATCH}: bound "
           f"{bound:.6f} ms ({by}), without the im2col that B9's bound above counts",

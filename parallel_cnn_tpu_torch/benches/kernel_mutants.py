@@ -4,8 +4,10 @@
 ``csrc/mosaic_probe.cu``), the list form of the SGD-momentum update (B13,
 ``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``),
 the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``), the
-LeNet step kernel (B1, ``csrc/lenet_fused.cu``) and B9's contraction
-(``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``).
+LeNet step kernel (B1, ``csrc/lenet_fused.cu``), B9's contraction
+(``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``) and the staged
+conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
+file).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
@@ -40,9 +42,9 @@ COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
 #: forward's (against its plain twin at every tile, across batch positions
-#: at every ResNet-18 conv), B1's and B9's.
+#: at every ResNet-18 conv), B1's, B9's, B3's and B5's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
-          "or test_kernel_matches_plain or lenet_fused or accum")
+          "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd")
 #: Copies built and tested at once (each its own pytest process).
 JOBS = 3
 
@@ -118,6 +120,21 @@ MUTANTS = {
     "B9 ticket not wrapped to 0": (
         f"{CSRC}/lenet_staged.cu", "atomicInc(ticket, gridDim.x - 1) == gridDim.x - 1",
         "atomicInc(ticket, gridDim.x) == gridDim.x - 1"),
+    "B3 strip's last column written from the third": (
+        f"{CSRC}/lenet_staged.cu", "make_float4(acc[0], acc[1], acc[2], acc[3])",
+        "make_float4(acc[0], acc[1], acc[2], acc[2])"),
+    "B3 unaligned image staged one value short": (
+        f"{CSRC}/lenet_staged.cu",
+        "for (int i = tid; i < IMG; i += CONV_THREADS) ftile::cp_async4(",
+        "for (int i = tid; i < IMG - 1; i += CONV_THREADS) ftile::cp_async4("),
+    "B5 last lane's k slice dropped": (
+        f"{CSRC}/lenet_staged.cu", "const bool live = lane < FC_FWD_LANES;",
+        "const bool live = lane < FC_FWD_LANES - 1;"),
+    "B5 butterfly's last level skipped": (
+        f"{CSRC}/lenet_staged.cu", "for (int off = 16; off > 0; off >>= 1)",
+        "for (int off = 16; off > 1; off >>= 1)"),
+    "B5 every class takes class 0's bias": (
+        f"{CSRC}/lenet_staged.cu", "__ldg(bias + (lane < CLASSES ? lane : 0))", "__ldg(bias)"),
 }
 
 

@@ -22,17 +22,19 @@
 // error vector and the bias sums stay PyTorch ops, as they were XLA ops
 // outside every TPU kernel.
 //
-// Design. Every kernel but B6 and B9 gives one thread one output and walks
-// its sum in the TPU kernel's order: B3 starts from the bias and adds the
-// 25 taps in (i, j) order, B4 the 16 taps in t order, each product and sum
-// rounded on its own (__fmul_rn/__fadd_rn) as the plain PyTorch version
-// rounds them; B5's dot product runs k upward with fused multiply-adds.
-// B6 (below) sums its weight and bias grads over the batch in shards and a
-// fixed tree, and its input grad over o upward. B9 (below) reduces up to
-// 576n rows in one launch: row shards a block, register tiles a warp, a
-// shuffle tree, and the blocks' partials summed by the last block to take
-// an integer ticket. No float atomics anywhere: a relaunch on the same
-// inputs is bit-identical.
+// Design. B4, B7 and B8 give one thread one output and walk its sum in the
+// TPU kernel's order: B4 starts from the bias and adds the 16 taps in t
+// order, each product and sum rounded on its own (__fmul_rn/__fadd_rn) as
+// the plain PyTorch version rounds them. B3 (below) keeps that order and
+// rounding for each of its outputs (the bias, then the 25 taps in (i, j)
+// order) but gives a thread a register tile of outputs from an image staged
+// in shared memory. B5 (below) is a warp an image, k split over the lanes
+// and a fixed shuffle tree. B6 (below) sums its weight and bias grads over
+// the batch in shards and a fixed tree, and its input grad over o upward.
+// B9 (below) reduces up to 576n rows in one launch: row shards a block,
+// register tiles a warp, a shuffle tree, and the blocks' partials summed by
+// the last block to take an integer ticket. No float atomics anywhere: a
+// relaunch on the same inputs is bit-identical.
 //
 // sigma(v) = 1 / (1 + expf(-v)) with IEEE expf and division (build without
 // --use_fast_math): the expression torch.sigmoid evaluates on a CUDA
@@ -48,6 +50,42 @@
 // serves needs only x and d_pre_c1, 1.09 MB (0.32 us), so a B9 that read x
 // directly would drop the host-side im2col and three quarters of its bound.
 // The fused kernel (csrc/lenet_fused.cu) is the fast path.
+//
+// B3 replaces `_conv_fwd_kernel`'s batch-block grid of (Bb, 24, 24) tap
+// multiply-adds on the TPU's vector unit, first ported as one thread an
+// output (two loads through L1 a tap, 64-bit index math), with a block an
+// (image, CONV_MAPS maps):
+//   - the block stages its image (3,136 bytes, rows of 112: whole float4s)
+//     in shared memory with cp.async, 16 bytes a copy where x starts on a
+//     16-byte boundary (then every image does) and 4 bytes where it does
+//     not, while each thread loads its map's 25 weights and bias into
+//     registers;
+//   - a thread owns CONV_ROWS rows x 4 neighbouring columns of one map, and
+//     slides a 5 x 8 window of x down its rows: one new row (two float4
+//     shared loads) a row of 4 outputs, 100 products, where one thread an
+//     output made 50 loads through L1 for 25;
+//   - each output keeps its order and rounding, so B3 is bit for bit the
+//     plain version (and every partition of it); pre and out are stored as
+//     float4s. The grid is n * 6 / CONV_MAPS blocks, from n alone. At batch
+//     64 the bound is the 1.97 MB it moves (0.59 us) and sigma's IEEE expf
+//     and division cost about as many instructions as the 25 taps: the
+//     launch, one staged round trip and the instructions set its time.
+//
+// B5 replaces one thread an output (a chain of 216 dependent fmas, each
+// waiting on two loads, 640 threads in 3 blocks at batch 64) with a warp an
+// image, FC_FWD_WARPS warps a block, the grid from n alone capped at
+// FC_FWD_WAVE warps (each then walks images gridDim * FC_FWD_WARPS apart):
+//   - lane l < 27 owns k = 8l .. 8l + 7: it holds w[o, 8l .. 8l + 7] for
+//     the 10 classes in 80 registers (loaded once a warp) and reads its 8
+//     values of x as two float4s, so a warp reads a row of x (864 bytes)
+//     in one coalesced sweep; 4-byte loads where x or w is off the 16-byte
+//     boundary (every row is then);
+//   - each lane sums its 8 terms k upward with fmaf from 0 (lanes 27..31
+//     hold 0), a butterfly over the 32 lanes (xor 16, 8, 4, 2, 1) adds the
+//     10 sums, and lane o adds b[o] and writes pre and out. The order
+//     depends on the layout alone: ops/lenet_staged.py's fc_fwd_order is it
+//     in numpy, fma by fma. The bound is 69 kB at batch 64 (0.02 us): the
+//     launch and one round trip set its time.
 //
 // B9 replaces `_accum_matmul_kernel`'s sequential row grid (a VMEM
 // accumulator carried from one grid step to the next) with one launch of
@@ -97,7 +135,8 @@
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the wrapper allocates outputs and B9's scratch and
 // checks devices, dtypes, shapes and contiguity first; the launchers refuse
-// an empty batch, B6's misaligned dout and B9's operands past its limits.
+// an empty batch, B3's misaligned pre or out, B6's misaligned dout and B9's
+// operands past its limits.
 
 #include <climits>
 #include <cstdint>
@@ -151,6 +190,34 @@ constexpr int FC_SMEM_FLOATS =
 static_assert(FC_SLAB % 8 == 0 && LANES % FC_SLAB == 0, "a slab is whole float4 runs");
 static_assert(FC_SMEM_FLOATS * 4 <= 48 * 1024, "static shared memory");
 
+// B3: a block is one image and CONV_MAPS of its 6 maps; a thread owns
+// CONV_ROWS rows x 4 columns of one map (CONV_STRIPS strips of 4 a row).
+// 3 maps x 2 rows, from 24 partitions timed on an H100 (benches/
+// lenet_sweep.py): 3.47 us at batch 64, 17.88 at 1000; 1 row was 3.7%
+// faster at 64 and 8% slower at 1000, 6 maps x 6 rows the fastest at 1000
+// (14.78) and 43% slower at 64.
+constexpr int CONV_MAPS = 3;
+constexpr int CONV_ROWS = 2;
+constexpr int CONV_STRIPS = 6;
+constexpr int CONV_ROW_GROUPS = 24 / CONV_ROWS;
+constexpr int CONV_MAP_THREADS = CONV_STRIPS * CONV_ROW_GROUPS;
+constexpr int CONV_GROUPS = 6 / CONV_MAPS;  // blocks an image
+constexpr int CONV_THREADS = CONV_MAPS * CONV_MAP_THREADS;
+static_assert(6 % CONV_MAPS == 0 && 24 % CONV_ROWS == 0, "whole maps and row groups");
+static_assert(CONV_THREADS <= 1024, "one block");
+
+// B5: a warp an image, FC_FWD_WARPS warps a block, at most FC_FWD_WAVE
+// warps (16 an SM of an H100 SXM); lane l < FC_FWD_LANES owns FC_K
+// consecutive k. 2 warps a block matched 1 at batch 64 and 128 and beat
+// 4 and 8 (3.06 us at batch 64 against 3.23 and 3.88, on an H100).
+constexpr int FC_FWD_WARPS = 2;
+constexpr int FC_K = 8;
+constexpr int FC_FWD_LANES = LANES / FC_K;
+constexpr int FC_FWD_WAVE = 2112;  // 132 SMs x 16 warps
+static_assert(FC_FWD_LANES * FC_K == LANES && FC_FWD_LANES <= 32 && CLASSES <= 32,
+              "a lane a k slice, a lane a class");
+static_assert(FC_K == 8, "two float4s a lane");
+
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
@@ -163,29 +230,91 @@ int blocks_for(long long total) {
   return static_cast<int>((total + THREADS - 1) / THREADS);
 }
 
+__host__ __device__ __forceinline__ bool aligned16(const void* ptr) {
+  return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
+}
+
+// Eight floats from p: two float4 loads where p is 16-byte aligned, else
+// eight 4-byte loads.
+__device__ __forceinline__ void load8(float (&v)[8], const float* __restrict__ p, bool vec) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(p + 4));
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+    v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) v[k] = __ldg(p + k);
+  }
+}
+
 // B3: pre[b,m,r,c] = b_c1[m] + sum_{i,j} w[m,i,j] * x[b,r+i,c+j]; out = sigma(pre).
-__global__ void __launch_bounds__(THREADS)
+// Block blk is image blk / CONV_GROUPS, maps (blk % CONV_GROUPS) *
+// CONV_MAPS on; thread t is map t / CONV_MAP_THREADS of those, rows
+// r0 .. r0 + CONV_ROWS - 1 (r0 = CONV_ROWS * row group) and columns c0 ..
+// c0 + 3 (c0 = 4 * strip).
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                 const float* __restrict__ bias, float* __restrict__ pre,
-                float* __restrict__ out, long long total) {
-  const long long idx = global_index();
-  if (idx >= total) return;
-  const long long img = idx / CONV;
-  const int rem = static_cast<int>(idx - img * CONV);
-  const int m = rem / 576;
-  const int p = rem - m * 576;
-  const int r = p / 24;
-  const int c = p - r * 24;
-  const float* xi = x + img * IMG + r * 28 + c;
-  const float* wm = w + m * 25;
-  float acc = bias[m];
+                float* __restrict__ out) {
+  __shared__ __align__(16) float xs[IMG];
+  const int tid = threadIdx.x;
+  const int blk = static_cast<int>(blockIdx.x);
+  const long long img = blk / CONV_GROUPS;
+  const int m = (blk - static_cast<int>(img) * CONV_GROUPS) * CONV_MAPS + tid / CONV_MAP_THREADS;
+  const int t = tid % CONV_MAP_THREADS;
+  const int r0 = (t / CONV_STRIPS) * CONV_ROWS;
+  const int c0 = (t % CONV_STRIPS) * 4;
+  const float* xi = x + img * IMG;
+  if (aligned16(x)) {
+    for (int i = tid; i < IMG / 4; i += CONV_THREADS) ftile::cp_async16(xs + 4 * i, xi + 4 * i, true);
+  } else {
+    for (int i = tid; i < IMG; i += CONV_THREADS) ftile::cp_async4(xs + i, xi + i, true);
+  }
+  ftile::cp_async_commit();
+  float wr[25];
 #pragma unroll
-  for (int i = 0; i < 5; ++i)
+  for (int k = 0; k < 25; ++k) wr[k] = __ldg(w + m * 25 + k);
+  const float b = __ldg(bias + m);
+  ftile::cp_async_wait<0>();
+  __syncthreads();
+
+  // win[i] holds x row r + i, columns c0 .. c0 + 7, for output row r.
+  float win[5][8];
 #pragma unroll
-    for (int j = 0; j < 5; ++j)
-      acc = __fadd_rn(acc, __fmul_rn(wm[i * 5 + j], xi[i * 28 + j]));
-  pre[idx] = acc;
-  out[idx] = sigmoid(acc);
+  for (int i = 0; i < 4; ++i) {
+    const float4 lo = *reinterpret_cast<const float4*>(xs + (r0 + i) * 28 + c0);
+    const float4 hi = *reinterpret_cast<const float4*>(xs + (r0 + i) * 28 + c0 + 4);
+    win[i + 1][0] = lo.x, win[i + 1][1] = lo.y, win[i + 1][2] = lo.z, win[i + 1][3] = lo.w;
+    win[i + 1][4] = hi.x, win[i + 1][5] = hi.y, win[i + 1][6] = hi.z, win[i + 1][7] = hi.w;
+  }
+  const long long base = ((img * 6 + m) * 24 + r0) * 24 + c0;
+#pragma unroll
+  for (int rr = 0; rr < CONV_ROWS; ++rr) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 8; ++c) win[i][c] = win[i + 1][c];
+    const float* row = xs + (r0 + rr + 4) * 28 + c0;
+    const float4 lo = *reinterpret_cast<const float4*>(row);
+    const float4 hi = *reinterpret_cast<const float4*>(row + 4);
+    win[4][0] = lo.x, win[4][1] = lo.y, win[4][2] = lo.z, win[4][3] = lo.w;
+    win[4][4] = hi.x, win[4][5] = hi.y, win[4][6] = hi.z, win[4][7] = hi.w;
+    float acc[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[q] = b;
+#pragma unroll
+    for (int i = 0; i < 5; ++i)
+#pragma unroll
+      for (int j = 0; j < 5; ++j)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          acc[q] = __fadd_rn(acc[q], __fmul_rn(wr[i * 5 + j], win[i][q + j]));
+    const long long o = base + rr * 24;
+    *reinterpret_cast<float4*>(pre + o) = make_float4(acc[0], acc[1], acc[2], acc[3]);
+    *reinterpret_cast<float4*>(out + o) =
+        make_float4(sigmoid(acc[0]), sigmoid(acc[1]), sigmoid(acc[2]), sigmoid(acc[3]));
+  }
 }
 
 // B4: pre[b,l] = b_s1 + sum_t w[t] * xw[b,t,l]; out = sigma(pre).
@@ -206,25 +335,52 @@ pool_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
 }
 
 // B5: pre[b,o] = (sum_k x[b,k] * w[o,k]) + b_f[o]; out = sigma(pre).
-__global__ void __launch_bounds__(THREADS)
+// Warp v of the grid takes images v, v + warps, ...; lane l < FC_FWD_LANES
+// sums k = FC_K * l .. FC_K * l + FC_K - 1 upward by fmaf from 0 for each
+// class (the other lanes hold 0), the xor butterfly (16, 8, 4, 2, 1) adds
+// the lanes, and lane o < CLASSES adds b[o].
+__global__ void __launch_bounds__(32 * FC_FWD_WARPS)
 fc_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
               const float* __restrict__ bias, float* __restrict__ pre,
-              float* __restrict__ out, long long total) {
-  const long long idx = global_index();
-  if (idx >= total) return;
-  const long long img = idx / CLASSES;
-  const int o = static_cast<int>(idx - img * CLASSES);
-  const float* xi = x + img * LANES;
-  const float* wo = w + o * LANES;
-  float acc = 0.0f;
-  for (int k = 0; k < LANES; ++k) acc = fmaf(xi[k], wo[k], acc);
-  acc = acc + bias[o];
-  pre[idx] = acc;
-  out[idx] = sigmoid(acc);
-}
-
-__host__ __device__ __forceinline__ bool aligned16(const void* ptr) {
-  return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
+              float* __restrict__ out, int n) {
+  const int lane = threadIdx.x & 31;
+  const int warps = static_cast<int>(gridDim.x) * FC_FWD_WARPS;
+  const bool live = lane < FC_FWD_LANES;
+  const int k0 = (live ? lane : 0) * FC_K;  // dead lanes read lane 0's slice, then drop it
+  const bool xvec = aligned16(x);
+  float wr[CLASSES][FC_K];
+#pragma unroll
+  for (int o = 0; o < CLASSES; ++o) {
+    load8(wr[o], w + o * LANES + k0, aligned16(w));
+#pragma unroll
+    for (int k = 0; k < FC_K; ++k) wr[o][k] = live ? wr[o][k] : 0.0f;
+  }
+  const float bo = __ldg(bias + (lane < CLASSES ? lane : 0));
+  for (int img = static_cast<int>(blockIdx.x) * FC_FWD_WARPS + (threadIdx.x >> 5); img < n;
+       img += warps) {
+    float xr[FC_K];
+    load8(xr, x + static_cast<long long>(img) * LANES + k0, xvec);
+    float acc[CLASSES];
+#pragma unroll
+    for (int o = 0; o < CLASSES; ++o) {
+      acc[o] = 0.0f;
+#pragma unroll
+      for (int k = 0; k < FC_K; ++k) acc[o] = fmaf(live ? xr[k] : 0.0f, wr[o][k], acc[o]);
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+#pragma unroll
+      for (int o = 0; o < CLASSES; ++o) acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
+    float v = acc[0];
+#pragma unroll
+    for (int o = 1; o < CLASSES; ++o) v = lane == o ? acc[o] : v;
+    if (lane < CLASSES) {
+      const float p = v + bo;
+      const long long i = static_cast<long long>(img) * CLASSES + lane;
+      pre[i] = p;
+      out[i] = sigmoid(p);
+    }
+  }
 }
 
 // B6's gw/gb block `slab`: gw[o, c0 + c] = sum_b d[b,o] * s[b, c0 + c] for
@@ -552,12 +708,15 @@ int launched() { return static_cast<int>(cudaGetLastError()); }
 // contiguous f32 arrays of the shapes above; n >= 1 is the batch. Each
 // returns 0 when its launches were accepted, else the cudaError_t.
 
+// B3 also refuses a pre or out that does not start on a 16-byte boundary
+// (its float4 stores; the wrapper allocates them).
 extern "C" int lenet_conv_fwd(const float* x, const float* w, const float* b,
                               float* pre, float* out, int n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * CONV;
-  conv_fwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, pre, out, total);
+  const long long blocks = static_cast<long long>(n) * CONV_GROUPS;
+  if (n <= 0 || blocks > INT_MAX || !aligned16(pre) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  conv_fwd_kernel<<<static_cast<int>(blocks), CONV_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(x, w, b, pre, out);
   return launched();
 }
 
@@ -573,9 +732,9 @@ extern "C" int lenet_pool_fwd(const float* xw, const float* w, const float* b,
 extern "C" int lenet_fc_fwd(const float* x, const float* w, const float* b,
                             float* pre, float* out, int n, void* stream) {
   if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * CLASSES;
-  fc_fwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, w, b, pre, out, total);
+  const int warps = n < FC_FWD_WAVE ? n : FC_FWD_WAVE;
+  fc_fwd_kernel<<<(warps + FC_FWD_WARPS - 1) / FC_FWD_WARPS, 32 * FC_FWD_WARPS, 0,
+                  static_cast<cudaStream_t>(stream)>>>(x, w, b, pre, out, n);
   return launched();
 }
 
@@ -664,11 +823,11 @@ extern "C" int lenet_accum_plan(long long rows, long long ka, long long kb, int*
 }
 
 // The layout constants the wrapper sizes its tensors by, for its check:
-// i = 0..5 gives IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS, and 6..10
-// B9's plan constants ACCUM_TA, ACCUM_TB, ACCUM_BLOCKS, ACCUM_ROW_ALIGN,
-// ACCUM_SMEM_FLOATS; else -1.
+// i = 0..5 gives IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS, 6..10 B9's
+// plan constants ACCUM_TA, ACCUM_TB, ACCUM_BLOCKS, ACCUM_ROW_ALIGN,
+// ACCUM_SMEM_FLOATS, and 11 B5's k a lane FC_K (fc_fwd_order's); else -1.
 extern "C" int lenet_staged_dim(int i) {
   const int dims[] = {IMG, CONV, LANES, TAPS, CLASSES, ACCUM_ROWS, ACCUM_TA, ACCUM_TB,
-                      ACCUM_BLOCKS, ACCUM_ROW_ALIGN, ACCUM_SMEM_FLOATS};
-  return (i >= 0 && i < 11) ? dims[i] : -1;
+                      ACCUM_BLOCKS, ACCUM_ROW_ALIGN, ACCUM_SMEM_FLOATS, FC_K};
+  return (i >= 0 && i < 12) ? dims[i] : -1;
 }

@@ -33,7 +33,8 @@ kernel. The batch needs no padding: a CUDA grid takes any n ≥ 1.
 A forward is 3 launches (B3, B4, B5); ``staged_value_and_ref_grads`` 8
 (B3, B4, B5, B6, B7, B9, B8, B9). Each is one CUDA launch: B9 finishes its
 sum over blocks in its last block to arrive (``accum_plan``,
-``accum_matmul_order``).
+``accum_matmul_order``). B3 is bit for bit its plain twin; B5 sums in the
+fixed order ``fc_fwd_order`` emulates.
 """
 
 from __future__ import annotations
@@ -76,6 +77,9 @@ ACCUM_ROWS = LAYOUT[5]
 #: multiple of ACCUM_ROW_ALIGN, two stages of rows in ACCUM_SMEM_FLOATS.
 ACCUM_CONSTS = (8, 4, 132, 4, 12288)
 ACCUM_TA, ACCUM_TB, ACCUM_BLOCKS, ACCUM_ROW_ALIGN, ACCUM_SMEM_FLOATS = ACCUM_CONSTS
+#: B5's k a lane (csrc/lenet_staged.cu FC_K): lane l of an image's warp
+#: sums k = FC_K·l .. FC_K·l + FC_K − 1.
+FC_K = 8
 # What lenet_accum_matmul refuses with cudaErrorInvalidValue.
 _ACCUM_LIMITS = ("needs 1 <= rows <= 2^31 - 1, ka*kb <= 256 and "
                  "ka + kb <= 48 (two stages of 128 rows in 48 KB of shared memory)")
@@ -109,7 +113,7 @@ def _lib():
     """The loaded library, its layout checked once (a failed check is not
     cached, so every later launch raises too)."""
     lib = _library.get()
-    want = LAYOUT + ACCUM_CONSTS
+    want = LAYOUT + ACCUM_CONSTS + (FC_K,)
     got = tuple(lib.lenet_staged_dim(i) for i in range(len(want)))
     if got != want:
         raise RuntimeError(f"csrc/lenet_staged.cu has layout {got}, its wrapper {want}")
@@ -219,6 +223,25 @@ def fc_fwd_plain(x: torch.Tensor, w: torch.Tensor,
     """Plain twin of B5: x·wᵀ in f32 (TF32 off on the card), then + b."""
     pre = x @ w.T + b
     return pre, sigmoid(pre)
+
+
+def fc_fwd_order(x: np.ndarray, w: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """B5's pre_f as the kernel sums it, in float32 numpy, so the card's
+    equals this bit for bit: an image's warp has lane l < 216 / FC_K sum
+    x[k]·w[o, k] for k = FC_K·l upward, one fmaf a term from 0 (the other
+    lanes hold 0); the 32 lanes add in the xor butterfly's pairing (16, 8,
+    4, 2, 1); then + b[o]. The same order for every image and every n."""
+    x = np.ascontiguousarray(x, np.float32)
+    w = np.ascontiguousarray(w, np.float32)
+    n, lanes = x.shape[0], LAYOUT[2] // FC_K
+    xs = x.reshape(n, 1, lanes, FC_K)
+    ws = w.reshape(1, LAYOUT[4], lanes, FC_K)
+    acc = np.zeros((n, LAYOUT[4], 32), np.float32)
+    for k in range(FC_K):
+        acc[:, :, :lanes] = fma_f32(xs[..., k], ws[..., k], acc[:, :, :lanes])
+    for off in (16, 8, 4, 2, 1):
+        acc = acc + acc[:, :, np.arange(32) ^ off]
+    return acc[:, :, 0] + np.asarray(b, np.float32)
 
 
 def fc_fwd(x: torch.Tensor, w: torch.Tensor,

@@ -768,6 +768,91 @@ def test_fc_bwd_matches_plain_and_fma_order_on_card(card, n, view):
     np.testing.assert_array_equal(got[2].cpu().numpy(), acc)
 
 
+# Batches of 1 and 2 (fewer images than a B5 block's warps), around a warp's
+# 32 and the path's 64, 133 (a multiple of no block) and 1000.
+FWD_SIZES = [1, 2, 7, 63, 64, 65, 133, 1000]
+
+
+def _fwd_args(card, view, seed, x_shape, w_shape, b_shape, w_scale):
+    """Seeded (x, w, b) on the host and as card views. Each view draws its
+    own values, so what an aligned run leaves in shared memory never
+    matches what an "offset" run must stage."""
+    rng = np.random.default_rng([seed, int(view == "offset")])
+    x = rng.uniform(0, 1, x_shape).astype(np.float32)
+    w = (rng.standard_normal(w_shape) * w_scale).astype(np.float32)
+    b = rng.standard_normal(b_shape).astype(np.float32)
+    args = [_card_view(a, card, view) for a in (x, w, b)]
+    if view == "offset":
+        assert all(a.data_ptr() % 16 for a in args)
+    return (x, w, b), args
+
+
+def _twice(name, fn, args):
+    """fn(*args) twice, synchronised: (first, second); two launches counted."""
+    counter = lenet_staged.launches[name]
+    before = counter.count
+    got, again = fn(*args), fn(*args)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    return got, again
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("n", FWD_SIZES)
+def test_conv_fwd_is_bit_identical_to_plain_on_card(card, n, view):
+    """B3 bit for bit against its plain twin (each output adds the bias,
+    then the 25 taps in (i, j) order, each product and sum rounded on its
+    own, whatever thread holds it) and a relaunch bit for bit. "offset"
+    views of x, w and b start one value in, off the 16-byte boundary, so
+    the kernel stages the image with 4-byte copies."""
+    _, args = _fwd_args(card, view, n, (n, 28, 28), (6, 5, 5), (6,), 0.5)
+    got, again = _twice("conv_fwd", lenet_staged.conv_fwd, args)
+    for g, a, want in zip(got, again, lenet_staged.conv_fwd_plain(*args)):
+        assert torch.equal(g, a)
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("n", FWD_SIZES)
+def test_fc_fwd_equals_its_fixed_order_on_card(card, n, view):
+    """B5's pre_f bit for bit against fc_fwd_order (its lanes' fmas and the
+    butterfly, emulated in numpy), out_f bit for bit σ of it, both within
+    LENET_RTOL of the plain twin, and a relaunch bit for bit. "offset"
+    views take the kernel's 4-byte loads."""
+    host, args = _fwd_args(card, view, n + 1, (n, 216), (10, 216),
+                           (10,), 0.1)
+    got, again = _twice("fc_fwd", lenet_staged.fc_fwd, args)
+    order = lenet_staged.fc_fwd_order(*host)
+    np.testing.assert_array_equal(got[0].cpu().numpy(), order)
+    assert torch.equal(got[1], torch.sigmoid(torch.from_numpy(order).to(card)))
+    for g, a, want in zip(got, again, lenet_staged.fc_fwd_plain(*args)):
+        assert torch.equal(g, a)
+        _close(g, want, LENET_RTOL)
+
+
+def test_conv_fwd_entry_refuses_misaligned_outputs_on_card(card):
+    """B3's float4 stores: the C entry refuses a pre or out off the 16-byte
+    boundary (the wrapper always allocates aligned ones) and launches
+    nothing."""
+    _, (x, w, b) = _fwd_args(card, "whole", 3, (2, 28, 28), (6, 5, 5),
+                             (6,), 0.5)
+    lib = lenet_staged._lib()
+    buf = torch.full((2 * 2 * 3456 + 1,), float("nan"), device=card)
+    pre, out = buf[:2 * 3456], buf[2 * 3456:]
+    stream = launch_stream(card)
+    assert lib.lenet_conv_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr(),
+                              out.data_ptr() + 4, 2, stream) == 1
+    assert lib.lenet_conv_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr() + 4,
+                              out.data_ptr(), 2, stream) == 1
+    torch.cuda.synchronize()
+    assert bool(buf.isnan().all())
+    assert lib.lenet_conv_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(), pre.data_ptr(),
+                              buf[2 * 3456 + 4:].data_ptr(), 1, stream) == 0
+    torch.cuda.synchronize()
+    want = lenet_staged.conv_fwd_plain(x[:1], w, b)
+    assert torch.equal(pre[:3456].view(1, 6, 24, 24), want[0])
+
+
 def test_staged_path_launch_counts_and_anchor_on_card(card):
     """forward and predict are 3 launches, the grads 8; the grads agree
     with B1's within JAX's tolerances for the two tiers."""

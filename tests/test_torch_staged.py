@@ -127,6 +127,94 @@ def test_fc_fwd_matches_jax(n):
 
 
 @pytest.mark.parametrize("n", SIZES)
+def test_fc_fwd_order_matches_plain_and_jax(n):
+    """lenet_staged.fc_fwd_order (B5's fixed summation order in f32 numpy,
+    which the card's pre_f equals bit for bit) against the plain twin and
+    JAX's fc_fwd in interpret mode, within the file's tolerance."""
+    a, jp, tp = arrays(n), jax_params(), port_params()
+    got = lenet_staged.fc_fwd_order(a["s1"], tp["f"]["w"].numpy(), tp["f"]["b"].numpy())
+    assert got.dtype == np.float32 and got.shape == (n, 10)
+    close(got, lenet_staged.fc_fwd_plain(t(a["s1"]), tp["f"]["w"], tp["f"]["b"])[0], name="plain")
+    close(got, jpallas.fc_fwd(a["s1"], jp["f"]["w"], jp["f"]["b"])[0], name="jax")
+
+
+def test_fc_fwd_order_sums_k_upward_then_the_butterfly():
+    """Within a lane k runs upward, one fma a term: 1e8, then + 1 (lost to
+    rounding), then − 1e8 gives 0. Across lanes the xor butterfly pairs
+    lane 0 with 16 first and with 1 last: 1e8 in lane 0, 1 in lane 16 and
+    −1e8 in lane 8 give 0, while the 1 moved to lane 1 survives."""
+    w, b = np.zeros((10, 216), np.float32), np.zeros(10, np.float32)
+    w[0] = 1.0
+    x = np.zeros((1, 216), np.float32)
+    x[0, :3] = 1e8, 1.0, -1e8
+    assert lenet_staged.fc_fwd_order(x, w, b)[0, 0] == 0.0
+    k = lenet_staged.FC_K
+    x[0, :3] = 0.0
+    x[0, 0], x[0, 16 * k], x[0, 8 * k] = 1e8, 1.0, -1e8
+    assert lenet_staged.fc_fwd_order(x, w, b)[0, 0] == 0.0
+    x[0, 16 * k], x[0, k] = 0.0, 1.0
+    assert lenet_staged.fc_fwd_order(x, w, b)[0, 0] == 1.0
+
+
+def test_fc_fwd_order_is_the_same_for_every_image_and_batch():
+    """An image's pre_f depends on its own row alone: the order is the
+    layout's, not the batch's."""
+    rng = np.random.default_rng(12)
+    x = rng.uniform(0, 1, (37, 216)).astype(np.float32)
+    w = (rng.standard_normal((10, 216)) * 0.1).astype(np.float32)
+    b = rng.standard_normal(10).astype(np.float32)
+    whole = lenet_staged.fc_fwd_order(x, w, b)
+    for i in (0, 17, 36):
+        np.testing.assert_array_equal(whole[i], lenet_staged.fc_fwd_order(x[i:i + 1], w, b)[0])
+    np.testing.assert_array_equal(whole[5:9], lenet_staged.fc_fwd_order(x[5:9], w, b))
+
+
+def _source_const(name):
+    return int(re.search(rf"constexpr int {name} = (\d+);", SOURCE.read_text()).group(1))
+
+
+def test_conv_fwd_partition_covers_every_output_once():
+    """B3's partition from csrc/lenet_staged.cu's constants: a block an
+    (image, CONV_MAPS maps), a thread CONV_ROWS rows x 4 columns of one
+    map. Over one image's blocks every (map, row, column) is written once;
+    each thread's 5 x 8 window of x lies inside the 28 x 28 image, its
+    float4 reads and stores land on 16-byte boundaries, and the staged
+    image fits in the 48 KB of static shared memory."""
+    maps, rows, strips = (_source_const(k) for k in ("CONV_MAPS", "CONV_ROWS", "CONV_STRIPS"))
+    assert strips * 4 == 24 and 6 % maps == 0 and 24 % rows == 0
+    threads = maps * strips * (24 // rows)
+    assert threads <= 1024 and 784 * 4 <= 48 * 1024
+    written = np.zeros((6, 24, 24), np.int64)
+    for group in range(6 // maps):
+        for tid in range(threads):
+            m = group * maps + tid // (strips * (24 // rows))
+            t_ = tid % (strips * (24 // rows))
+            r0, c0 = (t_ // strips) * rows, (t_ % strips) * 4
+            assert r0 + rows - 1 + 4 <= 27 and c0 + 7 <= 27
+            for r in range(r0, r0 + rows):
+                assert ((r + 4) * 28 + c0) % 4 == 0 and ((m * 24 + r) * 24 + c0) % 4 == 0
+                written[m, r, c0:c0 + 4] += 1
+    assert (written == 1).all()
+
+
+@settings(max_examples=100, deadline=None)
+@given(n=st.integers(1, 200_000))
+def test_fc_fwd_grid_covers_every_image_once(n):
+    """B5's grid from csrc/lenet_staged.cu's constants: ceil(min(n, WAVE) /
+    FC_FWD_WARPS) blocks, warp v taking images v, v + warps, ...: every
+    image once, at most FC_FWD_WAVE warps, and 27 lanes of FC_K covering
+    the 216 features."""
+    warps_a_block, wave = _source_const("FC_FWD_WARPS"), _source_const("FC_FWD_WAVE")
+    assert _source_const("FC_K") == lenet_staged.FC_K and 216 % lenet_staged.FC_K == 0
+    assert 216 // lenet_staged.FC_K <= 32
+    blocks = -(-min(n, wave) // warps_a_block)
+    warps = blocks * warps_a_block
+    assert warps <= wave + warps_a_block - 1 and blocks * warps_a_block * 32 <= 2**31 - 1
+    seen = np.concatenate([np.arange(v, n, warps) for v in range(min(warps, n))])
+    assert len(seen) == n and (np.sort(seen) == np.arange(n)).all()
+
+
+@pytest.mark.parametrize("n", SIZES)
 def test_fc_bwd_matches_jax(n):
     a, jp, tp = arrays(n), jax_params(), port_params()
     want = jpallas.fc_bwd(a["d_f"], a["s1"], jp["f"]["w"])
@@ -397,11 +485,8 @@ def test_kernel_source_names_each_tpu_kernel_it_replaces():
 
 
 def test_kernel_layout_constants_match_the_wrapper():
-    src = SOURCE.read_text()
     names = ("IMG", "CONV", "LANES", "TAPS", "CLASSES", "ACCUM_ROWS")
-    got = tuple(int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
-                for k in names)
-    assert got == lenet_staged.LAYOUT
+    assert tuple(_source_const(k) for k in names) == lenet_staged.LAYOUT
 
 
 def test_library_builds_through_the_one_builder():
