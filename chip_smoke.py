@@ -1181,33 +1181,40 @@ def conv_wgrad_bound_ms(xs):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# B3 and B5 are also timed at this batch, in turns with their library calls.
+# These staged kernels (B3, B5 and B7 redesigned, B4 whose redesigns lost
+# to it) are timed in turns with their library call (B7, which has none,
+# alone), at batch 64 and at this batch.
 STAGED_FWD_LARGE = 1000
+STAGED_TIMED = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd")
 
 
-def time_staged_forward(fn, args, lib) -> tuple:
-    """B3 or B5 in turns with its library call: (kernel ms, library ms, a
-    note with their ratio and the CUDA launches of one wrapper call)."""
-    ms, lib_ms = in_turns(lambda: fn(*args), lib, reps=200)
-    return ms, lib_ms, (f"; kernel / library {ms / lib_ms:.3f}x in turns; "
-                        f"{device_launches(lambda: fn(*args))} CUDA launches per "
+def time_against_library(fn, args, lib) -> tuple:
+    """B3, B4 or B5 in turns with its library call, or B7 alone (lib None):
+    (kernel ms, library ms or None, a note with their ratio and the CUDA
+    launches of one wrapper call)."""
+    if lib is None:
+        ms, lib_ms, note = cuda_ms(lambda: fn(*args), reps=200), None, ""
+    else:
+        ms, lib_ms = in_turns(lambda: fn(*args), lib, reps=200)
+        note = f"; kernel / library {ms / lib_ms:.3f}x in turns"
+    return ms, lib_ms, (f"{note}; {device_launches(lambda: fn(*args))} CUDA launches per "
                         f"wrapper call (torch.profiler)")
 
 
 def time_staged_kernels() -> dict:
     """(f) Each staged kernel at batch 64 at the path's inputs: device ms
-    beside its bound, its plain version and the library call; B3 and B5
-    in turns with their library call, and again at batch
-    STAGED_FWD_LARGE. B9's record holds the sums over its two call sites
-    in one step, named by the site with the larger bound."""
+    beside its bound, its plain version and the library call; the
+    STAGED_TIMED kernels in turns with their library call (B7 alone), and
+    again at batch STAGED_FWD_LARGE. B9's record holds the sums over its
+    two call sites in one step, named by the site with the larger bound."""
     params, xs, ys = lenet_inputs(TRAIN_BATCH, 400)
     sites = {}
     for case, (fn, plain, args) in stage_cases(params, xs, ys).items():
         plain_ms = cuda_ms(lambda: plain(*args), reps=50)
         lib = staged_library_call(case, args)
         note = ""
-        if case in ("conv_fwd", "fc_fwd"):
-            ms, lib_ms, note = time_staged_forward(fn, args, lib)
+        if case in STAGED_TIMED:
+            ms, lib_ms, note = time_against_library(fn, args, lib)
         elif case == "fc_bwd":
             # B6 against its yardstick in turns; the block product checked
             # against the plain twin first, and dT.s alone as a note.
@@ -1237,13 +1244,14 @@ def time_staged_kernels() -> dict:
             dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by, library_ms=lib_ms))
     n = STAGED_FWD_LARGE
     large = stage_cases(*lenet_inputs(n, 400 + n))
-    for case in ("conv_fwd", "fc_fwd"):
+    for case in STAGED_TIMED:
         fn, plain, args = large[case]
         plain_ms = cuda_ms(lambda: plain(*args), reps=50)
-        ms, lib_ms, note = time_staged_forward(fn, args, staged_library_call(case, args))
+        ms, lib_ms, note = time_against_library(fn, args, staged_library_call(case, args))
         bound, by = staged_bound_ms(case, args, as_tuple(fn(*args)))
+        lib_txt = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"[smoke] time staged {case:24s} b{n}: kernel {ms:.5f} ms, plain "
-              f"{plain_ms:.4f} ms, library {lib_ms:.5f} ms, bound {bound:.6f} ms ({by}), "
+              f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound:.6f} ms ({by}), "
               f"{bound / ms:.2%} of bound{note}", flush=True)
     bound, by = conv_wgrad_bound_ms(xs)
     print(f"[smoke] time staged conv_wgrad from x and d_pre_c1 b{TRAIN_BATCH}: bound "

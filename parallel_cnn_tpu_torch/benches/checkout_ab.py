@@ -1,6 +1,7 @@
 """This checkout's conv forward (B10), probe copies (B15, B16), LeNet step
-kernel (B1), B9 contraction and staged conv and FC forwards (B3, B5)
-against another checkout's, on one card: outputs compared, times in turns.
+kernel (B1), B9 contraction, staged conv, pool and FC forwards (B3, B4,
+B5) and pool backward (B7) against another checkout's, on one card:
+outputs compared, times in turns.
 
     python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
 
@@ -13,14 +14,14 @@ other, this, this, other. Each run computes the forward at every ResNet-18
 conv (``chip_smoke.GEOMETRIES``) at batch 64 and 128 on inputs made from a
 seed on the host, B1 (``lenet_fused.fused_value_and_ref_grads``) at batch
 64, 128 and 1000, B9 (``lenet_staged._accum_matmul``) at both of its
-call sites at batch 64, and B3 and B5 (``lenet_staged.conv_fwd`` and
-``fc_fwd``) at batch 64 and 1000, on ``chip_smoke``'s seeded LeNet inputs
-(the staged kernels at the path's own, ``chip_smoke.stage_cases``), and
-times each, the copies in turns with ``copy_``. The first run of each side
-saves its outputs, which are then compared: the forward, the copies and B3
-bit for bit, B1's, B9's and B5's within ``chip_smoke.LENET_RTOL`` of the
-other side's scale (a redesign may sum in another order), with the max
-|Δ| printed.
+call sites at batch 64, and B3, B4, B5 and B7 (``lenet_staged.conv_fwd``,
+``pool_fwd``, ``fc_fwd`` and ``pool_bwd``) at batch 64 and 1000, on
+``chip_smoke``'s seeded LeNet inputs (the staged kernels at the path's
+own, ``chip_smoke.stage_cases``), and times each, the copies in turns with
+``copy_``. The first run of each side saves its outputs, which are then
+compared: the forward, the copies, B3, B4 and B7 bit for bit, B1's, B9's
+and B5's within ``chip_smoke.LENET_RTOL`` of the other side's scale (a
+redesign may sum in another order), with the max |Δ| printed.
 Prints one line per comparison and per time (each side's two runs
 averaged). Exits non-zero where a comparison fails. Needs the card.
 """
@@ -40,6 +41,7 @@ COPY_REPS = 300
 LENET_BATCHES = (64, 128, 1000)
 LENET_REPS = 200
 STAGED_FWD_BATCHES = (64, 1000)
+STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd")
 #: Outputs whose order a redesign may change: compared within a tolerance.
 TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd")
 
@@ -103,7 +105,7 @@ def side(out_file: str) -> None:
     for n in STAGED_FWD_BATCHES:
         params, xs, ys = cs.lenet_inputs(n, 500 + n)
         cases = cs.stage_cases(params, xs, ys)
-        for case in ("conv_fwd", "fc_fwd"):
+        for case in STAGED_CASES:
             fn, _, args = cases[case]
             outs[f"{case} b{n}"] = torch.cat([o.reshape(-1) for o in fn(*args)]).cpu()
             times[f"{case} b{n}"] = cs.cuda_ms(lambda: fn(*args), reps=LENET_REPS)

@@ -5,9 +5,10 @@
 ``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``),
 the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``), the
 LeNet step kernel (B1, ``csrc/lenet_fused.cu``), B9's contraction
-(``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``) and the staged
+(``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``), the staged
 conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
-file).
+file) and the staged pool forward and backward (B4 ``pool_fwd_kernel``,
+B7 ``pool_bwd_kernel``, same file).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
@@ -42,9 +43,10 @@ COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
 #: forward's (against its plain twin at every tile, across batch positions
-#: at every ResNet-18 conv), B1's, B9's, B3's and B5's.
+#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's and B7's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
-          "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd")
+          "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd "
+          "or pool_fwd or pool_bwd")
 #: Copies built and tested at once (each its own pytest process).
 JOBS = 3
 
@@ -135,6 +137,26 @@ MUTANTS = {
         "for (int off = 16; off > 1; off >>= 1)"),
     "B5 every class takes class 0's bias": (
         f"{CSRC}/lenet_staged.cu", "__ldg(bias + (lane < CLASSES ? lane : 0))", "__ldg(bias)"),
+    "B4 last tap dropped": (
+        f"{CSRC}/lenet_staged.cu",
+        "for (int t = 0; t < TAPS; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], xi[t * LANES]));",
+        "for (int t = 0; t < TAPS - 1; ++t) acc = __fadd_rn(acc, __fmul_rn(w[t], xi[t * LANES]));"),
+    "B4 bias read from the first tap": (
+        f"{CSRC}/lenet_staged.cu", "float acc = bias[0];", "float acc = w[0];"),
+    "B4 grid's last output skipped": (
+        f"{CSRC}/lenet_staged.cu",
+        "if (idx >= total) return;\n  const long long img = idx / LANES;",
+        "if (idx >= total - 1) return;\n  const long long img = idx / LANES;"),
+    "B7 last tap row not stored": (
+        f"{CSRC}/lenet_staged.cu", "for (int t = 0; t < ROWS; ++t) {",
+        "for (int t = 0; t < ROWS - 1; ++t) {"),
+    "B7 last image of a ragged block skipped": (
+        f"{CSRC}/lenet_staged.cu", "if (g >= threads) return;",
+        "if (g >= threads || (threads % POOL_BWD_THREADS != 0 &&\n"
+        "                       g >= threads - POOL_BWD_SPLIT * POOL_BWD_GROUPS)) return;"),
+    "B7 4-byte path reads a group's last lane one value early": (
+        f"{CSRC}/lenet_staged.cu", "for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);",
+        "for (int k = 0; k < V; ++k) v[k] = __ldg(p + k - (k == V - 1));"),
 }
 
 

@@ -6,23 +6,35 @@
 - ``conv_fwd``: B3's maps a block and rows a thread, ``CONV_MAPS`` and
   ``CONV_ROWS`` in ``csrc/lenet_staged.cu`` (a block is one image and
   CONV_MAPS maps; a thread CONV_ROWS rows x 4 columns of one map);
-- ``fc_fwd``: B5's warps a block, ``FC_FWD_WARPS`` in the same file.
+- ``fc_fwd``: B5's warps a block, ``FC_FWD_WARPS`` in the same file;
+- ``pool_fwd``: B4's source kernel (one thread an output) against
+  candidate designs (``CANDIDATES``): a thread ``POOL_FWD_VEC`` lanes in
+  blocks of ``POOL_FWD_THREADS``, a block's rows staged in shared memory by
+  ``cp.async``, and a block an image whose 13,824-byte window block one
+  bulk copy (``cp.async.bulk``) brings in on an mbarrier;
+- ``pool_bwd``: B7's lanes a thread, threads a block and threads a lane
+  group, ``POOL_BWD_VEC``, ``POOL_BWD_THREADS`` and ``POOL_BWD_SPLIT`` in
+  the same file, against the parent's kernel (one thread an output) and
+  two candidates: a block's rows built in shared memory and stored as
+  float4s, and a block an image written by one bulk store.
 
-    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd]
+    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd]
 
-(all three without an argument). Each variant is built from a copy of the
-source in a temporary directory whose only change is its ``constexpr int``
-lines, so the source keeps one choice and no switch. Each runs through the
-user-facing wrapper (``lenet_fused.fused_value_and_ref_grads``,
-``lenet_staged.conv_fwd``, ``lenet_staged.fc_fwd``) with that library
-swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s seeded LeNet
-inputs (B3 and B5 at the staged path's own inputs, ``chip_smoke.
-stage_cases``): B1 against its plain version (``chip_smoke.LENET_RTOL``), B3
-bit for bit against its plain twin, B5 bit for bit against
-``lenet_staged.fc_fwd_order``, and a relaunch bit for bit; then device
-times in two rounds, the variants in order and then reversed. Prints one
-line per variant and batch. Exits non-zero where a variant disagrees or
-differs on a relaunch. Needs the card.
+(all of them without an argument). Each variant is built from a copy of
+the source in a temporary directory whose only change is its ``constexpr
+int`` lines (and, for a candidate design, the spans ``CANDIDATES``
+replaces), so the source keeps one choice and no switch. Each runs
+through the user-facing wrapper (``lenet_fused.fused_value_and_ref_grads``,
+``lenet_staged.conv_fwd``, ``fc_fwd``, ``pool_fwd``, ``pool_bwd``) with
+that library swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s
+seeded LeNet inputs (the staged kernels at the path's own inputs,
+``chip_smoke.stage_cases``): B1 against its plain version
+(``chip_smoke.LENET_RTOL``), B3, B4 and B7 bit for bit against their plain
+twins, B5 bit for bit against ``lenet_staged.fc_fwd_order``, and a
+relaunch bit for bit; then device times in two rounds, the variants in
+order and then reversed. Prints one line per variant and batch. Exits
+non-zero where a variant disagrees or differs on a relaunch. Needs the
+card.
 """
 
 from __future__ import annotations
@@ -34,7 +46,7 @@ import shutil
 import sys
 import tempfile
 from pathlib import Path
-from typing import Callable, Dict, NamedTuple, Tuple
+from typing import Callable, Dict, NamedTuple, Tuple, Union
 from unittest import mock
 
 import torch
@@ -45,14 +57,15 @@ REPS = 200
 
 class Sweep(NamedTuple):
     """One kernel's sweep: its wrapper module's name, its kernels' names
-    (for their ptxas lines), the constants of each variant, ``inputs(n)``
+    (for their ptxas lines), the constants of each variant (and a
+    ``design``, a key of CANDIDATES, for a candidate), ``inputs(n)``
     -> the wrapper's arguments, ``run(args)`` -> its outputs as a list,
     ``check(args, outs)`` -> (max |Δ| against the reference, whether that
     is within the contract)."""
 
     module: str
     kernels: Tuple[str, ...]
-    variants: Tuple[Dict[str, int], ...]
+    variants: Tuple[Dict[str, Union[int, str]], ...]
     inputs: Callable
     run: Callable
     check: Callable
@@ -103,12 +116,15 @@ def _staged_run(name):
     return run
 
 
-def _conv_check(args, outs):
-    from parallel_cnn_tpu_torch.ops import lenet_staged
+def _plain_check(name):
+    """Bit for bit against the staged function's plain twin."""
+    def check(args, outs):
+        from parallel_cnn_tpu_torch.ops import lenet_staged
 
-    want = lenet_staged.conv_fwd_plain(*args)
-    worst = max(float((g - w).abs().max()) for g, w in zip(outs, want))
-    return worst, all(torch.equal(g, w) for g, w in zip(outs, want))
+        want = getattr(lenet_staged, f"{name}_plain")(*args)
+        worst = max(float((g - w).abs().max()) for g, w in zip(outs, want))
+        return worst, all(torch.equal(g, w) for g, w in zip(outs, want))
+    return check
 
 
 def _fc_check(args, outs):
@@ -128,20 +144,304 @@ SWEEPS = {
     "conv_fwd": Sweep("lenet_staged", ("conv_fwd_kernel",),
                       tuple({"CONV_MAPS": m, "CONV_ROWS": r} for r in (1, 2, 3, 4, 6, 8)
                             for m in (1, 2, 3, 6)),
-                      _stage_inputs("conv_fwd"), _staged_run("conv_fwd"), _conv_check),
+                      _stage_inputs("conv_fwd"), _staged_run("conv_fwd"),
+                      _plain_check("conv_fwd")),
     "fc_fwd": Sweep("lenet_staged", ("fc_fwd_kernel",),
                     tuple({"FC_FWD_WARPS": k} for k in (1, 2, 4, 8)),
                     _stage_inputs("fc_fwd"), _staged_run("fc_fwd"), _fc_check),
+    "pool_fwd": Sweep("lenet_staged", ("pool_fwd_kernel",),
+                      ({},)
+                      + tuple({"design": "vec_fwd", "POOL_FWD_VEC": v, "POOL_FWD_THREADS": t}
+                              for v in (1, 2, 4) for t in (32, 64, 128, 256))
+                      + tuple({"design": "stage_fwd", "POOL_FWD_VEC": 1, "POOL_FWD_THREADS": t}
+                              for t in (216, 72))
+                      + ({"design": "bulk_fwd", "POOL_FWD_VEC": 4, "POOL_FWD_THREADS": 54},),
+                      _stage_inputs("pool_fwd"), _staged_run("pool_fwd"),
+                      _plain_check("pool_fwd")),
+    "pool_bwd": Sweep("lenet_staged", ("pool_bwd_kernel",),
+                      ({"design": "parent_bwd", "POOL_BWD_VEC": 1, "POOL_BWD_THREADS": 256,
+                        "POOL_BWD_SPLIT": 1},)
+                      + tuple({"POOL_BWD_VEC": v, "POOL_BWD_THREADS": t, "POOL_BWD_SPLIT": p}
+                              for v in (1, 2, 4) for t in (32, 64, 128, 256) for p in (1, 2))
+                      + tuple({"design": "stage_bwd", "POOL_BWD_VEC": 1, "POOL_BWD_THREADS": t,
+                               "POOL_BWD_SPLIT": 1} for t in (216, 36))
+                      + ({"design": "bulk_bwd", "POOL_BWD_VEC": 4, "POOL_BWD_THREADS": 54,
+                          "POOL_BWD_SPLIT": 1},),
+                      _stage_inputs("pool_bwd"), _staged_run("pool_bwd"),
+                      _plain_check("pool_bwd")),
 }
 
 
-def label(consts: Dict[str, int]) -> str:
-    return " ".join(f"{k}={v}" for k, v in consts.items())
+# Candidate designs. Each is a list of (pattern, text): the one span of
+# the source each pattern matches is replaced by its text, before the
+# variant's constants are set. Each keeps its kernel's signature.
+#
+# B4's candidates replace the source's kernel (one thread an output) and
+# its C entry by a grid of POOL_FWD_GROUPS = 216 / POOL_FWD_VEC lane groups
+# an image in blocks of POOL_FWD_THREADS, which refuses a pre or out off
+# the 16-byte boundary.
+_FWD_KERNEL = r"__global__ void __launch_bounds__\(THREADS\)\npool_fwd_kernel\(.*?\n}\n"
+_FWD_ENTRY = r'extern "C" int lenet_pool_fwd\(.*?\n}\n'
+_FWD_GRID = r"""constexpr int POOL_FWD_VEC = 4;
+constexpr int POOL_FWD_THREADS = 64;
+constexpr int POOL_FWD_GROUPS = LANES / POOL_FWD_VEC;
+static_assert(LANES % POOL_FWD_VEC == 0, "whole lane groups");
+
+"""
+_FWD_GRID_ENTRY = r"""extern "C" int lenet_pool_fwd(const float* xw, const float* w, const float* b,
+                              float* pre, float* out, int n, void* stream) {
+  const long long groups = static_cast<long long>(n) * POOL_FWD_GROUPS;
+  const long long blocks = (groups + POOL_FWD_THREADS - 1) / POOL_FWD_THREADS;
+  if (n <= 0 || blocks > INT_MAX || !aligned16(pre) || !aligned16(out))
+    return static_cast<int>(cudaErrorInvalidValue);
+  pool_fwd_kernel<<<static_cast<int>(blocks), POOL_FWD_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(xw, w, b, pre, out, groups);
+  return launched();
+}
+"""
+# A thread POOL_FWD_VEC neighbouring lanes of one image: its taps first,
+# then its 16 rows as float4 (float2, float) loads, each lane the bias and
+# the taps in t order.
+_VEC_FWD = r"""__global__ void __launch_bounds__(POOL_FWD_THREADS)
+pool_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ pre,
+                float* __restrict__ out, long long groups) {
+  constexpr int V = POOL_FWD_VEC;
+  const long long g = static_cast<long long>(blockIdx.x) * POOL_FWD_THREADS + threadIdx.x;
+  if (g >= groups) return;
+  const long long img = g / POOL_FWD_GROUPS;
+  const int l0 = static_cast<int>(g - img * POOL_FWD_GROUPS) * V;
+  const float* xi = xw + img * (TAPS * LANES) + l0;
+  float wr[TAPS];
+  load_taps<TAPS>(wr, w);
+  const float b = __ldg(bias);
+  float x[TAPS][V];
+  if (aligned_vec<V>(xw)) {
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) load_vec<V>(x[t], xi + t * LANES);
+  } else {
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t)
+#pragma unroll
+      for (int k = 0; k < V; ++k) x[t][k] = __ldg(xi + t * LANES + k);
+  }
+  float acc[V], s[V];
+#pragma unroll
+  for (int k = 0; k < V; ++k) acc[k] = b;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t)
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wr[t], x[t][k]));
+#pragma unroll
+  for (int k = 0; k < V; ++k) s[k] = sigmoid(acc[k]);
+  store_vec<V>(pre + g * V, acc);
+  store_vec<V>(out + g * V, s);
+}
+"""
+_STAGE_FWD = r"""__global__ void __launch_bounds__(POOL_FWD_THREADS)
+pool_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ pre,
+                float* __restrict__ out, long long groups) {
+  constexpr int SEG = POOL_FWD_THREADS;
+  static_assert(POOL_FWD_VEC == 1 && LANES % SEG == 0 && SEG % 4 == 0, "whole float4s");
+  __shared__ __align__(16) float xs[TAPS * SEG];
+  const int tid = threadIdx.x;
+  const long long g0 = static_cast<long long>(blockIdx.x) * SEG;
+  const long long img = g0 / LANES;
+  const float* xi = xw + img * (TAPS * LANES) + (g0 - img * LANES);
+  if (aligned16(xw)) {
+    for (int i = tid; i < TAPS * SEG / 4; i += SEG) {
+      const int t = i / (SEG / 4);
+      const int q = i - t * (SEG / 4);
+      ftile::cp_async16(xs + t * SEG + 4 * q, xi + t * LANES + 4 * q, true);
+    }
+  } else {
+    for (int i = tid; i < TAPS * SEG; i += SEG) {
+      const int t = i / SEG;
+      ftile::cp_async4(xs + i, xi + t * LANES + (i - t * SEG), true);
+    }
+  }
+  ftile::cp_async_commit();
+  float wr[TAPS];
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) wr[t] = __ldg(w + t);
+  float acc = __ldg(bias);
+  ftile::cp_async_wait<0>();
+  __syncthreads();
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) acc = __fadd_rn(acc, __fmul_rn(wr[t], xs[t * SEG + tid]));
+  pre[g0 + tid] = acc;
+  out[g0 + tid] = sigmoid(acc);
+}
+"""
+# A block an image (54 threads of 4 lanes), its 13,824-byte window block
+# brought into shared memory by one bulk copy on an mbarrier.
+_BULK_FWD = r"""__global__ void __launch_bounds__(POOL_FWD_THREADS)
+pool_fwd_kernel(const float* __restrict__ xw, const float* __restrict__ w,
+                const float* __restrict__ bias, float* __restrict__ pre,
+                float* __restrict__ out, long long groups) {
+  static_assert(POOL_FWD_VEC == 4 && POOL_FWD_THREADS == POOL_FWD_GROUPS, "a block an image");
+  constexpr unsigned BYTES = TAPS * LANES * 4;
+  __shared__ __align__(128) float xs[TAPS * LANES];
+  __shared__ __align__(8) unsigned long long bar;
+  const int tid = threadIdx.x;
+  const long long img = blockIdx.x;
+  const float* xi = xw + img * (TAPS * LANES);
+  const bool bulk = aligned16(xw);
+  const unsigned b = ftile::smem_u32(&bar);
+  if (bulk) {
+    if (tid == 0) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(b), "r"(1u) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    __syncthreads();
+    if (tid == 0) {
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                   "r"(BYTES) : "memory");
+      asm volatile(
+          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+          "[%3];\n" ::"r"(ftile::smem_u32(xs)), "l"(xi), "r"(BYTES), "r"(b) : "memory");
+    }
+  }
+  float x[TAPS][4];
+  if (bulk) {
+    asm volatile(
+        "{\n.reg .pred P1;\nWAIT:\nmbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+        "@P1 bra DONE;\nbra WAIT;\nDONE:\n}\n" ::"r"(b), "r"(0u) : "memory");
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + t * LANES + 4 * tid);
+      x[t][0] = a.x, x[t][1] = a.y, x[t][2] = a.z, x[t][3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t)
+#pragma unroll
+      for (int k = 0; k < 4; ++k) x[t][k] = __ldg(xi + t * LANES + 4 * tid + k);
+  }
+  const float bv = __ldg(bias);
+  float acc[4], s[4];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) acc[k] = bv;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) {
+    const float wt = __ldg(w + t);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(wt, x[t][k]));
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) s[k] = sigmoid(acc[k]);
+  const long long o = img * LANES + 4 * tid;
+  store_vec<4>(pre + o, acc);
+  store_vec<4>(out + o, s);
+}
+"""
+
+# B7's candidates replace its kernel, with the source's grid: the parent's
+# kernel (one thread an output, built with POOL_BWD_VEC 1, POOL_BWD_THREADS
+# 256 and POOL_BWD_SPLIT 1), a block a segment of lanes whose rows are
+# built in shared memory and stored as float4s, and a block an image whose
+# rows are written by one bulk store.
+_BWD_KERNEL = r"__global__ void __launch_bounds__\(POOL_BWD_THREADS\)\npool_bwd_kernel\(.*?\n}\n"
+_PARENT_BWD = r"""__global__ void __launch_bounds__(POOL_BWD_THREADS)
+pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
+                const float* __restrict__ w, float* __restrict__ dpre,
+                float* __restrict__ dxw, long long total) {
+  const long long idx = global_index();
+  if (idx >= total) return;
+  const long long img = idx / LANES;
+  const int lane = static_cast<int>(idx - img * LANES);
+  const float s = sigmoid(pre[idx]);
+  const float dp = dout[idx] * s * (1.0f - s);
+  dpre[idx] = dp;
+  float* di = dxw + img * (TAPS * LANES) + lane;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) di[t * LANES] = w[t] * dp;
+}
+"""
+_STAGE_BWD = r"""__global__ void __launch_bounds__(POOL_BWD_THREADS)
+pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
+                const float* __restrict__ w, float* __restrict__ dpre,
+                float* __restrict__ dxw, long long threads) {
+  constexpr int SEG = POOL_BWD_THREADS;
+  static_assert(POOL_BWD_VEC == 1 && POOL_BWD_SPLIT == 1 && LANES % SEG == 0 && SEG % 4 == 0,
+                "whole float4s");
+  __shared__ __align__(16) float ds[TAPS * SEG];
+  const int tid = threadIdx.x;
+  const long long g0 = static_cast<long long>(blockIdx.x) * SEG;
+  const long long img = g0 / LANES;
+  const float s = sigmoid(__ldg(pre + g0 + tid));
+  const float dp = __ldg(dout + g0 + tid) * s * (1.0f - s);
+  dpre[g0 + tid] = dp;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) ds[t * SEG + tid] = __ldg(w + t) * dp;
+  __syncthreads();
+  float* di = dxw + img * (TAPS * LANES) + (g0 - img * LANES);
+  for (int i = tid; i < TAPS * SEG / 4; i += SEG) {
+    const int t = i / (SEG / 4);
+    const int q = i - t * (SEG / 4);
+    *reinterpret_cast<float4*>(di + t * LANES + 4 * q) =
+        *reinterpret_cast<const float4*>(ds + t * SEG + 4 * q);
+  }
+}
+"""
+_BULK_BWD = r"""__global__ void __launch_bounds__(POOL_BWD_THREADS)
+pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
+                const float* __restrict__ w, float* __restrict__ dpre,
+                float* __restrict__ dxw, long long threads) {
+  static_assert(POOL_BWD_VEC == 4 && POOL_BWD_SPLIT == 1 && POOL_BWD_THREADS == POOL_BWD_GROUPS,
+                "a block an image");
+  constexpr unsigned BYTES = TAPS * LANES * 4;
+  __shared__ __align__(128) float ds[TAPS * LANES];
+  const int tid = threadIdx.x;
+  const long long img = blockIdx.x;
+  const long long o = img * LANES + 4 * tid;
+  float d[4], p[4], dp[4];
+  load_lanes<4>(d, dout + o);
+  load_lanes<4>(p, pre + o);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    const float s = sigmoid(p[k]);
+    dp[k] = d[k] * s * (1.0f - s);
+  }
+  store_vec<4>(dpre + o, dp);
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) {
+    const float wt = __ldg(w + t);
+    *reinterpret_cast<float4*>(ds + t * LANES + 4 * tid) =
+        make_float4(wt * dp[0], wt * dp[1], wt * dp[2], wt * dp[3]);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (tid == 0) {
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+                     dxw + img * (TAPS * LANES)), "r"(ftile::smem_u32(ds)), "r"(BYTES)
+                 : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  }
+}
+"""
+
+#: design name -> [(pattern, text), ...].
+CANDIDATES = {
+    "vec_fwd": [(_FWD_KERNEL, _FWD_GRID + _VEC_FWD), (_FWD_ENTRY, _FWD_GRID_ENTRY)],
+    "stage_fwd": [(_FWD_KERNEL, _FWD_GRID + _STAGE_FWD), (_FWD_ENTRY, _FWD_GRID_ENTRY)],
+    "bulk_fwd": [(_FWD_KERNEL, _FWD_GRID + _BULK_FWD), (_FWD_ENTRY, _FWD_GRID_ENTRY)],
+    "parent_bwd": [(_BWD_KERNEL, _PARENT_BWD)],
+    "stage_bwd": [(_BWD_KERNEL, _STAGE_BWD)],
+    "bulk_bwd": [(_BWD_KERNEL, _BULK_BWD)],
+}
 
 
-def variant(root: Path, module, consts: Dict[str, int]):
+def label(consts: Dict[str, Union[int, str]]) -> str:
+    return " ".join(f"{k}={v}" for k, v in consts.items()) or "source"
+
+
+def variant(root: Path, module, consts: Dict[str, Union[int, str]]):
     """A Library of ``module``'s source with each ``constexpr int NAME``
-    line of ``consts`` set to its value, the source (and the headers it
+    line of ``consts`` set to its value (and a ``design``'s kernel
+    replaced by its CANDIDATES text), the source (and the headers it
     includes) copied under ``root``."""
     from parallel_cnn_tpu_torch.ops import _cuda_build
 
@@ -150,6 +450,12 @@ def variant(root: Path, module, consts: Dict[str, int]):
     d.mkdir()
     text = lib.source.read_text()
     for name, value in consts.items():
+        if name == "design":
+            for pattern, replacement in CANDIDATES[value]:
+                text, count = re.subn(pattern, lambda _: replacement, text, flags=re.S)
+                if count != 1:
+                    raise ValueError(f"{lib.source.name} has {count} spans matching {value}'s")
+            continue
         text, count = re.subn(rf"(constexpr int {name} = )\d+;", rf"\g<1>{value};", text)
         if count != 1:
             raise ValueError(f"{lib.source.name} has {count} lines constexpr int {name} = ...")

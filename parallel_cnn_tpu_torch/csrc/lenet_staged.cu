@@ -22,15 +22,17 @@
 // error vector and the bias sums stay PyTorch ops, as they were XLA ops
 // outside every TPU kernel.
 //
-// Design. B4, B7 and B8 give one thread one output and walk its sum in the
+// Design. B4 and B8 give one thread one output and walk its sum in the
 // TPU kernel's order: B4 starts from the bias and adds the 16 taps in t
 // order, each product and sum rounded on its own (__fmul_rn/__fadd_rn) as
-// the plain PyTorch version rounds them. B3 (below) keeps that order and
-// rounding for each of its outputs (the bias, then the 25 taps in (i, j)
-// order) but gives a thread a register tile of outputs from an image staged
-// in shared memory. B5 (below) is a warp an image, k split over the lanes
-// and a fixed shuffle tree. B6 (below) sums its weight and bias grads over
-// the batch in shards and a fixed tree, and its input grad over o upward.
+// the plain PyTorch version rounds them. B7 (below) gives a thread two
+// neighbouring lanes of one image and half of their 16 rows. B3 (below)
+// keeps B4's order and rounding for each of its outputs (the bias, then
+// the 25 taps in (i, j) order) but gives a thread a register tile of
+// outputs from an image staged in shared memory. B5 (below) is a warp an
+// image, k split over the lanes and a fixed shuffle tree. B6 (below) sums
+// its weight and bias grads over the batch in shards and a fixed tree, and
+// its input grad over o upward.
 // B9 (below) reduces up to 576n rows in one launch: row shards a block,
 // register tiles a warp, a shuffle tree, and the blocks' partials summed by
 // the last block to take an integer ticket. No float atomics anywhere: a
@@ -43,9 +45,11 @@
 //
 // Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32), at batch 64, each input
 // read once and each output written once: B3 moves 1.97 MB (0.59 us) for
-// 11.1 MFLOP (0.17 us), B4 1.0 MB, B5 69 kB, B6 130 kB, B7 1.05 MB, B8 2.65
-// MB (0.79 us), B9 at conv_wgrad 4.6 MB (1.37 us) for 11.1 MFLOP: every one
-// is bound by bytes, and every one sits below a launch's few microseconds.
+// 11.1 MFLOP (0.17 us), B4 1.0 MB (0.30 us), B5 69 kB, B6 130 kB, B7 1.05 MB
+// (0.31 us), B8 2.65 MB (0.79 us), B9 at conv_wgrad 4.6 MB (1.37 us) for
+// 11.1 MFLOP: every one is bound by bytes, and every one sits below a
+// launch's few microseconds. At batch 1000 B4 moves 15.6 MB (4.64 us) for
+// 6.9 MFLOP and B7 16.4 MB (4.90 us): there the bytes set the bound.
 // B9's bytes are those of the im2col-fed product; the weight gradient it
 // serves needs only x and d_pre_c1, 1.09 MB (0.32 us), so a B9 that read x
 // directly would drop the host-side im2col and three quarters of its bound.
@@ -107,6 +111,28 @@
 //     bound of each site sits below a launch's latency (1.37 us and 0.28
 //     us): the launch and two dependent round trips set its time.
 //
+// B7 replaces `_pool_bwd_kernel`, first ported as one thread an output of
+// one image (16 scalar 4-byte stores a thread, strided by a row of 216
+// floats, in blocks of 256), with a thread POOL_BWD_VEC neighbouring lanes
+// and TAPS / POOL_BWD_SPLIT rows of one image, in blocks of
+// POOL_BWD_THREADS:
+//   - its taps are loaded first, as float4s; then d and pre as one access
+//     a lane group (4-byte loads off the boundary, as a view one value in);
+//   - each part recomputes sigma and dpre (d * s * (1 - s) left to right)
+//     and stores its rows w[t] * dpre as float2s; part 0 stores dpre. Every
+//     row is 864 bytes, so where dxw starts on a 16-byte boundary every
+//     row does; the C entry refuses dpre or dxw off it (the wrapper
+//     allocates them);
+//   - each output is the plain version's one product, so B7 is bit for bit
+//     its plain version at every partition.
+// B4 stays one thread an output: giving a thread 2 or 4 lanes (float2 or
+// float4 loads, taps first, blocks of 32-256), staging a block's rows in
+// shared memory with cp.async, or bringing an image's window block in by
+// one bulk copy (cp.async.bulk on an mbarrier) each lost to it at batch 64
+// or 1000 on an H100 (benches/lenet_sweep.py pool_fwd keeps them as
+// candidates). At batch 64 both bounds (0.30, 0.31 us) sit far below a
+// launch; at batch 1000 the bytes do (4.64, 4.90 us).
+//
 // B6 replaces `_fc_bwd_kernel` with two kinds of blocks in one launch (one
 // pallas_call in JAX):
 //   - FC_SLAB_BLOCKS gw/gb blocks, each owning a slab of FC_SLAB of the 216
@@ -135,8 +161,8 @@
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the wrapper allocates outputs and B9's scratch and
 // checks devices, dtypes, shapes and contiguity first; the launchers refuse
-// an empty batch, B3's misaligned pre or out, B6's misaligned dout and B9's
-// operands past its limits.
+// an empty batch, B3's misaligned pre or out, B6's misaligned dout, B7's
+// misaligned dpre or dxw and B9's operands past its limits.
 
 #include <climits>
 #include <cstdint>
@@ -218,6 +244,21 @@ static_assert(FC_FWD_LANES * FC_K == LANES && FC_FWD_LANES <= 32 && CLASSES <= 3
               "a lane a k slice, a lane a class");
 static_assert(FC_K == 8, "two float4s a lane");
 
+// B7: a thread owns POOL_BWD_VEC neighbouring lanes of one image (one
+// float2 access a row; POOL_BWD_GROUPS lane groups an image) and TAPS /
+// POOL_BWD_SPLIT rows of its dxw, POOL_BWD_SPLIT threads sharing a lane
+// group; POOL_BWD_THREADS threads a block, the grid from n alone. Two lanes
+// x 8 rows in blocks of 64, from 28 partitions timed on an H100
+// (benches/lenet_sweep.py pool_bwd): the fastest of the two that beat one
+// thread an output at batch 64, 128 and 1000; 4 lanes (float4 stores) were
+// slower at 64 and 128.
+constexpr int POOL_BWD_VEC = 2;
+constexpr int POOL_BWD_THREADS = 64;
+constexpr int POOL_BWD_SPLIT = 2;
+constexpr int POOL_BWD_GROUPS = LANES / POOL_BWD_VEC;
+static_assert(LANES % POOL_BWD_VEC == 0, "whole lane groups");
+static_assert(TAPS % (4 * POOL_BWD_SPLIT) == 0, "whole float4s of taps a part");
+
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
 }
@@ -232,6 +273,69 @@ int blocks_for(long long total) {
 
 __host__ __device__ __forceinline__ bool aligned16(const void* ptr) {
   return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
+}
+
+// V floats (1, 2 or 4) as one access of 4V bytes: p must lie on a 4V-byte
+// boundary.
+template <int V>
+__device__ __forceinline__ bool aligned_vec(const float* p) {
+  return (reinterpret_cast<std::uintptr_t>(p) & (4u * V - 1)) == 0;
+}
+
+template <int V>
+__device__ __forceinline__ void load_vec(float (&v)[V], const float* __restrict__ p) {
+  static_assert(V == 1 || V == 2 || V == 4, "a float, float2 or float4");
+  if constexpr (V == 4) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else if constexpr (V == 2) {
+    const float2 a = __ldg(reinterpret_cast<const float2*>(p));
+    v[0] = a.x, v[1] = a.y;
+  } else {
+    v[0] = __ldg(p);
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_vec(float* __restrict__ p, const float (&v)[V]) {
+  if constexpr (V == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    p[0] = v[0];
+  }
+}
+
+// K weights from p (K a multiple of 4): float4 loads where p lies on a
+// 16-byte boundary, else K 4-byte loads. B7 loads its taps first, before
+// its data: placed at their use, ptxas issued them after the data's
+// loads, each batch waiting on its own round trip.
+template <int K>
+__device__ __forceinline__ void load_taps(float (&v)[K], const float* __restrict__ p) {
+  static_assert(K % 4 == 0, "whole float4s");
+  if (aligned16(p)) {
+#pragma unroll
+    for (int q = 0; q < K / 4; ++q) {
+      const float4 a = __ldg(reinterpret_cast<const float4*>(p) + q);
+      v[4 * q] = a.x, v[4 * q + 1] = a.y, v[4 * q + 2] = a.z, v[4 * q + 3] = a.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = __ldg(p + k);
+  }
+}
+
+// V floats from p: one access where p lies on a 4V-byte boundary, else V
+// 4-byte loads.
+template <int V>
+__device__ __forceinline__ void load_lanes(float (&v)[V], const float* __restrict__ p) {
+  if (aligned_vec<V>(p)) {
+    load_vec<V>(v, p);
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);
+  }
 }
 
 // Eight floats from p: two float4 loads where p is 16-byte aligned, else
@@ -536,20 +640,43 @@ fc_bwd_kernel(const float* __restrict__ d, const float* __restrict__ s,
 }
 
 // B7: dpre = dout * s * (1 - s) with s = sigma(pre); dxw[b,t,l] = w[t] * dpre[b,l].
-__global__ void __launch_bounds__(THREADS)
+// Thread g of the grid (g < threads = n * POOL_BWD_SPLIT * POOL_BWD_GROUPS)
+// owns lanes l0 .. l0 + POOL_BWD_VEC - 1 of image g / (POOL_BWD_SPLIT *
+// POOL_BWD_GROUPS) and rows part * ROWS .. part * ROWS + ROWS - 1 of its
+// dxw, part = (g / POOL_BWD_GROUPS) % POOL_BWD_SPLIT; part 0 also stores
+// dpre.
+__global__ void __launch_bounds__(POOL_BWD_THREADS)
 pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
                 const float* __restrict__ w, float* __restrict__ dpre,
-                float* __restrict__ dxw, long long total) {
-  const long long idx = global_index();
-  if (idx >= total) return;
-  const long long img = idx / LANES;
-  const int lane = static_cast<int>(idx - img * LANES);
-  const float s = sigmoid(pre[idx]);
-  const float dp = dout[idx] * s * (1.0f - s);
-  dpre[idx] = dp;
-  float* di = dxw + img * (TAPS * LANES) + lane;
+                float* __restrict__ dxw, long long threads) {
+  constexpr int V = POOL_BWD_VEC;
+  constexpr int ROWS = TAPS / POOL_BWD_SPLIT;
+  const long long g = static_cast<long long>(blockIdx.x) * POOL_BWD_THREADS + threadIdx.x;
+  if (g >= threads) return;
+  const long long row = g / POOL_BWD_GROUPS;  // (image, part)
+  const int l0 = static_cast<int>(g - row * POOL_BWD_GROUPS) * V;
+  const long long img = row / POOL_BWD_SPLIT;
+  const int part = static_cast<int>(row - img * POOL_BWD_SPLIT);
+  const long long o = img * LANES + l0;
+  float wr[ROWS];
+  load_taps<ROWS>(wr, w + part * ROWS);
+  float d[V], p[V], dp[V];
+  load_lanes<V>(d, dout + o);
+  load_lanes<V>(p, pre + o);
 #pragma unroll
-  for (int t = 0; t < TAPS; ++t) di[t * LANES] = w[t] * dp;
+  for (int k = 0; k < V; ++k) {
+    const float s = sigmoid(p[k]);
+    dp[k] = d[k] * s * (1.0f - s);
+  }
+  if (part == 0) store_vec<V>(dpre + o, dp);
+  float* di = dxw + img * (TAPS * LANES) + part * ROWS * LANES + l0;
+#pragma unroll
+  for (int t = 0; t < ROWS; ++t) {
+    float r[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) r[k] = wr[t] * dp[k];
+    store_vec<V>(di + t * LANES, r);
+  }
 }
 
 // B8: out = d * s * (1 - s) with s = sigma(pre), elementwise.
@@ -749,12 +876,16 @@ extern "C" int lenet_fc_bwd(const float* d, const float* s, const float* w,
   return launched();
 }
 
+// B7 also refuses a dpre or dxw that does not start on a 16-byte boundary
+// (its vector stores; the wrapper allocates them).
 extern "C" int lenet_pool_bwd(const float* dout, const float* pre, const float* w,
                               float* dpre, float* dxw, int n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * LANES;
-  pool_bwd_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      dout, pre, w, dpre, dxw, total);
+  const long long threads = static_cast<long long>(n) * POOL_BWD_SPLIT * POOL_BWD_GROUPS;
+  const long long blocks = (threads + POOL_BWD_THREADS - 1) / POOL_BWD_THREADS;
+  if (n <= 0 || blocks > INT_MAX || !aligned16(dpre) || !aligned16(dxw))
+    return static_cast<int>(cudaErrorInvalidValue);
+  pool_bwd_kernel<<<static_cast<int>(blocks), POOL_BWD_THREADS, 0,
+                    static_cast<cudaStream_t>(stream)>>>(dout, pre, w, dpre, dxw, threads);
   return launched();
 }
 

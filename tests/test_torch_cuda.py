@@ -780,7 +780,7 @@ def _fwd_args(card, view, seed, x_shape, w_shape, b_shape, w_scale):
     rng = np.random.default_rng([seed, int(view == "offset")])
     x = rng.uniform(0, 1, x_shape).astype(np.float32)
     w = (rng.standard_normal(w_shape) * w_scale).astype(np.float32)
-    b = rng.standard_normal(b_shape).astype(np.float32)
+    b = np.asarray(rng.standard_normal(b_shape), np.float32)
     args = [_card_view(a, card, view) for a in (x, w, b)]
     if view == "offset":
         assert all(a.data_ptr() % 16 for a in args)
@@ -828,6 +828,64 @@ def test_fc_fwd_equals_its_fixed_order_on_card(card, n, view):
     for g, a, want in zip(got, again, lenet_staged.fc_fwd_plain(*args)):
         assert torch.equal(g, a)
         _close(g, want, LENET_RTOL)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("n", FWD_SIZES)
+def test_pool_fwd_is_bit_identical_to_plain_on_card(card, n, view):
+    """B4 bit for bit against its plain twin (each output adds the bias,
+    then the 16 taps in t order, each product and sum rounded on its own)
+    and a relaunch bit for bit, at aligned views of xw, w and b and at
+    "offset" views one value in, off the 16-byte boundary."""
+    _, args = _fwd_args(card, view, n + 2, (n, 16, 216), (4, 4), (), 0.5)
+    got, again = _twice("pool_fwd", lenet_staged.pool_fwd, args)
+    for g, a, want in zip(got, again, lenet_staged.pool_fwd_plain(*args)):
+        assert torch.equal(g, a)
+        assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("n", FWD_SIZES)
+def test_pool_bwd_is_bit_identical_to_plain_on_card(card, n, view):
+    """B7 bit for bit against its plain twin (dpre = d·s·(1−s) left to
+    right from σ of the preact, each dxw row w[t]·dpre, whatever thread
+    holds it) and a relaunch bit for bit; "offset" views of d_out, pre and
+    w start one value in, so the kernel takes its 4-byte loads."""
+    rng = np.random.default_rng([n + 3, int(view == "offset")])
+    host = (rng.standard_normal((n, 216)).astype(np.float32),
+            (rng.standard_normal((n, 216)) * 2).astype(np.float32),
+            rng.standard_normal((4, 4)).astype(np.float32))
+    args = [_card_view(a, card, view) for a in host]
+    if view == "offset":
+        assert all(a.data_ptr() % 16 for a in args)
+    got, again = _twice("pool_bwd", lenet_staged.pool_bwd, args)
+    for g, a, want in zip(got, again, lenet_staged.pool_bwd_plain(*args)):
+        assert torch.equal(g, a)
+        assert torch.equal(g, want)
+
+
+def test_pool_bwd_entry_refuses_misaligned_outputs_on_card(card):
+    """B7's vector stores: the C entry refuses a dpre or dxw off the
+    16-byte boundary (the wrapper always allocates aligned ones) and
+    launches nothing; on aligned outputs it writes its plain twin's."""
+    params, xs, ys = _lenet_inputs(card, 2, 4)
+    _, plain, args = stage_cases(params, xs, ys)["pool_bwd"]
+    want = plain(*args)
+    sizes = [w.numel() for w in want]
+    lib = lenet_staged._lib()
+    stream = launch_stream(card)
+    buf = torch.full((sum(sizes) + 4,), float("nan"), device=card)
+    dpre, dxw = buf[:sizes[0]], buf[sizes[0] + 4:]
+    ptrs = [a.data_ptr() for a in args]
+    for shifted in ((dpre.data_ptr() + 4, dxw.data_ptr()),
+                    (dpre.data_ptr(), dxw.data_ptr() + 4)):
+        assert lib.lenet_pool_bwd(*ptrs, *shifted, 2, stream) == 1
+    torch.cuda.synchronize()
+    assert bool(buf.isnan().all())
+    assert lib.lenet_pool_bwd(*ptrs, dpre.data_ptr(), dxw.data_ptr(), 2, stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(dpre.view(want[0].shape), want[0])
+    assert torch.equal(dxw.view(want[1].shape), want[1])
 
 
 def test_conv_fwd_entry_refuses_misaligned_outputs_on_card(card):

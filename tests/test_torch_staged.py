@@ -214,6 +214,77 @@ def test_fc_fwd_grid_covers_every_image_once(n):
     assert len(seen) == n and (np.sort(seen) == np.arange(n)).all()
 
 
+def _kernel_text(name):
+    """The definition of ``__global__`` kernel ``name`` in the source."""
+    return re.search(rf"\n{name}\(.*?\n}}\n", SOURCE.read_text(), re.S).group(0)
+
+
+def _pool_grid(n, vec, threads_a_block, split=1):
+    """B4's or B7's grid over n images: (threads, blocks), checked to cover
+    every thread with no block past the last one."""
+    assert 216 % vec == 0 and vec in (1, 2, 4) and 16 % split == 0
+    threads = n * split * (216 // vec)
+    blocks = -(-threads // threads_a_block)
+    assert (blocks - 1) * threads_a_block < threads <= blocks * threads_a_block
+    assert blocks <= 2**31 - 1 and threads_a_block <= 1024
+    return threads, blocks
+
+
+def _sample_images(n):
+    return sorted({0, 1, n // 2, n - 2, n - 1} & set(range(n)))
+
+
+@settings(max_examples=100, deadline=None)
+@given(n=st.integers(1, 200_000))
+def test_pool_fwd_grid_covers_every_lane_once(n):
+    """B4's grid from csrc/lenet_staged.cu's constants: one thread an
+    output, n · 216 threads in blocks of THREADS, thread g owning lane
+    g mod 216 of image g // 216 (pre and out at g). Over each sampled
+    image's threads every lane is written once, its 16 taps read from
+    that image's window block. The kernel stages nothing in shared
+    memory."""
+    tpb = _source_const("THREADS")
+    threads, _ = _pool_grid(n, 1, tpb)
+    assert "__shared__" not in _kernel_text("pool_fwd_kernel")
+    for img in _sample_images(n):
+        g = np.arange(img * 216, (img + 1) * 216)
+        assert (g < threads).all() and (g // 216 == img).all()
+        assert (np.sort(g % 216) == np.arange(216)).all()
+        taps = img * 3456 + np.arange(16)[:, None] * 216 + g % 216
+        assert taps.min() >= img * 3456 and taps.max() < (img + 1) * 3456
+        assert len(np.unique(taps)) == 3456
+
+
+@settings(max_examples=100, deadline=None)
+@given(n=st.integers(1, 200_000))
+def test_pool_bwd_grid_covers_every_row_once(n):
+    """B7's grid from the same constants: n · POOL_BWD_SPLIT · 216 /
+    POOL_BWD_VEC threads, thread g owning lanes l0 onward of image
+    g // (SPLIT · groups) and rows part · 16 / SPLIT onward of its dxw
+    (part 0 also dpre). Over each sampled image's threads every (tap row,
+    lane) of dxw and every lane of dpre is written once, and every access
+    lies a whole number of VEC-float accesses from its base. The kernel
+    stages nothing in shared memory."""
+    vec, tpb, split = (_source_const(k) for k in
+                       ("POOL_BWD_VEC", "POOL_BWD_THREADS", "POOL_BWD_SPLIT"))
+    groups, rows = 216 // vec, 16 // split
+    threads, _ = _pool_grid(n, vec, tpb, split)
+    assert "__shared__" not in _kernel_text("pool_bwd_kernel")
+    for img in _sample_images(n):
+        g = np.arange(img * split * groups, (img + 1) * split * groups)
+        assert (g < threads).all()
+        row = g // groups
+        assert (row // split == img).all()
+        part, l0 = row % split, (g % groups) * vec
+        dxw = np.zeros((16, 216), np.int64)
+        dpre = np.zeros(216, np.int64)
+        for p, l in zip(part, l0):
+            assert (img * 3456 + p * rows * 216 + l) % vec == 0 and (img * 216 + l) % vec == 0
+            dxw[p * rows:(p + 1) * rows, l:l + vec] += 1
+            dpre[l:l + vec] += p == 0
+        assert (dxw == 1).all() and (dpre == 1).all()
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_fc_bwd_matches_jax(n):
     a, jp, tp = arrays(n), jax_params(), port_params()
