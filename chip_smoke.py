@@ -43,7 +43,11 @@ port's two paths through their user-facing entry points:
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
 staged conv and FC forwards (B3, B5) in turns with their library calls at
-batch 64 and 1000.
+batch 64 and 1000; the staged sigma' kernel (B8) alone there with the L2
+warm and cold; the fused SGD (B2) over LeNet's six leaves; tree_sgd in
+turns with the parent's packing path (both buckets concatenated before
+the launch), host us a call, and the device ops of a --fused-step step
+with each.
 
 Each path's launch counts are set to 0 just before it and read just
 after. It times every kernel beside its bound, its plain version and a
@@ -616,14 +620,67 @@ def check_lenet_fused() -> float:
     return max_err
 
 
+# B2's trees: LeNet's params fresh and as views of a bucket after one step
+# (leaves at element offsets 0, 6, 156, 166, 2,326 and 2,327), the mixed
+# tree of tests/test_fused_step.py (a matrix, a vector and a 0-d leaf) and
+# a tree of MAX_LEAVES + 5 leaves (one bucket, two launches).
+SGD_TREES = ("lenet", "lenet_views", "mixed", "many")
+SGD_LR = -0.1
+
+
+def sgd_tree(which, dev, seed=0):
+    """(params, grads) of one SGD_TREES tree on dev, made from the seed."""
+    rng = np.random.default_rng(seed)
+
+    def normal(*shape):
+        return torch.from_numpy(np.asarray(rng.standard_normal(shape), np.float32)).to(dev)
+
+    if which.startswith("lenet"):
+        params = tree_map(lambda t: t.to(dev),
+                          lenet_ref.init(torch.Generator().manual_seed(seed)))
+    elif which == "mixed":
+        params = {"a": normal(7, 11), "b": [normal(130), normal()]}
+    else:
+        params = {f"l{i:02d}": normal((i * 37) % 101 + 1)
+                  for i in range(sgd_update.MAX_LEAVES + 3)}
+        params.update(m=normal(5, 7), z=normal())
+    grads = tree_map(lambda t: normal(*t.shape), params)
+    if which == "lenet_views":
+        params = sgd_update.tree_sgd(params, grads, lr=SGD_LR, scale=1.0 / TRAIN_BATCH)
+    return params, grads
+
+
+def packing_tree_sgd(params, grads, lr, scale, plain=False):
+    """The parent's tree_sgd, composed of the functions that stay: both
+    trees packed into their buckets (a torch.cat each), one fused_sgd (or
+    its plain version) a bucket, the leaves unpacked as views."""
+    plan = collectives.plan_buckets(params, shards=1)
+    pb = collectives.flatten_buckets(params, plan)
+    gb = collectives.flatten_buckets(grads, plan)
+    if plain:
+        out = [sgd_update.fused_sgd_plain(p, g, lr, scale) for p, g in zip(pb, gb)]
+    else:
+        out = [sgd_update.fused_sgd(p, g, lr=lr, scale=scale) for p, g in zip(pb, gb)]
+    return collectives.unflatten_buckets(out, plan)
+
+
+def tree_sgd_launches(params) -> int:
+    """B2's launches for one tree_sgd of params on the card: one a bucket's
+    MAX_LEAVES leaves."""
+    plan = collectives.plan_buckets(params, shards=1)
+    return sum(-(-len(m) // sgd_update.MAX_LEAVES) for m in sgd_update.bucket_leaves(plan))
+
+
 def check_sgd_update() -> float:
-    """B2 vs its plain version at every size: bit-identical."""
+    """B2 vs its plain version at every size, and tree_sgd on every
+    SGD_TREES tree against the parent's packing composition (flatten,
+    fused_sgd_plain, unflatten) with its launches counted: bit-identical."""
     gen = torch.Generator(device="cuda").manual_seed(0)
     for n in SGD_SIZES:
         p = torch.randn(n, generator=gen, device="cuda")
         g = torch.randn(n, generator=gen, device="cuda")
-        got = sgd_update.fused_sgd(p, g, lr=-0.1, scale=1.0 / TRAIN_BATCH)
-        want = sgd_update.fused_sgd_plain(p, g, -0.1, 1.0 / TRAIN_BATCH)
+        got = sgd_update.fused_sgd(p, g, lr=SGD_LR, scale=1.0 / TRAIN_BATCH)
+        want = sgd_update.fused_sgd_plain(p, g, SGD_LR, 1.0 / TRAIN_BATCH)
         torch.cuda.synchronize()
         same = torch.equal(got, want)
         print(f"[smoke] sgd_update n={n:<8d}: "
@@ -631,6 +688,25 @@ def check_sgd_update() -> float:
               flush=True)
         if not same:
             fail(f"sgd_update n={n}: max |Δ| {float((got - want).abs().max()):.3e}")
+    for which in SGD_TREES:
+        params, grads = sgd_tree(which, "cuda")
+        before = sgd_update.launches.count
+        got = sgd_update.tree_sgd(params, grads, lr=SGD_LR, scale=1.0 / TRAIN_BATCH)
+        launched = sgd_update.launches.count - before
+        want = packing_tree_sgd(params, grads, SGD_LR, 1.0 / TRAIN_BATCH, plain=True)
+        torch.cuda.synchronize()
+        leaves, ref = tree_leaves(got), tree_leaves(want)
+        same = len(leaves) == len(ref) and all(
+            a.shape == b.shape and torch.equal(a, b) for a, b in zip(leaves, ref))
+        buckets = {t.untyped_storage().data_ptr() for t in leaves}
+        ok = same and launched == tree_sgd_launches(params) and len(buckets) == 1
+        print(f"[smoke] sgd_update tree_sgd {which:<11s}: {len(leaves)} leaves, "
+              f"{launched} launch(es), "
+              f"{'bit-identical to the packing composition' if same else 'DIFFERS'}, "
+              f"leaves views of {len(buckets)} bucket {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"sgd_update tree_sgd {which}: not the packing composition's leaves "
+                 "bit for bit in one launch a bucket's MAX_LEAVES leaves")
     return 0.0
 
 
@@ -820,11 +896,28 @@ def device_launches(fn, calls: int = 50) -> str:
     return f"{per_call:.2f} ({names}; {top} of {calls} calls seen)"
 
 
+def sgd_leaf_operands(n, copies, gen):
+    """B2's operands as the --fused-step path gives them after a step:
+    LeNet's 6 leaves (their lengths scaled to n values in all) as views of
+    one buffer at their prefix offsets, the grads as fresh tensors; copies
+    of them, and each copy's packed buffers for the library call."""
+    sizes = [max(1, k * n // lenet_fused.N_GRADS) for k in (6, 150, 10, 2160, 1, 16)]
+    sizes[3] += n - sum(sizes)
+    offs = np.concatenate([[0], np.cumsum(sizes)])
+    out = []
+    for _ in range(copies):
+        flat = torch.randn(n, generator=gen, device="cuda")
+        ps = [flat[offs[i]:offs[i + 1]] for i in range(len(sizes))]
+        gs = [torch.randn(k, generator=gen, device="cuda") for k in sizes]
+        out.append((ps, gs, flat, torch.cat(gs)))
+    return out
+
+
 def time_lenet_kernels() -> dict:
-    """B1 at batch 64, 128 and 1000 and B2 at 2343 and 2^20: kernel, plain
-    and (B2) library times beside the bound, and B1's CUDA launches a call.
-    Returns the main path's shapes' numbers (B1 at batch 64, B2 at LeNet's
-    2343)."""
+    """B1 at batch 64, 128 and 1000 and B2 over LeNet's 6 leaves at 2343
+    and 2^20 values: kernel, plain and (B2) library times beside the bound,
+    and B1's CUDA launches a call. Returns the main path's shapes' numbers
+    (B1 at batch 64, B2 at LeNet's 2343)."""
     out = {}
     for n in (TRAIN_BATCH, 128, 1000):
         params, xs, ys = lenet_inputs(n, 100 + n)
@@ -853,25 +946,84 @@ def time_lenet_kernels() -> dict:
         # trainer. At 2^20 the calls cycle through copies that overflow the
         # 50 MB L2, so each one reads and writes device memory.
         copies = 1 if n == lenet_fused.N_GRADS else L2_COPIES
-        pairs = [(torch.randn(n, generator=gen, device="cuda"),
-                  torch.randn(n, generator=gen, device="cuda"))
-                 for _ in range(copies)]
-        turn = itertools.cycle(pairs)
-        ms, call = time_call(
-            lambda: sgd_update.fused_sgd(*next(turn), lr=lr, scale=scale), reps=50)
-        plain, plain_call = time_call(
-            lambda: sgd_update.fused_sgd_plain(*next(turn), lr, scale), reps=50)
+        turn = itertools.cycle(sgd_leaf_operands(n, copies, gen))
+        ms, call = time_call(lambda: sgd_update.fused_sgd_leaves(
+            *next(turn)[:2], lr=lr, scale=scale), reps=50)
+        plain, plain_call = time_call(lambda: sgd_update.fused_sgd_plain(
+            *next(turn)[2:], lr, scale), reps=50)
         lib, lib_call = time_call(
-            lambda: torch.add(*next(turn), alpha=-lr * scale), reps=50)
+            lambda: torch.add(*next(turn)[2:], alpha=-lr * scale), reps=50)
         bound, by = sgd_bound_ms(n)
-        print(f"[smoke] time sgd_update n={n}: kernel {ms:.4f} ms (device; "
-              f"{call:.4f} ms per call), plain {plain:.4f} ms ({plain_call:.4f}), "
-              f"library (torch.add) {lib:.4f} ms ({lib_call:.4f}), bound "
-              f"{bound:.6f} ms ({by}), {bound / ms:.2%} of bound", flush=True)
+        print(f"[smoke] time sgd_update n={n} over 6 leaves: kernel {ms:.5f} ms "
+              f"(device; {call:.4f} ms per call), plain (packed) {plain:.4f} ms "
+              f"({plain_call:.4f}), library (torch.add, packed) {lib:.5f} ms "
+              f"({lib_call:.4f}), bound {bound:.6f} ms ({by}), {bound / ms:.2%} of "
+              f"bound", flush=True)
         if n == lenet_fused.N_GRADS:
             out["sgd_update"] = dict(ms=ms, plain_ms=plain, bound_ms=bound,
                                      bound_by=by, library_ms=lib)
+    time_tree_sgd()
     return out
+
+
+def step_device_ops(fn, steps: int = 100):
+    """Device ops a call of fn (one fused_batched_step), from torch.profiler
+    over `steps` calls: every device event counted against the B2 launches
+    seen (one a step; the profiler may miss the first calls), or None when
+    it saw none."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile now and then records no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        seen = sum(e.count for e in events if "sgd_leaves_kernel" in e.key)
+        if seen:
+            return sum(e.count for e in events) / seen
+    return None
+
+
+def time_tree_sgd() -> None:
+    """tree_sgd on LeNet's params (views of a bucket, as after a step) in
+    turns with the parent's packing composition (packing_tree_sgd), host us
+    a call (reps calls back to back, then a synchronize) and device
+    us; then the device ops of one b64 fused_batched_step with each, from
+    torch.profiler in this process."""
+    params, grads = sgd_tree("lenet_views", "cuda")
+    scale = 1.0 / TRAIN_BATCH
+
+    def leaf_list():
+        return sgd_update.tree_sgd(params, grads, lr=SGD_LR, scale=scale)
+
+    def packing():
+        return packing_tree_sgd(params, grads, SGD_LR, scale)
+
+    t = [time_call(f, reps=200) for f in (packing, leaf_list, leaf_list, packing)]
+    host = [(t[0][1] + t[3][1]) / 2 * 1e3, (t[1][1] + t[2][1]) / 2 * 1e3]
+    dev = [(t[0][0] + t[3][0]) / 2 * 1e3, (t[1][0] + t[2][0]) / 2 * 1e3]
+    print(f"[smoke] time tree_sgd on LeNet's params in turns: leaf list {host[1]:.2f} us "
+          f"a call on the host clock ({dev[1]:.3f} us device), the parent's packing path "
+          f"{host[0]:.2f} us ({dev[0]:.3f} us device): {host[0] - host[1]:.2f} us a call "
+          f"faster on the host (rounds {', '.join(f'{r[1] * 1e3:.2f}' for r in t)})",
+          flush=True)
+    _, xs, ys = lenet_inputs(TRAIN_BATCH, 600)
+    p0 = trainer.init_params(0, torch.device("cuda"))
+    ops = {}
+    for label, fn in (("packing", lambda p, g, *, lr, scale: packing_tree_sgd(p, g, lr, scale)),
+                      ("leaf list", sgd_update.tree_sgd)):
+        with mock.patch.object(sgd_update, "tree_sgd", fn):
+            ops[label] = step_device_ops(lambda: step_lib.fused_batched_step(p0, xs, ys, 0.1))
+    if None in ops.values():
+        print("[smoke] fused_batched_step device ops: not measured (the profiler saw no "
+              "device events)", flush=True)
+    else:
+        print(f"[smoke] fused_batched_step b{TRAIN_BATCH} device ops a step (torch.profiler): "
+              f"leaf list {ops['leaf list']:.2f}, the parent's packing path "
+              f"{ops['packing']:.2f}: {ops['packing'] - ops['leaf list']:.2f} fewer",
+              flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1181,11 +1333,24 @@ def conv_wgrad_bound_ms(xs):
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-# These staged kernels (B3, B5 and B7 redesigned, B4 whose redesigns lost
-# to it) are timed in turns with their library call (B7, which has none,
-# alone), at batch 64 and at this batch.
+# These staged kernels (B3, B5, B7 and B8 redesigned, B4 whose redesigns
+# lost to it) are timed in turns with their library call (B7 and B8, which
+# have none, alone), at batch 64 and at this batch.
 STAGED_FWD_LARGE = 1000
-STAGED_TIMED = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd")
+STAGED_TIMED = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd", "sigma_prime")
+L2_BYTES = 50 * 2**20  # an H100's L2
+
+
+def l2_cold_note(fn, args, bound) -> str:
+    """fn(*args) with the L2 cold, as a note: where two copies of the
+    inputs outgrow the L2 the calls take them in turns, else each launch
+    follows a flush (cold_ms)."""
+    if 2 * 4 * sum(a.numel() for a in args) > L2_BYTES:
+        turn = itertools.cycle([args, tuple(a.clone() for a in args)])
+        ms, how = cuda_ms(lambda: fn(*next(turn)), reps=200), "two input copies in turns"
+    else:
+        ms, how = cold_ms(lambda: fn(*args)), "flushed before each launch"
+    return f"; L2 cold ({how}) {ms:.5f} ms, {bound / ms:.2%} of bound"
 
 
 def time_against_library(fn, args, lib) -> tuple:
@@ -1215,6 +1380,8 @@ def time_staged_kernels() -> dict:
         note = ""
         if case in STAGED_TIMED:
             ms, lib_ms, note = time_against_library(fn, args, lib)
+            if case == "sigma_prime":
+                note += l2_cold_note(fn, args, staged_bound_ms(case, args, (args[0],))[0])
         elif case == "fc_bwd":
             # B6 against its yardstick in turns; the block product checked
             # against the plain twin first, and dT.s alone as a note.
@@ -1249,6 +1416,8 @@ def time_staged_kernels() -> dict:
         plain_ms = cuda_ms(lambda: plain(*args), reps=50)
         ms, lib_ms, note = time_against_library(fn, args, staged_library_call(case, args))
         bound, by = staged_bound_ms(case, args, as_tuple(fn(*args)))
+        if case == "sigma_prime":
+            note += l2_cold_note(fn, args, bound)
         lib_txt = "none" if lib_ms is None else f"{lib_ms:.5f} ms"
         print(f"[smoke] time staged {case:24s} b{n}: kernel {ms:.5f} ms, plain "
               f"{plain_ms:.4f} ms, library {lib_txt}, bound {bound:.6f} ms ({by}), "

@@ -1,7 +1,8 @@
 """This checkout's conv forward (B10), probe copies (B15, B16), LeNet step
 kernel (B1), B9 contraction, staged conv, pool and FC forwards (B3, B4,
-B5) and pool backward (B7) against another checkout's, on one card:
-outputs compared, times in turns.
+B5), pool backward (B7) and σ′ (B8), and the fused SGD (B2) alone and
+through ``tree_sgd`` against another checkout's, on one card: outputs
+compared, times in turns.
 
     python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
 
@@ -14,20 +15,28 @@ other, this, this, other. Each run computes the forward at every ResNet-18
 conv (``chip_smoke.GEOMETRIES``) at batch 64 and 128 on inputs made from a
 seed on the host, B1 (``lenet_fused.fused_value_and_ref_grads``) at batch
 64, 128 and 1000, B9 (``lenet_staged._accum_matmul``) at both of its
-call sites at batch 64, and B3, B4, B5 and B7 (``lenet_staged.conv_fwd``,
-``pool_fwd``, ``fc_fwd`` and ``pool_bwd``) at batch 64 and 1000, on
-``chip_smoke``'s seeded LeNet inputs (the staged kernels at the path's
-own, ``chip_smoke.stage_cases``), and times each, the copies in turns with
-``copy_``. The first run of each side saves its outputs, which are then
-compared: the forward, the copies, B3, B4 and B7 bit for bit, B1's, B9's
-and B5's within ``chip_smoke.LENET_RTOL`` of the other side's scale (a
-redesign may sum in another order), with the max |Δ| printed.
+call sites at batch 64, B3, B4, B5, B7 and B8 (``lenet_staged.conv_fwd``,
+``pool_fwd``, ``fc_fwd``, ``pool_bwd`` and ``conv_bwd_dpre``) at batch 64
+and 1000, on ``chip_smoke``'s seeded LeNet inputs (the staged kernels at
+the path's own, ``chip_smoke.stage_cases``; B8 at 1000 also with the L2
+cold, two copies of its inputs in turns), and B2 on LeNet's params: one
+``sgd_update.fused_sgd`` on the packed 2,343 values, and ``tree_sgd`` on
+the fresh params and on params that are views of a bucket after a step
+(device time, and host time a call); and times each, the copies in turns
+with ``copy_``. Last, one profiled ``--fused-step`` LeNet epoch at batch 64
+(``chip_smoke.profiled_epoch``): host µs, device ops and idle share a
+step. The first run of each side saves its outputs, which are
+then compared: the forward, the copies, B3, B4, B7, B8 and B2 bit for
+bit, B1's, B9's and B5's within ``chip_smoke.LENET_RTOL`` of the other
+side's scale (a redesign may sum in another order), with the max |Δ|
+printed.
 Prints one line per comparison and per time (each side's two runs
 averaged). Exits non-zero where a comparison fails. Needs the card.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -41,7 +50,7 @@ COPY_REPS = 300
 LENET_BATCHES = (64, 128, 1000)
 LENET_REPS = 200
 STAGED_FWD_BATCHES = (64, 1000)
-STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd")
+STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd", "sigma_prime")
 #: Outputs whose order a redesign may change: compared within a tolerance.
 TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd")
 
@@ -107,11 +116,64 @@ def side(out_file: str) -> None:
         cases = cs.stage_cases(params, xs, ys)
         for case in STAGED_CASES:
             fn, _, args = cases[case]
-            outs[f"{case} b{n}"] = torch.cat([o.reshape(-1) for o in fn(*args)]).cpu()
+            got = fn(*args)
+            outs[f"{case} b{n}"] = torch.cat(
+                [o.reshape(-1) for o in (got if isinstance(got, tuple) else (got,))]).cpu()
             times[f"{case} b{n}"] = cs.cuda_ms(lambda: fn(*args), reps=LENET_REPS)
+            if case == "sigma_prime" and n == max(STAGED_FWD_BATCHES):
+                turn = itertools.cycle([args, tuple(a.clone() for a in args)])
+                times[f"{case} b{n} L2 cold"] = cs.cuda_ms(lambda: fn(*next(turn)),
+                                                           reps=LENET_REPS)
+    sgd_cases(outs, times)
+    fused_step_epoch(times)
     if out_file:
         torch.save(outs, out_file)
     print(json.dumps(times))
+
+
+def sgd_cases(outs: dict, times: dict) -> None:
+    """B2 on LeNet's params (chip_smoke.lenet_inputs) and grads from a
+    seed: one fused_sgd on the packed values, and tree_sgd on the fresh
+    params and on params that are views of a bucket after one tree_sgd."""
+    import torch
+
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import sgd_update
+    from parallel_cnn_tpu_torch.parallel import collectives
+
+    params, _, _ = cs.lenet_inputs(cs.TRAIN_BATCH, 700)
+    gen = torch.Generator(device="cuda").manual_seed(700)
+    grads = cs.tree_map(lambda t: torch.randn(t.shape, generator=gen, device="cuda"), params)
+    lr, scale = -0.1, 1.0 / cs.TRAIN_BATCH
+    plan = collectives.plan_buckets(params, shards=1)
+    p, g = (collectives.flatten_buckets(t, plan)[0] for t in (params, grads))
+    outs["sgd_update bucket"] = sgd_update.fused_sgd(p, g, lr=lr, scale=scale).cpu()
+    times["sgd_update bucket"] = cs.cuda_ms(
+        lambda: sgd_update.fused_sgd(p, g, lr=lr, scale=scale), reps=LENET_REPS)
+    views = sgd_update.tree_sgd(params, grads, lr=lr, scale=scale)
+    for label, tree in (("fresh", params), ("views", views)):
+        got = sgd_update.tree_sgd(tree, grads, lr=lr, scale=scale)
+        outs[f"tree_sgd {label}"] = torch.cat([t.reshape(-1) for t in cs.tree_leaves(got)]).cpu()
+        ms, call_ms = cs.time_call(lambda: sgd_update.tree_sgd(tree, grads, lr=lr, scale=scale),
+                                   reps=LENET_REPS)
+        times[f"tree_sgd {label}"] = ms
+        times[f"tree_sgd {label} host a call"] = call_ms
+
+
+def fused_step_epoch(times: dict) -> None:
+    """One profiled --fused-step epoch (after a warm one) on the trainer's
+    synthetic set: host us, device ops and idle share a step, NaN where
+    the profiler saw no device events."""
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.config import Config, TrainConfig
+    from parallel_cnn_tpu_torch.data import pipeline, synthetic
+
+    ds = pipeline.Dataset(*synthetic.make_dataset(cs.TRAIN_COUNT, seed=1234))
+    res = cs.profiled_epoch(ds, "--fused-step", Config(
+        train=TrainConfig(batch_size=cs.TRAIN_BATCH, ops="reference", shuffle=True),
+        fused=True)) or (float("nan"),) * 3
+    for key, value in zip(("host us", "device ops", "idle share"), res):
+        times[f"--fused-step epoch: {key} a step"] = value
 
 
 def run_side(root: Path, out_file: str) -> dict:
@@ -169,7 +231,8 @@ def main(argv=None) -> int:
           f"(bit for bit, or within the tolerance for {', '.join(TOLERANT)})", flush=True)
     for key in runs["this"][0]:
         t = [sum(r[key] for r in runs[label]) / 2 for label in ("this", "other")]
-        print(f"[ab] time {key}: this {t[0]:.5f} ms, other {t[1]:.5f} ms, this / other "
+        unit = "" if ":" in key else " ms"  # the epoch's figures carry theirs in the key
+        print(f"[ab] time {key}: this {t[0]:.5f}{unit}, other {t[1]:.5f}{unit}, this / other "
               f"{t[0] / t[1]:.3f}", flush=True)
     return 0 if ok == len(a) else 1
 

@@ -7,8 +7,10 @@ the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``), the
 LeNet step kernel (B1, ``csrc/lenet_fused.cu``), B9's contraction
 (``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``), the staged
 conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
-file) and the staged pool forward and backward (B4 ``pool_fwd_kernel``,
-B7 ``pool_bwd_kernel``, same file).
+file), the staged pool forward and backward (B4 ``pool_fwd_kernel``,
+B7 ``pool_bwd_kernel``, same file), the staged σ′ kernel (B8
+``sigma_prime_kernel``, same file) and the leaf list of the fused SGD (B2
+``sgd_leaves_kernel``, ``csrc/sgd_update.cu``).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants
 
@@ -43,10 +45,11 @@ COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
 #: forward's (against its plain twin at every tile, across batch positions
-#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's and B7's.
+#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's, B7's, B8's and
+#: B2's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
           "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd "
-          "or pool_fwd or pool_bwd")
+          "or pool_fwd or pool_bwd or sigma_prime or sgd_update or tree_sgd")
 #: Copies built and tested at once (each its own pytest process).
 JOBS = 3
 
@@ -157,6 +160,25 @@ MUTANTS = {
     "B7 4-byte path reads a group's last lane one value early": (
         f"{CSRC}/lenet_staged.cu", "for (int k = 0; k < V; ++k) v[k] = __ldg(p + k);",
         "for (int k = 0; k < V; ++k) v[k] = __ldg(p + k - (k == V - 1));"),
+    "B8 last quad of a thread not stored": (
+        f"{CSRC}/lenet_staged.cu", "if (q < quads) store_vec<4>(out + 4 * q, o);",
+        "if (q < quads && u + 1 < SIGMA_VEC) store_vec<4>(out + 4 * q, o);"),
+    "B8 4-byte path one element short": (
+        f"{CSRC}/lenet_staged.cu", "v[2] = __ldg(p + 2), v[3] = __ldg(p + 3);",
+        "v[2] = __ldg(p + 2), v[3] = __ldg(p + 2);"),
+    "B8 strided grid skips the last block's later passes": (
+        f"{CSRC}/lenet_staged.cu", "q0 < quads; q0 += gridDim.x * SPAN) {",
+        "q0 < quads && (q0 < gridDim.x * SPAN || blockIdx.x + 1 < gridDim.x);"
+        " q0 += gridDim.x * SPAN) {"),
+    "B2 last leaf skipped": (
+        f"{CSRC}/sgd_update.cu", "sgd_leaves_kernel<<<static_cast<int>(blocks), SGD_THREADS",
+        "sgd_leaves_kernel<<<list.first_block[count - 1], SGD_THREADS"),
+    "B2 leaf offset one element early": (
+        f"{CSRC}/sgd_update.cu", "x.off = static_cast<int>(off);",
+        "x.off = static_cast<int>(off) - (i > 0);"),
+    "B2 ragged access's last float dropped": (
+        f"{CSRC}/sgd_update.cu", "if (i + j < n) out[x.off + i + j] = o[j];",
+        "if (i + j + 1 < n) out[x.off + i + j] = o[j];"),
 }
 
 

@@ -16,22 +16,34 @@
   group, ``POOL_BWD_VEC``, ``POOL_BWD_THREADS`` and ``POOL_BWD_SPLIT`` in
   the same file, against the parent's kernel (one thread an output) and
   two candidates: a block's rows built in shared memory and stored as
-  float4s, and a block an image written by one bulk store.
+  float4s, and a block an image written by one bulk store;
+- ``sigma_prime``: B8's float4 quads a thread, threads a block and grid
+  cap, ``SIGMA_VEC``, ``SIGMA_THREADS`` and ``SIGMA_WAVE`` in the same file
+  (one pass, or one resident wave that strides), against the parent's
+  kernel (one thread an element) and a candidate whose loads stream
+  (``__ldcs``);
+- ``sgd_update``: B2's leaf list, ``SGD_THREADS``, ``SGD_UNITS`` and
+  ``MAX_LEAVES`` in ``csrc/sgd_update.cu`` (whole blocks a leaf), against a
+  candidate that gives a thread four elements of the packed bucket and
+  finds each one's leaf by compares; at LeNet's 2,343 values and at 2^20,
+  both as LeNet's 6 leaves, views of one buffer at their offsets, as the
+  ``--fused-step`` path gives them after a step.
 
-    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd]
+    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd] [sigma_prime] [sgd_update]
 
 (all of them without an argument). Each variant is built from a copy of
 the source in a temporary directory whose only change is its ``constexpr
 int`` lines (and, for a candidate design, the spans ``CANDIDATES``
 replaces), so the source keeps one choice and no switch. Each runs
 through the user-facing wrapper (``lenet_fused.fused_value_and_ref_grads``,
-``lenet_staged.conv_fwd``, ``fc_fwd``, ``pool_fwd``, ``pool_bwd``) with
-that library swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s
-seeded LeNet inputs (the staged kernels at the path's own inputs,
-``chip_smoke.stage_cases``): B1 against its plain version
-(``chip_smoke.LENET_RTOL``), B3, B4 and B7 bit for bit against their plain
-twins, B5 bit for bit against ``lenet_staged.fc_fwd_order``, and a
-relaunch bit for bit; then device times in two rounds, the variants in
+``lenet_staged.conv_fwd``, ``fc_fwd``, ``pool_fwd``, ``pool_bwd``,
+``conv_bwd_dpre``, ``sgd_update.fused_sgd_leaves``) with that library
+swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s seeded LeNet
+inputs (the staged kernels at the path's own inputs,
+``chip_smoke.stage_cases``; B2 at its two sizes): B1 against its plain
+version (``chip_smoke.LENET_RTOL``), B3, B4, B7, B8 and B2 bit for bit
+against their plain twins, B5 bit for bit against
+``lenet_staged.fc_fwd_order``, and a relaunch bit for bit; then device times in two rounds, the variants in
 order and then reversed. Prints one line per variant and batch. Exits
 non-zero where a variant disagrees or differs on a relaunch. Needs the
 card.
@@ -61,7 +73,8 @@ class Sweep(NamedTuple):
     ``design``, a key of CANDIDATES, for a candidate), ``inputs(n)``
     -> the wrapper's arguments, ``run(args)`` -> its outputs as a list,
     ``check(args, outs)`` -> (max |Δ| against the reference, whether that
-    is within the contract)."""
+    is within the contract), and the sizes n it runs at (batches, or B2's
+    values) with their label's prefix."""
 
     module: str
     kernels: Tuple[str, ...]
@@ -69,6 +82,8 @@ class Sweep(NamedTuple):
     inputs: Callable
     run: Callable
     check: Callable
+    sizes: Tuple[int, ...] = BATCHES
+    prefix: str = "b"
 
 
 def _b1_inputs(n):
@@ -108,11 +123,15 @@ def _stage_inputs(case):
     return inputs
 
 
+def _as_list(r):
+    return list(r) if isinstance(r, tuple) else [r]
+
+
 def _staged_run(name):
     def run(args):
         from parallel_cnn_tpu_torch.ops import lenet_staged
 
-        return list(getattr(lenet_staged, name)(*args))
+        return _as_list(getattr(lenet_staged, name)(*args))
     return run
 
 
@@ -121,10 +140,42 @@ def _plain_check(name):
     def check(args, outs):
         from parallel_cnn_tpu_torch.ops import lenet_staged
 
-        want = getattr(lenet_staged, f"{name}_plain")(*args)
+        want = _as_list(getattr(lenet_staged, f"{name}_plain")(*args))
         worst = max(float((g - w).abs().max()) for g, w in zip(outs, want))
         return worst, all(torch.equal(g, w) for g, w in zip(outs, want))
     return check
+
+
+SGD_LR, SGD_SCALE = -0.1, 1.0 / 64
+
+
+def _sgd_inputs(n):
+    """LeNet's 6 leaves scaled to n values, views of one buffer at their
+    offsets, and fresh grads (chip_smoke.sgd_leaf_operands)."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(n)
+    return cs.sgd_leaf_operands(n, 1, gen)[0][:2]
+
+
+def _sgd_run(args):
+    from parallel_cnn_tpu_torch.ops import sgd_update
+
+    return [sgd_update.fused_sgd_leaves(*args, lr=SGD_LR, scale=SGD_SCALE)]
+
+
+def _sgd_check(args, outs):
+    """Bit for bit against the plain update of the packed buffers."""
+    from parallel_cnn_tpu_torch.ops import sgd_update
+
+    ps, gs = args
+    want = sgd_update.fused_sgd_plain(torch.cat(ps), torch.cat(gs), SGD_LR, SGD_SCALE)
+    return float((outs[0] - want).abs().max()), torch.equal(outs[0], want)
+
+
+# B8's one pass (a grid of any size) and, per block size, one resident wave
+# of an H100 (132 SMs x 2048 threads) that strides.
+_ONE_PASS = 2**30
 
 
 def _fc_check(args, outs):
@@ -169,6 +220,21 @@ SWEEPS = {
                           "POOL_BWD_SPLIT": 1},),
                       _stage_inputs("pool_bwd"), _staged_run("pool_bwd"),
                       _plain_check("pool_bwd")),
+    "sigma_prime": Sweep("lenet_staged", ("sigma_prime_kernel",),
+                         ({"design": "parent_sigma", "SIGMA_THREADS": 256},)
+                         + tuple({"SIGMA_VEC": v, "SIGMA_THREADS": t, "SIGMA_WAVE": w}
+                                 for v in (1, 2, 4) for t in (64, 128, 256)
+                                 for w in (_ONE_PASS, 132 * 2048 // t))
+                         + tuple({"design": "stream_sigma", "SIGMA_VEC": v, "SIGMA_THREADS": 128,
+                                  "SIGMA_WAVE": w} for v in (2, 4) for w in (_ONE_PASS, 2112)),
+                         _stage_inputs("sigma_prime"), _staged_run("conv_bwd_dpre"),
+                         _plain_check("conv_bwd_dpre")),
+    "sgd_update": Sweep("sgd_update", ("sgd_leaves_kernel",),
+                        tuple({"SGD_THREADS": t, "SGD_UNITS": u} for t in (64, 128, 256)
+                              for u in (1, 2, 4))
+                        + tuple({"MAX_LEAVES": m} for m in (8, 32))
+                        + tuple({"design": "lookup_sgd", "SGD_THREADS": t} for t in (64, 128, 256)),
+                        _sgd_inputs, _sgd_run, _sgd_check, sizes=(2343, 2**20), prefix="n"),
 }
 
 
@@ -423,6 +489,78 @@ pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
 }
 """
 
+# B8's parent: one thread an element, a 4-byte load of d and pre and a
+# 4-byte store each, blocks of SIGMA_THREADS.
+_SIGMA_KERNEL = r"__global__ void __launch_bounds__\(SIGMA_THREADS\)\nsigma_prime_kernel\(.*?\n}\n"
+_SIGMA_ENTRY = r'extern "C" int lenet_sigma_prime\(.*?\n}\n'
+_SIGMA_LOAD = r"__device__ __forceinline__ void load_quad\(.*?\n}\n"
+_PARENT_SIGMA = r"""__global__ void __launch_bounds__(SIGMA_THREADS)
+sigma_prime_kernel(const float* __restrict__ d, const float* __restrict__ pre,
+                   float* __restrict__ out, long long quads) {
+  const long long idx = static_cast<long long>(blockIdx.x) * SIGMA_THREADS + threadIdx.x;
+  if (idx >= 4 * quads) return;
+  const float s = sigmoid(pre[idx]);
+  out[idx] = d[idx] * s * (1.0f - s);
+}
+"""
+_PARENT_SIGMA_ENTRY = r"""extern "C" int lenet_sigma_prime(const float* d, const float* pre, float* out,
+                                 int n, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const long long quads = static_cast<long long>(n) * CONV_QUADS;
+  sigma_prime_kernel<<<static_cast<int>((4 * quads + SIGMA_THREADS - 1) / SIGMA_THREADS),
+                       SIGMA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(d, pre, out,
+                                                                              quads);
+  return launched();
+}
+"""
+# B8's loads as streaming loads (evict first: each input is read once).
+_STREAM_SIGMA_LOAD = r"""__device__ __forceinline__ void load_quad(float (&v)[4], const float* __restrict__ p,
+                                          bool vec) {
+  if (vec) {
+    const float4 a = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    v[0] = __ldcs(p), v[1] = __ldcs(p + 1), v[2] = __ldcs(p + 2), v[3] = __ldcs(p + 3);
+  }
+}
+"""
+# B2 with a thread four neighbouring elements of the packed output span,
+# each element's leaf found by compares against the prefix offsets (from
+# the previous element's), 4-byte loads, a float4 store where the span
+# lies on the 16-byte boundary; the grid from the span's length.
+_SGD_KERNEL = (r"__global__ void __launch_bounds__\(SGD_THREADS\)\n"
+               r"sgd_leaves_kernel\(.*?\n}\n")
+_SGD_LAUNCH = r"sgd_leaves_kernel<<<static_cast<int>\(blocks\), SGD_THREADS"
+_LOOKUP_SGD = r"""__global__ void __launch_bounds__(SGD_THREADS)
+sgd_leaves_kernel(const __grid_constant__ SgdLeafList list, float* __restrict__ out,
+                  float lr, float scale) {
+  const SgdLeaf& last = list.e[list.count - 1];
+  const long long total = last.off + last.n;
+  const long long i0 = (static_cast<long long>(blockIdx.x) * SGD_THREADS + threadIdx.x) * 4;
+  if (i0 >= total) return;
+  int e = 0;
+  float o[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const long long i = i0 + j;
+    while (e + 1 < list.count && i >= list.e[e + 1].off) ++e;
+    const SgdLeaf& x = list.e[e];
+    o[j] = i < total ? sgd(__ldg(x.p + (i - x.off)), __ldg(x.g + (i - x.off)), lr, scale)
+                     : 0.0f;
+  }
+  if (i0 + 4 <= total && (reinterpret_cast<std::uintptr_t>(out) & 15u) == 0) {
+    *reinterpret_cast<float4*>(out + i0) = make_float4(o[0], o[1], o[2], o[3]);
+  } else {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (i0 + j < total) out[i0 + j] = o[j];
+    }
+  }
+}
+"""
+_LOOKUP_SGD_LAUNCH = ("sgd_leaves_kernel<<<static_cast<int>(((off + 3) / 4 + SGD_THREADS - 1) "
+                      "/ SGD_THREADS), SGD_THREADS")
+
 #: design name -> [(pattern, text), ...].
 CANDIDATES = {
     "vec_fwd": [(_FWD_KERNEL, _FWD_GRID + _VEC_FWD), (_FWD_ENTRY, _FWD_GRID_ENTRY)],
@@ -431,6 +569,9 @@ CANDIDATES = {
     "parent_bwd": [(_BWD_KERNEL, _PARENT_BWD)],
     "stage_bwd": [(_BWD_KERNEL, _STAGE_BWD)],
     "bulk_bwd": [(_BWD_KERNEL, _BULK_BWD)],
+    "parent_sigma": [(_SIGMA_KERNEL, _PARENT_SIGMA), (_SIGMA_ENTRY, _PARENT_SIGMA_ENTRY)],
+    "stream_sigma": [(_SIGMA_LOAD, _STREAM_SIGMA_LOAD)],
+    "lookup_sgd": [(_SGD_KERNEL, _LOOKUP_SGD), (_SGD_LAUNCH, _LOOKUP_SGD_LAUNCH)],
 }
 
 
@@ -496,14 +637,14 @@ def run_sweep(name: str, sweep: Sweep, tmp: Path) -> list:
                 print(f"[sweep] {name} {label(consts)} {kernel} ptxas: {line.strip()}",
                       flush=True)
     bad = []
-    for n in BATCHES:
+    for n in sweep.sizes:
         args = sweep.inputs(n)
         for consts, lib in zip(sweep.variants, libs):
             with swapped(module, lib):
                 got, again = sweep.run(args), sweep.run(args)
             worst, ok = sweep.check(args, got)
             same = all(torch.equal(g, a) for g, a in zip(got, again))
-            print(f"[sweep] {name} {label(consts)} b{n}: max |Δ| vs its reference "
+            print(f"[sweep] {name} {label(consts)} {sweep.prefix}{n}: max |Δ| vs its reference "
                   f"{worst:.3e}, relaunch {'bit-identical' if same else 'DIFFERS'} "
                   f"{'ok' if ok and same else 'FAIL'}", flush=True)
             if not (ok and same):
@@ -515,7 +656,8 @@ def run_sweep(name: str, sweep: Sweep, tmp: Path) -> list:
                     times[i].append(cs.cuda_ms(lambda: sweep.run(args), reps=REPS))
         for i, consts in enumerate(sweep.variants):
             t = times[i]
-            print(f"[sweep] time {name} {label(consts)} b{n}: {sum(t) / len(t) * 1e3:.3f} us "
+            print(f"[sweep] time {name} {label(consts)} {sweep.prefix}{n}: "
+                  f"{sum(t) / len(t) * 1e3:.3f} us "
                   f"(rounds {', '.join(f'{v * 1e3:.3f}' for v in t)})", flush=True)
     return bad
 

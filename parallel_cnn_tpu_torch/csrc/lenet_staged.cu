@@ -22,10 +22,11 @@
 // error vector and the bias sums stay PyTorch ops, as they were XLA ops
 // outside every TPU kernel.
 //
-// Design. B4 and B8 give one thread one output and walk its sum in the
-// TPU kernel's order: B4 starts from the bias and adds the 16 taps in t
+// Design. B4 gives one thread one output and walks its sum in the TPU
+// kernel's order: it starts from the bias and adds the 16 taps in t
 // order, each product and sum rounded on its own (__fmul_rn/__fadd_rn) as
-// the plain PyTorch version rounds them. B7 (below) gives a thread two
+// the plain PyTorch version rounds them. B8 (below) gives a thread
+// SIGMA_VEC float4 quads, all loaded before its first sigma. B7 (below) gives a thread two
 // neighbouring lanes of one image and half of their 16 rows. B3 (below)
 // keeps B4's order and rounding for each of its outputs (the bias, then
 // the 25 taps in (i, j) order) but gives a thread a register tile of
@@ -49,7 +50,9 @@
 // (0.31 us), B8 2.65 MB (0.79 us), B9 at conv_wgrad 4.6 MB (1.37 us) for
 // 11.1 MFLOP: every one is bound by bytes, and every one sits below a
 // launch's few microseconds. At batch 1000 B4 moves 15.6 MB (4.64 us) for
-// 6.9 MFLOP and B7 16.4 MB (4.90 us): there the bytes set the bound.
+// 6.9 MFLOP, B7 16.4 MB (4.90 us) and B8 41.5 MB (12.4 us) for 10.4 MFLOP:
+// there the bytes set the bound. B8's 41.5 MB fit in the 50 MB L2, so
+// back-to-back calls on the same inputs can read faster than the bound.
 // B9's bytes are those of the im2col-fed product; the weight gradient it
 // serves needs only x and d_pre_c1, 1.09 MB (0.32 us), so a B9 that read x
 // directly would drop the host-side im2col and three quarters of its bound.
@@ -125,6 +128,22 @@
 //     allocates them);
 //   - each output is the plain version's one product, so B7 is bit for bit
 //     its plain version at every partition.
+// B8 replaces `_sigma_prime_kernel`, first ported as one thread an element
+// (a 4-byte load of d and of pre and a 4-byte store a thread, 864 blocks
+// of 256 at batch 64), with a thread SIGMA_VEC float4 quads, blocks of
+// SIGMA_THREADS, the grid from n alone capped at SIGMA_WAVE blocks (past
+// it the grid strides):
+//   - a thread loads all its quads of d and pre before its first
+//     sigma, as B7 loads its taps first, the quads SIGMA_THREADS
+//     apart so a warp's loads are 512 contiguous bytes;
+//   - an image is 864 quads, so n * 864 quads cover the tensors exactly
+//     and where d or pre starts on a 16-byte boundary every quad does; a
+//     view off the boundary takes four 4-byte loads a quad (load_quad),
+//     and the C entry refuses an out off it (the wrapper allocates out);
+//   - each element is sigma's IEEE expf and division, then d * s * (1 - s)
+//     left to right, the plain version's expression: B8 is bit for bit
+//     its plain version at every partition. At batch 64 its 2.65 MB sit
+//     below a launch; at batch 1000 its 41.5 MB set the bound.
 // B4 stays one thread an output: giving a thread 2 or 4 lanes (float2 or
 // float4 loads, taps first, blocks of 32-256), staging a block's rows in
 // shared memory with cp.async, or bringing an image's window block in by
@@ -162,7 +181,8 @@
 // allocate nothing: the wrapper allocates outputs and B9's scratch and
 // checks devices, dtypes, shapes and contiguity first; the launchers refuse
 // an empty batch, B3's misaligned pre or out, B6's misaligned dout, B7's
-// misaligned dpre or dxw and B9's operands past its limits.
+// misaligned dpre or dxw, B8's misaligned out and B9's operands past its
+// limits.
 
 #include <climits>
 #include <cstdint>
@@ -258,6 +278,20 @@ constexpr int POOL_BWD_SPLIT = 2;
 constexpr int POOL_BWD_GROUPS = LANES / POOL_BWD_VEC;
 static_assert(LANES % POOL_BWD_VEC == 0, "whole lane groups");
 static_assert(TAPS % (4 * POOL_BWD_SPLIT) == 0, "whole float4s of taps a part");
+
+// B8: a thread SIGMA_VEC float4 quads, SIGMA_THREADS apart, in blocks of
+// SIGMA_THREADS; at most SIGMA_WAVE blocks (16 of 128 threads an SM of an
+// H100 SXM), which then stride over the rest. One quad a thread in blocks
+// of 128, from 18 partitions timed on an H100 (benches/lenet_sweep.py
+// sigma_prime; PERF.md): level with one thread an element at batch 64 and
+// the fastest at 128; 2 and 4 quads a thread were slower at 64 and 128
+// (more sigmas in a row a thread, fewer threads). The strided wave beat
+// one pass at batch 1000 (fewer blocks to schedule).
+constexpr int SIGMA_VEC = 1;
+constexpr int SIGMA_THREADS = 128;
+constexpr int SIGMA_WAVE = 2112;
+constexpr int CONV_QUADS = CONV / 4;  // float4 quads an image
+static_assert(CONV % 4 == 0, "an image is whole quads");
 
 __device__ __forceinline__ float sigmoid(float v) {
   return 1.0f / (1.0f + expf(-v));
@@ -679,14 +713,50 @@ pool_bwd_kernel(const float* __restrict__ dout, const float* __restrict__ pre,
   }
 }
 
-// B8: out = d * s * (1 - s) with s = sigma(pre), elementwise.
-__global__ void __launch_bounds__(THREADS)
+// Four floats from p: one float4 load where p lies on a 16-byte boundary
+// (vec), else four 4-byte loads.
+__device__ __forceinline__ void load_quad(float (&v)[4], const float* __restrict__ p,
+                                          bool vec) {
+  if (vec) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  } else {
+    v[0] = __ldg(p), v[1] = __ldg(p + 1), v[2] = __ldg(p + 2), v[3] = __ldg(p + 3);
+  }
+}
+
+// B8: out = d * s * (1 - s) with s = sigma(pre), elementwise over `quads`
+// float4 quads. Pass k of block b covers quads (b + k * gridDim.x) * SPAN
+// onward, SPAN = SIGMA_THREADS * SIGMA_VEC; its thread t holds quads
+// t + u * SIGMA_THREADS of them, u < SIGMA_VEC.
+__global__ void __launch_bounds__(SIGMA_THREADS)
 sigma_prime_kernel(const float* __restrict__ d, const float* __restrict__ pre,
-                   float* __restrict__ out, long long total) {
-  const long long idx = global_index();
-  if (idx >= total) return;
-  const float s = sigmoid(pre[idx]);
-  out[idx] = d[idx] * s * (1.0f - s);
+                   float* __restrict__ out, long long quads) {
+  constexpr long long SPAN = static_cast<long long>(SIGMA_THREADS) * SIGMA_VEC;
+  const bool dvec = aligned16(d);
+  const bool pvec = aligned16(pre);
+  for (long long q0 = blockIdx.x * SPAN + threadIdx.x; q0 < quads; q0 += gridDim.x * SPAN) {
+    float dv[SIGMA_VEC][4] = {}, pv[SIGMA_VEC][4] = {};
+#pragma unroll
+    for (int u = 0; u < SIGMA_VEC; ++u) {
+      const long long q = q0 + u * SIGMA_THREADS;
+      if (q < quads) {
+        load_quad(dv[u], d + 4 * q, dvec);
+        load_quad(pv[u], pre + 4 * q, pvec);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < SIGMA_VEC; ++u) {
+      const long long q = q0 + u * SIGMA_THREADS;
+      float o[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const float s = sigmoid(pv[u][k]);
+        o[k] = dv[u][k] * s * (1.0f - s);
+      }
+      if (q < quads) store_vec<4>(out + 4 * q, o);
+    }
+  }
 }
 
 // B9: out[p,q] = sum_r a[r,p] * b[r,q], one launch (accum_plan gives the
@@ -889,12 +959,17 @@ extern "C" int lenet_pool_bwd(const float* dout, const float* pre, const float* 
   return launched();
 }
 
+// B8 also refuses an out that does not start on a 16-byte boundary (its
+// float4 stores; the wrapper allocates it).
 extern "C" int lenet_sigma_prime(const float* d, const float* pre, float* out,
                                  int n, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long total = static_cast<long long>(n) * CONV;
-  sigma_prime_kernel<<<blocks_for(total), THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      d, pre, out, total);
+  if (n <= 0 || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr long long SPAN = static_cast<long long>(SIGMA_THREADS) * SIGMA_VEC;
+  const long long quads = static_cast<long long>(n) * CONV_QUADS;
+  const long long blocks = (quads + SPAN - 1) / SPAN;
+  sigma_prime_kernel<<<static_cast<int>(blocks < SIGMA_WAVE ? blocks : SIGMA_WAVE),
+                       SIGMA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(d, pre, out,
+                                                                              quads);
   return launched();
 }
 

@@ -1,7 +1,7 @@
 // Fused SGD updates over 1-D f32 gradient buckets, written for Hopper
 // (sm_90a) and bound to Python through ctypes. Two kernels:
 //
-// sgd_kernel replaces the Pallas TPU kernel `_sgd_kernel`
+// sgd_leaves_kernel replaces the Pallas TPU kernel `_sgd_kernel`
 // (parallel_cnn_tpu/ops/pallas_update.py:54, launched by `fused_sgd` at
 // pallas_update.py:105; `tree_sgd` runs one launch per bucket).
 //
@@ -13,10 +13,21 @@
 // version agree bit for bit on the card. The LeNet trainer's ascent
 // convention p += dt * mean(g) is lr = -dt, scale = 1/n.
 //
-// Design. Each thread updates four neighbouring elements, with one 16-byte
-// load of p and of g and one 16-byte store when the three buffers are
-// 16-byte aligned and all four elements are in range; the ragged tail and
-// unaligned buffers take scalar loads.
+// Design. JAX's `tree_sgd` packs the params and the grads into a bucket
+// (two concatenations in XLA) before each launch. Here one launch reads a
+// bucket's leaves where they lie and writes the packed bucket: the C entry
+// takes a list of up to MAX_LEAVES leaves, (p, g, length) each, passed by
+// value in the kernel's parameters with their prefix offsets into the
+// output (the wrapper cuts a longer list into launches of MAX_LEAVES, in
+// order, each writing its span of the bucket). So a step's update is one
+// device op where it was three. Every leaf gets whole blocks (the prefix
+// sum of blocks per leaf; a block finds its leaf in at most MAX_LEAVES
+// compares), a thread SGD_UNITS accesses of p and of g, all loaded before
+// its first store. An access is the widest (float4, float2, a float) that
+// the leaf's p, g and its span of the output all allow: after a step
+// LeNet's param leaves are views of the last bucket at element offsets 0,
+// 6, 156, 166, 2,326 and 2,327, so most lie off the 16-byte boundary.
+// `fused_sgd` on one bucket is the list of one.
 //
 // Bound on an H100 SXM: 12 bytes per element (read p and g, write out) at
 // 3.35 TB/s, no arithmetic to speak of. LeNet's one bucket of 2,343
@@ -71,26 +82,114 @@ __device__ __forceinline__ float sgd(float p, float g, float lr, float scale) {
   return __fsub_rn(p, __fmul_rn(lr, __fmul_rn(g, scale)));
 }
 
-__global__ void __launch_bounds__(THREADS)
-sgd_kernel(const float* __restrict__ p, const float* __restrict__ g,
-           float* __restrict__ out, long long n, float lr, float scale,
-           int vec) {
-  const long long i0 =
-      (static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x) * 4;
-  if (i0 >= n) return;
-  if (vec && i0 + 3 < n) {
-    const float4 pv = *reinterpret_cast<const float4*>(p + i0);
-    const float4 gv = *reinterpret_cast<const float4*>(g + i0);
-    float4 o;
-    o.x = sgd(pv.x, gv.x, lr, scale);
-    o.y = sgd(pv.y, gv.y, lr, scale);
-    o.z = sgd(pv.z, gv.z, lr, scale);
-    o.w = sgd(pv.w, gv.w, lr, scale);
-    *reinterpret_cast<float4*>(out + i0) = o;
+// One access a thread in blocks of 128, from 9 partitions timed on an H100
+// (benches/lenet_sweep.py sgd_update; PERF.md) at LeNet's 6 leaves: 2 and
+// 4 accesses a thread were slower there, faster only at 2^20 values, off
+// the main path. A per-element leaf lookup was slower at both sizes; 8 or
+// 32 leaves a launch were level with 16.
+constexpr int MAX_LEAVES = 16;    // bucket leaves one sgd_update_leaves launch takes
+constexpr int SGD_THREADS = 128;  // threads a block
+constexpr int SGD_UNITS = 1;      // accesses of p and of g a thread keeps in flight
+constexpr int SGD_SPAN = SGD_THREADS * SGD_UNITS;
+
+// A launch's span of the bucket holds at most MAX_SPAN elements (the
+// entry refuses more), so offsets, lengths and access indices are 32-bit:
+// fewer bytes of parameters a launch.
+constexpr long long MAX_SPAN = 1LL << 30;
+struct SgdLeaf {
+  const float* p;
+  const float* g;
+  int off;    // the leaf's first element in the output span
+  int n;
+  int width;  // floats an access: 4, 2 or 1
+};
+
+// The kernel's parameters: ~0.6 KB, well under the 4 KB limit.
+struct SgdLeafList {
+  SgdLeaf e[MAX_LEAVES];
+  int first_block[MAX_LEAVES + 1];  // prefix sum of blocks per leaf
+  int count;
+};
+
+// W floats of a (1, 2 or 4) as one access; a must lie on a 4W-byte boundary.
+template <int W>
+__device__ __forceinline__ void load_w(float (&v)[W], const float* __restrict__ a) {
+  if constexpr (W == 4) {
+    const float4 x = __ldg(reinterpret_cast<const float4*>(a));
+    v[0] = x.x, v[1] = x.y, v[2] = x.z, v[3] = x.w;
+  } else if constexpr (W == 2) {
+    const float2 x = __ldg(reinterpret_cast<const float2*>(a));
+    v[0] = x.x, v[1] = x.y;
   } else {
-    for (long long i = i0; i < n && i < i0 + 4; ++i) {
-      out[i] = sgd(p[i], g[i], lr, scale);
+    v[0] = __ldg(a);
+  }
+}
+
+template <int W>
+__device__ __forceinline__ void store_w(float* __restrict__ a, const float (&v)[W]) {
+  if constexpr (W == 4) {
+    *reinterpret_cast<float4*>(a) = make_float4(v[0], v[1], v[2], v[3]);
+  } else if constexpr (W == 2) {
+    *reinterpret_cast<float2*>(a) = make_float2(v[0], v[1]);
+  } else {
+    a[0] = v[0];
+  }
+}
+
+// Thread `unit0` of a leaf's block: accesses unit0 + k * SGD_THREADS,
+// k < SGD_UNITS, access u covering the leaf's elements W*u .. W*u + W-1
+// (the leaf's last access may be ragged: one float at a time).
+template <int W>
+__device__ __forceinline__ void update_leaf(const SgdLeaf& x, float* __restrict__ out,
+                                            int unit0, float lr, float scale) {
+  const int n = x.n;
+  float pv[SGD_UNITS][W] = {}, gv[SGD_UNITS][W] = {};
+#pragma unroll
+  for (int k = 0; k < SGD_UNITS; ++k) {
+    const int i = W * (unit0 + k * SGD_THREADS);
+    if (i + W <= n) {
+      load_w<W>(pv[k], x.p + i);
+      load_w<W>(gv[k], x.g + i);
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        if (i + j < n) pv[k][j] = __ldg(x.p + i + j), gv[k][j] = __ldg(x.g + i + j);
+      }
     }
+  }
+#pragma unroll
+  for (int k = 0; k < SGD_UNITS; ++k) {
+    const int i = W * (unit0 + k * SGD_THREADS);
+    float o[W];
+#pragma unroll
+    for (int j = 0; j < W; ++j) o[j] = sgd(pv[k][j], gv[k][j], lr, scale);
+    if (i + W <= n) {
+      store_w<W>(out + x.off + i, o);
+    } else {
+#pragma unroll
+      for (int j = 0; j < W; ++j) {
+        if (i + j < n) out[x.off + i + j] = o[j];
+      }
+    }
+  }
+}
+
+// Block b updates SGD_SPAN accesses of leaf e, the last leaf whose first
+// block is at most b.
+__global__ void __launch_bounds__(SGD_THREADS)
+sgd_leaves_kernel(const __grid_constant__ SgdLeafList list, float* __restrict__ out,
+                  float lr, float scale) {
+  const int blk = static_cast<int>(blockIdx.x);
+  int e = list.count - 1;
+  while (e > 0 && blk < list.first_block[e]) --e;
+  const SgdLeaf& x = list.e[e];
+  const int unit0 = (blk - list.first_block[e]) * SGD_SPAN + static_cast<int>(threadIdx.x);
+  if (x.width == 4) {
+    update_leaf<4>(x, out, unit0, lr, scale);
+  } else if (x.width == 2) {
+    update_leaf<2>(x, out, unit0, lr, scale);
+  } else {
+    update_leaf<1>(x, out, unit0, lr, scale);
   }
 }
 
@@ -197,6 +296,14 @@ bool aligned16(const void* ptr) {
   return (reinterpret_cast<std::uintptr_t>(ptr) & 15u) == 0;
 }
 
+// The widest access (floats) that all three buffers allow.
+int access_width(const void* a, const void* b, const void* c) {
+  const std::uintptr_t bits = reinterpret_cast<std::uintptr_t>(a) |
+                              reinterpret_cast<std::uintptr_t>(b) |
+                              reinterpret_cast<std::uintptr_t>(c);
+  return (bits & 15u) == 0 ? 4 : (bits & 7u) == 0 ? 2 : 1;
+}
+
 // The blocks of sgd_momentum_kernel the card holds at once (SMs x blocks
 // per SM at its registers), per device, or 0 with the error in *err.
 int resident_blocks(cudaError_t* err) {
@@ -217,19 +324,39 @@ int resident_blocks(cudaError_t* err) {
 
 }  // namespace
 
-// Plain C entry point for ctypes. `p`, `g` and `out` are device pointers to
-// n f32 values. Returns 0 on a launch that was accepted, else the
-// cudaError_t.
-extern "C" int sgd_update(const float* p, const float* g, float* out,
-                          long long n, float lr, float scale, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const long long threads = (n + 3) / 4;
-  const long long blocks = (threads + THREADS - 1) / THREADS;
-  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-  const int vec = aligned16(p) && aligned16(g) && aligned16(out);
-  sgd_kernel<<<static_cast<unsigned>(blocks), THREADS, 0,
-               static_cast<cudaStream_t>(stream)>>>(p, g, out, n, lr, scale,
-                                                    vec);
+// The most leaves one sgd_update_leaves launch takes: the wrapper checks
+// its own MAX_LEAVES against it when it loads the library.
+extern "C" int sgd_update_max_leaves() { return MAX_LEAVES; }
+
+// Plain C entry point for ctypes: one launch over `count` leaves, 1 <=
+// count <= MAX_LEAVES. `ptrs` holds two device pointers per leaf (p, g),
+// `lens` its length (>= 1); the leaves are packed in order into `out`, a
+// device pointer to the sum of the lengths (at most 2^30) in f32, on any
+// 4-byte boundary. Returns 0 on a launch that was accepted, else the
+// cudaError_t (cudaErrorInvalidValue for a count or length it refuses, or
+// a null out).
+extern "C" int sgd_update_leaves(void* const* ptrs, const long long* lens, int count,
+                                 float* out, float lr, float scale, void* stream) {
+  if (count <= 0 || count > MAX_LEAVES || out == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  SgdLeafList list{};
+  long long off = 0, blocks = 0;
+  for (int i = 0; i < count; ++i) {
+    if (lens[i] <= 0 || off + lens[i] > MAX_SPAN) return static_cast<int>(cudaErrorInvalidValue);
+    SgdLeaf& x = list.e[i];
+    x.p = static_cast<const float*>(ptrs[2 * i]);
+    x.g = static_cast<const float*>(ptrs[2 * i + 1]);
+    x.off = static_cast<int>(off);
+    x.n = static_cast<int>(lens[i]);
+    x.width = access_width(x.p, x.g, out + off);
+    list.first_block[i] = static_cast<int>(blocks);
+    blocks += ((x.n + x.width - 1) / x.width + SGD_SPAN - 1) / SGD_SPAN;
+    off += x.n;
+  }
+  list.first_block[count] = static_cast<int>(blocks);
+  list.count = count;
+  sgd_leaves_kernel<<<static_cast<int>(blocks), SGD_THREADS, 0,
+                      static_cast<cudaStream_t>(stream)>>>(list, out, lr, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,6 +11,8 @@ runs without the suite's conftest:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -48,13 +50,18 @@ from chip_smoke import (
     PROBE_EXACT,
     PROBE_LAUNCHES,
     PROBE_RTOL,
+    SGD_LR,
+    SGD_TREES,
     card_draw,
     forward_at_tile,
+    packing_tree_sgd,
     probe_kernel,
     probe_operands,
     resnet18_bucket_sizes,
+    sgd_tree,
     stage_cases,
     STAGED_SIZES,
+    tree_sgd_launches,
 )
 
 # (b, h, w, cin, cout, k, s): tests/test_pallas_conv.py's geometry plus
@@ -319,6 +326,65 @@ def test_sgd_update_raises_instead_of_falling_back(card):
     with pytest.raises(ValueError):
         sgd_update.fused_sgd(p[::2], torch.zeros(8, device=card), lr=0.1)
     assert sgd_update.launches.count == before
+
+
+@pytest.mark.parametrize("which", SGD_TREES)
+def test_tree_sgd_is_the_packing_composition_bit_for_bit_on_card(card, which):
+    """tree_sgd on the card reads each bucket's leaves where they lie: bit
+    for bit the parent's composition (both trees packed, fused_sgd_plain
+    a bucket, unpacked) for LeNet's fresh params, its params as views of a
+    bucket after a step (leaves at element offsets 0, 6, 156, 166, 2,326
+    and 2,327: float4, float2 and 4-byte accesses), the mixed tree with
+    its 0-d leaf and MAX_LEAVES + 5 leaves (two launches); one launch a
+    bucket's MAX_LEAVES leaves, a relaunch bit for bit, and the leaves
+    returned as views of one output bucket."""
+    params, grads = sgd_tree(which, card)
+    if which == "lenet_views":
+        leaves = tree_leaves(params)
+        assert [t.storage_offset() for t in leaves] == [0, 6, 156, 166, 2326, 2327]
+        assert len({t.untyped_storage().data_ptr() for t in leaves}) == 1
+    before = sgd_update.launches.count
+    got = sgd_update.tree_sgd(params, grads, lr=SGD_LR, scale=1.0 / 64)
+    again = sgd_update.tree_sgd(params, grads, lr=SGD_LR, scale=1.0 / 64)
+    torch.cuda.synchronize()
+    assert sgd_update.launches.count == before + 2 * tree_sgd_launches(params)
+    assert tree_sgd_launches(params) == (2 if which == "many" else 1)
+    want = packing_tree_sgd(params, grads, SGD_LR, 1.0 / 64, plain=True)
+    got_l, again_l, want_l = tree_leaves(got), tree_leaves(again), tree_leaves(want)
+    assert len(got_l) == len(want_l) == len(tree_leaves(params))
+    for g, a, w in zip(got_l, again_l, want_l):
+        assert g.shape == w.shape and torch.equal(g, w) and torch.equal(a, w)
+    assert len({t.untyped_storage().data_ptr() for t in got_l}) == 1
+
+
+def test_sgd_update_leaves_entry_refuses_what_it_does_not_take_on_card(card):
+    """The leaf list's C entry refuses an empty list, more than MAX_LEAVES
+    leaves, a leaf of length 0 and a null output, and launches nothing; an
+    output span off the 16-byte boundary it takes, and writes exactly the
+    span, the leaves packed in order."""
+    k = sgd_update.MAX_LEAVES + 1
+    ps = [torch.randn(3, device=card) for _ in range(k)]
+    gs = [torch.randn(3, device=card) for _ in range(k)]
+    ptrs = (ctypes.c_void_p * (2 * k))(*[t.data_ptr() for p, g in zip(ps, gs)
+                                         for t in (p, g)])
+    lens = (ctypes.c_longlong * k)(*([3] * k))
+    zero = (ctypes.c_longlong * k)(*([3, 0] + [3] * (k - 2)))
+    buf = torch.full((3 * k + 2,), float("nan"), device=card)
+    out = buf[1:].data_ptr()  # 4 bytes off the boundary
+    lib = sgd_update._lib()
+    stream = launch_stream(card)
+    before = sgd_update.launches.count
+    for args in ((ptrs, lens, 0, out), (ptrs, lens, k, out), (ptrs, zero, 2, out),
+                 (ptrs, lens, 2, None)):
+        assert lib.sgd_update_leaves(*args, 0.1, 1.0, stream) == 1
+    torch.cuda.synchronize()
+    assert bool(buf.isnan().all())
+    assert lib.sgd_update_leaves(ptrs, lens, 2, out, 0.1, 0.5, stream) == 0
+    torch.cuda.synchronize()
+    want = sgd_update.fused_sgd_plain(torch.cat(ps[:2]), torch.cat(gs[:2]), 0.1, 0.5)
+    assert torch.equal(buf[1:7], want)
+    assert bool(buf[0].isnan()) and bool(buf[7:].isnan().all())
+    assert sgd_update.launches.count == before  # the C entry counts nothing
 
 
 # B13 at odd sizes and ResNet-18's first and last bucket (971,328; 5,130).
@@ -862,6 +928,52 @@ def test_pool_bwd_is_bit_identical_to_plain_on_card(card, n, view):
     for g, a, want in zip(got, again, lenet_staged.pool_bwd_plain(*args)):
         assert torch.equal(g, a)
         assert torch.equal(g, want)
+
+
+@pytest.mark.parametrize("view", ["whole", "offset", "mixed"])
+@pytest.mark.parametrize("n", FWD_SIZES)
+def test_sigma_prime_is_bit_identical_to_plain_on_card(card, n, view):
+    """B8 bit for bit against its plain twin (σ of the preact with IEEE
+    expf and division, then d·s·(1−s) left to right, whatever thread holds
+    it) and a relaunch bit for bit, with d and pre as tensors of their own
+    ("whole"), as views one value in, off the 16-byte boundary, so the
+    kernel takes its 4-byte loads ("offset"), and d whole with pre off it
+    ("mixed"). Each view draws its own values."""
+    rng = np.random.default_rng([n + 4, ("whole", "offset", "mixed").index(view)])
+    host = (rng.standard_normal((n, 6, 24, 24)).astype(np.float32),
+            (rng.standard_normal((n, 6, 24, 24)) * 3).astype(np.float32))
+    views = {"whole": ("whole", "whole"), "offset": ("offset", "offset"),
+             "mixed": ("whole", "offset")}[view]
+    args = [_card_view(a, card, v) for a, v in zip(host, views)]
+    assert [a.data_ptr() % 16 != 0 for a in args] == [v == "offset" for v in views]
+    got, again = _twice("sigma_prime", lenet_staged.conv_bwd_dpre, args)
+    assert torch.equal(got, again)
+    assert torch.equal(got, lenet_staged.conv_bwd_dpre_plain(*args))
+
+
+def test_sigma_prime_entry_refuses_a_misaligned_out_on_card(card):
+    """B8's float4 stores: the C entry refuses an out off the 16-byte
+    boundary (the wrapper always allocates an aligned one) or an empty
+    batch and launches nothing; on an aligned out it writes its plain
+    twin's values and nothing past them."""
+    rng = np.random.default_rng(8)
+    d, pre = (torch.from_numpy(rng.standard_normal((2, 6, 24, 24)).astype(np.float32)).to(card)
+              for _ in range(2))
+    lib = lenet_staged._lib()
+    stream = launch_stream(card)
+    buf = torch.full((2 * 3456 + 4,), float("nan"), device=card)
+    assert lib.lenet_sigma_prime(d.data_ptr(), pre.data_ptr(), buf.data_ptr() + 4, 2,
+                                 stream) == 1
+    assert lib.lenet_sigma_prime(d.data_ptr(), pre.data_ptr(), buf.data_ptr(), 0,
+                                 stream) == 1
+    torch.cuda.synchronize()
+    assert bool(buf.isnan().all())
+    assert lib.lenet_sigma_prime(d.data_ptr(), pre.data_ptr(), buf.data_ptr(), 2,
+                                 stream) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(buf[:2 * 3456].view(2, 6, 24, 24),
+                       lenet_staged.conv_bwd_dpre_plain(d, pre))
+    assert bool(buf[2 * 3456:].isnan().all())
 
 
 def test_pool_bwd_entry_refuses_misaligned_outputs_on_card(card):

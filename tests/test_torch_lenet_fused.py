@@ -234,6 +234,102 @@ def test_tree_sgd_makes_one_bucket_for_lenet():
     assert plan.n_buckets == 1 and plan.bucket_sizes == (2343,)
 
 
+def _many_leaves_tree(rng):
+    """A tree of MAX_LEAVES + 5 leaves of odd lengths (a 0-d one and a
+    matrix among them): one bucket that the card updates in two launches."""
+    tree = {f"l{i:02d}": rng.normal(size=((i * 37) % 101 + 1,)).astype(np.float32)
+            for i in range(sgd_update.MAX_LEAVES + 3)}
+    tree["m"] = rng.normal(size=(5, 7)).astype(np.float32)
+    tree["z"] = np.float32(rng.normal())
+    return tree
+
+
+def _sgd_tree(which, rng):
+    if which == "lenet":
+        return jax_params(2)
+    return _mixed_tree(rng) if which == "mixed" else _many_leaves_tree(rng)
+
+
+@pytest.mark.parametrize("which", ["lenet", "mixed", "many"])
+def test_tree_sgd_leaf_launches_cover_each_bucket_in_order(which):
+    """The card's tree_sgd hands each bucket's leaves to the kernel in
+    launches of at most MAX_LEAVES (⌈leaves / MAX_LEAVES⌉ a bucket: one for
+    LeNet's 6 leaves and the mixed tree's 3, two for MAX_LEAVES + 5); each
+    launch's span starts at its first leaf's slot offset and the kernel's
+    prefix offsets (the span's start plus the lengths before) are the
+    plan's slot offsets, so the spans tile the bucket exactly."""
+    tree = _to_torch(_sgd_tree(which, np.random.default_rng(5)))
+    plan = collectives.plan_buckets(tree, shards=1)
+    assert plan.n_buckets == 1
+    members = sgd_update.bucket_leaves(plan)
+    assert [i for m in members for i in m] == [
+        i for i, s in enumerate(plan.slots) if s.bucket >= 0]
+    for b, m in enumerate(members):
+        launches = sgd_update.leaf_launches([plan.slots[i].size for i in m])
+        assert len(launches) == -(-len(m) // sgd_update.MAX_LEAVES)
+        assert len(launches) == {"lenet": 1, "mixed": 1, "many": 2}[which]
+        leaf = iter(m)
+        end = 0
+        for start, lens in launches:
+            assert start == end and 1 <= len(lens) <= sgd_update.MAX_LEAVES
+            for off in start + np.concatenate([[0], np.cumsum(lens)[:-1]]):
+                slot = plan.slots[next(leaf)]
+                assert slot.bucket == b and slot.offset == off
+            end = start + sum(lens)
+        assert end == plan.bucket_sizes[b] and next(leaf, None) is None
+
+
+def test_wrapper_max_leaves_is_the_kernel_sources():
+    """The wrapper cuts a bucket's leaves into launches of MAX_LEAVES, the
+    size of the kernel's parameter struct in csrc/sgd_update.cu; the
+    library reports its own, which the wrapper checks when it loads it."""
+    import re
+
+    src = (REPO_CSRC / "sgd_update.cu").read_text()
+    assert re.findall(r"constexpr int MAX_LEAVES = (\d+);", src) == [
+        str(sgd_update.MAX_LEAVES)]
+    assert "sgd_update_max_leaves" in sgd_update._library.symbols
+    assert "sgd_update_max_leaves()" in src
+    # Two kernels: the leaf list (B2) and the momentum list (B13).
+    assert len(re.findall(r"__global__ void", src)) == 2
+
+
+def test_tree_sgd_plain_matches_pallas_interpret_past_max_leaves():
+    """The host tree_sgd (pack, plain update, unpack) against JAX's tree_sgd
+    on a tree of more leaves than one card launch takes."""
+    rng = np.random.default_rng(29)
+    params = _many_leaves_tree(rng)
+    grads = jax.tree_util.tree_map(
+        lambda p: rng.normal(size=np.shape(p)).astype(np.float32), params)
+    assert len(jax.tree_util.tree_leaves(params)) == sgd_update.MAX_LEAVES + 5
+    want = jupdate.tree_sgd(params, grads, lr=-0.1, scale=1.0 / 16)
+    got = sgd_update.tree_sgd(_to_torch(params), _to_torch(grads), lr=-0.1,
+                              scale=1.0 / 16)
+    w_leaves = jax.tree_util.tree_leaves(want)
+    g_leaves = tree_leaves(got)
+    assert len(g_leaves) == len(w_leaves)
+    for g, w in zip(g_leaves, w_leaves):
+        assert tuple(g.shape) == np.shape(w)
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=SGD_RTOL,
+                                   atol=SGD_ATOL)
+
+
+def test_fused_sgd_leaves_plain_is_the_packed_update():
+    """On CPU tensors the leaf list's plain version is the packed bucket's
+    update, bit for bit: what the card's kernel writes."""
+    rng = np.random.default_rng(3)
+    sizes = (6, 150, 10, 2160, 1, 16)
+    ps = [torch.from_numpy(rng.normal(size=n).astype(np.float32)) for n in sizes]
+    gs = [torch.from_numpy(rng.normal(size=n).astype(np.float32)) for n in sizes]
+    got = sgd_update.fused_sgd_leaves(ps, gs, lr=-0.1, scale=1.0 / 64)
+    want = sgd_update.fused_sgd_plain(torch.cat(ps), torch.cat(gs), -0.1, 1.0 / 64)
+    assert torch.equal(got, want)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_leaves(ps, gs[:-1], lr=0.1)
+    with pytest.raises(ValueError):
+        sgd_update.fused_sgd_leaves([], [], lr=0.1)
+
+
 @pytest.mark.parametrize("bucket_bytes,shards", [
     (collectives.DEFAULT_BUCKET_BYTES, 1), (64, 1), (600, 4), (4, 3),
 ])

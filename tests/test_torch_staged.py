@@ -285,6 +285,41 @@ def test_pool_bwd_grid_covers_every_row_once(n):
         assert (dxw == 1).all() and (dpre == 1).all()
 
 
+@settings(max_examples=100, deadline=None)
+@given(n=st.integers(1, 200_000))
+def test_sigma_prime_grid_covers_every_element_once(n):
+    """B8's grid from csrc/lenet_staged.cu's constants: n · 864 float4
+    quads, min(⌈quads / SPAN⌉, SIGMA_WAVE) blocks of SIGMA_THREADS (SPAN =
+    SIGMA_THREADS · SIGMA_VEC), pass k of block b covering quads
+    (b + k · blocks) · SPAN onward, thread t holding t + u · SIGMA_THREADS
+    of them. Each sampled image's quads belong to exactly one (block,
+    pass, thread, slot) inside the grid, every element once; every quad
+    lies a whole float4 from the base, so it is aligned where the base is.
+    The kernel loads all it reads before its first σ and stages nothing in
+    shared memory."""
+    vec, tpb, wave = (_source_const(k) for k in ("SIGMA_VEC", "SIGMA_THREADS", "SIGMA_WAVE"))
+    assert vec in (1, 2, 4) and tpb % 32 == 0 and tpb <= 1024 and 1 <= wave <= 2**31 - 1
+    span, quads = tpb * vec, n * 3456 // 4
+    blocks = min(-(-quads // span), wave)
+    passes = -(-quads // (blocks * span))
+    for img in _sample_images(n):
+        q = np.arange(img * 864, (img + 1) * 864)
+        chunk, r = q // span, q % span
+        b, k, u, t = chunk % blocks, chunk // blocks, r // tpb, r % tpb
+        assert (b < blocks).all() and (k < passes).all() and (u < vec).all()
+        # The thread's loop reaches pass k (its first quad there lies below
+        # quads) and its slot u holds q again: a bijection.
+        first = (b + k * blocks) * span + t
+        assert (first <= q).all() and (first < quads).all()
+        assert ((b + k * blocks) * span + t + u * tpb == q).all()
+        elems = (4 * q[:, None] + np.arange(4)).ravel()
+        assert (np.sort(elems) == np.arange(img * 3456, (img + 1) * 3456)).all()
+        assert ((4 * q * 4) % 16 == 0).all()
+    body = _kernel_text("sigma_prime_kernel")
+    assert "__shared__" not in body
+    assert body.rindex("load_quad(") < body.index("sigmoid(")
+
+
 @pytest.mark.parametrize("n", SIZES)
 def test_fc_bwd_matches_jax(n):
     a, jp, tp = arrays(n), jax_params(), port_params()
