@@ -891,8 +891,8 @@ def device_launches(fn, calls: int = 50) -> str:
         return "not measured"
     top = max(counts.values())
     per_call = sum(c / top for c in counts.values())
-    names = ", ".join(k.replace("(anonymous namespace)::", "").split("(")[0].split()[-1]
-                      for k in counts)
+    names = ", ".join(k.replace("(anonymous namespace)::", "").split("(")[0]
+                      .removeprefix("void ").strip() for k in counts)
     return f"{per_call:.2f} ({names}; {top} of {calls} calls seen)"
 
 
@@ -1343,10 +1343,12 @@ L2_BYTES = 50 * 2**20  # an H100's L2
 
 def l2_cold_note(fn, args, bound) -> str:
     """fn(*args) with the L2 cold, as a note: where two copies of the
-    inputs outgrow the L2 the calls take them in turns, else each launch
-    follows a flush (cold_ms)."""
-    if 2 * 4 * sum(a.numel() for a in args) > L2_BYTES:
-        turn = itertools.cycle([args, tuple(a.clone() for a in args)])
+    input tensors outgrow the L2 the calls take them in turns, else each
+    launch follows a flush (cold_ms)."""
+    tensors = [a for a in args if isinstance(a, torch.Tensor)]
+    if 2 * 4 * sum(a.numel() for a in tensors) > L2_BYTES:
+        turn = itertools.cycle([args, tuple(a.clone() if isinstance(a, torch.Tensor) else a
+                                            for a in args)])
         ms, how = cuda_ms(lambda: fn(*next(turn)), reps=200), "two input copies in turns"
     else:
         ms, how = cold_ms(lambda: fn(*args)), "flushed before each launch"
@@ -1818,13 +1820,16 @@ def time_zoo_kernels() -> dict:
           f"{min(s1_shares):.1%} (>= {TARGET_S1_SHARE:.0%}): "
           f"{'all met' if met else 'NOT all met'}", flush=True)
     for pool in ("gap", "max2"):
-        x, w, b, y = tail_inputs(pool, gen)
-        ms = cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=20)
-        plain = cuda_ms(lambda: tail.tail_forward_plain(x, w, b, y, pool), reps=20)
-        bound, by = tail_bound_ms(x, w)
-        print(f"[smoke] time tail_ce {pool} b{ZOO_BATCH}: kernel {ms:.4f} ms, plain "
+        args = tail_inputs(pool, gen)
+        fn = lambda x, w, b, y: tail.tail_forward(x, w, b, y, pool)  # noqa: E731
+        ms = cuda_ms(lambda: fn(*args), reps=200)
+        plain = cuda_ms(lambda: tail.tail_forward_plain(*args, pool), reps=20)
+        bound, by = tail_bound_ms(*args[:2])
+        note = l2_cold_note(fn, args, bound)
+        print(f"[smoke] time tail_ce {pool} b{ZOO_BATCH}: kernel {ms:.5f} ms, plain "
               f"{plain:.4f} ms, library none, bound {bound:.6f} ms ({by}), "
-              f"{bound / ms:.1%} of bound", flush=True)
+              f"{bound / ms:.1%} of bound{note}; {device_launches(lambda: fn(*args))} CUDA "
+              "launches per wrapper call (torch.profiler)", flush=True)
         if pool == "gap":
             out["tail_ce"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                                   library_ms=None)
@@ -2273,9 +2278,11 @@ def time_probe_kernels() -> dict:
             lib_ms = cuda_ms(probe_library_call(name, args), reps=50)
         plain_ms = cuda_ms(lambda: plain(*args), reps=10)
         bound, by = probe_bound_ms(name, args, fn(*args))
+        note = l2_cold_note(fn, args, bound)
         print(f"[smoke] time probe {name:12s}: kernel {ms:.5f} ms, plain {plain_ms:.4f} "
               f"ms, library {lib_ms:.5f} ms, bound {bound:.6f} ms ({by}), "
-              f"{bound / ms:.2%} of bound", flush=True)
+              f"{bound / ms:.2%} of bound{note}; {device_launches(lambda: fn(*args))} CUDA "
+              "launches per wrapper call (torch.profiler)", flush=True)
         times[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                            library_ms=lib_ms)
     floor = cuda_ms(lambda: torch.cuda._sleep(0), reps=50)
@@ -2297,7 +2304,8 @@ def time_probe_kernels() -> dict:
           "it describes the cold copy, while a warm one reads and writes the 50 MB L2",
           flush=True)
     t = {k: v["ms"] for k, v in times.items()}
-    print(f"[smoke] probe (c) B1's conv form against the one-contraction form, "
+    print(f"[smoke] probe (c) B1's conv form against the one-contraction form "
+          f"(B18's first design against B17/B19's redesign), "
           f"(25,{probe_bench.BB},576) bf16 x, 6 filters: vpu_conv (per filter, 25 "
           f"rounded multiply-adds) {t['vpu_conv']:.5f} ms, mxu_conv_L {t['mxu_conv_L']:.5f}"
           f" ms, mxu_conv_3d {t['mxu_conv_3d']:.5f} ms: per-filter / one-contraction "

@@ -1,8 +1,9 @@
 """This checkout's conv forward (B10), probe copies (B15, B16), LeNet step
 kernel (B1), B9 contraction, staged conv, pool and FC forwards (B3, B4,
-B5), pool backward (B7) and σ′ (B8), and the fused SGD (B2) alone and
-through ``tree_sgd`` against another checkout's, on one card: outputs
-compared, times in turns.
+B5), pool backward (B7) and σ′ (B8), the fused SGD (B2) alone and
+through ``tree_sgd``, the fused loss tail (B12) and the probes'
+one-contraction conv (B17, B19) against another checkout's, on one card:
+outputs compared, times in turns.
 
     python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
 
@@ -22,14 +23,19 @@ the path's own, ``chip_smoke.stage_cases``; B8 at 1000 also with the L2
 cold, two copies of its inputs in turns), and B2 on LeNet's params: one
 ``sgd_update.fused_sgd`` on the packed 2,343 values, and ``tree_sgd`` on
 the fresh params and on params that are views of a bucket after a step
-(device time, and host time a call); and times each, the copies in turns
-with ``copy_``. Last, one profiled ``--fused-step`` LeNet epoch at batch 64
+(device time, and host time a call); B12 (``tail.tail_forward``) in gap
+and max2 mode at batch 128 on ``chip_smoke.tail_inputs``; B17 and B19
+(``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) at the probes' shapes,
+the odd ones (``chip_smoke.probe_operands``) and with x one value past a
+16-byte boundary; and times each, the copies in turns with ``copy_``, B12,
+B17 and B19 also with the L2 cold (``chip_smoke.cold_ms``). Last, one
+profiled ``--fused-step`` LeNet epoch at batch 64
 (``chip_smoke.profiled_epoch``): host µs, device ops and idle share a
 step. The first run of each side saves its outputs, which are
-then compared: the forward, the copies, B3, B4, B7, B8 and B2 bit for
-bit, B1's, B9's and B5's within ``chip_smoke.LENET_RTOL`` of the other
-side's scale (a redesign may sum in another order), with the max |Δ|
-printed.
+then compared: the forward, the copies, B3, B4, B7, B8, B2, B17 and B19
+bit for bit, B1's, B9's, B5's and B12's within ``chip_smoke.LENET_RTOL``
+of the other side's scale (a redesign may sum in another order), with the
+max |Δ| printed.
 Prints one line per comparison and per time (each side's two runs
 averaged). Exits non-zero where a comparison fails. Needs the card.
 """
@@ -52,7 +58,7 @@ LENET_REPS = 200
 STAGED_FWD_BATCHES = (64, 1000)
 STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd", "sigma_prime")
 #: Outputs whose order a redesign may change: compared within a tolerance.
-TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd")
+TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd", "tail_ce")
 
 
 def side(out_file: str) -> None:
@@ -125,6 +131,7 @@ def side(out_file: str) -> None:
                 times[f"{case} b{n} L2 cold"] = cs.cuda_ms(lambda: fn(*next(turn)),
                                                            reps=LENET_REPS)
     sgd_cases(outs, times)
+    tail_and_contract_cases(outs, times)
     fused_step_epoch(times)
     if out_file:
         torch.save(outs, out_file)
@@ -158,6 +165,37 @@ def sgd_cases(outs: dict, times: dict) -> None:
                                    reps=LENET_REPS)
         times[f"tree_sgd {label}"] = ms
         times[f"tree_sgd {label} host a call"] = call_ms
+
+
+def tail_and_contract_cases(outs: dict, times: dict) -> None:
+    """B12 in both zoo tails at batch 128, and B17/B19 at the probes'
+    shapes, the odd ones and with x one value off a 16-byte boundary; times
+    with the L2 warm and cold."""
+    import torch
+
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import mosaic_probe, tail
+
+    gen = torch.Generator(device="cuda").manual_seed(900)
+    for pool in ("gap", "max2"):
+        x, w, b, y = cs.tail_inputs(pool, gen)
+        key = f"tail_ce {pool} b{cs.ZOO_BATCH}"
+        loss, dl = tail.tail_forward(x, w, b, y, pool)
+        outs[key] = torch.cat([loss, dl.reshape(-1)]).cpu()
+        times[key] = cs.cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=LENET_REPS)
+        times[f"{key} L2 cold"] = cs.cold_ms(lambda: tail.tail_forward(x, w, b, y, pool))
+    for name in ("mxu_conv_L", "mxu_conv_3d"):
+        fn = getattr(mosaic_probe, name)
+        w, x = cs.probe_operands(name, True, cs.card_draw(gen))
+        outs[f"{name} odd shape"] = fn(w, x).cpu()
+        w, x = cs.probe_operands(name, False, cs.card_draw(gen))
+        outs[f"{name} probe shape"] = fn(w, x).cpu()
+        buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        view = buf[1:].view(x.shape)
+        view.copy_(x)
+        outs[f"{name} x one value off"] = fn(w, view).cpu()
+        times[name] = cs.cuda_ms(lambda: fn(w, x), reps=LENET_REPS)
+        times[f"{name} L2 cold"] = cs.cold_ms(lambda: fn(w, x))
 
 
 def fused_step_epoch(times: dict) -> None:

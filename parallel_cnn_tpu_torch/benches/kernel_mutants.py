@@ -9,10 +9,15 @@ LeNet step kernel (B1, ``csrc/lenet_fused.cu``), B9's contraction
 conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
 file), the staged pool forward and backward (B4 ``pool_fwd_kernel``,
 B7 ``pool_bwd_kernel``, same file), the staged σ′ kernel (B8
-``sigma_prime_kernel``, same file) and the leaf list of the fused SGD (B2
-``sgd_leaves_kernel``, ``csrc/sgd_update.cu``).
+``sigma_prime_kernel``, same file), the leaf list of the fused SGD (B2
+``sgd_leaves_kernel``, ``csrc/sgd_update.cu``), the fused loss tail (B12
+``tail_ce_kernel``, ``csrc/tail_ce.cu``) and the probes' one-contraction
+conv (B17/B19 ``conv_contract_kernel``, ``csrc/mosaic_probe.cu``).
 
-    python -m parallel_cnn_tpu_torch.benches.kernel_mutants
+    python -m parallel_cnn_tpu_torch.benches.kernel_mutants [WORD ...]
+
+With words, only the mutants whose names hold one of them run (beside the
+unmutated copy), e.g. ``B12 B17``.
 
 Each mutant is one edit to a kernel source. It is applied to a copy of the
 checkout (the port's package, ``chip_smoke.py``, ``tests/test_torch_cuda.py``
@@ -45,11 +50,11 @@ COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
 #: forward's (against its plain twin at every tile, across batch positions
-#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's, B7's, B8's and
-#: B2's.
+#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's, B7's, B8's, B2's
+#: and B12's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
           "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd "
-          "or pool_fwd or pool_bwd or sigma_prime or sgd_update or tree_sgd")
+          "or pool_fwd or pool_bwd or sigma_prime or sgd_update or tree_sgd or tail")
 #: Copies built and tested at once (each its own pytest process).
 JOBS = 3
 
@@ -179,6 +184,24 @@ MUTANTS = {
     "B2 ragged access's last float dropped": (
         f"{CSRC}/sgd_update.cu", "if (i + j < n) out[x.off + i + j] = o[j];",
         "if (i + j + 1 < n) out[x.off + i + j] = o[j];"),
+    "B12 gap's second half of positions dropped": (
+        f"{CSRC}/tail_ce.cu", "if (p + q < positions) sum = vadd(sum, v[q]);",
+        "if (2 * (p + q) < positions) sum = vadd(sum, v[q]);"),
+    "B12 last row group's partial left out of the logit": (
+        f"{CSRC}/tail_ce.cu", "for (int r = 1; r < rows; ++r) s += part[r * kc + j];",
+        "for (int r = 1; r < rows - 1; ++r) s += part[r * kc + j];"),
+    "B12 one-hot subtracted at the wrong class": (
+        f"{CSRC}/tail_ce.cu", "(j == y ? 1.0f : 0.0f)", "(j == y + 1 ? 1.0f : 0.0f)"),
+    "B17/B19 wide body's last tap dropped": (
+        f"{CSRC}/mosaic_probe.cu",
+        "for (int t = 0; t < TAPS; ++t) {\n      float xv[CONTRACT_COLS];\n      widen(",
+        "for (int t = 0; t < TAPS - 1; ++t) {\n      float xv[CONTRACT_COLS];\n      widen("),
+    "B17/B19 misaligned x read by the wide body": (
+        f"{CSRC}/mosaic_probe.cu",
+        "(reinterpret_cast<std::uintptr_t>(x) & (CONTRACT_COLS * 2 - 1)) == 0;", "true;"),
+    "B17/B19 narrow body's last column not stored": (
+        f"{CSRC}/mosaic_probe.cu", "if (q < cols) out[m * l + c0 + q] = acc[m][q];",
+        "if (q + 1 < cols) out[m * l + c0 + q] = acc[m][q];"),
 }
 
 
@@ -231,10 +254,11 @@ def run_copy(name: str) -> tuple:
         return run_card_tests(root)
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    words = sys.argv[1:] if argv is None else argv
     resolve_device("cuda")
     bad = []
-    names = ("none", *MUTANTS)
+    names = ("none", *(m for m in MUTANTS if not words or any(w in m for w in words)))
     with concurrent.futures.ThreadPoolExecutor(JOBS) as ex:
         for name, (failed, selected) in zip(names, ex.map(run_copy, names)):
             print(f"[mutant] {name}: {len(failed)} of {selected} card tests failed",

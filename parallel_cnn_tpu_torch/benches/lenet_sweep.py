@@ -27,9 +27,18 @@
   candidate that gives a thread four elements of the packed bucket and
   finds each one's leaf by compares; at LeNet's 2,343 values and at 2^20,
   both as LeNet's 6 leaves, views of one buffer at their offsets, as the
-  ``--fused-step`` path gives them after a step.
+  ``--fused-step`` path gives them after a step;
+- ``tail_ce``: B12's threads a block and w values a thread loads first,
+  per pool mode (``TAIL_GAP_*``; ``TAIL_MAX2_*`` for max2 and none), and
+  max2's windows a thread (``TAIL_UNROLL``) in ``csrc/tail_ce.cu``, at
+  ResNet-18's gap tail and the CIFAR CNN's max2 tail at batch 128
+  (``chip_smoke.tail_inputs``);
+- ``conv_contract``: B17/B19's columns a thread and threads a block,
+  ``CONTRACT_COLS`` and ``CONTRACT_THREADS`` in ``csrc/mosaic_probe.cu``,
+  against the parent's kernel (one thread a column), through both entry
+  points at the probes' shapes.
 
-    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd] [sigma_prime] [sgd_update]
+    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd] [sigma_prime] [sgd_update] [tail_ce] [conv_contract]
 
 (all of them without an argument). Each variant is built from a copy of
 the source in a temporary directory whose only change is its ``constexpr
@@ -37,14 +46,16 @@ int`` lines (and, for a candidate design, the spans ``CANDIDATES``
 replaces), so the source keeps one choice and no switch. Each runs
 through the user-facing wrapper (``lenet_fused.fused_value_and_ref_grads``,
 ``lenet_staged.conv_fwd``, ``fc_fwd``, ``pool_fwd``, ``pool_bwd``,
-``conv_bwd_dpre``, ``sgd_update.fused_sgd_leaves``) with that library
+``conv_bwd_dpre``, ``sgd_update.fused_sgd_leaves``, ``tail.tail_forward``,
+``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) with that library
 swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s seeded LeNet
 inputs (the staged kernels at the path's own inputs,
-``chip_smoke.stage_cases``; B2 at its two sizes): B1 against its plain
-version (``chip_smoke.LENET_RTOL``), B3, B4, B7, B8 and B2 bit for bit
-against their plain twins, B5 bit for bit against
-``lenet_staged.fc_fwd_order``, and a relaunch bit for bit; then device times in two rounds, the variants in
-order and then reversed. Prints one line per variant and batch. Exits
+``chip_smoke.stage_cases``; B2, B12, B17/B19 at their own sizes): B1 and
+B12 against their plain versions (``chip_smoke.LENET_RTOL`` of the
+output's scale), B17/B19 against theirs (``chip_smoke.PROBE_RTOL``), B3,
+B4, B7, B8 and B2 bit for bit against their plain twins, B5 bit for bit
+against ``lenet_staged.fc_fwd_order``, and a relaunch bit for bit; then
+device times in two rounds, the variants in order and then reversed. Prints one line per variant and batch. Exits
 non-zero where a variant disagrees or differs on a relaunch. Needs the
 card.
 """
@@ -82,7 +93,7 @@ class Sweep(NamedTuple):
     inputs: Callable
     run: Callable
     check: Callable
-    sizes: Tuple[int, ...] = BATCHES
+    sizes: Tuple[Union[int, str], ...] = BATCHES
     prefix: str = "b"
 
 
@@ -173,6 +184,55 @@ def _sgd_check(args, outs):
     return float((outs[0] - want).abs().max()), torch.equal(outs[0], want)
 
 
+def _tail_inputs(pool):
+    """A zoo tail at batch 128 (chip_smoke.tail_inputs), and its pool."""
+    import chip_smoke as cs
+
+    return (*cs.tail_inputs(pool, torch.Generator(device="cuda").manual_seed(len(pool))), pool)
+
+
+def _tail_run(args):
+    from parallel_cnn_tpu_torch.ops import tail
+
+    return list(tail.tail_forward(*args))
+
+
+def _within(outs, want, rtol):
+    """(max |Δ|, whether each output is within rtol of its scale)."""
+    worst = max(float((g - w).abs().max()) for g, w in zip(outs, want))
+    return worst, all(float((g - w).abs().max()) <= rtol * max(1.0, float(w.abs().max()))
+                      for g, w in zip(outs, want))
+
+
+def _tail_check(args, outs):
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import tail
+
+    return _within(outs, tail.tail_forward_plain(*args), cs.LENET_RTOL)
+
+
+def _contract_inputs(name):
+    """The probe's operands of B17 or B19 (chip_smoke.probe_operands), and
+    the entry point's name."""
+    import chip_smoke as cs
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    return (*cs.probe_operands(name, False, cs.card_draw(gen)), name)
+
+
+def _contract_run(args):
+    from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+    return [getattr(mosaic_probe, args[2])(*args[:2])]
+
+
+def _contract_check(args, outs):
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+    return _within(outs, [mosaic_probe.mxu_conv_L_plain(*args[:2])], cs.PROBE_RTOL)
+
+
 # B8's one pass (a grid of any size) and, per block size, one resident wave
 # of an H100 (132 SMs x 2048 threads) that strides.
 _ONE_PASS = 2**30
@@ -235,6 +295,19 @@ SWEEPS = {
                         + tuple({"MAX_LEAVES": m} for m in (8, 32))
                         + tuple({"design": "lookup_sgd", "SGD_THREADS": t} for t in (64, 128, 256)),
                         _sgd_inputs, _sgd_run, _sgd_check, sizes=(2343, 2**20), prefix="n"),
+    "tail_ce": Sweep("tail", ("tail_ce_kernel",),
+                     tuple({"TAIL_GAP_THREADS": t, "TAIL_GAP_WREG": r}
+                           for t in (64, 128, 256) for r in (32, 48, 96))
+                     + tuple({"TAIL_MAX2_THREADS": t, "TAIL_MAX2_WREG": r}
+                             for t in (256, 512) for r in (48, 96))
+                     + tuple({"TAIL_UNROLL": v} for v in (1, 4)),
+                     _tail_inputs, _tail_run, _tail_check, sizes=("gap", "max2"), prefix=""),
+    "conv_contract": Sweep("mosaic_probe", ("conv_contract_kernel",),
+                           ({"design": "parent_contract"},)
+                           + tuple({"CONTRACT_COLS": c, "CONTRACT_THREADS": t}
+                                   for c in (4, 8) for t in (64, 128, 256)),
+                           _contract_inputs, _contract_run, _contract_check,
+                           sizes=("mxu_conv_L", "mxu_conv_3d"), prefix=""),
 }
 
 
@@ -561,6 +634,45 @@ sgd_leaves_kernel(const __grid_constant__ SgdLeafList list, float* __restrict__ 
 _LOOKUP_SGD_LAUNCH = ("sgd_leaves_kernel<<<static_cast<int>(((off + 3) / 4 + SGD_THREADS - 1) "
                       "/ SGD_THREADS), SGD_THREADS")
 
+# B17/B19's parent kernel, one thread a column in blocks of 256, for the
+# conv_contract sweep.
+_CONTRACT_KERNEL = (r"template <bool WIDE>\n__global__ void __launch_bounds__\(CONTRACT_THREADS\)\n"
+                    r"conv_contract_kernel\(.*?\n}\n")
+_CONTRACT_ENTRY = r"int launch_contract\(.*?\n}\n"
+_PARENT_CONTRACT = r"""__global__ void __launch_bounds__(CONV_THREADS)
+conv_contract_kernel(const float* __restrict__ w,
+                     const __nv_bfloat16* __restrict__ x,
+                     float* __restrict__ out, long long l) {
+  __shared__ float ws[FILTERS * TAPS];
+  for (int i = threadIdx.x; i < FILTERS * TAPS; i += CONV_THREADS) ws[i] = w[i];
+  __syncthreads();
+  const long long col =
+      static_cast<long long>(blockIdx.x) * CONV_THREADS + threadIdx.x;
+  if (col >= l) return;
+  float acc[FILTERS];
+#pragma unroll
+  for (int m = 0; m < FILTERS; ++m) acc[m] = 0.f;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) {
+    const float xv = __bfloat162float(x[t * l + col]);
+#pragma unroll
+    for (int m = 0; m < FILTERS; ++m) acc[m] = fmaf(ws[m * TAPS + t], xv, acc[m]);
+  }
+#pragma unroll
+  for (int m = 0; m < FILTERS; ++m) out[m * l + col] = acc[m];
+}
+"""
+_PARENT_CONTRACT_ENTRY = r"""int launch_contract(const float* w, const void* x, float* out, long long l,
+                    void* stream) {
+  const long long blocks = (l + CONV_THREADS - 1) / CONV_THREADS;
+  if (l <= 0 || blocks > 0x7fffffffLL) return invalid();
+  conv_contract_kernel<<<static_cast<unsigned>(blocks), CONV_THREADS, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<const __nv_bfloat16*>(x), out, l);
+  return status();
+}
+"""
+
 #: design name -> [(pattern, text), ...].
 CANDIDATES = {
     "vec_fwd": [(_FWD_KERNEL, _FWD_GRID + _VEC_FWD), (_FWD_ENTRY, _FWD_GRID_ENTRY)],
@@ -572,6 +684,8 @@ CANDIDATES = {
     "parent_sigma": [(_SIGMA_KERNEL, _PARENT_SIGMA), (_SIGMA_ENTRY, _PARENT_SIGMA_ENTRY)],
     "stream_sigma": [(_SIGMA_LOAD, _STREAM_SIGMA_LOAD)],
     "lookup_sgd": [(_SGD_KERNEL, _LOOKUP_SGD), (_SGD_LAUNCH, _LOOKUP_SGD_LAUNCH)],
+    "parent_contract": [(_CONTRACT_KERNEL, _PARENT_CONTRACT),
+                        (_CONTRACT_ENTRY, _PARENT_CONTRACT_ENTRY)],
 }
 
 

@@ -27,8 +27,9 @@
 // vpu-conv keeps its own per-filter form (per_filter_conv_kernel): one pass
 // of 25 multiply-adds for each filter, each op rounded on its own
 // (__fmul_rn/__fadd_rn), as _vpu_conv_kernel loops `acc += w[m,t]*x[t]`.
-// conv_contract_kernel reads each x column once and keeps all 6 filters'
-// sums in registers, one fma per tap. The pair is the probe's question on
+// conv_contract_kernel reads each x column once, CONTRACT_COLS columns a
+// thread in one wide load a tap, and keeps all 6 filters' sums in
+// registers, one fma per tap. The pair is the probe's question on
 // this card: B1's conv form against the one-contraction form.
 //
 // Types follow JAX's promotion: in the three conv probes w is f32 and x is
@@ -191,29 +192,103 @@ copy_kernel(const float* __restrict__ src, float* __restrict__ dst, long long n,
 
 constexpr int CONV_THREADS = 256;
 
-// mxu-conv-L and mxu-conv-3d: one thread per column reads its 25 taps once
-// and keeps the 6 filters' sums in registers.
-__global__ void __launch_bounds__(CONV_THREADS)
+// mxu-conv-L and mxu-conv-3d: a thread takes CONTRACT_COLS consecutive
+// columns, blocks of CONTRACT_THREADS. Its 25 taps' loads go out before
+// w is staged and before the first fma, so the kernel waits on one round
+// trip to memory (the parent's thread staged w, waited at the barrier,
+// then loaded x: two): in the wide body one CONTRACT_COLS * 2-byte load a
+// tap (8 bytes at 4 columns: a warp's request is 256 contiguous bytes of a
+// row, where one thread a column made it 64), and each filter's outputs
+// leave as float4 stores. The wide body needs every row of x and of out on
+// its boundary: l a multiple of CONTRACT_COLS, x on a CONTRACT_COLS * 2-byte
+// boundary and out on a 16-byte one, which the host checks; otherwise (an
+// odd l such as 1003, a view of x at an odd offset) the narrow body reads
+// and writes one value at a time, with the ragged last columns masked.
+// Every output is acc = fmaf(w[m,t], x[t,col], acc) over t = 0..24 from 0,
+// so both bodies, and every CONTRACT_COLS, give the parent kernel's bits
+// (one thread a column, the same fmas).
+constexpr int CONTRACT_THREADS = 64;
+constexpr int CONTRACT_COLS = 4;
+static_assert(CONTRACT_COLS == 4 || CONTRACT_COLS == 8, "float4 stores of whole quads");
+
+// CONTRACT_COLS bf16 values in one load.
+template <int COLS> struct Bf16Run;
+template <> struct Bf16Run<4> { using type = uint2; };
+template <> struct Bf16Run<8> { using type = uint4; };
+
+// The two bf16 values of a 32-bit word, widened exactly (bf16 is the top
+// half of an f32), the lower address first.
+__device__ __forceinline__ void widen2(unsigned v, float* f) {
+  f[0] = __uint_as_float(v << 16);
+  f[1] = __uint_as_float(v & 0xffff0000u);
+}
+__device__ __forceinline__ void widen(uint2 v, float* f) { widen2(v.x, f); widen2(v.y, f + 2); }
+__device__ __forceinline__ void widen(uint4 v, float* f) {
+  widen2(v.x, f);
+  widen2(v.y, f + 2);
+  widen2(v.z, f + 4);
+  widen2(v.w, f + 6);
+}
+
+template <bool WIDE>
+__global__ void __launch_bounds__(CONTRACT_THREADS)
 conv_contract_kernel(const float* __restrict__ w,
                      const __nv_bfloat16* __restrict__ x,
                      float* __restrict__ out, long long l) {
-  __shared__ float ws[FILTERS * TAPS];
-  for (int i = threadIdx.x; i < FILTERS * TAPS; i += CONV_THREADS) ws[i] = w[i];
-  __syncthreads();
-  const long long col =
-      static_cast<long long>(blockIdx.x) * CONV_THREADS + threadIdx.x;
-  if (col >= l) return;
-  float acc[FILTERS];
+  const long long c0 =
+      (static_cast<long long>(blockIdx.x) * CONTRACT_THREADS + threadIdx.x) * CONTRACT_COLS;
+  using Run = typename Bf16Run<CONTRACT_COLS>::type;
+  Run raw[TAPS];
+  if (WIDE && c0 < l) {
 #pragma unroll
-  for (int m = 0; m < FILTERS; ++m) acc[m] = 0.f;
+    for (int t = 0; t < TAPS; ++t) raw[t] = __ldg(reinterpret_cast<const Run*>(x + t * l + c0));
+  }
+  __shared__ float ws[FILTERS * TAPS];
+  for (int i = threadIdx.x; i < FILTERS * TAPS; i += CONTRACT_THREADS) ws[i] = w[i];
+  __syncthreads();
+  if (c0 >= l) return;
+  float acc[FILTERS][CONTRACT_COLS];
+#pragma unroll
+  for (int m = 0; m < FILTERS; ++m)
+#pragma unroll
+    for (int q = 0; q < CONTRACT_COLS; ++q) acc[m][q] = 0.f;
+  if (WIDE) {
+#pragma unroll
+    for (int t = 0; t < TAPS; ++t) {
+      float xv[CONTRACT_COLS];
+      widen(raw[t], xv);
+#pragma unroll
+      for (int m = 0; m < FILTERS; ++m)
+#pragma unroll
+        for (int q = 0; q < CONTRACT_COLS; ++q)
+          acc[m][q] = fmaf(ws[m * TAPS + t], xv[q], acc[m][q]);
+    }
+#pragma unroll
+    for (int m = 0; m < FILTERS; ++m)
+#pragma unroll
+      for (int q = 0; q < CONTRACT_COLS; q += 4)
+        *reinterpret_cast<float4*>(out + m * l + c0 + q) =
+            make_float4(acc[m][q], acc[m][q + 1], acc[m][q + 2], acc[m][q + 3]);
+    return;
+  }
+  const int cols = l - c0 < CONTRACT_COLS ? static_cast<int>(l - c0) : CONTRACT_COLS;
 #pragma unroll
   for (int t = 0; t < TAPS; ++t) {
-    const float xv = __bfloat162float(x[t * l + col]);
+    float xv[CONTRACT_COLS];
 #pragma unroll
-    for (int m = 0; m < FILTERS; ++m) acc[m] = fmaf(ws[m * TAPS + t], xv, acc[m]);
+    for (int q = 0; q < CONTRACT_COLS; ++q)
+      xv[q] = q < cols ? __bfloat162float(x[t * l + c0 + q]) : 0.f;
+#pragma unroll
+    for (int m = 0; m < FILTERS; ++m)
+#pragma unroll
+      for (int q = 0; q < CONTRACT_COLS; ++q)
+        acc[m][q] = fmaf(ws[m * TAPS + t], xv[q], acc[m][q]);
   }
 #pragma unroll
-  for (int m = 0; m < FILTERS; ++m) out[m * l + col] = acc[m];
+  for (int m = 0; m < FILTERS; ++m)
+#pragma unroll
+    for (int q = 0; q < CONTRACT_COLS; ++q)
+      if (q < cols) out[m * l + c0 + q] = acc[m][q];
 }
 
 // vpu-conv: blockIdx.y is the filter; one pass of 25 multiply-adds over the
@@ -375,11 +450,21 @@ int launch_copy(const float* src, float* dst, long long n, void* stream) {
 
 int launch_contract(const float* w, const void* x, float* out, long long l,
                     void* stream) {
-  const long long blocks = (l + CONV_THREADS - 1) / CONV_THREADS;
+  const long long threads = (l + CONTRACT_COLS - 1) / CONTRACT_COLS;
+  const long long blocks = (threads + CONTRACT_THREADS - 1) / CONTRACT_THREADS;
   if (l <= 0 || blocks > 0x7fffffffLL) return invalid();
-  conv_contract_kernel<<<static_cast<unsigned>(blocks), CONV_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      w, static_cast<const __nv_bfloat16*>(x), out, l);
+  // Every row of x and out on the wide body's boundary, or the narrow body.
+  const bool wide = l % CONTRACT_COLS == 0 && aligned16(out) &&
+                    (reinterpret_cast<std::uintptr_t>(x) & (CONTRACT_COLS * 2 - 1)) == 0;
+  const auto* xb = static_cast<const __nv_bfloat16*>(x);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (wide) {
+    conv_contract_kernel<true><<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(
+        w, xb, out, l);
+  } else {
+    conv_contract_kernel<false><<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(
+        w, xb, out, l);
+  }
   return status();
 }
 

@@ -30,7 +30,6 @@ import ctypes
 from typing import NamedTuple, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from parallel_cnn_tpu_torch.ops._cuda_build import (
     Library,
@@ -42,8 +41,10 @@ from parallel_cnn_tpu_torch.ops._cuda_build import (
 
 POOLS = ("max2", "gap", "none")
 _POOL_CODE = {"max2": 0, "gap": 1, "none": 2}
-# The kernel stages the pooled row, the logits and 8 warp sums in the 48 KB
-# of shared memory a block gets without opting in.
+# A tail is accepted where its pooled row, its logits and 8 floats fit the
+# 48 KB of shared memory a block gets without opting in. The kernel's partial
+# logits, one a thread, can take a block up to 1 KB past that; it then opts
+# in, so that it still takes every tail this check accepts.
 _SMEM_FLOATS = 48 * 1024 // 4
 
 #: Launches of the tail kernel in this process.
@@ -117,7 +118,10 @@ def tail_forward_plain(x, w, b, labels, pool: str):
     m = logits.max(dim=-1, keepdim=True).values
     e = torch.exp(logits - m)
     se = e.sum(dim=-1, keepdim=True)
-    oh = F.one_hot(labels.long(), w.shape[-1]).to(logits.dtype)
+    # A label outside [0, K) gives an all-zero row, as jax.nn.one_hot does
+    # (torch.nn.functional.one_hot refuses one).
+    classes = torch.arange(w.shape[-1], device=labels.device)
+    oh = (labels.long()[:, None] == classes).to(logits.dtype)
     loss_i = (torch.log(se) + m)[:, 0] - (logits * oh).sum(dim=-1)
     return loss_i, e / se - oh
 

@@ -703,6 +703,110 @@ def test_tail_raises_instead_of_falling_back(card):
     assert tail.launches.count == before
 
 
+def _tail_rows(x, w, bias, y, pool, lo, hi):
+    """The kernel's rows for images [lo, hi) run as a batch of their own."""
+    return tail.tail_forward(x[lo:hi], w, bias, y[lo:hi], pool)
+
+
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+def test_tail_rows_are_batch_invariant_on_card(card, pool):
+    """An image's loss and dlogits are bit-identical in a b128 call, alone
+    (b1) and in b7 calls, whatever its place in the batch (a block an
+    image: the rows come from the first, a middle and the last block of the
+    b128 call)."""
+    x, w, bias, y = _tail_inputs(card, 128, pool, 40 + len(pool))
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    for lo, hi in ((0, 1), (61, 62), (127, 128), (0, 7), (64, 71), (121, 128)):
+        part_loss, part_dl = _tail_rows(x, w, bias, y, pool, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(part_loss, loss[lo:hi]), (lo, hi)
+        assert torch.equal(part_dl, dl[lo:hi]), (lo, hi)
+
+
+def _tail_view(t, view):
+    """t itself, or a contiguous copy one float past a 16-byte boundary
+    (the kernel's 4-byte loads)."""
+    if view == "whole":
+        return t
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("view", ["whole", "offset"])
+@pytest.mark.parametrize("k", [10, 100, 300])
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+def test_tail_classes_and_out_of_range_labels_match_plain_on_card(card, pool, k, view):
+    """K = 10, 100 (the softmax's lanes take several classes) and 300 (more
+    classes than a block has threads: the FC takes them in passes), labels
+    drawn from [-2, K + 2) (outside [0, K) a zero one-hot row), at b7,
+    within 1e-5 of the plain version; a relaunch bit for bit."""
+    x, w, bias, _ = _tail_inputs(card, 7, pool, 70 + k)
+    rng = np.random.default_rng(k)
+    w = torch.from_numpy(rng.standard_normal((w.shape[0], k)).astype(np.float32) * 0.05).to(card)
+    bias = torch.from_numpy(rng.standard_normal(k).astype(np.float32) * 0.1).to(card)
+    y = torch.from_numpy(rng.integers(-2, k + 2, 7)).to(card)
+    y[0], y[1] = -1, k  # at least one label on each side of the range
+    x = _tail_view(x, view)
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    loss2, dl2 = tail.tail_forward(x, w, bias, y, pool)
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    _close(loss, ref_loss, 1e-5)
+    _close(dl, ref_dl, 1e-5)
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 64), (3, 5, 8), (8, 8, 32), (2, 2, 6), (4, 4, 512)])
+def test_tail_gap_shapes_match_plain_on_card(card, shape):
+    """gap at other widths and position counts than ResNet-18's 4x4x512:
+    fewer channel quads than threads (4x4x64, 3x5x8), more positions than
+    one batch of loads (8x8x32: 64), C = 6 (the 4-byte loads). At b7 within
+    1e-5 of the plain version, a relaunch bit for bit, each row as its image
+    alone."""
+    gen = torch.Generator(device="cuda").manual_seed(shape[2])
+    x = torch.relu(torch.randn((7,) + shape, generator=gen, device="cuda"))
+    w = torch.randn((shape[2], 10), generator=gen, device="cuda") * shape[2] ** -0.5
+    bias = 0.1 * torch.randn((10,), generator=gen, device="cuda")
+    y = torch.randint(0, 10, (7,), generator=gen, device="cuda")
+    loss, dl = tail.tail_forward(x, w, bias, y, "gap")
+    loss2, dl2 = tail.tail_forward(x, w, bias, y, "gap")
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, "gap")
+    alone = _tail_rows(x, w, bias, y, "gap", 3, 4)
+    torch.cuda.synchronize()
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    assert torch.equal(alone[0], loss[3:4]) and torch.equal(alone[1], dl[3:4])
+    _close(loss, ref_loss, 1e-5)
+    _close(dl, ref_dl, 1e-5)
+
+
+@pytest.mark.parametrize("pool,shape", [("max2", (3, 2, 2, 12_268)), ("gap", (3, 2, 3, 12_268)),
+                                        ("none", (3, 1, 2, 6_134))])
+def test_tail_opts_in_at_the_48_kb_limit_and_refuses_past_it_on_card(card, pool, shape):
+    """A row of 12,268 features and 10 classes is the widest the wrapper
+    takes (D + K + 8 floats in 48 KB); the threads' partial logits take the
+    block past 48 KB, so the launch opts in, and it matches the plain
+    version. A row of 12,271 features raises ValueError before any
+    launch."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+    d = 12_268
+    w = torch.randn((d, 10), generator=gen, device="cuda") * d ** -0.5
+    bias = torch.zeros(10, device="cuda")
+    y = torch.arange(3, device="cuda")
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
+    torch.cuda.synchronize()
+    _close(loss, ref_loss, 1e-5)
+    _close(dl, ref_dl, 1e-5)
+    big = torch.zeros((1, 1, 1, d + 3), device="cuda")
+    before = tail.launches.count
+    with pytest.raises(ValueError, match="48 KB"):
+        tail.tail_forward(big, torch.zeros((d + 3, 10), device="cuda"), bias, y[:1], "none")
+    assert tail.launches.count == before
+
+
 def _zoo_step_models(dev):
     """ResNet-18 on the kernels and on library convs, the same weights."""
     kern = resnet.resnet18(10, backend="cuda",
@@ -1197,6 +1301,46 @@ def test_probe_wrappers_raise_instead_of_falling_back(card, name, mutate, err):
     with pytest.raises(err):
         getattr(mosaic_probe, name)(*mutate(*args))
     assert counter.count == before
+
+
+# B17/B19's contraction (csrc/mosaic_probe.cu conv_contract_kernel): lengths
+# around its columns a thread (1, 7, 8), the odd probe shape (1003), 4032
+# and the probes' 73,728; x whole, one bf16 value past a 16-byte boundary
+# (the narrow body) and 4 values past it (8 bytes: the wide body at 4
+# columns a thread, the narrow one at 8).
+CONTRACT_LENGTHS = (1, 7, 8, 1003, 4032, 73_728)
+CONTRACT_VIEWS = {"whole": 0, "offset1": 1, "offset4": 4}
+
+
+@pytest.mark.parametrize("view", CONTRACT_VIEWS)
+@pytest.mark.parametrize("length", CONTRACT_LENGTHS)
+@pytest.mark.parametrize("name", ["mxu_conv_L", "mxu_conv_3d"])
+def test_probe_contract_lengths_and_views_on_card(card, name, length, view):
+    """Both entry points against the plain twin within PROBE_RTOL of the
+    output's scale, a relaunch bit for bit, one launch a call; through the
+    C entry into a NaN-filled buffer, exactly the 6 × length outputs are
+    written, equal to the wrapper's."""
+    gen = torch.Generator(device="cuda").manual_seed(length + 10 * CONTRACT_VIEWS[view])
+    w = torch.randn((6, 25), generator=gen, device="cuda")
+    flat = torch.randn((25, length), generator=gen, device="cuda").bfloat16()
+    if CONTRACT_VIEWS[view]:
+        flat = _offset_view(flat, CONTRACT_VIEWS[view])
+    x = flat if name == "mxu_conv_L" else flat.view(25, 1, length)
+    fn, plain = probe_kernel(name)
+    counter = mosaic_probe.launches[name]
+    before = counter.count
+    got, again = fn(w, x), fn(w, x)
+    want = plain(w, x)
+    torch.cuda.synchronize()
+    assert counter.count == before + 2
+    assert torch.equal(got, again)
+    _close(got, want, PROBE_RTOL)
+    out = torch.full((6 * length + 4,), float("nan"), device="cuda")
+    entry = getattr(mosaic_probe.build().get(), f"probe_{name}")
+    assert entry(w.data_ptr(), x.data_ptr(), out.data_ptr(), length, launch_stream(card)) == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out[:6 * length].view(got.shape), got)
+    assert bool(torch.isnan(out[6 * length:]).all())
 
 
 # B15/B16's copy (csrc/mosaic_probe.cu copy_kernel): lengths around its

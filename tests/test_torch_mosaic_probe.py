@@ -30,7 +30,7 @@ import pytest
 import torch
 from jax.experimental import pallas as pl
 
-from parallel_cnn_tpu_torch.benches import checkout_ab, kernel_mutants
+from parallel_cnn_tpu_torch.benches import checkout_ab, kernel_mutants, lenet_sweep
 from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
 from parallel_cnn_tpu_torch.ops import _cuda_build, mosaic_probe
 from parallel_cnn_tpu_torch.utils.backend import NoGpuError
@@ -314,6 +314,22 @@ def test_kernel_mutant_edits_one_place_of_the_current_source(tmp_path, name):
     (tmp_path / rel).write_text(text)
     kernel_mutants.mutate(tmp_path, name)
     assert (tmp_path / rel).read_text() == text.replace(old, new) != text
+
+
+@pytest.mark.parametrize("sweep", lenet_sweep.SWEEPS)
+def test_every_sweep_variant_edits_the_current_source(tmp_path, sweep):
+    """Each variant of ``benches/lenet_sweep.py`` finds each constant it
+    sets, and each span its candidate design replaces, exactly once in the
+    current source (``variant`` raises otherwise); a design changes the
+    text (a constant may be set to the value it has)."""
+    spec = lenet_sweep.SWEEPS[sweep]
+    module = importlib.import_module(f"parallel_cnn_tpu_torch.ops.{spec.module}")
+    for i, consts in enumerate(spec.variants):
+        root = tmp_path / str(i)
+        root.mkdir()
+        lib = lenet_sweep.variant(root, module, consts)
+        changed = lib.source.read_text() != module._library.source.read_text()
+        assert changed or "design" not in consts, consts
 
 
 def test_kernel_mutants_without_a_card_raises_no_gpu_error(monkeypatch, capsys):

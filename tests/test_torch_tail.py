@@ -102,6 +102,22 @@ def test_plain_forward_matches_jax_ce(pool):
     np.testing.assert_allclose(dl.numpy(), np.asarray(ref_dl), atol=ATOL)
 
 
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+def test_plain_forward_gives_out_of_range_labels_a_zero_one_hot_row(pool):
+    """Labels outside [0, K) (the kernel's contract, and jax.nn.one_hot's):
+    the loss is log-sum-exp alone and dlogits the softmax, as JAX's shared
+    math gives them; in-range rows are unchanged."""
+    x, w, b, _ = _inputs(pool, 5)
+    y = np.array([-1, 10, 3, 12, -7, 0])
+    flat, _ = pallas_tail._pooled_flat(jnp.asarray(x), pool)
+    oh = jax.nn.one_hot(jnp.asarray(y), 10, dtype=jnp.float32)
+    ref_loss, ref_dl = pallas_tail._ce_from_logits(flat @ w + b, oh)
+    loss, dl = tail.tail_forward_plain(*(torch.from_numpy(a) for a in (x, w, b, y)), pool)
+    np.testing.assert_allclose(loss.numpy(), np.asarray(ref_loss), atol=ATOL)
+    np.testing.assert_allclose(dl.numpy(), np.asarray(ref_dl), atol=ATOL)
+    assert float(dl[0].sum()) == pytest.approx(1.0, abs=1e-5)  # no one-hot taken
+
+
 def test_split_tail_recognises_the_zoo_heads():
     assert tail.split_tail(resnet.resnet18(10)) == tail.TailSplit(9, "gap")
     assert tail.split_tail(cifar.cifar_cnn()) == tail.TailSplit(20, "max2")
