@@ -2303,13 +2303,17 @@ def time_probe_kernels() -> dict:
           f"bound, {times['lane_merge']['bound_ms'] * 1e3:.3f} us, is its bytes at the HBM rate: "
           "it describes the cold copy, while a warm one reads and writes the 50 MB L2",
           flush=True)
-    t = {k: v["ms"] for k, v in times.items()}
-    print(f"[smoke] probe (c) B1's conv form against the one-contraction form "
-          f"(B18's first design against B17/B19's redesign), "
-          f"(25,{probe_bench.BB},576) bf16 x, 6 filters: vpu_conv (per filter, 25 "
-          f"rounded multiply-adds) {t['vpu_conv']:.5f} ms, mxu_conv_L {t['mxu_conv_L']:.5f}"
-          f" ms, mxu_conv_3d {t['mxu_conv_3d']:.5f} ms: per-filter / one-contraction "
-          f"{t['vpu_conv'] / t['mxu_conv_3d']:.2f}x", flush=True)
+    # B1's conv form and the one-contraction form in turns (vpu, 3d, 3d,
+    # vpu) on the same w and x: both read x once, so the ratio is the cost
+    # of B1's rounding, a rounded product and sum against one fma.
+    w, x = probe_operands("vpu_conv", False, card_draw(gen))
+    vpu_ms, contract_ms = in_turns(lambda: mosaic_probe.vpu_conv(w, x),
+                                   lambda: mosaic_probe.mxu_conv_3d(w, x), reps=200)
+    print(f"[smoke] probe (c) B1's conv form against the one-contraction form, in turns, "
+          f"(25,{probe_bench.BB},576) bf16 x, 6 filters, x read once by both: vpu_conv "
+          f"(per filter, 25 rounded multiplies and adds) {vpu_ms:.5f} ms, mxu_conv_3d (25 "
+          f"fmas) {contract_ms:.5f} ms: per-filter / one-contraction "
+          f"{vpu_ms / contract_ms:.3f}x", flush=True)
     # The two forms in turns (pair, two, two, pair) on the same inputs.
     x, w = probe_operands("pair_dot", False, card_draw(gen))
     pair_ms, two_ms = in_turns(lambda: mosaic_probe.pair_dot(x, w),

@@ -1,9 +1,10 @@
 """This checkout's conv forward (B10), probe copies (B15, B16), LeNet step
 kernel (B1), B9 contraction, staged conv, pool and FC forwards (B3, B4,
 B5), pool backward (B7) and σ′ (B8), the fused SGD (B2) alone and
-through ``tree_sgd``, the fused loss tail (B12) and the probes'
-one-contraction conv (B17, B19) against another checkout's, on one card:
-outputs compared, times in turns.
+through ``tree_sgd``, the fused loss tail (B12), the probes'
+one-contraction conv (B17, B19), per-filter conv (B18) and batched matmul
+(B14) against another checkout's, on one card: outputs compared, times in
+turns.
 
     python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
 
@@ -25,17 +26,19 @@ cold, two copies of its inputs in turns), and B2 on LeNet's params: one
 the fresh params and on params that are views of a bucket after a step
 (device time, and host time a call); B12 (``tail.tail_forward``) in gap
 and max2 mode at batch 128 on ``chip_smoke.tail_inputs``; B17 and B19
-(``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) at the probes' shapes,
-the odd ones (``chip_smoke.probe_operands``) and with x one value past a
-16-byte boundary; and times each, the copies in turns with ``copy_``, B12,
-B17 and B19 also with the L2 cold (``chip_smoke.cold_ms``). Last, one
+(``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) and B18
+(``mosaic_probe.vpu_conv``) at the probes' shapes, the odd ones
+(``chip_smoke.probe_operands``) and with x one value past a 16-byte
+boundary; B14 (``mosaic_probe.rank3_dot``) at the probe's and the odd
+shape; and times each, the copies in turns with ``copy_``, B12, B14 and
+B17–B19 also with the L2 cold (``chip_smoke.cold_ms``). Last, one
 profiled ``--fused-step`` LeNet epoch at batch 64
 (``chip_smoke.profiled_epoch``): host µs, device ops and idle share a
 step. The first run of each side saves its outputs, which are
-then compared: the forward, the copies, B3, B4, B7, B8, B2, B17 and B19
+then compared: the forward, the copies, B3, B4, B7, B8, B2 and B17–B19
 bit for bit, B1's, B9's, B5's and B12's within ``chip_smoke.LENET_RTOL``
-of the other side's scale (a redesign may sum in another order), with the
-max |Δ| printed.
+and B14's within ``chip_smoke.PROBE_RTOL`` of the other side's scale (a
+redesign may sum in another order), with the max |Δ| printed.
 Prints one line per comparison and per time (each side's two runs
 averaged). Exits non-zero where a comparison fails. Needs the card.
 """
@@ -58,7 +61,7 @@ LENET_REPS = 200
 STAGED_FWD_BATCHES = (64, 1000)
 STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd", "sigma_prime")
 #: Outputs whose order a redesign may change: compared within a tolerance.
-TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd", "tail_ce")
+TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd", "tail_ce", "rank3_dot")
 
 
 def side(out_file: str) -> None:
@@ -168,9 +171,9 @@ def sgd_cases(outs: dict, times: dict) -> None:
 
 
 def tail_and_contract_cases(outs: dict, times: dict) -> None:
-    """B12 in both zoo tails at batch 128, and B17/B19 at the probes'
-    shapes, the odd ones and with x one value off a 16-byte boundary; times
-    with the L2 warm and cold."""
+    """B12 in both zoo tails at batch 128, B17–B19 at the probes' shapes,
+    the odd ones and with x one value off a 16-byte boundary, and B14 at
+    the probe's and the odd shape; times with the L2 warm and cold."""
     import torch
 
     import chip_smoke as cs
@@ -184,7 +187,7 @@ def tail_and_contract_cases(outs: dict, times: dict) -> None:
         outs[key] = torch.cat([loss, dl.reshape(-1)]).cpu()
         times[key] = cs.cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=LENET_REPS)
         times[f"{key} L2 cold"] = cs.cold_ms(lambda: tail.tail_forward(x, w, b, y, pool))
-    for name in ("mxu_conv_L", "mxu_conv_3d"):
+    for name in ("mxu_conv_L", "mxu_conv_3d", "vpu_conv"):
         fn = getattr(mosaic_probe, name)
         w, x = cs.probe_operands(name, True, cs.card_draw(gen))
         outs[f"{name} odd shape"] = fn(w, x).cpu()
@@ -196,6 +199,11 @@ def tail_and_contract_cases(outs: dict, times: dict) -> None:
         outs[f"{name} x one value off"] = fn(w, view).cpu()
         times[name] = cs.cuda_ms(lambda: fn(w, x), reps=LENET_REPS)
         times[f"{name} L2 cold"] = cs.cold_ms(lambda: fn(w, x))
+    for shape in ("odd", "probe"):
+        a, b = cs.probe_operands("rank3_dot", shape == "odd", cs.card_draw(gen))
+        outs[f"rank3_dot {shape} shape"] = mosaic_probe.rank3_dot(a, b).cpu()
+    times["rank3_dot"] = cs.cuda_ms(lambda: mosaic_probe.rank3_dot(a, b), reps=LENET_REPS)
+    times["rank3_dot L2 cold"] = cs.cold_ms(lambda: mosaic_probe.rank3_dot(a, b))
 
 
 def fused_step_epoch(times: dict) -> None:
@@ -247,7 +255,7 @@ def main(argv=None) -> int:
             first = not runs[label]
             runs[label].append(run_side(root, files[label] if first else ""))
         a, b = torch.load(files["this"]), torch.load(files["other"])
-    from chip_smoke import LENET_RTOL
+    from chip_smoke import LENET_RTOL, PROBE_RTOL
 
     print(f"[ab] this {THIS}, other {other}; runs other, this, this, other", flush=True)
     same = ok = 0
@@ -256,7 +264,8 @@ def main(argv=None) -> int:
         d = float((a[key] - b[key]).abs().max())
         same += eq
         if key.startswith(TOLERANT):
-            tol = LENET_RTOL * max(1.0, float(b[key].abs().max()))
+            rtol = PROBE_RTOL if key.startswith("rank3_dot") else LENET_RTOL
+            tol = rtol * max(1.0, float(b[key].abs().max()))
             good = d <= tol
             verdict = (f"{'bit-identical' if eq else 'differs'}, max |Δ| {d:.3e} "
                        f"(tol {tol:.1e}) {'ok' if good else 'FAIL'}")

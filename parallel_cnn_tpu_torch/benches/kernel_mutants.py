@@ -11,8 +11,9 @@ file), the staged pool forward and backward (B4 ``pool_fwd_kernel``,
 B7 ``pool_bwd_kernel``, same file), the staged σ′ kernel (B8
 ``sigma_prime_kernel``, same file), the leaf list of the fused SGD (B2
 ``sgd_leaves_kernel``, ``csrc/sgd_update.cu``), the fused loss tail (B12
-``tail_ce_kernel``, ``csrc/tail_ce.cu``) and the probes' one-contraction
-conv (B17/B19 ``conv_contract_kernel``, ``csrc/mosaic_probe.cu``).
+``tail_ce_kernel``, ``csrc/tail_ce.cu``), the probes' contraction (B17/B19
+and B18, ``conv_contract_kernel``, ``csrc/mosaic_probe.cu``) and batched
+matmul (B14 ``batched_matmul_kernel``, same file).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants [WORD ...]
 
@@ -202,6 +203,27 @@ MUTANTS = {
     "B17/B19 narrow body's last column not stored": (
         f"{CSRC}/mosaic_probe.cu", "if (q < cols) out[m * l + c0 + q] = acc[m][q];",
         "if (q + 1 < cols) out[m * l + c0 + q] = acc[m][q];"),
+    # B18 shares the contraction's text: its mutants edit it for ROUNDED only.
+    "B18 wide body's last tap dropped": (
+        f"{CSRC}/mosaic_probe.cu",
+        "for (int t = 0; t < TAPS; ++t) {\n      float xv[CONTRACT_COLS];\n      widen(",
+        "for (int t = 0; t < TAPS - ROUNDED; ++t) {\n      float xv[CONTRACT_COLS];\n      widen("),
+    "B18 last filter not stored": (
+        f"{CSRC}/mosaic_probe.cu",
+        "for (int m = 0; m < FILTERS; ++m)\n#pragma unroll\n      for (int q = 0; q < CONTRACT_COLS; q += 4)",
+        "for (int m = 0; m < FILTERS - ROUNDED; ++m)\n#pragma unroll\n"
+        "      for (int q = 0; q < CONTRACT_COLS; q += 4)"),
+    "B18 narrow body's last column not stored": (
+        f"{CSRC}/mosaic_probe.cu", "if (q < cols) out[m * l + c0 + q] = acc[m][q];",
+        "if (q + ROUNDED < cols) out[m * l + c0 + q] = acc[m][q];"),
+    "B14 last K chunk dropped": (
+        f"{CSRC}/mosaic_probe.cu", "for (int k0 = 0; k0 < k; k0 += RANK3_KC) {",
+        "for (int k0 = 0; k0 == 0 || k0 + RANK3_KC < k; k0 += RANK3_KC) {"),
+    "B14 ragged tile's store unmasked": (
+        f"{CSRC}/mosaic_probe.cu", "if (col0 + c + o < n) orow[o] = acc[o];", "orow[o] = acc[o];"),
+    "B14 second K partial left out of the sum": (
+        f"{CSRC}/mosaic_probe.cu", "for (int s = 1; s < RANK3_KSPLIT; ++s)",
+        "for (int s = 1; s < RANK3_KSPLIT - 1; ++s)"),
 }
 
 

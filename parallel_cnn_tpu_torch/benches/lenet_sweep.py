@@ -35,10 +35,18 @@
   (``chip_smoke.tail_inputs``);
 - ``conv_contract``: B17/B19's columns a thread and threads a block,
   ``CONTRACT_COLS`` and ``CONTRACT_THREADS`` in ``csrc/mosaic_probe.cu``,
-  against the parent's kernel (one thread a column), through both entry
-  points at the probes' shapes.
+  against its first kernel (one thread a column), through both entry
+  points at the probes' shapes;
+- ``rank3_dot``: B14's output tile, columns a thread and depth slices,
+  ``RANK3_TM`` x ``RANK3_TN``, ``RANK3_OUTS`` and ``RANK3_KSPLIT`` in the
+  same file, against its first kernel (a 16x16 block, one output a thread,
+  8 K stages), at the probe's and the odd shape;
+- ``vpu_conv``: B18's columns a thread and threads a block, the same
+  ``CONTRACT_COLS`` and ``CONTRACT_THREADS`` (B18 shares the contraction's
+  kernel), against its first kernel (a grid row a filter, one thread a
+  column), at the probe's and the odd shape.
 
-    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd] [sigma_prime] [sgd_update] [tail_ce] [conv_contract]
+    python -m parallel_cnn_tpu_torch.benches.lenet_sweep [b1] [conv_fwd] [fc_fwd] [pool_fwd] [pool_bwd] [sigma_prime] [sgd_update] [tail_ce] [conv_contract] [rank3_dot] [vpu_conv]
 
 (all of them without an argument). Each variant is built from a copy of
 the source in a temporary directory whose only change is its ``constexpr
@@ -47,13 +55,13 @@ replaces), so the source keeps one choice and no switch. Each runs
 through the user-facing wrapper (``lenet_fused.fused_value_and_ref_grads``,
 ``lenet_staged.conv_fwd``, ``fc_fwd``, ``pool_fwd``, ``pool_bwd``,
 ``conv_bwd_dpre``, ``sgd_update.fused_sgd_leaves``, ``tail.tail_forward``,
-``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) with that library
-swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s seeded LeNet
+``mosaic_probe.mxu_conv_L``, ``mxu_conv_3d``, ``rank3_dot`` and
+``vpu_conv``) with that library swapped in, at batch 64, 128 and 1000 on ``chip_smoke``'s seeded LeNet
 inputs (the staged kernels at the path's own inputs,
-``chip_smoke.stage_cases``; B2, B12, B17/B19 at their own sizes): B1 and
-B12 against their plain versions (``chip_smoke.LENET_RTOL`` of the
-output's scale), B17/B19 against theirs (``chip_smoke.PROBE_RTOL``), B3,
-B4, B7, B8 and B2 bit for bit against their plain twins, B5 bit for bit
+``chip_smoke.stage_cases``; B2, B12, B14, B17–B19 at their own sizes): B1
+and B12 against their plain versions (``chip_smoke.LENET_RTOL`` of the
+output's scale), B14 and B17/B19 against theirs (``chip_smoke.PROBE_RTOL``),
+B3, B4, B7, B8, B2 and B18 bit for bit against their plain twins, B5 bit for bit
 against ``lenet_staged.fc_fwd_order``, and a relaunch bit for bit; then
 device times in two rounds, the variants in order and then reversed. Prints one line per variant and batch. Exits
 non-zero where a variant disagrees or differs on a relaunch. Needs the
@@ -233,6 +241,43 @@ def _contract_check(args, outs):
     return _within(outs, [mosaic_probe.mxu_conv_L_plain(*args[:2])], cs.PROBE_RTOL)
 
 
+def _probe_inputs(name):
+    """Probe kernel ``name``'s operands at the probe's or the odd shape
+    (chip_smoke.probe_operands)."""
+    def inputs(shape):
+        import chip_smoke as cs
+
+        gen = torch.Generator(device="cuda").manual_seed(14)
+        return cs.probe_operands(name, shape == "odd", cs.card_draw(gen))
+    return inputs
+
+
+def _probe_run(name):
+    def run(args):
+        from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+        return [getattr(mosaic_probe, name)(*args)]
+    return run
+
+
+def _rank3_check(args, outs):
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+    return _within(outs, [mosaic_probe.rank3_dot_plain(*args)], cs.PROBE_RTOL)
+
+
+def _vpu_check(args, outs):
+    """Bit for bit against the plain twin."""
+    from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+    want = mosaic_probe.vpu_conv_plain(*args)
+    return float((outs[0] - want).abs().max()), torch.equal(outs[0], want)
+
+
+# B14's output tiles; a block holds at most 1,024 threads.
+_RANK3_TILES = ((16, 16), (32, 16), (16, 32), (32, 32), (8, 16), (16, 8), (8, 8), (4, 16))
+
 # B8's one pass (a grid of any size) and, per block size, one resident wave
 # of an H100 (132 SMs x 2048 threads) that strides.
 _ONE_PASS = 2**30
@@ -305,9 +350,22 @@ SWEEPS = {
     "conv_contract": Sweep("mosaic_probe", ("conv_contract_kernel",),
                            ({"design": "parent_contract"},)
                            + tuple({"CONTRACT_COLS": c, "CONTRACT_THREADS": t}
-                                   for c in (4, 8) for t in (64, 128, 256)),
+                                   for c in (2, 4, 8) for t in (32, 64, 128, 256)),
                            _contract_inputs, _contract_run, _contract_check,
                            sizes=("mxu_conv_L", "mxu_conv_3d"), prefix=""),
+    "rank3_dot": Sweep("mosaic_probe", ("batched_matmul_kernel",),
+                       ({"design": "parent_rank3"},)
+                       + tuple({"RANK3_TM": tm, "RANK3_TN": tn, "RANK3_OUTS": o, "RANK3_KSPLIT": k}
+                               for tm, tn in _RANK3_TILES for o in (1, 2, 4) for k in (1, 2, 4)
+                               if tm * tn // o * k <= 1024),
+                       _probe_inputs("rank3_dot"), _probe_run("rank3_dot"), _rank3_check,
+                       sizes=("probe", "odd"), prefix=""),
+    "vpu_conv": Sweep("mosaic_probe", ("conv_contract_kernel", "per_filter_conv_kernel"),
+                      ({"design": "parent_vpu"},)
+                      + tuple({"CONTRACT_COLS": c, "CONTRACT_THREADS": t}
+                              for c in (2, 4, 8) for t in (32, 64, 128, 256)),
+                      _probe_inputs("vpu_conv"), _probe_run("vpu_conv"), _vpu_check,
+                      sizes=("probe", "odd"), prefix=""),
 }
 
 
@@ -634,12 +692,17 @@ sgd_leaves_kernel(const __grid_constant__ SgdLeafList list, float* __restrict__ 
 _LOOKUP_SGD_LAUNCH = ("sgd_leaves_kernel<<<static_cast<int>(((off + 3) / 4 + SGD_THREADS - 1) "
                       "/ SGD_THREADS), SGD_THREADS")
 
-# B17/B19's parent kernel, one thread a column in blocks of 256, for the
-# conv_contract sweep.
-_CONTRACT_KERNEL = (r"template <bool WIDE>\n__global__ void __launch_bounds__\(CONTRACT_THREADS\)\n"
+# B17/B19's first kernel, one thread a column in blocks of 256, for the
+# conv_contract sweep (B18, which shares the contraction, runs it with its
+# rounding in this variant; the sweep runs only B17/B19).
+_CONTRACT_KERNEL = (r"template <bool WIDE, bool ROUNDED>\n"
+                    r"__global__ void __launch_bounds__\(CONTRACT_THREADS\)\n"
                     r"conv_contract_kernel\(.*?\n}\n")
-_CONTRACT_ENTRY = r"int launch_contract\(.*?\n}\n"
-_PARENT_CONTRACT = r"""__global__ void __launch_bounds__(CONV_THREADS)
+_CONTRACT_ENTRY = r"template <bool ROUNDED>\nint launch_contract\(.*?\n}\n"
+_PARENT_CONTRACT = r"""constexpr int CONV_THREADS = 256;
+
+template <bool ROUNDED>
+__global__ void __launch_bounds__(CONV_THREADS)
 conv_contract_kernel(const float* __restrict__ w,
                      const __nv_bfloat16* __restrict__ x,
                      float* __restrict__ out, long long l) {
@@ -656,19 +719,106 @@ conv_contract_kernel(const float* __restrict__ w,
   for (int t = 0; t < TAPS; ++t) {
     const float xv = __bfloat162float(x[t * l + col]);
 #pragma unroll
-    for (int m = 0; m < FILTERS; ++m) acc[m] = fmaf(ws[m * TAPS + t], xv, acc[m]);
+    for (int m = 0; m < FILTERS; ++m) acc[m] = madd<ROUNDED>(ws[m * TAPS + t], xv, acc[m]);
   }
 #pragma unroll
   for (int m = 0; m < FILTERS; ++m) out[m * l + col] = acc[m];
 }
 """
-_PARENT_CONTRACT_ENTRY = r"""int launch_contract(const float* w, const void* x, float* out, long long l,
+_PARENT_CONTRACT_ENTRY = r"""template <bool ROUNDED>
+int launch_contract(const float* w, const void* x, float* out, long long l,
                     void* stream) {
   const long long blocks = (l + CONV_THREADS - 1) / CONV_THREADS;
   if (l <= 0 || blocks > 0x7fffffffLL) return invalid();
-  conv_contract_kernel<<<static_cast<unsigned>(blocks), CONV_THREADS, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
+  conv_contract_kernel<ROUNDED><<<static_cast<unsigned>(blocks), CONV_THREADS, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       w, static_cast<const __nv_bfloat16*>(x), out, l);
+  return status();
+}
+"""
+
+# B18's first kernel: a grid row a filter, one thread a column in
+# blocks of 256, w's row staged behind a barrier before x's loads, x read
+# once a filter. It replaces the entry, which then launches it instead of
+# the contraction.
+_VPU_ENTRY = r'extern "C" int probe_vpu_conv\(.*?\n}\n'
+_PARENT_VPU = r"""constexpr int CONV_THREADS = 256;
+
+__global__ void __launch_bounds__(CONV_THREADS)
+per_filter_conv_kernel(const float* __restrict__ w,
+                       const __nv_bfloat16* __restrict__ x,
+                       float* __restrict__ out, long long l) {
+  __shared__ float ws[TAPS];
+  const int m = blockIdx.y;
+  if (threadIdx.x < TAPS) ws[threadIdx.x] = w[m * TAPS + threadIdx.x];
+  __syncthreads();
+  const long long col =
+      static_cast<long long>(blockIdx.x) * CONV_THREADS + threadIdx.x;
+  if (col >= l) return;
+  float acc = 0.f;
+#pragma unroll
+  for (int t = 0; t < TAPS; ++t) {
+    acc = __fadd_rn(acc, __fmul_rn(ws[t], __bfloat162float(x[t * l + col])));
+  }
+  out[m * l + col] = acc;
+}
+
+extern "C" int probe_vpu_conv(const float* w, const void* x, float* out,
+                              long long l, void* stream) {
+  const long long blocks = (l + CONV_THREADS - 1) / CONV_THREADS;
+  if (l <= 0 || blocks > 0x7fffffffLL) return invalid();
+  per_filter_conv_kernel<<<dim3(static_cast<unsigned>(blocks), FILTERS),
+                           CONV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      w, static_cast<const __nv_bfloat16*>(x), out, l);
+  return status();
+}
+"""
+
+# B14's first kernel: a 16x16 block of one output a thread, K in
+# stages of 16 staged through shared memory, two barriers a stage, and its
+# entry (a grid of (column tiles, row tiles, batch)).
+_RANK3_KERNEL = (r"__global__ void __launch_bounds__\(RANK3_THREADS\)\n"
+                 r"batched_matmul_kernel\(.*?\n}\n")
+_RANK3_ENTRY = r'extern "C" int probe_rank3_dot\(.*?\n}\n'
+_PARENT_RANK3 = r"""constexpr int TILE = 16;
+
+__global__ void __launch_bounds__(TILE * TILE)
+batched_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                      float* __restrict__ out, int m, int k, int n) {
+  __shared__ float as[TILE][TILE + 1];
+  __shared__ float bs[TILE][TILE + 1];
+  const long long batch = blockIdx.z;
+  const int row = blockIdx.y * TILE + threadIdx.y;
+  const int col = blockIdx.x * TILE + threadIdx.x;
+  const float* ab = a + batch * m * k;
+  const float* bb = b + batch * k * n;
+  float acc = 0.f;
+  for (int k0 = 0; k0 < k; k0 += TILE) {
+    const int ka = k0 + threadIdx.x;
+    const int kb = k0 + threadIdx.y;
+    as[threadIdx.y][threadIdx.x] =
+        (row < m && ka < k) ? ab[static_cast<long long>(row) * k + ka] : 0.f;
+    bs[threadIdx.y][threadIdx.x] =
+        (kb < k && col < n) ? bb[static_cast<long long>(kb) * n + col] : 0.f;
+    __syncthreads();
+#pragma unroll
+    for (int j = 0; j < TILE; ++j) {
+      acc = fmaf(as[threadIdx.y][j], bs[j][threadIdx.x], acc);
+    }
+    __syncthreads();
+  }
+  if (row < m && col < n) {
+    out[(batch * m + row) * n + col] = acc;
+  }
+}
+"""
+_PARENT_RANK3_ENTRY = r"""extern "C" int probe_rank3_dot(const float* a, const float* b, float* out,
+                               int batch, int m, int k, int n, void* stream) {
+  if (batch <= 0 || batch > 65535 || m <= 0 || k <= 0 || n <= 0) return invalid();
+  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE, batch);
+  if (grid.y > 65535) return invalid();
+  batched_matmul_kernel<<<grid, dim3(TILE, TILE), 0,
+                          static_cast<cudaStream_t>(stream)>>>(a, b, out, m, k, n);
   return status();
 }
 """
@@ -686,6 +836,8 @@ CANDIDATES = {
     "lookup_sgd": [(_SGD_KERNEL, _LOOKUP_SGD), (_SGD_LAUNCH, _LOOKUP_SGD_LAUNCH)],
     "parent_contract": [(_CONTRACT_KERNEL, _PARENT_CONTRACT),
                         (_CONTRACT_ENTRY, _PARENT_CONTRACT_ENTRY)],
+    "parent_vpu": [(_VPU_ENTRY, _PARENT_VPU)],
+    "parent_rank3": [(_RANK3_KERNEL, _PARENT_RANK3), (_RANK3_ENTRY, _PARENT_RANK3_ENTRY)],
 }
 
 
@@ -739,7 +891,9 @@ def run_sweep(name: str, sweep: Sweep, tmp: Path) -> list:
     import chip_smoke as cs
 
     module = importlib.import_module(f"parallel_cnn_tpu_torch.ops.{sweep.module}")
-    libs = [variant(tmp, module, c) for c in sweep.variants]
+    root = tmp / name  # sweeps of one source may set the same constants
+    root.mkdir()
+    libs = [variant(root, module, c) for c in sweep.variants]
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as ex:
         list(ex.map(lambda lib: lib.get(), libs))
     for consts, lib in zip(sweep.variants, libs):

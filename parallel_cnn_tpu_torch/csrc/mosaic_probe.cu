@@ -22,15 +22,16 @@
 // - lane-merge (25,bb,576) -> (25,bb*576) and lane-split (1,L) -> (bb,576)
 //   are both a flat copy of contiguous f32: copy_kernel.
 // - mxu-conv-L (6,25)x(25,L) and mxu-conv-3d (6,25)x(25,bb,576) contract the
-//   same bytes: conv_contract_kernel, with L = bb*576.
-//
-// vpu-conv keeps its own per-filter form (per_filter_conv_kernel): one pass
-// of 25 multiply-adds for each filter, each op rounded on its own
-// (__fmul_rn/__fadd_rn), as _vpu_conv_kernel loops `acc += w[m,t]*x[t]`.
-// conv_contract_kernel reads each x column once, CONTRACT_COLS columns a
-// thread in one wide load a tap, and keeps all 6 filters' sums in
-// registers, one fma per tap. The pair is the probe's question on
-// this card: B1's conv form against the one-contraction form.
+//   same bytes: conv_contract_kernel<WIDE, false>, with L = bb*576.
+// - vpu-conv computes the same sums with B1's rounding: for each filter 25
+//   multiply-adds over the taps in order, each product and each sum rounded
+//   on its own (__fmul_rn/__fadd_rn), as _vpu_conv_kernel loops
+//   `acc += w[m,t]*x[t]`: conv_contract_kernel<WIDE, true>.
+// The contraction reads each x column once, CONTRACT_COLS columns a thread
+// in one wide load a tap, and keeps all 6 filters' sums in registers; its
+// ROUNDED parameter picks one fma a tap or the separate multiply and add.
+// The pair is the probe's question on this card: B1's conv form against
+// the one-contraction form, which now differ in their rounding alone.
 //
 // Types follow JAX's promotion: in the three conv probes w is f32 and x is
 // bf16, widened exactly (__bfloat162float) and multiplied in f32; in the
@@ -90,6 +91,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "ffma_tile.cuh"
 #include "wgmma_tile.cuh"
 
 namespace {
@@ -101,40 +103,158 @@ constexpr int PAIR_N = 64;    // width of each half of their w (2*PAIR_N)
 
 // ---------------------------------------------------------------------------
 // rank3-dot: out[b] = a[b] @ b[b] over a leading batch dim, f32.
-// One 16x16 block per (batch, output tile); both operands' K slabs staged
-// in shared memory, one fma per product in k order.
+//
+// At the probe's (4,64,128) @ (4,128,64) the work (327,680 bytes, 4.2
+// MFLOP) is far below a launch, so the time is latency: the round trips a
+// block waits on and its longest chain of dependent fmas (a K staged 16 at
+// a time behind barriers is 8 round trips, one output a thread a chain of
+// 128). A block of RANK3_THREADS computes a RANK3_TM x RANK3_TN output tile
+// of one batch entry: every thread issues its share of the A row panel
+// (RANK3_TM x RANK3_KC) and the B column panel (RANK3_KC x RANK3_TN) as
+// cp.async copies before it waits, then meets one barrier, so a K of up to
+// RANK3_KC costs one round trip (longer K: one round trip a chunk). Then a
+// thread takes RANK3_OUTS consecutive columns of one row over one of
+// RANK3_KSPLIT slices of each chunk's depth, from shared memory (A as
+// float4 along k, B's columns as one run), and the slices' partial sums
+// are added in slice order by the slice-0 thread after one more barrier.
+// Each partial sums its k in ascending order, one fmaf each; the split is
+// a build constant, so the order depends on the shape alone and a
+// relaunch is bit-identical. At the probe's shape that is 128 blocks (one
+// wave) of 256 threads, each thread 2 outputs over 32 of the 128 k, a
+// chain of 32 fmas. (A sweep on an H100, benches/lenet_sweep.py rank3_dot,
+// found 8x16 tiles faster than 16x16 and larger ones, whose fewer blocks
+// each do more, and 2 outputs over a quarter of K as fast as any other
+// split: 3.16-3.18 us against the first kernel's 4.74-4.77.)
+//
+// Operands are copied 16 bytes at a time where an operand's base lies on
+// a 16-byte boundary and its rows hold whole quads (k % 4 == 0 for A,
+// n % 4 == 0 for B), else 4 bytes at a time; past m, n or k the copies
+// zero-fill, so a ragged tile and a ragged last chunk add exact zeros, and
+// stores past m or n are masked. The grid is one dimension (batch x row
+// tiles x column tiles), so the batch is not limited to grid.z's 65,535.
 // ---------------------------------------------------------------------------
 
-constexpr int TILE = 16;
+constexpr int RANK3_TM = 8;        // output rows a block
+constexpr int RANK3_TN = 16;       // output columns a block
+constexpr int RANK3_OUTS = 2;      // consecutive columns a thread
+constexpr int RANK3_KSPLIT = 4;    // slices of the depth, a thread each
+constexpr int RANK3_KC = 128;      // depth staged at once
+constexpr int RANK3_GROUPS = RANK3_TM * RANK3_TN / RANK3_OUTS;  // threads a slice
+constexpr int RANK3_THREADS = RANK3_GROUPS * RANK3_KSPLIT;
+constexpr int RANK3_SLICE = RANK3_KC / RANK3_KSPLIT;
+constexpr int RANK3_A_LD = RANK3_KC + 4;  // A's padded panel row: rows on distinct banks
+static_assert(RANK3_TN % RANK3_OUTS == 0 && RANK3_TN % 4 == 0, "whole column runs and quads");
+static_assert(RANK3_SLICE % 4 == 0, "float4 reads of A along k");
+static_assert(RANK3_THREADS <= 1024, "one block");
 
-__global__ void __launch_bounds__(TILE * TILE)
+__global__ void __launch_bounds__(RANK3_THREADS)
 batched_matmul_kernel(const float* __restrict__ a, const float* __restrict__ b,
                       float* __restrict__ out, int m, int k, int n) {
-  __shared__ float as[TILE][TILE + 1];
-  __shared__ float bs[TILE][TILE + 1];
-  const long long batch = blockIdx.z;
-  const int row = blockIdx.y * TILE + threadIdx.y;
-  const int col = blockIdx.x * TILE + threadIdx.x;
+  __shared__ __align__(16) float as[RANK3_TM * RANK3_A_LD];
+  __shared__ __align__(16) float bs[RANK3_KC * RANK3_TN];
+  __shared__ float red[RANK3_KSPLIT > 1 ? (RANK3_KSPLIT - 1) * RANK3_TM * RANK3_TN : 1];
+  const int tid = threadIdx.x;
+  const int tiles_n = (n + RANK3_TN - 1) / RANK3_TN;
+  const int tiles_m = (m + RANK3_TM - 1) / RANK3_TM;
+  const int tn = static_cast<int>(blockIdx.x % tiles_n);
+  const int tm = static_cast<int>(blockIdx.x / tiles_n % tiles_m);
+  const long long batch = blockIdx.x / tiles_n / tiles_m;
+  const int row0 = tm * RANK3_TM;
+  const int col0 = tn * RANK3_TN;
   const float* ab = a + batch * m * k;
   const float* bb = b + batch * k * n;
-  float acc = 0.f;
-  for (int k0 = 0; k0 < k; k0 += TILE) {
-    const int ka = k0 + threadIdx.x;
-    const int kb = k0 + threadIdx.y;
-    as[threadIdx.y][threadIdx.x] =
-        (row < m && ka < k) ? ab[static_cast<long long>(row) * k + ka] : 0.f;
-    bs[threadIdx.y][threadIdx.x] =
-        (kb < k && col < n) ? bb[static_cast<long long>(kb) * n + col] : 0.f;
-    __syncthreads();
+  const bool vec_a = (reinterpret_cast<std::uintptr_t>(a) & 15u) == 0 && k % 4 == 0;
+  const bool vec_b = (reinterpret_cast<std::uintptr_t>(b) & 15u) == 0 && n % 4 == 0;
+  // This thread's output run and depth slice.
+  const int ks = tid / RANK3_GROUPS;
+  const int g = tid - ks * RANK3_GROUPS;
+  const int r = g / (RANK3_TN / RANK3_OUTS);
+  const int c = (g - r * (RANK3_TN / RANK3_OUTS)) * RANK3_OUTS;
+  float acc[RANK3_OUTS];
 #pragma unroll
-    for (int j = 0; j < TILE; ++j) {
-      acc = fmaf(as[threadIdx.y][j], bs[j][threadIdx.x], acc);
+  for (int o = 0; o < RANK3_OUTS; ++o) acc[o] = 0.f;
+  for (int k0 = 0; k0 < k; k0 += RANK3_KC) {
+    if (k0 > 0) __syncthreads();  // the last chunk's reads are done
+    if (vec_a) {
+      for (int q = tid; q < RANK3_TM * RANK3_KC / 4; q += RANK3_THREADS) {
+        const int i = q / (RANK3_KC / 4);
+        const int kq = (q - i * (RANK3_KC / 4)) * 4;
+        const bool in = row0 + i < m && k0 + kq < k;
+        ftile::cp_async16(as + i * RANK3_A_LD + kq,
+                          in ? ab + static_cast<long long>(row0 + i) * k + k0 + kq : a, in);
+      }
+    } else {
+      for (int e = tid; e < RANK3_TM * RANK3_KC; e += RANK3_THREADS) {
+        const int i = e / RANK3_KC;
+        const int kk = e - i * RANK3_KC;
+        const bool in = row0 + i < m && k0 + kk < k;
+        ftile::cp_async4(as + i * RANK3_A_LD + kk,
+                         in ? ab + static_cast<long long>(row0 + i) * k + k0 + kk : a, in);
+      }
+    }
+    if (vec_b) {
+      for (int q = tid; q < RANK3_KC * RANK3_TN / 4; q += RANK3_THREADS) {
+        const int kk = q / (RANK3_TN / 4);
+        const int cq = (q - kk * (RANK3_TN / 4)) * 4;
+        const bool in = k0 + kk < k && col0 + cq < n;
+        ftile::cp_async16(bs + kk * RANK3_TN + cq,
+                          in ? bb + static_cast<long long>(k0 + kk) * n + col0 + cq : b, in);
+      }
+    } else {
+      for (int e = tid; e < RANK3_KC * RANK3_TN; e += RANK3_THREADS) {
+        const int kk = e / RANK3_TN;
+        const int cc = e - kk * RANK3_TN;
+        const bool in = k0 + kk < k && col0 + cc < n;
+        ftile::cp_async4(bs + e, in ? bb + static_cast<long long>(k0 + kk) * n + col0 + cc : b,
+                         in);
+      }
+    }
+    ftile::cp_async_commit();
+    ftile::cp_async_wait<0>();
+    __syncthreads();
+    const float* ar = as + r * RANK3_A_LD + ks * RANK3_SLICE;
+    const float* br = bs + ks * RANK3_SLICE * RANK3_TN + c;
+#pragma unroll
+    for (int kk = 0; kk < RANK3_SLICE; kk += 4) {
+      const float4 a4 = *reinterpret_cast<const float4*>(ar + kk);
+      const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float bv[RANK3_OUTS];
+        if constexpr (RANK3_OUTS == 4) {
+          const float4 b4 = *reinterpret_cast<const float4*>(br + (kk + j) * RANK3_TN);
+          bv[0] = b4.x, bv[1] = b4.y, bv[2] = b4.z, bv[3] = b4.w;
+        } else if constexpr (RANK3_OUTS == 2) {
+          const float2 b2 = *reinterpret_cast<const float2*>(br + (kk + j) * RANK3_TN);
+          bv[0] = b2.x, bv[1] = b2.y;
+        } else {
+          bv[0] = br[(kk + j) * RANK3_TN];
+        }
+#pragma unroll
+        for (int o = 0; o < RANK3_OUTS; ++o) acc[o] = fmaf(av[j], bv[o], acc[o]);
+      }
+    }
+  }
+  if constexpr (RANK3_KSPLIT > 1) {
+    if (ks > 0) {
+#pragma unroll
+      for (int o = 0; o < RANK3_OUTS; ++o)
+        red[((ks - 1) * RANK3_GROUPS + g) * RANK3_OUTS + o] = acc[o];
     }
     __syncthreads();
+    if (ks > 0) return;
+#pragma unroll
+    for (int s = 1; s < RANK3_KSPLIT; ++s)
+#pragma unroll
+      for (int o = 0; o < RANK3_OUTS; ++o)
+        acc[o] += red[((s - 1) * RANK3_GROUPS + g) * RANK3_OUTS + o];
   }
-  if (row < m && col < n) {
-    out[(batch * m + row) * n + col] = acc;
-  }
+  const int row = row0 + r;
+  if (row >= m) return;
+  float* orow = out + (batch * m + row) * n + col0 + c;
+#pragma unroll
+  for (int o = 0; o < RANK3_OUTS; ++o)
+    if (col0 + c + o < n) orow[o] = acc[o];
 }
 
 // ---------------------------------------------------------------------------
@@ -190,29 +310,37 @@ copy_kernel(const float* __restrict__ src, float* __restrict__ dst, long long n,
 // w (6, 25) f32, out (6, l) f32.
 // ---------------------------------------------------------------------------
 
-constexpr int CONV_THREADS = 256;
-
-// mxu-conv-L and mxu-conv-3d: a thread takes CONTRACT_COLS consecutive
-// columns, blocks of CONTRACT_THREADS. Its 25 taps' loads go out before
-// w is staged and before the first fma, so the kernel waits on one round
-// trip to memory (the parent's thread staged w, waited at the barrier,
-// then loaded x: two): in the wide body one CONTRACT_COLS * 2-byte load a
-// tap (8 bytes at 4 columns: a warp's request is 256 contiguous bytes of a
+// The contraction: a thread takes CONTRACT_COLS consecutive columns and all
+// 6 filters, blocks of CONTRACT_THREADS, so x is read once. Its 25 taps'
+// loads go out before w is staged and before the first multiply-add, so
+// the kernel waits on one round trip to memory, not two (w's, then x's):
+// in the wide body one CONTRACT_COLS * 2-byte load a
+// tap (4 bytes at 2 columns: a warp's request is 128 contiguous bytes of a
 // row, where one thread a column made it 64), and each filter's outputs
-// leave as float4 stores. The wide body needs every row of x and of out on
+// leave as one float2 store (float4s at 4 or 8 columns). At the probes'
+// 73,728 columns that is 288 blocks of 128 threads. (A sweep on an H100,
+// benches/lenet_sweep.py conv_contract and vpu_conv, found 2 columns in
+// blocks of 128 the fastest for both roundings, one column as fast, 4 and
+// 8 slower: vpu-conv does two rounded operations a product, and at 4
+// columns the card's schedulers held too few warps to issue its 1,200 a
+// thread evenly.) The wide body needs every row of x and of out on
 // its boundary: l a multiple of CONTRACT_COLS, x on a CONTRACT_COLS * 2-byte
 // boundary and out on a 16-byte one, which the host checks; otherwise (an
 // odd l such as 1003, a view of x at an odd offset) the narrow body reads
 // and writes one value at a time, with the ragged last columns masked.
-// Every output is acc = fmaf(w[m,t], x[t,col], acc) over t = 0..24 from 0,
-// so both bodies, and every CONTRACT_COLS, give the parent kernel's bits
-// (one thread a column, the same fmas).
-constexpr int CONTRACT_THREADS = 64;
-constexpr int CONTRACT_COLS = 4;
-static_assert(CONTRACT_COLS == 4 || CONTRACT_COLS == 8, "float4 stores of whole quads");
+// Every output is acc = madd<ROUNDED>(w[m,t], x[t,col], acc) over t =
+// 0..24 from 0, so both bodies, and every CONTRACT_COLS, give the first
+// designs' bits (one thread a column, the same operations in the same
+// order): mxu-conv's fmas, and vpu-conv's rounded products and sums, which
+// are its plain twin's.
+constexpr int CONTRACT_THREADS = 128;
+constexpr int CONTRACT_COLS = 2;
+static_assert(CONTRACT_COLS == 2 || CONTRACT_COLS == 4 || CONTRACT_COLS == 8,
+              "a float2 or whole float4 stores");
 
 // CONTRACT_COLS bf16 values in one load.
 template <int COLS> struct Bf16Run;
+template <> struct Bf16Run<2> { using type = unsigned; };
 template <> struct Bf16Run<4> { using type = uint2; };
 template <> struct Bf16Run<8> { using type = uint4; };
 
@@ -222,6 +350,7 @@ __device__ __forceinline__ void widen2(unsigned v, float* f) {
   f[0] = __uint_as_float(v << 16);
   f[1] = __uint_as_float(v & 0xffff0000u);
 }
+__device__ __forceinline__ void widen(unsigned v, float* f) { widen2(v, f); }
 __device__ __forceinline__ void widen(uint2 v, float* f) { widen2(v.x, f); widen2(v.y, f + 2); }
 __device__ __forceinline__ void widen(uint4 v, float* f) {
   widen2(v.x, f);
@@ -230,7 +359,14 @@ __device__ __forceinline__ void widen(uint4 v, float* f) {
   widen2(v.w, f + 6);
 }
 
-template <bool WIDE>
+// acc + w * x: one fma, or (ROUNDED) the product and the sum each rounded on
+// its own, which nvcc may not contract into an fma.
+template <bool ROUNDED>
+__device__ __forceinline__ float madd(float w, float x, float acc) {
+  return ROUNDED ? __fadd_rn(acc, __fmul_rn(w, x)) : fmaf(w, x, acc);
+}
+
+template <bool WIDE, bool ROUNDED>
 __global__ void __launch_bounds__(CONTRACT_THREADS)
 conv_contract_kernel(const float* __restrict__ w,
                      const __nv_bfloat16* __restrict__ x,
@@ -261,14 +397,19 @@ conv_contract_kernel(const float* __restrict__ w,
       for (int m = 0; m < FILTERS; ++m)
 #pragma unroll
         for (int q = 0; q < CONTRACT_COLS; ++q)
-          acc[m][q] = fmaf(ws[m * TAPS + t], xv[q], acc[m][q]);
+          acc[m][q] = madd<ROUNDED>(ws[m * TAPS + t], xv[q], acc[m][q]);
     }
 #pragma unroll
     for (int m = 0; m < FILTERS; ++m)
 #pragma unroll
-      for (int q = 0; q < CONTRACT_COLS; q += 4)
-        *reinterpret_cast<float4*>(out + m * l + c0 + q) =
-            make_float4(acc[m][q], acc[m][q + 1], acc[m][q + 2], acc[m][q + 3]);
+      for (int q = 0; q < CONTRACT_COLS; q += 4) {
+        if constexpr (CONTRACT_COLS == 2) {
+          *reinterpret_cast<float2*>(out + m * l + c0) = make_float2(acc[m][0], acc[m][1]);
+        } else {
+          *reinterpret_cast<float4*>(out + m * l + c0 + q) =
+              make_float4(acc[m][q], acc[m][q + 1], acc[m][q + 2], acc[m][q + 3]);
+        }
+      }
     return;
   }
   const int cols = l - c0 < CONTRACT_COLS ? static_cast<int>(l - c0) : CONTRACT_COLS;
@@ -282,35 +423,13 @@ conv_contract_kernel(const float* __restrict__ w,
     for (int m = 0; m < FILTERS; ++m)
 #pragma unroll
       for (int q = 0; q < CONTRACT_COLS; ++q)
-        acc[m][q] = fmaf(ws[m * TAPS + t], xv[q], acc[m][q]);
+        acc[m][q] = madd<ROUNDED>(ws[m * TAPS + t], xv[q], acc[m][q]);
   }
 #pragma unroll
   for (int m = 0; m < FILTERS; ++m)
 #pragma unroll
     for (int q = 0; q < CONTRACT_COLS; ++q)
       if (q < cols) out[m * l + c0 + q] = acc[m][q];
-}
-
-// vpu-conv: blockIdx.y is the filter; one pass of 25 multiply-adds over the
-// taps per (filter, column), each product and each sum rounded on its own,
-// so the result is the plain version's bit for bit.
-__global__ void __launch_bounds__(CONV_THREADS)
-per_filter_conv_kernel(const float* __restrict__ w,
-                       const __nv_bfloat16* __restrict__ x,
-                       float* __restrict__ out, long long l) {
-  __shared__ float ws[TAPS];
-  const int m = blockIdx.y;
-  if (threadIdx.x < TAPS) ws[threadIdx.x] = w[m * TAPS + threadIdx.x];
-  __syncthreads();
-  const long long col =
-      static_cast<long long>(blockIdx.x) * CONV_THREADS + threadIdx.x;
-  if (col >= l) return;
-  float acc = 0.f;
-#pragma unroll
-  for (int t = 0; t < TAPS; ++t) {
-    acc = __fadd_rn(acc, __fmul_rn(ws[t], __bfloat162float(x[t * l + col])));
-  }
-  out[m * l + col] = acc;
 }
 
 // ---------------------------------------------------------------------------
@@ -448,6 +567,7 @@ int launch_copy(const float* src, float* dst, long long n, void* stream) {
   return status();
 }
 
+template <bool ROUNDED>
 int launch_contract(const float* w, const void* x, float* out, long long l,
                     void* stream) {
   const long long threads = (l + CONTRACT_COLS - 1) / CONTRACT_COLS;
@@ -459,11 +579,11 @@ int launch_contract(const float* w, const void* x, float* out, long long l,
   const auto* xb = static_cast<const __nv_bfloat16*>(x);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (wide) {
-    conv_contract_kernel<true><<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(
-        w, xb, out, l);
+    conv_contract_kernel<true, ROUNDED>
+        <<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(w, xb, out, l);
   } else {
-    conv_contract_kernel<false><<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(
-        w, xb, out, l);
+    conv_contract_kernel<false, ROUNDED>
+        <<<static_cast<unsigned>(blocks), CONTRACT_THREADS, 0, s>>>(w, xb, out, l);
   }
   return status();
 }
@@ -501,10 +621,11 @@ extern "C" int mosaic_probe_dim(int i) {
 // a (batch, m, k), b (batch, k, n), out (batch, m, n): f32 device pointers.
 extern "C" int probe_rank3_dot(const float* a, const float* b, float* out,
                                int batch, int m, int k, int n, void* stream) {
-  if (batch <= 0 || batch > 65535 || m <= 0 || k <= 0 || n <= 0) return invalid();
-  const dim3 grid((n + TILE - 1) / TILE, (m + TILE - 1) / TILE, batch);
-  if (grid.y > 65535) return invalid();
-  batched_matmul_kernel<<<grid, dim3(TILE, TILE), 0,
+  if (batch <= 0 || m <= 0 || k <= 0 || n <= 0) return invalid();
+  const long long blocks = static_cast<long long>(batch) * ((m + RANK3_TM - 1) / RANK3_TM) *
+                           ((n + RANK3_TN - 1) / RANK3_TN);
+  if (blocks > 0x7fffffffLL) return invalid();
+  batched_matmul_kernel<<<static_cast<unsigned>(blocks), RANK3_THREADS, 0,
                           static_cast<cudaStream_t>(stream)>>>(a, b, out, m, k, n);
   return status();
 }
@@ -523,23 +644,18 @@ extern "C" int probe_lane_split(const float* x, float* out, long long n,
 // w (6, 25) f32, x (25, l) bf16, out (6, l) f32.
 extern "C" int probe_mxu_conv_L(const float* w, const void* x, float* out,
                                 long long l, void* stream) {
-  return launch_contract(w, x, out, l, stream);
+  return launch_contract<false>(w, x, out, l, stream);
 }
 
 // w (6, 25) f32, x (25, bb, c) bf16, out (6, bb, c) f32; l = bb*c.
 extern "C" int probe_mxu_conv_3d(const float* w, const void* x, float* out,
                                  long long l, void* stream) {
-  return launch_contract(w, x, out, l, stream);
+  return launch_contract<false>(w, x, out, l, stream);
 }
 
 extern "C" int probe_vpu_conv(const float* w, const void* x, float* out,
                               long long l, void* stream) {
-  const long long blocks = (l + CONV_THREADS - 1) / CONV_THREADS;
-  if (l <= 0 || blocks > 0x7fffffffLL) return invalid();
-  per_filter_conv_kernel<<<dim3(static_cast<unsigned>(blocks), FILTERS),
-                           CONV_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      w, static_cast<const __nv_bfloat16*>(x), out, l);
-  return status();
+  return launch_contract<true>(w, x, out, l, stream);
 }
 
 // x (rows, 64) bf16, w (64, 128) bf16, out (rows, 64) f32.

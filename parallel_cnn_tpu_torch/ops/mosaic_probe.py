@@ -87,7 +87,7 @@ _library = Library("mosaic_probe.cu", {
     "probe_mxu_conv_3d": ([_P] * 3 + [_L, _P], _I),
     "probe_pair_dot": ([_P] * 3 + [_I, _P], _I),
     "probe_two_dot": ([_P] * 3 + [_I, _P], _I),
-}, headers=("wgmma_tile.cuh",))
+}, headers=("ffma_tile.cuh", "wgmma_tile.cuh"))
 _INT_MAX = 2**31 - 1
 
 
@@ -243,8 +243,9 @@ def vpu_conv_plain(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
 
 
 def vpu_conv(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """The same conv as 6 × 25 multiply-adds, one pass per filter: (6, 25)
-    f32, (25, bb, c) bf16 → (6, bb, c) f32."""
+    """The same conv as B1 computes it, each filter's 25 multiply-adds in
+    tap order with every product and sum rounded on its own: (6, 25) f32,
+    (25, bb, c) bf16 → (6, bb, c) f32."""
     shape = _conv_operands(w, x, 3)
     if not on_cuda("vpu_conv", x):
         return vpu_conv_plain(w, x)

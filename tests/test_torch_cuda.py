@@ -1303,23 +1303,23 @@ def test_probe_wrappers_raise_instead_of_falling_back(card, name, mutate, err):
     assert counter.count == before
 
 
-# B17/B19's contraction (csrc/mosaic_probe.cu conv_contract_kernel): lengths
-# around its columns a thread (1, 7, 8), the odd probe shape (1003), 4032
-# and the probes' 73,728; x whole, one bf16 value past a 16-byte boundary
-# (the narrow body) and 4 values past it (8 bytes: the wide body at 4
-# columns a thread, the narrow one at 8).
+# The contraction of B17/B19 and B18 (csrc/mosaic_probe.cu
+# conv_contract_kernel): lengths around its columns a thread (1, 7, 8), the
+# odd probe shape (1003), 4032 and the probes' 73,728; x whole, one bf16
+# value past a 16-byte boundary (the narrow body) and 4 values past it (8
+# bytes: the wide body at 2 or 4 columns a thread, the narrow one at 8).
 CONTRACT_LENGTHS = (1, 7, 8, 1003, 4032, 73_728)
 CONTRACT_VIEWS = {"whole": 0, "offset1": 1, "offset4": 4}
 
 
 @pytest.mark.parametrize("view", CONTRACT_VIEWS)
 @pytest.mark.parametrize("length", CONTRACT_LENGTHS)
-@pytest.mark.parametrize("name", ["mxu_conv_L", "mxu_conv_3d"])
+@pytest.mark.parametrize("name", ["mxu_conv_L", "mxu_conv_3d", "vpu_conv"])
 def test_probe_contract_lengths_and_views_on_card(card, name, length, view):
-    """Both entry points against the plain twin within PROBE_RTOL of the
-    output's scale, a relaunch bit for bit, one launch a call; through the
-    C entry into a NaN-filled buffer, exactly the 6 × length outputs are
-    written, equal to the wrapper's."""
+    """The three entry points against the plain twin (B17/B19 within
+    PROBE_RTOL of the output's scale, B18 bit for bit), a relaunch bit for
+    bit, one launch a call; through the C entry into a NaN-filled buffer,
+    exactly the 6 × length outputs are written, equal to the wrapper's."""
     gen = torch.Generator(device="cuda").manual_seed(length + 10 * CONTRACT_VIEWS[view])
     w = torch.randn((6, 25), generator=gen, device="cuda")
     flat = torch.randn((25, length), generator=gen, device="cuda").bfloat16()
@@ -1334,13 +1334,73 @@ def test_probe_contract_lengths_and_views_on_card(card, name, length, view):
     torch.cuda.synchronize()
     assert counter.count == before + 2
     assert torch.equal(got, again)
-    _close(got, want, PROBE_RTOL)
+    if name in PROBE_EXACT:
+        assert torch.equal(got, want)
+    else:
+        _close(got, want, PROBE_RTOL)
     out = torch.full((6 * length + 4,), float("nan"), device="cuda")
     entry = getattr(mosaic_probe.build().get(), f"probe_{name}")
     assert entry(w.data_ptr(), x.data_ptr(), out.data_ptr(), length, launch_stream(card)) == 0
     torch.cuda.synchronize()
     assert torch.equal(out[:6 * length].view(got.shape), got)
     assert bool(torch.isnan(out[6 * length:]).all())
+
+
+# B14 (csrc/mosaic_probe.cu batched_matmul_kernel): depths around its 4-wide
+# reads and 128-deep chunk (1, 15-17, 127-129, 300: one, two and three
+# chunks, ragged), rows and columns around its tiles (1, 63, 64, 65), and
+# batches of 1, 4 and 200; odd k or n take the 4-byte copies.
+RANK3_DEPTHS = (1, 15, 16, 17, 127, 128, 129, 300)
+RANK3_SIDES = (1, 63, 64, 65)
+
+
+@pytest.mark.parametrize("n", [1, 4, 200])
+@pytest.mark.parametrize("k", RANK3_DEPTHS)
+def test_probe_rank3_dot_shapes_on_card(card, k, n):
+    """At every (m, p) of RANK3_SIDES: the wrapper within PROBE_RTOL of the
+    plain twin's scale, a relaunch bit for bit, one launch a call; through
+    the C entry into a NaN-filled buffer with room past the end, exactly the
+    n·m·p outputs are written, equal to the wrapper's."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 * n + k)
+    counter = mosaic_probe.launches["rank3_dot"]
+    entry = mosaic_probe.build().get().probe_rank3_dot
+    for m in RANK3_SIDES:
+        for p in RANK3_SIDES:
+            a = torch.randn((n, m, k), generator=gen, device="cuda")
+            b = torch.randn((n, k, p), generator=gen, device="cuda")
+            before = counter.count
+            got, again = mosaic_probe.rank3_dot(a, b), mosaic_probe.rank3_dot(a, b)
+            want = mosaic_probe.rank3_dot_plain(a, b)
+            torch.cuda.synchronize()
+            assert counter.count == before + 2
+            assert torch.equal(got, again), (m, p)
+            _close(got, want, PROBE_RTOL)
+            out = torch.full((n * m * p + 64 * (p + 1),), float("nan"), device="cuda")
+            assert entry(a.data_ptr(), b.data_ptr(), out.data_ptr(), n, m, k, p,
+                         launch_stream(card)) == 0
+            torch.cuda.synchronize()
+            assert torch.equal(out[:n * m * p].view(n, m, p), got), (m, p)
+            assert bool(torch.isnan(out[n * m * p:]).all()), (m, p)
+
+
+def test_probe_rank3_dot_takes_a_batch_past_65535_on_card(card):
+    """The grid is one dimension, so a batch past grid.z's 65,535 runs:
+    every entry's product equals the plain twin's (k = 1: one product)."""
+    gen = torch.Generator(device="cuda").manual_seed(65_537)
+    a = torch.randn((65_537, 3, 1), generator=gen, device="cuda")
+    b = torch.randn((65_537, 1, 5), generator=gen, device="cuda")
+    assert torch.equal(mosaic_probe.rank3_dot(a, b), mosaic_probe.rank3_dot_plain(a, b))
+
+
+@pytest.mark.parametrize("operand", [0, 1], ids=["a", "b"])
+def test_probe_rank3_dot_reads_views_off_the_16_byte_boundary_on_card(card, operand):
+    """An operand one value past a 16-byte boundary (the 4-byte copies)
+    gives the aligned operand's result bit for bit."""
+    gen = torch.Generator(device="cuda").manual_seed(7 + operand)
+    args = list(probe_operands("rank3_dot", False, card_draw(gen)))
+    want = mosaic_probe.rank3_dot(*args)
+    args[operand] = _offset_view(args[operand])
+    assert torch.equal(mosaic_probe.rank3_dot(*args), want)
 
 
 # B15/B16's copy (csrc/mosaic_probe.cu copy_kernel): lengths around its

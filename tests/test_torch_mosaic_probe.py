@@ -172,6 +172,25 @@ def test_wrapper_matches_float64(name, odd):
         np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("shape", [(25, 7, 576), (25, 1, 1003)], ids=["odd", "one-row-1003"])
+def test_vpu_conv_plain_is_the_per_filter_rounded_order(shape):
+    """B18's order on the host: per filter, t ascending from a zero sum,
+    each multiply and each add rounded to float32 by numpy. The card's
+    kernel is held bit for bit to this twin."""
+    rng = np.random.default_rng(sum(shape))
+    w = rng.standard_normal((6, 25)).astype(np.float32)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).bfloat16()
+    xf = x.float().numpy()
+    want = np.empty((6,) + shape[1:], np.float32)
+    for m in range(6):
+        acc = np.zeros(shape[1:], np.float32)
+        for t in range(25):
+            prod = np.multiply(w[m, t], xf[t], dtype=np.float32)
+            acc = np.add(acc, prod, dtype=np.float32)
+        want[m] = acc
+    np.testing.assert_array_equal(run_port("vpu_conv", (torch.from_numpy(w), x)), want)
+
+
 @pytest.mark.parametrize("name", mosaic_probe.KERNELS)
 def test_probe_on_ones_equals_jax(jax_probes, name):
     port = getattr(probe_bench, PROBE_FN[name])(torch.device("cpu"))
