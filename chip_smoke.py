@@ -17,6 +17,12 @@ port's two paths through their user-facing entry points:
   fused SGD kernel (--fused-step) and the per-sample plain path, with a
   resumed run held bit for bit against a straight one and a profiled
   epoch of each kernel path;
+- mesh training: the same CLI with --mesh-data 1 --ops cuda (a world of
+  one rank over NCCL; one card cannot hold two), every step through the
+  fused train-step kernel and the data-parallel update, its steps against
+  the single-device kernel steps, psum against the ring, a resumed run
+  against a straight one, the model-axis step on a 1x1 mesh against the
+  data-parallel reference step, and a profiled epoch;
 - zoo training: the trainer's CLI on full-width ResNet-18 (CIFAR stem) at
   batch 128 with every conv's forward, input gradient and weight gradient
   through the hand kernels and the loss through the fused tail kernel, a
@@ -102,7 +108,7 @@ from parallel_cnn_tpu_torch.ops import (
     tap_wgrad,
 )
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
-from parallel_cnn_tpu_torch.parallel import collectives, distributed
+from parallel_cnn_tpu_torch.parallel import collectives, data_parallel, distributed, intra_op
 from parallel_cnn_tpu_torch.ops.activations import apply_grad
 from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
 from parallel_cnn_tpu_torch.train import step as step_lib
@@ -147,6 +153,9 @@ PER_SAMPLE_COUNT = 6_000
 # (e): 50 steps of the kernel step vs the plain step on the card.
 STEP_CHECK_STEPS = 50
 STEP_CHECK_ATOL = 1e-4
+# The mesh phase: LeNet-ref over a (data, model) mesh of one rank.
+MESH_CHECK_STEPS = 10
+MESH_2D_ATOL = 1e-5
 # Multiply-adds per image of the LeNet-ref step (csrc/lenet_fused.cu):
 # forward conv 86,400, pool 3,456, FC 2,160; backward FC wgrad 2,160, FC dX
 # 2,160, pool wgrad 3,456, pool scatter 3,456, conv wgrad 86,400.
@@ -767,6 +776,7 @@ def train_phase(card) -> dict:
           f"error rate {rec['error_rate']:.2f}% on {card}", flush=True)
     if launches["lenet_fused"] != 2 * STEPS_PER_EPOCH or launches["sgd_update_on_a"]:
         fail("--ops cuda did not run every step through lenet_fused")
+    rate_a = rec["images_per_sec"]
     if len(errs) != 2 or not errs[1] < errs[0] or "Error Rate: " not in out:
         fail("--ops cuda: the epoch error did not fall or no Error Rate line")
 
@@ -828,20 +838,137 @@ def train_phase(card) -> dict:
           f"{'ok' if diff <= STEP_CHECK_ATOL else 'FAIL'}", flush=True)
     if not diff <= STEP_CHECK_ATOL:
         fail("the kernel step drifted from the plain step")
+    return launches, rate_a
+
+
+def mesh_steps_rank(mesh, kind, steps):
+    """On one rank: ``steps`` b64 steps on the synthetic set's first
+    batches from the seed-0 params, through the data-parallel step on the
+    kernel ("dp_cuda", psum; "dp_cuda_ring", the ring), the single-device
+    kernel step ("single_cuda"), the data-parallel reference step
+    ("dp_reference") or the model-axis step ("2d"). Returns the params on
+    the host."""
+    imgs, labels = synthetic.make_dataset(steps * TRAIN_BATCH, seed=7)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).cuda()
+    params = trainer.init_params(0, mesh.device)
+    if kind == "single_cuda":
+        step = lambda p, x, y: step_lib.cuda_batched_step(p, x, y, 0.1)  # noqa: E731
+    elif kind == "2d":
+        params = intra_op.shard_params(mesh, params)
+        step = intra_op.make_2d_step(mesh, 0.1, TRAIN_BATCH)
+    else:
+        comm = CommConfig(impl="ring") if kind == "dp_cuda_ring" else CommConfig()
+        ops = "reference" if kind == "dp_reference" else "cuda"
+        step = data_parallel.make_dp_step(mesh, 0.1, TRAIN_BATCH, ops_path=ops,
+                                          comm=comm)
+    for i in range(steps):
+        sl = slice(i * TRAIN_BATCH, (i + 1) * TRAIN_BATCH)
+        params, _ = step(params, mesh.shard_rows(xs[sl]), mesh.shard_rows(ys[sl]))
+    if kind == "2d":
+        params = intra_op.gather_params(mesh, params)
+    return tree_map(lambda t: t.cpu(), params)
+
+
+def mesh_params_diff(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def mesh_phase(card, rate_a) -> dict:
+    """The LeNet-ref trainer over a (data, model) mesh of one rank: (a) the
+    CLI at --mesh-data 1 --ops cuda, exact B1 launches and no B2 launch,
+    img/s beside train (a)'s; (b) 50 data-parallel kernel steps against 50
+    single-device kernel steps, psum against the ring; (c) a resumed run
+    against the straight one; (d) the model-axis step on a 1x1 mesh against
+    the data-parallel reference step. Returns B1's launches on (a)."""
+    work = BUILD_DIR / "smoke_mesh"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--mesh-data", "1", "--ops", "cuda", "--batch-size", str(TRAIN_BATCH),
+            "--shuffle"]
+
+    # (a) the main path: the counters set to 0 just before, read just after.
+    print(f"[smoke] mesh (a): {' '.join(base)} --epochs 2", flush=True)
+    lenet_fused.launches.reset()
+    sgd_update.launches.reset()
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                          "--metrics", str(work / "a.jsonl")])
+    launches = {"lenet_fused": lenet_fused.launches.count,
+                "sgd_update": sgd_update.launches.count}
+    errs = epoch_errors(out)
+    rec = final_record(work / "a.jsonl")
+    print(f"[smoke] mesh (a): lenet_fused launches {launches['lenet_fused']} for "
+          f"{2 * STEPS_PER_EPOCH} steps, sgd_update launches {launches['sgd_update']}; "
+          f"epoch errors {errs}; {rec['images_per_sec']:.0f} img/s against train "
+          f"(a)'s {rate_a:.0f} img/s in this run (host clock, first epoch cold), "
+          f"error rate {rec['error_rate']:.2f}% on {card}", flush=True)
+    if "mesh: {'data': 1, 'model': 1}" not in out:
+        fail("the --mesh-data 1 run did not print its mesh")
+    if launches["lenet_fused"] != 2 * STEPS_PER_EPOCH or launches["sgd_update"]:
+        fail("the mesh path did not run every step through lenet_fused alone")
+    if len(errs) != 2 or not errs[1] < errs[0] or "Error Rate: " not in out:
+        fail("the mesh path's epoch error did not fall or no Error Rate line")
+
+    # (b) 50 steps each from one init, every run a world of one rank.
+    runs = {kind: distributed.run(mesh_steps_rank, 1, device="cuda", shape=(1, 1),
+                                  args=(kind, STEP_CHECK_STEPS))[0]
+            for kind in ("dp_cuda", "dp_cuda_ring", "single_cuda")}
+    diff = mesh_params_diff(runs["dp_cuda"], runs["single_cuda"])
+    same = all(torch.equal(a, b) for a, b in zip(tree_leaves(runs["dp_cuda"]),
+                                                  tree_leaves(runs["dp_cuda_ring"])))
+    ok = diff <= STEP_CHECK_ATOL and same
+    print(f"[smoke] mesh (b): {STEP_CHECK_STEPS} make_dp_step(ops_path='cuda') steps "
+          f"vs cuda_batched_step: max |Δparams| {diff:.3e} (tol "
+          f"{STEP_CHECK_ATOL:.0e}); comm psum vs ring "
+          f"{'bit-identical' if same else 'DIFFER'} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the data-parallel kernel step drifted from the single-device one, "
+             "or psum and the ring differ at world 1")
+
+    # (c) 1 epoch, then --resume to 2: the straight run's params, bit for bit.
+    print("[smoke] mesh (c): 1 epoch + --resume 1 epoch vs (a)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] mesh (c): resumed params "
+          f"{'bit-identical to the straight run' if same else 'DIFFER'}", flush=True)
+    if "resumed from" not in out or not same:
+        fail("a resumed mesh run is not bit-identical to the straight run")
+
+    # (d) the model-axis step on a 1x1 mesh against the DP reference step.
+    ref, two_d = (distributed.run(mesh_steps_rank, 1, device="cuda", shape=(1, 1),
+                                  args=(kind, MESH_CHECK_STEPS))[0]
+                  for kind in ("dp_reference", "2d"))
+    diff = mesh_params_diff(two_d, ref)
+    print(f"[smoke] mesh (d): {MESH_CHECK_STEPS} make_2d_step steps on a 1x1 mesh vs "
+          f"the data-parallel reference step: max |Δparams| {diff:.3e} (tol "
+          f"{MESH_2D_ATOL:.0e}) {'ok' if diff <= MESH_2D_ATOL else 'FAIL'}", flush=True)
+    if not diff <= MESH_2D_ATOL:
+        fail("the model-axis step drifted from the data-parallel reference step")
     return launches
 
 
-def profiled_epoch(ds, label: str, cfg: Config):
-    """Where an epoch's time goes: one epoch of trainer.learn under
-    torch.profiler (CUDA activity only) — device time by kernel, launches
-    per step and the device's busy share of the epoch's wall time. Returns
-    (us per step, device ops per step, idle share), or None when the
-    profiler saw no device events."""
-    trainer.learn(cfg, ds, verbose=False)  # warm: allocator, library, caches
+def profiled_mesh_epoch(mesh, ds):
+    """(e) on one rank: a profiled --mesh-data 1 --ops cuda epoch."""
+    return profiled_epoch(ds, "--mesh-data 1 --ops cuda", Config(
+        train=TrainConfig(batch_size=TRAIN_BATCH, ops="cuda", shuffle=True)), mesh=mesh)
+
+
+def profiled_epoch(ds, label: str, cfg: Config, mesh=None):
+    """Where an epoch's time goes: one epoch of trainer.learn (on ``mesh``
+    when given) under torch.profiler (CUDA activity only) — device time by
+    kernel, launches per step and the device's busy share of the epoch's
+    wall time. Returns (us per step, device ops per step, idle share), or
+    None when the profiler saw no device events."""
+    # warm: allocator, library, caches
+    trainer.learn(cfg, ds, verbose=False, mesh=mesh)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = trainer.learn(cfg, ds, verbose=False)
+        res = trainer.learn(cfg, ds, verbose=False, mesh=mesh)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = [e for e in prof.key_averages()
@@ -2467,7 +2594,7 @@ def main() -> int:
         fail("served logits disagree with the plain-version model")
 
     # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
-    train_launches = train_phase(card)
+    train_launches, rate_a = train_phase(card)
     ds = pipeline.Dataset(*synthetic.make_dataset(TRAIN_COUNT, seed=1234))
     epoch_profiles = {}
     for label, ops, fused in (("--ops cuda", "cuda", False),
@@ -2475,6 +2602,10 @@ def main() -> int:
         epoch_profiles[label] = profiled_epoch(ds, label, Config(
             train=TrainConfig(batch_size=TRAIN_BATCH, ops=ops, shuffle=True),
             fused=fused))
+
+    # -- 4b''. the mesh path: LeNet-ref over a (data, model) mesh ----------
+    mesh_phase(card, rate_a)
+    distributed.run(profiled_mesh_epoch, 1, device="cuda", shape=(1, 1), args=(ds,))
 
     # -- 4b'. the staged LeNet-ref library: B3-B9 ---------------------------
     staged_errs, staged_launches = staged_phase(card, ds,

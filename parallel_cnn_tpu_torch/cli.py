@@ -12,10 +12,14 @@ synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc A% (S s)``
 lines, checkpoints of the full state and ``--resume``, on one device or,
 with ``--mesh-data N --comm-impl psum|ring``, data-parallel over N ranks
 (one process each; NCCL, one card per rank, or gloo with ``--device
-cpu``), with ``--fused-step`` and the ring as update-on-arrival.
+cpu``), with ``--fused-step`` and the ring as update-on-arrival. LeNet-ref
+takes ``--mesh-data N [--mesh-model M] [--comm-impl psum|ring]``: minibatch
+SGD over an N × M mesh of ranks, data-parallel, with the filters split
+over the model axis when M > 1 (rank 0 prints, records and checkpoints).
 Everything runs on the GPU unless ``--device cpu`` is given. Of the
-trainer flags of later slices, ``--mesh-model`` above 1, ``--comm-hosts``,
-``--pipeline-stages`` and ``--elastic`` are typed NotPortedErrors; chaos,
+trainer flags of later slices, ``--mesh-model`` above 1 for a zoo model
+(JAX's GSPMD path), ``--comm-hosts``, ``--pipeline-stages`` and
+``--elastic`` are typed NotPortedErrors; chaos,
 async, trace and profile are not accepted yet, nor are the serving
 stack's admission control, autoscaler, scenarios, network front door and
 disk cache.
@@ -125,8 +129,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "each (gloo ranks with --device cpu); needs "
                         "--comm-impl")
     p.add_argument("--mesh-model", type=int, default=None, metavar="N",
-                   help="model (intra-op) mesh axis size; above 1 not "
-                        "ported yet (ROADMAP A7)")
+                   help="model (intra-op) mesh axis size. lenet_ref: must "
+                        "divide the 6 conv filters (1, 2, 3, 6); filters and "
+                        "the FC contraction split over N ranks of each data "
+                        "row. Zoo models: above 1 not ported yet (ROADMAP "
+                        "A7)")
     p.add_argument("--comm-impl", default=None,
                    choices=["psum", "ring", "hierarchical"],
                    help="mesh runs: gradient-collective algorithm "
@@ -209,6 +216,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
             ring_size=args.keep_checkpoints,
         ),
         fused=args.fused_step,
+        comm=_comm_from_args(args),
     )
 
 
@@ -332,6 +340,9 @@ def _run_zoo(args: argparse.Namespace) -> int:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
     _refuse_later_slices(args)
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
+    from parallel_cnn_tpu_torch.train import zoo
+
+    zoo.check_mesh_config(mesh_cfg)
     comm = _comm_from_args(args)
     fused = _fused_from_args(args)
     if args.mesh_data is None:
@@ -355,20 +366,12 @@ def _run_zoo(args: argparse.Namespace) -> int:
     return 0
 
 
-def _run_train(argv: List[str]) -> int:
-    """≙ the JAX CLI's trainer: the lenet_ref branch (load → learn with a
-    checkpoint per epoch, resume, preemption → test) or the zoo branch."""
-    args = build_parser().parse_args(argv)
-    if args.model != "lenet_ref":
-        return _run_zoo(args)
-    _refuse_later_slices(args)
-    if (args.mesh_data is not None or (args.mesh_model or 1) > 1
-            or _comm_from_args(args) is not None):
-        raise NotPortedError(
-            "data-parallel LeNet-ref (--mesh-data/--mesh-model/--comm-*) is "
-            "not ported yet (ROADMAP A7); the zoo models take --mesh-data")
-    cfg = config_from_args(args)
-
+def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
+    """One rank's LeNet-ref run (``mesh`` None: the single-device run):
+    load → learn with a checkpoint per epoch, resume, preemption → test.
+    On a mesh every rank trains; rank 0 alone prints the reference's
+    lines, records metrics and saves checkpoints (whole params), and every
+    rank resumes from the same file."""
     from parallel_cnn_tpu_torch.data import pipeline
     from parallel_cnn_tpu_torch.resilience import preempt
     from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
@@ -376,17 +379,19 @@ def _run_train(argv: List[str]) -> int:
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
     from parallel_cnn_tpu_torch.utils.metrics import MetricsLogger, throughput
 
-    device = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     # Surface the data pipeline's INFO-level evidence (the real-MNIST
-    # integrity report) in the CLI's output.
-    logging.getLogger("parallel_cnn_tpu_torch").setLevel(logging.INFO)
+    # integrity report) in the CLI's output, once.
+    logging.getLogger("parallel_cnn_tpu_torch").setLevel(
+        logging.INFO if lead else logging.ERROR)
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO,
                             format="%(levelname)s %(name)s: %(message)s")
 
     train_ds, test_ds = pipeline.load_train_test(cfg.data)
     ring = None
-    if args.checkpoint_dir:
+    if args.checkpoint_dir and lead:
         ring = CheckpointRing(args.checkpoint_dir, keep=cfg.resilience.ring_size)
 
     params = None
@@ -399,9 +404,10 @@ def _run_train(argv: List[str]) -> int:
             params, state = checkpoint.restore(path, like)
             start_epoch = state.epoch
             error_history = list(state.epoch_errors)
-            print(f"resumed from {path} (epoch {start_epoch})")
+            if lead:
+                print(f"resumed from {path} (epoch {start_epoch})")
 
-    metrics = MetricsLogger(path=args.metrics) if args.metrics else None
+    metrics = MetricsLogger(path=args.metrics) if args.metrics and lead else None
     remaining = max(cfg.train.epochs - start_epoch, 0)
     run_cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=remaining))
 
@@ -420,8 +426,9 @@ def _run_train(argv: List[str]) -> int:
     # checkpoint already flushed.
     with preempt.PreemptionGuard() as guard:
         result = trainer.learn(
-            run_cfg, train_ds, params=params, epoch_offset=start_epoch,
-            epoch_callback=on_epoch, ring=ring, device=device,
+            run_cfg, train_ds, params=params, verbose=lead,
+            epoch_offset=start_epoch, epoch_callback=on_epoch, ring=ring,
+            device=device, mesh=mesh,
         )
 
     if result.preempted or guard.preempted:
@@ -429,7 +436,10 @@ def _run_train(argv: List[str]) -> int:
             metrics.record(event="preempted",
                            epoch=start_epoch + len(result.epoch_errors))
             metrics.close()
-        print("preempted: checkpoint flushed; continue with --resume")
+        if lead:
+            print("preempted: checkpoint flushed; continue with --resume")
+        return 0
+    if not lead:
         return 0
 
     rate = trainer.test(result.params, test_ds)
@@ -443,6 +453,34 @@ def _run_train(argv: List[str]) -> int:
             steps=result.steps,
         )
         metrics.close()
+    return 0
+
+
+def _run_train(argv: List[str]) -> int:
+    """≙ the JAX CLI's trainer: the lenet_ref branch (load → learn with a
+    checkpoint per epoch, resume, preemption → test), on one device or
+    over a ``--mesh-data``/``--mesh-model`` mesh of ranks
+    (parallel/distributed.py starts them), or the zoo branch."""
+    args = build_parser().parse_args(argv)
+    if args.model != "lenet_ref":
+        return _run_zoo(args)
+    _refuse_later_slices(args)
+    cfg = config_from_args(args)
+    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
+    if args.mesh_data is None and mesh_cfg.model == 1:
+        if cfg.comm is not None:
+            raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
+                             "collectives over a mesh: add --mesh-data N")
+        return _lenet_job(None, args, cfg)
+
+    from parallel_cnn_tpu_torch.parallel import distributed
+    from parallel_cnn_tpu_torch.train import trainer
+
+    n_data, n_model = distributed.resolve_shape(mesh_cfg, args.device)
+    trainer.check_mesh(cfg.train, n_data, n_model)
+    print(f"mesh: {{'data': {n_data}, 'model': {n_model}}}", flush=True)
+    distributed.run(_lenet_job, n_data * n_model, device=args.device,
+                    args=(args, cfg), shape=(n_data, n_model))
     return 0
 
 

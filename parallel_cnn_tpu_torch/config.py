@@ -12,10 +12,11 @@ is ``conv_backend``, which has one value in the port
 
 For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
 far, and the model and conv-backend names it takes; its other knobs are
-``zoo.train``'s keyword arguments, as in the JAX package. For its
-data-parallel path: ``MeshConfig`` (the data axis; the model axis is not
-ported) and ``CommConfig`` (psum or the bucketed ring, JAX's fields,
-defaults and ``PCNN_COMM_*`` layering).
+``zoo.train``'s keyword arguments, as in the JAX package. For the mesh
+paths: ``MeshConfig`` (the (data, model) mesh; the zoo trainer takes the
+data axis only) and ``CommConfig`` (psum or the bucketed ring, JAX's
+fields, defaults and ``PCNN_COMM_*`` layering); ``Config.comm`` is the
+LeNet-ref mesh step's.
 
 Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
 kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
@@ -140,12 +141,16 @@ class Config:
     """The trainer's whole configuration. ``fused`` selects the bucketed
     update (ops/sgd_update.py) on the reference grads, as a non-None
     ``FusedStepConfig`` does in JAX; with ``ops="cuda"`` the fused kernel's
-    step keeps its own update, as JAX's Pallas step does."""
+    step keeps its own update, as JAX's Pallas step does. On a mesh the
+    step never reads ``fused`` (JAX's mesh steps apply their own update)
+    and ``comm`` (a ``CommConfig``; None is one psum) picks the gradient
+    all-reduce over the data axis."""
 
     data: DataConfig = DataConfig()
     train: TrainConfig = TrainConfig()
     resilience: ResilienceConfig = ResilienceConfig()
     fused: bool = False
+    comm: Optional["CommConfig"] = None
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -157,14 +162,19 @@ ZOO_MODELS = ("cifar_cnn", "resnet18", "resnet34")
 CONV_BACKENDS = ("torch", "cuda")
 
 
+class MeshLayoutError(ValueError):
+    """The mesh cannot run this trainer configuration (an axis that does not
+    divide the batch or the filters, or a path that needs one axis)."""
+
+
 @dataclasses.dataclass(frozen=True)
 class MeshConfig:
-    """The data-parallel layout (JAX's ``MeshConfig``, config.py:141): one
-    process per rank of the ``data`` axis (parallel/distributed.py).
+    """The (data, model) layout (JAX's ``MeshConfig``, config.py:141): one
+    process per rank, data × model ranks (parallel/distributed.py).
 
-    ``data=None`` means every visible card (on the CPU: one rank). The
-    ``model`` axis (intra-op filter/channel sharding) is not ported: above
-    1 it raises NotPortedError."""
+    ``data=None`` means every visible card the model axis leaves (on the
+    CPU: one data rank). The ``model`` axis splits LeNet-ref's filters
+    (parallel/intra_op.py); the zoo trainer takes the data axis only."""
 
     data: Optional[int] = None
     model: int = 1
@@ -174,12 +184,6 @@ class MeshConfig:
             raise ValueError(f"mesh data axis must be >= 1, got {self.data}")
         if self.model < 1:
             raise ValueError(f"mesh model axis must be >= 1, got {self.model}")
-        if self.model > 1:
-            raise NotPortedError(
-                f"mesh model axis {self.model} is not ported yet (ROADMAP A7: "
-                "the intra-op model-axis split); the port's mesh is "
-                "data-parallel only (--mesh-data N)"
-            )
 
 
 @dataclasses.dataclass(frozen=True)

@@ -470,7 +470,7 @@ def conv_wgrad(x: torch.Tensor, d_pre_c1: torch.Tensor) -> torch.Tensor:
     (b, r, c), features 5i+j, as JAX's transpose(0,2,3,1) of both."""
     n = x.shape[0]
     d = d_pre_c1.permute(0, 2, 3, 1).reshape(n * 576, 6).contiguous()
-    pm = reference._patches(x).transpose(1, 2).reshape(n * 576, 25)  # the im2col
+    pm = reference.patches(x).transpose(1, 2).reshape(n * 576, 25)  # the im2col
     return _accum_matmul(d, pm).reshape(6, 5, 5) / reference.CONV_NORM
 
 

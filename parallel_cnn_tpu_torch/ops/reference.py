@@ -65,8 +65,9 @@ def _batched(x: torch.Tensor) -> Tuple[torch.Tensor, bool]:
     return x, False
 
 
-def _patches(xb: torch.Tensor) -> torch.Tensor:
-    """(B, 25, 576): row p = 5i+j holds x[r+i, c+j] at column 24r+c.
+def patches(xb: torch.Tensor) -> torch.Tensor:
+    """(B, 25, 576): row p = 5i+j holds x[r+i, c+j] at column 24r+c (JAX's
+    ``conv_general_dilated_patches`` of each image, flattened).
 
     Strided views and one copy: ``F.unfold`` on a CUDA tensor launches one
     im2col kernel per image."""
@@ -84,21 +85,35 @@ def _unbatch(t, single: bool):
 # ---------------------------------------------------------------------------
 
 
+def conv_c1_forward(xb: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """fp_c1 on a batch (B, 28, 28): valid 5×5 conv + per-filter bias →
+    (B, c, 24, 24) for the c filters of ``w`` (c, 5, 5), all 6 or a
+    model-axis shard of them (JAX's ``conv_c1_forward``)."""
+    c = w.shape[0]
+    pre = (w.reshape(c, 25) @ patches(xb)).reshape(xb.shape[0], c, 24, 24)
+    return pre + b[:, None, None]
+
+
+def pool_s1_forward(out_c1: torch.Tensor, w: torch.Tensor,
+                    b: torch.Tensor) -> torch.Tensor:
+    """fp_s1 on (B, c, 24, 24): ONE shared 4×4 kernel, stride 4, per
+    feature map, + scalar bias → (B, c, 6, 6); channel-local, so it takes
+    any number of maps (JAX's ``pool_s1_forward``)."""
+    n, c = out_c1.shape[:2]
+    # windows[b, m, x, i, y, j] = out_c1[b, m, 4x+i, 4y+j]
+    windows = out_c1.reshape(n, c, 6, 4, 6, 4)
+    return torch.einsum("bmxiyj,ij->bmxy", windows, w) + b
+
+
 def forward(params: Params, x: torch.Tensor) -> Activations:
     """≙ forward_pass (Sequential/Main.cpp:59-105): conv→σ→pool→σ→FC→σ,
     returning every preact/output buffer for the hand-written backward."""
     xb, single = _batched(x)
     b = xb.shape[0]
-    w_c1, b_c1 = params["c1"]["w"], params["c1"]["b"]
-    # fp_c1: valid 5×5 conv, 6 filters, + per-filter bias.
-    pre_c1 = (w_c1.reshape(6, 25) @ _patches(xb)).reshape(b, 6, 24, 24)
-    pre_c1 = pre_c1 + b_c1[:, None, None]
+    pre_c1 = conv_c1_forward(xb, params["c1"]["w"], params["c1"]["b"])
     out_c1 = sigmoid(pre_c1)
-    # fp_s1: ONE shared 4×4 kernel, stride 4, per feature map, + scalar bias.
-    # windows[b, m, x, i, y, j] = out_c1[b, m, 4x+i, 4y+j]
-    windows = out_c1.reshape(b, 6, 6, 4, 6, 4)
-    pre_s1 = torch.einsum("bmxiyj,ij->bmxy", windows, params["s1"]["w"])
-    pre_s1 = pre_s1 + params["s1"]["b"]
+    pre_s1 = pool_s1_forward(out_c1, params["s1"]["w"], params["s1"]["b"])
     out_s1 = sigmoid(pre_s1)
     # fp_preact_f + fp_bias_f: dense 216→10 over the C-order flatten.
     pre_f = out_s1.reshape(b, 216) @ params["f"]["w"].T + params["f"]["b"]
@@ -155,7 +170,7 @@ def backward(params: Params, acts: Activations,
     d_pre_c1 = d_out_c1 * sigmoid_grad_from_preact(acts.pre_c1)
     # bp_weight_c1: /576-normalized correlation with the input patches.
     g_w_c1 = torch.einsum(
-        "bmp,bkp->bmk", d_pre_c1.reshape(b, 6, 576), _patches(acts.x)
+        "bmp,bkp->bmk", d_pre_c1.reshape(b, 6, 576), patches(acts.x)
     ).reshape(b, 6, 5, 5) / CONV_NORM
     # bp_bias_c1: bias += dt * sum/576.
     g_b_c1 = torch.sum(d_pre_c1, dim=(2, 3)) / CONV_NORM

@@ -1,4 +1,4 @@
-"""Bucketed gradient collectives over the data axis: the port of
+"""Bucketed gradient collectives over a mesh axis: the port of
 ``parallel_cnn_tpu/parallel/collectives.py`` without its hierarchical
 (two-level) ring.
 
@@ -12,10 +12,12 @@ consumer is the fused bucket update (ops/sgd_update.py): one kernel launch
 per bucket.
 
 Ring collectives. ``ring_reduce_scatter``, ``ring_all_gather`` and
-``ring_all_reduce`` run JAX's ring hop for hop: JAX's ``lax.ppermute`` to
-the next device is here one ``dist.batch_isend_irecv`` that sends to rank
-+1 and receives from rank −1, over the default process group of
-parallel/distributed.py (NCCL on the card, gloo on the CPU). Sums
+``ring_all_reduce`` run JAX's ring hop for hop over one mesh axis (a
+``DataMesh``, or an ``AxisView`` of a ``Mesh2D``; parallel/mesh.py): JAX's
+``lax.ppermute`` to the next device is here one ``dist.batch_isend_irecv``
+that sends to the axis's next rank and receives from its previous one, as
+global ranks, in the axis's group (NCCL on the card, gloo on the CPU). An
+axis of one rank sends nothing: a sum over one rank is its value. Sums
 accumulate in f32; only hop payloads are cast to the wire dtype. Every
 hop's requests are waited on before its result is read: on NCCL the wait
 orders PyTorch's current stream behind NCCL's, so a kernel launched next
@@ -28,13 +30,17 @@ from __future__ import annotations
 
 import dataclasses
 import sys
-from typing import Any, List, Optional, Sequence, Tuple
+from typing import Any, List, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
+from parallel_cnn_tpu_torch.parallel.mesh import AxisView, DataMesh
 from parallel_cnn_tpu_torch.utils.tree import TreeDef, tree_flatten, tree_unflatten
+
+#: What the collectives run over: the zoo's one-axis mesh, or one axis of
+#: the (data, model) mesh.
+Axis = Union[DataMesh, AxisView]
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024  # PCNN_COMM_BUCKET_BYTES default
 
@@ -200,19 +206,20 @@ def _acc(x_dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if x_dtype.is_floating_point else x_dtype
 
 
-def _ppermute(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """JAX's ``ppermute`` with perm ``i → i+1``: send ``t`` to the next
-    rank, return what the previous rank sent."""
-    n, r = mesh.world, mesh.rank
+def _ppermute(t: torch.Tensor, axis: Axis) -> torch.Tensor:
+    """JAX's ``ppermute`` with perm ``i → i+1`` over ``axis``: send ``t`` to
+    the axis's next rank, return what its previous rank sent."""
+    n, i = axis.size, axis.index
     out = torch.empty_like(t)
-    ops = [dist.P2POp(dist.isend, t.contiguous(), (r + 1) % n),
-           dist.P2POp(dist.irecv, out, (r - 1) % n)]
+    ops = [dist.P2POp(dist.isend, t.contiguous(), axis.ranks[(i + 1) % n],
+                      group=axis.group),
+           dist.P2POp(dist.irecv, out, axis.ranks[(i - 1) % n], group=axis.group)]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
 
 
-def ring_reduce_scatter(x: torch.Tensor, mesh: DataMesh,
+def ring_reduce_scatter(x: torch.Tensor, mesh: Axis,
                         wire_dtype=None) -> torch.Tensor:
     """Ring reduce-scatter of a 1-D buffer: rank ``r`` returns the fully
     summed chunk ``r`` of ``x.view(n, -1)``.
@@ -220,7 +227,7 @@ def ring_reduce_scatter(x: torch.Tensor, mesh: DataMesh,
     n−1 hops, each carrying 1/n of the payload: before hop s a rank holds
     the partial sum of chunk (r−s−1) mod n, sends it on, and adds its own
     copy of chunk (r−s−2) mod n to what arrives."""
-    n, idx = mesh.world, mesh.rank
+    n, idx = mesh.size, mesh.index
     if x.dim() != 1:
         raise ValueError(f"expected a 1-D bucket, got shape {tuple(x.shape)}")
     if x.shape[0] % n:
@@ -240,11 +247,12 @@ def ring_reduce_scatter(x: torch.Tensor, mesh: DataMesh,
     return send.to(x.dtype)
 
 
-def ring_all_gather(shard: torch.Tensor, mesh: DataMesh,
+def ring_all_gather(shard: torch.Tensor, mesh: Axis,
                     wire_dtype=None) -> torch.Tensor:
-    """Ring all-gather: rank ``r`` contributes chunk ``r``; every rank
-    returns the concatenation of all chunks (n−1 forwarding hops)."""
-    n, idx = mesh.world, mesh.rank
+    """Ring all-gather: the rank at axis index ``r`` contributes chunk
+    ``r``; every rank returns the concatenation of all chunks along dim 0
+    (n−1 forwarding hops)."""
+    n, idx = mesh.size, mesh.index
     if n == 1:
         return shard
     wire = _wire(shard.dtype, wire_dtype)
@@ -260,7 +268,7 @@ def ring_all_gather(shard: torch.Tensor, mesh: DataMesh,
     return out.view((n * shard.shape[0],) + tuple(shard.shape[1:]))
 
 
-def ring_all_reduce(x: torch.Tensor, mesh: DataMesh,
+def ring_all_reduce(x: torch.Tensor, mesh: Axis,
                     wire_dtype=None) -> torch.Tensor:
     """Reduce-scatter, then all-gather: 2(n−1)/n of the payload per rank
     on the wire."""
@@ -268,17 +276,19 @@ def ring_all_reduce(x: torch.Tensor, mesh: DataMesh,
     return ring_all_gather(shard, mesh, wire_dtype)
 
 
-def all_reduce_sum(t: torch.Tensor, mesh: DataMesh) -> torch.Tensor:
-    """JAX's ``psum`` of one buffer: the sum over ranks, in place."""
-    dist.all_reduce(t, op=dist.ReduceOp.SUM)
+def all_reduce_sum(t: torch.Tensor, mesh: Axis) -> torch.Tensor:
+    """JAX's ``psum`` of one buffer over an axis: the sum over its ranks,
+    in place (over one rank, ``t`` as it is)."""
+    if mesh.size > 1:
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=mesh.group)
     return t
 
 
-def tree_mean(tree: Any, mesh: DataMesh) -> Any:
+def tree_mean(tree: Any, mesh: Axis) -> Any:
     """JAX's ``pmean`` of a tree: the leaves packed into one buffer per
-    dtype, summed over ranks, divided by the world size."""
+    dtype, summed over ranks, divided by the axis size."""
     plan = plan_buckets(tree, sys.maxsize)
-    buckets = [all_reduce_sum(b, mesh) / mesh.world
+    buckets = [all_reduce_sum(b, mesh) / mesh.size
                for b in flatten_buckets(tree, plan)]
     return unflatten_buckets(buckets, plan)
 
@@ -296,13 +306,13 @@ def wire_dtype_arg(comm) -> Optional[str]:
     return comm.wire_dtype
 
 
-def tree_all_reduce(tree: Any, mesh: DataMesh, comm=None) -> Any:
-    """SUM-allreduce a tree over the data axis, per the comm config.
+def tree_all_reduce(tree: Any, mesh: Axis, comm=None) -> Any:
+    """SUM-allreduce a tree over an axis, per the comm config.
 
     ``comm=None`` or impl "psum": the leaves packed into one buffer per
     dtype and one ``dist.all_reduce`` each (JAX's monolithic ``lax.psum``).
     impl "ring": the tree bucketed (``comm.bucket_bytes``, padded to the
-    world size) and each bucket through ``ring_all_reduce``, optionally
+    axis size) and each bucket through ``ring_all_reduce``, optionally
     bf16 on the wire."""
     if comm is None or comm.impl == "psum":
         plan = plan_buckets(tree, sys.maxsize)
@@ -311,19 +321,19 @@ def tree_all_reduce(tree: Any, mesh: DataMesh, comm=None) -> Any:
     if comm.impl != "ring":
         raise ValueError(f"unknown comm impl {comm.impl!r}")
     wire = wire_dtype_arg(comm)
-    plan = plan_buckets(tree, comm.bucket_bytes, shards=mesh.world)
+    plan = plan_buckets(tree, comm.bucket_bytes, shards=mesh.size)
     buckets = [ring_all_reduce(b, mesh, wire) for b in flatten_buckets(tree, plan)]
     return unflatten_buckets(buckets, plan)
 
 
-def reduce_scatter_buckets(buckets: Sequence[torch.Tensor], mesh: DataMesh,
+def reduce_scatter_buckets(buckets: Sequence[torch.Tensor], mesh: Axis,
                            wire_dtype=None) -> List[torch.Tensor]:
     """Reduce-scatter each bucket: this rank's shard of each. The buckets
-    must be planned with ``shards=mesh.world``."""
+    must be planned with ``shards=mesh.size``."""
     return [ring_reduce_scatter(b, mesh, wire_dtype) for b in buckets]
 
 
-def all_gather_buckets(shards: Sequence[torch.Tensor], mesh: DataMesh,
+def all_gather_buckets(shards: Sequence[torch.Tensor], mesh: Axis,
                        wire_dtype=None) -> List[torch.Tensor]:
     """Inverse of ``reduce_scatter_buckets``: the full buckets again."""
     return [ring_all_gather(s, mesh, wire_dtype) for s in shards]

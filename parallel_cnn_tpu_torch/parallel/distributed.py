@@ -1,10 +1,12 @@
-"""Start a data-parallel world: one process per rank, each with a
+"""Start a mesh of ranks: one process per rank, each with a
 ``torch.distributed`` process group (the port's counterpart of
 ``parallel_cnn_tpu/parallel/distributed.py``, JAX's multi-process
 bring-up, and of the device mesh JAX builds inside one process).
 
 ``run(fn, world, device=...)`` calls ``fn(mesh, *args)`` on every rank and
-returns each rank's result, rank 0's first. The rendezvous is explicit: a
+returns each rank's result, rank 0's first. ``mesh`` is the rank's
+``DataMesh`` or, with ``shape=(data, model)``, its ``Mesh2D`` (the axis
+groups made on every rank). The rendezvous is explicit: a
 ``file://`` store in a fresh temporary directory, with the world size and
 each rank given by the launcher; nothing is read from the environment.
 The backend is NCCL on cuda, rank r on ``cuda:r``, and gloo on the CPU.
@@ -14,7 +16,8 @@ launches) stays readable there. A larger world is spawned with
 ``torch.multiprocessing``; a rank that raises fails the whole run (the
 others are stopped) and ``run`` raises, and ``timeout`` bounds the wait.
 More ranks than cards is an error (``MeshSizeError``): NCCL refuses two
-ranks on one card, and the port never falls back to the CPU.
+ranks on one card, and the port never falls back to the CPU. A mesh of
+data × model ranks takes data × model cards.
 """
 
 from __future__ import annotations
@@ -25,13 +28,13 @@ import pickle
 import tempfile
 import time
 from pathlib import Path
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
 
 from parallel_cnn_tpu_torch.config import MeshConfig
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, make_mesh_2d
 from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 #: How long a collective may wait for a peer before the group gives up.
@@ -39,33 +42,42 @@ COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
 
 class MeshSizeError(ValueError):
-    """The data axis asks for more ranks than there are cards."""
+    """The mesh asks for more ranks than there are cards."""
 
 
 def backend_for(device_type: str) -> str:
     return "nccl" if device_type == "cuda" else "gloo"
 
 
-def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
-    """The data axis size for ``mesh`` on ``device``: ``data=None`` means
-    every visible card (one rank on the CPU). Raises MeshSizeError above
-    the card count."""
+def resolve_shape(mesh: MeshConfig, device: DeviceLike = None) -> Tuple[int, int]:
+    """(data, model) for ``mesh`` on ``device``: ``data=None`` means every
+    visible card the model axis leaves (on the CPU: one data rank). Raises
+    MeshSizeError above the card count."""
     dev = resolve_device(device)
+    model = mesh.model
     if dev.type == "cpu":
-        return mesh.data or 1
+        return mesh.data or 1, model
     cards = torch.cuda.device_count()
-    world = mesh.data or cards
+    data = mesh.data or max(cards // model, 1)
+    world = data * model
     if world > cards:
         raise MeshSizeError(
-            f"--mesh-data {world} needs {world} cards but {cards} "
-            f"{'is' if cards == 1 else 'are'} visible: NCCL takes one rank "
-            "per card (no oversubscription, no CPU fallback)"
+            f"--mesh-data {data} --mesh-model {model} needs {world} cards but "
+            f"{cards} {'is' if cards == 1 else 'are'} visible: NCCL takes one "
+            "rank per card (no oversubscription, no CPU fallback)"
         )
-    return world
+    return data, model
 
 
-def _init_rank(rank: int, world: int, init_method: str,
-               device_type: str) -> DataMesh:
+def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
+    """The number of ranks for ``mesh`` on ``device``: data × model (see
+    ``resolve_shape``)."""
+    data, model = resolve_shape(mesh, device)
+    return data * model
+
+
+def _init_rank(rank: int, world: int, init_method: str, device_type: str,
+               shape: Optional[Tuple[int, int]]):
     if device_type == "cuda":
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -76,12 +88,15 @@ def _init_rank(rank: int, world: int, init_method: str,
     dist.init_process_group(backend_for(device_type), init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=COLLECTIVE_TIMEOUT)
+    if shape is not None:
+        return make_mesh_2d(rank, world, device, *shape)
     return DataMesh(world=world, rank=rank, device=device)
 
 
 def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
-              device_type: str, args: Sequence[Any]) -> Any:
-    mesh = _init_rank(rank, world, init_method, device_type)
+              device_type: str, args: Sequence[Any],
+              shape: Optional[Tuple[int, int]]) -> Any:
+    mesh = _init_rank(rank, world, init_method, device_type, shape)
     try:
         return fn(mesh, *args)
     finally:
@@ -89,8 +104,9 @@ def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 
 def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
-                  device_type: str, args: Sequence[Any], out_dir: str) -> None:
-    result = _run_rank(rank, fn, world, init_method, device_type, args)
+                  device_type: str, args: Sequence[Any], out_dir: str,
+                  shape: Optional[Tuple[int, int]]) -> None:
+    result = _run_rank(rank, fn, world, init_method, device_type, args, shape)
     tmp = Path(out_dir) / f"result_{rank}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(result, f)
@@ -98,13 +114,18 @@ def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 
 def run(fn: Callable, world: int, *, device: DeviceLike = None,
-        args: Sequence[Any] = (), timeout: Optional[float] = None) -> List[Any]:
+        args: Sequence[Any] = (), timeout: Optional[float] = None,
+        shape: Optional[Tuple[int, int]] = None) -> List[Any]:
     """``fn(mesh, *args)`` on each of ``world`` ranks; their results in rank
-    order. ``fn`` and ``args`` must pickle (a module-level function) when
-    ``world > 1``. Raises what a rank raised, or TimeoutError after
-    ``timeout`` seconds (the ranks are stopped either way)."""
+    order. ``shape=(data, model)`` (data × model == world) gives each rank
+    its ``Mesh2D``, else a ``DataMesh``. ``fn`` and ``args`` must pickle (a
+    module-level function) when ``world > 1``. Raises what a rank raised,
+    or TimeoutError after ``timeout`` seconds (the ranks are stopped either
+    way)."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
+    if shape is not None and shape[0] * shape[1] != world:
+        raise ValueError(f"a {shape[0]}x{shape[1]} mesh is not a world of {world}")
     dev = resolve_device(device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise MeshSizeError(
@@ -113,16 +134,17 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
     with tempfile.TemporaryDirectory(prefix="pcnn_dp_") as tmp:
         init_method = Path(tmp, "rendezvous").as_uri()
         if world == 1:
-            return [_run_rank(0, fn, 1, init_method, dev.type, args)]
+            return [_run_rank(0, fn, 1, init_method, dev.type, args, shape)]
         ctx = torch.multiprocessing.start_processes(
-            _spawned_rank, args=(fn, world, init_method, dev.type, tuple(args), tmp),
+            _spawned_rank, args=(fn, world, init_method, dev.type, tuple(args), tmp,
+                                 shape),
             nprocs=world, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         try:
             while not ctx.join(timeout=1.0):
                 if deadline is not None and time.monotonic() > deadline:
                     raise TimeoutError(
-                        f"data-parallel world of {world} did not finish in "
+                        f"a world of {world} ranks did not finish in "
                         f"{timeout:.0f} s")
         finally:
             for p in ctx.processes:

@@ -1,20 +1,50 @@
-"""The port's data-parallel "mesh" (the counterpart of
-``parallel_cnn_tpu/parallel/mesh.py`` for its ``data`` axis).
+"""The port's device mesh (the counterpart of
+``parallel_cnn_tpu/parallel/mesh.py``).
 
 JAX builds one ``Mesh`` of devices inside one process and runs a step as a
 ``shard_map`` over it. The port runs one process per rank instead, each
 with a ``torch.distributed`` process group (parallel/distributed.py
-starts them), and a ``DataMesh`` is what one rank knows of the whole: the
-world size, its rank and its device. ``shard_rows`` takes the rank's
-contiguous block of a global batch, which is what JAX's ``P(DATA_AXIS)``
-gives device ``r``: rows ``[r·B/n, (r+1)·B/n)``.
+starts them), and a mesh object is what one rank knows of the whole.
+
+- ``DataMesh``: the one-axis (``data``) mesh of the zoo trainer: the world
+  size, this rank and its device. Its collectives run over the default
+  process group, which holds every rank.
+- ``Mesh2D``: JAX's ``(data, model)`` mesh. JAX lays the devices out as
+  ``reshape(data, model)`` (``make_mesh``), so global rank r sits at
+  (d, m) = (r // M, r % M). It holds one ``AxisView`` per axis: the axis
+  size, this rank's index on it, the axis's global ranks in axis order and
+  the ``torch.distributed`` group its collectives run over.
+
+A ``DataMesh`` is an axis view of its own (``size``, ``index``, ``ranks``,
+``group``): the collectives of parallel/collectives.py take either. An
+axis of one rank needs no group (a sum over one rank is that rank's
+value); an axis that spans the world uses the default group.
+
+``shard_batch`` takes a rank's rows of a global batch, which is what JAX's
+``P(DATA_AXIS)`` gives the device at (d, m): rows ``[d·B/n, (d+1)·B/n)``,
+the same rows for every model rank of a data row.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Any, Tuple
 
 import torch
+import torch.distributed as dist
+
+from parallel_cnn_tpu_torch.utils.tree import tree_map
+
+def _rows(x: torch.Tensor, index: int, size: int) -> torch.Tensor:
+    n = x.shape[0]
+    if n % size:
+        raise ValueError(
+            f"global batch {n} does not divide over {size} ranks "
+            "(no silent sample dropping)"
+        )
+    per = n // size
+    return x[index * per:(index + 1) * per]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,13 +60,107 @@ class DataMesh:
         if not 0 <= self.rank < self.world:
             raise ValueError(f"rank {self.rank} outside a world of {self.world}")
 
+    # The axis-view interface (AxisView's fields): the one-axis case.
+    @property
+    def size(self) -> int:
+        return self.world
+
+    @property
+    def index(self) -> int:
+        return self.rank
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return tuple(range(self.world))
+
+    @property
+    def group(self):
+        return None
+
     def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous block of rows of a global batch."""
-        n = x.shape[0]
-        if n % self.world:
-            raise ValueError(
-                f"global batch {n} does not divide over {self.world} ranks "
-                "(no silent sample dropping)"
-            )
-        per = n // self.world
-        return x[self.rank * per:(self.rank + 1) * per]
+        return _rows(x, self.rank, self.world)
+
+
+@dataclasses.dataclass(frozen=True)
+class AxisView:
+    """One mesh axis as one rank sees it. ``group`` None means the default
+    process group (an axis over the whole world) or, for an axis of one
+    rank, no group at all."""
+
+    size: int
+    index: int
+    ranks: Tuple[int, ...]
+    group: Any = None
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """One rank's view of the (data, model) mesh."""
+
+    world: int
+    rank: int
+    device: torch.device
+    data: AxisView
+    model: AxisView
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch (its data row's block)."""
+        return _rows(x, self.data.index, self.data.size)
+
+
+def _axis_groups(axes, world: int):
+    """One group per axis line, made on every rank in the same order (the
+    data lines for m = 0..M-1, then the model lines for d = 0..D-1), as
+    ``dist.new_group`` requires. Lines of one rank and lines over the whole
+    world make no group."""
+    groups = {}
+    for lines in axes:
+        for line in lines:
+            if 1 < len(line) < world:
+                groups[line] = dist.new_group(list(line))
+    return groups
+
+
+def make_mesh_2d(rank: int, world: int, device: torch.device, n_data: int,
+                 n_model: int) -> Mesh2D:
+    """This rank's view of a ``n_data × n_model`` mesh over ``world`` ranks,
+    called by every rank after ``init_process_group`` when an axis has more
+    than one rank and fewer than the world (a 1×1 mesh needs no process
+    group: its collectives make no call)."""
+    if n_data < 1 or n_model < 1 or n_data * n_model != world:
+        raise ValueError(
+            f"a {n_data}x{n_model} mesh needs {n_data * n_model} ranks, "
+            f"the world has {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    d, m = divmod(rank, n_model)
+    data_lines = [tuple(dd * n_model + mm for dd in range(n_data))
+                  for mm in range(n_model)]
+    model_lines = [tuple(dd * n_model + mm for mm in range(n_model))
+                   for dd in range(n_data)]
+    groups = _axis_groups((data_lines, model_lines), world)
+    return Mesh2D(
+        world=world, rank=rank, device=device,
+        data=AxisView(n_data, d, data_lines[m], groups.get(data_lines[m])),
+        model=AxisView(n_model, m, model_lines[d], groups.get(model_lines[d])),
+    )
+
+
+def shard_batch(mesh, batch: Any) -> Any:
+    """This rank's rows of each tensor of a (tree of) global batch(es)
+    (JAX's ``shard_batch``, ``P(DATA_AXIS)``), on the rank's device."""
+    return tree_map(lambda x: mesh.shard_rows(x).to(mesh.device), batch)
+
+
+def replicate(mesh, tree: Any) -> Any:
+    """A copy of ``tree`` on the rank's device (JAX's ``replicate``: every
+    rank holds the whole tree). Always a copy, so the caller's tensors are
+    never the step's."""
+    return tree_map(lambda x: x.detach().to(mesh.device).clone(), tree)
+
+
+def pad_to_multiple(n: int, k: int) -> int:
+    """Smallest multiple of k ≥ n (batch padding for even data-axis shards)."""
+    return k * math.ceil(n / k)
+

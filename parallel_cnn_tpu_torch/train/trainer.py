@@ -6,6 +6,14 @@ Reproduces the reference's observable behaviour — "Learning", per-epoch
 the final `Error Rate: %.2f%%` — with the epoch timed up to a readback of
 its error from the device. The train split is placed on the device once
 and each batch is gathered there by index.
+
+Mesh routing (JAX's ``_maybe_mesh``): ``learn`` given a rank's ``Mesh2D``
+(parallel/mesh.py) trains minibatch SGD over it — data-parallel
+(parallel/data_parallel.py) when the model axis is 1, the hybrid
+DP × model-parallel step (parallel/intra_op.py) otherwise. Every rank
+draws the same fixed-shape (drop-tail) batch order from the epoch seed and
+takes its rows; every verdict that stops or rolls back a run is agreed
+over the world, so the ranks never part at a collective.
 """
 
 from __future__ import annotations
@@ -16,13 +24,15 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from parallel_cnn_tpu_torch.config import Config
+from parallel_cnn_tpu_torch.config import Config, MeshLayoutError, TrainConfig
 from parallel_cnn_tpu_torch.data import pipeline
 from parallel_cnn_tpu_torch.models import lenet_ref
+from parallel_cnn_tpu_torch.parallel import data_parallel, intra_op
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import RollbackController, tree_copy
-from parallel_cnn_tpu_torch.resilience.sentinel import DivergenceError, Sentinel
+from parallel_cnn_tpu_torch.resilience.sentinel import DivergenceError, Sentinel, Verdict
 from parallel_cnn_tpu_torch.train import step as step_lib
 from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 from parallel_cnn_tpu_torch.utils.timing import Stopwatch
@@ -52,6 +62,44 @@ def init_params(seed: int, device: torch.device) -> step_lib.Params:
     return tree_map(lambda t: t.to(device), params)
 
 
+def check_mesh(tc: TrainConfig, n_data: int, n_model: int) -> None:
+    """JAX's ``_maybe_mesh`` checks for a (n_data, n_model) mesh:
+    MeshLayoutError unless the mesh can run this trainer config."""
+    if tc.batch_size == 1:
+        raise MeshLayoutError(
+            "mesh training is the minibatch throughput mode; batch_size=1 "
+            "strict parity is inherently sequential and single-device")
+    if tc.ops == "cuda" and n_model > 1:
+        raise MeshLayoutError(
+            "ops='cuda' composes with the data axis only (the fused kernel is "
+            "batch-local); use --mesh-model 1 or ops='reference'")
+    if 6 % n_model:
+        raise MeshLayoutError(
+            f"model axis {n_model} must divide the 6 conv filters (legal: 1, 2, "
+            "3, 6 — parallel/intra_op.py PARAM_SPECS)")
+    if tc.batch_size % n_data:
+        raise MeshLayoutError(
+            f"batch_size {tc.batch_size} must divide evenly over the data axis "
+            f"({n_data})")
+
+
+def _agree(flag: bool, mesh) -> bool:
+    """True on every rank when it is true on any (one verdict for all)."""
+    if mesh is None or mesh.world == 1:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def _whole(params, mesh):
+    """The whole params tree (a collective over the model axis when it is
+    split)."""
+    if mesh is not None and mesh.model.size > 1:
+        return intra_op.gather_params(mesh, params)
+    return params
+
+
 def learn(
     cfg: Config,
     train: pipeline.Dataset,
@@ -61,6 +109,7 @@ def learn(
     epoch_callback=None,
     ring=None,
     device: DeviceLike = None,
+    mesh=None,
 ) -> TrainResult:
     """≙ learn() (Sequential/Main.cpp:146-184): epoch loop with the mean
     err-norm metric and the threshold stop.
@@ -74,10 +123,18 @@ def learn(
     pass the health sentinel (cfg.resilience); a preemption signal stops
     the loop at the next epoch boundary, after the callback.
     ``device=None`` means the GPU; only ``"cpu"`` runs on the host.
+
+    ``mesh`` (this rank's ``Mesh2D``; every rank calls ``learn`` with the
+    same arguments) trains over the mesh on its device: ``params`` and the
+    callback's and result's params are whole trees; a split model axis
+    holds a shard of them between epochs. ``cfg.comm`` picks the grads'
+    all-reduce over the data axis; ``cfg.fused`` is not read, as in JAX.
+    Each rank rolls back to its own in-memory last-good state (``ring`` is
+    not read there).
     """
     tc = cfg.train
     res = cfg.resilience
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     if tc.batch_size > 1 and tc.prefetch == "native":
         raise pipeline.NativeUnavailableError(
             f"prefetch='native': {pipeline.NATIVE_NOT_PORTED}; "
@@ -99,6 +156,24 @@ def learn(
 
     # dt is a local because auto-rollback may scale it (res.lr_backoff).
     dt = tc.dt
+    build_mesh_step = mesh_step = None
+    if mesh is not None:
+        n_data, n_model = mesh.data.size, mesh.model.size
+        check_mesh(tc, n_data, n_model)
+        if steps_per_epoch == 0:
+            raise ValueError(
+                f"batch_size {tc.batch_size} exceeds dataset size {len(train)}")
+        if n_model > 1:
+            params = intra_op.shard_params(mesh, params)
+
+            def build_mesh_step(dt_):
+                return intra_op.make_2d_step(mesh, dt_, tc.batch_size, comm=cfg.comm)
+        else:
+            def build_mesh_step(dt_):
+                return data_parallel.make_dp_step(mesh, dt_, tc.batch_size,
+                                                  ops_path=tc.ops, comm=cfg.comm)
+        mesh_step = build_mesh_step(dt)
+        ring = None
     sentinel = Sentinel() if res.policy != "off" else None
     controller = None
     if res.policy == "rollback":
@@ -131,13 +206,19 @@ def learn(
                 # prefetch "auto" and a full batch to take: drop-tail batches
                 # in the native ring's order. Otherwise ("off", or fewer
                 # samples than one batch) keep-tail NumPy order, the tail at
-                # its own size, the error weighted by batch size.
-                fixed = tc.prefetch == "auto" and steps_per_epoch > 0
+                # its own size, the error weighted by batch size. A mesh
+                # always takes fixed-shape (drop-tail) batches, each rank
+                # its rows of every one.
+                fixed = steps_per_epoch > 0 and (
+                    tc.prefetch == "auto" or mesh is not None)
                 order = pipeline.epoch_order(
                     len(train), tc.batch_size, shuffle=tc.shuffle,
-                    seed=epoch_seed, native_semantics=fixed,
-                    drop_remainder=False,
+                    seed=epoch_seed,
+                    native_semantics=fixed and tc.prefetch == "auto",
+                    drop_remainder=fixed,
                 )
+                if mesh is not None:
+                    order = [mesh.shard_rows(idx) for idx in order]
                 # One copy of the epoch's indices to the device: a copy
                 # from pageable host memory per step would wait for the
                 # stream, so the host could never run ahead of the card.
@@ -147,7 +228,10 @@ def learn(
                 for idx in order:
                     j = flat[start:start + len(idx)]
                     start += len(idx)
-                    params, e = batched_step(params, images[j], labels[j], dt)
+                    if mesh_step is not None:
+                        params, e = mesh_step(params, images[j], labels[j])
+                    else:
+                        params, e = batched_step(params, images[j], labels[j], dt)
                     errs.append(e)
                     weights.append(len(idx))
                 result.steps += len(order)
@@ -161,6 +245,9 @@ def learn(
 
         if sentinel is not None:
             verdict = sentinel.check(loss=err, params=params)
+            if _agree(not verdict.healthy, mesh) and verdict.healthy:
+                # A shard elsewhere diverged: this rank follows its verdict.
+                verdict = Verdict(False, "non-finite params on another rank")
             if not verdict.healthy:
                 g_epoch = epoch_offset + epoch + 1
                 if res.policy == "raise":
@@ -180,7 +267,10 @@ def learn(
                     like=params, reason=f"epoch {g_epoch}: {verdict.reason}"
                 )
                 result.rollbacks = controller.rollbacks
-                dt = tc.dt * controller.lr_scale
+                new_dt = tc.dt * controller.lr_scale
+                if new_dt != dt and build_mesh_step is not None:
+                    mesh_step = build_mesh_step(new_dt)
+                dt = new_dt
                 continue
             last_good = tree_copy(params)
             if controller is not None:
@@ -188,7 +278,7 @@ def learn(
 
         result.epoch_errors.append(err)
         if epoch_callback is not None:
-            epoch_callback(epoch_offset + epoch + 1, params, err)
+            epoch_callback(epoch_offset + epoch + 1, _whole(params, mesh), err)
         if verbose:
             # ≙ fprintf at Sequential/Main.cpp:174
             print(f"error: {err:e}, time_on_cpu: {sw.total:f}")
@@ -198,7 +288,7 @@ def learn(
                 # ≙ Sequential/Main.cpp:177
                 print("Training complete, error less than threshold\n")
             break
-        if preempt.requested():
+        if _agree(preempt.requested(), mesh):
             # epoch_callback already flushed this epoch's checkpoint.
             result.preempted = True
             if verbose:
@@ -207,7 +297,7 @@ def learn(
             break
         epoch += 1
 
-    result.params = params
+    result.params = _whole(params, mesh)
     result.seconds = sw.total
     if verbose:
         print(f"\n Time - {sw.total:f}")  # ≙ Sequential/Main.cpp:183

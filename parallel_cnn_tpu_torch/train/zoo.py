@@ -360,6 +360,20 @@ def _build_loss_fn(model: nn.Module, fused: Optional[FusedStepConfig]) -> Callab
     return loss_fn
 
 
+def check_mesh_config(mesh) -> None:
+    """The zoo trainer's mesh is its data axis. A model axis for a zoo
+    model is JAX's GSPMD path (filters split over ``model``, BN statistics
+    all-reduced inside the forward), which is not ported: NotPortedError
+    naming ROADMAP A7. ``mesh`` is a ``config.MeshConfig``."""
+    if mesh.model > 1:
+        raise NotPortedError(
+            f"--mesh-model {mesh.model} for a zoo model is JAX's GSPMD path "
+            "(filters split over the model axis, BN statistics all-reduced "
+            "in the forward), which is not ported yet (ROADMAP A7); zoo "
+            "models take --mesh-data N with --comm-impl, lenet_ref takes "
+            "--mesh-model")
+
+
 def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
                     augment_pad: Optional[int] = None,
                     fused: Optional[FusedStepConfig] = None,

@@ -468,6 +468,34 @@ def test_update_on_arrival_launches_the_kernel_once_per_step_on_card(card):
     assert sgd_update.momentum_launches.count == 5
 
 
+def _mesh_train_rank(mesh, ops):
+    ds = pipeline.Dataset(*synthetic.make_dataset(320, seed=3))
+    cfg = Config(train=TrainConfig(batch_size=64, epochs=2, ops=ops, shuffle=True))
+    res = trainer.learn(cfg, ds, verbose=False, mesh=mesh)
+    return res.steps, res.epoch_errors, tree_map(lambda t: t.cpu(), res.params)
+
+
+def test_mesh_trainer_launches_the_fused_kernel_once_per_step_on_card(card):
+    """LeNet-ref over a 1 x 1 mesh on the card: every step one B1 launch,
+    no B2 launch (the mesh step applies its own update), and the same
+    trajectory as the single-device kernel path within the step tolerance."""
+    from parallel_cnn_tpu_torch.parallel import distributed
+
+    lenet_fused.launches.reset()
+    sgd_update.launches.reset()
+    steps, errs, params = distributed.run(_mesh_train_rank, 1, device="cuda",
+                                          shape=(1, 1), args=("cuda",))[0]
+    assert steps == 10 and lenet_fused.launches.count == steps
+    assert sgd_update.launches.count == 0
+    ds = pipeline.Dataset(*synthetic.make_dataset(320, seed=3))
+    single = trainer.learn(Config(train=TrainConfig(batch_size=64, epochs=2, ops="cuda",
+                                                    shuffle=True)),
+                           ds, verbose=False, device="cuda")
+    np.testing.assert_allclose(errs, single.epoch_errors, rtol=1e-5)
+    for a, b in zip(tree_leaves(params), tree_leaves(single.params)):
+        assert float((a - b.cpu()).abs().max()) <= 1e-5
+
+
 def _bucket_lists(dev, sizes, seed):
     """Three lists of seeded normal buckets (p, m, g) of these sizes."""
     gen = torch.Generator(device=dev).manual_seed(seed)

@@ -28,7 +28,7 @@ from parallel_cnn_tpu_torch import cli, convert
 from parallel_cnn_tpu_torch.config import (
     Config,
     DataConfig,
-    NotPortedError,
+    MeshLayoutError,
     ResilienceConfig,
     TrainConfig,
 )
@@ -416,7 +416,8 @@ def test_cli_defaults_to_the_gpu():
     (["--batch-size", "1", "--ops", "cuda"], ValueError),
     (["--batch-size", "16", "--prefetch", "native"], pipeline.NativeUnavailableError),
     (["--ops", "pallas"], SystemExit),
-    (["--mesh-data", "2"], NotPortedError),  # data-parallel LeNet: ROADMAP A7
+    # A mesh trains minibatch SGD; the default batch size 1 is refused.
+    (["--mesh-data", "2"], MeshLayoutError),
     (["--model", "resnet50"], SystemExit),  # vgg16 and resnet50: a later slice
 ], ids=["per-sample-cuda", "native-prefetch", "pallas-name", "mesh-flag", "zoo-model"])
 def test_cli_refuses_what_the_port_does_not_run(argv, err, capsys):
