@@ -256,6 +256,10 @@ DP_LR = 0.1
 DP_MOMENTUM = 0.9
 DP_COMM = CommConfig(impl="ring")
 DP_FUSED = FusedStepConfig(update=True, act_dtype="float32")
+# The GSPMD zoo path on one card (a 1x1 mesh): zoo (a)'s cut through the
+# CLI at --mesh-data 1, and every ResNet-18 conv at the shard shapes of a
+# model axis of these sizes (Cout/M filters a rank).
+GSPMD_MODEL_SIZES = (2, 4)
 # The probe path. The copies and B18 (each op rounded, as its plain twin)
 # must equal their plain twins bit for bit; the products sum up to 128 f32
 # products in another order than the plain twins, relative to the output's
@@ -1779,17 +1783,19 @@ def zoo_phase(card) -> dict:
     return launches
 
 
-def profiled_zoo_epoch(label: str, backend: str) -> None:
+def profiled_zoo_epoch(label: str, backend: str, mesh=None):
     """Where a ResNet-18 training epoch's time goes: one warm epoch of
     ZOO_STEPS steps on the conv ``backend`` (batches gathered on the card,
-    one loss readback) under torch.profiler (CUDA activity only)."""
+    one loss readback) under torch.profiler (CUDA activity only), through
+    the GSPMD step on ``mesh`` when given. Returns (img/s, device ops a
+    step, idle share), or None when the profiler saw no device events."""
     imgs, labels = synthetic.make_image_dataset(ZOO_TRAIN_COUNT, seed=1234)
     xs = torch.from_numpy(imgs).cuda()
     ys = torch.from_numpy(labels).to("cuda", torch.int64)
     model = resnet.resnet18(10, backend=backend,
                             generator=torch.Generator().manual_seed(0)).cuda()
-    state = zoo.init_state(model, zoo.make_optimizer(0.1))
-    step = zoo.make_train_step(model, state.optimizer, fused=ZOO_FUSED)
+    state = zoo.init_state(model, zoo.make_optimizer(0.1), mesh=mesh)
+    step = zoo.make_train_step(model, state.optimizer, fused=ZOO_FUSED, mesh=mesh)
 
     def epoch():
         perm = torch.randperm(ZOO_TRAIN_COUNT, generator=torch.Generator().manual_seed(0))
@@ -1814,7 +1820,7 @@ def profiled_zoo_epoch(label: str, backend: str) -> None:
     if dev_ms == 0:
         print("[smoke] profiled zoo epoch: device time not measured (the "
               "profiler saw no device events)", flush=True)
-        return
+        return None
     print(f"[smoke] profiled zoo epoch ({label}, b{ZOO_BATCH}, {ZOO_STEPS} steps): "
           f"wall {wall_ms:.1f} ms ({ZOO_TRAIN_COUNT / wall_ms * 1e3:.0f} img/s), "
           f"device busy {dev_ms:.1f} ms ({dev_ms / wall_ms:.1%}), idle "
@@ -1831,6 +1837,145 @@ def profiled_zoo_epoch(label: str, backend: str) -> None:
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
+    return ZOO_TRAIN_COUNT / wall_ms * 1e3, n_ops / ZOO_STEPS, 1 - dev_ms / wall_ms
+
+
+def profiled_gspmd_epoch_rank(mesh):
+    """gspmd (e) on one rank: the profiled epoch through the GSPMD step."""
+    return profiled_zoo_epoch("ResNet-18, GSPMD step on a 1x1 mesh, conv kernels + "
+                              "fused tail", "cuda", mesh=mesh)
+
+
+def check_shard_shapes() -> dict:
+    """gspmd (c): the model axis's shard shapes on one card. For each M of
+    GSPMD_MODEL_SIZES and each ResNet-18 conv at ZOO_BATCH, B10's forward,
+    B10's dgrad and B11 launched once a shard, on contiguous shard tensors
+    of Cout/M filters (w's columns, and the same columns of the output
+    gradient), composed as the collectives compose them: forward and wgrad
+    columns concatenated in rank order, the dgrads summed in rank order.
+    Each against the plain twins on the whole conv and against the
+    unsharded launch, within CONV_RTOL / GRAD_RTOL of the output's scale.
+    Returns each kernel's largest difference from its plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    errs = dict.fromkeys(("tap_conv", "tap_conv_dgrad", "tap_wgrad"), 0.0)
+    rtols = (CONV_RTOL, GRAD_RTOL, GRAD_RTOL)
+    for name, h, cin, cout, k, s, _, _, _ in GEOMETRIES:
+        x, w, g = grad_inputs(h, cin, cout, k, s, gen)
+        with torch.no_grad():
+            whole = (tap_conv.conv2d(x, w, s), tap_conv.conv2d_dgrad(g, w, x.shape, s),
+                     tap_wgrad.conv2d_wgrad(x, g, k, s))
+        with plain_reference():
+            plain = (tap_conv.conv2d_plain(x, w, s),
+                     tap_conv.conv2d_dgrad_plain(g, w, x.shape, s),
+                     tap_wgrad.conv2d_wgrad_plain(x, g, k, s))
+        for m_size in GSPMD_MODEL_SIZES:
+            c = cout // m_size
+            ws = [w[..., i * c:(i + 1) * c].contiguous() for i in range(m_size)]
+            gs = [g[..., i * c:(i + 1) * c].contiguous() for i in range(m_size)]
+            with torch.no_grad():
+                fwd = torch.cat([tap_conv.conv2d(x, wi, s) for wi in ws], dim=-1)
+                dx = tap_conv.conv2d_dgrad(gs[0], ws[0], x.shape, s)
+                for wi, gi in zip(ws[1:], gs[1:]):
+                    dx = dx + tap_conv.conv2d_dgrad(gi, wi, x.shape, s)
+                gw = torch.cat([tap_wgrad.conv2d_wgrad(x, gi, k, s) for gi in gs], dim=-1)
+            torch.cuda.synchronize()
+            parts, ok = [], True
+            for key, got, ref, un, rtol in zip(errs, (fwd, dx, gw), plain, whole, rtols):
+                err = float((got - ref).abs().max())
+                err_un = float((got - un).abs().max())
+                tol = rtol * max(1.0, float(ref.abs().max()))
+                ok &= (got.shape == ref.shape and bool(torch.isfinite(got).all())
+                       and err <= tol and err_un <= tol)
+                errs[key] = max(errs[key], err)
+                parts.append(f"{key} {err:.2e}/{err_un:.2e} (tol {tol:.1e})")
+            print(f"[smoke] gspmd (c) {name:24s} M={m_size} ({c} filters a shard): "
+                  f"|Δ| vs plain/unsharded {', '.join(parts)} {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"{name}: the kernels at the M={m_size} shard shapes, composed, "
+                     "disagree with the plain twins or the unsharded launch")
+    return errs
+
+
+def gspmd_phase(card, zoo_launches) -> tuple:
+    """The GSPMD zoo path on the card (a 1x1 mesh; more ranks need more
+    cards): (a) the CLI at --mesh-data 1, zoo (a)'s cut, its exact launch
+    counts and a falling loss; (b) 3 GSPMD steps against 3 single-device
+    steps, and the CIFAR CNN's tail; (c) the model axis's shard shapes;
+    (d) a resumed run against the straight one. Returns each kernel's
+    launches on (a) and the largest differences of (c)."""
+    work = BUILD_DIR / "smoke_gspmd"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--mesh-data", "1", "--batch-size", str(ZOO_BATCH),
+            "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+
+    # (a) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] gspmd (a): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                          "--metrics", str(work / "a.jsonl")])
+    launches = zoo_counts()
+    losses = epoch_losses(out)
+    with open(work / "a.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(ZOO_TRAIN_COUNT / r["seconds"]) for r in recs]
+    print(f"[smoke] gspmd (a): launches {launches} (expected zoo (a)'s {zoo_launches}); "
+          f"epoch losses {losses}; img/s per epoch {rates} (host clock, first epoch "
+          f"cold); eval accuracy {[r['accuracy'] for r in recs]} on {card}", flush=True)
+    if launches != zoo_launches:
+        fail("the GSPMD run did not launch each kernel exactly as often as zoo (a)")
+    if "mesh: {'data': 1, 'model': 1}" not in out:
+        fail("the --mesh-data 1 run did not print its mesh")
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail("the GSPMD run's loss did not fall from epoch 1 to 2")
+
+    # (b) 3 steps each from one init at zoo (c)'s gentle LR.
+    gspmd_losses, gspmd_sd = distributed.run(dp_step_rank, 1, device="cuda",
+                                             args=("gspmd", 3, ZOO_CHECK_LR))[0]
+    ref_losses, ref_sd = distributed.run(dp_step_rank, 1, device="cuda",
+                                         args=("optax", 3, ZOO_CHECK_LR))[0]
+    names = [n for n, _ in resnet.resnet18(10, backend="torch").named_parameters()]
+    loss_diff = max(abs(a - b) for a, b in zip(gspmd_losses, ref_losses))
+    param_diff = max(float((gspmd_sd[n] - ref_sd[n]).abs().max()) for n in names)
+    stat_diff = max(float((gspmd_sd[k] - ref_sd[k]).abs().max())
+                    for k in gspmd_sd if k not in names)
+    ok = loss_diff <= ZOO_LOSS_ATOL and param_diff <= ZOO_PARAM_ATOL
+    print(f"[smoke] gspmd (b): 3 GSPMD steps vs 3 single-device steps (lr "
+          f"{ZOO_CHECK_LR}, b{ZOO_BATCH}, the kernels and the fused tail): max |Δloss| "
+          f"{loss_diff:.3e} (tol {ZOO_LOSS_ATOL:.0e}), max |Δparams| {param_diff:.3e} "
+          f"(tol {ZOO_PARAM_ATOL:.0e}), max |ΔBN stats| {stat_diff:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail("the GSPMD steps drifted from the single-device steps")
+    tail.launches.reset()
+    out = run_cli(["--model", "cifar_cnn", "--mesh-data", "1", "--fused-step",
+                   "--act-dtype", "float32", "--batch-size", str(ZOO_BATCH), "--lr",
+                   "0.01", "--epochs", "1", "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+                   "--synthetic-test-count", str(ZOO_TEST_COUNT)])
+    print(f"[smoke] gspmd (b): cifar_cnn --mesh-data 1 --fused-step: tail_ce (max2) "
+          f"launches {tail.launches.count} for {ZOO_STEPS} steps", flush=True)
+    if tail.launches.count != ZOO_STEPS or len(epoch_losses(out)) != 1:
+        fail("the CIFAR CNN's GSPMD step did not run every step through tail_ce")
+
+    # (c) the model axis's shard shapes.
+    shard_errs = check_shard_shapes()
+
+    # (d) 1 epoch, then --resume to 2: the straight run's state, bit for bit.
+    print("[smoke] gspmd (d): --epochs 1, then --epochs 2 --resume, vs (a)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] gspmd (d): resumed state ({len(a)} leaves) "
+          f"{'bit-identical to the straight run' if same else 'DIFFERS'}", flush=True)
+    if "resumed from" not in out or not same:
+        fail("the resumed GSPMD run is not bit-identical to the straight run")
+    return launches, shard_errs
 
 
 def grad_bound_ms(x_shape, k, cin, cout, stride, dgrad):
@@ -2015,7 +2160,8 @@ def dp_step_rank(mesh, kind, steps, lr):
     """On one rank: ResNet-18 (seed 0, the card's kernels or its plain
     convs) through ``steps`` steps of the update-on-arrival step
     ("fused"), the unfused psum step ("psum") or the single-device optax
-    step ("optax", "optax_plain"); returns (losses, state_dict on the
+    step ("optax", "optax_plain") or the GSPMD step on the rank's
+    mesh ("gspmd", the fused tail); returns (losses, state_dict on the
     host). The batches are the synthetic set's first steps × 128."""
     imgs, labels = synthetic.make_image_dataset(steps * ZOO_BATCH, seed=11)
     xs = torch.from_numpy(imgs).cuda()
@@ -2037,6 +2183,9 @@ def dp_step_rank(mesh, kind, steps, lr):
         state = zoo.init_state(model, opt)
         step = zoo.make_train_step(model, opt, fused=fused, mesh=mesh,
                                    comm=CommConfig(impl="psum"))
+    elif kind == "gspmd":
+        state = zoo.init_state(model, opt, mesh=mesh)
+        step = zoo.make_train_step(model, opt, fused=fused, mesh=mesh)
     else:
         state = zoo.init_state(model, opt)
         step = zoo.make_train_step(model, opt, fused=fused)
@@ -2613,7 +2762,7 @@ def main() -> int:
 
     # -- 4c. the zoo path: ResNet-18 and the CIFAR CNN through the CLI ----
     zoo_launches = zoo_phase(card)
-    profiled_zoo_epoch("ResNet-18, conv kernels + fused tail", "cuda")
+    zoo_profile = profiled_zoo_epoch("ResNet-18, conv kernels + fused tail", "cuda")
     # The same epoch on cuDNN's convs (TF32 off), JAX's "xla" backend: the
     # end-to-end yardstick of the conv kernels.
     profiled_zoo_epoch("ResNet-18, library convs + fused tail", "torch")
@@ -2621,6 +2770,17 @@ def main() -> int:
     # -- 4d. the data-parallel path: update-on-arrival over the ring ------
     dp_launches = dp_phase(card, zoo_launches)
     dp_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda")[0]
+
+    # -- 4d'. the GSPMD zoo path: global BN statistics, the model axis ----
+    gspmd_launches, shard_errs = gspmd_phase(card, zoo_launches)
+    gspmd_profile = distributed.run(profiled_gspmd_epoch_rank, 1, device="cuda",
+                                    shape=(1, 1))[0]
+    if zoo_profile is not None and gspmd_profile is not None:
+        print("[smoke] gspmd (e): profiled epoch, GSPMD step on a 1x1 mesh "
+              f"{gspmd_profile[0]:.0f} img/s, {gspmd_profile[1]:.1f} device ops a "
+              f"step, idle {gspmd_profile[2]:.1%}; beside zoo (a)'s single-device "
+              f"step {zoo_profile[0]:.0f} img/s, {zoo_profile[1]:.1f} device ops a "
+              f"step, idle {zoo_profile[2]:.1%} (this call, on {card})", flush=True)
 
     # -- 4e. the probe path: the eight Mosaic probes, B14-B21 -------------
     probe_errs, probe_launches = probe_phase()
@@ -2674,8 +2834,8 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
-        "launches": launches,
-        "max_abs_err": max_err,
+        "launches": launches + gspmd_launches["tap_conv"],
+        "max_abs_err": max(max_err, shard_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -2687,23 +2847,23 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
-        "launches": zoo_launches["tap_conv_dgrad"],
-        "max_abs_err": zoo_errs["tap_conv_dgrad"],
+        "launches": zoo_launches["tap_conv_dgrad"] + gspmd_launches["tap_conv_dgrad"],
+        "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
     }, {
         "name": "tap_wgrad",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_wgrad.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
-        "launches": zoo_launches["tap_wgrad"],
-        "max_abs_err": zoo_errs["tap_wgrad"],
+        "launches": zoo_launches["tap_wgrad"] + gspmd_launches["tap_wgrad"],
+        "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
     }, {
         "name": "tail_ce",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tail_ce.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
-        "launches": zoo_launches["tail_ce"],
+        "launches": zoo_launches["tail_ce"] + gspmd_launches["tail_ce"],
         "max_abs_err": zoo_errs["tail_ce"],
         **zoo_times["tail_ce"],
     }, {

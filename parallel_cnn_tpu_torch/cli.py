@@ -9,17 +9,20 @@ With no subcommand the CLI is the trainer, as in JAX: for ``lenet_ref``
 load data → learn → test, printing the reference's lines; for a zoo model
 (``cifar_cnn``, ``resnet18``, ``resnet34``) JAX's zoo trainer: the
 synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc A% (S s)``
-lines, checkpoints of the full state and ``--resume``, on one device or,
-with ``--mesh-data N --comm-impl psum|ring``, data-parallel over N ranks
-(one process each; NCCL, one card per rank, or gloo with ``--device
-cpu``), with ``--fused-step`` and the ring as update-on-arrival. LeNet-ref
+lines, checkpoints of the full state and ``--resume``, on one device, on
+JAX's GSPMD path over ``--mesh-data N [--mesh-model M]`` (global BN
+statistics, each layer's filters split over the model axis where they
+divide), or with ``--mesh-data N --comm-impl psum|ring`` data-parallel over
+explicit collectives (one process a rank; NCCL, one card per rank, or gloo
+with ``--device cpu``), with ``--fused-step`` and the ring as
+update-on-arrival. LeNet-ref
 takes ``--mesh-data N [--mesh-model M] [--comm-impl psum|ring]``: minibatch
 SGD over an N × M mesh of ranks, data-parallel, with the filters split
 over the model axis when M > 1 (rank 0 prints, records and checkpoints).
 Everything runs on the GPU unless ``--device cpu`` is given. Of the
-trainer flags of later slices, ``--mesh-model`` above 1 for a zoo model
-(JAX's GSPMD path), ``--comm-hosts``, ``--pipeline-stages`` and
-``--elastic`` are typed NotPortedErrors; chaos,
+trainer flags of later slices, ``--comm-hosts``, ``--pipeline-stages``
+and ``--elastic`` are typed NotPortedErrors (``--comm-impl`` with a zoo
+model axis is JAX's data-only MeshLayoutError); chaos,
 async, trace and profile are not accepted yet, nor are the serving
 stack's admission control, autoscaler, scenarios, network front door and
 disk cache.
@@ -49,6 +52,7 @@ from parallel_cnn_tpu_torch.config import (
     ResilienceConfig,
     ServeConfig,
     TrainConfig,
+    check_comm_mesh,
 )
 
 
@@ -126,14 +130,16 @@ def build_parser() -> argparse.ArgumentParser:
                         "mesh flag routes minibatch training over the "
                         "device mesh (≙ mpirun -np N, MPI/Main.cpp:44). "
                         "Zoo models: N ranks, one process and one card "
-                        "each (gloo ranks with --device cpu); needs "
-                        "--comm-impl")
+                        "each (gloo ranks with --device cpu): JAX's GSPMD "
+                        "path (global BN statistics), or with --comm-impl "
+                        "the explicit collectives")
     p.add_argument("--mesh-model", type=int, default=None, metavar="N",
                    help="model (intra-op) mesh axis size. lenet_ref: must "
                         "divide the 6 conv filters (1, 2, 3, 6); filters and "
                         "the FC contraction split over N ranks of each data "
-                        "row. Zoo models: above 1 not ported yet (ROADMAP "
-                        "A7)")
+                        "row. Zoo models (GSPMD path, no --comm-impl): each "
+                        "layer's filters split over N ranks where they "
+                        "divide evenly")
     p.add_argument("--comm-impl", default=None,
                    choices=["psum", "ring", "hierarchical"],
                    help="mesh runs: gradient-collective algorithm "
@@ -310,6 +316,8 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
             augment=args.augment,
             accum_steps=args.accum_steps or 1,
             mesh=mesh,
+            model_axis=(comm is None and mesh is not None
+                        and mesh.model.size > 1),
             comm=comm,
             fused=fused,
             seed=args.seed,
@@ -332,7 +340,8 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
 def _run_zoo(args: argparse.Namespace) -> int:
     """≙ the JAX CLI's ``_run_zoo``: the synthetic CIFAR-shape train/eval
     sets, zoo.train with per-epoch eval, checkpoints, resume, sentinel and
-    preemption; on one device, or over ``--mesh-data N`` ranks with
+    preemption; on one device, over a ``--mesh-data N [--mesh-model M]``
+    mesh of ranks on JAX's GSPMD path, or over ``--mesh-data N`` ranks with
     ``--comm-impl`` (parallel/distributed.py starts them)."""
     if args.model == "cifar_cnn" and args.conv_backend != "torch":
         raise SystemExit("--conv-backend cuda applies to the resnet models")
@@ -340,25 +349,24 @@ def _run_zoo(args: argparse.Namespace) -> int:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
     _refuse_later_slices(args)
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
-    from parallel_cnn_tpu_torch.train import zoo
-
-    zoo.check_mesh_config(mesh_cfg)
     comm = _comm_from_args(args)
+    check_comm_mesh(mesh_cfg, comm)
     fused = _fused_from_args(args)
-    if args.mesh_data is None:
+    if args.mesh_data is None and mesh_cfg.model == 1:
         if comm is not None:
             raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
                              "collectives over a mesh: add --mesh-data N")
         _zoo_job(None, args, comm, fused)
         return 0
-    if comm is None:
-        raise NotPortedError(
-            "--mesh-data without --comm-impl is JAX's GSPMD data-parallel "
-            "path (global BN statistics), which is not ported (ROADMAP A7); "
-            "add --comm-impl psum or ring")
 
     from parallel_cnn_tpu_torch.parallel import distributed
 
+    if comm is None:
+        n_data, n_model = distributed.resolve_shape(mesh_cfg, args.device)
+        print(f"mesh: {{'data': {n_data}, 'model': {n_model}}}", flush=True)
+        distributed.run(_zoo_job, n_data * n_model, device=args.device,
+                        args=(args, comm, fused), shape=(n_data, n_model))
+        return 0
     world = distributed.resolve_world(mesh_cfg, args.device)
     print(f"mesh: {{'data': {world}, 'model': 1}}", flush=True)
     distributed.run(_zoo_job, world, device=args.device,

@@ -174,7 +174,10 @@ class MeshConfig:
 
     ``data=None`` means every visible card the model axis leaves (on the
     CPU: one data rank). The ``model`` axis splits LeNet-ref's filters
-    (parallel/intra_op.py); the zoo trainer takes the data axis only."""
+    (parallel/intra_op.py) and, on the zoo's GSPMD path, each layer's
+    filters where they divide (parallel/zoo_sharding.py); the zoo's
+    explicit collectives (``--comm-impl``) take the data axis only
+    (``check_comm_mesh``)."""
 
     data: Optional[int] = None
     model: int = 1
@@ -184,6 +187,22 @@ class MeshConfig:
             raise ValueError(f"mesh data axis must be >= 1, got {self.data}")
         if self.model < 1:
             raise ValueError(f"mesh model axis must be >= 1, got {self.model}")
+
+
+#: JAX's refusal of the explicit collectives on a model axis
+#: (plan/__init__.py:95-98).
+COMM_DATA_ONLY_ERROR = (
+    "--comm-impl is data-parallel only; the explicit collective path "
+    "composes with the data axis, not --mesh-model (drop one of the two)"
+)
+
+
+def check_comm_mesh(mesh: MeshConfig, comm: Optional["CommConfig"]) -> None:
+    """The zoo's explicit collectives run over the data axis alone: a
+    model axis with ``comm`` raises MeshLayoutError (JAX's
+    ``COMM_DATA_ONLY_ERROR``)."""
+    if comm is not None and mesh.model > 1:
+        raise MeshLayoutError(COMM_DATA_ONLY_ERROR)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -26,6 +26,15 @@ Parameters are created on the CPU from an explicit ``torch.Generator``
 (He-normal conv and Dense weights, BN at identity) and moved to
 ``device``. Layouts match the JAX package: conv weights HWIO
 ``(k, k, Cin, Cout)``, Dense ``w`` as ``(d, features)``.
+
+On a mesh (``sharding`` set by parallel/zoo_sharding.py; nn/core.py has
+the rule): in training mode ``BatchNorm`` takes the statistics of the
+global batch, in two passes as ``jnp.var`` does (Σx and the count give the
+mean, then Σ(x − mean)² the biased variance, each summed over the data
+axis by an all-reduce whose backward all-reduces the gradient), and
+updates its running statistics from them; ``Conv2D``, ``ConvBNAct`` and
+``Dense`` take a whole input and compute their own block of output
+features when their leaves are split over the model axis.
 """
 
 from __future__ import annotations
@@ -39,7 +48,9 @@ from torch import nn
 import torch.nn.functional as F
 
 from parallel_cnn_tpu_torch.config import CONV_BACKENDS
+from parallel_cnn_tpu_torch.nn.core import Sharding, whole
 from parallel_cnn_tpu_torch.ops import tap_conv
+from parallel_cnn_tpu_torch.parallel import collectives
 
 
 def _he_normal(shape, fan_in: int, generator: Optional[torch.Generator]):
@@ -54,10 +65,35 @@ def _conv_fn(backend: str):
     return tap_conv.conv2d if backend == "cuda" else tap_conv.conv2d_plain
 
 
+class _Sharded(nn.Module):
+    """A layer that needs every input channel and may compute a block of
+    its output features (``sharding.split``)."""
+
+    sharding: Optional[Sharding] = None
+
+    def forward_split(self, x: torch.Tensor, split: bool):
+        sh = self.sharding
+        return self(whole(x, split, sh.split, sh.model)), sh.split
+
+
+def _global_stats(x: torch.Tensor, data):
+    """(mean, biased variance) over every axis but the last, of the batch
+    whose rows lie on the ranks of ``data``: two passes, each sum
+    all-reduced (the ranks hold equal row counts)."""
+    axes = tuple(range(x.dim() - 1))
+    count = x.numel() // x.shape[-1] * data.size
+    mean = collectives.all_reduce(x.sum(dim=axes), data) / count
+    d = x - mean
+    var = collectives.all_reduce((d * d).sum(dim=axes), data) / count
+    return mean, var
+
+
 class BatchNorm(nn.Module):
     """Batch norm over the last (channel) axis. ``scale``/``bias`` are the
     trainables, ``mean``/``var`` the running statistics, as in the JAX
     tree."""
+
+    sharding: Optional[Sharding] = None
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
                  *, device=None):
@@ -77,9 +113,13 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            axes = tuple(range(x.dim() - 1))
-            mean = x.mean(dim=axes)
-            var = x.var(dim=axes, unbiased=False)
+            sh = self.sharding
+            if sh is not None and sh.data is not None:
+                mean, var = _global_stats(x, sh.data)
+            else:
+                axes = tuple(range(x.dim() - 1))
+                mean = x.mean(dim=axes)
+                var = x.var(dim=axes, unbiased=False)
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
@@ -90,7 +130,7 @@ class BatchNorm(nn.Module):
         return (x - mean) * inv + self.bias
 
 
-class Conv2D(nn.Module):
+class Conv2D(_Sharded):
     """SAME conv with an optional bias (``w`` HWIO, ``b``), as JAX's
     ``Conv2D(features, kernel, strides, use_bias, backend)``."""
 
@@ -112,7 +152,7 @@ class Conv2D(nn.Module):
         return y if self.b is None else y + self.b
 
 
-class ConvBNAct(nn.Module):
+class ConvBNAct(_Sharded):
     """SAME conv (no bias) → BatchNorm → (+ residual) → optional ReLU.
 
     ``forward(x, residual=sc)`` computes ``relu?(bn(conv(x)) + sc)``. In
@@ -182,7 +222,7 @@ class ConvBNAct(nn.Module):
         return torch.relu(y) if self.relu else y
 
 
-class Dense(nn.Module):
+class Dense(_Sharded):
     """``x @ w + b`` with ``w`` of shape (d, features)."""
 
     def __init__(self, in_features: int, features: int, *,
@@ -225,6 +265,11 @@ class MaxPool(nn.Module):
 
 class Flatten(nn.Module):
     """(N, H, W, C) → (N, H·W·C) in (y, x, c) order."""
+
+    sharding: Optional[Sharding] = None
+
+    def forward_split(self, x: torch.Tensor, split: bool):
+        return self(whole(x, split, False, self.sharding.model)), False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return x.reshape(x.shape[0], -1)

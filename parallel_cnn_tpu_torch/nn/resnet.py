@@ -11,6 +11,13 @@ blocks follow, then ``GlobalAvgPool`` and ``Dense``; a block holds
 ``main.0``/``main.1`` and, where ``stride != 1`` or the width changes,
 ``proj.0`` (a 1×1 ConvBNAct without ReLU). The ImageNet stem (7×7/s2 conv
 + max pool) and the Bottleneck family (ResNet-50) wait for a later slice.
+
+On a mesh whose model axis splits the block's filters (nn/core.py), the
+block gathers its input once for both of its first convs, and the
+identity shortcut is added to the tail conv's block of channels as the
+same block of the gathered input: every rank's gradient of that input is
+then a partial one (its filters' part and its channels' shortcut part),
+which the gather's adjoint sums and slices.
 """
 
 from __future__ import annotations
@@ -20,7 +27,7 @@ from typing import Optional, Sequence
 import torch
 from torch import nn
 
-from parallel_cnn_tpu_torch.nn.core import Sequential
+from parallel_cnn_tpu_torch.nn.core import Sequential, whole
 from parallel_cnn_tpu_torch.nn.layers import ConvBNAct, Dense, GlobalAvgPool
 
 WIDTHS = (64, 128, 256, 512)
@@ -45,10 +52,28 @@ class BasicBlock(nn.Module):
                 ConvBNAct(in_features, features, 1, stride, relu=False, **kw)
             ])
 
+    sharding = None
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         sc = self.proj[0](x) if self.proj is not None else x
         y = self.main[0](x)
         return self.main[1](y, residual=sc)
+
+    def forward_split(self, x: torch.Tensor, split: bool):
+        """The block on a mesh: (output, whether it is split). The three
+        convs have one width, so they split alike."""
+        first, tail = self.main
+        sh = first.sharding
+        x = whole(x, split, sh.split, sh.model)
+        if self.proj is not None:
+            sc = self.proj[0](x)
+        elif sh.split:
+            k = x.shape[-1] // sh.model.size
+            sc = x[..., sh.model.index * k:(sh.model.index + 1) * k]
+        else:
+            sc = x
+        y = whole(first(x), sh.split, tail.sharding.split, sh.model)
+        return tail(y, residual=sc), tail.sharding.split
 
 
 def _resnet(stage_sizes: Sequence[int], num_classes: int, backend: str,

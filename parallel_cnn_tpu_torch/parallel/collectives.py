@@ -24,6 +24,15 @@ orders PyTorch's current stream behind NCCL's, so a kernel launched next
 on the current stream sees the received data. ``tree_all_reduce`` picks
 psum (one ``dist.all_reduce`` over the tree packed into one buffer per
 dtype) or the ring, per a ``config.CommConfig``.
+
+Collectives inside the forward (the GSPMD zoo path, nn/core.py), each an
+autograd Function with its adjoint: ``all_reduce`` (the backward
+all-reduces the gradient: BatchNorm's global sums), ``sum_grad``
+(identity, the gradient summed), ``gather_last`` (an all-gather along the
+channel axis whose backward sums and slices, or only slices, as its
+consumer needs). ``all_reduce_buckets`` sums the grads over the data axis
+after the backward. Every sum is one ``dist.all_reduce`` (NCCL's or
+gloo's fixed order): nothing depends on arrival order.
 """
 
 from __future__ import annotations
@@ -337,3 +346,111 @@ def all_gather_buckets(shards: Sequence[torch.Tensor], mesh: Axis,
                        wire_dtype=None) -> List[torch.Tensor]:
     """Inverse of ``reduce_scatter_buckets``: the full buckets again."""
     return [ring_all_gather(s, mesh, wire_dtype) for s in shards]
+
+
+# ---------------------------------------------------------------------------
+# Collectives inside the forward, with their adjoints (the GSPMD zoo path)
+# ---------------------------------------------------------------------------
+
+
+def _summed(t: torch.Tensor, mesh: Axis) -> torch.Tensor:
+    """A new tensor holding the sum of ``t`` over the axis's ranks."""
+    out = t.contiguous().clone()
+    return all_reduce_sum(out, mesh)
+
+
+def _last_chunk(t: torch.Tensor, mesh: Axis) -> torch.Tensor:
+    """This rank's block of ``t``'s last axis, as a tensor of its own."""
+    k = t.shape[-1] // mesh.size
+    return t[..., mesh.index * k:(mesh.index + 1) * k].contiguous()
+
+
+class _AllReduce(torch.autograd.Function):
+    """y = Σ_ranks x on every rank. Each rank's y feeds only its own part
+    of the loss, so the gradient of y is a partial one on each rank and
+    the adjoint sums it over the axis too."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return _summed(x, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh), None
+
+
+class _SumGrad(torch.autograd.Function):
+    """Identity forward; the backward sums the gradient over the axis.
+    For a tensor that every rank holds whole and that feeds a layer split
+    over the axis: each rank's gradient is the part from its own filters."""
+
+    @staticmethod
+    def forward(ctx, x, mesh):
+        ctx.mesh = mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _summed(g, ctx.mesh), None
+
+
+class _GatherLast(torch.autograd.Function):
+    """All-gather over the axis along the last dimension (rank i's block
+    i). The backward is the adjoint that matches the consumer: summed over
+    the axis and sliced (a reduce-scatter) when the consumer is split over
+    the axis, so that each rank's gradient is partial; sliced alone when
+    the consumer is replicated, so that each rank's gradient is whole."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, partial):
+        ctx.mesh, ctx.partial = mesh, partial
+        parts = [torch.empty_like(x) for _ in range(mesh.size)]
+        dist.all_gather(parts, x.contiguous(), group=mesh.group)
+        return torch.cat(parts, dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            g = _summed(g, ctx.mesh)
+        return _last_chunk(g, ctx.mesh), None, None
+
+
+def all_reduce(x: torch.Tensor, mesh: Axis) -> torch.Tensor:
+    """The sum of ``x`` over the axis, differentiable: the backward
+    all-reduces the incoming gradient (BatchNorm's global sums). Over one
+    rank, ``x`` itself."""
+    if mesh.size == 1:
+        return x
+    return _AllReduce.apply(x, mesh)
+
+
+def sum_grad(x: torch.Tensor, mesh: Axis) -> torch.Tensor:
+    """``x`` as it is, with its gradient summed over the axis (see
+    ``_SumGrad``). Over one rank, ``x`` itself."""
+    if mesh.size == 1:
+        return x
+    return _SumGrad.apply(x, mesh)
+
+
+def gather_last(x: torch.Tensor, mesh: Axis, partial: bool) -> torch.Tensor:
+    """Every rank's block of the last dimension, concatenated in axis order
+    (see ``_GatherLast`` for ``partial``). Over one rank, ``x`` itself."""
+    if mesh.size == 1:
+        return x
+    return _GatherLast.apply(x, mesh, partial)
+
+
+def all_reduce_buckets(tensors: Sequence[torch.Tensor], mesh: Axis,
+                       bucket_bytes: int = DEFAULT_BUCKET_BYTES
+                       ) -> List[torch.Tensor]:
+    """The sum of each tensor over the axis (no gradient): the tensors
+    packed into ``bucket_bytes`` buckets in their order, one
+    ``dist.all_reduce`` a bucket, unpacked. Over one rank, the tensors as
+    they are."""
+    tensors = list(tensors)
+    if mesh.size == 1:
+        return tensors
+    plan = plan_buckets(tensors, bucket_bytes)
+    buckets = [all_reduce_sum(b, mesh) for b in flatten_buckets(tensors, plan)]
+    return unflatten_buckets(buckets, plan)

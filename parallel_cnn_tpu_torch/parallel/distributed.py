@@ -50,7 +50,8 @@ def backend_for(device_type: str) -> str:
 
 
 def resolve_shape(mesh: MeshConfig, device: DeviceLike = None) -> Tuple[int, int]:
-    """(data, model) for ``mesh`` on ``device``: ``data=None`` means every
+    """(data, model) for ``mesh`` on ``device`` (the LeNet mesh and the
+    zoo's GSPMD mesh alike: data × model ranks): ``data=None`` means every
     visible card the model axis leaves (on the CPU: one data rank). Raises
     MeshSizeError above the card count."""
     dev = resolve_device(device)

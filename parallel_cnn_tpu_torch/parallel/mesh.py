@@ -147,6 +147,16 @@ def make_mesh_2d(rank: int, world: int, device: torch.device, n_data: int,
     )
 
 
+def as_mesh_2d(mesh) -> Mesh2D:
+    """``mesh`` as a ``Mesh2D``: itself, or a ``DataMesh`` as the
+    ``world × 1`` mesh (its data axis over the default group)."""
+    if isinstance(mesh, Mesh2D):
+        return mesh
+    return Mesh2D(world=mesh.world, rank=mesh.rank, device=mesh.device,
+                  data=AxisView(mesh.world, mesh.rank, mesh.ranks, None),
+                  model=AxisView(1, 0, (mesh.rank,)))
+
+
 def shard_batch(mesh, batch: Any) -> Any:
     """This rank's rows of each tensor of a (tree of) global batch(es)
     (JAX's ``shard_batch``, ``P(DATA_AXIS)``), on the rank's device."""

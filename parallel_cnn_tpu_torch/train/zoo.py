@@ -1,6 +1,7 @@
 """Trainer for the model zoo (CIFAR CNN, ResNet-18/34): the port of
-``parallel_cnn_tpu/train/zoo.py`` on one device and data-parallel over the
-explicit collectives (``comm=``), without GSPMD.
+``parallel_cnn_tpu/train/zoo.py`` on one device, over JAX's GSPMD mesh
+(data and model axes, ``mesh=`` without ``comm``) and data-parallel over
+the explicit collectives (``comm=``).
 
 Softmax cross-entropy and SGD with momentum written out as optax computes
 them (``make_optimizer``: ``m ← g + β·m``, no dampening, weight decay added
@@ -20,10 +21,29 @@ checkpoint keys (``.params/3/main/0/conv/w``,
 ``.model_state/3/main/0/bn/mean``, ``.opt_state/0/0/.trace/...``,
 ``.opt_state/0/1/.count``).
 
-Data parallelism. ``train(..., mesh=, comm=)`` runs on every rank of a
-world that parallel/distributed.py started; each rank draws the same
-global batches and trains on its rows (``DataMesh.shard_rows``, JAX's
-``P(DATA_AXIS)``). ``_make_comm_step`` is JAX's explicit-collective step:
+The GSPMD path. Under JAX's GSPMD the step is the single-device step on
+the global batch, and XLA places the collectives. ``train(..., mesh=)``
+without ``comm`` is its port (``_make_gspmd_step``): one process per rank
+of a ``Mesh2D`` (parallel/mesh.py), each drawing the same global batches.
+``init_state(..., mesh=, model_axis=)`` places the model on the rank
+(parallel/zoo_sharding.py): BatchNorm takes the global batch's statistics
+(two all-reduced passes over the data axis) and, with ``model_axis``,
+each leaf that JAX's ``leaf_spec`` splits is this rank's block of it, the
+layers gathering activations over the model axis where the next layer
+needs every channel (nn/core.py). Each microbatch of the global batch
+gives each rank its rows; the loss is each rank's sum over its rows ÷ the
+global microbatch, its gradient summed over the data axis in buckets
+after the backward; each rank updates its own shards and their momentum.
+Augmentation draws once for the global batch from the single-device
+stream, and each rank crops its rows. A checkpoint gathers every leaf
+whole (JAX's format, any mesh resumes it), and eval runs the whole
+(gathered) model over each data rank's share of the eval rows.
+
+Data parallelism over explicit collectives. ``train(..., mesh=, comm=)``
+runs on every rank of a world that parallel/distributed.py started; each
+rank draws the same global batches and trains on its rows
+(``DataMesh.shard_rows``, JAX's ``P(DATA_AXIS)``). ``_make_comm_step`` is
+JAX's explicit-collective step:
 BatchNorm normalises over the rank's microbatch (per-shard statistics,
 not SyncBN), the grads are summed over ranks by psum or the bucketed ring
 (reduce-scattered per microbatch with ``comm.overlap``) and divided by
@@ -42,11 +62,12 @@ train on the same batches. ``loader="device"`` draws each epoch's
 permutation from ``torch.Generator().manual_seed(seed + epoch)``, which
 cannot reproduce JAX's threefry permutation: the two packages shuffle
 differently, each reproducibly, so resume is exact on both. Augmentation
-likewise draws from a generator seeded by the epoch and the rank.
+likewise draws from a generator seeded by the epoch (and, on the explicit
+collective path, the rank).
 
-Not here (ROADMAP): GSPMD data parallelism and the model axis (A7), ZeRO-3
-and the hierarchical ring (A9), bf16 activations with loss scaling (A8b),
-pipeline, elastic and chaos, the per-step sentinel cadence, profiling.
+Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), bf16
+activations with loss scaling (A8b), pipeline, elastic and chaos, the
+per-step sentinel cadence, profiling.
 """
 
 from __future__ import annotations
@@ -54,9 +75,10 @@ from __future__ import annotations
 import dataclasses
 import itertools
 import math
+import re
 import sys
 import time
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -67,21 +89,21 @@ from torch import nn
 from parallel_cnn_tpu_torch.config import (
     CommConfig,
     FusedStepConfig,
-    NotPortedError,
     ResilienceConfig,
 )
 from parallel_cnn_tpu_torch.data import augment as aug_lib
 from parallel_cnn_tpu_torch.data import pipeline
+from parallel_cnn_tpu_torch.nn.core import whole
 from parallel_cnn_tpu_torch.ops import sgd_update, tail
-from parallel_cnn_tpu_torch.parallel import collectives
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
+from parallel_cnn_tpu_torch.parallel import collectives, zoo_sharding
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, as_mesh_2d
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
     CheckpointRing,
     RollbackController,
     tree_copy,
 )
-from parallel_cnn_tpu_torch.resilience.sentinel import DivergenceError, Sentinel
+from parallel_cnn_tpu_torch.resilience.sentinel import DivergenceError, Sentinel, Verdict
 from parallel_cnn_tpu_torch.train import checkpoint
 from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 
@@ -199,6 +221,17 @@ def jax_ordered_params(model: nn.Module) -> List[Tuple[str, nn.Parameter]]:
 
 #: Checkpoint keys of a ``FusedOptState`` (JAX's dataclass fields).
 MOM_KEY = ".opt_state/.mom/"
+_TRACE_KEY = re.compile(r"^\.opt_state/\d+/0/\.trace/")
+
+
+def _state_key(key: str) -> Optional[str]:
+    """The state_dict key of the parameter or buffer behind checkpoint
+    ``key`` (a momentum trace's is its parameter's), else None."""
+    for prefix in (".params/", ".model_state/"):
+        if key.startswith(prefix):
+            return key[len(prefix):].replace("/", ".")
+    m = _TRACE_KEY.match(key)
+    return key[m.end():].replace("/", ".") if m else None
 _FUSED_SCALARS = (".opt_state/.scale", ".opt_state/.good_steps",
                   ".opt_state/.skipped")
 
@@ -225,14 +258,17 @@ class ZooState:
     parameter name and the schedule count: what a step updates. With
     ``fused`` the optimizer state is a ``FusedOptState`` instead of the
     trace and count; ``mesh`` is the rank's data axis, which a fused
-    state's checkpoint gathers over."""
+    state's checkpoint gathers over, or the GSPMD path's ``Mesh2D`` with
+    ``plan``, the model's placement on it (parallel/zoo_sharding.py): the
+    parameters, BN buffers and traces are then this rank's shards."""
 
     model: nn.Module
     optimizer: SGD
     trace: Dict[str, torch.Tensor]
     count: int = 0
     fused: Optional[FusedOptState] = None
-    mesh: Optional[DataMesh] = None
+    mesh: Optional[Union[DataMesh, Mesh2D]] = None
+    plan: Optional[zoo_sharding.ShardPlan] = None
 
     def arrays(self) -> Dict[str, torch.Tensor]:
         """The live tensors under the JAX package's checkpoint keys (a
@@ -257,9 +293,15 @@ class ZooState:
 
     def checkpoint_arrays(self) -> Dict[str, torch.Tensor]:
         """``arrays()`` as a checkpoint holds them: each momentum block
-        whole, ``(n_data, L)``, its rows gathered from every rank. Every
-        rank calls it (a collective when the world is larger than one)."""
+        whole, ``(n_data, L)``, its rows gathered from every rank; each
+        leaf split over a model axis whole, gathered in the rank's model
+        row. Every rank calls it (a collective when the world is larger
+        than one)."""
         out = self.arrays()
+        plan = self.plan
+        if plan is not None and plan.split:
+            out = {k: plan.gather(_state_key(k), t) if _state_key(k) else t
+                   for k, t in out.items()}
         mesh = self.mesh
         if self.fused is not None and mesh is not None and mesh.world > 1:
             for b, row in enumerate(self.fused.mom):
@@ -276,8 +318,8 @@ class ZooState:
         """Copy ``arrays`` (tensors or numpy arrays under the keys of
         ``arrays()``) into the state, in place. Keys, shapes and dtypes
         must match exactly, except that a momentum block may come whole,
-        ``(n_data, L)`` as a checkpoint holds it: this rank takes its
-        row."""
+        ``(n_data, L)`` as a checkpoint holds it, and a leaf split over a
+        model axis may come whole: this rank takes its row or block."""
         want = self.arrays()
         if set(arrays) != set(want):
             raise ValueError(
@@ -292,6 +334,8 @@ class ZooState:
                         and src.dim() == 2 and src.shape[0] == self.mesh.world
                         and dst.shape[0] == 1):
                     src = src[self.mesh.rank:self.mesh.rank + 1]
+                if self.plan is not None and _state_key(key):
+                    src = self.plan.local(_state_key(key), src, dst)
                 if tuple(src.shape) != tuple(dst.shape) or src.dtype != dst.dtype:
                     raise ValueError(
                         f"zoo state leaf '{key}' is {tuple(src.shape)}/{src.dtype}, "
@@ -302,11 +346,27 @@ class ZooState:
                     dst.copy_(src)
 
 
-def init_state(model: nn.Module, optimizer: SGD) -> ZooState:
+    def eval_model(self) -> nn.Module:
+        """The model with every leaf whole, for the evaluation forward (on
+        a split model, gathered into its whole copy: a collective over the
+        model axis)."""
+        return self.plan.whole_model(self.model) if self.plan else self.model
+
+
+def init_state(model: nn.Module, optimizer: SGD, mesh=None,
+               model_axis: bool = False) -> ZooState:
     """A fresh state for ``model`` (its weights are the init): zero
-    momentum on the parameters' devices, count 0."""
+    momentum on the parameters' devices, count 0. With ``mesh`` (the GSPMD
+    path: a ``Mesh2D``, or a ``DataMesh`` as a data × 1 mesh) the model is
+    first placed on this rank, in place (``zoo_sharding.shard_model``:
+    with ``model_axis``, its split leaves become this rank's blocks), and
+    the momentum shards with the parameters."""
+    plan = None
+    if mesh is not None:
+        mesh = as_mesh_2d(mesh)
+        plan = zoo_sharding.shard_model(model, mesh, model_axis)
     trace = {n: torch.zeros_like(p) for n, p in model.named_parameters()}
-    return ZooState(model, optimizer, trace)
+    return ZooState(model, optimizer, trace, mesh=mesh, plan=plan)
 
 
 def init_fused_state(model: nn.Module, optimizer: SGD, *, mesh: DataMesh,
@@ -351,34 +411,33 @@ def _build_loss_fn(model: nn.Module, fused: Optional[FusedStepConfig]) -> Callab
         return lambda m, x, y: cross_entropy(m(x), y)
 
     def loss_fn(m, x, y):
-        feats = x
-        for layer in list(m)[: split.trunk]:
-            feats = layer(feats)
         dense = m[-1]
-        return tail.fused_tail_loss(feats, dense.w, dense.b, y, pool=split.pool)
+        w, b = dense.w, dense.b
+        sh = m.sharding
+        if sh is None:
+            feats = x
+            for layer in list(m)[: split.trunk]:
+                feats = layer(feats)
+        else:
+            # The tail needs every feature and every class: the trunk's
+            # output and a head split by class are gathered, and the
+            # gathered head's gradient is whole on every rank.
+            feats, feats_split = m.forward_split(x, False, split.trunk)
+            feats = whole(feats, feats_split, False, sh.model)
+            if dense.sharding.split:
+                w = collectives.gather_last(w, sh.model, partial=False)
+                b = collectives.gather_last(b, sh.model, partial=False)
+        return tail.fused_tail_loss(feats, w, b, y, pool=split.pool)
 
     return loss_fn
-
-
-def check_mesh_config(mesh) -> None:
-    """The zoo trainer's mesh is its data axis. A model axis for a zoo
-    model is JAX's GSPMD path (filters split over ``model``, BN statistics
-    all-reduced inside the forward), which is not ported: NotPortedError
-    naming ROADMAP A7. ``mesh`` is a ``config.MeshConfig``."""
-    if mesh.model > 1:
-        raise NotPortedError(
-            f"--mesh-model {mesh.model} for a zoo model is JAX's GSPMD path "
-            "(filters split over the model axis, BN statistics all-reduced "
-            "in the forward), which is not ported yet (ROADMAP A7); zoo "
-            "models take --mesh-data N with --comm-impl, lenet_ref takes "
-            "--mesh-model")
 
 
 def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
                     augment_pad: Optional[int] = None,
                     fused: Optional[FusedStepConfig] = None,
-                    mesh: Optional[DataMesh] = None,
-                    comm: Optional[CommConfig] = None) -> Callable:
+                    mesh: Optional[Union[DataMesh, Mesh2D]] = None,
+                    comm: Optional[CommConfig] = None,
+                    model_axis: bool = False) -> Callable:
     """step(state, x, y, aug=None) → loss (a device scalar), updating
     ``state`` in place: grads of the (microbatch-averaged) loss, then one
     optimizer update. ``accum_steps > 1`` splits the batch into that many
@@ -387,8 +446,15 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
     draws ``aug = (offsets, flips)`` first. ``comm`` (with ``mesh``) is
     JAX's explicit-collective data-parallel step (``_make_comm_step``):
     ``x``, ``y`` are then the global batch, and ``aug`` the draws for this
-    rank's rows. ``fused.update`` is not taken here: update-on-arrival is
-    ``make_fused_train_step`` (``train`` dispatches to it)."""
+    rank's rows. ``mesh`` without ``comm`` is JAX's GSPMD step
+    (``_make_gspmd_step``; ``model_axis`` splits the filters over the
+    mesh's model axis): ``x``, ``y`` and ``aug`` are the global batch and
+    its draws, and ``state`` comes from ``init_state`` with the same mesh
+    and ``model_axis``. ``fused.update`` is not taken here:
+    update-on-arrival is ``make_fused_train_step`` (``train`` dispatches
+    to it)."""
+    if model_axis and mesh is None:
+        raise ValueError("model_axis=True requires a mesh")
     if fused is not None and fused.update:
         raise ValueError(
             "fused.update (update-on-arrival) requires the explicit "
@@ -397,13 +463,15 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
     if comm is not None:
         if mesh is None:
             raise ValueError("comm (explicit collectives) requires a mesh")
+        if model_axis:
+            raise ValueError(
+                "comm is the explicit data-parallel collective path; "
+                "model_axis sharding stays on the GSPMD path (comm=None)")
         return _make_comm_step(model, optimizer, accum_steps, augment_pad,
                                fused, mesh, comm)
     if mesh is not None:
-        raise NotPortedError(
-            "a mesh without comm is JAX's GSPMD data-parallel path (global "
-            "BN statistics), which is not ported (ROADMAP A7); pass "
-            "comm=CommConfig(impl='psum' or 'ring') (--comm-impl)")
+        return _make_gspmd_step(model, optimizer, accum_steps, augment_pad,
+                                fused, as_mesh_2d(mesh), model_axis)
     loss_fn = _build_loss_fn(model, fused)
 
     def grad_fn(m, params, x, y):
@@ -437,6 +505,79 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
             torch._foreach_div_(grads, float(accum_steps))
             loss = loss / accum_steps
         with torch.no_grad():
+            state.optimizer.apply(state, grads)
+        return loss
+
+    return step
+
+
+def gspmd_rows(mesh: Mesh2D, x, y, aug, augment_pad: Optional[int], sl: slice):
+    """This rank's rows of microbatch ``sl`` of the global batch ``x``,
+    ``y``: its data row's block, cropped and flipped (``augment_pad`` set)
+    with the same block of the global batch's draws ``aug``."""
+    bx, by = mesh.shard_rows(x[sl]), mesh.shard_rows(y[sl])
+    if augment_pad is not None:
+        bx = aug_lib.crop_flip(bx, mesh.shard_rows(aug[0][sl]),
+                               mesh.shard_rows(aug[1][sl]), pad=augment_pad)
+    return bx, by
+
+
+def _make_gspmd_step(model: nn.Module, optimizer: SGD, accum_steps: int,
+                     augment_pad: Optional[int], fused: Optional[FusedStepConfig],
+                     mesh: Mesh2D, model_axis: bool) -> Callable:
+    """JAX's GSPMD step (zoo.py:353-393) on this rank of ``mesh``: the
+    single-device step on the global batch ``x``, ``y``.
+
+    Microbatch i is rows ``[i·mb, (i+1)·mb)`` of the global batch, and this
+    rank takes its data row's block of it (with the same block of the
+    augmentation draws ``aug``). Its loss is the microbatch mean over this
+    rank's rows × rows/mb, so that the losses of the data ranks sum to the
+    global mean; BatchNorm's statistics are the global microbatch's. After
+    the last backward the gradients, summed over microbatches, are summed
+    over the data axis in buckets and divided by ``accum_steps``, the
+    losses likewise; every rank then updates its own shards and their
+    momentum. Over the model axis the activations' collectives run inside
+    the forward and backward (nn/core.py), so the gradient of each shard is
+    already whole."""
+    loss_fn = _build_loss_fn(model, fused)
+    split_model = model_axis and mesh.model.size > 1
+
+    def step(state: ZooState, x, y, aug=None):
+        plan = state.plan
+        if plan is None or plan.mesh != mesh or (plan.model is not None) != split_model:
+            raise ValueError(
+                "the GSPMD step takes the state that init_state(model, "
+                "optimizer, mesh=..., model_axis=...) built for the same mesh "
+                "and model_axis")
+        if augment_pad is not None and aug is None:
+            raise ValueError("this step was built with augmentation; "
+                             "call it as step(state, x, y, aug)")
+        if x.shape[0] % accum_steps:
+            raise ValueError(
+                f"batch size {x.shape[0]} must be a multiple of "
+                f"accum_steps {accum_steps} (no silent sample dropping)")
+        mb = x.shape[0] // accum_steps
+        m = state.model
+        m.train()
+        params = [p for _, p in m.named_parameters()]
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        gsum = None
+        for i in range(accum_steps):
+            bx, by = gspmd_rows(mesh, x, y, aug, augment_pad,
+                                slice(i * mb, (i + 1) * mb))
+            loss = loss_fn(m, bx, by) * (bx.shape[0] / mb)
+            grads = list(torch.autograd.grad(loss, params))
+            lsum = lsum + loss.detach()
+            if gsum is None:
+                gsum = grads
+            else:
+                with torch.no_grad():
+                    torch._foreach_add_(gsum, grads)
+        with torch.no_grad():
+            grads = collectives.all_reduce_buckets(gsum, mesh.data)
+            if accum_steps > 1:
+                grads = torch._foreach_div(grads, float(accum_steps))
+            loss = collectives.all_reduce_sum(lsum, mesh.data) / accum_steps
             state.optimizer.apply(state, grads)
         return loss
 
@@ -630,10 +771,16 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
 
 
 def evaluate(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
-             batch_size: int = 256) -> float:
+             batch_size: int = 256, data=None) -> float:
     """Accuracy (%) of ``model`` in eval mode over an on-device split, in
     batches; one readback at the end. The ResNets' eval forward on the
-    "cuda" backend is one fused kernel launch per conv."""
+    "cuda" backend is one fused kernel launch per conv. With ``data`` (a
+    mesh axis) each of its ranks takes its contiguous share of the rows and
+    the correct counts are summed over the axis (every rank calls it)."""
+    n = images.shape[0]
+    if data is not None and data.size > 1:
+        lo, hi = n * data.index // data.size, n * (data.index + 1) // data.size
+        images, labels = images[lo:hi], labels[lo:hi]
     was_training = model.training
     model.eval()
     correct = torch.zeros((), dtype=torch.int64, device=images.device)
@@ -642,7 +789,9 @@ def evaluate(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
             logits = model(images[i:i + batch_size])
             correct += (logits.argmax(dim=-1) == labels[i:i + batch_size]).sum()
     model.train(was_training)
-    return int(correct) / images.shape[0] * 100.0
+    if data is not None:
+        collectives.all_reduce_sum(correct, data)
+    return int(correct) / n * 100.0
 
 
 # ---------------------------------------------------------------------------
@@ -690,7 +839,8 @@ def train(
     augment: bool = False,
     augment_pad: int = 4,
     accum_steps: int = 1,
-    mesh: Optional[DataMesh] = None,
+    mesh: Optional[Union[DataMesh, Mesh2D]] = None,
+    model_axis: bool = False,
     comm: Optional[CommConfig] = None,
     fused: Optional[FusedStepConfig] = None,
     seed: int = 0,
@@ -705,7 +855,7 @@ def train(
     device: DeviceLike = None,
 ) -> Tuple[ZooState, List[float]]:
     """Epoch driver for a zoo model on an in-memory NHWC dataset (JAX's
-    ``zoo.train`` without GSPMD). ``model`` carries the initial weights and
+    ``zoo.train``). ``model`` carries the initial weights and
     is trained in place on ``device`` (None = the GPU; "cpu" runs the
     kernels' plain versions).
 
@@ -719,35 +869,48 @@ def train(
     a preemption signal stops at the next epoch boundary, after the
     checkpoint. Returns (state, per-epoch mean losses).
 
-    Data parallelism: every rank of a world that parallel/distributed.py
-    started calls ``train`` with its ``mesh`` (then ``device`` is the
-    mesh's) and a ``comm`` (``CommConfig``; psum or ring, JAX's
-    ``_make_comm_step``). ``batch_size`` is the global batch; each rank
-    trains on its rows. ``fused.update`` with the ring is update-on-arrival
+    On a mesh every rank of a world that parallel/distributed.py started
+    calls ``train`` with its ``mesh`` (then ``device`` is the mesh's);
+    ``batch_size`` is the global batch. Without ``comm`` it is JAX's GSPMD
+    path (``_make_gspmd_step``; ``model_axis`` splits the filters over the
+    ``Mesh2D``'s model axis): augmentation draws for the global batch,
+    every rank evaluates its share of the eval rows with the whole model,
+    a checkpoint holds every leaf whole. With a ``comm`` (``CommConfig``;
+    psum or ring, JAX's ``_make_comm_step``) each rank trains on its rows
+    of a data-only mesh. ``fused.update`` with the ring is update-on-arrival
     (``make_fused_train_step``: constant-LR SGD with momentum, no weight
     decay); without a mesh and the ring it is dropped with JAX's fallback
-    line. Rank 0 alone prints, evaluates (over the whole eval set with the
-    replicated params), records metrics and writes checkpoints; a fused
-    state's momentum rows are gathered for it first. Under
-    update-on-arrival the sentinel treats a skipped overflow as handled
-    (``Sentinel.check_scaled``).
+    line. Rank 0 alone prints, records metrics and writes checkpoints (on
+    the explicit path it alone evaluates, over the whole eval set with the
+    replicated params); a fused state's momentum rows, or a split leaf's
+    blocks, are gathered for it first. The sentinel's verdict is agreed
+    over the world. Under update-on-arrival the sentinel treats a skipped
+    overflow as handled (``Sentinel.check_scaled``).
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
+    gspmd = mesh is not None and comm is None
+    if model_axis and not gspmd:
+        raise ValueError("model_axis filter sharding is the GSPMD path: it "
+                         "needs a mesh and no comm")
     if mesh is not None:
         device = mesh.device
+    if gspmd:
+        mesh = as_mesh_2d(mesh)
     dev = resolve_device(device)
     rank = mesh.rank if mesh is not None else 0
     world = mesh.world if mesh is not None else 1
+    n_data = mesh.data.size if gspmd else world
     lead = rank == 0
     verbose = verbose and lead
     steps = images.shape[0] // batch_size
     if steps == 0:
         raise ValueError(f"dataset of {images.shape[0]} samples yields zero "
                          f"batches of {batch_size}")
-    if batch_size % world:
+    if batch_size % (n_data * accum_steps if gspmd else world):
         raise ValueError(f"global batch {batch_size} does not divide over "
-                         f"{world} ranks")
+                         f"{n_data} data ranks"
+                         + (f" × {accum_steps} microbatches" if gspmd else ""))
     if fused is not None and fused.update:
         if mesh is None or comm is None or comm.impl != "ring":
             if verbose:
@@ -775,9 +938,10 @@ def train(
             model, lr=lr, momentum=momentum, accum_steps=accum_steps,
             mesh=mesh, augment_pad=pad, comm=comm, fused=fused)
     else:
-        state = init_state(model, optimizer)
+        state = init_state(model, optimizer, mesh=mesh if gspmd else None,
+                           model_axis=model_axis)
         step = make_train_step(model, optimizer, accum_steps, pad, fused,
-                               mesh=mesh, comm=comm)
+                               mesh=mesh, comm=comm, model_axis=model_axis)
 
     res = resilience
     sentinel = Sentinel() if res is not None and res.policy != "off" else None
@@ -812,7 +976,7 @@ def train(
         d_images = torch.from_numpy(np.asarray(images, np.float32)).to(dev)
         d_labels = torch.from_numpy(np.asarray(labels)).to(dev, torch.int64)
     ev = None
-    if eval_data is not None and lead:
+    if eval_data is not None and (lead or gspmd):
         ev = (torch.from_numpy(np.asarray(eval_data[0], np.float32)).to(dev),
               torch.from_numpy(np.asarray(eval_data[1])).to(dev, torch.int64))
 
@@ -839,16 +1003,18 @@ def train(
         last_good = state.snapshot()
         if controller is not None:
             controller.commit(last_good)
-    local_batch = batch_size // world
+    # The GSPMD step crops its rows of the global batch's draws, from the
+    # single-device stream; the explicit path's ranks draw their own.
+    aug_batch, aug_rank = (batch_size, 0) if gspmd else (batch_size // world, rank)
     epoch = start_epoch
     while epoch < epochs:
         t0 = time.perf_counter()
         aug = None
         if augment:
-            offsets, flips = aug_lib.draw(_aug_generator(seed, epoch, rank),
-                                          steps * local_batch, augment_pad)
-            aug = (offsets.to(dev).view(steps, local_batch, 2),
-                   flips.to(dev).view(steps, local_batch))
+            offsets, flips = aug_lib.draw(_aug_generator(seed, epoch, aug_rank),
+                                          steps * aug_batch, augment_pad)
+            aug = (offsets.to(dev).view(steps, aug_batch, 2),
+                   flips.to(dev).view(steps, aug_batch))
         epoch_loss = torch.zeros((), dtype=torch.float32, device=dev)
         batches = _epoch_batches(loader, d_images, d_labels, np_data,
                                  batch_size, steps, seed, epoch, dev)
@@ -859,6 +1025,9 @@ def train(
         mean_loss = float(epoch_loss) / steps  # the epoch's one readback
         if sentinel is not None:
             verdict = health_check(mean_loss)
+            if _agree(not verdict.healthy, mesh) and verdict.healthy:
+                # A shard elsewhere diverged: this rank follows its verdict.
+                verdict = Verdict(False, "non-finite params on another rank")
             if not verdict.healthy:
                 diverged = f"epoch {epoch + 1}: {verdict.reason}"
                 if res.policy == "raise":
@@ -884,7 +1053,8 @@ def train(
         losses.append(mean_loss)
         seconds = time.perf_counter() - t0
         if ev is not None:
-            accs.append(evaluate(state.model, *ev, batch_size=eval_batch_size))
+            accs.append(evaluate(state.eval_model(), *ev, batch_size=eval_batch_size,
+                                 data=mesh.data if gspmd else None))
         if metrics is not None and lead:
             rec = dict(event="zoo_epoch", epoch=epoch + 1, loss=losses[-1],
                        seconds=seconds)
@@ -911,7 +1081,7 @@ def train(
     return state, losses
 
 
-def _agree(flag: bool, mesh: Optional[DataMesh]) -> bool:
+def _agree(flag: bool, mesh) -> bool:
     """True on every rank when it is true on any (one stop for all)."""
     if mesh is None or mesh.world == 1:
         return flag

@@ -45,10 +45,13 @@ from parallel_cnn_tpu.train import checkpoint as jax_checkpoint
 from parallel_cnn_tpu.train import zoo as jax_zoo
 from parallel_cnn_tpu_torch import cli, convert
 from parallel_cnn_tpu_torch.config import (
+    COMM_DATA_ONLY_ERROR,
     CommConfig,
     FusedStepConfig,
     MeshConfig,
+    MeshLayoutError,
     NotPortedError,
+    check_comm_mesh,
 )
 from parallel_cnn_tpu_torch.ops import sgd_update
 from parallel_cnn_tpu_torch.parallel import distributed
@@ -402,15 +405,18 @@ def test_cli_trains_update_on_arrival_over_two_gloo_ranks(tmp_path):
         assert z[".opt_state/.mom/0"].shape[0] == 2  # both ranks' rows
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--comm-impl", "hierarchical"], "hierarchical"),
-    (["--mesh-model", "2"], "A7"),
-    (["--comm-hosts", "2"], "A9"),
-    (["--pipeline-stages", "2"], "A10"),
-    (["--elastic"], "A11"),
+@pytest.mark.parametrize("argv,err,match", [
+    (["--comm-impl", "hierarchical"], NotPortedError, "hierarchical"),
+    # A zoo model axis is the GSPMD path; the explicit collectives refuse
+    # it with JAX's data-only error.
+    (["--mesh-model", "2", "--comm-impl", "ring"], MeshLayoutError,
+     "data-parallel only"),
+    (["--comm-hosts", "2"], NotPortedError, "A9"),
+    (["--pipeline-stages", "2"], NotPortedError, "A10"),
+    (["--elastic"], NotPortedError, "A11"),
 ])
-def test_cli_refuses_unported_paths(argv, match):
-    with pytest.raises(NotPortedError, match=match):
+def test_cli_refuses_unported_paths(argv, err, match):
+    with pytest.raises(err, match=match):
         cli.main(["--device", "cpu", "--model", "cifar_cnn", "--mesh-data", "2",
                   *argv])
 
@@ -418,11 +424,12 @@ def test_cli_refuses_unported_paths(argv, match):
 def test_typed_config_errors():
     with pytest.raises(NotPortedError, match="hierarchical"):
         CommConfig(impl="hierarchical")
-    # The model axis is LeNet-ref's (parallel/intra_op.py); for a zoo model
-    # it is JAX's GSPMD path, still to be ported.
+    # A zoo model axis is JAX's GSPMD path; only the explicit collectives
+    # (comm) refuse it, with JAX's data-only error.
     assert MeshConfig(data=2, model=2).model == 2
-    with pytest.raises(NotPortedError, match="A7"):
-        zoo.check_mesh_config(MeshConfig(data=2, model=2))
+    assert check_comm_mesh(MeshConfig(data=2, model=2), None) is None
+    with pytest.raises(MeshLayoutError, match=re.escape(COMM_DATA_ONLY_ERROR)):
+        check_comm_mesh(MeshConfig(data=2, model=2), CommConfig(impl="ring"))
     with pytest.raises(NotPortedError, match="zero=3"):
         FusedStepConfig(zero=3)
     with pytest.raises(ValueError, match="zero level"):
@@ -457,8 +464,12 @@ def test_fused_update_refuses_schedules_and_the_gspmd_path():
         zoo.train(ranks.tiny_model(), x, y, batch_size=16, device="cpu", mesh=mesh,
                   comm=CommConfig(impl="ring"), lr_schedule="cosine",
                   fused=FusedStepConfig(act_dtype="float32"))
-    with pytest.raises(NotPortedError, match="GSPMD"):
-        zoo.make_train_step(ranks.tiny_model(), zoo.make_optimizer(), mesh=mesh)
+    # A mesh without comm is the GSPMD step (a data-only mesh of one rank).
+    assert callable(zoo.make_train_step(ranks.tiny_model(), zoo.make_optimizer(),
+                                        mesh=mesh))
+    with pytest.raises(ValueError, match="model_axis sharding stays on the GSPMD"):
+        zoo.make_train_step(ranks.tiny_model(), zoo.make_optimizer(), mesh=mesh,
+                            comm=CommConfig(impl="ring"), model_axis=True)
     with pytest.raises(ValueError, match="requires a mesh"):
         zoo.make_train_step(ranks.tiny_model(), zoo.make_optimizer(),
                             comm=CommConfig(impl="ring"))

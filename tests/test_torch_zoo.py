@@ -34,6 +34,7 @@ from parallel_cnn_tpu.train import zoo as jax_zoo
 from parallel_cnn_tpu_torch import cli, convert
 from parallel_cnn_tpu_torch.config import (
     FusedStepConfig,
+    MeshLayoutError,
     NotPortedError,
     ResilienceConfig,
 )
@@ -492,9 +493,10 @@ def test_cli_cifar_cnn_fused_step_resumes(tmp_path):
     (["--model", "resnet18", "--fused-step", "--act-dtype", "bfloat16"],
      NotPortedError, "A8b"),
     (["--model", "resnet18", "--act-dtype", "float32"], SystemExit, None),
-    # A mesh without --comm-impl is JAX's GSPMD path; comm without a mesh
-    # has nothing to run over.
-    (["--model", "resnet18", "--mesh-data", "2"], NotPortedError, "A7"),
+    # The explicit collectives refuse a model axis (JAX's data-only error);
+    # comm without a mesh has nothing to run over.
+    (["--model", "resnet18", "--mesh-model", "2", "--comm-impl", "ring"],
+     MeshLayoutError, "data-parallel only"),
     (["--model", "resnet18", "--comm-impl", "ring"], SystemExit, None),
     (["--model", "cifar_cnn", "--conv-backend", "cuda"], SystemExit, None),
     (["--model", "resnet18", "--batch-size", "1"], SystemExit, None),
@@ -503,7 +505,7 @@ def test_cli_cifar_cnn_fused_step_resumes(tmp_path):
 def test_cli_refuses_what_is_not_ported(argv, err, item):
     with contextlib.redirect_stderr(io.StringIO()), pytest.raises(err) as info:
         cli.main(["--device", "cpu"] + argv)
-    if err is NotPortedError:
+    if err in (NotPortedError, MeshLayoutError):
         assert item in str(info.value)
 
 
