@@ -46,6 +46,19 @@ port's two paths through their user-facing entry points:
   B16) in turns with copy_ and B15 with the L2 cold, and the launch floor
   (an empty kernel, timed as the kernels are).
 
+- ResNet-50 and VGG-16 at full width (zoo50, imagenet, vgg, serve50):
+  the trainer's CLI on ResNet-50 (CIFAR stem, b128 in two microbatches)
+  and VGG-16 (CIFAR head, b128) with every conv's forward, dgrad and
+  wgrad through the hand kernels and the loss through the fused tail,
+  exact launch counts derived from the models' convs, a resumed run,
+  kernel steps against plain steps, every distinct ResNet-50 conv and the
+  ImageNet stem at 224x224 against the plain twins, profiled epochs; the
+  library resnet50() at ImageNet shape with its 7x7x2048 -> 1,000 tail;
+  serving both models from JAX-format checkpoints;
+- the native C++ runtime (native): the idx parser against NumPy's, and
+  --prefetch native and the zoo's --zoo-loader native against their
+  NumPy twin, bit for bit, with the library built from native/*.cc.
+
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
 staged conv and FC forwards (B3, B5) in turns with their library calls at
@@ -72,6 +85,7 @@ import faulthandler
 import io
 import itertools
 import json
+import os
 import shutil
 import sys
 import time
@@ -92,11 +106,11 @@ from parallel_cnn_tpu_torch.config import (
     TrainConfig,
 )
 from parallel_cnn_tpu_torch.benches import mosaic_probe as probe_bench
-from parallel_cnn_tpu_torch.data import pipeline, synthetic
+from parallel_cnn_tpu_torch.data import mnist, native, pipeline, synthetic
 from parallel_cnn_tpu_torch.models import lenet_ref
-from parallel_cnn_tpu_torch.nn import resnet
-from parallel_cnn_tpu_torch.nn.layers import BatchNorm, ConvBNAct
-from parallel_cnn_tpu_torch.nn.resnet import BasicBlock
+from parallel_cnn_tpu_torch.nn import resnet, vgg
+from parallel_cnn_tpu_torch.nn.layers import BatchNorm, Conv2D, ConvBNAct
+from parallel_cnn_tpu_torch.nn.resnet import BasicBlock, Bottleneck
 from parallel_cnn_tpu_torch.ops import (
     lenet_fused,
     lenet_staged,
@@ -1576,13 +1590,13 @@ def time_staged_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def grad_inputs(h, cin, cout, k, stride, gen):
-    """x, w and an output gradient g for one conv geometry at ZOO_BATCH."""
-    x = torch.randn((ZOO_BATCH, h, h, cin), generator=gen, device="cuda")
+def grad_inputs(h, cin, cout, k, stride, gen, batch=ZOO_BATCH):
+    """x, w and an output gradient g for one conv geometry at ``batch``."""
+    x = torch.randn((batch, h, h, cin), generator=gen, device="cuda")
     w = torch.randn((k, k, cin, cout), generator=gen, device="cuda")
     w *= (2.0 / (k * k * cin)) ** 0.5
     oh = -(-h // stride)
-    g = torch.randn((ZOO_BATCH, oh, oh, cout), generator=gen, device="cuda")
+    g = torch.randn((batch, oh, oh, cout), generator=gen, device="cuda")
     return x, w, g
 
 
@@ -1783,28 +1797,32 @@ def zoo_phase(card) -> dict:
     return launches
 
 
-def profiled_zoo_epoch(label: str, backend: str, mesh=None):
-    """Where a ResNet-18 training epoch's time goes: one warm epoch of
-    ZOO_STEPS steps on the conv ``backend`` (batches gathered on the card,
-    one loss readback) under torch.profiler (CUDA activity only), through
-    the GSPMD step on ``mesh`` when given. Returns (img/s, device ops a
-    step, idle share), or None when the profiler saw no device events."""
-    imgs, labels = synthetic.make_image_dataset(ZOO_TRAIN_COUNT, seed=1234)
+def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
+                       batch: int = ZOO_BATCH, steps: int = ZOO_STEPS, accum: int = 1):
+    """Where a zoo training epoch's time goes: one warm epoch of ``steps``
+    steps of ``batch`` (``accum`` microbatches each) on the conv
+    ``backend`` (batches gathered on the card, one loss readback) under
+    torch.profiler (CUDA activity only), through the GSPMD step on
+    ``mesh`` when given. ``build(backend, generator)`` makes the model,
+    ResNet-18 by default. Returns (img/s, device ops a step, idle share),
+    or None when the profiler saw no device events."""
+    count = steps * batch
+    imgs, labels = synthetic.make_image_dataset(count, seed=1234)
     xs = torch.from_numpy(imgs).cuda()
     ys = torch.from_numpy(labels).to("cuda", torch.int64)
-    model = resnet.resnet18(10, backend=backend,
-                            generator=torch.Generator().manual_seed(0)).cuda()
+    build = build or (lambda b, g: resnet.resnet18(10, backend=b, generator=g))
+    model = build(backend, torch.Generator().manual_seed(0)).cuda()
     state = zoo.init_state(model, zoo.make_optimizer(0.1), mesh=mesh)
-    step = zoo.make_train_step(model, state.optimizer, fused=ZOO_FUSED, mesh=mesh)
+    step = zoo.make_train_step(model, state.optimizer, accum, fused=ZOO_FUSED, mesh=mesh)
 
     def epoch():
-        perm = torch.randperm(ZOO_TRAIN_COUNT, generator=torch.Generator().manual_seed(0))
+        perm = torch.randperm(count, generator=torch.Generator().manual_seed(0))
         perm = perm.cuda()
         total = torch.zeros((), device="cuda")
-        for i in range(ZOO_STEPS):
-            j = perm[i * ZOO_BATCH:(i + 1) * ZOO_BATCH]
+        for i in range(steps):
+            j = perm[i * batch:(i + 1) * batch]
             total = total + step(state, xs[j], ys[j])
-        return float(total) / ZOO_STEPS
+        return float(total) / steps
 
     epoch()  # warm: allocator, libraries
     torch.cuda.synchronize()
@@ -1821,23 +1839,24 @@ def profiled_zoo_epoch(label: str, backend: str, mesh=None):
         print("[smoke] profiled zoo epoch: device time not measured (the "
               "profiler saw no device events)", flush=True)
         return None
-    print(f"[smoke] profiled zoo epoch ({label}, b{ZOO_BATCH}, {ZOO_STEPS} steps): "
-          f"wall {wall_ms:.1f} ms ({ZOO_TRAIN_COUNT / wall_ms * 1e3:.0f} img/s), "
+    print(f"[smoke] profiled zoo epoch ({label}, b{batch}, {steps} steps"
+          f"{f', {accum} microbatches a step' if accum > 1 else ''}): "
+          f"wall {wall_ms:.1f} ms ({count / wall_ms * 1e3:.0f} img/s), "
           f"device busy {dev_ms:.1f} ms ({dev_ms / wall_ms:.1%}), idle "
-          f"{1 - dev_ms / wall_ms:.1%}; {n_ops / ZOO_STEPS:.1f} device ops per "
-          f"step, {wall_ms / ZOO_STEPS:.2f} ms per step", flush=True)
+          f"{1 - dev_ms / wall_ms:.1%}; {n_ops / steps:.1f} device ops per "
+          f"step, {wall_ms / steps:.2f} ms per step", flush=True)
     split = dict.fromkeys(("dgrad", "wgrad", "forward", "other"), 0.0)
     for e in kernels:
         part = ("dgrad" if "tap_dgrad_kernel" in e.key else
                 "wgrad" if "wgrad_partial_kernel" in e.key or "wgrad_sum_kernel" in e.key
                 else "forward" if "tap_conv_kernel" in e.key else "other")
-        split[part] += e.self_device_time_total / 1e3 / ZOO_STEPS
+        split[part] += e.self_device_time_total / 1e3 / steps
     print("[smoke] profiled zoo epoch device ms per step: " + ", ".join(
         f"{part} {ms:.3f}" for part, ms in split.items()), flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
-    return ZOO_TRAIN_COUNT / wall_ms * 1e3, n_ops / ZOO_STEPS, 1 - dev_ms / wall_ms
+    return count / wall_ms * 1e3, n_ops / steps, 1 - dev_ms / wall_ms
 
 
 def profiled_gspmd_epoch_rank(mesh):
@@ -2606,6 +2625,568 @@ def time_probe_kernels() -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# ResNet-50 and VGG-16 at full width (zoo50, imagenet, vgg, serve50), and
+# the native C++ idx parser and prefetch ring (native)
+# ---------------------------------------------------------------------------
+
+# Every distinct conv of ResNet-50 (CIFAR stem, 32x32 input) with its eval
+# epilogue and its count in one forward (name, H, Cin, Cout, k, stride,
+# residual, relu, count): the stem, 16 bottlenecks (1x1 reduce, 3x3 mid
+# with the stride, 1x1 expand with the residual) and 4 projections.
+R50_GEOMETRIES = [
+    ("stem 3x3/s1 3->64", 32, 3, 64, 3, 1, False, True, 1),
+    ("1x1 64->64 reduce", 32, 64, 64, 1, 1, False, True, 1),
+    ("3x3/s1 64 mid", 32, 64, 64, 3, 1, False, True, 3),
+    ("1x1 64->256 expand+res", 32, 64, 256, 1, 1, True, True, 3),
+    ("1x1 64->256 proj", 32, 64, 256, 1, 1, False, False, 1),
+    ("1x1 256->64 reduce", 32, 256, 64, 1, 1, False, True, 2),
+    ("1x1 256->128 reduce", 32, 256, 128, 1, 1, False, True, 1),
+    ("3x3/s2 128 mid", 32, 128, 128, 3, 2, False, True, 1),
+    ("1x1 128->512 expand+res", 16, 128, 512, 1, 1, True, True, 4),
+    ("1x1/s2 256->512 proj", 32, 256, 512, 1, 2, False, False, 1),
+    ("1x1 512->128 reduce", 16, 512, 128, 1, 1, False, True, 3),
+    ("3x3/s1 128 mid", 16, 128, 128, 3, 1, False, True, 3),
+    ("1x1 512->256 reduce", 16, 512, 256, 1, 1, False, True, 1),
+    ("3x3/s2 256 mid", 16, 256, 256, 3, 2, False, True, 1),
+    ("1x1 256->1024 expand+res", 8, 256, 1024, 1, 1, True, True, 6),
+    ("1x1/s2 512->1024 proj", 16, 512, 1024, 1, 2, False, False, 1),
+    ("1x1 1024->256 reduce", 8, 1024, 256, 1, 1, False, True, 5),
+    ("3x3/s1 256 mid", 8, 256, 256, 3, 1, False, True, 5),
+    ("1x1 1024->512 reduce", 8, 1024, 512, 1, 1, False, True, 1),
+    ("3x3/s2 512 mid", 8, 512, 512, 3, 2, False, True, 1),
+    ("1x1 512->2048 expand+res", 4, 512, 2048, 1, 1, True, True, 3),
+    ("1x1/s2 1024->2048 proj", 8, 1024, 2048, 1, 2, False, False, 1),
+    ("1x1 2048->512 reduce", 4, 2048, 512, 1, 1, False, True, 2),
+    ("3x3/s1 512 mid", 4, 512, 512, 3, 1, False, True, 2),
+]
+# The library resnet50()'s ImageNet stem at 224x224, at its batch.
+STEM224 = ("stem 7x7/s2 3->64 at 224", 224, 3, 64, 7, 2, False, True, 1)
+STEM224_BATCH = 32
+# VGG-16's 13 convs on 32x32 input: no epilogue (the bias is added after
+# the kernel; BN and ReLU are layers of their own).
+VGG_GEOMETRIES = [
+    ("3x3 3->64 at 32", 32, 3, 64, 3, 1, False, False, 1),
+    ("3x3 64 at 32", 32, 64, 64, 3, 1, False, False, 1),
+    ("3x3 64->128 at 16", 16, 64, 128, 3, 1, False, False, 1),
+    ("3x3 128 at 16", 16, 128, 128, 3, 1, False, False, 1),
+    ("3x3 128->256 at 8", 8, 128, 256, 3, 1, False, False, 1),
+    ("3x3 256 at 8", 8, 256, 256, 3, 1, False, False, 2),
+    ("3x3 256->512 at 4", 4, 256, 512, 3, 1, False, False, 1),
+    ("3x3 512 at 4", 4, 512, 512, 3, 1, False, False, 2),
+    ("3x3 512 at 2", 2, 512, 512, 3, 1, False, False, 3),
+]
+# zoo50: the CLI on full-width, full-depth ResNet-50 (CIFAR stem) at b128 in
+# two microbatches, 2 epochs of Z50_STEPS steps, eval in batches of 256.
+Z50_BATCH = 128
+Z50_ACCUM = 2
+Z50_STEPS = 8
+Z50_TRAIN_COUNT = Z50_STEPS * Z50_BATCH
+Z50_TEST_COUNT = 512
+Z50_LR = 0.05
+# imagenet: the library resnet50() (ImageNet stem, 1,000 classes) on 224x224
+# images, steps on one batch of 32 in two microbatches.
+IMAGENET_BATCH = 32
+IMAGENET_ACCUM = 2
+IMAGENET_STEPS = 4
+IMAGENET_LR = 0.05
+# vgg: the CLI on VGG-16 (CIFAR head) at b128, 2 epochs of VGG_STEPS steps.
+VGG_STEPS = 10
+VGG_TRAIN_COUNT = VGG_STEPS * ZOO_BATCH
+VGG_LR = 0.01
+SERVE50_REQUESTS = 128
+# native: idx files of this many images, and the zoo's ring on ResNet-18.
+NATIVE_IDX_COUNT = 10_000
+NATIVE_ZOO_STEPS = 10
+
+
+def conv_geometries(model, in_shape) -> list:
+    """Every distinct conv that one eval forward of ``model`` on one CPU
+    image runs, read by hooks: [(H, Cin, Cout, k, stride, residual, relu,
+    count)] in first-use order."""
+    seen = {}
+
+    def hook(m, args, kwargs, out):
+        w = m.conv["w"] if isinstance(m, ConvBNAct) else m.w
+        key = (int(args[0].shape[1]), int(w.shape[2]), int(w.shape[3]), int(w.shape[0]),
+               m.stride, kwargs.get("residual") is not None,
+               isinstance(m, ConvBNAct) and m.relu)
+        seen[key] = seen.get(key, 0) + 1
+
+    handles = [m.register_forward_hook(hook, with_kwargs=True) for m in model.modules()
+               if isinstance(m, (ConvBNAct, Conv2D))]
+    with torch.inference_mode():
+        model.eval()(torch.zeros((1,) + tuple(in_shape)))
+    for handle in handles:
+        handle.remove()
+    return [key + (n,) for key, n in seen.items()]
+
+
+def check_geometry_table(label, model, table) -> int:
+    """Fail unless ``table`` lists exactly the convs a forward of ``model``
+    runs; returns how many convs a forward runs."""
+    walked = sorted(conv_geometries(model, (32, 32, 3)))
+    if walked != sorted(g[1:] for g in table):
+        fail(f"{label}: the conv table is not the model's convs: {walked}")
+    return sum(g[-1] for g in walked)
+
+
+def geometry_checks(label, geometries, batch, gen) -> tuple:
+    """B10's forward (with the geometry's eval epilogue: folded BN,
+    residual, ReLU) and dgrad and B11 at each geometry at ``batch``,
+    against their plain twins (GRAD_RTOL of the output's scale, relaunch
+    bit for bit), and timed beside the plain twin, the library call and the
+    bound. A stem's dgrad is not on the path (its input batch needs no
+    gradient) and is skipped. Returns each kernel's largest difference and
+    its times summed over one forward's or one microbatch's convs."""
+    errs = dict.fromkeys(("tap_conv", "tap_conv_dgrad", "tap_wgrad"), 0.0)
+    sums = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms"), 0.0)
+            for key in errs}
+    for name, h, cin, cout, k, s, res_on, relu, count in geometries:
+        x, w, g = grad_inputs(h, cin, cout, k, s, gen, batch)
+        scale = torch.rand((cout,), generator=gen, device="cuda") + 0.5
+        shift = 0.1 * torch.randn((cout,), generator=gen, device="cuda")
+        res = torch.randn_like(g) if res_on else None
+        tag = f"{label} {name:26s} b{batch}"
+        kinds = [("tap_conv", None)] + ([] if name.startswith("stem") else
+                                        [("tap_conv_dgrad", True)]) + [("tap_wgrad", False)]
+        for key, dgrad in kinds:
+            if key == "tap_conv":
+                fn = lambda: tap_conv.conv2d_fused(  # noqa: E731
+                    x, w, scale, shift, res, s, relu)
+                plain_fn = lambda: tap_conv.conv2d_fused_plain(  # noqa: E731
+                    x, w, scale, shift, res, s, relu)
+                lib = library_call(x, w, scale, shift, res, s, relu)
+                bound, by = bound_ms(x, w, s, tuple(g.shape), res_on)
+            elif dgrad:
+                fn = lambda: tap_conv.conv2d_dgrad(g, w, x.shape, s)  # noqa: E731
+                plain_fn = lambda: tap_conv.conv2d_dgrad_plain(g, w, x.shape, s)  # noqa: E731
+                lib = library_grad(x, w, g, s, True)
+                bound, by = grad_bound_ms(x.shape, k, cin, cout, s, True)
+            else:
+                fn = lambda: tap_wgrad.conv2d_wgrad(x, g, k, s)  # noqa: E731
+                plain_fn = lambda: tap_wgrad.conv2d_wgrad_plain(x, g, k, s)  # noqa: E731
+                lib = library_grad(x, w, g, s, False)
+                bound, by = grad_bound_ms(x.shape, k, cin, cout, s, False)
+            got, again = fn(), fn()
+            with plain_reference():
+                want = plain_fn()
+            torch.cuda.synchronize()
+            errs[key] = max(errs[key], within(f"{tag} {key}", got, want, again))
+            ms = cuda_ms(fn, reps=10)
+            with plain_reference():
+                plain = cuda_ms(plain_fn, reps=3, warmup=1)
+            lib_ms = cuda_ms(lib, reps=10)
+            print(f"[smoke] time {tag} {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"library {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                  f"{bound / ms:.1%} of bound", flush=True)
+            for field, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                             ("bound_ms", bound)):
+                sums[key][field] += count * v
+        del x, w, g, res
+    for key, rec in sums.items():
+        print(f"[smoke] time {label} {key} summed over the convs of one "
+              f"{'forward' if key == 'tap_conv' else 'microbatch'} at b{batch}: "
+              + ", ".join(f"{f} {v:.3f}" for f, v in rec.items()), flush=True)
+    return errs, sums
+
+
+def zoo50_phase(card) -> tuple:
+    """ResNet-50 (CIFAR stem, 10 classes) on the card: (a) the CLI at full
+    width and depth, b128 in two microbatches, its exact launch counts and
+    a falling loss; (b) a resumed run against the straight one; (c) 3
+    kernel steps against 3 plain steps; (d) every distinct conv at b128
+    and the ImageNet stem at 224x224 against the plain twins, timed.
+    Returns (launches of (a), the largest differences of (d), the times of
+    (d))."""
+    work = BUILD_DIR / "smoke_zoo50"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    convs = check_geometry_table("zoo50", resnet.resnet50(10, cifar_stem=True),
+                                 R50_GEOMETRIES)
+    base = ["--model", "resnet50", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--accum-steps", str(Z50_ACCUM),
+            "--batch-size", str(Z50_BATCH), "--lr", str(Z50_LR),
+            "--synthetic-train-count", str(Z50_TRAIN_COUNT),
+            "--synthetic-test-count", str(Z50_TEST_COUNT)]
+
+    # (a) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] zoo50 (a): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    t0 = time.perf_counter()
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                          "--metrics", str(work / "a.jsonl")])
+    wall = time.perf_counter() - t0
+    launches = zoo_counts()
+    losses = epoch_losses(out)
+    micro = 2 * Z50_STEPS * Z50_ACCUM
+    evals = 2 * -(-Z50_TEST_COUNT // ZOO_EVAL_BATCH)
+    # Each microbatch: every conv's forward, dgrad (not the stem's: its
+    # input batch needs no gradient) and wgrad, and one fused tail; each
+    # eval batch: every conv's fused forward.
+    want = {"tap_conv": convs * (micro + evals), "tap_conv_dgrad": (convs - 1) * micro,
+            "tap_wgrad": convs * micro, "tail_ce": micro}
+    with open(work / "a.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(Z50_TRAIN_COUNT / r["seconds"]) for r in recs]
+    print(f"[smoke] zoo50 (a): {convs} convs a forward; {micro} microbatches and "
+          f"{evals} eval batches give forward {convs} x ({micro} + {evals}), dgrad "
+          f"{convs - 1} x {micro}, wgrad {convs} x {micro}, tail 1 x {micro} = "
+          f"{want}; launched {launches}; epoch losses {losses}; img/s per epoch "
+          f"{rates} (host clock, first epoch cold); eval accuracy "
+          f"{[r['accuracy'] for r in recs]}; {wall:.1f} s for the run on {card}",
+          flush=True)
+    if launches != want:
+        fail("the ResNet-50 run did not launch each kernel exactly as often as its "
+             "microbatches and eval batches need")
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        fail("the ResNet-50 run's loss is not finite or did not fall from epoch 1 to 2")
+
+    # (b) 1 epoch, then --resume to 2: the straight run's state, bit for bit.
+    print("[smoke] zoo50 (b): --epochs 1, then --epochs 2 --resume, vs (a)", flush=True)
+    split = work / "split"
+    run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] zoo50 (b): resumed state ({len(a)} leaves: params, BN stats, "
+          f"momentum) {'bit-identical to the straight run' if same else 'DIFFERS'}",
+          flush=True)
+    if "resumed from" not in out or not same:
+        fail("the resumed ResNet-50 run is not bit-identical to the straight run")
+
+    # (c) 3 kernel steps vs 3 plain steps at zoo (c)'s LR and bounds.
+    kern_vs_plain_steps(
+        "zoo50 (c)", lambda b: resnet.resnet50(
+            10, cifar_stem=True, backend=b, generator=torch.Generator().manual_seed(0)),
+        synthetic.make_image_dataset(3 * Z50_BATCH, seed=11), Z50_BATCH, Z50_ACCUM,
+        resync=True)
+
+    # (d) every conv at the path's shapes, and the ImageNet stem.
+    gen = torch.Generator(device="cuda").manual_seed(50)
+    errs, times = geometry_checks("zoo50 (d)", R50_GEOMETRIES, Z50_BATCH, gen)
+    stem_errs, _ = geometry_checks("zoo50 (d)", [STEM224], STEM224_BATCH, gen)
+    for key, v in stem_errs.items():
+        errs[key] = max(errs[key], v)
+    return launches, errs, times
+
+
+def kern_vs_plain_steps(label, build, data, batch, accum, resync=False) -> None:
+    """3 steps of the model on the kernels (fused tail) against 3 on the
+    plain twins (cuDNN off, TF32 off), from one init at zoo (c)'s LR;
+    fails past zoo (c)'s bounds. ``resync`` starts each plain step from the
+    kernel path's state (params, BN statistics, momentum): a net whose
+    train steps turn f32 rounding into a growing drift (ResNet-50 at init:
+    the plain path's own f32 and f64 steps part by 1.4e-2 in the third
+    loss) is then held step by step, each step to the same bounds."""
+    imgs, labels = data
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    opt = zoo.make_optimizer(ZOO_CHECK_LR)
+    kern, plain = build("cuda").cuda(), build("torch").cuda()
+    sk, sp = zoo.init_state(kern, opt), zoo.init_state(plain, opt)
+    step_k = zoo.make_train_step(kern, opt, accum, fused=ZOO_FUSED)
+    step_p = zoo.make_train_step(plain, opt, accum)
+    loss_diff = param_diff = stat_diff = 0.0
+    for i in range(3):
+        sl = slice(i * batch, (i + 1) * batch)
+        if resync and i:
+            sp.load(sk.snapshot())
+        lk = step_k(sk, xs[sl], ys[sl])
+        with plain_reference():
+            lp = step_p(sp, xs[sl], ys[sl])
+        loss_diff = max(loss_diff, abs(float(lk) - float(lp)))
+        if resync or i == 2:
+            pk, pp = kern.state_dict(), plain.state_dict()
+            param_diff = max(param_diff, *(float((pk[n] - pp[n]).abs().max())
+                                           for n, _ in kern.named_parameters()))
+            stat_diff = max(stat_diff, *(float((pk[n] - pp[n]).abs().max())
+                                         for n, _ in kern.named_buffers()))
+    ok = loss_diff <= ZOO_LOSS_ATOL and param_diff <= ZOO_PARAM_ATOL
+    print(f"[smoke] {label}: 3 kernel steps vs 3 plain steps "
+          f"{'(each from the kernel path state) ' if resync else ''}(lr {ZOO_CHECK_LR}, "
+          f"b{batch}, {accum} microbatch{'es' if accum > 1 else ''}): max |Δloss| "
+          f"{loss_diff:.3e} (tol {ZOO_LOSS_ATOL:.0e}), max |Δparams| {param_diff:.3e} "
+          f"(tol {ZOO_PARAM_ATOL:.0e}), max |ΔBN stats| {stat_diff:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{label}: the kernel steps drifted from the plain steps")
+
+
+def imagenet_phase(card) -> tuple:
+    """The library resnet50() (ImageNet stem with its SAME max pool, 1,000
+    classes) on 224x224 images: IMAGENET_STEPS steps on one batch in two
+    microbatches, exact launch counts, a finite falling loss; then the gap
+    tail at 7x7x2048 -> 1,000 on the trained trunk's features against its
+    plain twin. Returns (launches, the tail's largest difference)."""
+    model = resnet.resnet50(generator=torch.Generator().manual_seed(0)).cuda()
+    convs = sum(m.__class__ is ConvBNAct for m in model.modules())
+    imgs, labels = synthetic.make_image_dataset(IMAGENET_BATCH, hw=(224, 224),
+                                                classes=1000, seed=5)
+    x = torch.from_numpy(imgs).cuda()
+    y = torch.from_numpy(labels).to("cuda", torch.int64)
+    opt = zoo.make_optimizer(IMAGENET_LR)
+    state = zoo.init_state(model, opt)
+    step = zoo.make_train_step(model, opt, IMAGENET_ACCUM, fused=ZOO_FUSED)
+    reset_zoo_counts()
+    t0 = time.perf_counter()
+    losses = [float(step(state, x, y)) for _ in range(IMAGENET_STEPS)]
+    wall = time.perf_counter() - t0
+    launches = zoo_counts()
+    micro = IMAGENET_STEPS * IMAGENET_ACCUM
+    want = {"tap_conv": convs * micro, "tap_conv_dgrad": (convs - 1) * micro,
+            "tap_wgrad": convs * micro, "tail_ce": micro}
+    print(f"[smoke] imagenet (a): resnet50() at 224x224, b{IMAGENET_BATCH} in "
+          f"{IMAGENET_ACCUM} microbatches, lr {IMAGENET_LR}: losses "
+          f"{[round(v, 4) for v in losses]}; launches {launches} (expected {want}); "
+          f"{wall:.2f} s for {IMAGENET_STEPS} steps, the first cold, on {card}",
+          flush=True)
+    if launches != want:
+        fail("the ImageNet-shape ResNet-50 steps did not launch each kernel as often "
+             "as their microbatches need")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail("the ImageNet-shape ResNet-50 loss is not finite or did not fall")
+    with torch.no_grad():  # the trunk as the step runs it: batch statistics
+        feats = x
+        for layer in list(model)[:-2]:
+            feats = layer(feats)
+    dense = model[-1]
+    w, b = dense.w.detach(), dense.b.detach()
+    if tuple(feats.shape) != (IMAGENET_BATCH, 7, 7, 2048):
+        fail(f"the ImageNet trunk gives {tuple(feats.shape)}, not 7x7x2048")
+    got, again = tail.tail_forward(feats, w, b, y, "gap"), tail.tail_forward(feats, w, b, y, "gap")
+    want_t = tail.tail_forward_plain(feats, w, b, y, "gap")
+    torch.cuda.synchronize()
+    err = max(within(f"imagenet (a) tail_ce gap 7x7x2048->1000 {part}", g, r, a)
+              for part, g, r, a in zip(("loss", "dlogits"), got, want_t, again))
+    args = (feats.contiguous(), w, b, y)
+    ms = cuda_ms(lambda: tail.tail_forward(*args, "gap"), reps=100)
+    plain = cuda_ms(lambda: tail.tail_forward_plain(*args, "gap"), reps=20)
+    bound, by = tail_bound_ms(feats, w)
+    print(f"[smoke] time imagenet (a) tail_ce gap 7x7x2048->1000 b{IMAGENET_BATCH}: kernel "
+          f"{ms:.5f} ms, plain {plain:.4f} ms, library none, bound {bound:.6f} ms ({by}), "
+          f"{bound / ms:.1%} of bound", flush=True)
+    return launches, err
+
+
+def vgg_phase(card) -> dict:
+    """VGG-16 (CIFAR head) on the card: (a) the CLI with every conv through
+    B10/B11 and the gap head through the fused tail, b128, exact launch
+    counts and a falling loss; (b) 3 kernel steps against 3 plain steps on
+    noise images (ReLU → max pool windows of the synthetic set's plateaus
+    tie up to rounding). Returns the launches of (a)."""
+    work = BUILD_DIR / "smoke_vgg"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    convs = check_geometry_table("vgg", vgg.vgg16(10), VGG_GEOMETRIES)
+    base = ["--model", "vgg16", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--batch-size", str(ZOO_BATCH), "--lr", str(VGG_LR),
+            "--synthetic-train-count", str(VGG_TRAIN_COUNT),
+            "--synthetic-test-count", str(Z50_TEST_COUNT)]
+    print(f"[smoke] vgg (a): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    out = run_cli(base + ["--epochs", "2", "--metrics", str(work / "a.jsonl")])
+    launches = zoo_counts()
+    losses = epoch_losses(out)
+    steps = 2 * VGG_STEPS
+    evals = 2 * -(-Z50_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": convs * (steps + evals), "tap_conv_dgrad": (convs - 1) * steps,
+            "tap_wgrad": convs * steps, "tail_ce": steps}
+    with open(work / "a.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(VGG_TRAIN_COUNT / r["seconds"]) for r in recs]
+    print(f"[smoke] vgg (a): {convs} convs; {steps} steps and {evals} eval batches give "
+          f"forward {convs} x ({steps} + {evals}), dgrad {convs - 1} x {steps}, wgrad "
+          f"{convs} x {steps}, tail 1 x {steps} = {want}; launched {launches}; epoch "
+          f"losses {losses}; img/s per epoch {rates} (host clock, first epoch cold) "
+          f"on {card}", flush=True)
+    if launches != want:
+        fail("the VGG-16 run did not launch each kernel exactly as often as its steps "
+             "and eval batches need")
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        fail("the VGG-16 run's loss is not finite or did not fall from epoch 1 to 2")
+    rng = np.random.default_rng(16)
+    noise = (rng.uniform(0, 1, (3 * ZOO_BATCH, 32, 32, 3)).astype(np.float32),
+             rng.integers(0, 10, 3 * ZOO_BATCH).astype(np.int32))
+    kern_vs_plain_steps("vgg (b)", lambda b: vgg.vgg16(
+        10, backend=b, generator=torch.Generator().manual_seed(0)), noise, ZOO_BATCH, 1)
+    return launches
+
+
+def plain_model_forward(model, x):
+    """``plain_forward`` for any zoo model of the port: every conv through
+    the plain version of the tap-conv kernel, BN folded here, the
+    bottleneck and basic blocks walked by hand."""
+
+    def cba(m, v, residual=None):
+        bn = m.bn
+        scale = bn.scale / torch.sqrt(bn.var + bn.eps)
+        shift = bn.bias - bn.mean * scale
+        return tap_conv.conv2d_fused_plain(v, m.conv["w"], scale, shift,
+                                           residual, m.stride, m.relu)
+
+    for layer in model:
+        if isinstance(layer, ConvBNAct):
+            x = cba(layer, x)
+        elif isinstance(layer, (BasicBlock, Bottleneck)):
+            sc = cba(layer.proj[0], x) if layer.proj is not None else x
+            *head, last = layer.main
+            for m in head:
+                x = cba(m, x)
+            x = cba(last, x, sc)
+        elif isinstance(layer, Conv2D):
+            x = tap_conv.conv2d_plain(x, layer.w, layer.stride) + layer.b
+        else:
+            x = layer(x)
+    return x
+
+
+def serve50_phase(card) -> tuple:
+    """``serve --model resnet50`` and ``--model vgg16`` on the card from a
+    JAX-format checkpoint of random weights and BN statistics: the padded
+    bucket bit-identical, a closed loop of SERVE50_REQUESTS, and 32 answers
+    against the plain forward of the written model. Returns the tap-conv
+    launches and the largest logit difference."""
+    total, worst = 0, 0.0
+    for name in ("resnet50", "vgg16"):
+        handle = get(name)
+        host = random_bn(handle.init(seed=0), seed=0)
+        convs = sum(isinstance(m, (ConvBNAct, Conv2D)) for m in host.modules())
+        ckpt = BUILD_DIR / f"smoke_{name}.npz"
+        write_jax_checkpoint(host, ckpt)
+        cfg = ServeConfig(model=name, checkpoint=str(ckpt), max_batch=64)
+        tap_conv.launches.reset()
+        t0 = time.perf_counter()
+        pool, batcher = serve_stack(handle, cfg, device="cuda", seed=1)
+        warm_s = time.perf_counter() - t0
+        with batcher:
+            e0 = pool.engines[0]
+            parity = padded_bucket_parity(e0, handle.in_shape, seed=0)
+            report = loadgen.run(batcher, pattern="closed", n_requests=SERVE50_REQUESTS,
+                                 concurrency=SERVE_CONCURRENCY, seed=0)
+            samples = loadgen.make_samples(32, handle.in_shape, seed=1)
+            served = np.stack([f.result(timeout=120)
+                               for f in [batcher.submit(s) for s in samples]])
+            launches = tap_conv.launches.count
+            forwards = e0.stats.warmups + e0.stats.predicts + 1  # +1: parity
+        lat = report.latency.summary(scale=1e3)
+        with torch.inference_mode(), plain_reference():
+            ref = plain_model_forward(host.cuda(), torch.from_numpy(samples).cuda())
+            ref = ref.cpu().numpy()
+        err = float(np.max(np.abs(served - ref)))
+        tol = LOGIT_RTOL * max(1.0, float(np.max(np.abs(ref))))
+        print(f"[smoke] serve50 {name}: from {ckpt.name}, buckets {e0.buckets} warmed in "
+              f"{warm_s:.2f}s; {parity}; closed loop {report.completed}/{report.requests} "
+              f"at concurrency {SERVE_CONCURRENCY}: {report.throughput:.1f} req/s, p50 "
+              f"{lat.get('p50', 0):.2f} ms, p99 {lat.get('p99', 0):.2f} ms; tap_conv "
+              f"launches {launches} over {forwards} forwards ({convs} convs each); logits "
+              f"vs the plain forward max |Δ| {err:.3e} (tol {tol:.1e}) on {card}",
+              flush=True)
+        if "bit-identical" not in parity:
+            fail(f"serve {name}: the padded bucket is not bit-identical")
+        if report.completed != SERVE50_REQUESTS:
+            fail(f"serve {name}: only {report.completed} requests completed")
+        if launches < convs * forwards:
+            fail(f"serve {name}: not every conv ran through the kernel")
+        if served.shape != (32, 10) or not np.isfinite(served).all() or not err <= tol:
+            fail(f"serve {name}: the answers disagree with the plain forward")
+        total += launches
+        worst = max(worst, err)
+    return total, worst
+
+
+@contextlib.contextmanager
+def without_compiler():
+    """$CXX names no compiler inside: the native library cannot be built,
+    so the zoo's native loader takes the NumPy twin."""
+    prev = os.environ.get("CXX")
+    os.environ["CXX"] = "/nonexistent/c++"
+    try:
+        if native.available():
+            fail("the native library still loads without a compiler")
+        yield
+    finally:
+        if prev is None:
+            del os.environ["CXX"]
+        else:
+            os.environ["CXX"] = prev
+
+
+def native_phase(card) -> None:
+    """The native C++ runtime on the card's host: (a) seeded idx files
+    through the binding's parser against the NumPy parser; (b) --prefetch
+    native LeNet-ref training (--ops cuda, one epoch of the 60,000 set)
+    against the NumPy twin's run, bit for bit; (c) the zoo's --zoo-loader
+    native on ResNet-18 against the twin, bit for bit. A library that does
+    not build fails here: native is asked for by name."""
+    t0 = time.perf_counter()
+    native.load_lib()
+    print(f"[smoke] native: {native.library_path().name} (from native/*.cc, built "
+          f"at first use) ready in {time.perf_counter() - t0:.2f}s", flush=True)
+    work = BUILD_DIR / "smoke_native"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    imgs, labels = synthetic.make_dataset(NATIVE_IDX_COUNT, seed=3)
+    ip, lp = str(work / "imgs.idx3-ubyte"), str(work / "labels.idx1-ubyte")
+    mnist.write_idx_images(ip, imgs)
+    mnist.write_idx_labels(lp, labels)
+    t0 = time.perf_counter()
+    got = native.load_pair(ip, lp)
+    t_native = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = mnist.load_pair(ip, lp)
+    t_numpy = time.perf_counter() - t0
+    same = all(g.dtype == w.dtype and np.array_equal(g, w) for g, w in zip(got, want))
+    print(f"[smoke] native (a): {NATIVE_IDX_COUNT} idx images parsed by the binding "
+          f"({t_native * 1e3:.1f} ms) and by NumPy ({t_numpy * 1e3:.1f} ms): "
+          f"{'equal' if same else 'DIFFER'}", flush=True)
+    if not same:
+        fail("the native idx parser disagrees with the NumPy parser")
+
+    base = ["--batch-size", str(TRAIN_BATCH), "--shuffle", "--ops", "cuda", "--epochs", "1"]
+    runs = {}
+    for mode in ("native", "twin"):
+        lenet_fused.launches.reset()
+        ring = native.ring_batches.count
+        run_cli(base + ["--prefetch", "native" if mode == "native" else "auto",
+                        "--checkpoint-dir", str(work / mode),
+                        "--metrics", str(work / f"{mode}.jsonl")])
+        runs[mode] = (lenet_fused.launches.count, native.ring_batches.count - ring,
+                      final_record(work / f"{mode}.jsonl")["images_per_sec"],
+                      checkpoint_leaves(work / mode / "ckpt_1.npz"))
+    (nl, nr, nrate, na), (tl, tr, trate, ta) = runs["native"], runs["twin"]
+    same = sorted(na) == sorted(ta) and all(np.array_equal(na[k], ta[k]) for k in na)
+    print(f"[smoke] native (b): --prefetch native: {nr} ring batches, lenet_fused "
+          f"launches {nl}, {nrate:.0f} img/s; --prefetch auto (the NumPy twin's order "
+          f"gathered on the card): {tr} ring batches, launches {tl}, {trate:.0f} img/s; params "
+          f"{'bit-identical' if same else 'DIFFER'} (this call, on {card})", flush=True)
+    if not same or nl != tl or nl != STEPS_PER_EPOCH or nr != STEPS_PER_EPOCH or tr:
+        fail("--prefetch native and its twin did not train the same LeNet on the "
+             "same launches")
+
+    zoo_base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+                "--act-dtype", "float32", "--batch-size", str(ZOO_BATCH), "--epochs", "1",
+                "--zoo-loader", "native", "--synthetic-train-count",
+                str(NATIVE_ZOO_STEPS * ZOO_BATCH), "--synthetic-test-count",
+                str(ZOO_EVAL_BATCH)]
+    zruns = {}
+    for mode in ("native", "twin"):
+        ctx = without_compiler() if mode == "twin" else contextlib.nullcontext()
+        with ctx:
+            ring = native.ring_batches.count
+            run_cli(zoo_base + ["--checkpoint-dir", str(work / f"zoo_{mode}")])
+            zruns[mode] = (native.ring_batches.count - ring,
+                           checkpoint_leaves(work / f"zoo_{mode}" / "ckpt_1.npz"))
+    (nr, na), (tr, ta) = zruns["native"], zruns["twin"]
+    same = sorted(na) == sorted(ta) and all(np.array_equal(na[k], ta[k]) for k in na)
+    print(f"[smoke] native (c): ResNet-18 --zoo-loader native, {NATIVE_ZOO_STEPS} steps: "
+          f"{nr} ring batches; the twin {tr}; state ({len(na)} leaves) "
+          f"{'bit-identical' if same else 'DIFFERS'}", flush=True)
+    if not same or nr != NATIVE_ZOO_STEPS or tr:
+        fail("the zoo's native loader and its twin did not train the same ResNet-18")
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -2785,6 +3366,21 @@ def main() -> int:
     # -- 4e. the probe path: the eight Mosaic probes, B14-B21 -------------
     probe_errs, probe_launches = probe_phase()
 
+    # -- 4f. ResNet-50 and VGG-16 at full width, and their serving --------
+    z50_launches, z50_errs, _ = zoo50_phase(card)
+    r50 = lambda b, g: resnet.resnet50(10, cifar_stem=True, backend=b, generator=g)  # noqa: E731
+    profiled_zoo_epoch("ResNet-50, conv kernels + fused tail", "cuda", build=r50,
+                       batch=Z50_BATCH, steps=Z50_STEPS, accum=Z50_ACCUM)
+    img_launches, img_tail_err = imagenet_phase(card)
+    vgg_launches = vgg_phase(card)
+    profiled_zoo_epoch("VGG-16, conv kernels + fused tail", "cuda",
+                       build=lambda b, g: vgg.vgg16(10, backend=b, generator=g),
+                       steps=VGG_STEPS)
+    serve50_launches, _ = serve50_phase(card)
+
+    # -- 4g. the native C++ idx parser and prefetch ring ------------------
+    native_phase(card)
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -2834,8 +3430,10 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
-        "launches": launches + gspmd_launches["tap_conv"],
-        "max_abs_err": max(max_err, shard_errs["tap_conv"]),
+        "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
+                     + img_launches["tap_conv"] + vgg_launches["tap_conv"]
+                     + serve50_launches),
+        "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
@@ -2847,24 +3445,29 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
-        "launches": zoo_launches["tap_conv_dgrad"] + gspmd_launches["tap_conv_dgrad"],
-        "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"]),
+        "launches": sum(run["tap_conv_dgrad"] for run in (
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+        "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
+                           z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
     }, {
         "name": "tap_wgrad",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tap_wgrad.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
-        "launches": zoo_launches["tap_wgrad"] + gspmd_launches["tap_wgrad"],
-        "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"]),
+        "launches": sum(run["tap_wgrad"] for run in (
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+        "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
+                           z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
     }, {
         "name": "tail_ce",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/tail_ce.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
-        "launches": zoo_launches["tail_ce"] + gspmd_launches["tail_ce"],
-        "max_abs_err": zoo_errs["tail_ce"],
+        "launches": sum(run["tail_ce"] for run in (
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+        "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
         **zoo_times["tail_ce"],
     }, {
         "name": "lenet_fused",

@@ -8,7 +8,7 @@ the JAX package's layout so each module's counterpart is easy to find:
 - ``ops``      — hand-written CUDA kernels with their plain PyTorch versions
                  (``ops.tap_conv``: the SAME NHWC conv + fused epilogue).
 - ``nn``       — layers as ``torch.nn.Module``s: ConvBNAct, BatchNorm,
-                 Dense, GlobalAvgPool, the ResNet family.
+                 Dense, the pools, the ResNet family, VGG-16.
 - ``serve``    — registry, engine, dynamic batcher, telemetry, loadgen.
 - ``convert``  — weights and checkpoints written by the JAX package.
 - ``utils``    — device resolution, histograms.

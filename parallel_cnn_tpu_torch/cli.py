@@ -7,7 +7,8 @@
 
 With no subcommand the CLI is the trainer, as in JAX: for ``lenet_ref``
 load data → learn → test, printing the reference's lines; for a zoo model
-(``cifar_cnn``, ``resnet18``, ``resnet34``) JAX's zoo trainer: the
+(``cifar_cnn``, ``resnet18``, ``resnet34``, ``resnet50``, ``vgg16``) JAX's
+zoo trainer: the
 synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc A% (S s)``
 lines, checkpoints of the full state and ``--resume``, on one device, on
 JAX's GSPMD path over ``--mesh-data N [--mesh-model M]`` (global BN
@@ -72,7 +73,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="lenet_ref = the reference-parity trainer; the rest "
                         "are zoo models on the synthetic CIFAR-shape set")
     p.add_argument("--conv-backend", default="torch", choices=CONV_BACKENDS,
-                   help="zoo resnets only: the hand-written conv kernels "
+                   help="resnet/vgg models only: the hand-written conv kernels "
                         "(cuda; forward, dgrad, wgrad) or library convs "
                         "(torch)")
     p.add_argument("--lr", type=float, default=0.1,
@@ -91,8 +92,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "microbatches (default 1)")
     p.add_argument("--zoo-loader", default="device",
                    choices=["device", "native"],
-                   help="zoo models only: gathers over the device-resident "
-                        "set, or the native ring's batch order (NumPy twin)")
+                   help="zoo models only: batch source — gathers over the "
+                        "device-resident set, or the native C++ prefetch ring "
+                        "(data/native.py; its NumPy twin where no compiler "
+                        "builds it)")
     p.add_argument("--act-dtype", default=None,
                    choices=["float32", "bfloat16"],
                    help="fused-step activation dtype (default bfloat16, "
@@ -101,7 +104,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="cuda (default) or cpu, which runs the kernels' "
                         "plain PyTorch versions")
     p.add_argument("--loader", default=d.loader,
-                   choices=["auto", "native", "numpy", "synthetic"])
+                   choices=["auto", "native", "numpy", "synthetic"],
+                   help="idx parser: the native C++ one (native raises when "
+                        "it cannot be built; auto then takes NumPy's), NumPy's, "
+                        "or the synthetic set")
     p.add_argument("--data-dir", default=None,
                    help="directory holding the four idx files "
                         "(defaults to the DataConfig paths)")
@@ -116,7 +122,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--seed", type=int, default=t.seed)
     p.add_argument("--shuffle", action="store_true")
     p.add_argument("--prefetch", default=t.prefetch,
-                   choices=["auto", "native", "off"])
+                   choices=["auto", "native", "off"],
+                   help="minibatch order: the native C++ prefetch ring's, "
+                        "from the ring itself (native; raises when it cannot "
+                        "be built) or from its NumPy twin gathered on the "
+                        "device (auto; the same batches), or NumPy slicing (off)")
     p.add_argument("--ops", default=t.ops, choices=["reference", "cuda"],
                    help="plain PyTorch ops, or the hand-written fused "
                         "train-step kernel (csrc/lenet_fused.cu; "
@@ -282,7 +292,7 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
     import torch
 
     from parallel_cnn_tpu_torch.data import synthetic
-    from parallel_cnn_tpu_torch.nn import cifar, resnet
+    from parallel_cnn_tpu_torch.nn import cifar, resnet, vgg
     from parallel_cnn_tpu_torch.resilience import preempt
     from parallel_cnn_tpu_torch.train import zoo
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
@@ -297,6 +307,9 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
             10, backend=args.conv_backend, generator=gen),
         "resnet34": lambda: resnet.resnet34(
             10, backend=args.conv_backend, generator=gen),
+        "resnet50": lambda: resnet.resnet50(
+            10, cifar_stem=True, backend=args.conv_backend, generator=gen),
+        "vgg16": lambda: vgg.vgg16(10, backend=args.conv_backend, generator=gen),
     }
     model = factories[args.model]()
     data = DataConfig()
@@ -344,7 +357,7 @@ def _run_zoo(args: argparse.Namespace) -> int:
     mesh of ranks on JAX's GSPMD path, or over ``--mesh-data N`` ranks with
     ``--comm-impl`` (parallel/distributed.py starts them)."""
     if args.model == "cifar_cnn" and args.conv_backend != "torch":
-        raise SystemExit("--conv-backend cuda applies to the resnet models")
+        raise SystemExit("--conv-backend cuda applies to the resnet/vgg models")
     if args.batch_size == 1:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
     _refuse_later_slices(args)

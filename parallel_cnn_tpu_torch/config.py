@@ -50,9 +50,9 @@ class DataConfig:
     synthetic_train_count: int = 60_000
     synthetic_test_count: int = 10_000
     synthetic_seed: int = 1234
-    # "auto" | "numpy" | "synthetic" | "native". The native C++ parser is
-    # not bound yet (ROADMAP A2): "native" is a typed MnistError, and
-    # "auto" parses with NumPy.
+    # "auto" | "numpy" | "synthetic" | "native": "native" parses with the
+    # C++ idx parser (data/native.py) and raises MnistError(-5) when it
+    # cannot be built; "auto" prefers it and parses with NumPy only then.
     loader: str = "auto"
 
 
@@ -76,11 +76,11 @@ class TrainConfig:
     # Epoch shuffling (the reference replays file order: default off).
     shuffle: bool = False
     # Batch order for batch_size > 1:
-    #   "auto"   — drop-tail batches in the native ring's order (xorshift
-    #              Fisher–Yates), which the JAX package reproduces without
-    #              its C++ extension; the port always takes that NumPy twin;
-    #   "native" — the C++ ring itself: not bound yet (ROADMAP A2), a
-    #              typed error;
+    #   "auto"   — drop-tail batches in the native C++ prefetch ring's
+    #              order (xorshift Fisher–Yates) from its NumPy twin,
+    #              gathered from the set on the device;
+    #   "native" — the C++ ring's host batches, copied to the device a
+    #              batch at a time, raising when it cannot be built;
     #   "off"    — plain NumPy slicing (keep-tail, NumPy PCG shuffle).
     prefetch: str = "auto"
     # Which kernels compute the minibatch step:
@@ -158,7 +158,7 @@ class Config:
 
 #: Zoo models the trainer builds (train/zoo.py), and its conv backends:
 #: "cuda" ≙ JAX's "pallas" (the hand kernels), "torch" ≙ JAX's "xla".
-ZOO_MODELS = ("cifar_cnn", "resnet18", "resnet34")
+ZOO_MODELS = ("cifar_cnn", "resnet18", "resnet34", "resnet50", "vgg16")
 CONV_BACKENDS = ("torch", "cuda")
 
 
@@ -341,7 +341,7 @@ class FusedStepConfig:
 
 
 #: Registry names the port serves (serve/registry.py).
-SERVE_MODELS = ("resnet18", "resnet34")
+SERVE_MODELS = ("resnet18", "resnet34", "resnet50", "vgg16")
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,35 +1,28 @@
 """Dataset assembly and epoch order: the port's copy of
 ``parallel_cnn_tpu/data/pipeline.py`` (≙ loaddata(), Sequential/Main.cpp:36-42).
 
-A split is loaded to host memory once. The trainer then places it on the
-device once and gathers each batch there by index (``epoch_order`` gives
-the indices); the iterators below give the same batches as host arrays,
-in the same order as their JAX counterparts.
+A split is loaded to host memory once, through the native C++ parser
+(data/native.py) or the NumPy one (data/mnist.py), as ``DataConfig.loader``
+says. The trainer then places it on the device once and gathers each batch
+there by index (``epoch_order`` gives the indices), or takes host batches
+from the native prefetch ring and copies each to the device
+(``device_batches``); the iterators below give the same batches as host
+arrays, in the same order as their JAX counterparts.
 """
 
 from __future__ import annotations
 
 import logging
 from dataclasses import dataclass
-from typing import Iterator, List, Tuple
+from typing import Iterable, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 from parallel_cnn_tpu_torch.config import DataConfig
-from parallel_cnn_tpu_torch.data import mnist, synthetic
+from parallel_cnn_tpu_torch.data import mnist, native, synthetic
 
 log = logging.getLogger(__name__)
-
-NATIVE_NOT_PORTED = (
-    "the native C++ batcher and idx parser are not bound in the port yet "
-    "(ROADMAP A2)"
-)
-
-
-class NativeUnavailableError(RuntimeError):
-    """``prefetch="native"`` asked for the C++ prefetch ring, which the port
-    does not bind yet (ROADMAP A2). ``prefetch="auto"`` gives the same
-    batches in the same order from its NumPy twin."""
 
 
 @dataclass
@@ -45,18 +38,32 @@ class Dataset:
         return self.images.shape[0]
 
 
+def _parse(cfg: DataConfig, images_path: str, labels_path: str):
+    if cfg.loader == "numpy":
+        return mnist.load_pair(images_path, labels_path)
+    # "auto" prefers the native parser and takes NumPy's only where the
+    # library cannot be built; "native" never takes another parser.
+    if cfg.loader == "auto" and not native.available():
+        return mnist.load_pair(images_path, labels_path)
+    return native.load_pair(images_path, labels_path)
+
+
 def load_split(
     cfg: DataConfig, images_path: str, labels_path: str, synth_count: int, seed: int
 ) -> Dataset:
-    """Try real idx files; fall back to the deterministic synthetic set."""
+    """Try real idx files; fall back to the deterministic synthetic set.
+    ``loader="native"`` whose library cannot be built raises
+    ``MnistError(-5)``, whatever ``synthetic_fallback`` says."""
     if cfg.loader == "synthetic":
         imgs, labels = synthetic.make_dataset(synth_count, seed=seed)
         return Dataset(imgs, labels)
+    if cfg.loader == "native":
+        try:
+            native.load_lib()
+        except native.NativeBuildError as e:
+            raise mnist.MnistError(-5, f"native loader unavailable: {e}") from e
     try:
-        if cfg.loader == "native":
-            # Forced native: a typed error, never silently another parser.
-            raise mnist.MnistError(-5, f"native loader unavailable: {NATIVE_NOT_PORTED}")
-        imgs, labels = mnist.load_pair(images_path, labels_path)
+        imgs, labels = _parse(cfg, images_path, labels_path)
         if log.isEnabledFor(logging.INFO):  # sha256 streams both files
             try:
                 rep = mnist.integrity_report(
@@ -178,3 +185,19 @@ def pad_to_batch(
     images = np.concatenate([images, np.zeros((pad,) + images.shape[1:], images.dtype)])
     labels = np.concatenate([labels, np.zeros((pad,), labels.dtype)])
     return images, labels, valid
+
+
+def device_batches(
+    batches: Iterable[Tuple[np.ndarray, np.ndarray]],
+    device,
+    label_dtype: torch.dtype = torch.int32,
+) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """Host (images, labels) batches as tensors on ``device``, in order.
+    Each batch is copied out of its arrays before the next is asked for
+    (a copy from pageable memory has read its source when it returns), so
+    the source may hand out views that the next batch overwrites (the
+    native Batcher's ``copy=False``)."""
+    dev = torch.device(device)
+    for x, y in batches:
+        yield (torch.from_numpy(x).to(dev, torch.float32, copy=True),
+               torch.from_numpy(y).to(dev, label_dtype, copy=True))

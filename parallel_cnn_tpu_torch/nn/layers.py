@@ -248,18 +248,61 @@ class ReLU(nn.Module):
         return torch.relu(x)
 
 
-class MaxPool(nn.Module):
-    """VALID max pool over H and W, window 2×2 and stride 2 by default (the
-    CIFAR CNN's). Its gradient goes to the first maximum of a window in
-    row-major order, as XLA's select-and-scatter routes it."""
+def _pool_pads(x: torch.Tensor, window: int, stride: int, padding: str):
+    """F.pad's (left, right, top, bottom) for a pool over NHWC ``x``: none
+    for VALID, XLA's SAME split (the odd cell after) for SAME."""
+    if padding == "VALID":
+        return (0, 0, 0, 0)
+    _, pt, pb = tap_conv.same_pads(int(x.shape[1]), window, stride)
+    _, pl, pr = tap_conv.same_pads(int(x.shape[2]), window, stride)
+    return (pl, pr, pt, pb)
 
-    def __init__(self, window: int = 2, stride: int = 2):
+
+class _Pool(nn.Module):
+    """Window, stride and padding ("VALID" or "SAME", XLA's split) of a
+    square pool over H and W, as JAX's ``MaxPool``/``AvgPool`` hold them."""
+
+    def __init__(self, window: int = 2, stride: int = 2, padding: str = "VALID"):
         super().__init__()
+        if padding not in ("VALID", "SAME"):
+            raise ValueError(f"pool padding must be VALID or SAME, got {padding!r}")
         self.window = window
         self.stride = stride
+        self.padding = padding
+
+
+class MaxPool(_Pool):
+    """Max pool over H and W, window 2×2 and stride 2, VALID, by default (the
+    CIFAR CNN's); SAME pads with −inf, XLA's odd cell after (the ImageNet
+    stem's 3×3/s2 pool takes 112 to 56 from windows starting at rows 0, 2,
+    …, where ``F.max_pool2d(padding=1)`` would start them at −1). Its
+    gradient goes to the first maximum of a window in row-major order, as
+    XLA's select-and-scatter routes it."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.max_pool2d(x.permute(0, 3, 1, 2), self.window, self.stride)
+        pads = _pool_pads(x, self.window, self.stride, self.padding)
+        xn = x.permute(0, 3, 1, 2)
+        if any(pads):
+            xn = F.pad(xn, pads, value=float("-inf"))
+        y = F.max_pool2d(xn, self.window, self.stride)
+        return y.permute(0, 2, 3, 1)
+
+
+class AvgPool(_Pool):
+    """Mean pool over H and W (JAX's ``AvgPool``): VALID divides each
+    window's sum by window², SAME by the count of the window's cells that
+    lie inside the input."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        pads = _pool_pads(x, self.window, self.stride, self.padding)
+        xn = F.pad(x.permute(0, 3, 1, 2), pads)
+        sums = F.avg_pool2d(xn, self.window, self.stride, divisor_override=1)
+        if self.padding == "SAME":
+            ones = F.pad(x.new_ones((1, 1) + tuple(x.shape[1:3])), pads)
+            counts = F.avg_pool2d(ones, self.window, self.stride, divisor_override=1)
+            y = sums / counts
+        else:
+            y = sums / (self.window * self.window)
         return y.permute(0, 2, 3, 1)
 
 

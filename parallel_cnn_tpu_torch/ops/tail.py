@@ -81,6 +81,7 @@ def split_tail(model) -> Optional[TailSplit]:
         return None
     ls = list(model)
     if (len(ls) >= 3 and isinstance(ls[-3], layers.MaxPool)
+            and (ls[-3].window, ls[-3].stride, ls[-3].padding) == (2, 2, "VALID")
             and isinstance(ls[-2], layers.Flatten)
             and isinstance(ls[-1], layers.Dense)):
         return TailSplit(len(ls) - 3, "max2")

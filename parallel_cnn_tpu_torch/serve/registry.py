@@ -5,9 +5,12 @@ counterpart of ``parallel_cnn_tpu/serve/registry.py``).
 ``"pallas"``: every conv runs through the hand-written tap-conv kernel
 (``ops/tap_conv.py``, ``csrc/tap_conv.cu``) with BN, residual and ReLU
 fused into its epilogue, and through that kernel's plain PyTorch version
-when the model lives on the CPU. JAX's unfused ``"xla"`` backend, and the
-``lenet_ref``, ``cifar_cnn``, ``vgg16`` and ``resnet50`` handles, come
-with later slices of the port.
+when the model lives on the CPU. VGG-16's convs carry a bias and are
+followed by a separate BatchNorm, as in JAX: its convs run through the same
+kernel without an epilogue. Every handle takes the CIFAR shape, as JAX's
+registry builds them (``resnet50(10, cifar_stem=True)``, ``vgg16(10)``).
+JAX's unfused ``"xla"`` backend and the ``lenet_ref`` and ``cifar_cnn``
+handles are not served by the port.
 """
 
 from __future__ import annotations
@@ -58,7 +61,7 @@ def available() -> Tuple[str, ...]:
 
 def get(name: str, conv_backend: str = "cuda") -> ModelHandle:
     """Handle for a registered model name."""
-    from parallel_cnn_tpu_torch.nn import cifar, resnet
+    from parallel_cnn_tpu_torch.nn import cifar, resnet, vgg
 
     if conv_backend not in CONV_BACKENDS:
         raise ValueError(
@@ -67,6 +70,8 @@ def get(name: str, conv_backend: str = "cuda") -> ModelHandle:
     zoo: Dict[str, Callable] = {
         "resnet18": resnet.resnet18,
         "resnet34": resnet.resnet34,
+        "resnet50": lambda n, **kw: resnet.resnet50(n, cifar_stem=True, **kw),
+        "vgg16": vgg.vgg16,
     }
     if name not in zoo:
         raise KeyError(

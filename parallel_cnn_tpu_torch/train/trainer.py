@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from parallel_cnn_tpu_torch.config import Config, MeshLayoutError, TrainConfig
-from parallel_cnn_tpu_torch.data import pipeline
+from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.models import lenet_ref
 from parallel_cnn_tpu_torch.parallel import data_parallel, intra_op
 from parallel_cnn_tpu_torch.resilience import preempt
@@ -100,6 +100,30 @@ def _whole(params, mesh):
     return params
 
 
+def _native_batcher_cls(tc: TrainConfig):
+    """The native Batcher class when the config asks for the ring
+    (``prefetch="native"``; NativeBuildError when it cannot be built), else
+    None. ``"auto"`` gathers the ring's order from the set already on the
+    device, the same batches without a host copy a step, whether or not
+    the ring builds; ``"off"`` and per-sample training never take it."""
+    if tc.batch_size <= 1 or tc.prefetch != "native":
+        return None
+    native.load_lib()
+    return native.Batcher
+
+
+def _fixed_shape_batches(train, tc: TrainConfig, epoch_seed: int, batcher_cls,
+                         steps_per_epoch: int):
+    """One epoch of fixed-shape (drop-tail) host batches from the native
+    ring (``batcher_cls``), seeded with the epoch's seed, as JAX's
+    ``_fixed_shape_batches`` draws them: views into the ring's slots, which
+    ``pipeline.device_batches`` copies out before it asks for the next."""
+    with batcher_cls(train.images, train.labels, tc.batch_size,
+                     seed=epoch_seed, shuffle=tc.shuffle, copy=False) as batcher:
+        for _ in range(steps_per_epoch):
+            yield next(batcher)
+
+
 def learn(
     cfg: Config,
     train: pipeline.Dataset,
@@ -116,7 +140,10 @@ def learn(
 
     batch_size == 1 → strict-parity per-sample SGD; batch_size > 1 →
     minibatch steps (``cfg.train.ops`` picks the kernel path,
-    ``cfg.fused`` the bucketed update). ``epoch_offset`` shifts the
+    ``cfg.fused`` the bucketed update, ``cfg.train.prefetch`` the batch
+    source: ``"native"`` the native C++ ring's host batches, ``"auto"``
+    its NumPy twin's order gathered on the device, the same batches in the
+    same order either way). ``epoch_offset`` shifts the
     per-epoch seeds so a resumed run shuffles exactly like the continuous
     run it restarts. ``epoch_callback(epoch, params, err)`` (global,
     1-based epoch) fires after every epoch. Each epoch's loss and params
@@ -135,11 +162,7 @@ def learn(
     tc = cfg.train
     res = cfg.resilience
     dev = mesh.device if mesh is not None else resolve_device(device)
-    if tc.batch_size > 1 and tc.prefetch == "native":
-        raise pipeline.NativeUnavailableError(
-            f"prefetch='native': {pipeline.NATIVE_NOT_PORTED}; "
-            "prefetch='auto' gives the same batches in the same order"
-        )
+    batcher_cls = _native_batcher_cls(tc)
     if params is None:
         params = init_params(tc.seed, dev)
     else:
@@ -202,13 +225,28 @@ def learn(
                     ex, ey = images, labels
                 params, err = step_lib.scan_epoch(params, ex, ey, dt)
                 result.steps += len(train)
+            elif batcher_cls is not None and steps_per_epoch > 0:
+                # The native prefetch ring: its host batches, each copied to
+                # the device (a mesh rank takes its rows of every one).
+                errs = []
+                for bx, by in pipeline.device_batches(_fixed_shape_batches(
+                        train, tc, epoch_seed, batcher_cls, steps_per_epoch), dev):
+                    if mesh_step is not None:
+                        params, e = mesh_step(params, mesh.shard_rows(bx),
+                                              mesh.shard_rows(by))
+                    else:
+                        params, e = batched_step(params, bx, by, dt)
+                    errs.append(e)
+                result.steps += steps_per_epoch
+                err = torch.mean(torch.stack(errs))
             else:
-                # prefetch "auto" and a full batch to take: drop-tail batches
-                # in the native ring's order. Otherwise ("off", or fewer
-                # samples than one batch) keep-tail NumPy order, the tail at
-                # its own size, the error weighted by batch size. A mesh
-                # always takes fixed-shape (drop-tail) batches, each rank
-                # its rows of every one.
+                # prefetch "auto" and a full batch to take: drop-tail
+                # batches in the ring's order (its NumPy twin), gathered on
+                # the device. Otherwise ("off", or fewer samples
+                # than one batch) keep-tail NumPy order, the tail at its own
+                # size, the error weighted by batch size. A mesh always takes
+                # fixed-shape (drop-tail) batches, each rank its rows of
+                # every one.
                 fixed = steps_per_epoch > 0 and (
                     tc.prefetch == "auto" or mesh is not None)
                 order = pipeline.epoch_order(

@@ -1,4 +1,4 @@
-"""Trainer for the model zoo (CIFAR CNN, ResNet-18/34): the port of
+"""Trainer for the model zoo (CIFAR CNN, ResNet-18/34/50, VGG-16): the port of
 ``parallel_cnn_tpu/train/zoo.py`` on one device, over JAX's GSPMD mesh
 (data and model axes, ``mesh=`` without ``comm``) and data-parallel over
 the explicit collectives (``comm=``).
@@ -56,9 +56,10 @@ shard is not finite, and all-gathers the updated parameter shards,
 always in f32. Its optimizer state is ``FusedOptState``: the momentum as
 one ``(n_data, L)`` row block per bucket, of which rank r holds row r.
 
-Batch order. ``loader="native"`` gives the native ring's batches
-(``seed + epoch + 1``, the NumPy twin of JAX's C++ ring), so both packages
-train on the same batches. ``loader="device"`` draws each epoch's
+Batch order. ``loader="native"`` gives the native C++ ring's batches
+(data/native.py, seeded ``seed + epoch + 1``; its NumPy twin where the
+ring cannot be built, as in JAX), so both packages train on the same
+batches. ``loader="device"`` draws each epoch's
 permutation from ``torch.Generator().manual_seed(seed + epoch)``, which
 cannot reproduce JAX's threefry permutation: the two packages shuffle
 differently, each reproducibly, so resume is exact on both. Augmentation
@@ -92,7 +93,7 @@ from parallel_cnn_tpu_torch.config import (
     ResilienceConfig,
 )
 from parallel_cnn_tpu_torch.data import augment as aug_lib
-from parallel_cnn_tpu_torch.data import pipeline
+from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.nn.core import whole
 from parallel_cnn_tpu_torch.ops import sgd_update, tail
 from parallel_cnn_tpu_torch.parallel import collectives, zoo_sharding
@@ -806,15 +807,28 @@ def _aug_generator(seed: int, epoch: int, rank: int = 0) -> torch.Generator:
         (seed ^ 0x5EED) * 1_000_003 + epoch + (rank << 32))
 
 
+def _native_epoch_batches(np_images, np_labels, batch_size, steps, seed):
+    """One epoch of host batches from the C++ prefetch ring (views into its
+    slots, which ``pipeline.device_batches`` copies out before it asks for
+    the next), or from its bit-identical NumPy twin where the ring cannot
+    be built (JAX's ``_native_epoch_batches``)."""
+    if not native.available():
+        yield from itertools.islice(pipeline.native_semantics_batches(
+            pipeline.Dataset(np_images, np_labels), batch_size, shuffle=True,
+            seed=seed), steps)
+        return
+    with native.Batcher(np_images, np_labels, batch_size, seed=seed,
+                        shuffle=True, copy=False) as ring:
+        yield from itertools.islice(ring, steps)
+
+
 def _epoch_batches(loader, images, labels, np_data, batch, steps, seed, epoch,
                    dev):
     """(x, y) pairs of one epoch on ``dev``."""
     if loader == "native":
-        ds = pipeline.Dataset(*np_data)
-        for bx, by in itertools.islice(pipeline.native_semantics_batches(
-                ds, batch, shuffle=True, seed=seed + epoch + 1), steps):
-            yield (torch.from_numpy(bx).to(dev),
-                   torch.from_numpy(by).to(dev, torch.int64))
+        yield from pipeline.device_batches(
+            _native_epoch_batches(*np_data, batch, steps, seed + epoch + 1),
+            dev, torch.int64)
         return
     perm = torch.randperm(images.shape[0],
                           generator=torch.Generator().manual_seed(seed + epoch))

@@ -12,8 +12,10 @@ import torch
 
 from parallel_cnn_tpu_torch import cli
 from parallel_cnn_tpu_torch.data import augment as aug_lib
-from parallel_cnn_tpu_torch.nn import (BatchNorm, Conv2D, Dense, Flatten, MaxPool, ReLU,
-                                       Sequential, cifar, resnet)
+from parallel_cnn_tpu_torch.nn import (BatchNorm, Conv2D, ConvBNAct, Dense, Flatten,
+                                       GlobalAvgPool, MaxPool, ReLU, Sequential, cifar,
+                                       resnet, vgg)
+from parallel_cnn_tpu_torch.parallel import mesh as mesh_lib
 from parallel_cnn_tpu_torch.train import checkpoint, zoo
 
 SHAPE = (8, 8, 3)
@@ -167,3 +169,52 @@ def resume_on_one(mesh, spec):
     arrays, tstate = checkpoint.restore(spec["ckpt"], state.checkpoint_arrays())
     state.load(arrays)
     return tstate.epoch, run_steps(state, step, spec["x"], spec["y"], steps=1)
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50's Bottleneck and VGG-16 on the mesh (test_torch_gspmd_zoo50.py)
+# ---------------------------------------------------------------------------
+
+
+def mixed50() -> Sequential:
+    """A 3x3 ConvBNAct to 8, three Bottlenecks of width 6 (a projection at
+    stride 1, a projection at stride 2, an identity), the gap head. At a
+    model axis of 4 the 8- and 24-wide convs split and the 6-wide ones stay
+    whole; at 3 the 6- and 24-wide ones split and the stem stays whole."""
+    return Sequential(ConvBNAct(3, 8, backend="cuda"),
+                      resnet.Bottleneck(8, 6, 1, "cuda"),
+                      resnet.Bottleneck(24, 6, 2, "cuda"),
+                      resnet.Bottleneck(24, 6, 1, "cuda"),
+                      GlobalAvgPool(), Dense(24, 10))
+
+
+MODELS.update({
+    "resnet50_reduced": lambda: resnet._resnet(resnet.Bottleneck, (1, 1, 1, 1), 10,
+                                               True, "cuda", None, None),
+    "vgg16": lambda: vgg.vgg16(10),
+    "mixed50": mixed50,
+})
+
+
+def zoo50_cases(mesh, spec):
+    """On each (data, model) mesh of ``spec["shapes"]`` over this world
+    (one spawn serves every shape of its size): each model of
+    ``spec["models"]`` (name → state_dict, images, labels), STEPS GSPMD
+    steps with the model axis where the mesh has one, and each rank's local
+    leaves; the models of ``spec["f64"]`` also in f64. Results by shape."""
+    torch.set_num_threads(1)
+    out = {}
+    for shape in spec["shapes"]:
+        if shape == (mesh.data.size, mesh.model.size):
+            m = mesh
+        else:
+            m = mesh_lib.make_mesh_2d(mesh.rank, mesh.world, mesh.device, *shape)
+        res = out[shape] = {}
+        for name, (sd, x, y) in spec["models"].items():
+            state, step = gspmd(m, name, sd)
+            res[name] = run_steps(state, step, x, y)
+            res[f"{name}_local"] = _local(state)
+            if name in spec["f64"]:
+                state, step = gspmd(m, name, sd, dtype=torch.float64)
+                res[f"{name}_f64"] = run_steps(state, step, x.astype(np.float64), y)
+    return out

@@ -12,6 +12,7 @@ runs without the suite's conftest:
 """
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import pytest
@@ -44,6 +45,9 @@ from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
     B9_SITES,
+    R50_GEOMETRIES,
+    STEM224,
+    VGG_GEOMETRIES,
     GEOMETRIES,
     DOT_KERNELS,
     DOT_ROWS,
@@ -1527,3 +1531,122 @@ def test_probe_dot_refuses_misaligned_view_on_card(card, name, operand):
     with pytest.raises(ValueError, match="16-byte"):
         getattr(mosaic_probe, name)(*args)
     assert counter.count == before
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 and VGG-16: B10/B11/B12 at their shapes; the native ring
+# ---------------------------------------------------------------------------
+
+
+def _geometry_id(g):
+    return g[0].replace(" ", "_")
+
+
+@pytest.mark.parametrize("geometry", R50_GEOMETRIES + [STEM224] + VGG_GEOMETRIES,
+                         ids=[f"zoo50-{_geometry_id(g)}" for g in R50_GEOMETRIES + [STEM224]]
+                         + [f"vgg-{_geometry_id(g)}" for g in VGG_GEOMETRIES])
+def test_zoo50_and_vgg_convs_match_plain_on_card(card, geometry):
+    """Every distinct conv of ResNet-50 (CIFAR stem, 1x1s up to 2,048
+    channels, 3x3/s2 mids, 1x1/s2 projections), the ImageNet stem at 224²
+    and VGG-16's convs: the forward with the geometry's eval epilogue (bare
+    for VGG), the dgrad (not the stem's: its input needs no gradient) and
+    the wgrad against their plain twins at b4 (b2 at 224²); relaunches bit
+    for bit."""
+    name, h, cin, cout, k, s, residual, relu, _ = geometry
+    b = 2 if h == 224 else 4
+    x, wt, scale, shift, res = _inputs(card, b, h, h, cin, cout, k, s, residual, h + cin)
+    g = torch.randn(tap_conv.out_shape(x.shape, wt.shape, s), device=card,
+                    generator=torch.Generator(device="cuda").manual_seed(cout))
+    if geometry in VGG_GEOMETRIES:
+        with torch.no_grad():
+            got, again = tap_conv.conv2d(x, wt, s), tap_conv.conv2d(x, wt, s)
+        want = tap_conv.conv2d_plain(x, wt, s)
+    else:
+        got = tap_conv.conv2d_fused(x, wt, scale, shift, res, s, relu)
+        again = tap_conv.conv2d_fused(x, wt, scale, shift, res, s, relu)
+        want = tap_conv.conv2d_fused_plain(x, wt, scale, shift, res, s, relu)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _close(got, want, ATOL)
+    if not name.startswith("stem"):
+        dx = tap_conv.conv2d_dgrad(g, wt, x.shape, s)
+        assert torch.equal(dx, tap_conv.conv2d_dgrad(g, wt, x.shape, s))
+        _close(dx, tap_conv.conv2d_dgrad_plain(g, wt, x.shape, s))
+    gw = tap_wgrad.conv2d_wgrad(x, g, k, s)
+    assert torch.equal(gw, tap_wgrad.conv2d_wgrad(x, g, k, s))
+    _close(gw, tap_wgrad.conv2d_wgrad_plain(x, g, k, s))
+
+
+@pytest.mark.parametrize("shape,classes", [((2, 7, 7, 2048), 1000), ((3, 4, 4, 2048), 10),
+                                           ((4, 1, 1, 512), 10)],
+                         ids=["zoo50-imagenet-7x7x2048-1000", "zoo50-cifar-4x4x2048-10",
+                              "vgg-1x1x512-10"])
+def test_zoo50_and_vgg_gap_tails_match_plain_on_card(card, shape, classes):
+    """B12's gap mode at ResNet-50's heads (ImageNet and CIFAR) and VGG-16's
+    CIFAR head."""
+    gen = torch.Generator(device="cuda").manual_seed(classes)
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+    w = torch.randn((shape[-1], classes), generator=gen, device="cuda") * shape[-1] ** -0.5
+    b = 0.1 * torch.randn((classes,), generator=gen, device="cuda")
+    y = torch.randint(0, classes, (shape[0],), generator=gen, device="cuda")
+    before = tail.launches.count
+    loss, dl = tail.tail_forward(x, w, b, y, "gap")
+    torch.cuda.synchronize()
+    assert tail.launches.count == before + 1
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, b, y, "gap")
+    _close(loss, ref_loss, ATOL)
+    _close(dl, ref_dl, ATOL)
+
+
+@pytest.mark.parametrize("name", ["resnet50", "vgg16"], ids=["zoo50-resnet50", "vgg-vgg16"])
+def test_zoo50_and_vgg_serve_buckets_are_bit_identical_on_card(card, name):
+    """The serving forward of ResNet-50 and VGG-16: n = 3 requests through the
+    padded b4 bucket equal the b4 forward bit for bit, and every conv runs
+    through the kernel."""
+    from parallel_cnn_tpu_torch.cli import padded_bucket_parity
+
+    handle = get(name)
+    pool, batcher = serve_stack(handle, ServeConfig(max_batch=4, precompile=False),
+                                device="cuda", seed=0)
+    tap_conv.launches.reset()
+    with batcher:
+        line = padded_bucket_parity(pool.engines[0], handle.in_shape, seed=3)
+    assert line.endswith("bit-identical"), line
+    convs = 53 if name == "resnet50" else 13
+    assert tap_conv.launches.count == 2 * convs
+
+
+def test_native_ring_feeds_the_card_as_its_twin(card):
+    """The native ring's batches copied to the card (a pageable copy a
+    batch) equal the twin's order gathered there."""
+    from parallel_cnn_tpu_torch.data import native
+
+    images, labels = synthetic.make_image_dataset(100, seed=6)
+    with native.Batcher(images, labels, 16, seed=3) as ring:
+        got = list(pipeline.device_batches(
+            (next(ring) for _ in range(6)), card, torch.int64))
+    twin = pipeline.native_semantics_batches(pipeline.Dataset(images, labels), 16,
+                                             shuffle=True, seed=3)
+    for (x, y), (tx, ty) in zip(got, twin):
+        assert x.device.type == "cuda" and y.dtype == torch.int64
+        assert np.array_equal(x.cpu().numpy(), tx) and np.array_equal(y.cpu().numpy(), ty)
+
+
+def test_native_prefetch_lenet_equals_the_twin_on_card(card, monkeypatch):
+    """--prefetch native and the twin (no compiler, so the ring cannot be
+    built): the same LeNet-ref params on the card, bit for bit, one
+    lenet_fused launch a step each."""
+    from parallel_cnn_tpu_torch.data import native
+
+    ds = pipeline.Dataset(*synthetic.make_dataset(1024, seed=2))
+    cfg = Config(train=TrainConfig(batch_size=64, ops="cuda", shuffle=True, epochs=2))
+    before = lenet_fused.launches.count
+    ring = trainer.learn(cfg.replace(train=dataclasses.replace(cfg.train, prefetch="native")),
+                         ds, verbose=False, device="cuda")
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
+    assert not native.available()
+    twin = trainer.learn(cfg, ds, verbose=False, device="cuda")
+    assert lenet_fused.launches.count - before == 2 * 2 * (1024 // 64)
+    for a, b in zip(tree_leaves(ring.params), tree_leaves(twin.params)):
+        assert torch.equal(a, b)
+

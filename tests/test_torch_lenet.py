@@ -157,10 +157,14 @@ def test_missing_files_fall_back_to_the_same_synthetic_set(tmp_path):
         pipeline.load_train_test(DataConfig(synthetic_fallback=False, **kw))
 
 
-def test_native_loader_is_a_typed_error_naming_its_roadmap_item(tmp_path):
+def test_native_loader_is_a_typed_error_naming_its_roadmap_item(tmp_path, monkeypatch):
+    """The native parser is bound (data/native.py, ROADMAP A2); where its
+    library cannot be built (no compiler), loader="native" is the typed
+    MnistError(-5), never another parser."""
+    monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     cfg = DataConfig(loader="native", synthetic_fallback=False,
                      train_images=str(tmp_path / "a"))
-    with pytest.raises(mnist.MnistError, match="ROADMAP A2") as e:
+    with pytest.raises(mnist.MnistError, match="native loader unavailable") as e:
         pipeline.load_split(cfg, cfg.train_images, cfg.train_labels, 10, 1)
     assert e.value.code == -5
 

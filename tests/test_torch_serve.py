@@ -286,10 +286,11 @@ def test_serve_config_from_env(monkeypatch):
 
 
 def test_registry():
-    h = get("resnet34")
-    assert h.in_shape == (32, 32, 3) and h.n_outputs == 10
+    for name in ("resnet34", "resnet50", "vgg16"):
+        h = get(name)
+        assert h.in_shape == (32, 32, 3) and h.n_outputs == 10
     with pytest.raises(KeyError):
-        get("vgg16")
+        get("resnet101")
     with pytest.raises(ValueError):
         get("resnet18", conv_backend="pallas")
 

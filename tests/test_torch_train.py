@@ -32,7 +32,7 @@ from parallel_cnn_tpu_torch.config import (
     ResilienceConfig,
     TrainConfig,
 )
-from parallel_cnn_tpu_torch.data import pipeline
+from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
 from parallel_cnn_tpu_torch.resilience.sentinel import (
@@ -251,10 +251,14 @@ def test_learn_prints_the_reference_lines_and_stops_at_the_threshold(capsys):
     assert "\n Time - " in out
 
 
-def test_learn_refuses_native_prefetch_naming_its_roadmap_item():
+def test_learn_refuses_native_prefetch_naming_its_roadmap_item(monkeypatch):
+    """The native ring is bound (ROADMAP A2); where its library cannot be
+    built (no compiler), prefetch="native" raises instead of taking the
+    NumPy twin."""
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
     tds, _ = dataset(64)
     cfg = Config(train=TrainConfig(batch_size=16, prefetch="native"))
-    with pytest.raises(pipeline.NativeUnavailableError, match="ROADMAP A2"):
+    with pytest.raises(native.NativeBuildError, match="not found"):
         trainer.learn(cfg, tds, verbose=False, device="cpu")
 
 
@@ -414,13 +418,16 @@ def test_cli_defaults_to_the_gpu():
 
 @pytest.mark.parametrize("argv,err", [
     (["--batch-size", "1", "--ops", "cuda"], ValueError),
-    (["--batch-size", "16", "--prefetch", "native"], pipeline.NativeUnavailableError),
+    # No compiler (below): the native ring cannot be built.
+    (["--batch-size", "16", "--prefetch", "native"], native.NativeBuildError),
     (["--ops", "pallas"], SystemExit),
     # A mesh trains minibatch SGD; the default batch size 1 is refused.
     (["--mesh-data", "2"], MeshLayoutError),
-    (["--model", "resnet50"], SystemExit),  # vgg16 and resnet50: a later slice
+    # The CIFAR CNN's convs are library convs, as in JAX.
+    (["--model", "cifar_cnn", "--conv-backend", "cuda"], SystemExit),
 ], ids=["per-sample-cuda", "native-prefetch", "pallas-name", "mesh-flag", "zoo-model"])
-def test_cli_refuses_what_the_port_does_not_run(argv, err, capsys):
+def test_cli_refuses_what_the_port_does_not_run(argv, err, capsys, monkeypatch):
+    monkeypatch.setenv("CXX", "/nonexistent/c++")
     with pytest.raises(err):
         cli.main(CPU_RUN + argv)
 
