@@ -58,6 +58,13 @@ port's two paths through their user-facing entry points:
 - the native C++ runtime (native): the idx parser against NumPy's, and
   --prefetch native and the zoo's --zoo-loader native against their
   NumPy twin, bit for bit, with the library built from native/*.cc.
+- bf16 activations (bf16 (a)-(e)), JAX's default --fused-step: the bf16
+  forms of B10 (forward, dgrad), B11 and B12 against their twins at every
+  ResNet-18 and ResNet-50 conv and head; ResNet-18 through the CLI with
+  exact bf16 launch counts and bf16 steps against f32 steps; the
+  update-on-arrival CLI with the dynamic loss scale, its resume, and an
+  overflow skipped and backed off, then growth; profiled bf16 epochs of
+  ResNet-18 and ResNet-50 beside the f32 ones.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -1613,14 +1620,15 @@ def tail_inputs(pool, gen):
     return x, w, b, y
 
 
-def within(name, got, want, again) -> float:
-    """Check a kernel result against its plain version (GRAD_RTOL relative
-    to the output's scale) and its relaunch (bit for bit); returns the
-    largest difference."""
-    err = float((got - want).abs().max())
-    tol = GRAD_RTOL * max(1.0, float(want.abs().max()))
+def within(name, got, want, again, rtol=GRAD_RTOL) -> float:
+    """Check a kernel result against its plain version (``rtol`` relative
+    to the output's scale, in f32; the dtypes equal) and its relaunch (bit
+    for bit); returns the largest difference."""
+    err = float((got.float() - want.float()).abs().max())
+    tol = rtol * max(1.0, float(want.float().abs().max()))
     same = torch.equal(got, again)
-    ok = got.shape == want.shape and bool(torch.isfinite(got).all()) and err <= tol
+    ok = (got.shape == want.shape and got.dtype == want.dtype
+          and bool(torch.isfinite(got).all()) and err <= tol)
     print(f"[smoke] {name}: max |Δ| vs plain {err:.3e} (tol {tol:.1e}), relaunch "
           f"{'bit-identical' if same else 'DIFFERS'} {'ok' if ok and same else 'FAIL'}",
           flush=True)
@@ -1693,8 +1701,11 @@ def zoo_counts():
 
 
 def reset_zoo_counts():
+    """Every counter of the zoo's kernels, the f32 and the bf16 forms."""
     for counter in (tap_conv.launches, tap_conv.dgrad_launches,
-                    tap_wgrad.launches, tail.launches):
+                    tap_wgrad.launches, tail.launches, tap_conv.bf16_launches,
+                    tap_conv.bf16_dgrad_launches, tap_wgrad.bf16_launches,
+                    tail.bf16_launches):
         counter.reset()
 
 
@@ -1798,14 +1809,17 @@ def zoo_phase(card) -> dict:
 
 
 def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
-                       batch: int = ZOO_BATCH, steps: int = ZOO_STEPS, accum: int = 1):
+                       batch: int = ZOO_BATCH, steps: int = ZOO_STEPS, accum: int = 1,
+                       fused: FusedStepConfig = ZOO_FUSED):
     """Where a zoo training epoch's time goes: one warm epoch of ``steps``
     steps of ``batch`` (``accum`` microbatches each) on the conv
     ``backend`` (batches gathered on the card, one loss readback) under
     torch.profiler (CUDA activity only), through the GSPMD step on
-    ``mesh`` when given. ``build(backend, generator)`` makes the model,
-    ResNet-18 by default. Returns (img/s, device ops a step, idle share),
-    or None when the profiler saw no device events."""
+    ``mesh`` when given, with the fused step ``fused`` (f32 activations by
+    default). ``build(backend, generator)`` makes the model, ResNet-18 by
+    default. Returns (img/s, device ops a step, idle share, device ms a
+    step, its dgrad / wgrad / forward / other ms a step), or None when the
+    profiler saw no device events."""
     count = steps * batch
     imgs, labels = synthetic.make_image_dataset(count, seed=1234)
     xs = torch.from_numpy(imgs).cuda()
@@ -1813,7 +1827,7 @@ def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
     build = build or (lambda b, g: resnet.resnet18(10, backend=b, generator=g))
     model = build(backend, torch.Generator().manual_seed(0)).cuda()
     state = zoo.init_state(model, zoo.make_optimizer(0.1), mesh=mesh)
-    step = zoo.make_train_step(model, state.optimizer, accum, fused=ZOO_FUSED, mesh=mesh)
+    step = zoo.make_train_step(model, state.optimizer, accum, fused=fused, mesh=mesh)
 
     def epoch():
         perm = torch.randperm(count, generator=torch.Generator().manual_seed(0))
@@ -1856,7 +1870,7 @@ def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
         print(f"[smoke]   {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<6d} {e.key[:90]}", flush=True)
-    return count / wall_ms * 1e3, n_ops / steps, 1 - dev_ms / wall_ms
+    return count / wall_ms * 1e3, n_ops / steps, 1 - dev_ms / wall_ms, dev_ms / steps, split
 
 
 def profiled_gspmd_epoch_rank(mesh):
@@ -3187,6 +3201,365 @@ def native_phase(card) -> None:
         fail("the zoo's native loader and its twin did not train the same ResNet-18")
 
 
+# ---------------------------------------------------------------------------
+# bf16 activations on the zoo's fused step (bf16 (a)-(e)): the bf16 forms of
+# B10 (forward and dgrad), B11 and B12, f32 masters, the loss scales
+# ---------------------------------------------------------------------------
+
+# A bf16 form against its twin (the f32 function of the same bf16 operands,
+# rounded once): one bf16 ulp of the output's scale, the two summing in
+# other orders before the one rounding.
+BF16_RTOL = 2.0 ** -7
+# bf16 (b): 3 bf16 steps against 3 f32 steps from one state, by loss: JAX's
+# own bound for its bf16 fused step against the f32 one
+# (tests/test_fused_step.py).
+BF16_LOSS_RTOL = 1e-2
+BF16_FUSED = FusedStepConfig(update=False, act_dtype="bfloat16")
+BF16_DP_FUSED = FusedStepConfig(update=True, act_dtype="bfloat16")
+# bf16 (d): the dynamic scale's growth through the library entry point (the
+# CLI has no flag for it), after this many clean steps.
+BF16_GROWTH_INTERVAL = 2
+# The per-step launches of ResNet-18's bf16 step: every conv forward, every
+# dgrad but the stem's, every wgrad, one tail.
+BF16_PER_STEP = {"tap_conv": CONVS_PER_FORWARD, "tap_conv_dgrad": CONVS_PER_FORWARD - 1,
+                 "tap_wgrad": CONVS_PER_FORWARD, "tail_ce": 1}
+
+
+def bf16_counts():
+    return {"tap_conv": tap_conv.bf16_launches.count,
+            "tap_conv_dgrad": tap_conv.bf16_dgrad_launches.count,
+            "tap_wgrad": tap_wgrad.bf16_launches.count, "tail_ce": tail.bf16_launches.count}
+
+
+def bf16_bound_ms(x_shape, k, cin, cout, stride, kind):
+    """Least time for one bf16 conv pass on this card: its multiply-adds at
+    the dense bf16 tensor-core peak against its bytes (2 a value: each
+    input it reads once, its output once) at the HBM rate. ``kind`` is
+    "forward" (reads the input pixels the conv uses and w, writes y),
+    "dgrad" (reads g and w, writes dx) or "wgrad" (reads the pixels and g,
+    writes gw)."""
+    n, h, wd, _ = x_shape
+    oh, ow = -(-h // stride), -(-wd // stride)
+    flops = 2.0 * n * oh * ow * cout * k * k * cin
+    g_elems = n * oh * ow * cout
+    w_elems = k * k * cin * cout
+    x_read = n * lines_read(h, k, stride) * lines_read(wd, k, stride) * cin
+    elems = {"forward": x_read + w_elems + g_elems,
+             "dgrad": g_elems + w_elems + n * h * wd * cin,
+             "wgrad": x_read + g_elems + w_elems}[kind]
+    t_ops = flops / PEAK_BF16_FLOPS * 1e3
+    t_bytes = 2.0 * elems / PEAK_HBM_BYTES * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_tail_bound_ms(x, w):
+    """B12's bf16 form: x, w and b read once (2 bytes a value), the labels
+    (8) and loss and dlogits (4, f32) once; 2·B·D·K operations."""
+    n, k = x.shape[0], w.shape[1]
+    nbytes = 2.0 * (x.numel() + w.numel() + k) + 8.0 * n + 4.0 * (n + n * k)
+    t_bytes = nbytes / PEAK_HBM_BYTES * 1e3
+    t_ops = 2.0 * n * w.shape[0] * k / PEAK_BF16_FLOPS * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def library_conv_bf16(x, w, stride):
+    """cuDNN's bf16 conv (F.conv2d) on the SAME-padded channels-last input,
+    padded outside the timing: the yardstick of the bf16 forward. The port
+    never calls it."""
+    k = w.shape[0]
+    _, pt, pb = tap_conv.same_pads(x.shape[1], k, stride)
+    xp = F.pad(x.permute(0, 3, 1, 2), (pt, pb, pt, pb)).contiguous(
+        memory_format=torch.channels_last)
+    wl = w.permute(3, 2, 0, 1).contiguous(memory_format=torch.channels_last)
+    return lambda: F.conv2d(xp, wl, stride=stride)
+
+
+def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
+    """bf16 (a) at each geometry at ``batch``: B10's forward (and the rows
+    of a 37-image bucket of the same images, bit for bit) and dgrad and B11
+    in bf16 against their twins (BF16_RTOL, relaunch bit for bit), each
+    timed beside the bound, cuDNN's bf16 call and, with ``time_plain``,
+    the twin. A stem's dgrad is not on the path and is skipped. Returns each
+    kernel's largest difference and its times summed over one forward's or
+    one microbatch's convs."""
+    errs = dict.fromkeys(("tap_conv", "tap_conv_dgrad", "tap_wgrad"), 0.0)
+    sums = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms"), 0.0)
+            for key in errs}
+    bf16 = torch.bfloat16
+    for name, h, cin, cout, k, s, _, _, count in geometries:
+        x, w, g = (t.to(bf16) for t in grad_inputs(h, cin, cout, k, s, gen, batch))
+        tag = f"bf16 {label} {name:26s} b{batch}"
+        kinds = [("tap_conv", "forward")] + ([] if name.startswith("stem") else
+                                             [("tap_conv_dgrad", "dgrad")]) + [
+            ("tap_wgrad", "wgrad")]
+        for key, kind in kinds:
+            if kind == "forward":
+                fn = lambda: tap_conv.conv2d(x, w, s)  # noqa: E731
+                plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
+                    tap_conv.conv2d_plain, x, w, stride=s)
+                lib = library_conv_bf16(x, w, s)
+            elif kind == "dgrad":
+                fn = lambda: tap_conv.conv2d_dgrad(g, w, x.shape, s)  # noqa: E731
+                plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
+                    tap_conv.conv2d_dgrad_plain, g, w, x_shape=x.shape, stride=s)
+                lib = library_grad(x, w, g, s, True)
+            else:
+                fn = lambda: tap_wgrad.conv2d_wgrad(x, g, k, s)  # noqa: E731
+                plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
+                    tap_wgrad.conv2d_wgrad_plain, x, g, k=k, stride=s)
+                lib = library_grad(x, w, g, s, False)
+            got, again = fn(), fn()
+            with plain_reference():
+                want = plain_fn()
+            torch.cuda.synchronize()
+            errs[key] = max(errs[key], within(f"{tag} {key}", got, want, again, BF16_RTOL))
+            if kind == "forward" and batch > 37:
+                rows = tap_conv.conv2d(x[:37], w, s)
+                if not torch.equal(rows, got[:37]):
+                    fail(f"{tag}: a 37-image bucket's rows differ from the same images' "
+                         f"rows at b{batch}")
+            ms = cuda_ms(fn, reps=10)
+            plain = float("nan")
+            if time_plain:
+                with plain_reference():
+                    plain = cuda_ms(plain_fn, reps=3, warmup=1)
+            lib_ms = cuda_ms(lib, reps=10)
+            bound, by = bf16_bound_ms(x.shape, k, cin, cout, s, kind)
+            print(f"[smoke] time {tag} {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                  f"cuDNN bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
+                  f"{bound / ms:.1%} of bound", flush=True)
+            for field, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
+                             ("bound_ms", bound)):
+                sums[key][field] += count * v
+            if by == "operations":
+                sums[key]["ops_ms"] += count * bound
+        del x, w, g
+    for key, rec in sums.items():
+        print(f"[smoke] time bf16 {label} {key} summed over the convs of one "
+              f"{'forward' if key == 'tap_conv' else 'microbatch'} at b{batch}: "
+              + ", ".join(f"{f} {v:.3f}" for f, v in rec.items() if f != "ops_ms"),
+              flush=True)
+    return errs, sums
+
+
+def bf16_kernel_phase() -> tuple:
+    """bf16 (a): every bf16 form against its twin on the card at the main
+    path's shapes: ResNet-18's convs at b128, ResNet-50's 24 distinct convs
+    at b128 and its 224x224 stem at b32 (forward, dgrad, wgrad), B12's gap
+    at ResNet-18's and ResNet-50's heads and max2 at the CIFAR CNN's.
+    Returns (largest differences, the records' times: ResNet-18's step sums
+    at b128 and its gap tail; and ResNet-50's microbatch sums)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    errs, r18 = bf16_geometry_checks("ResNet-18", GEOMETRIES, ZOO_BATCH, gen, True)
+    for table, batch, label in ((R50_GEOMETRIES, Z50_BATCH, "ResNet-50"),
+                                ([STEM224], STEM224_BATCH, "ResNet-50 ImageNet")):
+        e, sums = bf16_geometry_checks(label, table, batch, gen, False)
+        errs = {key: max(errs[key], e[key]) for key in errs}
+        if label == "ResNet-50":
+            r50 = sums
+    times = {}
+    for key, rec in r18.items():
+        times[key] = dict(ms=rec["ms"], plain_ms=rec["plain_ms"], bound_ms=rec["bound_ms"],
+                          bound_by=("operations" if rec["ops_ms"] >= rec["bound_ms"] / 2
+                                    else "bytes"),
+                          library_ms=rec["library_ms"])
+    errs["tail_ce"] = 0.0
+    heads = (("gap", "ResNet-18 head", (ZOO_BATCH, 4, 4, 512)),
+             ("gap", "ResNet-50 head", (Z50_BATCH, 4, 4, 2048)),
+             ("max2", "CIFAR CNN head", (ZOO_BATCH, 8, 8, 128)))
+    for pool, label, shape in heads:
+        x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
+        d = shape[3] if pool == "gap" else (shape[1] // 2) * (shape[2] // 2) * shape[3]
+        w = torch.randn((d, 10), generator=gen, device="cuda") * d ** -0.5
+        b = 0.1 * torch.randn((10,), generator=gen, device="cuda")
+        y = torch.randint(0, 10, (shape[0],), generator=gen, device="cuda")
+        args = tuple(t.to(torch.bfloat16) for t in (x, w, b)) + (y,)
+        loss, dl = tail.tail_forward(*args, pool)
+        loss2, dl2 = tail.tail_forward(*args, pool)
+        ref_loss, ref_dl = tail.tail_forward_plain(*args, pool)
+        torch.cuda.synchronize()
+        tag = f"bf16 tail_ce {pool} {label} ({'x'.join(map(str, shape))})->10"
+        errs["tail_ce"] = max(errs["tail_ce"],
+                              within(f"{tag} loss", loss, ref_loss, loss2, BF16_RTOL),
+                              within(f"{tag} dlogits", dl, ref_dl, dl2, BF16_RTOL))
+        ms = cuda_ms(lambda: tail.tail_forward(*args, pool), reps=200)
+        plain = cuda_ms(lambda: tail.tail_forward_plain(*args, pool), reps=20)
+        bound, by = bf16_tail_bound_ms(args[0], args[1])
+        print(f"[smoke] time {tag}: kernel {ms:.5f} ms, plain {plain:.4f} ms, library "
+              f"none, bound {bound:.6f} ms ({by}), {bound / ms:.1%} of bound", flush=True)
+        if label == "ResNet-18 head":
+            times["tail_ce"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                                    library_ms=None)
+    return errs, times, r50
+
+
+def bf16_step_rank(mesh):
+    """bf16 (d) on one rank, through the library entry point: ResNet-18's
+    update-on-arrival step in bf16 with the dynamic scale at
+    ``growth_interval`` BF16_GROWTH_INTERVAL, on a clean batch, the same
+    batch with an inf, then two clean ones. Returns each step's (scale,
+    good_steps, skipped) and whether the overflow left params, momentum and
+    BN statistics bit for bit as they were."""
+    imgs, labels = synthetic.make_image_dataset(ZOO_BATCH, seed=13)
+    x = torch.from_numpy(imgs).cuda()
+    y = torch.from_numpy(labels).to("cuda", torch.int64)
+    x_inf = x.clone()
+    x_inf[0, 0, 0, 0] = float("inf")
+    fused = dataclasses.replace(BF16_DP_FUSED, growth_interval=BF16_GROWTH_INTERVAL)
+    model = resnet.resnet18(10, backend="cuda",
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    opt = zoo.make_optimizer(ZOO_CHECK_LR, DP_MOMENTUM)
+    state, _ = zoo.init_fused_state(model, opt, mesh=mesh, fused=fused,
+                                    bucket_bytes=DP_COMM.bucket_bytes)
+    step = zoo.make_fused_train_step(model, lr=ZOO_CHECK_LR, momentum=DP_MOMENTUM,
+                                     accum_steps=1, mesh=mesh, augment_pad=None,
+                                     comm=DP_COMM, fused=fused)
+    scalars, kept = [], None
+    for batch in (x, x_inf, x, x):
+        before = {k: v.clone() for k, v in state.arrays().items()}
+        step(state, batch, y)
+        opt_state = state.fused
+        scalars.append((float(opt_state.scale), int(opt_state.good_steps),
+                        int(opt_state.skipped)))
+        if batch is x_inf:
+            after = state.arrays()
+            kept = all(torch.equal(before[k], after[k]) for k in before
+                       if not k.startswith(zoo._FUSED_SCALARS))
+    return scalars, kept
+
+
+def bf16_phase(card) -> tuple:
+    """bf16 (b)-(d): JAX's default --fused-step (bf16 activations on f32
+    masters) on the card. (b) ResNet-18 through the CLI at b128, 2 epochs:
+    exact bf16 launch counts a step, no f32 gradient or tail launch, a
+    falling finite loss; 3 bf16 steps against 3 f32 steps from one state.
+    (c)-(d) the update-on-arrival CLI at --mesh-data 1, the dynamic scale:
+    its launches, a resumed run against the straight one (the loss-scale
+    state included), and through the library entry point one overflow
+    skipped bit for bit and backed off, then growth. Returns the bf16
+    launches of (b) and (d)'s CLI runs together."""
+    work = BUILD_DIR / "smoke_bf16"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = ["--batch-size", str(ZOO_BATCH), "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step"] + data
+    steps = 2 * ZOO_STEPS
+    evals = 2 * -(-ZOO_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {key: n * steps for key, n in BF16_PER_STEP.items()}
+    want_f32 = {"tap_conv": CONVS_PER_FORWARD * evals, "tap_conv_dgrad": 0,
+                "tap_wgrad": 0, "tail_ce": 0}
+
+    # (b) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] bf16 (b): {' '.join(base)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    out = run_cli(base + ["--epochs", "2"])
+    launches, f32 = bf16_counts(), zoo_counts()
+    losses = epoch_losses(out)
+    print(f"[smoke] bf16 (b): bf16 launches {launches} for {steps} steps (expected "
+          f"{want}); f32 launches {f32} (expected {want_f32}: the eval forward on the f32 "
+          f"masters); epoch losses {losses} on {card}", flush=True)
+    if launches != want or f32 != want_f32:
+        fail("the bf16 zoo run did not launch each bf16 form exactly as often as its "
+             "steps need, or launched an f32 gradient or tail kernel")
+    if len(losses) != 2 or not all(np.isfinite(losses)) or not losses[1] < losses[0]:
+        fail("the bf16 zoo run's loss is not finite or did not fall from epoch 1 to 2")
+
+    imgs, labels = synthetic.make_image_dataset(3 * ZOO_BATCH, seed=11)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    runs = {}
+    for label, fused in (("bf16", BF16_FUSED), ("f32", ZOO_FUSED)):
+        model = resnet.resnet18(10, backend="cuda",
+                                generator=torch.Generator().manual_seed(0)).cuda()
+        state = zoo.init_state(model, zoo.make_optimizer(ZOO_CHECK_LR))
+        step = zoo.make_train_step(model, state.optimizer, fused=fused)
+        runs[label] = [float(step(state, xs[i * ZOO_BATCH:(i + 1) * ZOO_BATCH],
+                                  ys[i * ZOO_BATCH:(i + 1) * ZOO_BATCH])) for i in range(3)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(runs["bf16"], runs["f32"]))
+    print(f"[smoke] bf16 (b): 3 bf16 steps vs 3 f32 steps from one state (lr "
+          f"{ZOO_CHECK_LR}, b{ZOO_BATCH}): losses {runs['bf16']} vs {runs['f32']}, max "
+          f"relative difference {rel:.3e} (tol {BF16_LOSS_RTOL:.0e}) "
+          f"{'ok' if rel <= BF16_LOSS_RTOL else 'FAIL'}", flush=True)
+    if not rel <= BF16_LOSS_RTOL:
+        fail("the bf16 steps drifted from the f32 steps past JAX's bound")
+
+    # (d) update-on-arrival with the dynamic scale; (c) its resume.
+    dp = base + ["--mesh-data", str(DP_WORLD), "--comm-impl", "ring"]
+    print(f"[smoke] bf16 (d): {' '.join(dp)} --epochs 2", flush=True)
+    reset_zoo_counts()
+    sgd_update.momentum_launches.reset()
+    out = run_cli(dp + ["--epochs", "2", "--checkpoint-dir", str(work / "straight")])
+    dp_launches, f32 = bf16_counts(), zoo_counts()
+    momentum = sgd_update.momentum_launches.count
+    losses = epoch_losses(out)
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    scale = [float(a[k]) for k in zoo._FUSED_SCALARS]
+    print(f"[smoke] bf16 (d): bf16 launches {dp_launches}, sgd_momentum {momentum} for "
+          f"{steps} steps (expected {want} and {steps}); f32 launches {f32}; epoch "
+          f"losses {losses}; scale, good steps, skipped after 2 epochs {scale}", flush=True)
+    if dp_launches != want or f32 != want_f32 or momentum != steps:
+        fail("the bf16 update-on-arrival run did not launch each kernel exactly as "
+             "often as its steps need")
+    if "falling back" in out or len(losses) != 2 or not all(np.isfinite(losses)):
+        fail("the bf16 update-on-arrival run did not take its path or its loss is not "
+             "finite")
+    print("[smoke] bf16 (c): --epochs 1, then --epochs 2 --resume, vs (d)", flush=True)
+    split = work / "split"
+    run_cli(dp + ["--epochs", "1", "--checkpoint-dir", str(split)])
+    out = run_cli(dp + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] bf16 (c): resumed state ({len(a)} leaves: params, BN stats, "
+          f"momentum, scale, good steps, skipped) "
+          f"{'bit-identical to the straight run' if same else 'DIFFERS'}", flush=True)
+    if "resumed from" not in out or not same:
+        fail("the resumed bf16 run is not bit-identical to the straight run")
+
+    scalars, kept = distributed.run(bf16_step_rank, DP_WORLD, device="cuda")[0]
+    s0 = BF16_DP_FUSED.loss_scale
+    want_scalars = [(s0, 1, 0), (s0 * BF16_DP_FUSED.backoff, 0, 1),
+                    (s0 * BF16_DP_FUSED.backoff, 1, 1), (s0, 0, 1)]
+    ok = kept and scalars == want_scalars
+    print(f"[smoke] bf16 (d): library step, clean / inf / clean / clean at growth "
+          f"interval {BF16_GROWTH_INTERVAL}: (scale, good steps, skipped) {scalars} "
+          f"(expected {want_scalars}); the overflow left params, momentum and BN "
+          f"statistics {'bit-identical' if kept else 'CHANGED'} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        fail("the dynamic loss scale did not skip, back off and grow as JAX's does")
+    return {key: launches[key] + dp_launches[key] for key in launches}
+
+
+def bf16_profiles(card, f32_profiles, r18_convs, r50_convs) -> None:
+    """bf16 (e): warm epochs of ResNet-18 (b128) and ResNet-50 (b128 in two
+    microbatches) in bf16 under torch.profiler, beside the f32 epochs of
+    this call: device ms a step, idle share, device ops a step, and the
+    step's conv kernels against cuDNN's bf16 calls on the same convs (timed
+    in (a) at b128, never on the path)."""
+    r50 = lambda b, g: resnet.resnet50(10, cifar_stem=True, backend=b, generator=g)  # noqa: E731
+    runs = (("ResNet-18", None, ZOO_BATCH, ZOO_STEPS, 1, r18_convs),
+            ("ResNet-50", r50, Z50_BATCH, Z50_STEPS, Z50_ACCUM, r50_convs))
+    for label, build, batch, steps, accum, convs in runs:
+        prof = profiled_zoo_epoch(f"{label}, bf16 activations, conv kernels + fused tail",
+                                  "cuda", build=build, batch=batch, steps=steps,
+                                  accum=accum, fused=BF16_FUSED)
+        f32 = f32_profiles.get(label)
+        if prof is None or f32 is None:
+            continue
+        kern = sum(prof[4][part] for part in ("forward", "dgrad", "wgrad"))
+        # (a) timed the convs at the step's whole batch (ResNet-50's two
+        # microbatches of 64 as one pass of 128).
+        lib = sum(convs[key]["library_ms"] for key in ("tap_conv", "tap_conv_dgrad",
+                                                       "tap_wgrad"))
+        print(f"[smoke] bf16 (e) {label} b{batch}: device {prof[3]:.3f} ms a step "
+              f"(f32 {f32[3]:.3f}), idle {prof[2]:.1%} (f32 {f32[2]:.1%}), "
+              f"{prof[1]:.1f} device ops a step (f32 {f32[1]:.1f}); conv kernels "
+              f"{kern:.3f} ms a step (f32 {sum(f32[4][p] for p in ('forward', 'dgrad', 'wgrad')):.3f}) "
+              f"against cuDNN bf16 on the same convs {lib:.3f} ms (timed only, "
+              f"this call, on {card})", flush=True)
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -3369,8 +3742,9 @@ def main() -> int:
     # -- 4f. ResNet-50 and VGG-16 at full width, and their serving --------
     z50_launches, z50_errs, _ = zoo50_phase(card)
     r50 = lambda b, g: resnet.resnet50(10, cifar_stem=True, backend=b, generator=g)  # noqa: E731
-    profiled_zoo_epoch("ResNet-50, conv kernels + fused tail", "cuda", build=r50,
-                       batch=Z50_BATCH, steps=Z50_STEPS, accum=Z50_ACCUM)
+    r50_profile = profiled_zoo_epoch("ResNet-50, conv kernels + fused tail", "cuda",
+                                     build=r50, batch=Z50_BATCH, steps=Z50_STEPS,
+                                     accum=Z50_ACCUM)
     img_launches, img_tail_err = imagenet_phase(card)
     vgg_launches = vgg_phase(card)
     profiled_zoo_epoch("VGG-16, conv kernels + fused tail", "cuda",
@@ -3380,6 +3754,12 @@ def main() -> int:
 
     # -- 4g. the native C++ idx parser and prefetch ring ------------------
     native_phase(card)
+
+    # -- 4h. bf16 activations: JAX's default --fused-step -----------------
+    bf16_errs, bf16_times, r50_bf16 = bf16_kernel_phase()
+    bf16_launches = bf16_phase(card)
+    bf16_profiles(card, {"ResNet-18": zoo_profile, "ResNet-50": r50_profile},
+                  bf16_times, r50_bf16)
 
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -3494,6 +3874,18 @@ def main() -> int:
         "max_abs_err": momentum_err,
         **momentum_times,
     }] + [{
+        "name": f"{name}.bf16",
+        "route": "cuda",
+        "source": f"parallel_cnn_tpu_torch/csrc/{source}",
+        "replaces": replaces,
+        "launches": bf16_launches[name],
+        "max_abs_err": bf16_errs[name],
+        **bf16_times[name],
+    } for name, source, replaces in (
+        ("tap_conv", "tap_conv.cu", "parallel_cnn_tpu/ops/pallas_conv.py:228"),
+        ("tap_conv_dgrad", "tap_conv.cu", "parallel_cnn_tpu/ops/pallas_conv.py:228"),
+        ("tap_wgrad", "tap_wgrad.cu", "parallel_cnn_tpu/ops/pallas_conv.py:321"),
+        ("tail_ce", "tail_ce.cu", "parallel_cnn_tpu/ops/pallas_tail.py:152"))] + [{
         "name": f"lenet_staged.{name}",
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/lenet_staged.cu",

@@ -279,12 +279,16 @@ class FusedStepConfig:
       trainer drops it with JAX's fallback line.
     - ``tail`` routes a recognised model head through the fused loss tail
       (ops/tail.py, csrc/tail_ce.cu).
-    - ``act_dtype``: only "float32" is ported. "bfloat16", JAX's default,
-      needs bf16 variants of the conv and tail kernels and the loss scale
-      (ROADMAP A8b); the zoo trainer raises NotPortedError on it.
+    - ``act_dtype``: "bfloat16", JAX's default, casts the input and every
+      floating parameter to bf16 at the top of the loss (train/zoo.py
+      ``_build_loss_fn``): the conv and tail kernels run their bf16 forms,
+      BN's statistics and every master stay f32. "float32" runs the f32
+      forms throughout.
     - ``loss_scale``, ``growth_interval``, ``backoff``: the bf16 path's
-      dynamic loss scale. They shape the optimizer state
-      (``FusedOptState.scale``); in f32 the scale is pinned to 1.
+      loss scale, static (``loss_scale``) on the steps without
+      update-on-arrival, dynamic on ``make_fused_train_step`` (backed off
+      on overflow, clamped at 1, doubled after ``growth_interval`` clean
+      steps; ``FusedOptState.scale``). In f32 the scale is pinned to 1.
     - ``zero``: 2 keeps the momentum as 1/n bucket shards and the params
       replicated. 3 (params sharded too) is not ported: NotPortedError.
     """
@@ -317,14 +321,6 @@ class FusedStepConfig:
                 f"growth_interval must be >= 1, got {self.growth_interval}")
         if not 0.0 < self.backoff < 1.0:
             raise ValueError(f"backoff must be in (0, 1), got {self.backoff}")
-
-    def check_ported(self) -> None:
-        if self.act_dtype != "float32":
-            raise NotPortedError(
-                f"fused-step act_dtype={self.act_dtype!r} is not ported yet "
-                "(ROADMAP A8b: bf16 conv/tail kernels and the static loss "
-                "scale); pass act_dtype='float32' (--act-dtype float32)"
-            )
 
     @staticmethod
     def from_env() -> Optional["FusedStepConfig"]:

@@ -25,10 +25,24 @@
 //     lane/8 + 4i, which land on distinct banks.
 // Every accumulator sums its depth terms in ascending depth order, one
 // fmaf each: the tile shape and the ring never change a result.
+//
+// bf16 operands (the bf16 forms of the three conv kernels). A bf16 value
+// widens to f32 exactly (its 16 bits are the f32's high half), so a bf16
+// kernel's slabs in shared memory hold f32 and it runs compute_stage as
+// the f32 form does: the product of two bf16 values is exact in f32 and
+// every sum is f32, the TPU's preferred_element_type=f32 contract, in the
+// f32 form's order. cp.async moves bytes and cannot widen, so a bf16 slab
+// goes through registers: `fetch_bf16` loads VEC values (8 bytes for 4,
+// 2 for 1) before the stage's products, `deposit_bf16` widens them and
+// stores them after, into the slot the stage's barrier freed. Results are
+// rounded once, at the store (`store4`, `store1`: __float2bfloat16_rn).
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace ftile {
 
@@ -190,6 +204,58 @@ __device__ __forceinline__ void compute_stage(const float* As, const float* Bs,
     }
   }
 }
+
+// VEC bf16 values held in registers between fetch_bf16 and deposit_bf16:
+// 4 as a uint2, 1 in the low half of an unsigned.
+template <int VEC>
+using Bf16Pack = typename std::conditional<VEC == 4, uint2, unsigned>::type;
+
+template <class E>
+constexpr bool is_bf16 = std::is_same<E, __nv_bfloat16>::value;
+
+// VEC bf16 values from global memory (8-byte aligned for 4), or zeros
+// when !ok (src is then not read).
+template <int VEC>
+__device__ __forceinline__ Bf16Pack<VEC> fetch_bf16(const __nv_bfloat16* src, bool ok) {
+  if constexpr (VEC == 4) {
+    return ok ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+  } else {
+    return ok ? static_cast<unsigned>(__ldg(reinterpret_cast<const unsigned short*>(src)))
+              : 0u;
+  }
+}
+
+// The bf16 in the low (first) or high (second) half of a 32-bit word, as
+// the f32 it is exactly.
+__device__ __forceinline__ float bf16_lo(unsigned u) { return __uint_as_float(u << 16); }
+__device__ __forceinline__ float bf16_hi(unsigned u) { return __uint_as_float(u & 0xffff0000u); }
+
+// Widen VEC fetched values into f32 shared memory (16-byte aligned for 4).
+template <int VEC>
+__device__ __forceinline__ void deposit_bf16(float* dst, Bf16Pack<VEC> v) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<float4*>(dst) =
+        make_float4(bf16_lo(v.x), bf16_hi(v.x), bf16_lo(v.y), bf16_hi(v.y));
+  } else {
+    *dst = bf16_lo(v);
+  }
+}
+
+__device__ __forceinline__ unsigned bf16_bits(float f) {
+  return static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(f)));
+}
+
+// Four f32 results stored as a run of 4 (16-byte aligned for f32, 8 for
+// bf16), and one result alone; bf16 rounds to nearest even, once.
+__device__ __forceinline__ void store4(float* p, float a, float b, float c, float d) {
+  *reinterpret_cast<float4*>(p) = make_float4(a, b, c, d);
+}
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float a, float b, float c, float d) {
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(bf16_bits(a) | (bf16_bits(b) << 16), bf16_bits(c) | (bf16_bits(d) << 16));
+}
+__device__ __forceinline__ void store1(float* p, float a) { *p = a; }
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float a) { *p = __float2bfloat16_rn(a); }
 
 // Raise a kernel's dynamic shared-memory limit to what it needs (above the
 // 48 KB default), once per kernel; returns the error of the call.

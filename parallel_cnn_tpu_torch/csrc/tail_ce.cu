@@ -63,11 +63,23 @@
 // Unrolled code costs here too: a variant whose registers spilled, or whose
 // w array outgrew what its threads needed, ran 1.5-4x slower (PERF.md).
 //
+// The bf16 form (pallas_tail.py:152 on bf16 x, w and b: f32 dots, f32
+// softmax-CE, the gap mean stored in x's dtype before the dot, :180). The
+// element type is a template argument: x, w and b are loaded as bf16 (x
+// 8 bytes, 4 values, at a time where the f32 form loads a float4) and
+// widened exactly, the gap sum runs in f32 and its mean (sum · 1/P) is
+// rounded to bf16 before the FC, the max2 maxima are exact in bf16, and
+// the FC, the logits and the softmax-CE are the f32 form's. Bound by its
+// bytes, half of them the f32 form's for x.
+//
 // The kernel launches on the caller's stream, synchronises nothing and
 // allocates nothing.
 
 #include <cstdint>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -104,6 +116,35 @@ __device__ __forceinline__ float4 vmax(float4 a, float4 b) {
   return make_float4(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z), fmaxf(a.w, b.w));
 }
 
+// Loads of x (VEC values as V), w and b, widened to f32: a bf16 value is
+// the high half of the f32 it equals, so the widening is exact.
+__device__ __forceinline__ float widen(unsigned short u) {
+  return __uint_as_float(static_cast<unsigned>(u) << 16);
+}
+__device__ __forceinline__ float ld1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld1(const __nv_bfloat16* p) {
+  return widen(__ldg(reinterpret_cast<const unsigned short*>(p)));
+}
+__device__ __forceinline__ float ldv(const float* p, float) { return __ldg(p); }
+__device__ __forceinline__ float4 ldv(const float* p, float4) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ float ldv(const __nv_bfloat16* p, float) { return ld1(p); }
+__device__ __forceinline__ float4 ldv(const __nv_bfloat16* p, float4) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));  // 8-byte aligned
+  return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                     __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+}
+
+// The bf16 gap mean: the f32 sum times 1/P, rounded to bf16 (as f32).
+__device__ __forceinline__ float mean_bf16(float s, float inv) {
+  return __bfloat162float(__float2bfloat16_rn(s * inv));
+}
+__device__ __forceinline__ float4 mean_bf16(float4 s, float inv) {
+  return make_float4(mean_bf16(s.x, inv), mean_bf16(s.y, inv), mean_bf16(s.z, inv),
+                     mean_bf16(s.w, inv));
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -116,13 +157,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int POOL, int VEC>
+// E is the element type of x, w and b: float, or __nv_bfloat16 (the bf16
+// form: values widened at the load, the gap mean rounded to bf16 before
+// the FC as pallas_tail.py:180 rounds it, the rest f32).
+template <int POOL, int VEC, class E>
 __global__ void __launch_bounds__(Cfg<POOL>::threads, 1)
-tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
-               const float* __restrict__ b,
+tail_ce_kernel(const E* __restrict__ x, const E* __restrict__ w,
+               const E* __restrict__ b,
                const long long* __restrict__ labels,
                float* __restrict__ loss, float* __restrict__ dl,
                int h, int wd, int c, int d, int k) {
+  constexpr bool BF16 = std::is_same<E, __nv_bfloat16>::value;
   constexpr int THREADS = Cfg<POOL>::threads;
   constexpr int WREG = Cfg<POOL>::wreg;
   using V = typename VecOf<VEC>::type;
@@ -135,7 +180,7 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int tid = threadIdx.x;
   const int lane = tid % 32;
   const long long n = blockIdx.x;
-  const float* xi = x + n * positions * c;
+  const E* xi = x + n * positions * c;
 
   // 0. The loads that wait for nothing go out first, beside x's: the
   // first WREG of this thread's w values of the first class pass, the bias
@@ -144,14 +189,14 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
   float wpre[WREG];
   {
     const int rows = THREADS / kch;
-    const float* wj = w + tid % kch;
+    const E* wj = w + tid % kch;
 #pragma unroll
     for (int m = 0; m < WREG; ++m) {
       const int f = tid / kch + m * rows;
-      wpre[m] = tid < rows * kch && f < d ? __ldg(wj + static_cast<long long>(f) * k) : 0.0f;
+      wpre[m] = tid < rows * kch && f < d ? ld1(wj + static_cast<long long>(f) * k) : 0.0f;
     }
   }
-  const float b_lane = tid < 32 && lane < k ? __ldg(b + lane) : 0.0f;
+  const float b_lane = tid < 32 && lane < k ? ld1(b + lane) : 0.0f;
   const long long y = __ldg(labels + n);
 
   // 1. Pool into shared memory.
@@ -164,12 +209,12 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int q = 0; q < TAIL_SEG; ++q)
           if (p + q < positions)
-            v[q] = __ldg(reinterpret_cast<const V*>(xi + static_cast<long long>(p + q) * c +
-                                                    u * VEC));
+            v[q] = ldv(xi + static_cast<long long>(p + q) * c + u * VEC, V());
 #pragma unroll
         for (int q = 0; q < TAIL_SEG; ++q)
           if (p + q < positions) sum = vadd(sum, v[q]);
       }
+      if constexpr (BF16) sum = mean_bf16(sum, 1.0f / static_cast<float>(positions));
       *reinterpret_cast<V*>(pooled + u * VEC) = sum;
     }
   } else {
@@ -194,7 +239,7 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
         }
 #pragma unroll
         for (int t = 0; t < TAPS; ++t)
-          v[r][t] = __ldg(reinterpret_cast<const V*>(xi + q + tap_off[t]));
+          v[r][t] = ldv(xi + q + tap_off[t], V());
       }
 #pragma unroll
       for (int r = 0; r < TAIL_UNROLL; ++r) {
@@ -208,14 +253,15 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
   __syncthreads();
 
-  // 2-3. The FC and the logits, kch classes a pass.
-  const float scale = POOL == kGap ? 1.0f / static_cast<float>(positions) : 1.0f;
+  // 2-3. The FC and the logits, kch classes a pass (bf16 gap: the pooled
+  // row already is the mean).
+  const float scale = POOL == kGap && !BF16 ? 1.0f / static_cast<float>(positions) : 1.0f;
   for (int k0 = 0; k0 < k; k0 += kch) {
     const int kc = k - k0 < kch ? k - k0 : kch;
     const int rows = THREADS / kc;
     float acc = 0.0f;
     if (tid < rows * kc) {
-      const float* wj = w + k0 + tid % kc;
+      const E* wj = w + k0 + tid % kc;
       int f = tid / kc;
       if (k0 == 0) {
 #pragma unroll
@@ -228,7 +274,7 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
 #pragma unroll
         for (int u = 0; u < TAIL_WBATCH; ++u) {
           const int fu = f + u * rows;
-          wv[u] = fu < d ? __ldg(wj + static_cast<long long>(fu) * k) : 0.0f;
+          wv[u] = fu < d ? ld1(wj + static_cast<long long>(fu) * k) : 0.0f;
         }
 #pragma unroll
         for (int u = 0; u < TAIL_WBATCH; ++u)
@@ -242,7 +288,7 @@ tail_ce_kernel(const float* __restrict__ x, const float* __restrict__ w,
       for (int j = lane; j < kc; j += 32) {
         float s = part[j];
         for (int r = 1; r < rows; ++r) s += part[r * kc + j];
-        const float bj = k0 == 0 && j == lane ? b_lane : __ldg(b + k0 + j);
+        const float bj = k0 == 0 && j == lane ? b_lane : ld1(b + k0 + j);
         logits[k0 + j] = bj + scale * s;
       }
     }
@@ -277,26 +323,27 @@ long long smem_bytes(int pool, int d, int k) {
   return (static_cast<long long>(d) + threads_of(pool) + k) * sizeof(float);
 }
 
-template <int POOL, int VEC>
-int launch(const float* x, const float* w, const float* b, const long long* labels,
+template <int POOL, int VEC, class E>
+int launch(const E* x, const E* w, const E* b, const long long* labels,
            float* loss, float* dl, int batch, int h, int wd, int c, int d, int k,
            long long smem, cudaStream_t stream) {
   if (smem > DEFAULT_SMEM) {
     const cudaError_t err = cudaFuncSetAttribute(
-        tail_ce_kernel<POOL, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        tail_ce_kernel<POOL, VEC, E>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  tail_ce_kernel<POOL, VEC><<<static_cast<unsigned>(batch), Cfg<POOL>::threads,
-                              static_cast<size_t>(smem), stream>>>(
+  tail_ce_kernel<POOL, VEC, E><<<static_cast<unsigned>(batch), Cfg<POOL>::threads,
+                                 static_cast<size_t>(smem), stream>>>(
       x, w, b, labels, loss, dl, h, wd, c, d, k);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The kernel of one pool mode: float4 loads of x where x starts on a
-// 16-byte boundary and C % 4 == 0, else 4-byte ones.
-template <int POOL>
-int launch_pool(bool vec, const float* x, const float* w, const float* b,
+// The kernel of one pool mode: vector loads of x (4 values: a float4, or
+// 8 bytes of bf16) where x starts on a 16-byte boundary and C % 4 == 0,
+// else one value at a time.
+template <int POOL, class E>
+int launch_pool(bool vec, const E* x, const E* w, const E* b,
                 const long long* labels, float* loss, float* dl, int batch, int h, int wd,
                 int c, int d, int k, long long smem, cudaStream_t stream) {
   return vec ? launch<POOL, 4>(x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, stream)
@@ -305,6 +352,23 @@ int launch_pool(bool vec, const float* x, const float* w, const float* b,
 
 bool valid(int pool, int h, int wd, int c, int d, int k) {
   return h > 0 && wd > 0 && c > 0 && d > 0 && k > 0 && pool >= kMax2 && pool <= kNone;
+}
+
+template <class E>
+int forward_entry(const E* x, const E* w, const E* b, const long long* labels, float* loss,
+                  float* dl, int batch, int h, int wd, int c, int d, int k, int pool,
+                  void* stream) {
+  if (batch <= 0 || !valid(pool, h, wd, c, d, k)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = smem_bytes(pool, d, k);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool vec = (reinterpret_cast<std::uintptr_t>(x) & 15u) == 0 && c % 4 == 0;
+  if (pool == kGap)
+    return launch_pool<kGap>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
+  if (pool == kMax2)
+    return launch_pool<kMax2>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
+  return launch_pool<kNone>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
 }
 
 }  // namespace
@@ -320,15 +384,14 @@ extern "C" int tail_ce_forward(const float* x, const float* w, const float* b,
                                const long long* labels, float* loss,
                                float* dl, int batch, int h, int wd, int c,
                                int d, int k, int pool, void* stream) {
-  if (batch <= 0 || !valid(pool, h, wd, c, d, k)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long smem = smem_bytes(pool, d, k);
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool vec = (reinterpret_cast<std::uintptr_t>(x) & 15u) == 0 && c % 4 == 0;
-  if (pool == kGap)
-    return launch_pool<kGap>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
-  if (pool == kMax2)
-    return launch_pool<kMax2>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
-  return launch_pool<kNone>(vec, x, w, b, labels, loss, dl, batch, h, wd, c, d, k, smem, s);
+  return forward_entry(x, w, b, labels, loss, dl, batch, h, wd, c, d, k, pool, stream);
+}
+
+// The bf16 form: x, w and b bf16; loss and dl f32, as the TPU kernel writes
+// them.
+extern "C" int tail_ce_forward_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                    const __nv_bfloat16* b, const long long* labels,
+                                    float* loss, float* dl, int batch, int h, int wd, int c,
+                                    int d, int k, int pool, void* stream) {
+  return forward_entry(x, w, b, labels, loss, dl, batch, h, wd, c, d, k, pool, stream);
 }

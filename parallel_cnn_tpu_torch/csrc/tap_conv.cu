@@ -1,5 +1,6 @@
-// SAME-padded NHWC float32 convolution with a fused per-channel epilogue,
-// written for Hopper (sm_90a) and bound to Python through ctypes.
+// SAME-padded NHWC float32 (and bfloat16) convolution with a fused
+// per-channel epilogue, written for Hopper (sm_90a) and bound to Python
+// through ctypes.
 //
 // Replaces the Pallas TPU kernel `_tap_kernel`
 // (parallel_cnn_tpu/ops/pallas_conv.py:228, launched from `_tapped_matmul`
@@ -107,6 +108,22 @@
 // zeros, so the result equals that kernel's bit for bit, relaunches are
 // bit-identical, and nothing is shared between blocks.
 //
+// The bf16 forms (JAX's bf16 activations: the TPU kernel takes bf16
+// operands, accumulates in f32 through preferred_element_type and stores
+// in x's dtype, pallas_conv.py:285-306). Both kernels take the element
+// type as a template argument. A bf16 form loads its operands as bf16 (8
+// bytes, 4 values, where the f32 form's cp.async moves 16), widens them
+// into the f32 slabs of the same ring (csrc/ffma_tile.cuh: fetch before
+// the stage's products, deposit after), multiplies and adds in f32 in the
+// f32 form's order, and rounds each output once at the store
+// (__float2bfloat16_rn). The tile and the depth split are the f32 form's,
+// chosen from the shape only, so a padded bucket's real rows stay
+// bit-identical. Bound on an H100 SXM: the same operations on bf16 data,
+// so against the dense bf16 tensor-core peak (989 TFLOP/s) a 3x3 conv is
+// bound by operations; these FFMA forms reach at most the f32 CUDA cores'
+// 67. The tensor-core form (wgmma through csrc/wgmma_tile.cuh) is the
+// next redesign (ROADMAP Queue B).
+//
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper allocates the output and checks
 // shapes, dtypes, devices and contiguity before calling in.
@@ -158,15 +175,18 @@ struct TapCursor {
   }
 };
 
-template <class T, int VEC>
+// E is the element type of x, w and out: float, or __nv_bfloat16 (the
+// bf16 form, which takes no epilogue: scale, shift and residual are null).
+template <class T, int VEC, class E>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+tap_conv_kernel(const E* __restrict__ x, const E* __restrict__ wt,
                 const float* __restrict__ scale, const float* __restrict__ shift,
-                const float* __restrict__ residual, float* __restrict__ out,
+                const float* __restrict__ residual, E* __restrict__ out,
                 ForwardGeo geo) {
   using L = ftile::Layout<T, false>;
   using ftile::STAGES;
   constexpr int BK = T::BK;
+  constexpr bool BF16 = ftile::is_bf16<E>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -220,6 +240,8 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   TapCursor tc;
   tc.start(dk * VEC, geo.cin, geo.k);
   int next = 0;  // the next stage to copy
+  // The bf16 form's fetched values, between load and deposit.
+  ftile::Bf16Pack<VEC> a_held[BF16 ? A_COPIES : 1], b_held[BF16 ? B_COPIES : 1];
 
   auto load = [&]() {
     float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
@@ -230,9 +252,10 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int iy = a_iy[c] + tc.dy;
       const int ix = a_ix[c] + tc.dx;
       const bool ok = d_ok && (unsigned)iy < (unsigned)geo.h && (unsigned)ix < (unsigned)geo.w;
-      const float* src = ok ? x + a_img[c] + (iy * geo.w + ix) * geo.cin + tc.ci : x;
+      const E* src = ok ? x + a_img[c] + (iy * geo.w + ix) * geo.cin + tc.ci : x;
       float* dst = As + (pm + A_STEP * c) * L::A_LD + dk * VEC;
-      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      if constexpr (BF16) a_held[c] = ftile::fetch_bf16<VEC>(src, ok);
+      else if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
       else ftile::cp_async4(dst, src, ok);
     }
 #pragma unroll
@@ -241,13 +264,27 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       const int r = next * BK + kk;
       const int co = n0 + b_col;
       const bool ok = r < K && co < geo.cout;
-      const float* src = ok ? wt + r * geo.cout + co : wt;
+      const E* src = ok ? wt + r * geo.cout + co : wt;
       float* dst = Bs + kk * T::B_LD + b_col;
-      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      if constexpr (BF16) b_held[c] = ftile::fetch_bf16<VEC>(src, ok);
+      else if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
       else ftile::cp_async4(dst, src, ok);
     }
     ++next;
     tc.advance(BK, geo.cin, geo.k);
+  };
+  // bf16: the values load fetched, widened into the slot of stage next - 1.
+  auto deposit = [&]() {
+    if constexpr (BF16) {
+      float* As = smem + ((next - 1) % STAGES) * L::STAGE_FLOATS;
+      float* Bs = As + L::A_FLOATS;
+#pragma unroll
+      for (int c = 0; c < A_COPIES; ++c)
+        ftile::deposit_bf16<VEC>(As + (pm + A_STEP * c) * L::A_LD + dk * VEC, a_held[c]);
+#pragma unroll
+      for (int c = 0; c < B_COPIES; ++c)
+        ftile::deposit_bf16<VEC>(Bs + (b_row + B_ROWS * c) * T::B_LD + b_col, b_held[c]);
+    }
   };
 
   float acc[T::TM][T::TN];
@@ -258,19 +295,25 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (next < stages) load();
+    if (next < stages) {
+      load();
+      deposit();
+    }
     ftile::cp_async_commit();
   }
   for (int s = 0; s < stages; ++s) {
     ftile::cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage s landed for all; slot (s-1) % STAGES is free
-    if (next < stages) load();
+    const bool more = next < stages;
+    if (more) load();  // bf16: its global loads are in flight during the products
     ftile::cp_async_commit();
     const float* As = smem + (s % STAGES) * L::STAGE_FLOATS;
     ftile::compute_stage<T, false>(As, As + L::A_FLOATS, warp_m, warp_n, lane, acc);
+    if (more) deposit();
   }
 
-  // Epilogue on the f32 accumulator, then the single store.
+  // Epilogue on the f32 accumulator, then the single store (bf16: rounded
+  // once, here).
   float sc[T::TN], sh[T::TN];
 #pragma unroll
   for (int j = 0; j < T::TN; ++j) {
@@ -310,23 +353,23 @@ tap_conv_kernel(const float* __restrict__ x, const float* __restrict__ wt,
         if (geo.relu) z[q] = fmaxf(z[q], 0.0f);
       }
       if (geo.vec_out) {
-        *reinterpret_cast<float4*>(out + o) = make_float4(z[0], z[1], z[2], z[3]);
+        ftile::store4(out + o, z[0], z[1], z[2], z[3]);
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (co + q < geo.cout) out[o + q] = z[q];
+          if (co + q < geo.cout) ftile::store1(out + o + q, z[q]);
       }
     }
   }
 }
 
-template <class T, int VEC>
-cudaError_t launch_forward(const float* x, const float* w, const float* scale,
-                           const float* shift, const float* residual, float* out,
+template <class T, int VEC, class E>
+cudaError_t launch_forward(const E* x, const E* w, const float* scale,
+                           const float* shift, const float* residual, E* out,
                            const ForwardGeo& geo, cudaStream_t s) {
   using L = ftile::Layout<T, false>;
   static bool smem_ok = false;
-  auto kernel = tap_conv_kernel<T, VEC>;
+  auto kernel = tap_conv_kernel<T, VEC, E>;
   cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
   if (err != cudaSuccess) return err;
   const long long m = static_cast<long long>(geo.n) * geo.oh * geo.ow;
@@ -336,13 +379,13 @@ cudaError_t launch_forward(const float* x, const float* w, const float* scale,
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_forward_tile(bool vec4, const float* x, const float* w,
+template <class T, class E>
+cudaError_t launch_forward_tile(bool vec4, const E* x, const E* w,
                                 const float* scale, const float* shift,
-                                const float* residual, float* out, const ForwardGeo& geo,
+                                const float* residual, E* out, const ForwardGeo& geo,
                                 cudaStream_t s) {
-  return vec4 ? launch_forward<T, 4>(x, w, scale, shift, residual, out, geo, s)
-              : launch_forward<T, 1>(x, w, scale, shift, residual, out, geo, s);
+  return vec4 ? launch_forward<T, 4, E>(x, w, scale, shift, residual, out, geo, s)
+              : launch_forward<T, 1, E>(x, w, scale, shift, residual, out, geo, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -391,14 +434,16 @@ struct DepthCursor {
   }
 };
 
-template <class T, int VEC>
+// E is the element type of g, w and dx: float, or __nv_bfloat16.
+template <class T, int VEC, class E>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
-                 float* __restrict__ dx, DgradGeo geo,
+tap_dgrad_kernel(const E* __restrict__ g, const E* __restrict__ wt,
+                 E* __restrict__ dx, DgradGeo geo,
                  const __grid_constant__ DgradPlan plan) {
   using L = ftile::Layout<T, false>;
   using ftile::STAGES;
   constexpr int BK = T::BK;
+  constexpr bool BF16 = ftile::is_bf16<E>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ int s_ay[MAX_TAPS], s_ax[MAX_TAPS], s_w[MAX_TAPS];
@@ -456,13 +501,15 @@ tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
   // loaded as VEC values along co and stored transposed.
   constexpr int B_STEP = T::THREADS / GROUPS;
   constexpr int B_COPIES = T::BN / B_STEP;
-  float breg[B_COPIES][VEC];
+  float breg[BF16 ? 1 : B_COPIES][VEC];
+  // The bf16 form's fetched values, between load and store_b.
+  ftile::Bf16Pack<VEC> a_held[BF16 ? A_COPIES : 1], b_held[BF16 ? B_COPIES : 1];
 
   DepthCursor dc;
   dc.start(dk * VEC, geo.cout);
   int next = 0;  // the next stage to copy
 
-  auto load = [&]() {  // A by cp.async, B into registers
+  auto load = [&]() {  // A by cp.async (bf16: into registers), B into registers
     float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
     const bool d_ok = next * BK + dk * VEC < K;
     int ay = 0, ax = 0, wrow = 0;
@@ -476,16 +523,19 @@ tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
       const int oy = a_j[c] + ay;
       const int ox = a_i[c] + ax;
       const bool ok = d_ok && (unsigned)oy < (unsigned)geo.oh && (unsigned)ox < (unsigned)geo.ow;
-      const float* src = ok ? g + a_img[c] + (oy * geo.ow + ox) * geo.cout + dc.co : g;
+      const E* src = ok ? g + a_img[c] + (oy * geo.ow + ox) * geo.cout + dc.co : g;
       float* dst = As + (pm + A_STEP * c) * L::A_LD + dk * VEC;
-      if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
+      if constexpr (BF16) a_held[c] = ftile::fetch_bf16<VEC>(src, ok);
+      else if constexpr (VEC == 4) ftile::cp_async16(dst, src, ok);
       else ftile::cp_async4(dst, src, ok);
     }
 #pragma unroll
     for (int c = 0; c < B_COPIES; ++c) {
       const int ci = n0 + pm + B_STEP * c;
       const bool ok = d_ok && ci < geo.cin;
-      if constexpr (VEC == 4) {
+      if constexpr (BF16) {
+        b_held[c] = ftile::fetch_bf16<VEC>(wt + (ok ? (wrow + ci) * geo.cout + dc.co : 0), ok);
+      } else if constexpr (VEC == 4) {
         float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
         if (ok) v = __ldg(reinterpret_cast<const float4*>(wt + (wrow + ci) * geo.cout + dc.co));
         breg[c][0] = v.x;
@@ -497,12 +547,33 @@ tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
       }
     }
   };
-  auto store_b = [&]() {
-    float* Bs = smem + (next % STAGES) * L::STAGE_FLOATS + L::A_FLOATS;
+  auto store_b = [&]() {  // bf16: A widened into its slot too
+    float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
+    float* Bs = As + L::A_FLOATS;
+    if constexpr (BF16) {
 #pragma unroll
-    for (int c = 0; c < B_COPIES; ++c)
+      for (int c = 0; c < A_COPIES; ++c)
+        ftile::deposit_bf16<VEC>(As + (pm + A_STEP * c) * L::A_LD + dk * VEC, a_held[c]);
 #pragma unroll
-      for (int q = 0; q < VEC; ++q) Bs[(dk * VEC + q) * T::B_LD + pm + B_STEP * c] = breg[c][q];
+      for (int c = 0; c < B_COPIES; ++c) {
+        float v[VEC];
+        if constexpr (VEC == 4) {
+          v[0] = ftile::bf16_lo(b_held[c].x);
+          v[1] = ftile::bf16_hi(b_held[c].x);
+          v[2] = ftile::bf16_lo(b_held[c].y);
+          v[3] = ftile::bf16_hi(b_held[c].y);
+        } else {
+          v[0] = ftile::bf16_lo(b_held[c]);
+        }
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) Bs[(dk * VEC + q) * T::B_LD + pm + B_STEP * c] = v[q];
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < B_COPIES; ++c)
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) Bs[(dk * VEC + q) * T::B_LD + pm + B_STEP * c] = breg[c][q];
+    }
     ++next;
     dc.advance(BK, geo.cout);
   };
@@ -542,54 +613,48 @@ tap_dgrad_kernel(const float* __restrict__ g, const float* __restrict__ wt,
     const int j = r / wp;
     const int iy = j * geo.stride + plan.py[p];
     const int ix = (r - j * wp) * geo.stride + plan.px[p];
-    float* dst = dx + ((img * geo.h + iy) * geo.w + ix) * geo.cin;
+    E* dst = dx + ((img * geo.h + iy) * geo.w + ix) * geo.cin;
 #pragma unroll
     for (int jj = 0; jj < T::TN; jj += 4) {
       const int ci = n0 + ftile::col_of<T>(warp_n, lane, jj);
       if (geo.vec_dx) {  // Cin % 4 == 0: a run of 4 is all in or all out
         if (ci < geo.cin)
-          *reinterpret_cast<float4*>(dst + ci) =
-              make_float4(acc[i][jj], acc[i][jj + 1], acc[i][jj + 2], acc[i][jj + 3]);
+          ftile::store4(dst + ci, acc[i][jj], acc[i][jj + 1], acc[i][jj + 2], acc[i][jj + 3]);
       } else {
 #pragma unroll
         for (int q = 0; q < 4; ++q)
-          if (ci + q < geo.cin) dst[ci + q] = acc[i][jj + q];
+          if (ci + q < geo.cin) ftile::store1(dst + ci + q, acc[i][jj + q]);
       }
     }
   }
 }
 
-template <class T, int VEC>
-cudaError_t launch_dgrad(const float* g, const float* w, float* dx, const DgradGeo& geo,
+template <class T, int VEC, class E>
+cudaError_t launch_dgrad(const E* g, const E* w, E* dx, const DgradGeo& geo,
                          const DgradPlan& plan, cudaStream_t s) {
   using L = ftile::Layout<T, false>;
   static bool smem_ok = false;
-  auto kernel = tap_dgrad_kernel<T, VEC>;
+  auto kernel = tap_dgrad_kernel<T, VEC, E>;
   cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
   if (err != cudaSuccess) return err;
   kernel<<<plan.block_begin[plan.phases], T::THREADS, L::SMEM_BYTES, s>>>(g, w, dx, geo, plan);
   return cudaGetLastError();
 }
 
-template <class T>
-cudaError_t launch_dgrad_tile(bool vec4, const float* g, const float* w, float* dx,
+template <class T, class E>
+cudaError_t launch_dgrad_tile(bool vec4, const E* g, const E* w, E* dx,
                               const DgradGeo& geo, const DgradPlan& plan, cudaStream_t s) {
-  return vec4 ? launch_dgrad<T, 4>(g, w, dx, geo, plan, s)
-              : launch_dgrad<T, 1>(g, w, dx, geo, plan, s);
+  return vec4 ? launch_dgrad<T, 4, E>(g, w, dx, geo, plan, s)
+              : launch_dgrad<T, 1, E>(g, w, dx, geo, plan, s);
 }
 
-}  // namespace
-
-// Plain C entry point for ctypes. Pointers are device pointers; `scale` and
-// `shift` are both null (no affine step) or both set; `residual` may be
-// null. `tile` is the block tile (ops/tap_conv.py FORWARD_TILES, by id).
-// Returns 0 on a launch that was accepted, else the cudaError_t.
-extern "C" int tap_conv_forward(const float* x, const float* w,
-                                const float* scale, const float* shift,
-                                const float* residual, float* out, int n,
-                                int h, int w_in, int cin, int oh, int ow,
-                                int cout, int k, int stride, int pad_top,
-                                int pad_left, int relu, int tile, void* stream) {
+// The forward's launch for either element type; the bf16 form's copies
+// take 8 bytes (4 values) where the f32 form's take 16.
+template <class E>
+int forward_entry(const E* x, const E* w, const float* scale, const float* shift,
+                  const float* residual, E* out, int n, int h, int w_in, int cin, int oh,
+                  int ow, int cout, int k, int stride, int pad_top, int pad_left, int relu,
+                  int tile, void* stream) {
   if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
       cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0 ||
       tile < 0 || tile >= FORWARD_TILES || (scale == nullptr) != (shift == nullptr)) {
@@ -611,16 +676,10 @@ extern "C" int tap_conv_forward(const float* x, const float* w,
   return static_cast<int>(err);
 }
 
-// Input gradient of the conv above: `g` is (N,OH,OW,Cout), `w` the forward's
-// (k,k,Cin,Cout) weights, `dx` (N,H,W,Cin) is written in full. `table`
-// holds `table_len` int32s, the DgradPlan the wrapper built for this
-// shape (phases, their taps and the grid) on the host; `tile` is the
-// block tile (0: 128x128, 1: 128x64). Returns 0 on a launch
-// that was accepted, else the cudaError_t.
-extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
-                              int h, int w_in, int cin, int oh, int ow,
-                              int cout, int stride, const int* table,
-                              int table_len, int tile, void* stream) {
+template <class E>
+int dgrad_entry(const E* g, const E* w, E* dx, int n, int h, int w_in, int cin, int oh,
+                int ow, int cout, int stride, const int* table, int table_len, int tile,
+                void* stream) {
   if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
       cout <= 0 || stride <= 0 || table == nullptr || tile < 0 || tile > 1 ||
       table_len != static_cast<int>(sizeof(DgradPlan) / sizeof(int))) {
@@ -632,7 +691,8 @@ extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
       plan.tap_begin[plan.phases] > MAX_TAPS || plan.block_begin[plan.phases] < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const DgradGeo geo{n, h, w_in, cin, oh, ow, cout, stride, cin % 4 == 0};
+  const DgradGeo geo{n, h, w_in, cin, oh, ow, cout, stride,
+                     cin % 4 == 0 && aligned16(dx)};
   const bool vec4 = cout % 4 == 0 && aligned16(g) && aligned16(w);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
@@ -641,4 +701,55 @@ extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
     default: err = launch_dgrad_tile<DTile1>(vec4, g, w, dx, geo, plan, s); break;
   }
   return static_cast<int>(err);
+}
+
+}  // namespace
+
+// Plain C entry point for ctypes. Pointers are device pointers; `scale` and
+// `shift` are both null (no affine step) or both set; `residual` may be
+// null. `tile` is the block tile (ops/tap_conv.py FORWARD_TILES, by id).
+// Returns 0 on a launch that was accepted, else the cudaError_t.
+extern "C" int tap_conv_forward(const float* x, const float* w,
+                                const float* scale, const float* shift,
+                                const float* residual, float* out, int n,
+                                int h, int w_in, int cin, int oh, int ow,
+                                int cout, int k, int stride, int pad_top,
+                                int pad_left, int relu, int tile, void* stream) {
+  return forward_entry(x, w, scale, shift, residual, out, n, h, w_in, cin, oh, ow, cout, k,
+                       stride, pad_top, pad_left, relu, tile, stream);
+}
+
+// The bf16 form (JAX's bf16 activations): x, w and out bf16, the sums f32,
+// each output rounded once; no epilogue (the eval path that has one is
+// f32). Returns as tap_conv_forward.
+extern "C" int tap_conv_forward_bf16(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                     __nv_bfloat16* out, int n, int h, int w_in, int cin,
+                                     int oh, int ow, int cout, int k, int stride,
+                                     int pad_top, int pad_left, int tile, void* stream) {
+  return forward_entry<__nv_bfloat16>(x, w, nullptr, nullptr, nullptr, out, n, h, w_in, cin,
+                                      oh, ow, cout, k, stride, pad_top, pad_left, 0, tile,
+                                      stream);
+}
+
+// Input gradient of the conv above: `g` is (N,OH,OW,Cout), `w` the forward's
+// (k,k,Cin,Cout) weights, `dx` (N,H,W,Cin) is written in full. `table`
+// holds `table_len` int32s, the DgradPlan the wrapper built for this
+// shape (phases, their taps and the grid) on the host; `tile` is the
+// block tile (0: 128x128, 1: 128x64). Returns 0 on a launch
+// that was accepted, else the cudaError_t.
+extern "C" int tap_conv_dgrad(const float* g, const float* w, float* dx, int n,
+                              int h, int w_in, int cin, int oh, int ow,
+                              int cout, int stride, const int* table,
+                              int table_len, int tile, void* stream) {
+  return dgrad_entry(g, w, dx, n, h, w_in, cin, oh, ow, cout, stride, table, table_len, tile,
+                     stream);
+}
+
+// The bf16 form: g, w and dx bf16, the sums f32, each dx rounded once.
+extern "C" int tap_conv_dgrad_bf16(const __nv_bfloat16* g, const __nv_bfloat16* w,
+                                   __nv_bfloat16* dx, int n, int h, int w_in, int cin,
+                                   int oh, int ow, int cout, int stride, const int* table,
+                                   int table_len, int tile, void* stream) {
+  return dgrad_entry(g, w, dx, n, h, w_in, cin, oh, ow, cout, stride, table, table_len, tile,
+                     stream);
 }

@@ -1,5 +1,6 @@
-// Weight gradient of the SAME-padded NHWC float32 convolution, written for
-// Hopper (sm_90a) and bound to Python through ctypes.
+// Weight gradient of the SAME-padded NHWC float32 (and bfloat16)
+// convolution, written for Hopper (sm_90a) and bound to Python through
+// ctypes.
 //
 // Replaces the Pallas TPU kernel `_wgrad_tap_kernel`
 // (parallel_cnn_tpu/ops/pallas_conv.py:321, launched from `_tapped_wgrad`
@@ -52,6 +53,13 @@
 // batch-dependent split-K is about its padded buckets, which a gradient
 // never sees.) With one chunk, pass one writes gw directly.
 //
+// The bf16 form (the TPU kernel takes bf16 x and g and writes f32, which
+// _conv2d_bwd rounds to w's dtype, pallas_conv.py:663/:1047). The element
+// type is a template argument: bf16 x and g are loaded as 8-byte runs
+// into registers and widened into the f32 ring (csrc/ffma_tile.cuh), the
+// partials and their chunk sum stay f32 in the same shape-only order, and
+// pass two rounds each sum to bf16 once (with one chunk too).
+//
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing.
 
@@ -98,11 +106,14 @@ struct Cursor {
   }
 };
 
-template <class T, int AVEC, int BVEC>
+// E is the element type of x and g: float, or __nv_bfloat16. The partial
+// sums are f32 either way.
+template <class T, int AVEC, int BVEC, class E>
 __global__ void __launch_bounds__(T::THREADS, T::MIN_BLOCKS)
-wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
+wgrad_partial_kernel(const E* __restrict__ x, const E* __restrict__ g,
                      float* __restrict__ out, Geometry geo) {
   using L = ftile::Layout<T, true>;
+  constexpr bool BF16 = ftile::is_bf16<E>;
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
 
@@ -151,6 +162,9 @@ wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
   const bool b_co_ok = b_co < geo.cout;
 
   int next = 0;  // the next stage to copy
+  // The bf16 form's fetched values, between load_stage and deposit.
+  ftile::Bf16Pack<AVEC> a_held[BF16 ? A_COPIES : 1];
+  ftile::Bf16Pack<BVEC> b_held[BF16 ? B_COPIES : 1];
   auto load_stage = [&]() {
     float* As = smem + (next % STAGES) * L::STAGE_FLOATS;
     float* Bs = As + L::A_FLOATS;
@@ -162,12 +176,13 @@ wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
       const int ix = cur[c].ox * geo.stride + a_dx;
       const bool ok = a_row_ok && p0 + kk < m_end && (unsigned)iy < (unsigned)geo.h &&
                       (unsigned)ix < (unsigned)geo.w;
-      const float* src =
+      const E* src =
           ok ? x + ((static_cast<long long>(cur[c].img) * geo.h + iy) * geo.w + ix) * geo.cin +
                    a_ci
              : x;
       float* dst = As + kk * L::A_LD + a_rg * AVEC;
-      if constexpr (AVEC == 4) ftile::cp_async16(dst, src, ok);
+      if constexpr (BF16) a_held[c] = ftile::fetch_bf16<AVEC>(src, ok);
+      else if constexpr (AVEC == 4) ftile::cp_async16(dst, src, ok);
       else ftile::cp_async4(dst, src, ok);
       cur[c].advance(BK, geo);
     }
@@ -175,12 +190,27 @@ wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
     for (int c = 0; c < B_COPIES; ++c) {
       const int kk = b_kk + B_STEP * c;
       const bool ok = b_co_ok && p0 + kk < m_end;
-      const float* src = ok ? g + static_cast<long long>(p0 + kk) * geo.cout + b_co : g;
+      const E* src = ok ? g + static_cast<long long>(p0 + kk) * geo.cout + b_co : g;
       float* dst = Bs + kk * T::B_LD + b_cg * BVEC;
-      if constexpr (BVEC == 4) ftile::cp_async16(dst, src, ok);
+      if constexpr (BF16) b_held[c] = ftile::fetch_bf16<BVEC>(src, ok);
+      else if constexpr (BVEC == 4) ftile::cp_async16(dst, src, ok);
       else ftile::cp_async4(dst, src, ok);
     }
     ++next;
+  };
+  // bf16: the values load_stage fetched, widened into the slot of stage
+  // next - 1.
+  auto deposit = [&]() {
+    if constexpr (BF16) {
+      float* As = smem + ((next - 1) % STAGES) * L::STAGE_FLOATS;
+      float* Bs = As + L::A_FLOATS;
+#pragma unroll
+      for (int c = 0; c < A_COPIES; ++c)
+        ftile::deposit_bf16<AVEC>(As + (a_kk + A_STEP * c) * L::A_LD + a_rg * AVEC, a_held[c]);
+#pragma unroll
+      for (int c = 0; c < B_COPIES; ++c)
+        ftile::deposit_bf16<BVEC>(Bs + (b_kk + B_STEP * c) * T::B_LD + b_cg * BVEC, b_held[c]);
+    }
   };
 
   float acc[T::TM][T::TN];
@@ -191,16 +221,21 @@ wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
 
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
-    if (next < stages) load_stage();
+    if (next < stages) {
+      load_stage();
+      deposit();
+    }
     ftile::cp_async_commit();
   }
   for (int s = 0; s < stages; ++s) {
     ftile::cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage s landed for all; slot (s-1) % STAGES is free
-    if (next < stages) load_stage();
+    const bool more = next < stages;
+    if (more) load_stage();  // bf16: its global loads are in flight during the products
     ftile::cp_async_commit();
     const float* As = smem + (s % STAGES) * L::STAGE_FLOATS;
     ftile::compute_stage<T, true>(As, As + L::A_FLOATS, warp_m, warp_n, lane, acc);
+    if (more) deposit();
   }
 
   float* tile = out + static_cast<long long>(blockIdx.z) * R * geo.cout;
@@ -225,9 +260,11 @@ wgrad_partial_kernel(const float* __restrict__ x, const float* __restrict__ g,
   }
 }
 
-// gw[e] = sum over chunks c = 0, 1, ... of partial[c][e], in that order.
+// gw[e] = sum over chunks c = 0, 1, ... of partial[c][e], in that order,
+// in f32; a bf16 gw rounds the sum once.
+template <class O>
 __global__ void __launch_bounds__(SUM_THREADS)
-wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ gw,
+wgrad_sum_kernel(const float* __restrict__ partial, O* __restrict__ gw,
                  int elems, int chunks) {
   for (int e = blockIdx.x * SUM_THREADS + threadIdx.x; e < elems;
        e += gridDim.x * SUM_THREADS) {
@@ -236,16 +273,16 @@ wgrad_sum_kernel(const float* __restrict__ partial, float* __restrict__ gw,
     for (int c = 1; c < chunks; ++c) {
       s += partial[static_cast<long long>(c) * elems + e];
     }
-    gw[e] = s;
+    ftile::store1(gw + e, s);
   }
 }
 
-template <class T, int AVEC, int BVEC>
-cudaError_t launch_partial(const float* x, const float* g, float* out, const Geometry& geo,
+template <class T, int AVEC, int BVEC, class E>
+cudaError_t launch_partial(const E* x, const E* g, float* out, const Geometry& geo,
                            int rows, int chunks, cudaStream_t s) {
   using L = ftile::Layout<T, true>;
   static bool smem_ok = false;
-  auto kernel = wgrad_partial_kernel<T, AVEC, BVEC>;
+  auto kernel = wgrad_partial_kernel<T, AVEC, BVEC, E>;
   cudaError_t err = ftile::allow_smem(kernel, L::SMEM_BYTES, smem_ok);
   if (err != cudaSuccess) return err;
   const dim3 grid((rows + T::BM - 1) / T::BM, (geo.cout + T::BN - 1) / T::BN, chunks);
@@ -254,6 +291,43 @@ cudaError_t launch_partial(const float* x, const float* g, float* out, const Geo
 }
 
 bool aligned16(const void* p) { return reinterpret_cast<std::uintptr_t>(p) % 16 == 0; }
+
+// Both passes for either element type. f32 with one chunk writes gw from
+// pass one; a bf16 gw always takes pass two, which rounds each sum once.
+template <class E>
+int wgrad_entry(const E* x, const E* g, float* partial, E* gw, int n, int h, int w_in,
+                int cin, int oh, int ow, int cout, int k, int stride, int pad_top,
+                int pad_left, int chunk, void* stream) {
+  constexpr bool BF16 = ftile::is_bf16<E>;
+  if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
+      cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0 ||
+      chunk <= 0 || chunk % BK != 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long m = static_cast<long long>(n) * oh * ow;
+  const long long chunks_ll = (m + chunk - 1) / chunk;
+  if (chunks_ll > 65535 || ((BF16 || chunks_ll > 1) && partial == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int chunks = static_cast<int>(chunks_ll);
+  const int rows = k * k * cin;
+  const Geometry geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left, chunk};
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool avec4 = cin % 4 == 0 && aligned16(x);
+  const bool bvec4 = cout % 4 == 0 && aligned16(g);
+  const bool direct = !BF16 && chunks == 1;
+  float* out = direct ? reinterpret_cast<float*>(gw) : partial;
+  cudaError_t err;
+  if (avec4 && bvec4) err = launch_partial<WTile, 4, 4>(x, g, out, geo, rows, chunks, s);
+  else if (avec4) err = launch_partial<WTile, 4, 1>(x, g, out, geo, rows, chunks, s);
+  else if (bvec4) err = launch_partial<WTile, 1, 4>(x, g, out, geo, rows, chunks, s);
+  else err = launch_partial<WTile, 1, 1>(x, g, out, geo, rows, chunks, s);
+  if (err != cudaSuccess || direct) return static_cast<int>(err);
+  const int elems = rows * cout;
+  const int blocks = std::min((elems + SUM_THREADS - 1) / SUM_THREADS, 132 * 8);
+  wgrad_sum_kernel<E><<<blocks, SUM_THREADS, 0, s>>>(partial, gw, elems, chunks);
+  return static_cast<int>(cudaGetLastError());
+}
 
 }  // namespace
 
@@ -270,31 +344,17 @@ extern "C" int tap_conv_wgrad(const float* x, const float* g, float* partial,
                               float* gw, int n, int h, int w_in, int cin,
                               int oh, int ow, int cout, int k, int stride,
                               int pad_top, int pad_left, int chunk, void* stream) {
-  if (n <= 0 || h <= 0 || w_in <= 0 || cin <= 0 || oh <= 0 || ow <= 0 ||
-      cout <= 0 || k <= 0 || stride <= 0 || pad_top < 0 || pad_left < 0 ||
-      chunk <= 0 || chunk % BK != 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const long long m = static_cast<long long>(n) * oh * ow;
-  const long long chunks_ll = (m + chunk - 1) / chunk;
-  if (chunks_ll > 65535 || (chunks_ll > 1 && partial == nullptr)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const int chunks = static_cast<int>(chunks_ll);
-  const int rows = k * k * cin;
-  const Geometry geo{n, h, w_in, cin, oh, ow, cout, k, stride, pad_top, pad_left, chunk};
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool avec4 = cin % 4 == 0 && aligned16(x);
-  const bool bvec4 = cout % 4 == 0 && aligned16(g);
-  float* out = chunks > 1 ? partial : gw;
-  cudaError_t err;
-  if (avec4 && bvec4) err = launch_partial<WTile, 4, 4>(x, g, out, geo, rows, chunks, s);
-  else if (avec4) err = launch_partial<WTile, 4, 1>(x, g, out, geo, rows, chunks, s);
-  else if (bvec4) err = launch_partial<WTile, 1, 4>(x, g, out, geo, rows, chunks, s);
-  else err = launch_partial<WTile, 1, 1>(x, g, out, geo, rows, chunks, s);
-  if (err != cudaSuccess || chunks == 1) return static_cast<int>(err);
-  const int elems = rows * cout;
-  const int blocks = std::min((elems + SUM_THREADS - 1) / SUM_THREADS, 132 * 8);
-  wgrad_sum_kernel<<<blocks, SUM_THREADS, 0, s>>>(partial, gw, elems, chunks);
-  return static_cast<int>(cudaGetLastError());
+  return wgrad_entry(x, g, partial, gw, n, h, w_in, cin, oh, ow, cout, k, stride, pad_top,
+                     pad_left, chunk, stream);
+}
+
+// The bf16 form: x and g bf16, f32 partials (never null here, one tile
+// at least), their f32 chunk sum rounded once into the bf16 gw, as the TPU
+// kernel's f32 output is rounded to w's dtype (pallas_conv.py:1047).
+extern "C" int tap_conv_wgrad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                   float* partial, __nv_bfloat16* gw, int n, int h, int w_in,
+                                   int cin, int oh, int ow, int cout, int k, int stride,
+                                   int pad_top, int pad_left, int chunk, void* stream) {
+  return wgrad_entry(x, g, partial, gw, n, h, w_in, cin, oh, ow, cout, k, stride, pad_top,
+                     pad_left, chunk, stream);
 }

@@ -5,9 +5,11 @@ Train and eval follow the JAX package's ``apply(..., train=...)``, read
 from the module's ``training`` flag:
 
 - ``BatchNorm`` in training mode normalises with the batch's statistics
-  (mean and **biased** variance over N, H, W) and updates its running
-  statistics in place as ``0.9·old + 0.1·batch``, as JAX's BatchNorm does;
-  in eval mode it uses the running statistics. It is not
+  (mean and **biased** variance over N, H, W, in f32 for a bf16 input)
+  and updates its running statistics in place as
+  ``0.9·old + 0.1·batch``, as JAX's BatchNorm does; in eval mode it uses
+  the running statistics. The normalisation itself runs in the input's
+  dtype (bf16 under the zoo's bf16 cast), in JAX's order. It is not
   ``nn.BatchNorm2d``: that keeps an unbiased running variance and reads
   its momentum the other way round.
 - ``ConvBNAct`` in training mode runs JAX's unfused composition: conv
@@ -113,21 +115,29 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
+            # The statistics are f32 for a bf16 x (JAX takes them of
+            # x.astype(f32)); an f32 or f64 x is taken as it is.
+            xf = x.to(torch.promote_types(x.dtype, torch.float32))
             sh = self.sharding
             if sh is not None and sh.data is not None:
-                mean, var = _global_stats(x, sh.data)
+                mean, var = _global_stats(xf, sh.data)
             else:
                 axes = tuple(range(x.dim() - 1))
-                mean = x.mean(dim=axes)
-                var = x.var(dim=axes, unbiased=False)
+                mean = xf.mean(dim=axes)
+                var = xf.var(dim=axes, unbiased=False)
             m = self.momentum
             with torch.no_grad():
                 self.mean.copy_(m * self.mean + (1 - m) * mean)
                 self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
+        # inv in f32 (from a bf16 scale under the bf16 cast), then JAX's
+        # elementwise order in x's dtype: subtract, multiply, add. Each
+        # operand is cast explicitly: PyTorch would promote the product of
+        # bf16 x and a (C,) f32 tensor to f32.
         inv = torch.rsqrt(var + self.eps) * self.scale
-        return (x - mean) * inv + self.bias
+        dt = x.dtype
+        return (x - mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
 
 
 class Conv2D(_Sharded):

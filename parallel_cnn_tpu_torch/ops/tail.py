@@ -14,6 +14,14 @@ backward routes a tied window's gradient to its first maximum in row-major
 window order (XLA's select-and-scatter), by masked writes into strided
 views: no scatter-add, so the card's backward is deterministic.
 
+bf16 (JAX's bf16 activations): ``x``, ``w`` and ``b`` bf16 launch the
+kernel's bf16 form, which sums in f32, rounds the ``gap`` mean to bf16
+before the FC (pallas_tail.py:180) and writes f32 ``loss_i`` and
+``dlogits``; its plain twin does the same in PyTorch. The backward
+upcasts as JAX's ``_backward`` does (pallas_tail.py:270-300): the
+products and the ``gap`` division in f32, ``dx`` cast to x's dtype and
+``dw``/``db`` to w's. Mixed dtypes raise TypeError.
+
 Pool modes (``split_tail`` recognises them on a ``Sequential``):
 
 - ``"max2"`` — MaxPool(2×2, stride 2, VALID) → Flatten → Dense (the CIFAR
@@ -47,14 +55,15 @@ _POOL_CODE = {"max2": 0, "gap": 1, "none": 2}
 # in, so that it still takes every tail this check accepts.
 _SMEM_FLOATS = 48 * 1024 // 4
 
-#: Launches of the tail kernel in this process.
+#: Launches of the tail kernel's f32 form in this process, and of its
+#: bf16 form.
 launches = LaunchCounter()
+bf16_launches = LaunchCounter()
 
+_TAIL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
 _library = Library("tail_ce.cu", {
-    "tail_ce_forward": (
-        [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
+    "tail_ce_forward": (_TAIL_ARGS, ctypes.c_int),
+    "tail_ce_forward_bf16": (_TAIL_ARGS, ctypes.c_int),
 })
 
 
@@ -113,9 +122,20 @@ def _pooled(x: torch.Tensor, pool: str) -> Tuple[torch.Tensor, Optional[torch.Te
 
 
 def tail_forward_plain(x, w, b, labels, pool: str):
-    """Plain version of the kernel: (per-sample loss (B,), dlogits (B, K))."""
-    flat, _ = _pooled(x, pool)
-    logits = flat @ w + b
+    """Plain version of the kernel: (per-sample loss (B,), dlogits (B, K)),
+    f32 for bf16 operands, computed as the bf16 form computes them: the
+    operands widened, the gap mean (sum · 1/P in f32) rounded to bf16."""
+    if x.dtype == torch.bfloat16:
+        xf = x.float()
+        if pool == "gap":
+            inv = 1.0 / (x.shape[1] * x.shape[2])
+            flat = (xf.sum(dim=(1, 2)) * inv).to(torch.bfloat16).float()
+        else:
+            flat, _ = _pooled(xf, pool)
+        logits = flat @ w.float() + b.float()
+    else:
+        flat, _ = _pooled(x, pool)
+        logits = flat @ w + b
     m = logits.max(dim=-1, keepdim=True).values
     e = torch.exp(logits - m)
     se = e.sum(dim=-1, keepdim=True)
@@ -141,9 +161,12 @@ def _launch(x, w, b, labels, pool: str):
     d = _flat_dim(x.shape, pool)
     k = int(w.shape[-1])
     dev = x.device
-    check_operand("x", x, dev, (batch, h, wd, c), torch.float32)
-    check_operand("w", w, dev, (d, k), torch.float32)
-    check_operand("b", b, dev, (k,), torch.float32)
+    dtype = x.dtype
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"x must be float32 or bfloat16, got {dtype}")
+    check_operand("x", x, dev, (batch, h, wd, c), dtype)
+    check_operand("w", w, dev, (d, k), dtype)
+    check_operand("b", b, dev, (k,), dtype)
     check_operand("labels", labels, dev, (batch,), torch.int64)
     if d + k + 8 > _SMEM_FLOATS:
         raise ValueError(f"tail of {d} features x {k} classes exceeds the "
@@ -151,14 +174,16 @@ def _launch(x, w, b, labels, pool: str):
     lib = _library.get()
     loss = torch.empty((batch,), device=dev, dtype=torch.float32)
     dl = torch.empty((batch, k), device=dev, dtype=torch.float32)
+    bf16 = dtype == torch.bfloat16
+    entry = lib.tail_ce_forward_bf16 if bf16 else lib.tail_ce_forward
     with torch.cuda.device(dev):
-        err = lib.tail_ce_forward(
+        err = entry(
             x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
             loss.data_ptr(), dl.data_ptr(), batch, h, wd, c, d, k,
             _POOL_CODE[pool], launch_stream(dev),
         )
     raise_on_error("tail_ce", err)
-    launches.add()
+    (bf16_launches if bf16 else launches).add()
     return loss, dl
 
 
@@ -174,25 +199,29 @@ def tail_forward(x, w, b, labels, pool: str):
 
 def tail_backward(pool: str, x, w, dl_scaled):
     """(dx, dw, db) from dlogits already scaled by gbar/B (pallas_tail.py
-    ``_backward``)."""
+    ``_backward``): the products in dlogits' dtype (f32 for bf16 operands,
+    ``flat`` and ``w`` widened), ``dw`` and ``db`` in w's dtype, ``dx`` in
+    x's (for f32 every cast is a no-op)."""
     flat, pooled = _pooled(x, pool)
-    dw = flat.t() @ dl_scaled
-    db = dl_scaled.sum(dim=0)
-    dflat = dl_scaled @ w.t()
+    acc = dl_scaled.dtype
+    dw = (flat.to(acc).t() @ dl_scaled).to(w.dtype)
+    db = dl_scaled.sum(dim=0).to(w.dtype)
+    dflat = dl_scaled @ w.to(acc).t()
     if pool == "gap":
         n, h, wd, c = x.shape
-        return dflat[:, None, None, :].div(h * wd).expand(n, h, wd, c), dw, db
+        dx = dflat[:, None, None, :].div(h * wd).expand(n, h, wd, c)
+        return dx.to(x.dtype), dw, db
     if pool == "none":
-        return dflat.reshape(x.shape), dw, db
+        return dflat.reshape(x.shape).to(x.dtype), dw, db
     dpool = dflat.reshape(pooled.shape)
     zero = torch.zeros((), dtype=dpool.dtype, device=dpool.device)
     taken = torch.zeros(pooled.shape, dtype=torch.bool, device=pooled.device)
-    dx = torch.zeros_like(x)
+    dx = torch.zeros(x.shape, dtype=dpool.dtype, device=x.device)
     for view, phase in zip(_phases(dx), _phases(x)):
         hit = (phase == pooled) & ~taken
         view.copy_(torch.where(hit, dpool, zero))
         taken |= hit
-    return dx, dw, db
+    return dx.to(x.dtype), dw, db
 
 
 class _FusedTail(torch.autograd.Function):
@@ -218,10 +247,14 @@ def fused_tail_loss(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
 
     x: (B, H, W, C) in every mode (H and W even for ``max2``); w: (D, K)
     in flatten order;
-    b: (K,); labels: (B,) int64 class ids. Returns the f32 scalar mean."""
+    b: (K,); labels: (B,) int64 class ids. x, w and b all f32 or all bf16.
+    Returns the f32 scalar mean."""
     if pool not in POOLS:
         raise ValueError(f"unknown pool {pool!r} (one of {POOLS})")
     if pool == "max2" and (x.shape[1] % 2 or x.shape[2] % 2):
         raise ValueError(f"max2 tail needs even spatial dims, got "
                          f"{tuple(x.shape[1:3])}")
+    if not x.dtype == w.dtype == b.dtype:
+        raise TypeError(f"x, w and b must share a dtype, got {x.dtype}, {w.dtype}, "
+                        f"{b.dtype}")
     return _FusedTail.apply(x, w, b, labels, pool)

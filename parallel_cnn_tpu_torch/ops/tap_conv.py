@@ -24,6 +24,18 @@ Padding is XLA's SAME split (``pad_lo = pad_total // 2``), which for a
 output ``o`` centres on input ``2o + 1``, where PyTorch's ``padding=1``
 would centre on ``2o``.
 
+Element types. Each kernel has an f32 form and a bf16 form (JAX's bf16
+activations: ``FusedStepConfig.act_dtype="bfloat16"``). The bf16 forms
+take bf16 operands, sum in f32 and round each output once, as the TPU
+kernel's ``preferred_element_type=f32`` dot and its store in x's dtype do
+(pallas_conv.py:285-306): the forward and dgrad write bf16, the wgrad its
+f32 chunk sum rounded to bf16 once (pallas_conv.py:663, :1047). Their
+plain twins compute the f32 function of the bf16 operands and round the
+result once. ``x`` and ``w`` (or ``g`` and ``w``) must share their dtype;
+mixed operands raise TypeError. The bf16 ``conv2d_fused`` (an epilogue on
+bf16) is reached by no path, JAX's eval being f32, and raises
+NotPortedError. Each form has its own launch counter.
+
 The kernels are compiled on first use by the port's one builder
 (``ops/_cuda_build.py``). Nothing is built or imported from CUDA when this
 module is imported.
@@ -38,6 +50,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from parallel_cnn_tpu_torch.config import NotPortedError
 from parallel_cnn_tpu_torch.ops import tap_wgrad
 from parallel_cnn_tpu_torch.ops._cuda_build import (
     Library,
@@ -51,11 +64,18 @@ SUPPORTED_K = (1, 3, 5, 7)
 SUPPORTED_STRIDES = (1, 2)
 _INT32_MAX = 2**31 - 1
 
-#: Launches of the tap-conv forward kernel in this process (``conv2d`` and
-#: ``conv2d_fused`` share the kernel and the count).
+#: The element types the kernels take (a CPU tensor runs the plain twins
+#: in any floating dtype).
+DTYPES = (torch.float32, torch.bfloat16)
+
+#: Launches of the tap-conv forward kernel's f32 form in this process
+#: (``conv2d`` and ``conv2d_fused`` share the kernel and the count).
 launches = LaunchCounter()
-#: Launches of the dgrad kernel (``conv2d``'s backward).
+#: Launches of the dgrad kernel's f32 form (``conv2d``'s backward).
 dgrad_launches = LaunchCounter()
+#: Launches of the bf16 forms of the forward and of the dgrad kernel.
+bf16_launches = LaunchCounter()
+bf16_dgrad_launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -118,6 +138,20 @@ def conv2d_fused_plain(
     if relu:
         z = torch.clamp_min(z, 0.0)
     return z
+
+
+def same_dtype(a_name: str, a: torch.Tensor, b_name: str, b: torch.Tensor) -> torch.dtype:
+    """The dtype two operands share; mixed dtypes raise TypeError."""
+    if a.dtype != b.dtype:
+        raise TypeError(f"{a_name} is {a.dtype} and {b_name} is {b.dtype}: the "
+                        "conv kernels take one element type")
+    return a.dtype
+
+
+def bf16_twin(fn, *tensors, **kw) -> torch.Tensor:
+    """The plain twin of a bf16 form: ``fn`` on the bf16 operands widened
+    to f32 (exactly), its result rounded to bf16 once."""
+    return fn(*(t.float() for t in tensors), **kw).to(torch.bfloat16)
 
 
 def conv2d_dgrad_plain(g: torch.Tensor, w: torch.Tensor, x_shape,
@@ -277,16 +311,19 @@ def forward_tile(n: int, oh: int, ow: int, cin: int, cout: int, k: int) -> int:
 # Build and binding
 # ---------------------------------------------------------------------------
 
+_DGRAD_ARGS = ([ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
+               + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _library = Library("tap_conv.cu", {
     "tap_conv_forward": (
         [ctypes.c_void_p] * 6 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
-    "tap_conv_dgrad": (
-        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 8 + [ctypes.POINTER(ctypes.c_int)]
-        + [ctypes.c_int] * 2 + [ctypes.c_void_p],
+    "tap_conv_forward_bf16": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "tap_conv_dgrad": (_DGRAD_ARGS, ctypes.c_int),
+    "tap_conv_dgrad_bf16": (_DGRAD_ARGS, ctypes.c_int),
 }, headers=("ffma_tile.cuh",))
 
 
@@ -302,8 +339,8 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
 
 
 def _check_operand(name: str, t: torch.Tensor, device: torch.device,
-                   shape: Tuple[int, ...]) -> None:
-    check_operand(name, t, device, shape, torch.float32)
+                   shape: Tuple[int, ...], dtype=torch.float32) -> None:
+    check_operand(name, t, device, shape, dtype)
     if t.numel() > _INT32_MAX:
         raise ValueError(f"{name} has {t.numel()} elements; the kernel indexes in int32")
 
@@ -316,8 +353,11 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
     oshape = out_shape(x.shape, w.shape, stride)
     cout = oshape[3]
     dev = x.device
-    _check_operand("x", x, dev, (n, h, wd, cin))
-    _check_operand("w", w, dev, (k, k, cin, cout))
+    dtype = x.dtype
+    if dtype not in DTYPES:
+        raise TypeError(f"x must be one of {DTYPES}, got {dtype}")
+    _check_operand("x", x, dev, (n, h, wd, cin), dtype)
+    _check_operand("w", w, dev, (k, k, cin, cout), dtype)
     if scale is not None:
         _check_operand("scale", scale, dev, (cout,))
         _check_operand("shift", shift, dev, (cout,))
@@ -331,18 +371,24 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
             "tap_conv.conv2d, whose autograd Function carries it"
         )
     lib = _library.get()
-    out = torch.empty(oshape, device=dev, dtype=torch.float32)
+    out = torch.empty(oshape, device=dev, dtype=dtype)
     _, pt, _ = same_pads(h, k, stride)
     _, pl, _ = same_pads(wd, k, stride)
     tile = forward_tile(n, oshape[1], oshape[2], cin, cout, k)
     with torch.cuda.device(dev):
-        err = lib.tap_conv_forward(
-            _ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(residual),
-            _ptr(out), n, h, wd, cin, oshape[1], oshape[2], cout, k, stride,
-            pt, pl, int(relu), tile, launch_stream(dev),
-        )
+        if dtype == torch.bfloat16:
+            err = lib.tap_conv_forward_bf16(
+                _ptr(x), _ptr(w), _ptr(out), n, h, wd, cin, oshape[1], oshape[2],
+                cout, k, stride, pt, pl, tile, launch_stream(dev),
+            )
+        else:
+            err = lib.tap_conv_forward(
+                _ptr(x), _ptr(w), _ptr(scale), _ptr(shift), _ptr(residual),
+                _ptr(out), n, h, wd, cin, oshape[1], oshape[2], cout, k, stride,
+                pt, pl, int(relu), tile, launch_stream(dev),
+            )
     raise_on_error("tap_conv", err)
-    launches.add()
+    (bf16_launches if dtype == torch.bfloat16 else launches).add()
     return out
 
 
@@ -360,6 +406,7 @@ def _on_cuda(x: torch.Tensor) -> bool:
 
 def _dispatch(x, w, scale, shift, residual, stride, relu, plain):
     _check_geometry(w, stride)
+    same_dtype("x", x, "w", w)
     if not _on_cuda(x):
         return plain()
     return _launch(x, w, scale, shift, residual, stride, relu)
@@ -372,20 +419,25 @@ def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape,
     oshape = out_shape(x_shape, w.shape, stride)
     cout = oshape[3]
     dev = g.device
-    _check_operand("g", g, dev, oshape)
-    _check_operand("w", w, dev, (k, k, cin, cout))
+    dtype = g.dtype
+    if dtype not in DTYPES:
+        raise TypeError(f"g must be one of {DTYPES}, got {dtype}")
+    _check_operand("g", g, dev, oshape, dtype)
+    _check_operand("w", w, dev, (k, k, cin, cout), dtype)
     if n * h * wd * cin > _INT32_MAX:
         raise ValueError("dx too large for int32 indexing")
     lib = _library.get()
-    dx = torch.empty((n, h, wd, cin), device=dev, dtype=torch.float32)
+    dx = torch.empty((n, h, wd, cin), device=dev, dtype=dtype)
     tile, table = _dgrad_launch_plan(n, h, wd, cin, k, stride)
+    bf16 = dtype == torch.bfloat16
+    entry = lib.tap_conv_dgrad_bf16 if bf16 else lib.tap_conv_dgrad
     with torch.cuda.device(dev):
-        err = lib.tap_conv_dgrad(
+        err = entry(
             _ptr(g), _ptr(w), _ptr(dx), n, h, wd, cin, oshape[1], oshape[2],
             cout, stride, table, len(table), tile, launch_stream(dev),
         )
     raise_on_error("tap_conv_dgrad", err)
-    dgrad_launches.add()
+    (bf16_dgrad_launches if bf16 else dgrad_launches).add()
     return dx
 
 
@@ -393,9 +445,13 @@ def conv2d_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape,
                  stride: int = 1) -> torch.Tensor:
     """dx = ∂⟨conv2d(x, w, stride), g⟩/∂x for an input of shape
     ``x_shape``: the dgrad kernel on a CUDA tensor, autograd of the plain
-    version on a CPU one."""
+    version on a CPU one (for bf16, its twin: f32 on the widened operands,
+    rounded once)."""
     _check_geometry(w, stride)
+    dtype = same_dtype("g", g, "w", w)
     if not _on_cuda(g):
+        if dtype == torch.bfloat16:
+            return bf16_twin(conv2d_dgrad_plain, g, w, x_shape=x_shape, stride=stride)
         return conv2d_dgrad_plain(g, w, x_shape, stride)
     return _launch_dgrad(g, w, x_shape, stride)
 
@@ -409,7 +465,7 @@ class _Conv2d(torch.autograd.Function):
         ctx.stride = stride
         ctx.save_for_backward(x, w)
         return _dispatch(x, w, None, None, None, stride, False,
-                         lambda: conv2d_plain(x, w, stride))
+                         lambda: conv2d_forward_plain(x, w, stride))
 
     @staticmethod
     def backward(ctx, g):
@@ -423,9 +479,18 @@ class _Conv2d(torch.autograd.Function):
         return dx, dw, None
 
 
+def conv2d_forward_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The forward kernel's plain twin in x's dtype: ``conv2d_plain``, or
+    for bf16 the f32 conv of the widened operands rounded once."""
+    if x.dtype == torch.bfloat16:
+        return bf16_twin(conv2d_plain, x, w, stride=stride)
+    return conv2d_plain(x, w, stride)
+
+
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
     """SAME conv, NHWC × HWIO → NHWC; stride ∈ {1, 2}, odd k ∈ {1,3,5,7}.
-    Differentiable in ``x`` and ``w`` through the dgrad and wgrad kernels."""
+    Differentiable in ``x`` and ``w`` through the dgrad and wgrad kernels;
+    f32 or bf16 (``x`` and ``w`` alike)."""
     _check_geometry(w, stride)
     return _Conv2d.apply(x, w, stride)
 
@@ -443,7 +508,13 @@ def conv2d_fused(
     whole tail applied to the kernel's f32 accumulator before its single
     store. Fold inference-mode BN as ``scale = γ·rsqrt(var+ε)``,
     ``shift = β − mean·scale``; ``residual`` has the output's shape.
-    Forward-only: it refuses tensors that would record a gradient."""
+    Forward-only: it refuses tensors that would record a gradient. f32
+    only: the bf16 form has no epilogue (ROADMAP Queue B)."""
+    if x.dtype == torch.bfloat16 or w.dtype == torch.bfloat16:
+        raise NotPortedError(
+            "conv2d_fused in bf16 (the epilogue on bf16 activations) is not "
+            "ported: no path reaches it, JAX's eval forward being f32 "
+            "(ROADMAP Queue B)")
     if _records_grad(x, w, scale, shift, residual):
         raise RuntimeError(
             "conv2d_fused is the forward-only eval path (BN folded): call it "

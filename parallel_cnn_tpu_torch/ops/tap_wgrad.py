@@ -12,6 +12,12 @@ in chunk order: no float atomics, bit-identical relaunches); on a CPU
 tensor it runs the plain version, autograd of ``tap_conv.conv2d_plain``
 with respect to ``w``.
 ``tap_conv.conv2d``'s backward calls it.
+
+The bf16 form (bf16 ``x`` and ``g``, JAX's bf16 activations) writes f32
+partials and sums them in the same shape-only chunk order in f32, then
+rounds each sum to bf16 once: ``gw`` is bf16, as JAX rounds its kernel's
+f32 output to ``w.dtype`` (pallas_conv.py:663, :1047). Its plain twin is
+the f32 plain version on the widened operands, rounded once.
 """
 
 from __future__ import annotations
@@ -31,16 +37,17 @@ from parallel_cnn_tpu_torch.ops._cuda_build import (
 
 _INT32_MAX = 2**31 - 1
 
-#: Launches of the wgrad kernel in this process (one per call: its two
-#: passes are one launch of the C entry point).
+#: Launches of the wgrad kernel's f32 form in this process (one per call:
+#: its two passes are one launch of the C entry point), and of its bf16
+#: form.
 launches = LaunchCounter()
+bf16_launches = LaunchCounter()
 
+_WGRAD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _library = Library("tap_wgrad.cu", {
     "tap_wgrad_stage_pixels": ([], ctypes.c_int),
-    "tap_conv_wgrad": (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-        ctypes.c_int,
-    ),
+    "tap_conv_wgrad": (_WGRAD_ARGS, ctypes.c_int),
+    "tap_conv_wgrad_bf16": (_WGRAD_ARGS, ctypes.c_int),
 }, headers=("ffma_tile.cuh",))
 
 #: Pixels per stage of the kernel's ring (``tap_wgrad_stage_pixels()``):
@@ -111,37 +118,47 @@ def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tens
     oshape = tc.out_shape(x.shape, (k, k, cin, g.shape[3]), stride)
     cout = oshape[3]
     dev = x.device
-    check_operand("x", x, dev, (n, h, wd, cin), torch.float32)
-    check_operand("g", g, dev, oshape, torch.float32)
+    dtype = x.dtype
+    if dtype not in tc.DTYPES:
+        raise TypeError(f"x must be one of {tc.DTYPES}, got {dtype}")
+    check_operand("x", x, dev, (n, h, wd, cin), dtype)
+    check_operand("g", g, dev, oshape, dtype)
     if max(x.numel(), g.numel()) > _INT32_MAX:
         raise ValueError("x or g too large for int32 indexing")
     lib = _library.get()
     rows = k * k * cin
     plan = wgrad_plan(n, oshape[1], oshape[2], rows, cout)
-    gw = torch.empty((k, k, cin, cout), device=dev, dtype=torch.float32)
+    bf16 = dtype == torch.bfloat16
+    gw = torch.empty((k, k, cin, cout), device=dev, dtype=dtype)
+    # The bf16 form always sums its f32 partials in pass two, one chunk too.
     partial = (torch.empty((plan.chunks, rows, cout), device=dev, dtype=torch.float32)
-               if plan.chunks > 1 else None)
+               if plan.chunks > 1 or bf16 else None)
     _, pt, _ = tc.same_pads(h, k, stride)
     _, pl, _ = tc.same_pads(wd, k, stride)
+    entry = lib.tap_conv_wgrad_bf16 if bf16 else lib.tap_conv_wgrad
     with torch.cuda.device(dev):
-        err = lib.tap_conv_wgrad(
+        err = entry(
             x.data_ptr(), g.data_ptr(),
             None if partial is None else partial.data_ptr(), gw.data_ptr(),
             n, h, wd, cin, oshape[1], oshape[2], cout, k, stride, pt, pl,
             plan.chunk_pixels, launch_stream(dev),
         )
     raise_on_error("tap_conv_wgrad", err)
-    launches.add()
+    (bf16_launches if bf16 else launches).add()
     return gw
 
 
 def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int,
                  stride: int = 1) -> torch.Tensor:
-    """∂⟨conv2d(x, w, stride), g⟩/∂w for a ``k``×``k`` kernel: the wgrad
-    kernel on a CUDA tensor, the plain version on a CPU one."""
+    """∂⟨conv2d(x, w, stride), g⟩/∂w for a ``k``×``k`` kernel, in the
+    operands' dtype: the wgrad kernel on a CUDA tensor, the plain version
+    (for bf16, its twin) on a CPU one."""
     tc = _conv()
     if k not in tc.SUPPORTED_K or stride not in tc.SUPPORTED_STRIDES:
         raise ValueError(f"kernel size {k} / stride {stride} not supported")
+    dtype = tc.same_dtype("x", x, "g", g)
     if not tc._on_cuda(x):
+        if dtype == torch.bfloat16:
+            return tc.bf16_twin(conv2d_wgrad_plain, x, g, k=k, stride=stride)
         return conv2d_wgrad_plain(x, g, k, stride)
     return _launch(x, g, k, stride)

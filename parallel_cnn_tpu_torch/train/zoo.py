@@ -66,9 +66,21 @@ differently, each reproducibly, so resume is exact on both. Augmentation
 likewise draws from a generator seeded by the epoch (and, on the explicit
 collective path, the rank).
 
-Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), bf16
-activations with loss scaling (A8b), pipeline, elastic and chaos, the
-per-step sentinel cadence, profiling.
+bf16 activations (``FusedStepConfig.act_dtype="bfloat16"``, JAX's
+default for ``--fused-step``). The loss casts the input and every floating
+parameter to bf16 at its top (``_build_loss_fn``, JAX's zoo.py:104-111):
+the layers run in bf16, the conv and tail kernels in their bf16 forms,
+BatchNorm's statistics and running state in f32, and autograd of the cast
+carries each gradient back to its f32 master. The loss is scaled before
+the backward: by the static ``loss_scale`` on ``make_train_step`` (single
+device, GSPMD and the explicit collectives), each microbatch's grads
+multiplied by the exact ``1/scale`` before they are summed; by the
+dynamic scale of ``FusedOptState`` on update-on-arrival, backed off on an
+overflow (clamped at 1) and doubled after ``growth_interval`` clean
+steps, on the device. Evaluation runs the f32 masters.
+
+Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), pipeline,
+elastic and chaos, the per-step sentinel cadence, profiling.
 """
 
 from __future__ import annotations
@@ -398,13 +410,66 @@ def init_fused_state(model: nn.Module, optimizer: SGD, *, mesh: DataMesh,
 # ---------------------------------------------------------------------------
 
 
+class _Bound(nn.Module):
+    """``loss(m, x, y)`` as a module holding ``m``, so that
+    ``torch.func.functional_call`` can run it on substituted parameters."""
+
+    def __init__(self, loss: Callable, m: nn.Module):
+        super().__init__()
+        self.loss = loss
+        self.m = m
+
+    def forward(self, x, y):
+        return self.loss(self.m, x, y)
+
+
+def _cast_to_bf16(loss: Callable) -> Callable:
+    """JAX's cast at the top of the loss (zoo.py:104-111): ``x`` and every
+    floating parameter in bf16 for the call. The buffers (BatchNorm's
+    running statistics) stay the module's own f32 tensors, which its
+    layers update in place; the gradient of each cast parameter flows
+    through the cast back to its f32 master as f32, as through JAX's
+    transpose."""
+    def loss_fn(m, x, y):
+        params = {f"m.{n}": p.to(torch.bfloat16)
+                  for n, p in m.named_parameters() if p.is_floating_point()}
+        return torch.func.functional_call(_Bound(loss, m), params,
+                                          (x.to(torch.bfloat16), y))
+
+    return loss_fn
+
+
+def _static_scale(fused: Optional[FusedStepConfig]) -> float:
+    """JAX's static loss scale: ``fused.loss_scale`` on the bf16 path, else
+    1."""
+    if fused is not None and fused.act_dtype == "bfloat16":
+        return float(fused.loss_scale)
+    return 1.0
+
+
+def _scaled_grads(loss: torch.Tensor, params, scale: float) -> List[torch.Tensor]:
+    """The grads of ``loss`` through ``loss · scale``, multiplied by
+    ``1/scale``: an exact power of two for JAX's scales, so the unscale
+    loses no bit (zoo.py:289-312)."""
+    if scale == 1.0:
+        return list(torch.autograd.grad(loss, params))
+    grads = torch.autograd.grad(loss * scale, params)
+    return torch._foreach_mul(list(grads), 1.0 / scale)
+
+
 def _build_loss_fn(model: nn.Module, fused: Optional[FusedStepConfig]) -> Callable:
     """loss(model, x, y) with the fused-step refinements: ``fused.tail``
     routes a recognised pool → flatten → Dense suffix through the fused
     loss tail, keeping the unfused composition (with a note) when the
-    head does not match."""
-    if fused is not None:
-        fused.check_ported()
+    head does not match; ``fused.act_dtype="bfloat16"`` runs it all on
+    bf16 casts of the input and the parameters."""
+    loss_fn = _uncast_loss_fn(model, fused)
+    if fused is not None and fused.act_dtype == "bfloat16":
+        return _cast_to_bf16(loss_fn)
+    return loss_fn
+
+
+def _uncast_loss_fn(model: nn.Module, fused: Optional[FusedStepConfig]) -> Callable:
     split = tail.split_tail(model) if fused is not None and fused.tail else None
     if fused is not None and fused.tail and split is None:
         print("fused-step: model tail not fusable; keeping unfused tail")
@@ -474,10 +539,11 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
         return _make_gspmd_step(model, optimizer, accum_steps, augment_pad,
                                 fused, as_mesh_2d(mesh), model_axis)
     loss_fn = _build_loss_fn(model, fused)
+    scale = _static_scale(fused)
 
     def grad_fn(m, params, x, y):
         loss = loss_fn(m, x, y)
-        return loss.detach(), torch.autograd.grad(loss, params)
+        return loss.detach(), _scaled_grads(loss, params, scale)
 
     def step(state: ZooState, x, y, aug=None):
         if augment_pad is not None:
@@ -497,7 +563,6 @@ def make_train_step(model: nn.Module, optimizer: SGD, accum_steps: int = 1,
                     f"accum_steps {accum_steps} (no silent sample dropping)")
             mb = x.shape[0] // accum_steps
             loss, grads = grad_fn(m, params, x[:mb], y[:mb])
-            grads = list(grads)
             for i in range(1, accum_steps):
                 sl = slice(i * mb, (i + 1) * mb)
                 li, gi = grad_fn(m, params, x[sl], y[sl])
@@ -541,6 +606,7 @@ def _make_gspmd_step(model: nn.Module, optimizer: SGD, accum_steps: int,
     the forward and backward (nn/core.py), so the gradient of each shard is
     already whole."""
     loss_fn = _build_loss_fn(model, fused)
+    scale = _static_scale(fused)
     split_model = model_axis and mesh.model.size > 1
 
     def step(state: ZooState, x, y, aug=None):
@@ -567,7 +633,7 @@ def _make_gspmd_step(model: nn.Module, optimizer: SGD, accum_steps: int,
             bx, by = gspmd_rows(mesh, x, y, aug, augment_pad,
                                 slice(i * mb, (i + 1) * mb))
             loss = loss_fn(m, bx, by) * (bx.shape[0] / mb)
-            grads = list(torch.autograd.grad(loss, params))
+            grads = _scaled_grads(loss, params, scale)
             lsum = lsum + loss.detach()
             if gsum is None:
                 gsum = grads
@@ -638,6 +704,7 @@ def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
     wire = collectives.wire_dtype_arg(comm)
     overlap = comm.impl == "ring" and comm.overlap and accum_steps > 1
     loss_fn = _build_loss_fn(model, fused)
+    scale = _static_scale(fused)
     names, params = zip(*jax_ordered_params(model))
     pos = {name: i for i, name in enumerate(names)}
     module_order = [pos[name] for name, _ in model.named_parameters()]
@@ -653,7 +720,7 @@ def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
         for i in range(accum_steps):
             sl = slice(i * mb, (i + 1) * mb)
             loss = loss_fn(m, x[sl], y[sl])
-            grads = list(torch.autograd.grad(loss, params))
+            grads = _scaled_grads(loss, params, scale)
             lsum = lsum + loss.detach()
             with torch.no_grad():
                 if overlap:
@@ -700,8 +767,12 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
     Every rank checks its gradient shards for non-finite values and one
     all-reduce MIN agrees: on overflow every rank keeps its params,
     momentum and BN statistics bit-identical (``torch.where``, no host
-    sync) and counts the skip. Constant-LR SGD with momentum only: ``lr``
-    and ``momentum`` are the kernel's scalars."""
+    sync) and counts the skip. With bf16 activations the scale is dynamic
+    (JAX's zoo.py:750-757, on the device): an overflow backs it off by
+    ``fused.backoff`` (clamped at 1) and zeroes ``good_steps``; after
+    ``fused.growth_interval`` clean steps in a row it doubles and
+    ``good_steps`` restarts. Constant-LR SGD with momentum only: ``lr`` and
+    ``momentum`` are the kernel's scalars."""
     if comm is None or comm.impl != "ring":
         raise ValueError(
             "update-on-arrival requires comm.impl='ring' (the bucketed "
@@ -709,6 +780,7 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
     n = mesh.world
     wire = collectives.wire_dtype_arg(comm)
     loss_fn = _build_loss_fn(model, fused)
+    dynamic = fused.act_dtype == "bfloat16"
     params = [p for _, p in jax_ordered_params(model)]
     plan = collectives.plan_buckets(params, comm.bucket_bytes, shards=n)
     # The BN running statistics, one buffer per dtype.
@@ -762,8 +834,12 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
                 [torch.where(ok, new, old) for new, old in zip(new_bufs, old_bufs)],
                 buf_plan))
             loss = _mean_loss(lsum, accum_steps, mesh)
-            # f32 pins the scale to 1: the bf16 backoff and growth (A8b) are
-            # not ported, so only the skip counter moves.
+            if dynamic:
+                new_scale = torch.where(ok, scale, torch.clamp_min(scale * fused.backoff, 1.0))
+                good = torch.where(ok, opt.good_steps + 1, torch.zeros_like(opt.good_steps))
+                grow = good >= fused.growth_interval
+                opt.scale = torch.where(grow, new_scale * 2.0, new_scale)
+                opt.good_steps = torch.where(grow, torch.zeros_like(good), good)
             opt.mom = new_mom
             opt.skipped = opt.skipped + (1 - ok_i)
         return loss

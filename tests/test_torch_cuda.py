@@ -1650,3 +1650,169 @@ def test_native_prefetch_lenet_equals_the_twin_on_card(card, monkeypatch):
     for a, b in zip(tree_leaves(ring.params), tree_leaves(twin.params)):
         assert torch.equal(a, b)
 
+
+
+# ---------------------------------------------------------------------------
+# The bf16 forms of B10 (forward, dgrad), B11 and B12 (JAX's bf16 activations)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+# A bf16 form against its twin (the f32 function of the same bf16 operands,
+# rounded once): one bf16 ulp of the output's scale.
+BF16_RTOL = 2.0 ** -7
+
+
+def _bf16_close(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert bool(torch.isfinite(got).all())
+    tol = BF16_RTOL * max(1.0, float(want.float().abs().max()))
+    assert float((got.float() - want.float()).abs().max()) <= tol
+
+
+def _bf16_counts():
+    return (tap_conv.bf16_launches.count, tap_conv.bf16_dgrad_launches.count,
+            tap_wgrad.bf16_launches.count, tail.bf16_launches.count)
+
+
+def _f32_counts():
+    return (tap_conv.launches.count, tap_conv.dgrad_launches.count,
+            tap_wgrad.launches.count, tail.launches.count)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", FORWARD_CASES)
+def test_bf16_conv_forms_match_their_twins_on_card(card, b, h, w, cin, cout, k, s):
+    """Forward, dgrad and wgrad in bf16 at every geometry of the f32 forms'
+    tests (Cin 3 and 20, Cout 10: the one-value copies; odd sizes at
+    stride 2; k 1 to 7), each relaunch bit-identical, counted on the bf16
+    counters alone."""
+    x, wt, g = (t.to(BF16) for t in _grad_inputs(card, b, h, w, cin, cout, k, s, b + k))
+    bf0, f0 = _bf16_counts(), _f32_counts()
+    runs = [(lambda: tap_conv.conv2d(x, wt, s),
+             lambda: tap_conv.bf16_twin(tap_conv.conv2d_plain, x, wt, stride=s)),
+            (lambda: tap_conv.conv2d_dgrad(g, wt, x.shape, s),
+             lambda: tap_conv.bf16_twin(tap_conv.conv2d_dgrad_plain, g, wt,
+                                        x_shape=x.shape, stride=s)),
+            (lambda: tap_wgrad.conv2d_wgrad(x, g, k, s),
+             lambda: tap_conv.bf16_twin(tap_wgrad.conv2d_wgrad_plain, x, g, k=k, stride=s))]
+    for fn, twin in runs:
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _bf16_close(got, twin())
+    assert _f32_counts() == f0
+    assert tuple(n - m for n, m in zip(_bf16_counts(), bf0)) == (2, 2, 2, 0)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES, ids=[g[0] for g in GEOMETRIES])
+def test_bf16_forward_is_batch_position_invariant_on_card(card, geometry):
+    """The bf16 forward's rows, like the f32 form's, do not depend on the
+    batch around them: the tile follows the batch, the sum order does not."""
+    _, h, cin, cout, k, s, _, _, _ = geometry
+    x, wt = (t.to(BF16) for t in _inputs(card, 64, h, h, cin, cout, k, s, False, h + cin)[:2])
+    full = tap_conv.conv2d(x, wt, s)
+    for b, row in [(b, b - 1) for b in BUCKETS] + [(64, 37)]:
+        assert torch.equal(tap_conv.conv2d(x[row:row + 1], wt, s), full[row:row + 1]), row
+        assert torch.equal(tap_conv.conv2d(x[:b], wt, s), full[:b]), b
+
+
+def test_bf16_conv_forms_read_views_off_the_boundary_on_card(card):
+    """Operands one value past a 16-byte boundary take the one-value
+    loads and stores, and agree with the aligned launch bit for bit."""
+    x, wt, g = (t.to(BF16) for t in _grad_inputs(card, 4, 8, 8, 64, 64, 3, 1, 5))
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    assert torch.equal(tap_conv.conv2d(off(x), off(wt), 1), tap_conv.conv2d(x, wt, 1))
+    assert torch.equal(tap_conv.conv2d_dgrad(off(g), off(wt), x.shape, 1),
+                       tap_conv.conv2d_dgrad(g, wt, x.shape, 1))
+    assert torch.equal(tap_wgrad.conv2d_wgrad(off(x), off(g), 3, 1),
+                       tap_wgrad.conv2d_wgrad(x, g, 3, 1))
+
+
+def test_bf16_conv_autograd_runs_the_bf16_kernels_on_card(card):
+    x, wt, g = (t.to(BF16) for t in _grad_inputs(card, 4, 8, 8, 16, 32, 3, 2, 9))
+    x.requires_grad_(True)
+    wt.requires_grad_(True)
+    bf0 = _bf16_counts()
+    y = tap_conv.conv2d(x, wt, 2)
+    dx, dw = torch.autograd.grad(y, (x, wt), g)
+    assert y.dtype == dx.dtype == dw.dtype == BF16
+    assert tuple(n - m for n, m in zip(_bf16_counts(), bf0)) == (1, 1, 1, 0)
+    assert torch.equal(dx, tap_conv.conv2d_dgrad(g, wt.detach(), x.shape, 2))
+    assert torch.equal(dw, tap_wgrad.conv2d_wgrad(x.detach(), g, 3, 2))
+
+
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+@pytest.mark.parametrize("b", [1, 7, 128])
+def test_bf16_tail_matches_its_twin_on_card(card, b, pool):
+    x, w, bias, y = _tail_inputs(card, b, pool, b + len(pool))
+    x, w, bias = (t.to(BF16) for t in (x, w, bias))
+    before = _bf16_counts()
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    loss2, dl2 = tail.tail_forward(x, w, bias, y, pool)
+    torch.cuda.synchronize()
+    assert tuple(n - m for n, m in zip(_bf16_counts(), before)) == (0, 0, 0, 2)
+    assert loss.dtype == dl.dtype == torch.float32
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
+    _bf16_close(loss, ref_loss)
+    _bf16_close(dl, ref_dl)
+
+
+@pytest.mark.parametrize("shape", [(4, 4, 64), (3, 5, 8), (4, 4, 2048)])
+def test_bf16_tail_gap_rounds_the_mean_as_its_twin_on_card(card, shape):
+    """The gap mean is rounded to bf16 before the FC: the kernel's logits
+    follow the twin's, not the f32 mean's, at odd position counts too."""
+    gen = torch.Generator(device="cuda").manual_seed(shape[2])
+    x = torch.relu(torch.randn((16,) + shape, generator=gen, device="cuda")).to(BF16)
+    w = (torch.randn((shape[2], 10), generator=gen, device="cuda") * 0.1).to(BF16)
+    bias = torch.zeros(10, device="cuda", dtype=BF16)
+    y = torch.randint(0, 10, (16,), generator=gen, device="cuda")
+    loss, dl = tail.tail_forward(x, w, bias, y, "gap")
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, "gap")
+    _bf16_close(loss, ref_loss)
+    _bf16_close(dl, ref_dl)
+
+
+def test_bf16_wrappers_refuse_mixed_dtypes_on_card(card):
+    x, wt, g = _grad_inputs(card, 2, 8, 8, 4, 8, 3, 1, 0)
+    xb, wb, gb = (t.to(BF16) for t in (x, wt, g))
+    before = _bf16_counts() + _f32_counts()
+    with pytest.raises(TypeError):
+        tap_conv.conv2d(xb, wt, 1)
+    with pytest.raises(TypeError):
+        tap_conv.conv2d_dgrad(gb, wt, x.shape, 1)
+    with pytest.raises(TypeError):
+        tap_wgrad.conv2d_wgrad(x, gb, 3, 1)
+    from parallel_cnn_tpu_torch.config import NotPortedError
+
+    ones = torch.ones(8, device=card)
+    with torch.no_grad(), pytest.raises(NotPortedError):
+        tap_conv.conv2d_fused(xb, wb, ones, ones)
+    tx, tw, tb, ty = _tail_inputs(card, 4, "gap", 0)
+    with pytest.raises(TypeError):
+        tail.fused_tail_loss(tx.to(BF16), tw, tb, ty, pool="gap")
+    assert _bf16_counts() + _f32_counts() == before
+
+
+def test_bf16_zoo_step_launches_only_the_bf16_forms_on_card(card):
+    """One bf16 fused step of ResNet-18: 20 forwards, 19 dgrads, 20 wgrads
+    and 1 tail in bf16, no f32 launch; the masters and momentum stay f32."""
+    model = resnet.resnet18(10, backend="cuda",
+                            generator=torch.Generator().manual_seed(0)).to(card)
+    state = zoo.init_state(model, zoo.make_optimizer(0.01))
+    step_fn = zoo.make_train_step(model, state.optimizer,
+                                  fused=FusedStepConfig(update=False))
+    imgs, labels = synthetic.make_image_dataset(16, seed=3)
+    bf0, f0 = _bf16_counts(), _f32_counts()
+    loss = step_fn(state, torch.from_numpy(imgs).to(card),
+                   torch.from_numpy(labels).to(card, torch.int64))
+    assert np.isfinite(float(loss))
+    assert tuple(n - m for n, m in zip(_bf16_counts(), bf0)) == (20, 19, 20, 1)
+    assert _f32_counts() == f0
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    assert all(t.dtype == torch.float32 for t in state.trace.values())

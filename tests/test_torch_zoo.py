@@ -488,10 +488,23 @@ def test_cli_cifar_cnn_fused_step_resumes(tmp_path):
     assert "epoch 1:" not in out
 
 
+@pytest.mark.parametrize("argv", [
+    ["--fused-step"],
+    ["--fused-step", "--act-dtype", "bfloat16"],
+], ids=["fused-default-bf16", "bf16"])
+def test_cli_trains_the_bf16_fused_step(argv):
+    """``--fused-step`` (bf16, JAX's default) and its explicit form train
+    ResNet-18 on the kernels' plain twins for two epochs."""
+    rc, out = _cli(CLI_BASE + ["--model", "resnet18", "--conv-backend", "cuda",
+                               "--epochs", "2"] + argv)
+    assert rc == 0
+    lines = [ln for ln in out.splitlines() if ln.startswith("epoch ")]
+    assert [ln.split(":")[0] for ln in lines] == ["epoch 1", "epoch 2"]
+    losses = [float(ln.split("loss ")[1].split(",")[0]) for ln in lines]
+    assert all(np.isfinite(losses))
+
+
 @pytest.mark.parametrize("argv,err,item", [
-    (["--model", "resnet18", "--fused-step"], NotPortedError, "A8b"),
-    (["--model", "resnet18", "--fused-step", "--act-dtype", "bfloat16"],
-     NotPortedError, "A8b"),
     (["--model", "resnet18", "--act-dtype", "float32"], SystemExit, None),
     # The explicit collectives refuse a model axis (JAX's data-only error);
     # comm without a mesh has nothing to run over.
@@ -500,8 +513,7 @@ def test_cli_cifar_cnn_fused_step_resumes(tmp_path):
     (["--model", "resnet18", "--comm-impl", "ring"], SystemExit, None),
     (["--model", "cifar_cnn", "--conv-backend", "cuda"], SystemExit, None),
     (["--model", "resnet18", "--batch-size", "1"], SystemExit, None),
-], ids=["fused-default-bf16", "bf16", "act-without-fused", "mesh", "comm",
-        "cifar-kernels", "per-sample"])
+], ids=["act-without-fused", "mesh", "comm", "cifar-kernels", "per-sample"])
 def test_cli_refuses_what_is_not_ported(argv, err, item):
     with contextlib.redirect_stderr(io.StringIO()), pytest.raises(err) as info:
         cli.main(["--device", "cpu"] + argv)
