@@ -60,11 +60,14 @@ port's two paths through their user-facing entry points:
   NumPy twin, bit for bit, with the library built from native/*.cc.
 - bf16 activations (bf16 (a)-(e)), JAX's default --fused-step: the bf16
   forms of B10 (forward, dgrad), B11 and B12 against their twins at every
-  ResNet-18 and ResNet-50 conv and head; ResNet-18 through the CLI with
-  exact bf16 launch counts and bf16 steps against f32 steps; the
-  update-on-arrival CLI with the dynamic loss scale, its resume, and an
-  overflow skipped and backed off, then growth; profiled bf16 epochs of
-  ResNet-18 and ResNet-50 beside the f32 ones.
+  ResNet-18 and ResNet-50 conv and head, the forward and wgrad on the
+  tensor cores where tap_conv.wgmma_form takes the conv and their FFMA
+  forms held and timed beside them, and the host time of a launch of each
+  form; ResNet-18 through the CLI with exact bf16 launch counts by form and
+  bf16 steps against f32 steps; the update-on-arrival CLI with the dynamic
+  loss scale, its resume, and an overflow skipped and backed off, then
+  growth; profiled bf16 epochs of ResNet-18 and ResNet-50 beside the f32
+  ones.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -1701,11 +1704,12 @@ def zoo_counts():
 
 
 def reset_zoo_counts():
-    """Every counter of the zoo's kernels, the f32 and the bf16 forms."""
+    """Every counter of the zoo's kernels, the f32 and the bf16 forms (FFMA
+    and tensor-core)."""
     for counter in (tap_conv.launches, tap_conv.dgrad_launches,
                     tap_wgrad.launches, tail.launches, tap_conv.bf16_launches,
                     tap_conv.bf16_dgrad_launches, tap_wgrad.bf16_launches,
-                    tail.bf16_launches):
+                    tail.bf16_launches, tap_conv.wgmma_launches, tap_wgrad.wgmma_launches):
         counter.reset()
 
 
@@ -1862,8 +1866,11 @@ def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
     split = dict.fromkeys(("dgrad", "wgrad", "forward", "other"), 0.0)
     for e in kernels:
         part = ("dgrad" if "tap_dgrad_kernel" in e.key else
-                "wgrad" if "wgrad_partial_kernel" in e.key or "wgrad_sum_kernel" in e.key
-                else "forward" if "tap_conv_kernel" in e.key else "other")
+                "wgrad" if any(k in e.key for k in ("wgrad_partial_kernel", "wgrad_sum_kernel",
+                                                    "wgrad_wgmma_kernel"))
+                else "forward" if any(k in e.key for k in ("tap_conv_kernel",
+                                                           "tap_conv_wgmma_kernel"))
+                else "other")
         split[part] += e.self_device_time_total / 1e3 / steps
     print("[smoke] profiled zoo epoch device ms per step: " + ", ".join(
         f"{part} {ms:.3f}" for part, ms in split.items()), flush=True)
@@ -3219,16 +3226,22 @@ BF16_DP_FUSED = FusedStepConfig(update=True, act_dtype="bfloat16")
 # bf16 (d): the dynamic scale's growth through the library entry point (the
 # CLI has no flag for it), after this many clean steps.
 BF16_GROWTH_INTERVAL = 2
-# The per-step launches of ResNet-18's bf16 step: every conv forward, every
-# dgrad but the stem's, every wgrad, one tail.
-BF16_PER_STEP = {"tap_conv": CONVS_PER_FORWARD, "tap_conv_dgrad": CONVS_PER_FORWARD - 1,
-                 "tap_wgrad": CONVS_PER_FORWARD, "tail_ce": 1}
+# The per-step launches of ResNet-18's bf16 step, by form: every conv
+# forward and wgrad, on the tensor cores where tap_conv.wgmma_form takes the
+# conv (19) and on the FFMA forms elsewhere (the stem); every dgrad but the
+# stem's (FFMA); one tail.
+WGMMA_CONVS = sum(g[-1] for g in GEOMETRIES if tap_conv.wgmma_form(g[2], g[3], g[4]))
+BF16_PER_STEP = {"tap_conv.wgmma": WGMMA_CONVS, "tap_conv.ffma": CONVS_PER_FORWARD - WGMMA_CONVS,
+                 "tap_conv_dgrad": CONVS_PER_FORWARD - 1, "tap_wgrad.wgmma": WGMMA_CONVS,
+                 "tap_wgrad.ffma": CONVS_PER_FORWARD - WGMMA_CONVS, "tail_ce": 1}
 
 
 def bf16_counts():
-    return {"tap_conv": tap_conv.bf16_launches.count,
+    return {"tap_conv.wgmma": tap_conv.wgmma_launches.count,
+            "tap_conv.ffma": tap_conv.bf16_launches.count,
             "tap_conv_dgrad": tap_conv.bf16_dgrad_launches.count,
-            "tap_wgrad": tap_wgrad.bf16_launches.count, "tail_ce": tail.bf16_launches.count}
+            "tap_wgrad.wgmma": tap_wgrad.wgmma_launches.count,
+            "tap_wgrad.ffma": tap_wgrad.bf16_launches.count, "tail_ce": tail.bf16_launches.count}
 
 
 def bf16_bound_ms(x_shape, k, cin, cout, stride, kind):
@@ -3274,27 +3287,49 @@ def library_conv_bf16(x, w, stride):
     return lambda: F.conv2d(xp, wl, stride=stride)
 
 
+def host_us(fn, calls: int = 100) -> float:
+    """Host microseconds a call of ``fn`` takes to return (the launch and
+    everything the wrapper does before it), the device kept busy behind it
+    and synchronised only after the timing."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
 def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
     """bf16 (a) at each geometry at ``batch``: B10's forward (and the rows
     of a 37-image bucket of the same images, bit for bit) and dgrad and B11
     in bf16 against their twins (BF16_RTOL, relaunch bit for bit), each
     timed beside the bound, cuDNN's bf16 call and, with ``time_plain``,
-    the twin. A stem's dgrad is not on the path and is skipped. Returns each
-    kernel's largest difference and its times summed over one forward's or
-    one microbatch's convs."""
+    the twin. Where ``tap_conv.wgmma_form`` takes the conv, the path's
+    forward and wgrad run on the tensor cores, and their FFMA forms (called
+    through their own functions, for this comparison only) are held against
+    the same twins and timed beside them. A stem's dgrad is not on the path
+    and is skipped. Returns each kernel's largest difference and its times
+    summed over one forward's or one microbatch's convs: the path's forms
+    ("ms"), and the FFMA forms at every conv ("ffma_ms")."""
     errs = dict.fromkeys(("tap_conv", "tap_conv_dgrad", "tap_wgrad"), 0.0)
-    sums = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms"), 0.0)
+    sums = {key: dict.fromkeys(("ms", "plain_ms", "library_ms", "bound_ms", "ops_ms",
+                                "ffma_ms"), 0.0)
             for key in errs}
     bf16 = torch.bfloat16
     for name, h, cin, cout, k, s, _, _, count in geometries:
         x, w, g = (t.to(bf16) for t in grad_inputs(h, cin, cout, k, s, gen, batch))
         tag = f"bf16 {label} {name:26s} b{batch}"
+        wgmma = tap_conv.wgmma_form(cin, cout, k)
         kinds = [("tap_conv", "forward")] + ([] if name.startswith("stem") else
                                              [("tap_conv_dgrad", "dgrad")]) + [
             ("tap_wgrad", "wgrad")]
         for key, kind in kinds:
+            ffma_fn = None
             if kind == "forward":
                 fn = lambda: tap_conv.conv2d(x, w, s)  # noqa: E731
+                ffma_fn = lambda: tap_conv.conv2d_bf16_ffma(x, w, s)  # noqa: E731
                 plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
                     tap_conv.conv2d_plain, x, w, stride=s)
                 lib = library_conv_bf16(x, w, s)
@@ -3305,14 +3340,17 @@ def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
                 lib = library_grad(x, w, g, s, True)
             else:
                 fn = lambda: tap_wgrad.conv2d_wgrad(x, g, k, s)  # noqa: E731
+                ffma_fn = lambda: tap_wgrad.conv2d_wgrad_bf16_ffma(x, g, k, s)  # noqa: E731
                 plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
                     tap_wgrad.conv2d_wgrad_plain, x, g, k=k, stride=s)
                 lib = library_grad(x, w, g, s, False)
+            form = "tensor-core" if wgmma and ffma_fn is not None else "FFMA"
             got, again = fn(), fn()
             with plain_reference():
                 want = plain_fn()
             torch.cuda.synchronize()
-            errs[key] = max(errs[key], within(f"{tag} {key}", got, want, again, BF16_RTOL))
+            errs[key] = max(errs[key], within(f"{tag} {key} ({form})", got, want, again,
+                                              BF16_RTOL))
             if kind == "forward" and batch > 37:
                 rows = tap_conv.conv2d(x[:37], w, s)
                 if not torch.equal(rows, got[:37]):
@@ -3325,21 +3363,81 @@ def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
                     plain = cuda_ms(plain_fn, reps=3, warmup=1)
             lib_ms = cuda_ms(lib, reps=10)
             bound, by = bf16_bound_ms(x.shape, k, cin, cout, s, kind)
-            print(f"[smoke] time {tag} {key}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-                  f"cuDNN bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms ({by}), "
-                  f"{bound / ms:.1%} of bound", flush=True)
+            print(f"[smoke] time {tag} {key} ({form}): kernel {ms:.4f} ms, plain "
+                  f"{plain:.4f} ms, cuDNN bf16 {lib_ms:.4f} ms, bound {bound:.4f} ms "
+                  f"({by}), {bound / ms:.1%} of bound, {ms / lib_ms:.2f}x cuDNN bf16's "
+                  f"time", flush=True)
+            ffma_ms = ms
+            if form == "tensor-core":
+                f_got, f_again = ffma_fn(), ffma_fn()
+                torch.cuda.synchronize()
+                errs[key] = max(errs[key], within(f"{tag} {key} (FFMA)", f_got, want,
+                                                  f_again, BF16_RTOL))
+                ffma_ms = cuda_ms(ffma_fn, reps=10)
+                print(f"[smoke] time {tag} {key} (FFMA, timed only): kernel {ffma_ms:.4f} "
+                      f"ms, {bound / ffma_ms:.1%} of bound, {ffma_ms / lib_ms:.2f}x cuDNN "
+                      f"bf16's time; the tensor-core form {ffma_ms / ms:.2f}x faster",
+                      flush=True)
             for field, v in (("ms", ms), ("plain_ms", plain), ("library_ms", lib_ms),
-                             ("bound_ms", bound)):
+                             ("bound_ms", bound), ("ffma_ms", ffma_ms)):
                 sums[key][field] += count * v
             if by == "operations":
                 sums[key]["ops_ms"] += count * bound
         del x, w, g
     for key, rec in sums.items():
+        if not rec["ms"]:  # a table of stems alone has no dgrad
+            continue
         print(f"[smoke] time bf16 {label} {key} summed over the convs of one "
               f"{'forward' if key == 'tap_conv' else 'microbatch'} at b{batch}: "
-              + ", ".join(f"{f} {v:.3f}" for f, v in rec.items() if f != "ops_ms"),
-              flush=True)
+              + ", ".join(f"{f} {v:.3f}" for f, v in rec.items() if f != "ops_ms")
+              + f"; the path's forms at {rec['bound_ms'] / rec['ms']:.1%} of the bound, "
+              f"the FFMA forms at {rec['bound_ms'] / rec['ffma_ms']:.1%}", flush=True)
     return errs, sums
+
+
+def bf16_host_times(card) -> None:
+    """The "time ... host" lines: the host microseconds of one bf16 launch
+    of each form of the forward and the wgrad (the wrappers' launches,
+    checks, planning and the tensor-core forms' map encodes included), in
+    turns (tensor-core, FFMA, FFMA, tensor-core), at ResNet-18's 3x3/s1 128
+    conv at b128; then what the encodes cost: the two forms' C entries
+    called alone through ctypes, in turns."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    x, w, g = (t.to(torch.bfloat16)
+               for t in grad_inputs(16, 128, 128, 3, 1, gen, ZOO_BATCH + 64))
+    xb, gb = x[:ZOO_BATCH], g[:ZOO_BATCH]
+    pairs = {"forward": (lambda: tap_conv._launch(xb, w, None, None, None, 1, False),
+                         lambda: tap_conv._launch(xb, w, None, None, None, 1, False,
+                                                  ffma=True)),
+             "wgrad": (lambda: tap_wgrad._launch(xb, gb, 3, 1),
+                       lambda: tap_wgrad._launch(xb, gb, 3, 1, ffma=True))}
+    parts = []
+    for kind, (tc_fn, ffma_fn) in pairs.items():
+        a1, b1, b2, a2 = host_us(tc_fn), host_us(ffma_fn), host_us(ffma_fn), host_us(tc_fn)
+        parts.append(f"{kind} tensor-core {a1:.1f} / {a2:.1f}, FFMA {b1:.1f} / {b2:.1f}")
+    print(f"[smoke] time bf16 host us a launch (3x3/s1 128 b{ZOO_BATCH}, in turns, "
+          f"wrapper and C entry, the maps' encodes included): {'; '.join(parts)} (this "
+          f"call, on {card})", flush=True)
+    lib = tap_conv.build().get()
+    out = torch.empty((ZOO_BATCH, 16, 16, 128), device="cuda", dtype=torch.bfloat16)
+    geo = (xb.data_ptr(), w.data_ptr(), out.data_ptr(), ZOO_BATCH, 16, 16, 128, 16, 16, 128,
+           3, 1, 1, 1)
+    tile = tap_conv.forward_tile(ZOO_BATCH, 16, 16, 128, 128, 3)
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def entry(fn, *extra):
+        def call():
+            err = fn(*geo, *extra, stream)
+            if err:
+                fail(f"a bf16 forward C entry refused its launch: cudaError {err}")
+        return call
+
+    tc_c = entry(lib.tap_conv_forward_wgmma, *tap_conv.conv_rect(16, 16))
+    ffma_c = entry(lib.tap_conv_forward_bf16, tile)
+    a1, b1, b2, a2 = host_us(tc_c), host_us(ffma_c), host_us(ffma_c), host_us(tc_c)
+    print(f"[smoke] time bf16 host us a forward C entry call, in turns: tensor-core (two "
+          f"map encodes and the launch) {a1:.2f} / {a2:.2f}, FFMA (the launch) {b1:.2f} / "
+          f"{b2:.2f} (this call, on {card})", flush=True)
 
 
 def bf16_kernel_phase() -> tuple:
@@ -3757,6 +3855,7 @@ def main() -> int:
 
     # -- 4h. bf16 activations: JAX's default --fused-step -----------------
     bf16_errs, bf16_times, r50_bf16 = bf16_kernel_phase()
+    bf16_host_times(card)
     bf16_launches = bf16_phase(card)
     bf16_profiles(card, {"ResNet-18": zoo_profile, "ResNet-50": r50_profile},
                   bf16_times, r50_bf16)
@@ -3878,7 +3977,10 @@ def main() -> int:
         "route": "cuda",
         "source": f"parallel_cnn_tpu_torch/csrc/{source}",
         "replaces": replaces,
-        "launches": bf16_launches[name],
+        "launches": sum(n for key, n in bf16_launches.items() if key.split(".")[0] == name),
+        **({"launches_by_form": {form: bf16_launches[f"{name}.{form}"]
+                                 for form in ("wgmma", "ffma")}}
+           if f"{name}.wgmma" in bf16_launches else {}),
         "max_abs_err": bf16_errs[name],
         **bf16_times[name],
     } for name, source, replaces in (

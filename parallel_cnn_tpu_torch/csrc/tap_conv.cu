@@ -110,19 +110,55 @@
 //
 // The bf16 forms (JAX's bf16 activations: the TPU kernel takes bf16
 // operands, accumulates in f32 through preferred_element_type and stores
-// in x's dtype, pallas_conv.py:285-306). Both kernels take the element
-// type as a template argument. A bf16 form loads its operands as bf16 (8
-// bytes, 4 values, where the f32 form's cp.async moves 16), widens them
-// into the f32 slabs of the same ring (csrc/ffma_tile.cuh: fetch before
-// the stage's products, deposit after), multiplies and adds in f32 in the
-// f32 form's order, and rounds each output once at the store
-// (__float2bfloat16_rn). The tile and the depth split are the f32 form's,
-// chosen from the shape only, so a padded bucket's real rows stay
-// bit-identical. Bound on an H100 SXM: the same operations on bf16 data,
-// so against the dense bf16 tensor-core peak (989 TFLOP/s) a 3x3 conv is
-// bound by operations; these FFMA forms reach at most the f32 CUDA cores'
-// 67. The tensor-core form (wgmma through csrc/wgmma_tile.cuh) is the
-// next redesign (ROADMAP Queue B).
+// in x's dtype, pallas_conv.py:285-306). Two kernels serve the bf16
+// forward, chosen by shape in Python (ops/tap_conv.py `wgmma_form`).
+//
+// The bf16 forward on the tensor cores (`tap_conv_wgmma_kernel`, on
+// csrc/wgmma_tile.cuh and csrc/wgmma_conv.cuh) replaces `_tap_kernel`
+// (pallas_conv.py:228) on bf16 operands for every conv whose Cin and Cout
+// are multiples of 64 and whose k is 1 or 3: every conv of
+// ResNet-18, ResNet-50 and VGG-16 but the stems. Bound on an H100 SXM: its
+// multiply-adds at the dense bf16 tensor-core peak (989 TFLOP/s) or its
+// bytes (2 a value: the pixels it reads, w, y) at 3.35 TB/s, the longer
+// of the two (chip_smoke.py `bf16_bound_ms`): 0.157 ms for ResNet-18's 20
+// convs at b128, mostly operations, with the 64-channel 3x3s and the
+// 1x1s at the line between the two. Only wgmma reaches that rate. Design:
+// an implicit GEMM, rows the output pixels, columns Cout, depth (dy, dx,
+// ci) in HWIO order in steps of 64 channels. A block is one warpgroup
+// (128 threads) owning 64 pixels x 64 output channels; its pixels are a
+// rectangle of bn images x bh rows x bw columns chosen from (OH, OW)
+// (csrc/wgmma_conv.cuh), so that one 4-D TMA box of x at the tap's
+// offset is the A tile, K-major under the 128-byte swizzle, with XLA's
+// SAME padding done by TMA's zero fill and stride 2 by the map's element
+// strides; the step's 64 rows of w arrive as one MN-major 64 x 64 box, as
+// B20 reads its w. Thread 0 keeps a 4-slot ring (x box + w box, 16 KB a
+// slot) filled ahead on mbarriers; the four warps issue 4 m64n64k16
+// wgmmas a step into an f32 accumulator (32 registers a thread) and free
+// a slot once wait_group<1> and a barrier show its products done. 64 KB a
+// block lets three blocks share an SM, so one block's TMA waits hide
+// behind another's wgmmas. The epilogue rounds each sum once
+// (__floats2bfloat162_rn) and stores column pairs through the fragment
+// map, rows past N, OH or OW masked. Sum order: every output sums its k16
+// steps in (dy, dx, ci block, k16) order from 0, whatever its rectangle,
+// its place in it or the batch, and no block shares a sum (no split-K):
+// a padded bucket's rows equal the batch's bit for bit and relaunches
+// are bit-identical. ResNet-18's stage 4 at b128 (2,048 rows x 512
+// columns) makes 32 x 8 = 256 blocks of 64 x 64, about two an SM with a
+// third slot free, so no depth split is needed there.
+//
+// The FFMA forms: the bf16 forward at every other shape (the stems, Cin 3,
+// which are bound by their bytes) and the bf16 dgrad at every shape. Both
+// FFMA kernels take the element type as a template argument. A bf16 form
+// loads its operands as bf16 (8 bytes, 4 values, where the f32 form's
+// cp.async moves 16), widens them into the f32 slabs of the same ring
+// (csrc/ffma_tile.cuh: fetch before the stage's products, deposit after),
+// multiplies and adds in f32 in the f32 form's order, and rounds each
+// output once at the store (__float2bfloat16_rn). The tile and the depth
+// split are the f32 form's, chosen from the shape only, so a padded
+// bucket's real rows stay bit-identical. Bound: the same operations as
+// the tensor-core form's, against which they reach at most the f32 CUDA
+// cores' 67 TFLOP/s. The dgrad's tensor-core form is the next redesign
+// (ROADMAP Queue B).
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper allocates the output and checks
@@ -134,6 +170,7 @@
 #include <cstring>
 
 #include "ffma_tile.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
 
@@ -703,6 +740,149 @@ int dgrad_entry(const E* g, const E* w, E* dx, int n, int h, int w_in, int cin, 
   return static_cast<int>(err);
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 forward on the tensor cores (see the header: "The bf16 forward
+// on the tensor cores").
+// ---------------------------------------------------------------------------
+
+constexpr int WG_STAGES = 4;  // the ring: 4 x (x box + w box) = 64 KB
+constexpr int WG_SMEM_BYTES = wgtile::ATOM_BYTES + WG_STAGES * 2 * wgconv::BOX_BYTES;
+
+struct WgmmaForward {
+  CUtensorMap xmap;   // x (C, W, H, N), boxes of 64 channels x the rectangle
+  CUtensorMap wmap;   // w as (k*k*Cin, Cout), boxes of 64 rows x 64 columns
+  wgconv::Rect rect;
+  int n, oh, ow, cin, cout, k, stride, pad_top, pad_left;
+};
+
+// One thread's two fragment rows (frag_row(i, t) for i % 4 < 2 and >= 2)
+// as offsets from the rectangle's origin, and whether each lies inside
+// (N, OH, OW): `at[h]` is the pixel's index (img * OH + oy) * OW + ox.
+struct FragRows {
+  long long at[2];
+  bool in[2];
+
+  __device__ __forceinline__ FragRows(const wgconv::Rect& rect, int n0, int oy0, int ox0, int n,
+                                      int oh, int ow, int t) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      int di, dy, dx;
+      rect.pixel(wgtile::frag_row(2 * h, t), di, dy, dx);
+      const int img = n0 + di, oy = oy0 + dy, ox = ox0 + dx;
+      in[h] = img < n && oy < oh && ox < ow;
+      at[h] = (static_cast<long long>(img) * oh + oy) * ow + ox;
+    }
+  }
+};
+
+__global__ void __launch_bounds__(wgtile::THREADS)
+tap_conv_wgmma_kernel(const __grid_constant__ WgmmaForward p,
+                      __nv_bfloat16* __restrict__ out) {
+  using namespace wgconv;
+  extern __shared__ uint8_t wg_smem[];  // aligned to 1,024 bytes below
+  __shared__ __align__(8) uint64_t full[WG_STAGES];
+  const uint32_t ring = wgtile::align_atom(wg_smem);
+  const int t = threadIdx.x;
+  int n0, oy0, ox0;
+  p.rect.origin(blockIdx.x, n0, oy0, ox0);
+  const int co0 = blockIdx.y * CH;
+  const int cblocks = p.cin / CH;
+  const int steps = p.k * p.k * cblocks;
+
+  if (t == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) wgtile::mbar_init(wgtile::smem_addr(&full[i]), 1);
+  }
+  __syncthreads();
+  // Thread 0: depth step j = (tap, channel block) into slot j % WG_STAGES.
+  auto issue = [&](int j) {
+    const int slot = j % WG_STAGES;
+    const int tap = j / cblocks;
+    const int c0 = (j - tap * cblocks) * CH;
+    const int dy = tap / p.k;
+    const int dx = tap - dy * p.k;
+    const uint32_t a = ring + slot * 2 * BOX_BYTES;
+    const uint32_t bar = wgtile::smem_addr(&full[slot]);
+    wgtile::mbar_arrive_expect_tx(bar, 2 * BOX_BYTES);
+    wgtile::tma_load_4d(a, &p.xmap, bar, c0, ox0 * p.stride + dx - p.pad_left,
+                        oy0 * p.stride + dy - p.pad_top, n0);
+    wgtile::tma_load_2d(a + BOX_BYTES, &p.wmap, bar, co0, tap * p.cin + c0);
+  };
+  if (t == 0) {
+    for (int j = 0; j < WG_STAGES && j < steps; ++j) issue(j);
+  }
+
+  float acc[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % WG_STAGES;
+    wgtile::mbar_wait(wgtile::smem_addr(&full[slot]), (s / WG_STAGES) & 1);
+    const uint32_t a = ring + slot * 2 * BOX_BYTES;
+    wgtile::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K16_STEPS; ++kk) {
+      wgtile::wgmma_m64n64k16_bf16(acc, wgtile::k_major_desc(a, kk),
+                                   wgtile::mn_major_desc(a + BOX_BYTES, kk, BOX_BYTES), 1);
+    }
+    wgtile::wgmma_commit();
+    wgtile::wgmma_wait<1>();  // step s - 1's products are done in this warp ...
+    __syncthreads();          // ... and in every warp: its slot is free
+    if (t == 0 && s >= 1 && s - 1 + WG_STAGES < steps) issue(s - 1 + WG_STAGES);
+  }
+  wgtile::wgmma_wait_all();
+  wgtile::fence_regs(acc);
+
+  // Each thread rounds its fragment once and stores column pairs.
+  const FragRows rows(p.rect, n0, oy0, ox0, p.n, p.oh, p.ow, t);
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int h = (i / 2) % 2;
+    if (!rows.in[h]) continue;
+    const int co = co0 + wgtile::frag_col(i, t);
+    *reinterpret_cast<__nv_bfloat162*>(out + rows.at[h] * p.cout + co) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+int forward_wgmma_entry(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfloat16* out,
+                        int n, int h, int w_in, int cin, int oh, int ow, int cout, int k,
+                        int stride, int pad_top, int pad_left, int bn, int bh, int bw,
+                        void* stream) {
+  if (n <= 0 || h <= 0 || w_in <= 0 || oh <= 0 || ow <= 0 || k <= 0 || stride <= 0 ||
+      pad_top < 0 || pad_left < 0 || cin <= 0 || cin % wgconv::CH != 0 || cout <= 0 ||
+      cout % wgconv::CH != 0 || !wgconv::rect_ok(bn, bh, bw) || !aligned16(x) ||
+      !aligned16(w) || !aligned16(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgmmaForward p;
+  if (!wgconv::encode_activation(&p.xmap, x, n, h, w_in, cin, bn, bh, bw, stride) ||
+      !wgtile::encode_bf16_sw128(&p.wmap, w, cout, static_cast<uint64_t>(k) * k * cin,
+                                 static_cast<uint64_t>(cout) * 2, wgconv::CH)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.rect = wgconv::Rect{bn, bh, bw, (oh + bh - 1) / bh, (ow + bw - 1) / bw};
+  p.n = n;
+  p.oh = oh;
+  p.ow = ow;
+  p.cin = cin;
+  p.cout = cout;
+  p.k = k;
+  p.stride = stride;
+  p.pad_top = pad_top;
+  p.pad_left = pad_left;
+  static bool smem_ok = false;
+  cudaError_t err = ftile::allow_smem(tap_conv_wgmma_kernel, WG_SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rects = static_cast<long long>((n + bn - 1) / bn) * p.rect.tiles_h *
+                          p.rect.tiles_w;
+  if (rects > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(rects), static_cast<unsigned>(cout / wgconv::CH));
+  tap_conv_wgmma_kernel<<<grid, wgtile::THREADS, WG_SMEM_BYTES,
+                          static_cast<cudaStream_t>(stream)>>>(p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Plain C entry point for ctypes. Pointers are device pointers; `scale` and
@@ -729,6 +909,18 @@ extern "C" int tap_conv_forward_bf16(const __nv_bfloat16* x, const __nv_bfloat16
   return forward_entry<__nv_bfloat16>(x, w, nullptr, nullptr, nullptr, out, n, h, w_in, cin,
                                       oh, ow, cout, k, stride, pad_top, pad_left, 0, tile,
                                       stream);
+}
+
+// The bf16 forward on the tensor cores: x, w and out bf16, Cin and Cout
+// multiples of 64, every pointer 16-byte aligned; (bn, bh, bw) the
+// rectangle of output pixels a block covers (ops/tap_conv.py `conv_rect`,
+// bn * bh * bw = 64). Returns as tap_conv_forward.
+extern "C" int tap_conv_forward_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* w,
+                                      __nv_bfloat16* out, int n, int h, int w_in, int cin,
+                                      int oh, int ow, int cout, int k, int stride, int pad_top,
+                                      int pad_left, int bn, int bh, int bw, void* stream) {
+  return forward_wgmma_entry(x, w, out, n, h, w_in, cin, oh, ow, cout, k, stride, pad_top,
+                             pad_left, bn, bh, bw, stream);
 }
 
 // Input gradient of the conv above: `g` is (N,OH,OW,Cout), `w` the forward's

@@ -53,12 +53,51 @@
 // batch-dependent split-K is about its padded buckets, which a gradient
 // never sees.) With one chunk, pass one writes gw directly.
 //
-// The bf16 form (the TPU kernel takes bf16 x and g and writes f32, which
-// _conv2d_bwd rounds to w's dtype, pallas_conv.py:663/:1047). The element
-// type is a template argument: bf16 x and g are loaded as 8-byte runs
-// into registers and widened into the f32 ring (csrc/ffma_tile.cuh), the
-// partials and their chunk sum stay f32 in the same shape-only order, and
-// pass two rounds each sum to bf16 once (with one chunk too).
+// The bf16 forms (the TPU kernel takes bf16 x and g and writes f32, which
+// _conv2d_bwd rounds to w's dtype, pallas_conv.py:663/:1047). Two kernels
+// serve them, chosen by shape in Python (ops/tap_conv.py `wgmma_form`).
+// Both write f32 partials, one tile a chunk of the pixel axis, and pass
+// two (`wgrad_sum_kernel`) sums them in chunk order in f32 and rounds each
+// sum to bf16 once, one chunk too: the order is fixed by the shape, and
+// relaunches are bit-identical.
+//
+// The bf16 form on the tensor cores (`wgrad_wgmma_kernel`, on
+// csrc/wgmma_tile.cuh and csrc/wgmma_conv.cuh) replaces
+// `_wgrad_tap_kernel` (pallas_conv.py:321) on bf16 operands for every
+// conv whose Cin and Cout are multiples of 64 and whose k is 1 or 3:
+// every wgrad of
+// ResNet-18, ResNet-50 and VGG-16 but the stems'. Bound on an H100 SXM:
+// the forward's multiply-adds at the dense bf16 peak (989 TFLOP/s) or
+// its bytes (the pixels it reads, g, gw) at 3.35 TB/s, the longer
+// (chip_smoke.py `bf16_bound_ms`): 0.157 ms for ResNet-18's 20 wgrads at
+// b128. Only wgmma reaches that rate. Design: a GEMM over pixels, rows the
+// 64 channels of x at one tap, columns 64 of Cout, depth the output
+// pixels of one chunk, 64 at a time: a rectangle of bn images x bh rows x
+// bw columns (csrc/wgmma_conv.cuh). One 4-D TMA box of g over the
+// rectangle is B (pixels as rows of 64 channels: MN-major), and one box of
+// x a tap, at that tap's offset with SAME zero fill and stride-2 element
+// strides, is A, which lands with the channels (M) contiguous: an MN-major
+// A, which wgmma takes from shared memory with its transpose-A flag
+// (wgtile::wgmma_m64n64k16_bf16<1>). A block (one warpgroup) owns a row of
+// a 3x3 conv's taps (three accumulator tiles, 96 registers a thread: one g
+// box serves three x boxes) or a 1x1 conv's one tap, so a ring slot is g's
+// box and one x box a tap: 3 slots of 32 KB (two blocks an SM) or 4 of 16
+// KB (three). Thread 0 fills the ring ahead on mbarriers; the warps run 4
+// m64n64k16 wgmmas a tap a rectangle and free a slot once wait_group<1>
+// and a barrier show its products done. The first k16 step of a chunk
+// writes its product alone (scale_d = 0), so no other instruction defines
+// the accumulators (zeroing them made ptxas serialize the wgmmas). The
+// chunks (ops/tap_wgrad.py `wgmma_plan`, from the shape alone: about 264
+// blocks, one wave of two an SM, chunks of at least 4 rectangles, the 32
+// MiB scratch cap) replace the FFMA form's 1,152-block target, which was
+// set for a slower core. Each block writes its chunk's partial tiles with
+// float2 stores through the fragment map. No float atomics.
+//
+// The FFMA form (every other shape: the stems, Cin 3, bound by their
+// bytes). The element type is a template argument: bf16 x and g are
+// loaded as 8-byte runs into registers and widened into the f32 ring
+// (csrc/ffma_tile.cuh), then multiplied and added on the CUDA cores in
+// the f32 form's order (at most the f32 cores' 67 TFLOP/s).
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing.
@@ -69,6 +108,7 @@
 #include <cstdint>
 
 #include "ffma_tile.cuh"
+#include "wgmma_conv.cuh"
 
 namespace {
 
@@ -329,6 +369,171 @@ int wgrad_entry(const E* x, const E* g, float* partial, E* gw, int n, int h, int
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The bf16 weight gradient on the tensor cores (see the header: "The bf16
+// form on the tensor cores").
+// ---------------------------------------------------------------------------
+
+// A block owns TAPS taps (a row of a 3x3 conv's taps, or a 1x1 conv's one)
+// x 64 input channels x 64 output channels of one chunk; a stage is one
+// rectangle of 64 output pixels: g's box and one x box a tap. The ring has
+// WG_STAGES<TAPS> slots: 3 x 32 KB (two blocks an SM) or 4 x 16 KB (three).
+template <int TAPS>
+constexpr int WG_STAGES = TAPS == 1 ? 4 : 3;
+template <int TAPS>
+constexpr int WG_SLOT_BYTES = (1 + TAPS) * wgconv::BOX_BYTES;
+template <int TAPS>
+constexpr int WG_SMEM_BYTES = wgtile::ATOM_BYTES + WG_STAGES<TAPS> * WG_SLOT_BYTES<TAPS>;
+
+struct WgmmaWgrad {
+  CUtensorMap xmap;   // x (C, W, H, N), boxes of 64 channels x the rectangle
+  CUtensorMap gmap;   // g (Cout, OW, OH, N), the same boxes
+  wgconv::Rect rect;
+  int n, oh, ow, cin, cout, k, stride, pad_top, pad_left, rects, chunk_rects;
+};
+
+template <int TAPS>
+__global__ void __launch_bounds__(wgtile::THREADS)
+wgrad_wgmma_kernel(const __grid_constant__ WgmmaWgrad p, float* __restrict__ partial) {
+  using namespace wgconv;
+  constexpr int SLOTS = WG_STAGES<TAPS>;
+  constexpr int SLOT = WG_SLOT_BYTES<TAPS>;
+  extern __shared__ uint8_t wg_smem[];  // aligned to 1,024 bytes below
+  __shared__ __align__(8) uint64_t full[SLOTS];
+  const uint32_t ring = wgtile::align_atom(wg_smem);
+  const int t = threadIdx.x;
+  const int cblocks = p.cin / CH;
+  const int tap0 = (blockIdx.x / cblocks) * TAPS;
+  const int c0 = (blockIdx.x % cblocks) * CH;
+  const int co0 = blockIdx.y * CH;
+  const int r0 = blockIdx.z * p.chunk_rects;
+  const int steps = min(p.rects - r0, p.chunk_rects);
+
+  if (t == 0) {
+    for (int i = 0; i < SLOTS; ++i) wgtile::mbar_init(wgtile::smem_addr(&full[i]), 1);
+  }
+  __syncthreads();
+  // Thread 0: rectangle r0 + j (g's box, then each tap's x box) into slot
+  // j % SLOTS.
+  auto issue = [&](int j) {
+    int n0, oy0, ox0;
+    p.rect.origin(r0 + j, n0, oy0, ox0);
+    const uint32_t slot = ring + (j % SLOTS) * SLOT;
+    const uint32_t bar = wgtile::smem_addr(&full[j % SLOTS]);
+    wgtile::mbar_arrive_expect_tx(bar, SLOT);
+    wgtile::tma_load_4d(slot, &p.gmap, bar, co0, ox0, oy0, n0);
+#pragma unroll
+    for (int q = 0; q < TAPS; ++q) {
+      const int dy = (tap0 + q) / p.k;
+      const int dx = tap0 + q - dy * p.k;
+      wgtile::tma_load_4d(slot + (1 + q) * BOX_BYTES, &p.xmap, bar, c0,
+                          ox0 * p.stride + dx - p.pad_left, oy0 * p.stride + dy - p.pad_top,
+                          n0);
+    }
+  };
+  if (t == 0) {
+    for (int j = 0; j < SLOTS && j < steps; ++j) issue(j);
+  }
+
+  // No instruction but wgmma defines the accumulators (a zeroing pass
+  // makes ptxas serialize the wgmmas of three tiles): the first k16 step
+  // of a chunk writes A . B alone (scale_d = 0), so every chunk sums its
+  // pixels from 0 in (rectangle, k16) order. A chunk has a rectangle at
+  // least.
+  float acc[TAPS][32];
+  for (int s = 0; s < steps; ++s) {
+    const uint32_t slot = ring + (s % SLOTS) * SLOT;
+    wgtile::mbar_wait(wgtile::smem_addr(&full[s % SLOTS]), (s / SLOTS) & 1);
+    wgtile::wgmma_fence();
+#pragma unroll
+    for (int q = 0; q < TAPS; ++q) {
+#pragma unroll
+      for (int kk = 0; kk < K16_STEPS; ++kk) {
+        // A = x's box, MN-major (channels contiguous, pixels the depth);
+        // B = g's box, MN-major.
+        wgtile::wgmma_m64n64k16_bf16<1>(
+            acc[q], wgtile::mn_major_desc(slot + (1 + q) * BOX_BYTES, kk, BOX_BYTES),
+            wgtile::mn_major_desc(slot, kk, BOX_BYTES), s > 0 || kk > 0);
+      }
+    }
+    wgtile::wgmma_commit();
+    wgtile::wgmma_wait<1>();  // step s - 1's products are done in this warp ...
+    __syncthreads();          // ... and in every warp: its slot is free
+    if (t == 0 && s >= 1 && s - 1 + SLOTS < steps) issue(s - 1 + SLOTS);
+  }
+  wgtile::wgmma_wait_all();
+
+  // The chunk's f32 partial tile of each tap: rows tap*Cin + ci, columns co.
+  float* tile = partial + static_cast<long long>(blockIdx.z) * p.k * p.k * p.cin * p.cout;
+#pragma unroll
+  for (int q = 0; q < TAPS; ++q) {
+    wgtile::fence_regs(acc[q]);
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const long long row = static_cast<long long>(tap0 + q) * p.cin + c0 + wgtile::frag_row(i, t);
+      *reinterpret_cast<float2*>(tile + row * p.cout + co0 + wgtile::frag_col(i, t)) =
+          make_float2(acc[q][i], acc[q][i + 1]);
+    }
+  }
+}
+
+template <int TAPS>
+cudaError_t launch_wgrad_wgmma(const WgmmaWgrad& p, float* partial, int chunks,
+                               cudaStream_t s) {
+  static bool smem_ok = false;
+  cudaError_t err = ftile::allow_smem(wgrad_wgmma_kernel<TAPS>, WG_SMEM_BYTES<TAPS>, smem_ok);
+  if (err != cudaSuccess) return err;
+  const dim3 grid(static_cast<unsigned>(p.k * p.k / TAPS * (p.cin / wgconv::CH)),
+                  static_cast<unsigned>(p.cout / wgconv::CH), static_cast<unsigned>(chunks));
+  wgrad_wgmma_kernel<TAPS><<<grid, wgtile::THREADS, WG_SMEM_BYTES<TAPS>, s>>>(p, partial);
+  return cudaGetLastError();
+}
+
+// Pass one on the tensor cores into `partial` (one f32 tile a chunk), then
+// pass two (wgrad_sum_kernel) rounds each chunk-ordered sum once into gw.
+int wgrad_wgmma_entry(const __nv_bfloat16* x, const __nv_bfloat16* g, float* partial,
+                      __nv_bfloat16* gw, int n, int h, int w_in, int cin, int oh, int ow,
+                      int cout, int k, int stride, int pad_top, int pad_left, int bn, int bh,
+                      int bw, int chunk_rects, void* stream) {
+  if (n <= 0 || h <= 0 || w_in <= 0 || oh <= 0 || ow <= 0 || stride <= 0 || pad_top < 0 ||
+      pad_left < 0 || (k != 1 && k != 3) || cin <= 0 || cin % wgconv::CH != 0 || cout <= 0 ||
+      cout % wgconv::CH != 0 || !wgconv::rect_ok(bn, bh, bw) || chunk_rects <= 0 ||
+      partial == nullptr || !aligned16(x) || !aligned16(g) || !aligned16(partial)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgmmaWgrad p;
+  p.rect = wgconv::Rect{bn, bh, bw, (oh + bh - 1) / bh, (ow + bw - 1) / bw};
+  const long long rects = static_cast<long long>((n + bn - 1) / bn) * p.rect.tiles_h *
+                          p.rect.tiles_w;
+  const long long chunks = (rects + chunk_rects - 1) / chunk_rects;
+  if (rects > 0x7fffffffLL || chunks > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  if (!wgconv::encode_activation(&p.xmap, x, n, h, w_in, cin, bn, bh, bw, stride) ||
+      !wgconv::encode_activation(&p.gmap, g, n, oh, ow, cout, bn, bh, bw, 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.n = n;
+  p.oh = oh;
+  p.ow = ow;
+  p.cin = cin;
+  p.cout = cout;
+  p.k = k;
+  p.stride = stride;
+  p.pad_top = pad_top;
+  p.pad_left = pad_left;
+  p.rects = static_cast<int>(rects);
+  p.chunk_rects = chunk_rects;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err = k == 3 ? launch_wgrad_wgmma<3>(p, partial, static_cast<int>(chunks), s)
+                           : launch_wgrad_wgmma<1>(p, partial, static_cast<int>(chunks), s);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int elems = k * k * cin * cout;
+  const int blocks = std::min((elems + SUM_THREADS - 1) / SUM_THREADS, 132 * 8);
+  wgrad_sum_kernel<__nv_bfloat16><<<blocks, SUM_THREADS, 0, s>>>(partial, gw, elems,
+                                                                 static_cast<int>(chunks));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Pixels per stage: the wrapper's chunk must be a multiple of it.
@@ -357,4 +562,19 @@ extern "C" int tap_conv_wgrad_bf16(const __nv_bfloat16* x, const __nv_bfloat16* 
                                    int pad_top, int pad_left, int chunk, void* stream) {
   return wgrad_entry(x, g, partial, gw, n, h, w_in, cin, oh, ow, cout, k, stride, pad_top,
                      pad_left, chunk, stream);
+}
+
+// The bf16 form on the tensor cores: x and g bf16 with Cin and Cout
+// multiples of 64, k 1 or 3, every pointer 16-byte aligned; (bn, bh, bw)
+// the rectangle of output pixels a depth step covers (ops/tap_conv.py
+// `conv_rect`), `chunk_rects` rectangles a chunk (ops/tap_wgrad.py
+// `wgmma_plan`); `partial` holds one f32 (k*k*Cin, Cout) tile a chunk.
+// Returns as tap_conv_wgrad.
+extern "C" int tap_conv_wgrad_wgmma(const __nv_bfloat16* x, const __nv_bfloat16* g,
+                                    float* partial, __nv_bfloat16* gw, int n, int h, int w_in,
+                                    int cin, int oh, int ow, int cout, int k, int stride,
+                                    int pad_top, int pad_left, int bn, int bh, int bw,
+                                    int chunk_rects, void* stream) {
+  return wgrad_wgmma_entry(x, g, partial, gw, n, h, w_in, cin, oh, ow, cout, k, stride, pad_top,
+                           pad_left, bn, bh, bw, chunk_rects, stream);
 }

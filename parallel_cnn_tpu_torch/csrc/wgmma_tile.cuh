@@ -2,8 +2,9 @@
 // Hopper (sm_90a): TMA loads onto an mbarrier, shared-memory matrix
 // descriptors for the 128-byte swizzle, bf16 wgmma with f32 accumulators,
 // and the accumulator's fragment index map. csrc/mosaic_probe.cu's pair
-// and two-dot kernels (B20, B21) use it; it is written so that a 64-row
-// conv tile on the tensor cores can take it as it is.
+// and two-dot kernels (B20, B21) use it, and the bf16 conv forward and
+// weight gradient on the tensor cores (csrc/wgmma_conv.cuh, with
+// csrc/tap_conv.cu and csrc/tap_wgrad.cu).
 //
 // Shared-memory layout (the 128-byte swizzle, CU_TENSOR_MAP_SWIZZLE_128B).
 // TMA writes a box whose inner extent is 128 bytes (64 bf16) as rows of
@@ -27,6 +28,10 @@
 //   transpose-B flag (tnspB = 1, allowed for 16-bit types) says B is
 //   MN-major. (CUTLASS's make_gmma_desc assigns these two offsets the same
 //   way: cute/atom/mma_traits_sm90_gmma.hpp.)
+// - An MN-major A (M contiguous: the weight gradient's x box, pixels as K
+//   rows of 64 channels) has the same layout and the same descriptor as
+//   an MN-major B; wgmma's transpose-A flag (tnspA = 1, also allowed for
+//   16-bit types with A from shared memory) says so.
 //
 // The accumulator fragment of wgmma .m64nNk16 with an f32 D (the PTX ISA's
 // "WGMMA .m64nNk16 register fragment layout for accumulator matrix D"):
@@ -125,6 +130,21 @@ __device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// The same for a 4-D map: the box at (c0 innermost, ..., c3 outermost).
+// Coordinates are signed: a box that starts before 0 or runs past a
+// dimension's end is filled with zeros there (FLOAT_OOB_FILL_NONE), and
+// the zeros count towards the bytes. Emits
+//   cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes
+//       [dst], [map, {c0, c1, c2, c3}], [bar];
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // Descriptors and wgmma.
 // ---------------------------------------------------------------------------
@@ -163,6 +183,13 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most N of this warpgroup's committed wgmma groups are
+// still running (wgmma.wait_group.sync.aligned N).
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
 // Keeps the compiler from moving reads or writes of accumulator registers
 // across the asynchronous wgmmas that own them.
 template <int R>
@@ -172,7 +199,12 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d = A . B + (scale_d ? d : 0) over one k16 step, m64n64, bf16 in, f32
-// accumulate; A K-major, B MN-major (tnspB = 1), both from shared memory.
+// accumulate; B MN-major (tnspB = 1); A K-major (TRANS_A = 0, the default)
+// or MN-major (TRANS_A = 1), both from shared memory. Emits
+//   wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16
+//       {d0..d31}, a-desc, b-desc, p, 1, 1, TRANS_A, 1;
+// (scale-a 1, scale-b 1, tnspA, tnspB), p = scale_d != 0.
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
                                                      uint64_t b, int scale_d) {
   asm volatile(
@@ -184,7 +216,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15,\n"
       "%16, %17, %18, %19, %20, %21, %22, %23,\n"
       "%24, %25, %26, %27, %28, %29, %30, %31},\n"
-      " %32, %33, p, 1, 1, 0, 1;\n"
+      " %32, %33, p, 1, 1, %35, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -194,10 +226,13 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A));
 }
 
-// The same at m64n128: 64 accumulators a thread.
+// The same at m64n128: 64 accumulators a thread. Emits
+//   wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16
+//       {d0..d63}, a-desc, b-desc, p, 1, 1, TRANS_A, 1;
+template <int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a,
                                                       uint64_t b, int scale_d) {
   asm volatile(
@@ -213,7 +248,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a
       "%40, %41, %42, %43, %44, %45, %46, %47,\n"
       "%48, %49, %50, %51, %52, %53, %54, %55,\n"
       "%56, %57, %58, %59, %60, %61, %62, %63},\n"
-      " %64, %65, p, 1, 1, 0, 1;\n"
+      " %64, %65, p, 1, 1, %67, 1;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -231,7 +266,7 @@ __device__ __forceinline__ void wgmma_m64n128k16_bf16(float (&d)[64], uint64_t a
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(scale_d));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A));
 }
 
 // ---------------------------------------------------------------------------
@@ -278,6 +313,30 @@ inline bool encode_bf16_sw128(CUtensorMap* map, const void* base, uint64_t inner
   const cuuint32_t unit[2] = {1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
             strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D bf16 map (dims[0] innermost, contiguous; strides_bytes[i] the
+// step of dims[i + 1]) read in boxes of box[0] = 64 values (128 bytes)
+// by box[1] x box[2] x box[3] under the 128-byte swizzle, with zero fill
+// out of bounds (coordinates are signed: tma_load_4d). `step` is the
+// element stride of dims 1 and 2 (1, or 2 for a stride-2 conv): the box
+// then spans step * box[i] elements of dims i = 1, 2 and lands only every
+// step-th (cuTensorMapEncodeTiled's elementStrides; dim 0 takes none).
+// False if the encode refuses the map (base not 16-byte aligned, a stride
+// not a multiple of 16).
+inline bool encode_bf16_sw128_4d(CUtensorMap* map, const void* base, const uint64_t dims[4],
+                                 const uint64_t strides_bytes[3], const uint32_t box[4],
+                                 uint32_t step) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr || box[0] * 2 != ROW_BYTES) return false;
+  const cuuint64_t d[4] = {dims[0], dims[1], dims[2], dims[3]};
+  const cuuint64_t st[3] = {strides_bytes[0], strides_bytes[1], strides_bytes[2]};
+  const cuuint32_t b[4] = {box[0], box[1] * step, box[2] * step, box[3]};
+  const cuuint32_t unit[4] = {1, step, step, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), d, st, b, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }

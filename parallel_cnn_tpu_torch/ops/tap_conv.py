@@ -31,8 +31,12 @@ kernel's ``preferred_element_type=f32`` dot and its store in x's dtype do
 (pallas_conv.py:285-306): the forward and dgrad write bf16, the wgrad its
 f32 chunk sum rounded to bf16 once (pallas_conv.py:663, :1047). Their
 plain twins compute the f32 function of the bf16 operands and round the
-result once. ``x`` and ``w`` (or ``g`` and ``w``) must share their dtype;
-mixed operands raise TypeError. The bf16 ``conv2d_fused`` (an epilogue on
+result once. The bf16 forward and wgrad have two hand kernels each, chosen
+by shape (``wgmma_form``): where Cin and Cout are multiples of 64 and k is
+1 or 3 (every conv of ResNet-18, ResNet-50 and VGG-16 but the stems), a
+tensor-core kernel (wgmma fed by TMA); elsewhere the FFMA form on the f32
+core. The bf16 dgrad has the FFMA form only. ``x`` and ``w`` (or ``g`` and
+``w``) must share their dtype; mixed operands raise TypeError. The bf16 ``conv2d_fused`` (an epilogue on
 bf16) is reached by no path, JAX's eval being f32, and raises
 NotPortedError. Each form has its own launch counter.
 
@@ -73,9 +77,12 @@ DTYPES = (torch.float32, torch.bfloat16)
 launches = LaunchCounter()
 #: Launches of the dgrad kernel's f32 form (``conv2d``'s backward).
 dgrad_launches = LaunchCounter()
-#: Launches of the bf16 forms of the forward and of the dgrad kernel.
+#: Launches of the bf16 forms of the forward (its FFMA form) and of the
+#: dgrad kernel.
 bf16_launches = LaunchCounter()
 bf16_dgrad_launches = LaunchCounter()
+#: Launches of the bf16 forward's tensor-core form.
+wgmma_launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -307,6 +314,48 @@ def forward_tile(n: int, oh: int, ow: int, cin: int, cout: int, k: int) -> int:
     return 2
 
 
+#: Channels a TMA box of the tensor-core forms holds (csrc/wgmma_conv.cuh
+#: CH): their Cin and Cout are multiples of it.
+WGMMA_CHANNELS = 64
+#: Kernel sizes the tensor-core forms take: the wgrad form keeps a row of
+#: a 3x3 conv's taps (3 accumulator tiles) or a 1x1's one in registers.
+WGMMA_K = (1, 3)
+#: Output pixels a block's rectangle covers: wgmma's 64 rows.
+WGMMA_ROWS = 64
+
+
+def wgmma_form(cin: int, cout: int, k: int) -> bool:
+    """True where the bf16 forward and weight gradient take their
+    tensor-core kernels (wgmma fed by TMA: ``tap_conv_wgmma_kernel``,
+    ``wgrad_wgmma_kernel``): Cin and Cout multiples of 64 and k 1 or 3.
+    That is every conv of ResNet-18, ResNet-50 and VGG-16 but the stems
+    (Cin 3, bound by their bytes), which keep the FFMA form, as any other
+    shape does. A choice between two hand kernels by shape: both raise on
+    a failed build or launch."""
+    return cin % WGMMA_CHANNELS == 0 and cout % WGMMA_CHANNELS == 0 and k in WGMMA_K
+
+
+@functools.lru_cache(maxsize=None)
+def conv_rect(oh: int, ow: int) -> Tuple[int, int, int]:
+    """The rectangle of output pixels one tensor-core block covers, (bn
+    images, bh rows, bw columns) with bn·bh·bw = 64, from (OH, OW) alone:
+    the one that covers an image with the fewest pixels past its edge, then
+    the widest, then the tallest (1×2×32 at 32², 1×4×16 at 16², 1×8×8 at
+    8², 4×4×4 at 4², 16×2×2 at 2²). The rectangles tile (N, OH, OW) in
+    (image group, row group, column group) order (csrc/wgmma_conv.cuh
+    ``Rect``). Cached per shape: the search is host time on every launch."""
+    best = None
+    for bw in (1 << i for i in range(7)):
+        for bh in (1 << i for i in range(7)):
+            if bw * bh > WGMMA_ROWS:
+                continue
+            area = -(-oh // bh) * bh * -(-ow // bw) * bw
+            key = (area, -bw, -bh)
+            if best is None or key < best[0]:
+                best = (key, (WGMMA_ROWS // (bw * bh), bh, bw))
+    return best[1]
+
+
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
@@ -322,9 +371,13 @@ _library = Library("tap_conv.cu", {
         [ctypes.c_void_p] * 3 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
         ctypes.c_int,
     ),
+    "tap_conv_forward_wgmma": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
     "tap_conv_dgrad": (_DGRAD_ARGS, ctypes.c_int),
     "tap_conv_dgrad_bf16": (_DGRAD_ARGS, ctypes.c_int),
-}, headers=("ffma_tile.cuh",))
+}, headers=("ffma_tile.cuh", "wgmma_tile.cuh", "wgmma_conv.cuh"))
 
 
 def build() -> Library:
@@ -345,7 +398,15 @@ def _check_operand(name: str, t: torch.Tensor, device: torch.device,
         raise ValueError(f"{name} has {t.numel()} elements; the kernel indexes in int32")
 
 
-def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tensor:
+def tma_ready(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or for a view off the 16-byte boundary (TMA reads from
+    16-byte aligned bases only) a copy of it into a fresh, aligned buffer:
+    the tensor-core forms take any contiguous operand."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(x, w, scale, shift, residual, stride: int, relu: bool,
+            ffma: bool = False) -> torch.Tensor:
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     k = int(w.shape[0])
@@ -374,9 +435,17 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
     out = torch.empty(oshape, device=dev, dtype=dtype)
     _, pt, _ = same_pads(h, k, stride)
     _, pl, _ = same_pads(wd, k, stride)
-    tile = forward_tile(n, oshape[1], oshape[2], cin, cout, k)
+    wgmma = dtype == torch.bfloat16 and not ffma and wgmma_form(cin, cout, k)
+    tile = None if wgmma else forward_tile(n, oshape[1], oshape[2], cin, cout, k)
     with torch.cuda.device(dev):
-        if dtype == torch.bfloat16:
+        if wgmma:
+            x, w = tma_ready(x), tma_ready(w)
+            err = lib.tap_conv_forward_wgmma(
+                _ptr(x), _ptr(w), _ptr(out), n, h, wd, cin, oshape[1], oshape[2],
+                cout, k, stride, pt, pl, *conv_rect(oshape[1], oshape[2]),
+                launch_stream(dev),
+            )
+        elif dtype == torch.bfloat16:
             err = lib.tap_conv_forward_bf16(
                 _ptr(x), _ptr(w), _ptr(out), n, h, wd, cin, oshape[1], oshape[2],
                 cout, k, stride, pt, pl, tile, launch_stream(dev),
@@ -388,7 +457,8 @@ def _launch(x, w, scale, shift, residual, stride: int, relu: bool) -> torch.Tens
                 pt, pl, int(relu), tile, launch_stream(dev),
             )
     raise_on_error("tap_conv", err)
-    (bf16_launches if dtype == torch.bfloat16 else launches).add()
+    (wgmma_launches if wgmma else bf16_launches if dtype == torch.bfloat16
+     else launches).add()
     return out
 
 
@@ -485,6 +555,18 @@ def conv2d_forward_plain(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> t
     if x.dtype == torch.bfloat16:
         return bf16_twin(conv2d_plain, x, w, stride=stride)
     return conv2d_plain(x, w, stride)
+
+
+def conv2d_bf16_ffma(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
+    """The bf16 forward's FFMA form at any shape, the tensor-core form's
+    yardstick (chip_smoke.py times the two side by side). The training
+    path reaches the FFMA form only through ``conv2d``, at the shapes
+    ``wgmma_form`` refuses. Forward only; bf16 CUDA tensors only."""
+    _check_geometry(w, stride)
+    if same_dtype("x", x, "w", w) != torch.bfloat16 or not _on_cuda(x):
+        raise TypeError("conv2d_bf16_ffma launches the bf16 FFMA kernel: bf16 CUDA "
+                        "tensors only")
+    return _launch(x, w, None, None, None, stride, False, ffma=True)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:

@@ -17,12 +17,17 @@ The bf16 form (bf16 ``x`` and ``g``, JAX's bf16 activations) writes f32
 partials and sums them in the same shape-only chunk order in f32, then
 rounds each sum to bf16 once: ``gw`` is bf16, as JAX rounds its kernel's
 f32 output to ``w.dtype`` (pallas_conv.py:663, :1047). Its plain twin is
-the f32 plain version on the widened operands, rounded once.
+the f32 plain version on the widened operands, rounded once. It has two
+hand kernels, chosen by shape (``tap_conv.wgmma_form``): the tensor-core
+form (wgmma fed by TMA, chunks of 64-pixel rectangles by ``wgmma_plan``)
+for Cin and Cout multiples of 64 at k 1 or 3, the FFMA form elsewhere
+(the stems).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -38,17 +43,20 @@ from parallel_cnn_tpu_torch.ops._cuda_build import (
 _INT32_MAX = 2**31 - 1
 
 #: Launches of the wgrad kernel's f32 form in this process (one per call:
-#: its two passes are one launch of the C entry point), and of its bf16
-#: form.
+#: its two passes are one launch of the C entry point), of its bf16 FFMA
+#: form, and of its bf16 tensor-core form.
 launches = LaunchCounter()
 bf16_launches = LaunchCounter()
+wgmma_launches = LaunchCounter()
 
 _WGRAD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_void_p]
 _library = Library("tap_wgrad.cu", {
     "tap_wgrad_stage_pixels": ([], ctypes.c_int),
     "tap_conv_wgrad": (_WGRAD_ARGS, ctypes.c_int),
     "tap_conv_wgrad_bf16": (_WGRAD_ARGS, ctypes.c_int),
-}, headers=("ffma_tile.cuh",))
+    "tap_conv_wgrad_wgmma": (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 15 + [ctypes.c_void_p], ctypes.c_int),
+}, headers=("ffma_tile.cuh", "wgmma_tile.cuh", "wgmma_conv.cuh"))
 
 #: Pixels per stage of the kernel's ring (``tap_wgrad_stage_pixels()``):
 #: every chunk is a multiple of it.
@@ -87,6 +95,48 @@ def wgrad_plan(n: int, oh: int, ow: int, rows: int, cout: int) -> WgradPlan:
     return WgradPlan(chunk, -(-pixels // chunk))
 
 
+#: The tensor-core form's grid target: about two blocks an SM in one wave
+#: (a block of 3 taps holds a 96 KB ring, so two fit an SM).
+WGMMA_TARGET_BLOCKS = 264
+#: The fewest 64-pixel rectangles a tensor-core chunk holds, unless the
+#: reduction has fewer: a block fills its ring and writes its partial
+#: tiles once a chunk.
+WGMMA_MIN_CHUNK_RECTS = 4
+
+
+class WgmmaPlan(NamedTuple):
+    rect: tuple         # (bn, bh, bw): tap_conv.conv_rect(OH, OW)
+    chunk_rects: int    # rectangles a partial sum covers
+    chunks: int         # ceil(rectangles / chunk_rects)
+
+
+def wgmma_taps(k: int) -> int:
+    """Taps one tensor-core wgrad block owns: a row of a 3x3 conv's taps
+    (one box of g serves three of x), or a 1x1 conv's one."""
+    return 3 if k == 3 else 1
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(n: int, oh: int, ow: int, cin: int, cout: int, k: int) -> WgmmaPlan:
+    """How the tensor-core wgrad walks and splits its reduction, from the
+    shape alone: the output pixels as ``conv_rect`` rectangles in (image
+    group, row group, column group) order, cut into chunks of whole
+    rectangles, as many as bring the grid (tap groups × Cin/64 × Cout/64
+    tiles, times chunks) to about WGMMA_TARGET_BLOCKS, within MAX_CHUNKS, chunks of at least
+    WGMMA_MIN_CHUNK_RECTS and SCRATCH_CAP_BYTES of f32 partials; the last
+    chunk ragged. Pass two sums the chunks in order. Cached per shape."""
+    tc = _conv()
+    rect = tc.conv_rect(oh, ow)
+    bn, bh, bw = rect
+    rects = -(-n // bn) * -(-oh // bh) * -(-ow // bw)
+    tiles = (k * k // wgmma_taps(k)) * (cin // tc.WGMMA_CHANNELS) * (cout // tc.WGMMA_CHANNELS)
+    cap = min(SCRATCH_CAP_BYTES // (4 * k * k * cin * cout), MAX_CHUNKS,
+              rects // WGMMA_MIN_CHUNK_RECTS)
+    want = max(1, min(cap, round(WGMMA_TARGET_BLOCKS / tiles)))
+    chunk = -(-rects // want)
+    return WgmmaPlan(rect, chunk, -(-rects // chunk))
+
+
 def build() -> Library:
     """Compile (if needed) and load the kernel library; returns its record."""
     _library.get()
@@ -112,7 +162,8 @@ def conv2d_wgrad_plain(x: torch.Tensor, g: torch.Tensor, k: int,
     return gw
 
 
-def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int,
+            ffma: bool = False) -> torch.Tensor:
     tc = _conv()
     n, h, wd, cin = (int(d) for d in x.shape)
     oshape = tc.out_shape(x.shape, (k, k, cin, g.shape[3]), stride)
@@ -127,14 +178,27 @@ def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tens
         raise ValueError("x or g too large for int32 indexing")
     lib = _library.get()
     rows = k * k * cin
-    plan = wgrad_plan(n, oshape[1], oshape[2], rows, cout)
     bf16 = dtype == torch.bfloat16
     gw = torch.empty((k, k, cin, cout), device=dev, dtype=dtype)
+    _, pt, _ = tc.same_pads(h, k, stride)
+    _, pl, _ = tc.same_pads(wd, k, stride)
+    if bf16 and not ffma and tc.wgmma_form(cin, cout, k):
+        tplan = wgmma_plan(n, oshape[1], oshape[2], cin, cout, k)
+        partial = torch.empty((tplan.chunks, rows, cout), device=dev, dtype=torch.float32)
+        x, g = tc.tma_ready(x), tc.tma_ready(g)
+        with torch.cuda.device(dev):
+            err = lib.tap_conv_wgrad_wgmma(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), gw.data_ptr(),
+                n, h, wd, cin, oshape[1], oshape[2], cout, k, stride, pt, pl,
+                *tplan.rect, tplan.chunk_rects, launch_stream(dev),
+            )
+        raise_on_error("tap_conv_wgrad", err)
+        wgmma_launches.add()
+        return gw
+    plan = wgrad_plan(n, oshape[1], oshape[2], rows, cout)
     # The bf16 form always sums its f32 partials in pass two, one chunk too.
     partial = (torch.empty((plan.chunks, rows, cout), device=dev, dtype=torch.float32)
                if plan.chunks > 1 or bf16 else None)
-    _, pt, _ = tc.same_pads(h, k, stride)
-    _, pl, _ = tc.same_pads(wd, k, stride)
     entry = lib.tap_conv_wgrad_bf16 if bf16 else lib.tap_conv_wgrad
     with torch.cuda.device(dev):
         err = entry(
@@ -146,6 +210,21 @@ def _launch(x: torch.Tensor, g: torch.Tensor, k: int, stride: int) -> torch.Tens
     raise_on_error("tap_conv_wgrad", err)
     (bf16_launches if bf16 else launches).add()
     return gw
+
+
+def conv2d_wgrad_bf16_ffma(x: torch.Tensor, g: torch.Tensor, k: int,
+                           stride: int = 1) -> torch.Tensor:
+    """The bf16 wgrad's FFMA form at any shape, the tensor-core form's
+    yardstick (chip_smoke.py times the two side by side). The training
+    path reaches it only through ``conv2d_wgrad``, at the shapes
+    ``tap_conv.wgmma_form`` refuses. bf16 CUDA tensors only."""
+    tc = _conv()
+    if k not in tc.SUPPORTED_K or stride not in tc.SUPPORTED_STRIDES:
+        raise ValueError(f"kernel size {k} / stride {stride} not supported")
+    if tc.same_dtype("x", x, "g", g) != torch.bfloat16 or not tc._on_cuda(x):
+        raise TypeError("conv2d_wgrad_bf16_ffma launches the bf16 FFMA kernel: bf16 "
+                        "CUDA tensors only")
+    return _launch(x, g, k, stride, ffma=True)
 
 
 def conv2d_wgrad(x: torch.Tensor, g: torch.Tensor, k: int,

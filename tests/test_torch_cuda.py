@@ -1670,8 +1670,16 @@ def _bf16_close(got, want):
 
 
 def _bf16_counts():
-    return (tap_conv.bf16_launches.count, tap_conv.bf16_dgrad_launches.count,
-            tap_wgrad.bf16_launches.count, tail.bf16_launches.count)
+    """bf16 launches of each kernel, its forms together: forward (FFMA and
+    tensor-core), dgrad, wgrad (FFMA and tensor-core), tail."""
+    return (tap_conv.bf16_launches.count + tap_conv.wgmma_launches.count,
+            tap_conv.bf16_dgrad_launches.count,
+            tap_wgrad.bf16_launches.count + tap_wgrad.wgmma_launches.count,
+            tail.bf16_launches.count)
+
+
+def _wgmma_counts():
+    return tap_conv.wgmma_launches.count, tap_wgrad.wgmma_launches.count
 
 
 def _f32_counts():
@@ -1716,8 +1724,10 @@ def test_bf16_forward_is_batch_position_invariant_on_card(card, geometry):
 
 
 def test_bf16_conv_forms_read_views_off_the_boundary_on_card(card):
-    """Operands one value past a 16-byte boundary take the one-value
-    loads and stores, and agree with the aligned launch bit for bit."""
+    """Operands one value past a 16-byte boundary agree with the aligned
+    launch bit for bit: the FFMA forms (dgrad here) take the one-value
+    loads and stores, the tensor-core forms (forward and wgrad at this
+    shape) read an aligned copy, as TMA reads from 16-byte bases only."""
     x, wt, g = (t.to(BF16) for t in _grad_inputs(card, 4, 8, 8, 64, 64, 3, 1, 5))
 
     def off(t):
@@ -1808,11 +1818,96 @@ def test_bf16_zoo_step_launches_only_the_bf16_forms_on_card(card):
     step_fn = zoo.make_train_step(model, state.optimizer,
                                   fused=FusedStepConfig(update=False))
     imgs, labels = synthetic.make_image_dataset(16, seed=3)
-    bf0, f0 = _bf16_counts(), _f32_counts()
+    bf0, f0, wg0 = _bf16_counts(), _f32_counts(), _wgmma_counts()
     loss = step_fn(state, torch.from_numpy(imgs).to(card),
                    torch.from_numpy(labels).to(card, torch.int64))
     assert np.isfinite(float(loss))
     assert tuple(n - m for n, m in zip(_bf16_counts(), bf0)) == (20, 19, 20, 1)
+    # 19 convs on the tensor cores; the stem (Cin 3) on the FFMA forms.
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (19, 19)
     assert _f32_counts() == f0
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(t.dtype == torch.float32 for t in state.trace.values())
+
+
+# (b, h, w, cin, cout, k, s) of the tensor-core forms (tap_conv.wgmma_form):
+# a 37-image bucket; 2x2 and 7x7 images (16- and 64-image rectangles);
+# Cout 64 and 2,048; a 1x1/s2 and 3x3/s2, odd sizes at stride 2 (SAME
+# padding above and left), a 1x1 map at stride 2; 14x14 and 32x32 maps.
+WGMMA_CASES = [
+    (37, 8, 8, 64, 64, 3, 1),
+    (5, 2, 2, 128, 64, 3, 1),
+    (3, 7, 7, 64, 128, 3, 1),
+    (3, 4, 4, 512, 2048, 1, 1),
+    (2, 4, 4, 2048, 512, 1, 1),
+    (6, 16, 16, 64, 128, 1, 2),
+    (6, 16, 16, 64, 128, 3, 2),
+    (3, 7, 9, 64, 64, 3, 2),
+    (4, 1, 1, 64, 64, 3, 2),
+    (2, 14, 14, 128, 64, 3, 1),
+    (2, 32, 32, 64, 64, 3, 1),
+]
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", WGMMA_CASES)
+def test_wgmma_forms_match_their_twins_on_card(card, b, h, w, cin, cout, k, s):
+    """The bf16 forward and wgrad on the tensor cores against their twins
+    (one bf16 ulp of the output's scale), each relaunch bit-identical,
+    counted on the tensor-core counters; the FFMA forms at the same shape
+    against the same twins."""
+    assert tap_conv.wgmma_form(cin, cout, k)
+    x, wt, g = (t.to(BF16) for t in _grad_inputs(card, b, h, w, cin, cout, k, s, b + h + k))
+    fwd_twin = tap_conv.bf16_twin(tap_conv.conv2d_plain, x, wt, stride=s)
+    wgrad_twin = tap_conv.bf16_twin(tap_wgrad.conv2d_wgrad_plain, x, g, k=k, stride=s)
+    wg0, bf0 = _wgmma_counts(), (tap_conv.bf16_launches.count, tap_wgrad.bf16_launches.count)
+    for fn, twin in ((lambda: tap_conv.conv2d(x, wt, s), fwd_twin),
+                     (lambda: tap_wgrad.conv2d_wgrad(x, g, k, s), wgrad_twin)):
+        got, again = fn(), fn()
+        torch.cuda.synchronize()
+        assert torch.equal(got, again)
+        _bf16_close(got, twin)
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 2)
+    assert (tap_conv.bf16_launches.count, tap_wgrad.bf16_launches.count) == bf0
+    _bf16_close(tap_conv.conv2d_bf16_ffma(x, wt, s), fwd_twin)
+    _bf16_close(tap_wgrad.conv2d_wgrad_bf16_ffma(x, g, k, s), wgrad_twin)
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 2)
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES + R50_GEOMETRIES,
+                         ids=[g[0] for g in GEOMETRIES] + ["r50 " + g[0] for g in R50_GEOMETRIES])
+def test_wgmma_forward_rows_of_a_bucket_equal_the_batch_on_card(card, geometry):
+    """The tensor-core forward's rows do not depend on the batch around
+    them (a 37-image bucket against 128 images, single images at the edges
+    of a rectangle), and the form is taken at every conv but the stems."""
+    _, h, cin, cout, k, s, _, _, _ = geometry
+    assert tap_conv.wgmma_form(cin, cout, k) == (cin != 3)
+    x, wt = (t.to(BF16) for t in _inputs(card, 128, h, h, cin, cout, k, s, False, h + cin)[:2])
+    full = tap_conv.conv2d(x, wt, s)
+    assert torch.equal(tap_conv.conv2d(x[:37], wt, s), full[:37])
+    for row in (0, 3, 63, 127):
+        assert torch.equal(tap_conv.conv2d(x[row:row + 1], wt, s), full[row:row + 1]), row
+
+
+def test_wgmma_entries_refuse_what_they_do_not_take_on_card(card):
+    """The tensor-core C entries refuse a channel count off the 64-channel
+    box, a rectangle of other than 64 pixels and an unaligned base
+    (cudaErrorInvalidValue, 1), before any launch."""
+    lib_f, lib_w = tap_conv.build().get(), tap_wgrad.build().get()
+    x, wt, g = (t.to(BF16) for t in _grad_inputs(card, 2, 8, 8, 64, 64, 3, 1, 0))
+    part = torch.empty((1, 9 * 64, 64), device=card)
+    gw = torch.empty_like(wt)
+    out = torch.empty_like(g)
+    stream = launch_stream(card)
+    args = (2, 8, 8, 64, 8, 8, 64, 3, 1, 1, 1)
+    assert lib_f.tap_conv_forward_wgmma(x.data_ptr(), wt.data_ptr(), out.data_ptr(), *args,
+                                        1, 8, 8, stream) == 0
+    for bad_args, rect in (((2, 8, 8, 32) + args[4:], (1, 8, 8)), (args, (1, 8, 4))):
+        assert lib_f.tap_conv_forward_wgmma(x.data_ptr(), wt.data_ptr(), out.data_ptr(),
+                                            *bad_args, *rect, stream) == 1
+        assert lib_w.tap_conv_wgrad_wgmma(x.data_ptr(), g.data_ptr(), part.data_ptr(),
+                                          gw.data_ptr(), *bad_args, *rect, 2, stream) == 1
+    assert lib_f.tap_conv_forward_wgmma(x.data_ptr() + 2, wt.data_ptr(), out.data_ptr(),
+                                        *args, 1, 8, 8, stream) == 1
+    assert lib_w.tap_conv_wgrad_wgmma(x.data_ptr(), g.data_ptr() + 2, part.data_ptr(),
+                                      gw.data_ptr(), *args, 1, 8, 8, 2, stream) == 1
+    torch.cuda.synchronize()
