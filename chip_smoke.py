@@ -60,8 +60,8 @@ port's two paths through their user-facing entry points:
   NumPy twin, bit for bit, with the library built from native/*.cc.
 - bf16 activations (bf16 (a)-(e)), JAX's default --fused-step: the bf16
   forms of B10 (forward, dgrad), B11 and B12 against their twins at every
-  ResNet-18 and ResNet-50 conv and head, the forward and wgrad on the
-  tensor cores where tap_conv.wgmma_form takes the conv and their FFMA
+  ResNet-18 and ResNet-50 conv and head, the forward, dgrad and wgrad on
+  the tensor cores where tap_conv.wgmma_form takes the conv and their FFMA
   forms held and timed beside them, and the host time of a launch of each
   form; ResNet-18 through the CLI with exact bf16 launch counts by form and
   bf16 steps against f32 steps; the update-on-arrival CLI with the dynamic
@@ -1709,7 +1709,8 @@ def reset_zoo_counts():
     for counter in (tap_conv.launches, tap_conv.dgrad_launches,
                     tap_wgrad.launches, tail.launches, tap_conv.bf16_launches,
                     tap_conv.bf16_dgrad_launches, tap_wgrad.bf16_launches,
-                    tail.bf16_launches, tap_conv.wgmma_launches, tap_wgrad.wgmma_launches):
+                    tail.bf16_launches, tap_conv.wgmma_launches,
+                    tap_conv.wgmma_dgrad_launches, tap_wgrad.wgmma_launches):
         counter.reset()
 
 
@@ -1865,7 +1866,8 @@ def profiled_zoo_epoch(label: str, backend: str, mesh=None, build=None,
           f"step, {wall_ms / steps:.2f} ms per step", flush=True)
     split = dict.fromkeys(("dgrad", "wgrad", "forward", "other"), 0.0)
     for e in kernels:
-        part = ("dgrad" if "tap_dgrad_kernel" in e.key else
+        part = ("dgrad" if any(k in e.key for k in ("tap_dgrad_kernel",
+                                                    "tap_dgrad_wgmma_kernel")) else
                 "wgrad" if any(k in e.key for k in ("wgrad_partial_kernel", "wgrad_sum_kernel",
                                                     "wgrad_wgmma_kernel"))
                 else "forward" if any(k in e.key for k in ("tap_conv_kernel",
@@ -3227,19 +3229,22 @@ BF16_DP_FUSED = FusedStepConfig(update=True, act_dtype="bfloat16")
 # CLI has no flag for it), after this many clean steps.
 BF16_GROWTH_INTERVAL = 2
 # The per-step launches of ResNet-18's bf16 step, by form: every conv
-# forward and wgrad, on the tensor cores where tap_conv.wgmma_form takes the
-# conv (19) and on the FFMA forms elsewhere (the stem); every dgrad but the
-# stem's (FFMA); one tail.
+# forward, dgrad and wgrad, on the tensor cores where tap_conv.wgmma_form
+# takes the conv (19) and on the FFMA forms elsewhere (the stem, which has
+# no dgrad: its input batch needs no gradient); one tail.
 WGMMA_CONVS = sum(g[-1] for g in GEOMETRIES if tap_conv.wgmma_form(g[2], g[3], g[4]))
 BF16_PER_STEP = {"tap_conv.wgmma": WGMMA_CONVS, "tap_conv.ffma": CONVS_PER_FORWARD - WGMMA_CONVS,
-                 "tap_conv_dgrad": CONVS_PER_FORWARD - 1, "tap_wgrad.wgmma": WGMMA_CONVS,
+                 "tap_conv_dgrad.wgmma": WGMMA_CONVS,
+                 "tap_conv_dgrad.ffma": CONVS_PER_FORWARD - 1 - WGMMA_CONVS,
+                 "tap_wgrad.wgmma": WGMMA_CONVS,
                  "tap_wgrad.ffma": CONVS_PER_FORWARD - WGMMA_CONVS, "tail_ce": 1}
 
 
 def bf16_counts():
     return {"tap_conv.wgmma": tap_conv.wgmma_launches.count,
             "tap_conv.ffma": tap_conv.bf16_launches.count,
-            "tap_conv_dgrad": tap_conv.bf16_dgrad_launches.count,
+            "tap_conv_dgrad.wgmma": tap_conv.wgmma_dgrad_launches.count,
+            "tap_conv_dgrad.ffma": tap_conv.bf16_dgrad_launches.count,
             "tap_wgrad.wgmma": tap_wgrad.wgmma_launches.count,
             "tap_wgrad.ffma": tap_wgrad.bf16_launches.count, "tail_ce": tail.bf16_launches.count}
 
@@ -3302,15 +3307,15 @@ def host_us(fn, calls: int = 100) -> float:
 
 
 def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
-    """bf16 (a) at each geometry at ``batch``: B10's forward (and the rows
-    of a 37-image bucket of the same images, bit for bit) and dgrad and B11
+    """bf16 (a) at each geometry at ``batch``: B10's forward and dgrad (and
+    the rows of a 37-image bucket of the same images, bit for bit) and B11
     in bf16 against their twins (BF16_RTOL, relaunch bit for bit), each
     timed beside the bound, cuDNN's bf16 call and, with ``time_plain``,
     the twin. Where ``tap_conv.wgmma_form`` takes the conv, the path's
-    forward and wgrad run on the tensor cores, and their FFMA forms (called
-    through their own functions, for this comparison only) are held against
-    the same twins and timed beside them. A stem's dgrad is not on the path
-    and is skipped. Returns each kernel's largest difference and its times
+    forward, dgrad and wgrad run on the tensor cores, and their FFMA forms
+    (called through their own functions, for this comparison only) are
+    held against the same twins and timed beside them. A stem's dgrad is
+    not on the path and is skipped. Returns each kernel's largest difference and its times
     summed over one forward's or one microbatch's convs: the path's forms
     ("ms"), and the FFMA forms at every conv ("ffma_ms")."""
     errs = dict.fromkeys(("tap_conv", "tap_conv_dgrad", "tap_wgrad"), 0.0)
@@ -3335,6 +3340,8 @@ def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
                 lib = library_conv_bf16(x, w, s)
             elif kind == "dgrad":
                 fn = lambda: tap_conv.conv2d_dgrad(g, w, x.shape, s)  # noqa: E731
+                ffma_fn = lambda: tap_conv.conv2d_dgrad_bf16_ffma(  # noqa: E731
+                    g, w, x.shape, s)
                 plain_fn = lambda: tap_conv.bf16_twin(  # noqa: E731
                     tap_conv.conv2d_dgrad_plain, g, w, x_shape=x.shape, stride=s)
                 lib = library_grad(x, w, g, s, True)
@@ -3353,9 +3360,13 @@ def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
                                               BF16_RTOL))
             if kind == "forward" and batch > 37:
                 rows = tap_conv.conv2d(x[:37], w, s)
-                if not torch.equal(rows, got[:37]):
-                    fail(f"{tag}: a 37-image bucket's rows differ from the same images' "
-                         f"rows at b{batch}")
+            elif kind == "dgrad" and batch > 37:
+                rows = tap_conv.conv2d_dgrad(g[:37], w, (37,) + tuple(x.shape[1:]), s)
+            else:
+                rows = None
+            if rows is not None and not torch.equal(rows, got[:37]):
+                fail(f"{tag} {key}: a 37-image bucket's rows differ from the same "
+                     f"images' rows at b{batch}")
             ms = cuda_ms(fn, reps=10)
             plain = float("nan")
             if time_plain:
@@ -3397,11 +3408,11 @@ def bf16_geometry_checks(label, geometries, batch, gen, time_plain) -> tuple:
 
 def bf16_host_times(card) -> None:
     """The "time ... host" lines: the host microseconds of one bf16 launch
-    of each form of the forward and the wgrad (the wrappers' launches,
-    checks, planning and the tensor-core forms' map encodes included), in
-    turns (tensor-core, FFMA, FFMA, tensor-core), at ResNet-18's 3x3/s1 128
-    conv at b128; then what the encodes cost: the two forms' C entries
-    called alone through ctypes, in turns."""
+    of each form of the forward, the dgrad and the wgrad (the wrappers'
+    launches, checks, planning and the tensor-core forms' map encodes
+    included), in turns (tensor-core, FFMA, FFMA, tensor-core), at
+    ResNet-18's 3x3/s1 128 conv at b128; then what the encodes cost: the
+    forward's two forms' C entries called alone through ctypes, in turns."""
     gen = torch.Generator(device="cuda").manual_seed(23)
     x, w, g = (t.to(torch.bfloat16)
                for t in grad_inputs(16, 128, 128, 3, 1, gen, ZOO_BATCH + 64))
@@ -3409,6 +3420,8 @@ def bf16_host_times(card) -> None:
     pairs = {"forward": (lambda: tap_conv._launch(xb, w, None, None, None, 1, False),
                          lambda: tap_conv._launch(xb, w, None, None, None, 1, False,
                                                   ffma=True)),
+             "dgrad": (lambda: tap_conv._launch_dgrad(gb, w, xb.shape, 1),
+                       lambda: tap_conv._launch_dgrad(gb, w, xb.shape, 1, ffma=True)),
              "wgrad": (lambda: tap_wgrad._launch(xb, gb, 3, 1),
                        lambda: tap_wgrad._launch(xb, gb, 3, 1, ffma=True))}
     parts = []

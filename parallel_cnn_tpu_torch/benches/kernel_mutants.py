@@ -4,6 +4,7 @@
 ``csrc/mosaic_probe.cu``), the list form of the SGD-momentum update (B13,
 ``csrc/sgd_update.cu``), the FC backward (B6, ``csrc/lenet_staged.cu``),
 the conv forward (B10, ``tap_conv_kernel`` in ``csrc/tap_conv.cu``), the
+bf16 dgrad on the tensor cores (``tap_dgrad_wgmma_kernel``, same file), the
 LeNet step kernel (B1, ``csrc/lenet_fused.cu``), B9's contraction
 (``accum_matmul_kernel`` in ``csrc/lenet_staged.cu``), the staged
 conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
@@ -51,11 +52,12 @@ COPIED = ("parallel_cnn_tpu_torch", "chip_smoke.py", "tests/test_torch_cuda.py",
           "pyproject.toml")
 #: The card tests each copy runs (pytest -k): the probes', B13's, B6's, the
 #: forward's (against its plain twin at every tile, across batch positions
-#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's, B7's, B8's, B2's
-#: and B12's.
+#: at every ResNet-18 conv), B1's, B9's, B3's, B5's, B4's, B7's, B8's, B2's,
+#: B12's and the tensor-core dgrad's.
 SELECT = ("probe or momentum or fc_bwd or forward_every_tile or batch_position "
           "or test_kernel_matches_plain or lenet_fused or accum or conv_fwd or fc_fwd "
-          "or pool_fwd or pool_bwd or sigma_prime or sgd_update or tree_sgd or tail")
+          "or pool_fwd or pool_bwd or sigma_prime or sgd_update or tree_sgd or tail "
+          "or wgmma_dgrad")
 #: Copies built and tested at once (each its own pytest process).
 JOBS = 3
 
@@ -108,6 +110,11 @@ MUTANTS = {
         "const int K = geo.k * geo.k * geo.cin;\n  const int stages = (K + BK - 1) / BK - 1;"),
     "forward residual dropped": (
         f"{CSRC}/tap_conv.cu", "if (residual != nullptr) z[q] += res[q];", ""),
+    "dgrad phase's column parity dropped from the store": (
+        f"{CSRC}/tap_conv.cu", "i * p.stride + plan.px[ph];", "i * p.stride;"),
+    "dgrad's K-major w box read as MN-major": (
+        f"{CSRC}/tap_conv.cu", ": wgtile::k_major_desc(a + BOX_BYTES, kk);",
+        ": wgtile::mn_major_desc(a + BOX_BYTES, kk, BOX_BYTES);"),
     "B1 last warp's FC partial left out": (
         f"{CSRC}/lenet_fused.cu", "for (int w = 1; w < IMG_WARPS; ++w) z += fc_part[w][lane];",
         "for (int w = 1; w < IMG_WARPS - 1; ++w) z += fc_part[w][lane];"),

@@ -111,7 +111,8 @@
 // The bf16 forms (JAX's bf16 activations: the TPU kernel takes bf16
 // operands, accumulates in f32 through preferred_element_type and stores
 // in x's dtype, pallas_conv.py:285-306). Two kernels serve the bf16
-// forward, chosen by shape in Python (ops/tap_conv.py `wgmma_form`).
+// forward and two the bf16 dgrad, chosen by shape in Python
+// (ops/tap_conv.py `wgmma_form`).
 //
 // The bf16 forward on the tensor cores (`tap_conv_wgmma_kernel`, on
 // csrc/wgmma_tile.cuh and csrc/wgmma_conv.cuh) replaces `_tap_kernel`
@@ -146,19 +147,46 @@
 // columns) makes 32 x 8 = 256 blocks of 64 x 64, about two an SM with a
 // third slot free, so no depth split is needed there.
 //
-// The FFMA forms: the bf16 forward at every other shape (the stems, Cin 3,
-// which are bound by their bytes) and the bf16 dgrad at every shape. Both
-// FFMA kernels take the element type as a template argument. A bf16 form
-// loads its operands as bf16 (8 bytes, 4 values, where the f32 form's
-// cp.async moves 16), widens them into the f32 slabs of the same ring
-// (csrc/ffma_tile.cuh: fetch before the stage's products, deposit after),
-// multiplies and adds in f32 in the f32 form's order, and rounds each
-// output once at the store (__float2bfloat16_rn). The tile and the depth
-// split are the f32 form's, chosen from the shape only, so a padded
-// bucket's real rows stay bit-identical. Bound: the same operations as
-// the tensor-core form's, against which they reach at most the f32 CUDA
-// cores' 67 TFLOP/s. The dgrad's tensor-core form is the next redesign
-// (ROADMAP Queue B).
+// The bf16 dgrad on the tensor cores (`tap_dgrad_wgmma_kernel`) replaces
+// the dgrad's use of `_tap_kernel` (`_dgrad_s1` / `_dgrad_s2_even`,
+// pallas_conv.py:869/:913) on bf16 operands at the same shapes as the
+// forward's tensor-core form: every dgrad of ResNet-18, ResNet-50 and
+// VGG-16 (the stems have none). Bound: the forward's multiply-adds at the
+// bf16 peak, or its bytes (g, w, dx), the longer: 0.159 ms for ResNet-18's
+// 19 dgrads at b128. Design: the FFMA dgrad's parity phases on the
+// forward's ring (`wg_ring`). dx[p, ci] = sum over the phase's taps and co
+// of g[p + a(tap), co] * w[tap, ci, co], so each phase is an implicit GEMM
+// with rows its pixels, columns Cin and depth (tap, co): A is g's 4-D TMA
+// box of 64 channels x the rectangle at the tap's shift (ay, ax) -- the
+// forward's x box, K-major, with signed coordinates and zero fill where
+// the shift leaves g -- and B is a 64 x 64 box of the forward's 2-D map of
+// w, read at row slot * Cin + ci0 and column co0: 64 rows of ci, each a run
+// of 64 contiguous co, a K-major B (wgmma's tnspB = 0). A block is one
+// warpgroup owning a rectangle of 64 pixels of one phase (bn images x bh
+// phase rows x bw phase columns, `conv_rect` of the largest phase, one map
+// for all phases) x 64 input channels; all phases' blocks form one grid,
+// the phases with most taps first, and each thread stores its fragment's
+// column pairs straight to dx at (j * s + py, i * s + px): no interleave
+// pass, no staging. A phase with no tap (a 1x1/s2 conv's odd rows and
+// columns) runs no step and stores zeros. The host builds the phase table
+// (ops/tap_conv.py `wgmma_dgrad_plan`, cached per shape) into the FFMA
+// form's DgradPlan, passed with the two maps as a __grid_constant__
+// struct. Sum order: every dx value sums its phase's taps in ascending
+// slot, then co blocks, then k16 steps, from 0, fixed by the shape; one
+// rounding at the store; no block shares a sum, so relaunches are bit for
+// bit and an image's rows do not depend on the batch.
+//
+// The FFMA forms: the bf16 forward and dgrad at every other shape (the
+// stems, Cin 3, which are bound by their bytes). Both FFMA kernels take the
+// element type as a template argument. A bf16 form loads its operands as
+// bf16 (8 bytes, 4 values, where the f32 form's cp.async moves 16), widens
+// them into the f32 slabs of the same ring (csrc/ffma_tile.cuh: fetch
+// before the stage's products, deposit after), multiplies and adds in f32
+// in the f32 form's order, and rounds each output once at the store
+// (__float2bfloat16_rn). The tile and the depth split are the f32 form's,
+// chosen from the shape only, so a padded bucket's real rows stay
+// bit-identical. Bound: the same operations as the tensor-core form's,
+// against which they reach at most the f32 CUDA cores' 67 TFLOP/s.
 //
 // The kernels launch on the caller's stream, synchronise nothing and
 // allocate nothing: the Python wrapper allocates the output and checks
@@ -742,12 +770,64 @@ int dgrad_entry(const E* g, const E* w, E* dx, int n, int h, int w_in, int cin, 
 
 
 // ---------------------------------------------------------------------------
-// The bf16 forward on the tensor cores (see the header: "The bf16 forward
-// on the tensor cores").
+// The bf16 forward and dgrad on the tensor cores (see the header: "The bf16
+// forward on the tensor cores", "The bf16 dgrad on the tensor cores").
 // ---------------------------------------------------------------------------
 
-constexpr int WG_STAGES = 4;  // the ring: 4 x (x box + w box) = 64 KB
+constexpr int WG_STAGES = 4;  // the ring: 4 x (A box + B box) = 64 KB
 constexpr int WG_SMEM_BYTES = wgtile::ATOM_BYTES + WG_STAGES * 2 * wgconv::BOX_BYTES;
+
+// The ring both tensor-core kernels of this file run. Depth step j of
+// `steps` lands in slot j % WG_STAGES as an A box (64 pixels x 64 depth
+// values, K-major) and a B box (64 depth values x 64 columns: MN-major with
+// TRANS_B = 1, the forward's w; K-major with TRANS_B = 0, the dgrad's),
+// which thread 0 requests with `issue(j, slot address, slot mbarrier)`
+// after telling the barrier to expect both boxes. The warpgroup adds each
+// step's 4 m64n64k16 products into `acc` from 0, steps in order, and thread
+// 0 refills a slot once wait_group<1> and a barrier show its products
+// done. With no step, acc stays 0.
+template <int TRANS_B, class Issue>
+__device__ __forceinline__ void wg_ring(int steps, const Issue& issue, float (&acc)[32]) {
+  using namespace wgconv;
+  extern __shared__ uint8_t wg_smem[];  // aligned to 1,024 bytes below
+  __shared__ __align__(8) uint64_t full[WG_STAGES];
+  const uint32_t ring = wgtile::align_atom(wg_smem);
+  const int t = threadIdx.x;
+  if (t == 0) {
+    for (int i = 0; i < WG_STAGES; ++i) wgtile::mbar_init(wgtile::smem_addr(&full[i]), 1);
+  }
+  __syncthreads();
+  auto request = [&](int j) {
+    const int slot = j % WG_STAGES;
+    const uint32_t bar = wgtile::smem_addr(&full[slot]);
+    wgtile::mbar_arrive_expect_tx(bar, 2 * BOX_BYTES);
+    issue(j, ring + slot * 2 * BOX_BYTES, bar);
+  };
+  if (t == 0) {
+    for (int j = 0; j < WG_STAGES && j < steps; ++j) request(j);
+  }
+
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % WG_STAGES;
+    wgtile::mbar_wait(wgtile::smem_addr(&full[slot]), (s / WG_STAGES) & 1);
+    const uint32_t a = ring + slot * 2 * BOX_BYTES;
+    wgtile::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < K16_STEPS; ++kk) {
+      const uint64_t b = TRANS_B ? wgtile::mn_major_desc(a + BOX_BYTES, kk, BOX_BYTES)
+                                 : wgtile::k_major_desc(a + BOX_BYTES, kk);
+      wgtile::wgmma_m64n64k16_bf16<0, TRANS_B>(acc, wgtile::k_major_desc(a, kk), b, 1);
+    }
+    wgtile::wgmma_commit();
+    wgtile::wgmma_wait<1>();  // step s - 1's products are done in this warp ...
+    __syncthreads();          // ... and in every warp: its slot is free
+    if (t == 0 && s >= 1 && s - 1 + WG_STAGES < steps) request(s - 1 + WG_STAGES);
+  }
+  wgtile::wgmma_wait_all();
+  wgtile::fence_regs(acc);
+}
 
 struct WgmmaForward {
   CUtensorMap xmap;   // x (C, W, H, N), boxes of 64 channels x the rectangle
@@ -780,58 +860,24 @@ __global__ void __launch_bounds__(wgtile::THREADS)
 tap_conv_wgmma_kernel(const __grid_constant__ WgmmaForward p,
                       __nv_bfloat16* __restrict__ out) {
   using namespace wgconv;
-  extern __shared__ uint8_t wg_smem[];  // aligned to 1,024 bytes below
-  __shared__ __align__(8) uint64_t full[WG_STAGES];
-  const uint32_t ring = wgtile::align_atom(wg_smem);
   const int t = threadIdx.x;
   int n0, oy0, ox0;
   p.rect.origin(blockIdx.x, n0, oy0, ox0);
   const int co0 = blockIdx.y * CH;
   const int cblocks = p.cin / CH;
-  const int steps = p.k * p.k * cblocks;
 
-  if (t == 0) {
-    for (int i = 0; i < WG_STAGES; ++i) wgtile::mbar_init(wgtile::smem_addr(&full[i]), 1);
-  }
-  __syncthreads();
-  // Thread 0: depth step j = (tap, channel block) into slot j % WG_STAGES.
-  auto issue = [&](int j) {
-    const int slot = j % WG_STAGES;
+  // Depth step j = (tap, channel block): x's box at the tap, w's 64 rows.
+  auto issue = [&](int j, uint32_t a, uint32_t bar) {
     const int tap = j / cblocks;
     const int c0 = (j - tap * cblocks) * CH;
     const int dy = tap / p.k;
     const int dx = tap - dy * p.k;
-    const uint32_t a = ring + slot * 2 * BOX_BYTES;
-    const uint32_t bar = wgtile::smem_addr(&full[slot]);
-    wgtile::mbar_arrive_expect_tx(bar, 2 * BOX_BYTES);
     wgtile::tma_load_4d(a, &p.xmap, bar, c0, ox0 * p.stride + dx - p.pad_left,
                         oy0 * p.stride + dy - p.pad_top, n0);
     wgtile::tma_load_2d(a + BOX_BYTES, &p.wmap, bar, co0, tap * p.cin + c0);
   };
-  if (t == 0) {
-    for (int j = 0; j < WG_STAGES && j < steps; ++j) issue(j);
-  }
-
   float acc[32];
-#pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = 0.0f;
-  for (int s = 0; s < steps; ++s) {
-    const int slot = s % WG_STAGES;
-    wgtile::mbar_wait(wgtile::smem_addr(&full[slot]), (s / WG_STAGES) & 1);
-    const uint32_t a = ring + slot * 2 * BOX_BYTES;
-    wgtile::wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < K16_STEPS; ++kk) {
-      wgtile::wgmma_m64n64k16_bf16(acc, wgtile::k_major_desc(a, kk),
-                                   wgtile::mn_major_desc(a + BOX_BYTES, kk, BOX_BYTES), 1);
-    }
-    wgtile::wgmma_commit();
-    wgtile::wgmma_wait<1>();  // step s - 1's products are done in this warp ...
-    __syncthreads();          // ... and in every warp: its slot is free
-    if (t == 0 && s >= 1 && s - 1 + WG_STAGES < steps) issue(s - 1 + WG_STAGES);
-  }
-  wgtile::wgmma_wait_all();
-  wgtile::fence_regs(acc);
+  wg_ring<1>(p.k * p.k * cblocks, issue, acc);
 
   // Each thread rounds its fragment once and stores column pairs.
   const FragRows rows(p.rect, n0, oy0, ox0, p.n, p.oh, p.ow, t);
@@ -841,6 +887,65 @@ tap_conv_wgmma_kernel(const __grid_constant__ WgmmaForward p,
     if (!rows.in[h]) continue;
     const int co = co0 + wgtile::frag_col(i, t);
     *reinterpret_cast<__nv_bfloat162*>(out + rows.at[h] * p.cout + co) =
+        __floats2bfloat162_rn(acc[i], acc[i + 1]);
+  }
+}
+
+struct WgmmaDgrad {
+  CUtensorMap gmap;   // g (Cout, OW, OH, N), boxes of 64 channels x the rectangle
+  CUtensorMap wmap;   // w as (k*k*Cin, Cout), boxes of 64 rows x 64 columns
+  DgradPlan plan;     // n_tiles = Cin / 64; a phase's blocks: its rectangles x n_tiles
+  int n, h, w, cin, cout, stride, bn, bh, bw;
+};
+
+__global__ void __launch_bounds__(wgtile::THREADS)
+tap_dgrad_wgmma_kernel(const __grid_constant__ WgmmaDgrad p,
+                       __nv_bfloat16* __restrict__ dx) {
+  using namespace wgconv;
+  const DgradPlan& plan = p.plan;
+  const int t = threadIdx.x;
+  int ph = 0;
+  while (ph + 1 < plan.phases && static_cast<int>(blockIdx.x) >= plan.block_begin[ph + 1]) ++ph;
+  const int local = blockIdx.x - plan.block_begin[ph];
+  const int ci0 = (local % plan.n_tiles) * CH;
+  const int hp = plan.hp[ph], wp = plan.wp[ph];
+  const Rect rect{p.bn, p.bh, p.bw, (hp + p.bh - 1) / p.bh, (wp + p.bw - 1) / p.bw};
+  int n0, j0, i0;  // the rectangle's origin in the phase's (N, hp, wp)
+  rect.origin(local / plan.n_tiles, n0, j0, i0);
+  const int tb = plan.tap_begin[ph];
+  const int cblocks = p.cout / CH;
+
+  // Depth step j = (the phase's tap, g's channel block): g's box at the
+  // tap's shift (ay, ax), and 64 rows of w (the tap's slot, ci0 ..) read at
+  // the same 64 output channels.
+  auto issue = [&](int j, uint32_t a, uint32_t bar) {
+    const int tap = tb + j / cblocks;
+    const int c0 = (j - (tap - tb) * cblocks) * CH;
+    wgtile::tma_load_4d(a, &p.gmap, bar, c0, i0 + plan.ax[tap], j0 + plan.ay[tap], n0);
+    wgtile::tma_load_2d(a + BOX_BYTES, &p.wmap, bar, c0, plan.slot[tap] * p.cin + ci0);
+  };
+  float acc[32];
+  wg_ring<0>((plan.tap_begin[ph + 1] - tb) * cblocks, issue, acc);
+
+  // Each thread rounds its fragment once and stores column pairs at its
+  // rows' pixels (j * s + py, i * s + px) of dx; a tapless phase stores 0.
+  long long at[2];
+  bool in[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    int di, dj, dii;
+    rect.pixel(wgtile::frag_row(2 * h, t), di, dj, dii);
+    const int img = n0 + di, j = j0 + dj, i = i0 + dii;
+    in[h] = img < p.n && j < hp && i < wp;
+    at[h] = (static_cast<long long>(img) * p.h + j * p.stride + plan.py[ph]) * p.w +
+            i * p.stride + plan.px[ph];
+  }
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int h = (i / 2) % 2;
+    if (!in[h]) continue;
+    const int ci = ci0 + wgtile::frag_col(i, t);
+    *reinterpret_cast<__nv_bfloat162*>(dx + at[h] * p.cin + ci) =
         __floats2bfloat162_rn(acc[i], acc[i + 1]);
   }
 }
@@ -880,6 +985,47 @@ int forward_wgmma_entry(const __nv_bfloat16* x, const __nv_bfloat16* w, __nv_bfl
   const dim3 grid(static_cast<unsigned>(rects), static_cast<unsigned>(cout / wgconv::CH));
   tap_conv_wgmma_kernel<<<grid, wgtile::THREADS, WG_SMEM_BYTES,
                           static_cast<cudaStream_t>(stream)>>>(p, out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dgrad_wgmma_entry(const __nv_bfloat16* g, const __nv_bfloat16* w, __nv_bfloat16* dx, int n,
+                      int h, int w_in, int cin, int oh, int ow, int cout, int k, int stride,
+                      const int* table, int table_len, int bn, int bh, int bw, void* stream) {
+  if (n <= 0 || h <= 0 || w_in <= 0 || oh <= 0 || ow <= 0 || k <= 0 || stride <= 0 ||
+      cin <= 0 || cin % wgconv::CH != 0 || cout <= 0 || cout % wgconv::CH != 0 ||
+      !wgconv::rect_ok(bn, bh, bw) || !aligned16(g) || !aligned16(w) || !aligned16(dx) ||
+      table == nullptr || table_len != static_cast<int>(sizeof(DgradPlan) / sizeof(int))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  WgmmaDgrad p;
+  std::memcpy(&p.plan, table, sizeof(p.plan));
+  const DgradPlan& plan = p.plan;
+  if (plan.phases < 1 || plan.phases > MAX_PHASES || plan.n_tiles != cin / wgconv::CH ||
+      plan.tap_begin[plan.phases] > MAX_TAPS || plan.block_begin[plan.phases] < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  for (int i = 0; i < plan.tap_begin[plan.phases]; ++i) {
+    if (plan.slot[i] < 0 || plan.slot[i] >= k * k) return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (!wgconv::encode_activation(&p.gmap, g, n, oh, ow, cout, bn, bh, bw, 1) ||
+      !wgtile::encode_bf16_sw128(&p.wmap, w, cout, static_cast<uint64_t>(k) * k * cin,
+                                 static_cast<uint64_t>(cout) * 2, wgconv::CH)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  p.n = n;
+  p.h = h;
+  p.w = w_in;
+  p.cin = cin;
+  p.cout = cout;
+  p.stride = stride;
+  p.bn = bn;
+  p.bh = bh;
+  p.bw = bw;
+  static bool smem_ok = false;
+  cudaError_t err = ftile::allow_smem(tap_dgrad_wgmma_kernel, WG_SMEM_BYTES, smem_ok);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  tap_dgrad_wgmma_kernel<<<plan.block_begin[plan.phases], wgtile::THREADS, WG_SMEM_BYTES,
+                           static_cast<cudaStream_t>(stream)>>>(p, dx);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -944,4 +1090,18 @@ extern "C" int tap_conv_dgrad_bf16(const __nv_bfloat16* g, const __nv_bfloat16* 
                                    int table_len, int tile, void* stream) {
   return dgrad_entry(g, w, dx, n, h, w_in, cin, oh, ow, cout, stride, table, table_len, tile,
                      stream);
+}
+
+// The bf16 dgrad on the tensor cores: g, w and dx bf16, Cin and Cout
+// multiples of 64, every pointer 16-byte aligned; `table` the DgradPlan of
+// ops/tap_conv.py `wgmma_dgrad_plan` (n_tiles = Cin / 64, each phase's
+// blocks its rectangles x n_tiles) and (bn, bh, bw) the rectangle of phase
+// pixels a block covers. Returns as tap_conv_forward.
+extern "C" int tap_conv_dgrad_wgmma(const __nv_bfloat16* g, const __nv_bfloat16* w,
+                                    __nv_bfloat16* dx, int n, int h, int w_in, int cin,
+                                    int oh, int ow, int cout, int k, int stride,
+                                    const int* table, int table_len, int bn, int bh, int bw,
+                                    void* stream) {
+  return dgrad_wgmma_entry(g, w, dx, n, h, w_in, cin, oh, ow, cout, k, stride, table,
+                           table_len, bn, bh, bw, stream);
 }

@@ -1,7 +1,10 @@
-// What the bf16 conv forward (csrc/tap_conv.cu `tap_conv_wgmma_kernel`) and
-// the bf16 weight gradient (csrc/tap_wgrad.cu `wgrad_wgmma_kernel`) share on
-// the tensor cores, on top of csrc/wgmma_tile.cuh: the pixel rectangle a
-// block's 64 rows cover, and the TMA maps of the NHWC activations.
+// What the bf16 conv forward and input gradient (csrc/tap_conv.cu
+// `tap_conv_wgmma_kernel`, `tap_dgrad_wgmma_kernel`) and the bf16 weight
+// gradient (csrc/tap_wgrad.cu `wgrad_wgmma_kernel`) share on the tensor
+// cores, on top of csrc/wgmma_tile.cuh: the pixel rectangle a block's 64
+// rows cover, and the TMA maps of the NHWC activations. (The dgrad's
+// rectangles cover the pixels of one stride phase of dx, and its A is g
+// read through the same map at element stride 1.)
 //
 // The rectangle. 64 output pixels of one block (the M rows of the
 // forward's tile, the K depth of one wgrad step) are bn images x bh rows x

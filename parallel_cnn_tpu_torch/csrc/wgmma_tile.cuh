@@ -2,9 +2,9 @@
 // Hopper (sm_90a): TMA loads onto an mbarrier, shared-memory matrix
 // descriptors for the 128-byte swizzle, bf16 wgmma with f32 accumulators,
 // and the accumulator's fragment index map. csrc/mosaic_probe.cu's pair
-// and two-dot kernels (B20, B21) use it, and the bf16 conv forward and
-// weight gradient on the tensor cores (csrc/wgmma_conv.cuh, with
-// csrc/tap_conv.cu and csrc/tap_wgrad.cu).
+// and two-dot kernels (B20, B21) use it, and the bf16 conv forward, input
+// gradient and weight gradient on the tensor cores (csrc/wgmma_conv.cuh,
+// with csrc/tap_conv.cu and csrc/tap_wgrad.cu).
 //
 // Shared-memory layout (the 128-byte swizzle, CU_TENSOR_MAP_SWIZZLE_128B).
 // TMA writes a box whose inner extent is 128 bytes (64 bf16) as rows of
@@ -19,7 +19,10 @@
 //   (from one 8-row atom to the next along M); LBO is unused (the depth
 //   of one atom covers K = 64) and is set to 16 bytes, as CUTLASS does.
 //   The k16 step s starts 32*s bytes into the tile: the hardware applies
-//   the swizzle to the address it forms, so an in-atom start works.
+//   the swizzle to the address it forms, so an in-atom start works. A
+//   K-major B (the dgrad's w: N = 64 input channels as rows of 64 output
+//   channels of depth) is the same tile with N for M, the same descriptor,
+//   and wgmma's transpose-B flag 0.
 // - MN-major operand (N contiguous, e.g. B = w stored [k][n]): a box of
 //   64 columns x K rows is K rows of 128 bytes. SBO = 1,024 bytes (from one
 //   8-row group of K to the next); LBO = the bytes from one 64-column atom
@@ -199,12 +202,13 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 }
 
 // d = A . B + (scale_d ? d : 0) over one k16 step, m64n64, bf16 in, f32
-// accumulate; B MN-major (tnspB = 1); A K-major (TRANS_A = 0, the default)
-// or MN-major (TRANS_A = 1), both from shared memory. Emits
+// accumulate; A K-major (TRANS_A = 0, the default) or MN-major (TRANS_A =
+// 1), B MN-major (TRANS_B = 1, the default) or K-major (TRANS_B = 0, the
+// conv dgrad's w), both from shared memory. Emits
 //   wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16
-//       {d0..d31}, a-desc, b-desc, p, 1, 1, TRANS_A, 1;
+//       {d0..d31}, a-desc, b-desc, p, 1, 1, TRANS_A, TRANS_B;
 // (scale-a 1, scale-b 1, tnspA, tnspB), p = scale_d != 0.
-template <int TRANS_A = 0>
+template <int TRANS_A = 0, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
                                                      uint64_t b, int scale_d) {
   asm volatile(
@@ -216,7 +220,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
       "%8, %9, %10, %11, %12, %13, %14, %15,\n"
       "%16, %17, %18, %19, %20, %21, %22, %23,\n"
       "%24, %25, %26, %27, %28, %29, %30, %31},\n"
-      " %32, %33, p, 1, 1, %35, 1;\n"
+      " %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
         "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
@@ -226,7 +230,7 @@ __device__ __forceinline__ void wgmma_m64n64k16_bf16(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A));
+      : "l"(a), "l"(b), "r"(scale_d), "n"(TRANS_A), "n"(TRANS_B));
 }
 
 // The same at m64n128: 64 accumulators a thread. Emits

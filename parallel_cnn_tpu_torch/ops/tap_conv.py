@@ -31,14 +31,15 @@ kernel's ``preferred_element_type=f32`` dot and its store in x's dtype do
 (pallas_conv.py:285-306): the forward and dgrad write bf16, the wgrad its
 f32 chunk sum rounded to bf16 once (pallas_conv.py:663, :1047). Their
 plain twins compute the f32 function of the bf16 operands and round the
-result once. The bf16 forward and wgrad have two hand kernels each, chosen
-by shape (``wgmma_form``): where Cin and Cout are multiples of 64 and k is
-1 or 3 (every conv of ResNet-18, ResNet-50 and VGG-16 but the stems), a
-tensor-core kernel (wgmma fed by TMA); elsewhere the FFMA form on the f32
-core. The bf16 dgrad has the FFMA form only. ``x`` and ``w`` (or ``g`` and
-``w``) must share their dtype; mixed operands raise TypeError. The bf16 ``conv2d_fused`` (an epilogue on
-bf16) is reached by no path, JAX's eval being f32, and raises
-NotPortedError. Each form has its own launch counter.
+result once. The bf16 forward, dgrad and wgrad have two hand kernels
+each, chosen by shape (``wgmma_form``): where Cin and Cout are multiples of
+64 and k is 1 or 3 (every conv of ResNet-18, ResNet-50 and VGG-16 but the
+stems, which have no dgrad on the path), a tensor-core kernel (wgmma fed by
+TMA); elsewhere the FFMA form on the f32 core. ``x`` and ``w`` (or ``g``
+and ``w``) must share their dtype; mixed operands raise TypeError. The
+bf16 ``conv2d_fused`` (an epilogue on bf16) is reached by no path, JAX's
+eval being f32, and raises NotPortedError. Each form has its own launch
+counter.
 
 The kernels are compiled on first use by the port's one builder
 (``ops/_cuda_build.py``). Nothing is built or imported from CUDA when this
@@ -81,8 +82,9 @@ dgrad_launches = LaunchCounter()
 #: dgrad kernel.
 bf16_launches = LaunchCounter()
 bf16_dgrad_launches = LaunchCounter()
-#: Launches of the bf16 forward's tensor-core form.
+#: Launches of the bf16 forward's and the bf16 dgrad's tensor-core forms.
 wgmma_launches = LaunchCounter()
+wgmma_dgrad_launches = LaunchCounter()
 
 
 # ---------------------------------------------------------------------------
@@ -253,12 +255,21 @@ def _dgrad_launch_plan(n: int, h: int, w: int, cin: int, k: int, stride: int):
 
 
 def _dgrad_table(n: int, phases, cin: int, tile: int):
-    """The kernel's DgradPlan (csrc/tap_conv.cu) as int32s: the phases that
-    have pixels, most taps first, their blocks, parities, sizes and taps."""
+    """The FFMA kernel's DgradPlan (csrc/tap_conv.cu) as int32s: the phases
+    that have pixels, most taps first, their blocks, parities, sizes and
+    taps."""
+    return _phase_table(phases, -(-cin // DGRAD_TILES[tile][1]),
+                        lambda p: _phase_blocks(n, p, cin, tile))
+
+
+def _phase_table(phases, n_tiles: int, blocks):
+    """A DgradPlan as int32s, for either dgrad kernel: the phases that have
+    pixels, most taps first (ties in parity order), ``blocks(phase)``
+    blocks each, ``n_tiles`` channel tiles a phase's pixel tile."""
     live = sorted((p for p in phases if p.hp and p.wp), key=lambda p: -len(p.taps))
     block_begin, tap_begin = [0], [0]
     for p in live:
-        block_begin.append(block_begin[-1] + _phase_blocks(n, p, cin, tile))
+        block_begin.append(block_begin[-1] + blocks(p))
         tap_begin.append(tap_begin[-1] + len(p.taps))
     taps = [t for p in live for t in p.taps]
     assert len(live) <= _MAX_PHASES and len(taps) <= _MAX_TAPS
@@ -266,7 +277,7 @@ def _dgrad_table(n: int, phases, cin: int, tile: int):
     def field(values, size):
         return list(values) + [0] * (size - len(values))
 
-    vals = ([len(live), -(-cin // DGRAD_TILES[tile][1])]
+    vals = ([len(live), n_tiles]
             + field(block_begin, _MAX_PHASES + 1)
             + field([p.py for p in live], _MAX_PHASES)
             + field([p.px for p in live], _MAX_PHASES)
@@ -325,9 +336,10 @@ WGMMA_ROWS = 64
 
 
 def wgmma_form(cin: int, cout: int, k: int) -> bool:
-    """True where the bf16 forward and weight gradient take their
+    """True where the bf16 forward, dgrad and weight gradient take their
     tensor-core kernels (wgmma fed by TMA: ``tap_conv_wgmma_kernel``,
-    ``wgrad_wgmma_kernel``): Cin and Cout multiples of 64 and k 1 or 3.
+    ``tap_dgrad_wgmma_kernel``, ``wgrad_wgmma_kernel``): Cin and Cout
+    multiples of 64 and k 1 or 3.
     That is every conv of ResNet-18, ResNet-50 and VGG-16 but the stems
     (Cin 3, bound by their bytes), which keep the FFMA form, as any other
     shape does. A choice between two hand kernels by shape: both raise on
@@ -356,6 +368,23 @@ def conv_rect(oh: int, ow: int) -> Tuple[int, int, int]:
     return best[1]
 
 
+@functools.lru_cache(maxsize=None)
+def wgmma_dgrad_plan(n: int, h: int, w: int, cin: int, k: int, stride: int):
+    """(rect, table) of the bf16 dgrad's tensor-core kernel for one shape,
+    built once per shape: ``rect`` = ``conv_rect`` of the largest phase
+    (⌈H/s⌉ × ⌈W/s⌉, the conv's output size), the 64 phase pixels a block
+    covers in every phase; ``table`` the DgradPlan (csrc/tap_conv.cu) of
+    ``dgrad_phase_taps``' phases with ``Cin / 64`` channel tiles and, for
+    each phase, one block a rectangle of its (N, hp, wp) grid and channel
+    tile."""
+    rect = conv_rect(-(-h // stride), -(-w // stride))
+    bn, bh, bw = rect
+    tiles = cin // WGMMA_CHANNELS
+    table = _phase_table(dgrad_phase_taps(h, w, k, stride), tiles,
+                         lambda p: -(-n // bn) * -(-p.hp // bh) * -(-p.wp // bw) * tiles)
+    return rect, table
+
+
 # ---------------------------------------------------------------------------
 # Build and binding
 # ---------------------------------------------------------------------------
@@ -377,6 +406,11 @@ _library = Library("tap_conv.cu", {
     ),
     "tap_conv_dgrad": (_DGRAD_ARGS, ctypes.c_int),
     "tap_conv_dgrad_bf16": (_DGRAD_ARGS, ctypes.c_int),
+    "tap_conv_dgrad_wgmma": (
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 9 + [ctypes.POINTER(ctypes.c_int)]
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p],
+        ctypes.c_int,
+    ),
 }, headers=("ffma_tile.cuh", "wgmma_tile.cuh", "wgmma_conv.cuh"))
 
 
@@ -483,7 +517,7 @@ def _dispatch(x, w, scale, shift, residual, stride, relu, plain):
 
 
 def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape,
-                  stride: int) -> torch.Tensor:
+                  stride: int, ffma: bool = False) -> torch.Tensor:
     k = int(w.shape[0])
     n, h, wd, cin = (int(d) for d in x_shape)
     oshape = out_shape(x_shape, w.shape, stride)
@@ -498,16 +532,26 @@ def _launch_dgrad(g: torch.Tensor, w: torch.Tensor, x_shape,
         raise ValueError("dx too large for int32 indexing")
     lib = _library.get()
     dx = torch.empty((n, h, wd, cin), device=dev, dtype=dtype)
-    tile, table = _dgrad_launch_plan(n, h, wd, cin, k, stride)
     bf16 = dtype == torch.bfloat16
-    entry = lib.tap_conv_dgrad_bf16 if bf16 else lib.tap_conv_dgrad
+    wgmma = bf16 and not ffma and wgmma_form(cin, cout, k)
     with torch.cuda.device(dev):
-        err = entry(
-            _ptr(g), _ptr(w), _ptr(dx), n, h, wd, cin, oshape[1], oshape[2],
-            cout, stride, table, len(table), tile, launch_stream(dev),
-        )
+        if wgmma:
+            rect, table = wgmma_dgrad_plan(n, h, wd, cin, k, stride)
+            g, w = tma_ready(g), tma_ready(w)
+            err = lib.tap_conv_dgrad_wgmma(
+                _ptr(g), _ptr(w), _ptr(dx), n, h, wd, cin, oshape[1], oshape[2],
+                cout, k, stride, table, len(table), *rect, launch_stream(dev),
+            )
+        else:
+            tile, table = _dgrad_launch_plan(n, h, wd, cin, k, stride)
+            entry = lib.tap_conv_dgrad_bf16 if bf16 else lib.tap_conv_dgrad
+            err = entry(
+                _ptr(g), _ptr(w), _ptr(dx), n, h, wd, cin, oshape[1], oshape[2],
+                cout, stride, table, len(table), tile, launch_stream(dev),
+            )
     raise_on_error("tap_conv_dgrad", err)
-    (bf16_dgrad_launches if bf16 else dgrad_launches).add()
+    (wgmma_dgrad_launches if wgmma else bf16_dgrad_launches if bf16
+     else dgrad_launches).add()
     return dx
 
 
@@ -567,6 +611,19 @@ def conv2d_bf16_ffma(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch
         raise TypeError("conv2d_bf16_ffma launches the bf16 FFMA kernel: bf16 CUDA "
                         "tensors only")
     return _launch(x, w, None, None, None, stride, False, ffma=True)
+
+
+def conv2d_dgrad_bf16_ffma(g: torch.Tensor, w: torch.Tensor, x_shape,
+                           stride: int = 1) -> torch.Tensor:
+    """The bf16 dgrad's FFMA form at any shape, the tensor-core form's
+    yardstick (chip_smoke.py times the two side by side). The training
+    path reaches the FFMA form only through ``conv2d_dgrad``, at the shapes
+    ``wgmma_form`` refuses. bf16 CUDA tensors only."""
+    _check_geometry(w, stride)
+    if same_dtype("g", g, "w", w) != torch.bfloat16 or not _on_cuda(g):
+        raise TypeError("conv2d_dgrad_bf16_ffma launches the bf16 FFMA kernel: bf16 CUDA "
+                        "tensors only")
+    return _launch_dgrad(g, w, x_shape, stride, ffma=True)
 
 
 def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:

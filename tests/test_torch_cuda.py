@@ -1670,16 +1670,18 @@ def _bf16_close(got, want):
 
 
 def _bf16_counts():
-    """bf16 launches of each kernel, its forms together: forward (FFMA and
-    tensor-core), dgrad, wgrad (FFMA and tensor-core), tail."""
+    """bf16 launches of each kernel, its forms together: forward, dgrad and
+    wgrad (FFMA and tensor-core each), tail."""
     return (tap_conv.bf16_launches.count + tap_conv.wgmma_launches.count,
-            tap_conv.bf16_dgrad_launches.count,
+            tap_conv.bf16_dgrad_launches.count + tap_conv.wgmma_dgrad_launches.count,
             tap_wgrad.bf16_launches.count + tap_wgrad.wgmma_launches.count,
             tail.bf16_launches.count)
 
 
 def _wgmma_counts():
-    return tap_conv.wgmma_launches.count, tap_wgrad.wgmma_launches.count
+    """Launches of the tensor-core forms: forward, dgrad, wgrad."""
+    return (tap_conv.wgmma_launches.count, tap_conv.wgmma_dgrad_launches.count,
+            tap_wgrad.wgmma_launches.count)
 
 
 def _f32_counts():
@@ -1725,9 +1727,9 @@ def test_bf16_forward_is_batch_position_invariant_on_card(card, geometry):
 
 def test_bf16_conv_forms_read_views_off_the_boundary_on_card(card):
     """Operands one value past a 16-byte boundary agree with the aligned
-    launch bit for bit: the FFMA forms (dgrad here) take the one-value
-    loads and stores, the tensor-core forms (forward and wgrad at this
-    shape) read an aligned copy, as TMA reads from 16-byte bases only."""
+    launch bit for bit: the tensor-core forms (all three at this shape)
+    read an aligned copy, as TMA reads from 16-byte bases only; the FFMA
+    dgrad (its yardstick entry) takes the one-value loads and stores."""
     x, wt, g = (t.to(BF16) for t in _grad_inputs(card, 4, 8, 8, 64, 64, 3, 1, 5))
 
     def off(t):
@@ -1739,6 +1741,8 @@ def test_bf16_conv_forms_read_views_off_the_boundary_on_card(card):
     assert torch.equal(tap_conv.conv2d(off(x), off(wt), 1), tap_conv.conv2d(x, wt, 1))
     assert torch.equal(tap_conv.conv2d_dgrad(off(g), off(wt), x.shape, 1),
                        tap_conv.conv2d_dgrad(g, wt, x.shape, 1))
+    assert torch.equal(tap_conv.conv2d_dgrad_bf16_ffma(off(g), off(wt), x.shape, 1),
+                       tap_conv.conv2d_dgrad_bf16_ffma(g, wt, x.shape, 1))
     assert torch.equal(tap_wgrad.conv2d_wgrad(off(x), off(g), 3, 1),
                        tap_wgrad.conv2d_wgrad(x, g, 3, 1))
 
@@ -1811,7 +1815,8 @@ def test_bf16_wrappers_refuse_mixed_dtypes_on_card(card):
 
 def test_bf16_zoo_step_launches_only_the_bf16_forms_on_card(card):
     """One bf16 fused step of ResNet-18: 20 forwards, 19 dgrads, 20 wgrads
-    and 1 tail in bf16, no f32 launch; the masters and momentum stay f32."""
+    and 1 tail in bf16, no f32 launch, every dgrad on the tensor cores; the
+    masters and momentum stay f32."""
     model = resnet.resnet18(10, backend="cuda",
                             generator=torch.Generator().manual_seed(0)).to(card)
     state = zoo.init_state(model, zoo.make_optimizer(0.01))
@@ -1819,12 +1824,15 @@ def test_bf16_zoo_step_launches_only_the_bf16_forms_on_card(card):
                                   fused=FusedStepConfig(update=False))
     imgs, labels = synthetic.make_image_dataset(16, seed=3)
     bf0, f0, wg0 = _bf16_counts(), _f32_counts(), _wgmma_counts()
+    ffma_dgrad = tap_conv.bf16_dgrad_launches.count
     loss = step_fn(state, torch.from_numpy(imgs).to(card),
                    torch.from_numpy(labels).to(card, torch.int64))
     assert np.isfinite(float(loss))
     assert tuple(n - m for n, m in zip(_bf16_counts(), bf0)) == (20, 19, 20, 1)
-    # 19 convs on the tensor cores; the stem (Cin 3) on the FFMA forms.
-    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (19, 19)
+    # 19 convs on the tensor cores; the stem (Cin 3) on the FFMA forms,
+    # and it has no dgrad.
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (19, 19, 19)
+    assert tap_conv.bf16_dgrad_launches.count == ffma_dgrad
     assert _f32_counts() == f0
     assert all(p.dtype == torch.float32 for p in model.parameters())
     assert all(t.dtype == torch.float32 for t in state.trace.values())
@@ -1854,7 +1862,7 @@ def test_wgmma_forms_match_their_twins_on_card(card, b, h, w, cin, cout, k, s):
     """The bf16 forward and wgrad on the tensor cores against their twins
     (one bf16 ulp of the output's scale), each relaunch bit-identical,
     counted on the tensor-core counters; the FFMA forms at the same shape
-    against the same twins."""
+    against the same twins. (The dgrad: test_wgmma_dgrad_matches_its_twin.)"""
     assert tap_conv.wgmma_form(cin, cout, k)
     x, wt, g = (t.to(BF16) for t in _grad_inputs(card, b, h, w, cin, cout, k, s, b + h + k))
     fwd_twin = tap_conv.bf16_twin(tap_conv.conv2d_plain, x, wt, stride=s)
@@ -1866,11 +1874,11 @@ def test_wgmma_forms_match_their_twins_on_card(card, b, h, w, cin, cout, k, s):
         torch.cuda.synchronize()
         assert torch.equal(got, again)
         _bf16_close(got, twin)
-    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 2)
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 0, 2)
     assert (tap_conv.bf16_launches.count, tap_wgrad.bf16_launches.count) == bf0
     _bf16_close(tap_conv.conv2d_bf16_ffma(x, wt, s), fwd_twin)
     _bf16_close(tap_wgrad.conv2d_wgrad_bf16_ffma(x, g, k, s), wgrad_twin)
-    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 2)
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (2, 0, 2)
 
 
 @pytest.mark.parametrize("geometry", GEOMETRIES + R50_GEOMETRIES,
@@ -1910,4 +1918,97 @@ def test_wgmma_entries_refuse_what_they_do_not_take_on_card(card):
                                         *args, 1, 8, 8, stream) == 1
     assert lib_w.tap_conv_wgrad_wgmma(x.data_ptr(), g.data_ptr() + 2, part.data_ptr(),
                                       gw.data_ptr(), *args, 1, 8, 8, 2, stream) == 1
+    # The dgrad's entry: the same refusals, and a table of another channel
+    # count (n_tiles) or with a slot past w's taps.
+    dx = torch.empty_like(x)
+    rect, table = tap_conv.wgmma_dgrad_plan(2, 8, 8, 64, 3, 1)
+    dargs = (2, 8, 8, 64, 8, 8, 64, 3, 1)
+
+    def dgrad(g_ptr, a, tab, r):
+        return lib_f.tap_conv_dgrad_wgmma(g_ptr, wt.data_ptr(), dx.data_ptr(), *a, tab,
+                                          len(tab), *r, stream)
+
+    assert dgrad(g.data_ptr(), dargs, table, rect) == 0
+    assert dgrad(g.data_ptr(), (2, 8, 8, 32) + dargs[4:], table, rect) == 1
+    assert dgrad(g.data_ptr(), dargs, table, (1, 8, 4)) == 1
+    assert dgrad(g.data_ptr() + 2, dargs, table, rect) == 1
+    assert dgrad(g.data_ptr(), dargs, tap_conv.wgmma_dgrad_plan(2, 8, 8, 128, 3, 1)[1],
+                 rect) == 1
+    bad = (ctypes.c_int * len(table))(*table)
+    bad[2 + 5 + 16 + 5] = 9  # the first tap's slot, past a 3x3 conv's 9 taps
+    assert dgrad(g.data_ptr(), dargs, bad, rect) == 1
     torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", WGMMA_CASES)
+def test_wgmma_dgrad_matches_its_twin_on_card(card, b, h, w, cin, cout, k, s):
+    """The bf16 dgrad on the tensor cores at every geometry class (3x3/s1,
+    3x3/s2 at odd sizes, 1x1/s2 with its tapless phases, ResNet-50's wide
+    1x1s, 1x1 and 2x2 maps) against its twin within one bf16 ulp of the
+    output's scale, each relaunch bit-identical, counted on its own
+    counter; the FFMA yardstick against the same twin."""
+    assert tap_conv.wgmma_form(cin, cout, k)
+    _, wt, g = (t.to(BF16) for t in _grad_inputs(card, b, h, w, cin, cout, k, s, b + w + k))
+    shape = (b, h, w, cin)
+    twin = tap_conv.bf16_twin(tap_conv.conv2d_dgrad_plain, g, wt, x_shape=shape, stride=s)
+    wg0, ffma0 = _wgmma_counts(), tap_conv.bf16_dgrad_launches.count
+    got, again = (tap_conv.conv2d_dgrad(g, wt, shape, s) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    _bf16_close(got, twin)
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (0, 2, 0)
+    assert tap_conv.bf16_dgrad_launches.count == ffma0
+    _bf16_close(tap_conv.conv2d_dgrad_bf16_ffma(g, wt, shape, s), twin)
+    assert tap_conv.bf16_dgrad_launches.count == ffma0 + 1
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (0, 2, 0)
+
+
+WGMMA_DGRADS = [g for g in GEOMETRIES if g[2] != 3] + [
+    ("r50 " + g[0],) + tuple(g[1:]) for g in R50_GEOMETRIES if g[2] != 3]
+
+
+@pytest.mark.parametrize("geometry", WGMMA_DGRADS, ids=[g[0] for g in WGMMA_DGRADS])
+def test_wgmma_dgrad_rows_of_a_bucket_equal_the_batch_on_card(card, geometry):
+    """Every ResNet-18 and ResNet-50 dgrad takes the tensor-core form, and
+    an image's dx rows do not depend on the batch around it: a 37-image
+    batch's rows equal the same images' rows at b128, bit for bit."""
+    _, h, cin, cout, k, s, _, _, _ = geometry
+    assert tap_conv.wgmma_form(cin, cout, k)
+    gen = torch.Generator(device=card).manual_seed(h + cin + cout)
+    oh = -(-h // s)
+    g = torch.randn((128, oh, oh, cout), generator=gen, device=card).to(BF16)
+    wt = (0.1 * torch.randn((k, k, cin, cout), generator=gen, device=card)).to(BF16)
+    wg0 = _wgmma_counts()
+    full = tap_conv.conv2d_dgrad(g, wt, (128, h, h, cin), s)
+    assert torch.equal(tap_conv.conv2d_dgrad(g[:37], wt, (37, h, h, cin), s), full[:37])
+    assert tuple(n - m for n, m in zip(_wgmma_counts(), wg0)) == (0, 2, 0)
+
+
+@pytest.mark.parametrize("b,h,w,cin,cout,k,s", [(6, 16, 16, 64, 128, 3, 2),
+                                                (3, 7, 9, 64, 64, 3, 2)])
+def test_wgmma_dgrad_reads_views_off_the_boundary_on_card(card, b, h, w, cin, cout, k, s):
+    """g and w one value past a 16-byte boundary give the aligned launch's
+    dx bit for bit (the wrapper hands TMA an aligned copy)."""
+    _, wt, g = (t.to(BF16) for t in _grad_inputs(card, b, h, w, cin, cout, k, s, 7))
+
+    def off(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        return view
+
+    shape = (b, h, w, cin)
+    want = tap_conv.conv2d_dgrad(g, wt, shape, s)
+    for gg, ww in ((off(g), wt), (g, off(wt)), (off(g), off(wt))):
+        assert torch.equal(tap_conv.conv2d_dgrad(gg, ww, shape, s), want)
+
+
+def test_wgmma_dgrad_yardstick_refuses_f32_and_cpu_tensors_on_card(card):
+    """``conv2d_dgrad_bf16_ffma`` launches the bf16 FFMA kernel only: an
+    f32 CUDA operand and a bf16 CPU one are refused, nothing launched."""
+    _, wt, g = _grad_inputs(card, 2, 8, 8, 64, 64, 3, 1, 3)
+    counts = _bf16_counts() + _f32_counts()
+    for gg, ww in ((g, wt), (g.to(BF16).cpu(), wt.to(BF16).cpu())):
+        with pytest.raises(TypeError):
+            tap_conv.conv2d_dgrad_bf16_ffma(gg, ww, (2, 8, 8, 64), 1)
+    assert _bf16_counts() + _f32_counts() == counts

@@ -1,14 +1,16 @@
 """The host-side plans of the bf16 tensor-core conv kernels (wgmma fed by
-TMA: ``tap_conv_wgmma_kernel`` and ``wgrad_wgmma_kernel``), which the CPU
-reaches without a card: the shape rule that picks them
-(``tap_conv.wgmma_form``), the rectangles of 64 output pixels a block
-covers (``conv_rect``; their order, ``rect_origins`` below), the TMA box
-each tap reads (``tap_box_origin`` below, as the kernels compute it;
-stride 2 through the map's element strides) and the wgrad's chunks
-(``tap_wgrad.wgmma_plan``). A plain PyTorch model of the
+TMA: ``tap_conv_wgmma_kernel``, ``tap_dgrad_wgmma_kernel`` and
+``wgrad_wgmma_kernel``), which the CPU reaches without a card: the shape
+rule that picks them (``tap_conv.wgmma_form``), the rectangles of 64
+output pixels a block covers (``conv_rect``; their order,
+``rect_origins`` below), the TMA box each tap reads (``tap_box_origin``
+below, as the kernels compute it; stride 2 through the map's element
+strides), the dgrad's phase table (``tap_conv.wgmma_dgrad_plan``, read
+block by block as the kernel reads it: ``dgrad_blocks`` below) and the
+wgrad's chunks (``tap_wgrad.wgmma_plan``). A plain PyTorch model of the
 kernels' box decomposition (zero-filled boxes, tap by tap, in their k16
-order, one rounding at the end) is held against JAX's bf16 Pallas forward
-and weight gradient (interpret mode, under ``jax.jit``, as
+order, one rounding at the end) is held against JAX's bf16 Pallas forward,
+input gradient and weight gradient (interpret mode, under ``jax.jit``, as
 tests/test_torch_bf16.py runs them) and against the port's twins."""
 
 import functools
@@ -93,14 +95,17 @@ def test_the_rule_reads_the_shape_alone():
 
 
 def test_ffma_yardsticks_launch_on_the_card_only():
-    """``conv2d_bf16_ffma`` and ``conv2d_wgrad_bf16_ffma`` launch the FFMA
-    kernels (the tensor-core forms' yardstick): a CPU or f32 operand is
-    refused, with no plain fallback."""
+    """``conv2d_bf16_ffma``, ``conv2d_dgrad_bf16_ffma`` and
+    ``conv2d_wgrad_bf16_ffma`` launch the FFMA kernels (the tensor-core
+    forms' yardstick): a CPU or f32 operand is refused, with no plain
+    fallback."""
     x = torch.zeros((1, 4, 4, 64), dtype=BF16)
     w = torch.zeros((3, 3, 64, 64), dtype=BF16)
     for args in ((x, w), (x.float(), w.float())):
         with pytest.raises(TypeError):
             tap_conv.conv2d_bf16_ffma(*args)
+        with pytest.raises(TypeError):
+            tap_conv.conv2d_dgrad_bf16_ffma(args[0], args[1], x.shape)
         with pytest.raises(TypeError):
             tap_wgrad.conv2d_wgrad_bf16_ffma(args[0], args[0], 3)
 
@@ -170,6 +175,130 @@ def test_tap_boxes_read_the_pixels_each_tap_reads(h, w, k, stride):
                         oy, ox = origin[1] + r, origin[2] + j
                         assert row + r * stride == oy * stride - pt + dy
                         assert col + j * stride == ox * stride - pl + dx
+
+
+# ---------------------------------------------------------------------------
+# The dgrad's phase table
+# ---------------------------------------------------------------------------
+
+#: csrc/tap_conv.cu ``DgradPlan``: its fields and sizes, in order.
+PLAN_FIELDS = (("phases", 1), ("n_tiles", 1), ("block_begin", 5), ("py", 4), ("px", 4),
+               ("hp", 4), ("wp", 4), ("tap_begin", 5), ("slot", 49), ("ay", 49), ("ax", 49))
+
+
+def plan_fields(table):
+    """The int32s of a DgradPlan as its named fields."""
+    vals, fields = list(table), {}
+    for name, size in PLAN_FIELDS:
+        fields[name], vals = vals[:size] if size > 1 else vals[0], vals[size:]
+    assert not vals
+    return fields
+
+
+def dgrad_blocks(n, h, w, cin, k, stride):
+    """Each block of the tensor-core dgrad's grid as the kernel reads its
+    plan (csrc/tap_conv.cu ``tap_dgrad_wgmma_kernel``): the rectangle, the
+    phase's parity (py, px) and size (hp, wp), the block's first input
+    channel, its rectangle's origin (image, phase row, phase column) in
+    (N, hp, wp), and the phase's taps (slot, ay, ax)."""
+    rect, table = tap_conv.wgmma_dgrad_plan(n, h, w, cin, k, stride)
+    f = plan_fields(table)
+    bn, bh, bw = rect
+    for b in range(f["block_begin"][f["phases"]]):
+        ph = 0
+        while ph + 1 < f["phases"] and b >= f["block_begin"][ph + 1]:
+            ph += 1
+        local = b - f["block_begin"][ph]
+        hp, wp = f["hp"][ph], f["wp"][ph]
+        tiles_h, tiles_w = -(-hp // bh), -(-wp // bw)
+        r = local // f["n_tiles"]
+        origin = (r // tiles_w // tiles_h * bn, r // tiles_w % tiles_h * bh, r % tiles_w * bw)
+        taps = [(f["slot"][t], f["ay"][t], f["ax"][t])
+                for t in range(f["tap_begin"][ph], f["tap_begin"][ph + 1])]
+        yield (rect, f["py"][ph], f["px"][ph], hp, wp, local % f["n_tiles"] * CH, origin,
+               taps)
+
+
+# (n, h, w, k, s): both strides, odd sizes at stride 2, the 1x1/s2 conv's
+# tapless phases, a 1x1 and a 2x2 map at stride 2, 16-image rectangles.
+PLAN_CASES = [(1, 32, 32, 3, 1), (37, 16, 16, 3, 2), (3, 7, 9, 3, 2), (2, 7, 7, 1, 2),
+              (5, 8, 8, 1, 2), (4, 14, 14, 1, 1), (5, 1, 1, 3, 2), (19, 2, 2, 3, 2),
+              (33, 4, 4, 3, 1)]
+
+
+@pytest.mark.parametrize("n,h,w,k,s", PLAN_CASES)
+def test_dgrad_phase_rectangles_write_every_pixel_once(n, h, w, k, s):
+    """The blocks' masked stores, at (j·s + py, i·s + px) for the phase
+    pixels of their rectangles inside (N, hp, wp), write every dx pixel of
+    every channel block exactly once, tapless phases included."""
+    cin = 128
+    seen = np.zeros((n, h, w, cin // CH), np.int64)
+    for rect, py, px, hp, wp, ci0, origin, _ in dgrad_blocks(n, h, w, cin, k, s):
+        i, j, ii, real = _out_index(origin, rect, n, hp, wp)
+        np.add.at(seen, (i[real].numpy(), (j[real] * s + py).numpy(),
+                         (ii[real] * s + px).numpy(), ci0 // CH), 1)
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("n,h,w,k,s", PLAN_CASES)
+def test_dgrad_table_taps_are_the_phase_taps(n, h, w, k, s):
+    """The table lists ``dgrad_phase_taps``' phases that have pixels, most
+    taps first (ties in parity order), each with its own taps in its own
+    order; a phase of a 1x1/s2 conv's odd rows or columns has none."""
+    f = plan_fields(tap_conv.wgmma_dgrad_plan(n, h, w, 64, k, s)[1])
+    live = sorted((p for p in tap_conv.dgrad_phase_taps(h, w, k, s) if p.hp and p.wp),
+                  key=lambda p: -len(p.taps))
+    assert f["phases"] == len(live)
+    for q, p in enumerate(live):
+        assert (f["py"][q], f["px"][q], f["hp"][q], f["wp"][q]) == (p.py, p.px, p.hp, p.wp)
+        rows = range(f["tap_begin"][q], f["tap_begin"][q + 1])
+        assert [(f["slot"][t], f["ay"][t], f["ax"][t]) for t in rows] == list(p.taps)
+        if k == 1 and s == 2:
+            assert bool(p.taps) == (p.py == p.px == 0)
+
+
+@settings(max_examples=40, deadline=None)
+@given(n=st.integers(1, 256), h=st.sampled_from(SIZES), w=st.sampled_from(SIZES),
+       cin=st.sampled_from([64, 128, 512, 2048]), k=st.sampled_from([1, 3]),
+       s=st.sampled_from([1, 2]))
+def test_wgmma_dgrad_plan_reads_the_shape_alone(n, h, w, cin, k, s):
+    """The plan is a function of (N, H, W, Cin, k, s): the rectangle is
+    ``conv_rect`` of the largest phase, Cin / 64 channel tiles, one block a
+    rectangle and tile of each phase; and the batch moves only the block
+    counts, so an image's sum order does not depend on it."""
+    rect, table = tap_conv.wgmma_dgrad_plan(n, h, w, cin, k, s)
+    assert (rect, list(table)) == (rect, list(tap_conv.wgmma_dgrad_plan(n, h, w, cin, k, s)[1]))
+    assert rect == tap_conv.conv_rect(-(-h // s), -(-w // s))
+    f = plan_fields(table)
+    bn, bh, bw = rect
+    assert f["n_tiles"] == cin // CH
+    counts = [f["block_begin"][q + 1] - f["block_begin"][q] for q in range(f["phases"])]
+    assert counts == [-(-n // bn) * -(-f["hp"][q] // bh) * -(-f["wp"][q] // bw) * (cin // CH)
+                      for q in range(f["phases"])]
+    other = plan_fields(tap_conv.wgmma_dgrad_plan(n + 1, h, w, cin, k, s)[1])
+    assert {key: v for key, v in f.items() if key != "block_begin"} == {
+        key: v for key, v in other.items() if key != "block_begin"}
+
+
+@pytest.mark.parametrize("name,build", [
+    ("resnet18", lambda: resnet.resnet18(10)),
+    ("resnet50", lambda: resnet.resnet50(10, cifar_stem=True)),
+    ("vgg16", lambda: vgg.vgg16(10)),
+])
+def test_every_dgrad_takes_the_tensor_core_form(name, build):
+    """Every conv with a dgrad on the path (all but the stem, whose input
+    batch needs no gradient) takes the tensor-core dgrad, and its plan
+    fits the kernel: at most 9 taps, slots inside w, a grid of int32."""
+    convs = chip_smoke.conv_geometries(build(), (32, 32, 3))
+    for h, cin, cout, k, stride, _, _, _ in convs:
+        if cin == 3:
+            continue
+        assert tap_conv.wgmma_form(cin, cout, k), (h, cin, cout, k, stride)
+        rect, table = tap_conv.wgmma_dgrad_plan(128, h, h, cin, k, stride)
+        f = plan_fields(table)
+        assert 0 < f["block_begin"][f["phases"]] < 2 ** 31
+        assert f["tap_begin"][f["phases"]] == k * k
+        assert all(0 <= f["slot"][t] < k * k for t in range(k * k))
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +378,30 @@ def forward_model(x, w, stride):
     return out.to(BF16)
 
 
+def dgrad_model(g, w, x_shape, stride):
+    """The tensor-core dgrad's arithmetic in f32: for each block of its
+    plan, the sum over the phase's taps (ascending slot), g's channel
+    blocks and k16 steps of g's zero-filled box at the tap's shift (ay, ax)
+    times 64 rows of w (the tap's slot, the block's input channels) read
+    K-major; stored at the phase's pixels (j·s + py, i·s + px), rounded to
+    bf16 once."""
+    n, h, wd, cin = x_shape
+    k, cout = w.shape[0], w.shape[3]
+    wk = w.reshape(k * k * cin, cout)
+    dx = torch.full((n, h, wd, cin), float("nan"))
+    for rect, py, px, hp, wp, ci0, origin, taps in dgrad_blocks(n, h, wd, cin, k, stride):
+        acc = torch.zeros((tap_conv.WGMMA_ROWS, CH))
+        for slot, ay, ax in taps:
+            for c0 in range(0, cout, CH):
+                a = _box(g, origin, rect, c0, origin[2] + ax, origin[1] + ay, 1)
+                b = wk[slot * cin + ci0:slot * cin + ci0 + CH, c0:c0 + CH]  # ci rows, co depth
+                for kk in range(0, CH, K16):
+                    acc = acc + a[:, kk:kk + K16] @ b[:, kk:kk + K16].T
+        i, j, ii, real = _out_index(origin, rect, n, hp, wp)
+        dx[i[real], j[real] * stride + py, ii[real] * stride + px, ci0:ci0 + CH] = acc[real]
+    return dx.to(BF16)
+
+
 def wgrad_model(x, g, k, stride):
     """The tensor-core wgrad's arithmetic in f32: for each chunk of
     ``wgmma_plan``, the sum over its rectangles and their k16 steps of the
@@ -297,7 +450,8 @@ def _bf16_np(a):
 
 @functools.cache
 def _case(geometry):
-    """Seeded bf16 operands and JAX's bf16 forward and weight gradient."""
+    """Seeded bf16 operands and JAX's bf16 forward, input gradient and
+    weight gradient."""
     b, h, w, cin, cout, k, s = geometry
     rng = np.random.default_rng(b * h + cin + k * 7 + s)
     oh, ow = -(-h // s), -(-w // s)
@@ -308,11 +462,10 @@ def _case(geometry):
     @jax.jit
     def f(x, w, g):
         y, vjp = jax.vjp(lambda a, c: pallas_conv.conv2d(a, c, s), x, w)
-        return y, vjp(g)[1]
+        return (y,) + vjp(g)
 
     j = [jnp.asarray(a).astype(jnp.bfloat16) for a in (x, wt, g)]
-    y, dw = f(*j)
-    return x, wt, g, np.asarray(y, np.float32), np.asarray(dw, np.float32)
+    return (x, wt, g) + tuple(np.asarray(a, np.float32) for a in f(*j))
 
 
 def _ulp_close(got, want):
@@ -323,7 +476,7 @@ def _ulp_close(got, want):
 
 @pytest.mark.parametrize("geometry", MODEL_CASES, ids=lambda g: "x".join(map(str, g)))
 def test_box_forward_model_matches_jax_bf16_pallas(geometry):
-    x, wt, _, y_ref, _ = _case(geometry)
+    x, wt, _, y_ref, _, _ = _case(geometry)
     got = forward_model(torch.from_numpy(x), torch.from_numpy(wt), geometry[-1])
     _ulp_close(got, y_ref)
     twin = tap_conv.conv2d(torch.from_numpy(x).to(BF16), torch.from_numpy(wt).to(BF16),
@@ -333,10 +486,21 @@ def test_box_forward_model_matches_jax_bf16_pallas(geometry):
 
 @pytest.mark.parametrize("geometry", MODEL_CASES, ids=lambda g: "x".join(map(str, g)))
 def test_box_wgrad_model_matches_jax_bf16_pallas(geometry):
-    x, _, g, _, dw_ref = _case(geometry)
+    x, _, g, _, _, dw_ref = _case(geometry)
     k, s = geometry[5], geometry[6]
     got = wgrad_model(torch.from_numpy(x), torch.from_numpy(g), k, s)
     _ulp_close(got, dw_ref)
     twin = tap_wgrad.conv2d_wgrad(torch.from_numpy(x).to(BF16), torch.from_numpy(g).to(BF16),
                                   k, s)
+    _ulp_close(got, twin.float().numpy())
+
+
+@pytest.mark.parametrize("geometry", MODEL_CASES, ids=lambda g: "x".join(map(str, g)))
+def test_box_dgrad_model_matches_jax_bf16_pallas(geometry):
+    x, wt, g, _, dx_ref, _ = _case(geometry)
+    s = geometry[-1]
+    got = dgrad_model(torch.from_numpy(g), torch.from_numpy(wt), x.shape, s)
+    _ulp_close(got, dx_ref)
+    twin = tap_conv.conv2d_dgrad(torch.from_numpy(g).to(BF16), torch.from_numpy(wt).to(BF16),
+                                 x.shape, s)
     _ulp_close(got, twin.float().numpy())
