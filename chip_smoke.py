@@ -12,6 +12,12 @@ port's two paths through their user-facing entry points:
 - serving: full-width ResNet-18, random weights and BN statistics from a
   seed, restored from a checkpoint in the JAX trainer's format, with the
   answers checked, a profiled second run and a per-bucket breakdown;
+- the serving control plane (slo (a)-(f)) on the same checkpoint: the
+  flash-crowd scenario with admission control and without, diurnal,
+  slow-client, chaos-kill on two replicas (failover, then the respawned
+  replica's answers), chaos-slow (its p99 gate must trip) and the
+  autoscaler from one replica to two and back, once through the serve
+  CLI, each with exact conservation and B10 launches;
 - training: the LeNet-ref trainer's CLI on the synthetic 60,000/10,000
   MNIST stand-in, through the fused train-step kernel (--ops cuda), the
   fused SGD kernel (--fused-step) and the per-sample plain path, with a
@@ -112,6 +118,7 @@ from parallel_cnn_tpu_torch.config import (
     CommConfig,
     Config,
     FusedStepConfig,
+    ObsConfig,
     ServeConfig,
     TrainConfig,
 )
@@ -134,7 +141,9 @@ from parallel_cnn_tpu_torch.ops import (
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
 from parallel_cnn_tpu_torch.parallel import collectives, data_parallel, distributed, intra_op
 from parallel_cnn_tpu_torch.ops.activations import apply_grad
-from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
+from parallel_cnn_tpu_torch import obs as obs_lib
+from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
+from parallel_cnn_tpu_torch.serve import AutoScaler, get, loadgen, scenarios, serve_stack
 from parallel_cnn_tpu_torch.train import step as step_lib
 from parallel_cnn_tpu_torch.train import trainer, zoo
 from parallel_cnn_tpu_torch.utils.backend import card_name_and_power_limit
@@ -3119,6 +3128,263 @@ def serve50_phase(card) -> tuple:
     return total, worst
 
 
+# ---------------------------------------------------------------------------
+# The serving control plane: admission, scenarios, chaos, the autoscaler
+# ---------------------------------------------------------------------------
+
+SLO_MAX_BATCH = 64
+SLO_DIR = BUILD_DIR / "obs"
+# (f)'s autoscaler: a p99 target every flash-crowd request misses (the
+# coalescing window alone is 2 ms), so the loop scales up under traffic, and
+# a window short enough to forget the traffic within a few seconds of its
+# end, so it scales back down.
+SLO_SCALE_SLO_MS = 1.0
+SLO_SCALE_WINDOW_S = 0.2
+SLO_SCALE_WAIT_S = 20.0
+SLO_KILL_SPEC = "kill-replica@6"
+SLO_SLOW_SPEC = "slow-replica@4:400"  # 400 ms > chaos-slow's 150 ms gate
+
+
+def engine_bytes() -> int:
+    """The card's allocated bytes with the cuBLAS workspaces dropped: a
+    thread's first cuBLAS call (the head's matmul on a new runner thread)
+    takes a workspace of its own (32 MiB on this card), which belongs to
+    the thread and not to an engine. Call it only while no batch runs."""
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def slo_bundle(run):
+    """A live obs bundle (spans, journal, registry) for one slo part."""
+    return obs_lib.from_config(ObsConfig(trace=True, dir=str(SLO_DIR)), run=run)
+
+
+def profiled_scenario(name, batcher, seed):
+    """scenarios.run under torch.profiler (CUDA activity): the report and
+    the device's idle share of the run's wall time (None when the profiler
+    saw no device events)."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        report = scenarios.run(name, batcher, seed=seed)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    return report, (1 - dev_ms / wall_ms if dev_ms > 0 else None)
+
+
+def check_obs(label, bundle, stats) -> None:
+    """The journal's lifecycle counts balance and equal ServeStats', the
+    registry's serve.* collector equals ServeStats.snapshot(), and the
+    trace's spans nest."""
+    snap = stats.snapshot()
+    jc = bundle.journal.counts()
+    bad = obs_lib.conservation(jc)
+    for kind, key in (("submit", "submitted"), ("complete", "completed"),
+                      ("shed", "shed"), ("expired", "expired"), ("failed", "failed")):
+        if jc.get(kind, 0) != snap[key]:
+            bad = f"journal {kind}={jc.get(kind, 0)} != ServeStats {key}={snap[key]}"
+    collected = bundle.registry.json_snapshot()["collected"]["serve"]
+    if {k: collected[k] for k in snap} != snap:
+        bad = "the registry's serve.* counters differ from ServeStats.snapshot()"
+    nesting = obs_lib.validate_nesting(bundle.tracer.events())
+    if bad or nesting:
+        fail(f"slo {label}: {bad or nesting[0]}")
+    bundle.finish()
+
+
+def check_slo_launches(label, launches, executed, warmups, extra=0) -> None:
+    want = CONVS_PER_FORWARD * (executed + warmups + extra)
+    print(f"[smoke] slo {label}: tap_conv launches {launches} = {CONVS_PER_FORWARD} x "
+          f"({executed} executed batches + {warmups} warm-ups"
+          f"{f' + {extra} parity forwards' if extra else ''}): "
+          f"{'ok' if launches == want else f'FAIL (want {want})'}", flush=True)
+    if launches != want:
+        fail(f"slo {label}: the batches did not all run through the kernel")
+
+
+def slo_line(label, report, idle, card) -> None:
+    snap = report.server
+    lat = report.latency.summary(scale=1e3)
+    gates = ", ".join(f"{k}={'ok' if v else 'TRIPPED'}" for k, v in report.gates().items())
+    print(f"[smoke] slo {label}: {report.completed}/{report.requests} ok, "
+          f"{report.completed / report.seconds:.1f} req/s, p50 {lat.get('p50', 0):.2f} ms, "
+          f"p99 {lat.get('p99', 0):.2f} ms, shed rate {report.shed_rate:.3f}, idle "
+          f"{'not measured' if idle is None else f'{idle:.1%}'}; server {snap['submitted']} "
+          f"submitted = {snap['completed']} + {snap['shed']} shed + {snap['expired']} "
+          f"expired + {snap['failed']} failed; gates {'PASS' if report.passed else 'FAIL'} "
+          f"({gates}) on {card}", flush=True)
+    if not report.conservation_ok or report.errors:
+        fail(f"slo {label}: conservation broken ({report.to_dict()})")
+
+
+def slo_part(label, scenario, cfg, card, seed, chaos=None):
+    """One scenario on a fresh ResNet-18 stack from the serve phase's
+    checkpoint, its B10 launches checked; returns (batcher, report,
+    launches)."""
+    bundle = slo_bundle("slo_" + "".join(c for c in label if c.isalnum() or c == "-"))
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(get("resnet18"), cfg, device="cuda", seed=1,
+                                obs=bundle, chaos=chaos)
+    batcher.stats.attach_registry(bundle.registry)
+    with batcher:
+        report, idle = profiled_scenario(scenario, batcher, seed)
+    slo_line(label, report, idle, card)
+    check_obs(label, bundle, batcher.stats)
+    launches = tap_conv.launches.count
+    check_slo_launches(label, launches, batcher.executed, pool.warmups)
+    return batcher, report, launches
+
+
+def served_logits_check(label, batcher, host) -> None:
+    samples = loadgen.make_samples(32, (32, 32, 3), seed=5)
+    served = np.stack([f.result(timeout=60) for f in [batcher.submit(x) for x in samples]])
+    with torch.inference_mode(), plain_reference():
+        ref = plain_forward(host.cuda(), torch.from_numpy(samples).cuda()).cpu().numpy()
+    err = float(np.max(np.abs(served - ref)))
+    tol = LOGIT_RTOL * max(1.0, float(np.max(np.abs(ref))))
+    print(f"[smoke] slo {label}: 32 served logits vs the plain model max |Δ| {err:.3e} "
+          f"(tol {tol:.1e})", flush=True)
+    if served.shape != (32, 10) or not np.isfinite(served).all() or not err <= tol:
+        fail(f"slo {label}: served logits disagree with the plain model")
+
+
+def slo_cli(card, ckpt) -> int:
+    """(f) once through ``python -m parallel_cnn_tpu_torch serve``: the
+    autoscaler from 1 to 2 replicas through a flash crowd with the trace,
+    the journal and the metrics JSON; returns its tap_conv launches."""
+    metrics, report_json = SLO_DIR / "slo_cli_metrics.json", SLO_DIR / "slo_cli.json"
+    tap_conv.launches.reset()
+    out = run_cli(["serve", "--model", "resnet18", "--checkpoint", str(ckpt),
+                   "--max-batch", str(SLO_MAX_BATCH), "--autoscale", "--max-replicas", "2",
+                   "--slo-ms", str(SLO_SCALE_SLO_MS), "--window-s", str(SLO_SCALE_WINDOW_S),
+                   "--scenario", "flash-crowd", "--trace", "--trace-dir", str(SLO_DIR),
+                   "--metrics-json", str(metrics), "--json", str(report_json)])
+    launches = tap_conv.launches.count
+    line = next(ln for ln in out.splitlines() if "tap_conv kernel launches:" in ln).split()
+    executed, warmups, parity = int(line[6]), int(line[9]), int(line[13])
+    check_slo_launches("(f) CLI", launches, executed, warmups, parity)
+    if "gates PASS" not in out or "autoscaler on (1..2 replicas" not in out:
+        fail("slo (f) CLI: the scenario's gates or the autoscaler line are missing")
+    with open(report_json) as f:
+        telemetry = json.load(f)["telemetry"]
+    with open(metrics) as f:
+        collected = json.load(f)["collected"]["serve"]
+    with open(SLO_DIR / "serve_trace.json") as f:
+        nesting = obs_lib.validate_nesting(json.load(f)["traceEvents"])
+    counts = {}
+    for rec in obs_lib.read_journal(str(SLO_DIR / "serve_journal.jsonl")):
+        counts[rec["kind"]] = counts.get(rec["kind"], 0) + 1
+    if {k: collected[k] for k in telemetry} != telemetry or nesting \
+            or obs_lib.conservation(counts) is not None \
+            or counts.get("submit") != telemetry["submitted"]:
+        fail(f"slo (f) CLI: metrics, trace or journal disagree ({nesting[:1]}, {counts})")
+    print(f"[smoke] slo (f) CLI: metrics JSON = telemetry, trace nests, journal "
+          f"balanced ({counts.get('submit')} submits, {counts.get('scale_up', 0)} "
+          f"scale_up, {counts.get('scale_down', 0)} scale_down) on {card}", flush=True)
+    return launches
+
+
+def slo_phase(card, ckpt, host) -> int:
+    """slo (a)-(f): JAX's serving control plane on full-width ResNet-18 from
+    the serve phase's checkpoint, every conv through B10. Each part holds
+    submitted = completed + shed + expired + failed exactly (client, stats
+    and journal), B10's launches at 20 x (executed batches + warm-ups), the
+    trace's nesting and the registry against ServeStats. Returns the
+    tap_conv launches of the phase."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(SLO_DIR, ignore_errors=True)
+    base = ServeConfig(model="resnet18", checkpoint=str(ckpt), max_batch=SLO_MAX_BATCH)
+    total = 0
+
+    # (a) flash-crowd with admission control against without, two stacks.
+    for label, cfg in (("(a) flash-crowd, admission", dataclasses.replace(base, admission=True)),
+                       ("(a) flash-crowd, no admission", base)):
+        total += slo_part(label, "flash-crowd", cfg, card, 0)[2]
+    # (b) diurnal, (c) slow-client.
+    for label, scenario in (("(b) diurnal", "diurnal"), ("(c) slow-client", "slow-client")):
+        total += slo_part(label, scenario, base, card, 0)[2]
+
+    # (d) chaos-kill at two replicas: failover, then the respawn serves.
+    cfg = dataclasses.replace(base, n_replicas=2)
+    kill = ChaosMonkey.from_spec(SLO_KILL_SPEC)
+    bundle = slo_bundle("slo_d")
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(get("resnet18"), cfg, device="cuda", seed=1, obs=bundle,
+                                chaos=kill)
+    batcher.stats.attach_registry(bundle.registry)
+    with batcher:
+        report, idle = profiled_scenario("chaos-kill", batcher, 0)
+        slo_line("(d) chaos-kill", report, idle, card)
+        jc = bundle.journal.counts()
+        # Every batch that found the replica dead fails over once: the one
+        # it died under, and any other already dispatched to it.
+        if not kill.kill_replica_fired or not jc.get("failover") \
+                or not jc["failover"] == jc.get("replica_evicted") == jc.get("replica_respawned") \
+                or pool.routable() != [0, 1]:
+            fail(f"slo (d): no failover and respawn ({jc})")
+        bundle.journal.flush()
+        dead = next(r["replica"] for r in obs_lib.read_journal(bundle.journal.path)
+                    if r["kind"] == "replica_evicted")
+        parity = padded_bucket_parity(pool.engines[dead], (32, 32, 3), seed=0)
+        print(f"[smoke] slo (d) respawned replica {dead}: {parity}", flush=True)
+        if "bit-identical" not in parity:
+            fail("slo (d): the respawned replica's padded bucket is not bit-identical")
+        served_logits_check("(d) after the respawn", batcher, host)
+    check_obs("(d)", bundle, batcher.stats)
+    check_slo_launches("(d) chaos-kill", tap_conv.launches.count, batcher.executed,
+                       pool.warmups, 2)
+    total += tap_conv.launches.count
+
+    # (e) chaos-slow with a stall past its 150 ms p99 gate: it MUST fail.
+    batcher, report, launches = slo_part("(e) chaos-slow", "chaos-slow", base, card, 0,
+                                         chaos=ChaosMonkey.from_spec(SLO_SLOW_SPEC))
+    if report.passed or report.gates()["p99"] or not batcher.chaos.slow_replica_fired:
+        fail("slo (e): chaos-slow passed its p99 gate through a 400 ms stall")
+    total += launches
+
+    # (f) the autoscaler: 1 -> 2 replicas through a flash crowd, then, once
+    # the traffic stops, drain -> in-flight 0 -> retire.
+    cfg = dataclasses.replace(base, autoscale=True, max_replicas=2,
+                              slo_ms=SLO_SCALE_SLO_MS, window_s=SLO_SCALE_WINDOW_S)
+    bundle = slo_bundle("slo_f")
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(get("resnet18"), cfg, device="cuda", seed=1, obs=bundle)
+    batcher.stats.attach_registry(bundle.registry)
+    scaler = AutoScaler(pool, batcher, min_replicas=1, max_replicas=2, slo_ms=cfg.slo_ms,
+                        interval_s=0.05, cooldown_s=0.25, obs=bundle)
+    scaler.attach_registry(bundle.registry)
+    mem0 = engine_bytes()
+    with batcher, scaler:
+        report, idle = profiled_scenario("flash-crowd", batcher, 1)
+        ups = scaler.snapshot()["scale_ups"]
+        deadline = time.monotonic() + SLO_SCALE_WAIT_S
+        while scaler.snapshot()["scale_downs"] < 1 and time.monotonic() < deadline:
+            time.sleep(0.05)
+    snap = scaler.snapshot()
+    slo_line("(f) autoscale", report, idle, card)
+    retired = [i for _, d, i in scaler.actions if d == "down"]
+    mem1 = engine_bytes()
+    print(f"[smoke] slo (f): {ups} scale-up(s) during the crowd, {snap['scale_downs']} "
+          f"drain -> retire after it (replica {retired}, in-flight "
+          f"{[batcher.inflight(i) for i in retired]}), {snap['routable']} routable, "
+          f"{snap['direction_changes']} direction changes; card memory allocated "
+          f"(cuBLAS workspaces dropped) {mem0} B before, {mem1} B after the retire",
+          flush=True)
+    if ups < 1 or snap["scale_downs"] < 1 or snap["routable"] != 1 \
+            or any(batcher.inflight(i) for i in retired) \
+            or any(pool.engines[i].model is not None for i in retired) or mem1 != mem0:
+        fail("slo (f): the autoscaler did not scale up and then retire cleanly")
+    check_obs("(f)", bundle, batcher.stats)
+    check_slo_launches("(f) autoscale", tap_conv.launches.count, batcher.executed,
+                       pool.warmups)
+    total += tap_conv.launches.count
+    total += slo_cli(card, ckpt)
+    print(f"[smoke] slo (a)-(f) passed in {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total
+
+
 @contextlib.contextmanager
 def without_compiler():
     """$CXX names no compiler inside: the native library cannot be built,
@@ -3807,6 +4073,9 @@ def main() -> int:
     if not err <= tol:
         fail("served logits disagree with the plain-version model")
 
+    # -- 4'. the serving control plane: slo (a)-(f) -----------------------
+    slo_launches = slo_phase(card, ckpt, host)
+
     # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
     train_launches, rate_a = train_phase(card)
     ds = pipeline.Dataset(*synthetic.make_dataset(TRAIN_COUNT, seed=1234))
@@ -3924,7 +4193,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
-                     + serve50_launches),
+                     + serve50_launches + slo_launches),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],

@@ -9,7 +9,9 @@ the JAX package's layout so each module's counterpart is easy to find:
                  (``ops.tap_conv``: the SAME NHWC conv + fused epilogue).
 - ``nn``       — layers as ``torch.nn.Module``s: ConvBNAct, BatchNorm,
                  Dense, the pools, the ResNet family, VGG-16.
-- ``serve``    — registry, engine, dynamic batcher, telemetry, loadgen.
+- ``serve``    — registry, engine, dynamic batcher, telemetry, loadgen,
+                 admission, capacity, autoscaler, scenarios.
+- ``obs``      — span tracer, event journal, metrics registry.
 - ``convert``  — weights and checkpoints written by the JAX package.
 - ``utils``    — device resolution, histograms.
 

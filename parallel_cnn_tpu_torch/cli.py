@@ -23,10 +23,13 @@ over the model axis when M > 1 (rank 0 prints, records and checkpoints).
 Everything runs on the GPU unless ``--device cpu`` is given. Of the
 trainer flags of later slices, ``--comm-hosts``, ``--pipeline-stages``
 and ``--elastic`` are typed NotPortedErrors (``--comm-impl`` with a zoo
-model axis is JAX's data-only MeshLayoutError); chaos,
-async, trace and profile are not accepted yet, nor are the serving
-stack's admission control, autoscaler, scenarios, network front door and
-disk cache.
+model axis is JAX's data-only MeshLayoutError); the trainer's chaos,
+async, trace and profile are not accepted yet. ``serve`` and ``loadgen``
+take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
+``--max-replicas``, ``--window-s``, ``--scenario``, ``--chaos`` and the obs
+flags ``--trace``, ``--trace-dir`` and ``--metrics-json``; the network
+front door's flags and scenarios, and the disk cache, raise
+NotPortedError.
 """
 
 from __future__ import annotations
@@ -49,7 +52,9 @@ from parallel_cnn_tpu_torch.config import (
     DataConfig,
     FusedStepConfig,
     MeshConfig,
+    SERVE_CONV_BACKENDS,
     NotPortedError,
+    ObsConfig,
     ResilienceConfig,
     ServeConfig,
     TrainConfig,
@@ -504,10 +509,55 @@ def _run_train(argv: List[str]) -> int:
     return 0
 
 
+SCENARIO_NAMES = ("diurnal", "flash-crowd", "slow-client", "chaos-kill",
+                  "chaos-slow")
+#: JAX's wire scenarios (serve/scenarios.py NET_SCENARIOS): ROADMAP A12b.
+NET_SCENARIO_NAMES = ("net-steady", "net-slow-loris", "net-kill-endpoint",
+                      "net-hot-swap-diurnal")
+
+
+def _add_obs_flags(p: argparse.ArgumentParser) -> None:
+    """JAX's observability flags (cli.py:307-342): off by default (the
+    zero-cost no-op bundle); PCNN_OBS_* env sets the base and these flags
+    override field by field."""
+    p.add_argument("--trace", action="store_true",
+                   help="record host-side spans and the event journal; "
+                        "writes a Perfetto-loadable Chrome trace JSON and "
+                        "a JSONL journal under --trace-dir on exit "
+                        "[PCNN_OBS_TRACE]")
+    p.add_argument("--trace-dir", default=None, metavar="DIR",
+                   help="artifact directory for the trace + journal "
+                        "(implies --trace) [PCNN_OBS_DIR]")
+    p.add_argument("--metrics-json", default=None, metavar="PATH",
+                   help="write the metrics-registry JSON snapshot to PATH "
+                        "on exit (works without --trace: metrics-only "
+                        "mode) [PCNN_OBS_METRICS_JSON]")
+
+
+def _obs_config_from_args(args: argparse.Namespace) -> Optional[ObsConfig]:
+    """Env first, flags override field by field; everything unset → None
+    (observability off)."""
+    obs_cfg = ObsConfig.from_env()
+    if args.trace or args.trace_dir or args.metrics_json:
+        base = obs_cfg if obs_cfg is not None else ObsConfig(
+            trace=bool(args.trace or args.trace_dir)
+        )
+        obs_cfg = dataclasses.replace(
+            base,
+            trace=base.trace or bool(args.trace or args.trace_dir),
+            dir=args.trace_dir or base.dir,
+            metrics_json=args.metrics_json or base.metrics_json,
+        )
+    return obs_cfg
+
+
 def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
-    """Flags of `serve` and `loadgen`; defaults come from
-    ServeConfig.from_env() (the PCNN_SERVE_* names of the JAX package)."""
+    """Flags of `serve` and `loadgen` (JAX's cli.py:590-700); defaults
+    come from ServeConfig.from_env() (the PCNN_SERVE_* names of the JAX
+    package). The network front door's flags parse and raise
+    NotPortedError."""
     sc = ServeConfig.from_env()
+    e = os.environ.get
     p = argparse.ArgumentParser(
         prog=f"parallel_cnn_tpu_torch {cmd}",
         description=(
@@ -521,9 +571,15 @@ def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
     p.add_argument("--model", default=sc.model, choices=list(SERVE_MODELS),
                    help="registry name [PCNN_SERVE_MODEL]")
     p.add_argument("--checkpoint", default=sc.checkpoint,
-                   help="restore params + BN stats from a zoo checkpoint "
-                        "the JAX trainer wrote (.npz; optimizer state "
-                        "ignored) [PCNN_SERVE_CHECKPOINT]")
+                   help="restore params + BN stats from a checkpoint the "
+                        "JAX trainer wrote (.npz; a lenet params tree or a "
+                        "zoo state, optimizer state ignored) "
+                        "[PCNN_SERVE_CHECKPOINT]")
+    p.add_argument("--conv-backend", default=sc.conv_backend,
+                   choices=list(SERVE_CONV_BACKENDS),
+                   help="resnet/vgg only: the hand conv kernels with fused "
+                        "eval epilogues (cuda, their default) or library "
+                        "convs (xla) [PCNN_SERVE_CONV_BACKEND]")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; every visible card) or cpu, which "
                         "runs the kernels' plain PyTorch versions")
@@ -544,6 +600,49 @@ def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
     p.add_argument("--no-precompile", action="store_true",
                    help="warm buckets lazily on first use instead of at "
                         "startup [PCNN_SERVE_PRECOMPILE=0]")
+    p.add_argument("--admission", action="store_true",
+                   help="SLO admission control in front of the queue: "
+                        "EWMA reject-early shedding + the graceful-"
+                        "degradation ladder (serve/admission.py) "
+                        "[PCNN_SERVE_ADMISSION]")
+    p.add_argument("--slo-ms", type=float, default=sc.slo_ms,
+                   help="completion-time objective: admission budget for "
+                        "deadline-less requests, autoscaler p99 target "
+                        "[PCNN_SERVE_SLO_MS]")
+    p.add_argument("--autoscale", action="store_true",
+                   help="replica autoscaler: grow/drain the pool between 1 "
+                        "and --max-replicas from windowed telemetry "
+                        "(serve/autoscaler.py) [PCNN_SERVE_AUTOSCALE]")
+    p.add_argument("--max-replicas", type=int, default=sc.max_replicas,
+                   help="autoscaler ceiling (0 = --replicas: no growth) "
+                        "[PCNN_SERVE_MAX_REPLICAS]")
+    p.add_argument("--window-s", type=float, default=sc.window_s,
+                   help="decay time constant of the windowed telemetry "
+                        "the autoscaler reads [PCNN_SERVE_WINDOW_S]")
+    p.add_argument("--scenario", default=None,
+                   choices=[*SCENARIO_NAMES, *NET_SCENARIO_NAMES],
+                   help="drive a seeded SLO-gated traffic scenario "
+                        "(serve/scenarios.py) instead of plain loadgen; "
+                        "exit code reflects the p99/shed/conservation "
+                        "gates (chaos-* scenarios need --chaos; net-* "
+                        "scenarios are not ported)")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="serving fault injection: kill-replica@SEQ kills "
+                        "the replica holding dispatch batch SEQ, "
+                        "slow-replica@SEQ:MS stalls it MS ms "
+                        "(resilience/chaos.py)")
+    g = p.add_argument_group(
+        "network front door (not ported: each raises NotPortedError)")
+    g.add_argument("--listen", action="store_true",
+                   default=e("PCNN_SERVE_LISTEN", "0") != "0")
+    g.add_argument("--listen-host", default=None)
+    g.add_argument("--listen-port", type=int, default=None)
+    g.add_argument("--conn-deadline-ms", type=float, default=None)
+    g.add_argument("--aot-cache-dir",
+                   default=e("PCNN_SERVE_AOT_CACHE_DIR") or None)
+    g.add_argument("--supervise", action="store_true",
+                   default=e("PCNN_SERVE_SUPERVISE", "0") != "0")
+    g.add_argument("--swap-checkpoint", default=None, metavar="PATH")
     p.add_argument("--requests", type=int,
                    default=64 if cmd == "serve" else 512,
                    help="traffic volume to drive through the stack")
@@ -559,10 +658,30 @@ def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
                         "arrival-process seed")
     p.add_argument("--json", default=None, metavar="PATH",
                    help="write the report/telemetry snapshot as JSON")
+    _add_obs_flags(p)
     return p
 
 
+def _refuse_later_serve_slices(args: argparse.Namespace) -> None:
+    """The network front door's flags and scenarios (JAX's serve/net.py,
+    serve/supervisor.py) raise a typed error naming ROADMAP A12b."""
+    for flag, on in (
+        ("--listen", args.listen), ("--listen-host", args.listen_host),
+        ("--listen-port", args.listen_port),
+        ("--conn-deadline-ms", args.conn_deadline_ms),
+        ("--supervise", args.supervise),
+        ("--swap-checkpoint", args.swap_checkpoint),
+        ("--aot-cache-dir", args.aot_cache_dir),
+        (f"--scenario {args.scenario}", args.scenario in NET_SCENARIO_NAMES),
+    ):
+        if on not in (None, False):
+            raise NotPortedError(
+                f"{flag} needs the network front door or the executable "
+                f"cache, which are not ported yet (ROADMAP A12b)")
+
+
 def _serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
+    env = ServeConfig.from_env()
     return ServeConfig(
         model=args.model,
         checkpoint=args.checkpoint,
@@ -571,7 +690,13 @@ def _serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
         queue_depth=args.queue_depth,
         n_replicas=args.replicas,
         deadline_ms=args.deadline_ms,
+        conv_backend=args.conv_backend,
         precompile=not args.no_precompile,
+        admission=args.admission or env.admission,
+        slo_ms=args.slo_ms,
+        autoscale=args.autoscale or env.autoscale,
+        max_replicas=args.max_replicas,
+        window_s=args.window_s,
     )
 
 
@@ -600,22 +725,61 @@ def padded_bucket_parity(engine, in_shape, seed: int = 0) -> str:
 def _run_serve(cmd: str, argv: List[str]) -> int:
     """`serve` restores (or initialises) the model, warms the bucket
     ladder, proves the padding parity contract on one padded bucket,
-    drives a short run of traffic and prints the telemetry. `loadgen` is
-    the same stack under a chosen arrival pattern."""
+    drives a short run of traffic — or a gated scenario — and prints the
+    telemetry. `loadgen` is the same stack under a chosen arrival
+    pattern. ``--admission``, ``--autoscale``, ``--chaos`` and the obs
+    flags wire JAX's SLO layer in front of it (cli.py:815-1046); a
+    scenario whose gate trips exits 1."""
     args = build_serve_parser(cmd).parse_args(argv)
+    _refuse_later_serve_slices(args)
     cfg = _serve_config_from_args(args)
 
+    from parallel_cnn_tpu_torch import obs as obs_lib
     from parallel_cnn_tpu_torch.ops import tap_conv
-    from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
+    from parallel_cnn_tpu_torch.serve import (
+        AutoScaler,
+        get,
+        loadgen,
+        scenarios,
+        serve_stack,
+    )
 
-    handle = get(cfg.model)
+    handle = get(cfg.model, conv_backend=cfg.conv_backend)
+    obs_bundle = obs_lib.from_config(_obs_config_from_args(args), run=cmd)
+    chaos = None
+    if args.chaos:
+        from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
+
+        chaos = ChaosMonkey.from_spec(args.chaos)
     t0 = time.perf_counter()
-    pool, batcher = serve_stack(handle, cfg, device=args.device, seed=args.seed)
+    pool, batcher = serve_stack(handle, cfg, device=args.device, seed=args.seed,
+                                obs=obs_bundle, chaos=chaos)
     startup = time.perf_counter() - t0
+    if obs_bundle.enabled:
+        batcher.stats.attach_registry(obs_bundle.registry)
+        if batcher.admission is not None:
+            batcher.admission.attach_registry(obs_bundle.registry)
     src = cfg.checkpoint or "fresh init (no --checkpoint)"
     print(f"[serve] model={cfg.model} params from {src}")
     print(f"[serve] replicas={cfg.n_replicas} on "
           f"{[str(e.device) for e in pool.engines]}")
+    if cfg.admission:
+        print(f"[serve] admission control on (SLO {cfg.slo_ms:g} ms)")
+    scaler = None
+    if cfg.autoscale:
+        scaler = AutoScaler(
+            pool, batcher,
+            min_replicas=1,
+            max_replicas=cfg.effective_max_replicas,
+            slo_ms=cfg.slo_ms,
+            obs=obs_bundle,
+        )
+        if obs_bundle.enabled:
+            scaler.attach_registry(obs_bundle.registry)
+        scaler.start()
+        print(f"[serve] autoscaler on "
+              f"(1..{cfg.effective_max_replicas} replicas, "
+              f"p99 target {cfg.slo_ms:g} ms)")
     if cfg.precompile:
         buckets = pool.engines[0].stats.warm_seconds
         table = ", ".join(f"b{b}: {s * 1e3:.0f} ms"
@@ -630,34 +794,68 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
             print(f"[serve] {line}")
             if "MISMATCH" in line:
                 rc = 1
-        report = loadgen.run(
-            batcher,
-            pattern=args.pattern,
-            n_requests=args.requests,
-            concurrency=args.concurrency,
-            rate=args.rate,
-            deadline_ms=args.deadline_ms or None,
-            seed=args.seed,
-        )
-        print(f"[{cmd}] {args.pattern}-loop: "
-              f"{report.completed}/{report.requests} ok, "
-              f"{report.throughput:.1f} req/s, "
-              f"shed rate {report.shed_rate:.3f}")
-        lat = report.latency.summary(scale=1e3)
-        if lat.get("count"):
-            print(f"[{cmd}] latency p50 {lat['p50']:.2f} ms, "
-                  f"p90 {lat['p90']:.2f} ms, p99 {lat['p99']:.2f} ms")
+        if args.scenario:
+            report = scenarios.run(
+                args.scenario, batcher,
+                seed=args.seed,
+                deadline_ms=args.deadline_ms or None,
+            )
+            gates = report.gates()
+            p99 = report.p99_ms
+            print(f"[{cmd}] scenario {report.name}: "
+                  f"{report.completed}/{report.requests} ok, "
+                  f"shed rate {report.shed_rate:.3f}, "
+                  f"p99 {p99:.1f} ms" if p99 is not None else
+                  f"[{cmd}] scenario {report.name}: no completions")
+            print(f"[{cmd}] gates {'PASS' if report.passed else 'FAIL'}: "
+                  + ", ".join(f"{k}={'ok' if v else 'TRIPPED'}"
+                              for k, v in gates.items()))
+            if not report.passed:
+                rc = 1
+        else:
+            report = loadgen.run(
+                batcher,
+                pattern=args.pattern,
+                n_requests=args.requests,
+                concurrency=args.concurrency,
+                rate=args.rate,
+                deadline_ms=args.deadline_ms or None,
+                seed=args.seed,
+            )
+            print(f"[{cmd}] {args.pattern}-loop: "
+                  f"{report.completed}/{report.requests} ok, "
+                  f"{report.throughput:.1f} req/s, "
+                  f"shed rate {report.shed_rate:.3f}")
+            lat = report.latency.summary(scale=1e3)
+            if lat.get("count"):
+                print(f"[{cmd}] latency p50 {lat['p50']:.2f} ms, "
+                      f"p90 {lat['p90']:.2f} ms, p99 {lat['p99']:.2f} ms")
+        if scaler is not None:
+            scaler.close()
+            snap = scaler.snapshot()
+            print(f"[{cmd}] autoscaler: {snap['scale_ups']} up, "
+                  f"{snap['scale_downs']} down, "
+                  f"{snap['routable']} replicas routable")
         if pool.engines[0].device.type == "cuda":
-            print(f"[{cmd}] tap_conv kernel launches: {tap_conv.launches.count}")
+            print(f"[{cmd}] tap_conv kernel launches: {tap_conv.launches.count}"
+                  f" over {batcher.executed} executed batches, {pool.warmups}"
+                  f" bucket warm-ups and {2 if cmd == 'serve' else 0} parity"
+                  f" forwards")
         print(batcher.stats.render())
         if args.json:
             out = {"config": dataclasses.asdict(cfg),
                    "report": report.to_dict(),
                    "telemetry": batcher.stats.snapshot(),
                    "window": batcher.stats.window_snapshot()}
+            if batcher.admission is not None:
+                out["admission"] = batcher.admission.snapshot()
+            if scaler is not None:
+                out["autoscaler"] = scaler.snapshot()
             with open(args.json, "w") as f:
                 json.dump(out, f, indent=2)
             print(f"[{cmd}] report written to {args.json}")
+    for kind, path in obs_bundle.finish().items():
+        print(f"[{cmd}] {kind} written to {path}")
     return rc
 
 

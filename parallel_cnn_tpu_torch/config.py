@@ -5,10 +5,9 @@ slices use. For training: ``DataConfig``, ``TrainConfig`` and
 ``ResilienceConfig``, gathered in ``Config`` with the ``fused`` switch
 (JAX's ``Config.fused is not None``: the ``--fused-step`` bucketed update).
 For serving: the fields of ``ServeConfig`` read from the same
-``PCNN_SERVE_*`` environment names. Admission control, the autoscaler and
-the network front door are not ported yet, so their fields are absent; so
-is ``conv_backend``, which has one value in the port
-(``serve.registry.get`` takes it).
+``PCNN_SERVE_*`` environment names, admission control and the autoscaler
+included; the network front door's ``NetConfig`` is not ported yet. For
+observability: ``ObsConfig`` and its ``PCNN_OBS_*`` names.
 
 For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
 far, and the model and conv-backend names it takes; its other knobs are
@@ -337,7 +336,12 @@ class FusedStepConfig:
 
 
 #: Registry names the port serves (serve/registry.py).
-SERVE_MODELS = ("resnet18", "resnet34", "resnet50", "vgg16")
+SERVE_MODELS = ("lenet_ref", "cifar_cnn", "resnet18", "resnet34", "resnet50",
+                "vgg16")
+#: Conv kernels of the server: "cuda" (the hand kernels with fused eval
+#: epilogues, JAX's "pallas") or "xla" (library convs, JAX's "xla"; the
+#: trainer calls it "torch"). Only the resnet and vgg families take "cuda".
+SERVE_CONV_BACKENDS = ("xla", "cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -362,9 +366,26 @@ class ServeConfig:
     n_replicas: int = 1
     # Default per-request deadline budget (ms); 0 = no deadline.
     deadline_ms: float = 0.0
+    # Conv kernels for the resnet/vgg families: "cuda" or "xla"; None
+    # takes "cuda" for them and "xla" for lenet_ref and cifar_cnn.
+    conv_backend: Optional[str] = None
     # Run every bucket once at startup so the first requests pay no
     # kernel build or allocator warm-up.
     precompile: bool = True
+    # SLO admission control (serve/admission.py): EWMA reject-early
+    # shedding + the graceful-degradation ladder in front of the queue.
+    admission: bool = False
+    # Completion-time objective (ms): the admission predictor's budget
+    # for deadline-less requests, the autoscaler's p99 target.
+    slo_ms: float = 100.0
+    # Replica autoscaler (serve/autoscaler.py): grow/drain the pool from
+    # windowed telemetry between 1 and max_replicas.
+    autoscale: bool = False
+    # Autoscaler ceiling; 0 = n_replicas (no growth).
+    max_replicas: int = 0
+    # Exponential-decay time constant (seconds) of the windowed
+    # telemetry views the autoscaler reads (serve/telemetry.py).
+    window_s: float = 10.0
 
     def __post_init__(self):
         if self.max_batch < 1 or (self.max_batch & (self.max_batch - 1)):
@@ -377,6 +398,26 @@ class ServeConfig:
             raise ValueError(f"queue_depth must be >= 1, got {self.queue_depth}")
         if self.n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {self.n_replicas}")
+        if self.conv_backend not in (None, *SERVE_CONV_BACKENDS):
+            raise ValueError(f"unknown conv backend {self.conv_backend!r}")
+        if self.slo_ms <= 0:
+            raise ValueError(f"slo_ms must be > 0, got {self.slo_ms}")
+        if self.window_s <= 0:
+            raise ValueError(f"window_s must be > 0, got {self.window_s}")
+        if self.max_replicas < 0:
+            raise ValueError(
+                f"max_replicas must be >= 0, got {self.max_replicas}"
+            )
+        if self.max_replicas and self.max_replicas < self.n_replicas:
+            raise ValueError(
+                f"max_replicas ({self.max_replicas}) must be >= "
+                f"n_replicas ({self.n_replicas})"
+            )
+
+    @property
+    def effective_max_replicas(self) -> int:
+        """The autoscaler ceiling: max_replicas, or n_replicas when 0."""
+        return self.max_replicas or self.n_replicas
 
     @staticmethod
     def from_env() -> "ServeConfig":
@@ -391,5 +432,63 @@ class ServeConfig:
             queue_depth=int(e("PCNN_SERVE_QUEUE_DEPTH", "256")),
             n_replicas=int(e("PCNN_SERVE_REPLICAS", "1")),
             deadline_ms=float(e("PCNN_SERVE_DEADLINE_MS", "0")),
+            conv_backend=e("PCNN_SERVE_CONV_BACKEND") or None,
             precompile=e("PCNN_SERVE_PRECOMPILE", "1") != "0",
+            admission=e("PCNN_SERVE_ADMISSION", "0") != "0",
+            slo_ms=float(e("PCNN_SERVE_SLO_MS", "100")),
+            autoscale=e("PCNN_SERVE_AUTOSCALE", "0") != "0",
+            max_replicas=int(e("PCNN_SERVE_MAX_REPLICAS", "0")),
+            window_s=float(e("PCNN_SERVE_WINDOW_S", "10")),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ObsConfig:
+    """Observability policy (obs/: span tracing with Perfetto export, the
+    process-wide metrics registry, and the JSONL event journal); JAX's
+    fields, defaults and ``PCNN_OBS_*`` names.
+
+    No ObsConfig at all keeps every hot path on the zero-cost no-op
+    bundle: no spans, no journal, no files. Constructing one (--trace /
+    PCNN_OBS_* env) opts a run in.
+    """
+
+    # Emit host-side spans + the event journal and export the Chrome
+    # trace at the end of the run.
+    trace: bool = True
+    # Directory all trace/journal artifacts are written under.
+    dir: str = "obs_out"
+    # Path for a MetricsRegistry JSON snapshot at the end of the run;
+    # None = no snapshot file. Setting only this (trace off) still
+    # enables the registry without any span/journal cost.
+    metrics_json: Optional[str] = None
+    # Mirror every span into torch.profiler.record_function so a profile
+    # of the run carries the same names as the host timeline (JAX's
+    # jax_annotations, read from the same PCNN_OBS_JAX).
+    annotations: bool = True
+
+    def __post_init__(self):
+        if not self.dir:
+            raise ValueError("ObsConfig.dir must be a non-empty path")
+
+    @property
+    def enabled(self) -> bool:
+        return self.trace or self.metrics_json is not None
+
+    @staticmethod
+    def from_env() -> Optional["ObsConfig"]:
+        """ObsConfig from PCNN_OBS_TRACE / PCNN_OBS_DIR /
+        PCNN_OBS_METRICS_JSON / PCNN_OBS_JAX, or None when none of them
+        is set (→ the no-op bundle everywhere)."""
+        trace = os.environ.get("PCNN_OBS_TRACE")
+        d = os.environ.get("PCNN_OBS_DIR")
+        mj = os.environ.get("PCNN_OBS_METRICS_JSON")
+        jx = os.environ.get("PCNN_OBS_JAX")
+        if trace is None and d is None and mj is None and jx is None:
+            return None
+        return ObsConfig(
+            trace=(trace if trace is not None else "1") not in ("0", ""),
+            dir=d or "obs_out",
+            metrics_json=mj or None,
+            annotations=(jx or "1") != "0",
         )

@@ -12,7 +12,15 @@ port's counterpart of ``parallel_cnn_tpu/serve/engine.py``).
   work.)
 - **Device pinning**: each engine owns a copy of the weights on its
   device and runs under ``torch.cuda.device(dev)``, so ReplicaPool can run
-  engines on batcher worker threads round-robin across local cards.
+  engines on batcher worker threads round-robin across local cards. On
+  one card every replica shares it; each runner thread launches on its
+  current stream, and the one wait a batch makes is the copy of its
+  logits to the host.
+- **Failover and scaling** (ReplicaPool): kill/evict, respawn, grow,
+  drain, undrain and retire, JAX's state machine. A respawned or grown
+  replica copies the pool's host weights to the card anew; a retired one
+  drops its device weights, so the card's allocated memory returns to
+  its level before the replica was grown.
 """
 
 from __future__ import annotations
@@ -60,7 +68,7 @@ def load_or_init(handle, checkpoint: Optional[str] = None,
     if checkpoint is not None:
         from parallel_cnn_tpu_torch.convert import load_jax_checkpoint
 
-        load_jax_checkpoint(checkpoint, model)
+        (handle.load or load_jax_checkpoint)(checkpoint, model)
     return model
 
 
@@ -98,6 +106,10 @@ class Engine:
                 f"max_batch must be a power of two >= 1, got {max_batch}"
             )
         self.device = resolve_device(device)
+        if self.device.type == "cuda":
+            # Library convs (the "xla" backend, cifar_cnn) in full f32,
+            # as the plain references they are held against.
+            torch.backends.cudnn.allow_tf32 = False
         self.handle = handle
         self.max_batch = max_batch
         if model is None:
@@ -130,9 +142,18 @@ class Engine:
             return self.handle.forward(self.model, x)
 
     def _run(self, x: np.ndarray) -> np.ndarray:
+        model = self.model
+        if model is None:
+            raise ReplicaDead(-1, "the engine was retired")
         with self._device_ctx(), torch.inference_mode():
             xt = torch.from_numpy(x).to(self.device)
-            return self.handle.forward(self.model, xt).cpu().numpy()
+            return self.handle.forward(model, xt).cpu().numpy()
+
+    def release(self) -> None:
+        """Drop this engine's device weights (the replica was retired); a
+        later predict raises ReplicaDead."""
+        with self._lock:
+            self.model = None
 
     def precompile(self) -> Dict[int, float]:
         """Run every bucket once now (kernel build included on the first);
@@ -179,10 +200,13 @@ class ReplicaPool:
 
     Weights are restored or initialised ONCE on the host and copied to
     each replica's device. Replica selection is a deterministic
-    round-robin. ``kill`` marks a replica dead (its predict raises
-    ReplicaDead, round-robin skips it); ``respawn`` builds a fresh Engine
-    from the host copy. In-flight failover, autoscaler growth, draining
-    and hot swap come with a later slice."""
+    round-robin over routable replicas (alive and not draining). ``kill``
+    (alias ``evict``) marks a replica dead: its predict raises
+    ReplicaDead and round-robin skips it. ``respawn`` builds a fresh
+    Engine from the host copy; ``grow`` revives a dead slot that way or
+    appends a new replica; ``drain`` / ``retire`` are the scale-down's
+    two steps, and ``set_weights`` swaps the host copy later replicas are
+    built from (JAX's ``ReplicaPool``, serve/engine.py:551-692)."""
 
     def __init__(
         self,
@@ -202,54 +226,134 @@ class ReplicaPool:
             [resolve_device(d) for d in devices] if devices is not None
             else local_devices(device)
         )
-        # Kept host-side for respawn.
+        # Kept host-side for respawn and growth.
         self._model = load_or_init(handle, checkpoint, seed)
         self._precompile = precompile
         self.handle = handle
         self.max_batch = max_batch
-        self.engines = [self._engine(i) for i in range(n_replicas)]
+        self._lock = threading.Lock()
+        # Bucket warm-ups of every engine this pool built, respawned and
+        # grown ones included: each is one forward on the device.
+        self.warmups = 0
+        self.engines = [self._engine(self.devices[i % len(self.devices)])
+                        for i in range(n_replicas)]
         self._rr = 0
         self._alive = [True] * n_replicas
-        self._lock = threading.Lock()
+        self._draining = [False] * n_replicas
 
-    def _engine(self, i: int) -> Engine:
-        return Engine(
+    def _engine(self, device) -> Engine:
+        with self._lock:
+            model = self._model
+        eng = Engine(
             self.handle,
-            model=self._model,
+            model=model,
             max_batch=self.max_batch,
-            device=self.devices[i % len(self.devices)],
+            device=device,
             precompile=self._precompile,
         )
+        with self._lock:
+            self.warmups += eng.stats.warmups
+        return eng
 
     @property
     def n_replicas(self) -> int:
         return len(self.engines)
 
     def alive(self) -> List[int]:
+        """Indices of live replicas (draining ones included — they are
+        still serving their in-flight batches)."""
         with self._lock:
             return [i for i, a in enumerate(self._alive) if a]
 
+    def routable(self) -> List[int]:
+        """Indices round-robin will hand out: alive and not draining —
+        the pool's serving capacity (the autoscaler's sizing input)."""
+        with self._lock:
+            return [
+                i for i, a in enumerate(self._alive)
+                if a and not self._draining[i]
+            ]
+
     def kill(self, i: int) -> None:
-        """Mark replica ``i`` dead until ``respawn``."""
+        """Mark replica ``i`` dead until ``respawn``: the chaos injection
+        point (``kill-replica@SEQ``), and what ``evict`` does after an
+        observed failure."""
         with self._lock:
             self._alive[i] = False
+            self._draining[i] = False
 
-    def respawn(self, i: int) -> int:
-        """Re-pin a replacement for replica ``i`` from the host weights;
-        returns ``i`` (live again)."""
-        eng = self._engine(i)
+    evict = kill
+
+    def respawn(self, i: int, device=None) -> int:
+        """Re-pin a replacement for replica ``i`` from the host weights
+        (on ``device``, else the slot's own ``devices[i % len(devices)]``);
+        returns ``i`` (live again). The old engine's device weights go
+        with it."""
+        eng = self._engine(resolve_device(device) if device is not None
+                           else self.devices[i % len(self.devices)])
         with self._lock:
-            self.engines[i] = eng
+            old, self.engines[i] = self.engines[i], eng
             self._alive[i] = True
+            self._draining[i] = False
+        old.release()
         return i
 
+    def grow(self, device=None) -> int:
+        """Add one serving replica; returns its slot index. A dead slot
+        (killed or retired) is revived through ``respawn``; with none, a
+        new Engine is appended on the next device of the round-robin
+        placement (or ``device``). The Engine builds outside the pool
+        lock and is published at once; slot indices never move."""
+        with self._lock:
+            free = [i for i, a in enumerate(self._alive) if not a]
+        if free:
+            return self.respawn(free[0], device=device)
+        eng = self._engine(resolve_device(device) if device is not None
+                           else self.devices[len(self.engines) % len(self.devices)])
+        with self._lock:
+            self.engines.append(eng)
+            self._alive.append(True)
+            self._draining.append(False)
+            return len(self.engines) - 1
+
+    def set_weights(self, model: nn.Module) -> None:
+        """Swap the pool's host weights: every replica built from now on
+        (grow / respawn) serves ``model``; live replicas keep theirs until
+        retired (the hot-swap primitive)."""
+        with self._lock:
+            self._model = model
+
+    def drain(self, i: int) -> None:
+        """Make replica ``i`` unroutable while leaving it alive: batches
+        already dispatched to it still run. ``retire`` completes the
+        scale-down once its in-flight count is zero."""
+        with self._lock:
+            self._draining[i] = True
+
+    def undrain(self, i: int) -> None:
+        """Abort a drain: a still-alive replica returns to rotation."""
+        with self._lock:
+            if self._alive[i]:
+                self._draining[i] = False
+
+    def retire(self, i: int) -> None:
+        """Free a drained slot: the replica is gone (predict raises
+        ReplicaDead), its device weights are dropped, and the slot is
+        free for a later ``grow``."""
+        with self._lock:
+            self._alive[i] = False
+            self._draining[i] = False
+            eng = self.engines[i]
+        eng.release()
+
     def next_replica(self) -> int:
-        """Deterministic round-robin over live replicas."""
+        """Deterministic round-robin over routable replicas (dead and
+        draining slots are skipped without consuming a turn)."""
         with self._lock:
             for _ in range(len(self.engines)):
                 i = self._rr
                 self._rr = (self._rr + 1) % len(self.engines)
-                if self._alive[i]:
+                if self._alive[i] and not self._draining[i]:
                     return i
         raise ReplicaDead(-1, "no live replicas in the pool")
 
@@ -262,9 +366,11 @@ class ReplicaPool:
     def predict(self, x, replica: Optional[int] = None) -> Tuple[np.ndarray, int]:
         """Run one batch on a replica (round-robin unless pinned); returns
         (outputs, replica index). A pinned dead replica raises
-        ReplicaDead."""
+        ReplicaDead before anything runs — the batcher's failover
+        trigger."""
         i = self.next_replica() if replica is None else replica
         with self._lock:
             if not self._alive[i]:
                 raise ReplicaDead(i)
-        return self.engines[i].predict(x), i
+            eng = self.engines[i]
+        return eng.predict(x), i

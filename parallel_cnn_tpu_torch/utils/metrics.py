@@ -131,6 +131,20 @@ class Histogram:
                     return min(max(mid, self.min), self.max)
             return self.max
 
+    def merge(self, other: "Histogram") -> None:
+        """Fold another histogram (same binning) into this one."""
+        if (other.lo, other.hi, other.bins) != (self.lo, self.hi, self.bins):
+            raise ValueError("histogram binning mismatch")
+        with self._lock:
+            for i, c in enumerate(other.counts):
+                self.counts[i] += c
+            self.count += other.count
+            self.sum += other.sum
+            if other.min is not None:
+                self.min = other.min if self.min is None else min(self.min, other.min)
+            if other.max is not None:
+                self.max = other.max if self.max is None else max(self.max, other.max)
+
     @property
     def mean(self) -> Optional[float]:
         return self.sum / self.count if self.count else None

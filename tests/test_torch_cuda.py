@@ -38,7 +38,14 @@ from parallel_cnn_tpu_torch.ops import (
     tap_conv,
     tap_wgrad,
 )
-from parallel_cnn_tpu_torch.serve import get, loadgen, serve_stack
+from parallel_cnn_tpu_torch.serve import (
+    AutoScaler,
+    ReplicaDead,
+    ReplicaPool,
+    get,
+    loadgen,
+    serve_stack,
+)
 from parallel_cnn_tpu_torch.train import step, trainer, zoo
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -215,6 +222,63 @@ def test_serve_path_launches_the_kernel_on_card(card):
     assert report.completed == 8
     batches = pool.engines[0].stats.predicts
     assert tap_conv.launches.count == 20 * batches > 0
+
+
+def test_grow_then_retire_returns_the_card_memory_on_card(card):
+    """grow → drain → retire: the retired engine holds no tensors, so the
+    card's allocated memory returns to its level before the grow."""
+    pool = ReplicaPool(get("resnet18"), max_batch=4, device="cuda", precompile=True)
+    xs = loadgen.make_samples(3, (32, 32, 3), seed=0)
+    pool.predict(xs, replica=0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    i = pool.grow()
+    pool.predict(xs, replica=i)
+    assert torch.cuda.memory_allocated() > before
+    pool.drain(i)
+    pool.retire(i)
+    torch.cuda.synchronize()
+    assert torch.cuda.memory_allocated() == before
+    assert pool.alive() == [0] and pool.engines[i].model is None
+
+
+def test_respawned_replica_logits_are_bit_identical_on_card(card):
+    """kill → respawn copies the pool's host weights to the card anew; the
+    new replica's logits equal the original's bit for bit at every bucket."""
+    pool = ReplicaPool(get("resnet18"), n_replicas=2, max_batch=64, device="cuda")
+    xs = loadgen.make_samples(64, (32, 32, 3), seed=4)
+    first = {b: pool.predict(xs[:b], replica=1)[0] for b in BUCKETS}
+    pool.kill(1)
+    with pytest.raises(ReplicaDead):
+        pool.predict(xs[:1], replica=1)
+    assert pool.respawn(1) == 1
+    for b in BUCKETS:
+        np.testing.assert_array_equal(pool.predict(xs[:b], replica=1)[0], first[b])
+        np.testing.assert_array_equal(pool.predict(xs[:b], replica=0)[0], first[b])
+
+
+def test_runner_added_mid_traffic_launches_the_kernel_on_card(card):
+    """The autoscaler's scale-up while requests flow: the grown replica's
+    runner thread serves batches on the pool's card through B10, and the
+    launches are 20 per executed batch and warm-up."""
+    handle = get("resnet18")
+    cfg = ServeConfig(max_batch=8, max_wait_ms=1.0, precompile=True)
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(handle, cfg, device="cuda", seed=0)
+    scaler = AutoScaler(pool, batcher, min_replicas=1, max_replicas=2)
+    xs = loadgen.make_samples(8, handle.in_shape, seed=1)
+    with batcher:
+        early = [batcher.submit(x) for x in xs]
+        assert scaler._scale_up(0.0) == "up"
+        assert batcher.n_runners == pool.n_replicas == 2
+        late = [batcher.submit(x) for _ in range(8) for x in xs]
+        for f in early + late:
+            assert f.result(timeout=120).shape == (10,)
+    assert {f.replica for f in late} == {0, 1}
+    assert pool.engines[1].device == pool.engines[0].device
+    assert pool.engines[1].device.type == "cuda"
+    warmups = sum(e.stats.warmups for e in pool.engines)
+    assert tap_conv.launches.count == 20 * (batcher.executed + warmups)
 
 
 # ---------------------------------------------------------------------------
