@@ -18,6 +18,15 @@ port's two paths through their user-facing entry points:
   replica's answers), chaos-slow (its p99 gate must trip) and the
   autoscaler from one replica to two and back, once through the serve
   CLI, each with exact conservation and B10 launches;
+- the network front door (net (a)-(f)) on the same checkpoint over
+  loopback TCP: net-steady with the wire-served logits against the plain
+  model, the closed loop over the wire (its clients in 4 processes of
+  their own, then in the server's process) beside the in-process one,
+  slow-loris reaped, the endpoint killed with the supervisor (one respawn
+  on its port) and without it (the gate trips), a hot swap to new weights
+  with no failed request and the card's memory back, and the serve CLI
+  with --listen --supervise through a killed endpoint, each tier (wire,
+  batcher, journal) on its own conservation law and B10's launches exact;
 - training: the LeNet-ref trainer's CLI on the synthetic 60,000/10,000
   MNIST stand-in, through the fused train-step kernel (--ops cuda), the
   fused SGD kernel (--fused-step) and the per-sample plain path, with a
@@ -96,13 +105,16 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
 import faulthandler
+import gc
 import io
 import itertools
 import json
 import os
 import shutil
+import subprocess
 import sys
 import time
 from unittest import mock
@@ -143,10 +155,24 @@ from parallel_cnn_tpu_torch.parallel import collectives, data_parallel, distribu
 from parallel_cnn_tpu_torch.ops.activations import apply_grad
 from parallel_cnn_tpu_torch import obs as obs_lib
 from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
-from parallel_cnn_tpu_torch.serve import AutoScaler, get, loadgen, scenarios, serve_stack
+from parallel_cnn_tpu_torch.resilience.retry import RetryPolicy
+from parallel_cnn_tpu_torch.serve import (
+    AutoScaler,
+    Engine,
+    NetServer,
+    Supervisor,
+    WireStats,
+    armed_factory,
+    get,
+    loadgen,
+    scenarios,
+    serve_stack,
+)
+from parallel_cnn_tpu_torch.serve.net import encode_request
 from parallel_cnn_tpu_torch.train import step as step_lib
 from parallel_cnn_tpu_torch.train import trainer, zoo
 from parallel_cnn_tpu_torch.utils.backend import card_name_and_power_limit
+from parallel_cnn_tpu_torch.utils.metrics import Histogram
 from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 
 BATCH = 64
@@ -3146,13 +3172,20 @@ SLO_SLOW_SPEC = "slow-replica@4:400"  # 400 ms > chaos-slow's 150 ms gate
 
 
 def engine_bytes() -> int:
-    """The card's allocated bytes with the cuBLAS workspaces dropped: a
-    thread's first cuBLAS call (the head's matmul on a new runner thread)
-    takes a workspace of its own (32 MiB on this card), which belongs to
-    the thread and not to an engine. Call it only while no batch runs."""
+    """The bytes the card's live tensors asked for, with the cuBLAS
+    workspaces dropped: a thread's first cuBLAS call (the head's matmul on
+    a new runner thread) takes a workspace of its own (32 MiB on this
+    card), which belongs to the thread and not to an engine. Requested,
+    not allocated, bytes: the allocator hands a large tensor a whole free
+    block when the rest would be under 1 MiB, so the allocated bytes of
+    the same tensors depend on where they landed (a hot swap's new
+    weights, as many tensors as the old, can read up to a few MiB more).
+    Earlier stacks left for the garbage collector are collected first.
+    Call it only while no batch runs."""
+    gc.collect()
     torch.cuda.synchronize()
     torch._C._cuda_clearCublasWorkspaces()
-    return torch.cuda.memory_allocated()
+    return torch.cuda.memory_stats()["requested_bytes.all.current"]
 
 
 def slo_bundle(run):
@@ -3174,15 +3207,29 @@ def profiled_scenario(name, batcher, seed):
     return report, (1 - dev_ms / wall_ms if dev_ms > 0 else None)
 
 
-def check_obs(label, bundle, stats) -> None:
+#: (journal event, counter) of the serving lifecycle, at either tier.
+LIFECYCLE = (("submit", "submitted"), ("complete", "completed"), ("shed", "shed"),
+             ("expired", "expired"), ("failed", "failed"))
+
+
+def settled_journal(bundle, prefix, submitted) -> dict:
+    """The journal's counts once its ``prefix`` lifecycle balances at
+    ``submitted`` submits: an outcome is journaled a beat after its
+    counter moves."""
+    return scenarios.settle(
+        bundle.journal.counts,
+        lambda jc: (obs_lib.conservation(jc, prefix=prefix) is None
+                    and jc.get(prefix + "submit", 0) == submitted))[0]
+
+
+def check_obs(label, bundle, stats, phase="slo") -> None:
     """The journal's lifecycle counts balance and equal ServeStats', the
     registry's serve.* collector equals ServeStats.snapshot(), and the
     trace's spans nest."""
     snap = stats.snapshot()
-    jc = bundle.journal.counts()
+    jc = settled_journal(bundle, "", snap["submitted"])
     bad = obs_lib.conservation(jc)
-    for kind, key in (("submit", "submitted"), ("complete", "completed"),
-                      ("shed", "shed"), ("expired", "expired"), ("failed", "failed")):
+    for kind, key in LIFECYCLE:
         if jc.get(kind, 0) != snap[key]:
             bad = f"journal {kind}={jc.get(kind, 0)} != ServeStats {key}={snap[key]}"
     collected = bundle.registry.json_snapshot()["collected"]["serve"]
@@ -3190,18 +3237,18 @@ def check_obs(label, bundle, stats) -> None:
         bad = "the registry's serve.* counters differ from ServeStats.snapshot()"
     nesting = obs_lib.validate_nesting(bundle.tracer.events())
     if bad or nesting:
-        fail(f"slo {label}: {bad or nesting[0]}")
+        fail(f"{phase} {label}: {bad or nesting[0]}")
     bundle.finish()
 
 
-def check_slo_launches(label, launches, executed, warmups, extra=0) -> None:
+def check_slo_launches(label, launches, executed, warmups, extra=0, phase="slo") -> None:
     want = CONVS_PER_FORWARD * (executed + warmups + extra)
-    print(f"[smoke] slo {label}: tap_conv launches {launches} = {CONVS_PER_FORWARD} x "
+    print(f"[smoke] {phase} {label}: tap_conv launches {launches} = {CONVS_PER_FORWARD} x "
           f"({executed} executed batches + {warmups} warm-ups"
           f"{f' + {extra} parity forwards' if extra else ''}): "
           f"{'ok' if launches == want else f'FAIL (want {want})'}", flush=True)
     if launches != want:
-        fail(f"slo {label}: the batches did not all run through the kernel")
+        fail(f"{phase} {label}: the batches did not all run through the kernel")
 
 
 def slo_line(label, report, idle, card) -> None:
@@ -3369,8 +3416,8 @@ def slo_phase(card, ckpt, host) -> int:
     print(f"[smoke] slo (f): {ups} scale-up(s) during the crowd, {snap['scale_downs']} "
           f"drain -> retire after it (replica {retired}, in-flight "
           f"{[batcher.inflight(i) for i in retired]}), {snap['routable']} routable, "
-          f"{snap['direction_changes']} direction changes; card memory allocated "
-          f"(cuBLAS workspaces dropped) {mem0} B before, {mem1} B after the retire",
+          f"{snap['direction_changes']} direction changes; card memory requested by live "
+          f"tensors (cuBLAS workspaces dropped) {mem0} B before, {mem1} B after the retire",
           flush=True)
     if ups < 1 or snap["scale_downs"] < 1 or snap["routable"] != 1 \
             or any(batcher.inflight(i) for i in retired) \
@@ -3382,6 +3429,362 @@ def slo_phase(card, ckpt, host) -> int:
     total += tap_conv.launches.count
     total += slo_cli(card, ckpt)
     print(f"[smoke] slo (a)-(f) passed in {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return total
+
+
+# ---------------------------------------------------------------------------
+# The network front door: NDJSON over TCP, the supervisor, the hot swap
+# ---------------------------------------------------------------------------
+
+NET_DIR = BUILD_DIR / "obs_net"
+NET_KILL_SPEC = "kill-endpoint@12"
+NET_LORIS_SPEC = "slow-loris@3:400"
+# (c)'s read deadline: the 400 ms mid-body stall must outlast it.
+NET_LORIS_DEADLINE_MS = 150.0
+NET_SWAP_SEED = 7
+# (d): the supervisor's respawn backoff, the clients' transport retries
+# that ride the respawn, and the control arm's, which give up while the
+# endpoint stays dead (tests/test_serve_net.py's policies).
+NET_RESPAWN = RetryPolicy(attempts=6, base_delay=0.02, max_delay=0.2, seed=0)
+NET_CLIENT_RETRY = RetryPolicy(attempts=8, base_delay=0.05, max_delay=0.5, seed=1)
+NET_CONTROL_RETRY = RetryPolicy(attempts=3, base_delay=0.01, max_delay=0.05, seed=1)
+# (b): the closed net loop's clients also run in processes of their own,
+# as real clients do, so that their JSON encoding and their interpreter
+# locks are not the server's. Each process reads "HOST PORT SEED" lines,
+# drives its share of the loop once a line and prints one JSON line.
+NET_CLIENT_PROCS = 4
+WIRE_CLIENT = """
+import json, sys, time
+from parallel_cnn_tpu_torch.serve import loadgen
+n, conc = int(sys.argv[1]), int(sys.argv[2])
+samples = loadgen.make_samples(64, (32, 32, 3), seed=0)
+print("ready", flush=True)
+for line in iter(sys.stdin.readline, ""):
+    host, port, seed = line.split()
+    t0 = time.monotonic()
+    rep = loadgen.run_closed_loop_net((host, int(port)), samples, n_requests=n,
+                                      concurrency=conc, seed=int(seed))
+    t1 = time.monotonic()
+    h = rep.latency
+    print(json.dumps({"t0": t0, "t1": t1, "completed": rep.completed, "shed": rep.shed,
+                      "expired": rep.expired, "errors": rep.errors, "counts": h.counts,
+                      "count": h.count, "sum": h.sum, "min": h.min, "max": h.max}),
+          flush=True)
+"""
+
+
+def net_stack(run, cfg):
+    """A fresh ResNet-18 stack from the serve phase's checkpoint with a
+    live obs bundle, and a WireStats in its registry; the B10 count is
+    reset first."""
+    bundle = obs_lib.from_config(ObsConfig(trace=True, dir=str(NET_DIR)), run=run)
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(get("resnet18"), cfg, device="cuda", seed=1, obs=bundle)
+    batcher.stats.attach_registry(bundle.registry)
+    wire = WireStats()
+    wire.attach_registry(bundle.registry)
+    return bundle, pool, batcher, wire
+
+
+def net_line(label, report, card, must_pass=True) -> None:
+    w, snap = report.wire, report.server
+    lat = report.latency.summary(scale=1e3)
+    gates = ", ".join(f"{k}={'ok' if v else 'TRIPPED'}" for k, v in report.gates().items())
+    print(f"[smoke] net {label}: {report.completed}/{report.requests} ok, "
+          f"{report.completed / report.seconds:.1f} req/s, p50 {lat.get('p50', 0):.2f} ms, "
+          f"p99 {lat.get('p99', 0):.2f} ms, {report.errors} errors; wire {w['submitted']} "
+          f"submitted = {w['completed']} + {w['shed']} shed + {w['expired']} expired + "
+          f"{w['failed']} failed ({w['reaped']} reaped, {w['endpoint_deaths']} endpoint "
+          f"deaths); batcher {snap['submitted']} submitted = {snap['completed']} + "
+          f"{snap['shed']} shed + {snap['expired']} expired + {snap['failed']} failed; "
+          f"gates {'PASS' if report.passed else 'FAIL'} ({gates}) on {card}", flush=True)
+    if not report.wire_ok:
+        fail(f"net {label}: the wire does not balance ({w})")
+    if must_pass and not report.passed:
+        fail(f"net {label}: a gate tripped ({report.to_dict()})")
+
+
+def check_net(label, bundle, pool, batcher, wire, extra=0) -> int:
+    """Each tier held to its own law once the traffic has stopped: the
+    wire's counters balance, the journal's net_ lifecycle balances and
+    equals them, the registry's wire.* equals WireStats; then the batcher
+    tier (check_obs) and B10's launches. Returns the launches."""
+    delta, balanced = scenarios.settled_wire_delta(wire, {})
+    jc = settled_journal(bundle, "net_", delta["submitted"])
+    bad = None if balanced else f"wire imbalanced {delta}"
+    bad = bad or obs_lib.conservation(jc, prefix="net_")
+    for kind, key in LIFECYCLE:
+        if jc.get("net_" + kind, 0) != delta[key]:
+            bad = bad or f"journal net_{kind}={jc.get('net_' + kind, 0)} != wire {key}"
+    if bundle.registry.json_snapshot()["collected"]["wire"] != wire.snapshot():
+        bad = bad or "the registry's wire.* counters differ from WireStats"
+    print(f"[smoke] net {label}: wire {delta['submitted']} submitted = {delta['completed']} "
+          f"+ {delta['shed']} shed + {delta['expired']} expired + {delta['failed']} failed, "
+          f"journal net_submit {jc.get('net_submit', 0)} = net_complete "
+          f"{jc.get('net_complete', 0)} + net_shed {jc.get('net_shed', 0)} + net_expired "
+          f"{jc.get('net_expired', 0)} + net_failed {jc.get('net_failed', 0)}: "
+          f"{'ok' if bad is None else bad}", flush=True)
+    if bad is not None:
+        fail(f"net {label}: {bad}")
+    check_obs(label, bundle, batcher.stats, phase="net")
+    launches = tap_conv.launches.count
+    check_slo_launches(label, launches, batcher.executed, pool.warmups, extra, phase="net")
+    return launches
+
+
+def wire_logits_check(label, address, model) -> None:
+    """32 requests over the wire against the plain-version model on the
+    card (a copy: the caller's host model stays where it is)."""
+    samples = loadgen.make_samples(32, (32, 32, 3), seed=5)
+    with loadgen.NetClient(address, timeout_s=60.0) as nc:
+        served = np.stack([nc.request(x) for x in samples])
+    with torch.inference_mode(), plain_reference():
+        ref = plain_forward(copy.deepcopy(model).cuda(),
+                            torch.from_numpy(samples).cuda()).cpu().numpy()
+    err = float(np.max(np.abs(served - ref)))
+    tol = LOGIT_RTOL * max(1.0, float(np.max(np.abs(ref))))
+    print(f"[smoke] net {label}: 32 wire-served logits vs the plain model max |Δ| "
+          f"{err:.3e} (tol {tol:.1e})", flush=True)
+    if served.shape != (32, 10) or not np.isfinite(served).all() or not err <= tol:
+        fail(f"net {label}: wire-served logits disagree with the plain model")
+
+
+def wire_host_ms(samples) -> str:
+    """The interpreter time of one request's JSON at each end of the wire:
+    the client's encode (``encode_request``: ``tolist`` + ``json.dumps``)
+    and the handler's decode (``json.loads`` + ``np.asarray``), medians
+    over the samples, on this machine's host."""
+    enc, dec = [], []
+    for i, x in enumerate(samples):
+        t0 = time.perf_counter()
+        line = encode_request(i, x)
+        t1 = time.perf_counter()
+        back = np.asarray(json.loads(line)["x"], dtype=np.float32)
+        dec.append(time.perf_counter() - t1)
+        enc.append(t1 - t0)
+        if not np.array_equal(back, x):
+            fail("net (b): a request's x did not survive its JSON round trip")
+    return (f"encode {float(np.median(enc)) * 1e3:.3f} ms (client), decode "
+            f"{float(np.median(dec)) * 1e3:.3f} ms (handler), {len(line)} bytes a line")
+
+
+@contextlib.contextmanager
+def wire_client_procs(procs=NET_CLIENT_PROCS):
+    """``procs`` client processes running WIRE_CLIENT (the loadgen's
+    NetClients; no card), started at once so that their imports overlap
+    the caller's work. Yields ``run(address, seed)``: every process drives
+    SERVE_REQUESTS/procs requests from SERVE_CONCURRENCY/procs clients at
+    the same moment, and one LoadgenReport holds them all, its seconds
+    from the first start to the last end (one monotonic clock). Every
+    process is stopped on the way out."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    children = [subprocess.Popen(
+        [sys.executable, "-c", WIRE_CLIENT, str(SERVE_REQUESTS // procs),
+         str(SERVE_CONCURRENCY // procs)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), env=env, text=True,
+        stdin=subprocess.PIPE, stdout=subprocess.PIPE) for _ in range(procs)]
+    waiting = list(children)
+
+    def read(child):
+        line = child.stdout.readline()
+        if not line:
+            fail(f"net (b): a client process ended (rc {child.poll()})")
+        return line
+
+    def run(address, seed):
+        while waiting:
+            read(waiting.pop())
+        for i, child in enumerate(children):
+            child.stdin.write(f"{address[0]} {address[1]} {seed * procs + i}\n")
+            child.stdin.flush()
+        outs = [json.loads(read(child)) for child in children]
+        latency = Histogram()
+        for o in outs:
+            part = Histogram()
+            part.counts, part.count, part.sum = o["counts"], o["count"], o["sum"]
+            part.min, part.max = o["min"], o["max"]
+            latency.merge(part)
+        return loadgen.LoadgenReport(
+            pattern=f"closed-net from {procs} processes", requests=SERVE_REQUESTS,
+            completed=sum(o["completed"] for o in outs), shed=sum(o["shed"] for o in outs),
+            expired=sum(o["expired"] for o in outs), errors=sum(o["errors"] for o in outs),
+            seconds=max(o["t1"] for o in outs) - min(o["t0"] for o in outs),
+            latency=latency)
+
+    try:
+        yield run
+    finally:
+        for child in children:
+            with contextlib.suppress(OSError):
+                child.stdin.close()
+        for child in children:
+            try:
+                child.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                child.kill()
+                child.wait()
+
+
+def net_cli(card, ckpt) -> int:
+    """(f) through ``python -m parallel_cnn_tpu_torch serve --listen
+    --supervise``: net-kill-endpoint with the endpoint killed at wire
+    request 12; returns its tap_conv launches."""
+    tap_conv.launches.reset()
+    out = run_cli(["serve", "--model", "resnet18", "--checkpoint", str(ckpt),
+                   "--max-batch", str(SLO_MAX_BATCH), "--listen", "--supervise",
+                   "--scenario", "net-kill-endpoint", "--chaos", NET_KILL_SPEC])
+    launches = tap_conv.launches.count
+    line = next(ln for ln in out.splitlines() if "tap_conv kernel launches:" in ln).split()
+    executed, warmups, parity = int(line[6]), int(line[9]), int(line[13])
+    check_slo_launches("(f) CLI", launches, executed, warmups, parity, phase="net")
+    wire = next((ln for ln in out.splitlines() if ln.startswith("[serve] wire: ")), "")
+    if "[serve] gates PASS" not in out or "(balanced;" not in wire \
+            or not wire.endswith("1 endpoint deaths, 1 respawns)"):
+        fail(f"net (f) CLI: no PASS or no balanced wire line with 1 respawn ({wire!r})")
+    print(f"[smoke] net (f) CLI: gates PASS, {wire[len('[serve] '):]} on {card}", flush=True)
+    return launches
+
+
+def net_phase(card, ckpt, host) -> int:
+    """net (a)-(f): JAX's network front door on full-width ResNet-18 from
+    the serve phase's checkpoint, every conv through B10, over loopback
+    sockets on ephemeral ports. Each part holds the wire (WireStats and
+    the journal's net_ events), the batcher (ServeStats and the journal)
+    and B10's launches to their own laws. Returns the phase's tap_conv
+    launches."""
+    t_phase = time.perf_counter()
+    shutil.rmtree(NET_DIR, ignore_errors=True)
+    base = ServeConfig(model="resnet18", checkpoint=str(ckpt), max_batch=SLO_MAX_BATCH)
+    total = 0
+
+    # (a) net-steady and the wire-served logits; (b) the closed loop over
+    # the wire beside the in-process loop, on the same stack.
+    bundle, pool, batcher, wire = net_stack("net_ab", base)
+    with wire_client_procs() as procs_loop, batcher, \
+            NetServer(batcher, wire=wire, obs=bundle).start() as srv:
+        report = scenarios.run_net("net-steady", batcher, wire=wire, server=srv,
+                                   obs=bundle, seed=0)
+        net_line("(a) net-steady", report, card)
+        wire_logits_check("(a)", srv.address, host)
+        samples = loadgen.make_samples(64, (32, 32, 3), seed=0)
+        apart = procs_loop(srv.address, seed=0)
+        over = loadgen.run_closed_loop_net(srv.address, samples, n_requests=SERVE_REQUESTS,
+                                           concurrency=SERVE_CONCURRENCY, seed=0)
+        inproc = loadgen.run(batcher, pattern="closed", n_requests=SERVE_REQUESTS,
+                             concurrency=SERVE_CONCURRENCY, seed=0, samples=samples)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            profiled = procs_loop(srv.address, seed=1)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        dev_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    for rep in (apart, over, inproc, profiled):
+        if rep.completed != SERVE_REQUESTS or rep.errors:
+            fail(f"net (b): {rep.pattern} completed {rep.completed}/{SERVE_REQUESTS}")
+    print(f"[smoke] net (b) host time a request, median of 64: {wire_host_ms(samples)}",
+          flush=True)
+    lat = {rep.pattern: rep.latency.summary(scale=1e3) for rep in (apart, over, inproc)}
+    print(f"[smoke] net (b) closed loop, {SERVE_REQUESTS} requests from {SERVE_CONCURRENCY} "
+          f"clients on one stack: " + "; ".join(
+              f"{where} {rep.throughput:.1f} req/s, p50 {lat[rep.pattern]['p50']:.2f} ms, "
+              f"p99 {lat[rep.pattern]['p99']:.2f} ms"
+              for where, rep in (
+                  (f"over the wire from {NET_CLIENT_PROCS} client processes", apart),
+                  ("over the wire from the server's process", over),
+                  ("in process", inproc)))
+          + f" (wire / in-process {apart.throughput / inproc.throughput:.3f} and "
+          f"{over.throughput / inproc.throughput:.3f}); profiled over the wire from "
+          f"{NET_CLIENT_PROCS} client processes {profiled.throughput:.1f} req/s, idle "
+          f"{'not measured' if dev_ms == 0 else f'{1 - dev_ms / wall_ms:.1%}'} "
+          f"(this call, on {card})", flush=True)
+    total += check_net("(a)-(b)", bundle, pool, batcher, wire)
+
+    # (c) net-slow-loris: one client stalls mid-request past the read
+    # deadline; the server reaps it as expired.
+    bundle, pool, batcher, wire = net_stack("net_c", base)
+    loris = ChaosMonkey.from_spec(NET_LORIS_SPEC)
+    with batcher, NetServer(batcher, wire=wire, obs=bundle,
+                            conn_deadline_ms=NET_LORIS_DEADLINE_MS).start() as srv:
+        report = scenarios.run_net("net-slow-loris", batcher, wire=wire, server=srv,
+                                   chaos=loris, obs=bundle, seed=0)
+    net_line("(c) net-slow-loris", report, card)
+    if not loris.slow_loris_fired or report.wire["reaped"] < 1:
+        fail("net (c): the slow-loris connection was not reaped")
+    total += check_net("(c)", bundle, pool, batcher, wire)
+
+    # (d) net-kill-endpoint: supervised, one respawn on the same port and
+    # the wire balanced across it; unsupervised, the gate must trip.
+    bundle, pool, batcher, wire = net_stack("net_d", base)
+    with batcher:
+        kill = ChaosMonkey.from_spec(NET_KILL_SPEC)
+        sup = Supervisor(armed_factory(batcher, wire, kill, obs=bundle),
+                         policy=NET_RESPAWN, obs=bundle).start()
+        port = sup.address[1]
+        with sup:
+            report = scenarios.run_net("net-kill-endpoint", batcher, wire=wire,
+                                       supervisor=sup, obs=bundle, seed=0,
+                                       retry=NET_CLIENT_RETRY)
+            respawned_on = sup.address[1]
+        net_line("(d) net-kill-endpoint, supervised", report, card)
+        bundle.journal.flush()
+        respawn = [r for r in obs_lib.read_journal(bundle.journal.path)
+                   if r["kind"] == "endpoint_respawned"]
+        print(f"[smoke] net (d): {sup.respawns} respawn on port {respawned_on} (first "
+              f"{port}), downtime {respawn[0]['downtime_ms'] if respawn else float('nan'):.1f}"
+              f" ms, {report.wire['failed']} in-flight wire requests journaled net_failed",
+              flush=True)
+        if sup.respawns != 1 or sup.gave_up or respawned_on != port or len(respawn) != 1 \
+                or report.wire["endpoint_deaths"] != 1 or report.errors:
+            fail("net (d): the supervisor did not respawn the endpoint once on its port")
+        # The control arm on the same stack and WireStats (run_net judges
+        # its own delta; check_net the sum of both arms).
+        kill = ChaosMonkey.from_spec(NET_KILL_SPEC)
+        control = Supervisor(armed_factory(batcher, wire, kill, obs=bundle),
+                             enabled=False, obs=bundle).start()
+        with control:
+            report = scenarios.run_net("net-kill-endpoint", batcher, wire=wire,
+                                       supervisor=control, obs=bundle, seed=0,
+                                       retry=NET_CONTROL_RETRY)
+        net_line("(d) net-kill-endpoint, unsupervised", report, card, must_pass=False)
+        if report.passed or not report.errors or control.respawns:
+            fail("net (d): the unsupervised kill passed its gates")
+    total += check_net("(d) both arms", bundle, pool, batcher, wire)
+
+    # (e) net-hot-swap-diurnal: seed-7 weights rolled in mid-peak.
+    bundle, pool, batcher, wire = net_stack("net_e", base)
+    new = random_bn(get("resnet18").init(seed=NET_SWAP_SEED), seed=NET_SWAP_SEED)
+    with batcher, NetServer(batcher, wire=wire, obs=bundle).start() as srv:
+        mem0 = engine_bytes()
+        report = scenarios.run_net("net-hot-swap-diurnal", batcher, wire=wire, server=srv,
+                                   swap_model=new, obs=bundle, seed=0)
+        mem1 = engine_bytes()
+        net_line("(e) net-hot-swap-diurnal", report, card)
+        swap = report.swap
+        print(f"[smoke] net (e): swapped {swap['swapped']} -> grown {swap['grown']} in "
+              f"{swap['seconds'] * 1e3:.1f} ms, failed_delta {swap['failed_delta']}, stuck "
+              f"{swap['stuck']}; card memory requested by live tensors (cuBLAS workspaces "
+              f"dropped) {mem0} B before, {mem1} B after the retire", flush=True)
+        if swap["failed_delta"] != 0 or swap["stuck"] or not swap["swapped"] \
+                or mem1 != mem0 or any(pool.engines[i].model is not None
+                                       for i in swap["swapped"]):
+            fail("net (e): the hot swap failed a request, stuck, or kept card memory")
+        wire_logits_check("(e) after the swap", srv.address, new)
+    total += check_net("(e)", bundle, pool, batcher, wire)
+    xs = loadgen.make_samples(32, (32, 32, 3), seed=6)
+    swapped = pool.engines[swap["grown"][0]].predict(xs)
+    fresh = Engine(get("resnet18"), model=new, max_batch=SLO_MAX_BATCH, device="cuda")
+    same = np.array_equal(swapped, fresh.predict(xs))
+    fresh.release()
+    print(f"[smoke] net (e): the swapped replica's b32 logits vs a fresh engine from the "
+          f"seed-{NET_SWAP_SEED} weights: {'bit-identical' if same else 'MISMATCH'}",
+          flush=True)
+    if not same:
+        fail("net (e): the swapped replica does not serve the new weights")
+
+    # (f) the CLI, supervised, through a killed endpoint.
+    total += net_cli(card, ckpt)
+    print(f"[smoke] net (a)-(f) passed in {time.perf_counter() - t_phase:.1f}s", flush=True)
     return total
 
 
@@ -4075,6 +4478,8 @@ def main() -> int:
 
     # -- 4'. the serving control plane: slo (a)-(f) -----------------------
     slo_launches = slo_phase(card, ckpt, host)
+    # -- 4''. the network front door: net (a)-(f) --------------------------
+    net_launches = net_phase(card, ckpt, host)
 
     # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
     train_launches, rate_a = train_phase(card)
@@ -4193,7 +4598,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
-                     + serve50_launches + slo_launches),
+                     + serve50_launches + slo_launches + net_launches),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],

@@ -27,9 +27,13 @@ model axis is JAX's data-only MeshLayoutError); the trainer's chaos,
 async, trace and profile are not accepted yet. ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
 ``--max-replicas``, ``--window-s``, ``--scenario``, ``--chaos`` and the obs
-flags ``--trace``, ``--trace-dir`` and ``--metrics-json``; the network
-front door's flags and scenarios, and the disk cache, raise
-NotPortedError.
+flags ``--trace``, ``--trace-dir`` and ``--metrics-json``, and JAX's
+network front door: ``--listen`` puts an NDJSON-over-TCP endpoint in front
+of the batcher (``--listen-host``, ``--listen-port``,
+``--conn-deadline-ms``), ``--supervise`` respawns it when it dies, and the
+``net-*`` scenarios drive it through the socket transport
+(``--swap-checkpoint`` for the hot swap). JAX's on-disk executable cache
+(``--aot-cache-dir``) raises NotPortedError.
 """
 
 from __future__ import annotations
@@ -53,6 +57,7 @@ from parallel_cnn_tpu_torch.config import (
     FusedStepConfig,
     MeshConfig,
     SERVE_CONV_BACKENDS,
+    NetConfig,
     NotPortedError,
     ObsConfig,
     ResilienceConfig,
@@ -511,7 +516,7 @@ def _run_train(argv: List[str]) -> int:
 
 SCENARIO_NAMES = ("diurnal", "flash-crowd", "slow-client", "chaos-kill",
                   "chaos-slow")
-#: JAX's wire scenarios (serve/scenarios.py NET_SCENARIOS): ROADMAP A12b.
+#: JAX's wire scenarios (serve/scenarios.py NET_SCENARIOS); each needs --listen.
 NET_SCENARIO_NAMES = ("net-steady", "net-slow-loris", "net-kill-endpoint",
                       "net-hot-swap-diurnal")
 
@@ -553,11 +558,10 @@ def _obs_config_from_args(args: argparse.Namespace) -> Optional[ObsConfig]:
 
 def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
     """Flags of `serve` and `loadgen` (JAX's cli.py:590-700); defaults
-    come from ServeConfig.from_env() (the PCNN_SERVE_* names of the JAX
-    package). The network front door's flags parse and raise
-    NotPortedError."""
+    come from ServeConfig.from_env() and NetConfig.from_env() (the
+    PCNN_SERVE_* names of the JAX package). ``--aot-cache-dir`` parses and
+    raises NotPortedError."""
     sc = ServeConfig.from_env()
-    e = os.environ.get
     p = argparse.ArgumentParser(
         prog=f"parallel_cnn_tpu_torch {cmd}",
         description=(
@@ -625,24 +629,48 @@ def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
                         "(serve/scenarios.py) instead of plain loadgen; "
                         "exit code reflects the p99/shed/conservation "
                         "gates (chaos-* scenarios need --chaos; net-* "
-                        "scenarios are not ported)")
+                        "scenarios need --listen and judge the wire tier "
+                        "too)")
     p.add_argument("--chaos", default=None, metavar="SPEC",
                    help="serving fault injection: kill-replica@SEQ kills "
                         "the replica holding dispatch batch SEQ, "
-                        "slow-replica@SEQ:MS stalls it MS ms "
+                        "slow-replica@SEQ:MS stalls it MS ms, "
+                        "kill-endpoint@SEQ kills the network endpoint at "
+                        "wire request SEQ, slow-loris@SEQ:MS stalls a "
+                        "client mid-request for MS ms "
                         "(resilience/chaos.py)")
-    g = p.add_argument_group(
-        "network front door (not ported: each raises NotPortedError)")
-    g.add_argument("--listen", action="store_true",
-                   default=e("PCNN_SERVE_LISTEN", "0") != "0")
-    g.add_argument("--listen-host", default=None)
-    g.add_argument("--listen-port", type=int, default=None)
-    g.add_argument("--conn-deadline-ms", type=float, default=None)
-    g.add_argument("--aot-cache-dir",
-                   default=e("PCNN_SERVE_AOT_CACHE_DIR") or None)
-    g.add_argument("--supervise", action="store_true",
-                   default=e("PCNN_SERVE_SUPERVISE", "0") != "0")
-    g.add_argument("--swap-checkpoint", default=None, metavar="PATH")
+    nc = NetConfig.from_env()
+    g = p.add_argument_group("network front door (serve/net.py)")
+    g.add_argument("--listen", action="store_true", default=nc.listen,
+                   help="serve over a real TCP socket (NDJSON protocol) "
+                        "instead of in-process submit; traffic/scenarios "
+                        "are driven through the socket transport "
+                        "[PCNN_SERVE_LISTEN]")
+    g.add_argument("--listen-host", default=nc.host,
+                   help="bind address for --listen [PCNN_SERVE_HOST]")
+    g.add_argument("--listen-port", type=int, default=nc.port,
+                   help="bind port for --listen; 0 = ephemeral (the "
+                        "supervisor respawns on whatever was bound) "
+                        "[PCNN_SERVE_PORT]")
+    g.add_argument("--conn-deadline-ms", type=float,
+                   default=nc.conn_deadline_ms,
+                   help="per-connection read/write deadline: a socket "
+                        "stalling mid-request past it is reaped as "
+                        "expired (slow-loris defense); also the budget "
+                        "of deadline-less wire requests "
+                        "[PCNN_SERVE_CONN_DEADLINE_MS]")
+    g.add_argument("--aot-cache-dir", default=nc.aot_cache_dir,
+                   help="JAX's persistent on-disk executable cache: not "
+                        "ported, raises NotPortedError "
+                        "[PCNN_SERVE_AOT_CACHE_DIR]")
+    g.add_argument("--supervise", action="store_true", default=nc.supervise,
+                   help="respawn a killed endpoint on the same port with "
+                        "bounded exponential backoff "
+                        "(serve/supervisor.py) [PCNN_SERVE_SUPERVISE]")
+    g.add_argument("--swap-checkpoint", default=None, metavar="PATH",
+                   help="net-hot-swap-diurnal: checkpoint to hot-swap in "
+                        "mid-peak (default: fresh seed+1 init)")
+    p.set_defaults(net_env=nc)
     p.add_argument("--requests", type=int,
                    default=64 if cmd == "serve" else 512,
                    help="traffic volume to drive through the stack")
@@ -663,21 +691,12 @@ def build_serve_parser(cmd: str) -> argparse.ArgumentParser:
 
 
 def _refuse_later_serve_slices(args: argparse.Namespace) -> None:
-    """The network front door's flags and scenarios (JAX's serve/net.py,
-    serve/supervisor.py) raise a typed error naming ROADMAP A12b."""
-    for flag, on in (
-        ("--listen", args.listen), ("--listen-host", args.listen_host),
-        ("--listen-port", args.listen_port),
-        ("--conn-deadline-ms", args.conn_deadline_ms),
-        ("--supervise", args.supervise),
-        ("--swap-checkpoint", args.swap_checkpoint),
-        ("--aot-cache-dir", args.aot_cache_dir),
-        (f"--scenario {args.scenario}", args.scenario in NET_SCENARIO_NAMES),
-    ):
-        if on not in (None, False):
-            raise NotPortedError(
-                f"{flag} needs the network front door or the executable "
-                f"cache, which are not ported yet (ROADMAP A12b)")
+    """JAX's on-disk executable cache raises a typed error naming ROADMAP
+    A12b: the port compiles no per-bucket executable to keep on disk."""
+    if args.aot_cache_dir is not None:
+        raise NotPortedError(
+            "--aot-cache-dir needs the persistent executable cache, which "
+            "is not ported (ROADMAP A12b)")
 
 
 def _serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
@@ -698,6 +717,82 @@ def _serve_config_from_args(args: argparse.Namespace) -> ServeConfig:
         max_replicas=args.max_replicas,
         window_s=args.window_s,
     )
+
+
+def _net_config_from_args(args: argparse.Namespace) -> NetConfig:
+    """The flags over the NetConfig the parser read from the environment
+    (its respawn_* fields have no flag)."""
+    return dataclasses.replace(
+        args.net_env,
+        listen=args.listen,
+        host=args.listen_host,
+        port=args.listen_port,
+        conn_deadline_ms=args.conn_deadline_ms,
+        aot_cache_dir=args.aot_cache_dir,
+        supervise=args.supervise,
+    )
+
+
+def _listen(args, ncfg: NetConfig, batcher, chaos, obs_bundle):
+    """JAX's listen path (cli.py:917-963): the shared WireStats, the chaos
+    split — a kill-endpoint monkey arms the SERVER's first incarnation
+    only (a respawn must not replay the death), a slow-loris monkey arms
+    the CLIENT side of the socket transport — and the supervised or bare
+    endpoint. Returns (wire, supervisor or None, endpoint, client chaos)."""
+    from parallel_cnn_tpu_torch.resilience.retry import RetryPolicy
+    from parallel_cnn_tpu_torch.serve import Supervisor, WireStats, armed_factory
+
+    wire = WireStats()
+    if obs_bundle.enabled:
+        wire.attach_registry(obs_bundle.registry)
+    server_chaos = (
+        chaos if chaos is not None and chaos.kill_endpoint_seq is not None
+        else None
+    )
+    client_chaos = (
+        chaos if chaos is not None and chaos.slow_loris is not None else None
+    )
+    factory = armed_factory(batcher, wire, server_chaos, host=ncfg.host,
+                            conn_deadline_ms=ncfg.conn_deadline_ms, obs=obs_bundle)
+
+    sup = None
+    if ncfg.supervise:
+        sup = Supervisor(
+            factory,
+            policy=RetryPolicy(
+                attempts=ncfg.respawn_attempts,
+                base_delay=ncfg.respawn_base_delay_s,
+                max_delay=ncfg.respawn_max_delay_s,
+                seed=args.seed,
+            ),
+            obs=obs_bundle, port=ncfg.port,
+        ).start()
+        endpoint = sup.server
+    else:
+        endpoint = factory(ncfg.port, 0)
+    return wire, sup, endpoint, client_chaos
+
+
+def _scenario_lines(cmd: str, report) -> int:
+    """The scenario's verdict lines; returns the exit code (1 on a trip)."""
+    gates = report.gates()
+    p99 = report.p99_ms
+    print(f"[{cmd}] scenario {report.name}: "
+          f"{report.completed}/{report.requests} ok, "
+          f"shed rate {report.shed_rate:.3f}, "
+          f"p99 {p99:.1f} ms" if p99 is not None else
+          f"[{cmd}] scenario {report.name}: no completions")
+    print(f"[{cmd}] gates {'PASS' if report.passed else 'FAIL'}: "
+          + ", ".join(f"{k}={'ok' if v else 'TRIPPED'}"
+                      for k, v in gates.items()))
+    return 0 if report.passed else 1
+
+
+def _latency_line(cmd: str, report) -> None:
+    lat = report.latency.summary(scale=1e3)
+    if lat.get("count"):
+        print(f"[{cmd}] latency p50 {lat['p50']:.2f} ms, "
+              f"p90 {lat['p90']:.2f} ms, p99 {lat['p99']:.2f} ms")
 
 
 def padded_bucket_parity(engine, in_shape, seed: int = 0) -> str:
@@ -729,10 +824,18 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
     telemetry. `loadgen` is the same stack under a chosen arrival
     pattern. ``--admission``, ``--autoscale``, ``--chaos`` and the obs
     flags wire JAX's SLO layer in front of it (cli.py:815-1046); a
-    scenario whose gate trips exits 1."""
+    scenario whose gate trips exits 1. ``--listen`` puts the network
+    front door (serve/net.py) in front of the batcher and drives the same
+    traffic through real sockets, optionally supervised (``--supervise``);
+    a net-* scenario without ``--listen`` exits 2."""
     args = build_serve_parser(cmd).parse_args(argv)
     _refuse_later_serve_slices(args)
     cfg = _serve_config_from_args(args)
+    ncfg = _net_config_from_args(args)
+    if args.scenario in NET_SCENARIO_NAMES and not ncfg.listen:
+        print(f"[{cmd}] scenario {args.scenario} needs --listen "
+              f"(it judges the wire tier)")
+        return 2
 
     from parallel_cnn_tpu_torch import obs as obs_lib
     from parallel_cnn_tpu_torch.ops import tap_conv
@@ -794,24 +897,50 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
             print(f"[serve] {line}")
             if "MISMATCH" in line:
                 rc = 1
-        if args.scenario:
+        wire = sup = endpoint = client_chaos = None
+        if ncfg.listen:
+            wire, sup, endpoint, client_chaos = _listen(
+                args, ncfg, batcher, chaos, obs_bundle)
+            print(f"[{cmd}] listening on {endpoint.host}:{endpoint.port} "
+                  f"(conn deadline {ncfg.conn_deadline_ms:g} ms"
+                  + (", supervised" if sup is not None else "") + ")")
+        if args.scenario in NET_SCENARIO_NAMES:
+            swap_model = None
+            if args.scenario == "net-hot-swap-diurnal":
+                from parallel_cnn_tpu_torch.serve import load_or_init
+
+                swap_model = load_or_init(handle, args.swap_checkpoint,
+                                          seed=args.seed + 1)
+            report = scenarios.run_net(
+                args.scenario, batcher, wire=wire,
+                supervisor=sup, server=endpoint, chaos=client_chaos,
+                swap_model=swap_model, obs=obs_bundle, seed=args.seed,
+            )
+            rc = max(rc, _scenario_lines(cmd, report))
+        elif args.scenario:
             report = scenarios.run(
                 args.scenario, batcher,
                 seed=args.seed,
                 deadline_ms=args.deadline_ms or None,
             )
-            gates = report.gates()
-            p99 = report.p99_ms
-            print(f"[{cmd}] scenario {report.name}: "
+            rc = max(rc, _scenario_lines(cmd, report))
+        elif ncfg.listen:
+            report = loadgen.run_closed_loop_net(
+                endpoint.address,
+                loadgen.make_samples(
+                    min(args.requests, 64), handle.in_shape, seed=args.seed,
+                ),
+                n_requests=args.requests,
+                concurrency=args.concurrency,
+                deadline_ms=args.deadline_ms or None,
+                seed=args.seed,
+                chaos=client_chaos,
+            )
+            print(f"[{cmd}] closed-net-loop: "
                   f"{report.completed}/{report.requests} ok, "
-                  f"shed rate {report.shed_rate:.3f}, "
-                  f"p99 {p99:.1f} ms" if p99 is not None else
-                  f"[{cmd}] scenario {report.name}: no completions")
-            print(f"[{cmd}] gates {'PASS' if report.passed else 'FAIL'}: "
-                  + ", ".join(f"{k}={'ok' if v else 'TRIPPED'}"
-                              for k, v in gates.items()))
-            if not report.passed:
-                rc = 1
+                  f"{report.throughput:.1f} req/s over the wire, "
+                  f"shed rate {report.shed_rate:.3f}")
+            _latency_line(cmd, report)
         else:
             report = loadgen.run(
                 batcher,
@@ -826,10 +955,20 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
                   f"{report.completed}/{report.requests} ok, "
                   f"{report.throughput:.1f} req/s, "
                   f"shed rate {report.shed_rate:.3f}")
-            lat = report.latency.summary(scale=1e3)
-            if lat.get("count"):
-                print(f"[{cmd}] latency p50 {lat['p50']:.2f} ms, "
-                      f"p90 {lat['p90']:.2f} ms, p99 {lat['p99']:.2f} ms")
+            _latency_line(cmd, report)
+        if ncfg.listen:
+            (sup if sup is not None else endpoint).close()
+            # A handler records its outcome a beat after its client read
+            # the reply: read the counts once they balance (or time out).
+            w, balanced = scenarios.settled_wire_delta(wire, {})
+            print(f"[{cmd}] wire: {w['submitted']} submitted = "
+                  f"{w['completed']} completed + {w['shed']} shed + "
+                  f"{w['expired']} expired + {w['failed']} failed "
+                  f"({'balanced' if balanced else 'IMBALANCED'}; "
+                  f"{w['reaped']} reaped, "
+                  f"{w['endpoint_deaths']} endpoint deaths"
+                  + (f", {sup.respawns} respawns" if sup is not None
+                     else "") + ")")
         if scaler is not None:
             scaler.close()
             snap = scaler.snapshot()
@@ -851,6 +990,8 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
                 out["admission"] = batcher.admission.snapshot()
             if scaler is not None:
                 out["autoscaler"] = scaler.snapshot()
+            if wire is not None:
+                out["wire"] = wire.snapshot()
             with open(args.json, "w") as f:
                 json.dump(out, f, indent=2)
             print(f"[{cmd}] report written to {args.json}")

@@ -6,7 +6,7 @@ slices use. For training: ``DataConfig``, ``TrainConfig`` and
 (JAX's ``Config.fused is not None``: the ``--fused-step`` bucketed update).
 For serving: the fields of ``ServeConfig`` read from the same
 ``PCNN_SERVE_*`` environment names, admission control and the autoscaler
-included; the network front door's ``NetConfig`` is not ported yet. For
+included, and the network front door's ``NetConfig``. For
 observability: ``ObsConfig`` and its ``PCNN_OBS_*`` names.
 
 For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
@@ -439,6 +439,77 @@ class ServeConfig:
             autoscale=e("PCNN_SERVE_AUTOSCALE", "0") != "0",
             max_replicas=int(e("PCNN_SERVE_MAX_REPLICAS", "0")),
             window_s=float(e("PCNN_SERVE_WINDOW_S", "10")),
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class NetConfig:
+    """Network front-door policy (serve/net.py + serve/supervisor.py — the
+    out-of-process serving tier in front of the DynamicBatcher); JAX's
+    fields, defaults, errors and ``PCNN_SERVE_*`` names. A non-None
+    ``aot_cache_dir`` is refused where it is used (NotPortedError, ROADMAP
+    A12b): the port has no per-bucket executable to write to disk."""
+
+    # Serve over a real TCP listener (serve/net.py) instead of the
+    # in-process-only surface.
+    listen: bool = False
+    # Bind address for the listener. Loopback by default — the front
+    # door is an experiment harness, not a hardened public ingress.
+    host: str = "127.0.0.1"
+    # TCP port; 0 binds an ephemeral port (the bound port is reported
+    # on NetServer.port and kept stable across supervisor respawns).
+    port: int = 0
+    # Per-connection read/write deadline (ms): a socket that stalls
+    # mid-request past this budget is reaped as `expired` (the
+    # slow-loris defense), and a blocked response write is abandoned
+    # the same way. Also the submit() budget inherited by requests
+    # that do not carry their own deadline_ms.
+    conn_deadline_ms: float = 2000.0
+    # JAX's persistent on-disk AOT-executable cache directory; not
+    # ported (None = off).
+    aot_cache_dir: Optional[str] = None
+    # Supervise the endpoint: respawn a killed listener with bounded
+    # exponential backoff (resilience/retry.py) and reconcile the
+    # journal across the restart.
+    supervise: bool = False
+    # Supervisor respawn backoff envelope (RetryPolicy fields).
+    respawn_attempts: int = 4
+    respawn_base_delay_s: float = 0.05
+    respawn_max_delay_s: float = 1.0
+
+    def __post_init__(self):
+        if not 0 <= self.port <= 65535:
+            raise ValueError(f"port must be in [0, 65535], got {self.port}")
+        if self.conn_deadline_ms <= 0:
+            raise ValueError(
+                f"conn_deadline_ms must be > 0, got {self.conn_deadline_ms}"
+            )
+        if self.respawn_attempts < 1:
+            raise ValueError(
+                f"respawn_attempts must be >= 1, got {self.respawn_attempts}"
+            )
+        if self.respawn_base_delay_s < 0 or self.respawn_max_delay_s < 0:
+            raise ValueError("respawn delays must be >= 0")
+
+    @staticmethod
+    def from_env() -> "NetConfig":
+        """NetConfig with PCNN_SERVE_* environment overrides applied over
+        the defaults; the CLI flags then override field by field."""
+        e = os.environ.get
+        return NetConfig(
+            listen=e("PCNN_SERVE_LISTEN", "0") != "0",
+            host=e("PCNN_SERVE_HOST", "127.0.0.1"),
+            port=int(e("PCNN_SERVE_PORT", "0")),
+            conn_deadline_ms=float(e("PCNN_SERVE_CONN_DEADLINE_MS", "2000")),
+            aot_cache_dir=e("PCNN_SERVE_AOT_CACHE_DIR") or None,
+            supervise=e("PCNN_SERVE_SUPERVISE", "0") != "0",
+            respawn_attempts=int(e("PCNN_SERVE_RESPAWN_ATTEMPTS", "4")),
+            respawn_base_delay_s=float(
+                e("PCNN_SERVE_RESPAWN_BASE_DELAY_S", "0.05")
+            ),
+            respawn_max_delay_s=float(
+                e("PCNN_SERVE_RESPAWN_MAX_DELAY_S", "1.0")
+            ),
         )
 
 

@@ -2,9 +2,10 @@
 ``parallel_cnn_tpu/resilience/chaos.py``: the whole spec grammar, with
 JAX's error text, and the one-shot hooks).
 
-The port wires the serving faults, ``kill-replica@`` and
-``slow-replica@`` (serve/batcher.py); the trainer's ``--chaos`` and the
-wire faults come with later slices (ROADMAP A6c, A12b). Faults:
+The port wires the serving faults: ``kill-replica@`` and
+``slow-replica@`` (serve/batcher.py), ``kill-endpoint@`` (serve/net.py)
+and ``slow-loris@`` (serve/loadgen.py's socket client); the trainer's
+``--chaos`` comes with a later slice (ROADMAP A6c). Faults:
 
 - **NaN at step k** (``ChaosMonkey(nan_step=k)``): after the k-th
   optimizer step (host-side, 0-based, counted across epochs), the

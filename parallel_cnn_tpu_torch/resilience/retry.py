@@ -1,12 +1,17 @@
 """Seeded, capped exponential backoff (the port's copy of ``RetryPolicy``
-from ``parallel_cnn_tpu/resilience/retry.py``; the closed-loop load
-generator retries shed requests with it)."""
+and ``retry_call`` from ``parallel_cnn_tpu/resilience/retry.py``): the
+closed-loop load generators retry shed requests and transport errors with
+it, and the serve supervisor bounds an endpoint's respawn with it."""
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import random
-from typing import Iterator
+import time
+from typing import Callable, Iterator, Tuple, Type
+
+log = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,3 +47,52 @@ class RetryPolicy:
         for k in range(self.attempts - 1):
             d = min(self.base_delay * self.multiplier**k, self.max_delay)
             yield d * (1.0 + self.jitter * (2.0 * rng.random() - 1.0))
+
+    def decorrelated(self, rank: int = 0) -> "RetryPolicy":
+        """Per-rank decorrelation of the SAME policy envelope.
+
+        N clients recovering from one outage all build the identical
+        policy, so plain ``delays()`` has them reconnect in lockstep. This
+        derives a policy whose jitter stream is seeded by ``(seed, rank)``
+        — deterministic per client (replayable), decorrelated across
+        clients (no thundering herd). The backoff *envelope* — base,
+        multiplier, and above all the ``max_delay`` cap — is unchanged;
+        only the jitter draw differs.
+        """
+        if rank < 0:
+            raise ValueError(f"rank must be >= 0, got {rank}")
+        # Integer fold of (seed, rank) — stable across processes and
+        # Python versions (no reliance on object hashing).
+        derived = random.Random(self.seed * 1_000_003 + rank).getrandbits(32)
+        return dataclasses.replace(self, seed=derived)
+
+
+def retry_call(
+    fn: Callable,
+    *args,
+    policy: RetryPolicy | None = None,
+    retry_on: Tuple[Type[BaseException], ...] = (Exception,),
+    sleep: Callable[[float], None] = time.sleep,
+    describe: str | None = None,
+    **kwargs,
+):
+    """Call ``fn(*args, **kwargs)``, retrying ``retry_on`` failures.
+
+    Bounded by ``policy.attempts``; the final failure propagates
+    unchanged. Pass ``sleep`` to intercept the backoff in tests.
+    """
+    policy = policy or RetryPolicy()
+    delays = list(policy.delays())
+    name = describe or getattr(fn, "__name__", repr(fn))
+    for attempt in range(policy.attempts):
+        try:
+            return fn(*args, **kwargs)
+        except retry_on as e:
+            if attempt == policy.attempts - 1:
+                raise
+            d = delays[attempt]
+            log.warning(
+                "%s failed (attempt %d/%d, %s: %s); retrying in %.2fs",
+                name, attempt + 1, policy.attempts, type(e).__name__, e, d,
+            )
+            sleep(d)

@@ -17,7 +17,14 @@ replica-pinned predict on the card (the counterpart of
                ReplicaPool from windowed telemetry (AutoScaler)
     scenarios  seeded traffic scenarios with explicit p99/shed gates
                (diurnal, flash-crowd, slow-client, chaos-kill/slow)
-    loadgen    seeded closed-/open-loop in-process traffic
+               plus the net suites judged at the wire tier
+    loadgen    seeded closed-/open-loop traffic + client retry protocol
+               (in-process and over the socket transport)
+    net        stdlib TCP front door: NDJSON protocol, per-connection
+               read/write deadlines, slow-loris reaping, wire-tier
+               conservation (NetServer / WireStats)
+    supervisor crash-fast respawn with bounded backoff on a stable
+               port, and the zero-downtime weight hot_swap roll
 """
 
 from parallel_cnn_tpu_torch.serve.admission import AdmissionController  # noqa: F401
@@ -38,6 +45,13 @@ from parallel_cnn_tpu_torch.serve.engine import (  # noqa: F401
     bucket_for,
     load_or_init,
 )
+from parallel_cnn_tpu_torch.serve.net import NetServer  # noqa: F401
 from parallel_cnn_tpu_torch.serve.registry import ModelHandle, available, get  # noqa: F401
-from parallel_cnn_tpu_torch.serve.scenarios import SCENARIOS, ScenarioReport  # noqa: F401
-from parallel_cnn_tpu_torch.serve.telemetry import ServeStats  # noqa: F401
+from parallel_cnn_tpu_torch.serve.scenarios import (  # noqa: F401
+    NET_SCENARIOS,
+    SCENARIOS,
+    NetScenarioReport,
+    ScenarioReport,
+)
+from parallel_cnn_tpu_torch.serve.supervisor import Supervisor, armed_factory, hot_swap  # noqa: F401
+from parallel_cnn_tpu_torch.serve.telemetry import ServeStats, WireStats  # noqa: F401

@@ -360,7 +360,7 @@ class DynamicBatcher:
             if not live:
                 continue
             try:
-                replica = self.pool.next_replica()
+                replica = self._reserve_replica()
             except ReplicaDead as e:
                 self._fail_batch(live, -1, e)
                 continue
@@ -382,8 +382,6 @@ class DynamicBatcher:
                     "batch", seq=seq, n=len(live), bucket=bucket,
                     replica=replica, expired=n_expired,
                 )
-            with self._lock:
-                self._inflight[replica] = self._inflight.get(replica, 0) + 1
             # Blocks while every runner is busy — deliberate backpressure.
             while not self._stop.is_set():
                 try:
@@ -395,6 +393,20 @@ class DynamicBatcher:
                 with self._lock:
                     self._inflight[replica] -= 1
                 self._fail_batch(live, seq, RuntimeError("batcher closed"))
+
+    def _reserve_replica(self) -> int:
+        """The next routable replica, its in-flight count already raised.
+        A replica drained between the pick and the raise is given back
+        and another picked: the drain barrier (hot swap, scale-down) may
+        have read its count as 0 and retired it in that gap."""
+        while True:
+            replica = self.pool.next_replica()
+            with self._lock:
+                self._inflight[replica] = self._inflight.get(replica, 0) + 1
+            if replica in self.pool.routable():
+                return replica
+            with self._lock:
+                self._inflight[replica] -= 1
 
     def _runner_loop(self) -> None:
         while not self._stop.is_set():

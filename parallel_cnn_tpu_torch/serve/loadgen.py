@@ -22,16 +22,30 @@ Two canonical patterns (MLPerf-inference vocabulary):
 Determinism: request payloads and arrival gaps derive from ``seed``
 only, so a report is replayable bit-for-bit on the same machine state.
 
-The socket transport (NetClient, closed loop over the wire) comes with
-the network front door in a later slice of the port.
+The **socket transport** (NetClient + run_closed_loop_net) drives the
+same closed loop over the network front door (serve/net.py) instead of
+in-process ``submit()``: newline-delimited JSON on a persistent TCP
+connection, typed outcome mapping (Overloaded/DeadlineExceeded raised
+client-side from the server's error replies), per-request timeouts, and
+``RetryPolicy.decorrelated(cid)`` backoff on BOTH Overloaded replies
+and transport errors — the latter is what carries a client through a
+kill-endpoint → supervisor-respawn window: each retry is a NEW wire
+request, so wire-tier conservation balances while the killed
+endpoint's in-flight requests stand journaled as ``net_failed``. The
+client is also the slow-loris attacker: armed with a
+``slow-loris@SEQ:MS`` ChaosMonkey it sends half a request line, stalls
+MS, and records the server's reap as ``expired`` (never retried — the
+server already accounted it).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
+import socket
 import threading
 import time
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -41,6 +55,7 @@ from parallel_cnn_tpu_torch.serve.batcher import (
     DynamicBatcher,
     Overloaded,
 )
+from parallel_cnn_tpu_torch.serve.net import encode_request
 from parallel_cnn_tpu_torch.utils.metrics import Histogram
 
 
@@ -262,3 +277,247 @@ def run(
             deadline_ms=deadline_ms, seed=seed,
         )
     raise ValueError(f"unknown pattern {pattern!r} (closed or open)")
+
+
+# ---------------------------------------------------------------------------
+# Socket transport: the same patterns over the network front door.
+# ---------------------------------------------------------------------------
+
+
+class NetTransportError(RuntimeError):
+    """Connection-level failure (refused, reset, reply timeout): the
+    retryable class — it is what a client sees while a killed endpoint
+    is down, and what decorrelated backoff rides through a respawn."""
+
+
+class NetRequestFailed(RuntimeError):
+    """The server resolved the request with a typed ``Failed`` reply
+    (endpoint shutting down, replica error past failover)."""
+
+
+class _WireSeq:
+    """Shared client-side wire-request counter: the clock the slow-loris
+    chaos schedule reads, global across all clients of one run."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._n = 0
+
+    def next(self) -> int:
+        with self._lock:
+            n = self._n
+            self._n += 1
+            return n
+
+
+class NetClient:
+    """One synchronous NDJSON client over a persistent TCP connection.
+
+    Lazily (re)connects, so the same client object survives an endpoint
+    death: the next ``request()`` raises NetTransportError, the caller
+    backs off, and a later attempt reconnects to the respawned
+    listener. ``chaos`` arms the slow-loris injection (see module
+    docstring); ``seq`` shares the wire-request counter across clients.
+    """
+
+    def __init__(
+        self,
+        address: Tuple[str, int],
+        *,
+        timeout_s: float = 10.0,
+        chaos=None,
+        seq: Optional[_WireSeq] = None,
+    ):
+        self.address = address
+        self.timeout_s = timeout_s
+        self.chaos = chaos
+        self.seq = seq if seq is not None else _WireSeq()
+        self._sock: Optional[socket.socket] = None
+        self._buf = bytearray()
+        self._rid = 0
+
+    def close(self) -> None:
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+            self._buf.clear()
+
+    def __enter__(self) -> "NetClient":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    def _connect(self) -> socket.socket:
+        if self._sock is None:
+            try:
+                self._sock = socket.create_connection(
+                    self.address, timeout=self.timeout_s
+                )
+            except OSError as e:
+                raise NetTransportError(f"connect {self.address}: {e}") from e
+            self._buf.clear()
+        return self._sock
+
+    def _send_loris(self, sock: socket.socket, line: bytes,
+                    stall_ms: float) -> None:
+        """The attack: half a request line, then a stall longer than the
+        server's read deadline. The server MUST reap us — if instead the
+        tail of the line is accepted after the stall, the read deadline
+        is broken (and the scenario gate will see a completion where it
+        required an expiry)."""
+        half = max(1, len(line) // 2)
+        sock.sendall(line[:half])
+        time.sleep(stall_ms / 1e3)
+        try:
+            sock.sendall(line[half:])
+            self._read_reply(sock)  # a reply here means we were NOT reaped
+        except (OSError, NetTransportError):
+            pass  # reaped: connection closed under us, as designed
+        finally:
+            self.close()
+
+    def _read_reply(self, sock: socket.socket) -> Dict[str, Any]:
+        while True:
+            nl = self._buf.find(b"\n")
+            if nl >= 0:
+                line = bytes(self._buf[:nl])
+                del self._buf[:nl + 1]
+                return json.loads(line)
+            try:
+                chunk = sock.recv(65536)
+            except (socket.timeout, OSError) as e:
+                self.close()
+                raise NetTransportError(f"reply read: {e}") from e
+            if not chunk:
+                self.close()
+                raise NetTransportError("connection closed awaiting reply")
+            self._buf.extend(chunk)
+
+    def request(
+        self,
+        x,
+        *,
+        deadline_ms: Optional[float] = None,
+        priority: Optional[str] = None,
+    ) -> np.ndarray:
+        """One wire request; raises the typed outcome:
+        Overloaded / DeadlineExceeded (server-typed replies, mirrors of
+        the in-process submit contract), NetRequestFailed, or
+        NetTransportError (retryable). A slow-loris injection raises
+        DeadlineExceeded — the server reaped it as expired."""
+        wire_seq = self.seq.next()
+        self._rid += 1
+        line = encode_request(self._rid, x, deadline_ms, priority)
+        sock = self._connect()
+        stall_ms = (
+            self.chaos.slow_loris_at(wire_seq)
+            if self.chaos is not None else None
+        )
+        if stall_ms is not None:
+            self._send_loris(sock, line, stall_ms)
+            raise DeadlineExceeded(
+                f"slow-loris@{wire_seq}: reaped by read deadline"
+            )
+        try:
+            sock.settimeout(self.timeout_s)
+            sock.sendall(line)
+        except OSError as e:
+            self.close()
+            raise NetTransportError(f"send: {e}") from e
+        reply = self._read_reply(sock)
+        if reply.get("ok"):
+            return np.asarray(reply["y"], dtype=np.float32)
+        error = reply.get("error", "Failed")
+        message = reply.get("message", "")
+        if error == "Overloaded":
+            raise Overloaded(message)
+        if error == "DeadlineExceeded":
+            raise DeadlineExceeded(message)
+        raise NetRequestFailed(f"{error}: {message}")
+
+
+def run_closed_loop_net(
+    address: Tuple[str, int],
+    samples: np.ndarray,
+    *,
+    n_requests: int,
+    concurrency: int = 4,
+    deadline_ms: Optional[float] = None,
+    retry: Optional[RetryPolicy] = None,
+    timeout_s: float = 10.0,
+    seed: int = 0,
+    chaos=None,
+    on_request: Optional[Any] = None,
+) -> LoadgenReport:
+    """Closed loop over the wire: ``concurrency`` NetClients, each with
+    a ``retry.decorrelated(cid)`` backoff stream covering Overloaded
+    replies AND transport errors (the respawn-riding path). Slow-loris
+    injections and server-typed deadline replies count ``expired`` and
+    are never retried. ``on_request(global_index)`` — when given — is
+    called before each request (the scenario hook that triggers a
+    mid-run hot swap at a chosen point in the traffic)."""
+    retry = retry or RetryPolicy(attempts=6, base_delay=0.01,
+                                 max_delay=0.5, seed=seed)
+    latency = Histogram()
+    counters = {"completed": 0, "shed": 0, "expired": 0, "errors": 0}
+    lock = threading.Lock()
+    next_idx = [0]
+    seq = _WireSeq()
+
+    def client(cid: int) -> None:
+        delays = list(retry.decorrelated(cid).delays())
+        with NetClient(address, timeout_s=timeout_s, chaos=chaos,
+                       seq=seq) as nc:
+            while True:
+                with lock:
+                    i = next_idx[0]
+                    if i >= n_requests:
+                        return
+                    next_idx[0] += 1
+                if on_request is not None:
+                    on_request(i)
+                x = samples[i % len(samples)]
+                t_sub = time.monotonic()
+                outcome = None
+                for attempt in range(retry.attempts):
+                    try:
+                        nc.request(x, deadline_ms=deadline_ms)
+                        outcome = "completed"
+                        latency.record(time.monotonic() - t_sub)
+                        break
+                    except DeadlineExceeded:
+                        outcome = "expired"
+                        break
+                    except Overloaded:
+                        outcome = "shed"
+                    except (NetTransportError, NetRequestFailed):
+                        outcome = "errors"
+                    if attempt < retry.attempts - 1:
+                        time.sleep(delays[attempt])
+                with lock:
+                    counters[outcome] += 1
+
+    threads = [
+        threading.Thread(target=client, args=(c,), daemon=True)
+        for c in range(concurrency)
+    ]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    seconds = time.perf_counter() - t0
+    return LoadgenReport(
+        pattern="closed-net",
+        requests=n_requests,
+        completed=counters["completed"],
+        shed=counters["shed"],
+        expired=counters["expired"],
+        errors=counters["errors"],
+        seconds=seconds,
+        latency=latency,
+    )

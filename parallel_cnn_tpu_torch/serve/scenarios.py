@@ -35,8 +35,29 @@ derive from ``seed``. Wall-clock scheduling jitter moves individual
 latencies, so gates carry CPU-scale headroom, but the request sequence
 itself replays exactly.
 
-The net suites (``NET_SCENARIOS``, ``run_net``: the same judgment over
-the socket of the network front door) come with ROADMAP A12b.
+The **net suites** (``run_net`` + NET_SCENARIOS) repeat the exercise
+one boundary further out — over the real socket of serve/net.py, with
+conservation judged at the wire tier (WireStats delta) as well:
+
+- **net-steady** — closed-loop socket clients, no faults: the wire
+  baseline every other net gate is measured against.
+- **net-slow-loris** — one client stalls mid-request past the read
+  deadline (``slow-loris@SEQ:MS`` armed client-side). The server must
+  reap it as *expired* — never a hung handler thread — and the run
+  asserts ``reaped >= 1`` on top of conservation.
+- **net-kill-endpoint** — ``kill-endpoint@SEQ`` armed server-side:
+  the endpoint dies mid-traffic, in-flight wire requests are journaled
+  ``net_failed``, and the supervisor's bounded-backoff respawn (same
+  port) lets client retries carry every logical request through —
+  run WITHOUT a supervisor and the gate trips, which is the
+  anti-vacuity control arm.
+- **net-hot-swap-diurnal** — the diurnal shape driven over the wire
+  with a weight hot-swap triggered mid-peak: the grow → drain →
+  retire roll must finish with ``failed_delta == 0`` and conservation
+  intact at both tiers (the zero-downtime gate).
+
+``run`` knows only the in-process scenarios: a ``net-*`` name there is an
+unknown scenario, as in JAX.
 """
 
 from __future__ import annotations
@@ -45,7 +66,7 @@ import dataclasses
 import math
 import threading
 import time
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -194,22 +215,37 @@ def _phase_offsets(phases, rng) -> List[float]:
     return out
 
 
-def _settled_delta(stats, before: Dict[str, int],
-                   timeout_s: float = 5.0) -> Tuple[Dict[str, int], bool]:
-    """Server-side counter delta once it balances. The last future can
-    resolve a beat before its on_complete lands, so poll briefly for
-    submitted == completed + shed + expired + failed before judging."""
+def settle(read: Callable[[], Any], done: Callable[[Any], bool],
+           timeout_s: float = 5.0) -> Tuple[Any, bool]:
+    """Poll ``read()`` until ``done`` holds of its value or ``timeout_s``
+    passes; returns (the last value, whether it was done). A terminal
+    outcome is counted (and journaled) a beat after the reply or future
+    that carries it, so every count is judged once it has settled."""
     deadline = time.monotonic() + timeout_s
     while True:
-        snap = stats.snapshot()
-        delta = {k: snap[k] - before.get(k, 0) for k in _COUNTER_KEYS}
-        balanced = delta["submitted"] == (
-            delta["completed"] + delta["shed"] + delta["expired"]
-            + delta["failed"]
-        )
-        if balanced or time.monotonic() > deadline:
-            return delta, balanced
+        value = read()
+        ok = done(value)
+        if ok or time.monotonic() > deadline:
+            return value, ok
         time.sleep(0.002)
+
+
+def _balanced(delta: Dict[str, int]) -> bool:
+    return delta["submitted"] == (
+        delta["completed"] + delta["shed"] + delta["expired"] + delta["failed"]
+    )
+
+
+def settled_delta(stats, before: Dict[str, int], keys: Tuple[str, ...] = _COUNTER_KEYS,
+                  timeout_s: float = 5.0) -> Tuple[Dict[str, int], bool]:
+    """The delta of ``stats`` (ServeStats or WireStats) over ``before``
+    once submitted == completed + shed + expired + failed, and whether
+    it balanced before ``timeout_s``."""
+    def read() -> Dict[str, int]:
+        snap = stats.snapshot()
+        return {k: snap[k] - before.get(k, 0) for k in keys}
+
+    return settle(read, _balanced, timeout_s)
 
 
 def _priority_for(rng, best_effort_frac: float) -> str:
@@ -409,7 +445,7 @@ def run(
             best_effort_frac=best_effort_frac,
             retry_attempts=retry_attempts,
         )
-    server, balanced = _settled_delta(batcher.stats, before)
+    server, balanced = settled_delta(batcher.stats, before)
     return ScenarioReport(
         name=name,
         seed=seed,
@@ -425,4 +461,237 @@ def run(
                    else spec.max_shed_rate),
         server=server,
         conservation_ok=balanced,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Net suites: the same judgment over the real socket (serve/net.py).
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class NetScenarioReport(ScenarioReport):
+    """A ScenarioReport with the wire tier judged too: the WireStats
+    delta must balance on its own, a slow-loris run must actually reap,
+    and a hot-swap run must finish with zero failed and nothing stuck."""
+
+    wire: Dict[str, int] = dataclasses.field(default_factory=dict)
+    wire_ok: bool = True
+    min_reaped: int = 0
+    swap: Optional[Dict[str, Any]] = None
+
+    def gates(self) -> Dict[str, bool]:
+        g = super().gates()
+        g["wire_conservation"] = self.wire_ok
+        if self.min_reaped:
+            g["reaped"] = self.wire.get("reaped", 0) >= self.min_reaped
+        if self.swap is not None:
+            g["hot_swap_zero_failed"] = (
+                self.swap.get("failed_delta", 1) == 0
+                and not self.swap.get("stuck")
+                and len(self.swap.get("swapped", [])) > 0
+            )
+        return g
+
+    def to_dict(self) -> Dict[str, Any]:
+        d = super().to_dict()
+        d["wire"] = self.wire
+        d["swap"] = self.swap
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class NetScenarioSpec:
+    """A named net scenario: closed-loop socket clients, optionally
+    paced along seeded phase offsets, with the gate defaults."""
+
+    name: str
+    p99_ms: float
+    max_shed_rate: float
+    needs_chaos: Optional[str]    # "slow-loris" (client) / "kill-endpoint"
+    n_requests: int
+    concurrency: int
+    phases: Tuple[Tuple[float, float], ...] = ()  # paced arrivals when set
+    min_reaped: int = 0           # required reap count (anti-vacuity)
+    swap_at_frac: Optional[float] = None  # hot-swap trigger point
+    deadline_ms: Optional[float] = None   # per-request budget on the wire
+
+
+NET_SCENARIOS: Dict[str, NetScenarioSpec] = {
+    # The wire baseline: no faults, nothing shed, nothing lost.
+    "net-steady": NetScenarioSpec(
+        name="net-steady", p99_ms=500.0, max_shed_rate=0.0,
+        needs_chaos=None, n_requests=64, concurrency=4,
+    ),
+    # One client stalls mid-request past the read deadline; the server
+    # must reap it as expired (never a hung handler) and keep serving.
+    "net-slow-loris": NetScenarioSpec(
+        name="net-slow-loris", p99_ms=500.0, max_shed_rate=0.0,
+        needs_chaos="slow-loris", n_requests=48, concurrency=4,
+        min_reaped=1,
+    ),
+    # Endpoint dies mid-traffic; with a supervisor the respawn plus
+    # client transport-retries carry every logical request through.
+    "net-kill-endpoint": NetScenarioSpec(
+        name="net-kill-endpoint", p99_ms=1000.0, max_shed_rate=0.0,
+        needs_chaos="kill-endpoint", n_requests=64, concurrency=4,
+    ),
+    # Diurnal pacing with a weight hot-swap triggered mid-peak: the
+    # grow → drain → retire roll must lose nothing (zero failed).
+    "net-hot-swap-diurnal": NetScenarioSpec(
+        name="net-hot-swap-diurnal", p99_ms=1000.0, max_shed_rate=0.0,
+        needs_chaos=None, n_requests=0, concurrency=6,
+        phases=((0.05, 150.0), (0.1, 400.0), (0.05, 150.0)),
+        swap_at_frac=0.4,
+    ),
+}
+
+
+#: The wire tier's counters a net scenario reads as a delta.
+WIRE_KEYS = _COUNTER_KEYS + ("reaped", "conn_opened", "endpoint_deaths")
+
+
+def settled_wire_delta(wire, before: Dict[str, int],
+                       timeout_s: float = 5.0) -> Tuple[Dict[str, int], bool]:
+    """``settled_delta`` of the WireStats: a handler may account its
+    terminal outcome a beat after the client read the reply."""
+    return settled_delta(wire, before, WIRE_KEYS, timeout_s)
+
+
+def run_net(
+    name: str,
+    batcher: DynamicBatcher,
+    *,
+    wire,
+    address: Optional[Tuple[str, int]] = None,
+    server=None,
+    supervisor=None,
+    chaos=None,
+    swap_model: Any = None,
+    obs=None,
+    seed: int = 0,
+    timeout_s: float = 10.0,
+    retry=None,
+    p99_ms: Optional[float] = None,
+    max_shed_rate: Optional[float] = None,
+) -> NetScenarioReport:
+    """Run one named net scenario over a live socket endpoint.
+
+    ``wire`` is the (respawn-shared) WireStats of the endpoint;
+    ``supervisor`` / ``server`` locate the listener (``address``
+    overrides — e.g. a fixed port the supervisor respawns on).
+    ``chaos`` is the *client-side* monkey (slow-loris); the
+    kill-endpoint arming check reads the *server's* monkey. A hot-swap
+    scenario needs ``swap_model`` — the new weights (an ``nn.Module`` on
+    the host) rolled in mid-peak via serve.supervisor.hot_swap."""
+    from parallel_cnn_tpu_torch.serve import loadgen
+    from parallel_cnn_tpu_torch.serve import supervisor as supervisor_lib
+
+    spec = NET_SCENARIOS.get(name)
+    if spec is None:
+        raise ValueError(
+            f"unknown net scenario {name!r} "
+            f"(have: {', '.join(NET_SCENARIOS)})"
+        )
+    endpoint = supervisor.server if supervisor is not None else server
+    if address is None:
+        if endpoint is None:
+            raise ValueError("run_net needs address=, server=, or "
+                             "supervisor= to locate the endpoint")
+        address = endpoint.address
+    # Anti-vacuity: a chaos scenario without its fault armed would be
+    # vacuously green — refuse instead (same contract as run()).
+    if spec.needs_chaos == "slow-loris":
+        if chaos is None or chaos.slow_loris is None:
+            raise ValueError(
+                f"scenario {name!r} needs a client-side ChaosMonkey with "
+                f"slow-loris@SEQ:MS armed"
+            )
+    elif spec.needs_chaos == "kill-endpoint":
+        srv_chaos = endpoint.chaos if endpoint is not None else None
+        if srv_chaos is None or srv_chaos.kill_endpoint_seq is None:
+            raise ValueError(
+                f"scenario {name!r} needs kill-endpoint@SEQ armed on the "
+                f"endpoint's ChaosMonkey"
+            )
+    if spec.swap_at_frac is not None and swap_model is None:
+        raise ValueError(f"scenario {name!r} needs swap_model= (the new "
+                         f"weights to hot-swap in)")
+    rng = np.random.default_rng(seed)
+    offsets = _phase_offsets(spec.phases, rng) if spec.phases else []
+    n_requests = len(offsets) if offsets else spec.n_requests
+    samples = make_samples(
+        min(n_requests, 64) or 1, batcher.pool.handle.in_shape, seed=seed
+    )
+    swap_holder: Dict[str, Any] = {}
+    swap_threads: List[threading.Thread] = []
+    triggered = [False]
+    trigger_lock = threading.Lock()
+    swap_idx = (
+        int(spec.swap_at_frac * n_requests)
+        if spec.swap_at_frac is not None else None
+    )
+    t_start = time.monotonic()
+
+    def on_request(i: int) -> None:
+        if offsets:
+            delay = t_start + offsets[min(i, len(offsets) - 1)] \
+                - time.monotonic()
+            if delay > 0:
+                time.sleep(delay)
+        if swap_idx is not None and i >= swap_idx:
+            with trigger_lock:
+                if triggered[0]:
+                    return
+                triggered[0] = True
+            t = threading.Thread(
+                target=lambda: swap_holder.update(
+                    report=supervisor_lib.hot_swap(
+                        batcher.pool, batcher, swap_model, obs=obs,
+                    )
+                ),
+                daemon=True, name="hot-swap",
+            )
+            t.start()
+            swap_threads.append(t)
+
+    before_batcher = {
+        k: batcher.stats.snapshot()[k] for k in _COUNTER_KEYS
+    }
+    before_wire = wire.snapshot()
+    out = loadgen.run_closed_loop_net(
+        address, samples, n_requests=n_requests,
+        concurrency=spec.concurrency, deadline_ms=spec.deadline_ms,
+        retry=retry, timeout_s=timeout_s, seed=seed, chaos=chaos,
+        on_request=on_request if (offsets or swap_idx is not None)
+        else None,
+    )
+    for t in swap_threads:
+        t.join(timeout=30.0)
+    swap_report = swap_holder.get("report")
+    if spec.swap_at_frac is not None and swap_report is None:
+        # The trigger never fired (or the swap never finished): that is
+        # a failed swap gate, not an absent one.
+        swap_report = {"failed_delta": -1, "stuck": [], "swapped": []}
+    wire_delta, wire_ok = settled_wire_delta(wire, before_wire)
+    server_delta, balanced = settled_delta(batcher.stats, before_batcher)
+    return NetScenarioReport(
+        name=name,
+        seed=seed,
+        requests=out.requests,
+        completed=out.completed,
+        shed=out.shed,
+        expired=out.expired,
+        errors=out.errors,
+        seconds=out.seconds,
+        latency=out.latency,
+        p99_gate_ms=p99_ms if p99_ms is not None else spec.p99_ms,
+        shed_gate=(max_shed_rate if max_shed_rate is not None
+                   else spec.max_shed_rate),
+        server=server_delta,
+        conservation_ok=balanced,
+        wire=wire_delta,
+        wire_ok=wire_ok,
+        min_reaped=spec.min_reaped,
+        swap=swap_report,
     )

@@ -14,6 +14,9 @@ Two time horizons per signal:
   instead of the run's lifetime average. An event recorded ``window_s``
   seconds ago carries weight 1/e.
 
+``WireStats`` is the same conservation law one boundary further out, at
+the network front door (serve/net.py).
+
 Everything here is host-side counters around the device work, so the
 cost per request is a few lock acquisitions — nothing touches the
 device.
@@ -291,3 +294,97 @@ class ServeStats:
             )
             lines.append(f"replicas: {per}")
         return "\n".join(lines)
+
+
+class WireStats:
+    """Wire-tier request accounting for the network front door
+    (serve/net.py) — the same conservation law as :class:`ServeStats`,
+    one boundary further out: every request *observed on the socket*
+    resolves exactly once as completed (reply written), shed (typed
+    Overloaded reply), expired (typed DeadlineExceeded reply, or a
+    stalled/half-read socket reaped at the connection deadline), or
+    failed (endpoint death with the request in flight, or an error
+    reply). ``submitted == completed + shed + expired + failed`` must
+    therefore hold over the wire in every scenario — including across a
+    ``kill-endpoint@`` respawn, where the in-flight remainder lands in
+    ``failed`` rather than vanishing.
+
+    Deliberately a separate object from the batcher's ServeStats: a
+    slow-loris request that never finished arriving was never
+    ``submit()``-ed to the batcher, so it exists only at this tier, and
+    an endpoint death fails the wire view of a request the batcher may
+    still complete internally. Thread-safe; shared across endpoint
+    respawns so the law spans restarts."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.submitted = 0
+        self.completed = 0
+        self.shed = 0
+        self.expired = 0
+        self.failed = 0
+        # Connection-level context (not part of the conservation sum).
+        self.conn_opened = 0
+        self.conn_closed = 0
+        self.reaped = 0          # expired subset: stalled sockets reaped
+        self.endpoint_deaths = 0
+
+    def on_submit(self) -> None:
+        with self._lock:
+            self.submitted += 1
+
+    def on_complete(self) -> None:
+        with self._lock:
+            self.completed += 1
+
+    def on_shed(self) -> None:
+        with self._lock:
+            self.shed += 1
+
+    def on_expired(self, n: int = 1, reaped: bool = False) -> None:
+        with self._lock:
+            self.expired += n
+            if reaped:
+                self.reaped += n
+
+    def on_failed(self, n: int = 1) -> None:
+        with self._lock:
+            self.failed += n
+
+    def on_conn_open(self) -> None:
+        with self._lock:
+            self.conn_opened += 1
+
+    def on_conn_close(self) -> None:
+        with self._lock:
+            self.conn_closed += 1
+
+    def on_endpoint_death(self) -> None:
+        with self._lock:
+            self.endpoint_deaths += 1
+
+    def snapshot(self) -> Dict[str, Any]:
+        with self._lock:
+            return {
+                "submitted": self.submitted,
+                "completed": self.completed,
+                "shed": self.shed,
+                "expired": self.expired,
+                "failed": self.failed,
+                "conn_opened": self.conn_opened,
+                "conn_closed": self.conn_closed,
+                "reaped": self.reaped,
+                "endpoint_deaths": self.endpoint_deaths,
+            }
+
+    def balanced(self) -> bool:
+        """The wire conservation law, as a predicate."""
+        with self._lock:
+            return self.submitted == (
+                self.completed + self.shed + self.expired + self.failed
+            )
+
+    def attach_registry(self, registry, prefix: str = "wire") -> None:
+        """Expose through an obs.MetricsRegistry (same pull-collector
+        convention as ServeStats)."""
+        registry.attach(prefix, self.snapshot)

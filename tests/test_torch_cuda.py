@@ -13,6 +13,8 @@ runs without the suite's conftest:
 
 import ctypes
 import dataclasses
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -40,10 +42,15 @@ from parallel_cnn_tpu_torch.ops import (
 )
 from parallel_cnn_tpu_torch.serve import (
     AutoScaler,
+    Engine,
+    NetServer,
     ReplicaDead,
     ReplicaPool,
+    WireStats,
     get,
+    hot_swap,
     loadgen,
+    scenarios,
     serve_stack,
 )
 from parallel_cnn_tpu_torch.train import step, trainer, zoo
@@ -52,6 +59,7 @@ from parallel_cnn_tpu_torch.utils.tree import tree_leaves, tree_map
 from chip_smoke import GRAD_CASES as SMOKE_GRAD_CASES
 from chip_smoke import (
     B9_SITES,
+    engine_bytes,
     R50_GEOMETRIES,
     STEM224,
     VGG_GEOMETRIES,
@@ -279,6 +287,81 @@ def test_runner_added_mid_traffic_launches_the_kernel_on_card(card):
     assert pool.engines[1].device.type == "cuda"
     warmups = sum(e.stats.warmups for e in pool.engines)
     assert tap_conv.launches.count == 20 * (batcher.executed + warmups)
+
+
+def test_hot_swap_serves_the_new_weights_and_returns_the_card_memory_on_card(card):
+    """hot_swap on the card: the grown replica's logits equal a fresh
+    engine's from the new weights bit for bit at every bucket, and the
+    retired replica gives its weights back (memory at its level before)."""
+    handle = get("resnet18")
+    pool, batcher = serve_stack(handle, ServeConfig(max_batch=64), device="cuda", seed=0)
+    new = handle.init(seed=7)
+    xs = loadgen.make_samples(64, handle.in_shape, seed=3)
+    with batcher:
+        old = batcher.submit(xs[0]).result(timeout=120)
+        before = engine_bytes()
+        report = hot_swap(pool, batcher, new)
+        after = engine_bytes()
+        served = batcher.submit(xs[0]).result(timeout=120)
+    assert report["failed_delta"] == 0 and report["stuck"] == []
+    assert report["swapped"] == [0] and report["grown"] == [1]
+    assert after == before and pool.engines[0].model is None
+    fresh = Engine(handle, model=new, max_batch=64, device="cuda")
+    for b in BUCKETS:
+        np.testing.assert_array_equal(pool.engines[1].predict(xs[:b]), fresh.predict(xs[:b]))
+    np.testing.assert_array_equal(served, fresh.predict(xs[:1])[0])
+    assert not np.array_equal(served, old)
+
+
+def test_killed_endpoint_fails_inflight_with_exact_launches_on_card(card, tmp_path):
+    """A ResNet-18 batcher behind a NetServer: a request held in flight (the
+    worker paused) when the endpoint dies is journaled net_failed; the
+    batcher still completes it, and B10's launches stay 20 per executed
+    batch and warm-up."""
+    from parallel_cnn_tpu_torch import obs as obs_lib
+    from parallel_cnn_tpu_torch.config import ObsConfig
+
+    handle = get("resnet18")
+    tap_conv.launches.reset()
+    pool, batcher = serve_stack(handle, ServeConfig(max_batch=8), device="cuda", seed=0,
+                                start=False)
+    bundle = obs_lib.from_config(ObsConfig(trace=True, dir=str(tmp_path)), run="kill")
+    wire = WireStats()
+    x = loadgen.make_samples(1, handle.in_shape, seed=0)[0]
+    srv = NetServer(batcher, wire=wire, obs=bundle).start()
+    nc = loadgen.NetClient(srv.address, timeout_s=30.0)
+    outcome = []
+
+    def call():
+        try:
+            nc.request(x)
+        except loadgen.NetTransportError as e:
+            outcome.append(e)
+
+    t = threading.Thread(target=call)
+    t.start()
+    deadline = time.monotonic() + 30
+    while wire.snapshot()["submitted"] < 1:
+        assert time.monotonic() < deadline
+        time.sleep(0.005)
+    srv.kill(reason="test")
+    t.join(timeout=30)
+    nc.close()
+    assert not t.is_alive() and outcome
+    with batcher:
+        batcher.start()
+        deadline = time.monotonic() + 30
+        while batcher.stats.snapshot()["completed"] < 1:
+            assert time.monotonic() < deadline
+            time.sleep(0.005)
+    delta, balanced = scenarios.settled_wire_delta(wire, {})
+    assert balanced and delta["failed"] == delta["submitted"] == 1
+    counts = bundle.journal.counts()
+    bundle.finish()
+    assert counts["net_failed"] == 1 and counts["endpoint_killed"] == 1
+    assert obs_lib.conservation(counts, prefix="net_") is None
+    assert batcher.executed == 1
+    assert tap_conv.launches.count == 20 * (batcher.executed + pool.warmups)
 
 
 # ---------------------------------------------------------------------------

@@ -11,6 +11,7 @@ import dataclasses
 import io
 import json
 import signal
+import socket
 import threading
 import time
 
@@ -603,15 +604,57 @@ def test_cli_chaos_slow_exits_one():
     assert "[serve] gates FAIL: p99=TRIPPED" in out
 
 
-@pytest.mark.parametrize("extra", [
-    ["--listen"], ["--listen-port", "8080"], ["--listen-host", "0.0.0.0"],
-    ["--conn-deadline-ms", "100"], ["--supervise"],
-    ["--swap-checkpoint", "x.npz"], ["--aot-cache-dir", "/tmp/aot"],
-    ["--scenario", "net-steady"], ["--scenario", "net-hot-swap-diurnal"],
-])
+@pytest.mark.parametrize("extra", [["--aot-cache-dir", "/tmp/aot"]])
 def test_cli_wire_flags_raise_not_ported(extra):
     with pytest.raises(NotPortedError, match="A12b"):
         cli.main(["serve", "--device", "cpu", *extra])
+
+
+def _free_port() -> int:
+    """A port the OS has just handed out and taken back: no fixed number
+    that another process on the host may hold."""
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+@pytest.mark.parametrize("extra", [
+    ["--listen"], ["--listen-port", "FREE"], ["--listen-host", "0.0.0.0"],
+    ["--conn-deadline-ms", "100"], ["--supervise"],
+    ["--swap-checkpoint", "x.npz"],
+    ["--scenario", "net-steady"], ["--scenario", "net-hot-swap-diurnal"],
+])
+def test_cli_wire_flags_serve_over_the_wire(extra):
+    """The front door's flags, each with --listen, on lenet_ref: the
+    endpoint's line, the traffic or the scenario's gates over the socket,
+    and JAX's wire line, balanced. --listen-port gets a port the OS says
+    is free, never a fixed one."""
+    if extra[0] == "--listen-port":
+        extra = ["--listen-port", str(_free_port())]
+    rc, out = _cli(["serve", "--device", "cpu", "--model", "lenet_ref", "--max-batch",
+                    "8", "--requests", "16", "--listen", *extra])
+    assert rc == 0, out
+    host = extra[1] if extra[0] == "--listen-host" else "127.0.0.1"
+    port = extra[1] if extra[0] == "--listen-port" else ""
+    deadline = extra[1] if extra[0] == "--conn-deadline-ms" else "2000"
+    supervised = ", supervised" if extra[0] == "--supervise" else ""
+    assert f"[serve] listening on {host}:{port}" in out, out
+    assert f"(conn deadline {deadline} ms{supervised})" in out, out
+    if extra[0] == "--scenario":
+        assert f"[serve] scenario {extra[1]}: " in out and "[serve] gates PASS: " in out
+        assert "wire_conservation=ok" in out
+    else:
+        assert "[serve] closed-net-loop: " in out and "req/s over the wire" in out
+    wire = next(ln for ln in out.splitlines() if ln.startswith("[serve] wire: "))
+    assert "(balanced; 0 reaped, 0 endpoint deaths" in wire, wire
+    assert wire.endswith(", 0 respawns)" if supervised else "endpoint deaths)"), wire
+
+
+def test_cli_net_scenario_without_listen_exits_two():
+    rc, out = _cli(["serve", "--device", "cpu", "--model", "lenet_ref",
+                    "--scenario", "net-slow-loris", "--chaos", "slow-loris@3:400"])
+    assert rc == 2
+    assert "[serve] scenario net-slow-loris needs --listen (it judges the wire tier)" in out
 
 
 def test_serve_config_slo_fields_from_env(monkeypatch):
