@@ -68,8 +68,10 @@ port's two paths through their user-facing entry points:
   exact launch counts derived from the models' convs, a resumed run,
   kernel steps against plain steps, every distinct ResNet-50 conv and the
   ImageNet stem at 224x224 against the plain twins, profiled epochs; the
-  library resnet50() at ImageNet shape with its 7x7x2048 -> 1,000 tail;
-  serving both models from JAX-format checkpoints;
+  library resnet50() at ImageNet shape with its 7x7x2048 -> 1,000 tail
+  (B12's tiled form; the CIFAR heads keep the per-image form, both forms
+  checked and timed in turns at them), its rows at b1, b7, b32 against
+  b128; serving both models from JAX-format checkpoints;
 - the native C++ runtime (native): the idx parser against NumPy's, and
   --prefetch native and the zoo's --zoo-loader native against their
   NumPy twin, bit for bit, with the library built from native/*.cc.
@@ -1086,6 +1088,38 @@ def device_launches(fn, calls: int = 50) -> str:
     return f"{per_call:.2f} ({names}; {top} of {calls} calls seen)"
 
 
+def device_timeline(fn, calls: int = 20) -> str:
+    """The CUDA kernels of fn's last call of `calls` queued behind a spin
+    kernel (so the device runs them back to back, as a step does), from
+    torch.profiler's device events: each one's start and end in us from
+    the first one's start."""
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profile now and then records no device events
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(int(0.02 * SPIN_HZ))
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and "spin_kernel" not in e.name), key=lambda e: e.time_range.start)
+        if events:
+            break
+    last = []  # the last call's kernels: back from the end to a repeated name
+    for e in reversed(events):
+        if any(e.name == f.name for f in last):
+            break
+        last.insert(0, e)
+    if not last:
+        return "not measured"
+    t0 = last[0].time_range.start
+    name = lambda e: (e.name.replace("(anonymous namespace)::", "").split("(")[0]  # noqa: E731
+                      .split("<")[0].removeprefix("void "))
+    return ", ".join(f"{name(e)} {e.time_range.start - t0:.2f}-{e.time_range.end - t0:.2f}"
+                     for e in last)
+
+
 def sgd_leaf_operands(n, copies, gen):
     """B2's operands as the --fused-step path gives them after a step:
     LeNet's 6 leaves (their lengths scaled to n values in all) as views of
@@ -1658,6 +1692,42 @@ def tail_inputs(pool, gen):
     return x, w, b, y
 
 
+#: The library resnet50()'s head: gap over 7x7x2,048, 1,000 classes.
+IMAGENET_HEAD = (7, 7, 2048, 1000)
+
+
+def imagenet_head_inputs(batch, dtype, gen):
+    """Seeded inputs of the ImageNet head at ``batch`` in ``dtype``: ReLU
+    features, w scaled by D^-1/2, labels in [0, 1,000)."""
+    h, wd, c, k = IMAGENET_HEAD
+    x = torch.relu(torch.randn((batch, h, wd, c), generator=gen, device="cuda"))
+    w = torch.randn((c, k), generator=gen, device="cuda") * c ** -0.5
+    b = 0.1 * torch.randn((k,), generator=gen, device="cuda")
+    y = torch.randint(0, k, (batch,), generator=gen, device="cuda")
+    return tuple(t.to(dtype) for t in (x, w, b)) + (y,)
+
+
+def check_head_rows(dtype, gen) -> None:
+    """The ImageNet head's rows in ``dtype`` at b1, b7 and b32, each run of
+    images a batch of its own, against the same rows of one b128 call (the
+    first, a middle and the last places): bit for bit, as the plan is the
+    same at every B."""
+    x, w, b, y = imagenet_head_inputs(128, dtype, gen)
+    whole = tail.tail_forward(x, w, b, y, "gap")
+    spans = ((0, 1), (61, 62), (127, 128), (0, 7), (64, 71), (121, 128), (0, 32), (48, 80),
+             (96, 128))
+    bad = [f"[{lo}:{hi}]" for lo, hi in spans
+           if not all(torch.equal(part, rows[lo:hi]) for part, rows in zip(
+               tail.tail_forward(x[lo:hi], w, b, y[lo:hi], "gap"), whole))]
+    name = str(dtype).replace("torch.", "")
+    print(f"[smoke] tail_ce gap 7x7x2048->1000 {name} rows at b1, b7, b32 against b128 "
+          f"({tail.tail_plan('gap', *IMAGENET_HEAD, dtype).form} form): "
+          f"{'bit-identical ok' if not bad else 'DIFFER at ' + ', '.join(bad) + ' FAIL'}",
+          flush=True)
+    if bad:
+        fail(f"the {name} ImageNet head's rows depend on the batch they came in")
+
+
 def within(name, got, want, again, rtol=GRAD_RTOL) -> float:
     """Check a kernel result against its plain version (``rtol`` relative
     to the output's scale, in f32; the dtypes equal) and its relaunch (bit
@@ -1715,16 +1785,25 @@ def check_zoo_kernels() -> dict:
             f"wgrad {name:24s} {shape}", gw, gw_ref, gw2))
     for pool in ("gap", "max2"):
         x, w, b, y = tail_inputs(pool, gen)
-        loss, dl = tail.tail_forward(x, w, b, y, pool)
-        loss2, dl2 = tail.tail_forward(x, w, b, y, pool)
-        ref_loss, ref_dl = tail.tail_forward_plain(x, w, b, y, pool)
-        torch.cuda.synchronize()
         shape = "x".join(str(d) for d in x.shape)
-        errs["tail_ce"] = max(
-            errs["tail_ce"],
-            within(f"tail_ce {pool} ({shape})->10 loss", loss, ref_loss, loss2),
-            within(f"tail_ce {pool} ({shape})->10 dlogits", dl, ref_dl, dl2))
+        for form, plan in tail_forms(pool, x, w):
+            loss, dl = tail.tail_forward(x, w, b, y, pool, plan)
+            loss2, dl2 = tail.tail_forward(x, w, b, y, pool, plan)
+            ref_loss, ref_dl = tail.tail_forward_plain(x, w, b, y, pool)
+            torch.cuda.synchronize()
+            tag = f"tail_ce {pool} ({shape})->10 {form} form"
+            errs["tail_ce"] = max(errs["tail_ce"],
+                                  within(f"{tag} loss", loss, ref_loss, loss2),
+                                  within(f"{tag} dlogits", dl, ref_dl, dl2))
     return errs
+
+
+def tail_forms(pool, x, w):
+    """B12's two forms for this head, the plan's own first: (form, plan)."""
+    shape = (pool, *x.shape[1:], w.shape[1], x.dtype)
+    chosen = tail.tail_plan(*shape)
+    return [(chosen.form, chosen)] + [(form, tail.tail_plan(*shape, form=form))
+                                      for form in tail.FORMS if form != chosen.form]
 
 
 def epoch_losses(out):
@@ -1740,12 +1819,13 @@ def zoo_counts():
 
 def reset_zoo_counts():
     """Every counter of the zoo's kernels, the f32 and the bf16 forms (FFMA
-    and tensor-core)."""
+    and tensor-core; the tail's tiled form)."""
     for counter in (tap_conv.launches, tap_conv.dgrad_launches,
                     tap_wgrad.launches, tail.launches, tap_conv.bf16_launches,
                     tap_conv.bf16_dgrad_launches, tap_wgrad.bf16_launches,
                     tail.bf16_launches, tap_conv.wgmma_launches,
-                    tap_conv.wgmma_dgrad_launches, tap_wgrad.wgmma_launches):
+                    tap_conv.wgmma_dgrad_launches, tap_wgrad.wgmma_launches,
+                    tail.tiled_launches, tail.bf16_tiled_launches):
         counter.reset()
 
 
@@ -2171,11 +2251,14 @@ def time_zoo_kernels() -> dict:
     for pool in ("gap", "max2"):
         args = tail_inputs(pool, gen)
         fn = lambda x, w, b, y: tail.tail_forward(x, w, b, y, pool)  # noqa: E731
-        ms = cuda_ms(lambda: fn(*args), reps=200)
+        (form, plan), (other, other_plan) = tail_forms(pool, *args[:2])
+        ms, other_ms = in_turns(lambda: tail.tail_forward(*args, pool, plan),
+                                lambda: tail.tail_forward(*args, pool, other_plan), reps=200)
         plain = cuda_ms(lambda: tail.tail_forward_plain(*args, pool), reps=20)
         bound, by = tail_bound_ms(*args[:2])
         note = l2_cold_note(fn, args, bound)
-        print(f"[smoke] time tail_ce {pool} b{ZOO_BATCH}: kernel {ms:.5f} ms, plain "
+        print(f"[smoke] time tail_ce {pool} b{ZOO_BATCH}: kernel ({form} form, the plan's) "
+              f"{ms:.5f} ms, {other} form {other_ms:.5f} ms in turns, plain "
               f"{plain:.4f} ms, library none, bound {bound:.6f} ms ({by}), "
               f"{bound / ms:.1%} of bound{note}; {device_launches(lambda: fn(*args))} CUDA "
               "launches per wrapper call (torch.profiler)", flush=True)
@@ -2748,6 +2831,10 @@ IMAGENET_BATCH = 32
 IMAGENET_ACCUM = 2
 IMAGENET_STEPS = 4
 IMAGENET_LR = 0.05
+# The ImageNet head's B12 time in its per-image form on an H100 (PERF.md)
+# and the tiled form's target.
+IMAGENET_TAIL_MS = 0.931
+TARGET_IMAGENET_TAIL_MS = 0.030
 # vgg: the CLI on VGG-16 (CIFAR head) at b128, 2 epochs of VGG_STEPS steps.
 VGG_STEPS = 10
 VGG_TRAIN_COUNT = VGG_STEPS * ZOO_BATCH
@@ -2977,7 +3064,8 @@ def imagenet_phase(card) -> tuple:
     classes) on 224x224 images: IMAGENET_STEPS steps on one batch in two
     microbatches, exact launch counts, a finite falling loss; then the gap
     tail at 7x7x2048 -> 1,000 on the trained trunk's features against its
-    plain twin. Returns (launches, the tail's largest difference)."""
+    plain twin, its rows at b1, b7, b32 against b128, and its time. Returns
+    (launches, the tail's largest difference, the tail's times)."""
     model = resnet.resnet50(generator=torch.Generator().manual_seed(0)).cuda()
     convs = sum(m.__class__ is ConvBNAct for m in model.modules())
     imgs, labels = synthetic.make_image_dataset(IMAGENET_BATCH, hw=(224, 224),
@@ -2992,17 +3080,22 @@ def imagenet_phase(card) -> tuple:
     losses = [float(step(state, x, y)) for _ in range(IMAGENET_STEPS)]
     wall = time.perf_counter() - t0
     launches = zoo_counts()
+    tiled = tail.tiled_launches.count
     micro = IMAGENET_STEPS * IMAGENET_ACCUM
     want = {"tap_conv": convs * micro, "tap_conv_dgrad": (convs - 1) * micro,
             "tap_wgrad": convs * micro, "tail_ce": micro}
+    plan = tail.tail_plan("gap", *IMAGENET_HEAD, torch.float32)
     print(f"[smoke] imagenet (a): resnet50() at 224x224, b{IMAGENET_BATCH} in "
           f"{IMAGENET_ACCUM} microbatches, lr {IMAGENET_LR}: losses "
-          f"{[round(v, 4) for v in losses]}; launches {launches} (expected {want}); "
-          f"{wall:.2f} s for {IMAGENET_STEPS} steps, the first cold, on {card}",
-          flush=True)
-    if launches != want:
+          f"{[round(v, 4) for v in losses]}; launches {launches} (expected {want}; "
+          f"tail_ce in its tiled form {tiled} of them); {wall:.2f} s for {IMAGENET_STEPS} "
+          f"steps, the first cold, on {card}", flush=True)
+    print(f"[smoke] imagenet (a): the tail's plan at gap 7x7x2048->1000: {plan.form} form, "
+          f"{plan.chunks} feature chunks of {plan.chunk_features}, {plan.pos_groups} position "
+          f"ranges, {plan.scratch_per_image} bytes of scratch an image", flush=True)
+    if launches != want or tiled != micro:
         fail("the ImageNet-shape ResNet-50 steps did not launch each kernel as often "
-             "as their microbatches need")
+             "as their microbatches need, or the tail not in its tiled form")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         fail("the ImageNet-shape ResNet-50 loss is not finite or did not fall")
     with torch.no_grad():  # the trunk as the step runs it: batch statistics
@@ -3019,13 +3112,22 @@ def imagenet_phase(card) -> tuple:
     err = max(within(f"imagenet (a) tail_ce gap 7x7x2048->1000 {part}", g, r, a)
               for part, g, r, a in zip(("loss", "dlogits"), got, want_t, again))
     args = (feats.contiguous(), w, b, y)
+    check_head_rows(torch.float32, torch.Generator(device="cuda").manual_seed(27))
     ms = cuda_ms(lambda: tail.tail_forward(*args, "gap"), reps=100)
     plain = cuda_ms(lambda: tail.tail_forward_plain(*args, "gap"), reps=20)
     bound, by = tail_bound_ms(feats, w)
     print(f"[smoke] time imagenet (a) tail_ce gap 7x7x2048->1000 b{IMAGENET_BATCH}: kernel "
-          f"{ms:.5f} ms, plain {plain:.4f} ms, library none, bound {bound:.6f} ms ({by}), "
-          f"{bound / ms:.1%} of bound", flush=True)
-    return launches, err
+          f"({plan.form} form) {ms:.5f} ms, plain {plain:.4f} ms, library none, bound "
+          f"{bound:.6f} ms ({by}), {bound / ms:.1%} of bound; {IMAGENET_TAIL_MS / ms:.1f}x "
+          f"below the per-image form's {IMAGENET_TAIL_MS} ms (PERF.md), target <= "
+          f"{TARGET_IMAGENET_TAIL_MS} {'met' if ms <= TARGET_IMAGENET_TAIL_MS else 'NOT met'}; "
+          f"{device_launches(lambda: tail.tail_forward(*args, 'gap'))} CUDA launches per "
+          "wrapper call (torch.profiler)", flush=True)
+    print(f"[smoke] imagenet (a) tail_ce gap 7x7x2048->1000 b{IMAGENET_BATCH}, the last of 20 "
+          "calls queued behind a spin (torch.profiler, us from the first kernel's start): "
+          f"{device_timeline(lambda: tail.tail_forward(*args, 'gap'))}", flush=True)
+    times = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=None)
+    return launches, err, tiled, times
 
 
 def vgg_phase(card) -> dict:
@@ -4126,8 +4228,9 @@ def bf16_kernel_phase() -> tuple:
     """bf16 (a): every bf16 form against its twin on the card at the main
     path's shapes: ResNet-18's convs at b128, ResNet-50's 24 distinct convs
     at b128 and its 224x224 stem at b32 (forward, dgrad, wgrad), B12's gap
-    at ResNet-18's and ResNet-50's heads and max2 at the CIFAR CNN's.
-    Returns (largest differences, the records' times: ResNet-18's step sums
+    at ResNet-18's and ResNet-50's CIFAR heads and the ImageNet head (its
+    rows at b1, b7, b32 against b128 too), max2 at the CIFAR CNN's, each
+    timed in turns with the f32 form. Returns (largest differences, the records' times: ResNet-18's step sums
     at b128 and its gap tail; and ResNet-50's microbatch sums)."""
     gen = torch.Generator(device="cuda").manual_seed(17)
     errs, r18 = bf16_geometry_checks("ResNet-18", GEOMETRIES, ZOO_BATCH, gen, True)
@@ -4144,32 +4247,44 @@ def bf16_kernel_phase() -> tuple:
                                     else "bytes"),
                           library_ms=rec["library_ms"])
     errs["tail_ce"] = 0.0
-    heads = (("gap", "ResNet-18 head", (ZOO_BATCH, 4, 4, 512)),
-             ("gap", "ResNet-50 head", (Z50_BATCH, 4, 4, 2048)),
-             ("max2", "CIFAR CNN head", (ZOO_BATCH, 8, 8, 128)))
-    for pool, label, shape in heads:
+    heads = (("gap", "ResNet-18 head", (ZOO_BATCH, 4, 4, 512), 10),
+             ("gap", "ResNet-50 head", (Z50_BATCH, 4, 4, 2048), 10),
+             ("max2", "CIFAR CNN head", (ZOO_BATCH, 8, 8, 128), 10),
+             ("gap", "ImageNet head", (IMAGENET_BATCH, *IMAGENET_HEAD[:3]), IMAGENET_HEAD[3]))
+    for pool, label, shape, k in heads:
         x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
         d = shape[3] if pool == "gap" else (shape[1] // 2) * (shape[2] // 2) * shape[3]
-        w = torch.randn((d, 10), generator=gen, device="cuda") * d ** -0.5
-        b = 0.1 * torch.randn((10,), generator=gen, device="cuda")
-        y = torch.randint(0, 10, (shape[0],), generator=gen, device="cuda")
+        w = torch.randn((d, k), generator=gen, device="cuda") * d ** -0.5
+        b = 0.1 * torch.randn((k,), generator=gen, device="cuda")
+        y = torch.randint(0, k, (shape[0],), generator=gen, device="cuda")
         args = tuple(t.to(torch.bfloat16) for t in (x, w, b)) + (y,)
+        form = tail.tail_plan(pool, *shape[1:], k, torch.bfloat16).form
         loss, dl = tail.tail_forward(*args, pool)
         loss2, dl2 = tail.tail_forward(*args, pool)
         ref_loss, ref_dl = tail.tail_forward_plain(*args, pool)
         torch.cuda.synchronize()
-        tag = f"bf16 tail_ce {pool} {label} ({'x'.join(map(str, shape))})->10"
+        tag = f"bf16 tail_ce {pool} {label} ({'x'.join(map(str, shape))})->{k}"
         errs["tail_ce"] = max(errs["tail_ce"],
                               within(f"{tag} loss", loss, ref_loss, loss2, BF16_RTOL),
                               within(f"{tag} dlogits", dl, ref_dl, dl2, BF16_RTOL))
-        ms = cuda_ms(lambda: tail.tail_forward(*args, pool), reps=200)
+        # The f32 form at the same shape, in turns: the bf16 form must not
+        # be the slower of the two.
+        ms, f32_ms = in_turns(lambda: tail.tail_forward(*args, pool),
+                              lambda: tail.tail_forward(x, w, b, y, pool), reps=200)
         plain = cuda_ms(lambda: tail.tail_forward_plain(*args, pool), reps=20)
         bound, by = bf16_tail_bound_ms(args[0], args[1])
-        print(f"[smoke] time {tag}: kernel {ms:.5f} ms, plain {plain:.4f} ms, library "
-              f"none, bound {bound:.6f} ms ({by}), {bound / ms:.1%} of bound", flush=True)
+        print(f"[smoke] time {tag}: kernel ({form} form) {ms:.5f} ms, the f32 form "
+              f"{f32_ms:.5f} ms in turns (bf16 / f32 {ms / f32_ms:.3f}), plain {plain:.4f} "
+              f"ms, library none, bound {bound:.6f} ms ({by}), {bound / ms:.1%} of bound",
+              flush=True)
         if label == "ResNet-18 head":
             times["tail_ce"] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
                                     library_ms=None)
+        if label == "ImageNet head":
+            times["tail_ce"]["tiled_form"] = dict(
+                head=f"gap 7x7x2048->1000 b{IMAGENET_BATCH}", ms=ms, plain_ms=plain,
+                bound_ms=bound, bound_by=by, library_ms=None)
+    check_head_rows(torch.bfloat16, gen)
     return errs, times, r50
 
 
@@ -4365,7 +4480,10 @@ def main() -> int:
           f"in {time.perf_counter() - t0:.2f}s", flush=True)
     for lib in libs:
         for line in lib.compiler_output.splitlines():
-            if "registers" in line or "spill" in line or "wgmma" in line:
+            # The tail's lines name their kernel too (its forms' registers
+            # and spills, per instantiation).
+            named = lib.source.name == "tail_ce.cu" and "Function properties" in line
+            if "registers" in line or "spill" in line or "wgmma" in line or named:
                 print(f"[smoke] ptxas {lib.path.name}: {line.strip()}")
 
     # -- 3. kernel vs plain version at every ResNet-18 conv geometry -------
@@ -4530,7 +4648,7 @@ def main() -> int:
     r50_profile = profiled_zoo_epoch("ResNet-50, conv kernels + fused tail", "cuda",
                                      build=r50, batch=Z50_BATCH, steps=Z50_STEPS,
                                      accum=Z50_ACCUM)
-    img_launches, img_tail_err = imagenet_phase(card)
+    img_launches, img_tail_err, img_tiled, img_tail_times = imagenet_phase(card)
     vgg_launches = vgg_phase(card)
     profiled_zoo_epoch("VGG-16, conv kernels + fused tail", "cuda",
                        build=lambda b, g: vgg.vgg16(10, backend=b, generator=g),
@@ -4633,8 +4751,17 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
         "launches": sum(run["tail_ce"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+        # The per-image form at the 10-class heads, the tiled one at the
+        # ImageNet head (imagenet (a) reads its launches): the record's
+        # times are ResNet-18's head's, the tiled form's beside them.
+        "launches_by_form": {
+            "image": sum(run["tail_ce"] for run in (
+                zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches))
+            - img_tiled,
+            "tiled": img_tiled},
         "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
         **zoo_times["tail_ce"],
+        "tiled_form": {"head": f"gap 7x7x2048->1000 b{IMAGENET_BATCH}", **img_tail_times},
     }, {
         "name": "lenet_fused",
         "route": "cuda",

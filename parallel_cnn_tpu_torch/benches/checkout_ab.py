@@ -6,7 +6,9 @@ one-contraction conv (B17, B19), per-filter conv (B18) and batched matmul
 (B14) against another checkout's, on one card: outputs compared, times in
 turns.
 
-    python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT
+    python -m parallel_cnn_tpu_torch.benches.checkout_ab OTHER_CHECKOUT [tail]
+
+With ``tail``, each side runs B12's cases alone.
 
 ``OTHER_CHECKOUT`` is an unpacked copy of another commit (``git archive``
 into a directory git ignores). Each side runs in a process of its own from
@@ -25,13 +27,14 @@ cold, two copies of its inputs in turns), and B2 on LeNet's params: one
 ``sgd_update.fused_sgd`` on the packed 2,343 values, and ``tree_sgd`` on
 the fresh params and on params that are views of a bucket after a step
 (device time, and host time a call); B12 (``tail.tail_forward``) in gap
-and max2 mode at batch 128 on ``chip_smoke.tail_inputs``; B17 and B19
-(``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) and B18
+and max2 mode at batch 128 on ``chip_smoke.tail_inputs``, in f32 and bf16,
+and at the ImageNet head (gap 7x7x2048 -> 1,000, batch 32) in both; B17
+and B19 (``mosaic_probe.mxu_conv_L`` and ``mxu_conv_3d``) and B18
 (``mosaic_probe.vpu_conv``) at the probes' shapes, the odd ones
 (``chip_smoke.probe_operands``) and with x one value past a 16-byte
 boundary; B14 (``mosaic_probe.rank3_dot``) at the probe's and the odd
-shape; and times each, the copies in turns with ``copy_``, B12, B14 and
-B17–B19 also with the L2 cold (``chip_smoke.cold_ms``). Last, one
+shape; and times each, the copies in turns with ``copy_``, B12 (but the
+ImageNet head), B14 and B17–B19 also with the L2 cold (``chip_smoke.cold_ms``). Last, one
 profiled ``--fused-step`` LeNet epoch at batch 64
 (``chip_smoke.profiled_epoch``): host µs, device ops and idle share a
 step. The first run of each side saves its outputs, which are
@@ -64,7 +67,7 @@ STAGED_CASES = ("conv_fwd", "pool_fwd", "fc_fwd", "pool_bwd", "sigma_prime")
 TOLERANT = ("lenet_fused", "accum_matmul", "fc_fwd", "tail_ce", "rank3_dot")
 
 
-def side(out_file: str) -> None:
+def side(out_file: str, only_tail: bool = False) -> None:
     """One run in the current checkout: outputs to ``out_file`` (when
     given) and one JSON line of times on stdout."""
     import torch
@@ -75,6 +78,12 @@ def side(out_file: str) -> None:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     outs, times = {}, {}
+    if only_tail:
+        tail_cases(outs, times)
+        if out_file:
+            torch.save(outs, out_file)
+        print(json.dumps(times))
+        return
     for batch in BATCHES:
         gen = torch.Generator().manual_seed(batch)
         total = 0.0
@@ -170,23 +179,45 @@ def sgd_cases(outs: dict, times: dict) -> None:
         times[f"tree_sgd {label} host a call"] = call_ms
 
 
-def tail_and_contract_cases(outs: dict, times: dict) -> None:
-    """B12 in both zoo tails at batch 128, B17–B19 at the probes' shapes,
-    the odd ones and with x one value off a 16-byte boundary, and B14 at
-    the probe's and the odd shape; times with the L2 warm and cold."""
+def tail_cases(outs: dict, times: dict) -> None:
+    """B12 in both zoo tails at batch 128 (with the L2 warm and cold) and
+    at the ImageNet head at batch 32, in f32 and in bf16."""
     import torch
 
     import chip_smoke as cs
-    from parallel_cnn_tpu_torch.ops import mosaic_probe, tail
+    from parallel_cnn_tpu_torch.ops import tail
 
     gen = torch.Generator(device="cuda").manual_seed(900)
-    for pool in ("gap", "max2"):
-        x, w, b, y = cs.tail_inputs(pool, gen)
-        key = f"tail_ce {pool} b{cs.ZOO_BATCH}"
-        loss, dl = tail.tail_forward(x, w, b, y, pool)
-        outs[key] = torch.cat([loss, dl.reshape(-1)]).cpu()
-        times[key] = cs.cuda_ms(lambda: tail.tail_forward(x, w, b, y, pool), reps=LENET_REPS)
-        times[f"{key} L2 cold"] = cs.cold_ms(lambda: tail.tail_forward(x, w, b, y, pool))
+    cases = [(f"tail_ce {pool} b{cs.ZOO_BATCH}", pool, cs.tail_inputs(pool, gen))
+             for pool in ("gap", "max2")]
+    # The ImageNet head, made here: the other side's chip_smoke may predate it.
+    x = torch.relu(torch.randn((cs.IMAGENET_BATCH, 7, 7, 2048), generator=gen, device="cuda"))
+    w = torch.randn((2048, 1000), generator=gen, device="cuda") * 2048 ** -0.5
+    b = 0.1 * torch.randn((1000,), generator=gen, device="cuda")
+    y = torch.randint(0, 1000, (cs.IMAGENET_BATCH,), generator=gen, device="cuda")
+    cases += [(f"tail_ce imagenet head b{cs.IMAGENET_BATCH}", "gap", (x, w, b, y))]
+    for key, pool, args in cases:
+        for dtype in (torch.float32, torch.bfloat16):
+            a = tuple(t.to(dtype) if t.is_floating_point() else t for t in args)
+            name = key if dtype == torch.float32 else f"{key} bf16"
+            loss, dl = tail.tail_forward(*a, pool)
+            outs[name] = torch.cat([loss, dl.reshape(-1)]).cpu()
+            times[name] = cs.cuda_ms(lambda: tail.tail_forward(*a, pool), reps=LENET_REPS)
+            if "imagenet" not in key:
+                times[f"{name} L2 cold"] = cs.cold_ms(lambda: tail.tail_forward(*a, pool))
+
+
+def tail_and_contract_cases(outs: dict, times: dict) -> None:
+    """B12 (``tail_cases``), B17–B19 at the probes' shapes, the odd ones
+    and with x one value off a 16-byte boundary, and B14 at the probe's and
+    the odd shape; times with the L2 warm and cold."""
+    import torch
+
+    import chip_smoke as cs
+    from parallel_cnn_tpu_torch.ops import mosaic_probe
+
+    tail_cases(outs, times)
+    gen = torch.Generator(device="cuda").manual_seed(900)
     for name in ("mxu_conv_L", "mxu_conv_3d", "vpu_conv"):
         fn = getattr(mosaic_probe, name)
         w, x = cs.probe_operands(name, True, cs.card_draw(gen))
@@ -222,10 +253,11 @@ def fused_step_epoch(times: dict) -> None:
         times[f"--fused-step epoch: {key} a step"] = value
 
 
-def run_side(root: Path, out_file: str) -> dict:
+def run_side(root: Path, out_file: str, only_tail: bool) -> dict:
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [str(root)] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
-    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", out_file],
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), "--side", out_file]
+                          + (["tail"] if only_tail else []),
                           cwd=root, env=env, capture_output=True, text=True, timeout=900)
     if proc.returncode != 0:
         raise RuntimeError(f"the run in {root} failed (rc {proc.returncode}):\n"
@@ -235,12 +267,13 @@ def run_side(root: Path, out_file: str) -> dict:
 
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
-    if len(argv) == 2 and argv[0] == "--side":
-        side(argv[1])
+    if argv[:1] == ["--side"] and len(argv) in (2, 3):
+        side(argv[1], argv[2:] == ["tail"])
         return 0
-    if len(argv) != 1:
+    if len(argv) not in (1, 2) or argv[1:] not in ([], ["tail"]):
         print(__doc__, file=sys.stderr)
         return 2
+    only_tail = argv[1:] == ["tail"]
     import torch
 
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
@@ -253,7 +286,7 @@ def main(argv=None) -> int:
         for label in ("other", "this", "this", "other"):
             root = other if label == "other" else THIS
             first = not runs[label]
-            runs[label].append(run_side(root, files[label] if first else ""))
+            runs[label].append(run_side(root, files[label] if first else "", only_tail))
         a, b = torch.load(files["this"]), torch.load(files["other"])
     from chip_smoke import LENET_RTOL, PROBE_RTOL
 

@@ -11,10 +11,12 @@ conv and FC forwards (B3 ``conv_fwd_kernel``, B5 ``fc_fwd_kernel``, same
 file), the staged pool forward and backward (B4 ``pool_fwd_kernel``,
 B7 ``pool_bwd_kernel``, same file), the staged σ′ kernel (B8
 ``sigma_prime_kernel``, same file), the leaf list of the fused SGD (B2
-``sgd_leaves_kernel``, ``csrc/sgd_update.cu``), the fused loss tail (B12
-``tail_ce_kernel``, ``csrc/tail_ce.cu``), the probes' contraction (B17/B19
-and B18, ``conv_contract_kernel``, ``csrc/mosaic_probe.cu``) and batched
-matmul (B14 ``batched_matmul_kernel``, same file).
+``sgd_leaves_kernel``, ``csrc/sgd_update.cu``), the fused loss tail (B12's
+per-image ``tail_ce_kernel`` and its tiled form's ``tail_gap_pass``,
+``tail_fc_kernel`` and ``tail_finish_kernel``, ``csrc/tail_ce.cu``), the
+probes' contraction (B17/B19 and B18, ``conv_contract_kernel``,
+``csrc/mosaic_probe.cu``) and batched matmul (B14
+``batched_matmul_kernel``, same file).
 
     python -m parallel_cnn_tpu_torch.benches.kernel_mutants [WORD ...]
 
@@ -193,13 +195,25 @@ MUTANTS = {
         f"{CSRC}/sgd_update.cu", "if (i + j < n) out[x.off + i + j] = o[j];",
         "if (i + j + 1 < n) out[x.off + i + j] = o[j];"),
     "B12 gap's second half of positions dropped": (
-        f"{CSRC}/tail_ce.cu", "if (p + q < positions) sum = vadd(sum, v[q]);",
-        "if (2 * (p + q) < positions) sum = vadd(sum, v[q]);"),
+        f"{CSRC}/tail_ce.cu", "if (p + q < positions) {", "if (2 * (p + q) < positions) {"),
     "B12 last row group's partial left out of the logit": (
         f"{CSRC}/tail_ce.cu", "for (int r = 1; r < rows; ++r) s += part[r * kc + j];",
         "for (int r = 1; r < rows - 1; ++r) s += part[r * kc + j];"),
     "B12 one-hot subtracted at the wrong class": (
-        f"{CSRC}/tail_ce.cu", "(j == y ? 1.0f : 0.0f)", "(j == y + 1 ? 1.0f : 0.0f)"),
+        f"{CSRC}/tail_ce.cu", "dln[j] = logits[j] / se - (j == y ? 1.0f : 0.0f);",
+        "dln[j] = logits[j] / se - (j == y + 1 ? 1.0f : 0.0f);"),
+    "B12 tiled gap pass's last position range left out": (
+        f"{CSRC}/tail_ce.cu", "for (int r = 1; r < groups; ++r) {",
+        "for (int r = 1; r < groups - 1; ++r) {"),
+    "B12 tiled FC's last ring slot of a chunk skipped": (
+        f"{CSRC}/tail_ce.cu", "const int stages = (f_end - f_begin + STAGE_F - 1) / STAGE_F;",
+        "const int stages = (f_end - f_begin - 1) / STAGE_F;"),
+    "B12 tiled finish's last chunk partial left out": (
+        f"{CSRC}/tail_ce.cu", "if (c0 + i < chunks) s += v[i];",
+        "if (c0 + i < chunks - 1) s += v[i];"),
+    "B12 tiled one-hot subtracted at the wrong class": (
+        f"{CSRC}/tail_ce.cu", "dln[j] = z[j] / se - (j == y ? 1.0f : 0.0f);",
+        "dln[j] = z[j] / se - (j == y + 1 ? 1.0f : 0.0f);"),
     "B17/B19 wide body's last tap dropped": (
         f"{CSRC}/mosaic_probe.cu",
         "for (int t = 0; t < TAPS; ++t) {\n      float xv[CONTRACT_COLS];\n      widen(",

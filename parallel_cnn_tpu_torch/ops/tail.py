@@ -1,5 +1,5 @@
 """Fused loss tail: pool → flatten → FC → softmax cross-entropy in one
-kernel launch (the port's counterpart of ``parallel_cnn_tpu/ops/pallas_tail.py``,
+kernel call (the port's counterpart of ``parallel_cnn_tpu/ops/pallas_tail.py``,
 whose TPU kernel is ``_tail_kernel`` at pallas_tail.py:152).
 
 ``fused_tail_loss(x, w, b, labels, pool=...)`` is the mean softmax-CE of
@@ -22,6 +22,15 @@ upcasts as JAX's ``_backward`` does (pallas_tail.py:270-300): the
 products and the ``gap`` division in f32, ``dx`` cast to x's dtype and
 ``dw``/``db`` to w's. Mixed dtypes raise TypeError.
 
+Two forms of the kernel, chosen by ``tail_plan`` from the shapes alone
+(never from B, so a row's bits do not depend on its batch): the per-image
+form (a block an image, one CUDA launch) for the 10-class CIFAR heads, and
+the tiled form (JAX's batch-block form, three chained CUDA launches: a pool
+pass, an FC whose w tiles serve 32 images, a fixed-order finish; scratch
+from ``torch.empty``) for many classes or features. Either is one call of
+the kernel, one count on ``launches`` (``bf16_launches``), and the tiled
+form's also one on ``tiled_launches`` (``bf16_tiled_launches``).
+
 Pool modes (``split_tail`` recognises them on a ``Sequential``):
 
 - ``"max2"`` — MaxPool(2×2, stride 2, VALID) → Flatten → Dense (the CIFAR
@@ -35,6 +44,7 @@ Nothing is built when this module is imported.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -48,23 +58,100 @@ from parallel_cnn_tpu_torch.ops._cuda_build import (
 )
 
 POOLS = ("max2", "gap", "none")
+FORMS = ("image", "tiled")
 _POOL_CODE = {"max2": 0, "gap": 1, "none": 2}
-# A tail is accepted where its pooled row, its logits and 8 floats fit the
-# 48 KB of shared memory a block gets without opting in. The kernel's partial
-# logits, one a thread, can take a block up to 1 KB past that; it then opts
-# in, so that it still takes every tail this check accepts.
+# The per-image form takes a tail whose pooled row, its logits and 8 floats
+# fit the 48 KB of shared memory a block gets without opting in. The
+# kernel's partial logits, one a thread, can take a block up to 1 KB past
+# that; it then opts in, so that it still takes every tail this check
+# accepts.
 _SMEM_FLOATS = 48 * 1024 // 4
+_INT32_MAX = 2**31 - 1
+#: The plan gives the per-image form a tail of at most this many classes
+#: (one a lane of the warp that runs its softmax) that fits its 48 KB.
+IMAGE_MAX_CLASSES = 32
+#: The tiled form's FC block takes TILE_CLASSES classes, its ring slots
+#: STAGE_FEATURES features (csrc/tail_ce.cu TILE_K, STAGE_F); its gap pass
+#: splits a channel's positions into at most MAX_POS_GROUPS ranges of
+#: about POS_SEG (MAX_POS_GROUPS, TAIL_SEG).
+TILE_CLASSES = 64
+STAGE_FEATURES = 32
+MAX_POS_GROUPS = 8
+POS_SEG = 16
+#: The FC grid the plan aims at for one image group: about two blocks an
+#: SM of an H100 (132 SMs).
+TARGET_BLOCKS = 264
+#: The fewest features a chunk sums (two ring slots), unless D is fewer.
+MIN_CHUNK_FEATURES = 64
+#: The most feature chunks: the partial logits take at most 4·MAX_CHUNKS·K
+#: bytes an image.
+MAX_CHUNKS = 64
 
 #: Launches of the tail kernel's f32 form in this process, and of its
-#: bf16 form.
+#: bf16 form (a wrapper call is one launch, in either form); and of those,
+#: the calls in the tiled form.
 launches = LaunchCounter()
 bf16_launches = LaunchCounter()
+tiled_launches = LaunchCounter()
+bf16_tiled_launches = LaunchCounter()
 
 _TAIL_ARGS = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_TILED_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 9 + [ctypes.c_void_p]
 _library = Library("tail_ce.cu", {
     "tail_ce_forward": (_TAIL_ARGS, ctypes.c_int),
     "tail_ce_forward_bf16": (_TAIL_ARGS, ctypes.c_int),
-})
+    "tail_ce_forward_tiled": (_TILED_ARGS, ctypes.c_int),
+    "tail_ce_forward_tiled_bf16": (_TILED_ARGS, ctypes.c_int),
+}, headers=("ffma_tile.cuh",))
+
+
+class TailPlan(NamedTuple):
+    """How the kernel runs one tail shape (``tail_plan``)."""
+
+    form: str             # "image" or "tiled"
+    chunk_features: int   # tiled: features a partial logit sums (0 for image)
+    chunks: int           # tiled: ceil(D / chunk_features) (0 for image)
+    pos_groups: int       # tiled gap: position ranges a channel's sum is split into
+    scratch_per_image: int  # tiled: scratch bytes an image (pooled row + partials)
+
+
+@functools.lru_cache(maxsize=None)
+def tail_plan(pool: str, h: int, wd: int, c: int, k: int, dtype: torch.dtype,
+              form: Optional[str] = None) -> TailPlan:
+    """How the tail kernel runs a (H, W, C) → K head in ``dtype``, from the
+    shape alone (no batch size: every row is bit-identical at any B).
+
+    The per-image form where K <= IMAGE_MAX_CLASSES and the row fits its
+    48 KB (the CIFAR heads); else the tiled form, whose FC splits D into
+    chunks of whole ring slots, as many as bring (class tiles × chunks) to
+    about TARGET_BLOCKS, each of at least MIN_CHUNK_FEATURES, at most
+    MAX_CHUNKS in all; its gap pass splits the H·W positions into the
+    fewest of 1, 2, 4, 8 ranges of at most POS_SEG (8 past 128 positions).
+    Its scratch: the pooled rows in ``dtype`` (none has none) and 4·chunks·K
+    bytes of partial logits an image. ``form`` forces a form (the smoke
+    times both)."""
+    if pool not in POOLS:
+        raise ValueError(f"unknown pool {pool!r} (one of {POOLS})")
+    d = _flat_dim((0, h, wd, c), pool)
+    if form is None:
+        form = "image" if k <= IMAGE_MAX_CLASSES and d + k + 8 <= _SMEM_FLOATS else "tiled"
+    if form not in FORMS:
+        raise ValueError(f"unknown form {form!r} (one of {FORMS})")
+    if form == "image":
+        return TailPlan("image", 0, 0, 0, 0)
+    slots = -(-d // STAGE_FEATURES)
+    tiles = -(-k // TILE_CLASSES)
+    want = min(max(1, round(TARGET_BLOCKS / tiles)),
+               max(1, slots // (MIN_CHUNK_FEATURES // STAGE_FEATURES)))
+    per_chunk = max(-(-slots // want), -(-slots // MAX_CHUNKS))
+    chunk_features = per_chunk * STAGE_FEATURES
+    chunks = -(-d // chunk_features)
+    groups = 1
+    if pool == "gap":
+        while groups < MAX_POS_GROUPS and groups * POS_SEG < h * wd:
+            groups *= 2
+    pooled = 0 if pool == "none" else d * (torch.finfo(dtype).bits // 8)
+    return TailPlan("tiled", chunk_features, chunks, groups, pooled + 4 * chunks * k)
 
 
 def build() -> Library:
@@ -154,7 +241,7 @@ def _flat_dim(x_shape, pool: str) -> int:
     return c if pool == "gap" else h * wd * c
 
 
-def _launch(x, w, b, labels, pool: str):
+def _launch(x, w, b, labels, pool: str, plan: Optional[TailPlan]):
     if x.dim() != 4:
         raise ValueError(f"x must be NHWC, got shape {tuple(x.shape)}")
     batch, h, wd, c = (int(d) for d in x.shape)
@@ -168,33 +255,55 @@ def _launch(x, w, b, labels, pool: str):
     check_operand("w", w, dev, (d, k), dtype)
     check_operand("b", b, dev, (k,), dtype)
     check_operand("labels", labels, dev, (batch,), torch.int64)
-    if d + k + 8 > _SMEM_FLOATS:
-        raise ValueError(f"tail of {d} features x {k} classes exceeds the "
-                         "kernel's 48 KB of shared memory")
-    lib = _library.get()
+    plan = plan or tail_plan(pool, h, wd, c, k, dtype)
+    bf16 = dtype == torch.bfloat16
     loss = torch.empty((batch,), device=dev, dtype=torch.float32)
     dl = torch.empty((batch, k), device=dev, dtype=torch.float32)
-    bf16 = dtype == torch.bfloat16
-    entry = lib.tail_ce_forward_bf16 if bf16 else lib.tail_ce_forward
-    with torch.cuda.device(dev):
-        err = entry(
-            x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
-            loss.data_ptr(), dl.data_ptr(), batch, h, wd, c, d, k,
-            _POOL_CODE[pool], launch_stream(dev),
-        )
+    if plan.form == "image":
+        if d + k + 8 > _SMEM_FLOATS:
+            raise ValueError(f"tail of {d} features x {k} classes exceeds the per-image "
+                             "form's 48 KB of shared memory")
+        lib = _library.get()
+        entry = lib.tail_ce_forward_bf16 if bf16 else lib.tail_ce_forward
+        with torch.cuda.device(dev):
+            err = entry(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                loss.data_ptr(), dl.data_ptr(), batch, h, wd, c, d, k,
+                _POOL_CODE[pool], launch_stream(dev),
+            )
+    else:
+        chunks = -(-d // plan.chunk_features)  # the kernel's count, whatever plan says
+        if max(x.numel(), w.numel(), batch * d, chunks * batch * k) > _INT32_MAX:
+            raise ValueError(f"tail of {batch} x {d} features x {k} classes is too large "
+                             "for 32-bit indexing")
+        lib = _library.get()
+        pooled = (None if pool == "none"
+                  else torch.empty((batch, d), device=dev, dtype=dtype))
+        partial = torch.empty((chunks, batch, k), device=dev, dtype=torch.float32)
+        entry = lib.tail_ce_forward_tiled_bf16 if bf16 else lib.tail_ce_forward_tiled
+        with torch.cuda.device(dev):
+            err = entry(
+                x.data_ptr(), w.data_ptr(), b.data_ptr(), labels.data_ptr(),
+                None if pooled is None else pooled.data_ptr(), partial.data_ptr(),
+                loss.data_ptr(), dl.data_ptr(), batch, h, wd, c, d, k, _POOL_CODE[pool],
+                plan.chunk_features, plan.pos_groups, launch_stream(dev),
+            )
     raise_on_error("tail_ce", err)
     (bf16_launches if bf16 else launches).add()
+    if plan.form == "tiled":
+        (bf16_tiled_launches if bf16 else tiled_launches).add()
     return loss, dl
 
 
-def tail_forward(x, w, b, labels, pool: str):
-    """(per-sample loss, dlogits): the kernel on a CUDA tensor, the plain
+def tail_forward(x, w, b, labels, pool: str, plan: Optional[TailPlan] = None):
+    """(per-sample loss, dlogits): the kernel on a CUDA tensor, in the form
+    ``plan`` names (by default ``tail_plan``'s for the shape); the plain
     version on a CPU one."""
     if x.device.type == "cpu":
         return tail_forward_plain(x, w, b, labels, pool)
     if x.device.type != "cuda":
         raise ValueError(f"the tail runs on cuda or cpu tensors, got {x.device}")
-    return _launch(x, w, b, labels, pool)
+    return _launch(x, w, b, labels, pool, plan)
 
 
 def tail_backward(pool: str, x, w, dl_scaled):

@@ -6,7 +6,8 @@ against the JAX package on the CPU. The same numpy inputs go to both.
   operands, run in interpret mode under ``jax.jit`` as
   tests/test_pallas_conv.py runs it in bf16: within ``2⁻⁷·max(1, max|ref|)``
   (one bf16 ulp of the output's scale: the two frameworks round at other
-  points), with JAX's output dtypes.
+  points), with JAX's output dtypes. The tail also at 100 and 1,000
+  classes, and through JAX's XLA twin (``PCNN_TAIL_KERNEL=0``) as well.
 - BatchNorm's train-mode forward and gradients on bf16 against JAX's
   (its parameters' gradients, which XLA sums in bf16, within two ulps),
   the running statistics in f32 within 1e-6.
@@ -78,6 +79,16 @@ GEOMETRIES = [
     (2, 8, 8, 8, 16, 1, 2),
 ]
 TAIL_SHAPES = {"max2": (4, 4, 4, 16), "gap": (4, 4, 4, 32), "none": (4, 2, 2, 8)}
+#: The many-class tails (K = 100 and 1,000: the kernel's tiled form).
+MANY_TAIL_SHAPES = {"max2": (6, 4, 4, 16), "gap": (6, 3, 3, 64), "none": (6, 3, 3, 8)}
+#: The tail's cases: (pool, K, JAX leg). 10 classes through JAX's Pallas
+#: kernel keep their first ids; JAX's XLA twin (PCNN_TAIL_KERNEL=0) and the
+#: many-class heads through both legs beside them.
+TAIL_CASES = [pytest.param(pool, 10, "1", id=pool) for pool in ("gap", "max2", "none")] + [
+    pytest.param(pool, k, leg, id=f"{pool}{'' if k == 10 else f'-k{k}'}-"
+                                  f"{'pallas-interpret' if leg == '1' else 'xla'}")
+    for k, leg in ((10, "0"), (100, "1"), (100, "0"), (1000, "1"), (1000, "0"))
+    for pool in ("gap", "max2", "none")]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -206,22 +217,24 @@ def test_mixed_dtypes_and_the_bf16_epilogue_raise():
 
 
 @functools.cache
-def _tail_inputs(pool):
-    rng = np.random.default_rng({"max2": 1, "gap": 2, "none": 3}[pool])
-    shape = TAIL_SHAPES[pool]
-    d = {"max2": 2 * 2 * 16, "gap": 32, "none": 2 * 2 * 8}[pool]
+def _tail_inputs(pool, k=10):
+    rng = np.random.default_rng({"max2": 1, "gap": 2, "none": 3}[pool] + (0 if k == 10 else k))
+    shape = TAIL_SHAPES[pool] if k == 10 else MANY_TAIL_SHAPES[pool]
+    _, h, wd, c = shape
+    d = {"max2": (h // 2) * (wd // 2) * c, "gap": c, "none": h * wd * c}[pool]
     x = _bf16_np(rng.standard_normal(shape))
-    w = _bf16_np(rng.standard_normal((d, 10)) * 0.1)
-    b = _bf16_np(rng.standard_normal(10) * 0.1)
-    y = rng.integers(0, 10, shape[0])
+    w = _bf16_np(rng.standard_normal((d, k)) * 0.1)
+    b = _bf16_np(rng.standard_normal(k) * 0.1)
+    y = rng.integers(0, k, shape[0])
     return x, w, b, y
 
 
 @functools.cache
-def _jax_tail(pool):
-    x, w, b, y = _tail_inputs(pool)
+def _jax_tail(pool, k=10, leg="1"):
+    x, w, b, y = _tail_inputs(pool, k)
     with pytest.MonkeyPatch.context() as mp:
-        mp.setenv("PCNN_TAIL_KERNEL", "1")  # the Pallas kernel, interpreted
+        # "1": the Pallas kernel, interpreted; "0": its XLA twin.
+        mp.setenv("PCNN_TAIL_KERNEL", leg)
 
         @jax.jit
         def f(x, w, b):
@@ -234,10 +247,10 @@ def _jax_tail(pool):
         return np.asarray(loss), [np.asarray(a) for a in grads]
 
 
-@pytest.mark.parametrize("pool", ["gap", "max2", "none"])
-def test_tail_twin_and_backward_match_jax(pool):
-    x, w, b, y = _tail_inputs(pool)
-    loss_ref, grads_ref = _jax_tail(pool)
+@pytest.mark.parametrize("pool,k,leg", TAIL_CASES)
+def test_tail_twin_and_backward_match_jax(pool, k, leg):
+    x, w, b, y = _tail_inputs(pool, k)
+    loss_ref, grads_ref = _jax_tail(pool, k, leg)
     ts = [_t(a).requires_grad_(True) for a in (x, w, b)]
     before = (tail.launches.count, tail.bf16_launches.count)
     loss = tail.fused_tail_loss(*ts, torch.from_numpy(y), pool=pool)

@@ -902,6 +902,34 @@ def test_tail_rows_are_batch_invariant_on_card(card, pool):
         assert torch.equal(part_dl, dl[lo:hi]), (lo, hi)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("pool", ["max2", "gap", "none"])
+def test_tail_rows_at_1000_classes_are_batch_invariant_on_card(card, pool, dtype):
+    """At K = 1,000 (the tiled form: the plan is the same at every B) an
+    image's loss and dlogits are bit-identical alone (b1), in b7 and b32
+    calls and in one b128 call, from the first, a middle and the last
+    place; the b128 call within tolerance of the plain version."""
+    x, _, _, _ = _tail_inputs(card, 128, pool, 1000 + len(pool))
+    rng = np.random.default_rng(1000)
+    d = {"max2": 4 * 4 * 128, "gap": 512, "none": 256}[pool]
+    w = torch.from_numpy(rng.standard_normal((d, 1000)).astype(np.float32) * 0.05).to(card)
+    bias = torch.from_numpy(rng.standard_normal(1000).astype(np.float32) * 0.1).to(card)
+    y = torch.from_numpy(rng.integers(0, 1000, 128)).to(card)
+    x, w, bias = (t.to(dtype) for t in (x, w, bias))
+    assert tail.tail_plan(pool, *x.shape[1:], 1000, dtype).form == "tiled"
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    for lo, hi in ((0, 1), (61, 62), (127, 128), (0, 7), (64, 71), (121, 128), (0, 32),
+                   (48, 80), (96, 128)):
+        part_loss, part_dl = _tail_rows(x, w, bias, y, pool, lo, hi)
+        torch.cuda.synchronize()
+        assert torch.equal(part_loss, loss[lo:hi]), (lo, hi)
+        assert torch.equal(part_dl, dl[lo:hi]), (lo, hi)
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
+    close = _bf16_close if dtype == torch.bfloat16 else (lambda g, r: _close(g, r, 1e-5))
+    close(loss, ref_loss)
+    close(dl, ref_dl)
+
+
 def _tail_view(t, view):
     """t itself, or a contiguous copy one float past a 16-byte boundary
     (the kernel's 4-byte loads)."""
@@ -914,13 +942,14 @@ def _tail_view(t, view):
 
 
 @pytest.mark.parametrize("view", ["whole", "offset"])
-@pytest.mark.parametrize("k", [10, 100, 300])
+@pytest.mark.parametrize("k", [10, 100, 300, 1000])
 @pytest.mark.parametrize("pool", ["max2", "gap", "none"])
 def test_tail_classes_and_out_of_range_labels_match_plain_on_card(card, pool, k, view):
-    """K = 10, 100 (the softmax's lanes take several classes) and 300 (more
-    classes than a block has threads: the FC takes them in passes), labels
-    drawn from [-2, K + 2) (outside [0, K) a zero one-hot row), at b7,
-    within 1e-5 of the plain version; a relaunch bit for bit."""
+    """K = 10 (the per-image form), 100, 300 and 1,000 (the tiled form:
+    several 64-class tiles, a ragged last one), labels drawn from
+    [-2, K + 2) (outside [0, K) a zero one-hot row), at b7, x whole or one
+    value off a 16-byte boundary (the forms' one-value loads), within 1e-5
+    of the plain version; a relaunch bit for bit."""
     x, w, bias, _ = _tail_inputs(card, 7, pool, 70 + k)
     rng = np.random.default_rng(k)
     w = torch.from_numpy(rng.standard_normal((w.shape[0], k)).astype(np.float32) * 0.05).to(card)
@@ -963,26 +992,36 @@ def test_tail_gap_shapes_match_plain_on_card(card, shape):
 @pytest.mark.parametrize("pool,shape", [("max2", (3, 2, 2, 12_268)), ("gap", (3, 2, 3, 12_268)),
                                         ("none", (3, 1, 2, 6_134))])
 def test_tail_opts_in_at_the_48_kb_limit_and_refuses_past_it_on_card(card, pool, shape):
-    """A row of 12,268 features and 10 classes is the widest the wrapper
-    takes (D + K + 8 floats in 48 KB); the threads' partial logits take the
-    block past 48 KB, so the launch opts in, and it matches the plain
-    version. A row of 12,271 features raises ValueError before any
-    launch."""
+    """A row of 12,268 features and 10 classes is the widest the per-image
+    form takes (D + K + 8 floats in 48 KB); the threads' partial logits
+    take the block past 48 KB, so the launch opts in, and it matches the
+    plain version. A row of 12,271 features takes the tiled form, which has
+    no such limit, and matches the plain version too; the per-image form,
+    asked for it, raises ValueError before any launch."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     x = torch.relu(torch.randn(shape, generator=gen, device="cuda"))
     d = 12_268
     w = torch.randn((d, 10), generator=gen, device="cuda") * d ** -0.5
     bias = torch.zeros(10, device="cuda")
     y = torch.arange(3, device="cuda")
+    assert tail.tail_plan(pool, *shape[1:], 10, torch.float32).form == "image"
     loss, dl = tail.tail_forward(x, w, bias, y, pool)
     ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
     torch.cuda.synchronize()
     _close(loss, ref_loss, 1e-5)
     _close(dl, ref_dl, 1e-5)
-    big = torch.zeros((1, 1, 1, d + 3), device="cuda")
+    big = torch.relu(torch.randn((1, 1, 1, d + 3), generator=gen, device="cuda"))
+    wbig = torch.randn((d + 3, 10), generator=gen, device="cuda") * d ** -0.5
+    assert tail.tail_plan("none", 1, 1, d + 3, 10, torch.float32).form == "tiled"
+    loss, dl = tail.tail_forward(big, wbig, bias, y[:1], "none")
+    ref_loss, ref_dl = tail.tail_forward_plain(big, wbig, bias, y[:1], "none")
+    torch.cuda.synchronize()
+    _close(loss, ref_loss, 1e-5)
+    _close(dl, ref_dl, 1e-5)
+    image = tail.tail_plan("none", 1, 1, d + 3, 10, torch.float32, form="image")
     before = tail.launches.count
     with pytest.raises(ValueError, match="48 KB"):
-        tail.tail_forward(big, torch.zeros((d + 3, 10), device="cuda"), bias, y[:1], "none")
+        tail.tail_forward(big, wbig, bias, y[:1], "none", image)
     assert tail.launches.count == before
 
 
@@ -1935,6 +1974,37 @@ def test_bf16_tail_gap_rounds_the_mean_as_its_twin_on_card(card, shape):
     y = torch.randint(0, 10, (16,), generator=gen, device="cuda")
     loss, dl = tail.tail_forward(x, w, bias, y, "gap")
     ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, "gap")
+    _bf16_close(loss, ref_loss)
+    _bf16_close(dl, ref_dl)
+
+
+@pytest.mark.parametrize("pool,shape,k", [
+    ("gap", (5, 3, 5, 6), 300),        # C and K no multiple of 8: one value at a time
+    ("max2", (9, 4, 4, 5), 77),
+    ("none", (3, 1, 2, 12_271), 10),   # past the per-image form's 48 KB
+    ("gap", (7, 3, 3, 64), 104),       # 16-byte copies, a ragged 64-class tile
+], ids=["gap-c6-k300", "max2-c5-k77", "none-past-48kb", "gap-k104"])
+def test_bf16_tail_tiled_form_matches_its_twin_on_card(card, pool, shape, k):
+    """The tiled form in bf16 at shapes whose copies take one value at a
+    time and at one whose copies take 16 bytes: within one bf16 ulp of the
+    twin's scale, a relaunch bit for bit, a row alone as in the batch."""
+    gen = torch.Generator(device="cuda").manual_seed(k)
+    _, h, wd, c = shape
+    d = {"max2": (h // 2) * (wd // 2) * c, "gap": c, "none": h * wd * c}[pool]
+    x = torch.relu(torch.randn(shape, generator=gen, device="cuda")).to(BF16)
+    w = (torch.randn((d, k), generator=gen, device="cuda") * d ** -0.5).to(BF16)
+    bias = (0.1 * torch.randn((k,), generator=gen, device="cuda")).to(BF16)
+    y = torch.randint(-2, k + 2, (shape[0],), generator=gen, device="cuda")
+    assert tail.tail_plan(pool, h, wd, c, k, BF16).form == "tiled"
+    before = tail.bf16_tiled_launches.count
+    loss, dl = tail.tail_forward(x, w, bias, y, pool)
+    loss2, dl2 = tail.tail_forward(x, w, bias, y, pool)
+    alone = _tail_rows(x, w, bias, y, pool, 1, 2)
+    torch.cuda.synchronize()
+    assert tail.bf16_tiled_launches.count == before + 3
+    assert torch.equal(loss, loss2) and torch.equal(dl, dl2)
+    assert torch.equal(alone[0], loss[1:2]) and torch.equal(alone[1], dl[1:2])
+    ref_loss, ref_dl = tail.tail_forward_plain(x, w, bias, y, pool)
     _bf16_close(loss, ref_loss)
     _bf16_close(dl, ref_dl)
 
