@@ -85,6 +85,15 @@ port's two paths through their user-facing entry points:
   loss scale, its resume, and an overflow skipped and backed off, then
   growth; profiled bf16 epochs of ResNet-18 and ResNet-50 beside the f32
   ones.
+- the 1F1B pipeline (pipe (a)-(b)) on ResNet-18 at b128, two
+  microbatches a step: the CLI at --pipeline-stages 1 bit for bit against
+  the flat ring at --mesh-data 1, exact launches; at two and four stages
+  (one card cannot hold two ranks) the stage programs the pipelined step
+  runs, driven on the card in the schedule's order, their summed grads
+  against a single-device step's, BN's statistics updated once a
+  microbatch, B10/B11 launches exact at each stage's convs, the ZeRO-2
+  tail through B13 and a bf16 case through the tensor-core forms; each
+  stage's time beside the bubble share.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -133,6 +142,7 @@ from parallel_cnn_tpu_torch.config import (
     Config,
     FusedStepConfig,
     ObsConfig,
+    PipelineConfig,
     ServeConfig,
     TrainConfig,
 )
@@ -154,6 +164,8 @@ from parallel_cnn_tpu_torch.ops import (
 )
 from parallel_cnn_tpu_torch.ops._cuda_build import BUILD_DIR
 from parallel_cnn_tpu_torch.parallel import collectives, data_parallel, distributed, intra_op
+from parallel_cnn_tpu_torch.parallel import pipeline as pipe_lib
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, make_pipeline_mesh
 from parallel_cnn_tpu_torch.ops.activations import apply_grad
 from parallel_cnn_tpu_torch import obs as obs_lib
 from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
@@ -171,6 +183,7 @@ from parallel_cnn_tpu_torch.serve import (
     serve_stack,
 )
 from parallel_cnn_tpu_torch.serve.net import encode_request
+from parallel_cnn_tpu_torch.train import pipeline_schedule as pipe_step
 from parallel_cnn_tpu_torch.train import step as step_lib
 from parallel_cnn_tpu_torch.train import trainer, zoo
 from parallel_cnn_tpu_torch.utils.backend import card_name_and_power_limit
@@ -4455,6 +4468,301 @@ def bf16_profiles(card, f32_profiles, r18_convs, r50_convs) -> None:
               f"this call, on {card})", flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The pipeline: JAX's 1F1B schedule on ResNet-18 (pipe (a)-(b))
+# ---------------------------------------------------------------------------
+
+# ResNet-18 at b128 in f32, M = 2 microbatches a step (--accum-steps 2).
+# (a) the CLI at one stage, 8 steps and one eval batch, against the flat
+# ring; (b) the stage programs at S = 2 and 4 (the flops-balanced split)
+# and one manual split, run on the one card in the schedule's order.
+PIPE_ACCUM = 2
+PIPE_STEPS = 8
+PIPE_TEST_COUNT = 256
+PIPE_IN_SHAPE = (32, 32, 3)
+PIPE_CASES = ((2, ""), (4, ""), (2, "3"))  # (stages, --pipeline-split)
+PIPE_ZERO2 = FusedStepConfig(update=True, tail=False, act_dtype="float32")
+PIPE_BF16 = FusedStepConfig(update=False, tail=False, act_dtype="bfloat16")
+# Stage times: this many timed runs of the schedule after one warm run.
+PIPE_TIMED_RUNS = 3
+
+
+def pipe_counts():
+    return {"tap_conv": tap_conv.launches.count,
+            "tap_conv_dgrad": tap_conv.dgrad_launches.count,
+            "tap_wgrad": tap_wgrad.launches.count, "tail_ce": tail.launches.count,
+            **bf16_counts()}
+
+
+def pipe_run(stages, plan, x, y, wire=None):
+    """Every stage of ``plan`` through one step's ticks on this card, in
+    the schedule's order: each tick runs every stage's work, then hands
+    each stage what its neighbours sent (the previous stage's activation,
+    the next stage's cotangent; cast to ``wire`` and back, as the
+    exchange does), and checks that a stage sends exactly where its
+    neighbour expects. Returns (runners, each stage's launches, each
+    stage's ms: CUDA events around its tick work, the card idle before
+    each)."""
+    runners = [pipe_step.StageRunner(st, plan, x, y) for st in stages]
+    n = len(runners)
+    launches = [dict.fromkeys(pipe_counts(), 0) for _ in range(n)]
+    ms = [0.0] * n
+    for t in range(plan.n_ticks):
+        sent = []
+        for s, r in enumerate(runners):
+            torch.cuda.synchronize()
+            before = pipe_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(
+                enable_timing=True)
+            start.record()
+            sent.append(r.tick(t))
+            end.record()
+            end.synchronize()
+            ms[s] += start.elapsed_time(end)
+            for key, v in pipe_counts().items():
+                launches[s][key] += v - before[key]
+        for s, r in enumerate(runners):
+            fwd = sent[s - 1][0] if s > 0 else None
+            bwd = sent[s + 1][1] if s < n - 1 else None
+            if ((fwd is not None), (bwd is not None)) != r.receives(t):
+                fail(f"pipe: at tick {t} stage {s} was sent {fwd is not None, bwd is not None}"
+                     f" but expected {r.receives(t)}")
+            if wire is not None:
+                fwd = None if fwd is None else fwd.to(wire).float()
+                bwd = None if bwd is None else bwd.to(wire).float()
+            r.fwd_in, r.bwd_in = fwd, bwd
+    return runners, launches, ms
+
+
+def pipe_grads(runners):
+    """The stages' summed gradients by parameter name."""
+    return {name: g for r in runners for name, g in zip(r.stage.names, r.gsum)}
+
+
+def reference_grads(model, x, y, loss_fn, n_micro):
+    """One single-device step's gradients summed over its microbatches
+    (the flat step's order; no update), by parameter name."""
+    names, params = zip(*model.named_parameters())
+    mb = x.shape[0] // n_micro
+    gsum = None
+    for m in range(n_micro):
+        sl = slice(m * mb, (m + 1) * mb)
+        g = torch.autograd.grad(loss_fn(model, x[sl], y[sl]), params)
+        gsum = list(g) if gsum is None else [a + b for a, b in zip(gsum, g)]
+    return dict(zip(names, gsum))
+
+
+def grads_within(label, got, want, rtol):
+    """Max |Δ| over the leaves, each relative to max(1, its largest
+    value); fails past ``rtol``."""
+    worst = max(float((got[n] - g).abs().max()) / max(1.0, float(g.abs().max()))
+                for n, g in want.items())
+    if sorted(got) != sorted(want):
+        fail(f"{label}: the stages' gradients miss parameters")
+    print(f"[smoke] {label}: summed grads vs one single-device step's, max |Δ| of "
+          f"the leaf's scale {worst:.3e} (tol {rtol:.1e}) "
+          f"{'ok' if worst <= rtol else 'FAIL'}", flush=True)
+    if not worst <= rtol:
+        fail(f"{label}: the pipelined grads disagree with the single-device step's")
+    return worst
+
+
+def pipe_stage_convs(stages):
+    return [sum(isinstance(m, ConvBNAct) for m in st.layers.modules()) for st in stages]
+
+
+def pipe_phase(card) -> tuple:
+    """pipe (a)-(b): JAX's 1F1B pipeline on ResNet-18 at b128 (f32, two
+    microbatches). (a) the CLI at --pipeline-stages 1 against the flat ring
+    at --mesh-data 1, bit for bit, exact launches; ms a step at one stage.
+    (b) at S = 2 and 4 the stage programs make_pipeline_step runs, on this
+    one card in the schedule's order: the summed grads against a
+    single-device step's, the BN statistics updated once a microbatch,
+    B10/B11 launches exact at each stage's shapes, the ZeRO-2 tail through
+    B13, a bf16 case through the tensor-core forms; each stage's ms beside
+    the bubble share. Returns (f32 launches, B13 launches, bf16 launches)
+    of (a) and (b)."""
+    work = BUILD_DIR / "smoke_pipe"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--batch-size",
+            str(ZOO_BATCH), "--accum-steps", str(PIPE_ACCUM), "--epochs", "1",
+            "--synthetic-train-count", str(PIPE_STEPS * ZOO_BATCH),
+            "--synthetic-test-count", str(PIPE_TEST_COUNT)]
+    # (a) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] pipe (a): {' '.join(base)} --pipeline-stages 1", flush=True)
+    reset_zoo_counts()
+    out = run_cli(base + ["--pipeline-stages", "1", "--checkpoint-dir", str(work / "pipe")])
+    got = zoo_counts()
+    micro = PIPE_STEPS * PIPE_ACCUM
+    evals = -(-PIPE_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": CONVS_PER_FORWARD * (micro + evals),
+            "tap_conv_dgrad": (CONVS_PER_FORWARD - 1) * micro,
+            "tap_wgrad": CONVS_PER_FORWARD * micro, "tail_ce": 0}
+    losses = epoch_losses(out)
+    print(f"[smoke] pipe (a): launches {got} for {PIPE_STEPS} steps of {PIPE_ACCUM} "
+          f"microbatches and {evals} eval batch (expected {want}); epoch loss {losses}",
+          flush=True)
+    if got != want:
+        fail("the one-stage pipeline did not launch B10/B11 exactly as its "
+             "microbatches and eval batches need")
+    if "mesh: {'stage': 1, 'data': 1} (pipeline)" not in out or len(losses) != 1 \
+            or not np.isfinite(losses[0]):
+        fail("the one-stage pipeline run did not take its path or its loss is not finite")
+    run_cli(base + ["--mesh-data", "1", "--comm-impl", "ring", "--checkpoint-dir",
+                    str(work / "flat")])
+    a = checkpoint_leaves(work / "pipe" / "ckpt_1.npz")
+    b = checkpoint_leaves(work / "flat" / "ckpt_1.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    print(f"[smoke] pipe (a): --pipeline-stages 1 vs --mesh-data 1 --comm-impl ring: "
+          f"state ({len(a)} leaves) {'bit-identical' if same else 'DIFFERS'}", flush=True)
+    if not same:
+        fail("the one-stage pipeline is not bit-identical to the flat ring step")
+    f32 = {key: got[key] for key in ("tap_conv", "tap_conv_dgrad", "tap_wgrad")}
+
+    imgs, labels = synthetic.make_image_dataset(ZOO_BATCH, seed=11)
+    x = torch.from_numpy(imgs).cuda()
+    y = torch.from_numpy(labels).to("cuda", torch.int64)
+
+    def fresh():
+        return resnet.resnet18(10, backend="cuda",
+                               generator=torch.Generator().manual_seed(0)).cuda().train()
+
+    # ms a step at one stage: the flat ring step make_pipeline_step returns.
+    model = fresh()
+    opt = zoo.make_optimizer(ZOO_CHECK_LR)
+    state = zoo.init_state(model, opt)
+    step = pipe_step.make_pipeline_step(
+        model, opt, accum_steps=PIPE_ACCUM,
+        mesh=make_pipeline_mesh(0, 1, torch.device("cuda"), 1),
+        pipeline=PipelineConfig(stages=1), in_shape=PIPE_IN_SHAPE, comm=DP_COMM)
+    for _ in range(2):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(5):
+        step(state, x, y)
+    end.record()
+    end.synchronize()
+    s1_ms = start.elapsed_time(end) / 5
+    print(f"[smoke] time pipe (a) S=1 b{ZOO_BATCH} M={PIPE_ACCUM}: {s1_ms:.3f} ms a step "
+          f"(CUDA events around 5 steps; the flat ring step) on {card}", flush=True)
+
+    # (b) the stage programs at S = 2 and 4.
+    b13 = 0
+    bf16 = dict.fromkeys(bf16_counts(), 0)
+    for n_stages, split in PIPE_CASES:
+        label = f"pipe (b) S={n_stages}" + (f" --pipeline-split {split}" if split else "")
+        model = fresh()
+        ref = copy.deepcopy(model)
+        plan = pipe_step.pipeline_plan(model, PipelineConfig(stages=n_stages, split=split),
+                                PIPE_IN_SHAPE, PIPE_ACCUM)
+        stages = pipe_step.make_stages(model, plan)
+        convs = pipe_stage_convs(stages)
+        before = {k: v.clone() for k, v in model.named_buffers()}
+        runners, launches, _ = pipe_run(stages, plan, x, y)
+        got = pipe_grads(runners)
+        grads_within(label, got, reference_grads(
+            ref, x, y, lambda m, bx, by: zoo.cross_entropy(m(bx), by), PIPE_ACCUM),
+            GRAD_RTOL)
+        # BN: each microbatch's forward tick updated the statistics once and
+        # the recomputes left them alone, as the flat step's M forwards did.
+        mine, theirs = dict(model.named_buffers()), dict(ref.named_buffers())
+        stat_err = max(float((mine[k] - v).abs().max()) / max(1.0, float(v.abs().max()))
+                       for k, v in theirs.items())
+        moved = all(not torch.equal(mine[k], before[k]) for k in theirs)
+        print(f"[smoke] {label}: boundaries {plan.boundaries}, convs a stage {convs}, "
+              f"A_buf {plan.a_buf}; BN statistics vs the single-device step's M "
+              f"forwards max |Δ| of scale {stat_err:.3e}, every one moved {moved}",
+              flush=True)
+        if not stat_err <= 1e-6 or not moved:
+            fail(f"{label}: BN's running statistics were not updated once a microbatch")
+        for s, (c, got_s) in enumerate(zip(convs, launches)):
+            want_s = {"tap_conv": 2 * c * PIPE_ACCUM,
+                      "tap_conv_dgrad": (c - (s == 0)) * PIPE_ACCUM,
+                      "tap_wgrad": c * PIPE_ACCUM}
+            have = {k: got_s[k] for k in want_s}
+            print(f"[smoke] {label}: stage {s} launches {have} (expected {want_s}: the "
+                  f"forward ticks and the recompute, {c} convs)", flush=True)
+            if have != want_s or any(got_s[k] for k in got_s if k not in want_s):
+                fail(f"{label}: stage {s} did not launch B10/B11 exactly at its convs")
+            for k in f32:
+                f32[k] += got_s[k]
+        # Each stage's time, warm, beside the bubble.
+        stage_ms = [0.0] * n_stages
+        pipe_run(stages, plan, x, y)
+        for _ in range(PIPE_TIMED_RUNS):
+            stage_ms = [a + b / PIPE_TIMED_RUNS
+                        for a, b in zip(stage_ms, pipe_run(stages, plan, x, y)[2])]
+        print(f"[smoke] time {label} b{ZOO_BATCH} M={PIPE_ACCUM}: stage ms "
+              f"{[round(v, 3) for v in stage_ms]} (events around each stage's ticks, the "
+              f"card idle before each; the forward twice, the recompute), max "
+              f"{max(stage_ms):.3f} beside S=1's {s1_ms:.3f} ms a step; bubble share "
+              f"bubble_fraction({n_stages}, {PIPE_ACCUM}) = "
+              f"{pipe_lib.bubble_fraction(n_stages, PIPE_ACCUM):.3f} on {card}", flush=True)
+        if (n_stages, split) != PIPE_CASES[0]:
+            continue
+
+        # The ZeRO-2 tail at D = 1 on the S = 2 grads: one B13 launch.
+        model_z = fresh()
+        model_z.load_state_dict(ref.state_dict())
+        data = DataMesh(1, 0, torch.device("cuda"))
+        zstate, _ = zoo.init_fused_state(model_z, opt, mesh=data, fused=PIPE_ZERO2,
+                                         bucket_bytes=DP_COMM.bucket_bytes)
+        names, params = zip(*zoo.jax_ordered_params(model_z))
+        grads = pipe_grads(runners)
+        full = [grads[n] for n in names]
+        bplan = collectives.plan_buckets(list(params), DP_COMM.bucket_bytes, shards=1)
+        pb = [b.clone() for b in collectives.flatten_buckets(list(params), bplan)]
+        gb = collectives.flatten_buckets(full, bplan)
+        scale = 1.0 / PIPE_ACCUM
+        sgd_update.momentum_launches.reset()
+        pipe_step.zero2_tail(zstate, params, full, bplan, data, DP_COMM, lr=DP_LR,
+                      momentum=DP_MOMENTUM, scale=scale)
+        launches_z = sgd_update.momentum_launches.count
+        b13 += launches_z
+        with plain_reference():
+            plain = [sgd_update.fused_sgd_momentum_plain(p, torch.zeros_like(p), g, DP_LR,
+                                                         DP_MOMENTUM, scale)
+                     for p, g in zip(pb, gb)]
+        after = collectives.flatten_buckets(list(params), bplan)
+        same = all(torch.equal(a_, p_[0]) for a_, p_ in zip(after, plain)) and all(
+            torch.equal(m[0], p_[1]) for m, p_ in zip(zstate.fused.mom, plain))
+        want_z = -(-bplan.n_buckets // sgd_update.MAX_ENTRIES)
+        print(f"[smoke] {label}: the ZeRO-2 tail at D=1 over {bplan.n_buckets} buckets: "
+              f"sgd_momentum launches {launches_z} (expected {want_z}); params and "
+              f"momentum {'bit-identical to' if same else 'DIFFER from'} the plain update",
+              flush=True)
+        if launches_z != want_z or not same:
+            fail("the pipeline's ZeRO-2 tail did not run once through B13 or disagrees "
+                 "with the plain update")
+
+        # bf16 activations and wire through the tensor-core forms.
+        model_b = fresh()
+        ref_b = copy.deepcopy(model_b)
+        stages_b = pipe_step.make_stages(model_b, plan, "bfloat16")
+        start = bf16_counts()
+        runners_b, _, _ = pipe_run(stages_b, plan, x, y, wire=torch.bfloat16)
+        got_b = {k: v - start[k] for k, v in bf16_counts().items()}
+        for k in bf16:
+            bf16[k] += got_b[k]
+        want_b = {"tap_conv.wgmma": 2 * WGMMA_CONVS * PIPE_ACCUM,
+                  "tap_conv.ffma": 2 * (CONVS_PER_FORWARD - WGMMA_CONVS) * PIPE_ACCUM,
+                  "tap_conv_dgrad.wgmma": WGMMA_CONVS * PIPE_ACCUM,
+                  "tap_conv_dgrad.ffma": (CONVS_PER_FORWARD - 1 - WGMMA_CONVS) * PIPE_ACCUM,
+                  "tap_wgrad.wgmma": WGMMA_CONVS * PIPE_ACCUM,
+                  "tap_wgrad.ffma": (CONVS_PER_FORWARD - WGMMA_CONVS) * PIPE_ACCUM,
+                  "tail_ce": 0}
+        print(f"[smoke] {label} bf16 (act and wire): bf16 launches {got_b} (expected "
+              f"{want_b})", flush=True)
+        if got_b != want_b:
+            fail("the bf16 pipeline did not launch each bf16 form exactly at its convs")
+        grads_within(f"{label} bf16", pipe_grads(runners_b), reference_grads(
+            ref_b, x, y, zoo._build_loss_fn(ref_b, PIPE_BF16), PIPE_ACCUM), BF16_RTOL)
+    return f32, b13, bf16
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -4665,6 +4973,10 @@ def main() -> int:
     bf16_profiles(card, {"ResNet-18": zoo_profile, "ResNet-50": r50_profile},
                   bf16_times, r50_bf16)
 
+    # -- 4i. the pipeline: JAX's 1F1B schedule on ResNet-18 ----------------
+    pipe_f32, pipe_b13, pipe_bf16 = pipe_phase(card)
+    bf16_launches = {key: n + pipe_bf16[key] for key, n in bf16_launches.items()}
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -4716,7 +5028,8 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
-                     + serve50_launches + slo_launches + net_launches),
+                     + serve50_launches + slo_launches + net_launches
+                     + pipe_f32["tap_conv"]),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -4730,7 +5043,8 @@ def main() -> int:
         "source": "parallel_cnn_tpu_torch/csrc/tap_conv.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": sum(run["tap_conv_dgrad"] for run in (
-            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
+            pipe_f32)),
         "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
                            z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
@@ -4740,7 +5054,8 @@ def main() -> int:
         "source": "parallel_cnn_tpu_torch/csrc/tap_wgrad.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
         "launches": sum(run["tap_wgrad"] for run in (
-            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
+            pipe_f32)),
         "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
                            z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
@@ -4783,7 +5098,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_update.py:58",
-        "launches": dp_launches["sgd_momentum"],
+        "launches": dp_launches["sgd_momentum"] + pipe_b13,
         "max_abs_err": momentum_err,
         **momentum_times,
     }] + [{

@@ -16,13 +16,17 @@ statistics, each layer's filters split over the model axis where they
 divide), or with ``--mesh-data N --comm-impl psum|ring`` data-parallel over
 explicit collectives (one process a rank; NCCL, one card per rank, or gloo
 with ``--device cpu``), with ``--fused-step`` and the ring as
-update-on-arrival. LeNet-ref
+update-on-arrival, or with ``--pipeline-stages S`` JAX's 1F1B pipeline
+over a (stage, data) mesh of every card (S stages × cards/S data ranks;
+``--accum-steps`` microbatches a step, ``--pipeline-split``,
+``--pipeline-wire-dtype``, ``--pipeline-act-dtype``; on the CPU S gloo
+ranks). LeNet-ref
 takes ``--mesh-data N [--mesh-model M] [--comm-impl psum|ring]``: minibatch
 SGD over an N × M mesh of ranks, data-parallel, with the filters split
 over the model axis when M > 1 (rank 0 prints, records and checkpoints).
 Everything runs on the GPU unless ``--device cpu`` is given. Of the
-trainer flags of later slices, ``--comm-hosts``, ``--pipeline-stages``
-and ``--elastic`` are typed NotPortedErrors (``--comm-impl`` with a zoo
+trainer flags of later slices, ``--comm-hosts`` and ``--elastic`` are
+typed NotPortedErrors (``--comm-impl`` with a zoo
 model axis is JAX's data-only MeshLayoutError); the trainer's chaos,
 async, trace and profile are not accepted yet. ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
@@ -55,7 +59,9 @@ from parallel_cnn_tpu_torch.config import (
     Config,
     DataConfig,
     FusedStepConfig,
+    MESH_AXES_OWNED_ERROR,
     MeshConfig,
+    PipelineConfig,
     SERVE_CONV_BACKENDS,
     NetConfig,
     NotPortedError,
@@ -180,8 +186,28 @@ def build_parser() -> argparse.ArgumentParser:
                    help="--comm-impl hierarchical: host-axis size; not "
                         "ported yet (ROADMAP A9)")
     p.add_argument("--pipeline-stages", type=int, default=None, metavar="S",
-                   help="pipeline parallelism (1F1B); not ported yet "
-                        "(ROADMAP A10)")
+                   help="zoo models: pipeline parallelism — partition the "
+                        "model's layers over S stages of a (stage, data) "
+                        "mesh and run the 1F1B microbatch schedule "
+                        "(train/pipeline_schedule.py; --accum-steps is the "
+                        "microbatch count M). Builds its own mesh over every "
+                        "card (S gloo ranks with --device cpu); drop "
+                        "--mesh-data/--mesh-model. S=1 is the flat ring step "
+                        "[PCNN_PIPELINE_STAGES]")
+    p.add_argument("--pipeline-split", default=None, metavar="B1,B2,..",
+                   help="manual stage boundaries (layer indices, stages-1 of "
+                        "them); default: the flops-balanced split "
+                        "[PCNN_PIPELINE_SPLIT]")
+    p.add_argument("--pipeline-wire-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="dtype of the activations and cotangents sent between "
+                        "stages; accumulation stays f32 "
+                        "[PCNN_PIPELINE_WIRE_DTYPE]")
+    p.add_argument("--pipeline-act-dtype", default=None,
+                   choices=["float32", "bfloat16"],
+                   help="stage-compute activation dtype (params cast per "
+                        "stage, grads and loss stay f32) "
+                        "[PCNN_PIPELINE_ACT_DTYPE]")
     p.add_argument("--elastic", action="store_true",
                    help="elastic training; not ported yet (ROADMAP A11)")
     p.add_argument("--fused-step", action="store_true",
@@ -253,9 +279,6 @@ def _refuse_later_slices(args: argparse.Namespace) -> None:
     if args.comm_hosts is not None:
         raise NotPortedError("--comm-hosts sets the hierarchical ring's host "
                              "axis, which is not ported yet (ROADMAP A9)")
-    if args.pipeline_stages is not None:
-        raise NotPortedError("--pipeline-stages (1F1B pipeline parallelism) "
-                             "is not ported yet (ROADMAP A10)")
     if args.elastic:
         raise NotPortedError("--elastic (in-flight re-mesh with ZeRO-3 "
                              "resharding) is not ported yet (ROADMAP A11)")
@@ -279,6 +302,33 @@ def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
     return comm
 
 
+def _pipeline_from_args(args: argparse.Namespace) -> Optional[PipelineConfig]:
+    """PCNN_PIPELINE_* first, then the --pipeline-* flags field by field
+    (and opting in), as JAX layers them (cli.py:414-430); None when
+    neither sets anything. JAX's plan then refuses explicit mesh axes
+    beside it (plan/__init__.py:288-293)."""
+    pipeline = PipelineConfig.from_env()
+    if (args.pipeline_stages is not None
+            or args.pipeline_split is not None
+            or args.pipeline_wire_dtype is not None
+            or args.pipeline_act_dtype is not None):
+        base = pipeline or PipelineConfig()
+        pipeline = dataclasses.replace(
+            base,
+            stages=(args.pipeline_stages
+                    if args.pipeline_stages is not None else base.stages),
+            split=(args.pipeline_split
+                   if args.pipeline_split is not None else base.split),
+            wire_dtype=args.pipeline_wire_dtype or base.wire_dtype,
+            act_dtype=args.pipeline_act_dtype or base.act_dtype,
+        )
+    if pipeline is not None and (args.mesh_data is not None
+                                 or (args.mesh_model or 1) > 1):
+        raise SystemExit(MESH_AXES_OWNED_ERROR.format(
+            owner="--pipeline-stages", axes="(stage, data)", extra=""))
+    return pipeline
+
+
 def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
     """PCNN_FUSED_STEP first, then --fused-step; --act-dtype only refines
     an enabled fused step."""
@@ -294,7 +344,8 @@ def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
 
 
 def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
-             fused: Optional[FusedStepConfig]) -> None:
+             fused: Optional[FusedStepConfig],
+             pipeline: Optional[PipelineConfig] = None) -> None:
     """One rank's zoo run (``mesh`` None: the single-device run): the
     model from the seed (the same weights on every rank), the synthetic
     train and eval sets, zoo.train."""
@@ -338,10 +389,11 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
             augment=args.augment,
             accum_steps=args.accum_steps or 1,
             mesh=mesh,
-            model_axis=(comm is None and mesh is not None
+            model_axis=(comm is None and pipeline is None and mesh is not None
                         and mesh.model.size > 1),
             comm=comm,
             fused=fused,
+            pipeline=pipeline,
             seed=args.seed,
             eval_data=ev,
             checkpoint_dir=args.checkpoint_dir,
@@ -364,12 +416,16 @@ def _run_zoo(args: argparse.Namespace) -> int:
     sets, zoo.train with per-epoch eval, checkpoints, resume, sentinel and
     preemption; on one device, over a ``--mesh-data N [--mesh-model M]``
     mesh of ranks on JAX's GSPMD path, or over ``--mesh-data N`` ranks with
-    ``--comm-impl`` (parallel/distributed.py starts them)."""
+    ``--comm-impl``, or over JAX's (stage, data) pipeline mesh with
+    ``--pipeline-stages`` (parallel/distributed.py starts them)."""
     if args.model == "cifar_cnn" and args.conv_backend != "torch":
         raise SystemExit("--conv-backend cuda applies to the resnet/vgg models")
     if args.batch_size == 1:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
     _refuse_later_slices(args)
+    pipeline = _pipeline_from_args(args)
+    if pipeline is not None:
+        return _run_zoo_pipeline(args, pipeline)
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
     comm = _comm_from_args(args)
     check_comm_mesh(mesh_cfg, comm)
@@ -393,6 +449,25 @@ def _run_zoo(args: argparse.Namespace) -> int:
     print(f"mesh: {{'data': {world}, 'model': 1}}", flush=True)
     distributed.run(_zoo_job, world, device=args.device,
                     args=(args, comm, fused))
+    return 0
+
+
+def _run_zoo_pipeline(args: argparse.Namespace, pipeline: PipelineConfig) -> int:
+    """JAX's pipelined zoo run: the (stage, data) mesh over every card, S
+    ranks a data replica (one process and one card each; more stages than
+    cards raises MeshSizeError), each rank on its stage; a world of one
+    runs in the calling process."""
+    from parallel_cnn_tpu_torch.parallel import distributed
+
+    comm = _comm_from_args(args)
+    fused = _fused_from_args(args)
+    n_stages, n_data = distributed.resolve_pipeline_shape(pipeline.stages,
+                                                          args.device)
+    print(f"mesh: {{'stage': {n_stages}, 'data': {n_data}}} (pipeline)",
+          flush=True)
+    distributed.run(_zoo_job, n_stages * n_data, device=args.device,
+                    args=(args, comm, fused, pipeline), shape=(n_stages, n_data),
+                    axes=distributed.PIPELINE_AXES)
     return 0
 
 
@@ -495,6 +570,11 @@ def _run_train(argv: List[str]) -> int:
     if args.model != "lenet_ref":
         return _run_zoo(args)
     _refuse_later_slices(args)
+    if _pipeline_from_args(args) is not None:
+        raise ValueError(
+            "the reference trainer drives a flat (data, model) mesh only; "
+            "the resolved plan built axes ('stage', 'data') — drop the "
+            "pipeline/hierarchical knobs for this model")
     cfg = config_from_args(args)
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
     if args.mesh_data is None and mesh_cfg.model == 1:

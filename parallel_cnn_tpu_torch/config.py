@@ -15,7 +15,8 @@ far, and the model and conv-backend names it takes; its other knobs are
 paths: ``MeshConfig`` (the (data, model) mesh; the zoo trainer takes the
 data axis only) and ``CommConfig`` (psum or the bucketed ring, JAX's
 fields, defaults and ``PCNN_COMM_*`` layering); ``Config.comm`` is the
-LeNet-ref mesh step's.
+LeNet-ref mesh step's. ``PipelineConfig`` is JAX's pipeline policy
+(stages, split, wire and act dtypes, ``PCNN_PIPELINE_*``).
 
 Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
 kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
@@ -332,6 +333,100 @@ class FusedStepConfig:
         return FusedStepConfig(
             act_dtype=os.environ.get("PCNN_ACT_DTYPE", "bfloat16"),
             zero=int(os.environ.get("PCNN_ZERO_LEVEL", "2")),
+        )
+
+
+#: JAX's refusal of explicit mesh axes beside a mode that builds its own
+#: mesh (plan/__init__.py:84-87).
+MESH_AXES_OWNED_ERROR = (
+    "{owner} builds its own {axes} mesh over all devices; "
+    "drop --mesh-data/--mesh-model{extra}"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineConfig:
+    """Pipeline-parallelism policy (JAX's ``PipelineConfig``,
+    config.py:730): 1F1B microbatch pipelining over a ``(stage, data)``
+    mesh of ranks (parallel/pipeline.py, train/pipeline_schedule.py).
+
+    No PipelineConfig at all keeps the zoo trainer on its data-parallel
+    paths; one (``--pipeline-stages`` / ``PCNN_PIPELINE_STAGES``) opts it
+    into the pipelined step. ``stages=1`` is the degenerate pipeline: the
+    flat ring step itself.
+
+    - ``stages``: S, the size of the mesh's ``stage`` axis; the other
+      ranks form the data axis (world // S replicas of each stage).
+    - ``split``: manual stage boundaries, the comma-separated layer
+      indices at which a stage starts ("8,15" for 3 stages); empty means
+      the flops-balanced split (parallel/pipeline.py ``split_layers``).
+    - ``wire_dtype``: the dtype of the activations and cotangents sent
+      between stages, "float32" or "bfloat16" (cast back to f32 on
+      arrival).
+    - ``act_dtype``: the stages' compute dtype, "float32", or "bfloat16"
+      over f32 masters (grads and loss stay f32).
+    """
+
+    stages: int = 1
+    split: str = ""
+    wire_dtype: str = "float32"
+    act_dtype: str = "float32"
+
+    def __post_init__(self):
+        if self.stages < 1:
+            raise ValueError(f"stages must be >= 1, got {self.stages}")
+        if self.wire_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown pipeline wire dtype {self.wire_dtype!r} "
+                "(float32 or bfloat16)"
+            )
+        if self.act_dtype not in ("float32", "bfloat16"):
+            raise ValueError(
+                f"unknown pipeline act dtype {self.act_dtype!r} "
+                "(float32 or bfloat16)"
+            )
+        self.boundaries()  # validate the split grammar eagerly
+
+    def boundaries(self) -> tuple:
+        """The parsed manual split: sorted stage-start layer indices, ()
+        when ``split`` is empty (the automatic split)."""
+        out = []
+        for part in filter(None, self.split.split(",")):
+            if not part.strip().isdigit() or int(part) < 1:
+                raise ValueError(
+                    f"bad pipeline split entry {part!r} (want positive "
+                    "layer indices, e.g. '8,15' for 3 stages)"
+                )
+            out.append(int(part))
+        if len(set(out)) != len(out):
+            raise ValueError(
+                f"pipeline split {self.split!r} repeats a boundary"
+            )
+        if out and len(out) != self.stages - 1:
+            raise ValueError(
+                f"pipeline split {self.split!r} names {len(out)} "
+                f"boundaries but stages={self.stages} needs "
+                f"{self.stages - 1}"
+            )
+        return tuple(sorted(out))
+
+    @staticmethod
+    def from_env() -> Optional["PipelineConfig"]:
+        """PipelineConfig from PCNN_PIPELINE_STAGES / PCNN_PIPELINE_SPLIT /
+        PCNN_PIPELINE_WIRE_DTYPE / PCNN_PIPELINE_ACT_DTYPE, or None when
+        none of them is set."""
+        stages = os.environ.get("PCNN_PIPELINE_STAGES")
+        split = os.environ.get("PCNN_PIPELINE_SPLIT")
+        wire = os.environ.get("PCNN_PIPELINE_WIRE_DTYPE")
+        act = os.environ.get("PCNN_PIPELINE_ACT_DTYPE")
+        if (stages is None and split is None and wire is None
+                and act is None):
+            return None
+        return PipelineConfig(
+            stages=int(stages) if stages else 1,
+            split=split or "",
+            wire_dtype=wire or "float32",
+            act_dtype=act or "float32",
         )
 
 

@@ -11,7 +11,11 @@ from the module's ``training`` flag:
   the running statistics. The normalisation itself runs in the input's
   dtype (bf16 under the zoo's bf16 cast), in JAX's order. It is not
   ``nn.BatchNorm2d``: that keeps an unbiased running variance and reads
-  its momentum the other way round.
+  its momentum the other way round. Under ``running_stats_frozen`` a
+  training-mode forward still normalises with the batch's statistics but
+  leaves the running ones alone: the pipeline's backward recomputes a
+  stage whose forward tick already updated them (JAX's recompute throws
+  its new state away).
 - ``ConvBNAct`` in training mode runs JAX's unfused composition: conv
   (``ops.tap_conv.conv2d``, whose backward is the dgrad and wgrad kernels)
   → BatchNorm → (+ residual) → optional ReLU. In eval mode with the
@@ -41,8 +45,9 @@ features when their leaves are split over the model axis.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Optional
+from typing import Iterator, Optional
 
 import torch
 from torch import nn
@@ -96,6 +101,8 @@ class BatchNorm(nn.Module):
     tree."""
 
     sharding: Optional[Sharding] = None
+    #: False under ``running_stats_frozen``.
+    update_stats: bool = True
 
     def __init__(self, features: int, momentum: float = 0.9, eps: float = 1e-5,
                  *, device=None):
@@ -125,10 +132,11 @@ class BatchNorm(nn.Module):
                 axes = tuple(range(x.dim() - 1))
                 mean = xf.mean(dim=axes)
                 var = xf.var(dim=axes, unbiased=False)
-            m = self.momentum
-            with torch.no_grad():
-                self.mean.copy_(m * self.mean + (1 - m) * mean)
-                self.var.copy_(m * self.var + (1 - m) * var)
+            if self.update_stats:
+                m = self.momentum
+                with torch.no_grad():
+                    self.mean.copy_(m * self.mean + (1 - m) * mean)
+                    self.var.copy_(m * self.var + (1 - m) * var)
         else:
             mean, var = self.mean, self.var
         # inv in f32 (from a bf16 scale under the bf16 cast), then JAX's
@@ -138,6 +146,21 @@ class BatchNorm(nn.Module):
         inv = torch.rsqrt(var + self.eps) * self.scale
         dt = x.dtype
         return (x - mean.to(dt)) * inv.to(dt) + self.bias.to(dt)
+
+
+@contextlib.contextmanager
+def running_stats_frozen(module: nn.Module) -> Iterator[None]:
+    """Every BatchNorm under ``module`` keeps its running statistics as
+    they are for the duration (training mode still normalises with the
+    batch's statistics)."""
+    bns = [m for m in module.modules() if isinstance(m, BatchNorm)]
+    for bn in bns:
+        bn.update_stats = False
+    try:
+        yield
+    finally:
+        for bn in bns:
+            bn.update_stats = True
 
 
 class Conv2D(_Sharded):

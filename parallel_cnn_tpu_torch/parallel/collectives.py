@@ -17,7 +17,9 @@ Ring collectives. ``ring_reduce_scatter``, ``ring_all_gather`` and
 ``lax.ppermute`` to the next device is here one ``dist.batch_isend_irecv``
 that sends to the axis's next rank and receives from its previous one, as
 global ranks, in the axis's group (NCCL on the card, gloo on the CPU). An
-axis of one rank sends nothing: a sum over one rank is its value. Sums
+axis of one rank sends nothing: a sum over one rank is its value.
+``stage_exchange`` is the pipeline's tick: both stage-axis wires in one
+``batch_isend_irecv``. Sums
 accumulate in f32; only hop payloads are cast to the wire dtype. Every
 hop's requests are waited on before its result is read: on NCCL the wait
 orders PyTorch's current stream behind NCCL's, so a kernel launched next
@@ -226,6 +228,46 @@ def _ppermute(t: torch.Tensor, axis: Axis) -> torch.Tensor:
     for req in dist.batch_isend_irecv(ops):
         req.wait()
     return out
+
+
+def stage_exchange(fwd: Optional[torch.Tensor], bwd: Optional[torch.Tensor],
+                   axis: Axis, *, recv_fwd: bool, recv_bwd: bool,
+                   like: torch.Tensor, wire_dtype=None
+                   ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """One tick of the pipeline's two stage-axis wires (JAX's two
+    ppermutes, train/pipeline_schedule.py:302-307: activations to the
+    next stage, cotangents to the previous) as ONE ``batch_isend_irecv``:
+    two blocking exchanges posted in different orders by neighbouring
+    stages could wait on each other under NCCL.
+
+    ``fwd`` goes to the axis's next rank and ``bwd`` to its previous one
+    (None: nothing to send this tick); ``recv_fwd`` / ``recv_bwd`` say
+    whether the previous / next rank sends this tick. JAX sends both full
+    rings every tick and masks the hops no one reads; here the caller
+    leaves those hops out on both ends alike, from the schedule both ends
+    know. The payloads travel in ``wire_dtype`` (None: as they are) and
+    return as f32 tensors shaped like ``like``: (what the previous rank
+    sent forward, what the next rank sent back), None where nothing
+    came. The fwd ops are posted before the bwd ops on every rank, so two
+    messages between one pair of ranks meet in order."""
+    n, i = axis.size, axis.index
+    wire = _wire(like.dtype, wire_dtype) or like.dtype
+    ops, got = [], {}
+    for payload, peer_to, incoming, peer_from, key in (
+            (fwd, (i + 1) % n, recv_fwd, (i - 1) % n, "fwd"),
+            (bwd, (i - 1) % n, recv_bwd, (i + 1) % n, "bwd")):
+        if payload is not None:
+            ops.append(dist.P2POp(dist.isend, payload.to(wire).contiguous(),
+                                  axis.ranks[peer_to], group=axis.group))
+        if incoming:
+            got[key] = torch.empty(like.shape, dtype=wire, device=like.device)
+            ops.append(dist.P2POp(dist.irecv, got[key], axis.ranks[peer_from],
+                                  group=axis.group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return tuple(got[k].to(torch.float32) if k in got else None
+                 for k in ("fwd", "bwd"))
 
 
 def ring_reduce_scatter(x: torch.Tensor, mesh: Axis,

@@ -5,7 +5,8 @@ bring-up, and of the device mesh JAX builds inside one process).
 
 ``run(fn, world, device=...)`` calls ``fn(mesh, *args)`` on every rank and
 returns each rank's result, rank 0's first. ``mesh`` is the rank's
-``DataMesh`` or, with ``shape=(data, model)``, its ``Mesh2D`` (the axis
+``DataMesh`` or, with ``shape=(data, model)``, its ``Mesh2D``, or with
+``shape=(stages, data), axes=PIPELINE_AXES`` its ``PipelineMesh`` (the axis
 groups made on every rank). The rendezvous is explicit: a
 ``file://`` store in a fresh temporary directory, with the world size and
 each rank given by the launcher; nothing is read from the environment.
@@ -34,11 +35,21 @@ import torch
 import torch.distributed as dist
 
 from parallel_cnn_tpu_torch.config import MeshConfig
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, make_mesh_2d
+from parallel_cnn_tpu_torch.parallel.mesh import (
+    DATA_AXIS,
+    STAGE_AXIS,
+    DataMesh,
+    make_mesh_2d,
+    make_pipeline_mesh,
+)
 from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 #: How long a collective may wait for a peer before the group gives up.
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
+
+#: The axes of a (data, model) mesh and of a (stage, data) pipeline mesh.
+MESH_AXES = (DATA_AXIS, "model")
+PIPELINE_AXES = (STAGE_AXIS, DATA_AXIS)
 
 
 class MeshSizeError(ValueError):
@@ -70,6 +81,28 @@ def resolve_shape(mesh: MeshConfig, device: DeviceLike = None) -> Tuple[int, int
     return data, model
 
 
+def resolve_pipeline_shape(n_stages: int, device: DeviceLike = None) -> Tuple[int, int]:
+    """(stages, data) of JAX's ``make_pipeline_mesh(n_stages)`` over every
+    visible card: D = cards // S (on the CPU: one data rank, S gloo ranks).
+    More stages than cards raises MeshSizeError; a stage count that does
+    not divide the cards, JAX's ValueError."""
+    if n_stages < 1:
+        raise ValueError(f"stages must be >= 1, got {n_stages}")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return n_stages, 1
+    cards = torch.cuda.device_count()
+    if n_stages > cards:
+        raise MeshSizeError(
+            f"--pipeline-stages {n_stages} needs {n_stages} cards (a rank a "
+            f"stage) but {cards} {'is' if cards == 1 else 'are'} visible: NCCL "
+            "takes one rank per card (no oversubscription, no CPU fallback)")
+    if cards % n_stages:
+        raise ValueError(
+            f"stage axis {n_stages} does not divide device count {cards}")
+    return n_stages, cards // n_stages
+
+
 def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
     """The number of ranks for ``mesh`` on ``device``: data × model (see
     ``resolve_shape``)."""
@@ -78,7 +111,7 @@ def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
 
 
 def _init_rank(rank: int, world: int, init_method: str, device_type: str,
-               shape: Optional[Tuple[int, int]]):
+               shape: Optional[Tuple[int, int]], axes: Tuple[str, str]):
     if device_type == "cuda":
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -89,15 +122,17 @@ def _init_rank(rank: int, world: int, init_method: str, device_type: str,
     dist.init_process_group(backend_for(device_type), init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=COLLECTIVE_TIMEOUT)
-    if shape is not None:
-        return make_mesh_2d(rank, world, device, *shape)
-    return DataMesh(world=world, rank=rank, device=device)
+    if shape is None:
+        return DataMesh(world=world, rank=rank, device=device)
+    if axes == PIPELINE_AXES:
+        return make_pipeline_mesh(rank, world, device, shape[0])
+    return make_mesh_2d(rank, world, device, *shape)
 
 
 def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
               device_type: str, args: Sequence[Any],
-              shape: Optional[Tuple[int, int]]) -> Any:
-    mesh = _init_rank(rank, world, init_method, device_type, shape)
+              shape: Optional[Tuple[int, int]], axes: Tuple[str, str]) -> Any:
+    mesh = _init_rank(rank, world, init_method, device_type, shape, axes)
     try:
         return fn(mesh, *args)
     finally:
@@ -106,8 +141,9 @@ def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
                   device_type: str, args: Sequence[Any], out_dir: str,
-                  shape: Optional[Tuple[int, int]]) -> None:
-    result = _run_rank(rank, fn, world, init_method, device_type, args, shape)
+                  shape: Optional[Tuple[int, int]], axes: Tuple[str, str]) -> None:
+    result = _run_rank(rank, fn, world, init_method, device_type, args, shape,
+                       axes)
     tmp = Path(out_dir) / f"result_{rank}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(result, f)
@@ -116,10 +152,12 @@ def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 def run(fn: Callable, world: int, *, device: DeviceLike = None,
         args: Sequence[Any] = (), timeout: Optional[float] = None,
-        shape: Optional[Tuple[int, int]] = None) -> List[Any]:
+        shape: Optional[Tuple[int, int]] = None,
+        axes: Tuple[str, str] = MESH_AXES) -> List[Any]:
     """``fn(mesh, *args)`` on each of ``world`` ranks; their results in rank
     order. ``shape=(data, model)`` (data × model == world) gives each rank
-    its ``Mesh2D``, else a ``DataMesh``. ``fn`` and ``args`` must pickle (a
+    its ``Mesh2D``, ``shape=(stages, data)`` with ``axes=PIPELINE_AXES`` its
+    ``PipelineMesh``, no shape a ``DataMesh``. ``fn`` and ``args`` must pickle (a
     module-level function) when ``world > 1``. Raises what a rank raised,
     or TimeoutError after ``timeout`` seconds (the ranks are stopped either
     way)."""
@@ -127,6 +165,8 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
         raise ValueError(f"world must be >= 1, got {world}")
     if shape is not None and shape[0] * shape[1] != world:
         raise ValueError(f"a {shape[0]}x{shape[1]} mesh is not a world of {world}")
+    if axes not in (MESH_AXES, PIPELINE_AXES):
+        raise ValueError(f"unknown mesh axes {axes}")
     dev = resolve_device(device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise MeshSizeError(
@@ -135,10 +175,10 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
     with tempfile.TemporaryDirectory(prefix="pcnn_dp_") as tmp:
         init_method = Path(tmp, "rendezvous").as_uri()
         if world == 1:
-            return [_run_rank(0, fn, 1, init_method, dev.type, args, shape)]
+            return [_run_rank(0, fn, 1, init_method, dev.type, args, shape, axes)]
         ctx = torch.multiprocessing.start_processes(
             _spawned_rank, args=(fn, world, init_method, dev.type, tuple(args), tmp,
-                                 shape),
+                                 shape, axes),
             nprocs=world, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         try:

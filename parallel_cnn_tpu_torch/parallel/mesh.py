@@ -15,10 +15,20 @@ starts them), and a mesh object is what one rank knows of the whole.
   size, this rank's index on it, the axis's global ranks in axis order and
   the ``torch.distributed`` group its collectives run over.
 
+- ``PipelineMesh``: JAX's ``(stage, data)`` pipeline mesh
+  (``make_pipeline_mesh``): the world's ranks as S rows of D, rank
+  r = s·D + d at stage s, data index d (JAX's ``reshape(n_stages, n //
+  n_stages)``). Its ``stage`` axis is the rank's column (the ranks that
+  hold the other stages of its data replica), its ``data`` axis the
+  rank's row (the replicas of its stage).
+
 A ``DataMesh`` is an axis view of its own (``size``, ``index``, ``ranks``,
-``group``): the collectives of parallel/collectives.py take either. An
-axis of one rank needs no group (a sum over one rank is that rank's
-value); an axis that spans the world uses the default group.
+``group``): the collectives of parallel/collectives.py take either. A
+``DataMesh`` may also stand for one line of a larger mesh (``line``,
+``line_group``: a pipeline mesh's data row, ``PipelineMesh.data_mesh``);
+its ``world`` and ``rank`` are then the line's size and the rank's index
+on it. An axis of one rank needs no group (a sum over one rank is that
+rank's value); an axis that spans the world uses the default group.
 
 ``shard_batch`` takes a rank's rows of a global batch, which is what JAX's
 ``P(DATA_AXIS)`` gives the device at (d, m): rows ``[d·B/n, (d+1)·B/n)``,
@@ -29,7 +39,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -50,11 +60,14 @@ def _rows(x: torch.Tensor, index: int, size: int) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class DataMesh:
     """One rank's view of the data axis. The collectives run over the
-    default process group, which holds every rank."""
+    default process group, which holds every rank, or, for a line of a
+    larger mesh, over ``line_group`` (the line's global ranks ``line``)."""
 
     world: int
     rank: int
     device: torch.device
+    line: Optional[Tuple[int, ...]] = None
+    line_group: Any = None
 
     def __post_init__(self):
         if not 0 <= self.rank < self.world:
@@ -71,11 +84,11 @@ class DataMesh:
 
     @property
     def ranks(self) -> Tuple[int, ...]:
-        return tuple(range(self.world))
+        return self.line if self.line is not None else tuple(range(self.world))
 
     @property
     def group(self):
-        return None
+        return self.line_group
 
     def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's contiguous block of rows of a global batch."""
@@ -145,6 +158,72 @@ def make_mesh_2d(rank: int, world: int, device: torch.device, n_data: int,
         data=AxisView(n_data, d, data_lines[m], groups.get(data_lines[m])),
         model=AxisView(n_model, m, model_lines[d], groups.get(model_lines[d])),
     )
+
+
+#: The pipeline mesh's axis names, in JAX's order (parallel/mesh.py).
+STAGE_AXIS, DATA_AXIS = "stage", "data"
+
+
+@dataclasses.dataclass(frozen=True)
+class PipelineMesh:
+    """One rank's view of the (stage, data) pipeline mesh."""
+
+    world: int
+    rank: int
+    device: torch.device
+    stage: AxisView
+    data: AxisView
+
+    @property
+    def shape(self):
+        """JAX's ``dict(mesh.shape)``: ``{'stage': S, 'data': D}``."""
+        return {STAGE_AXIS: self.stage.size, DATA_AXIS: self.data.size}
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch: its data index's block, the
+        same rows for every stage (JAX's ``P(DATA_AXIS)``)."""
+        return _rows(x, self.data.index, self.data.size)
+
+    def data_mesh(self) -> DataMesh:
+        """The rank's data row as a ``DataMesh`` (the flat ring's mesh)."""
+        d = self.data
+        return DataMesh(world=d.size, rank=d.index, device=self.device,
+                        line=d.ranks, line_group=d.group)
+
+
+def make_pipeline_mesh(rank: int, world: int, device: torch.device,
+                       n_stages: int) -> PipelineMesh:
+    """This rank's view of JAX's ``make_pipeline_mesh(n_stages)`` over
+    ``world`` ranks: S rows of D = world // S, rank r = s·D + d. Every rank
+    calls it after ``init_process_group`` (it makes the axis groups, the
+    stage columns then the data rows, in the same order on every rank)."""
+    if n_stages < 1 or world % n_stages != 0:
+        raise ValueError(
+            f"stage axis {n_stages} does not divide device count {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    n_data = world // n_stages
+    s, d = divmod(rank, n_data)
+    stage_lines = [tuple(ss * n_data + dd for ss in range(n_stages))
+                   for dd in range(n_data)]
+    data_lines = [tuple(s_ * n_data + dd for dd in range(n_data))
+                  for s_ in range(n_stages)]
+    groups = _axis_groups((stage_lines, data_lines), world)
+    return PipelineMesh(
+        world=world, rank=rank, device=device,
+        stage=AxisView(n_stages, s, stage_lines[d], groups.get(stage_lines[d])),
+        data=AxisView(n_data, d, data_lines[s], groups.get(data_lines[s])),
+    )
+
+
+def pipeline_axis_sizes(mesh) -> Tuple[int, int]:
+    """(n_stages, n_data) of a ``make_pipeline_mesh`` mesh."""
+    if not isinstance(mesh, PipelineMesh):
+        axes = ("data", "model") if isinstance(mesh, Mesh2D) else ("data",)
+        raise ValueError(
+            f"mesh {axes} has no {STAGE_AXIS!r} axis — build it with "
+            "make_pipeline_mesh")
+    return mesh.stage.size, mesh.data.size
 
 
 def as_mesh_2d(mesh) -> Mesh2D:

@@ -79,8 +79,14 @@ dynamic scale of ``FusedOptState`` on update-on-arrival, backed off on an
 overflow (clamped at 1) and doubled after ``growth_interval`` clean
 steps, on the device. Evaluation runs the f32 masters.
 
-Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), pipeline,
-elastic and chaos, the per-step sentinel cadence, profiling.
+Pipeline parallelism. ``train(..., mesh=, pipeline=)`` on a ``(stage,
+data)`` mesh (``PipelineMesh``) is JAX's 1F1B path
+(train/pipeline_schedule.py): the layers split over the stage axis,
+``accum_steps`` microbatches through the schedule a step, the data axis
+the ring, the optimizer or the ZeRO-2 tail.
+
+Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), elastic and
+chaos, the per-step sentinel cadence, profiling.
 """
 
 from __future__ import annotations
@@ -109,7 +115,7 @@ from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.nn.core import whole
 from parallel_cnn_tpu_torch.ops import sgd_update, tail
 from parallel_cnn_tpu_torch.parallel import collectives, zoo_sharding
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, as_mesh_2d
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, PipelineMesh, as_mesh_2d
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
     CheckpointRing,
@@ -319,7 +325,7 @@ class ZooState:
         if self.fused is not None and mesh is not None and mesh.world > 1:
             for b, row in enumerate(self.fused.mom):
                 rows = [torch.empty_like(row) for _ in range(mesh.world)]
-                dist.all_gather(rows, row.contiguous())
+                dist.all_gather(rows, row.contiguous(), group=mesh.group)
                 out[f"{MOM_KEY}{b}"] = torch.cat(rows)
         return out
 
@@ -929,10 +935,11 @@ def train(
     augment: bool = False,
     augment_pad: int = 4,
     accum_steps: int = 1,
-    mesh: Optional[Union[DataMesh, Mesh2D]] = None,
+    mesh: Optional[Union[DataMesh, Mesh2D, PipelineMesh]] = None,
     model_axis: bool = False,
     comm: Optional[CommConfig] = None,
     fused: Optional[FusedStepConfig] = None,
+    pipeline=None,
     seed: int = 0,
     verbose: bool = True,
     eval_data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
@@ -976,10 +983,35 @@ def train(
     blocks, are gathered for it first. The sentinel's verdict is agreed
     over the world. Under update-on-arrival the sentinel treats a skipped
     overflow as handled (``Sentinel.check_scaled``).
+
+    ``pipeline`` (a ``config.PipelineConfig``; ``mesh`` this rank's
+    ``PipelineMesh``) is JAX's 1F1B pipeline (``make_pipeline_step``):
+    ``accum_steps`` is the microbatch count, the data axis reduces over
+    ``comm`` (the ring by default), ``fused.update`` with the ring is the
+    ZeRO-2 tail, and any other fused config is dropped (the schedule
+    computes its own loss; bf16 stage compute is ``pipeline.act_dtype``).
+    It takes no model axis and no augmentation. Parameters stay
+    replicated on every rank; rank 0 (stage 0's first data rank)
+    evaluates and writes the checkpoints.
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
-    gspmd = mesh is not None and comm is None
+    pipe = pipeline is not None
+    if pipe:
+        if not isinstance(mesh, PipelineMesh):
+            raise ValueError(
+                "pipeline training requires a (stage, data) mesh — "
+                "build it with mesh.make_pipeline_mesh(pipeline.stages)")
+        if model_axis:
+            raise ValueError(
+                "pipeline partitions layers over the stage axis; "
+                "model_axis filter sharding stays on the GSPMD path "
+                "(drop one of the two)")
+        if augment:
+            raise ValueError(
+                "pipeline training does not thread augmentation keys "
+                "through the 1F1B schedule yet — drop --augment")
+    gspmd = mesh is not None and comm is None and not pipe
     if model_axis and not gspmd:
         raise ValueError("model_axis filter sharding is the GSPMD path: it "
                          "needs a mesh and no comm")
@@ -990,14 +1022,14 @@ def train(
     dev = resolve_device(device)
     rank = mesh.rank if mesh is not None else 0
     world = mesh.world if mesh is not None else 1
-    n_data = mesh.data.size if gspmd else world
+    n_data = mesh.data.size if gspmd or pipe else world
     lead = rank == 0
     verbose = verbose and lead
     steps = images.shape[0] // batch_size
     if steps == 0:
         raise ValueError(f"dataset of {images.shape[0]} samples yields zero "
                          f"batches of {batch_size}")
-    if batch_size % (n_data * accum_steps if gspmd else world):
+    if batch_size % (n_data * accum_steps if gspmd else n_data):
         raise ValueError(f"global batch {batch_size} does not divide over "
                          f"{n_data} data ranks"
                          + (f" × {accum_steps} microbatches" if gspmd else ""))
@@ -1014,6 +1046,11 @@ def train(
                 "lr schedules/warmup/weight decay need the optax path "
                 "(set update=False)")
     use_fused_update = fused is not None and fused.update
+    if pipe and fused is not None and not use_fused_update:
+        # The fused tail and bf16 cast ride the flat step's loss, which
+        # the per-stage schedule replaces (bf16 stage compute is
+        # pipeline.act_dtype instead).
+        fused = None
     optimizer = make_optimizer(
         lr, momentum, weight_decay, schedule=lr_schedule,
         warmup_steps=warmup_steps,
@@ -1021,7 +1058,20 @@ def train(
     )
     model.to(dev)
     pad = augment_pad if augment else None
-    if use_fused_update:
+    if pipe:
+        from parallel_cnn_tpu_torch.train.pipeline_schedule import make_pipeline_step
+
+        if use_fused_update:
+            state, _ = init_fused_state(model, optimizer, mesh=mesh.data_mesh(),
+                                        fused=fused, bucket_bytes=comm.bucket_bytes)
+        else:
+            state = init_state(model, optimizer)
+        step = make_pipeline_step(
+            model, None if use_fused_update else optimizer,
+            accum_steps=accum_steps, mesh=mesh, pipeline=pipeline,
+            in_shape=tuple(images.shape[1:]), comm=comm,
+            fused=fused if use_fused_update else None, lr=lr, momentum=momentum)
+    elif use_fused_update:
         state, _ = init_fused_state(model, optimizer, mesh=mesh, fused=fused,
                                     bucket_bytes=comm.bucket_bytes)
         step = make_fused_train_step(

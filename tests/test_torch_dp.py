@@ -412,7 +412,9 @@ def test_cli_trains_update_on_arrival_over_two_gloo_ranks(tmp_path):
     (["--mesh-model", "2", "--comm-impl", "ring"], MeshLayoutError,
      "data-parallel only"),
     (["--comm-hosts", "2"], NotPortedError, "A9"),
-    (["--pipeline-stages", "2"], NotPortedError, "A10"),
+    # The pipeline builds its own (stage, data) mesh: JAX's plan refuses
+    # --mesh-data beside it.
+    (["--pipeline-stages", "2"], SystemExit, r"builds its own \(stage, data\) mesh"),
     (["--elastic"], NotPortedError, "A11"),
 ])
 def test_cli_refuses_unported_paths(argv, err, match):
