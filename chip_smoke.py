@@ -85,6 +85,12 @@ port's two paths through their user-facing entry points:
   loss scale, its resume, and an overflow skipped and backed off, then
   growth; profiled bf16 epochs of ResNet-18 and ResNet-50 beside the f32
   ones.
+- ZeRO-3 (zero3 (a)-(d)) on ResNet-18 at b128, world 1: the CLI with
+  PCNN_ZERO_LEVEL=3 and the ring, exact launches (dp (b)'s counts, one
+  B13 launch a step over the resident rows), a falling loss and the
+  checkpoint's zero3 marker; 3 ZeRO-3 steps against 3 ZeRO-2 steps from
+  one init in f32 and bf16; a resumed run through restore_sharded
+  against the straight one; a profiled epoch beside dp (e)'s.
 - the 1F1B pipeline (pipe (a)-(b)) on ResNet-18 at b128, two
   microbatches a step: the CLI at --pipeline-stages 1 bit for bit against
   the flat ring at --mesh-data 1, exact launches; at two and four stages
@@ -330,6 +336,7 @@ DP_LR = 0.1
 DP_MOMENTUM = 0.9
 DP_COMM = CommConfig(impl="ring")
 DP_FUSED = FusedStepConfig(update=True, act_dtype="float32")
+Z3_STEPS = 3
 # The GSPMD zoo path on one card (a 1x1 mesh): zoo (a)'s cut through the
 # CLI at --mesh-data 1, and every ResNet-18 conv at the shard shapes of a
 # model axis of these sizes (Cout/M filters a rank).
@@ -2456,23 +2463,156 @@ def dp_phase(card, zoo_launches) -> dict:
     return launches
 
 
-def profiled_dp_epoch_rank(mesh):
+def zero_level_state(model, mesh, fused, lr):
+    """The update-on-arrival state and step of ``fused.zero`` (2 or 3) for
+    ``model`` on ``mesh`` over the ring, one microbatch a step."""
+    opt = zoo.make_optimizer(lr, DP_MOMENTUM)
+    kw = dict(lr=lr, momentum=DP_MOMENTUM, accum_steps=1, mesh=mesh,
+              augment_pad=None, comm=DP_COMM, fused=fused)
+    if fused.zero == 3:
+        state, plan = zoo.init_zero3_state(model, opt, mesh=mesh, fused=fused,
+                                           bucket_bytes=DP_COMM.bucket_bytes)
+        return state, zoo.make_zero3_train_step(model, plan=plan, **kw)
+    state, _ = zoo.init_fused_state(model, opt, mesh=mesh, fused=fused,
+                                    bucket_bytes=DP_COMM.bucket_bytes)
+    return state, zoo.make_fused_train_step(model, **kw)
+
+
+def zero3_step_rank(mesh, fused, steps, lr):
+    """On one rank: ResNet-18 (seed 0, the card's kernels) through ``steps``
+    steps of the update-on-arrival step at ``fused.zero``; returns (losses,
+    {key: tensor on the host}): the params and BN statistics under the
+    full view's keys (a ZeRO-3 state's gathered from its rows), and the
+    momentum rows."""
+    imgs, labels = synthetic.make_image_dataset(steps * ZOO_BATCH, seed=11)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    model = resnet.resnet18(10, backend="cuda",
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    state, step = zero_level_state(model, mesh, fused, lr)
+    losses = [float(step(state, xs[i * ZOO_BATCH:(i + 1) * ZOO_BATCH],
+                         ys[i * ZOO_BATCH:(i + 1) * ZOO_BATCH]))
+              for i in range(steps)]
+    if fused.zero == 3:
+        out = {k: v for k, v in zoo.zero3_full_view(state).items() if "/" in k
+               and not k.startswith("mom/")}
+    else:
+        buffers = {n for n, _ in model.named_buffers()}
+        out = {("model_state/" if k in buffers else "params/") + k.replace(".", "/"): v
+               for k, v in model.state_dict().items()}
+    out.update({f"mom_row/{b}": row for b, row in enumerate(state.fused.mom)})
+    return losses, {k: v.detach().cpu() for k, v in out.items()}
+
+
+def zero3_phase(card, zoo_launches) -> dict:
+    """ZeRO-3 on the card at world 1: (a) the CLI with PCNN_ZERO_LEVEL=3
+    over the ring, exact launch counts beside zoo (a)'s and one B13 launch
+    a step, a falling loss, the checkpoint's zero3 marker; (b) 3 ZeRO-3
+    steps against 3 ZeRO-2 steps from one init, f32 and bf16; (c) a
+    resumed run through restore_sharded against the straight one. Returns
+    each kernel's launches on the main path (a)."""
+    work = BUILD_DIR / "smoke_zero3"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    base = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--mesh-data", str(DP_WORLD),
+            "--comm-impl", "ring", "--batch-size", str(ZOO_BATCH),
+            "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+    env = mock.patch.dict(os.environ, {"PCNN_ZERO_LEVEL": "3"})
+    n_buckets = len(resnet18_bucket_sizes())
+
+    # (a) the main path: every counter set to 0 just before, read just after.
+    print(f"[smoke] zero3 (a): PCNN_ZERO_LEVEL=3 {' '.join(base)} --epochs 2",
+          flush=True)
+    reset_zoo_counts()
+    sgd_update.momentum_launches.reset()
+    with env:
+        out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(work / "straight"),
+                              "--metrics", str(work / "a.jsonl")])
+    launches = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
+    losses = epoch_losses(out)
+    steps = 2 * ZOO_STEPS
+    want = dict(zoo_launches, sgd_momentum=steps)
+    with open(work / "a.jsonl") as f:
+        recs = [json.loads(line) for line in f if line.strip()]
+    rates = [round(ZOO_TRAIN_COUNT / r["seconds"]) for r in recs]
+    meta = checkpoint_meta(work / "straight" / "ckpt_2.npz")
+    print(f"[smoke] zero3 (a): launches {launches} for {steps} steps (expected "
+          f"{want}: zoo (a)'s counts and one launch over {n_buckets} resident rows "
+          f"a step); epoch losses {losses}; img/s per epoch {rates} (host clock, "
+          f"first epoch cold); eval accuracy {[r['accuracy'] for r in recs]}; "
+          f"checkpoint zero3 marker {meta.get('zero3')} on {card}", flush=True)
+    if launches != want:
+        fail("the ZeRO-3 run did not launch each kernel exactly as often as its "
+             "steps, buckets and eval batches need")
+    if "falling back" in out or f"mesh: {{'data': {DP_WORLD}, 'model': 1}}" not in out:
+        fail("the ZeRO-3 run did not take the update-on-arrival path")
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail("the ZeRO-3 run's loss did not fall from epoch 1 to 2")
+    if meta.get("zero3") != {"world_size": DP_WORLD,
+                             "bucket_bytes": DP_COMM.bucket_bytes, "rank": 0}:
+        fail("the ZeRO-3 checkpoint does not carry the zero3 marker")
+
+    # (b) 3 steps each from one init at zoo (c)'s gentle LR, f32 and bf16.
+    for act in ("float32", "bfloat16"):
+        runs = {zero: distributed.run(zero3_step_rank, DP_WORLD, device="cuda", args=(
+                    dataclasses.replace(DP_FUSED, act_dtype=act, zero=zero),
+                    Z3_STEPS, ZOO_CHECK_LR))[0] for zero in (3, 2)}
+        (l3, s3), (l2, s2) = runs[3], runs[2]
+        same = (l3 == l2 and sorted(s3) == sorted(s2)
+                and all(torch.equal(s3[k], s2[k]) for k in s2))
+        loss_diff = max(abs(a - b) for a, b in zip(l3, l2))
+        diff = {tree: max(float((s3[k] - s2[k]).abs().max()) for k in s2
+                          if k.startswith(tree))
+                for tree in ("params/", "model_state/", "mom_row/")}
+        ok = same or (loss_diff <= ZOO_LOSS_ATOL and diff["params/"] <= ZOO_PARAM_ATOL)
+        print(f"[smoke] zero3 (b) {act}: {Z3_STEPS} ZeRO-3 steps vs {Z3_STEPS} ZeRO-2 "
+              f"steps (lr {ZOO_CHECK_LR}, b{ZOO_BATCH}, world {DP_WORLD}): "
+              f"{'bit-identical (losses, params, BN stats, momentum rows)' if same else 'NOT bit-identical'}"
+              f"; max |Δloss| {loss_diff:.3e}, max |Δparams| {diff['params/']:.3e}, "
+              f"max |ΔBN stats| {diff['model_state/']:.3e}, max |Δmomentum| "
+              f"{diff['mom_row/']:.3e} (zoo (c)'s bounds {ZOO_LOSS_ATOL:.0e} / "
+              f"{ZOO_PARAM_ATOL:.0e}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"the ZeRO-3 steps drifted from the ZeRO-2 steps ({act})")
+
+    # (c) 1 epoch, then --resume to 2: the straight run's file, bit for bit.
+    print("[smoke] zero3 (c): --epochs 1, then --epochs 2 --resume, vs (a)", flush=True)
+    split = work / "split"
+    with env:
+        run_cli(base + ["--epochs", "1", "--checkpoint-dir", str(split)])
+        out = run_cli(base + ["--epochs", "2", "--checkpoint-dir", str(split), "--resume"])
+    a = checkpoint_leaves(work / "straight" / "ckpt_2.npz")
+    b = checkpoint_leaves(split / "ckpt_2.npz")
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    mom = [k for k in a if k.startswith("mom/")]
+    print(f"[smoke] zero3 (c): resumed full view ({len(a)} leaves: params, BN stats, "
+          f"{len(mom)} momentum leaves, loss-scale state) "
+          f"{'bit-identical to the straight run' if same else 'DIFFERS'}", flush=True)
+    if "resumed from" not in out or not same or not mom:
+        fail("the resumed ZeRO-3 run is not bit-identical to the straight run")
+    return launches
+
+
+def checkpoint_meta(path):
+    with np.load(path) as z:
+        return json.loads(bytes(z["__meta__"]).decode())
+
+
+def profiled_dp_epoch_rank(mesh, zero=2):
     """(e) on one rank: a warm, then a profiled epoch of ZOO_STEPS
-    update-on-arrival ResNet-18 steps (batches gathered on the card, one
-    loss readback) under torch.profiler (CUDA activity only). Returns
-    (wall ms, device ms, device ops, B13's device ms and launches), or
-    None when the profiler saw no device events."""
+    update-on-arrival ResNet-18 steps at ZeRO level ``zero`` (batches
+    gathered on the card, one loss readback) under torch.profiler (CUDA
+    activity only). Returns (wall ms, device ms, device ops, B13's device
+    ms and launches), or None when the profiler saw no device events."""
     imgs, labels = synthetic.make_image_dataset(ZOO_TRAIN_COUNT, seed=1234)
     xs = torch.from_numpy(imgs).cuda()
     ys = torch.from_numpy(labels).to("cuda", torch.int64)
     model = resnet.resnet18(10, backend="cuda",
                             generator=torch.Generator().manual_seed(0)).cuda()
-    state, _ = zoo.init_fused_state(model, zoo.make_optimizer(DP_LR, DP_MOMENTUM),
-                                    mesh=mesh, fused=DP_FUSED,
-                                    bucket_bytes=DP_COMM.bucket_bytes)
-    step = zoo.make_fused_train_step(model, lr=DP_LR, momentum=DP_MOMENTUM,
-                                     accum_steps=1, mesh=mesh, augment_pad=None,
-                                     comm=DP_COMM, fused=DP_FUSED)
+    state, step = zero_level_state(model, mesh, dataclasses.replace(DP_FUSED, zero=zero),
+                                   DP_LR)
 
     def epoch():
         perm = torch.randperm(ZOO_TRAIN_COUNT, generator=torch.Generator().manual_seed(0))
@@ -2501,6 +2641,24 @@ def profiled_dp_epoch_rank(mesh):
     return dict(wall_ms=wall_ms, dev_ms=dev_ms, ops=sum(e.count for e in kernels),
                 b13_ms=sum(e.self_device_time_total for e in b13) / 1e3,
                 b13_count=sum(e.count for e in b13), top=top)
+
+
+def report_zero3_epoch(prof, dp_prof, card) -> None:
+    """zero3 (d): the profiled ZeRO-3 epoch beside dp (e)'s ZeRO-2 epoch
+    (printed, not gated)."""
+    if prof is None or dp_prof is None:
+        print("[smoke] zero3 (d): device time not measured (the profiler saw no "
+              "device events)", flush=True)
+        return
+    parts = []
+    for name, p in (("ZeRO-3", prof), ("ZeRO-2 (dp (e))", dp_prof)):
+        wall, dev = p["wall_ms"], p["dev_ms"]
+        parts.append(f"{name} {wall / ZOO_STEPS:.2f} ms a step, "
+                     f"{p['ops'] / ZOO_STEPS:.1f} device ops a step, idle "
+                     f"{1 - dev / wall:.1%}, B13 x{p['b13_count'] / ZOO_STEPS:.1f} a step")
+    print(f"[smoke] zero3 (d) profiled epoch (ResNet-18, world {DP_WORLD}, "
+          f"b{ZOO_BATCH}, {ZOO_STEPS} steps): {'; '.join(parts)} (this call, on "
+          f"{card})", flush=True)
 
 
 def momentum_bound_ms(n):
@@ -4936,6 +5094,12 @@ def main() -> int:
     dp_launches = dp_phase(card, zoo_launches)
     dp_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda")[0]
 
+    # -- 4d''. ZeRO-3: the params as resident rows, gathered each step ------
+    z3_launches = zero3_phase(card, zoo_launches)
+    z3_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda",
+                                 args=(3,))[0]
+    report_zero3_epoch(z3_profile, dp_profile, card)
+
     # -- 4d'. the GSPMD zoo path: global BN statistics, the model axis ----
     gspmd_launches, shard_errs = gspmd_phase(card, zoo_launches)
     gspmd_profile = distributed.run(profiled_gspmd_epoch_rank, 1, device="cuda",
@@ -5029,7 +5193,7 @@ def main() -> int:
         "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
                      + serve50_launches + slo_launches + net_launches
-                     + pipe_f32["tap_conv"]),
+                     + pipe_f32["tap_conv"] + z3_launches["tap_conv"]),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5044,7 +5208,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": sum(run["tap_conv_dgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32)),
+            pipe_f32, z3_launches)),
         "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
                            z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
@@ -5055,7 +5219,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
         "launches": sum(run["tap_wgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32)),
+            pipe_f32, z3_launches)),
         "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
                            z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
@@ -5065,13 +5229,15 @@ def main() -> int:
         "source": "parallel_cnn_tpu_torch/csrc/tail_ce.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
         "launches": sum(run["tail_ce"] for run in (
-            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches)),
+            zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
+            z3_launches)),
         # The per-image form at the 10-class heads, the tiled one at the
         # ImageNet head (imagenet (a) reads its launches): the record's
         # times are ResNet-18's head's, the tiled form's beside them.
         "launches_by_form": {
             "image": sum(run["tail_ce"] for run in (
-                zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches))
+                zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
+                z3_launches))
             - img_tiled,
             "tiled": img_tiled},
         "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
@@ -5098,7 +5264,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_update.py:58",
-        "launches": dp_launches["sgd_momentum"] + pipe_b13,
+        "launches": dp_launches["sgd_momentum"] + pipe_b13 + z3_launches["sgd_momentum"],
         "max_abs_err": momentum_err,
         **momentum_times,
     }] + [{

@@ -16,7 +16,11 @@ statistics, each layer's filters split over the model axis where they
 divide), or with ``--mesh-data N --comm-impl psum|ring`` data-parallel over
 explicit collectives (one process a rank; NCCL, one card per rank, or gloo
 with ``--device cpu``), with ``--fused-step`` and the ring as
-update-on-arrival, or with ``--pipeline-stages S`` JAX's 1F1B pipeline
+update-on-arrival (ZeRO-2; ``PCNN_ZERO_LEVEL=3`` ZeRO-3), or with
+``--comm-impl hierarchical [--comm-hosts H]`` over JAX's (host, data) mesh
+of every card (H rows of cards/H; on the CPU H hosts of two gloo ranks)
+through the two-level ring, ZeRO-3 there with ``--fused-step`` and
+``PCNN_ZERO_LEVEL=3``, or with ``--pipeline-stages S`` JAX's 1F1B pipeline
 over a (stage, data) mesh of every card (S stages × cards/S data ranks;
 ``--accum-steps`` microbatches a step, ``--pipeline-split``,
 ``--pipeline-wire-dtype``, ``--pipeline-act-dtype``; on the CPU S gloo
@@ -24,9 +28,12 @@ ranks). LeNet-ref
 takes ``--mesh-data N [--mesh-model M] [--comm-impl psum|ring]``: minibatch
 SGD over an N × M mesh of ranks, data-parallel, with the filters split
 over the model axis when M > 1 (rank 0 prints, records and checkpoints).
-Everything runs on the GPU unless ``--device cpu`` is given. Of the
-trainer flags of later slices, ``--comm-hosts`` and ``--elastic`` are
-typed NotPortedErrors (``--comm-impl`` with a zoo
+Everything runs on the GPU unless ``--device cpu`` is given. JAX's plan
+legality texts carry over (a mode that builds its own mesh beside
+``--mesh-data``, a hierarchical host axis below 2, the ZeRO levels'
+collectives, the pipeline beside the hierarchical ring or ZeRO-3). Of the
+trainer flags of later slices, ``--elastic`` is a typed NotPortedError
+(``--comm-impl`` with a zoo
 model axis is JAX's data-only MeshLayoutError); the trainer's chaos,
 async, trace and profile are not accepted yet. ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
@@ -53,7 +60,12 @@ from typing import List, Optional
 
 from parallel_cnn_tpu_torch.config import (
     CONV_BACKENDS,
+    HIER_HOSTS_ERROR,
+    PIPELINE_HIER_ERROR,
+    PIPELINE_ZERO3_ERROR,
     SERVE_MODELS,
+    ZERO2_RING_ERROR,
+    ZERO3_RING_ERROR,
     ZOO_MODELS,
     CommConfig,
     Config,
@@ -170,10 +182,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--comm-impl", default=None,
                    choices=["psum", "ring", "hierarchical"],
                    help="mesh runs: gradient-collective algorithm "
-                        "(parallel/collectives.py) — one all-reduce, or "
+                        "(parallel/collectives.py) — one all-reduce, "
                         "bucketed ring reduce-scatter/all-gather over the "
-                        "data axis; hierarchical not ported yet (ROADMAP "
-                        "A9). Default: PCNN_COMM_IMPL")
+                        "data axis, or the two-level hierarchical ring over "
+                        "a (host, data) mesh of every card, which it builds "
+                        "(drop --mesh-data). Default: PCNN_COMM_IMPL")
     p.add_argument("--comm-bucket-mb", type=float, default=None, metavar="MB",
                    help="ring collective bucket size in MiB "
                         "(PCNN_COMM_BUCKET_BYTES; default 4)")
@@ -183,8 +196,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "halves the bytes, accumulation stays f32 "
                         "(PCNN_COMM_WIRE_DTYPE)")
     p.add_argument("--comm-hosts", type=int, default=None, metavar="N",
-                   help="--comm-impl hierarchical: host-axis size; not "
-                        "ported yet (ROADMAP A9)")
+                   help="--comm-impl hierarchical: host-axis size H of "
+                        "the (host, data) mesh (>= 2; the cards split into "
+                        "H rows; with --device cpu, H hosts of two gloo "
+                        "ranks) [PCNN_COMM_HOSTS]")
     p.add_argument("--pipeline-stages", type=int, default=None, metavar="S",
                    help="zoo models: pipeline parallelism — partition the "
                         "model's layers over S stages of a (stage, data) "
@@ -215,7 +230,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "kernel (csrc/sgd_update.cu); zoo: the fused loss "
                         "tail (csrc/tail_ce.cu) and, with --mesh-data and "
                         "--comm-impl ring, update-on-arrival through the "
-                        "fused SGD-momentum kernel")
+                        "fused SGD-momentum kernel (ZeRO-2; ZeRO-3 with "
+                        "PCNN_ZERO_LEVEL=3, also over --comm-impl "
+                        "hierarchical)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save ckpt_<epoch>.npz per epoch; --resume restarts "
                         "from the latest")
@@ -276,9 +293,6 @@ def config_from_args(args: argparse.Namespace) -> Config:
 def _refuse_later_slices(args: argparse.Namespace) -> None:
     """JAX's flags whose paths are not ported raise a typed error naming
     the ROADMAP item that brings them."""
-    if args.comm_hosts is not None:
-        raise NotPortedError("--comm-hosts sets the hierarchical ring's host "
-                             "axis, which is not ported yet (ROADMAP A9)")
     if args.elastic:
         raise NotPortedError("--elastic (in-flight re-mesh with ZeRO-3 "
                              "resharding) is not ported yet (ROADMAP A11)")
@@ -289,7 +303,7 @@ def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
     layers them (cli.py:385-400); None when neither sets anything."""
     comm = CommConfig.from_env()
     if (args.comm_impl is not None or args.comm_bucket_mb is not None
-            or args.comm_wire_dtype is not None):
+            or args.comm_wire_dtype is not None or args.comm_hosts is not None):
         base = comm or CommConfig()
         comm = dataclasses.replace(
             base,
@@ -298,8 +312,40 @@ def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
                           if args.comm_bucket_mb is not None
                           else base.bucket_bytes),
             wire_dtype=args.comm_wire_dtype or base.wire_dtype,
+            hosts=args.comm_hosts if args.comm_hosts is not None else base.hosts,
         )
     return comm
+
+
+def _check_plan(args: argparse.Namespace, comm: Optional[CommConfig],
+                fused: Optional[FusedStepConfig],
+                pipeline: Optional[PipelineConfig]) -> None:
+    """JAX's plan legality matrix (plan/__init__.py:294-347) for the knobs
+    the port takes, in its order, each a SystemExit with JAX's text: the
+    pipeline beside the hierarchical ring or ZeRO-3, the hierarchical
+    ring beside explicit mesh axes or below two hosts, ZeRO-2 on the
+    hierarchical ring, ZeRO-3 off the ring. (The pipeline's own mesh-axes
+    refusal is ``_pipeline_from_args``'s; ZeRO-2 without any ring keeps the
+    trainer's fallback to the fused tail.)"""
+    impl = comm.impl if comm is not None else None
+    zero = fused.zero if fused is not None and fused.update else 0
+    explicit_axes = args.mesh_data is not None or (args.mesh_model or 1) > 1
+    if pipeline is not None:
+        if impl == "hierarchical":
+            raise SystemExit(PIPELINE_HIER_ERROR)
+        if zero == 3 and pipeline.stages > 1:
+            raise SystemExit(PIPELINE_ZERO3_ERROR)
+    elif impl == "hierarchical":
+        if explicit_axes:
+            raise SystemExit(MESH_AXES_OWNED_ERROR.format(
+                owner="--comm-impl hierarchical", axes="(host, device)",
+                extra=" (size the host axis with --comm-hosts)"))
+        if comm.hosts is not None and comm.hosts < 2:
+            raise SystemExit(HIER_HOSTS_ERROR.format(hosts=comm.hosts))
+    if zero == 2 and impl == "hierarchical":
+        raise SystemExit(ZERO2_RING_ERROR)
+    if zero == 3 and impl not in ("ring", "hierarchical"):
+        raise SystemExit(ZERO3_RING_ERROR)
 
 
 def _pipeline_from_args(args: argparse.Namespace) -> Optional[PipelineConfig]:
@@ -330,11 +376,14 @@ def _pipeline_from_args(args: argparse.Namespace) -> Optional[PipelineConfig]:
 
 
 def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
-    """PCNN_FUSED_STEP first, then --fused-step; --act-dtype only refines
-    an enabled fused step."""
+    """PCNN_FUSED_STEP first, then --fused-step (with the ZeRO level of
+    PCNN_ZERO_LEVEL, which refines an enabled fused step and alone
+    enables nothing; JAX has no --zero flag); --act-dtype only refines an
+    enabled fused step."""
     fused = FusedStepConfig.from_env()
     if args.fused_step:
-        fused = fused or FusedStepConfig()
+        fused = fused or FusedStepConfig(
+            zero=int(os.environ.get("PCNN_ZERO_LEVEL", "2")))
     if args.act_dtype is not None:
         if fused is None:
             raise SystemExit("--act-dtype refines the fused step; enable it "
@@ -424,12 +473,15 @@ def _run_zoo(args: argparse.Namespace) -> int:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
     _refuse_later_slices(args)
     pipeline = _pipeline_from_args(args)
-    if pipeline is not None:
-        return _run_zoo_pipeline(args, pipeline)
-    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
     comm = _comm_from_args(args)
-    check_comm_mesh(mesh_cfg, comm)
     fused = _fused_from_args(args)
+    _check_plan(args, comm, fused, pipeline)
+    if pipeline is not None:
+        return _run_zoo_pipeline(args, pipeline, comm, fused)
+    if comm is not None and comm.impl == "hierarchical":
+        return _run_zoo_hier(args, comm, fused)
+    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
+    check_comm_mesh(mesh_cfg, comm)
     if args.mesh_data is None and mesh_cfg.model == 1:
         if comm is not None:
             raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
@@ -452,15 +504,33 @@ def _run_zoo(args: argparse.Namespace) -> int:
     return 0
 
 
-def _run_zoo_pipeline(args: argparse.Namespace, pipeline: PipelineConfig) -> int:
+def _run_zoo_hier(args: argparse.Namespace, comm: CommConfig,
+                  fused: Optional[FusedStepConfig]) -> int:
+    """JAX's hierarchical zoo run: the (host, data) mesh over every card,
+    H = ``comm.hosts`` rows of cards // H (one process and one card a rank;
+    more hosts than cards raises MeshSizeError; on the CPU H hosts of
+    ``distributed.CPU_RANKS_PER_HOST`` gloo ranks), JAX's mesh line first;
+    a world of one runs in the calling process."""
+    from parallel_cnn_tpu_torch.parallel import distributed
+
+    n_hosts, n_data = distributed.resolve_hier_shape(comm.hosts, args.device)
+    print(f"mesh: {{'host': {n_hosts}, 'data': {n_data}}} (hierarchical)",
+          flush=True)
+    distributed.run(_zoo_job, n_hosts * n_data, device=args.device,
+                    args=(args, comm, fused), shape=(n_hosts, n_data),
+                    axes=distributed.HIER_AXES)
+    return 0
+
+
+def _run_zoo_pipeline(args: argparse.Namespace, pipeline: PipelineConfig,
+                      comm: Optional[CommConfig],
+                      fused: Optional[FusedStepConfig]) -> int:
     """JAX's pipelined zoo run: the (stage, data) mesh over every card, S
     ranks a data replica (one process and one card each; more stages than
     cards raises MeshSizeError), each rank on its stage; a world of one
     runs in the calling process."""
     from parallel_cnn_tpu_torch.parallel import distributed
 
-    comm = _comm_from_args(args)
-    fused = _fused_from_args(args)
     n_stages, n_data = distributed.resolve_pipeline_shape(pipeline.stages,
                                                           args.device)
     print(f"mesh: {{'stage': {n_stages}, 'data': {n_data}}} (pipeline)",
@@ -570,10 +640,14 @@ def _run_train(argv: List[str]) -> int:
     if args.model != "lenet_ref":
         return _run_zoo(args)
     _refuse_later_slices(args)
-    if _pipeline_from_args(args) is not None:
+    pipeline = _pipeline_from_args(args)
+    comm = _comm_from_args(args)
+    _check_plan(args, comm, None, pipeline)
+    if pipeline is not None or (comm is not None and comm.impl == "hierarchical"):
+        axes = "('stage', 'data')" if pipeline is not None else "('host', 'data')"
         raise ValueError(
             "the reference trainer drives a flat (data, model) mesh only; "
-            "the resolved plan built axes ('stage', 'data') — drop the "
+            f"the resolved plan built axes {axes} — drop the "
             "pipeline/hierarchical knobs for this model")
     cfg = config_from_args(args)
     mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)

@@ -9,12 +9,14 @@ For serving: the fields of ``ServeConfig`` read from the same
 included, and the network front door's ``NetConfig``. For
 observability: ``ObsConfig`` and its ``PCNN_OBS_*`` names.
 
-For the zoo trainer (``train/zoo.py``): ``FusedStepConfig``, f32 only so
-far, and the model and conv-backend names it takes; its other knobs are
+For the zoo trainer (``train/zoo.py``): ``FusedStepConfig`` (ZeRO-2 and
+ZeRO-3), and the model and conv-backend names it takes; its other knobs are
 ``zoo.train``'s keyword arguments, as in the JAX package. For the mesh
 paths: ``MeshConfig`` (the (data, model) mesh; the zoo trainer takes the
-data axis only) and ``CommConfig`` (psum or the bucketed ring, JAX's
-fields, defaults and ``PCNN_COMM_*`` layering); ``Config.comm`` is the
+data axis only) and ``CommConfig`` (psum, the bucketed ring or the
+hierarchical ring, JAX's fields, defaults and ``PCNN_COMM_*`` layering),
+with JAX's legality texts for the modes that build their own mesh and
+for the ZeRO levels; ``Config.comm`` is the
 LeNet-ref mesh step's. ``PipelineConfig`` is JAX's pipeline policy
 (stages, split, wire and act dtypes, ``PCNN_PIPELINE_*``).
 
@@ -210,30 +212,33 @@ class CommConfig:
     """Gradient-collective policy (parallel/collectives.py; JAX's
     ``CommConfig``, config.py:152).
 
-    - ``impl``: "psum" (one all-reduce per gradient leaf) or "ring" (the
+    - ``impl``: "psum" (one all-reduce per gradient leaf), "ring" (the
       grads packed into ``bucket_bytes`` buckets, each reduce-scattered
-      and all-gathered over an explicit ring). "hierarchical" (the
-      two-level host × device ring) is not ported: NotPortedError.
+      and all-gathered over an explicit ring) or "hierarchical" (each
+      bucket through the two-level ring of a (host, device) mesh:
+      intra-host reduce-scatter, inter-host exchange of the surviving
+      chunk, then the two all-gathers; parallel/collectives.py
+      ``hier_*``).
     - ``wire_dtype``: the ring hops' payload dtype, "float32" or
       "bfloat16"; sums stay f32.
     - ``overlap``: with the ring and gradient accumulation, reduce-scatter
       each microbatch's buckets as soon as its grads are final.
+    - ``hosts``: the host axis of the hierarchical mesh; None is one host
+      (the port's ranks all run on one machine). The mesh lays the ranks
+      out as ``hosts`` rows (parallel/mesh.py ``make_hier_mesh``).
     """
 
     impl: str = "psum"
     bucket_bytes: int = 4 * 1024 * 1024
     wire_dtype: str = "float32"
     overlap: bool = True
+    hosts: Optional[int] = None
 
     def __post_init__(self):
         if self.impl not in ("psum", "ring", "hierarchical"):
             raise ValueError(f"unknown comm impl {self.impl!r}")
-        if self.impl == "hierarchical":
-            raise NotPortedError(
-                "comm impl 'hierarchical' (the two-level host x device ring) "
-                "is not ported yet (ROADMAP A9: the hierarchical ring, with "
-                "ZeRO-3); use 'ring' or 'psum'"
-            )
+        if self.hosts is not None and self.hosts < 1:
+            raise ValueError(f"hosts must be >= 1, got {self.hosts}")
         if self.bucket_bytes <= 0:
             raise ValueError(f"bucket_bytes must be > 0, got {self.bucket_bytes}")
         if self.wire_dtype not in ("float32", "bfloat16"):
@@ -244,24 +249,21 @@ class CommConfig:
     @staticmethod
     def from_env() -> Optional["CommConfig"]:
         """CommConfig from PCNN_COMM_IMPL / PCNN_COMM_BUCKET_BYTES /
-        PCNN_COMM_WIRE_DTYPE / PCNN_COMM_OVERLAP, or None when none is set
-        (no explicit collective path). PCNN_COMM_HOSTS belongs to the
-        hierarchical ring, which is not ported: setting it raises."""
+        PCNN_COMM_WIRE_DTYPE / PCNN_COMM_OVERLAP / PCNN_COMM_HOSTS, or None
+        when none is set (no explicit collective path)."""
         e = os.environ.get
-        if e("PCNN_COMM_HOSTS") is not None:
-            raise NotPortedError(
-                "PCNN_COMM_HOSTS sets the hierarchical ring's host axis, "
-                "which is not ported yet (ROADMAP A9)"
-            )
         impl, bucket = e("PCNN_COMM_IMPL"), e("PCNN_COMM_BUCKET_BYTES")
         wire, overlap = e("PCNN_COMM_WIRE_DTYPE"), e("PCNN_COMM_OVERLAP")
-        if impl is None and bucket is None and wire is None and overlap is None:
+        hosts = e("PCNN_COMM_HOSTS")
+        if (impl is None and bucket is None and wire is None and overlap is None
+                and hosts is None):
             return None
         return CommConfig(
             impl=impl or "psum",
             bucket_bytes=int(bucket) if bucket else 4 * 1024 * 1024,
             wire_dtype=wire or "float32",
             overlap=overlap != "0" if overlap is not None else True,
+            hosts=int(hosts) if hosts else None,
         )
 
 
@@ -290,7 +292,10 @@ class FusedStepConfig:
       on overflow, clamped at 1, doubled after ``growth_interval`` clean
       steps; ``FusedOptState.scale``). In f32 the scale is pinned to 1.
     - ``zero``: 2 keeps the momentum as 1/n bucket shards and the params
-      replicated. 3 (params sharded too) is not ported: NotPortedError.
+      replicated; 3 (ZeRO-3, needs ``update``) keeps the params as 1/n
+      bucket shards too, gathered just in time at the head of each step
+      (always f32 on the wire) and updated in place with no trailing
+      all-gather (train/zoo.py ``make_zero3_train_step``).
     """
 
     update: bool = True
@@ -304,11 +309,10 @@ class FusedStepConfig:
     def __post_init__(self):
         if self.zero not in (2, 3):
             raise ValueError(f"zero level must be 2 or 3, got {self.zero}")
-        if self.zero == 3:
-            raise NotPortedError(
-                "fused-step zero=3 (ZeRO-3: params sharded, gathered just in "
-                "time) is not ported yet (ROADMAP A9: ZeRO-3, B13's other "
-                "caller); use zero=2"
+        if self.zero == 3 and not self.update:
+            raise ValueError(
+                "zero=3 shards params into the update-on-arrival path and "
+                "requires update=True"
             )
         if self.act_dtype not in ("float32", "bfloat16"):
             raise ValueError(
@@ -341,6 +345,31 @@ class FusedStepConfig:
 MESH_AXES_OWNED_ERROR = (
     "{owner} builds its own {axes} mesh over all devices; "
     "drop --mesh-data/--mesh-model{extra}"
+)
+
+#: JAX's legality texts for the pipeline, the hierarchical ring and the
+#: ZeRO levels (plan/__init__.py:294-347).
+PIPELINE_HIER_ERROR = (
+    "pipeline gradients reduce over the flat data axis; "
+    "use --comm-impl ring (not hierarchical)"
+)
+PIPELINE_ZERO3_ERROR = (
+    "pipeline composes with ZeRO-2 only: ZeRO-3's "
+    "just-in-time head gathers contradict per-stage param "
+    "residency (docs/pipeline.md)"
+)
+HIER_HOSTS_ERROR = (
+    "hierarchical comm needs a host axis of >= 2 "
+    "(got hosts={hosts}); use --comm-impl ring on "
+    "a single host"
+)
+ZERO2_RING_ERROR = (
+    "ZeRO-2 update-on-arrival rides the flat ring; use "
+    "--comm-impl ring (or zero=3 on a hierarchical mesh)"
+)
+ZERO3_RING_ERROR = (
+    "ZeRO-3 needs the explicit ring or hierarchical collective "
+    "path (--comm-impl ring|hierarchical)"
 )
 
 

@@ -1,6 +1,5 @@
 """Bucketed gradient collectives over a mesh axis: the port of
-``parallel_cnn_tpu/parallel/collectives.py`` without its hierarchical
-(two-level) ring.
+``parallel_cnn_tpu/parallel/collectives.py``.
 
 Buckets. A tree of tensors is packed into fixed-byte 1-D buffers and back,
 exactly. Leaves are grouped by dtype (a bucket never mixes dtypes, so the
@@ -25,7 +24,17 @@ hop's requests are waited on before its result is read: on NCCL the wait
 orders PyTorch's current stream behind NCCL's, so a kernel launched next
 on the current stream sees the received data. ``tree_all_reduce`` picks
 psum (one ``dist.all_reduce`` over the tree packed into one buffer per
-dtype) or the ring, per a ``config.CommConfig``.
+dtype), the ring or the hierarchical ring, per a ``config.CommConfig``.
+
+The hierarchical (two-level) ring over a (host, device) mesh
+(``mesh.HierMesh``; arXiv:1810.11112): ``hier_reduce_scatter`` rings the
+device axis (the ranks of one host), then rings the surviving chunk over
+the host axis, so the links between hosts carry (H−1)/(H·D) of a bucket
+a rank instead of a flat ring's (N−1)/N. Rank (h, d) ends with row
+d·H + h of ``x.view(H·D, -1)``; ``hier_all_gather`` inverts exactly that
+placement, and ``hier_shard_rows`` / ``hier_unshard_rows`` lay a bucket
+out as (H·D, L) rows in rank order (JAX's ``P((host, data))``), so that
+ZeRO-3's resident row of rank r is what the rings deliver to it.
 
 Collectives inside the forward (the GSPMD zoo path, nn/core.py), each an
 autograd Function with its adjoint: ``all_reduce`` (the backward
@@ -46,12 +55,12 @@ from typing import Any, List, Optional, Sequence, Tuple, Union
 import torch
 import torch.distributed as dist
 
-from parallel_cnn_tpu_torch.parallel.mesh import AxisView, DataMesh
+from parallel_cnn_tpu_torch.parallel.mesh import AxisView, DataMesh, HierMesh
 from parallel_cnn_tpu_torch.utils.tree import TreeDef, tree_flatten, tree_unflatten
 
-#: What the collectives run over: the zoo's one-axis mesh, or one axis of
-#: the (data, model) mesh.
-Axis = Union[DataMesh, AxisView]
+#: What the collectives run over: the zoo's one-axis mesh, one axis of a
+#: two-axis mesh, or a (host, data) mesh as the whole world.
+Axis = Union[DataMesh, AxisView, HierMesh]
 
 DEFAULT_BUCKET_BYTES = 4 * 1024 * 1024  # PCNN_COMM_BUCKET_BYTES default
 
@@ -327,6 +336,61 @@ def ring_all_reduce(x: torch.Tensor, mesh: Axis,
     return ring_all_gather(shard, mesh, wire_dtype)
 
 
+# ---------------------------------------------------------------------------
+# Hierarchical (two-level) collectives over a (host, device) mesh
+# ---------------------------------------------------------------------------
+
+
+def hier_reduce_scatter(x: torch.Tensor, host: Axis, dev: Axis,
+                        wire_dtype=None) -> torch.Tensor:
+    """Two-level reduce-scatter: the ring over the device axis, then the
+    ring of the surviving chunk over the host axis. Rank (h, d) returns the
+    summed row ``d·H + h`` of ``x.view(H·D, -1)``."""
+    local = ring_reduce_scatter(x, dev, wire_dtype)
+    return ring_reduce_scatter(local, host, wire_dtype)
+
+
+def hier_all_gather(shard: torch.Tensor, host: Axis, dev: Axis,
+                    wire_dtype=None) -> torch.Tensor:
+    """Exact inverse of ``hier_reduce_scatter``: the all-gather over the
+    host axis rebuilds each rank's device chunk, then the all-gather over
+    the device axis the whole bucket."""
+    chunk = ring_all_gather(shard, host, wire_dtype)
+    return ring_all_gather(chunk, dev, wire_dtype)
+
+
+def hier_all_reduce(x: torch.Tensor, host: Axis, dev: Axis,
+                    wire_dtype=None) -> torch.Tensor:
+    """Hierarchical all-reduce of a 1-D bucket (reduce-scatter, then
+    all-gather, each over both levels)."""
+    shard = hier_reduce_scatter(x, host, dev, wire_dtype)
+    return hier_all_gather(shard, host, dev, wire_dtype)
+
+
+def hier_shard_rows(bucket: torch.Tensor, n_host: int, n_dev: int) -> torch.Tensor:
+    """A 1-D bucket as (n_host·n_dev, L) rows in rank order (JAX's
+    ``P((host, data))``): row ``h·n_dev + d`` is the chunk the hierarchical
+    rings place on rank (h, d), row ``d·n_host + h`` of the natural
+    reshape. With n_host = 1, ``bucket.view(n_dev, -1)`` (the flat ring's
+    layout)."""
+    if bucket.shape[0] % (n_host * n_dev):
+        raise ValueError(
+            f"bucket of {bucket.shape[0]} elements does not divide over "
+            f"{n_host}x{n_dev} shards")
+    if n_host == 1:
+        return bucket.reshape(n_dev, -1)
+    return (bucket.reshape(n_dev, n_host, -1).transpose(0, 1)
+            .reshape(n_host * n_dev, -1))
+
+
+def hier_unshard_rows(rows: torch.Tensor, n_host: int, n_dev: int) -> torch.Tensor:
+    """Exact inverse of ``hier_shard_rows``: the rows back to the 1-D
+    bucket."""
+    if n_host == 1:
+        return rows.reshape(-1)
+    return rows.reshape(n_host, n_dev, -1).transpose(0, 1).reshape(-1)
+
+
 def all_reduce_sum(t: torch.Tensor, mesh: Axis) -> torch.Tensor:
     """JAX's ``psum`` of one buffer over an axis: the sum over its ranks,
     in place (over one rank, ``t`` as it is)."""
@@ -357,36 +421,59 @@ def wire_dtype_arg(comm) -> Optional[str]:
     return comm.wire_dtype
 
 
-def tree_all_reduce(tree: Any, mesh: Axis, comm=None) -> Any:
-    """SUM-allreduce a tree over an axis, per the comm config.
+def tree_all_reduce(tree: Any, mesh: Axis, comm=None, *,
+                    host: Optional[Axis] = None) -> Any:
+    """SUM-allreduce a tree over an axis, per the comm config; with
+    ``host`` (the host axis of a (host, device) mesh, ``mesh`` its device
+    axis) over both axes.
 
     ``comm=None`` or impl "psum": the leaves packed into one buffer per
-    dtype and one ``dist.all_reduce`` each (JAX's monolithic ``lax.psum``).
-    impl "ring": the tree bucketed (``comm.bucket_bytes``, padded to the
-    axis size) and each bucket through ``ring_all_reduce``, optionally
-    bf16 on the wire."""
+    dtype and one ``dist.all_reduce`` each (JAX's monolithic ``lax.psum``),
+    over the device axis and then the host axis. impl "ring": the tree
+    bucketed (``comm.bucket_bytes``, padded to the axis size) and each
+    bucket through ``ring_all_reduce``, optionally bf16 on the wire. impl
+    "hierarchical": the buckets padded to H·D shards, each through
+    ``hier_all_reduce``."""
     if comm is None or comm.impl == "psum":
         plan = plan_buckets(tree, sys.maxsize)
-        return unflatten_buckets(
-            [all_reduce_sum(b, mesh) for b in flatten_buckets(tree, plan)], plan)
+        buckets = [all_reduce_sum(b, mesh) for b in flatten_buckets(tree, plan)]
+        if host is not None:
+            buckets = [all_reduce_sum(b, host) for b in buckets]
+        return unflatten_buckets(buckets, plan)
+    wire = wire_dtype_arg(comm)
+    if comm.impl == "hierarchical":
+        if host is None:
+            raise ValueError(
+                "impl='hierarchical' needs a (host, device) mesh — pass "
+                "host= (mesh.make_hier_mesh builds the mesh)")
+        plan = plan_buckets(tree, comm.bucket_bytes, shards=host.size * mesh.size)
+        buckets = [hier_all_reduce(b, host, mesh, wire)
+                   for b in flatten_buckets(tree, plan)]
+        return unflatten_buckets(buckets, plan)
     if comm.impl != "ring":
         raise ValueError(f"unknown comm impl {comm.impl!r}")
-    wire = wire_dtype_arg(comm)
     plan = plan_buckets(tree, comm.bucket_bytes, shards=mesh.size)
     buckets = [ring_all_reduce(b, mesh, wire) for b in flatten_buckets(tree, plan)]
     return unflatten_buckets(buckets, plan)
 
 
 def reduce_scatter_buckets(buckets: Sequence[torch.Tensor], mesh: Axis,
-                           wire_dtype=None) -> List[torch.Tensor]:
+                           wire_dtype=None, *,
+                           host: Optional[Axis] = None) -> List[torch.Tensor]:
     """Reduce-scatter each bucket: this rank's shard of each. The buckets
-    must be planned with ``shards=mesh.size``."""
+    must be planned with ``shards=mesh.size``; with ``host`` the two-level
+    ring runs instead of the flat one (``shards=host.size·mesh.size``)."""
+    if host is not None:
+        return [hier_reduce_scatter(b, host, mesh, wire_dtype) for b in buckets]
     return [ring_reduce_scatter(b, mesh, wire_dtype) for b in buckets]
 
 
 def all_gather_buckets(shards: Sequence[torch.Tensor], mesh: Axis,
-                       wire_dtype=None) -> List[torch.Tensor]:
+                       wire_dtype=None, *,
+                       host: Optional[Axis] = None) -> List[torch.Tensor]:
     """Inverse of ``reduce_scatter_buckets``: the full buckets again."""
+    if host is not None:
+        return [hier_all_gather(s, host, mesh, wire_dtype) for s in shards]
     return [ring_all_gather(s, mesh, wire_dtype) for s in shards]
 
 

@@ -6,8 +6,9 @@ bring-up, and of the device mesh JAX builds inside one process).
 ``run(fn, world, device=...)`` calls ``fn(mesh, *args)`` on every rank and
 returns each rank's result, rank 0's first. ``mesh`` is the rank's
 ``DataMesh`` or, with ``shape=(data, model)``, its ``Mesh2D``, or with
-``shape=(stages, data), axes=PIPELINE_AXES`` its ``PipelineMesh`` (the axis
-groups made on every rank). The rendezvous is explicit: a
+``shape=(stages, data), axes=PIPELINE_AXES`` its ``PipelineMesh``, or with
+``shape=(hosts, data), axes=HIER_AXES`` its ``HierMesh`` (the axis groups
+made on every rank). The rendezvous is explicit: a
 ``file://`` store in a fresh temporary directory, with the world size and
 each rank given by the launcher; nothing is read from the environment.
 The backend is NCCL on cuda, rank r on ``cuda:r``, and gloo on the CPU.
@@ -37,8 +38,10 @@ import torch.distributed as dist
 from parallel_cnn_tpu_torch.config import MeshConfig
 from parallel_cnn_tpu_torch.parallel.mesh import (
     DATA_AXIS,
+    HOST_AXIS,
     STAGE_AXIS,
     DataMesh,
+    make_hier_mesh,
     make_mesh_2d,
     make_pipeline_mesh,
 )
@@ -47,9 +50,15 @@ from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 #: How long a collective may wait for a peer before the group gives up.
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
 
-#: The axes of a (data, model) mesh and of a (stage, data) pipeline mesh.
+#: The axes of a (data, model) mesh, of a (stage, data) pipeline mesh and
+#: of a (host, data) hierarchical mesh.
 MESH_AXES = (DATA_AXIS, "model")
 PIPELINE_AXES = (STAGE_AXIS, DATA_AXIS)
+HIER_AXES = (HOST_AXIS, DATA_AXIS)
+
+#: Gloo ranks a host of the hierarchical mesh on the CPU (``--device cpu``
+#: emulates H hosts of this many ranks on one machine).
+CPU_RANKS_PER_HOST = 2
 
 
 class MeshSizeError(ValueError):
@@ -103,6 +112,32 @@ def resolve_pipeline_shape(n_stages: int, device: DeviceLike = None) -> Tuple[in
     return n_stages, cards // n_stages
 
 
+def resolve_hier_shape(hosts: Optional[int], device: DeviceLike = None
+                       ) -> Tuple[int, int]:
+    """(hosts, data) of JAX's ``make_hier_mesh(hosts)`` over every visible
+    card: H rows of D = cards // H, one NCCL rank a card (``hosts`` None
+    is one host: every card in one row). On the CPU, H hosts of
+    ``CPU_RANKS_PER_HOST`` gloo ranks each. More hosts than cards raises
+    MeshSizeError; a host count that does not divide the cards, JAX's
+    ValueError."""
+    n_hosts = 1 if hosts is None else hosts
+    if n_hosts < 1:
+        raise ValueError(f"hosts must be >= 1, got {n_hosts}")
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        return n_hosts, CPU_RANKS_PER_HOST
+    cards = torch.cuda.device_count()
+    if n_hosts > cards:
+        raise MeshSizeError(
+            f"--comm-hosts {n_hosts} needs at least {n_hosts} cards (a rank a "
+            f"card) but {cards} {'is' if cards == 1 else 'are'} visible: NCCL "
+            "takes one rank per card (no oversubscription, no CPU fallback)")
+    if cards % n_hosts:
+        raise ValueError(
+            f"host axis {n_hosts} does not divide device count {cards}")
+    return n_hosts, cards // n_hosts
+
+
 def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
     """The number of ranks for ``mesh`` on ``device``: data × model (see
     ``resolve_shape``)."""
@@ -126,6 +161,8 @@ def _init_rank(rank: int, world: int, init_method: str, device_type: str,
         return DataMesh(world=world, rank=rank, device=device)
     if axes == PIPELINE_AXES:
         return make_pipeline_mesh(rank, world, device, shape[0])
+    if axes == HIER_AXES:
+        return make_hier_mesh(rank, world, device, shape[0])
     return make_mesh_2d(rank, world, device, *shape)
 
 
@@ -157,7 +194,8 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
     """``fn(mesh, *args)`` on each of ``world`` ranks; their results in rank
     order. ``shape=(data, model)`` (data × model == world) gives each rank
     its ``Mesh2D``, ``shape=(stages, data)`` with ``axes=PIPELINE_AXES`` its
-    ``PipelineMesh``, no shape a ``DataMesh``. ``fn`` and ``args`` must pickle (a
+    ``PipelineMesh``, ``shape=(hosts, data)`` with ``axes=HIER_AXES`` its
+    ``HierMesh``, no shape a ``DataMesh``. ``fn`` and ``args`` must pickle (a
     module-level function) when ``world > 1``. Raises what a rank raised,
     or TimeoutError after ``timeout`` seconds (the ranks are stopped either
     way)."""
@@ -165,7 +203,7 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
         raise ValueError(f"world must be >= 1, got {world}")
     if shape is not None and shape[0] * shape[1] != world:
         raise ValueError(f"a {shape[0]}x{shape[1]} mesh is not a world of {world}")
-    if axes not in (MESH_AXES, PIPELINE_AXES):
+    if axes not in (MESH_AXES, PIPELINE_AXES, HIER_AXES):
         raise ValueError(f"unknown mesh axes {axes}")
     dev = resolve_device(device)
     if dev.type == "cuda" and world > torch.cuda.device_count():

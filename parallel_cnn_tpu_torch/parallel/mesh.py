@@ -22,6 +22,15 @@ starts them), and a mesh object is what one rank knows of the whole.
   hold the other stages of its data replica), its ``data`` axis the
   rank's row (the replicas of its stage).
 
+- ``HierMesh``: JAX's ``(host, data)`` mesh of the hierarchical ring
+  (``make_hier_mesh``): the world's ranks as H rows of D = world // H,
+  rank r = h·D + d on host h at device index d (JAX's ``reshape(n_hosts,
+  n // n_hosts)``). Its ``host`` axis is the rank's column (the ranks with
+  the same d, one on each host), its ``data`` axis the rank's row (the
+  ranks of its host). It is also an axis view over the whole world (JAX's
+  reduction over both axes, ``(host, data)``), and its ``shard_rows``
+  takes block r of H·D (JAX's ``P((host, data))``).
+
 A ``DataMesh`` is an axis view of its own (``size``, ``index``, ``ranks``,
 ``group``): the collectives of parallel/collectives.py take either. A
 ``DataMesh`` may also stand for one line of a larger mesh (``line``,
@@ -160,8 +169,9 @@ def make_mesh_2d(rank: int, world: int, device: torch.device, n_data: int,
     )
 
 
-#: The pipeline mesh's axis names, in JAX's order (parallel/mesh.py).
-STAGE_AXIS, DATA_AXIS = "stage", "data"
+#: The pipeline and hierarchical meshes' axis names, in JAX's order
+#: (parallel/mesh.py).
+STAGE_AXIS, DATA_AXIS, HOST_AXIS = "stage", "data", "host"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -219,11 +229,95 @@ def make_pipeline_mesh(rank: int, world: int, device: torch.device,
 def pipeline_axis_sizes(mesh) -> Tuple[int, int]:
     """(n_stages, n_data) of a ``make_pipeline_mesh`` mesh."""
     if not isinstance(mesh, PipelineMesh):
-        axes = ("data", "model") if isinstance(mesh, Mesh2D) else ("data",)
         raise ValueError(
-            f"mesh {axes} has no {STAGE_AXIS!r} axis — build it with "
-            "make_pipeline_mesh")
+            f"mesh {_axis_names(mesh)} has no {STAGE_AXIS!r} axis — build it "
+            "with make_pipeline_mesh")
     return mesh.stage.size, mesh.data.size
+
+
+@dataclasses.dataclass(frozen=True)
+class HierMesh:
+    """One rank's view of the (host, data) mesh of the hierarchical ring,
+    and an axis view over the whole world (``size``, ``index``, ``ranks``,
+    ``group``: the default group)."""
+
+    world: int
+    rank: int
+    device: torch.device
+    host: AxisView
+    data: AxisView
+
+    @property
+    def shape(self):
+        """JAX's ``dict(mesh.shape)``: ``{'host': H, 'data': D}``."""
+        return {HOST_AXIS: self.host.size, DATA_AXIS: self.data.size}
+
+    # The axis-view interface: the whole world, in rank order.
+    @property
+    def size(self) -> int:
+        return self.world
+
+    @property
+    def index(self) -> int:
+        return self.rank
+
+    @property
+    def ranks(self) -> Tuple[int, ...]:
+        return tuple(range(self.world))
+
+    @property
+    def group(self):
+        return None
+
+    def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global batch: block h·D + d of H·D (JAX's
+        ``P((host, data))``)."""
+        return _rows(x, self.rank, self.world)
+
+
+def make_hier_mesh(rank: int, world: int, device: torch.device,
+                   n_hosts: int) -> HierMesh:
+    """This rank's view of JAX's ``make_hier_mesh(n_hosts)`` over ``world``
+    ranks: H = ``n_hosts`` rows of D = world // H, rank r = h·D + d. Every
+    rank calls it after ``init_process_group`` (it makes the axis groups,
+    the host columns then the data rows, in the same order on every
+    rank)."""
+    if n_hosts < 1 or world % n_hosts != 0:
+        raise ValueError(
+            f"host axis {n_hosts} does not divide device count {world}")
+    if not 0 <= rank < world:
+        raise ValueError(f"rank {rank} outside a world of {world}")
+    n_data = world // n_hosts
+    h, d = divmod(rank, n_data)
+    host_lines = [tuple(hh * n_data + dd for hh in range(n_hosts))
+                  for dd in range(n_data)]
+    data_lines = [tuple(hh * n_data + dd for dd in range(n_data))
+                  for hh in range(n_hosts)]
+    groups = _axis_groups((host_lines, data_lines), world)
+    return HierMesh(
+        world=world, rank=rank, device=device,
+        host=AxisView(n_hosts, h, host_lines[d], groups.get(host_lines[d])),
+        data=AxisView(n_data, d, data_lines[h], groups.get(data_lines[h])),
+    )
+
+
+def _axis_names(mesh) -> Tuple[str, ...]:
+    if isinstance(mesh, Mesh2D):
+        return (DATA_AXIS, "model")
+    if isinstance(mesh, PipelineMesh):
+        return (STAGE_AXIS, DATA_AXIS)
+    if isinstance(mesh, HierMesh):
+        return (HOST_AXIS, DATA_AXIS)
+    return (DATA_AXIS,)
+
+
+def hier_axis_sizes(mesh) -> Tuple[int, int]:
+    """(n_hosts, n_devices_per_host) of a ``make_hier_mesh`` mesh."""
+    if not isinstance(mesh, HierMesh):
+        raise ValueError(
+            f"mesh {_axis_names(mesh)} has no {HOST_AXIS!r} axis — build it "
+            "with make_hier_mesh")
+    return mesh.host.size, mesh.data.size
 
 
 def as_mesh_2d(mesh) -> Mesh2D:

@@ -1,9 +1,11 @@
 """Last-good checkpoint ring and bounded auto-rollback (the port's
-``parallel_cnn_tpu/resilience/rollback.py``, unsharded trees only).
+``parallel_cnn_tpu/resilience/rollback.py``).
 
 - ``CheckpointRing`` — a pruned on-disk ring over train/checkpoint.py's
   atomic .npz files: keep the newest ``keep``, restore the newest one that
-  loads (a torn or corrupt file is logged and skipped).
+  loads (a torn or corrupt file is logged and skipped). ``saver`` swaps
+  the writer (the ZeRO-3 trainer's ``checkpoint.save_sharded``), and
+  ``restore_latest_sharded`` reads such a ring.
 - ``RollbackController`` — commit() snapshots the last state the sentinel
   judged healthy; rollback() hands back a fresh copy, counts against
   ``max_rollbacks`` (RetriesExhaustedError past it) and exposes the
@@ -38,12 +40,16 @@ def tree_copy(tree: Any) -> Any:
 
 class CheckpointRing:
     """Bounded ring of ``<prefix><tag>.npz`` checkpoints in a directory;
-    ``keep <= 0`` disables pruning."""
+    ``keep <= 0`` disables pruning. ``saver`` is the write hook, with
+    ``checkpoint.save``'s ``(path, tree, state)`` signature (None:
+    ``checkpoint.save``)."""
 
-    def __init__(self, directory: str, keep: int = 3, prefix: str = "ckpt_"):
+    def __init__(self, directory: str, keep: int = 3, prefix: str = "ckpt_",
+                 saver=None):
         self.directory = directory
         self.keep = keep
         self.prefix = prefix
+        self.saver = saver
 
     def path_for(self, tag: int) -> str:
         return os.path.join(self.directory, f"{self.prefix}{tag}.npz")
@@ -66,7 +72,7 @@ class CheckpointRing:
 
     def save(self, tag: int, params, state=None) -> str:
         path = self.path_for(tag)
-        _checkpoint().save(path, params, state)
+        (self.saver or _checkpoint().save)(path, params, state)
         self._prune()
         return path
 
@@ -88,6 +94,21 @@ class CheckpointRing:
                 return params, state, path
             except ValueError as e:
                 log.warning("skipping unusable checkpoint %s: %s", path, e)
+        return None
+
+    def restore_latest_sharded(self, like) -> Optional[Tuple[Any, Any, dict, str]]:
+        """(view, state, zero3 metadata, path) from the newest sharded
+        checkpoint that loads into ``like`` (a ``zero3_full_view``-shaped
+        tree), or None: the twin of ``restore_latest`` for a ring that
+        ``save_sharded`` wrote, which ``restore`` refuses. Unreadable,
+        unsharded or mismatched files are logged and skipped."""
+        for tag in self.tags():
+            path = self.path_for(tag)
+            try:
+                view, state, zmeta = _checkpoint().restore_sharded(path, like)
+                return view, state, zmeta, path
+            except ValueError as e:
+                log.warning("skipping unusable sharded checkpoint %s: %s", path, e)
         return None
 
 

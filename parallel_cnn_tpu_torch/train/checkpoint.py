@@ -7,7 +7,14 @@ One .npz per checkpoint: the params tree flattened to '/'-joined key paths
 rename), so a killed process never leaves a torn checkpoint. A file either
 package writes, the other reads: ``restore`` here reads what JAX's
 ``checkpoint.save`` wrote, and JAX's ``restore`` reads what ``save`` here
-writes. A ZeRO-3 sharded checkpoint is refused with a typed error.
+writes.
+
+A ZeRO-3 checkpoint (``save_sharded``) holds the world-size-independent
+full view of the state (train/zoo.py ``zero3_full_view``: ``params/…``,
+``model_state/…``, ``mom/…`` trees and the loss-scale scalars) and a
+``zero3`` entry in the metadata (the writer's world size, bucket budget
+and rank), JAX's keys and marker: ``restore_sharded`` reads it for any
+world, and ``restore`` and ``load_params`` refuse it with JAX's text.
 
 The zoo trainer saves its whole state through the same two functions: the
 tree it passes is ``train.zoo.ZooState.arrays()``, a flat dict whose keys
@@ -35,6 +42,25 @@ import torch
 from parallel_cnn_tpu_torch.utils.tree import tree_flatten, tree_paths, tree_unflatten
 
 FORMAT_VERSION = 1
+
+
+class ShardedCheckpointError(ValueError):
+    """A ZeRO-3 sharded checkpoint could not serve the requesting mesh
+    (JAX's type and message): a ValueError that names the file, the rank
+    that wrote it and the world size it was written at."""
+
+    def __init__(self, message: str, *, path: str,
+                 rank: Optional[int] = None,
+                 world_size: Optional[int] = None):
+        coords = [f"path={path!r}"]
+        if rank is not None:
+            coords.append(f"writer rank={rank}")
+        if world_size is not None:
+            coords.append(f"expected world size={world_size}")
+        super().__init__(f"{message} [{', '.join(coords)}]")
+        self.path = path
+        self.rank = rank
+        self.world_size = world_size
 
 
 @dataclass
@@ -70,15 +96,32 @@ def _write_atomic(path: str, params, meta: Dict[str, Any]) -> None:
         raise
 
 
-def save(path: str, params, state: Optional[TrainState] = None) -> None:
-    """Atomically write params (+ train state) to `path` (.npz)."""
+def _meta_for(state: Optional[TrainState]) -> Dict[str, Any]:
     state = state or TrainState()
-    _write_atomic(path, params, {
+    return {
         "version": FORMAT_VERSION,
         "epoch": state.epoch,
         "epoch_errors": state.epoch_errors,
         "extra": state.extra,
-    })
+    }
+
+
+def save(path: str, params, state: Optional[TrainState] = None) -> None:
+    """Atomically write params (+ train state) to `path` (.npz)."""
+    _write_atomic(path, params, _meta_for(state))
+
+
+def save_sharded(path: str, view, state: Optional[TrainState] = None, *,
+                 world_size: int, bucket_bytes: int, rank: int = 0) -> None:
+    """Atomically write a ZeRO-3 training state's full view (train/zoo.py
+    ``zero3_full_view``: world-size independent, not the resident rows,
+    whose padding bakes the world size in) with JAX's ``zero3`` marker:
+    the world size and bucket budget that produced it and the writer's
+    ``rank``. ``restore_sharded`` re-shards it for any mesh."""
+    meta = _meta_for(state)
+    meta["zero3"] = {"world_size": world_size, "bucket_bytes": bucket_bytes,
+                     "rank": rank}
+    _write_atomic(path, view, meta)
 
 
 def _read_arrays(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
@@ -104,32 +147,33 @@ def _read_arrays(path: str) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
 
 def _reject_sharded(path: str, meta: Dict[str, Any], reader: str) -> None:
     if meta.get("zero3"):
+        z = meta["zero3"]
         raise ValueError(
             f"{path!r} is a sharded (ZeRO-3) checkpoint (world_size="
-            f"{meta['zero3'].get('world_size')}); {reader} reads unsharded "
-            f"trees only"
+            f"{z.get('world_size')}), use restore_sharded — "
+            f"{reader} reads unsharded trees only"
         )
 
 
-def restore(path: str, like) -> Tuple[Any, TrainState]:
-    """Load a checkpoint into the structure of `like` (a params tree of
-    tensors); each leaf lands on its `like` leaf's device.
+def _train_state(meta: Dict[str, Any]) -> TrainState:
+    return TrainState(epoch=meta["epoch"],
+                      epoch_errors=list(meta["epoch_errors"]),
+                      extra=dict(meta["extra"]))
 
-    The stored keys, shapes and dtypes must match `like` exactly: a renamed
-    layer or changed shape is a hard error, not a partial load."""
-    stored, meta = _read_arrays(path)
-    _reject_sharded(path, meta, "restore")
+
+def _mismatch(stored, keys) -> Optional[str]:
+    if set(stored) == set(keys):
+        return None
+    return (f"missing={sorted(set(keys) - set(stored))} "
+            f"surplus={sorted(set(stored) - set(keys))}")
+
+
+def _load_like(stored: Dict[str, np.ndarray], like):
+    """``like``'s tree with each leaf read from ``stored`` under its path,
+    on its ``like`` leaf's device; shapes and dtypes must match."""
     like_leaves, treedef = tree_flatten(like)
-    keys = tree_paths(like)
-    if set(stored) != set(keys):
-        missing = set(keys) - set(stored)
-        surplus = set(stored) - set(keys)
-        raise ValueError(
-            f"checkpoint structure mismatch: missing={sorted(missing)} "
-            f"surplus={sorted(surplus)}"
-        )
     leaves = []
-    for key, leaf in zip(keys, like_leaves):
+    for key, leaf in zip(tree_paths(like), like_leaves):
         a = stored[key]
         want = leaf.detach().cpu().numpy()
         if a.shape != want.shape or a.dtype != want.dtype:
@@ -138,12 +182,62 @@ def restore(path: str, like) -> Tuple[Any, TrainState]:
                 f"{want.shape}/{want.dtype}"
             )
         leaves.append(torch.from_numpy(np.array(a, copy=True)).to(leaf.device))
-    state = TrainState(
-        epoch=meta["epoch"],
-        epoch_errors=list(meta["epoch_errors"]),
-        extra=dict(meta["extra"]),
-    )
-    return tree_unflatten(treedef, leaves), state
+    return tree_unflatten(treedef, leaves)
+
+
+def restore(path: str, like) -> Tuple[Any, TrainState]:
+    """Load a checkpoint into the structure of `like` (a params tree of
+    tensors); each leaf lands on its `like` leaf's device.
+
+    The stored keys, shapes and dtypes must match `like` exactly: a renamed
+    layer or changed shape is a hard error, not a partial load. A ZeRO-3
+    sharded checkpoint raises JAX's "use restore_sharded" error."""
+    stored, meta = _read_arrays(path)
+    _reject_sharded(path, meta, "restore")
+    bad = _mismatch(stored, tree_paths(like))
+    if bad:
+        raise ValueError(f"checkpoint structure mismatch: {bad}")
+    return _load_like(stored, like), _train_state(meta)
+
+
+def load_params(path: str, like):
+    """Inference-only restore (JAX's ``load_params``): ``like``'s leaves
+    out of a checkpoint, without the TrainState; surplus stored keys (an
+    optimizer's state) are ignored, missing ones and mismatched shapes
+    raise. A ZeRO-3 sharded checkpoint raises JAX's "use restore_sharded"
+    error."""
+    stored, meta = _read_arrays(path)
+    _reject_sharded(path, meta, "load_params")
+    missing = set(tree_paths(like)) - set(stored)
+    if missing:
+        raise ValueError(
+            f"checkpoint {path!r} lacks required leaves: {sorted(missing)}")
+    return _load_like(stored, like)
+
+
+def restore_sharded(path: str, like) -> Tuple[Any, TrainState, Dict[str, Any]]:
+    """Load a ZeRO-3 sharded checkpoint's full view into the structure of
+    ``like`` (a ``zero3_full_view``-shaped tree): (view, TrainState, the
+    ``zero3`` metadata). The view does not depend on the world that wrote
+    it; ``zoo.zero3_from_view`` lays it out for this run's mesh. An
+    unsharded file, or a view that does not match ``like``, raises
+    ``ShardedCheckpointError``."""
+    stored, meta = _read_arrays(path)
+    if not meta.get("zero3"):
+        raise ShardedCheckpointError(
+            "not a sharded checkpoint (no zero3 metadata) — "
+            "use restore/load_params", path=path)
+    z = meta["zero3"]
+    where = dict(path=path, rank=z.get("rank"), world_size=z.get("world_size"))
+    bad = _mismatch(stored, tree_paths(like))
+    if bad:
+        raise ShardedCheckpointError(
+            f"sharded checkpoint structure mismatch: {bad}", **where)
+    try:
+        view = _load_like(stored, like)
+    except ValueError as e:
+        raise ShardedCheckpointError(str(e), **where) from e
+    return view, _train_state(meta), dict(z)
 
 
 def latest(directory: str, prefix: str = "ckpt_") -> Optional[str]:

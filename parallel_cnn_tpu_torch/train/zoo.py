@@ -85,12 +85,33 @@ data)`` mesh (``PipelineMesh``) is JAX's 1F1B path
 ``accum_steps`` microbatches through the schedule a step, the data axis
 the ring, the optimizer or the ZeRO-2 tail.
 
-Not here (ROADMAP): ZeRO-3 and the hierarchical ring (A9), elastic and
-chaos, the per-step sentinel cadence, profiling.
+The hierarchical ring. On a ``(host, data)`` mesh (``HierMesh``) the
+batch shards over both axes (rank r takes block r), ``comm.impl=
+"hierarchical"`` reduces each bucket through the two-level ring
+(parallel/collectives.py ``hier_*``) and "psum" over the whole world; the
+flat ring is refused there, as in JAX.
+
+ZeRO-3 (``FusedStepConfig(zero=3)``, JAX's ``make_zero3_train_step``,
+zoo.py:918-1128). The parameters live as this rank's ``(1, L)`` row of
+each bucket, as the momentum does (``Zero3Params``, rows in
+``hier_shard_rows`` order, so a rank's row is the chunk its ring
+delivers). Each step all-gathers every bucket into the module's
+parameters (f32 on the wire), reduce-scatters each microbatch's
+gradients, agrees on finiteness, updates the resident rows with one B13
+launch over all buckets and gathers nothing after: the module's parameter
+storage is released after the update and refilled at the next head, so
+between steps a rank holds 1/n of the parameters. Evaluation and
+checkpoints gather them (``zero3_params``, ``zero3_full_view``: every
+rank calls them); a checkpoint is JAX's sharded file, the full view that
+``zero3_from_view`` lays out for any mesh.
+
+Not here (ROADMAP): elastic and chaos, the per-step sentinel cadence,
+profiling.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import math
@@ -115,7 +136,13 @@ from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.nn.core import whole
 from parallel_cnn_tpu_torch.ops import sgd_update, tail
 from parallel_cnn_tpu_torch.parallel import collectives, zoo_sharding
-from parallel_cnn_tpu_torch.parallel.mesh import DataMesh, Mesh2D, PipelineMesh, as_mesh_2d
+from parallel_cnn_tpu_torch.parallel.mesh import (
+    DataMesh,
+    HierMesh,
+    Mesh2D,
+    PipelineMesh,
+    as_mesh_2d,
+)
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
     CheckpointRing,
@@ -272,31 +299,52 @@ class FusedOptState:
 
 
 @dataclasses.dataclass
+class Zero3Params:
+    """A ZeRO-3 state's parameters (JAX's ``ZooState.params`` of
+    ``init_zero3_state``): this rank's ``(1, L)`` f32 row of each bucket of
+    ``plan`` (the params in JAX's order, padded to ``plan.shards`` =
+    H·D), row r of ``hier_shard_rows`` on rank r."""
+
+    rows: List[torch.Tensor]
+    plan: collectives.BucketPlan
+
+
+@dataclasses.dataclass
 class ZooState:
     """The model (parameters and BN buffers), the momentum trace per
     parameter name and the schedule count: what a step updates. With
     ``fused`` the optimizer state is a ``FusedOptState`` instead of the
-    trace and count; ``mesh`` is the rank's data axis, which a fused
-    state's checkpoint gathers over, or the GSPMD path's ``Mesh2D`` with
-    ``plan``, the model's placement on it (parallel/zoo_sharding.py): the
-    parameters, BN buffers and traces are then this rank's shards."""
+    trace and count; ``mesh`` is the rank's data axis (or its
+    ``HierMesh``), which a fused state's checkpoint gathers over, or the
+    GSPMD path's ``Mesh2D`` with ``plan``, the model's placement on it
+    (parallel/zoo_sharding.py): the parameters, BN buffers and traces are
+    then this rank's shards. With ``zero3`` the parameters are the rows
+    of ``Zero3Params``, and the module's parameters hold no storage
+    between steps."""
 
     model: nn.Module
     optimizer: SGD
     trace: Dict[str, torch.Tensor]
     count: int = 0
     fused: Optional[FusedOptState] = None
-    mesh: Optional[Union[DataMesh, Mesh2D]] = None
+    mesh: Optional[Union[DataMesh, Mesh2D, HierMesh]] = None
     plan: Optional[zoo_sharding.ShardPlan] = None
+    zero3: Optional[Zero3Params] = None
 
     def arrays(self) -> Dict[str, torch.Tensor]:
         """The live tensors under the JAX package's checkpoint keys (a
-        fused state's momentum as this rank's rows)."""
+        fused state's momentum as this rank's rows; a ZeRO-3 state's
+        parameters as its rows, ``.params/<b>``)."""
         buffers = {n for n, _ in self.model.named_buffers()}
         out = {}
         for key, t in self.model.state_dict().items():
-            tree = ".model_state/" if key in buffers else ".params/"
-            out[tree + _jax_path(key)] = t
+            if key in buffers:
+                out[".model_state/" + _jax_path(key)] = t
+            elif self.zero3 is None:
+                out[".params/" + _jax_path(key)] = t
+        if self.zero3 is not None:
+            for b, row in enumerate(self.zero3.rows):
+                out[f".params/{b}"] = row
         if self.fused is not None:
             for b, row in enumerate(self.fused.mom):
                 out[f"{MOM_KEY}{b}"] = row
@@ -314,8 +362,10 @@ class ZooState:
         """``arrays()`` as a checkpoint holds them: each momentum block
         whole, ``(n_data, L)``, its rows gathered from every rank; each
         leaf split over a model axis whole, gathered in the rank's model
-        row. Every rank calls it (a collective when the world is larger
-        than one)."""
+        row; a ZeRO-3 state's full view (``zero3_full_view``). Every rank
+        calls it (a collective when the world is larger than one)."""
+        if self.zero3 is not None:
+            return zero3_full_view(self)
         out = self.arrays()
         plan = self.plan
         if plan is not None and plan.split:
@@ -409,6 +459,200 @@ def init_fused_state(model: nn.Module, optimizer: SGD, *, mesh: DataMesh,
         skipped=torch.zeros((), dtype=torch.int32, device=dev),
     )
     return ZooState(model, optimizer, {}, fused=opt, mesh=mesh), plan.n_buckets
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3: the parameters as resident bucket rows
+# ---------------------------------------------------------------------------
+
+
+def _mesh_shape(mesh: Union[DataMesh, HierMesh]) -> Tuple[int, int]:
+    """(H, D) of the batch-parallel mesh: a ``HierMesh``'s axes, or one
+    host of the data axis."""
+    if isinstance(mesh, HierMesh):
+        return mesh.host.size, mesh.data.size
+    return 1, mesh.world
+
+
+def _ring_axes(mesh: Union[DataMesh, HierMesh]):
+    """(device axis, host axis or None) the bucket collectives take."""
+    if isinstance(mesh, HierMesh):
+        return mesh.data, mesh.host
+    return mesh, None
+
+
+def _release_params(params: Sequence[torch.Tensor]) -> None:
+    """Free each parameter's storage, keeping the parameter itself (its
+    shape, its place in the module, autograd's leaf)."""
+    for p in params:
+        p.data.untyped_storage().resize_(0)
+
+
+def _fill_params(params: Sequence[torch.Tensor],
+                 values: Sequence[torch.Tensor]) -> None:
+    """Give each released parameter its storage back and copy its value
+    in (under no_grad; the copy moves each parameter's version, which
+    caches keyed on it, such as the eval BN fold, read)."""
+    for p in params:
+        p.data.untyped_storage().resize_(p.numel() * p.element_size())
+    _copy_into(list(params), values)
+
+
+def _own_storage(params: Sequence[torch.Tensor]) -> None:
+    """Make every parameter the sole, compact owner of its storage, so
+    that releasing it frees exactly its bytes."""
+    for p in params:
+        if (p.storage_offset() or not p.is_contiguous()
+                or p.untyped_storage().nbytes() != p.numel() * p.element_size()):
+            p.data = p.data.clone()
+
+
+def _rows_of(buckets: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """This rank's ``(1, L)`` row of each bucket, copied out (a view would
+    keep the whole bucket alive)."""
+    n_host, n_data = _mesh_shape(mesh)
+    r = mesh.rank
+    return [collectives.hier_shard_rows(b, n_host, n_data)[r:r + 1].clone()
+            for b in buckets]
+
+
+def _full_buckets(rows: Sequence[torch.Tensor], mesh) -> List[torch.Tensor]:
+    """Each bucket whole on every rank, all-gathered from the ranks'
+    ``(1, L)`` rows over the mesh's ring (the flat ring, or a
+    ``HierMesh``'s two-level ring: the exact inverse of the placement that
+    ``hier_shard_rows`` lays out), always f32 on the wire. A collective:
+    every rank calls it."""
+    axis, host = _ring_axes(mesh)
+    return collectives.all_gather_buckets([r[0] for r in rows], axis, None, host=host)
+
+
+def _gather_params(params: Sequence[torch.Tensor], z3: "Zero3Params", mesh) -> None:
+    """Just-in-time gathering: the resident rows into the module's
+    (released) parameters, in JAX's order."""
+    with torch.no_grad():
+        _fill_params(params, collectives.unflatten_buckets(
+            _full_buckets(z3.rows, mesh), z3.plan))
+
+
+def init_zero3_state(model: nn.Module, optimizer: SGD, *,
+                     mesh: Union[DataMesh, HierMesh], fused: FusedStepConfig,
+                     bucket_bytes: int) -> Tuple[ZooState, collectives.BucketPlan]:
+    """(ZooState for the ZeRO-3 step, its bucket plan), as JAX's
+    ``init_zero3_state`` (zoo.py:809-848): the parameters (JAX's order)
+    planned into buckets padded to H·D shards, this rank's ``(1, L)`` row
+    of each kept (``hier_shard_rows`` order), zero momentum in the same
+    rows, the loss scale at ``fused.loss_scale`` for bf16 and 1 for f32.
+    The module's parameter storage is released: the step gathers it."""
+    params = [p for _, p in jax_ordered_params(model)]
+    n_host, n_data = _mesh_shape(mesh)
+    plan = collectives.plan_buckets(params, bucket_bytes, shards=n_host * n_data)
+    with torch.no_grad():
+        rows = _rows_of(collectives.flatten_buckets(params, plan), mesh)
+    dev = params[0].device
+    scale0 = fused.loss_scale if fused.act_dtype == "bfloat16" else 1.0
+    opt = FusedOptState(
+        mom=[torch.zeros_like(r, dtype=torch.float32) for r in rows],
+        scale=torch.tensor(scale0, dtype=torch.float32, device=dev),
+        good_steps=torch.zeros((), dtype=torch.int32, device=dev),
+        skipped=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    _own_storage(params)
+    _release_params(params)
+    return (ZooState(model, optimizer, {}, fused=opt, mesh=mesh,
+                     zero3=Zero3Params(rows, plan)), plan)
+
+
+def _param_paths(model: nn.Module) -> List[str]:
+    return [_jax_path(n) for n, _ in jax_ordered_params(model)]
+
+
+def zero3_full_params(state: ZooState) -> Dict[str, torch.Tensor]:
+    """The parameters whole, by JAX path (``3/main/0/conv/w``), gathered
+    from every rank's rows (JAX's ``zero3_full_params``, there a reshuffle
+    of one global array, here an all-gather over the world: every rank
+    calls it). Exact."""
+    z3 = state.zero3
+    full = collectives.unflatten_buckets(_full_buckets(z3.rows, state.mesh), z3.plan)
+    return dict(zip(_param_paths(state.model), full))
+
+
+def zero3_full_view(state: ZooState) -> Dict[str, torch.Tensor]:
+    """The world-size-independent view of a ZeRO-3 state (JAX's
+    ``zero3_full_view``), under JAX's keys: ``params/<path>``,
+    ``model_state/<path>`` (the BN statistics), ``mom/<path>`` (the
+    momentum unflattened through the params' plan, so its leaves mirror
+    the params), ``scale``, ``good_steps``, ``skipped``. What
+    ``checkpoint.save_sharded`` writes; ``zero3_from_view`` lays it out
+    for any mesh, bit for bit. A collective: every rank calls it."""
+    z3, opt = state.zero3, state.fused
+    paths = _param_paths(state.model)
+    mom = collectives.unflatten_buckets(_full_buckets(opt.mom, state.mesh), z3.plan)
+    view = {f"params/{k}": v for k, v in zero3_full_params(state).items()}
+    buffers = {n for n, _ in state.model.named_buffers()}
+    view.update({f"model_state/{_jax_path(k)}": t.detach().clone()
+                 for k, t in state.model.state_dict().items() if k in buffers})
+    view.update({f"mom/{k}": v for k, v in zip(paths, mom)})
+    view.update(scale=opt.scale.clone(), good_steps=opt.good_steps.clone(),
+                skipped=opt.skipped.clone())
+    return view
+
+
+def zero3_from_view(state: ZooState, view: Dict[str, torch.Tensor]) -> None:
+    """Load a full view (``zero3_full_view``, from any world) into the
+    ZeRO-3 ``state`` for its own mesh, in place (JAX's
+    ``zero3_from_view``): the params and momentum flattened through the
+    state's plan and this rank's rows taken, the BN statistics and the
+    loss-scale scalars copied. Keys and shapes must match the state's
+    model exactly."""
+    z3, opt, model = state.zero3, state.fused, state.model
+    named = jax_ordered_params(model)
+    buffers = {n for n, _ in model.named_buffers()}
+    want = {f"{tree}/{_jax_path(n)}": tuple(p.shape)
+            for n, p in named for tree in ("params", "mom")}
+    bufs = {k: t for k, t in model.state_dict().items() if k in buffers}
+    want.update({f"model_state/{_jax_path(k)}": tuple(t.shape) for k, t in bufs.items()})
+    want.update(scale=(), good_steps=(), skipped=())
+    if set(view) != set(want):
+        raise ValueError(
+            f"zero3 view mismatch: missing={sorted(set(want) - set(view))} "
+            f"surplus={sorted(set(view) - set(want))}")
+    for k, shape in want.items():
+        if tuple(view[k].shape) != shape:
+            raise ValueError(f"zero3 view leaf '{k}' is {tuple(view[k].shape)}, "
+                             f"expected {shape}")
+    dev = opt.scale.device
+
+    def leaves(tree):
+        return [torch.as_tensor(view[f"{tree}/{_jax_path(n)}"]).to(dev, torch.float32)
+                for n, _ in named]
+
+    with torch.no_grad():
+        z3.rows = _rows_of(collectives.flatten_buckets(leaves("params"), z3.plan),
+                           state.mesh)
+        opt.mom = _rows_of(collectives.flatten_buckets(leaves("mom"), z3.plan),
+                           state.mesh)
+        for k, t in bufs.items():
+            t.copy_(torch.as_tensor(view[f"model_state/{_jax_path(k)}"]))
+    opt.scale = torch.as_tensor(view["scale"]).to(dev, torch.float32).clone()
+    opt.good_steps = torch.as_tensor(view["good_steps"]).to(dev, torch.int32).clone()
+    opt.skipped = torch.as_tensor(view["skipped"]).to(dev, torch.int32).clone()
+
+
+@contextlib.contextmanager
+def zero3_params(state: ZooState):
+    """The module's parameters whole inside the block (a ZeRO-3 state's
+    rows all-gathered into them, for evaluation), released after. A
+    collective: every rank enters it. A state without ZeRO-3 is left as
+    it is."""
+    if state.zero3 is None:
+        yield state.model
+        return
+    params = [p for _, p in jax_ordered_params(state.model)]
+    _gather_params(params, state.zero3, state.mesh)
+    try:
+        yield state.model
+    finally:
+        _release_params(params)
 
 
 # ---------------------------------------------------------------------------
@@ -703,12 +947,28 @@ def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
     BatchNorm normalises over the rank's microbatch (per-shard statistics,
     not SyncBN); the running statistics and the loss are averaged over
     ranks; the grads are divided by ``accum_steps · n``; then the
-    optimizer runs on every rank alike."""
-    if comm.impl not in ("psum", "ring"):
+    optimizer runs on every rank alike.
+
+    On a ``HierMesh`` (JAX's zoo.py:433-461) the batch shards over both
+    axes, "hierarchical" runs each bucket through the two-level ring
+    (the overlap schedule too), "psum" reduces over both axes, and the
+    flat "ring" is refused."""
+    hier = isinstance(mesh, HierMesh)
+    if comm.impl == "hierarchical" and not hier:
+        raise ValueError(
+            "comm.impl='hierarchical' needs a (host, device) mesh — build "
+            "it with mesh.make_hier_mesh (comm.hosts / PCNN_COMM_HOSTS "
+            "emulates the host axis inside one process)")
+    if comm.impl == "ring" and hier:
+        raise ValueError(
+            "comm.impl='ring' is the flat single-axis ring; on a "
+            "(host, device) mesh use impl='hierarchical' (or 'psum')")
+    if comm.impl not in ("psum", "ring", "hierarchical"):
         raise ValueError(f"unknown comm impl {comm.impl!r}")
     n = mesh.world
+    axis, host = _ring_axes(mesh)
     wire = collectives.wire_dtype_arg(comm)
-    overlap = comm.impl == "ring" and comm.overlap and accum_steps > 1
+    overlap = comm.impl != "psum" and comm.overlap and accum_steps > 1
     loss_fn = _build_loss_fn(model, fused)
     scale = _static_scale(fused)
     names, params = zip(*jax_ordered_params(model))
@@ -731,7 +991,8 @@ def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
             with torch.no_grad():
                 if overlap:
                     shards = collectives.reduce_scatter_buckets(
-                        collectives.flatten_buckets(grads, plan), mesh, wire)
+                        collectives.flatten_buckets(grads, plan), axis, wire,
+                        host=host)
                     shard_acc = shards if shard_acc is None else [
                         a + b for a, b in zip(shard_acc, shards)]
                 elif gsum is None:
@@ -741,9 +1002,10 @@ def _make_comm_step(model: nn.Module, optimizer: SGD, accum_steps: int,
         with torch.no_grad():
             if overlap:
                 grads = collectives.unflatten_buckets(
-                    collectives.all_gather_buckets(shard_acc, mesh, wire), plan)
+                    collectives.all_gather_buckets(shard_acc, axis, wire,
+                                                   host=host), plan)
             else:
-                grads = collectives.tree_all_reduce(gsum, mesh, comm)
+                grads = collectives.tree_all_reduce(gsum, axis, comm, host=host)
             # Each microbatch's grads are a mean over the rank's rows; the
             # collective summed over n ranks.
             grads = torch._foreach_div(list(grads), float(accum_steps * n))
@@ -853,6 +1115,116 @@ def make_fused_train_step(model: nn.Module, *, lr: float, momentum: float,
     return step
 
 
+def make_zero3_train_step(model: nn.Module, *, lr: float, momentum: float,
+                          accum_steps: int, mesh: Union[DataMesh, HierMesh],
+                          augment_pad: Optional[int], comm: CommConfig,
+                          fused: FusedStepConfig,
+                          plan: collectives.BucketPlan) -> Callable:
+    """ZeRO-3 (JAX's ``make_zero3_train_step``, zoo.py:918-1128):
+    step(state, x, y, aug=None) → loss, ``state`` from ``init_zero3_state``
+    (or laid out by ``zero3_from_view``) for ``mesh`` and ``plan``.
+
+    The head all-gathers every bucket from the ranks' resident rows,
+    always in f32 (the master weights; ``comm.wire_dtype`` compresses
+    gradients only), over the flat ring (a ``DataMesh``, "ring") or the
+    two-level ring (a ``HierMesh``, "hierarchical"), into the module's
+    parameters. The microbatch loop reduce-scatters each microbatch's
+    gradient buckets and sums the shards. One all-reduce MIN agrees on
+    finiteness; then ONE fused SGD-momentum launch over all buckets
+    (ops/sgd_update.py) updates this rank's parameter and momentum rows,
+    which are the next step's resident state: no trailing all-gather, and
+    the module's parameter storage is released. On overflow every rank
+    keeps its rows, momentum and BN statistics bit for bit and counts the
+    skip; the BN statistics and the loss are averaged over the world; with
+    bf16 the dynamic scale moves as in ``make_fused_train_step``."""
+    if comm is None or comm.impl not in ("ring", "hierarchical"):
+        raise ValueError(
+            "ZeRO-3 requires the explicit bucketed collectives — "
+            "comm.impl='ring' or 'hierarchical'")
+    hier = isinstance(mesh, HierMesh)
+    if comm.impl == "hierarchical" and not hier:
+        raise ValueError(
+            "comm.impl='hierarchical' needs a (host, device) mesh — build "
+            "it with mesh.make_hier_mesh")
+    if comm.impl == "ring" and hier:
+        raise ValueError(
+            "comm.impl='ring' is the flat single-axis ring; on a "
+            "(host, device) mesh use impl='hierarchical'")
+    n_total = mesh.world
+    if plan.shards != n_total:
+        raise ValueError(
+            f"bucket plan was laid out for {plan.shards} shards but the "
+            f"mesh has {n_total} batch-parallel devices — rebuild with "
+            "init_zero3_state/zero3_from_view for this mesh")
+    axis, host = _ring_axes(mesh)
+    wire = collectives.wire_dtype_arg(comm)
+    loss_fn = _build_loss_fn(model, fused)
+    dynamic = fused.act_dtype == "bfloat16"
+    params = [p for _, p in jax_ordered_params(model)]
+    buf_plan = collectives.plan_buckets([b for _, b in model.named_buffers()],
+                                        sys.maxsize)
+
+    def step(state: ZooState, x, y, aug=None):
+        if state.zero3 is None or state.zero3.plan != plan:
+            raise ValueError(
+                "the ZeRO-3 step takes the state that init_zero3_state (or "
+                "zero3_from_view) laid out for its plan")
+        x, y = _rank_batch(mesh, x, y, aug, augment_pad)
+        m = state.model
+        m.train()
+        opt, z3 = state.fused, state.zero3
+        scale = opt.scale
+        bufs = [b for _, b in m.named_buffers()]
+        old_bufs = collectives.flatten_buckets(bufs, buf_plan)
+        _gather_params(params, z3, mesh)
+        mb = _microbatch(x, accum_steps)
+        lsum = torch.zeros((), dtype=torch.float32, device=x.device)
+        shard_acc = None
+        for i in range(accum_steps):
+            sl = slice(i * mb, (i + 1) * mb)
+            loss = loss_fn(m, x[sl], y[sl])
+            grads = list(torch.autograd.grad(loss * scale, params))
+            lsum = lsum + loss.detach()  # the unscaled loss, for reporting
+            with torch.no_grad():
+                shards = collectives.reduce_scatter_buckets(
+                    collectives.flatten_buckets(grads, plan), axis, wire, host=host)
+                shard_acc = shards if shard_acc is None else [
+                    a + b for a, b in zip(shard_acc, shards)]
+            del grads
+        with torch.no_grad():
+            _release_params(params)
+            finite = torch.stack([torch.isfinite(s).all() for s in shard_acc]).all()
+            ok_i = finite.to(torch.int32)
+            if n_total > 1:
+                dist.all_reduce(ok_i, op=dist.ReduceOp.MIN, group=mesh.group)
+            ok = ok_i > 0
+            gscale = 1.0 / (scale * (accum_steps * n_total))
+            pshards = [r[0] for r in z3.rows]
+            mshards = [mom[0] for mom in opt.mom]
+            p_news, m_news = sgd_update.fused_sgd_momentum_buckets(
+                pshards, mshards, shard_acc, lr=lr, momentum=momentum, scale=gscale)
+            z3.rows = [torch.where(ok, p_new, psh)[None]
+                       for psh, p_new in zip(pshards, p_news)]
+            opt.mom = [torch.where(ok, m_new, msh)[None]
+                       for msh, m_new in zip(mshards, m_news)]
+            new_bufs = [collectives.all_reduce_sum(b, mesh) / n_total
+                        for b in collectives.flatten_buckets(bufs, buf_plan)]
+            _copy_into(bufs, collectives.unflatten_buckets(
+                [torch.where(ok, new, old) for new, old in zip(new_bufs, old_bufs)],
+                buf_plan))
+            loss = _mean_loss(lsum, accum_steps, mesh)
+            if dynamic:
+                new_scale = torch.where(ok, scale, torch.clamp_min(scale * fused.backoff, 1.0))
+                good = torch.where(ok, opt.good_steps + 1, torch.zeros_like(opt.good_steps))
+                grow = good >= fused.growth_interval
+                opt.scale = torch.where(grow, new_scale * 2.0, new_scale)
+                opt.good_steps = torch.where(grow, torch.zeros_like(good), good)
+            opt.skipped = opt.skipped + (1 - ok_i)
+        return loss
+
+    return step
+
+
 def evaluate(model: nn.Module, images: torch.Tensor, labels: torch.Tensor,
              batch_size: int = 256, data=None) -> float:
     """Accuracy (%) of ``model`` in eval mode over an on-device split, in
@@ -935,7 +1307,7 @@ def train(
     augment: bool = False,
     augment_pad: int = 4,
     accum_steps: int = 1,
-    mesh: Optional[Union[DataMesh, Mesh2D, PipelineMesh]] = None,
+    mesh: Optional[Union[DataMesh, Mesh2D, PipelineMesh, HierMesh]] = None,
     model_axis: bool = False,
     comm: Optional[CommConfig] = None,
     fused: Optional[FusedStepConfig] = None,
@@ -984,6 +1356,17 @@ def train(
     over the world. Under update-on-arrival the sentinel treats a skipped
     overflow as handled (``Sentinel.check_scaled``).
 
+    On a ``HierMesh`` (with a ``comm``: "hierarchical" or "psum") each
+    rank trains on its block of the global batch over both axes.
+    ``fused.zero=3`` with the ring or the hierarchical ring is ZeRO-3
+    (``make_zero3_train_step``): the parameters live as each rank's bucket
+    rows; every rank takes part in evaluation's and the checkpoint's
+    gathers (``zero3_params``, ``zero3_full_view``); the checkpoint is
+    JAX's sharded file (``checkpoint.save_sharded``) and resume lays its
+    full view out for this run's mesh (``restore_sharded``,
+    ``zero3_from_view``). ZeRO-2 on a hierarchical mesh, and ZeRO-3 beside
+    the pipeline, raise JAX's errors.
+
     ``pipeline`` (a ``config.PipelineConfig``; ``mesh`` this rank's
     ``PipelineMesh``) is JAX's 1F1B pipeline (``make_pipeline_step``):
     ``accum_steps`` is the microbatch count, the data axis reduces over
@@ -1011,6 +1394,9 @@ def train(
             raise ValueError(
                 "pipeline training does not thread augmentation keys "
                 "through the 1F1B schedule yet — drop --augment")
+    if isinstance(mesh, HierMesh) and comm is None:
+        raise ValueError("a (host, data) mesh runs the explicit collectives: "
+                         "pass comm (hierarchical or psum)")
     gspmd = mesh is not None and comm is None and not pipe
     if model_axis and not gspmd:
         raise ValueError("model_axis filter sharding is the GSPMD path: it "
@@ -1034,18 +1420,31 @@ def train(
                          f"{n_data} data ranks"
                          + (f" × {accum_steps} microbatches" if gspmd else ""))
     if fused is not None and fused.update:
-        if mesh is None or comm is None or comm.impl != "ring":
+        if mesh is None or comm is None or comm.impl not in ("ring", "hierarchical"):
             if verbose:
                 print("fused-step: update-on-arrival needs mesh + "
                       "comm.impl='ring'/'hierarchical'; falling back to "
                       "fused tail only")
-            fused = dataclasses.replace(fused, update=False)
+            # zero=3 requires update=True: the fallback drops both.
+            fused = dataclasses.replace(fused, update=False, zero=2)
+        elif comm.impl == "hierarchical" and fused.zero != 3:
+            raise ValueError(
+                "ZeRO-2 update-on-arrival rides the flat ring; on a "
+                "hierarchical mesh use fused.zero=3 (whose resident "
+                "shards follow the two-level ring), or comm.impl='ring' "
+                "on a flat mesh")
         elif lr_schedule != "constant" or warmup_steps or weight_decay:
             raise ValueError(
                 "fused.update supports constant-LR SGD(+momentum) only — "
                 "lr schedules/warmup/weight decay need the optax path "
                 "(set update=False)")
     use_fused_update = fused is not None and fused.update
+    use_zero3 = use_fused_update and fused.zero == 3
+    if pipe and use_zero3:
+        raise ValueError(
+            "pipeline composes with ZeRO-2 only: ZeRO-3's just-in-"
+            "time head gathers contradict per-stage param residency "
+            "(docs/pipeline.md)")
     if pipe and fused is not None and not use_fused_update:
         # The fused tail and bf16 cast ride the flat step's loss, which
         # the per-stage schedule replaces (bf16 stage compute is
@@ -1071,6 +1470,12 @@ def train(
             accum_steps=accum_steps, mesh=mesh, pipeline=pipeline,
             in_shape=tuple(images.shape[1:]), comm=comm,
             fused=fused if use_fused_update else None, lr=lr, momentum=momentum)
+    elif use_zero3:
+        state, z3_plan = init_zero3_state(model, optimizer, mesh=mesh, fused=fused,
+                                          bucket_bytes=comm.bucket_bytes)
+        step = make_zero3_train_step(
+            model, lr=lr, momentum=momentum, accum_steps=accum_steps,
+            mesh=mesh, augment_pad=pad, comm=comm, fused=fused, plan=z3_plan)
     elif use_fused_update:
         state, _ = init_fused_state(model, optimizer, mesh=mesh, fused=fused,
                                     bucket_bytes=comm.bucket_bytes)
@@ -1090,8 +1495,17 @@ def train(
         controller = RollbackController(max_rollbacks=res.max_rollbacks)
     ring = None
     if checkpoint_dir and lead:
+        saver = None
+        if use_zero3:
+            # The ring's files carry the full view (every rank gathered it),
+            # marked sharded: resume lays it out for its own mesh, and
+            # restore / load_params refuse it.
+            saver = lambda path, view, tstate: checkpoint.save_sharded(  # noqa: E731
+                path, view, tstate, world_size=world, bucket_bytes=comm.bucket_bytes,
+                rank=rank)
         ring = CheckpointRing(checkpoint_dir,
-                              keep=res.ring_size if res is not None else 0)
+                              keep=res.ring_size if res is not None else 0,
+                              saver=saver)
 
     start_epoch = 0
     losses: List[float] = []
@@ -1099,8 +1513,13 @@ def train(
     if checkpoint_dir and resume:
         path = checkpoint.latest(checkpoint_dir)
         if path:
-            arrays, tstate = checkpoint.restore(path, state.checkpoint_arrays())
-            state.load(arrays)
+            if use_zero3:
+                view, tstate, _ = checkpoint.restore_sharded(
+                    path, state.checkpoint_arrays())
+                zero3_from_view(state, view)
+            else:
+                arrays, tstate = checkpoint.restore(path, state.checkpoint_arrays())
+                state.load(arrays)
             start_epoch = tstate.epoch
             losses = list(tstate.epoch_errors)
             accs = list(tstate.extra.get("epoch_accs", []))
@@ -1126,7 +1545,7 @@ def train(
         # Under update-on-arrival a non-finite gradient the step already
         # skipped (skip counter advanced, masters finite) is handled.
         nonlocal skip_seen
-        params = list(state.model.parameters())
+        params = state.zero3.rows if use_zero3 else list(state.model.parameters())
         if not use_fused_update:
             return sentinel.check(loss=loss_val, params=params)
         now = int(state.fused.skipped)
@@ -1192,9 +1611,12 @@ def train(
                 controller.commit(last_good)
         losses.append(mean_loss)
         seconds = time.perf_counter() - t0
-        if ev is not None:
-            accs.append(evaluate(state.eval_model(), *ev, batch_size=eval_batch_size,
-                                 data=mesh.data if gspmd else None))
+        if eval_data is not None:
+            with zero3_params(state):  # ZeRO-3: every rank gathers
+                if ev is not None:
+                    accs.append(evaluate(state.eval_model(), *ev,
+                                         batch_size=eval_batch_size,
+                                         data=mesh.data if gspmd else None))
         if metrics is not None and lead:
             rec = dict(event="zoo_epoch", epoch=epoch + 1, loss=losses[-1],
                        seconds=seconds)

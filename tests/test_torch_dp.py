@@ -406,12 +406,19 @@ def test_cli_trains_update_on_arrival_over_two_gloo_ranks(tmp_path):
 
 
 @pytest.mark.parametrize("argv,err,match", [
-    (["--comm-impl", "hierarchical"], NotPortedError, "hierarchical"),
+    # The hierarchical ring builds its own (host, device) mesh: JAX's plan
+    # refuses --mesh-data beside it.
+    (["--comm-impl", "hierarchical"], SystemExit, re.escape(
+        "--comm-impl hierarchical builds its own (host, device) mesh over all "
+        "devices; drop --mesh-data/--mesh-model (size the host axis with "
+        "--comm-hosts)")),
     # A zoo model axis is the GSPMD path; the explicit collectives refuse
     # it with JAX's data-only error.
     (["--mesh-model", "2", "--comm-impl", "ring"], MeshLayoutError,
      "data-parallel only"),
-    (["--comm-hosts", "2"], NotPortedError, "A9"),
+    # JAX runs --comm-hosts 2 beside a flat mesh (psum, the host axis
+    # unused); a host axis below one is JAX's CommConfig error.
+    (["--comm-hosts", "0"], ValueError, "hosts must be >= 1, got 0"),
     # The pipeline builds its own (stage, data) mesh: JAX's plan refuses
     # --mesh-data beside it.
     (["--pipeline-stages", "2"], SystemExit, r"builds its own \(stage, data\) mesh"),
@@ -424,16 +431,17 @@ def test_cli_refuses_unported_paths(argv, err, match):
 
 
 def test_typed_config_errors():
-    with pytest.raises(NotPortedError, match="hierarchical"):
-        CommConfig(impl="hierarchical")
+    with pytest.raises(ValueError, match="hosts must be >= 1, got 0"):
+        CommConfig(hosts=0)
     # A zoo model axis is JAX's GSPMD path; only the explicit collectives
     # (comm) refuse it, with JAX's data-only error.
     assert MeshConfig(data=2, model=2).model == 2
     assert check_comm_mesh(MeshConfig(data=2, model=2), None) is None
     with pytest.raises(MeshLayoutError, match=re.escape(COMM_DATA_ONLY_ERROR)):
         check_comm_mesh(MeshConfig(data=2, model=2), CommConfig(impl="ring"))
-    with pytest.raises(NotPortedError, match="zero=3"):
-        FusedStepConfig(zero=3)
+    with pytest.raises(ValueError, match="zero=3 shards params into the "
+                       "update-on-arrival path and requires update=True"):
+        FusedStepConfig(update=False, zero=3)
     with pytest.raises(ValueError, match="zero level"):
         FusedStepConfig(zero=1)
 

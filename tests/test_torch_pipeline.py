@@ -52,7 +52,7 @@ from parallel_cnn_tpu.train import zoo as jax_zoo
 from parallel_cnn_tpu.train.pipeline_schedule import make_pipeline_step as jax_make_pipeline_step
 from parallel_cnn_tpu.train.pipeline_schedule import stage_plan as jax_stage_plan
 from parallel_cnn_tpu_torch import cli, convert
-from parallel_cnn_tpu_torch.config import FusedStepConfig, NotPortedError, PipelineConfig
+from parallel_cnn_tpu_torch.config import FusedStepConfig, PipelineConfig
 from parallel_cnn_tpu_torch.nn import cifar, resnet, vgg
 from parallel_cnn_tpu_torch.parallel import distributed
 from parallel_cnn_tpu_torch.parallel import pipeline as pp
@@ -289,9 +289,12 @@ def test_zoo_train_pipeline_fences():
         zoo.train(ranks.small_model(), X, Y, mesh=mesh, model_axis=True, **kw)
     with pytest.raises(ValueError, match="does not thread augmentation keys"):
         zoo.train(ranks.small_model(), X, Y, mesh=mesh, augment=True, **kw)
-    # ZeRO-3 is refused where the port makes its config.
-    with pytest.raises(NotPortedError, match="ZeRO-3"):
-        FusedStepConfig(update=True, zero=3)
+    # ZeRO-3 is refused beside the pipeline, with JAX's text.
+    with pytest.raises(ValueError, match=re.escape(
+            "pipeline composes with ZeRO-2 only: ZeRO-3's just-in-time head "
+            "gathers contradict per-stage param residency")):
+        zoo.train(ranks.small_model(), X, Y, mesh=mesh, comm=ranks.RING,
+                  fused=ranks.fused_zero3(), **kw)
 
 
 # ---------------------------------------------------------------------------
