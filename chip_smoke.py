@@ -100,6 +100,18 @@ port's two paths through their user-facing entry points:
   microbatch, B10/B11 launches exact at each stage's convs, the ZeRO-2
   tail through B13 and a bf16 case through the tensor-core forms; each
   stage's time beside the bubble share.
+- elastic ZeRO-3 (elastic (a)-(b)) on ResNet-18 at b128, world 1: the CLI
+  with --elastic, a schedule entry and a chaos resize@ that both clamp to
+  the one reachable rank and are skipped as JAX logs them, exact launches
+  (zero3 (a)'s), a falling loss, the trace and metrics JSON; the
+  controller called directly: a zero-step resize bit for bit, three steps
+  after it bit-identical to three without, the ring fallback bit for bit.
+- async data parallelism (async (a)-(b)) on LeNet-ref b64, four workers,
+  the gradients through B1: stale S=0 against the synchronous schedule,
+  stale S=2 under a straggler against the plain ops, EASGD's center
+  learning, one B1 launch a gradient; the CLI's two modes.
+- the trainer's chaos and obs (chaos (a)): the LeNet-ref trainer with
+  nan@ under --sentinel rollback, the rollback journaled, B1 once a step.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -120,6 +132,7 @@ exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import copy
@@ -129,10 +142,12 @@ import gc
 import io
 import itertools
 import json
+import logging
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from unittest import mock
 
@@ -3606,6 +3621,24 @@ def slo_cli(card, ckpt) -> int:
     return launches
 
 
+class _FirstRetireScaler(AutoScaler):
+    """slo (f)'s scaler: its loop ends in the tick that retires the first
+    replica, so what the phase reads is the state at that retire. A
+    retire's drain can outlast the cooldown, after which a scaler left
+    running may scale up again on the crowd's window."""
+
+    def __init__(self, *a, **kw):
+        super().__init__(*a, **kw)
+        self.retired = threading.Event()
+
+    def _scale_down(self, now):
+        acted = super()._scale_down(now)
+        if acted is not None:
+            self._stop.set()
+            self.retired.set()
+        return acted
+
+
 def slo_phase(card, ckpt, host) -> int:
     """slo (a)-(f): JAX's serving control plane on full-width ResNet-18 from
     the serve phase's checkpoint, every conv through B10. Each part holds
@@ -3672,17 +3705,17 @@ def slo_phase(card, ckpt, host) -> int:
     tap_conv.launches.reset()
     pool, batcher = serve_stack(get("resnet18"), cfg, device="cuda", seed=1, obs=bundle)
     batcher.stats.attach_registry(bundle.registry)
-    scaler = AutoScaler(pool, batcher, min_replicas=1, max_replicas=2, slo_ms=cfg.slo_ms,
-                        interval_s=0.05, cooldown_s=0.25, obs=bundle)
+    scaler = _FirstRetireScaler(pool, batcher, min_replicas=1, max_replicas=2,
+                                slo_ms=cfg.slo_ms, interval_s=0.05, cooldown_s=0.25,
+                                obs=bundle)
     scaler.attach_registry(bundle.registry)
     mem0 = engine_bytes()
     with batcher, scaler:
         report, idle = profiled_scenario("flash-crowd", batcher, 1)
         ups = scaler.snapshot()["scale_ups"]
-        deadline = time.monotonic() + SLO_SCALE_WAIT_S
-        while scaler.snapshot()["scale_downs"] < 1 and time.monotonic() < deadline:
-            time.sleep(0.05)
-    snap = scaler.snapshot()
+        scaler.retired.wait(SLO_SCALE_WAIT_S)
+        scaler.close()  # its loop ended at the first retire; join it
+        snap = scaler.snapshot()
     slo_line("(f) autoscale", report, idle, card)
     retired = [i for _, d, i in scaler.actions if d == "down"]
     mem1 = engine_bytes()
@@ -4921,6 +4954,321 @@ def pipe_phase(card) -> tuple:
     return f32, b13, bf16
 
 
+# ---------------------------------------------------------------------------
+# Elastic ZeRO-3, async data parallelism, the trainer's chaos and obs
+# ---------------------------------------------------------------------------
+
+ELASTIC_SCHEDULE = "3:2"
+ELASTIC_CHAOS = "resize@5:+1"
+ELASTIC_STEPS = 2  # (b): steps before the resize, and after it
+ELASTIC_AFTER = 3
+ASYNC_WORKERS = 4
+ASYNC_BATCH = 64
+ASYNC_STEPS = 5
+ASYNC_SLOW = "slow-worker@3:400"
+# B1 against the plain ops over a few async steps: the f32 sums differ in
+# order, as train (d)'s 50 kernel steps against plain steps.
+ASYNC_TOL = 1e-4
+ASYNC_CLI_COUNT = 1024
+CHAOS_TRAIN_COUNT = 6400
+CHAOS_NAN_STEP = 50
+
+
+class _Records(logging.Handler):
+    """Collects the log records of a logger (the elastic controller's
+    clamp, no-op and resize lines)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def obs_artifacts(trace_dir, metrics_json, run):
+    """(nesting problems of the trace, the journal's counts, the metrics
+    JSON) a CLI run wrote."""
+    with open(trace_dir / f"{run}_trace.json") as f:
+        trace = json.load(f)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    counts = collections.Counter(r["kind"] for r in obs_lib.read_journal(
+        str(trace_dir / f"{run}_journal.jsonl")))
+    with open(metrics_json) as f:
+        metrics = json.load(f)
+    return obs_lib.validate_nesting(events), dict(counts), metrics
+
+
+def elastic_phase(card, zoo_launches) -> dict:
+    """elastic (a)-(b) on one card. (a) the CLI at world 1 with
+    PCNN_ZERO_LEVEL=3 --elastic, a schedule entry and a chaos resize@,
+    traced: both triggers clamp to the one reachable rank and are skipped
+    as no-ops (logged as JAX logs them), launches exact beside zoo (a)'s
+    and one B13 launch a step, the loss falls, the trace nests and the
+    metrics JSON is the run's story. (b) the library: a resize with no
+    step between keeps the view bit for bit, three steps after it are
+    bit-identical to three without it, and a failed live snapshot
+    restores the ring's newest file bit for bit. Returns (a)'s launches."""
+    work = BUILD_DIR / "smoke_elastic"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    argv = ["--model", "resnet18", "--conv-backend", "cuda", "--fused-step",
+            "--act-dtype", "float32", "--mesh-data", str(DP_WORLD),
+            "--comm-impl", "ring", "--batch-size", str(ZOO_BATCH),
+            "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT), "--epochs", "2",
+            "--elastic", "--elastic-schedule", ELASTIC_SCHEDULE,
+            "--chaos", ELASTIC_CHAOS, "--trace-dir", str(work / "obs"),
+            "--metrics-json", str(work / "metrics.json")]
+    print(f"[smoke] elastic (a): PCNN_ZERO_LEVEL=3 {' '.join(argv)}", flush=True)
+    logs = _Records()
+    logger = logging.getLogger("parallel_cnn_tpu_torch.resilience.elastic")
+    logger.addHandler(logs)
+    reset_zoo_counts()
+    sgd_update.momentum_launches.reset()
+    try:
+        with mock.patch.dict(os.environ, {"PCNN_ZERO_LEVEL": "3"}):
+            out = run_cli(argv)
+    finally:
+        logger.removeHandler(logs)
+    launches = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
+    steps = 2 * ZOO_STEPS
+    want = dict(zoo_launches, sgd_momentum=steps)
+    losses = epoch_losses(out)
+    skipped = [ln for ln in logs.lines if "clamped" in ln or "no-op" in ln]
+    print(f"[smoke] elastic (a): launches {launches} for {steps} steps (expected "
+          f"{want}); epoch losses {losses}; the controller's lines {skipped} on "
+          f"{card}", flush=True)
+    expect = ["elastic: resize request to 2 clamped to 1 (min_world=1, reachable=1)",
+              "elastic: resize to 1 is a no-op at world 1 — skipped"] * 2
+    if skipped != expect or any("resized" in ln for ln in logs.lines):
+        fail("elastic (a): the schedule and chaos triggers were not clamped and "
+             "skipped as JAX logs them")
+    if launches != want:
+        fail("elastic (a): the run did not launch each kernel exactly as often as "
+             "its steps, buckets and eval batches need")
+    if len(losses) != 2 or not losses[1] < losses[0]:
+        fail("elastic (a): the loss did not fall from epoch 1 to 2")
+    nesting, counts, metrics = obs_artifacts(work / "obs", work / "metrics.json", "zoo")
+    story = {"epochs": 2, "steps": steps, "resizes": 0}
+    print(f"[smoke] chaos (a) ResNet-18 obs: trace nesting problems {nesting[:2]}, "
+          f"journal {counts}, metrics JSON collected {metrics.get('collected')}",
+          flush=True)
+    if nesting or counts.get("epoch") != 2 or counts.get("comm_plan") != 1 \
+            or "resize_begin" in counts or metrics.get("collected", {}).get("zoo") != story:
+        fail("elastic (a): the trace, the journal or the metrics JSON disagree with "
+             "the run")
+
+    # (b) the library at world 1.
+    print(f"[smoke] elastic (b): ResNet-18 b{ZOO_BATCH} f32 ZeRO-3 at world "
+          f"{DP_WORLD}, the controller called directly", flush=True)
+    res = distributed.run(elastic_library_rank, DP_WORLD, device="cuda",
+                          args=(str(work / "ring"),))[0]
+    print(f"[smoke] elastic (b): zero-step resize view "
+          f"{'bit-identical' if res['zero_step'] else 'DIFFERS'} ({res['leaves']} leaves, "
+          f"{res['resize_s'] * 1e3:.1f} ms); {ELASTIC_AFTER} steps after it vs "
+          f"{ELASTIC_AFTER} without: losses {res['after']} vs {res['without']}, "
+          f"{'bit-identical' if res['same_after'] else 'DIFFER'}; ring fallback: "
+          f"from_ring={res['from_ring']}, view "
+          f"{'bit-identical to the ring file' if res['ring_same'] else 'DIFFERS'}",
+          flush=True)
+    if not (res["zero_step"] and res["same_after"] and res["from_ring"]
+            and res["ring_same"]):
+        fail("elastic (b): a resize moved the state, or the ring fallback did not "
+             "restore the ring's file")
+    return launches
+
+
+def _elastic_state(mesh):
+    model = resnet.resnet18(10, backend="cuda",
+                            generator=torch.Generator().manual_seed(0)).cuda()
+    state, step = zero_level_state(model, mesh, dataclasses.replace(DP_FUSED, zero=3),
+                                   DP_LR)
+    return model, state, step
+
+
+def _views_equal(a, b) -> bool:
+    return sorted(a) == sorted(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def elastic_library_rank(mesh, ring_dir):
+    """elastic (b) on the rank: two ResNet-18s from one seed take the same
+    batches; one is resized with no step between (its view checked bit for
+    bit), and both take three more steps. Then a resize whose live
+    snapshot fails restores the ring's file."""
+    from parallel_cnn_tpu_torch.config import ElasticConfig
+    from parallel_cnn_tpu_torch.resilience.elastic import ElasticController
+    from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
+    from parallel_cnn_tpu_torch.train import checkpoint
+
+    n = ELASTIC_STEPS + ELASTIC_AFTER
+    imgs, labels = synthetic.make_image_dataset(n * ZOO_BATCH, seed=13)
+    xs = torch.from_numpy(imgs).cuda()
+    ys = torch.from_numpy(labels).to("cuda", torch.int64)
+    batch = [(xs[i * ZOO_BATCH:(i + 1) * ZOO_BATCH], ys[i * ZOO_BATCH:(i + 1) * ZOO_BATCH])
+             for i in range(n)]
+    _, plain, plain_step = _elastic_state(mesh)
+    model, state, step = _elastic_state(mesh)
+    for bx, by in batch[:ELASTIC_STEPS]:
+        plain_step(plain, bx, by)
+        step(state, bx, by)
+    before = {k: v.clone() for k, v in zoo.zero3_full_view(state).items()}
+    ctl = ElasticController(ElasticConfig(), world=mesh.world, device=mesh.device)
+    ctl.meshes[(mesh.world, 1)] = mesh
+    t0 = time.perf_counter()
+    state, plan, new_mesh, comm = ctl.resize(ELASTIC_STEPS, mesh.world, state=state,
+                                             comm=DP_COMM)
+    resize_s = time.perf_counter() - t0
+    after_view = zoo.zero3_full_view(state)
+    step = zoo.make_zero3_train_step(model, lr=ctl.lr_for(DP_LR), momentum=DP_MOMENTUM,
+                                     accum_steps=1, mesh=new_mesh, augment_pad=None,
+                                     comm=comm, fused=dataclasses.replace(DP_FUSED, zero=3),
+                                     plan=plan)
+    after = [float(step(state, bx, by)) for bx, by in batch[ELASTIC_STEPS:]]
+    without = [float(plain_step(plain, bx, by)) for bx, by in batch[ELASTIC_STEPS:]]
+    same_after = after == without and _views_equal(zoo.zero3_full_view(state),
+                                                   zoo.zero3_full_view(plain))
+    # The ring fallback: the newest ring file is the state now; the live
+    # snapshot is made to fail.
+    view = zoo.zero3_full_view(state)
+    ring = CheckpointRing(ring_dir, keep=0)
+    checkpoint.save_sharded(ring.path_for(0), view, world_size=mesh.world,
+                            bucket_bytes=DP_COMM.bucket_bytes)
+    ctl = ElasticController(ElasticConfig(), world=mesh.world, ring=ring,
+                            device=mesh.device)
+    ctl.meshes[(mesh.world, 1)] = mesh
+    ctl.register_template(view)
+
+    def lost(*a, **k):
+        raise RuntimeError("shard buffers deleted (device lost)")
+
+    with mock.patch.object(zoo, "zero3_full_view", lost):
+        state, *_ = ctl.resize(n, mesh.world, state=state, comm=comm)
+    return dict(zero_step=_views_equal(before, after_view), leaves=len(before),
+                resize_s=resize_s, after=after, without=without, same_after=same_after,
+                from_ring=ctl.events[-1].from_ring,
+                ring_same=_views_equal(zoo.zero3_full_view(state), view))
+
+
+def async_data(n_workers, batch, seed=1234):
+    imgs, labels = synthetic.make_dataset(n_workers * batch, seed=seed)
+    xs = torch.from_numpy(imgs).cuda().reshape(n_workers, batch, 28, 28)
+    ys = torch.from_numpy(labels).cuda().reshape(n_workers, batch)
+    return xs, ys
+
+
+def async_phase(card) -> int:
+    """async (a)-(b): JAX's virtual-clock harness on LeNet-ref b64 with 4
+    workers, the gradients through B1. (a) the library: stale S=0
+    bit-identical to mode off; stale S=2 under a 400 ms straggler, its
+    schedule equal to the same run on the plain ops and its losses and
+    params within ASYNC_TOL; EASGD's center below its start; B1 launched
+    once a gradient computed. (b) the CLI's two modes with JAX's summary
+    line. Returns B1's launches over (a) and (b)."""
+    from parallel_cnn_tpu_torch.config import AsyncConfig
+    from parallel_cnn_tpu_torch.train import async_dp
+
+    xs, ys = async_data(ASYNC_WORKERS, ASYNC_BATCH)
+    params = trainer.init_params(0, torch.device("cuda"))
+    ex, ey = xs.reshape(-1, 28, 28), ys.reshape(-1)
+
+    def run(mode, path, chaos=None, **kw):
+        cfg = AsyncConfig(mode=mode, workers=ASYNC_WORKERS, **kw)
+        return async_dp.run_async(params, xs, ys, cfg=cfg, max_server_steps=ASYNC_STEPS,
+                                  chaos=ChaosMonkey.from_spec(chaos) if chaos else None,
+                                  ops_path=path)
+
+    def sched(r):
+        return (r.virtual_ms, r.microbatches, r.server_steps, r.stragglers, r.dropped,
+                r.easgd_rounds, r.ledger.entries)
+
+    def params_diff(a, b):
+        return max(float((a[k][j] - b[k][j]).abs().max()) for k in a for j in a[k])
+
+    lenet_fused.launches.reset()
+    off = run("off", "cuda")
+    s0 = run("stale", "cuda", staleness_bound=0)
+    stale = run("stale", "cuda", ASYNC_SLOW, staleness_bound=2)
+    easgd = run("easgd", "cuda", easgd_period=2, easgd_rho=0.5)
+    launches = lenet_fused.launches.count
+    grads = off.microbatches + s0.microbatches + stale.microbatches + easgd.microbatches
+    with plain_reference():
+        plain = run("stale", "reference", ASYNC_SLOW, staleness_bound=2)
+    same0 = off.losses == s0.losses and all(
+        torch.equal(off.params[k][j], s0.params[k][j]) for k in off.params
+        for j in off.params[k])
+    dloss = max(abs(a - b) for a, b in zip(stale.losses, plain.losses))
+    dparams = params_diff(stale.params, plain.params)
+    start = float(async_dp.eval_err(params, ex, ey))
+    center = float(async_dp.eval_err(easgd.params, ex, ey))
+    print(f"[smoke] async (a): b{ASYNC_BATCH} x {ASYNC_WORKERS} workers, {ASYNC_STEPS} "
+          f"steps each through B1: stale S=0 vs off "
+          f"{'bit-identical' if same0 else 'DIFFERS'}; stale S=2 under {ASYNC_SLOW}: "
+          f"schedule {sched(stale)[:6]} ledger {stale.ledger.entries}, plain ops "
+          f"{'the same schedule' if sched(stale) == sched(plain) else 'ANOTHER schedule'}, "
+          f"max |Δloss| {dloss:.3e}, max |Δparams| {dparams:.3e} (tol {ASYNC_TOL:.0e}); "
+          f"easgd center err {center:.6f} from {start:.6f}; B1 launches {launches} for "
+          f"{grads} gradients on {card}", flush=True)
+    if not same0 or sched(stale) != sched(plain) or dloss > ASYNC_TOL \
+            or dparams > ASYNC_TOL or not center < start or launches != grads \
+            or stale.stragglers < 1 or stale.ledger.max_staleness() < 1:
+        fail("async (a): the async runs disagree with the sync schedule, the plain "
+             "ops or the launch count")
+
+    # (b) the CLI, both modes.
+    total = launches
+    for mode in (["--async-mode", "stale", "--chaos", ASYNC_SLOW],
+                 ["--async-mode", "easgd"]):
+        argv = ["--ops", "cuda", "--batch-size", str(ASYNC_BATCH), "--epochs",
+                str(ASYNC_STEPS), "--synthetic-train-count", str(ASYNC_CLI_COUNT),
+                "--synthetic-test-count", "512", *mode]
+        print(f"[smoke] async (b): {' '.join(argv)}", flush=True)
+        lenet_fused.launches.reset()
+        out = run_cli(argv)
+        summary = [ln for ln in out.splitlines() if ln.startswith("async mode=")]
+        fields = dict(kv.split("=") for kv in summary[0].split()[1:]) if summary else {}
+        computed = int(fields.get("microbatches", -1)) + int(fields.get("dropped", 0))
+        n = lenet_fused.launches.count
+        if len(summary) != 1 or "async test error rate: " not in out or n != computed:
+            fail(f"async (b): no summary line, no test error, or B1 launches {n} for "
+                 f"{computed} gradients")
+        total += n
+    return total
+
+
+def chaos_phase(card) -> int:
+    """chaos (a): the LeNet-ref trainer through B1 with nan@ poisoning a
+    step under --sentinel rollback, traced: the epoch is rolled back and
+    retried, the journal holds the chaos, verdict and rollback, B1
+    launched once a step (the retried epoch's too), and the metrics JSON
+    is the run's story. Returns B1's launches."""
+    work = BUILD_DIR / "smoke_chaos"
+    shutil.rmtree(work, ignore_errors=True)
+    steps = CHAOS_TRAIN_COUNT // TRAIN_BATCH
+    argv = ["--ops", "cuda", "--batch-size", str(TRAIN_BATCH), "--epochs", "2",
+            "--synthetic-train-count", str(CHAOS_TRAIN_COUNT), "--synthetic-test-count",
+            "1000", "--chaos", f"nan@{CHAOS_NAN_STEP}", "--sentinel", "rollback",
+            "--trace-dir", str(work), "--metrics-json", str(work / "metrics.json")]
+    print(f"[smoke] chaos (a): {' '.join(argv)}", flush=True)
+    lenet_fused.launches.reset()
+    out = run_cli(argv)
+    launches = lenet_fused.launches.count
+    errs = epoch_errors(out)
+    nesting, counts, metrics = obs_artifacts(work, work / "metrics.json", "train")
+    story = {"epochs": 2, "steps": 3 * steps, "rollbacks": 1}
+    print(f"[smoke] chaos (a): epoch errors {errs}; journal {counts}; metrics JSON "
+          f"collected {metrics.get('collected')}; B1 launches {launches} for "
+          f"{3 * steps} steps (an epoch rolled back and retried) on {card}", flush=True)
+    if len(errs) != 2 or not all(np.isfinite(errs)) or nesting \
+            or counts.get("chaos") != 1 or counts.get("verdict") != 1 \
+            or counts.get("rollback") != 1 or counts.get("epoch") != 2 \
+            or metrics.get("collected", {}).get("train") != story \
+            or launches != 3 * steps:
+        fail("chaos (a): the poisoned epoch was not rolled back and journaled, or B1 "
+             "was not launched once a step")
+    return launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -5141,6 +5489,11 @@ def main() -> int:
     pipe_f32, pipe_b13, pipe_bf16 = pipe_phase(card)
     bf16_launches = {key: n + pipe_bf16[key] for key, n in bf16_launches.items()}
 
+    # -- 4j. elastic ZeRO-3, async data parallelism, the trainer's chaos --
+    elastic_launches = elastic_phase(card, zoo_launches)
+    async_b1 = async_phase(card)
+    chaos_b1 = chaos_phase(card)
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -5193,7 +5546,8 @@ def main() -> int:
         "launches": (launches + gspmd_launches["tap_conv"] + z50_launches["tap_conv"]
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
                      + serve50_launches + slo_launches + net_launches
-                     + pipe_f32["tap_conv"] + z3_launches["tap_conv"]),
+                     + pipe_f32["tap_conv"] + z3_launches["tap_conv"]
+                     + elastic_launches["tap_conv"]),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5208,7 +5562,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": sum(run["tap_conv_dgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches)),
+            pipe_f32, z3_launches, elastic_launches)),
         "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
                            z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
@@ -5219,7 +5573,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
         "launches": sum(run["tap_wgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches)),
+            pipe_f32, z3_launches, elastic_launches)),
         "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
                            z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
@@ -5230,14 +5584,14 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
         "launches": sum(run["tail_ce"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            z3_launches)),
+            z3_launches, elastic_launches)),
         # The per-image form at the 10-class heads, the tiled one at the
         # ImageNet head (imagenet (a) reads its launches): the record's
         # times are ResNet-18's head's, the tiled form's beside them.
         "launches_by_form": {
             "image": sum(run["tail_ce"] for run in (
                 zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-                z3_launches))
+                z3_launches, elastic_launches))
             - img_tiled,
             "tiled": img_tiled},
         "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
@@ -5248,7 +5602,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/lenet_fused.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas.py:589",
-        "launches": train_launches["lenet_fused"],
+        "launches": train_launches["lenet_fused"] + async_b1 + chaos_b1,
         "max_abs_err": lenet_err,
         **lenet_times["lenet_fused"],
     }, {
@@ -5264,7 +5618,8 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_update.py:58",
-        "launches": dp_launches["sgd_momentum"] + pipe_b13 + z3_launches["sgd_momentum"],
+        "launches": (dp_launches["sgd_momentum"] + pipe_b13 + z3_launches["sgd_momentum"]
+                     + elastic_launches["sgd_momentum"]),
         "max_abs_err": momentum_err,
         **momentum_times,
     }] + [{

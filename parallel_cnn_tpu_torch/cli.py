@@ -31,11 +31,20 @@ over the model axis when M > 1 (rank 0 prints, records and checkpoints).
 Everything runs on the GPU unless ``--device cpu`` is given. JAX's plan
 legality texts carry over (a mode that builds its own mesh beside
 ``--mesh-data``, a hierarchical host axis below 2, the ZeRO levels'
-collectives, the pipeline beside the hierarchical ring or ZeRO-3). Of the
-trainer flags of later slices, ``--elastic`` is a typed NotPortedError
-(``--comm-impl`` with a zoo
-model axis is JAX's data-only MeshLayoutError); the trainer's chaos,
-async, trace and profile are not accepted yet. ``serve`` and ``loadgen``
+collectives, the pipeline beside the hierarchical ring or ZeRO-3;
+``--comm-impl`` with a zoo model axis is JAX's data-only MeshLayoutError).
+``--elastic`` [``--elastic-schedule``, ``--elastic-scaling``,
+``--elastic-min-world``] with ``PCNN_ZERO_LEVEL=3`` resizes the ZeRO-3
+world in flight (resilience/elastic.py): one rank for every visible card
+is spawned, ``--mesh-data N`` of them train at the start (on the CPU
+``--mesh-data`` gloo ranks, all of them). ``--async-mode stale|easgd``
+[``--staleness-bound``, ``--easgd-period``, ``--easgd-rho``] runs LeNet-ref
+through JAX's virtual-clock async harness (train/async_dp.py; ``--ops
+cuda`` takes its gradients from B1). ``--chaos SPEC``,
+``--sentinel-every N`` and the obs flags ``--trace``, ``--trace-dir``,
+``--metrics-json`` are the trainer's too; JAX's fences refuse
+``--async-mode`` on a zoo model and ``--elastic`` on lenet_ref with JAX's
+texts. ``--profile`` is not taken (ROADMAP A13). ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
 ``--max-replicas``, ``--window-s``, ``--scenario``, ``--chaos`` and the obs
 flags ``--trace``, ``--trace-dir`` and ``--metrics-json``, and JAX's
@@ -60,6 +69,8 @@ from typing import List, Optional
 
 from parallel_cnn_tpu_torch.config import (
     CONV_BACKENDS,
+    AsyncConfig,
+    ElasticConfig,
     HIER_HOSTS_ERROR,
     PIPELINE_HIER_ERROR,
     PIPELINE_ZERO3_ERROR,
@@ -224,7 +235,56 @@ def build_parser() -> argparse.ArgumentParser:
                         "stage, grads and loss stay f32) "
                         "[PCNN_PIPELINE_ACT_DTYPE]")
     p.add_argument("--elastic", action="store_true",
-                   help="elastic training; not ported yet (ROADMAP A11)")
+                   help="elastic training (PCNN_ELASTIC): on a preemption "
+                        "resize request, a chaos resize@ or a schedule entry, "
+                        "quiesce at the step boundary, snapshot the ZeRO-3 "
+                        "state to its world-size-independent view, re-mesh "
+                        "over the surviving ranks, reshard and continue "
+                        "(resilience/elastic.py). Needs the ZeRO-3 step "
+                        "(--fused-step with PCNN_ZERO_LEVEL=3 and --comm-impl "
+                        "ring/hierarchical); one rank a visible card, "
+                        "--mesh-data of them active at the start")
+    p.add_argument("--elastic-schedule", default=None, metavar="SPEC",
+                   help="planned resizes 'STEP:WORLD[,STEP:WORLD…]' — before "
+                        "optimizer step STEP resize the data world to WORLD "
+                        "(implies --elastic) [PCNN_ELASTIC_SCHEDULE]")
+    p.add_argument("--elastic-scaling", default=None,
+                   choices=["global", "per-device"],
+                   help="batch/LR response to a resize: global keeps the "
+                        "global batch + LR fixed (parity mode), per-device "
+                        "keeps the per-rank batch and scales global batch + "
+                        "LR with the world [PCNN_ELASTIC_SCALING]")
+    p.add_argument("--elastic-min-world", type=int, default=None, metavar="N",
+                   help="never shrink the data world below N ranks; deeper "
+                        "losses are clamped and logged "
+                        "[PCNN_ELASTIC_MIN_WORLD]")
+    p.add_argument("--async-mode", default=None,
+                   choices=["off", "stale", "easgd"],
+                   help="lenet_ref: straggler-tolerant async data parallelism "
+                        "on the virtual-clock harness (train/async_dp.py): "
+                        "stale = bounded-staleness gradients with a hard "
+                        "barrier only at the bound, easgd = local SGD with a "
+                        "periodic pull toward a bucketed center; off / unset "
+                        "= the bulk-synchronous trainer [PCNN_ASYNC_MODE]")
+    p.add_argument("--staleness-bound", type=int, default=None, metavar="S",
+                   help="max optimizer-step age of the params a gradient may "
+                        "be computed against (--async-mode stale; 0 = the "
+                        "synchronous schedule) [PCNN_ASYNC_STALENESS]")
+    p.add_argument("--easgd-period", type=int, default=None, metavar="N",
+                   help="local SGD steps between elastic-averaging rounds "
+                        "(--async-mode easgd) [PCNN_ASYNC_EASGD_PERIOD]")
+    p.add_argument("--easgd-rho", type=float, default=None, metavar="RHO",
+                   help="elastic-averaging pull strength in (0, 1] "
+                        "(--async-mode easgd) [PCNN_ASYNC_EASGD_RHO]")
+    p.add_argument("--chaos", default=None, metavar="SPEC",
+                   help="fault injection: nan@STEP poisons the update at "
+                        "optimizer step STEP; kill@EPOCH / kill9@EPOCH "
+                        "delivers SIGTERM / SIGKILL after epoch EPOCH's "
+                        "checkpoint; resize@STEP:±K loses/adds K ranks at "
+                        "step STEP (needs --elastic); slow-worker@STEP:MS "
+                        "stalls the async worker dispatching gradient STEP; "
+                        "slow-stage@STEP:MS stalls the pipeline trainer at "
+                        "step STEP (resilience/chaos.py has the grammar)")
     p.add_argument("--fused-step", action="store_true",
                    help="lenet_ref: update through the fused bucketed SGD "
                         "kernel (csrc/sgd_update.cu); zoo: the fused loss "
@@ -244,12 +304,18 @@ def build_parser() -> argparse.ArgumentParser:
                    help="bounded retry budget for --sentinel rollback")
     p.add_argument("--lr-backoff", type=float, default=r.lr_backoff,
                    help="LR multiplier applied per rollback")
+    p.add_argument("--sentinel-every", type=int, default=r.check_every_steps,
+                   metavar="N",
+                   help="zoo models: also run the sentinel every N optimizer "
+                        "steps (0 = epoch boundaries only; each check is a "
+                        "host sync)")
     p.add_argument("--keep-checkpoints", type=int, default=r.ring_size,
                    metavar="N",
                    help="prune --checkpoint-dir to the newest N "
                         "checkpoints (0 = keep all)")
     p.add_argument("--metrics", default=None, metavar="PATH",
                    help="append JSONL metrics records to PATH")
+    _add_obs_flags(p)
     return p
 
 
@@ -279,23 +345,88 @@ def config_from_args(args: argparse.Namespace) -> Config:
             prefetch=args.prefetch,
             ops=args.ops,
         ),
-        resilience=ResilienceConfig(
-            policy=args.sentinel,
-            max_rollbacks=args.max_rollbacks,
-            lr_backoff=args.lr_backoff,
-            ring_size=args.keep_checkpoints,
-        ),
+        resilience=_resilience_from_args(args),
         fused=args.fused_step,
         comm=_comm_from_args(args),
+        obs=_obs_config_from_args(args),
+        elastic=_elastic_from_args(args),
+        async_dp=_async_from_args(args),
     )
 
 
-def _refuse_later_slices(args: argparse.Namespace) -> None:
-    """JAX's flags whose paths are not ported raise a typed error naming
-    the ROADMAP item that brings them."""
-    if args.elastic:
-        raise NotPortedError("--elastic (in-flight re-mesh with ZeRO-3 "
-                             "resharding) is not ported yet (ROADMAP A11)")
+def _resilience_from_args(args: argparse.Namespace) -> ResilienceConfig:
+    return ResilienceConfig(
+        policy=args.sentinel,
+        max_rollbacks=args.max_rollbacks,
+        lr_backoff=args.lr_backoff,
+        ring_size=args.keep_checkpoints,
+        check_every_steps=args.sentinel_every,
+    )
+
+
+def _elastic_from_args(args: argparse.Namespace) -> Optional[ElasticConfig]:
+    """PCNN_ELASTIC* first, then any --elastic* flag field by field (and
+    opting in), as JAX layers them (cli.py:431-448)."""
+    elastic = ElasticConfig.from_env()
+    if (args.elastic or args.elastic_schedule is not None
+            or args.elastic_scaling is not None
+            or args.elastic_min_world is not None):
+        base = elastic or ElasticConfig()
+        elastic = dataclasses.replace(
+            base,
+            enabled=True,
+            schedule=(args.elastic_schedule
+                      if args.elastic_schedule is not None else base.schedule),
+            scaling=args.elastic_scaling or base.scaling,
+            min_world=(args.elastic_min_world
+                       if args.elastic_min_world is not None else base.min_world),
+        )
+    return elastic
+
+
+def _async_from_args(args: argparse.Namespace) -> Optional[AsyncConfig]:
+    """PCNN_ASYNC_* first, then --async-mode/--staleness-bound/--easgd-*
+    field by field (and opting in), as JAX layers them (cli.py:449-471);
+    ``--async-mode off`` pins the synchronous trainer."""
+    async_dp = AsyncConfig.from_env()
+    if (args.async_mode is not None or args.staleness_bound is not None
+            or args.easgd_period is not None or args.easgd_rho is not None):
+        base = async_dp or AsyncConfig()
+        async_dp = dataclasses.replace(
+            base,
+            mode=args.async_mode or base.mode,
+            staleness_bound=(args.staleness_bound
+                             if args.staleness_bound is not None
+                             else base.staleness_bound),
+            easgd_period=(args.easgd_period
+                          if args.easgd_period is not None else base.easgd_period),
+            easgd_rho=(args.easgd_rho
+                       if args.easgd_rho is not None else base.easgd_rho),
+        )
+    return async_dp
+
+
+#: JAX's fences (cli.py:1301-1316), text for text.
+ASYNC_ZOO_ERROR = (
+    "--async-mode drives the lenet_ref virtual-clock harness "
+    "(train/async_dp.py); zoo models stay bulk-synchronous — "
+    "drop --async-mode or use --model lenet_ref")
+ELASTIC_LENET_ERROR = (
+    "--elastic needs the zoo ZeRO-3 trainer: pick a zoo --model "
+    "(e.g. cifar_cnn) with --mesh-data, --comm-impl ring and "
+    "--fused-step")
+#: JAX's zoo.train fence (zoo.py:1428-1434).
+ELASTIC_ZERO3_ERROR = (
+    "elastic training requires the ZeRO-3 step (fused.zero=3 "
+    "with mesh + ring/hierarchical comm) — its world-size-"
+    "independent full view is what makes in-flight resharding "
+    "possible; enable it or drop --elastic")
+
+
+def _print_obs(obs_bundle) -> None:
+    """JAX's ``[obs] <kind> written to <path>`` lines."""
+    for kind, path in obs_bundle.finish().items():
+        print(f"[obs] {kind} written to {path}", flush=True)
 
 
 def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
@@ -394,13 +525,18 @@ def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
 
 def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
              fused: Optional[FusedStepConfig],
-             pipeline: Optional[PipelineConfig] = None) -> None:
+             pipeline: Optional[PipelineConfig] = None,
+             elastic: Optional[ElasticConfig] = None,
+             elastic_world: Optional[int] = None) -> None:
     """One rank's zoo run (``mesh`` None: the single-device run): the
     model from the seed (the same weights on every rank), the synthetic
-    train and eval sets, zoo.train."""
+    train and eval sets, zoo.train. Rank 0 alone traces and journals
+    (``[obs] ... written to`` after the run)."""
     import torch
 
+    from parallel_cnn_tpu_torch import obs as obs_lib
     from parallel_cnn_tpu_torch.data import synthetic
+    from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
     from parallel_cnn_tpu_torch.nn import cifar, resnet, vgg
     from parallel_cnn_tpu_torch.resilience import preempt
     from parallel_cnn_tpu_torch.train import zoo
@@ -409,6 +545,7 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
 
     lead = mesh is None or mesh.rank == 0
     device = mesh.device if mesh is not None else resolve_device(args.device)
+    _log_for(lead)
     gen = torch.Generator().manual_seed(args.seed)
     factories = {
         "cifar_cnn": lambda: cifar.cifar_cnn(generator=gen),
@@ -427,6 +564,9 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
     ev = synthetic.make_image_dataset(
         args.synthetic_test_count, seed=data.synthetic_seed + 1)
     metrics = MetricsLogger(path=args.metrics) if args.metrics and lead else None
+    chaos = ChaosMonkey.from_spec(args.chaos) if args.chaos else None
+    obs_bundle = (obs_lib.from_config(_obs_config_from_args(args), run="zoo")
+                  if lead else obs_lib.NOOP)
     with preempt.PreemptionGuard() as guard:
         zoo.train(
             model, imgs, labels,
@@ -449,11 +589,14 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
             resume=args.resume,
             metrics=metrics,
             loader=args.zoo_loader,
-            resilience=ResilienceConfig(
-                policy=args.sentinel, max_rollbacks=args.max_rollbacks,
-                ring_size=args.keep_checkpoints),
+            resilience=_resilience_from_args(args),
+            chaos=chaos,
+            obs=obs_bundle,
+            elastic=elastic,
+            elastic_world=elastic_world,
             device=device,
         )
+    _print_obs(obs_bundle)
     if guard.preempted and lead:
         print("preempted: checkpoint flushed; continue with --resume")
     if metrics:
@@ -471,11 +614,16 @@ def _run_zoo(args: argparse.Namespace) -> int:
         raise SystemExit("--conv-backend cuda applies to the resnet/vgg models")
     if args.batch_size == 1:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
-    _refuse_later_slices(args)
     pipeline = _pipeline_from_args(args)
     comm = _comm_from_args(args)
     fused = _fused_from_args(args)
     _check_plan(args, comm, fused, pipeline)
+    elastic = _elastic_from_args(args)
+    if elastic is not None and elastic.enabled:
+        zero = fused.zero if fused is not None and fused.update else 0
+        if zero != 3 or comm is None or pipeline is not None:
+            raise ValueError(ELASTIC_ZERO3_ERROR)
+        return _run_zoo_elastic(args, comm, fused, elastic)
     if pipeline is not None:
         return _run_zoo_pipeline(args, pipeline, comm, fused)
     if comm is not None and comm.impl == "hierarchical":
@@ -501,6 +649,36 @@ def _run_zoo(args: argparse.Namespace) -> int:
     print(f"mesh: {{'data': {world}, 'model': 1}}", flush=True)
     distributed.run(_zoo_job, world, device=args.device,
                     args=(args, comm, fused))
+    return 0
+
+
+def _run_zoo_elastic(args: argparse.Namespace, comm: CommConfig,
+                     fused: FusedStepConfig, elastic: ElasticConfig) -> int:
+    """JAX's elastic ZeRO-3 run: one rank for every visible card (the
+    reachable world; on the CPU ``--mesh-data`` gloo ranks), the first
+    ``--mesh-data`` of them training at the start (every rank without
+    it); with ``--comm-impl hierarchical`` the (host, data) mesh over
+    every card. JAX's mesh line names the starting world."""
+    import torch
+
+    from parallel_cnn_tpu_torch.parallel import distributed
+    from parallel_cnn_tpu_torch.utils.backend import resolve_device
+
+    if comm.impl == "hierarchical":
+        n_hosts, n_data = distributed.resolve_hier_shape(comm.hosts, args.device)
+        print(f"mesh: {{'host': {n_hosts}, 'data': {n_data}}} (hierarchical)",
+              flush=True)
+        distributed.run(_zoo_job, n_hosts * n_data, device=args.device,
+                        args=(args, comm, fused, None, elastic),
+                        shape=(n_hosts, n_data), axes=distributed.HIER_AXES)
+        return 0
+    mesh_cfg = MeshConfig(data=args.mesh_data, model=1)
+    start = distributed.resolve_world(mesh_cfg, args.device)
+    reach = (start if resolve_device(args.device).type == "cpu"
+             else torch.cuda.device_count())
+    print(f"mesh: {{'data': {start}, 'model': 1}}", flush=True)
+    distributed.run(_zoo_job, reach, device=args.device,
+                    args=(args, comm, fused, None, elastic, start))
     return 0
 
 
@@ -547,8 +725,10 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
     On a mesh every rank trains; rank 0 alone prints the reference's
     lines, records metrics and saves checkpoints (whole params), and every
     rank resumes from the same file."""
+    from parallel_cnn_tpu_torch import obs as obs_lib
     from parallel_cnn_tpu_torch.data import pipeline
     from parallel_cnn_tpu_torch.resilience import preempt
+    from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
     from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
     from parallel_cnn_tpu_torch.train import checkpoint, trainer
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
@@ -556,15 +736,10 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
 
     lead = mesh is None or mesh.rank == 0
     device = mesh.device if mesh is not None else resolve_device(args.device)
-    # Surface the data pipeline's INFO-level evidence (the real-MNIST
-    # integrity report) in the CLI's output, once.
-    logging.getLogger("parallel_cnn_tpu_torch").setLevel(
-        logging.INFO if lead else logging.ERROR)
-    if not logging.getLogger().handlers:
-        logging.basicConfig(level=logging.INFO,
-                            format="%(levelname)s %(name)s: %(message)s")
+    _log_for(lead)
 
     train_ds, test_ds = pipeline.load_train_test(cfg.data)
+    chaos = ChaosMonkey.from_spec(args.chaos) if args.chaos else None
     ring = None
     if args.checkpoint_dir and lead:
         ring = CheckpointRing(args.checkpoint_dir, keep=cfg.resilience.ring_size)
@@ -583,6 +758,7 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
                 print(f"resumed from {path} (epoch {start_epoch})")
 
     metrics = MetricsLogger(path=args.metrics) if args.metrics and lead else None
+    obs_bundle = obs_lib.from_config(cfg.obs, run="train") if lead else obs_lib.NOOP
     remaining = max(cfg.train.epochs - start_epoch, 0)
     run_cfg = cfg.replace(train=dataclasses.replace(cfg.train, epochs=remaining))
 
@@ -602,9 +778,10 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
     with preempt.PreemptionGuard() as guard:
         result = trainer.learn(
             run_cfg, train_ds, params=params, verbose=lead,
-            epoch_offset=start_epoch, epoch_callback=on_epoch, ring=ring,
-            device=device, mesh=mesh,
+            epoch_offset=start_epoch, epoch_callback=on_epoch, chaos=chaos,
+            ring=ring, obs=obs_bundle, device=device, mesh=mesh,
         )
+    _print_obs(obs_bundle)
 
     if result.preempted or guard.preempted:
         if metrics:
@@ -637,9 +814,18 @@ def _run_train(argv: List[str]) -> int:
     over a ``--mesh-data``/``--mesh-model`` mesh of ranks
     (parallel/distributed.py starts them), or the zoo branch."""
     args = build_parser().parse_args(argv)
+    async_dp = _async_from_args(args)
     if args.model != "lenet_ref":
+        if async_dp is not None and async_dp.enabled:
+            raise SystemExit(ASYNC_ZOO_ERROR)
         return _run_zoo(args)
-    _refuse_later_slices(args)
+    elastic = _elastic_from_args(args)
+    if elastic is not None and elastic.enabled:
+        # The flat LeNet trainer has no sharded optimizer state to re-lay
+        # out; only the zoo ZeRO-3 step resizes in flight.
+        raise SystemExit(ELASTIC_LENET_ERROR)
+    if async_dp is not None and async_dp.enabled:
+        return _run_async_lenet(args, config_from_args(args))
     pipeline = _pipeline_from_args(args)
     comm = _comm_from_args(args)
     _check_plan(args, comm, None, pipeline)
@@ -665,6 +851,66 @@ def _run_train(argv: List[str]) -> int:
     print(f"mesh: {{'data': {n_data}, 'model': {n_model}}}", flush=True)
     distributed.run(_lenet_job, n_data * n_model, device=args.device,
                     args=(args, cfg), shape=(n_data, n_model))
+    return 0
+
+
+def _log_for(lead: bool) -> None:
+    """Surface the package's INFO lines (the real-MNIST integrity report,
+    the elastic resizes) on rank 0, errors only elsewhere."""
+    logging.getLogger("parallel_cnn_tpu_torch").setLevel(
+        logging.INFO if lead else logging.ERROR)
+    if not logging.getLogger().handlers:
+        logging.basicConfig(level=logging.INFO,
+                            format="%(levelname)s %(name)s: %(message)s")
+
+
+def _run_async_lenet(args: argparse.Namespace, cfg: Config) -> int:
+    """JAX's async CLI branch (cli.py:1410-1456): the virtual-clock
+    harness (train/async_dp.py) over ``AsyncConfig.workers`` logical
+    workers, each resident on its own shard of the training set (the
+    first workers × batch images), real gradients (``--ops cuda``: B1),
+    virtual durations. ``--epochs`` counts server steps (stale) or local
+    steps a worker (easgd). Prints JAX's summary line and the test error
+    of the result."""
+    import torch
+
+    from parallel_cnn_tpu_torch import obs as obs_lib
+    from parallel_cnn_tpu_torch.data import pipeline
+    from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
+    from parallel_cnn_tpu_torch.resilience.sentinel import Sentinel
+    from parallel_cnn_tpu_torch.train import async_dp, trainer
+    from parallel_cnn_tpu_torch.utils.backend import resolve_device
+
+    _log_for(True)
+    device = resolve_device(args.device)
+    train_ds, test_ds = pipeline.load_train_test(cfg.data)
+    chaos = ChaosMonkey.from_spec(args.chaos) if args.chaos else None
+    acfg = cfg.async_dp
+    w, b = acfg.workers, cfg.train.batch_size
+    if len(train_ds) < w * b:
+        raise SystemExit(
+            f"async harness wants {w} workers x {b} images, dataset has "
+            f"{len(train_ds)}")
+    xs = torch.from_numpy(train_ds.images[: w * b]).to(device).reshape(w, b, 28, 28)
+    ys = torch.from_numpy(train_ds.labels[: w * b]).to(device).reshape(w, b)
+    params = trainer.init_params(cfg.train.seed, device)
+    obs_bundle = obs_lib.from_config(cfg.obs, run="train_async")
+    result = async_dp.run_async(
+        params, xs, ys, cfg=acfg, dt=cfg.train.dt,
+        max_server_steps=cfg.train.epochs, chaos=chaos,
+        sentinel=Sentinel(), obs=obs_bundle, ops_path=cfg.train.ops,
+    )
+    _print_obs(obs_bundle)
+    print(
+        f"async mode={acfg.mode} steps={result.server_steps} "
+        f"microbatches={result.microbatches} "
+        f"virtual_ms={result.virtual_ms:.0f} "
+        f"max_staleness={result.ledger.max_staleness()} "
+        f"stragglers={result.stragglers} dropped={result.dropped} "
+        f"easgd_rounds={result.easgd_rounds}"
+    )
+    rate = trainer.test(result.params, test_ds)
+    print(f"async test error rate: {rate:.4f}")
     return 0
 
 

@@ -112,8 +112,7 @@ class ResilienceConfig:
     JAX's ``pallas_fallback`` field is absent on purpose. There it lets a
     failing kernel path degrade to the XLA step; in the port a CUDA tensor
     goes through the hand-written kernel or the run raises, so a kernel
-    fault is never hidden behind the plain version. The zoo's per-step
-    ``check_every_steps`` comes with the zoo trainer.
+    fault is never hidden behind the plain version.
     """
 
     # What the health sentinel does on a non-finite loss or param:
@@ -124,6 +123,9 @@ class ResilienceConfig:
     lr_backoff: float = 0.5
     # Keep the newest N checkpoints in --checkpoint-dir (0 = all).
     ring_size: int = 0
+    # Zoo trainer: also check loss/param finiteness every N optimizer
+    # steps (0 = epoch boundaries only). Each check is a host sync.
+    check_every_steps: int = 0
 
     def __post_init__(self):
         if self.policy not in ("off", "raise", "skip", "rollback"):
@@ -134,8 +136,8 @@ class ResilienceConfig:
             raise ValueError(
                 f"lr_backoff must be in (0, 1], got {self.lr_backoff}"
             )
-        if self.ring_size < 0:
-            raise ValueError("ring_size must be >= 0")
+        if self.ring_size < 0 or self.check_every_steps < 0:
+            raise ValueError("ring_size/check_every_steps must be >= 0")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,6 +155,15 @@ class Config:
     resilience: ResilienceConfig = ResilienceConfig()
     fused: bool = False
     comm: Optional["CommConfig"] = None
+    # None = observability off; an ObsConfig opts the run into span
+    # tracing, the journal and the metrics snapshot (obs/).
+    obs: Optional["ObsConfig"] = None
+    # None = fixed-mesh training; an ElasticConfig opts the ZeRO-3 zoo
+    # trainer into in-flight re-mesh and reshard (resilience/elastic.py).
+    elastic: Optional["ElasticConfig"] = None
+    # None = bulk-synchronous training; an AsyncConfig opts into the
+    # bounded-staleness or EASGD modes (train/async_dp.py).
+    async_dp: Optional["AsyncConfig"] = None
 
     def replace(self, **kw) -> "Config":
         return dataclasses.replace(self, **kw)
@@ -686,4 +697,155 @@ class ObsConfig:
             dir=d or "obs_out",
             metrics_json=mj or None,
             annotations=(jx or "1") != "0",
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class ElasticConfig:
+    """Elastic-training policy (resilience/elastic.py: in-flight re-mesh
+    and ZeRO-3 reshard on a resize request, a chaos-injected device loss
+    or a device add), JAX's ``ElasticConfig`` field for field.
+
+    No ElasticConfig at all (``Config.elastic`` None) keeps the fixed
+    mesh. Constructing one (--elastic / PCNN_ELASTIC=1) opts the ZeRO-3
+    zoo trainer into resize-and-continue; it needs the ZeRO-3 step
+    (``FusedStepConfig(zero=3)``), whose world-size-independent full view
+    is what a resize re-lays out.
+    """
+
+    enabled: bool = True
+    # Deterministic resize schedule "STEP:WORLD[,STEP:WORLD...]": before
+    # optimizer step STEP (0-based, global across epochs) resize the data
+    # world to WORLD ranks. Empty = no planned resizes.
+    schedule: str = ""
+    # "global": the global batch and LR stay fixed (the parity mode);
+    # "per-device": the per-device batch stays fixed and the global batch
+    # and LR scale linearly with the world.
+    scaling: str = "global"
+    # Never shrink below this many ranks; a deeper loss is clamped (and
+    # the clamp logged).
+    min_world: int = 1
+
+    def __post_init__(self):
+        if self.scaling not in ("global", "per-device"):
+            raise ValueError(
+                f"unknown elastic scaling {self.scaling!r} "
+                "(global or per-device)"
+            )
+        if self.min_world < 1:
+            raise ValueError(
+                f"min_world must be >= 1, got {self.min_world}"
+            )
+        self.plan()  # validate the schedule grammar eagerly
+
+    def plan(self) -> tuple:
+        """The parsed schedule: ((step, world), ...) sorted by step."""
+        out = []
+        for part in filter(None, self.schedule.split(",")):
+            step, sep, world = part.partition(":")
+            if not sep or not step.strip().isdigit() \
+                    or not world.strip().isdigit():
+                raise ValueError(
+                    f"bad elastic schedule entry {part!r} "
+                    "(want STEP:WORLD, e.g. '40:4,80:8')"
+                )
+            out.append((int(step), int(world)))
+        return tuple(sorted(out))
+
+    @staticmethod
+    def from_env() -> Optional["ElasticConfig"]:
+        """ElasticConfig from PCNN_ELASTIC / PCNN_ELASTIC_SCHEDULE /
+        PCNN_ELASTIC_SCALING / PCNN_ELASTIC_MIN_WORLD, or None when none
+        of them is set."""
+        enabled = os.environ.get("PCNN_ELASTIC")
+        schedule = os.environ.get("PCNN_ELASTIC_SCHEDULE")
+        scaling = os.environ.get("PCNN_ELASTIC_SCALING")
+        min_world = os.environ.get("PCNN_ELASTIC_MIN_WORLD")
+        if (enabled is None and schedule is None and scaling is None
+                and min_world is None):
+            return None
+        return ElasticConfig(
+            enabled=(enabled if enabled is not None else "1")
+            not in ("0", ""),
+            schedule=schedule or "",
+            scaling=scaling or "global",
+            min_world=int(min_world) if min_world else 1,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class AsyncConfig:
+    """Asynchronous data-parallel policy (train/async_dp.py: bounded
+    staleness per arXiv:1711.00705, EASGD per arXiv:1605.08325), JAX's
+    ``AsyncConfig`` field for field.
+
+    No AsyncConfig at all (``Config.async_dp`` None) keeps training
+    bulk-synchronous. The async modes keep bitwise parity with the sync
+    schedule only at mode "stale" with ``staleness_bound=0``.
+    """
+
+    # "off" (the sync schedule), "stale" (bounded staleness: a hard
+    # barrier only where the bound would be violated) or "easgd"
+    # (independent local SGD with a periodic pull toward a center).
+    mode: str = "stale"
+    # Max optimizer-step age S of the params a gradient may be computed
+    # against (mode "stale"); 0 is the synchronous schedule.
+    staleness_bound: int = 2
+    # Local SGD steps between elastic-averaging rounds (mode "easgd").
+    easgd_period: int = 4
+    # Elastic-averaging pull strength in (0, 1].
+    easgd_rho: float = 0.5
+    # Logical workers the virtual-clock scheduler simulates.
+    workers: int = 4
+    # A completion later than this multiple of the nominal step duration
+    # journals a ``straggler_detected`` event.
+    straggler_factor: float = 2.0
+
+    def __post_init__(self):
+        if self.mode not in ("off", "stale", "easgd"):
+            raise ValueError(
+                f"unknown async mode {self.mode!r} (off, stale or easgd)"
+            )
+        if self.staleness_bound < 0:
+            raise ValueError(
+                f"staleness_bound must be >= 0, got {self.staleness_bound}"
+            )
+        if self.easgd_period < 1:
+            raise ValueError(
+                f"easgd_period must be >= 1, got {self.easgd_period}"
+            )
+        if not (0.0 < self.easgd_rho <= 1.0):
+            raise ValueError(
+                f"easgd_rho must be in (0, 1], got {self.easgd_rho}"
+            )
+        if self.workers < 1:
+            raise ValueError(f"workers must be >= 1, got {self.workers}")
+        if self.straggler_factor <= 1.0:
+            raise ValueError(
+                f"straggler_factor must be > 1, got {self.straggler_factor}"
+            )
+
+    @property
+    def enabled(self) -> bool:
+        return self.mode != "off"
+
+    @staticmethod
+    def from_env() -> Optional["AsyncConfig"]:
+        """AsyncConfig from PCNN_ASYNC_MODE / PCNN_ASYNC_STALENESS /
+        PCNN_ASYNC_EASGD_PERIOD / PCNN_ASYNC_EASGD_RHO /
+        PCNN_ASYNC_WORKERS, or None when none of them is set."""
+        mode = os.environ.get("PCNN_ASYNC_MODE")
+        bound = os.environ.get("PCNN_ASYNC_STALENESS")
+        period = os.environ.get("PCNN_ASYNC_EASGD_PERIOD")
+        rho = os.environ.get("PCNN_ASYNC_EASGD_RHO")
+        workers = os.environ.get("PCNN_ASYNC_WORKERS")
+        if (mode is None and bound is None and period is None
+                and rho is None and workers is None):
+            return None
+        return AsyncConfig(
+            mode=mode or "stale",
+            staleness_bound=int(bound) if bound else 2,
+            easgd_period=int(period) if period else 4,
+            easgd_rho=float(rho) if rho else 0.5,
+            workers=int(workers) if workers else 4,
         )

@@ -22,7 +22,8 @@ library is never loaded. Concurrent builders (several test workers) take
 a file lock, build to a temporary name and ``os.replace`` it into place,
 so no process loads a half-written file. A build that fails raises
 ``NativeBuildError``; ``available()`` says whether the library can be
-loaded, for the ``"auto"`` modes that prefer it.
+loaded, for the ``"auto"`` modes that prefer it. ``PCNN_DISABLE_NATIVE=1``
+makes it unavailable (``load_lib``).
 """
 
 from __future__ import annotations
@@ -105,7 +106,14 @@ def _build(path: Path) -> None:
 
 def load_lib() -> ctypes.CDLL:
     """The native library, built if needed and loaded once per process;
-    raises NativeBuildError when it cannot be."""
+    raises NativeBuildError when it cannot be, or while
+    ``PCNN_DISABLE_NATIVE=1`` (JAX's chaos escape hatch,
+    resilience/chaos.py ``hidden_native_lib``: every caller then takes
+    the NumPy twins, as without a compiler). JAX reads the variable when
+    the module is imported; the port imports this module eagerly and
+    builds lazily, so it reads it at each load."""
+    if os.environ.get("PCNN_DISABLE_NATIVE") == "1":
+        raise NativeBuildError("native runtime disabled via PCNN_DISABLE_NATIVE=1")
     path = library_path()
     with _lock:
         lib = _libs.get(path)

@@ -31,6 +31,14 @@ starts them), and a mesh object is what one rank knows of the whole.
   reduction over both axes, ``(host, data)``), and its ``shard_rows``
   takes block r of H·D (JAX's ``P((host, data))``).
 
+- ``make_elastic_mesh``: JAX's re-mesh of an elastic run over its first
+  ``world`` surviving ranks, a ``HierMesh`` while the host count divides
+  the world and a flat ``DataMesh`` otherwise. The survivors are a prefix
+  of the spawned ranks, so a survivor's rank in the new mesh is its
+  global rank; the mesh's groups are sub-groups of the spawned world, and
+  a ``cache`` keeps one mesh view per (world, hosts) topology, so a lap
+  back to a topology already seen makes no new group.
+
 A ``DataMesh`` is an axis view of its own (``size``, ``index``, ``ranks``,
 ``group``): the collectives of parallel/collectives.py take either. A
 ``DataMesh`` may also stand for one line of a larger mesh (``line``,
@@ -246,6 +254,9 @@ class HierMesh:
     device: torch.device
     host: AxisView
     data: AxisView
+    # The group over the whole mesh when it is a prefix of a larger
+    # spawned world (make_elastic_mesh); None is the default group.
+    world_group: Any = None
 
     @property
     def shape(self):
@@ -267,7 +278,7 @@ class HierMesh:
 
     @property
     def group(self):
-        return None
+        return self.world_group
 
     def shard_rows(self, x: torch.Tensor) -> torch.Tensor:
         """This rank's rows of a global batch: block h·D + d of H·D (JAX's
@@ -299,6 +310,76 @@ def make_hier_mesh(rank: int, world: int, device: torch.device,
         host=AxisView(n_hosts, h, host_lines[d], groups.get(host_lines[d])),
         data=AxisView(n_data, d, data_lines[h], groups.get(data_lines[h])),
     )
+
+
+def spawned() -> Tuple[int, int]:
+    """(this process's rank, the spawned world) of the default group; (0,
+    1) outside any."""
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _prefix_group(line: Tuple[int, ...], reachable: int):
+    """The group of a line of the spawned world: none for one rank, the
+    default group for all of them, else a new one (every spawned rank
+    calls this, in the same order)."""
+    if len(line) <= 1 or len(line) == reachable:
+        return None
+    return dist.new_group(list(line))
+
+
+def make_elastic_mesh(world: int, *, n_hosts: int = 1,
+                      device: Optional[torch.device] = None,
+                      cache: Optional[dict] = None):
+    """This rank's view of JAX's ``make_elastic_mesh(world, n_hosts=)``:
+    the mesh over the first ``world`` ranks of the spawned world (rank
+    order is JAX's (process_index, id) order), hierarchical
+    (``HierMesh``, H = ``n_hosts`` rows) when ``n_hosts > 1`` divides
+    ``world``, a flat ``DataMesh`` otherwise; None on a rank outside the
+    survivors. Every spawned rank calls it with the same arguments (it
+    makes the mesh's groups). ``cache`` (a dict the caller keeps) holds
+    one view per (world, hosts): a topology already seen makes no new
+    group."""
+    rank, reachable = spawned()
+    if world < 1:
+        raise ValueError(f"elastic world must be >= 1, got {world}")
+    if world > reachable:
+        raise ValueError(
+            f"elastic world {world} exceeds the {reachable} "
+            "reachable devices")
+    hier = n_hosts > 1 and world % n_hosts == 0
+    key = (world, n_hosts if hier else 1)
+    if cache is not None and key in cache:
+        return cache[key]
+    device = device if device is not None else torch.device("cpu")
+    mesh = None
+    if hier:
+        n_data = world // n_hosts
+        host_lines = [tuple(hh * n_data + dd for hh in range(n_hosts))
+                      for dd in range(n_data)]
+        data_lines = [tuple(hh * n_data + dd for dd in range(n_data))
+                      for hh in range(n_hosts)]
+        lines = dict.fromkeys((*host_lines, *data_lines, tuple(range(world))))
+        groups = {line: _prefix_group(line, reachable) for line in lines}
+        if rank < world:
+            h, d = divmod(rank, n_data)
+            mesh = HierMesh(
+                world=world, rank=rank, device=device,
+                host=AxisView(n_hosts, h, host_lines[d], groups[host_lines[d]]),
+                data=AxisView(n_data, d, data_lines[h], groups[data_lines[h]]),
+                world_group=groups[tuple(range(world))])
+    else:
+        line = tuple(range(world))
+        group = _prefix_group(line, reachable)
+        if rank < world:
+            whole = world == reachable
+            mesh = DataMesh(world=world, rank=rank, device=device,
+                            line=None if whole else line,
+                            line_group=None if whole else group)
+    if cache is not None:
+        cache[key] = mesh
+    return mesh
 
 
 def _axis_names(mesh) -> Tuple[str, ...]:

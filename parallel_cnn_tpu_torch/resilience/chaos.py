@@ -2,10 +2,13 @@
 ``parallel_cnn_tpu/resilience/chaos.py``: the whole spec grammar, with
 JAX's error text, and the one-shot hooks).
 
-The port wires the serving faults: ``kill-replica@`` and
-``slow-replica@`` (serve/batcher.py), ``kill-endpoint@`` (serve/net.py)
-and ``slow-loris@`` (serve/loadgen.py's socket client); the trainer's
-``--chaos`` comes with a later slice (ROADMAP A6c). Faults:
+The port wires every fault JAX does: ``kill-replica@`` and
+``slow-replica@`` (serve/batcher.py), ``kill-endpoint@`` (serve/net.py),
+``slow-loris@`` (serve/loadgen.py's socket client), and the trainer's
+``--chaos``: ``nan@``, ``kill@`` and ``kill9@`` (train/trainer.py,
+train/zoo.py), ``resize@`` (resilience/elastic.py), ``slow-worker@``
+(train/async_dp.py) and ``slow-stage@`` (train/zoo.py's pipeline).
+Faults:
 
 - **NaN at step k** (``ChaosMonkey(nan_step=k)``): after the k-th
   optimizer step (host-side, 0-based, counted across epochs), the
@@ -21,9 +24,9 @@ and ``slow-loris@`` (serve/loadgen.py's socket client); the trainer's
 - **Checkpoint corruption** (``truncate_file`` / ``corrupt_file``):
   deterministic byte-level damage, for proving restore() fails loudly
   and the CheckpointRing falls through to the previous healthy file.
-- **Native library loss** (``hidden_native_lib``): not ported — the
-  port's ``data/native.py`` has no ``PCNN_DISABLE_NATIVE`` hook yet, so
-  it raises NotPortedError (ROADMAP A6c).
+- **Native library loss** (``hidden_native_lib``): inside the window
+  ``PCNN_DISABLE_NATIVE=1`` makes ``data/native.py`` unavailable, so the
+  NumPy twins are exercised; the variable is restored on exit.
 - **Device add/remove at step N** (``resize_delta=(N, ±k)``, spec
   ``resize@N:±k``): before optimizer step N (host-side, 0-based, counted
   across epochs) the elastic controller is told the data-parallel world
@@ -78,7 +81,6 @@ from typing import Any, Optional, Tuple
 
 import torch
 
-from parallel_cnn_tpu_torch.config import NotPortedError
 from parallel_cnn_tpu_torch.utils.tree import tree_map
 
 # Every spec kind ``from_spec`` accepts, in docstring order.  New kinds
@@ -373,11 +375,20 @@ def corrupt_file(path: str, *, seed: int = 0, n_bytes: int = 64) -> None:
 
 @contextlib.contextmanager
 def hidden_native_lib():
-    """JAX's native-library-loss window: not ported. The port's
-    ``data/native.py`` has no ``PCNN_DISABLE_NATIVE`` hook to force its
-    NumPy twins (its tests point ``$CXX`` at a missing compiler instead)."""
-    raise NotPortedError(
-        "hidden_native_lib needs the PCNN_DISABLE_NATIVE hook in "
-        "data/native.py (ROADMAP A6c)"
-    )
-    yield  # pragma: no cover - a generator for contextmanager
+    """Make the native C++ runtime unavailable for the duration.
+
+    Sets ``PCNN_DISABLE_NATIVE=1`` (``data/native.py``'s ``load_lib``
+    raises NativeBuildError before touching the toolchain, and
+    ``available()`` is False), so the NumPy fallback paths are
+    exercised; restores the variable on exit. JAX also evicts its
+    cached module, since it reads the variable at import; the port's
+    reads it at each load."""
+    saved_env = os.environ.get("PCNN_DISABLE_NATIVE")
+    os.environ["PCNN_DISABLE_NATIVE"] = "1"
+    try:
+        yield
+    finally:
+        if saved_env is None:
+            os.environ.pop("PCNN_DISABLE_NATIVE", None)
+        else:
+            os.environ["PCNN_DISABLE_NATIVE"] = saved_env

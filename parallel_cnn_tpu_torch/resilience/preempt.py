@@ -1,10 +1,14 @@
 """Preemption safety: SIGTERM/SIGINT → "checkpoint and stop cleanly" (the
-port's copy of ``parallel_cnn_tpu/resilience/preempt.py``, without the
-elastic resize channel, which comes with elastic training).
+port's copy of ``parallel_cnn_tpu/resilience/preempt.py``, with its
+elastic resize channel).
 
 The signal sets a flag; the epoch loop polls ``requested()`` at its
 checkpoint boundary, flushes the final atomic checkpoint through the
 normal per-epoch path and returns, so ``--resume`` continues bit-exactly.
+The resize channel (``request_resize``) carries a payload instead: the
+data world is about to become N ranks, and the elastic controller
+(resilience/elastic.py) consumes it at the next optimizer step. The
+channel is per process; a run of several ranks agrees on rank 0's.
 The handler only records the request (Python runs it between bytecodes on
 the main thread, possibly mid-step). A second signal restores the default
 disposition and re-raises: Ctrl-C twice still exits at once.
@@ -67,6 +71,45 @@ def requested() -> bool:
 
 def reset() -> None:
     _flag.clear()
+
+
+# --- elastic resize channel -------------------------------------------
+#
+# Distinct from the shutdown flag on purpose: a resize request must not
+# make PreemptionGuard report the run as preempted.
+
+_resize_lock = threading.Lock()
+_resize_world: list = []  # empty = no pending request; else [target_world]
+
+
+def request_resize(world: int) -> None:
+    """Announce a pending world-size change to ``world`` ranks.
+    Thread-safe; the newest request wins if several arrive between
+    polls."""
+    if world < 1:
+        raise ValueError(f"resize target must be >= 1, got {world}")
+    with _resize_lock:
+        _resize_world[:] = [world]
+    log.warning(
+        "resize requested: world -> %d at the next microbatch boundary",
+        world,
+    )
+
+
+def resize_requested() -> "int | None":
+    """The pending target world size, or None. Does not consume it."""
+    with _resize_lock:
+        return _resize_world[0] if _resize_world else None
+
+
+def clear_resize() -> "int | None":
+    """Consume and return the pending resize request (None if absent)."""
+    with _resize_lock:
+        if _resize_world:
+            world = _resize_world[0]
+            _resize_world.clear()
+            return world
+        return None
 
 
 class PreemptionGuard:

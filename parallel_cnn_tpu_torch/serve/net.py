@@ -243,9 +243,14 @@ class NetServer:
             self._seq += 1
             return s
 
-    def _track(self, seq: int) -> None:
+    def _accept(self) -> int:
+        """The next wire sequence number, in flight from this moment: a
+        kill() from here on claims it, whatever the handler is doing."""
         with self._lock:
-            self._inflight[seq] = False
+            s = self._seq
+            self._seq += 1
+            self._inflight[s] = False
+            return s
 
     def _untrack(self, seq: int) -> bool:
         """Remove a wire request from the in-flight set; True when
@@ -345,8 +350,15 @@ class NetServer:
                 return
 
     def _one_request(self, sock, line: bytes) -> bool:
-        """Resolve one complete wire request; False closes the conn."""
-        seq = self._next_seq()
+        """Resolve one complete wire request; False closes the conn.
+
+        The request is in flight from its acceptance on, before it is
+        parsed or reaches the batcher (JAX tracks it only once the
+        batcher holds it, so a kill in between left it to the handler,
+        which could find its answer ready, fail the write and count it
+        expired): every outcome below first asks ``_untrack`` whether a
+        kill() already claimed it."""
+        seq = self._accept()
         self.wire.on_submit()
         if self.obs.enabled:
             self.obs.event("net_submit", seq=seq)
@@ -354,7 +366,6 @@ class NetServer:
             # Chaos: the endpoint dies having accepted this request —
             # kill() below claims it (and every other in-flight one) as
             # net_failed; the client sees a dropped connection.
-            self._track(seq)
             self.kill(reason=f"chaos kill-endpoint@{seq}")
             return False
         try:
@@ -372,6 +383,8 @@ class NetServer:
                 else self.conn_deadline_s * 1e3
             )
         except (ValueError, KeyError, TypeError) as e:
+            if self._untrack(seq):
+                return False
             self.wire.on_failed()
             if self.obs.enabled:
                 self.obs.event("net_failed", seq=seq, reason="bad request")
@@ -383,6 +396,8 @@ class NetServer:
             fut = self.batcher.submit(x, deadline_ms=budget,
                                       priority=priority)
         except Overloaded as e:
+            if self._untrack(seq):
+                return False
             self.wire.on_shed()
             if self.obs.enabled:
                 self.obs.event("net_shed", seq=seq)
@@ -391,6 +406,8 @@ class NetServer:
                 "message": str(e),
             })
         except (ValueError, RuntimeError) as e:
+            if self._untrack(seq):
+                return False
             self.wire.on_failed()
             if self.obs.enabled:
                 self.obs.event("net_failed", seq=seq, reason=str(e))
@@ -398,7 +415,6 @@ class NetServer:
                 "id": rid, "ok": False, "error": "BadRequest",
                 "message": str(e),
             })
-        self._track(seq)
         outcome, payload = self._await(fut, rid, budget)
         if self._untrack(seq):
             # kill() already journaled this one as net_failed; the

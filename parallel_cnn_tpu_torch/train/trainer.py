@@ -14,6 +14,14 @@ DP × model-parallel step (parallel/intra_op.py) otherwise. Every rank
 draws the same fixed-shape (drop-tail) batch order from the epoch seed and
 takes its rows; every verdict that stops or rolls back a run is agreed
 over the world, so the ranks never part at a collective.
+
+Chaos and obs (JAX's trainer.py:142, :269-335): a ``ChaosMonkey`` is
+consulted after every optimizer step (the per-sample epoch counts as
+one: ``nan@STEP`` poisons the params) and at every epoch boundary
+(``kill@``/``kill9@``); an ``obs.Obs`` bundle gets JAX's ``train.epoch``
+and ``train.readback`` spans, its ``verdict``, ``rollback``, ``epoch``,
+``chaos`` and ``preempt`` events, and a ``train`` collector (epochs,
+steps, rollbacks) on its metrics registry.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from parallel_cnn_tpu_torch import obs as obs_lib
 from parallel_cnn_tpu_torch.config import Config, MeshLayoutError, TrainConfig
 from parallel_cnn_tpu_torch.data import native, pipeline
 from parallel_cnn_tpu_torch.models import lenet_ref
@@ -131,7 +140,9 @@ def learn(
     verbose: bool = True,
     epoch_offset: int = 0,
     epoch_callback=None,
+    chaos=None,
     ring=None,
+    obs=None,
     device: DeviceLike = None,
     mesh=None,
 ) -> TrainResult:
@@ -148,8 +159,10 @@ def learn(
     run it restarts. ``epoch_callback(epoch, params, err)`` (global,
     1-based epoch) fires after every epoch. Each epoch's loss and params
     pass the health sentinel (cfg.resilience); a preemption signal stops
-    the loop at the next epoch boundary, after the callback.
-    ``device=None`` means the GPU; only ``"cpu"`` runs on the host.
+    the loop at the next epoch boundary, after the callback. ``chaos`` (a
+    resilience.ChaosMonkey) is consulted after every optimizer step and
+    at every epoch boundary; ``obs`` (an obs.Obs) takes the spans and
+    events. ``device=None`` means the GPU; only ``"cpu"`` runs on the host.
 
     ``mesh`` (this rank's ``Mesh2D``; every rank calls ``learn`` with the
     same arguments) trains over the mesh on its device: ``params`` and the
@@ -161,6 +174,7 @@ def learn(
     """
     tc = cfg.train
     res = cfg.resilience
+    obs = obs if obs is not None else obs_lib.NOOP
     dev = mesh.device if mesh is not None else resolve_device(device)
     batcher_cls = _native_batcher_cls(tc)
     if params is None:
@@ -210,12 +224,23 @@ def learn(
         if controller is not None:
             controller.commit(params)
 
+    def chaos_step(p, e):
+        return chaos.after_step(p, e) if chaos is not None else (p, e)
+
+    if obs.enabled and obs.registry is not None:
+        # The run's progress, pulled when the metrics snapshot is written.
+        obs.registry.attach("train", lambda: {
+            "epochs": len(result.epoch_errors), "steps": result.steps,
+            "rollbacks": result.rollbacks})
+
     epoch = 0
+    chaos_logged = False
     while epoch < tc.epochs:
         # Per-epoch derived seed: every epoch reshuffles, and a resumed run
         # draws the same order as the continuous one.
         epoch_seed = tc.seed + epoch_offset + epoch
-        with sw:
+        with sw, obs.span("train.epoch", cat="train",
+                          epoch=epoch_offset + epoch + 1):
             if tc.batch_size == 1:
                 if tc.shuffle:
                     perm = np.random.default_rng(epoch_seed).permutation(len(train))
@@ -223,7 +248,7 @@ def learn(
                     ex, ey = images[perm], labels[perm]
                 else:
                     ex, ey = images, labels
-                params, err = step_lib.scan_epoch(params, ex, ey, dt)
+                params, err = chaos_step(*step_lib.scan_epoch(params, ex, ey, dt))
                 result.steps += len(train)
             elif batcher_cls is not None and steps_per_epoch > 0:
                 # The native prefetch ring: its host batches, each copied to
@@ -232,10 +257,10 @@ def learn(
                 for bx, by in pipeline.device_batches(_fixed_shape_batches(
                         train, tc, epoch_seed, batcher_cls, steps_per_epoch), dev):
                     if mesh_step is not None:
-                        params, e = mesh_step(params, mesh.shard_rows(bx),
-                                              mesh.shard_rows(by))
+                        params, e = chaos_step(*mesh_step(params, mesh.shard_rows(bx),
+                                                          mesh.shard_rows(by)))
                     else:
-                        params, e = batched_step(params, bx, by, dt)
+                        params, e = chaos_step(*batched_step(params, bx, by, dt))
                     errs.append(e)
                 result.steps += steps_per_epoch
                 err = torch.mean(torch.stack(errs))
@@ -267,9 +292,10 @@ def learn(
                     j = flat[start:start + len(idx)]
                     start += len(idx)
                     if mesh_step is not None:
-                        params, e = mesh_step(params, images[j], labels[j])
+                        params, e = chaos_step(*mesh_step(params, images[j], labels[j]))
                     else:
-                        params, e = batched_step(params, images[j], labels[j], dt)
+                        params, e = chaos_step(*batched_step(params, images[j],
+                                                             labels[j], dt))
                     errs.append(e)
                     weights.append(len(idx))
                 result.steps += len(order)
@@ -279,7 +305,8 @@ def learn(
                 else:
                     w = torch.tensor(weights, dtype=torch.float32, device=dev)
                     err = torch.sum(errs * w) / torch.sum(w)
-            err = float(err)  # blocks: everything above is asynchronous
+            with obs.span("train.readback", cat="train"):
+                err = float(err)  # blocks: everything above is asynchronous
 
         if sentinel is not None:
             verdict = sentinel.check(loss=err, params=params)
@@ -288,6 +315,9 @@ def learn(
                 verdict = Verdict(False, "non-finite params on another rank")
             if not verdict.healthy:
                 g_epoch = epoch_offset + epoch + 1
+                if obs.enabled:
+                    obs.event("verdict", healthy=False, epoch=g_epoch,
+                              reason=verdict.reason, policy=res.policy)
                 if res.policy == "raise":
                     raise DivergenceError(f"epoch {g_epoch}: {verdict.reason}")
                 if res.policy == "skip":
@@ -305,6 +335,10 @@ def learn(
                     like=params, reason=f"epoch {g_epoch}: {verdict.reason}"
                 )
                 result.rollbacks = controller.rollbacks
+                if obs.enabled:
+                    obs.event("rollback", epoch=g_epoch,
+                              rollbacks=controller.rollbacks,
+                              lr_scale=controller.lr_scale)
                 new_dt = tc.dt * controller.lr_scale
                 if new_dt != dt and build_mesh_step is not None:
                     mesh_step = build_mesh_step(new_dt)
@@ -315,8 +349,16 @@ def learn(
                 controller.commit(params)
 
         result.epoch_errors.append(err)
+        if obs.enabled:
+            obs.event("epoch", epoch=epoch_offset + epoch + 1, loss=err,
+                      seconds=sw.total)
         if epoch_callback is not None:
             epoch_callback(epoch_offset + epoch + 1, _whole(params, mesh), err)
+        if chaos is not None:
+            if obs.enabled and chaos.nan_fired and not chaos_logged:
+                chaos_logged = True
+                obs.event("chaos", injected="nan", epoch=epoch_offset + epoch + 1)
+            chaos.at_epoch(epoch_offset + epoch + 1)
         if verbose:
             # ≙ fprintf at Sequential/Main.cpp:174
             print(f"error: {err:e}, time_on_cpu: {sw.total:f}")
@@ -329,6 +371,8 @@ def learn(
         if _agree(preempt.requested(), mesh):
             # epoch_callback already flushed this epoch's checkpoint.
             result.preempted = True
+            if obs.enabled:
+                obs.event("preempt", epoch=epoch_offset + epoch + 1)
             if verbose:
                 print(f"preemption: stopping after epoch "
                       f"{epoch_offset + epoch + 1} (checkpoint flushed)")

@@ -105,8 +105,13 @@ checkpoints gather them (``zero3_params``, ``zero3_full_view``: every
 rank calls them); a checkpoint is JAX's sharded file, the full view that
 ``zero3_from_view`` lays out for any mesh.
 
-Not here (ROADMAP): elastic and chaos, the per-step sentinel cadence,
-profiling.
+Elastic ZeRO-3 (``train(..., elastic=)``, JAX's zoo.py:1633-1800 with
+resilience/elastic.py): the world resizes in flight over the spawned
+ranks, the state resharded through the full view. The trainer's chaos
+(``nan@``, ``kill@``, ``resize@``, ``slow-stage@``), the per-step sentinel
+cadence and JAX's obs spans and events ride the same loop.
+
+Not here (ROADMAP A13): profiling and the execution plan.
 """
 
 from __future__ import annotations
@@ -126,8 +131,10 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from parallel_cnn_tpu_torch import obs as obs_lib
 from parallel_cnn_tpu_torch.config import (
     CommConfig,
+    ElasticConfig,
     FusedStepConfig,
     ResilienceConfig,
 )
@@ -142,6 +149,7 @@ from parallel_cnn_tpu_torch.parallel.mesh import (
     Mesh2D,
     PipelineMesh,
     as_mesh_2d,
+    make_elastic_mesh,
 )
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
@@ -500,8 +508,11 @@ def _fill_params(params: Sequence[torch.Tensor],
 
 def _own_storage(params: Sequence[torch.Tensor]) -> None:
     """Make every parameter the sole, compact owner of its storage, so
-    that releasing it frees exactly its bytes."""
+    that releasing it frees exactly its bytes (a released one already
+    is)."""
     for p in params:
+        if p.untyped_storage().nbytes() == 0 < p.numel():
+            continue
         if (p.storage_offset() or not p.is_contiguous()
                 or p.untyped_storage().nbytes() != p.numel() * p.element_size()):
             p.data = p.data.clone()
@@ -636,6 +647,58 @@ def zero3_from_view(state: ZooState, view: Dict[str, torch.Tensor]) -> None:
     opt.scale = torch.as_tensor(view["scale"]).to(dev, torch.float32).clone()
     opt.good_steps = torch.as_tensor(view["good_steps"]).to(dev, torch.int32).clone()
     opt.skipped = torch.as_tensor(view["skipped"]).to(dev, torch.int32).clone()
+
+
+def zero3_view_like(model: nn.Module, device=None) -> Dict[str, torch.Tensor]:
+    """A zero tree of ``zero3_full_view``'s keys, shapes and dtypes for
+    ``model`` (on ``device``, default its buffers' or the CPU): what a
+    rank that holds no state receives a view into, and the structure a
+    sharded checkpoint is read against. Reads no parameter's storage."""
+    bufs = {k: t for k, t in model.state_dict().items()
+            if k in {n for n, _ in model.named_buffers()}}
+    if device is None:
+        device = next(iter(bufs.values())).device if bufs else torch.device("cpu")
+    view = {}
+    for n, p in jax_ordered_params(model):
+        for tree in ("params", "mom"):
+            view[f"{tree}/{_jax_path(n)}"] = torch.zeros(
+                tuple(p.shape), dtype=torch.float32, device=device)
+    for k, t in bufs.items():
+        view[f"model_state/{_jax_path(k)}"] = torch.zeros(
+            tuple(t.shape), dtype=t.dtype, device=device)
+    view.update(scale=torch.zeros((), dtype=torch.float32, device=device),
+                good_steps=torch.zeros((), dtype=torch.int32, device=device),
+                skipped=torch.zeros((), dtype=torch.int32, device=device))
+    return view
+
+
+def zero3_state_from_view(model: nn.Module, optimizer: SGD, view, *,
+                          mesh: Union[DataMesh, HierMesh],
+                          bucket_bytes: int) -> Tuple[ZooState, collectives.BucketPlan]:
+    """(ZooState, plan) for ``mesh`` laid out from a full view: JAX's
+    ``zero3_from_view(view, n_data=, bucket_bytes=, n_host=)``, which
+    builds the state from the view alone (the port's state also holds
+    ``model``, whose parameters' storage is released here, and
+    ``optimizer``). The loss-scale state comes from the view. Bit-exact:
+    ``zero3_full_view`` of the result is ``view``."""
+    params = [p for _, p in jax_ordered_params(model)]
+    n_host, n_data = _mesh_shape(mesh)
+    plan = collectives.plan_buckets(params, bucket_bytes, shards=n_host * n_data)
+    dev = mesh.device
+    rows = [torch.zeros((1, size // (n_host * n_data)), dtype=torch.float32, device=dev)
+            for size in plan.bucket_sizes]
+    opt = FusedOptState(
+        mom=[torch.zeros_like(r) for r in rows],
+        scale=torch.ones((), dtype=torch.float32, device=dev),
+        good_steps=torch.zeros((), dtype=torch.int32, device=dev),
+        skipped=torch.zeros((), dtype=torch.int32, device=dev),
+    )
+    _own_storage(params)
+    _release_params(params)
+    state = ZooState(model, optimizer, {}, fused=opt, mesh=mesh,
+                     zero3=Zero3Params(rows, plan))
+    zero3_from_view(state, view)
+    return state, plan
 
 
 @contextlib.contextmanager
@@ -1321,6 +1384,10 @@ def train(
     metrics=None,
     loader: str = "device",
     resilience: Optional[ResilienceConfig] = None,
+    chaos=None,
+    obs=None,
+    elastic: Optional[ElasticConfig] = None,
+    elastic_world: Optional[int] = None,
     device: DeviceLike = None,
 ) -> Tuple[ZooState, List[float]]:
     """Epoch driver for a zoo model on an in-memory NHWC dataset (JAX's
@@ -1375,7 +1442,33 @@ def train(
     computes its own loss; bf16 stage compute is ``pipeline.act_dtype``).
     It takes no model axis and no augmentation. Parameters stay
     replicated on every rank; rank 0 (stage 0's first data rank)
-    evaluates and writes the checkpoints.
+    evaluates and writes the checkpoints. ``chaos`` ``slow-stage@STEP:MS``
+    stalls it once at the step-STEP dispatch (journaled
+    ``chaos_slow_stage``).
+
+    ``elastic`` (a ``config.ElasticConfig``; needs ZeRO-3) is JAX's
+    in-flight re-mesh (resilience/elastic.py): before each optimizer step
+    every rank polls the ``ElasticController`` (rank 0's preempt resize
+    request, then chaos ``resize@STEP:±K``, then the schedule); on a
+    trigger the state is resharded over the first N ranks of ``mesh``
+    (the spawned world, the reachable ranks) and the ZeRO-3 step rebuilt
+    at ``lr_for(lr)``. ``elastic_world`` ranks train at the start
+    (default all); a rank outside the world holds no state, walks the
+    same batches and rejoins when it grows. ``scaling="per-device"``
+    rescales the global batch at epoch boundaries. The augmentation of a
+    step draws from a stream seeded by the optimizer step and the rank.
+
+    ``chaos`` (a ``ChaosMonkey``): ``nan@STEP`` poisons the state after
+    optimizer step STEP (every floating leaf, as JAX's ``after_step``
+    does to its state tree; journaled ``chaos``), ``kill@``/``kill9@``
+    signal the process after an epoch, ``resize@`` feeds ``elastic``.
+    ``resilience.check_every_steps`` adds the sentinel every N steps (a
+    host sync each, agreed over the world). ``obs`` (an ``obs.Obs``, rank
+    0's; None is the no-op bundle): JAX's ``zoo.data``, ``zoo.dispatch``
+    and ``zoo.readback`` spans and its ``comm_plan``, ``comm_bucket``,
+    ``loss_scale``, ``step_loss``, ``verdict``, ``rollback``, ``epoch``,
+    ``checkpoint``, ``preempt`` and resize events, and a ``zoo`` collector
+    (epochs, optimizer steps, resizes) on its metrics registry.
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
@@ -1408,7 +1501,10 @@ def train(
     dev = resolve_device(device)
     rank = mesh.rank if mesh is not None else 0
     world = mesh.world if mesh is not None else 1
-    n_data = mesh.data.size if gspmd or pipe else world
+    # An elastic run starts on the first ``elastic_world`` ranks.
+    start_world = (elastic_world if elastic is not None and elastic.enabled
+                   and elastic_world else world)
+    n_data = mesh.data.size if gspmd or pipe else start_world
     lead = rank == 0
     verbose = verbose and lead
     steps = images.shape[0] // batch_size
@@ -1445,6 +1541,13 @@ def train(
             "pipeline composes with ZeRO-2 only: ZeRO-3's just-in-"
             "time head gathers contradict per-stage param residency "
             "(docs/pipeline.md)")
+    use_elastic = elastic is not None and elastic.enabled
+    if use_elastic and not use_zero3:
+        raise ValueError(
+            "elastic training requires the ZeRO-3 step (fused.zero=3 "
+            "with mesh + ring/hierarchical comm) — its world-size-"
+            "independent full view is what makes in-flight resharding "
+            "possible; enable it or drop --elastic")
     if pipe and fused is not None and not use_fused_update:
         # The fused tail and bf16 cast ride the flat step's loss, which
         # the per-stage schedule replaces (bf16 stage compute is
@@ -1456,7 +1559,19 @@ def train(
         total_steps=steps * epochs if lr_schedule == "cosine" else None,
     )
     model.to(dev)
+    obs = obs if obs is not None else obs_lib.NOOP
     pad = augment_pad if augment else None
+    # Elastic: the ranks of ``mesh`` are the reachable ones; the run trains
+    # on the first ``start_world`` of them (``active``, None on the rest),
+    # meshes cached per topology from the spawned one on.
+    active = mesh
+    mesh_cache = None
+    if use_elastic:
+        hosts0 = mesh.host.size if isinstance(mesh, HierMesh) else 1
+        mesh_cache = {(world, hosts0): mesh}
+        active = make_elastic_mesh(start_world, n_hosts=hosts0, device=dev,
+                                   cache=mesh_cache)
+    z3_plan = None
     if pipe:
         from parallel_cnn_tpu_torch.train.pipeline_schedule import make_pipeline_step
 
@@ -1470,12 +1585,15 @@ def train(
             accum_steps=accum_steps, mesh=mesh, pipeline=pipeline,
             in_shape=tuple(images.shape[1:]), comm=comm,
             fused=fused if use_fused_update else None, lr=lr, momentum=momentum)
+    elif use_zero3 and active is None:
+        # A rank outside the elastic world: the module alone, no rows.
+        state, step = ZooState(model, optimizer, {}), None
     elif use_zero3:
-        state, z3_plan = init_zero3_state(model, optimizer, mesh=mesh, fused=fused,
+        state, z3_plan = init_zero3_state(model, optimizer, mesh=active, fused=fused,
                                           bucket_bytes=comm.bucket_bytes)
         step = make_zero3_train_step(
             model, lr=lr, momentum=momentum, accum_steps=accum_steps,
-            mesh=mesh, augment_pad=pad, comm=comm, fused=fused, plan=z3_plan)
+            mesh=active, augment_pad=pad, comm=comm, fused=fused, plan=z3_plan)
     elif use_fused_update:
         state, _ = init_fused_state(model, optimizer, mesh=mesh, fused=fused,
                                     bucket_bytes=comm.bucket_bytes)
@@ -1488,6 +1606,21 @@ def train(
         step = make_train_step(model, optimizer, accum_steps, pad, fused,
                                mesh=mesh, comm=comm, model_axis=model_axis)
 
+    def live() -> bool:
+        """Whether this rank holds training state (a rank outside the
+        elastic world holds none)."""
+        return step is not None
+
+    if obs.enabled and comm is not None and comm.impl in ("ring", "hierarchical"):
+        # The bucket schedule, once, from the planner the step uses.
+        n_shards = active.world if active is not None else start_world
+        _plan = collectives.plan_buckets([p for _, p in jax_ordered_params(model)],
+                                         comm.bucket_bytes, shards=n_shards)
+        obs.event("comm_plan", impl=comm.impl, n_buckets=_plan.n_buckets,
+                  bucket_bytes=comm.bucket_bytes, shards=n_shards)
+        for _bi, (_sz, _dt) in enumerate(zip(_plan.bucket_sizes, _plan.bucket_dtypes)):
+            obs.event("comm_bucket", bucket=_bi, elements=_sz, dtype=_dt)
+
     res = resilience
     sentinel = Sentinel() if res is not None and res.policy != "off" else None
     controller = None
@@ -1499,10 +1632,11 @@ def train(
         if use_zero3:
             # The ring's files carry the full view (every rank gathered it),
             # marked sharded: resume lays it out for its own mesh, and
-            # restore / load_params refuse it.
+            # restore / load_params refuse it. The world is the plan's when
+            # the file is written (after an elastic resize, the new one).
             saver = lambda path, view, tstate: checkpoint.save_sharded(  # noqa: E731
-                path, view, tstate, world_size=world, bucket_bytes=comm.bucket_bytes,
-                rank=rank)
+                path, view, tstate, world_size=z3_plan.shards,
+                bucket_bytes=comm.bucket_bytes, rank=rank)
         ring = CheckpointRing(checkpoint_dir,
                               keep=res.ring_size if res is not None else 0,
                               saver=saver)
@@ -1515,8 +1649,9 @@ def train(
         if path:
             if use_zero3:
                 view, tstate, _ = checkpoint.restore_sharded(
-                    path, state.checkpoint_arrays())
-                zero3_from_view(state, view)
+                    path, zero3_view_like(model, dev))
+                if live():
+                    zero3_from_view(state, view)
             else:
                 arrays, tstate = checkpoint.restore(path, state.checkpoint_arrays())
                 state.load(arrays)
@@ -1525,6 +1660,19 @@ def train(
             accs = list(tstate.extra.get("epoch_accs", []))
             if verbose:
                 print(f"resumed from {path} (epoch {start_epoch})")
+
+    ectl = None
+    if use_elastic:
+        from parallel_cnn_tpu_torch.resilience.elastic import ElasticController
+
+        # Built after the ring and the resume, as JAX's: the ring is the
+        # snapshot fallback, the template the state that will train.
+        ectl = ElasticController(elastic, world=start_world, n_hosts=hosts0,
+                                 chaos=chaos, ring=ring, obs=obs, reachable=world,
+                                 device=dev)
+        ectl.meshes = mesh_cache
+        if live():
+            ectl.register_template(zero3_full_view(state))
 
     np_data = None
     if loader == "native":
@@ -1539,16 +1687,20 @@ def train(
         ev = (torch.from_numpy(np.asarray(eval_data[0], np.float32)).to(dev),
               torch.from_numpy(np.asarray(eval_data[1])).to(dev, torch.int64))
 
-    skip_seen = int(state.fused.skipped) if use_fused_update else 0
+    skip_seen = int(state.fused.skipped) if use_fused_update and live() else 0
 
     def health_check(loss_val: float):
         # Under update-on-arrival a non-finite gradient the step already
         # skipped (skip counter advanced, masters finite) is handled.
         nonlocal skip_seen
+        if not live():
+            return Verdict(True, "")
         params = state.zero3.rows if use_zero3 else list(state.model.parameters())
         if not use_fused_update:
             return sentinel.check(loss=loss_val, params=params)
         now = int(state.fused.skipped)
+        if obs.enabled and now != skip_seen:
+            obs.event("loss_scale", skipped=now, scale=float(state.fused.scale))
         verdict = sentinel.check_scaled(
             loss=loss_val, params=params, skipped_before=skip_seen,
             skipped_now=now, scale=float(state.fused.scale))
@@ -1557,61 +1709,161 @@ def train(
             print(f"sentinel: {verdict.reason}")
         return verdict
 
-    last_good = None
-    if sentinel is not None:
-        last_good = state.snapshot()
+    def agreed(verdict):
+        if _agree(not verdict.healthy, mesh) and verdict.healthy:
+            # A shard elsewhere diverged: this rank follows its verdict.
+            return Verdict(False, "non-finite params on another rank")
+        return verdict
+
+    def commit_last_good():
+        snap = state.snapshot() if live() else {}
         if controller is not None:
-            controller.commit(last_good)
+            controller.commit(snap)
+        return snap
+
+    last_good = commit_last_good() if sentinel is not None else None
     # The GSPMD step crops its rows of the global batch's draws, from the
     # single-device stream; the explicit path's ranks draw their own.
     aug_batch, aug_rank = (batch_size, 0) if gspmd else (batch_size // world, rank)
+    n = images.shape[0]
     epoch = start_epoch
+    # The optimizer step across epochs (and rollback retries): what
+    # resize@STEP, schedule STEP:WORLD and slow-stage@STEP name.
+    opt_steps = start_epoch * steps
+    chaos_logged = False
+    if obs.enabled and obs.registry is not None:
+        # The run's progress, pulled when the metrics snapshot is written.
+        obs.registry.attach("zoo", lambda: {
+            "epochs": len(losses), "steps": opt_steps,
+            "resizes": len(ectl.events) if ectl is not None else 0})
     while epoch < epochs:
         t0 = time.perf_counter()
+        # The epoch's batch geometry: fixed unless the elastic
+        # "per-device" policy rescales the global batch with the world
+        # (at epoch boundaries only).
+        if ectl is not None:
+            ebatch = min(ectl.global_batch_for(batch_size), n)
+            esteps = max(n // ebatch, 1)
+        else:
+            ebatch, esteps = batch_size, steps
         aug = None
-        if augment:
+        if augment and ectl is None:
             offsets, flips = aug_lib.draw(_aug_generator(seed, epoch, aug_rank),
                                           steps * aug_batch, augment_pad)
             aug = (offsets.to(dev).view(steps, aug_batch, 2),
                    flips.to(dev).view(steps, aug_batch))
         epoch_loss = torch.zeros((), dtype=torch.float32, device=dev)
-        batches = _epoch_batches(loader, d_images, d_labels, np_data,
-                                 batch_size, steps, seed, epoch, dev)
-        for i, (bx, by) in enumerate(batches):
-            loss = step(state, bx, by,
-                        None if aug is None else (aug[0][i], aug[1][i]))
+        batch_iter = enumerate(_epoch_batches(loader, d_images, d_labels, np_data,
+                                              ebatch, esteps, seed, epoch, dev))
+        diverged = None
+        while True:
+            with obs.span("zoo.data", cat="data"):
+                item = next(batch_iter, None)
+            if item is None:
+                break
+            i, (bx, by) = item
+            if ectl is not None:
+                target = ectl.pending(opt_steps)
+                if target is not None and ebatch % target:
+                    # JAX's step refuses the batch on the new mesh
+                    # (shard_map's divisibility error); every rank raises
+                    # here, before the resize's collectives.
+                    raise ValueError(
+                        f"global batch {ebatch} does not divide over {target} "
+                        "ranks (no silent sample dropping)")
+                if target is not None:
+                    # Step-boundary resize: the state resharded for the
+                    # new world, the step rebuilt for it.
+                    state, z3_plan, active, comm = ectl.resize(
+                        opt_steps, target, state=state if live() else None,
+                        comm=comm, model=model, optimizer=optimizer)
+                    if active is None:
+                        state, step = ZooState(model, optimizer, {}), None
+                    else:
+                        step = make_zero3_train_step(
+                            model, lr=ectl.lr_for(lr), momentum=momentum,
+                            accum_steps=accum_steps, mesh=active, augment_pad=pad,
+                            comm=comm, fused=fused, plan=z3_plan)
+                    epoch_loss = torch.tensor(float(epoch_loss), device=dev)
+                    skip_seen = int(state.fused.skipped) if live() else 0
+                    if sentinel is not None:
+                        # The old layout's snapshot cannot load into the new
+                        # one: a rollback returns to this resize.
+                        last_good = commit_last_good()
+            a = None
+            if aug is not None:
+                a = (aug[0][i], aug[1][i])
+            elif augment and live():
+                o, f = aug_lib.draw(_aug_generator(seed, opt_steps, active.rank),
+                                    ebatch // active.world, augment_pad)
+                a = (o.to(dev), f.to(dev))
+            if chaos is not None and pipe:
+                stall = chaos.slow_stage_at(opt_steps)
+                if stall is not None:
+                    time.sleep(stall / 1000.0)
+                    if obs.enabled:
+                        obs.event("chaos_slow_stage", step=opt_steps, ms=stall)
+            with obs.span("zoo.dispatch", cat="step"):
+                if live():
+                    loss = step(state, bx, by, a)
+                else:
+                    loss = torch.zeros((), dtype=torch.float32, device=dev)
+            opt_steps += 1
+            if chaos is not None:
+                fired = chaos.nan_fired
+                arrays, loss = chaos.after_step(state.arrays() if live() else {}, loss)
+                if chaos.nan_fired and not fired and live():
+                    state.load(arrays)
+                if obs.enabled and chaos.nan_fired and not chaos_logged:
+                    chaos_logged = True
+                    obs.event("chaos", injected="nan", step=i, epoch=epoch + 1)
             epoch_loss = epoch_loss + loss
-        mean_loss = float(epoch_loss) / steps  # the epoch's one readback
-        if sentinel is not None:
-            verdict = health_check(mean_loss)
-            if _agree(not verdict.healthy, mesh) and verdict.healthy:
-                # A shard elsewhere diverged: this rank follows its verdict.
-                verdict = Verdict(False, "non-finite params on another rank")
+            if (sentinel is not None and res.check_every_steps
+                    and (i + 1) % res.check_every_steps == 0):
+                step_loss = float(loss)
+                if obs.enabled:
+                    obs.event("step_loss", epoch=epoch + 1, step=i, loss=step_loss)
+                verdict = agreed(health_check(step_loss))
+                if not verdict.healthy:
+                    diverged = f"step {i} of epoch {epoch + 1}: {verdict.reason}"
+                    break
+        with obs.span("zoo.readback", cat="step"):
+            mean_loss = float(epoch_loss) / esteps  # the epoch's one readback
+        if diverged is None and sentinel is not None:
+            verdict = agreed(health_check(mean_loss))
             if not verdict.healthy:
                 diverged = f"epoch {epoch + 1}: {verdict.reason}"
-                if res.policy == "raise":
-                    raise DivergenceError(diverged)
-                if res.policy == "skip":
-                    if verbose:
-                        print(f"sentinel: {diverged} — epoch discarded")
-                    state.load(last_good)
-                    epoch += 1
-                    continue
-                # rollback: the last-good state, the same epoch again (the
-                # same seed gives the same batches and augmentation).
-                snap, _ = controller.rollback(like=state.arrays(),
-                                              reason=diverged)
-                state.load(snap)
+        if diverged is not None:
+            if obs.enabled:
+                obs.event("verdict", healthy=False, epoch=epoch + 1,
+                          reason=diverged, policy=res.policy)
+            if res.policy == "raise":
+                raise DivergenceError(diverged)
+            if res.policy == "skip":
                 if verbose:
-                    print(f"sentinel: {diverged} — rolled back "
-                          f"({controller.rollbacks}/{controller.max_rollbacks})")
+                    print(f"sentinel: {diverged} — epoch discarded")
+                if live():
+                    state.load(last_good)
+                epoch += 1
                 continue
-            last_good = state.snapshot()
-            if controller is not None:
-                controller.commit(last_good)
+            # rollback: the last-good state, the same epoch again (the
+            # same seed gives the same batches and augmentation).
+            snap, _ = controller.rollback(reason=diverged)
+            if live():
+                state.load(snap)
+            if obs.enabled:
+                obs.event("rollback", epoch=epoch + 1, rollbacks=controller.rollbacks)
+            if verbose:
+                print(f"sentinel: {diverged} — rolled back "
+                      f"({controller.rollbacks}/{controller.max_rollbacks})")
+            continue
+        if sentinel is not None:
+            last_good = commit_last_good()
         losses.append(mean_loss)
         seconds = time.perf_counter() - t0
-        if eval_data is not None:
+        if obs.enabled:
+            obs.event("epoch", epoch=epoch + 1, loss=mean_loss, seconds=seconds)
+        if eval_data is not None and live():
             with zero3_params(state):  # ZeRO-3: every rank gathers
                 if ev is not None:
                     accs.append(evaluate(state.eval_model(), *ev,
@@ -1623,17 +1875,23 @@ def train(
             if ev is not None:
                 rec["accuracy"] = accs[-1]
             metrics.record(**rec)
-        if checkpoint_dir:
+        if checkpoint_dir and live():
             arrays = state.checkpoint_arrays()
             if ring is not None:
                 ring.save(epoch + 1, arrays, checkpoint.TrainState(
                     epoch=epoch + 1, epoch_errors=list(losses),
                     extra={"epoch_accs": list(accs)}))
+                if obs.enabled:
+                    obs.event("checkpoint", epoch=epoch + 1)
         if verbose:
             acc_txt = f", acc {accs[-1]:.2f}%" if ev is not None else ""
             print(f"epoch {epoch + 1}: loss {losses[-1]:.4f}{acc_txt} "
                   f"({seconds:.2f}s)")
+        if chaos is not None:
+            chaos.at_epoch(epoch + 1)
         if _agree(preempt.requested(), mesh):
+            if obs.enabled:
+                obs.event("preempt", epoch=epoch + 1)
             if verbose:
                 print(f"preemption: stopping after epoch {epoch + 1}")
             break

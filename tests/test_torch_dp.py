@@ -50,7 +50,6 @@ from parallel_cnn_tpu_torch.config import (
     FusedStepConfig,
     MeshConfig,
     MeshLayoutError,
-    NotPortedError,
     check_comm_mesh,
 )
 from parallel_cnn_tpu_torch.ops import sgd_update
@@ -422,7 +421,11 @@ def test_cli_trains_update_on_arrival_over_two_gloo_ranks(tmp_path):
     # The pipeline builds its own (stage, data) mesh: JAX's plan refuses
     # --mesh-data beside it.
     (["--pipeline-stages", "2"], SystemExit, r"builds its own \(stage, data\) mesh"),
-    (["--elastic"], NotPortedError, "A11"),
+    # --elastic on lenet_ref: JAX's fence (cli.py:1309-1316).
+    (["--model", "lenet_ref", "--elastic"], SystemExit, re.escape(
+        "--elastic needs the zoo ZeRO-3 trainer: pick a zoo --model "
+        "(e.g. cifar_cnn) with --mesh-data, --comm-impl ring and "
+        "--fused-step")),
 ])
 def test_cli_refuses_unported_paths(argv, err, match):
     with pytest.raises(err, match=match):

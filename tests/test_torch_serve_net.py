@@ -474,6 +474,62 @@ def test_killed_endpoint_fails_inflight_and_drops_clients(tmp_path):
     assert obs_lib.conservation(counts, prefix="net_") is None
 
 
+class _HeldBatcher:
+    """A batcher whose ``submit`` waits until the endpoint is dead and then
+    hands back an answer that is already there: the kill lands after the
+    wire request was accepted and before the batcher held it."""
+
+    def __init__(self):
+        self.entered = threading.Event()
+        self.release = threading.Event()
+
+    def submit(self, x, deadline_ms=None, priority="guaranteed"):
+        from parallel_cnn_tpu_torch.serve.batcher import Future
+
+        self.entered.set()
+        assert self.release.wait(10)
+        fut = Future()
+        fut._resolve(np.zeros(8, np.float32))
+        return fut
+
+
+def test_kill_before_the_batcher_holds_the_request_fails_it_once(tmp_path):
+    """A kill between a wire request's acceptance and the batcher's
+    ``submit`` claims it: one net_failed and nothing else, though the
+    handler then finds its answer ready and cannot write it (counted
+    expired before the request was in flight from its acceptance)."""
+    held = _HeldBatcher()
+    bundle = obs_lib.from_config(ObsConfig(trace=True, dir=str(tmp_path)), run="held")
+    wire = WireStats()
+    outcome = {}
+    srv = _server(held, wire=wire, obs=bundle)
+    nc = NetClient(srv.address, timeout_s=5.0)
+
+    def call():
+        try:
+            nc.request(np.zeros(IN_SHAPE, np.float32))
+        except NetTransportError as e:
+            outcome["error"] = e
+
+    t = threading.Thread(target=call)
+    t.start()
+    assert held.entered.wait(5)
+    srv.kill(reason="test")
+    held.release.set()
+    t.join(timeout=10)
+    nc.close()
+    assert not t.is_alive() and "error" in outcome
+    snap = _settled(wire)
+    assert snap["submitted"] == snap["failed"] == 1
+    assert snap["completed"] == snap["expired"] == snap["shed"] == 0
+    time.sleep(0.2)  # the handler has returned: nothing more is counted
+    assert scenarios.settled_wire_delta(wire, {})[0] == snap
+    counts = bundle.journal.counts()
+    bundle.finish()
+    assert counts["net_failed"] == 1 and "net_expired" not in counts
+    assert obs_lib.conservation(counts, prefix="net_") is None
+
+
 def test_hot_swap_zero_failed_under_live_traffic(stack):
     pool, batcher = stack
     wire = WireStats()
