@@ -86,8 +86,9 @@ port's two paths through their user-facing entry points:
   growth; profiled bf16 epochs of ResNet-18 and ResNet-50 beside the f32
   ones.
 - ZeRO-3 (zero3 (a)-(d)) on ResNet-18 at b128, world 1: the CLI with
-  PCNN_ZERO_LEVEL=3 and the ring, exact launches (dp (b)'s counts, one
-  B13 launch a step over the resident rows), a falling loss and the
+  PCNN_FUSED_STEP=1 PCNN_ZERO_LEVEL=3 and the ring, exact launches
+  (dp (b)'s counts, one B13 launch a step over the resident rows), a
+  falling loss and the
   checkpoint's zero3 marker; 3 ZeRO-3 steps against 3 ZeRO-2 steps from
   one init in f32 and bf16; a resumed run through restore_sharded
   against the straight one; a profiled epoch beside dp (e)'s.
@@ -112,6 +113,14 @@ port's two paths through their user-facing entry points:
   learning, one B1 launch a gradient; the CLI's two modes.
 - the trainer's chaos and obs (chaos (a)): the LeNet-ref trainer with
   nan@ under --sentinel rollback, the rollback journaled, B1 once a step.
+- the ExecutionPlan (plan (a)-(b)) on ResNet-18 at b128, f32 ZeRO-3,
+  world 1: plan show --save under PCNN_FUSED_STEP=1 PCNN_ZERO_LEVEL=3
+  (host only), one
+  epoch by the flags and one by --plan alone, bit-identical checkpoints
+  stamped with the fingerprint plan show printed and exact, equal
+  launches; the file resumed under a changed plan (--accum-steps 2)
+  refused with PlanMismatchError, then resumed with --replan, one B13
+  launch a step.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -157,6 +166,7 @@ import torch.nn.functional as F
 from torch.profiler import ProfilerActivity, profile
 
 from parallel_cnn_tpu_torch import cli
+from parallel_cnn_tpu_torch import plan as plan_lib
 from parallel_cnn_tpu_torch.cli import padded_bucket_parity
 from parallel_cnn_tpu_torch.config import (
     CommConfig,
@@ -251,6 +261,12 @@ STEP_CHECK_ATOL = 1e-4
 # The mesh phase: LeNet-ref over a (data, model) mesh of one rank.
 MESH_CHECK_STEPS = 10
 MESH_2D_ATOL = 1e-5
+# The (data, model) = (1, 1) mesh those one-rank worlds make.
+MESH_1X1 = plan_lib.ExecutionPlan(data=1, model=1)
+# The ZeRO-3 step, as JAX's CLI resolves it: PCNN_ZERO_LEVEL refines the
+# fused step of PCNN_FUSED_STEP=1 (--fused-step alone is ZeRO-2).
+ZERO3_ENV = {"PCNN_FUSED_STEP": "1", "PCNN_ZERO_LEVEL": "3"}
+ZERO3_SH = " ".join(f"{k}={v}" for k, v in ZERO3_ENV.items())
 # Multiply-adds per image of the LeNet-ref step (csrc/lenet_fused.cu):
 # forward conv 86,400, pool 3,456, FC 2,160; backward FC wgrad 2,160, FC dX
 # 2,160, pool wgrad 3,456, pool scatter 3,456, conv wgrad 86,400.
@@ -1010,7 +1026,7 @@ def mesh_phase(card, rate_a) -> dict:
         fail("the mesh path's epoch error did not fall or no Error Rate line")
 
     # (b) 50 steps each from one init, every run a world of one rank.
-    runs = {kind: distributed.run(mesh_steps_rank, 1, device="cuda", shape=(1, 1),
+    runs = {kind: distributed.run(mesh_steps_rank, 1, device="cuda", plan=MESH_1X1,
                                   args=(kind, STEP_CHECK_STEPS))[0]
             for kind in ("dp_cuda", "dp_cuda_ring", "single_cuda")}
     diff = mesh_params_diff(runs["dp_cuda"], runs["single_cuda"])
@@ -1039,7 +1055,7 @@ def mesh_phase(card, rate_a) -> dict:
         fail("a resumed mesh run is not bit-identical to the straight run")
 
     # (d) the model-axis step on a 1x1 mesh against the DP reference step.
-    ref, two_d = (distributed.run(mesh_steps_rank, 1, device="cuda", shape=(1, 1),
+    ref, two_d = (distributed.run(mesh_steps_rank, 1, device="cuda", plan=MESH_1X1,
                                   args=(kind, MESH_CHECK_STEPS))[0]
                   for kind in ("dp_reference", "2d"))
     diff = mesh_params_diff(two_d, ref)
@@ -2520,8 +2536,8 @@ def zero3_step_rank(mesh, fused, steps, lr):
 
 
 def zero3_phase(card, zoo_launches) -> dict:
-    """ZeRO-3 on the card at world 1: (a) the CLI with PCNN_ZERO_LEVEL=3
-    over the ring, exact launch counts beside zoo (a)'s and one B13 launch
+    """ZeRO-3 on the card at world 1: (a) the CLI with ZERO3_ENV over the
+    ring, exact launch counts beside zoo (a)'s and one B13 launch
     a step, a falling loss, the checkpoint's zero3 marker; (b) 3 ZeRO-3
     steps against 3 ZeRO-2 steps from one init, f32 and bf16; (c) a
     resumed run through restore_sharded against the straight one. Returns
@@ -2534,11 +2550,11 @@ def zero3_phase(card, zoo_launches) -> dict:
             "--comm-impl", "ring", "--batch-size", str(ZOO_BATCH),
             "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
             "--synthetic-test-count", str(ZOO_TEST_COUNT)]
-    env = mock.patch.dict(os.environ, {"PCNN_ZERO_LEVEL": "3"})
+    env = mock.patch.dict(os.environ, ZERO3_ENV)
     n_buckets = len(resnet18_bucket_sizes())
 
     # (a) the main path: every counter set to 0 just before, read just after.
-    print(f"[smoke] zero3 (a): PCNN_ZERO_LEVEL=3 {' '.join(base)} --epochs 2",
+    print(f"[smoke] zero3 (a): {ZERO3_SH} {' '.join(base)} --epochs 2",
           flush=True)
     reset_zoo_counts()
     sgd_update.momentum_launches.reset()
@@ -2608,6 +2624,96 @@ def zero3_phase(card, zoo_launches) -> dict:
     if "resumed from" not in out or not same or not mom:
         fail("the resumed ZeRO-3 run is not bit-identical to the straight run")
     return launches
+
+
+def plan_phase(card) -> dict:
+    """The ExecutionPlan on the card, ResNet-18 b128 f32 ZeRO-3 at world 1:
+    (a) ``plan show --save`` (host only), then one epoch by the flags and
+    one by ``--plan`` alone: every checkpoint array bit-identical, both
+    stamped with the fingerprint ``plan show`` printed, launches equal and
+    exact (20/19/20/1/1 a step, 20 an eval batch); (b) the plan run's file
+    resumed with ``--accum-steps 2`` exits non-zero with the
+    PlanMismatchError text (both fingerprints, ``--replan``), and with
+    ``--replan`` resumes, finishes the epoch with a finite loss and one B13
+    launch a step. Returns the kernels' launches over its three runs."""
+    work = BUILD_DIR / "smoke_plan"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    data = ["--model", "resnet18", "--conv-backend", "cuda", "--batch-size",
+            str(ZOO_BATCH), "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT)]
+    knobs = ["--fused-step", "--act-dtype", "float32", "--mesh-data", str(DP_WORLD),
+             "--comm-impl", "ring"]
+    plan_file = work / "p.json"
+    env = mock.patch.dict(os.environ, ZERO3_ENV)
+    print(f"[smoke] plan (a): {ZERO3_SH} plan show {' '.join(data + knobs)} "
+          f"--save {plan_file}", flush=True)
+    with env:
+        out = run_cli(["plan", "show", *data, *knobs, "--save", str(plan_file)])
+    shown = out.split("fingerprint: ")[1].split()[0]
+    saved = plan_lib.load_plan(plan_file)
+    if saved.fingerprint() != shown or saved.zero != 3:
+        fail("plan show did not save the ZeRO-3 plan it printed")
+    evals = -(-ZOO_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": CONVS_PER_FORWARD * (ZOO_STEPS + evals),
+            "tap_conv_dgrad": (CONVS_PER_FORWARD - 1) * ZOO_STEPS,
+            "tap_wgrad": CONVS_PER_FORWARD * ZOO_STEPS, "tail_ce": ZOO_STEPS,
+            "sgd_momentum": ZOO_STEPS}
+    runs, total = {}, dict.fromkeys(want, 0)
+    for label, argv, ctx in (("flags", data + knobs, env),
+                             ("plan", data + ["--plan", str(plan_file)],
+                              contextlib.nullcontext())):
+        # Each run is a main path: its counters set to 0 just before it.
+        reset_zoo_counts()
+        sgd_update.momentum_launches.reset()
+        with ctx:
+            out = run_cli(argv + ["--epochs", "1", "--checkpoint-dir", str(work / label)])
+        launches = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
+        total = {k: total[k] + launches[k] for k in total}
+        runs[label] = (launches, epoch_losses(out), work / label / "ckpt_1.npz")
+        seconds = [line.rsplit("(", 1)[1].rstrip("s)") for line in out.splitlines()
+                   if line.startswith("epoch ")]
+        print(f"[smoke] plan (a) by {label}: launches {launches} (expected {want}), "
+              f"epoch loss {runs[label][1]} in {seconds} s (host clock), checkpoint "
+              f"plan {checkpoint_meta(runs[label][2]).get('plan')}", flush=True)
+    a, b = (checkpoint_leaves(runs[k][2]) for k in ("flags", "plan"))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k]) for k in a)
+    stamps = {checkpoint_meta(runs[k][2]).get("plan") for k in runs}
+    print(f"[smoke] plan (a): --plan run vs flag run: {len(a)} checkpoint leaves "
+          f"{'bit-identical' if same else 'DIFFER'}; stamps {sorted(stamps)} vs plan "
+          f"show's {shown}; launches equal "
+          f"{runs['flags'][0] == runs['plan'][0]} on {card}", flush=True)
+    if not same:
+        fail("the --plan run is not bit-identical to the flag run")
+    if stamps != {shown}:
+        fail("the checkpoints are not stamped with the fingerprint plan show printed")
+    if not runs["flags"][0] == runs["plan"][0] == want:
+        fail("the plan runs did not launch each kernel exactly as their steps need")
+
+    # (b) the plan run's file under a changed plan: refused, then --replan.
+    resume = data + ["--plan", str(plan_file), "--epochs", "2", "--resume",
+                     "--accum-steps", "2", "--checkpoint-dir", str(work / "plan")]
+    print(f"[smoke] plan (b): {' '.join(resume)} (a subprocess)", flush=True)
+    proc = subprocess.run([sys.executable, "-m", "parallel_cnn_tpu_torch", *resume],
+                          cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=300)
+    last = (proc.stderr.strip().splitlines() or [""])[-1]
+    print(f"[smoke] plan (b): exit {proc.returncode}: {last}", flush=True)
+    if (proc.returncode == 0 or "PlanMismatchError" not in last or shown not in last
+            or "--replan" not in last):
+        fail("resuming under another plan was not refused with both fingerprints")
+    reset_zoo_counts()
+    sgd_update.momentum_launches.reset()
+    out = run_cli(resume + ["--replan"])
+    replan = dict(zoo_counts(), sgd_momentum=sgd_update.momentum_launches.count)
+    total = {k: total[k] + replan[k] for k in total}
+    losses = epoch_losses(out)
+    print(f"[smoke] plan (b): --replan resumed: epoch 2 loss {losses}, launches "
+          f"{replan} for {ZOO_STEPS} steps of 2 microbatches", flush=True)
+    if ("resumed from" not in out or len(losses) != 1
+            or not np.isfinite(losses).all() or replan["sgd_momentum"] != ZOO_STEPS):
+        fail("--replan did not resume the epoch with one B13 launch a step")
+    return total
 
 
 def checkpoint_meta(path):
@@ -5001,7 +5107,7 @@ def obs_artifacts(trace_dir, metrics_json, run):
 
 def elastic_phase(card, zoo_launches) -> dict:
     """elastic (a)-(b) on one card. (a) the CLI at world 1 with
-    PCNN_ZERO_LEVEL=3 --elastic, a schedule entry and a chaos resize@,
+    ZERO3_ENV and --elastic, a schedule entry and a chaos resize@,
     traced: both triggers clamp to the one reachable rank and are skipped
     as no-ops (logged as JAX logs them), launches exact beside zoo (a)'s
     and one B13 launch a step, the loss falls, the trace nests and the
@@ -5020,14 +5126,14 @@ def elastic_phase(card, zoo_launches) -> dict:
             "--elastic", "--elastic-schedule", ELASTIC_SCHEDULE,
             "--chaos", ELASTIC_CHAOS, "--trace-dir", str(work / "obs"),
             "--metrics-json", str(work / "metrics.json")]
-    print(f"[smoke] elastic (a): PCNN_ZERO_LEVEL=3 {' '.join(argv)}", flush=True)
+    print(f"[smoke] elastic (a): {ZERO3_SH} {' '.join(argv)}", flush=True)
     logs = _Records()
     logger = logging.getLogger("parallel_cnn_tpu_torch.resilience.elastic")
     logger.addHandler(logs)
     reset_zoo_counts()
     sgd_update.momentum_launches.reset()
     try:
-        with mock.patch.dict(os.environ, {"PCNN_ZERO_LEVEL": "3"}):
+        with mock.patch.dict(os.environ, ZERO3_ENV):
             out = run_cli(argv)
     finally:
         logger.removeHandler(logs)
@@ -5272,6 +5378,14 @@ def chaos_phase(card) -> int:
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def clock(label):
+        """Print the host seconds of the phase that just ended, and since
+        the start: where the smoke's time goes."""
+        laps.append(time.perf_counter())
+        print(f"[smoke] clock: {label} {laps[-1] - laps[-2]:.1f} s "
+              f"(at {laps[-1] - t_start:.1f} s)", flush=True)
 
     # -- 1. the card -------------------------------------------------------
     if not torch.cuda.is_available():
@@ -5299,6 +5413,8 @@ def main() -> int:
             named = lib.source.name == "tail_ce.cu" and "Function properties" in line
             if "registers" in line or "spill" in line or "wgmma" in line or named:
                 print(f"[smoke] ptxas {lib.path.name}: {line.strip()}")
+
+    clock("1-2 card, build")
 
     # -- 3. kernel vs plain version at every ResNet-18 conv geometry -------
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -5343,6 +5459,8 @@ def main() -> int:
     # -- 3d. B13 at ResNet-18's bucket sizes (dp (a)) ---------------------
     bucket_sizes = resnet18_bucket_sizes()
     momentum_err = check_sgd_momentum(bucket_sizes)
+
+    clock("3 kernels vs plain")
 
     # -- 4. the serving path: serve full-width ResNet-18 -----------------
     handle = get("resnet18", conv_backend="cuda")
@@ -5408,10 +5526,14 @@ def main() -> int:
     if not err <= tol:
         fail("served logits disagree with the plain-version model")
 
+    clock("4 serve")
+
     # -- 4'. the serving control plane: slo (a)-(f) -----------------------
     slo_launches = slo_phase(card, ckpt, host)
+    clock("4' slo")
     # -- 4''. the network front door: net (a)-(f) --------------------------
     net_launches = net_phase(card, ckpt, host)
+    clock("4'' net")
 
     # -- 4b. the training path: the LeNet-ref trainer's CLI ---------------
     train_launches, rate_a = train_phase(card)
@@ -5421,15 +5543,21 @@ def main() -> int:
                               ("--fused-step", "reference", True)):
         epoch_profiles[label] = profiled_epoch(ds, label, Config(
             train=TrainConfig(batch_size=TRAIN_BATCH, ops=ops, shuffle=True),
-            fused=fused))
+            fused=FusedStepConfig() if fused else None))
+
+    clock("4b train")
 
     # -- 4b''. the mesh path: LeNet-ref over a (data, model) mesh ----------
     mesh_phase(card, rate_a)
-    distributed.run(profiled_mesh_epoch, 1, device="cuda", shape=(1, 1), args=(ds,))
+    distributed.run(profiled_mesh_epoch, 1, device="cuda", plan=MESH_1X1, args=(ds,))
+
+    clock("4b'' mesh")
 
     # -- 4b'. the staged LeNet-ref library: B3-B9 ---------------------------
     staged_errs, staged_launches = staged_phase(card, ds,
                                                    epoch_profiles["--ops cuda"])
+
+    clock("4b' staged")
 
     # -- 4c. the zoo path: ResNet-18 and the CIFAR CNN through the CLI ----
     zoo_launches = zoo_phase(card)
@@ -5438,9 +5566,13 @@ def main() -> int:
     # end-to-end yardstick of the conv kernels.
     profiled_zoo_epoch("ResNet-18, library convs + fused tail", "torch")
 
+    clock("4c zoo")
+
     # -- 4d. the data-parallel path: update-on-arrival over the ring ------
     dp_launches = dp_phase(card, zoo_launches)
     dp_profile = distributed.run(profiled_dp_epoch_rank, DP_WORLD, device="cuda")[0]
+
+    clock("4d dp")
 
     # -- 4d''. ZeRO-3: the params as resident rows, gathered each step ------
     z3_launches = zero3_phase(card, zoo_launches)
@@ -5448,10 +5580,17 @@ def main() -> int:
                                  args=(3,))[0]
     report_zero3_epoch(z3_profile, dp_profile, card)
 
+    clock("4d'' zero3")
+
+    # -- 4d'''. the ExecutionPlan: --plan, stamped checkpoints, --replan --
+    plan_launches = plan_phase(card)
+
+    clock("4d''' plan")
+
     # -- 4d'. the GSPMD zoo path: global BN statistics, the model axis ----
     gspmd_launches, shard_errs = gspmd_phase(card, zoo_launches)
     gspmd_profile = distributed.run(profiled_gspmd_epoch_rank, 1, device="cuda",
-                                    shape=(1, 1))[0]
+                                    plan=MESH_1X1)[0]
     if zoo_profile is not None and gspmd_profile is not None:
         print("[smoke] gspmd (e): profiled epoch, GSPMD step on a 1x1 mesh "
               f"{gspmd_profile[0]:.0f} img/s, {gspmd_profile[1]:.1f} device ops a "
@@ -5459,8 +5598,12 @@ def main() -> int:
               f"step {zoo_profile[0]:.0f} img/s, {zoo_profile[1]:.1f} device ops a "
               f"step, idle {zoo_profile[2]:.1%} (this call, on {card})", flush=True)
 
+    clock("4d' gspmd")
+
     # -- 4e. the probe path: the eight Mosaic probes, B14-B21 -------------
     probe_errs, probe_launches = probe_phase()
+
+    clock("4e probe")
 
     # -- 4f. ResNet-50 and VGG-16 at full width, and their serving --------
     z50_launches, z50_errs, _ = zoo50_phase(card)
@@ -5475,8 +5618,12 @@ def main() -> int:
                        steps=VGG_STEPS)
     serve50_launches, _ = serve50_phase(card)
 
+    clock("4f resnet50, imagenet, vgg, serve50")
+
     # -- 4g. the native C++ idx parser and prefetch ring ------------------
     native_phase(card)
+
+    clock("4g native")
 
     # -- 4h. bf16 activations: JAX's default --fused-step -----------------
     bf16_errs, bf16_times, r50_bf16 = bf16_kernel_phase()
@@ -5485,14 +5632,20 @@ def main() -> int:
     bf16_profiles(card, {"ResNet-18": zoo_profile, "ResNet-50": r50_profile},
                   bf16_times, r50_bf16)
 
+    clock("4h bf16")
+
     # -- 4i. the pipeline: JAX's 1F1B schedule on ResNet-18 ----------------
     pipe_f32, pipe_b13, pipe_bf16 = pipe_phase(card)
     bf16_launches = {key: n + pipe_bf16[key] for key, n in bf16_launches.items()}
+
+    clock("4i pipe")
 
     # -- 4j. elastic ZeRO-3, async data parallelism, the trainer's chaos --
     elastic_launches = elastic_phase(card, zoo_launches)
     async_b1 = async_phase(card)
     chaos_b1 = chaos_phase(card)
+
+    clock("4j elastic, async, chaos")
 
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
@@ -5537,6 +5690,7 @@ def main() -> int:
     momentum_times = time_sgd_momentum(bucket_sizes)
     report_dp_epoch(dp_profile, bucket_sizes, momentum_times)
     probe_times = time_probe_kernels()
+    clock("5 kernel times")
 
     records = [{
         "name": "tap_conv",
@@ -5547,7 +5701,7 @@ def main() -> int:
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
                      + serve50_launches + slo_launches + net_launches
                      + pipe_f32["tap_conv"] + z3_launches["tap_conv"]
-                     + elastic_launches["tap_conv"]),
+                     + elastic_launches["tap_conv"] + plan_launches["tap_conv"]),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5562,7 +5716,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": sum(run["tap_conv_dgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches, elastic_launches)),
+            pipe_f32, z3_launches, elastic_launches, plan_launches)),
         "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
                            z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
@@ -5573,7 +5727,7 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
         "launches": sum(run["tap_wgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches, elastic_launches)),
+            pipe_f32, z3_launches, elastic_launches, plan_launches)),
         "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
                            z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
@@ -5584,14 +5738,14 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
         "launches": sum(run["tail_ce"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            z3_launches, elastic_launches)),
+            z3_launches, elastic_launches, plan_launches)),
         # The per-image form at the 10-class heads, the tiled one at the
         # ImageNet head (imagenet (a) reads its launches): the record's
         # times are ResNet-18's head's, the tiled form's beside them.
         "launches_by_form": {
             "image": sum(run["tail_ce"] for run in (
                 zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-                z3_launches, elastic_launches))
+                z3_launches, elastic_launches, plan_launches))
             - img_tiled,
             "tiled": img_tiled},
         "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
@@ -5619,7 +5773,7 @@ def main() -> int:
         "source": "parallel_cnn_tpu_torch/csrc/sgd_update.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas_update.py:58",
         "launches": (dp_launches["sgd_momentum"] + pipe_b13 + z3_launches["sgd_momentum"]
-                     + elastic_launches["sgd_momentum"]),
+                     + elastic_launches["sgd_momentum"] + plan_launches["sgd_momentum"]),
         "max_abs_err": momentum_err,
         **momentum_times,
     }] + [{

@@ -242,13 +242,13 @@ def fused_step_epoch(times: dict) -> None:
     synthetic set: host us, device ops and idle share a step, NaN where
     the profiler saw no device events."""
     import chip_smoke as cs
-    from parallel_cnn_tpu_torch.config import Config, TrainConfig
+    from parallel_cnn_tpu_torch.config import Config, FusedStepConfig, TrainConfig
     from parallel_cnn_tpu_torch.data import pipeline, synthetic
 
     ds = pipeline.Dataset(*synthetic.make_dataset(cs.TRAIN_COUNT, seed=1234))
     res = cs.profiled_epoch(ds, "--fused-step", Config(
         train=TrainConfig(batch_size=cs.TRAIN_BATCH, ops="reference", shuffle=True),
-        fused=True)) or (float("nan"),) * 3
+        fused=FusedStepConfig())) or (float("nan"),) * 3
     for key, value in zip(("host us", "device ops", "idle share"), res):
         times[f"--fused-step epoch: {key} a step"] = value
 

@@ -22,6 +22,15 @@ them; ranks 2 and 3 sit out the flat-2 leg and rejoin):
 - JAX's BN-free tiny model (8x8x3, batch 16, two microbatches, lr 0.05):
   the lap's losses against the fixed world's, held within 1e-5.
 
+Each lap's controller holds an ExecutionPlan (plan/, ZeRO-3 over the
+flat ring of 4): every resize builds the mesh of ``derive_resized`` of
+it. Then the trainer itself (``zoo.train``) runs full-width ResNet-18
+under that plan with an elastic schedule 4 → 2 → 4 (the trainer keeps
+its hosts), rank 0 journaling: one line prints its ``plan_step_cache``
+records (world, hit or miss, the derived plan's fingerprint), held to a
+miss at world 2 and a hit back at world 4, each fingerprint that of
+``derive_resized(plan, world)``, and finite epoch losses.
+
 The card's name and power limit come first. Exits non-zero when a check
 fails. ``--device cpu`` runs the same over four gloo ranks (the kernels'
 plain versions; no memory figure) at ``--batch-size``.
@@ -31,13 +40,17 @@ from __future__ import annotations
 
 import argparse
 import sys
+import tempfile
 import time
 from typing import Dict
 
 import torch
 import torch.distributed as dist
 
-from parallel_cnn_tpu_torch.config import CommConfig, ElasticConfig, FusedStepConfig
+from parallel_cnn_tpu_torch import obs as obs_lib
+from parallel_cnn_tpu_torch import plan as plan_lib
+from parallel_cnn_tpu_torch.config import (CommConfig, ElasticConfig, FusedStepConfig,
+                                           ObsConfig)
 from parallel_cnn_tpu_torch.data import synthetic
 from parallel_cnn_tpu_torch.nn import Conv2D, Dense, Flatten, MaxPool, ReLU, Sequential, resnet
 from parallel_cnn_tpu_torch.parallel import distributed
@@ -58,6 +71,19 @@ TINY_BATCH = 16
 TINY_LR = 0.05
 TINY_COMM = CommConfig(impl="ring", bucket_bytes=2048, overlap=True)
 TINY_TOL = 1e-5
+#: The trainer's lap: its worlds after each resize, and its step cache's
+#: (world, hit) records: a miss at the new world, a hit back at 4.
+TRAINER_WORLDS = (2, 4)
+CACHE_WANT = [(2, False), (4, True)]
+
+
+def _exec_plan(comm: CommConfig, accum: int) -> "plan_lib.ExecutionPlan":
+    """The lap's ExecutionPlan: ZeRO-3 in f32 over the flat ring of 4."""
+    return plan_lib.ExecutionPlan(
+        data=WORLD, comm_impl=comm.impl, bucket_bytes=comm.bucket_bytes,
+        overlap=comm.overlap, zero=3, fused=True, fused_update=True,
+        act_dtype=ZERO3.act_dtype, accum=accum, param_sharding="zero3",
+        opt_sharding="zero3").validate()
 
 
 def _tiny() -> Sequential:
@@ -83,7 +109,9 @@ def _lap(mesh, build, batches, lr, accum, comm, elastic: bool) -> Dict:
     opt = zoo.make_optimizer(lr, MOMENTUM)
     state, plan = zoo.init_zero3_state(model, opt, mesh=mesh, fused=ZERO3,
                                        bucket_bytes=comm.bucket_bytes)
-    ctl = ElasticController(ElasticConfig(), world=WORLD, device=dev) if elastic else None
+    eplan = _exec_plan(comm, accum)
+    ctl = (ElasticController(ElasticConfig(), world=WORLD, device=dev, exec_plan=eplan)
+           if elastic else None)
     if ctl is not None:
         ctl.meshes[(WORLD, 1)] = mesh
     active, legs, resizes = mesh, [], []
@@ -125,6 +153,33 @@ def _lap(mesh, build, batches, lr, accum, comm, elastic: bool) -> Dict:
     return dict(legs=legs, resizes=resizes)
 
 
+def _trainer_lap(mesh, steps: int, batch: int) -> Dict:
+    """``zoo.train`` on full-width ResNet-18 under the ZeRO-3 plan over
+    one epoch of 3 × ``steps`` steps, resized 4 → 2 → 4 by its schedule;
+    rank 0 traces and returns its ``plan_step_cache`` and resize journal
+    records, every rank its epoch loss."""
+    n = 3 * steps * batch
+    imgs, labels = synthetic.make_image_dataset(n, seed=99)
+    schedule = ",".join(f"{(i + 1) * steps}:{w}" for i, w in enumerate(TRAINER_WORLDS))
+    model = resnet.resnet18(10, backend="cuda", generator=torch.Generator().manual_seed(0))
+    with tempfile.TemporaryDirectory(prefix="mesh_elastic_obs_") as obs_dir:
+        bundle = (obs_lib.from_config(ObsConfig(trace=True, dir=obs_dir), run="lap")
+                  if mesh.rank == 0 else obs_lib.NOOP)
+        _, losses = zoo.train(
+            model, imgs, labels, epochs=1, batch_size=batch, lr=LR, momentum=MOMENTUM,
+            mesh=mesh, comm=COMM, fused=ZERO3, seed=0, verbose=False, obs=bundle,
+            elastic=ElasticConfig(schedule=schedule), plan=_exec_plan(COMM, 1),
+            device=mesh.device)
+        paths = bundle.finish()
+        out = {"losses": losses}
+        if mesh.rank == 0:
+            recs = obs_lib.read_journal(paths["journal"])
+            out["cache"] = [r for r in recs if r["kind"] == "plan_step_cache"]
+            out["resizes"] = [(r["old_world"], r["new_world"]) for r in recs
+                              if r["kind"] == "resize_done"]
+    return out
+
+
 def _rank(mesh, steps: int, batch: int) -> Dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -157,6 +212,7 @@ def _rank(mesh, steps: int, batch: int) -> Dict:
 
     out["tiny_lap"] = _lap(mesh, tiny_model, tiny, TINY_LR, 2, TINY_COMM, True)
     out["tiny_fixed"] = _lap(mesh, tiny_model, tiny, TINY_LR, 2, TINY_COMM, False)
+    out["trainer"] = _trainer_lap(mesh, steps, batch)
     return out
 
 
@@ -218,7 +274,20 @@ def main(argv=None) -> int:
                   f"max |Δloss| vs the fixed world {drift:.3e} (BN statistics are per "
                   f"shard: not gated) {'ok' if ok else 'FAIL'}", flush=True)
         rc |= 0 if ok else 1
-    return rc
+    lap = lead["trainer"]
+    eplan = _exec_plan(COMM, 1)
+    fps = [plan_lib.derive_resized(eplan, w).fingerprint() for w, _ in CACHE_WANT]
+    losses = [float(v) for r in res for v in r["trainer"]["losses"]]
+    ok = ([(r["world"], r["hit"]) for r in lap["cache"]] == CACHE_WANT
+          and [r["plan"] for r in lap["cache"]] == fps
+          and lap["resizes"] == [(WORLD, 2), (2, WORLD)]
+          and all(v == v and abs(v) < float("inf") for v in losses))
+    print("[mesh_elastic] trainer ResNet-18 plan_step_cache: "
+          + "; ".join(f"world {r['world']} {'hit' if r['hit'] else 'miss'} {r['plan']}"
+                      for r in lap["cache"])
+          + f" (derive_resized: {fps}); resizes {lap['resizes']}; epoch loss a rank "
+          f"{losses} {'ok' if ok else 'FAIL'}", flush=True)
+    return rc | (0 if ok else 1)
 
 
 if __name__ == "__main__":

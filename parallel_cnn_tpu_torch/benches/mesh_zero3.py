@@ -32,6 +32,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from parallel_cnn_tpu_torch import plan as plan_lib
 from parallel_cnn_tpu_torch.config import CommConfig, FusedStepConfig
 from parallel_cnn_tpu_torch.data import synthetic
 from parallel_cnn_tpu_torch.nn import resnet
@@ -135,12 +136,13 @@ def main(argv=None) -> int:
     flat = None
     rc = 0
     for name, comm, fused, hosts in CONFIGS:
-        shape = dict(shape=(hosts, WORLD // hosts), axes=distributed.HIER_AXES) if hosts else {}
+        mesh = dict(plan=plan_lib.ExecutionPlan(comm_impl="hierarchical", hosts=hosts)
+                    ) if hosts else {}
         try:
             results = distributed.run(
                 _rank, WORLD, device=args.device, timeout=1800,
                 args=(comm, fused, args.epochs, args.batch_size, args.train_count,
-                      args.test_count), **shape)
+                      args.test_count), **mesh)
         except Exception as e:  # a failed run is reported and counted, then the next
             traceback.print_exc()
             print(f"[mesh_zero3] {name}: FAIL ({type(e).__name__}: {e})", flush=True)

@@ -2,39 +2,49 @@
 
     python -m parallel_cnn_tpu_torch [trainer flags]      # the LeNet-ref trainer
     python -m parallel_cnn_tpu_torch --model resnet18 --conv-backend cuda
+    python -m parallel_cnn_tpu_torch plan show [trainer flags] [--save PATH]
+    python -m parallel_cnn_tpu_torch plan diff PLAN_A PLAN_B
     python -m parallel_cnn_tpu_torch serve --model resnet18
     python -m parallel_cnn_tpu_torch loadgen --requests 512 --pattern open
 
 With no subcommand the CLI is the trainer, as in JAX: for ``lenet_ref``
 load data → learn → test, printing the reference's lines; for a zoo model
 (``cifar_cnn``, ``resnet18``, ``resnet34``, ``resnet50``, ``vgg16``) JAX's
-zoo trainer: the
-synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L, acc A% (S s)``
-lines, checkpoints of the full state and ``--resume``, on one device, on
-JAX's GSPMD path over ``--mesh-data N [--mesh-model M]`` (global BN
-statistics, each layer's filters split over the model axis where they
-divide), or with ``--mesh-data N --comm-impl psum|ring`` data-parallel over
-explicit collectives (one process a rank; NCCL, one card per rank, or gloo
-with ``--device cpu``), with ``--fused-step`` and the ring as
-update-on-arrival (ZeRO-2; ``PCNN_ZERO_LEVEL=3`` ZeRO-3), or with
-``--comm-impl hierarchical [--comm-hosts H]`` over JAX's (host, data) mesh
-of every card (H rows of cards/H; on the CPU H hosts of two gloo ranks)
-through the two-level ring, ZeRO-3 there with ``--fused-step`` and
-``PCNN_ZERO_LEVEL=3``, or with ``--pipeline-stages S`` JAX's 1F1B pipeline
-over a (stage, data) mesh of every card (S stages × cards/S data ranks;
-``--accum-steps`` microbatches a step, ``--pipeline-split``,
+zoo trainer: the synthetic CIFAR-shape sets, per-epoch ``epoch N: loss L,
+acc A% (S s)`` lines, checkpoints of the full state and ``--resume``.
+
+Every parallelism knob resolves through the ExecutionPlan (plan/), as in
+JAX: ``config_from_args`` layers flag > env > plan file (``--plan PATH``
+or ``PCNN_PLAN``) > default, ``plan.build_plan(cfg, args).validate()`` is
+the one legality site (its ``PlanError`` texts are JAX's exit texts) and
+the plan says how many ranks parallel/distributed.py starts (one process
+a rank; NCCL, one card a rank, or gloo with ``--device cpu``) and which
+mesh each makes: one device; JAX's GSPMD path over ``--mesh-data N
+[--mesh-model M]`` (global BN statistics, each layer's filters split over
+the model axis where they divide); ``--mesh-data N --comm-impl psum|ring``
+over explicit collectives, with ``--fused-step`` and the ring as
+update-on-arrival (ZeRO-2; ZeRO-3 with ``PCNN_FUSED_STEP=1
+PCNN_ZERO_LEVEL=3``, as in JAX); ``--comm-impl
+hierarchical [--comm-hosts H]`` over JAX's (host, data) mesh of every card
+(H rows of cards/H; on the CPU H hosts of two gloo ranks), ZeRO-3 there
+with ``PCNN_FUSED_STEP=1 PCNN_ZERO_LEVEL=3``; or ``--pipeline-stages
+S`` JAX's 1F1B pipeline over a (stage, data) mesh of every card
+(``--accum-steps`` microbatches a step, ``--pipeline-split``,
 ``--pipeline-wire-dtype``, ``--pipeline-act-dtype``; on the CPU S gloo
-ranks). LeNet-ref
-takes ``--mesh-data N [--mesh-model M] [--comm-impl psum|ring]``: minibatch
-SGD over an N × M mesh of ranks, data-parallel, with the filters split
-over the model axis when M > 1 (rank 0 prints, records and checkpoints).
-Everything runs on the GPU unless ``--device cpu`` is given. JAX's plan
-legality texts carry over (a mode that builds its own mesh beside
-``--mesh-data``, a hierarchical host axis below 2, the ZeRO levels'
-collectives, the pipeline beside the hierarchical ring or ZeRO-3;
-``--comm-impl`` with a zoo model axis is JAX's data-only MeshLayoutError).
+ranks). A zoo checkpoint is stamped with the plan's fingerprint, and
+``--resume`` refuses a file stamped under another plan unless
+``--replan``. ``plan show`` prints the resolved plan (``--save`` writes
+it for ``--plan``) and ``plan diff`` compares two plan files; neither
+needs a GPU. One departure from JAX: a zoo model's ZeRO-2 fused step with
+no ring falls back to the fused tail before the plan is built (JAX's
+zoo.train fallback; JAX's CLI refuses it). LeNet-ref takes ``--mesh-data
+N [--mesh-model M] [--comm-impl psum|ring]``: minibatch SGD over an N × M
+mesh of ranks, data-parallel, with the filters split over the model axis
+when M > 1 (rank 0 prints, records and checkpoints). Everything runs on
+the GPU unless ``--device cpu`` is given.
+
 ``--elastic`` [``--elastic-schedule``, ``--elastic-scaling``,
-``--elastic-min-world``] with ``PCNN_ZERO_LEVEL=3`` resizes the ZeRO-3
+``--elastic-min-world``] with the ZeRO-3 step resizes the ZeRO-3
 world in flight (resilience/elastic.py): one rank for every visible card
 is spawned, ``--mesh-data N`` of them train at the start (on the CPU
 ``--mesh-data`` gloo ranks, all of them). ``--async-mode stale|easgd``
@@ -44,7 +54,7 @@ cuda`` takes its gradients from B1). ``--chaos SPEC``,
 ``--sentinel-every N`` and the obs flags ``--trace``, ``--trace-dir``,
 ``--metrics-json`` are the trainer's too; JAX's fences refuse
 ``--async-mode`` on a zoo model and ``--elastic`` on lenet_ref with JAX's
-texts. ``--profile`` is not taken (ROADMAP A13). ``serve`` and ``loadgen``
+texts. ``--profile`` is not taken (ROADMAP A13b). ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
 ``--max-replicas``, ``--window-s``, ``--scenario``, ``--chaos`` and the obs
 flags ``--trace``, ``--trace-dir`` and ``--metrics-json``, and JAX's
@@ -65,25 +75,21 @@ import logging
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
+from parallel_cnn_tpu_torch import plan as plan_lib
 from parallel_cnn_tpu_torch.config import (
     CONV_BACKENDS,
     AsyncConfig,
     ElasticConfig,
-    HIER_HOSTS_ERROR,
-    PIPELINE_HIER_ERROR,
-    PIPELINE_ZERO3_ERROR,
     SERVE_MODELS,
-    ZERO2_RING_ERROR,
-    ZERO3_RING_ERROR,
     ZOO_MODELS,
     CommConfig,
     Config,
     DataConfig,
     FusedStepConfig,
-    MESH_AXES_OWNED_ERROR,
     MeshConfig,
+    MeshLayoutError,
     PipelineConfig,
     SERVE_CONV_BACKENDS,
     NetConfig,
@@ -92,7 +98,7 @@ from parallel_cnn_tpu_torch.config import (
     ResilienceConfig,
     ServeConfig,
     TrainConfig,
-    check_comm_mesh,
+    plan_path_from_env,
 )
 
 
@@ -104,7 +110,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parallel_cnn_tpu_torch",
         description="the LeNet-ref and zoo trainers on the GPU (PyTorch + "
-                    "hand-written CUDA kernels); subcommands: serve, loadgen",
+                    "hand-written CUDA kernels); subcommands: plan, serve, "
+                    "loadgen",
     )
     d, t, r = DataConfig(), TrainConfig(), ResilienceConfig()
     p.add_argument("--model", default="lenet_ref",
@@ -241,7 +248,7 @@ def build_parser() -> argparse.ArgumentParser:
                         "state to its world-size-independent view, re-mesh "
                         "over the surviving ranks, reshard and continue "
                         "(resilience/elastic.py). Needs the ZeRO-3 step "
-                        "(--fused-step with PCNN_ZERO_LEVEL=3 and --comm-impl "
+                        "(PCNN_FUSED_STEP=1 PCNN_ZERO_LEVEL=3 and --comm-impl "
                         "ring/hierarchical); one rank a visible card, "
                         "--mesh-data of them active at the start")
     p.add_argument("--elastic-schedule", default=None, metavar="SPEC",
@@ -291,8 +298,18 @@ def build_parser() -> argparse.ArgumentParser:
                         "tail (csrc/tail_ce.cu) and, with --mesh-data and "
                         "--comm-impl ring, update-on-arrival through the "
                         "fused SGD-momentum kernel (ZeRO-2; ZeRO-3 with "
-                        "PCNN_ZERO_LEVEL=3, also over --comm-impl "
-                        "hierarchical)")
+                        "PCNN_FUSED_STEP=1 PCNN_ZERO_LEVEL=3, also over "
+                        "--comm-impl hierarchical)")
+    p.add_argument("--plan", default=None, metavar="PATH",
+                   help="execution-plan file (written by `plan show --save`, "
+                        "or JAX's): fills every parallelism knob the env and "
+                        "explicit flags left unset — flag beats env beats "
+                        "plan [PCNN_PLAN]")
+    p.add_argument("--replan", action="store_true",
+                   help="allow resuming from a checkpoint whose recorded "
+                        "plan fingerprint mismatches the live plan "
+                        "(re-shard under the live plan instead of refusing "
+                        "with PlanMismatchError)")
     p.add_argument("--checkpoint-dir", default=None,
                    help="save ckpt_<epoch>.npz per epoch; --resume restarts "
                         "from the latest")
@@ -320,6 +337,12 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
+    """The trainer's Config for every model, layered as JAX's
+    (cli.py:380-514): each section env first, then its flags field by
+    field; then ``--plan``/``PCNN_PLAN`` fills every parallelism knob the
+    env and flags left unset (flag > env > plan > default), recording the
+    knobs it filled in ``args._autotune_filled`` so ``plan.build_plan``
+    labels them "autotune", as JAX does."""
     paths = {}
     if args.data_dir:
         paths = dict(
@@ -328,6 +351,43 @@ def config_from_args(args: argparse.Namespace) -> Config:
             test_images=os.path.join(args.data_dir, "t10k-images.idx3-ubyte"),
             test_labels=os.path.join(args.data_dir, "t10k-labels.idx1-ubyte"),
         )
+    mesh = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
+    comm = _comm_from_args(args)
+    fused = _fused_from_args(args)
+    pipeline = _pipeline_from_args(args)
+    args._autotune_filled = set()
+    plan_path = getattr(args, "plan", None) or plan_path_from_env()
+    if plan_path:
+        try:
+            eplan = plan_lib.load_plan(plan_path)
+        except plan_lib.PlanError as exc:
+            raise SystemExit(f"--plan: {exc}")
+        if comm is None and eplan.comm_impl is not None:
+            comm = eplan.comm_config()
+            args._autotune_filled |= {
+                "comm_impl", "bucket_bytes", "wire_dtype", "overlap", "hosts"}
+        if fused is None and eplan.fused:
+            fused = eplan.fused_config()
+            args._autotune_filled |= {
+                "fused", "fused_update", "fused_tail", "act_dtype", "zero"}
+        if pipeline is None and (ppc := eplan.pipeline_config()) is not None:
+            pipeline = ppc
+            args._autotune_filled |= {
+                "pipelined", "stages", "split", "pipe_wire_dtype",
+                "pipe_act_dtype"}
+        if args.accum_steps is None and eplan.accum > 1:
+            args.accum_steps = eplan.accum
+            args._autotune_filled.add("accum")
+        if args.mesh_data is None and eplan.data is not None \
+                and not (eplan.pipelined or eplan.stages > 1
+                         or eplan.comm_impl == "hierarchical"):
+            args.mesh_data = eplan.data
+            mesh = dataclasses.replace(mesh, data=eplan.data)
+            args._autotune_filled.add("data")
+        if (args.mesh_model or 1) == 1 and eplan.model > 1:
+            args.mesh_model = eplan.model
+            mesh = dataclasses.replace(mesh, model=eplan.model)
+            args._autotune_filled.add("model")
     return Config(
         data=DataConfig(
             loader=args.loader,
@@ -345,12 +405,15 @@ def config_from_args(args: argparse.Namespace) -> Config:
             prefetch=args.prefetch,
             ops=args.ops,
         ),
+        mesh=mesh,
         resilience=_resilience_from_args(args),
-        fused=args.fused_step,
-        comm=_comm_from_args(args),
+        comm=comm,
+        fused=fused,
         obs=_obs_config_from_args(args),
         elastic=_elastic_from_args(args),
         async_dp=_async_from_args(args),
+        pipeline=pipeline,
+        model=args.model,
     )
 
 
@@ -448,42 +511,10 @@ def _comm_from_args(args: argparse.Namespace) -> Optional[CommConfig]:
     return comm
 
 
-def _check_plan(args: argparse.Namespace, comm: Optional[CommConfig],
-                fused: Optional[FusedStepConfig],
-                pipeline: Optional[PipelineConfig]) -> None:
-    """JAX's plan legality matrix (plan/__init__.py:294-347) for the knobs
-    the port takes, in its order, each a SystemExit with JAX's text: the
-    pipeline beside the hierarchical ring or ZeRO-3, the hierarchical
-    ring beside explicit mesh axes or below two hosts, ZeRO-2 on the
-    hierarchical ring, ZeRO-3 off the ring. (The pipeline's own mesh-axes
-    refusal is ``_pipeline_from_args``'s; ZeRO-2 without any ring keeps the
-    trainer's fallback to the fused tail.)"""
-    impl = comm.impl if comm is not None else None
-    zero = fused.zero if fused is not None and fused.update else 0
-    explicit_axes = args.mesh_data is not None or (args.mesh_model or 1) > 1
-    if pipeline is not None:
-        if impl == "hierarchical":
-            raise SystemExit(PIPELINE_HIER_ERROR)
-        if zero == 3 and pipeline.stages > 1:
-            raise SystemExit(PIPELINE_ZERO3_ERROR)
-    elif impl == "hierarchical":
-        if explicit_axes:
-            raise SystemExit(MESH_AXES_OWNED_ERROR.format(
-                owner="--comm-impl hierarchical", axes="(host, device)",
-                extra=" (size the host axis with --comm-hosts)"))
-        if comm.hosts is not None and comm.hosts < 2:
-            raise SystemExit(HIER_HOSTS_ERROR.format(hosts=comm.hosts))
-    if zero == 2 and impl == "hierarchical":
-        raise SystemExit(ZERO2_RING_ERROR)
-    if zero == 3 and impl not in ("ring", "hierarchical"):
-        raise SystemExit(ZERO3_RING_ERROR)
-
-
 def _pipeline_from_args(args: argparse.Namespace) -> Optional[PipelineConfig]:
     """PCNN_PIPELINE_* first, then the --pipeline-* flags field by field
     (and opting in), as JAX layers them (cli.py:414-430); None when
-    neither sets anything. JAX's plan then refuses explicit mesh axes
-    beside it (plan/__init__.py:288-293)."""
+    neither sets anything."""
     pipeline = PipelineConfig.from_env()
     if (args.pipeline_stages is not None
             or args.pipeline_split is not None
@@ -499,22 +530,18 @@ def _pipeline_from_args(args: argparse.Namespace) -> Optional[PipelineConfig]:
             wire_dtype=args.pipeline_wire_dtype or base.wire_dtype,
             act_dtype=args.pipeline_act_dtype or base.act_dtype,
         )
-    if pipeline is not None and (args.mesh_data is not None
-                                 or (args.mesh_model or 1) > 1):
-        raise SystemExit(MESH_AXES_OWNED_ERROR.format(
-            owner="--pipeline-stages", axes="(stage, data)", extra=""))
     return pipeline
 
 
 def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
-    """PCNN_FUSED_STEP first, then --fused-step (with the ZeRO level of
-    PCNN_ZERO_LEVEL, which refines an enabled fused step and alone
-    enables nothing; JAX has no --zero flag); --act-dtype only refines an
-    enabled fused step."""
+    """PCNN_FUSED_STEP first (refined by PCNN_ACT_DTYPE and
+    PCNN_ZERO_LEVEL), then --fused-step, which alone is JAX's
+    ``FusedStepConfig()`` (ZeRO-2): as in JAX, PCNN_ZERO_LEVEL counts only
+    beside PCNN_FUSED_STEP=1. --act-dtype only refines an enabled fused
+    step."""
     fused = FusedStepConfig.from_env()
     if args.fused_step:
-        fused = fused or FusedStepConfig(
-            zero=int(os.environ.get("PCNN_ZERO_LEVEL", "2")))
+        fused = fused or FusedStepConfig()
     if args.act_dtype is not None:
         if fused is None:
             raise SystemExit("--act-dtype refines the fused step; enable it "
@@ -523,15 +550,57 @@ def _fused_from_args(args: argparse.Namespace) -> Optional[FusedStepConfig]:
     return fused
 
 
-def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
-             fused: Optional[FusedStepConfig],
-             pipeline: Optional[PipelineConfig] = None,
-             elastic: Optional[ElasticConfig] = None,
+#: JAX's zoo.train line when update-on-arrival has no ring (zoo.py:1369).
+FUSED_FALLBACK_LINE = ("fused-step: update-on-arrival needs mesh + "
+                       "comm.impl='ring'/'hierarchical'; falling back to "
+                       "fused tail only")
+
+
+def _zoo_fallback(cfg: Config) -> Tuple[Config, bool]:
+    """(cfg, whether it fell back): a zoo model's ZeRO-2 fused step with no
+    ring or hierarchical collective drops update-on-arrival, as JAX's
+    zoo.train does (zoo.py:1369-1380), before the plan is built. JAX's CLI
+    refuses this plan instead (ZeRO-2 rides the flat ring); the port keeps
+    zoo.train's fallback as a recorded departure (ROADMAP Queue C), so the
+    plan that is validated, stamped and shown is the plan that runs.
+    ZeRO-3 without a ring is left for the plan to refuse."""
+    fused, comm = cfg.fused, cfg.comm
+    if (cfg.model == "lenet_ref" or fused is None or not fused.update
+            or fused.zero != 2
+            or (comm is not None and comm.impl in ("ring", "hierarchical"))):
+        return cfg, False
+    return cfg.replace(fused=dataclasses.replace(fused, update=False)), True
+
+
+def _validated(eplan: "plan_lib.ExecutionPlan") -> "plan_lib.ExecutionPlan":
+    """``eplan.validate()`` with JAX's CLI exits: a PlanError becomes
+    ``SystemExit`` of its text. The one exception keeps the port's type:
+    the explicit collectives beside a model axis raise MeshLayoutError (a
+    ValueError) with JAX's data-only text."""
+    try:
+        return eplan.validate()
+    except plan_lib.PlanError as exc:
+        if str(exc) == plan_lib.COMM_DATA_ONLY_ERROR:
+            raise MeshLayoutError(str(exc)) from exc
+        raise SystemExit(str(exc)) from exc
+
+
+def _mesh_line(eplan: "plan_lib.ExecutionPlan", shape) -> str:
+    """JAX's ``mesh: {dict(mesh.shape)}`` line, with its mode."""
+    kind = ("pipeline" if eplan.pipelined or eplan.stages > 1
+            else "hierarchical" if eplan.comm_impl == "hierarchical" else None)
+    return f"mesh: {shape}" + (f" ({kind})" if kind else "")
+
+
+def _zoo_job(mesh, args: argparse.Namespace, cfg: Config,
+             eplan: "plan_lib.ExecutionPlan",
              elastic_world: Optional[int] = None) -> None:
     """One rank's zoo run (``mesh`` None: the single-device run): the
     model from the seed (the same weights on every rank), the synthetic
-    train and eval sets, zoo.train. Rank 0 alone traces and journals
-    (``[obs] ... written to`` after the run)."""
+    train and eval sets, zoo.train under ``cfg`` and ``eplan`` (what the
+    launcher resolved and validated; a rank resolves no flags or
+    environment itself). Rank 0 alone traces and journals (``[obs]
+    ... written to`` after the run)."""
     import torch
 
     from parallel_cnn_tpu_torch import obs as obs_lib
@@ -565,7 +634,7 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
         args.synthetic_test_count, seed=data.synthetic_seed + 1)
     metrics = MetricsLogger(path=args.metrics) if args.metrics and lead else None
     chaos = ChaosMonkey.from_spec(args.chaos) if args.chaos else None
-    obs_bundle = (obs_lib.from_config(_obs_config_from_args(args), run="zoo")
+    obs_bundle = (obs_lib.from_config(cfg.obs, run="zoo")
                   if lead else obs_lib.NOOP)
     with preempt.PreemptionGuard() as guard:
         zoo.train(
@@ -578,21 +647,22 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
             augment=args.augment,
             accum_steps=args.accum_steps or 1,
             mesh=mesh,
-            model_axis=(comm is None and pipeline is None and mesh is not None
-                        and mesh.model.size > 1),
-            comm=comm,
-            fused=fused,
-            pipeline=pipeline,
+            model_axis=mesh is not None and eplan.model > 1,
+            comm=cfg.comm,
+            fused=cfg.fused,
+            pipeline=cfg.pipeline,
+            plan=eplan,
+            replan=args.replan,
             seed=args.seed,
             eval_data=ev,
             checkpoint_dir=args.checkpoint_dir,
             resume=args.resume,
             metrics=metrics,
             loader=args.zoo_loader,
-            resilience=_resilience_from_args(args),
+            resilience=cfg.resilience,
             chaos=chaos,
             obs=obs_bundle,
-            elastic=elastic,
+            elastic=cfg.elastic,
             elastic_world=elastic_world,
             device=device,
         )
@@ -603,119 +673,48 @@ def _zoo_job(mesh, args: argparse.Namespace, comm: Optional[CommConfig],
         metrics.close()
 
 
-def _run_zoo(args: argparse.Namespace) -> int:
+def _run_zoo(args: argparse.Namespace, cfg: Config) -> int:
     """≙ the JAX CLI's ``_run_zoo``: the synthetic CIFAR-shape train/eval
     sets, zoo.train with per-epoch eval, checkpoints, resume, sentinel and
-    preemption; on one device, over a ``--mesh-data N [--mesh-model M]``
-    mesh of ranks on JAX's GSPMD path, or over ``--mesh-data N`` ranks with
-    ``--comm-impl``, or over JAX's (stage, data) pipeline mesh with
-    ``--pipeline-stages`` (parallel/distributed.py starts them)."""
+    preemption. ONE resolution, legality and launch site: the plan
+    (``build_plan(cfg, args).validate()``) says how many ranks
+    parallel/distributed.py starts and which mesh each makes — one
+    device, JAX's GSPMD path over ``--mesh-data N [--mesh-model M]``,
+    the explicit collectives over ``--mesh-data N --comm-impl``, the
+    (host, data) hierarchical mesh, or the (stage, data) pipeline mesh.
+    An elastic run spawns one rank a visible card (on the CPU the
+    plan's world), the plan's world of them training at the start."""
     if args.model == "cifar_cnn" and args.conv_backend != "torch":
         raise SystemExit("--conv-backend cuda applies to the resnet/vgg models")
     if args.batch_size == 1:
         raise SystemExit("zoo models train minibatch; use --batch-size > 1")
-    pipeline = _pipeline_from_args(args)
-    comm = _comm_from_args(args)
-    fused = _fused_from_args(args)
-    _check_plan(args, comm, fused, pipeline)
-    elastic = _elastic_from_args(args)
-    if elastic is not None and elastic.enabled:
-        zero = fused.zero if fused is not None and fused.update else 0
-        if zero != 3 or comm is None or pipeline is not None:
-            raise ValueError(ELASTIC_ZERO3_ERROR)
-        return _run_zoo_elastic(args, comm, fused, elastic)
-    if pipeline is not None:
-        return _run_zoo_pipeline(args, pipeline, comm, fused)
-    if comm is not None and comm.impl == "hierarchical":
-        return _run_zoo_hier(args, comm, fused)
-    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
-    check_comm_mesh(mesh_cfg, comm)
-    if args.mesh_data is None and mesh_cfg.model == 1:
-        if comm is not None:
-            raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
-                             "collectives over a mesh: add --mesh-data N")
-        _zoo_job(None, args, comm, fused)
+    cfg, fell_back = _zoo_fallback(cfg)
+    eplan = _validated(plan_lib.build_plan(cfg, args))
+    elastic = cfg.elastic is not None and cfg.elastic.enabled
+    if elastic and (eplan.zero != 3 or cfg.comm is None or cfg.pipeline is not None):
+        raise ValueError(ELASTIC_ZERO3_ERROR)
+    if fell_back:
+        print(FUSED_FALLBACK_LINE, flush=True)
+    world, shape = eplan.launch(args.device)
+    if not shape:
+        _zoo_job(None, args, cfg, eplan)
         return 0
-
-    from parallel_cnn_tpu_torch.parallel import distributed
-
-    if comm is None:
-        n_data, n_model = distributed.resolve_shape(mesh_cfg, args.device)
-        print(f"mesh: {{'data': {n_data}, 'model': {n_model}}}", flush=True)
-        distributed.run(_zoo_job, n_data * n_model, device=args.device,
-                        args=(args, comm, fused), shape=(n_data, n_model))
-        return 0
-    world = distributed.resolve_world(mesh_cfg, args.device)
-    print(f"mesh: {{'data': {world}, 'model': 1}}", flush=True)
-    distributed.run(_zoo_job, world, device=args.device,
-                    args=(args, comm, fused))
-    return 0
-
-
-def _run_zoo_elastic(args: argparse.Namespace, comm: CommConfig,
-                     fused: FusedStepConfig, elastic: ElasticConfig) -> int:
-    """JAX's elastic ZeRO-3 run: one rank for every visible card (the
-    reachable world; on the CPU ``--mesh-data`` gloo ranks), the first
-    ``--mesh-data`` of them training at the start (every rank without
-    it); with ``--comm-impl hierarchical`` the (host, data) mesh over
-    every card. JAX's mesh line names the starting world."""
-    import torch
 
     from parallel_cnn_tpu_torch.parallel import distributed
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
 
-    if comm.impl == "hierarchical":
-        n_hosts, n_data = distributed.resolve_hier_shape(comm.hosts, args.device)
-        print(f"mesh: {{'host': {n_hosts}, 'data': {n_data}}} (hierarchical)",
-              flush=True)
-        distributed.run(_zoo_job, n_hosts * n_data, device=args.device,
-                        args=(args, comm, fused, None, elastic),
-                        shape=(n_hosts, n_data), axes=distributed.HIER_AXES)
-        return 0
-    mesh_cfg = MeshConfig(data=args.mesh_data, model=1)
-    start = distributed.resolve_world(mesh_cfg, args.device)
-    reach = (start if resolve_device(args.device).type == "cpu"
-             else torch.cuda.device_count())
-    print(f"mesh: {{'data': {start}, 'model': 1}}", flush=True)
-    distributed.run(_zoo_job, reach, device=args.device,
-                    args=(args, comm, fused, None, elastic, start))
-    return 0
+    start = None
+    if elastic and eplan.comm_impl != "hierarchical":
+        # One rank a visible card (the reachable world), the plan's
+        # world of them active at the start.
+        start = world
+        if resolve_device(args.device).type == "cuda":
+            import torch
 
-
-def _run_zoo_hier(args: argparse.Namespace, comm: CommConfig,
-                  fused: Optional[FusedStepConfig]) -> int:
-    """JAX's hierarchical zoo run: the (host, data) mesh over every card,
-    H = ``comm.hosts`` rows of cards // H (one process and one card a rank;
-    more hosts than cards raises MeshSizeError; on the CPU H hosts of
-    ``distributed.CPU_RANKS_PER_HOST`` gloo ranks), JAX's mesh line first;
-    a world of one runs in the calling process."""
-    from parallel_cnn_tpu_torch.parallel import distributed
-
-    n_hosts, n_data = distributed.resolve_hier_shape(comm.hosts, args.device)
-    print(f"mesh: {{'host': {n_hosts}, 'data': {n_data}}} (hierarchical)",
-          flush=True)
-    distributed.run(_zoo_job, n_hosts * n_data, device=args.device,
-                    args=(args, comm, fused), shape=(n_hosts, n_data),
-                    axes=distributed.HIER_AXES)
-    return 0
-
-
-def _run_zoo_pipeline(args: argparse.Namespace, pipeline: PipelineConfig,
-                      comm: Optional[CommConfig],
-                      fused: Optional[FusedStepConfig]) -> int:
-    """JAX's pipelined zoo run: the (stage, data) mesh over every card, S
-    ranks a data replica (one process and one card each; more stages than
-    cards raises MeshSizeError), each rank on its stage; a world of one
-    runs in the calling process."""
-    from parallel_cnn_tpu_torch.parallel import distributed
-
-    n_stages, n_data = distributed.resolve_pipeline_shape(pipeline.stages,
-                                                          args.device)
-    print(f"mesh: {{'stage': {n_stages}, 'data': {n_data}}} (pipeline)",
-          flush=True)
-    distributed.run(_zoo_job, n_stages * n_data, device=args.device,
-                    args=(args, comm, fused, pipeline), shape=(n_stages, n_data),
-                    axes=distributed.PIPELINE_AXES)
+            world = torch.cuda.device_count()
+    print(_mesh_line(eplan, shape), flush=True)
+    distributed.run(_zoo_job, world, device=args.device,
+                    args=(args, cfg, eplan, start), plan=eplan)
     return 0
 
 
@@ -724,9 +723,12 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
     load → learn with a checkpoint per epoch, resume, preemption → test.
     On a mesh every rank trains; rank 0 alone prints the reference's
     lines, records metrics and saves checkpoints (whole params), and every
-    rank resumes from the same file."""
+    rank resumes from the same file. ``mesh`` may be a ``DataMesh`` (the
+    plan's mesh for the explicit collectives): it trains as the world × 1
+    mesh."""
     from parallel_cnn_tpu_torch import obs as obs_lib
     from parallel_cnn_tpu_torch.data import pipeline
+    from parallel_cnn_tpu_torch.parallel.mesh import as_mesh_2d
     from parallel_cnn_tpu_torch.resilience import preempt
     from parallel_cnn_tpu_torch.resilience.chaos import ChaosMonkey
     from parallel_cnn_tpu_torch.resilience.rollback import CheckpointRing
@@ -734,6 +736,8 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
     from parallel_cnn_tpu_torch.utils.backend import resolve_device
     from parallel_cnn_tpu_torch.utils.metrics import MetricsLogger, throughput
 
+    if mesh is not None:
+        mesh = as_mesh_2d(mesh)  # the reference trainer's (data, model) view
     lead = mesh is None or mesh.rank == 0
     device = mesh.device if mesh is not None else resolve_device(args.device)
     _log_for(lead)
@@ -811,46 +815,45 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
 def _run_train(argv: List[str]) -> int:
     """≙ the JAX CLI's trainer: the lenet_ref branch (load → learn with a
     checkpoint per epoch, resume, preemption → test), on one device or
-    over a ``--mesh-data``/``--mesh-model`` mesh of ranks
+    over the (data, model) mesh of ranks the validated plan launches
     (parallel/distributed.py starts them), or the zoo branch."""
     args = build_parser().parse_args(argv)
-    async_dp = _async_from_args(args)
+    cfg = config_from_args(args)
+    async_on = cfg.async_dp is not None and cfg.async_dp.enabled
     if args.model != "lenet_ref":
-        if async_dp is not None and async_dp.enabled:
+        if async_on:
             raise SystemExit(ASYNC_ZOO_ERROR)
-        return _run_zoo(args)
-    elastic = _elastic_from_args(args)
-    if elastic is not None and elastic.enabled:
+        return _run_zoo(args, cfg)
+    if cfg.elastic is not None and cfg.elastic.enabled:
         # The flat LeNet trainer has no sharded optimizer state to re-lay
         # out; only the zoo ZeRO-3 step resizes in flight.
         raise SystemExit(ELASTIC_LENET_ERROR)
-    if async_dp is not None and async_dp.enabled:
-        return _run_async_lenet(args, config_from_args(args))
-    pipeline = _pipeline_from_args(args)
-    comm = _comm_from_args(args)
-    _check_plan(args, comm, None, pipeline)
-    if pipeline is not None or (comm is not None and comm.impl == "hierarchical"):
-        axes = "('stage', 'data')" if pipeline is not None else "('host', 'data')"
+    if async_on:
+        return _run_async_lenet(args, cfg)
+    eplan = plan_lib.build_plan(cfg, args)
+    if not (eplan.data is not None or eplan.model > 1 or eplan.pipelined
+            or eplan.stages > 1 or eplan.comm_impl is not None):
+        # One device: no mesh, and no plan to validate (JAX's trainer
+        # validates only a mesh run; a lone --fused-step is the bucketed
+        # update on the reference grads).
+        return _lenet_job(None, args, cfg)
+    eplan = _validated(eplan)
+    if eplan.pipelined or eplan.stages > 1 or eplan.comm_impl == "hierarchical":
+        axes = "('stage', 'data')" if eplan.comm_impl != "hierarchical" \
+            else "('host', 'data')"
         raise ValueError(
             "the reference trainer drives a flat (data, model) mesh only; "
             f"the resolved plan built axes {axes} — drop the "
             "pipeline/hierarchical knobs for this model")
-    cfg = config_from_args(args)
-    mesh_cfg = MeshConfig(data=args.mesh_data, model=args.mesh_model or 1)
-    if args.mesh_data is None and mesh_cfg.model == 1:
-        if cfg.comm is not None:
-            raise SystemExit("--comm-impl/PCNN_COMM_* run the explicit "
-                             "collectives over a mesh: add --mesh-data N")
-        return _lenet_job(None, args, cfg)
 
     from parallel_cnn_tpu_torch.parallel import distributed
     from parallel_cnn_tpu_torch.train import trainer
 
-    n_data, n_model = distributed.resolve_shape(mesh_cfg, args.device)
-    trainer.check_mesh(cfg.train, n_data, n_model)
-    print(f"mesh: {{'data': {n_data}, 'model': {n_model}}}", flush=True)
-    distributed.run(_lenet_job, n_data * n_model, device=args.device,
-                    args=(args, cfg), shape=(n_data, n_model))
+    world, shape = eplan.launch(args.device)
+    trainer.check_mesh(cfg.train, shape["data"], shape["model"])
+    print(_mesh_line(eplan, shape), flush=True)
+    distributed.run(_lenet_job, world, device=args.device, args=(args, cfg),
+                    plan=eplan)
     return 0
 
 
@@ -1400,8 +1403,62 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
     return rc
 
 
+def _run_plan(argv: List[str]) -> int:
+    """``python -m parallel_cnn_tpu_torch plan show|diff`` (JAX's
+    cli.py:1198-1250): ``plan show [train flags] [--save PATH]`` resolves
+    exactly the plan a train run with those flags would execute (flag >
+    env > plan file > default, the zoo's fused-step fallback applied) and
+    prints it one knob per line with its provenance, ``ILLEGAL: …`` and
+    exit 1 when the matrix refuses it; ``plan diff A B`` prints a field by
+    field diff of two plan files (exit 0 when equal, 1 when they differ).
+    A usage error or an unreadable file exits 2. Host only: nothing here
+    touches a GPU."""
+    if not argv or argv[0] not in ("show", "diff"):
+        print("usage: parallel_cnn_tpu_torch plan show [train flags] "
+              "[--save PATH]\n"
+              "       parallel_cnn_tpu_torch plan diff PLAN_A PLAN_B")
+        return 2
+    if argv[0] == "diff":
+        if len(argv) != 3:
+            print("usage: parallel_cnn_tpu_torch plan diff PLAN_A PLAN_B")
+            return 2
+        try:
+            a = plan_lib.load_plan(argv[1])
+            b = plan_lib.load_plan(argv[2])
+        except plan_lib.PlanError as exc:
+            print(f"plan diff: {exc}")
+            return 2
+        out = plan_lib.diff_plans(a, b)
+        if not out:
+            print(f"plans identical ({a.fingerprint()})")
+            return 0
+        print(out)
+        return 1
+    p = build_parser()
+    p.add_argument("--save", default=None, metavar="PATH",
+                   help="also write the resolved plan as a --plan-loadable "
+                        "plan.json")
+    args = p.parse_args(argv[1:])
+    cfg, _ = _zoo_fallback(config_from_args(args))
+    plan = plan_lib.build_plan(cfg, args)
+    verdict = ""
+    try:
+        plan.validate()
+    except plan_lib.PlanError as exc:
+        verdict = f"\nILLEGAL: {exc}"
+    if args.save:
+        plan_lib.save_plan(args.save, plan)
+    print(plan_lib.format_plan(plan, title=f"resolved plan ({cfg.model})")
+          + verdict)
+    if args.save:
+        print(f"plan written to {args.save}")
+    return 1 if verdict else 0
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
     if raw and raw[0] in ("serve", "loadgen"):
         return _run_serve(raw[0], raw[1:])
+    if raw and raw[0] == "plan":
+        return _run_plan(raw[1:])
     return _run_train(raw)

@@ -1,24 +1,20 @@
 """Configuration of the port: the trainer's and the server's.
 
 The port's own copies of the parts of ``parallel_cnn_tpu/config.py`` its
-slices use. For training: ``DataConfig``, ``TrainConfig`` and
-``ResilienceConfig``, gathered in ``Config`` with the ``fused`` switch
-(JAX's ``Config.fused is not None``: the ``--fused-step`` bucketed update).
+slices use. For training: ``DataConfig``, ``TrainConfig``,
+``ResilienceConfig``, ``MeshConfig`` (the (data, model) mesh),
+``CommConfig`` (psum, the bucketed ring or the hierarchical ring, JAX's
+fields, defaults and ``PCNN_COMM_*`` layering), ``FusedStepConfig``
+(the fused step, ZeRO-2 and ZeRO-3), ``PipelineConfig`` (stages, split,
+wire and act dtypes, ``PCNN_PIPELINE_*``), ``ElasticConfig`` and
+``AsyncConfig``, gathered in ``Config`` with JAX's sections; the
+``PCNN_*`` names that feed the ExecutionPlan (``present_plan_env``) and
+``PCNN_PLAN`` (``plan_path_from_env``). The legality of a combination of
+knobs is the plan's (plan/ ``ExecutionPlan.validate``), with JAX's texts.
 For serving: the fields of ``ServeConfig`` read from the same
 ``PCNN_SERVE_*`` environment names, admission control and the autoscaler
 included, and the network front door's ``NetConfig``. For
 observability: ``ObsConfig`` and its ``PCNN_OBS_*`` names.
-
-For the zoo trainer (``train/zoo.py``): ``FusedStepConfig`` (ZeRO-2 and
-ZeRO-3), and the model and conv-backend names it takes; its other knobs are
-``zoo.train``'s keyword arguments, as in the JAX package. For the mesh
-paths: ``MeshConfig`` (the (data, model) mesh; the zoo trainer takes the
-data axis only) and ``CommConfig`` (psum, the bucketed ring or the
-hierarchical ring, JAX's fields, defaults and ``PCNN_COMM_*`` layering),
-with JAX's legality texts for the modes that build their own mesh and
-for the ZeRO levels; ``Config.comm`` is the
-LeNet-ref mesh step's. ``PipelineConfig`` is JAX's pipeline policy
-(stages, split, wire and act dtypes, ``PCNN_PIPELINE_*``).
 
 Kernel paths: where the JAX package says ``ops="pallas"`` (its Mosaic
 kernels), the port says ``ops="cuda"`` (its hand-written CUDA kernels), as
@@ -140,35 +136,6 @@ class ResilienceConfig:
             raise ValueError("ring_size/check_every_steps must be >= 0")
 
 
-@dataclasses.dataclass(frozen=True)
-class Config:
-    """The trainer's whole configuration. ``fused`` selects the bucketed
-    update (ops/sgd_update.py) on the reference grads, as a non-None
-    ``FusedStepConfig`` does in JAX; with ``ops="cuda"`` the fused kernel's
-    step keeps its own update, as JAX's Pallas step does. On a mesh the
-    step never reads ``fused`` (JAX's mesh steps apply their own update)
-    and ``comm`` (a ``CommConfig``; None is one psum) picks the gradient
-    all-reduce over the data axis."""
-
-    data: DataConfig = DataConfig()
-    train: TrainConfig = TrainConfig()
-    resilience: ResilienceConfig = ResilienceConfig()
-    fused: bool = False
-    comm: Optional["CommConfig"] = None
-    # None = observability off; an ObsConfig opts the run into span
-    # tracing, the journal and the metrics snapshot (obs/).
-    obs: Optional["ObsConfig"] = None
-    # None = fixed-mesh training; an ElasticConfig opts the ZeRO-3 zoo
-    # trainer into in-flight re-mesh and reshard (resilience/elastic.py).
-    elastic: Optional["ElasticConfig"] = None
-    # None = bulk-synchronous training; an AsyncConfig opts into the
-    # bounded-staleness or EASGD modes (train/async_dp.py).
-    async_dp: Optional["AsyncConfig"] = None
-
-    def replace(self, **kw) -> "Config":
-        return dataclasses.replace(self, **kw)
-
-
 #: Zoo models the trainer builds (train/zoo.py), and its conv backends:
 #: "cuda" ≙ JAX's "pallas" (the hand kernels), "torch" ≙ JAX's "xla".
 ZOO_MODELS = ("cifar_cnn", "resnet18", "resnet34", "resnet50", "vgg16")
@@ -202,12 +169,9 @@ class MeshConfig:
             raise ValueError(f"mesh model axis must be >= 1, got {self.model}")
 
 
-#: JAX's refusal of the explicit collectives on a model axis
-#: (plan/__init__.py:95-98).
-COMM_DATA_ONLY_ERROR = (
-    "--comm-impl is data-parallel only; the explicit collective path "
-    "composes with the data axis, not --mesh-model (drop one of the two)"
-)
+#: JAX's refusal of the explicit collectives on a model axis, one of
+#: the plan's legality texts (plan/__init__.py).
+from parallel_cnn_tpu_torch.plan import COMM_DATA_ONLY_ERROR  # noqa: E402
 
 
 def check_comm_mesh(mesh: MeshConfig, comm: Optional["CommConfig"]) -> None:
@@ -349,39 +313,6 @@ class FusedStepConfig:
             act_dtype=os.environ.get("PCNN_ACT_DTYPE", "bfloat16"),
             zero=int(os.environ.get("PCNN_ZERO_LEVEL", "2")),
         )
-
-
-#: JAX's refusal of explicit mesh axes beside a mode that builds its own
-#: mesh (plan/__init__.py:84-87).
-MESH_AXES_OWNED_ERROR = (
-    "{owner} builds its own {axes} mesh over all devices; "
-    "drop --mesh-data/--mesh-model{extra}"
-)
-
-#: JAX's legality texts for the pipeline, the hierarchical ring and the
-#: ZeRO levels (plan/__init__.py:294-347).
-PIPELINE_HIER_ERROR = (
-    "pipeline gradients reduce over the flat data axis; "
-    "use --comm-impl ring (not hierarchical)"
-)
-PIPELINE_ZERO3_ERROR = (
-    "pipeline composes with ZeRO-2 only: ZeRO-3's "
-    "just-in-time head gathers contradict per-stage param "
-    "residency (docs/pipeline.md)"
-)
-HIER_HOSTS_ERROR = (
-    "hierarchical comm needs a host axis of >= 2 "
-    "(got hosts={hosts}); use --comm-impl ring on "
-    "a single host"
-)
-ZERO2_RING_ERROR = (
-    "ZeRO-2 update-on-arrival rides the flat ring; use "
-    "--comm-impl ring (or zero=3 on a hierarchical mesh)"
-)
-ZERO3_RING_ERROR = (
-    "ZeRO-3 needs the explicit ring or hierarchical collective "
-    "path (--comm-impl ring|hierarchical)"
-)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -849,3 +780,76 @@ class AsyncConfig:
             easgd_rho=float(rho) if rho else 0.5,
             workers=int(workers) if workers else 4,
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    """The trainer's whole configuration, JAX's sections (config.py:889).
+    ``cli.config_from_args`` layers flag > env > plan file > default into
+    it, and ``plan.build_plan`` turns it into the ExecutionPlan.
+
+    ``fused`` (a ``FusedStepConfig``, None = the unfused step) selects,
+    for LeNet-ref, the bucketed update (ops/sgd_update.py) on the
+    reference grads; with ``ops="cuda"`` the fused kernel's step keeps
+    its own update, as JAX's Pallas step does; on a mesh the LeNet step
+    never reads it (JAX's mesh steps apply their own update, and the
+    plan refuses a fused update off the ring before the run). For the
+    zoo trainer it is the fused step. ``comm`` (a ``CommConfig``; None is
+    one psum or JAX's GSPMD path) picks the gradient collective;
+    ``mesh`` the (data, model) axis sizes; ``pipeline`` the 1F1B
+    pipeline."""
+
+    data: DataConfig = DataConfig()
+    train: TrainConfig = TrainConfig()
+    mesh: MeshConfig = MeshConfig()
+    resilience: ResilienceConfig = ResilienceConfig()
+    comm: Optional[CommConfig] = None
+    fused: Optional[FusedStepConfig] = None
+    # None = observability off; an ObsConfig opts the run into span
+    # tracing, the journal and the metrics snapshot (obs/).
+    obs: Optional[ObsConfig] = None
+    # None = fixed-mesh training; an ElasticConfig opts the ZeRO-3 zoo
+    # trainer into in-flight re-mesh and reshard (resilience/elastic.py).
+    elastic: Optional[ElasticConfig] = None
+    # None = bulk-synchronous training; an AsyncConfig opts into the
+    # bounded-staleness or EASGD modes (train/async_dp.py).
+    async_dp: Optional[AsyncConfig] = None
+    # None = data-parallel only; a PipelineConfig opts the zoo trainer
+    # into 1F1B microbatch pipelining over a (stage, data) mesh.
+    pipeline: Optional[PipelineConfig] = None
+    model: str = "lenet_ref"
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+
+#: Every PCNN_* variable that feeds an ExecutionPlan knob — the set
+#: plan.build_plan consults to label a knob's provenance "env" (JAX's
+#: config.py:934-950).
+_PLAN_ENV_VARS = (
+    "PCNN_COMM_IMPL",
+    "PCNN_COMM_BUCKET_BYTES",
+    "PCNN_COMM_WIRE_DTYPE",
+    "PCNN_COMM_OVERLAP",
+    "PCNN_COMM_HOSTS",
+    "PCNN_FUSED_STEP",
+    "PCNN_ACT_DTYPE",
+    "PCNN_ZERO_LEVEL",
+    "PCNN_PIPELINE_STAGES",
+    "PCNN_PIPELINE_SPLIT",
+    "PCNN_PIPELINE_WIRE_DTYPE",
+    "PCNN_PIPELINE_ACT_DTYPE",
+    "PCNN_SERVE_PRECOMPILE",
+    "PCNN_SERVE_AOT_CACHE_DIR",
+)
+
+
+def present_plan_env() -> frozenset:
+    """The plan-feeding PCNN_* vars actually set in this environment."""
+    return frozenset(v for v in _PLAN_ENV_VARS if os.environ.get(v))
+
+
+def plan_path_from_env() -> Optional[str]:
+    """PCNN_PLAN: path to a plan.json applied under CLI flags (same
+    precedence slot as --plan; an explicit --plan flag wins), or None."""
+    return os.environ.get("PCNN_PLAN") or None

@@ -5,10 +5,12 @@ bring-up, and of the device mesh JAX builds inside one process).
 
 ``run(fn, world, device=...)`` calls ``fn(mesh, *args)`` on every rank and
 returns each rank's result, rank 0's first. ``mesh`` is the rank's
-``DataMesh`` or, with ``shape=(data, model)``, its ``Mesh2D``, or with
-``shape=(stages, data), axes=PIPELINE_AXES`` its ``PipelineMesh``, or with
-``shape=(hosts, data), axes=HIER_AXES`` its ``HierMesh`` (the axis groups
-made on every rank). The rendezvous is explicit: a
+``DataMesh`` or, with ``plan=`` (an ``ExecutionPlan``, pickled into every
+rank), the mesh the plan makes (``ExecutionPlan.make_mesh``: the pipeline's ``PipelineMesh``,
+the hierarchical ring's ``HierMesh``, a ``Mesh2D`` or a ``DataMesh``; the
+axis groups made on every rank). The trainer's CLI launches every mesh
+from its validated plan, so a rank never re-resolves flags or
+environment. The rendezvous is explicit: a
 ``file://`` store in a fresh temporary directory, with the world size and
 each rank given by the launcher; nothing is read from the environment.
 The backend is NCCL on cuda, rank r on ``cuda:r``, and gloo on the CPU.
@@ -36,25 +38,11 @@ import torch
 import torch.distributed as dist
 
 from parallel_cnn_tpu_torch.config import MeshConfig
-from parallel_cnn_tpu_torch.parallel.mesh import (
-    DATA_AXIS,
-    HOST_AXIS,
-    STAGE_AXIS,
-    DataMesh,
-    make_hier_mesh,
-    make_mesh_2d,
-    make_pipeline_mesh,
-)
+from parallel_cnn_tpu_torch.parallel.mesh import DataMesh
 from parallel_cnn_tpu_torch.utils.backend import DeviceLike, resolve_device
 
 #: How long a collective may wait for a peer before the group gives up.
 COLLECTIVE_TIMEOUT = datetime.timedelta(minutes=10)
-
-#: The axes of a (data, model) mesh, of a (stage, data) pipeline mesh and
-#: of a (host, data) hierarchical mesh.
-MESH_AXES = (DATA_AXIS, "model")
-PIPELINE_AXES = (STAGE_AXIS, DATA_AXIS)
-HIER_AXES = (HOST_AXIS, DATA_AXIS)
 
 #: Gloo ranks a host of the hierarchical mesh on the CPU (``--device cpu``
 #: emulates H hosts of this many ranks on one machine).
@@ -146,7 +134,7 @@ def resolve_world(mesh: MeshConfig, device: DeviceLike = None) -> int:
 
 
 def _init_rank(rank: int, world: int, init_method: str, device_type: str,
-               shape: Optional[Tuple[int, int]], axes: Tuple[str, str]):
+               plan):
     if device_type == "cuda":
         device = torch.device("cuda", rank)
         torch.cuda.set_device(device)
@@ -157,19 +145,14 @@ def _init_rank(rank: int, world: int, init_method: str, device_type: str,
     dist.init_process_group(backend_for(device_type), init_method=init_method,
                             world_size=world, rank=rank,
                             timeout=COLLECTIVE_TIMEOUT)
-    if shape is None:
-        return DataMesh(world=world, rank=rank, device=device)
-    if axes == PIPELINE_AXES:
-        return make_pipeline_mesh(rank, world, device, shape[0])
-    if axes == HIER_AXES:
-        return make_hier_mesh(rank, world, device, shape[0])
-    return make_mesh_2d(rank, world, device, *shape)
+    if plan is not None:
+        return plan.make_mesh(rank, world, device)
+    return DataMesh(world=world, rank=rank, device=device)
 
 
 def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
-              device_type: str, args: Sequence[Any],
-              shape: Optional[Tuple[int, int]], axes: Tuple[str, str]) -> Any:
-    mesh = _init_rank(rank, world, init_method, device_type, shape, axes)
+              device_type: str, args: Sequence[Any], plan) -> Any:
+    mesh = _init_rank(rank, world, init_method, device_type, plan)
     try:
         return fn(mesh, *args)
     finally:
@@ -178,9 +161,8 @@ def _run_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
                   device_type: str, args: Sequence[Any], out_dir: str,
-                  shape: Optional[Tuple[int, int]], axes: Tuple[str, str]) -> None:
-    result = _run_rank(rank, fn, world, init_method, device_type, args, shape,
-                       axes)
+                  plan) -> None:
+    result = _run_rank(rank, fn, world, init_method, device_type, args, plan)
     tmp = Path(out_dir) / f"result_{rank}.tmp"
     with open(tmp, "wb") as f:
         pickle.dump(result, f)
@@ -189,22 +171,15 @@ def _spawned_rank(rank: int, fn: Callable, world: int, init_method: str,
 
 def run(fn: Callable, world: int, *, device: DeviceLike = None,
         args: Sequence[Any] = (), timeout: Optional[float] = None,
-        shape: Optional[Tuple[int, int]] = None,
-        axes: Tuple[str, str] = MESH_AXES) -> List[Any]:
+        plan=None) -> List[Any]:
     """``fn(mesh, *args)`` on each of ``world`` ranks; their results in rank
-    order. ``shape=(data, model)`` (data × model == world) gives each rank
-    its ``Mesh2D``, ``shape=(stages, data)`` with ``axes=PIPELINE_AXES`` its
-    ``PipelineMesh``, ``shape=(hosts, data)`` with ``axes=HIER_AXES`` its
-    ``HierMesh``, no shape a ``DataMesh``. ``fn`` and ``args`` must pickle (a
+    order. ``plan`` (an ``ExecutionPlan``) gives each rank the mesh
+    ``plan.make_mesh`` makes for it, no plan a ``DataMesh``. ``fn`` and ``args`` must pickle (a
     module-level function) when ``world > 1``. Raises what a rank raised,
     or TimeoutError after ``timeout`` seconds (the ranks are stopped either
     way)."""
     if world < 1:
         raise ValueError(f"world must be >= 1, got {world}")
-    if shape is not None and shape[0] * shape[1] != world:
-        raise ValueError(f"a {shape[0]}x{shape[1]} mesh is not a world of {world}")
-    if axes not in (MESH_AXES, PIPELINE_AXES, HIER_AXES):
-        raise ValueError(f"unknown mesh axes {axes}")
     dev = resolve_device(device)
     if dev.type == "cuda" and world > torch.cuda.device_count():
         raise MeshSizeError(
@@ -213,10 +188,10 @@ def run(fn: Callable, world: int, *, device: DeviceLike = None,
     with tempfile.TemporaryDirectory(prefix="pcnn_dp_") as tmp:
         init_method = Path(tmp, "rendezvous").as_uri()
         if world == 1:
-            return [_run_rank(0, fn, 1, init_method, dev.type, args, shape, axes)]
+            return [_run_rank(0, fn, 1, init_method, dev.type, args, plan)]
         ctx = torch.multiprocessing.start_processes(
             _spawned_rank, args=(fn, world, init_method, dev.type, tuple(args), tmp,
-                                 shape, axes),
+                                 plan),
             nprocs=world, join=False, start_method="spawn")
         deadline = None if timeout is None else time.monotonic() + timeout
         try:

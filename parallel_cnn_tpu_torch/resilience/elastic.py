@@ -13,9 +13,11 @@ loss or add (``resize@STEP:±K``) or a schedule entry, the
    the newest loadable sharded checkpoint in the ring
    (``CheckpointRing.restore_latest_sharded``), losing the steps since the
    ring's last save;
-3. **re-meshes** over the surviving ranks (``mesh.make_elastic_mesh``:
-   the first ``world`` ranks, hierarchical while the host count divides
-   the world, a flat ring otherwise);
+3. **re-meshes** over the surviving ranks: the resize is a plan
+   derivation (``plan.derive_resized``: the first ``world`` ranks,
+   hierarchical while the host count divides the world, a flat ring
+   otherwise), and the derived plan builds the mesh
+   (``ExecutionPlan.make_mesh``, ``mesh.make_elastic_mesh`` underneath);
 4. **reshards** the parameters and momentum for the new world
    (``zoo.zero3_state_from_view``) and hands the trainer the new (state,
    plan, mesh, comm) to rebuild its step from, with the LR and global
@@ -43,13 +45,14 @@ every device; the port's runs on every spawned rank, and the ranks agree:
   rank 0 alone restores from its ring. The view is then broadcast from
   rank 0 to every spawned rank when a rank joins or the view came from
   the ring (a rank that stays already holds the identical gathered view).
-- **Groups** come from ``make_elastic_mesh`` with the controller's cache:
-  a topology seen before reuses its groups (the port's counterpart of
-  JAX's recompile-once step cache).
+- **Groups** come from the derived plan's ``make_mesh`` with the
+  controller's cache: a topology seen before reuses its groups.
 
-JAX derives the new mesh from its ExecutionPlan (``derive_resized``,
-``plan_step_cache`` events); the plan is not ported, and
-``make_elastic_mesh`` makes the same topology decision.
+The controller carries the run's ExecutionPlan (``exec_plan``, JAX's),
+and after each resize the derived one; with none it derives from an
+empty plan, as JAX does. The trainer keys its step cache on the same
+derivation (train/zoo.py, ``plan_step_cache`` events), so a resize back
+to a topology already seen reuses both the groups and the step.
 """
 
 from __future__ import annotations
@@ -123,10 +126,15 @@ class ElasticController:
         obs: Optional["obs_lib.Obs"] = None,
         reachable: Optional[int] = None,
         device: Optional[torch.device] = None,
+        exec_plan=None,
     ):
         self.cfg = cfg
         self.world = world
         self.n_hosts = n_hosts
+        # The ExecutionPlan this run resolved (plan/): a resize is
+        # derive_resized(plan, new_world) → make_mesh, so the topology
+        # decision lives in one place.
+        self.exec_plan = exec_plan
         self.world0 = world  # scaling baseline for "per-device" policy
         self.chaos = chaos
         self.ring = ring
@@ -142,7 +150,8 @@ class ElasticController:
         self._schedule = list(cfg.plan())
         self._last_source = "direct"
         self._template = None  # host full view for the ring fallback
-        # One mesh view per (world, hosts) topology (make_elastic_mesh).
+        # One mesh view per (world, hosts) topology (the derived plans'
+        # make_mesh).
         self.meshes: Dict[Tuple[int, int], Any] = {}
         # Host-side agreement among the spawned ranks (a few ints a step).
         self._ctl = (dist.new_group(backend="gloo")
@@ -235,11 +244,20 @@ class ElasticController:
 
     # -- the resize itself ----------------------------------------------
 
+    def plan_for(self, world: int, n_hosts: int = 1):
+        """The ExecutionPlan a resize to ``world`` lands on
+        (``derive_resized`` of the run's plan; an empty plan without one)."""
+        from parallel_cnn_tpu_torch import plan as plan_lib
+
+        return plan_lib.derive_resized(
+            self.exec_plan or plan_lib.ExecutionPlan(), world, n_hosts=n_hosts)
+
     def mesh_for(self, world: int, n_hosts: int = 1):
         """This rank's mesh over the first ``world`` ranks (None outside
-        them), from the topology cache; every spawned rank calls it."""
-        return mesh_lib.make_elastic_mesh(world, n_hosts=n_hosts,
-                                          device=self.device, cache=self.meshes)
+        them): the derived plan's, from the topology cache; every spawned
+        rank calls it."""
+        return self.plan_for(world, n_hosts).make_mesh(
+            self.rank, world, self.device, cache=self.meshes)
 
     def register_template(self, view) -> None:
         """Seed the ring-fallback restore template from a healthy full
@@ -322,8 +340,10 @@ class ElasticController:
 
         ``state`` is this rank's ZeRO-3 ``ZooState`` (None on a rank that
         holds none; then ``model`` and ``optimizer`` say what a joining
-        rank builds). ``plan`` is accepted for JAX's signature (the
-        port's state carries its plan). ``n_hosts`` pins the new host-axis
+        rank builds). ``plan`` (the ZeRO-3 bucket plan) is accepted for
+        JAX's signature: the port's state carries it. The new topology is
+        ``derive_resized`` of the controller's ExecutionPlan, which it
+        keeps (``exec_plan``). ``n_hosts`` pins the new host-axis
         size; the default keeps the current host count while it divides
         the new world, else a flat ring. The returned comm has its impl
         switched to the new topology (ring ↔ hierarchical), every other
@@ -370,9 +390,10 @@ class ElasticController:
             view, from_ring = self._snapshot(state)
             if from_ring or world > old_world:
                 view = self._share(view, zoo.zero3_view_like(model, self.device))
-            mesh = self.mesh_for(world, n_hosts)
-            has_host = isinstance(mesh, mesh_lib.HierMesh) or (
-                mesh is None and n_hosts > 1 and world % n_hosts == 0)
+            new_exec_plan = self.plan_for(world, n_hosts)
+            mesh = new_exec_plan.make_mesh(self.rank, world, self.device,
+                                           cache=self.meshes)
+            has_host = new_exec_plan.comm_impl == "hierarchical"
             new_comm = dataclasses.replace(
                 comm,
                 impl="hierarchical" if has_host else "ring",
@@ -385,6 +406,7 @@ class ElasticController:
                     model, optimizer, view, mesh=mesh,
                     bucket_bytes=comm.bucket_bytes)
         self.world, self.n_hosts = world, new_hosts
+        self.exec_plan = new_exec_plan
         if view is not None and self._template is None:
             # JAX re-registers the view after every resize; its structure
             # is all the fallback reads, and it never changes, so the

@@ -16,6 +16,12 @@ full view of the state (train/zoo.py ``zero3_full_view``: ``params/…``,
 and rank), JAX's keys and marker: ``restore_sharded`` reads it for any
 world, and ``restore`` and ``load_params`` refuse it with JAX's text.
 
+A writer may stamp the ExecutionPlan it ran under (``plan_fingerprint=``,
+the metadata's ``plan`` entry, JAX's key). A reader that passes its live
+fingerprint refuses a file stamped with another one (plan/
+``PlanMismatchError``, naming both and ``--replan``); ``replan=True``
+waives the check, and a file without a stamp always loads.
+
 The zoo trainer saves its whole state through the same two functions: the
 tree it passes is ``train.zoo.ZooState.arrays()``, a flat dict whose keys
 are already JAX's ``ZooState`` paths (``.params/...``, ``.model_state/...``,
@@ -96,29 +102,50 @@ def _write_atomic(path: str, params, meta: Dict[str, Any]) -> None:
         raise
 
 
-def _meta_for(state: Optional[TrainState]) -> Dict[str, Any]:
+def _meta_for(state: Optional[TrainState],
+              plan_fingerprint: Optional[str] = None) -> Dict[str, Any]:
     state = state or TrainState()
-    return {
+    meta = {
         "version": FORMAT_VERSION,
         "epoch": state.epoch,
         "epoch_errors": state.epoch_errors,
         "extra": state.extra,
     }
+    if plan_fingerprint:
+        meta["plan"] = plan_fingerprint
+    return meta
 
 
-def save(path: str, params, state: Optional[TrainState] = None) -> None:
-    """Atomically write params (+ train state) to `path` (.npz)."""
-    _write_atomic(path, params, _meta_for(state))
+def _check_plan(path: str, meta: Dict[str, Any],
+                plan_fingerprint: Optional[str], replan: bool) -> None:
+    """Refuse a checkpoint written under a different ExecutionPlan (JAX's
+    ``_check_plan``): only when the reader passes its live fingerprint;
+    files without a stamp always load, and ``replan=True`` waives it."""
+    if plan_fingerprint is None or replan:
+        return
+    stored = meta.get("plan")
+    if stored is not None and stored != plan_fingerprint:
+        from parallel_cnn_tpu_torch.plan import PlanMismatchError
+
+        raise PlanMismatchError(stored=stored, live=plan_fingerprint, path=path)
+
+
+def save(path: str, params, state: Optional[TrainState] = None, *,
+         plan_fingerprint: Optional[str] = None) -> None:
+    """Atomically write params (+ train state) to `path` (.npz), stamped
+    with ``plan_fingerprint`` when given."""
+    _write_atomic(path, params, _meta_for(state, plan_fingerprint))
 
 
 def save_sharded(path: str, view, state: Optional[TrainState] = None, *,
-                 world_size: int, bucket_bytes: int, rank: int = 0) -> None:
+                 world_size: int, bucket_bytes: int, rank: int = 0,
+                 plan_fingerprint: Optional[str] = None) -> None:
     """Atomically write a ZeRO-3 training state's full view (train/zoo.py
     ``zero3_full_view``: world-size independent, not the resident rows,
     whose padding bakes the world size in) with JAX's ``zero3`` marker:
     the world size and bucket budget that produced it and the writer's
     ``rank``. ``restore_sharded`` re-shards it for any mesh."""
-    meta = _meta_for(state)
+    meta = _meta_for(state, plan_fingerprint)
     meta["zero3"] = {"world_size": world_size, "bucket_bytes": bucket_bytes,
                      "rank": rank}
     _write_atomic(path, view, meta)
@@ -185,29 +212,35 @@ def _load_like(stored: Dict[str, np.ndarray], like):
     return tree_unflatten(treedef, leaves)
 
 
-def restore(path: str, like) -> Tuple[Any, TrainState]:
+def restore(path: str, like, *, plan_fingerprint: Optional[str] = None,
+            replan: bool = False) -> Tuple[Any, TrainState]:
     """Load a checkpoint into the structure of `like` (a params tree of
     tensors); each leaf lands on its `like` leaf's device.
 
     The stored keys, shapes and dtypes must match `like` exactly: a renamed
     layer or changed shape is a hard error, not a partial load. A ZeRO-3
-    sharded checkpoint raises JAX's "use restore_sharded" error."""
+    sharded checkpoint raises JAX's "use restore_sharded" error; a file
+    stamped with another plan than ``plan_fingerprint``, PlanMismatchError
+    (``replan=True`` waives it)."""
     stored, meta = _read_arrays(path)
     _reject_sharded(path, meta, "restore")
+    _check_plan(path, meta, plan_fingerprint, replan)
     bad = _mismatch(stored, tree_paths(like))
     if bad:
         raise ValueError(f"checkpoint structure mismatch: {bad}")
     return _load_like(stored, like), _train_state(meta)
 
 
-def load_params(path: str, like):
+def load_params(path: str, like, *, plan_fingerprint: Optional[str] = None,
+                replan: bool = False):
     """Inference-only restore (JAX's ``load_params``): ``like``'s leaves
     out of a checkpoint, without the TrainState; surplus stored keys (an
     optimizer's state) are ignored, missing ones and mismatched shapes
     raise. A ZeRO-3 sharded checkpoint raises JAX's "use restore_sharded"
-    error."""
+    error, a plan mismatch PlanMismatchError, as ``restore``."""
     stored, meta = _read_arrays(path)
     _reject_sharded(path, meta, "load_params")
+    _check_plan(path, meta, plan_fingerprint, replan)
     missing = set(tree_paths(like)) - set(stored)
     if missing:
         raise ValueError(
@@ -215,14 +248,18 @@ def load_params(path: str, like):
     return _load_like(stored, like)
 
 
-def restore_sharded(path: str, like) -> Tuple[Any, TrainState, Dict[str, Any]]:
+def restore_sharded(path: str, like, *, plan_fingerprint: Optional[str] = None,
+                    replan: bool = False
+                    ) -> Tuple[Any, TrainState, Dict[str, Any]]:
     """Load a ZeRO-3 sharded checkpoint's full view into the structure of
     ``like`` (a ``zero3_full_view``-shaped tree): (view, TrainState, the
     ``zero3`` metadata). The view does not depend on the world that wrote
-    it; ``zoo.zero3_from_view`` lays it out for this run's mesh. An
-    unsharded file, or a view that does not match ``like``, raises
+    it; ``zoo.zero3_from_view`` lays it out for this run's mesh. A plan
+    mismatch raises PlanMismatchError first (``replan=True`` waives it), as
+    JAX's; an unsharded file, or a view that does not match ``like``,
     ``ShardedCheckpointError``."""
     stored, meta = _read_arrays(path)
+    _check_plan(path, meta, plan_fingerprint, replan)
     if not meta.get("zero3"):
         raise ShardedCheckpointError(
             "not a sharded checkpoint (no zero3 metadata) — "

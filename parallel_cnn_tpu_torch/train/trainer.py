@@ -151,7 +151,7 @@ def learn(
 
     batch_size == 1 → strict-parity per-sample SGD; batch_size > 1 →
     minibatch steps (``cfg.train.ops`` picks the kernel path,
-    ``cfg.fused`` the bucketed update, ``cfg.train.prefetch`` the batch
+    a ``cfg.fused`` the bucketed update, ``cfg.train.prefetch`` the batch
     source: ``"native"`` the native C++ ring's host batches, ``"auto"``
     its NumPy twin's order gathered on the device, the same batches in the
     same order either way). ``epoch_offset`` shifts the
@@ -168,7 +168,11 @@ def learn(
     same arguments) trains over the mesh on its device: ``params`` and the
     callback's and result's params are whole trees; a split model axis
     holds a shard of them between epochs. ``cfg.comm`` picks the grads'
-    all-reduce over the data axis; ``cfg.fused`` is not read, as in JAX.
+    all-reduce over the data axis; the step applies its own update and
+    does not read ``cfg.fused``. The CLI validates the plan first, as JAX
+    does (train/trainer.py ``_maybe_mesh``): a fused step on a mesh asks
+    for update-on-arrival, which needs the ring, so ``--fused-step``
+    without ``--comm-impl ring`` exits with JAX's PlanLegalityError text.
     Each rank rolls back to its own in-memory last-good state (``ring`` is
     not read there).
     """
@@ -189,7 +193,7 @@ def learn(
     images = torch.from_numpy(train.images).to(dev)
     labels = torch.from_numpy(train.labels).to(dev)
     steps_per_epoch = len(train) // tc.batch_size if tc.batch_size > 1 else 0
-    batched_step = step_lib.batched_step_fn(tc.ops, fused=cfg.fused)
+    batched_step = step_lib.batched_step_fn(tc.ops, fused=cfg.fused is not None)
 
     # dt is a local because auto-rollback may scale it (res.lr_backoff).
     dt = tc.dt

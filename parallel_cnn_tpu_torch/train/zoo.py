@@ -111,7 +111,10 @@ ranks, the state resharded through the full view. The trainer's chaos
 (``nan@``, ``kill@``, ``resize@``, ``slow-stage@``), the per-step sentinel
 cadence and JAX's obs spans and events ride the same loop.
 
-Not here (ROADMAP A13): profiling and the execution plan.
+The ExecutionPlan (``train(..., plan=, replan=)``, plan/): its
+fingerprint stamps every checkpoint and gates every resume, and under
+elastic training each resize is a plan derivation whose result keys the
+step cache. Not here (ROADMAP A13b): profiling.
 """
 
 from __future__ import annotations
@@ -132,6 +135,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from parallel_cnn_tpu_torch import obs as obs_lib
+from parallel_cnn_tpu_torch import plan as plan_lib
 from parallel_cnn_tpu_torch.config import (
     CommConfig,
     ElasticConfig,
@@ -149,7 +153,6 @@ from parallel_cnn_tpu_torch.parallel.mesh import (
     Mesh2D,
     PipelineMesh,
     as_mesh_2d,
-    make_elastic_mesh,
 )
 from parallel_cnn_tpu_torch.resilience import preempt
 from parallel_cnn_tpu_torch.resilience.rollback import (
@@ -1388,6 +1391,8 @@ def train(
     obs=None,
     elastic: Optional[ElasticConfig] = None,
     elastic_world: Optional[int] = None,
+    plan=None,
+    replan: bool = False,
     device: DeviceLike = None,
 ) -> Tuple[ZooState, List[float]]:
     """Epoch driver for a zoo model on an in-memory NHWC dataset (JAX's
@@ -1458,6 +1463,18 @@ def train(
     rescales the global batch at epoch boundaries. The augmentation of a
     step draws from a stream seeded by the optimizer step and the rank.
 
+    ``plan`` (a ``plan.ExecutionPlan``, JAX's): the execution contract
+    the run trains under. Its fingerprint is stamped into every
+    checkpoint, and resume refuses a file stamped under another plan
+    (``PlanMismatchError``) unless ``replan`` (the CLI's ``--replan``);
+    the elastic run's sharded resume always waives it (it reshards from
+    the world-size-independent view anyway). Under elastic training the
+    starting mesh and every resize are plan derivations
+    (``plan.derive_resized``), and the derived plan with the LR keys a
+    step cache: a resize back to a topology already seen reuses the step
+    built for it (journaled ``plan_step_cache`` with ``hit``, ``plan``
+    and ``world``).
+
     ``chaos`` (a ``ChaosMonkey``): ``nan@STEP`` poisons the state after
     optimizer step STEP (every floating leaf, as JAX's ``after_step``
     does to its state tree; journaled ``chaos``), ``kill@``/``kill9@``
@@ -1472,6 +1489,10 @@ def train(
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
+    # The resolved ExecutionPlan travels under a distinct name: z3_plan
+    # below is the ZeRO-3 bucket plan, a different object.
+    exec_plan = plan
+    plan_fp = exec_plan.fingerprint() if exec_plan is not None else None
     pipe = pipeline is not None
     if pipe:
         if not isinstance(mesh, PipelineMesh):
@@ -1565,12 +1586,13 @@ def train(
     # on the first ``start_world`` of them (``active``, None on the rest),
     # meshes cached per topology from the spawned one on.
     active = mesh
-    mesh_cache = None
+    mesh_cache = start_plan = None
     if use_elastic:
         hosts0 = mesh.host.size if isinstance(mesh, HierMesh) else 1
         mesh_cache = {(world, hosts0): mesh}
-        active = make_elastic_mesh(start_world, n_hosts=hosts0, device=dev,
-                                   cache=mesh_cache)
+        start_plan = plan_lib.derive_resized(
+            exec_plan or plan_lib.ExecutionPlan(), start_world, n_hosts=hosts0)
+        active = start_plan.make_mesh(rank, world, dev, cache=mesh_cache)
     z3_plan = None
     if pipe:
         from parallel_cnn_tpu_torch.train.pipeline_schedule import make_pipeline_step
@@ -1636,7 +1658,11 @@ def train(
             # the file is written (after an elastic resize, the new one).
             saver = lambda path, view, tstate: checkpoint.save_sharded(  # noqa: E731
                 path, view, tstate, world_size=z3_plan.shards,
-                bucket_bytes=comm.bucket_bytes, rank=rank)
+                bucket_bytes=comm.bucket_bytes, rank=rank,
+                plan_fingerprint=plan_fp)
+        elif plan_fp:
+            saver = lambda path, arrays, tstate: checkpoint.save(  # noqa: E731
+                path, arrays, tstate, plan_fingerprint=plan_fp)
         ring = CheckpointRing(checkpoint_dir,
                               keep=res.ring_size if res is not None else 0,
                               saver=saver)
@@ -1648,12 +1674,17 @@ def train(
         path = checkpoint.latest(checkpoint_dir)
         if path:
             if use_zero3:
+                # The elastic reshard path recomputes the layout from the
+                # world-size-independent view: exempt from the plan gate.
                 view, tstate, _ = checkpoint.restore_sharded(
-                    path, zero3_view_like(model, dev))
+                    path, zero3_view_like(model, dev), plan_fingerprint=plan_fp,
+                    replan=replan or use_elastic)
                 if live():
                     zero3_from_view(state, view)
             else:
-                arrays, tstate = checkpoint.restore(path, state.checkpoint_arrays())
+                arrays, tstate = checkpoint.restore(
+                    path, state.checkpoint_arrays(), plan_fingerprint=plan_fp,
+                    replan=replan)
                 state.load(arrays)
             start_epoch = tstate.epoch
             losses = list(tstate.epoch_errors)
@@ -1669,10 +1700,17 @@ def train(
         # snapshot fallback, the template the state that will train.
         ectl = ElasticController(elastic, world=start_world, n_hosts=hosts0,
                                  chaos=chaos, ring=ring, obs=obs, reachable=world,
-                                 device=dev)
+                                 device=dev, exec_plan=exec_plan)
         ectl.meshes = mesh_cache
         if live():
             ectl.register_template(zero3_full_view(state))
+    # Built steps keyed by (the derived ExecutionPlan, LR), primed with the
+    # starting topology's: a resize back to a world already seen reuses its
+    # step. Every rank takes the same hit/miss decision (derive_resized is
+    # deterministic); a rank outside the world keeps no step.
+    step_cache: dict = {}
+    if ectl is not None and exec_plan is not None and step is not None:
+        step_cache[(start_plan, lr)] = step
 
     np_data = None
     if loader == "native":
@@ -1777,13 +1815,25 @@ def train(
                     state, z3_plan, active, comm = ectl.resize(
                         opt_steps, target, state=state if live() else None,
                         comm=comm, model=model, optimizer=optimizer)
+                    ckey = None
+                    if exec_plan is not None:
+                        # The controller's plan is now derive_resized's.
+                        ckey = (ectl.exec_plan, ectl.lr_for(lr))
+                        if obs.enabled:
+                            obs.event("plan_step_cache", hit=ckey in step_cache,
+                                      plan=ckey[0].fingerprint(), world=target)
                     if active is None:
                         state, step = ZooState(model, optimizer, {}), None
                     else:
-                        step = make_zero3_train_step(
-                            model, lr=ectl.lr_for(lr), momentum=momentum,
-                            accum_steps=accum_steps, mesh=active, augment_pad=pad,
-                            comm=comm, fused=fused, plan=z3_plan)
+                        step = step_cache.get(ckey)
+                        if step is None:
+                            step = make_zero3_train_step(
+                                model, lr=ectl.lr_for(lr), momentum=momentum,
+                                accum_steps=accum_steps, mesh=active,
+                                augment_pad=pad, comm=comm, fused=fused,
+                                plan=z3_plan)
+                            if ckey is not None:
+                                step_cache[ckey] = step
                     epoch_loss = torch.tensor(float(epoch_loss), device=dev)
                     skip_seen = int(state.fused.skipped) if live() else 0
                     if sentinel is not None:

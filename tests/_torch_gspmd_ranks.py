@@ -1,6 +1,6 @@
 """Rank programs for the port's GSPMD zoo tests (test_torch_gspmd.py).
-parallel/distributed.run spawns each world of ranks with ``shape=(data,
-model)`` and calls one of these on every rank; the module imports torch
+parallel/distributed.run spawns each world of ranks with the plan of its
+(data, model) mesh and calls one of these on every rank; the module imports torch
 and the port only, since a spawned rank imports it afresh. Inputs arrive
 as numpy arrays and results go back as numpy arrays."""
 
@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 from parallel_cnn_tpu_torch import cli
+from parallel_cnn_tpu_torch import plan as pplan
 from parallel_cnn_tpu_torch.data import augment as aug_lib
 from parallel_cnn_tpu_torch.nn import (BatchNorm, Conv2D, ConvBNAct, Dense, Flatten,
                                        GlobalAvgPool, MaxPool, ReLU, Sequential, cifar,
@@ -121,7 +122,8 @@ def dp_cases(mesh, spec):
          "--synthetic-test-count", "32"])
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        cli._zoo_job(mesh, args, None, None)
+        cfg, _ = cli._zoo_fallback(cli.config_from_args(args))
+        cli._zoo_job(mesh, args, cfg, pplan.build_plan(cfg, args))
     res["cli"] = out.getvalue()
     return res
 

@@ -1,6 +1,6 @@
 """Rank programs for the port's LeNet-ref mesh tests (test_torch_parallel.py).
-parallel/distributed.run spawns each world of ranks with ``shape=(data,
-model)`` and calls one of these on every rank; the module imports torch
+parallel/distributed.run spawns each world of ranks with the plan of its
+(data, model) mesh and calls one of these on every rank; the module imports torch
 and the port only, since a spawned rank imports it afresh. Inputs arrive
 as numpy arrays and results go back as numpy arrays."""
 

@@ -630,12 +630,14 @@ def test_mesh_trainer_launches_the_fused_kernel_once_per_step_on_card(card):
     """LeNet-ref over a 1 x 1 mesh on the card: every step one B1 launch,
     no B2 launch (the mesh step applies its own update), and the same
     trajectory as the single-device kernel path within the step tolerance."""
+    from parallel_cnn_tpu_torch import plan as pplan
     from parallel_cnn_tpu_torch.parallel import distributed
 
     lenet_fused.launches.reset()
     sgd_update.launches.reset()
-    steps, errs, params = distributed.run(_mesh_train_rank, 1, device="cuda",
-                                          shape=(1, 1), args=("cuda",))[0]
+    steps, errs, params = distributed.run(
+        _mesh_train_rank, 1, device="cuda",
+        plan=pplan.ExecutionPlan(data=1, model=1), args=("cuda",))[0]
     assert steps == 10 and lenet_fused.launches.count == steps
     assert sgd_update.launches.count == 0
     ds = pipeline.Dataset(*synthetic.make_dataset(320, seed=3))
@@ -718,7 +720,8 @@ def test_sgd_momentum_buckets_refuse_on_card(card):
 ], ids=["ops-cuda", "fused-step"])
 def test_train_path_launches_the_kernel_on_card(card, ops, fused, counter):
     imgs, labels = synthetic.make_dataset(640, seed=1)
-    cfg = Config(train=TrainConfig(epochs=1, batch_size=64, ops=ops), fused=fused)
+    cfg = Config(train=TrainConfig(epochs=1, batch_size=64, ops=ops),
+                 fused=FusedStepConfig() if fused else None)
     counter.reset()
     res = trainer.learn(cfg, pipeline.Dataset(imgs, labels), verbose=False)
     assert res.steps == 10 and counter.count == 10

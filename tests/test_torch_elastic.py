@@ -449,7 +449,7 @@ def test_cli_elastic_two_ranks(tmp_path):
     """An elastic run of 2 gloo ranks: the schedule shrinks it to 1 and
     grows it back; both resizes are logged as JAX logs them, two epochs
     train, and the trace and journal are written."""
-    env = dict(os.environ, PCNN_ZERO_LEVEL="3",
+    env = dict(os.environ, PCNN_FUSED_STEP="1", PCNN_ZERO_LEVEL="3",
                PYTHONPATH=os.pathsep.join([str(REPO), os.environ.get("PYTHONPATH", "")]))
     proc = subprocess.run(
         [sys.executable, "-m", "parallel_cnn_tpu_torch", "--device", "cpu",

@@ -49,6 +49,7 @@ from parallel_cnn_tpu.parallel import zoo_sharding as jax_zoo_sharding
 from parallel_cnn_tpu.train import checkpoint as jax_checkpoint
 from parallel_cnn_tpu.train import zoo as jax_zoo
 from parallel_cnn_tpu_torch import cli, convert
+from parallel_cnn_tpu_torch import plan as pplan
 from parallel_cnn_tpu_torch.config import COMM_DATA_ONLY_ERROR, MeshLayoutError
 from parallel_cnn_tpu_torch.data import augment as aug_lib
 from parallel_cnn_tpu_torch.parallel import distributed, zoo_sharding
@@ -171,7 +172,8 @@ def dp_world(tmp_path_factory):
     spec = dict(models={n: _sd(i) for n, i in inits.items()}, x=x, y=y, tx=tx, ty=ty,
                 ex=ex, ey=ey, straight=str(tmp / "straight"), split=str(tmp / "split"))
     results = distributed.run(ranks.dp_cases, 2, device="cpu", args=(spec,),
-                              timeout=WORLD_TIMEOUT_S, shape=(2, 1))
+                              timeout=WORLD_TIMEOUT_S,
+                              plan=pplan.ExecutionPlan(data=2, model=1))
     return inits, spec, results
 
 
@@ -267,7 +269,8 @@ def hybrid_world(tmp_path_factory):
     spec = dict(models={n: _sd(i) for n, i in inits.items()}, x=x, y=y,
                 ckpt=str(tmp_path_factory.mktemp("gspmd22") / "ckpt_2.npz"))
     results = distributed.run(ranks.hybrid_cases, 4, device="cpu", args=(spec,),
-                              timeout=WORLD_TIMEOUT_S, shape=(2, 2))
+                              timeout=WORLD_TIMEOUT_S,
+                              plan=pplan.ExecutionPlan(data=2, model=2))
     return inits, spec, results
 
 
@@ -346,7 +349,8 @@ def test_hybrid_checkpoint_resumes_on_one_rank(hybrid_world):
     2 × 2 world took it, within one step's tolerance."""
     _, spec, results = hybrid_world
     (epoch, got), = distributed.run(
-        ranks.resume_on_one, 1, device="cpu", shape=(1, 1),
+        ranks.resume_on_one, 1, device="cpu",
+        plan=pplan.ExecutionPlan(data=1, model=1),
         args=(dict(spec, sd=spec["models"]["two_conv"]),))
     assert epoch == ranks.STEPS
     for res in results:
@@ -367,7 +371,8 @@ def mixed_world():
     x, y = _batch(5, 8)
     spec = dict(sd=_sd(init), x=x, y=y)
     results = distributed.run(ranks.mixed_cases, 4, device="cpu", args=(spec,),
-                              timeout=WORLD_TIMEOUT_S, shape=(1, 4))
+                              timeout=WORLD_TIMEOUT_S,
+                              plan=pplan.ExecutionPlan(data=1, model=4))
     return init, spec, results
 
 

@@ -54,6 +54,7 @@ from parallel_cnn_tpu.parallel import mesh as jax_mesh
 from parallel_cnn_tpu.train import checkpoint as jax_checkpoint
 from parallel_cnn_tpu.train import zoo as jax_zoo
 from parallel_cnn_tpu_torch import convert
+from parallel_cnn_tpu_torch import plan as pplan
 from _torch_jax_init import jax_init
 from parallel_cnn_tpu_torch.parallel import distributed
 from parallel_cnn_tpu_torch.train import zoo
@@ -176,7 +177,9 @@ def worlds():
         spec = dict(models={n: c[1:] for n, c in cases.items()}, f64=tuple(DEEP),
                     shapes=shapes)
         results = distributed.run(ranks.zoo50_cases, size, device="cpu", args=(spec,),
-                                  timeout=WORLD_TIMEOUT_S, shape=shapes[0])
+                                  timeout=WORLD_TIMEOUT_S,
+                                  plan=pplan.ExecutionPlan(data=shapes[0][0],
+                                                           model=shapes[0][1]))
         for shape in shapes:
             out[shape] = cases, [res[shape] for res in results]
     return out

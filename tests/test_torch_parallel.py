@@ -45,6 +45,7 @@ from parallel_cnn_tpu.parallel import mesh as jmesh
 from parallel_cnn_tpu.train import checkpoint as jcheckpoint
 from parallel_cnn_tpu.train import step as jstep
 from parallel_cnn_tpu_torch import cli, convert
+from parallel_cnn_tpu_torch import plan as pplan
 from parallel_cnn_tpu_torch.config import MeshConfig, MeshLayoutError
 from parallel_cnn_tpu_torch.data import synthetic
 from parallel_cnn_tpu_torch.ops import reference
@@ -150,7 +151,8 @@ def world2(tmp_path_factory):
                 epoch_y=ey.reshape(2, 8), straight=str(tmp / "straight"),
                 split=str(tmp / "split"))
     results = distributed.run(ranks.dp_cases, 2, device="cpu", args=(spec,),
-                              timeout=WORLD_TIMEOUT_S, shape=(2, 1))
+                              timeout=WORLD_TIMEOUT_S,
+                              plan=pplan.ExecutionPlan(data=2, model=1))
     return jp, spec, results
 
 
@@ -237,7 +239,8 @@ def model_worlds(tmp_path_factory):
                         poison_at=len(train_x) // B - 1)
         out[shape] = (spec, distributed.run(
             ranks.model_axis_cases, shape[0] * shape[1], device="cpu", args=(spec,),
-            timeout=WORLD_TIMEOUT_S, shape=shape))
+            timeout=WORLD_TIMEOUT_S,
+            plan=pplan.ExecutionPlan(data=shape[0], model=shape[1])))
     return jp, out
 
 

@@ -582,6 +582,7 @@ def test_cli_hierarchical_two_hosts(capfd):
 
 
 def test_cli_zero3_ring_resume_is_bit_identical(capfd, monkeypatch, tmp_path):
+    monkeypatch.setenv("PCNN_FUSED_STEP", "1")
     monkeypatch.setenv("PCNN_ZERO_LEVEL", "3")
     base = ["--mesh-data", "2", "--comm-impl", "ring", "--fused-step",
             "--act-dtype", "float32"]
@@ -609,11 +610,13 @@ def test_cli_zero3_ring_resume_is_bit_identical(capfd, monkeypatch, tmp_path):
     (["--comm-impl", "hierarchical", "--fused-step"], {},
      "ZeRO-2 update-on-arrival rides the flat ring"),
     (["--mesh-data", "2", "--comm-impl", "psum", "--fused-step"],
-     {"PCNN_ZERO_LEVEL": "3"}, "ZeRO-3 needs the explicit ring or hierarchical"),
+     {"PCNN_FUSED_STEP": "1", "PCNN_ZERO_LEVEL": "3"},
+     "ZeRO-3 needs the explicit ring or hierarchical"),
     (["--pipeline-stages", "2", "--comm-impl", "hierarchical"], {},
      "pipeline gradients reduce over the flat data axis"),
     (["--pipeline-stages", "2", "--comm-impl", "ring", "--fused-step"],
-     {"PCNN_ZERO_LEVEL": "3"}, "pipeline composes with ZeRO-2 only"),
+     {"PCNN_FUSED_STEP": "1", "PCNN_ZERO_LEVEL": "3"},
+     "pipeline composes with ZeRO-2 only"),
 ])
 def test_cli_legality_texts_are_jax_s(monkeypatch, argv, env, match):
     for k, v in env.items():
