@@ -121,6 +121,15 @@ port's two paths through their user-facing entry points:
   launches; the file resumed under a changed plan (--accum-steps 2)
   refused with PlanMismatchError, then resumed with --replan, one B13
   launch a step.
+- the plan autotuner and --profile (tune (a)-(b), profile (a)-(b)): tune
+  over the one card (host only; at world 1 every plan ties and Plan.key
+  picks psum at k2), ResNet-18 by --autotune against the chosen plan's
+  own flags, bit for bit under one plan stamp with exact launches, and
+  plan show labelling the filled knobs [autotune]; LeNet-ref's
+  per-phase table (five rows > 0 ms, B1 once a step); ResNet-18's
+  torch.profiler trace of 3 steps after training, its kernels counted by
+  name in the trace and the counters grown by exactly the 4 profiled
+  steps.
 
 The conv forward is also timed at each of its block tiles at every
 ResNet-18 conv and four batches, beside the tile the wrapper picks; the
@@ -153,6 +162,7 @@ import itertools
 import json
 import logging
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -167,6 +177,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from parallel_cnn_tpu_torch import cli
 from parallel_cnn_tpu_torch import plan as plan_lib
+from parallel_cnn_tpu_torch.analysis import autotune, hw_profiles
 from parallel_cnn_tpu_torch.cli import padded_bucket_parity
 from parallel_cnn_tpu_torch.config import (
     CommConfig,
@@ -5375,6 +5386,181 @@ def chaos_phase(card) -> int:
     return launches
 
 
+TUNE_MODEL = "resnet18"
+PHASE_ROWS = ("conv", "pool", "fc", "grad", "total_forward")
+PROFILED_STEPS = 4  # zoo --profile: one warm step, 3 traced
+TRACED_STEPS = 3
+# A traced kernel's name: the demangled template or function name.
+TRACE_KERNELS = {"tap_conv": "tap_conv_kernel", "tap_conv_dgrad": "tap_dgrad_kernel",
+                 "tap_wgrad": "wgrad_partial_kernel", "tail_ce": "tail_ce_kernel"}
+
+
+def tune_phase(card) -> dict:
+    """The plan autotuner on the card: (a) ``tune --model resnet18
+    --global-batch 128 --hw h100-sxm --report R`` over the one visible card
+    (host only): the table, the report embedding a plan document whose
+    fingerprint ``tune`` printed, and at world 1 (every plan ties: no
+    communication) ``Plan.key``'s choice, psum at k2; (b) ResNet-18 b128
+    on the conv kernels by ``--autotune --autotune-report R`` against the
+    chosen plan's own flags (both with ``--mesh-data 1``: the matrix
+    refuses a collective without a mesh, and ``--autotune`` fills the
+    mesh only past one device; the flags run sets PCNN_COMM_OVERLAP to
+    the plan's overlap, which has no flag): every checkpoint leaf
+    bit-identical under one plan stamp, launches equal and exact by the
+    plan's accumulation, and ``plan show --autotune-report R`` labelling
+    the filled knobs ``[autotune]``. Returns the kernels' launches over
+    the two runs."""
+    work = BUILD_DIR / "smoke_tune"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    report = work / "cost_report.json"
+    memory = torch.cuda.get_device_properties(0).total_memory
+    row = hw_profiles.get_profile("h100-sxm")
+    print(f"[smoke] tune (a): {card}, torch total_memory {memory} B (the h100-sxm "
+          f"profile's hbm_bytes {row.hbm_bytes}: "
+          f"{'equal' if memory == row.hbm_bytes else 'DIFFERS'})", flush=True)
+    out = run_cli(["tune", "--model", TUNE_MODEL, "--global-batch", str(ZOO_BATCH),
+                   "--hw", "h100-sxm", "--report", str(report)])
+    chosen, section = autotune.load_chosen_plan(report)
+    printed = out.split("(plan ")[1].split(";")[0]
+    embedded = plan_lib.load_plan(report)
+    print(f"[smoke] tune (a): chosen {chosen.label()} ({' '.join(chosen.flags())}) over "
+          f"{section['n_dev']} device(s), {section['n_enumerated']} legal plans; "
+          f"embedded plan {embedded.fingerprint()}, printed {printed}", flush=True)
+    if "plan" not in json.loads(report.read_text()) or embedded.fingerprint() != printed:
+        fail("tune (a): the report does not embed the plan tune printed")
+    if section["n_dev"] != torch.cuda.device_count() or \
+            (chosen.comm_impl, chosen.accum) != ("psum", 2):
+        fail("tune (a): at world 1 Plan.key should choose psum at k2")
+
+    # (b) --autotune against the chosen plan's own flags.
+    data = ["--model", TUNE_MODEL, "--conv-backend", "cuda", "--batch-size",
+            str(ZOO_BATCH), "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT), "--mesh-data", "1"]
+    tuned = ["--autotune", "--autotune-report", str(report)]
+    shown = run_cli(["plan", "show", *data, *tuned])
+    labelled = {line.split()[0] for line in shown.splitlines()
+                if line.endswith("[autotune]")}
+    print(f"[smoke] tune (b): plan show --autotune-report labels {sorted(labelled)} "
+          "[autotune]", flush=True)
+    if not {"comm_impl", "accum", "wire_dtype", "overlap"} <= labelled \
+            or printed not in shown:
+        fail("tune (b): plan show did not label the report's knobs [autotune]")
+    eplan = chosen.to_execution_plan(n_host=1, n_dev=1)
+    flags_env = {"PCNN_COMM_OVERLAP": "1" if eplan.overlap else "0"}
+    k, evals = chosen.accum, -(-ZOO_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": CONVS_PER_FORWARD * (k * ZOO_STEPS + evals),
+            "tap_conv_dgrad": (CONVS_PER_FORWARD - 1) * k * ZOO_STEPS,
+            "tap_wgrad": CONVS_PER_FORWARD * k * ZOO_STEPS, "tail_ce": 0}
+    runs, total = {}, dict.fromkeys(want, 0)
+    for label, argv, ctx in (("autotune", data + tuned, contextlib.nullcontext()),
+                             ("flags", data + chosen.flags(),
+                              mock.patch.dict(os.environ, flags_env))):
+        # Each run is a main path: its counters set to 0 just before it.
+        reset_zoo_counts()
+        with ctx:
+            out = run_cli(argv + ["--epochs", "1", "--checkpoint-dir", str(work / label)])
+        launches = zoo_counts()
+        total = {key: total[key] + launches[key] for key in total}
+        path = work / label / "ckpt_1.npz"
+        runs[label] = (launches, epoch_losses(out), path)
+        print(f"[smoke] tune (b) by {label}: launches {launches} (expected {want}), "
+              f"epoch loss {runs[label][1]}, checkpoint plan "
+              f"{checkpoint_meta(path).get('plan')}", flush=True)
+    a, b = (checkpoint_leaves(runs[key][2]) for key in ("autotune", "flags"))
+    same = sorted(a) == sorted(b) and all(np.array_equal(a[key], b[key]) for key in a)
+    stamps = {checkpoint_meta(runs[key][2]).get("plan") for key in runs}
+    print(f"[smoke] tune (b): --autotune run vs flag run: {len(a)} checkpoint leaves "
+          f"{'bit-identical' if same else 'DIFFER'}; stamps {sorted(stamps)} (tune "
+          f"printed {printed}); launches equal {runs['autotune'][0] == runs['flags'][0]} "
+          f"on {card}", flush=True)
+    if not same or stamps != {printed}:
+        fail("tune (b): the --autotune run is not the chosen plan's flag run bit for bit")
+    if not runs["autotune"][0] == runs["flags"][0] == want:
+        fail("tune (b): the runs did not launch each kernel exactly as the plan's "
+             "microbatches need")
+    if not all(np.isfinite(runs[key][1]).all() and len(runs[key][1]) == 1 for key in runs):
+        fail("tune (b): an epoch loss is missing or not finite")
+    return total
+
+
+def trace_kernel_counts(path) -> tuple:
+    """(launches by name of TRACE_KERNELS, every kernel name's count) in a
+    torch.profiler Chrome trace."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    names = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    pats = {key: re.compile(rf"(^|\W){name}(<|\()") for key, name in TRACE_KERNELS.items()}
+    return ({key: sum(1 for n in names if pat.search(n)) for key, pat in pats.items()},
+            collections.Counter(n.split("(")[0] for n in names))
+
+
+def profile_phase(card) -> tuple:
+    """--profile on the card: (a) LeNet-ref ``--ops cuda --epochs 1
+    --profile`` on the synthetic 60,000: the five phase rows of JAX's
+    table, each > 0 ms (timed between CUDA events over the plain reference
+    ops), and B1 launched exactly the epoch's steps; (b) ResNet-18 b128
+    ``--fused-step --act-dtype float32 --profile --checkpoint-dir D``: the
+    trace ``D/zoo_xla_trace/trace.json`` parses and names B10's forward
+    3 x 20 times, its dgrad 3 x 19, B11 3 x 20 and B12 3 times (the warm
+    step left out), and the counters grow by exactly the 4 profiled steps
+    beyond the epoch's.
+    Returns (B1's launches, the zoo kernels' launches)."""
+    work = BUILD_DIR / "smoke_profile"
+    shutil.rmtree(work, ignore_errors=True)
+    argv = ["--ops", "cuda", "--batch-size", str(TRAIN_BATCH), "--epochs", "1",
+            "--profile"]
+    print(f"[smoke] profile (a): {' '.join(argv)} on the synthetic {TRAIN_COUNT}",
+          flush=True)
+    lenet_fused.launches.reset()
+    out = run_cli(argv)
+    b1 = lenet_fused.launches.count
+    lines = out.splitlines()
+    head = [i for i, line in enumerate(lines) if line.split()[:3] ==
+            ["phase", "ms/batch", "images/sec"]]
+    rows = [line.split() for line in lines[head[0] + 1:head[0] + 6]] if head else []
+    ms = {r[0]: float(r[1]) for r in rows}
+    print(f"[smoke] profile (a): phase ms/batch {ms} at b{max(TRAIN_BATCH, 256)}; B1 "
+          f"launches {b1} for {STEPS_PER_EPOCH} steps on {card}", flush=True)
+    if tuple(ms) != PHASE_ROWS or not all(v > 0 for v in ms.values()):
+        fail("profile (a): the phase table does not have its five rows > 0 ms")
+    if b1 != STEPS_PER_EPOCH:
+        fail("profile (a): B1 was not launched exactly once a step")
+
+    ck = work / "zoo"
+    argv = ["--model", TUNE_MODEL, "--conv-backend", "cuda", "--batch-size",
+            str(ZOO_BATCH), "--synthetic-train-count", str(ZOO_TRAIN_COUNT),
+            "--synthetic-test-count", str(ZOO_TEST_COUNT), "--fused-step",
+            "--act-dtype", "float32", "--epochs", "1", "--profile",
+            "--checkpoint-dir", str(ck)]
+    print(f"[smoke] profile (b): {' '.join(argv)}", flush=True)
+    reset_zoo_counts()
+    out = run_cli(argv)
+    launches = zoo_counts()
+    steps, evals = ZOO_STEPS + PROFILED_STEPS, -(-ZOO_TEST_COUNT // ZOO_EVAL_BATCH)
+    want = {"tap_conv": CONVS_PER_FORWARD * (steps + evals),
+            "tap_conv_dgrad": (CONVS_PER_FORWARD - 1) * steps,
+            "tap_wgrad": CONVS_PER_FORWARD * steps, "tail_ce": steps}
+    trace_dir = ck / "zoo_xla_trace"
+    traced, by_name = trace_kernel_counts(trace_dir / "trace.json")
+    want_traced = {"tap_conv": TRACED_STEPS * CONVS_PER_FORWARD,
+                   "tap_conv_dgrad": TRACED_STEPS * (CONVS_PER_FORWARD - 1),
+                   "tap_wgrad": TRACED_STEPS * CONVS_PER_FORWARD, "tail_ce": TRACED_STEPS}
+    print(f"[smoke] profile (b): launches {launches} (expected {want}: the epoch's "
+          f"{ZOO_STEPS} steps + {PROFILED_STEPS} profiled + {evals} eval batches); "
+          f"kernels named in the trace {traced} (expected {want_traced}), "
+          f"{(trace_dir / 'trace.json').stat().st_size} B on {card}", flush=True)
+    if f"xla trace (3 steps) written to {trace_dir}" not in out:
+        fail("profile (b): the trace line is missing")
+    if traced != want_traced:
+        print(f"[smoke] profile (b): every kernel name in the trace: {dict(by_name)}",
+              flush=True)
+        fail("profile (b): the trace does not hold the 3 steps' kernels exactly")
+    if launches != want:
+        fail("profile (b): the counters did not grow by exactly the profiled steps")
+    return b1, launches
+
+
 def main() -> int:
     faulthandler.dump_traceback_later(TIME_LIMIT_S, exit=True)
     t_start = time.perf_counter()
@@ -5647,6 +5833,12 @@ def main() -> int:
 
     clock("4j elastic, async, chaos")
 
+    # -- 4k. the plan autotuner and --profile -----------------------------
+    tune_launches = tune_phase(card)
+    profile_b1, profile_launches = profile_phase(card)
+
+    clock("4k tune, profile")
+
     # -- 5. time every kernel: kernel, plain, library, bound --------------
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
               "bound_ms": 0.0, "ops_ms": 0.0}
@@ -5701,7 +5893,8 @@ def main() -> int:
                      + img_launches["tap_conv"] + vgg_launches["tap_conv"]
                      + serve50_launches + slo_launches + net_launches
                      + pipe_f32["tap_conv"] + z3_launches["tap_conv"]
-                     + elastic_launches["tap_conv"] + plan_launches["tap_conv"]),
+                     + elastic_launches["tap_conv"] + plan_launches["tap_conv"]
+                     + tune_launches["tap_conv"] + profile_launches["tap_conv"]),
         "max_abs_err": max(max_err, shard_errs["tap_conv"], z50_errs["tap_conv"]),
         "ms": totals["ms"],
         "plain_ms": totals["plain_ms"],
@@ -5716,7 +5909,8 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:228",
         "launches": sum(run["tap_conv_dgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches, elastic_launches, plan_launches)),
+            pipe_f32, z3_launches, elastic_launches, plan_launches, tune_launches,
+            profile_launches)),
         "max_abs_err": max(zoo_errs["tap_conv_dgrad"], shard_errs["tap_conv_dgrad"],
                            z50_errs["tap_conv_dgrad"]),
         **zoo_times["tap_conv_dgrad"],
@@ -5727,7 +5921,8 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_conv.py:321",
         "launches": sum(run["tap_wgrad"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            pipe_f32, z3_launches, elastic_launches, plan_launches)),
+            pipe_f32, z3_launches, elastic_launches, plan_launches, tune_launches,
+            profile_launches)),
         "max_abs_err": max(zoo_errs["tap_wgrad"], shard_errs["tap_wgrad"],
                            z50_errs["tap_wgrad"]),
         **zoo_times["tap_wgrad"],
@@ -5738,14 +5933,16 @@ def main() -> int:
         "replaces": "parallel_cnn_tpu/ops/pallas_tail.py:152",
         "launches": sum(run["tail_ce"] for run in (
             zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-            z3_launches, elastic_launches, plan_launches)),
+            z3_launches, elastic_launches, plan_launches, tune_launches,
+            profile_launches)),
         # The per-image form at the 10-class heads, the tiled one at the
         # ImageNet head (imagenet (a) reads its launches): the record's
         # times are ResNet-18's head's, the tiled form's beside them.
         "launches_by_form": {
             "image": sum(run["tail_ce"] for run in (
                 zoo_launches, gspmd_launches, z50_launches, img_launches, vgg_launches,
-                z3_launches, elastic_launches, plan_launches))
+                z3_launches, elastic_launches, plan_launches, tune_launches,
+                profile_launches))
             - img_tiled,
             "tiled": img_tiled},
         "max_abs_err": max(zoo_errs["tail_ce"], img_tail_err),
@@ -5756,7 +5953,7 @@ def main() -> int:
         "route": "cuda",
         "source": "parallel_cnn_tpu_torch/csrc/lenet_fused.cu",
         "replaces": "parallel_cnn_tpu/ops/pallas.py:589",
-        "launches": train_launches["lenet_fused"] + async_b1 + chaos_b1,
+        "launches": train_launches["lenet_fused"] + async_b1 + chaos_b1 + profile_b1,
         "max_abs_err": lenet_err,
         **lenet_times["lenet_fused"],
     }, {

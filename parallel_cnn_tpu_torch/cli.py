@@ -4,6 +4,7 @@
     python -m parallel_cnn_tpu_torch --model resnet18 --conv-backend cuda
     python -m parallel_cnn_tpu_torch plan show [trainer flags] [--save PATH]
     python -m parallel_cnn_tpu_torch plan diff PLAN_A PLAN_B
+    python -m parallel_cnn_tpu_torch tune --model resnet18 --devices 4
     python -m parallel_cnn_tpu_torch serve --model resnet18
     python -m parallel_cnn_tpu_torch loadgen --requests 512 --pattern open
 
@@ -54,7 +55,13 @@ cuda`` takes its gradients from B1). ``--chaos SPEC``,
 ``--sentinel-every N`` and the obs flags ``--trace``, ``--trace-dir``,
 ``--metrics-json`` are the trainer's too; JAX's fences refuse
 ``--async-mode`` on a zoo model and ``--elastic`` on lenet_ref with JAX's
-texts. ``--profile`` is not taken (ROADMAP A13b). ``serve`` and ``loadgen``
+texts. ``--profile`` prints LeNet-ref's per-phase table after training,
+and for a zoo model writes a torch.profiler Chrome trace of three steps
+(``zoo_xla_trace/trace.json`` under ``--checkpoint-dir``). ``tune`` ranks
+the parallelism-plan space against a hardware profile
+(analysis/autotune.py) and writes the chosen plan into a cost report;
+``--autotune [--autotune-report PATH]`` trains on it, its plan the lowest
+layer under env and flags. ``serve`` and ``loadgen``
 take JAX's SLO layer: ``--admission``, ``--slo-ms``, ``--autoscale``,
 ``--max-replicas``, ``--window-s``, ``--scenario``, ``--chaos`` and the obs
 flags ``--trace``, ``--trace-dir`` and ``--metrics-json``, and JAX's
@@ -81,6 +88,7 @@ from parallel_cnn_tpu_torch import plan as plan_lib
 from parallel_cnn_tpu_torch.config import (
     CONV_BACKENDS,
     AsyncConfig,
+    AutotuneConfig,
     ElasticConfig,
     SERVE_MODELS,
     ZOO_MODELS,
@@ -110,8 +118,8 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="parallel_cnn_tpu_torch",
         description="the LeNet-ref and zoo trainers on the GPU (PyTorch + "
-                    "hand-written CUDA kernels); subcommands: plan, serve, "
-                    "loadgen",
+                    "hand-written CUDA kernels); subcommands: plan, tune, "
+                    "serve, loadgen",
     )
     d, t, r = DataConfig(), TrainConfig(), ResilienceConfig()
     p.add_argument("--model", default="lenet_ref",
@@ -218,6 +226,17 @@ def build_parser() -> argparse.ArgumentParser:
                         "the (host, data) mesh (>= 2; the cards split into "
                         "H rows; with --device cpu, H hosts of two gloo "
                         "ranks) [PCNN_COMM_HOSTS]")
+    p.add_argument("--autotune", action="store_true",
+                   help="zoo mesh runs: apply the cost report's chosen "
+                        "parallelism plan (analysis/autotune.py; run "
+                        "`python -m parallel_cnn_tpu_torch tune` first) as "
+                        "the base layer — explicit --comm-*/--fused-step/"
+                        "--pipeline-*/--accum-steps knobs still win "
+                        "[PCNN_AUTOTUNE]")
+    p.add_argument("--autotune-report", default=None, metavar="PATH",
+                   help="cost report the chosen plan is read from "
+                        "(default analysis/cost_report.json) "
+                        "[PCNN_AUTOTUNE_REPORT]")
     p.add_argument("--pipeline-stages", type=int, default=None, metavar="S",
                    help="zoo models: pipeline parallelism — partition the "
                         "model's layers over S stages of a (stage, data) "
@@ -333,6 +352,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics", default=None, metavar="PATH",
                    help="append JSONL metrics records to PATH")
     _add_obs_flags(p)
+    p.add_argument("--profile", action="store_true",
+                   help="lenet_ref: print the per-phase table (paper "
+                        "Tables 4-8 shape); zoo models: write a "
+                        "torch.profiler Chrome trace of 3 steady-state "
+                        "train steps to zoo_xla_trace/trace.json under "
+                        "--checkpoint-dir (or cwd)")
     return p
 
 
@@ -340,9 +365,10 @@ def config_from_args(args: argparse.Namespace) -> Config:
     """The trainer's Config for every model, layered as JAX's
     (cli.py:380-514): each section env first, then its flags field by
     field; then ``--plan``/``PCNN_PLAN`` fills every parallelism knob the
-    env and flags left unset (flag > env > plan > default), recording the
-    knobs it filled in ``args._autotune_filled`` so ``plan.build_plan``
-    labels them "autotune", as JAX does."""
+    env and flags left unset (flag > env > plan > default), and then
+    ``--autotune``'s chosen plan fills what is still unset, each recording
+    the knobs it filled in ``args._autotune_filled`` so
+    ``plan.build_plan`` labels them "autotune", as JAX does."""
     paths = {}
     if args.data_dir:
         paths = dict(
@@ -388,6 +414,55 @@ def config_from_args(args: argparse.Namespace) -> Config:
             args.mesh_model = eplan.model
             mesh = dataclasses.replace(mesh, model=eplan.model)
             args._autotune_filled.add("model")
+    # --autotune / PCNN_AUTOTUNE*: env sets the base, flags override; the
+    # report's chosen plan is the LOWEST layer: it fills every parallelism
+    # section the env, the flags and a plan file left untouched (JAX's
+    # cli.py:516-581).
+    autotune = AutotuneConfig.from_env()
+    if args.autotune or args.autotune_report is not None:
+        base = autotune or AutotuneConfig()
+        autotune = dataclasses.replace(
+            base, enabled=True, report=args.autotune_report or base.report)
+    if autotune is not None and autotune.enabled:
+        from parallel_cnn_tpu_torch.analysis import autotune as autotune_lib
+
+        try:
+            chosen, section = autotune_lib.load_chosen_plan(autotune.report)
+        except ValueError as exc:  # NoFeasiblePlan / CostSchemaError
+            raise SystemExit(f"--autotune: {exc}")
+        n_host = int(section.get("n_host", 1) or 1)
+        plan_comm, plan_fused, plan_pipe, plan_accum = \
+            autotune_lib.plan_to_configs(chosen, n_host=n_host)
+        if comm is None and plan_comm is not None:
+            comm = plan_comm
+            args._autotune_filled |= {
+                "comm_impl", "bucket_bytes", "wire_dtype", "overlap", "hosts"}
+        if fused is None and plan_fused is not None:
+            fused = plan_fused
+            args._autotune_filled |= {
+                "fused", "fused_update", "fused_tail", "act_dtype", "zero"}
+        if pipeline is None and plan_pipe is not None:
+            pipeline = plan_pipe
+            args._autotune_filled |= {
+                "pipelined", "stages", "split", "pipe_wire_dtype",
+                "pipe_act_dtype"}
+        if args.accum_steps is None:
+            args.accum_steps = plan_accum
+            if plan_accum and plan_accum > 1:
+                args._autotune_filled.add("accum")
+        # The scored device count is part of the plan: a flat single-stage
+        # plan over more than one device activates pure data parallelism.
+        # Pipeline and hierarchical plans build their own meshes, and
+        # lenet_ref has no mesh to activate.
+        if (args.mesh_data is None and (args.mesh_model or 1) == 1
+                and args.model != "lenet_ref"
+                and (pipeline is None or pipeline.stages == 1)
+                and (comm is None or comm.impl != "hierarchical")):
+            plan_dev = int(section.get("n_dev", 0) or 0)
+            if plan_dev > 1:
+                args.mesh_data = plan_dev
+                mesh = dataclasses.replace(mesh, data=plan_dev)
+                args._autotune_filled.add("data")
     return Config(
         data=DataConfig(
             loader=args.loader,
@@ -413,6 +488,7 @@ def config_from_args(args: argparse.Namespace) -> Config:
         elastic=_elastic_from_args(args),
         async_dp=_async_from_args(args),
         pipeline=pipeline,
+        autotune=autotune,
         model=args.model,
     )
 
@@ -664,6 +740,12 @@ def _zoo_job(mesh, args: argparse.Namespace, cfg: Config,
             obs=obs_bundle,
             elastic=cfg.elastic,
             elastic_world=elastic_world,
+            # --profile: a torch.profiler trace of 3 steady-state steps of
+            # the run's own step (JAX's jax.profiler trace, cli.py:1560).
+            profile_trace_dir=(
+                os.path.abspath(
+                    os.path.join(args.checkpoint_dir or ".", "zoo_xla_trace"))
+                if args.profile else None),
             device=device,
         )
     _print_obs(obs_bundle)
@@ -809,6 +891,18 @@ def _lenet_job(mesh, args: argparse.Namespace, cfg: Config) -> int:
             steps=result.steps,
         )
         metrics.close()
+    if args.profile:
+        # JAX's per-phase table (cli.py:1400-1405) over the reference ops,
+        # on the trained params and max(batch, 256) training images.
+        import torch
+
+        from parallel_cnn_tpu_torch.utils import profiling
+
+        bsz = max(cfg.train.batch_size, 256)
+        xs = torch.from_numpy(train_ds.images[:bsz]).to(device)
+        ys = torch.from_numpy(train_ds.labels[:bsz]).to(device)
+        phases = profiling.profile_phases(result.params, xs, ys)
+        print(profiling.report(phases, n_images=xs.shape[0]))
     return 0
 
 
@@ -1403,6 +1497,105 @@ def _run_serve(cmd: str, argv: List[str]) -> int:
     return rc
 
 
+def _run_tune(argv: List[str]) -> int:
+    """``python -m parallel_cnn_tpu_torch tune`` (JAX's ``_run_tune``,
+    cli.py:1084-1195): rank the parallelism-plan space against the
+    analytic roofline, print the table, merge the autotune section into
+    the cost report and embed the chosen plan as an ExecutionPlan
+    document, so the report is itself a ``--plan`` file. Pure host
+    arithmetic: the model is profiled from shapes on the meta device and
+    nothing touches a GPU. ``--devices`` defaults to the visible cards
+    (JAX's to its 8 forced CPU devices); with none, it must be given."""
+    from parallel_cnn_tpu_torch.analysis import autotune as autotune_lib
+    from parallel_cnn_tpu_torch.analysis import hw_profiles
+
+    at = AutotuneConfig.from_env() or AutotuneConfig()
+    p = argparse.ArgumentParser(
+        prog="parallel_cnn_tpu_torch tune",
+        description="cost-model plan autotuner (analysis/autotune.py)",
+    )
+    p.add_argument("--model", default="cifar_cnn", choices=ZOO_MODELS,
+                   help="zoo model the plan space is profiled for")
+    p.add_argument("--global-batch", type=int, default=128, metavar="B",
+                   help="global batch size every plan must serve")
+    p.add_argument("--devices", type=int, default=None, metavar="N",
+                   help="device count the plans are laid out over "
+                        "(default: the visible cards; required without one)")
+    p.add_argument("--hosts", type=int, default=1, metavar="H",
+                   help="emulated host count (hierarchical plans need "
+                        ">= 2; flat rings spanning hosts are charged at "
+                        "NIC speed)")
+    p.add_argument("--hw", default=at.hw, metavar="NAME",
+                   help="hardware profile scored against "
+                        f"({', '.join(sorted(hw_profiles.PROFILES))}) "
+                        "[PCNN_HW_PROFILE]")
+    p.add_argument("--hbm-budget-mb", type=float, default=None, metavar="MB",
+                   help="peak-HBM budget per device; default: the "
+                        "profile's capacity [PCNN_AUTOTUNE_HBM_BUDGET]")
+    p.add_argument("--top-k", type=int, default=at.top_k,
+                   help="ranked plans kept in the report "
+                        "[PCNN_AUTOTUNE_TOPK]")
+    p.add_argument("--report", default=at.report, metavar="PATH",
+                   help="cost report the autotune section is merged into; "
+                        "default: the shipped analysis/cost_report.json "
+                        "[PCNN_AUTOTUNE_REPORT]")
+    p.add_argument("--no-prune", action="store_true",
+                   help="score every feasible plan (disable the "
+                        "admissible compute-lower-bound prune; results "
+                        "are identical by construction — debug only)")
+    args = p.parse_args(argv)
+
+    from parallel_cnn_tpu_torch.nn import cifar, resnet, vgg
+
+    n_dev = args.devices
+    if not n_dev:
+        import torch
+
+        n_dev = torch.cuda.device_count()
+        if not n_dev:
+            print("tune: no GPU is visible; pass --devices N, the device "
+                  "count the plans are laid out over")
+            return 2
+    factories = {
+        "cifar_cnn": lambda: cifar.cifar_cnn(device="meta"),
+        "resnet18": lambda: resnet.resnet18(10, device="meta"),
+        "resnet34": lambda: resnet.resnet34(10, device="meta"),
+        "resnet50": lambda: resnet.resnet50(10, cifar_stem=True, device="meta"),
+        "vgg16": lambda: vgg.vgg16(10, device="meta"),
+    }
+    mp = autotune_lib.profile_module(factories[args.model](), cifar.IN_SHAPE,
+                                     name=args.model)
+    hw = hw_profiles.get_profile(args.hw)
+    budget = (int(args.hbm_budget_mb * 1024 * 1024)
+              if args.hbm_budget_mb is not None else at.hbm_budget)
+    try:
+        result = autotune_lib.search(
+            mp, hw=hw, global_batch=args.global_batch, n_dev=n_dev,
+            n_host=args.hosts, hbm_budget=budget, top_k=args.top_k,
+            prune=not args.no_prune,
+        )
+    except autotune_lib.NoFeasiblePlan as exc:
+        print(f"tune: {exc}")
+        return 1
+    print(autotune_lib.format_table(result))
+    written = autotune_lib.write_section(
+        args.report, autotune_lib.build_section(result))
+    chosen, section = autotune_lib.load_chosen_plan(written)
+    eplan = chosen.to_execution_plan(
+        n_host=int(section.get("n_host", 1) or 1),
+        n_dev=int(section.get("n_dev", 0) or 0) or None,
+    )
+    with open(written) as f:
+        doc = json.load(f)
+    doc["plan"] = eplan.to_json_dict()
+    with open(written, "w") as f:
+        json.dump(doc, f, sort_keys=True, indent=2)
+        f.write("\n")
+    print(f"tune: chosen plan written to {written} "
+          f"(plan {eplan.fingerprint()}; run with --plan {written})")
+    return 0
+
+
 def _run_plan(argv: List[str]) -> int:
     """``python -m parallel_cnn_tpu_torch plan show|diff`` (JAX's
     cli.py:1198-1250): ``plan show [train flags] [--save PATH]`` resolves
@@ -1459,6 +1652,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     raw = list(sys.argv[1:] if argv is None else argv)
     if raw and raw[0] in ("serve", "loadgen"):
         return _run_serve(raw[0], raw[1:])
+    if raw and raw[0] == "tune":
+        return _run_tune(raw[1:])
     if raw and raw[0] == "plan":
         return _run_plan(raw[1:])
     return _run_train(raw)

@@ -783,6 +783,69 @@ class AsyncConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class AutotuneConfig:
+    """Cost-model autotuner policy (JAX's ``AutotuneConfig``,
+    config.py:823; analysis/autotune.py enumerates the legal
+    parallelism-plan space, scores every plan against the analytic
+    roofline under a hard peak-HBM budget, and ``--autotune`` applies the
+    winner).
+
+    No AutotuneConfig at all (``Config.autotune`` None) keeps plan
+    selection manual. One (``--autotune`` / ``PCNN_AUTOTUNE=1``) layers
+    the report's chosen plan UNDER the env and the flags: the tuner
+    proposes, explicit knobs win.
+
+    - ``report``: the cost report the chosen plan is read from; None is
+      the shipped ``analysis/cost_report.json``, resolved at use.
+    - ``hw``: the hardware profile the tuner scores against
+      (analysis/hw_profiles.py); None is ``PCNN_HW_PROFILE``, then the
+      default. Validated against the port's menu.
+    - ``top_k``: ranked plans kept in the report table.
+    - ``hbm_budget``: the peak-HBM budget in bytes; None is the profile's
+      capacity.
+    """
+
+    enabled: bool = True
+    report: Optional[str] = None
+    hw: Optional[str] = None
+    top_k: int = 8
+    hbm_budget: Optional[int] = None
+
+    def __post_init__(self):
+        if self.top_k < 1:
+            raise ValueError(f"top_k must be >= 1, got {self.top_k}")
+        if self.hbm_budget is not None and self.hbm_budget <= 0:
+            raise ValueError(
+                f"hbm_budget must be > 0, got {self.hbm_budget}"
+            )
+        if self.hw is not None:
+            # Fail at config time, not mid-search.
+            from parallel_cnn_tpu_torch.analysis import hw_profiles
+            hw_profiles.get_profile(self.hw)
+
+    @staticmethod
+    def from_env() -> Optional["AutotuneConfig"]:
+        """AutotuneConfig from PCNN_AUTOTUNE / PCNN_AUTOTUNE_REPORT /
+        PCNN_AUTOTUNE_TOPK / PCNN_AUTOTUNE_HBM_BUDGET, or None when none
+        of them is set. PCNN_HW_PROFILE is not duplicated here:
+        analysis/hw_profiles.get_profile resolves it for every consumer."""
+        enabled = os.environ.get("PCNN_AUTOTUNE")
+        report = os.environ.get("PCNN_AUTOTUNE_REPORT")
+        top_k = os.environ.get("PCNN_AUTOTUNE_TOPK")
+        budget = os.environ.get("PCNN_AUTOTUNE_HBM_BUDGET")
+        if (enabled is None and report is None and top_k is None
+                and budget is None):
+            return None
+        return AutotuneConfig(
+            enabled=(enabled if enabled is not None else "1")
+            not in ("0", ""),
+            report=report or None,
+            top_k=int(top_k) if top_k else 8,
+            hbm_budget=int(budget) if budget else None,
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     """The trainer's whole configuration, JAX's sections (config.py:889).
     ``cli.config_from_args`` layers flag > env > plan file > default into
@@ -817,6 +880,9 @@ class Config:
     # None = data-parallel only; a PipelineConfig opts the zoo trainer
     # into 1F1B microbatch pipelining over a (stage, data) mesh.
     pipeline: Optional[PipelineConfig] = None
+    # None = manual plan selection; an AutotuneConfig layers the cost
+    # report's chosen plan under env and flags (analysis/autotune.py).
+    autotune: Optional[AutotuneConfig] = None
     model: str = "lenet_ref"
 
     def replace(self, **kw) -> "Config":

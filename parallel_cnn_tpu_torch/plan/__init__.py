@@ -440,7 +440,7 @@ class ExecutionPlan:
         """(cost-table entry, closed-form collective kind) this plan's
         step is ratcheted under in the JAX package's cost baseline (the
         same strings; ``plan show`` prints them, the checker that reads
-        them is ROADMAP A13b). The kind is None when the plan has no
+        them is ROADMAP A13c). The kind is None when the plan has no
         explicit collective (psum/GSPMD: nothing to count against a
         closed form).
         """
@@ -654,8 +654,8 @@ def save_plan(path, plan: ExecutionPlan) -> None:
 def load_plan(path) -> ExecutionPlan:
     """Load a plan file: a bare plan document (``plan show --save``, or
     JAX's) or a ``tune --report`` artifact that embeds one under
-    "plan". A report without an embedded plan needs the autotuner
-    (ROADMAP A13b) and raises PlanSchemaError."""
+    "plan". A report without an embedded plan converts its chosen
+    autotune plan (analysis/autotune.py), as JAX's does."""
     try:
         with open(path) as f:
             doc = json.load(f)
@@ -672,13 +672,14 @@ def load_plan(path) -> ExecutionPlan:
         return ExecutionPlan.from_json_dict(inner)
     if inner is not None or "autotune" not in doc:
         return ExecutionPlan.from_json_dict(doc)
-    # A bare `tune --report` artifact (no embedded plan) converts through
-    # the autotuner's plan view, which the port does not have yet.
-    raise PlanSchemaError(
-        f"plan file {path} is a `tune --report` artifact without an "
-        "embedded plan; converting its chosen autotune plan needs the "
-        "autotuner (ROADMAP A13b) — embed the plan, or write one with "
-        "`plan show --save`"
+    # tune --report artifact without an embedded plan: convert the
+    # chosen autotune plan (older reports; `tune` now embeds "plan").
+    from parallel_cnn_tpu_torch.analysis import autotune as autotune_lib
+
+    chosen, section = autotune_lib.load_chosen_plan(path)
+    return chosen.to_execution_plan(
+        n_host=int(section.get("n_host", 1) or 1),
+        n_dev=int(section.get("n_dev", 0) or 0) or None,
     )
 
 

@@ -114,7 +114,7 @@ cadence and JAX's obs spans and events ride the same loop.
 The ExecutionPlan (``train(..., plan=, replan=)``, plan/): its
 fingerprint stamps every checkpoint and gates every resume, and under
 elastic training each resize is a plan derivation whose result keys the
-step cache. Not here (ROADMAP A13b): profiling.
+step cache. ``profile_trace_dir`` traces three steps after training.
 """
 
 from __future__ import annotations
@@ -1393,6 +1393,7 @@ def train(
     elastic_world: Optional[int] = None,
     plan=None,
     replan: bool = False,
+    profile_trace_dir: Optional[str] = None,
     device: DeviceLike = None,
 ) -> Tuple[ZooState, List[float]]:
     """Epoch driver for a zoo model on an in-memory NHWC dataset (JAX's
@@ -1486,6 +1487,14 @@ def train(
     ``loss_scale``, ``step_loss``, ``verdict``, ``rollback``, ``epoch``,
     ``checkpoint``, ``preempt`` and resize events, and a ``zoo`` collector
     (epochs, optimizer steps, resizes) on its metrics registry.
+
+    ``profile_trace_dir`` (JAX's, zoo.py:1913-1942): after training, one
+    warm step left out of the trace, then 3 steps of the run's own step
+    inside a torch.profiler trace, all on the first global batch of
+    ``images``; rank 0 writes the trace (``utils/profiling.py``
+    ``trace``: ``trace.json`` in the directory) and prints ``xla trace
+    (3 steps) written to DIR``. Every rank of a mesh runs the four steps,
+    and the returned state includes them, as JAX's does.
     """
     if loader not in LOADERS:
         raise ValueError(f"unknown loader {loader!r}")
@@ -1946,6 +1955,32 @@ def train(
                 print(f"preemption: stopping after epoch {epoch + 1}")
             break
         epoch += 1
+    if profile_trace_dir and live():
+        from parallel_cnn_tpu_torch.utils import profiling
+
+        bx = torch.from_numpy(np.asarray(images[:batch_size], np.float32)).to(dev)
+        by = torch.from_numpy(np.asarray(labels[:batch_size])).to(dev, torch.int64)
+
+        def pkey(i):
+            # The augmentation of profiled step i, drawn as an elastic
+            # step's: seeded by the optimizer step and the rank.
+            if not augment:
+                return None
+            n, r = ((aug_batch, aug_rank) if ectl is None
+                    else (batch_size // active.world, active.rank))
+            o, f = aug_lib.draw(_aug_generator(seed, opt_steps + i, r), n, augment_pad)
+            return o.to(dev), f.to(dev)
+
+        # One warm step left out of the trace (a run resumed at its final
+        # epoch may have taken no step in this process), then 3 traced.
+        tracer = (profiling.trace(profile_trace_dir, steps=3, warmup=1) if lead
+                  else contextlib.nullcontext(lambda: None))
+        with tracer as mark:
+            for i in range(4):
+                step(state, bx, by, pkey(i))
+                mark()
+        if verbose:
+            print(f"xla trace (3 steps) written to {profile_trace_dir}")
     if mesh is not None and mesh.world > 1:
         dist.barrier()  # rank 0's last checkpoint is on disk for every rank
     return state, losses

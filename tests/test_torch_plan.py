@@ -371,11 +371,25 @@ def test_plan_file_errors_equal_jax(tmp_path):
         assert errs[0] == errs[1], name
 
 
-def test_bare_autotune_report_names_a13b(tmp_path):
-    path = tmp_path / "report.json"
-    path.write_text(json.dumps({"autotune": {"chosen": {}, "n_dev": 4}}))
-    with pytest.raises(pplan.PlanSchemaError, match="ROADMAP A13b"):
-        pplan.load_plan(path)
+def test_bare_tune_report_loads_as_jax_does(tmp_path):
+    """A `tune --report` artifact without an embedded plan converts its
+    chosen autotune plan in both packages, to the same fingerprint."""
+    from parallel_cnn_tpu.analysis import autotune as jat
+    from parallel_cnn_tpu.analysis import hw_profiles as jhw
+
+    mp = jat.ModelProfile(
+        name="toy", param_elems=1 << 20, param_bytes=4 << 20, mstate_bytes=8192,
+        flops_per_image=3_000_000_000, act_bytes_per_image=2_000_000,
+        wire_numel=4096, layer_fwd_flops=(1, 1))
+    for n_dev, n_host in ((8, 1), (4, 2), (1, 1)):
+        path = tmp_path / f"report{n_dev}x{n_host}.json"
+        res = jat.search(mp, hw=jhw.get_profile("v5e-8"), global_batch=128,
+                         n_dev=n_dev, n_host=n_host)
+        jat.write_section(path, jat.build_section(res))
+        assert "plan" not in json.loads(path.read_text())
+        got, want = pplan.load_plan(path), jplan.load_plan(path)
+        _assert_same_plan(got, want)
+        assert set(dict(got.provenance).values()) == {"autotune"}
 
 
 # ---------------------------------------------------------------------------
